@@ -1,0 +1,418 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+  1. device   the card's name and power limit (``nvidia-smi``), torch/CUDA
+              versions, both TF32 flags;
+  2. build    nvcc build of every kernel source of the slice, in seconds;
+  3. kernel   each kernel against its plain PyTorch version on the card
+              (accepted rows within rtol = atol = 1e-6 for f32 or one bf16
+              ulp, rejected rows bit-equal), and at the main-path shape its
+              time beside the plain version, a one-call library yardstick and
+              the card's bound;
+  4. histo    the main path: ``run_experiment`` at the paper's full width
+              (224 px, P = 1,639,705 params per node, N = 4) — centralized,
+              local and swarm rows; every commit must launch the fedavg
+              kernel once;
+  5. fisher   a fisher/ring ``SwarmSession`` at the same width for 2 rounds;
+              every commit must launch the importance-weighted kernel once;
+  6. parity   one small round on the card against the same round on the CPU
+              (plain commit, CPU convs), TF32 off, params at 1e-4;
+  7. kernels  the per-kernel summary line, then the ``ok`` line.
+
+Exits non-zero, printing no result, without a CUDA device or without the
+repository's sources beside it. Imports nothing of the JAX package.
+"""
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# memory rate (bytes/s) and f32 non-tensor-core peak (flop/s) by card, from
+# NVIDIA's data sheets (dense, at the full power limit)
+CARDS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
+         ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
+KERNEL_SOURCE = "src/repro_torch/csrc/fused_merge.cu"
+REPLACES = {"fused_merge_all": "src/repro/kernels/fused_merge.py:114",
+            "fused_merge_all_imp": "src/repro/kernels/fused_merge.py:126"}
+N, P = 4, 1_639_705
+
+
+def emit(phase, **kw):
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def card_rates(name):
+    for key, bw, flops in CARDS:
+        if key in name:
+            return bw, flops
+    raise RuntimeError(f"no memory/flop rates on record for {name!r}")
+
+
+def time_ms(fn, iters=50, warm=20, repeats=7):
+    """Median over ``repeats`` of the mean time of ``iters`` back-to-back
+    calls, from CUDA events, after ``warm`` calls."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[len(times) // 2]
+
+
+def check_commit(got, want, x, gates):
+    """Max |got − want| over accepted rows; raises outside the tolerance or
+    when a rejected row is not the input row ``x`` bit for bit."""
+    import torch
+    g = gates.to(torch.bool)
+    if not torch.equal(got[~g], x[~g]):
+        raise AssertionError("rejected rows differ from the input rows")
+    if not g.any():
+        return 0.0
+    a, b = got[g].float(), want[g].float()
+    err = (a - b).abs()
+    if got.dtype == torch.bfloat16:
+        limit = b.abs() * 2.0 ** -7          # one bf16 ulp bounds the spacing
+    else:
+        limit = 1e-6 + 1e-6 * b.abs()
+    if bool((err > limit).any()):
+        raise AssertionError(f"kernel disagrees with plain: max err "
+                             f"{float(err.max())}")
+    return float(err.max())
+
+
+def phase_kernels(dev, bw, peak):
+    import torch
+    from repro_torch.kernels import fused_merge as fm
+    from repro_torch.kernels.ref import fused_merge_all_plain
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stats = {}
+    for form in ("fused_merge_all", "fused_merge_all_imp"):
+        imp_form = form.endswith("imp")
+        max_err = 0.0
+        for n, d, dtype in ((N, P, torch.float32), (64, 777, torch.float32),
+                            (4, 2048, torch.bfloat16)):
+            x = torch.randn(n, d, device=dev, generator=gen).to(dtype)
+            W = torch.rand(n, n, device=dev, generator=gen)
+            W = W / W.sum(1, keepdim=True)
+            f = (torch.rand(n, d, device=dev, generator=gen) + 0.1
+                 if imp_form else None)
+            for name, gates in (("accept", torch.ones(n, dtype=torch.bool)),
+                                ("reject", torch.zeros(n, dtype=torch.bool)),
+                                ("mixed", torch.arange(n) % 2 == 0)):
+                gates = gates.to(dev)
+                got = fm.fused_merge_all(x, W, gates, f)
+                want = fused_merge_all_plain(x, W, gates, f)
+                torch.cuda.synchronize()
+                max_err = max(max_err, check_commit(got, want, x, gates))
+        # time at the main-path shape, every gate accepting
+        x = torch.randn(N, P, device=dev, generator=gen)
+        W = torch.full((N, N), 1.0 / N, device=dev)
+        f = torch.rand(N, P, device=dev, generator=gen) + 0.1 if imp_form else None
+        g = torch.ones(N, dtype=torch.bool, device=dev)
+        ms = time_ms(lambda: fm.fused_merge_all(x, W, g, f))
+        plain_ms = time_ms(lambda: fused_merge_all_plain(x, W, g, f), iters=20)
+        if imp_form:
+            lib = lambda: torch.where(g[:, None], (W @ (f * x))
+                                      / (W @ f).clamp_min(1e-30), x)
+            nbytes = 3 * N * P * 4 + N * N * 4 + N
+            flops = N * N * P * 4 + N * P
+        else:
+            lib = lambda: torch.where(g[:, None], W @ x, x)
+            nbytes = 2 * N * P * 4 + N * N * 4 + N
+            flops = N * N * P * 2
+        library_ms = time_ms(lib, iters=20)
+        bytes_ms, flops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+        stats[form] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                           library_ms=library_ms,
+                           bound_ms=max(bytes_ms, flops_ms),
+                           bound_by="bytes" if bytes_ms >= flops_ms
+                           else "operations")
+        emit("kernel", name=form, shape=[N, P], kernel_ms=ms,
+             **{k: v for k, v in stats[form].items() if k != "ms"})
+    return stats
+
+
+def phase_histo(dev):
+    import torch
+    from repro_torch.configs.base import SwarmConfig
+    from repro_torch.configs.paper_histo import PAPER_FULL
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.experiments import histo
+    from repro_torch.kernels import fused_merge as fm
+
+    round_s = []
+
+    class TimedSession(histo.SwarmSession):
+        """Synchronized wall time of every round the experiment runs: each
+        sync of the engine is followed by a device sync and a time mark."""
+
+        def run_rounds(self, batches, val):
+            sync = self.engine.sync
+            marks = []
+
+            def timed_sync(*args, **kw):
+                out = sync(*args, **kw)
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                return out
+
+            self.engine.sync = timed_sync
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return super().run_rounds(batches, val)
+            finally:
+                del self.engine.sync
+                round_s.extend(b - a for a, b in zip([t0] + marks, marks))
+
+    swarm = SwarmConfig(n_nodes=4, sync_every=5, topology="full",
+                        merge="fedavg", lora_only=False, val_threshold=0.8)
+    ecfg = histo.HistoExperimentConfig(
+        n_train=512, n_test=128, image_size=PAPER_FULL.image_size,
+        batch_size=16, steps=10, swarm=swarm, growth=PAPER_FULL.growth,
+        stem=PAPER_FULL.stem, feat_dim=PAPER_FULL.feat_dim,
+        hidden=PAPER_FULL.hidden, n_blocks=PAPER_FULL.n_blocks,
+        layers_per_block=PAPER_FULL.layers_per_block)
+    torch.cuda.reset_peak_memory_stats()
+    plain_session = histo.SwarmSession
+    histo.SwarmSession = TimedSession
+    try:
+        fm.reset_launches()
+        t0 = time.perf_counter()
+        result = histo.run_experiment(ecfg, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(fm.LAUNCHES)
+    finally:
+        histo.SwarmSession = plain_session
+    print(histo.summarize(result), flush=True)
+    rows = [result["centralized"], *result["local"], *result["swarm"]]
+    if len(rows) != 9:
+        raise AssertionError("expected 1 centralized + 4 local + 4 swarm rows")
+    for rep in rows:
+        vals = [rep[k] for k in ("auc", "sensitivity", "specificity", "f1",
+                                 "dbi")]
+        if not all(v == v and abs(v) != float("inf") for v in vals):
+            raise AssertionError(f"non-finite report row {rep}")
+        if not 0.0 <= rep["auc"] <= 1.0:
+            raise AssertionError(f"AUC out of range {rep['auc']}")
+    log = result["sync_log"]
+    if len(log) != 2 or any(len(s["gates"]) != 4 for s in log):
+        raise AssertionError(f"expected 2 sync rounds of 4 gates, got {log}")
+    if launches != {"fused_merge_all": 2, "fused_merge_all_imp": 0}:
+        raise AssertionError(f"commit launches {launches}, want 2 fedavg")
+    size = FlatLayout.of_module(histo._model(ecfg)).size
+    if size != P:
+        raise AssertionError(f"{size} params per node, want {P}")
+    emit("histo", params_per_node=size, nodes=swarm.n_nodes,
+         image_size=ecfg.image_size,
+         gates=[s["gates"] for s in log], round_seconds=round_s,
+         total_seconds=seconds,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         launches=launches)
+    return launches
+
+
+def _session(dev, cfg, ecfg, shards):
+    """A SwarmSession built as the experiment builds its swarm."""
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.experiments import histo
+    from repro_torch.optim import adamw_init
+
+    model = histo._model(ecfg)
+    layout = FlatLayout.of_module(model)
+    step, _ = histo._make_model_fns(ecfg, model, layout)
+    flat = layout.flatten(histo._init_params(ecfg, model))
+    return histo.SwarmSession(
+        cfg, step, histo._make_eval_fn(cfg, model, layout), params=flat,
+        opt_state=adamw_init(flat), data_sizes=[len(y) for _, y in shards],
+        layout=layout, device=dev)
+
+
+def _round_data(ecfg, shards, rounds, t):
+    import torch
+    from repro_torch.experiments import histo
+    vals, trains = [], []
+    for x, y in shards:
+        n_val = max(8, int(len(y) * ecfg.val_frac))
+        vals.append((x[:n_val], y[:n_val]))
+        trains.append((x[n_val:], y[n_val:]))
+    xs, ys = histo._batch_stream(ecfg, trains)
+    xs = torch.from_numpy(xs).reshape((rounds, t) + xs.shape[1:])
+    ys = torch.from_numpy(ys.astype("int64")).reshape((rounds, t)
+                                                      + ys.shape[1:])
+    return xs, ys, histo._stack_vals(vals)
+
+
+def phase_fisher(dev):
+    import torch
+    from repro_torch.configs.base import SwarmConfig
+    from repro_torch.configs.paper_histo import PAPER_FULL
+    from repro_torch.data import make_histo_dataset, paper_splits, shard_to_nodes
+    from repro_torch.experiments import histo
+    from repro_torch.kernels import fused_merge as fm
+
+    cfg = SwarmConfig(n_nodes=4, sync_every=5, topology="ring",
+                      merge="fisher", lora_only=False, val_threshold=0.8)
+    ecfg = histo.HistoExperimentConfig(
+        n_train=256, image_size=224, batch_size=16, steps=10, swarm=cfg,
+        growth=PAPER_FULL.growth, stem=PAPER_FULL.stem,
+        feat_dim=PAPER_FULL.feat_dim, hidden=PAPER_FULL.hidden)
+    x, y = make_histo_dataset(ecfg.n_train, size=224, noise=ecfg.noise,
+                              class_probs=ecfg.class_probs, seed=1)
+    shards = shard_to_nodes(x, y, paper_splits(ecfg.n_train), seed=1)
+    xs, ys, val = _round_data(ecfg, shards, 2, 5)
+    xs, ys = xs.to(dev), ys.to(dev)
+    val = tuple(torch.from_numpy(v).to(dev) for v in val)
+    sess = _session(dev, cfg, ecfg, shards)
+    fm.reset_launches()
+    round_s, gates = [], []
+    for r in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        log = sess.round((xs[r], ys[r]), val)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        gates.append(log["gates"].tolist())
+    launches = dict(fm.LAUNCHES)
+    if launches != {"fused_merge_all": 0, "fused_merge_all_imp": 2}:
+        raise AssertionError(f"commit launches {launches}, want 2 imp-form")
+    if not bool(torch.isfinite(sess.state.params).all()):
+        raise AssertionError("non-finite params after the fisher rounds")
+    emit("fisher", gates=gates, round_seconds=round_s, launches=launches)
+    phase_profile(sess, (xs[1], ys[1]), val)
+    return launches
+
+
+def phase_profile(sess, batch, val):
+    """One more round under ``torch.profiler``: device time by kernel and
+    the device's busy share of the round's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        sess.round(batch, val)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", 0.0)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append((us, evt.count, evt.key[:90]))
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels) / 1e6
+    emit("profile", round_wall_s=wall, device_busy_s=busy,
+         device_busy_share=busy / wall,
+         top=[{"kernel": k, "ms": us / 1e3, "calls": c}
+              for us, c, k in kernels[:12]])
+
+
+def phase_parity(dev):
+    """One small fedavg round and one fisher/ring round on the card against
+    the same rounds on the CPU, with cuDNN TF32 off for the comparison."""
+    import torch
+    from repro_torch.configs.base import SwarmConfig
+    from repro_torch.data import make_histo_dataset, paper_splits, shard_to_nodes
+    from repro_torch.experiments import histo
+
+    ecfg = histo.HistoExperimentConfig(
+        n_train=160, image_size=16, batch_size=8, steps=3, growth=4, stem=8,
+        feat_dim=32, hidden=16, n_blocks=1, layers_per_block=2)
+    x, y = make_histo_dataset(ecfg.n_train, size=16, noise=0.6, seed=0)
+    shards = shard_to_nodes(x, y, paper_splits(ecfg.n_train), seed=0)
+    xs, ys, val = _round_data(ecfg, shards, 1, 3)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        for merge, topology in (("fedavg", "full"), ("fisher", "ring")):
+            cfg = SwarmConfig(n_nodes=4, sync_every=3, topology=topology,
+                              merge=merge, lora_only=False, val_threshold=0.8)
+            res = {}
+            for d in (dev, "cpu"):
+                sess = _session(d, cfg, ecfg, shards)
+                log = sess.round((xs[0], ys[0]), val)
+                res[d] = (sess.state.params.cpu(), log["gates"].cpu())
+            err = float((res[dev][0] - res["cpu"][0]).abs().max())
+            if err > 1e-4 or not torch.equal(res[dev][1], res["cpu"][1]):
+                raise AssertionError(f"{merge}: card vs CPU params err {err}, "
+                                     f"gates {res[dev][1]} vs {res['cpu'][1]}")
+            out[merge] = err
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    emit("parity", max_abs_err=out)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+
+    dev = "cuda"
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    bw, peak = card_rates(kind)
+    print(smi, flush=True)
+    emit("device", nvidia_smi=smi, kind=kind, count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda,
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         memory_rate=bw, f32_peak=peak)
+
+    t0 = time.perf_counter()
+    build.build(["fused_merge"])
+    ptxas = build.BUILD_LOG.get("fused_merge", {}).get("ptxas", "")
+    registers = [int(ln.split("Used ")[1].split()[0])
+                 for ln in ptxas.splitlines() if "registers" in ln]
+    spilling = [ln.strip() for ln in ptxas.splitlines()
+                if "spill" in ln and "0 bytes spill stores, 0 bytes spill "
+                "loads" not in ln]
+    emit("build", seconds=time.perf_counter() - t0,
+         registers_per_variant=registers, variants_with_spills=spilling)
+
+    stats = phase_kernels(dev, bw, peak)
+    launches = phase_histo(dev)
+    launches.update({k: v for k, v in phase_fisher(dev).items() if v})
+    phase_parity(dev)
+
+    kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
+                    replaces=REPLACES[name], launches=launches[name],
+                    **stats[name]) for name in REPLACES]
+    if any(k["launches"] < 1 for k in kernels):
+        raise AssertionError(f"a kernel of the path never launched: {kernels}")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

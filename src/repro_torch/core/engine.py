@@ -1,0 +1,295 @@
+"""Stacked swarm engine: the P2P-SL round over the flat ``[N, P]`` state.
+
+Port of ``repro.core.engine`` (engine/host backend). One round is
+
+  local steps   ``torch.func.vmap`` of the per-node train step over the node
+                axis, a Python loop over the ``sync_every`` steps; the merge
+                strategy accumulates importance statistics in the same loop;
+  propose       the strategy's candidate (mixing-matrix contraction or
+                Fisher-weighted merge), with W built on the device from the
+                runtime ``active`` mask;
+  gate          the stacked ``eval_fn`` scores local and merged params for
+                every node at once → per-node accept bits, all on the device;
+  commit        `kernels.fused_merge.fused_merge_all`: one launch of the
+                hand-written CUDA kernel over ``[N, P]`` (W rows, optionally
+                importance-weighted for fisher/gradmatch, plus the gate).
+
+Contracts: ``train_step_fn(params [P], opt_state, batch, step) -> (params,
+opt_state, metrics)`` is per node and is vmapped here, as the reference
+vmaps it; ``eval_fn(params [N, P], val) -> [N]`` takes the whole swarm (the
+gate metrics carry an explicit node axis).
+
+Not in this slice (``NotImplementedError``, see ROADMAP): the gossip and
+host backends, per-node closure lists (model zoo), and at sync the int8/bf16
+wire, ``lora_only`` and ``payload="lora"``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import SwarmConfig
+from repro_torch.core import merge_impl as merge_lib
+from repro_torch.core import topology as topo
+from repro_torch.kernels.fused_merge import fused_merge_all
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet "
+                               f"(ROADMAP.md: {item})")
+
+
+def mixing_matrix(cfg: SwarmConfig, data_sizes: Sequence[float],
+                  active: Optional[Sequence[bool]] = None) -> np.ndarray:
+    """Host-side (numpy) mixing matrix for the configured topology."""
+    weights = topo.fedavg_weights(data_sizes) if cfg.merge == "fedavg" else None
+    return topo.build_matrix(cfg.topology, cfg.n_nodes,
+                             weights=weights, self_weight=cfg.self_weight,
+                             active=active)
+
+
+def active_weights(data_sizes, active=None) -> np.ndarray:
+    """FedAvg weights zeroed + renormalized over the active membership."""
+    w = np.asarray(data_sizes, np.float64)
+    if active is not None:
+        w = w * np.asarray(active, np.float64)
+    s = w.sum()
+    if s <= 0:  # nobody active: uniform (downstream gates reject everything)
+        return np.full(len(w), 1.0 / len(w))
+    return w / s
+
+
+def active_weights_traced(data_sizes, active: torch.Tensor) -> torch.Tensor:
+    """On-device :func:`active_weights` from a runtime mask tensor."""
+    w = (torch.as_tensor(data_sizes, dtype=torch.float32, device=active.device)
+         * active.to(torch.float32))
+    s = w.sum()
+    n = w.shape[0]
+    return torch.where(s > 0, w / torch.where(s > 0, s, 1.0),
+                       torch.full((n,), 1.0 / n, device=active.device))
+
+
+def gate_decisions(metric_merged, metric_local, threshold: float,
+                   mode: str = "relative"):
+    """Per-node accept bits. `relative`: merged ≥ thr × local (robust default);
+    `absolute`: merged ≥ thr (the paper's literal 80% reading)."""
+    if mode == "relative":
+        return metric_merged >= threshold * metric_local
+    return metric_merged >= threshold
+
+
+def gated_commit(candidate, local, gates):
+    """θ_i ← gate_i ? merged_i : local_i — the unfused select, for a
+    candidate that has no kernel form."""
+    return torch.where(gates.reshape(-1, 1), candidate, local)
+
+
+def host_commit(stacked, candidate, W, gates, cfg: SwarmConfig, *, imp=None):
+    """Commit through the fused kernel: mean/fedavg re-contract the W rows;
+    fisher/gradmatch pass their importance so the normalized weighted merge
+    runs in the same single launch."""
+    if cfg.merge in ("mean", "fedavg") or imp is not None:
+        return fused_merge_all(stacked, W, gates, imp)
+    return gated_commit(candidate, stacked, gates)
+
+
+class SwarmEngine:
+    """Stacked swarm over one device: vmapped local steps + on-device gated
+    sync — the reference's ``backend="host"`` (N param copies on one device,
+    fused-kernel commit)."""
+
+    def __init__(self, cfg: SwarmConfig, train_step_fn: Optional[Callable],
+                 eval_fn: Optional[Callable], *,
+                 data_sizes: Optional[Sequence[float]] = None):
+        if (isinstance(train_step_fn, (list, tuple))
+                or isinstance(eval_fn, (list, tuple))):
+            raise _not_ported("per-node closure lists (model zoo)",
+                              "queue 1 item 11, LoRA and the heterogeneous zoo")
+        self.cfg = cfg
+        self.data_sizes = (np.ones(cfg.n_nodes) if data_sizes is None
+                           else np.asarray(data_sizes, np.float64))
+        self.strategy = merge_lib.get_strategy(cfg)
+        self.quorum = cfg.quorum
+        if self.quorum > cfg.n_nodes:
+            raise ValueError(f"quorum={self.quorum} can never be met with "
+                             f"n_nodes={cfg.n_nodes}")
+        self.fairness_floor = cfg.fairness_floor
+        if not 0.0 <= self.fairness_floor <= 1.0:
+            raise ValueError("fairness_floor must be a gate-metric value in "
+                             f"[0, 1], got {self.fairness_floor}")
+        self._vstep = (None if train_step_fn is None
+                       else torch.func.vmap(train_step_fn,
+                                            in_dims=(0, 0, 0, None)))
+        self._veval = eval_fn
+        self._base_W = mixing_matrix(cfg, self.data_sizes)
+        self.spectral_gap = topo.spectral_gap(self._base_W)
+
+    def init_stats(self, stacked):
+        """Strategy importance accumulators (None for mean/fedavg)."""
+        return (self.strategy.init_stats(stacked)
+                if self.strategy.uses_stats else None)
+
+    # -- local training ------------------------------------------------------
+
+    def local_steps(self, params, opt_state, batches, step0, stats=None):
+        """Loop over the leading [T] time axis of vmapped local steps; the
+        strategy's importance accumulation rides in the same loop. Returns
+        ``(params, opt_state, stats, metrics)`` with metrics stacked [T, N]."""
+        t = _leading(batches)
+        metrics = []
+        for k in range(t):
+            batch = _index(batches, k)
+            p2, opt_state, m = self._vstep(params, opt_state, batch, step0 + k)
+            if stats is not None:
+                stats = self.strategy.accumulate(stats, params, p2, step0 + k)
+            params = p2
+            metrics.append(m)
+        return params, opt_state, stats, _stack_logs(metrics)
+
+    # -- propose -------------------------------------------------------------
+
+    def _traced_W(self, active):
+        weights = self.data_sizes if self.cfg.merge == "fedavg" else None
+        return topo.mixing_matrix_traced(self.cfg.topology, active,
+                                         weights=weights,
+                                         self_weight=self.cfg.self_weight)
+
+    def propose(self, stacked, active=None, fishers=None, stats=None):
+        """Merge candidate for every node: ``(candidate, W_commit, imp)``."""
+        if fishers is None and stats is not None:
+            fishers = stats
+        n = self.cfg.n_nodes
+        a = (torch.ones((n,), dtype=torch.bool, device=stacked.device)
+             if active is None else active.to(torch.bool))
+        W = self._traced_W(a)
+        w = active_weights_traced(self.data_sizes, a)
+        if self.strategy.uses_stats and fishers is None:
+            # no evidence for any node -> zero mass everywhere, which the
+            # eps floor turns into a uniform mean
+            fishers = torch.zeros_like(stacked)
+        fishers = self.strategy.finalize_mass(fishers, a)
+        rows = None
+        if self.strategy.uses_stats and self.cfg.topology in ("ring",
+                                                              "dynamic"):
+            # topology-restricted weighted merge: only graph-neighbour
+            # contributions enter each node's fisher/gradmatch candidate
+            rows = self.strategy.topo_rows(W, w)
+        return self.strategy.propose(stacked, W, weights=w, fishers=fishers,
+                                     rows=rows)
+
+    # -- gated sync ----------------------------------------------------------
+
+    def _check_sync_options(self):
+        cfg = self.cfg
+        if cfg.wire_dtype != "f32":
+            raise _not_ported(f"wire_dtype={cfg.wire_dtype!r}",
+                              "queue 1 item 9, the quantized wire")
+        if cfg.payload != "full":
+            raise _not_ported(f"payload={cfg.payload!r}",
+                              "queue 1 item 11, LoRA and the heterogeneous zoo")
+        if cfg.lora_only:
+            raise _not_ported("lora_only=True at sync",
+                              "queue 1 item 11, LoRA and the heterogeneous zoo")
+
+    def sync(self, params, val, active=None, stats=None):
+        """propose → validate → gate → fused commit; returns
+        ``(committed, log)`` with ``gates`` / ``metric_local`` /
+        ``metric_merged`` [N] device tensors (plus ``quorum_ok``,
+        ``fairness_ok``, ``worst_site`` when those policies are on)."""
+        self._check_sync_options()
+        n = self.cfg.n_nodes
+        a = (torch.ones((n,), dtype=torch.bool, device=params.device)
+             if active is None else active.to(torch.bool))
+        candidate, W, imp = self.propose(params, a, stats=stats)
+        with torch.no_grad():
+            metric_local = torch.where(a, self._veval(params, val), 1.0)
+            metric_merged = torch.where(a, self._veval(candidate, val), 0.0)
+        gates = gate_decisions(metric_merged, metric_local,
+                               self.cfg.val_threshold) & a
+        log = {}
+        if self.quorum > 0:
+            # below quorum the whole round holds locals
+            quorum_ok = a.to(torch.int32).sum() >= self.quorum
+            gates = gates & quorum_ok
+            log["quorum_ok"] = quorum_ok
+        if self.fairness_floor > 0.0:
+            # the merged candidate must clear the floor at every active site
+            worst = torch.min(torch.where(a, metric_merged, 1.0))
+            fair_ok = worst >= self.fairness_floor
+            gates = gates & fair_ok
+            log["fairness_ok"] = fair_ok
+            log["worst_site"] = worst
+        committed = host_commit(params, candidate, W, gates, self.cfg, imp=imp)
+        return committed, dict(log, gates=gates, metric_local=metric_local,
+                               metric_merged=metric_merged)
+
+    # -- drivers -------------------------------------------------------------
+
+    def round(self, params, opt_state, batches, val, active=None, step0=0,
+              stats=None):
+        """T local steps + one gated sync."""
+        if stats is None:
+            stats = self.init_stats(params)
+        params, opt_state, stats, train_metrics = self.local_steps(
+            params, opt_state, batches, step0, stats)
+        params, log = self.sync(params, val, active, stats=stats)
+        out = dict(log, train=train_metrics)
+        if stats is not None:
+            out["stats"] = stats
+        return params, opt_state, out
+
+    def run_rounds(self, params, opt_state, batches, val, active=None,
+                   step0=0, stats=None):
+        """R rounds over [R, T, N, ...] batches. Logs come back stacked
+        [R, ...]. ``cfg.overlap_sync`` switches to the stale-by-one schedule:
+        round k's commit delta is folded in after round k+1's local steps."""
+        r = _leading(batches)
+        t = _leading(_index(batches, 0))
+        if stats is None:
+            stats = self.init_stats(params)
+        logs, train = [], []
+        pending = torch.zeros_like(params) if self.cfg.overlap_sync else None
+        for k in range(r):
+            p_loc, opt_state, stats, tm = self.local_steps(
+                params, opt_state, _index(batches, k), step0 + k * t, stats)
+            committed, log = self.sync(p_loc, val, active, stats=stats)
+            if self.cfg.overlap_sync:
+                # local steps never wait on the in-flight merge: this
+                # round's commit lands one round late
+                params = p_loc + pending
+                pending = committed - p_loc
+            else:
+                params = committed
+            logs.append(log)
+            train.append(tm)
+        if self.cfg.overlap_sync:
+            params = params + pending   # no accepted merge is dropped
+        out = _stack_logs(logs)
+        if stats is not None:
+            out["stats"] = stats
+        return params, opt_state, _stack_logs(train), out
+
+    def run_local(self, params, opt_state, batches, step0=0, stats=None):
+        """Sync-free local training over [S, N, ...] batches. Returns
+        ``(params, opt_state, metrics, stats)``."""
+        p, o, st, metrics = self.local_steps(params, opt_state, batches,
+                                             step0, stats)
+        return p, o, metrics, st
+
+
+def _stack_logs(logs):
+    """A list of same-keyed dicts of tensors → one dict of stacked tensors."""
+    return {key: torch.stack([lg[key] for lg in logs]) for key in logs[0]}
+
+
+def _leading(batches) -> int:
+    first = batches[0] if isinstance(batches, (tuple, list)) else batches
+    return first.shape[0]
+
+
+def _index(batches, k: int):
+    if isinstance(batches, (tuple, list)):
+        return type(batches)(b[k] for b in batches)
+    return batches[k]

@@ -1,0 +1,84 @@
+"""Build and load the hand-written CUDA kernels (``repro_torch/csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` into a shared library with a plain C
+interface and loaded with ``ctypes`` — no PyTorch headers, so a build takes
+seconds. Libraries go to ``repro_torch/csrc/build/<stem>-<hash>.so``, keyed by
+a hash of the source and the flags, and are built at first use. Nothing is
+built or imported when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+#: per-source build record: {"seconds": float, "ptxas": str} (empty when the
+#: library was already on disk)
+BUILD_LOG: Dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cand = Path(home or "/usr/local/cuda") / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def library_path(stem: str) -> Path:
+    src = CSRC / f"{stem}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{stem}-{digest}.so"
+
+
+def build(stems: Sequence[str]) -> Dict[str, Path]:
+    """Compile every missing library, one ``nvcc`` per source, all started
+    together. Returns {stem: library path}; raises if a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {s: library_path(s) for s in stems}
+    procs = {}
+    t0 = time.perf_counter()
+    for stem, path in paths.items():
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp)
+    failed = []
+    for stem, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{stem}.cu:\n{log}")
+            continue
+        os.replace(tmp, paths[stem])
+        BUILD_LOG[stem] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(stem: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<stem>.cu``, built on first use."""
+    lib = _LOADED.get(stem)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([stem])[stem]))
+        _LOADED[stem] = lib
+    return lib

@@ -1,0 +1,94 @@
+"""Fused gated swarm commit: ``[N, P]`` → ``[N, P]`` in one CUDA launch.
+
+Replaces the Pallas TPU kernel ``repro/kernels/fused_merge.py`` ::
+``fused_merge_all`` (bodies ``_merge_all_kernel`` and
+``_merge_all_imp_kernel``), which the reference's engine maps leaf by leaf
+over the stacked pytree (71 launches for the paper CNN). The port's state is
+one flat ``[N, P]`` buffer, so the whole commit is one launch:
+
+    out[i] = gate[i] ? Σ_j W[i,j]·θ_j : θ_i                       (imp=None)
+    out[i] = gate[i] ? Σ_j (W[i,j]·f_j)·θ_j / max(Σ_j W[i,j]·f_j, 1e-30) : θ_i
+
+Bound: memory — 2·N·P·4 bytes (3·N·P·4 with ``imp``) for f32, against at most
+2·N·N flops per column. The kernel (``csrc/fused_merge.cu``) reads each
+column's N inputs once into registers, produces all N output rows from them,
+and stages W and the gates in shared memory; see the source for the design.
+
+On a CPU tensor the wrapper computes the plain version
+(:func:`repro_torch.kernels.ref.fused_merge_all_plain`); on a CUDA tensor it
+launches the kernel or raises. ``LAUNCHES`` counts kernel launches per form.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import fused_merge_all_plain
+
+#: kernel launches per form, counted where the kernel is launched
+LAUNCHES = {"fused_merge_all": 0, "fused_merge_all_imp": 0}
+MAX_NODES = 64
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib():
+    lib = build.load("fused_merge")
+    fn = lib.fused_merge_all_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_merge_all(stacked: torch.Tensor, W, gates, imp=None) -> torch.Tensor:
+    """stacked [N, D] (f32 or bf16) → committed [N, D] in the same dtype.
+
+    ``W`` [N, N] mixing rows (taken as f32), ``gates`` [N] acceptance bits,
+    ``imp`` optional [N, D] f32 importance (fisher / gradmatch / topology-
+    restricted commits). Rejected rows are the input rows, bit for bit.
+    """
+    if stacked.dim() != 2:
+        raise ValueError(f"stacked must be [N, D], got {tuple(stacked.shape)}")
+    n, d = stacked.shape
+    if stacked.device.type == "cpu":
+        return fused_merge_all_plain(stacked, torch.as_tensor(W), gates, imp)
+    if stacked.device.type != "cuda":
+        raise ValueError(f"unsupported device {stacked.device}")
+    if stacked.dtype not in _DTYPES:
+        raise TypeError(f"stacked dtype {stacked.dtype} not supported "
+                        "(float32 or bfloat16)")
+    if not stacked.is_contiguous():
+        raise ValueError("stacked must be contiguous")
+    if not 1 <= n <= MAX_NODES or d < 1:
+        raise ValueError(f"need 1 <= N <= {MAX_NODES} and D >= 1, got "
+                         f"N={n}, D={d}")
+    dev = stacked.device
+    Wd = torch.as_tensor(W, dtype=torch.float32, device=dev).contiguous()
+    gd = torch.as_tensor(gates, device=dev).to(torch.int32).contiguous()
+    if Wd.shape != (n, n) or gd.shape != (n,):
+        raise ValueError(f"W must be [{n}, {n}] and gates [{n}], got "
+                         f"{tuple(Wd.shape)} and {tuple(gd.shape)}")
+    if imp is not None:
+        if (imp.device != dev or imp.dtype != torch.float32
+                or imp.shape != stacked.shape or not imp.is_contiguous()):
+            raise ValueError("imp must be a contiguous float32 tensor shaped "
+                             "like stacked, on the same device")
+    out = torch.empty_like(stacked)
+    err = _lib()(stacked.data_ptr(),
+                 None if imp is None else imp.data_ptr(),
+                 Wd.data_ptr(), gd.data_ptr(), out.data_ptr(), n, d,
+                 _DTYPES[stacked.dtype],
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_merge_all launch failed: CUDA error {err}")
+    LAUNCHES["fused_merge_all" if imp is None else "fused_merge_all_imp"] += 1
+    return out

@@ -1,0 +1,78 @@
+"""The port stands alone: it imports neither jax nor anything of the
+reference package ``repro`` — checked at run time in a fresh interpreter
+that drives one small CPU round, and statically over every source file."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+_PROBE = r"""
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from repro_torch.configs.base import SwarmConfig
+from repro_torch.core.flat import FlatLayout
+from repro_torch.core.session import SwarmSession
+from repro_torch.experiments import histo
+from repro_torch.optim import adamw_init
+
+ecfg = histo.HistoExperimentConfig(steps=2, growth=4, stem=8, feat_dim=32,
+                                   hidden=16, n_blocks=1, layers_per_block=2)
+cfg = SwarmConfig(n_nodes=2, sync_every=2, topology="full", merge="fedavg",
+                  lora_only=False)
+model = histo._model(ecfg)
+layout = FlatLayout.of_module(model)
+step, _ = histo._make_model_fns(ecfg, model, layout)
+flat = layout.flatten(histo._init_params(ecfg, model))
+sess = SwarmSession(cfg, step, histo._make_eval_fn(cfg, model, layout),
+                    params=flat, opt_state=adamw_init(flat), layout=layout,
+                    device="cpu")
+rng = np.random.default_rng(0)
+xs = rng.normal(0, 1, (2, 2, 4, 16, 16, 3)).astype(np.float32)
+ys = rng.integers(0, 3, (2, 2, 4))
+val = (rng.normal(0, 1, (2, 6, 16, 16, 3)).astype(np.float32),
+       rng.integers(0, 3, (2, 6)), np.ones((2, 6), bool))
+log = sess.round((xs, ys), val)
+assert log["gates"].shape == (2,)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("LOADED", bad)
+"""
+
+
+def test_port_runs_without_jax_or_reference_modules():
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    assert path.exists()
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"

@@ -1,0 +1,105 @@
+"""The port's CUDA commit kernel against its plain version, and the
+wrapper's dispatch and input checks. Imports neither jax nor the reference,
+so it also runs on the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_kernels.py
+
+Card-only cases skip without a CUDA device (decided inside the test)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import fused_merge as fm  # noqa: E402
+from repro_torch.kernels.ref import fused_merge_all_plain  # noqa: E402
+
+torch.set_num_threads(2)
+CASES = [(4, 100_003, torch.float32, False), (4, 100_003, torch.float32, True),
+         (2, 512, torch.float32, False), (8, 4096, torch.float32, True),
+         (64, 777, torch.float32, False), (64, 777, torch.float32, True),
+         (5, 1000, torch.float32, True), (4, 2048, torch.bfloat16, False),
+         (4, 2048, torch.bfloat16, True), (1, 1, torch.float32, False)]
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(n, d, dtype, with_imp, device, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1, (n, d)).astype(np.float32))
+    W = torch.from_numpy(rng.dirichlet(np.ones(n), size=n).astype(np.float32))
+    f = (torch.from_numpy(np.abs(rng.normal(1, 0.4, (n, d))).astype(np.float32))
+         if with_imp else None)
+    x = x.to(dtype)
+    return (x.to(device), W.to(device),
+            None if f is None else f.to(device), rng)
+
+
+def test_plain_form_semantics_on_cpu():
+    """out[i] = gate ? Σ_j W[i,j] θ_j : θ_i, and the ratio form."""
+    x, W, f, _ = _inputs(3, 50, torch.float32, True, "cpu")
+    g = torch.tensor([True, False, True])
+    out = fm.fused_merge_all(x, W, g)
+    np.testing.assert_allclose(out[0].numpy(), (W[0] @ x).numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert torch.equal(out[1], x[1])
+    out = fm.fused_merge_all(x, W, g, f)
+    want = (W[2] @ (f * x)) / (W[2] @ f)
+    np.testing.assert_allclose(out[2].numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    assert torch.equal(out[1], x[1])
+
+
+def test_cpu_tensor_never_counts_a_launch():
+    x, W, _, _ = _inputs(4, 10, torch.float32, False, "cpu")
+    before = dict(fm.LAUNCHES)
+    fm.fused_merge_all(x, W, torch.ones(4, dtype=torch.bool))
+    assert fm.LAUNCHES == before
+
+
+def test_wrapper_rejects_bad_shapes():
+    with pytest.raises(ValueError, match=r"\[N, D\]"):
+        fm.fused_merge_all(torch.zeros(8), torch.ones(1, 1), torch.ones(1))
+
+
+@pytest.mark.parametrize("n,d,dtype,with_imp", CASES)
+def test_kernel_matches_plain_on_card(n, d, dtype, with_imp):
+    dev = _cuda()
+    x, W, f, rng = _inputs(n, d, dtype, with_imp, dev, seed=n + d)
+    for gates in (torch.ones(n, dtype=torch.bool),
+                  torch.zeros(n, dtype=torch.bool),
+                  torch.from_numpy(rng.random(n) > 0.5)):
+        gates = gates.to(dev)
+        before = fm.LAUNCHES["fused_merge_all_imp" if with_imp
+                             else "fused_merge_all"]
+        got = fm.fused_merge_all(x, W, gates, f)
+        want = fused_merge_all_plain(x, W, gates, f)
+        torch.cuda.synchronize()
+        assert got.dtype == x.dtype and got.shape == x.shape
+        # same arithmetic in the same order: equal bit for bit
+        assert torch.equal(got, want)
+        assert torch.equal(got[~gates], x[~gates])
+        after = fm.LAUNCHES["fused_merge_all_imp" if with_imp
+                            else "fused_merge_all"]
+        assert after == before + 1
+
+
+def test_kernel_input_checks_on_card():
+    dev = _cuda()
+    x, W, f, _ = _inputs(4, 100, torch.float32, True, dev)
+    g = torch.ones(4, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fm.fused_merge_all(x.t().contiguous().t(), W, g)
+    with pytest.raises(TypeError, match="dtype"):
+        fm.fused_merge_all(x.double(), W, g)
+    with pytest.raises(ValueError, match="imp"):
+        fm.fused_merge_all(x, W, g, f.double())
+    with pytest.raises(ValueError, match="W must be"):
+        fm.fused_merge_all(x, W[:2], g)
+    big = torch.zeros(65, 8, device=dev)
+    with pytest.raises(ValueError, match="N <= 64"):
+        fm.fused_merge_all(big, torch.eye(65, device=dev),
+                           torch.ones(65, dtype=torch.bool, device=dev))

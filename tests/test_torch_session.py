@@ -1,0 +1,215 @@
+"""The port's SwarmSession (engine backend) against the reference, from the
+same carried-across state and batches: params at 1e-4 after whole rounds,
+gate bits equal (a node whose reference gate margin |merged − 0.8·local| is
+below 1e-4 is left out of the bit comparison), membership masks, the
+stale-by-one ``overlap_sync`` schedule, and the options this slice does not
+port."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch_parity as tp  # noqa: E402
+from repro.configs.base import SwarmConfig as JSwarmConfig  # noqa: E402
+from repro.core.session import SwarmSession as JSession  # noqa: E402
+from repro.experiments import histo as jh  # noqa: E402
+from repro.metrics import gate_metric_fn  # noqa: E402
+from repro.models.cnn import forward_cnn  # noqa: E402
+from repro.optim import adamw_init as jadamw_init  # noqa: E402
+from repro_torch.configs.base import SwarmConfig  # noqa: E402
+from repro_torch.convert import from_reference  # noqa: E402
+from repro_torch.core.session import SwarmSession  # noqa: E402
+from repro_torch.experiments import histo as th  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
+
+tp.torch_cpu()
+SIZES = [16, 48, 48, 48]
+THR = 0.8
+
+
+def _data(seed, t=3, r=1, n=4, b=8, size=16, v=10):
+    rng = np.random.default_rng(seed)
+    xs = tp.images(rng, r * t * n * b, size).reshape((r, t, n, b, size, size, 3))
+    ys = rng.integers(0, 3, (r, t, n, b)).astype(np.int32)
+    vx = tp.images(rng, n * v, size).reshape((n, v, size, size, 3))
+    vy = rng.integers(0, 3, (n, v)).astype(np.int32)
+    vm = np.ones((n, v), bool)
+    vm[0, 6:] = False     # node 0 holds a shorter, padded validation set
+    vx[0, 6:] = 0.0
+    return xs, ys, (vx, vy, vm)
+
+
+def _sessions(kw, seed=0):
+    ecfg_j = jh.HistoExperimentConfig(**tp.TINY)
+    ecfg_t = th.HistoExperimentConfig(**tp.TINY)
+    jtrain, _, _ = jh._make_model_fns(ecfg_j)
+    metric = gate_metric_fn("auc")
+
+    def jeval(p, v):
+        x, y, m = v
+        return metric(jax.nn.sigmoid(forward_cnn(p, x)), y, m)
+
+    model = th._model(ecfg_t)
+    _, layout, _ = tp.tiny_model()
+    ttrain, _ = th._make_model_fns(ecfg_t, model, layout)
+    tree = tp.jax_params(seed, tp.WIDTHS)
+    flat = from_reference(layout, tree)
+    js = JSession(JSwarmConfig(**kw), jtrain, jeval, params=tree,
+                  opt_state=jadamw_init(tree), data_sizes=SIZES, seed=0)
+    cfg = SwarmConfig(**kw)
+    ts = SwarmSession(cfg, ttrain, th._make_eval_fn(cfg, model, layout),
+                      params=flat, opt_state=adamw_init(flat),
+                      data_sizes=SIZES, layout=layout, device="cpu")
+    return js, ts, layout
+
+
+def _check(js, ts, layout, jlog, tlog):
+    want = from_reference(layout, jax.tree.map(np.asarray, js.state.params),
+                          lead=1).numpy()
+    got = ts.state.params.numpy()
+    # The FC biases feed a batch-statistics BN, so their gradient is zero in
+    # exact arithmetic: AdamW turns each framework's rounding noise into
+    # ±lr steps. They are held to the summed lr of the steps taken instead.
+    noise = np.zeros(got.shape[1], bool)
+    for leaf in layout.leaves:
+        if leaf.path in ("head.fc1.b", "head.fc2.b"):
+            noise[leaf.offset:leaf.offset + leaf.size] = True
+    np.testing.assert_allclose(got[:, ~noise], want[:, ~noise],
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[:, noise], want[:, noise], atol=2e-3)
+    ml = np.asarray(jlog["metric_local"]).reshape(-1)
+    mm = np.asarray(jlog["metric_merged"]).reshape(-1)
+    clear = np.abs(mm - THR * ml) >= 1e-4
+    assert clear.any()
+    np.testing.assert_array_equal(
+        tlog["gates"].numpy().reshape(-1)[clear],
+        np.asarray(jlog["gates"]).reshape(-1)[clear])
+    np.testing.assert_allclose(tlog["metric_local"].numpy().reshape(-1), ml,
+                               rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(tlog["metric_merged"].numpy().reshape(-1), mm,
+                               rtol=2e-3, atol=2e-3)
+    assert np.array_equal(ts.active, js.active)
+
+
+@pytest.mark.parametrize("merge,topology", [("fedavg", "full"),
+                                            ("fisher", "ring")])
+def test_round_then_leave_round_matches_reference(merge, topology):
+    kw = dict(n_nodes=4, sync_every=3, topology=topology, merge=merge,
+              lora_only=False, val_threshold=THR)
+    js, ts, layout = _sessions(kw)
+    xs, ys, val = _data(1, r=2)
+    jval = tuple(jnp.asarray(v) for v in val)
+    for r in range(2):
+        if r == 1:            # membership is runtime data on both sides
+            js.leave(2)
+            ts.leave(2)
+        batch = (xs[r], ys[r])
+        jlog = js.round(tuple(jnp.asarray(b) for b in batch), jval)
+        tlog = ts.round(batch, val)
+        _check(js, ts, layout, jlog, tlog)
+    assert not tlog["gates"][2]             # a departed node never commits
+    assert ts.state.round == 2 and ts.state.step == 6
+    ts.join(2)
+    assert ts.active.tolist() == [True] * 4
+    ts.set_active([True, False, True, False])
+    assert ts.active.tolist() == [True, False, True, False]
+
+
+def test_overlap_sync_run_rounds_matches_reference():
+    kw = dict(n_nodes=4, sync_every=2, topology="full", merge="fedavg",
+              lora_only=False, val_threshold=THR, overlap_sync=True)
+    js, ts, layout = _sessions(kw, seed=2)
+    xs, ys, val = _data(3, t=2, r=2)
+    jlog = js.run_rounds((jnp.asarray(xs), jnp.asarray(ys)),
+                         tuple(jnp.asarray(v) for v in val))
+    tlog = ts.run_rounds((xs, ys), val)
+    assert tlog["gates"].shape == (2, 4) and tlog["train"]["loss"].shape == (2, 2, 4)
+    _check(js, ts, layout, jlog, tlog)
+    node = ts.node_params
+    assert len(node) == 4 and set(node[0]) == {"stem", "blocks", "head"}
+    assert node[0]["stem"]["w"].shape == (7, 7, 3, 8)   # HWIO, as the reference
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(wire_dtype="int8"), "quantized wire"),
+    (dict(lora_only=True), "lora_only"),
+    (dict(payload="lora", lora_only=False), "payload"),
+])
+def test_unported_sync_options_raise_when_sync_runs(kw, match):
+    """The session builds and trains locally with these options (the
+    reference's local baseline keeps lora_only=True and never syncs); the
+    sync that needs them raises."""
+    base = dict(n_nodes=4, sync_every=2, topology="full", merge="fedavg",
+                lora_only=False)
+    _, ts, _ = _sessions(dict(base, **kw))
+    xs, ys, val = _data(4, t=2)
+    ts.run_local((xs[0], ys[0]))
+    with pytest.raises(NotImplementedError, match=match):
+        ts.round((xs[0], ys[0]), val)
+
+
+def test_unported_backends_and_device_policy():
+    cfg = SwarmConfig(n_nodes=2)
+    flat = torch.zeros(3)
+    for backend in ("gossip", "host"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            SwarmSession(cfg, None, None, params=flat, backend=backend,
+                         device="cpu")
+    with pytest.raises(NotImplementedError, match="zoo"):
+        SwarmSession(cfg, [None, None], None, params=flat, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SwarmSession(cfg, None, None, params=flat)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            SwarmSession(cfg, None, None, params=flat, device="cpu")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("merge,topology", [("fedavg", "full"),
+                                            ("mean", "ring"),
+                                            ("fisher", "ring"),
+                                            ("gradmatch", "dynamic")])
+@pytest.mark.parametrize("policy", [dict(), dict(quorum=4),
+                                    dict(fairness_floor=0.5),
+                                    dict(val_threshold=1.0)])
+@pytest.mark.parametrize("mask", [[1, 1, 1, 1], [1, 0, 1, 1]])
+def test_engine_sync_matches_reference(merge, topology, policy, mask):
+    """One sync (propose → gate with quorum / fairness floor → commit) on
+    both engines from the same params and importance statistics, with a
+    gate metric that is a smooth function of the params."""
+    from repro.core.engine import SwarmEngine as JEngine
+    from repro_torch.core.engine import SwarmEngine
+
+    rng = np.random.default_rng(len(policy) * 7 + sum(mask))
+    x = rng.normal(0.2, 1, (4, 300)).astype(np.float32)
+    stats = np.abs(rng.normal(0, 1, (4, 300))).astype(np.float32)
+    kw = dict(dict(n_nodes=4, merge=merge, topology=topology,
+                   lora_only=False, val_threshold=0.8), **policy)
+    je = JEngine(JSwarmConfig(**kw), None,
+                 lambda p, v: jax.nn.sigmoid(4 * p["w"].mean() + v),
+                 data_sizes=SIZES)
+    te = SwarmEngine(SwarmConfig(**kw), None,
+                     lambda p, v: torch.sigmoid(4 * p.mean(-1) + v),
+                     data_sizes=SIZES)
+    use_stats = je.strategy.uses_stats
+    val = rng.normal(0, 0.3, (4,)).astype(np.float32)
+    jc, jlog = je.sync({"w": jnp.asarray(x)}, jnp.asarray(val),
+                       jnp.asarray(mask, bool),
+                       stats={"w": jnp.asarray(stats)} if use_stats else None)
+    tc, tlog = te.sync(torch.from_numpy(x), torch.from_numpy(val),
+                       torch.tensor(mask, dtype=torch.bool),
+                       stats=torch.from_numpy(stats) if use_stats else None)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc["w"]), rtol=2e-6,
+                               atol=2e-6)
+    assert set(tlog) == set(jlog)
+    for key in jlog:
+        np.testing.assert_allclose(np.asarray(tlog[key], np.float32),
+                                   np.asarray(jlog[key], np.float32),
+                                   rtol=1e-6, atol=1e-6)
+    rejected = ~tlog["gates"]
+    assert torch.equal(tc[rejected], torch.from_numpy(x)[rejected])
