@@ -5,23 +5,36 @@
 
 Phases, each printing one JSON line:
 
-  1. device   the card's name and power limit (``nvidia-smi``), torch/CUDA
-              versions, both TF32 flags;
-  2. build    nvcc build of every kernel source of the slice, in seconds;
-  3. kernel   each kernel against its plain PyTorch version on the card
-              (accepted rows within rtol = atol = 1e-6 for f32 or one bf16
-              ulp, rejected rows bit-equal), and at the main-path shape its
-              time beside the plain version, a one-call library yardstick and
-              the card's bound;
-  4. histo    the main path: ``run_experiment`` at the paper's full width
-              (224 px, P = 1,639,705 params per node, N = 4) — centralized,
-              local and swarm rows; every commit must launch the fedavg
-              kernel once;
-  5. fisher   a fisher/ring ``SwarmSession`` at the same width for 2 rounds;
-              every commit must launch the importance-weighted kernel once;
-  6. parity   one small round on the card against the same round on the CPU
-              (plain commit, CPU convs), TF32 off, params at 1e-4;
-  7. kernels  the per-kernel summary line, then the ``ok`` line.
+  1. device      the card's name and power limit (``nvidia-smi``), torch/CUDA
+                 versions, both TF32 flags;
+  2. build       nvcc build of every kernel source, in seconds, with the
+                 registers of every variant and any that spill;
+  3. kernel      each kernel against its plain PyTorch version on the card
+                 (the f32 commit: accepted rows within rtol = atol = 1e-6 for
+                 f32 or one bf16 ulp; the quantized-wire commit: r' and every
+                 row bit-equal; rejected rows bit-equal for both), and at the
+                 main-path shape its time beside the plain version, a
+                 one-call library yardstick where one exists, and the card's
+                 bound;
+  4. histo       the main path: ``run_experiment`` at the paper's full width
+                 (224 px, P = 1,639,705 params per node, N = 4) — centralized,
+                 local and swarm rows; every commit must launch the fedavg
+                 kernel once;
+  5. fisher      a fisher/ring ``SwarmSession`` at the same width for 2
+                 rounds; every commit must launch the importance-weighted
+                 kernel once; then one profiled round;
+  6. histo_int8  ``run_experiment`` at the same width on the int8
+                 error-feedback wire (``wire_block`` 512): every commit must
+                 launch the quantized-wire kernel once, the f32 kernel never;
+  7. fisher_int8 the fisher/ring session on the int8 wire for 2 rounds; every
+                 commit must launch the quantized importance form once; then
+                 one profiled round;
+  8. checkpoint  that session saved at paper width and restored into a fresh
+                 one; one more round on both must agree bit for bit (cuDNN
+                 set deterministic for the round);
+  9. parity      one small round on the card against the same round on the
+                 CPU (plain commit, CPU convs), TF32 off, params at 1e-4;
+ 10. kernels     the per-kernel summary line, then the ``ok`` line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's sources beside it. Imports nothing of the JAX package.
@@ -39,10 +52,20 @@ sys.path.insert(0, str(ROOT / "src"))
 # NVIDIA's data sheets (dense, at the full power limit)
 CARDS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
          ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
-KERNEL_SOURCE = "src/repro_torch/csrc/fused_merge.cu"
-REPLACES = {"fused_merge_all": "src/repro/kernels/fused_merge.py:114",
-            "fused_merge_all_imp": "src/repro/kernels/fused_merge.py:126"}
+SOURCES = {"fused_merge": "src/repro_torch/csrc/fused_merge.cu",
+           "fused_quant_merge": "src/repro_torch/csrc/fused_quant_merge.cu"}
+# kernel → (source stem, the TPU kernel body it replaces)
+KERNELS = {
+    "fused_merge_all": ("fused_merge",
+                        "src/repro/kernels/fused_merge.py:114"),
+    "fused_merge_all_imp": ("fused_merge",
+                            "src/repro/kernels/fused_merge.py:126"),
+    "fused_quant_merge_all": ("fused_quant_merge",
+                              "src/repro/kernels/fused_merge.py:206"),
+    "fused_quant_merge_all_imp": ("fused_quant_merge",
+                                  "src/repro/kernels/fused_merge.py:226")}
 N, P = 4, 1_639_705
+WIRE_BLOCK = 512
 
 
 def emit(phase, **kw):
@@ -150,7 +173,86 @@ def phase_kernels(dev, bw, peak):
     return stats
 
 
-def phase_histo(dev):
+def phase_quant_kernels(dev, bw, peak):
+    """The quantized-wire commit against its plain version: r' and every
+    committed row bit-equal. Main-path shape with the paper CNN's real block
+    grid (conv leaves gathered through ``perm``), and N = 64 at D = 777."""
+    import torch
+    from repro_torch.configs.paper_histo import PAPER_FULL
+    from repro_torch.core import comms
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.experiments import histo
+    from repro_torch.kernels import fused_merge as fm
+    from repro_torch.kernels.ref import fused_quant_merge_all_plain
+
+    layout = FlatLayout.of_module(histo._model(PAPER_FULL))
+    if layout.size != P:
+        raise AssertionError(f"{layout.size} params per node, want {P}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    stats = {}
+    for form in ("fused_quant_merge_all", "fused_quant_merge_all_imp"):
+        imp_form = form.endswith("imp")
+        for wire in ("int8", "bf16"):
+            for n, shape in ((N, layout), (64, 777)):
+                d = P if shape is layout else shape
+                grid = comms.wire_grid(shape, wire, WIRE_BLOCK, device=dev)
+                x = torch.randn(n, d, device=dev, generator=gen)
+                r = x + 0.01 * torch.randn(n, d, device=dev, generator=gen)
+                W = torch.rand(n, n, device=dev, generator=gen)
+                W = W / W.sum(1, keepdim=True)
+                f = (torch.rand(n, d, device=dev, generator=gen) + 0.1
+                     if imp_form else None)
+                for gates in (torch.ones(n, dtype=torch.bool),
+                              torch.zeros(n, dtype=torch.bool),
+                              torch.arange(n) % 2 == 0):
+                    gates = gates.to(dev)
+                    got, rp = fm.fused_quant_merge_all(x, r, W, gates, f,
+                                                       grid=grid)
+                    want, wrp = fused_quant_merge_all_plain(x, r, W, gates, f,
+                                                            grid=grid)
+                    torch.cuda.synchronize()
+                    if not torch.equal(rp, wrp):
+                        raise AssertionError(
+                            f"{form} {wire} N={n}: r' differs from plain, "
+                            f"max err {float((rp - wrp).abs().max())}")
+                    check_commit(got, want, x, gates)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"{form} {wire} N={n}: committed differs from "
+                            f"plain, max err {float((got - want).abs().max())}")
+            # time at the main-path shape, every gate accepting
+            grid = comms.wire_grid(layout, wire, WIRE_BLOCK, device=dev)
+            x = torch.randn(N, P, device=dev, generator=gen)
+            r = x + 0.01 * torch.randn(N, P, device=dev, generator=gen)
+            W = torch.full((N, N), 1.0 / N, device=dev)
+            f = (torch.rand(N, P, device=dev, generator=gen) + 0.1
+                 if imp_form else None)
+            g = torch.ones(N, dtype=torch.bool, device=dev)
+            ms = time_ms(lambda: fm.fused_quant_merge_all(x, r, W, g, f,
+                                                          grid=grid))
+            plain_ms = time_ms(lambda: fused_quant_merge_all_plain(
+                x, r, W, g, f, grid=grid), iters=10)
+            # x and r (and f) read once, committed and r' written once; the
+            # quantize step (int8: |v|, max, v/s, rint, 2 clamps, q·s, the
+            # sub and the add) is ~10 f32 operations per element
+            nbytes = (5 if imp_form else 4) * N * P * 4 + N * N * 4 + N
+            flops = (4 * N * N * P + N * P if imp_form
+                     else 2 * N * N * P) + 10 * N * P
+            bytes_ms, flops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+            row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=max(bytes_ms, flops_ms),
+                       bound_by="bytes" if bytes_ms >= flops_ms
+                       else "operations")
+            emit("kernel", name=form, wire=wire, shape=[N, P],
+                 segments=int(grid.segments.shape[0]),
+                 gathered=grid.perm is not None, kernel_ms=ms,
+                 **{k: v for k, v in row.items() if k != "ms"})
+            if wire == "int8":      # the main path's wire
+                stats[form] = row
+    return stats
+
+
+def phase_histo(dev, wire=None):
     import torch
     from repro_torch.configs.base import SwarmConfig
     from repro_torch.configs.paper_histo import PAPER_FULL
@@ -184,7 +286,8 @@ def phase_histo(dev):
                 round_s.extend(b - a for a, b in zip([t0] + marks, marks))
 
     swarm = SwarmConfig(n_nodes=4, sync_every=5, topology="full",
-                        merge="fedavg", lora_only=False, val_threshold=0.8)
+                        merge="fedavg", lora_only=False, val_threshold=0.8,
+                        **(wire or {}))
     ecfg = histo.HistoExperimentConfig(
         n_train=512, n_test=128, image_size=PAPER_FULL.image_size,
         batch_size=16, steps=10, swarm=swarm, growth=PAPER_FULL.growth,
@@ -217,12 +320,14 @@ def phase_histo(dev):
     log = result["sync_log"]
     if len(log) != 2 or any(len(s["gates"]) != 4 for s in log):
         raise AssertionError(f"expected 2 sync rounds of 4 gates, got {log}")
-    if launches != {"fused_merge_all": 2, "fused_merge_all_imp": 0}:
-        raise AssertionError(f"commit launches {launches}, want 2 fedavg")
+    form = "fused_quant_merge_all" if wire else "fused_merge_all"
+    if launches != {k: 2 if k == form else 0 for k in fm.LAUNCHES}:
+        raise AssertionError(f"commit launches {launches}, want 2 {form}")
     size = FlatLayout.of_module(histo._model(ecfg)).size
     if size != P:
         raise AssertionError(f"{size} params per node, want {P}")
-    emit("histo", params_per_node=size, nodes=swarm.n_nodes,
+    emit("histo_int8" if wire else "histo", params_per_node=size,
+         nodes=swarm.n_nodes, wire=swarm.wire_dtype,
          image_size=ecfg.image_size,
          gates=[s["gates"] for s in log], round_seconds=round_s,
          total_seconds=seconds,
@@ -262,7 +367,7 @@ def _round_data(ecfg, shards, rounds, t):
     return xs, ys, histo._stack_vals(vals)
 
 
-def phase_fisher(dev):
+def phase_fisher(dev, wire=None):
     import torch
     from repro_torch.configs.base import SwarmConfig
     from repro_torch.configs.paper_histo import PAPER_FULL
@@ -271,7 +376,8 @@ def phase_fisher(dev):
     from repro_torch.kernels import fused_merge as fm
 
     cfg = SwarmConfig(n_nodes=4, sync_every=5, topology="ring",
-                      merge="fisher", lora_only=False, val_threshold=0.8)
+                      merge="fisher", lora_only=False, val_threshold=0.8,
+                      **(wire or {}))
     ecfg = histo.HistoExperimentConfig(
         n_train=256, image_size=224, batch_size=16, steps=10, swarm=cfg,
         growth=PAPER_FULL.growth, stem=PAPER_FULL.stem,
@@ -293,18 +399,23 @@ def phase_fisher(dev):
         round_s.append(time.perf_counter() - t0)
         gates.append(log["gates"].tolist())
     launches = dict(fm.LAUNCHES)
-    if launches != {"fused_merge_all": 0, "fused_merge_all_imp": 2}:
-        raise AssertionError(f"commit launches {launches}, want 2 imp-form")
+    form = "fused_quant_merge_all_imp" if wire else "fused_merge_all_imp"
+    if launches != {k: 2 if k == form else 0 for k in fm.LAUNCHES}:
+        raise AssertionError(f"commit launches {launches}, want 2 {form}")
     if not bool(torch.isfinite(sess.state.params).all()):
         raise AssertionError("non-finite params after the fisher rounds")
-    emit("fisher", gates=gates, round_seconds=round_s, launches=launches)
-    phase_profile(sess, (xs[1], ys[1]), val)
-    return launches
+    emit("fisher_int8" if wire else "fisher", gates=gates,
+         round_seconds=round_s, launches=launches)
+    phase_profile(sess, (xs[1], ys[1]), val, "fisher_int8" if wire
+                  else "fisher")
+    return launches, (sess, cfg, ecfg, shards, (xs[0], ys[0]), val)
 
 
-def phase_profile(sess, batch, val):
-    """One more round under ``torch.profiler``: device time by kernel and
-    the device's busy share of the round's wall time."""
+def phase_profile(sess, batch, val, path):
+    """One more round under ``torch.profiler``: device time by kernel, the
+    device's busy share of the round's wall time, the commit kernel's time
+    and that of the scatter/gather/index kernels (on the int8 wire, the
+    per-block max-abs and scale gathers of ``comms.wire_effective``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -322,10 +433,67 @@ def phase_profile(sess, batch, val):
             kernels.append((us, evt.count, evt.key[:90]))
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels) / 1e6
-    emit("profile", round_wall_s=wall, device_busy_s=busy,
+    def ms_of(*words):
+        return sum(us for us, _, k in kernels
+                   if any(w in k for w in words)) / 1e3
+
+    emit("profile", path=path, round_wall_s=wall, device_busy_s=busy,
          device_busy_share=busy / wall,
+         commit_kernel_ms=ms_of("merge_all_kernel", "quant_merge_kernel"),
+         scatter_gather_ms=ms_of("scatter", "gather", "index"),
          top=[{"kernel": k, "ms": us / 1e3, "calls": c}
               for us, c, k in kernels[:12]])
+
+
+def phase_checkpoint(dev, run):
+    """Save the int8 fisher session at paper width, restore it into a fresh
+    session, run one more round on both, and hold them equal bit for bit
+    (params, AdamW moments, statistics, wire reference, counters, rng)."""
+    import os
+    import tempfile
+
+    import torch
+
+    sess, cfg, ecfg, shards, batch, val = run
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "swarm.msgpack")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.save(path)
+            save_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            fresh = _session(dev, cfg, ecfg, shards)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fresh.load(path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        a, b = sess.state, fresh.state
+        for field in ("params", "stats", "wire", "active"):
+            if not torch.equal(getattr(a, field), getattr(b, field)):
+                raise AssertionError(f"restored {field} differs")
+        sess.round(batch, val)
+        fresh.round(batch, val)
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+    a, b = sess.state, fresh.state
+    same = {f: bool(torch.equal(getattr(a, f), getattr(b, f)))
+            for f in ("params", "stats", "wire", "active")}
+    same.update({f"opt_{k}": bool(torch.equal(a.opt_state[k], b.opt_state[k]))
+                 for k in a.opt_state})
+    same["counters"] = ((a.round, a.step, a.rng.tolist())
+                        == (b.round, b.step, b.rng.tolist()))
+    emit("checkpoint", bytes=size, save_seconds=save_s,
+         load_seconds=load_s, round=b.round, bit_identical=same)
+    if not all(same.values()):
+        raise AssertionError(f"resumed session diverged: {same}")
 
 
 def phase_parity(dev):
@@ -386,24 +554,39 @@ def main() -> int:
          memory_rate=bw, f32_peak=peak)
 
     t0 = time.perf_counter()
-    build.build(["fused_merge"])
-    ptxas = build.BUILD_LOG.get("fused_merge", {}).get("ptxas", "")
-    registers = [int(ln.split("Used ")[1].split()[0])
-                 for ln in ptxas.splitlines() if "registers" in ln]
-    spilling = [ln.strip() for ln in ptxas.splitlines()
-                if "spill" in ln and "0 bytes spill stores, 0 bytes spill "
-                "loads" not in ln]
+    build.build(list(SOURCES))
+    variants = {}
+    for stem in SOURCES:
+        ptxas = build.BUILD_LOG.get(stem, {}).get("ptxas", "")
+        variants[stem] = dict(
+            registers=[int(ln.split("Used ")[1].split()[0])
+                       for ln in ptxas.splitlines() if "registers" in ln],
+            spilling=[ln.strip() for ln in ptxas.splitlines()
+                      if "spill" in ln and "0 bytes spill stores, 0 bytes "
+                      "spill loads" not in ln])
     emit("build", seconds=time.perf_counter() - t0,
-         registers_per_variant=registers, variants_with_spills=spilling)
+         build_seconds={k: v["seconds"] for k, v in build.BUILD_LOG.items()},
+         variants=variants)
 
     stats = phase_kernels(dev, bw, peak)
-    launches = phase_histo(dev)
-    launches.update({k: v for k, v in phase_fisher(dev).items() if v})
+    stats.update(phase_quant_kernels(dev, bw, peak))
+    # each path runs with the launch counts set to 0 just before it; a
+    # kernel's launches are those of the path that carries it
+    launches = {}
+    for counts in (phase_histo(dev), phase_fisher(dev)[0],
+                   phase_histo(dev, dict(wire_dtype="int8",
+                                         wire_block=WIRE_BLOCK))):
+        launches.update({k: v for k, v in counts.items() if v})
+    counts, run = phase_fisher(dev, dict(wire_dtype="int8",
+                                         wire_block=WIRE_BLOCK))
+    launches.update({k: v for k, v in counts.items() if v})
+    phase_checkpoint(dev, run)
     phase_parity(dev)
 
-    kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
-                    replaces=REPLACES[name], launches=launches[name],
-                    **stats[name]) for name in REPLACES]
+    kernels = [dict(name=name, route="cuda", source=SOURCES[stem],
+                    replaces=replaces, launches=launches.get(name, 0),
+                    **stats[name])
+               for name, (stem, replaces) in KERNELS.items()]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: {kernels}")
     print(smi, flush=True)

@@ -11,9 +11,9 @@ from dataclasses import dataclass
 class SwarmConfig:
     """P2P-SL: the paper's technique as a first-class feature.
 
-    Options whose paths are not ported yet (``wire_dtype != "f32"``,
-    ``lora_only``/``payload="lora"`` at sync) raise ``NotImplementedError``
-    when the sync that needs them runs.
+    Options whose paths are not ported yet (``lora_only``/``payload="lora"``
+    at sync) raise ``NotImplementedError`` when the sync that needs them
+    runs.
     """
 
     n_nodes: int = 4

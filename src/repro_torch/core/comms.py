@@ -1,0 +1,473 @@
+"""Wire-efficient sync layer: cost model, schedule picker, quantized wire.
+
+Port of ``repro.core.comms`` for the engine backend. Peers exchange
+int8/bf16-quantized parameter *deltas* against a shared reference copy θ̂
+(what the wire has already delivered), with per-block scales, and the
+residual θ − θ̂ carried across rounds in ``SwarmState.wire``:
+
+    θ̂' = θ̂ + dequant(quant(θ − θ̂))          (error feedback)
+
+:func:`wire_effective` is the plain ground truth, and the fused CUDA commit
+(`repro_torch.kernels.fused_merge.fused_quant_merge_all`) re-derives the
+same θ̂' bit for bit in one launch.
+
+**The block grid.** The reference quantizes leaf by leaf: it flattens each
+stacked leaf per node, in its own element order, and cuts it into
+``wire_block`` blocks from the leaf's first element (the tail block is
+zero-padded, which never raises a max-abs). The port's state is one
+unpadded ``[N, P]`` buffer whose conv leaves are stored OIHW, while the
+reference's are HWIO. A :class:`WireGrid` maps every stored element to the
+reference's block it belongs to (``seg_id``), and lists each block's
+elements for the kernel (``perm`` + ``segments``). A grid taken over the
+whole buffer, or over the OIHW order, would group other elements into a
+block and give other scales.
+
+The schedule table and the per-link-class cost model are the reference's,
+line for line (pure Python); see its module docstring for the derivation.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import List, Optional
+
+import torch
+
+from repro_torch.core.flat import FlatLayout
+
+WIRE_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
+
+#: nominal payload used to rank schedules when the real count isn't known yet
+_NOMINAL_P = 1 << 20
+
+
+def validate_wire_dtype(wire_dtype: str) -> str:
+    wd = wire_dtype or "f32"
+    if wd not in WIRE_BYTES:
+        raise ValueError(f"unknown wire_dtype {wire_dtype!r} "
+                         f"(choose from {sorted(WIRE_BYTES)})")
+    return wd
+
+
+def validate_wire_block(wire_block: int) -> int:
+    if wire_block <= 0 or wire_block % 128:
+        raise ValueError(f"wire_block must be a positive multiple of 128 "
+                         f"(lane width), got {wire_block}")
+    return wire_block
+
+
+PAYLOAD_MODES = ("full", "lora")
+
+
+def payload_mode(cfg) -> str:
+    """``cfg.payload`` with validation — what the stacked state covers
+    (``"full"``: every node's params; ``"lora"``: the adapter payload)."""
+    mode = getattr(cfg, "payload", "full") or "full"
+    if mode not in PAYLOAD_MODES:
+        raise ValueError(f"unknown payload mode {mode!r} "
+                         f"(choose from {PAYLOAD_MODES})")
+    return mode
+
+
+def split_payload_at_sync(cfg) -> bool:
+    """True when sync must carve the adapter subtree out of a full state."""
+    if not getattr(cfg, "lora_only", False):
+        return False
+    return payload_mode(cfg) != "lora"
+
+
+# ---------------------------------------------------------------------------
+# cost model + schedule picker
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SyncSchedule:
+    """One collective schedule with its analytic wire cost.
+
+    ``payload_factor`` is the number of values moved per device per sync in
+    units of P (the per-node payload param count). On the engine backend
+    the schedule is ``simulated``: the SPMD-equivalent cost, for logs.
+    """
+
+    name: str
+    collective: str          # "psum" | "ppermute" | "all_gather" | ...
+    payload_factor: float
+    wire_dtype: str = "f32"
+    wire_block: int = 512
+    simulated: bool = False
+    # two-level (pod, node) split of payload_factor; cross_factor is None on
+    # a flat mesh (one bandwidth domain — everything counts as intra)
+    cross_factor: Optional[float] = None
+    intra_factor: float = 0.0
+    intra_dtype: str = "f32"
+    payload: str = "full"    # payload class: "full" or "lora"
+
+    def _leg_bytes(self, vals: float, dtype: str) -> float:
+        out = vals * WIRE_BYTES[dtype]
+        if dtype == "int8":  # one f32 scale per wire block
+            out += vals / self.wire_block * 4.0
+        return out
+
+    def bytes_by_link_class(self, payload_params: int) -> dict:
+        """Predicted per-device wire bytes per link class for one sync."""
+        p = float(payload_params)
+        if self.cross_factor is None:
+            return {"intra": self._leg_bytes(self.payload_factor * p,
+                                             self.wire_dtype),
+                    "cross": 0.0}
+        return {"intra": self._leg_bytes(self.intra_factor * p,
+                                         self.intra_dtype),
+                "cross": self._leg_bytes(self.cross_factor * p,
+                                         self.wire_dtype)}
+
+    def bytes_per_sync(self, payload_params: int) -> float:
+        """Predicted per-device wire bytes for one sync of P payload values."""
+        b = self.bytes_by_link_class(payload_params)
+        return b["intra"] + b["cross"]
+
+    def cost_per_sync(self, payload_params: int, intra_cost: float = 1.0,
+                      cross_cost: float = 1.0) -> float:
+        """Σ bytes(class) · cost(class): what :func:`pick_schedule` argmins."""
+        b = self.bytes_by_link_class(payload_params)
+        return b["intra"] * intra_cost + b["cross"] * cross_cost
+
+    def describe(self, payload_params: Optional[int] = None) -> str:
+        p = _NOMINAL_P if payload_params is None else payload_params
+        tag = " (simulated)" if self.simulated else ""
+        if self.payload != "full":
+            tag = f"/{self.payload}{tag}"
+        out = (f"{self.name}[{self.collective}/{self.wire_dtype}]{tag}: "
+               f"{self.payload_factor:g}·P values, "
+               f"{self.bytes_per_sync(p) / 1e6:.3f} MB/sync at P={p}")
+        if self.cross_factor is not None:
+            b = self.bytes_by_link_class(p)
+            out += (f" [intra {b['intra'] / 1e6:.3f} MB + "
+                    f"cross {b['cross'] / 1e6:.3f} MB]")
+        return out
+
+
+def candidate_schedules(cfg, *, per: int = 1, model_sharded: bool = False,
+                        mesh_shape=None) -> List[SyncSchedule]:
+    """Every schedule that is CORRECT for this config's sync semantics.
+
+    ``per`` = stacked nodes per mesh shard; ``model_sharded`` drops the q8
+    psum reductions; ``mesh_shape`` = (n_pods, per_pod) on a two-level mesh
+    prices the flat candidates 100 % cross-pod and adds the hierarchical
+    pod-delegate forms.
+    """
+    n = cfg.n_nodes
+    wd = validate_wire_dtype(getattr(cfg, "wire_dtype", "f32"))
+    wb = validate_wire_block(getattr(cfg, "wire_block", 512))
+    weighted = cfg.merge in ("fisher", "gradmatch")
+    ring_ok = cfg.topology == "ring" and per == 1 and n >= 3
+    psum_q8_ok = wd == "int8" and not model_sharded
+    two_level = mesh_shape is not None
+    flat_kw = lambda factor: (
+        {"cross_factor": factor, "intra_factor": 0.0} if two_level else {})
+    pcls = ("lora" if (payload_mode(cfg) == "lora"
+                       or getattr(cfg, "lora_only", False)) else "full")
+    mk = lambda name, coll, factor, wdt: SyncSchedule(
+        name, coll, factor, wire_dtype=wdt, wire_block=wb,
+        payload=pcls, **flat_kw(factor))
+
+    out: List[SyncSchedule] = []
+    if weighted:
+        if cfg.topology == "full":
+            # psums reduce in f32: compression doesn't commute with the sum
+            out.append(mk("fisher_psum", "psum", 4.0 * (n - 1) / n, "f32"))
+            if psum_q8_ok:
+                out.append(mk("fisher_psum_q8", "reduce_scatter", 4.0, wd))
+        out.append(mk("gathered_topo_stack", "all_gather", 2.0 * n, wd))
+        if ring_ok:
+            out.append(mk("ring_topo_ppermute", "ppermute", 4.0, wd))
+    else:
+        if cfg.topology == "full":
+            out.append(mk("fedavg_psum", "psum", 2.0 * (n - 1) / n, "f32"))
+            if psum_q8_ok:
+                out.append(mk("fedavg_psum_q8", "reduce_scatter", 2.0, wd))
+        out.append(mk("gathered_rows", "all_gather", 1.0 * n, wd))
+        if ring_ok:
+            out.append(mk("ring_ppermute", "ppermute", 2.0, wd))
+
+    if two_level:
+        k_pods, per_pod = mesh_shape
+        hier_ok = (k_pods >= 2 and per_pod >= 2 and per == 1
+                   and n == k_pods * per_pod and wd == "int8"
+                   and not model_sharded and cfg.topology == "ring")
+        if hier_ok:
+            k_hops = 1.0 if k_pods == 2 else 2.0
+            cross = k_hops / per_pod
+            intra = 2.0 * (per_pod - 1) / per_pod + 1.0
+            if weighted:
+                out.append(SyncSchedule(
+                    "hier_fisher_ring_q8", "hier_ring",
+                    2.0 * (cross + intra), wire_dtype=wd, wire_block=wb,
+                    cross_factor=2.0 * cross, intra_factor=2.0 * intra,
+                    payload=pcls))
+            else:
+                out.append(SyncSchedule(
+                    "hier_fedavg_ring_q8", "hier_ring", cross + intra,
+                    wire_dtype=wd, wire_block=wb,
+                    cross_factor=cross, intra_factor=intra, payload=pcls))
+    return out
+
+
+def pick_schedule(cfg, *, per: int = 1, payload_params: Optional[int] = None,
+                  simulated: bool = False, model_sharded: bool = False,
+                  mesh_shape=None) -> SyncSchedule:
+    """Cheapest correct schedule under the cost model: the argmin of
+    Σ bytes(link class) · per-byte cost (``cfg.intra_pod_cost`` /
+    ``cfg.cross_pod_cost``); on a flat mesh, the bytes argmin."""
+    p = _NOMINAL_P if payload_params is None else payload_params
+    cands = candidate_schedules(cfg, per=per, model_sharded=model_sharded,
+                                mesh_shape=mesh_shape)
+    intra_cost = float(getattr(cfg, "intra_pod_cost", 1.0))
+    cross_cost = float(getattr(cfg, "cross_pod_cost", 1.0))
+    best = min(cands, key=lambda s: s.cost_per_sync(p, intra_cost, cross_cost))
+    if simulated:
+        best = dataclasses.replace(best, simulated=True)
+    return best
+
+
+def payload_param_count(stacked: torch.Tensor, lora_only: bool,
+                        n_nodes: int) -> int:
+    """Per-node payload values P of a stacked ``[N, P]`` state."""
+    if lora_only:
+        raise NotImplementedError(
+            "lora_only payloads are not ported to repro_torch yet "
+            "(ROADMAP.md: queue 1 item 11, LoRA and the heterogeneous zoo)")
+    return int(stacked.numel() // max(n_nodes, 1))
+
+
+# ---------------------------------------------------------------------------
+# shared quantization core: THE int8 round-trip arithmetic of the port
+# ---------------------------------------------------------------------------
+# Every path of the port that quantizes — the block form below, the per-leaf
+# grid of the wire functions, and the plain version of the fused commit
+# kernel (`kernels.ref`) — goes through `_quantize`, so the EF contract
+# (scale = max|block|/127, round-half-even, clip ±127) has one home in the
+# port, as it has one in the reference's `core/comms.py`.
+
+def _quantize(v, maxabs):  # noqa: SWL004 — the port's one copy of the int8 core; the port may not import the reference's, and tests/test_torch_wire.py holds it bit for bit against repro.core.comms
+    """v f32 and its block's max |v| (broadcastable) → (q f32 int-valued,
+    scale f32). scale = max|v|/127 (zero blocks keep scale 0 and quantize
+    to 0); q = clip(round(v / scale), ±127), round-half-even. The divisor
+    127 is a tensor on the data's device: PyTorch's CUDA division by a
+    Python scalar multiplies by its reciprocal, which can miss the
+    correctly rounded quotient by one ulp."""
+    scale = maxabs / torch.full((), 127.0, device=maxabs.device)
+    q = torch.clamp(torch.round(v / torch.where(scale > 0, scale, 1.0)),
+                    -127.0, 127.0)
+    return q, scale
+
+
+def _blocks(v, wire_block: int):
+    vf = torch.as_tensor(v).to(torch.float32)
+    shape = tuple(vf.shape)
+    return vf.reshape(shape[:-1] + (shape[-1] // wire_block, wire_block)), shape
+
+
+def quant_dequant_block(v, wire_dtype: str, wire_block: int):
+    """The int8/bf16 round-trip over a ``[..., B]`` array (B a multiple of
+    ``wire_block``; f32 out); equal bit for bit to
+    ``quant_decode(*quant_encode(v))``."""
+    vf = torch.as_tensor(v).to(torch.float32)
+    if wire_dtype == "f32":
+        return vf
+    if wire_dtype == "bf16":
+        return vf.to(torch.bfloat16).to(torch.float32)
+    blocks, shape = _blocks(vf, wire_block)
+    q, scale = _quantize(blocks, blocks.abs().amax(-1, keepdim=True))
+    return (q * scale).reshape(shape)
+
+
+def quant_encode(v, wire_block: int):
+    """``[..., B]`` f32 → the int8 wire payload ``(q int8 [..., B],
+    scales f32 [..., B // wire_block])``."""
+    blocks, shape = _blocks(v, wire_block)
+    q, scale = _quantize(blocks, blocks.abs().amax(-1, keepdim=True))
+    return q.to(torch.int8).reshape(shape), scale[..., 0]
+
+
+def quant_decode(q, scales, wire_block: int):
+    """Inverse of :func:`quant_encode` (== the sender's round-trip)."""
+    blocks, shape = _blocks(torch.as_tensor(q).to(torch.float32), wire_block)
+    return (blocks * scales[..., None]).reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# the per-leaf block grid over the flat [N, P] state
+# ---------------------------------------------------------------------------
+
+def _ref_sort_key(path: str):
+    """The reference's leaf order (``jax.tree.leaves``): dict keys sorted,
+    list entries by index (zero-padded, so they sort as numbers)."""
+    return tuple(p.zfill(20) if p.isdigit() else p for p in path.split("."))
+
+
+def _leaves(layout: "FlatLayout | int"):
+    """Per leaf, in storage order: (offset, ref_index, local order), where
+    ``local order[s]`` is the position of stored element s in the
+    reference's flattening of the leaf (HWIO for a conv stored OIHW) and
+    ``ref_index`` the leaf's position among the reference's leaves. An
+    integer layout is one leaf of that size."""
+    if not isinstance(layout, FlatLayout):
+        return [(0, 0, torch.arange(layout))]
+    rank = {leaf.path: i for i, leaf in enumerate(
+        sorted(layout.leaves, key=lambda lf: _ref_sort_key(lf.path)))}
+    out = []
+    for leaf in layout.leaves:
+        local = torch.arange(leaf.size)
+        if len(leaf.shape) == 4:
+            o, i, h, w = leaf.shape
+            # stored (o, i, h, w) sits at ((h·W + w)·I + i)·O + o in HWIO
+            local = local.reshape(h, w, i, o).permute(3, 2, 0, 1).reshape(-1)
+        out.append((leaf.offset, rank[leaf.path], local))
+    return out
+
+
+def _size(layout) -> int:
+    return layout.size if isinstance(layout, FlatLayout) else layout
+
+
+@dataclass(frozen=True)
+class WireGrid:
+    """Where every stored element of ``[N, P]`` falls on the wire's block
+    grid, for one wire dtype.
+
+    ``seg_id`` [P] int64: the block (segment) of each stored element — what
+    the plain wire functions reduce over. ``segments`` [S, 2] int64
+    ``(start, length ≤ wire_block)`` into ``perm``, and ``perm`` [P] int64
+    the stored indices grouped by segment (ascending within one), or None
+    when every segment is a contiguous range ``[start, start + length)`` of
+    the buffer — what the kernel walks, one thread block per segment. For
+    bf16/f32 wires (no scales) the grid is plain ``wire_block`` chunks of
+    the buffer and ``seg_id`` is None.
+    """
+
+    size: int
+    wire_dtype: str
+    wire_block: int
+    segments: torch.Tensor
+    perm: Optional[torch.Tensor]
+    seg_id: Optional[torch.Tensor]
+
+
+def wire_grid(layout: "FlatLayout | int", wire_dtype: str, wire_block: int,
+              device="cpu") -> WireGrid:
+    """Build the :class:`WireGrid` of a layout (or of one leaf of P
+    elements) once; its tensors live on ``device``."""
+    wire_dtype = validate_wire_dtype(wire_dtype)
+    wire_block = validate_wire_block(wire_block)
+    p = _size(layout)
+    if wire_dtype != "int8":
+        starts = torch.arange(0, p, wire_block)
+        segs = torch.stack([starts, (p - starts).clamp(max=wire_block)], 1)
+        return WireGrid(p, wire_dtype, wire_block, segs.to(device), None,
+                        None)
+    seg_id = torch.empty(p, dtype=torch.int64)
+    base = 0
+    for off, _, local in _leaves(layout):
+        seg_id[off:off + local.numel()] = base + local // wire_block
+        base += -(-local.numel() // wire_block)
+    counts = torch.bincount(seg_id, minlength=base)
+    segs = torch.stack([torch.cumsum(counts, 0) - counts, counts], 1)
+    perm = (None if (seg_id[1:] >= seg_id[:-1]).all()
+            else torch.argsort(seg_id, stable=True))
+    return WireGrid(p, wire_dtype, wire_block, segs.to(device),
+                    None if perm is None else perm.to(device),
+                    seg_id.to(device))
+
+
+# ---------------------------------------------------------------------------
+# quantized wire: stateless round-trip + error-feedback advance over [N, P]
+# ---------------------------------------------------------------------------
+
+def quant_dequant(v: torch.Tensor, grid: WireGrid) -> torch.Tensor:
+    """Stateless wire round-trip of a stacked ``[N, P]`` tensor on the
+    per-leaf grid (f32 out): the reference's ``quant_dequant_tree``."""
+    vf = v.to(torch.float32)
+    if grid.wire_dtype != "int8":
+        return quant_dequant_block(vf, grid.wire_dtype, grid.wire_block)
+    n = vf.shape[0]
+    s = grid.segments.shape[0]
+    idx = grid.seg_id.expand(n, -1)
+    maxabs = torch.zeros((n, s), dtype=torch.float32, device=vf.device)
+    maxabs.scatter_reduce_(1, idx, vf.abs(), "amax")
+    q, scale = _quantize(vf, maxabs.gather(1, idx))
+    return q * scale
+
+
+def init_wire(payload: torch.Tensor) -> torch.Tensor:
+    """Zero wire reference θ̂ shaped like the stacked payload (f32)."""
+    return torch.zeros(payload.shape, dtype=torch.float32,
+                       device=payload.device)
+
+
+def wire_effective(payload: torch.Tensor, wire: torch.Tensor,
+                   grid: WireGrid) -> torch.Tensor:
+    """Error-feedback wire advance: θ̂' = θ̂ + dequant(quant(θ − θ̂)).
+
+    Returns the new reference θ̂' — the effective params every peer
+    reconstructs this round and the state carried into the next one. The
+    subtraction, the round-trip and the addition are separate roundings
+    (no fused multiply-add), the same operations the commit kernel does,
+    so the gate sees exactly the bits the kernel commits."""
+    v = payload.to(torch.float32) - wire
+    deq = quant_dequant(v, grid)
+    return wire + deq
+
+
+def wire_residual(payload: torch.Tensor, wire: torch.Tensor) -> torch.Tensor:
+    """θ − θ̂: the untransmitted (error-feedback) mass."""
+    return payload.to(torch.float32) - wire
+
+
+# ---------------------------------------------------------------------------
+# payload checksum (murmur3 fmix32 over position-salted bits, mod 2³²)
+# ---------------------------------------------------------------------------
+# uint32 arithmetic in int64 tensors masked to 32 bits. A 32×32-bit product
+# would overflow int64, so every multiply goes through `_mul32`, which splits
+# the constant into 16-bit halves: each partial product stays below 2⁴⁸.
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(v: torch.Tensor, c: int) -> torch.Tensor:
+    """(v · c) mod 2³² for 0 ≤ v < 2³² (int64) and a uint32 constant c."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (v * lo + (((v * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(v: torch.Tensor) -> torch.Tensor:
+    """murmur3 fmix32 on uint32 values held in int64."""
+    v = v ^ (v >> 16)
+    v = _mul32(v, 0x85EBCA6B)
+    v = v ^ (v >> 13)
+    v = _mul32(v, 0xC2B2AE35)
+    v = v ^ (v >> 16)
+    return v
+
+
+def payload_checksum(payload: torch.Tensor,
+                     layout: "FlatLayout | int | None" = None) -> torch.Tensor:
+    """Per-node uint32 checksum of a stacked ``[N, P]`` payload, as ``[N]``
+    int64 values in [0, 2³²) — equal to the reference's on the same tree.
+
+    Every element's f32 bits are XORed with a Weyl salt keyed on the
+    element's index within its leaf and the leaf's index (both in the
+    reference's order: HWIO convs, sorted leaves), avalanche-mixed, and
+    summed per node mod 2³². The sum is order-free, so the stored order of
+    the buffer does not matter."""
+    pf = payload.to(torch.float32).contiguous()
+    n, p = pf.shape
+    layout = p if layout is None else layout
+    if _size(layout) != p:
+        raise ValueError(f"layout covers {_size(layout)} values, payload "
+                         f"has {p}")
+    key = torch.empty(p, dtype=torch.int64)
+    for off, i, local in _leaves(layout):
+        key[off:off + local.numel()] = local + i
+    salt = _mul32(key.to(pf.device), 0x9E3779B9)
+    u = pf.view(torch.int32).to(torch.int64) & _M32
+    return _mix32(u ^ salt[None, :]).sum(1) & _M32

@@ -14,14 +14,20 @@ Port of ``repro.core.engine`` (engine/host backend). One round is
                 hand-written CUDA kernel over ``[N, P]`` (W rows, optionally
                 importance-weighted for fisher/gradmatch, plus the gate).
 
+With ``cfg.wire_dtype`` = ``"int8"``/``"bf16"`` the peers exchange the
+quantized error-feedback wire (`core.comms`): propose and the gate see the
+wire reconstruction θ̂' = θ̂ + deq(q(θ − θ̂)), and the commit is one launch of
+`kernels.fused_merge.fused_quant_merge_all`, which re-derives θ̂' and merges
+it; the advanced θ̂' comes back in the log under ``"wire"``.
+
 Contracts: ``train_step_fn(params [P], opt_state, batch, step) -> (params,
 opt_state, metrics)`` is per node and is vmapped here, as the reference
 vmaps it; ``eval_fn(params [N, P], val) -> [N]`` takes the whole swarm (the
 gate metrics carry an explicit node axis).
 
 Not in this slice (``NotImplementedError``, see ROADMAP): the gossip and
-host backends, per-node closure lists (model zoo), and at sync the int8/bf16
-wire, ``lora_only`` and ``payload="lora"``.
+host backends, per-node closure lists (model zoo), in-graph fault injection
+(``faults=``), and at sync ``lora_only`` and ``payload="lora"``.
 """
 from __future__ import annotations
 
@@ -31,9 +37,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import SwarmConfig
+from repro_torch.core import comms
 from repro_torch.core import merge_impl as merge_lib
 from repro_torch.core import topology as topo
-from repro_torch.kernels.fused_merge import fused_merge_all
+from repro_torch.core.flat import FlatLayout
+from repro_torch.kernels.fused_merge import (fused_merge_all,
+                                             fused_quant_merge_all)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -102,12 +111,21 @@ class SwarmEngine:
 
     def __init__(self, cfg: SwarmConfig, train_step_fn: Optional[Callable],
                  eval_fn: Optional[Callable], *,
-                 data_sizes: Optional[Sequence[float]] = None):
+                 data_sizes: Optional[Sequence[float]] = None,
+                 layout: Optional[FlatLayout] = None):
         if (isinstance(train_step_fn, (list, tuple))
                 or isinstance(eval_fn, (list, tuple))):
             raise _not_ported("per-node closure lists (model zoo)",
                               "queue 1 item 11, LoRA and the heterogeneous zoo")
         self.cfg = cfg
+        self.wire_dtype = comms.validate_wire_dtype(cfg.wire_dtype)
+        self.wire_block = comms.validate_wire_block(cfg.wire_block)
+        # the leaf boundaries of the payload: the wire's block grid restarts
+        # at every leaf, as the reference's per-leaf quantization does
+        self.layout = layout
+        self._grid = None
+        # the engine backend reports the SPMD-equivalent wire cost
+        self.sync_schedule = comms.pick_schedule(cfg, simulated=True)
         self.data_sizes = (np.ones(cfg.n_nodes) if data_sizes is None
                            else np.asarray(data_sizes, np.float64))
         self.strategy = merge_lib.get_strategy(cfg)
@@ -119,9 +137,12 @@ class SwarmEngine:
         if not 0.0 <= self.fairness_floor <= 1.0:
             raise ValueError("fairness_floor must be a gate-metric value in "
                              f"[0, 1], got {self.fairness_floor}")
-        self._vstep = (None if train_step_fn is None
-                       else torch.func.vmap(train_step_fn,
-                                            in_dims=(0, 0, 0, None)))
+        # vmapped over the node axis; a stateless optimizer (opt_state
+        # None) is passed through unbatched
+        self._vstep = (None if train_step_fn is None else {
+            True: torch.func.vmap(train_step_fn, in_dims=(0, 0, 0, None)),
+            False: torch.func.vmap(train_step_fn, in_dims=(0, None, 0, None),
+                                   out_dims=(0, None, 0))})
         self._veval = eval_fn
         self._base_W = mixing_matrix(cfg, self.data_sizes)
         self.spectral_gap = topo.spectral_gap(self._base_W)
@@ -141,7 +162,8 @@ class SwarmEngine:
         metrics = []
         for k in range(t):
             batch = _index(batches, k)
-            p2, opt_state, m = self._vstep(params, opt_state, batch, step0 + k)
+            p2, opt_state, m = self._vstep[opt_state is not None](
+                params, opt_state, batch, step0 + k)
             if stats is not None:
                 stats = self.strategy.accumulate(stats, params, p2, step0 + k)
             params = p2
@@ -181,11 +203,11 @@ class SwarmEngine:
 
     # -- gated sync ----------------------------------------------------------
 
-    def _check_sync_options(self):
+    def _check_sync_options(self, faults):
         cfg = self.cfg
-        if cfg.wire_dtype != "f32":
-            raise _not_ported(f"wire_dtype={cfg.wire_dtype!r}",
-                              "queue 1 item 9, the quantized wire")
+        if faults is not None:
+            raise _not_ported("in-graph fault injection (faults=)",
+                              "queue 1 item 10, the fault plane")
         if cfg.payload != "full":
             raise _not_ported(f"payload={cfg.payload!r}",
                               "queue 1 item 11, LoRA and the heterogeneous zoo")
@@ -193,22 +215,64 @@ class SwarmEngine:
             raise _not_ported("lora_only=True at sync",
                               "queue 1 item 11, LoRA and the heterogeneous zoo")
 
-    def sync(self, params, val, active=None, stats=None):
+    def _wire_grid(self, params) -> comms.WireGrid:
+        """The payload's :class:`~repro_torch.core.comms.WireGrid` on the
+        params' device, built once (from the layout, or as one leaf)."""
+        g = self._grid
+        if g is None or g.size != params.shape[-1] \
+                or g.segments.device != params.device:
+            g = comms.wire_grid(
+                self.layout if self.layout is not None else params.shape[-1],
+                self.wire_dtype, self.wire_block, device=params.device)
+            self._grid = g
+        return g
+
+    def _auto_wire(self, params, wire):
+        """Default EF wire reference when ``cfg.wire_dtype`` enables
+        compression but the caller threads no state (the direct engine API):
+        a zero reference per call — stateless quantization, so the knob is
+        honoured even without the session's carried ``SwarmState.wire``."""
+        if wire is not None or self.wire_dtype == "f32":
+            return wire
+        return comms.init_wire(params)
+
+    def sync(self, params, val, active=None, stats=None, wire=None,
+             faults=None):
         """propose → validate → gate → fused commit; returns
         ``(committed, log)`` with ``gates`` / ``metric_local`` /
         ``metric_merged`` [N] device tensors (plus ``quorum_ok``,
-        ``fairness_ok``, ``worst_site`` when those policies are on)."""
-        self._check_sync_options()
+        ``fairness_ok``, ``worst_site`` when those policies are on).
+
+        ``wire``: the error-feedback reference θ̂ [N, P] of a quantized wire
+        — peers merge the wire reconstruction θ̂' instead of the exact
+        params, rejected nodes keep their exact f32 locals, and the advanced
+        θ̂' is returned in the log under ``"wire"``."""
+        self._check_sync_options(faults)
         n = self.cfg.n_nodes
         a = (torch.ones((n,), dtype=torch.bool, device=params.device)
              if active is None else active.to(torch.bool))
-        candidate, W, imp = self.propose(params, a, stats=stats)
+        wire = self._auto_wire(params, wire)
+        log = {}
+        if wire is not None:
+            grid = self._wire_grid(params)
+            # θ̂' — what every peer reconstructs from this round's wire
+            # traffic; also next round's reference
+            eff = comms.wire_effective(params, wire, grid)
+            fishers = None
+            if self.strategy.uses_stats:
+                f = stats if stats is not None else torch.zeros_like(params)
+                f = self.strategy.finalize_mass(f, a)
+                # the importance mass crosses the wire too (stateless
+                # round-trip); propose re-finalizes, which only rescales
+                fishers = comms.quant_dequant(f, grid)
+            candidate, W, imp = self.propose(eff, a, fishers=fishers)
+        else:
+            candidate, W, imp = self.propose(params, a, stats=stats)
         with torch.no_grad():
             metric_local = torch.where(a, self._veval(params, val), 1.0)
             metric_merged = torch.where(a, self._veval(candidate, val), 0.0)
         gates = gate_decisions(metric_merged, metric_local,
                                self.cfg.val_threshold) & a
-        log = {}
         if self.quorum > 0:
             # below quorum the whole round holds locals
             quorum_ok = a.to(torch.int32).sum() >= self.quorum
@@ -221,40 +285,52 @@ class SwarmEngine:
             gates = gates & fair_ok
             log["fairness_ok"] = fair_ok
             log["worst_site"] = worst
-        committed = host_commit(params, candidate, W, gates, self.cfg, imp=imp)
+        if wire is not None:
+            committed, log["wire"] = fused_quant_merge_all(
+                params, wire, W, gates, imp, grid=grid)
+        else:
+            committed = host_commit(params, candidate, W, gates, self.cfg,
+                                    imp=imp)
         return committed, dict(log, gates=gates, metric_local=metric_local,
                                metric_merged=metric_merged)
 
     # -- drivers -------------------------------------------------------------
 
     def round(self, params, opt_state, batches, val, active=None, step0=0,
-              stats=None):
+              stats=None, wire=None, faults=None):
         """T local steps + one gated sync."""
         if stats is None:
             stats = self.init_stats(params)
         params, opt_state, stats, train_metrics = self.local_steps(
             params, opt_state, batches, step0, stats)
-        params, log = self.sync(params, val, active, stats=stats)
+        params, log = self.sync(params, val, active, stats=stats, wire=wire,
+                                faults=faults)
         out = dict(log, train=train_metrics)
         if stats is not None:
             out["stats"] = stats
         return params, opt_state, out
 
     def run_rounds(self, params, opt_state, batches, val, active=None,
-                   step0=0, stats=None):
+                   step0=0, stats=None, wire=None):
         """R rounds over [R, T, N, ...] batches. Logs come back stacked
-        [R, ...]. ``cfg.overlap_sync`` switches to the stale-by-one schedule:
-        round k's commit delta is folded in after round k+1's local steps."""
+        [R, ...], with the final ``stats`` and ``wire`` when present.
+        ``cfg.overlap_sync`` switches to the stale-by-one schedule: round
+        k's commit delta is folded in after round k+1's local steps."""
         r = _leading(batches)
         t = _leading(_index(batches, 0))
         if stats is None:
             stats = self.init_stats(params)
+        # the wire reference is made once, outside the loop, so the EF
+        # state accumulates across rounds
+        wire = self._auto_wire(params, wire)
         logs, train = [], []
         pending = torch.zeros_like(params) if self.cfg.overlap_sync else None
         for k in range(r):
             p_loc, opt_state, stats, tm = self.local_steps(
                 params, opt_state, _index(batches, k), step0 + k * t, stats)
-            committed, log = self.sync(p_loc, val, active, stats=stats)
+            committed, log = self.sync(p_loc, val, active, stats=stats,
+                                       wire=wire)
+            wire = log.pop("wire", wire)
             if self.cfg.overlap_sync:
                 # local steps never wait on the in-flight merge: this
                 # round's commit lands one round late
@@ -269,6 +345,8 @@ class SwarmEngine:
         out = _stack_logs(logs)
         if stats is not None:
             out["stats"] = stats
+        if wire is not None:
+            out["wire"] = wire
         return params, opt_state, _stack_logs(train), out
 
     def run_local(self, params, opt_state, batches, step0=0, stats=None):

@@ -8,14 +8,21 @@ Port of ``repro.core.session`` for the engine backend:
     log = session.round(batches, val)                # T steps + gated sync
     session.leave(3); session.round(batches, val)    # membership is data
     session.join(3)
+    session.save("ckpt.msgpack")
+    session = SwarmSession.restore("ckpt.msgpack", cfg, train_step, eval_fn,
+                                   params=flat, opt_state=adamw_init(flat),
+                                   data_sizes=sizes, layout=layout)
 
-The swarm lives in one :class:`SwarmState`: ``params``, the AdamW moments
-and the strategy's importance statistics are flat ``[N, P]`` tensors on the
-session's device (see `repro_torch.core.flat`), ``active`` is the ``[N]``
-membership mask, and ``round``/``step`` are the global counters.
+The swarm lives in one :class:`SwarmState`: ``params``, the AdamW moments,
+the strategy's importance statistics and the quantized wire's
+error-feedback reference are flat ``[N, P]`` tensors on the session's
+device (see `repro_torch.core.flat`), ``active`` is the ``[N]`` membership
+mask, ``rng`` the reference's legacy PRNG key and ``round``/``step`` the
+global counters. Checkpoints hold all of it in the reference's msgpack
+layout (`repro_torch.checkpointing`), so either package restores the
+other's files.
 
-Not in this slice: the gossip and host backends, checkpointing
-(``save``/``restore``), the wire state and the comms cost model.
+Not in this slice: the gossip and host backends.
 """
 from __future__ import annotations
 
@@ -23,12 +30,18 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpointing import (Fields, load_metadata, load_pytree,
+                                       save_pytree)
 from repro_torch.configs.base import SwarmConfig
+from repro_torch.convert import from_reference, to_reference_tree
+from repro_torch.core import comms
 from repro_torch.core.engine import SwarmEngine, _leading, _not_ported
 from repro_torch.core.flat import FlatLayout
+from repro_torch.core.prng import fold_in_key, prng_key
 
 
 @dataclass
@@ -36,12 +49,17 @@ class SwarmState:
     """The whole swarm. ``params`` [N, P]; ``opt_state`` a dict of stacked
     tensors (AdamW: ``mu``/``nu`` [N, P], ``count`` [N]); ``stats`` the
     strategy's [N, P] importance accumulators (None for mean/fedavg);
-    ``active`` the [N] bool membership mask; ``round``/``step`` counters."""
+    ``wire`` the error-feedback reference θ̂ [N, P] of a quantized wire
+    (None for ``wire_dtype="f32"``); ``active`` the [N] bool membership
+    mask; ``rng`` the legacy ``uint32[2]`` PRNG key (numpy), folded once per
+    round; ``round``/``step`` counters."""
 
     params: torch.Tensor
     opt_state: Any = None
     stats: Optional[torch.Tensor] = None
+    wire: Optional[torch.Tensor] = None
     active: Optional[torch.Tensor] = None
+    rng: Any = None
     round: int = 0
     step: int = 0
 
@@ -79,15 +97,19 @@ class SwarmSession:
     params / opt_state : one node's flat params ``[P]`` and optimizer state,
         replicated over the N nodes (the shared warm start).
     data_sizes : per-node dataset sizes (fedavg / weighted-merge weights).
-    layout : the :class:`FlatLayout` of the params, for :attr:`node_params`.
+    layout : the :class:`FlatLayout` of the params: the leaf boundaries of
+        the wire's block grid, the reference tree of :attr:`node_params` and
+        of checkpoints. Without one the params are a single leaf.
     device : where the swarm runs; CUDA unless the caller asks for the CPU.
+    seed : session rng seed (defaults to ``cfg.seed``).
     """
 
     def __init__(self, cfg: SwarmConfig, train_step_fn: Optional[Callable],
                  eval_fn: Optional[Callable], *, params=None, opt_state=None,
                  data_sizes: Optional[Sequence[float]] = None,
                  backend: str = "engine",
-                 layout: Optional[FlatLayout] = None, device="cuda"):
+                 layout: Optional[FlatLayout] = None, device="cuda",
+                 seed: Optional[int] = None):
         if backend in ("gossip", "host"):
             item = ("queue 1 item 13, distributed gossip backend"
                     if backend == "gossip" else "queue 1 item 12, host backend")
@@ -108,11 +130,32 @@ class SwarmSession:
         stacked_params = _stack_per_node(params, n, self.device)
         stacked_opt = _stack_per_node(opt_state, n, self.device)
         self.engine = SwarmEngine(cfg, train_step_fn, eval_fn,
-                                  data_sizes=data_sizes)
+                                  data_sizes=data_sizes, layout=layout)
         self._state = SwarmState(
             params=stacked_params, opt_state=stacked_opt,
             stats=self.engine.init_stats(stacked_params),
-            active=torch.ones((n,), dtype=torch.bool, device=self.device))
+            wire=self.engine._auto_wire(stacked_params, None),
+            active=torch.ones((n,), dtype=torch.bool, device=self.device),
+            rng=prng_key(cfg.seed if seed is None else seed))
+        # the cost model's schedule, surfaced for logs and benchmarks
+        self.sync_schedule = self.engine.sync_schedule
+
+    # -- predicted wire cost -------------------------------------------------
+
+    @property
+    def payload_params(self) -> int:
+        """Per-node payload values P that cross the wire per sync."""
+        return comms.payload_param_count(
+            self._state.params, comms.split_payload_at_sync(self.cfg),
+            self.cfg.n_nodes)
+
+    @property
+    def predicted_sync_bytes(self) -> float:
+        return self.sync_schedule.bytes_per_sync(self.payload_params)
+
+    @property
+    def predicted_link_bytes(self) -> dict:
+        return self.sync_schedule.bytes_by_link_class(self.payload_params)
 
     # -- state ---------------------------------------------------------------
 
@@ -157,23 +200,42 @@ class SwarmSession:
         active[node] = value
         self._state = dataclasses.replace(self._state, active=active)
 
+    def quarantine_wire(self, node: Optional[int] = None) -> None:
+        """Reset the error-feedback reference for a crash → rejoin: zero
+        ``node``'s row of θ̂ (its next sync retransmits its full payload;
+        everyone else's residual is untouched), or all of θ̂ when ``node``
+        is None. A no-op without wire state."""
+        wire = self._state.wire
+        if wire is None:
+            return
+        wire = wire.clone()
+        if node is None:
+            wire.zero_()
+        else:
+            wire[node] = 0
+        self._state = dataclasses.replace(self._state, wire=wire)
+
     # -- drivers -------------------------------------------------------------
 
-    def round(self, batches, val):
+    def round(self, batches, val, faults=None):
         """One full round: ``sync_every`` local steps + gated sync over a
         stacked ``[T, N, ...]`` batch pytree. The log holds device tensors
         ``gates`` / ``metric_local`` / ``metric_merged`` [N] and ``train``
-        ([T, N] per-step metrics)."""
+        ([T, N] per-step metrics). ``faults`` (in-graph corrupt-wire
+        injection) is not ported yet and raises."""
         st = self._state
         batches, val = _to_device(batches, self.device), _to_device(
             val, self.device)
         t = _leading(batches)
         p, o, out = self.engine.round(st.params, st.opt_state, batches, val,
-                                      st.active, st.step, st.stats)
+                                      st.active, st.step, st.stats, st.wire,
+                                      faults)
         stats = out.pop("stats", None)
+        wire = out.pop("wire", st.wire)
         self._state = SwarmState(params=p, opt_state=o, stats=stats,
-                                 active=st.active, round=st.round + 1,
-                                 step=st.step + t)
+                                 wire=wire, active=st.active,
+                                 rng=fold_in_key(st.rng, st.round),
+                                 round=st.round + 1, step=st.step + t)
         return out
 
     def run_rounds(self, batches, val):
@@ -187,11 +249,15 @@ class SwarmSession:
              else batches).shape[1]
         p, o, tm, logs = self.engine.run_rounds(
             st.params, st.opt_state, batches, val, st.active, st.step,
-            st.stats)
+            st.stats, st.wire)
         stats = logs.pop("stats", None)
+        wire = logs.pop("wire", st.wire)
+        rng = st.rng
+        for i in range(r):   # the same per-round folds as r round()s
+            rng = fold_in_key(rng, st.round + i)
         self._state = SwarmState(params=p, opt_state=o, stats=stats,
-                                 active=st.active, round=st.round + r,
-                                 step=st.step + r * t)
+                                 wire=wire, active=st.active, rng=rng,
+                                 round=st.round + r, step=st.step + r * t)
         return dict(logs, train=tm)
 
     def run_local(self, batches):
@@ -205,3 +271,106 @@ class SwarmSession:
                                           stats=stats, step=st.step + s_count)
         return tm
 
+
+    # -- checkpoint / resume -------------------------------------------------
+
+    def _reference_tree(self, value):
+        """A state field in the reference's tree layout (numpy leaves):
+        ``[N, P]`` buffers become the layout's param tree (HWIO convs)."""
+        if value is None:
+            return None
+        if isinstance(value, dict):
+            return {k: self._reference_tree(v) for k, v in value.items()}
+        t = value.detach().cpu()
+        if (self.layout is not None and t.dim() == 2
+                and t.shape == self._state.params.shape):
+            return to_reference_tree(self.layout, t)
+        return t.numpy()
+
+    def _from_reference_tree(self, tree, like):
+        """Inverse of :meth:`_reference_tree`, onto ``like``'s device."""
+        if like is None:
+            return None
+        if isinstance(like, dict):
+            return {k: self._from_reference_tree(tree[k], v)
+                    for k, v in like.items()}
+        if isinstance(tree, np.ndarray):
+            out = torch.from_numpy(np.array(tree))
+        else:
+            out = from_reference(self.layout, tree, lead=1)
+        return out.to(like.device)
+
+    def _checkpoint_tree(self, st: SwarmState) -> Fields:
+        """The reference's ``SwarmState`` pytree, field by field."""
+        return Fields(
+            params=self._reference_tree(st.params),
+            opt_state=self._reference_tree(st.opt_state),
+            stats=self._reference_tree(st.stats),
+            wire=self._reference_tree(st.wire),
+            active=st.active.cpu().numpy(),
+            rng=np.asarray(st.rng, np.uint32),
+            round=np.asarray(st.round, np.int32),
+            step=np.asarray(st.step, np.int32))
+
+    def save(self, path: str) -> None:
+        """Checkpoint the FULL session state (params, opt state, strategy
+        stats, wire reference, active mask, rng, counters) in the
+        reference's msgpack layout."""
+        st = self._state
+        meta = {"cfg": dataclasses.asdict(self.cfg), "backend": "engine",
+                "round": int(st.round), "step": int(st.step), "format": 1}
+        save_pytree(path, self._checkpoint_tree(st), metadata=meta)
+
+    def load(self, path: str) -> "SwarmSession":
+        """Restore a checkpoint into this session (same cfg and shapes)."""
+        saved_cfg = load_metadata(path).get("cfg", {})
+        for key in ("n_nodes", "merge", "topology", "lora_only",
+                    "payload", "wire_dtype"):
+            if key in saved_cfg and saved_cfg[key] != getattr(self.cfg, key):
+                raise ValueError(
+                    f"checkpoint cfg mismatch: {key}={saved_cfg[key]!r} "
+                    f"saved vs {getattr(self.cfg, key)!r} in session")
+        st = self._state
+        tree = load_pytree(path, self._checkpoint_tree(st))
+        fields = ("params", "opt_state", "stats", "wire")
+        self._state = SwarmState(
+            **{f: self._from_reference_tree(tree[f], getattr(st, f))
+               for f in fields},
+            active=torch.from_numpy(np.array(tree["active"])).to(
+                self.device, torch.bool),
+            rng=np.array(tree["rng"], np.uint32),
+            round=int(tree["round"]), step=int(tree["step"]))
+        return self
+
+    @classmethod
+    def restore(cls, path: str, cfg: SwarmConfig, train_step_fn, eval_fn,
+                **kwargs) -> "SwarmSession":
+        """Build a session (constructor kwargs supply the param template)
+        and restore the checkpointed state into it."""
+        return cls(cfg, train_step_fn, eval_fn, **kwargs).load(path)
+
+
+def load_checkpoint_params(path: str, params_template: torch.Tensor, *,
+                           layout: Optional[FlatLayout] = None,
+                           expect_nodes: Optional[int] = None
+                           ) -> torch.Tensor:
+    """Read ONLY the stacked per-node params out of a full
+    :meth:`SwarmSession.save` checkpoint (the serving plane's ingest).
+
+    ``params_template`` is a stacked ``[N, P]`` tensor with the target
+    shape, dtype and device; ``layout`` its :class:`FlatLayout` (None for a
+    single-leaf ``.params``). The opt state, stats, wire and counters are
+    never read into tensors. ``expect_nodes`` cross-checks the checkpoint
+    cfg's ``n_nodes``."""
+    saved_cfg = load_metadata(path).get("cfg", {})
+    if (expect_nodes is not None and "n_nodes" in saved_cfg
+            and saved_cfg["n_nodes"] != expect_nodes):
+        raise ValueError(
+            f"checkpoint has n_nodes={saved_cfg['n_nodes']}, the serving "
+            f"ensemble expects {expect_nodes}")
+    t = params_template.detach().cpu()
+    like = t.numpy() if layout is None else to_reference_tree(layout, t)
+    tree = load_pytree(path, Fields(params=like))["params"]
+    out = (torch.from_numpy(np.array(tree)) if layout is None
+           else from_reference(layout, tree, lead=1))
+    return out.to(device=params_template.device, dtype=params_template.dtype)

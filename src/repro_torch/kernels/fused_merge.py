@@ -1,4 +1,4 @@
-"""Fused gated swarm commit: ``[N, P]`` → ``[N, P]`` in one CUDA launch.
+"""Fused gated swarm commits: ``[N, P]`` → ``[N, P]`` in one CUDA launch.
 
 Replaces the Pallas TPU kernel ``repro/kernels/fused_merge.py`` ::
 ``fused_merge_all`` (bodies ``_merge_all_kernel`` and
@@ -14,9 +14,18 @@ Bound: memory — 2·N·P·4 bytes (3·N·P·4 with ``imp``) for f32, against at
 column's N inputs once into registers, produces all N output rows from them,
 and stages W and the gates in shared memory; see the source for the design.
 
-On a CPU tensor the wrapper computes the plain version
-(:func:`repro_torch.kernels.ref.fused_merge_all_plain`); on a CUDA tensor it
-launches the kernel or raises. ``LAUNCHES`` counts kernel launches per form.
+Its quantized-wire sibling :func:`fused_quant_merge_all` replaces
+``fused_quant_merge_all`` (bodies ``_quant_merge_kernel`` and
+``_quant_merge_imp_kernel``): the error-feedback wire advance
+``r' = r + deq(q(x − r))`` on the per-leaf block grid of
+:class:`repro_torch.core.comms.WireGrid`, then the same gated merge of r',
+in one launch of ``csrc/fused_quant_merge.cu``. Bound: memory — x and r
+(and imp) read once, committed and r' written once: 4·N·P·4 bytes
+(5·N·P·4 with ``imp``).
+
+On a CPU tensor each wrapper computes its plain version
+(`repro_torch.kernels.ref`); on a CUDA tensor it launches the kernel or
+raises. ``LAUNCHES`` counts kernel launches per form.
 """
 from __future__ import annotations
 
@@ -25,12 +34,15 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import fused_merge_all_plain
+from repro_torch.kernels.ref import (fused_merge_all_plain,
+                                     fused_quant_merge_all_plain)
 
 #: kernel launches per form, counted where the kernel is launched
-LAUNCHES = {"fused_merge_all": 0, "fused_merge_all_imp": 0}
+LAUNCHES = {"fused_merge_all": 0, "fused_merge_all_imp": 0,
+            "fused_quant_merge_all": 0, "fused_quant_merge_all_imp": 0}
 MAX_NODES = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_WIRES = {"f32": 0, "bf16": 1, "int8": 2}
 
 
 def reset_launches() -> None:
@@ -45,6 +57,17 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _quant_lib():
+    lib = build.load("fused_quant_merge")
+    fn = lib.fused_quant_merge_all_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -92,3 +115,69 @@ def fused_merge_all(stacked: torch.Tensor, W, gates, imp=None) -> torch.Tensor:
         raise RuntimeError(f"fused_merge_all launch failed: CUDA error {err}")
     LAUNCHES["fused_merge_all" if imp is None else "fused_merge_all_imp"] += 1
     return out
+
+
+def _check_f32(name, t, shape, dev):
+    if (t.device != dev or t.dtype != torch.float32 or t.shape != shape
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous float32 tensor of "
+                         f"shape {tuple(shape)} on {dev}")
+
+
+def fused_quant_merge_all(x: torch.Tensor, r: torch.Tensor, W, gates,
+                          imp=None, *, grid):
+    """Quantized-wire commit: x [N, D] local params and r [N, D] wire
+    reference θ̂ (both f32) → ``(committed [N, D], new reference [N, D])``.
+
+    ``grid`` is the :class:`~repro_torch.core.comms.WireGrid` of the
+    payload (its wire dtype, block size and segment table, on x's device).
+    ``W`` [N, N] mixing rows, ``gates`` [N] acceptance bits, ``imp``
+    optional [N, D] f32 importance. Rejected rows are x, bit for bit; the
+    reference advances for every row.
+    """
+    if x.dim() != 2:
+        raise ValueError(f"x must be [N, D], got {tuple(x.shape)}")
+    n, d = x.shape
+    if grid.size != d:
+        raise ValueError(f"grid covers {grid.size} values, x has {d}")
+    if x.device.type == "cpu":
+        return fused_quant_merge_all_plain(x, r, torch.as_tensor(W), gates,
+                                           imp, grid=grid)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    dev = x.device
+    if not 1 <= n <= MAX_NODES or d < 1:
+        raise ValueError(f"need 1 <= N <= {MAX_NODES} and D >= 1, got "
+                         f"N={n}, D={d}")
+    _check_f32("x", x, x.shape, dev)
+    _check_f32("r", r, x.shape, dev)
+    if imp is not None:
+        _check_f32("imp", imp, x.shape, dev)
+    Wd = torch.as_tensor(W, dtype=torch.float32, device=dev).contiguous()
+    gd = torch.as_tensor(gates, device=dev).to(torch.int32).contiguous()
+    if Wd.shape != (n, n) or gd.shape != (n,):
+        raise ValueError(f"W must be [{n}, {n}] and gates [{n}], got "
+                         f"{tuple(Wd.shape)} and {tuple(gd.shape)}")
+    segs, perm = grid.segments, grid.perm
+    for name, t in (("grid.segments", segs), ("grid.perm", perm)):
+        if t is not None and (t.device != dev or t.dtype != torch.int64
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int64 tensor "
+                             f"on {dev}")
+    if segs.dim() != 2 or segs.shape[1] != 2 or (perm is not None
+                                                 and perm.shape != (d,)):
+        raise ValueError("grid.segments must be [S, 2] and grid.perm [D]")
+    out = torch.empty_like(x)
+    new_ref = torch.empty_like(x)
+    err = _quant_lib()(
+        x.data_ptr(), r.data_ptr(), None if imp is None else imp.data_ptr(),
+        Wd.data_ptr(), gd.data_ptr(), segs.data_ptr(),
+        None if perm is None else perm.data_ptr(), out.data_ptr(),
+        new_ref.data_ptr(), segs.shape[0], n, d, _WIRES[grid.wire_dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_quant_merge_all launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["fused_quant_merge_all" if imp is None
+             else "fused_quant_merge_all_imp"] += 1
+    return out, new_ref

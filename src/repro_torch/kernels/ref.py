@@ -4,12 +4,17 @@
 ``fused_merge_all_plain`` is the plain form of the all-nodes commit
 (`repro_torch.kernels.fused_merge`), in the CUDA kernel's order: for each
 output row, accumulate over j = 0..N-1 in f32, then select against the
-input row. The CPU path of the commit wrapper runs it; on the card it only
-serves as the yardstick the kernel is held against.
+input row. ``fused_quant_merge_all_plain`` is the plain form of the
+quantized-wire commit: the error-feedback advance of `core.comms` (the
+port's one quantization core), then the same merge. The CPU path of each
+commit wrapper runs them; on the card they only serve as the yardstick the
+kernels are held against.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import comms
 
 
 def fused_merge_ref(stacked, weights, self_idx, gate):
@@ -44,3 +49,20 @@ def fused_merge_all_plain(stacked, W, gates, imp=None):
     merged = num if imp is None else num / torch.clamp(den, min=1e-30)
     g = gates.to(device=stacked.device, dtype=torch.bool)[:, None]
     return torch.where(g, merged.to(stacked.dtype), stacked)
+
+
+def fused_quant_merge_all_plain(x, r, W, gates, imp=None, *, grid):
+    """x, r [N, D] f32 → (committed [N, D], new reference [N, D]).
+
+    ``r' = comms.wire_effective(x, r, grid)`` (per-block int8 scales or a
+    bf16 cast round-trip on ``grid``; ``r + (x − r)`` for f32), then
+    ``committed[i] = gate[i] ? merge_i(r') : x[i]`` with the merge of
+    :func:`fused_merge_all_plain` (W rows, or the importance ratio).
+    Rejected rows are ``x``, bit for bit; the reference always advances.
+    """
+    rp = comms.wire_effective(x, r, grid)
+    n = x.shape[0]
+    merged = fused_merge_all_plain(
+        rp, W, torch.ones(n, dtype=torch.bool, device=x.device), imp)
+    g = gates.to(device=x.device, dtype=torch.bool)[:, None]
+    return torch.where(g, merged, x), rp

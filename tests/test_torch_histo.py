@@ -1,7 +1,8 @@
 """End to end: the paper's protocol (``run_experiment``, TINY config) in both
 packages from the same init — the port's ``_init_params`` is patched to hand
 back the reference's init carried across — with the centralized, local and
-swarm report rows and the sync logs compared at 2e-3."""
+swarm report rows and the sync logs compared at 2e-3, on the f32 wire and
+on the int8 error-feedback wire."""
 import jax
 import numpy as np
 import pytest
@@ -20,10 +21,9 @@ TOL = dict(rtol=2e-3, atol=2e-3)
 KEYS = ("auc", "accuracy", "sensitivity", "specificity", "f1", "dbi")
 
 
-@pytest.fixture(scope="module")
-def both_reports():
+def _both_reports(**wire):
     swarm = dict(n_nodes=4, sync_every=3, topology="full", merge="fedavg",
-                 lora_only=False, val_threshold=0.8)
+                 lora_only=False, val_threshold=0.8, **wire)
     jcfg = jh.HistoExperimentConfig(seed=0, swarm=JSwarmConfig(**swarm),
                                     **tp.TINY)
     tcfg = th.HistoExperimentConfig(seed=0, swarm=SwarmConfig(**swarm),
@@ -44,12 +44,31 @@ def both_reports():
     return jh.run_experiment(jcfg), port
 
 
+@pytest.fixture(scope="module")
+def both_reports():
+    return _both_reports()
+
+
+@pytest.fixture(scope="module")
+def int8_reports():
+    return _both_reports(wire_dtype="int8", wire_block=128)
+
+
 def _row(rep):
     return np.asarray([rep[k] for k in KEYS])
 
 
 def test_report_rows_match(both_reports):
-    ref, port = both_reports
+    _check_rows(*both_reports)
+
+
+def test_int8_wire_report_and_sync_logs_match(int8_reports):
+    ref, port = int8_reports
+    _check_rows(ref, port)
+    _check_sync_logs(ref, port)
+
+
+def _check_rows(ref, port):
     assert port["config"] == ref["config"]
     np.testing.assert_allclose(_row(port["centralized"]),
                                _row(ref["centralized"]), **TOL)
@@ -62,7 +81,10 @@ def test_report_rows_match(both_reports):
 
 
 def test_sync_logs_match(both_reports):
-    ref, port = both_reports
+    _check_sync_logs(*both_reports)
+
+
+def _check_sync_logs(ref, port):
     assert len(port["sync_log"]) == len(ref["sync_log"]) == 2
     for a, b in zip(port["sync_log"], ref["sync_log"]):
         assert a["step"] == b["step"] and a["gates"] == b["gates"]

@@ -1,6 +1,8 @@
 """The port stands alone: it imports neither jax nor anything of the
-reference package ``repro`` — checked at run time in a fresh interpreter
-that drives one small CPU round, and statically over every source file."""
+reference package ``repro``, nor the ``msgpack`` package (the card's
+machine has none) — checked at run time in a fresh interpreter that drives
+one small CPU round on the int8 wire and a checkpoint round trip, and
+statically over every source file."""
 import ast
 import subprocess
 import sys
@@ -28,7 +30,7 @@ from repro_torch.optim import adamw_init
 ecfg = histo.HistoExperimentConfig(steps=2, growth=4, stem=8, feat_dim=32,
                                    hidden=16, n_blocks=1, layers_per_block=2)
 cfg = SwarmConfig(n_nodes=2, sync_every=2, topology="full", merge="fedavg",
-                  lora_only=False)
+                  lora_only=False, wire_dtype="int8", wire_block=128)
 model = histo._model(ecfg)
 layout = FlatLayout.of_module(model)
 step, _ = histo._make_model_fns(ecfg, model, layout)
@@ -43,8 +45,13 @@ val = (rng.normal(0, 1, (2, 6, 16, 16, 3)).astype(np.float32),
        rng.integers(0, 3, (2, 6)), np.ones((2, 6), bool))
 log = sess.round((xs, ys), val)
 assert log["gates"].shape == (2,)
+import tempfile, os
+path = os.path.join(tempfile.mkdtemp(), "s.msgpack")
+sess.save(path)
+assert torch.equal(sess.load(path).state.wire, sess.state.wire)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "msgpack" or m.startswith("msgpack.")
              or m == "repro" or m.startswith("repro."))
 print("LOADED", bad)
 """
@@ -75,4 +82,5 @@ def test_no_jax_or_reference_import(path):
     assert path.exists()
     for mod in _imports(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+        assert top not in ("jax", "jaxlib", "repro", "msgpack"), \
+            f"{path}: imports {mod}"

@@ -1,6 +1,7 @@
-"""The port's CUDA commit kernel against its plain version, and the
-wrapper's dispatch and input checks. Imports neither jax nor the reference,
-so it also runs on the machine with the card:
+"""The port's CUDA commit kernels (the f32 commit and the quantized-wire
+commit) against their plain versions, and the wrappers' dispatch and input
+checks. Imports neither jax nor the reference, so it also runs on the
+machine with the card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels.py
 
@@ -10,8 +11,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import comms  # noqa: E402
+from repro_torch.core.flat import FlatLayout  # noqa: E402
 from repro_torch.kernels import fused_merge as fm  # noqa: E402
-from repro_torch.kernels.ref import fused_merge_all_plain  # noqa: E402
+from repro_torch.kernels.ref import (fused_merge_all_plain,  # noqa: E402
+                                     fused_quant_merge_all_plain)
 
 torch.set_num_threads(2)
 CASES = [(4, 100_003, torch.float32, False), (4, 100_003, torch.float32, True),
@@ -103,3 +107,83 @@ def test_kernel_input_checks_on_card():
     with pytest.raises(ValueError, match="N <= 64"):
         fm.fused_merge_all(big, torch.eye(65, device=dev),
                            torch.ones(65, dtype=torch.bool, device=dev))
+
+
+# -- the quantized-wire commit ------------------------------------------------
+
+# leaves off the 128 grid, so segments end at leaf boundaries, and a conv
+# leaf whose blocks (HWIO order) are scattered over its OIHW storage
+LAYOUT = FlatLayout([("b", (300,)), ("conv", (16, 8, 3, 3)), ("a", (6, 9)),
+                     ("c", (3, 5, 2))])
+QCASES = [(4, LAYOUT), (4, 100_003), (64, 777), (5, LAYOUT), (2, 128)]
+
+
+def _quant_inputs(n, layout, wire, with_imp, device, seed=0):
+    rng = np.random.default_rng(seed)
+    d = layout.size if isinstance(layout, FlatLayout) else layout
+    x = torch.from_numpy(rng.normal(0, 1, (n, d)).astype(np.float32))
+    r = torch.from_numpy(rng.normal(0, 0.5, (n, d)).astype(np.float32))
+    W = torch.from_numpy(rng.dirichlet(np.ones(n), size=n).astype(np.float32))
+    f = (torch.from_numpy(np.abs(rng.normal(1, 0.4, (n, d))).astype(np.float32))
+         if with_imp else None)
+    grid = comms.wire_grid(layout, wire, 128, device=device)
+    return (x.to(device), r.to(device), W.to(device),
+            None if f is None else f.to(device), grid, rng)
+
+
+def test_quant_plain_form_semantics_on_cpu():
+    """r' = r + deq(q(x − r)) on the grid; committed = gate ? W·r' : x."""
+    x, r, W, _, grid, _ = _quant_inputs(4, LAYOUT, "int8", False, "cpu")
+    g = torch.tensor([True, False, True, True])
+    before = dict(fm.LAUNCHES)
+    got, rp = fm.fused_quant_merge_all(x, r, W, g, grid=grid)
+    assert fm.LAUNCHES == before
+    assert torch.equal(rp, comms.wire_effective(x, r, grid))
+    assert torch.equal(got[1], x[1])
+    np.testing.assert_allclose(got[0].numpy(), (W[0] @ rp).numpy(), rtol=1e-6,
+                               atol=1e-6)
+    # the EF step transmits most of x − r: r' is within one int8 step of x
+    assert float((rp - x).abs().max()) <= float((x - r).abs().max()) / 127
+    xf, rf, Wf, _, fgrid, _ = _quant_inputs(4, 300, "f32", False, "cpu")
+    _, rp32 = fm.fused_quant_merge_all(xf, rf, Wf, g, grid=fgrid)
+    assert torch.equal(rp32, rf + (xf - rf))
+    with pytest.raises(ValueError, match="grid covers"):
+        fm.fused_quant_merge_all(xf, rf, Wf, g, grid=grid)
+
+
+@pytest.mark.parametrize("wire", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("with_imp", [False, True])
+@pytest.mark.parametrize("n,layout", QCASES,
+                         ids=lambda v: "layout" if isinstance(v, FlatLayout)
+                         else str(v))
+def test_quant_kernel_matches_plain_on_card(n, layout, wire, with_imp):
+    dev = _cuda()
+    x, r, W, f, grid, rng = _quant_inputs(n, layout, wire, with_imp, dev,
+                                          seed=n)
+    name = "fused_quant_merge_all_imp" if with_imp else "fused_quant_merge_all"
+    for gates in (torch.ones(n, dtype=torch.bool),
+                  torch.zeros(n, dtype=torch.bool),
+                  torch.from_numpy(rng.random(n) > 0.5)):
+        gates = gates.to(dev)
+        before = fm.LAUNCHES[name]
+        got, rp = fm.fused_quant_merge_all(x, r, W, gates, f, grid=grid)
+        want, wrp = fused_quant_merge_all_plain(x, r, W, gates, f, grid=grid)
+        torch.cuda.synchronize()
+        # same arithmetic in the same order: equal bit for bit
+        assert torch.equal(rp, wrp)
+        assert torch.equal(got, want)
+        assert torch.equal(got[~gates], x[~gates])
+        assert fm.LAUNCHES[name] == before + 1
+
+
+def test_quant_kernel_input_checks_on_card():
+    dev = _cuda()
+    x, r, W, f, grid, _ = _quant_inputs(4, 1000, "int8", True, dev)
+    g = torch.ones(4, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="r must be"):
+        fm.fused_quant_merge_all(x, r.double(), W, g, grid=grid)
+    with pytest.raises(ValueError, match="imp must be"):
+        fm.fused_quant_merge_all(x, r, W, g, f[:, :10], grid=grid)
+    with pytest.raises(ValueError, match="grid.segments"):
+        fm.fused_quant_merge_all(
+            x, r, W, g, grid=comms.wire_grid(1000, "int8", 128))

@@ -2,8 +2,10 @@
 same carried-across state and batches: params at 1e-4 after whole rounds,
 gate bits equal (a node whose reference gate margin |merged − 0.8·local| is
 below 1e-4 is left out of the bit comparison), membership masks, the
-stale-by-one ``overlap_sync`` schedule, and the options this slice does not
-port."""
+stale-by-one ``overlap_sync`` schedule, the int8/bf16 error-feedback wire
+(params and wire reference), and the options this slice does not port."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,62 +15,16 @@ torch = pytest.importorskip("torch")
 
 import torch_parity as tp  # noqa: E402
 from repro.configs.base import SwarmConfig as JSwarmConfig  # noqa: E402
-from repro.core.session import SwarmSession as JSession  # noqa: E402
-from repro.experiments import histo as jh  # noqa: E402
-from repro.metrics import gate_metric_fn  # noqa: E402
-from repro.models.cnn import forward_cnn  # noqa: E402
-from repro.optim import adamw_init as jadamw_init  # noqa: E402
 from repro_torch.configs.base import SwarmConfig  # noqa: E402
 from repro_torch.convert import from_reference  # noqa: E402
 from repro_torch.core.session import SwarmSession  # noqa: E402
-from repro_torch.experiments import histo as th  # noqa: E402
-from repro_torch.optim import adamw_init  # noqa: E402
 
 tp.torch_cpu()
-SIZES = [16, 48, 48, 48]
+SIZES = tp.SIZES
 THR = 0.8
 
 
-def _data(seed, t=3, r=1, n=4, b=8, size=16, v=10):
-    rng = np.random.default_rng(seed)
-    xs = tp.images(rng, r * t * n * b, size).reshape((r, t, n, b, size, size, 3))
-    ys = rng.integers(0, 3, (r, t, n, b)).astype(np.int32)
-    vx = tp.images(rng, n * v, size).reshape((n, v, size, size, 3))
-    vy = rng.integers(0, 3, (n, v)).astype(np.int32)
-    vm = np.ones((n, v), bool)
-    vm[0, 6:] = False     # node 0 holds a shorter, padded validation set
-    vx[0, 6:] = 0.0
-    return xs, ys, (vx, vy, vm)
-
-
-def _sessions(kw, seed=0):
-    ecfg_j = jh.HistoExperimentConfig(**tp.TINY)
-    ecfg_t = th.HistoExperimentConfig(**tp.TINY)
-    jtrain, _, _ = jh._make_model_fns(ecfg_j)
-    metric = gate_metric_fn("auc")
-
-    def jeval(p, v):
-        x, y, m = v
-        return metric(jax.nn.sigmoid(forward_cnn(p, x)), y, m)
-
-    model = th._model(ecfg_t)
-    _, layout, _ = tp.tiny_model()
-    ttrain, _ = th._make_model_fns(ecfg_t, model, layout)
-    tree = tp.jax_params(seed, tp.WIDTHS)
-    flat = from_reference(layout, tree)
-    js = JSession(JSwarmConfig(**kw), jtrain, jeval, params=tree,
-                  opt_state=jadamw_init(tree), data_sizes=SIZES, seed=0)
-    cfg = SwarmConfig(**kw)
-    ts = SwarmSession(cfg, ttrain, th._make_eval_fn(cfg, model, layout),
-                      params=flat, opt_state=adamw_init(flat),
-                      data_sizes=SIZES, layout=layout, device="cpu")
-    return js, ts, layout
-
-
-def _check(js, ts, layout, jlog, tlog):
-    want = from_reference(layout, jax.tree.map(np.asarray, js.state.params),
-                          lead=1).numpy()
-    got = ts.state.params.numpy()
+def _check_flat(got, want, layout):
     # The FC biases feed a batch-statistics BN, so their gradient is zero in
     # exact arithmetic: AdamW turns each framework's rounding noise into
     # ±lr steps. They are held to the summed lr of the steps taken instead.
@@ -79,6 +35,18 @@ def _check(js, ts, layout, jlog, tlog):
     np.testing.assert_allclose(got[:, ~noise], want[:, ~noise],
                                rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got[:, noise], want[:, noise], atol=2e-3)
+
+
+def _check(js, ts, layout, jlog, tlog):
+    _check_flat(ts.state.params.numpy(),
+                from_reference(layout, jax.tree.map(np.asarray,
+                                                    js.state.params),
+                               lead=1).numpy(), layout)
+    if js.state.wire is not None:
+        _check_flat(ts.state.wire.numpy(),
+                    from_reference(layout, jax.tree.map(np.asarray,
+                                                        js.state.wire),
+                                   lead=1).numpy(), layout)
     ml = np.asarray(jlog["metric_local"]).reshape(-1)
     mm = np.asarray(jlog["metric_merged"]).reshape(-1)
     clear = np.abs(mm - THR * ml) >= 1e-4
@@ -98,8 +66,8 @@ def _check(js, ts, layout, jlog, tlog):
 def test_round_then_leave_round_matches_reference(merge, topology):
     kw = dict(n_nodes=4, sync_every=3, topology=topology, merge=merge,
               lora_only=False, val_threshold=THR)
-    js, ts, layout = _sessions(kw)
-    xs, ys, val = _data(1, r=2)
+    js, ts, layout = tp.sessions(kw)
+    xs, ys, val = tp.round_data(1, r=2)
     jval = tuple(jnp.asarray(v) for v in val)
     for r in range(2):
         if r == 1:            # membership is runtime data on both sides
@@ -120,8 +88,8 @@ def test_round_then_leave_round_matches_reference(merge, topology):
 def test_overlap_sync_run_rounds_matches_reference():
     kw = dict(n_nodes=4, sync_every=2, topology="full", merge="fedavg",
               lora_only=False, val_threshold=THR, overlap_sync=True)
-    js, ts, layout = _sessions(kw, seed=2)
-    xs, ys, val = _data(3, t=2, r=2)
+    js, ts, layout = tp.sessions(kw, seed=2)
+    xs, ys, val = tp.round_data(3, t=2, r=2)
     jlog = js.run_rounds((jnp.asarray(xs), jnp.asarray(ys)),
                          tuple(jnp.asarray(v) for v in val))
     tlog = ts.run_rounds((xs, ys), val)
@@ -133,7 +101,6 @@ def test_overlap_sync_run_rounds_matches_reference():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(wire_dtype="int8"), "quantized wire"),
     (dict(lora_only=True), "lora_only"),
     (dict(payload="lora", lora_only=False), "payload"),
 ])
@@ -143,11 +110,45 @@ def test_unported_sync_options_raise_when_sync_runs(kw, match):
     sync that needs them raises."""
     base = dict(n_nodes=4, sync_every=2, topology="full", merge="fedavg",
                 lora_only=False)
-    _, ts, _ = _sessions(dict(base, **kw))
-    xs, ys, val = _data(4, t=2)
+    _, ts, _ = tp.sessions(dict(base, **kw))
+    xs, ys, val = tp.round_data(4, t=2)
     ts.run_local((xs[0], ys[0]))
     with pytest.raises(NotImplementedError, match=match):
         ts.round((xs[0], ys[0]), val)
+
+
+@pytest.mark.parametrize("wire,merge,topology", [
+    ("int8", "fedavg", "full"), ("int8", "fisher", "ring"),
+    ("int8", "gradmatch", "dynamic"), ("bf16", "fedavg", "full")])
+def test_wire_rounds_match_reference(wire, merge, topology):
+    """Rounds on the int8/bf16 error-feedback wire from the same carried
+    state: params and the wire reference θ̂ at the tolerances above after
+    every round, gates equal, the rng folded as the reference folds it."""
+    kw = dict(n_nodes=4, sync_every=2, topology=topology, merge=merge,
+              lora_only=False, val_threshold=THR, wire_dtype=wire,
+              wire_block=128)
+    js, ts, layout = tp.sessions(kw, seed=4)
+    xs, ys, val = tp.round_data(5, t=2, r=3)
+    jval = tuple(jnp.asarray(v) for v in val)
+    for r in range(3):
+        batch = (xs[r], ys[r])
+        jlog = js.round(tuple(jnp.asarray(b) for b in batch), jval)
+        tlog = ts.round(batch, val)
+        _check(js, ts, layout, jlog, tlog)
+    np.testing.assert_array_equal(ts.state.rng, np.asarray(js.state.rng))
+    assert (dataclasses.asdict(ts.sync_schedule)
+            == dataclasses.asdict(js.sync_schedule))
+    assert ts.payload_params == js.payload_params
+    assert ts.predicted_link_bytes == js.predicted_link_bytes
+
+
+def test_faults_option_raises_not_ported():
+    kw = dict(n_nodes=4, sync_every=2, topology="full", merge="fedavg",
+              lora_only=False, wire_dtype="int8", wire_block=128)
+    _, ts, _ = tp.sessions(kw)
+    xs, ys, val = tp.round_data(4, t=2)
+    with pytest.raises(NotImplementedError, match="fault plane"):
+        ts.round((xs[0], ys[0]), val, faults=object())
 
 
 def test_unported_backends_and_device_policy():

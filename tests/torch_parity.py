@@ -1,13 +1,24 @@
 """Shared helpers for the port's parity tests (``test_torch_*.py``): build the
-same small CNN, weights and data in both packages from one numpy seed."""
+same small CNN, weights, data and swarm sessions in both packages from one
+numpy seed."""
 import jax
 import numpy as np
 import torch
 
+from repro.configs.base import SwarmConfig as JSwarmConfig
+from repro.core.session import SwarmSession as JSession
+from repro.experiments import histo as jh
+from repro.metrics import gate_metric_fn
+from repro.models.cnn import forward_cnn
 from repro.models.cnn import init_cnn as jax_init_cnn
+from repro.optim import adamw_init as jadamw_init
+from repro_torch.configs.base import SwarmConfig
 from repro_torch.convert import from_reference
 from repro_torch.core.flat import FlatLayout
+from repro_torch.core.session import SwarmSession
+from repro_torch.experiments import histo as th
 from repro_torch.models.cnn import HistoCNN
+from repro_torch.optim import adamw_init
 
 # tests/test_experiments.py's TINY protocol config
 TINY = dict(n_train=160, n_test=64, steps=6, image_size=16, batch_size=8,
@@ -41,3 +52,53 @@ def images(rng, b, size):
 def torch_cpu():
     torch.set_num_threads(2)
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+SIZES = [16, 48, 48, 48]
+
+
+def round_data(seed, t=3, r=1, n=4, b=8, size=16, v=10):
+    """[R, T, N, B, H, W, 3] images, labels and a padded validation set."""
+    rng = np.random.default_rng(seed)
+    xs = images(rng, r * t * n * b, size).reshape((r, t, n, b, size, size, 3))
+    ys = rng.integers(0, 3, (r, t, n, b)).astype(np.int32)
+    vx = images(rng, n * v, size).reshape((n, v, size, size, 3))
+    vy = rng.integers(0, 3, (n, v)).astype(np.int32)
+    vm = np.ones((n, v), bool)
+    vm[0, 6:] = False     # node 0 holds a shorter, padded validation set
+    vx[0, 6:] = 0.0
+    return xs, ys, (vx, vy, vm)
+
+
+def session_fns():
+    """The TINY CNN's train step and gate metric in both packages, plus the
+    port's model and layout: (jtrain, jeval, ttrain, teval_for, layout)."""
+    ecfg_j = jh.HistoExperimentConfig(**TINY)
+    ecfg_t = th.HistoExperimentConfig(**TINY)
+    jtrain, _, _ = jh._make_model_fns(ecfg_j)
+    metric = gate_metric_fn("auc")
+
+    def jeval(p, v):
+        x, y, m = v
+        return metric(jax.nn.sigmoid(forward_cnn(p, x)), y, m)
+
+    model = th._model(ecfg_t)
+    _, layout, _ = tiny_model()
+    ttrain, _ = th._make_model_fns(ecfg_t, model, layout)
+    return jtrain, jeval, ttrain, lambda cfg: th._make_eval_fn(cfg, model,
+                                                               layout), layout
+
+
+def sessions(kw, seed=0):
+    """A reference and a port SwarmSession with the same config, weights
+    (the reference's init carried across) and data sizes."""
+    jtrain, jeval, ttrain, teval, layout = session_fns()
+    tree = jax_params(seed, WIDTHS)
+    flat = from_reference(layout, tree)
+    js = JSession(JSwarmConfig(**kw), jtrain, jeval, params=tree,
+                  opt_state=jadamw_init(tree), data_sizes=SIZES, seed=0)
+    cfg = SwarmConfig(**kw)
+    ts = SwarmSession(cfg, ttrain, teval(cfg), params=flat,
+                      opt_state=adamw_init(flat), data_sizes=SIZES,
+                      layout=layout, device="cpu")
+    return js, ts, layout
