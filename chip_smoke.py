@@ -34,7 +34,28 @@ Phases, each printing one JSON line:
                  set deterministic for the round);
   9. parity      one small round on the card against the same round on the
                  CPU (plain commit, CPU convs), TF32 off, params at 1e-4;
- 10. kernels     the per-kernel summary line, then the ``ok`` line.
+ 10. lora_kernel the fused LoRA matmul against its plain version on the card
+                 (the reference's tolerance: 2e-5 f32, 2e-2 bf16) at the
+                 zoo head's train, validation and test shapes, the
+                 reference's four sweep shapes and ragged ones, a zero-B
+                 case equal to x @ W, and the autograd Function's
+                 gradients (x, W, A, B, scale) against autograd through the
+                 plain version at 1e-5; times at the zoo shape and at
+                 (M, K, N, r) = (128, 1024, 256, 64) beside the plain
+                 version, the unfused cuBLAS form (three calls, never used
+                 by the port) and the card's bound: device time per call
+                 from the profiler, and the host clock's time per call;
+ 11. hetero      the heterogeneous model-zoo swarm: ``run_scenario`` over
+                 the five cells of ``scenario_grid`` at the
+                 ``ScenarioRunConfig`` defaults (N = 4, 16 px, feat 16,
+                 hidden 16, rank 4, 24 steps, int8 wire); per cell the LoRA
+                 kernel must launch, the quantized commit once per sync and
+                 the f32 commit never, 180 payload values per node, the wire
+                 at most 5 % of a full f32 sync, finite per-site AUCs and the
+                 reference's row keys; then one profiled zoo round and a
+                 card-vs-CPU parity of one zoo round (TF32 off, payload rows
+                 at 1e-4);
+ 12. kernels     the per-kernel summary line, then the ``ok`` line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's sources beside it. Imports nothing of the JAX package.
@@ -53,7 +74,8 @@ sys.path.insert(0, str(ROOT / "src"))
 CARDS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
          ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
 SOURCES = {"fused_merge": "src/repro_torch/csrc/fused_merge.cu",
-           "fused_quant_merge": "src/repro_torch/csrc/fused_quant_merge.cu"}
+           "fused_quant_merge": "src/repro_torch/csrc/fused_quant_merge.cu",
+           "lora_matmul": "src/repro_torch/csrc/lora_matmul.cu"}
 # kernel → (source stem, the TPU kernel body it replaces)
 KERNELS = {
     "fused_merge_all": ("fused_merge",
@@ -63,7 +85,8 @@ KERNELS = {
     "fused_quant_merge_all": ("fused_quant_merge",
                               "src/repro/kernels/fused_merge.py:206"),
     "fused_quant_merge_all_imp": ("fused_quant_merge",
-                                  "src/repro/kernels/fused_merge.py:226")}
+                                  "src/repro/kernels/fused_merge.py:226"),
+    "lora_matmul": ("lora_matmul", "src/repro/kernels/lora_matmul.py:26")}
 N, P = 4, 1_639_705
 WIRE_BLOCK = 512
 
@@ -97,6 +120,29 @@ def time_ms(fn, iters=50, warm=20, repeats=7):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return sorted(times)[len(times) // 2]
+
+
+def device_ms(fn, iters=200, warm=20):
+    """Device time per call: the CUDA kernels' own time summed over
+    ``iters`` calls under ``torch.profiler``, over ``iters``. Where one call
+    takes microseconds, CUDA events around back-to-back calls measure the
+    host's rate of enqueueing them (the Python wrapper), not the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return us / 1e3 / iters
 
 
 def check_commit(got, want, x, gates):
@@ -440,6 +486,9 @@ def phase_profile(sess, batch, val, path):
     emit("profile", path=path, round_wall_s=wall, device_busy_s=busy,
          device_busy_share=busy / wall,
          commit_kernel_ms=ms_of("merge_all_kernel", "quant_merge_kernel"),
+         lora_kernel_ms=ms_of("lora_kernel"),
+         lora_kernel_calls=sum(c for _, c, k in kernels
+                               if "lora_kernel" in k),
          scatter_gather_ms=ms_of("scatter", "gather", "index"),
          top=[{"kernel": k, "ms": us / 1e3, "calls": c}
               for us, c, k in kernels[:12]])
@@ -532,6 +581,213 @@ def phase_parity(dev):
     emit("parity", max_abs_err=out)
 
 
+# (M, K, N, r, dtype name): the zoo head's train, validation and test
+# shapes, the reference's sweep shapes (tests/test_kernels.py), ragged ones
+LORA_SHAPES = ((8, 16, 16, 4, "float32"), (24, 16, 16, 4, "float32"),
+               (160, 16, 16, 4, "float32"), (128, 256, 128, 8, "float32"),
+               (256, 512, 384, 16, "float32"),
+               (128, 1024, 256, 64, "float32"),
+               (256, 256, 256, 16, "bfloat16"), (37, 70, 45, 3, "float32"),
+               (33, 65, 31, 128, "float32"), (37, 70, 45, 5, "bfloat16"))
+LORA_ZOO = (8, 16, 16, 4)
+LORA_SWEEP = (128, 1024, 256, 64)
+
+
+def _lora_inputs(dev, gen, m, k, n, r, dtype):
+    import torch
+    dt = getattr(torch, dtype)
+
+    def t(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen)
+                * scale).to(dt)
+
+    return (t(m, k), t(k, n, scale=k ** -0.5), t(k, r, scale=k ** -0.5),
+            t(r, n, scale=r ** -0.5),
+            torch.tensor(1.5, dtype=torch.float32, device=dev))
+
+
+def _lora_bound(m, k, n, r, bw, peak, itemsize=4):
+    """(bound_ms, bound_by): each input read once (and the f32 scale), the
+    output written once; 2·M·N·K + 2·M·K·r + 2·M·r·N f32 operations."""
+    nbytes = (m * k + k * n + k * r + r * n + m * n) * itemsize + 4
+    flops = 2 * m * n * k + 2 * m * k * r + 2 * m * r * n
+    bytes_ms, flops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def phase_lora_kernel(dev, bw, peak):
+    """The fused LoRA matmul against its plain version on the card, its
+    gradient, and its times beside the plain version, the unfused cuBLAS
+    form and the bound."""
+    import torch
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels.ref import lora_matmul_plain
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    max_err = 0.0
+    for m, k, n, r, dtype in LORA_SHAPES:
+        tol = 2e-2 if dtype == "bfloat16" else 2e-5
+        x, w, a, b, s = _lora_inputs(dev, gen, m, k, n, r, dtype)
+        for bb, want in ((b, lora_matmul_plain(x, w, a, b, s)),
+                         (torch.zeros_like(b),
+                          (x.float() @ w.float()).to(x.dtype))):
+            got = lm.lora_matmul(x, w, a, bb, s)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            if bool((err > tol + tol * want.float().abs()).any()):
+                raise AssertionError(f"lora_matmul {(m, k, n, r, dtype)}: "
+                                     f"max err {float(err.max())}")
+            if dtype == "float32":
+                max_err = max(max_err, float(err.max()))
+    # the autograd Function (kernel forward) against autograd through the
+    # plain version, at the zoo's train shape with a live low-rank path
+    x, w, a, b, s = _lora_inputs(dev, gen, *LORA_ZOO, "float32")
+    gy = torch.randn(LORA_ZOO[0], LORA_ZOO[2], device=dev, generator=gen)
+
+    def grads(fn):
+        return torch.func.grad(lambda *v: (fn(*v) * gy).sum(),
+                               argnums=(0, 1, 2, 3, 4))(x, w, a, b, s)
+
+    before = lm.LAUNCHES["lora_matmul"]
+    got = grads(lm.lora_apply)
+    if lm.LAUNCHES["lora_matmul"] != before + 1:
+        raise AssertionError("the gradient's forward did not launch the "
+                             "kernel")
+    want = grads(lora_matmul_plain)
+    grad_err = {}
+    for name, g, h in zip(("x", "w", "a", "b", "scale"), got, want):
+        if not torch.allclose(g, h, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"lora grad {name}: max err "
+                                 f"{float((g - h).abs().max())}")
+        grad_err[name] = float((g - h).abs().max())
+
+    # device time per call (profiler) and, beside it, the host clock's
+    # time per call of back-to-back calls (CUDA events)
+    out = {}
+    for label, (m, k, n, r) in (("zoo", LORA_ZOO), ("sweep", LORA_SWEEP)):
+        x, w, a, b, s = _lora_inputs(dev, gen, m, k, n, r, "float32")
+        fns = {"kernel": lambda: lm.lora_matmul(x, w, a, b, s),
+               "plain": lambda: lora_matmul_plain(x, w, a, b, s),
+               "unfused_cublas": lambda: torch.addmm(x @ w, x @ a, b,
+                                                     alpha=1.5)}
+        bound_ms, bound_by = _lora_bound(m, k, n, r, bw, peak)
+        out[label] = dict(shape=[m, k, n, r], bound_ms=bound_ms,
+                          bound_by=bound_by)
+        for name, fn in fns.items():
+            out[label][f"{name}_ms"] = device_ms(fn)
+            out[label][f"{name}_host_ms"] = time_ms(fn)
+    emit("lora_kernel", shapes=[list(t) for t in LORA_SHAPES],
+         max_abs_err_f32=max_err, grad_max_abs_err=grad_err,
+         timings=out, tolerance={"float32": 2e-5, "bfloat16": 2e-2,
+                                 "grad": 1e-5})
+    zoo = out["zoo"]
+    return {"lora_matmul": dict(
+        max_abs_err=max_err, ms=zoo["kernel_ms"], plain_ms=zoo["plain_ms"],
+        library_ms=None, bound_ms=zoo["bound_ms"],
+        bound_by=zoo["bound_by"])}
+
+
+ROW_KEYS = {"scenario", "partition", "families", "shard_sizes", "n_synth",
+            "schedule", "payload_class", "payload_params",
+            "wire_bytes_per_sync", "full_f32_bytes_per_sync", "retraces",
+            "rounds", "per_site", "site_auc_spread",
+            "site_sensitivity_spread", "worst_site_auc", "oracle",
+            "oracle_gap_auc", "gates_last", "wire_fraction_of_full",
+            "fairness_ok_last", "worst_site_gate_metric"}
+
+
+def phase_hetero(dev):
+    """``run_scenario`` over the five cells at the defaults, with the
+    launch counts set to 0 just before each cell and read just after."""
+    import math
+
+    import torch
+    from repro_torch.experiments import scenarios
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    rcfg = scenarios.ScenarioRunConfig()
+    rounds = rcfg.steps // rcfg.swarm.sync_every
+    total = {}
+    cells = []
+    for scn in scenarios.scenario_grid():
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        row = scenarios.run_scenario(scn, rcfg, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        want = {k: 0 for k in LAUNCHES}
+        want.update(fused_quant_merge_all=rounds,
+                    lora_matmul=launches["lora_matmul"])
+        if launches["lora_matmul"] < 1 or launches != want:
+            raise AssertionError(f"{scn.name}: launches {launches}, want "
+                                 f"{rounds} quantized commits, the LoRA "
+                                 "kernel, nothing else")
+        if set(row) != ROW_KEYS:
+            raise AssertionError(f"{scn.name}: row keys "
+                                 f"{sorted(set(row) ^ ROW_KEYS)} differ")
+        aucs = [r["auc"] for r in row["per_site"]]
+        if row["payload_params"] != 180 or row["rounds"] != rounds:
+            raise AssertionError(f"{scn.name}: payload "
+                                 f"{row['payload_params']}, rounds "
+                                 f"{row['rounds']}")
+        if not row["wire_fraction_of_full"] <= 0.05:
+            raise AssertionError(f"{scn.name}: wire fraction "
+                                 f"{row['wire_fraction_of_full']}")
+        if not all(math.isfinite(v) and 0.0 <= v <= 1.0
+                   for v in aucs + [row["oracle"]["auc"]]):
+            raise AssertionError(f"{scn.name}: per-site AUCs {aucs}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        cells.append(dict(scenario=scn.name, seconds=seconds,
+                          launches={k: v for k, v in launches.items() if v},
+                          site_auc=aucs, oracle_auc=row["oracle"]["auc"],
+                          gates_last=row["gates_last"],
+                          wire_fraction_of_full=row["wire_fraction_of_full"],
+                          wire_bytes_per_sync=row["wire_bytes_per_sync"],
+                          shard_sizes=row["shard_sizes"]))
+    emit("hetero", nodes=rcfg.n_nodes, steps=rcfg.steps, rounds=rounds,
+         payload_params=180, cells=cells,
+         total_seconds=sum(c["seconds"] for c in cells), launches=total)
+
+    # one profiled zoo round (the iid cell's session, first round)
+    cell = scenarios.prepare(scenarios.scenario_grid()[0], rcfg, device=dev)
+    t = rcfg.swarm.sync_every
+    cell.session.round((cell.xs[:t], cell.ys[:t]), cell.val)
+    phase_profile(cell.session, (cell.xs[t:2 * t], cell.ys[t:2 * t]),
+                  cell.val, "hetero")
+    return total
+
+
+def phase_hetero_parity(dev):
+    """One zoo round of the paper-split cell on the card against the same
+    round on the CPU (plain kernels, CPU convs), cuDNN TF32 off."""
+    import torch
+    from repro_torch.experiments import scenarios
+
+    rcfg = scenarios.ScenarioRunConfig()
+    scn = scenarios.scenario_grid()[1]
+    t = rcfg.swarm.sync_every
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        res = {}
+        for d in (dev, "cpu"):
+            cell = scenarios.prepare(scn, rcfg, device=d)
+            log = cell.session.round((cell.xs[:t], cell.ys[:t]), cell.val)
+            res[d] = (cell.session.state.params.cpu(), log["gates"].cpu())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    err = float((res[dev][0] - res["cpu"][0]).abs().max())
+    if err > 1e-4 or not torch.equal(res[dev][1], res["cpu"][1]):
+        raise AssertionError(f"zoo round: card vs CPU payload err {err}, "
+                             f"gates {res[dev][1]} vs {res['cpu'][1]}")
+    emit("hetero_parity", scenario=scn.name, max_abs_err=err,
+         gates=res[dev][1].tolist())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -570,18 +826,25 @@ def main() -> int:
 
     stats = phase_kernels(dev, bw, peak)
     stats.update(phase_quant_kernels(dev, bw, peak))
+    stats.update(phase_lora_kernel(dev, bw, peak))
     # each path runs with the launch counts set to 0 just before it; a
-    # kernel's launches are those of the path that carries it
+    # kernel's launches are those of the first path that carries it
     launches = {}
     for counts in (phase_histo(dev), phase_fisher(dev)[0],
                    phase_histo(dev, dict(wire_dtype="int8",
                                          wire_block=WIRE_BLOCK))):
-        launches.update({k: v for k, v in counts.items() if v})
+        launches.update({k: v for k, v in counts.items()
+                         if v and k not in launches})
     counts, run = phase_fisher(dev, dict(wire_dtype="int8",
                                          wire_block=WIRE_BLOCK))
-    launches.update({k: v for k, v in counts.items() if v})
+    launches.update({k: v for k, v in counts.items()
+                     if v and k not in launches})
     phase_checkpoint(dev, run)
     phase_parity(dev)
+    counts = phase_hetero(dev)
+    launches.update({k: v for k, v in counts.items()
+                     if v and k not in launches})
+    phase_hetero_parity(dev)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[stem],
                     replaces=replaces, launches=launches.get(name, 0),

@@ -3,8 +3,10 @@
 The JAX package ``repro`` stays the reference; this package mirrors its module
 names (``repro_torch.core.session`` ↔ ``repro.core.session`` and so on) and
 imports nothing of it. The swarm state lives in contiguous ``[N, P]`` f32
-buffers (:mod:`repro_torch.core.flat`), and the gated commit runs in a
-hand-written Hopper kernel (:mod:`repro_torch.kernels.fused_merge`).
+buffers (:mod:`repro_torch.core.flat`), the gated commit runs in a
+hand-written Hopper kernel (:mod:`repro_torch.kernels.fused_merge`), and the
+model zoo's shared LoRA head in another (:mod:`repro_torch.kernels.
+lora_matmul`).
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """

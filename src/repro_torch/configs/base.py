@@ -11,9 +11,10 @@ from dataclasses import dataclass
 class SwarmConfig:
     """P2P-SL: the paper's technique as a first-class feature.
 
-    Options whose paths are not ported yet (``lora_only``/``payload="lora"``
-    at sync) raise ``NotImplementedError`` when the sync that needs them
-    runs.
+    ``payload="lora"`` (the heterogeneous model zoo: the state is the
+    shared adapter payload) is ported. ``lora_only`` with ``payload="full"``
+    (carving adapters out of a full state) waits for the LM/trainer slice
+    and raises ``NotImplementedError`` when the sync that needs it runs.
     """
 
     n_nodes: int = 4

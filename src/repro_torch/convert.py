@@ -5,7 +5,11 @@ The reference keeps params as nested dicts/lists of arrays (``stem`` /
 ``blocks`` / ``head``; convs HWIO); the port keeps one flat f32 vector per
 node in a :class:`~repro_torch.core.flat.FlatLayout` (convs OIHW, the same
 leaf paths dotted). These functions take and give numpy trees, so both
-packages can be fed the same weights and AdamW state.
+packages can be fed the same weights and AdamW state. A flat payload dict's
+``/``-joined keys (``"head/out/b"``) contain no dot, so they pass through
+as single keys. :func:`zoo_node_from_reference` carries a node of the
+reference's model zoo across: its backbone (CNN convs HWIO → OIHW) and the
+whole head, its frozen ``proj/w`` included.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.flat import FlatLayout
+from repro_torch.models import zoo
 
 
 def _get(tree, path: str):
@@ -75,3 +80,35 @@ def adamw_from_reference(layout: FlatLayout, opt_state, lead: int = 0):
             "nu": from_reference(layout, opt_state["nu"], lead),
             "count": torch.as_tensor(np.array(opt_state["count"]),
                                      dtype=torch.int32)}
+
+
+def tree_from_reference(tree):
+    """Reference numpy tree (nested dicts/lists) → the same tree of f32 CPU
+    tensors, layouts unchanged."""
+    if isinstance(tree, dict):
+        return {k: tree_from_reference(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_from_reference(v) for v in tree)
+    return torch.from_numpy(np.array(tree, np.float32))
+
+
+def zoo_node_from_reference(family: str, template, *,
+                            feat_dim: int) -> zoo.ZooNode:
+    """A reference ``ZooNode``'s ``family`` and numpy ``template``
+    (``{"backbone", "head"}``) → the port's :class:`~repro_torch.models.zoo.
+    ZooNode`: a DenseNet backbone becomes the ``{dotted path: tensor}`` dict
+    of its :class:`HistoCNN` (convs OIHW); MLP and head weights keep their
+    ``[in, out]`` layout."""
+    bb = template["backbone"]
+    if family in zoo.CNN_FAMILIES:
+        layout = FlatLayout.of_module(zoo.cnn_model(family, feat_dim))
+        backbone = layout.unflatten(from_reference(layout, bb))
+        backbone = {k: v.clone() for k, v in backbone.items()}
+    else:
+        backbone = tree_from_reference(bb)
+    return zoo.ZooNode(family=family,
+                       template={"backbone": backbone,
+                                 "head": tree_from_reference(
+                                     template["head"])},
+                       features=zoo.backbone_features(family,
+                                                      feat_dim=feat_dim))

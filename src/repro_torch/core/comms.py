@@ -34,6 +34,7 @@ from typing import List, Optional
 import torch
 
 from repro_torch.core.flat import FlatLayout
+from repro_torch.core.lora import is_adapter_path
 
 WIRE_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
 
@@ -230,13 +231,17 @@ def pick_schedule(cfg, *, per: int = 1, payload_params: Optional[int] = None,
 
 
 def payload_param_count(stacked: torch.Tensor, lora_only: bool,
-                        n_nodes: int) -> int:
-    """Per-node payload values P of a stacked ``[N, P]`` state."""
-    if lora_only:
-        raise NotImplementedError(
-            "lora_only payloads are not ported to repro_torch yet "
-            "(ROADMAP.md: queue 1 item 11, LoRA and the heterogeneous zoo)")
-    return int(stacked.numel() // max(n_nodes, 1))
+                        n_nodes: int, layout: Optional[FlatLayout] = None
+                        ) -> int:
+    """Per-node payload values P of a stacked ``[N, P]`` state: all of
+    them, or with ``lora_only`` (adapters carved out of a full state at
+    sync) those of the adapter leaves of its ``layout`` (``lora_`` paths;
+    0 without a layout, as the reference counts a tree without adapters)."""
+    if not lora_only:
+        return int(stacked.numel() // max(n_nodes, 1))
+    # without a layout the state is one unnamed leaf: no adapters
+    leaves = layout.leaves if layout is not None else ()
+    return sum(leaf.size for leaf in leaves if is_adapter_path(leaf.path))
 
 
 # ---------------------------------------------------------------------------

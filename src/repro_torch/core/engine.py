@@ -23,11 +23,17 @@ it; the advanced θ̂' comes back in the log under ``"wire"``.
 Contracts: ``train_step_fn(params [P], opt_state, batch, step) -> (params,
 opt_state, metrics)`` is per node and is vmapped here, as the reference
 vmaps it; ``eval_fn(params [N, P], val) -> [N]`` takes the whole swarm (the
-gate metrics carry an explicit node axis).
+gate metrics carry an explicit node axis). Both may instead be a LIST of N
+per-node closures (the heterogeneous model zoo, ``cfg.payload="lora"``:
+each node's frozen backbone lives in its closures, the stacked state is the
+shared adapter payload): :func:`zoo_vstep` and :func:`zoo_veval` call them
+node by node and restack, with the same stacked-in, stacked-out contract;
+an eval closure then scores one node, ``(params [P], val_i) -> scalar``.
 
 Not in this slice (``NotImplementedError``, see ROADMAP): the gossip and
-host backends, per-node closure lists (model zoo), in-graph fault injection
-(``faults=``), and at sync ``lora_only`` and ``payload="lora"``.
+host backends, in-graph fault injection (``faults=``), and ``lora_only``
+with ``payload="full"`` at sync (carving adapters out of a full state:
+the LM/trainer slice).
 """
 from __future__ import annotations
 
@@ -48,6 +54,76 @@ from repro_torch.kernels.fused_merge import (fused_merge_all,
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to repro_torch yet "
                                f"(ROADMAP.md: {item})")
+
+
+# ---------------------------------------------------------------------------
+# model-zoo dispatch: per-node closures over a shared stacked payload
+# ---------------------------------------------------------------------------
+# In the heterogeneous payload="lora" mode every node's frozen backbone lives
+# inside its own train/eval closure and only the shared adapter payload is
+# stacked. One vmap cannot dispatch to N different programs, so closure
+# lists run node by node in a Python loop, and the outputs restack: the same
+# (stacked in, stacked out) contract as the vmapped homogeneous path.
+
+def _index_node(tree, i: int):
+    """Row ``i`` of every stacked tensor of a dict/tuple/list tree (None
+    passes through)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _index_node(v, i) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_index_node(v, i) for v in tree)
+    return tree[i]
+
+
+def _stack_nodes(trees):
+    """Inverse of :func:`_index_node` over a list of per-node trees."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: _stack_nodes([t[k] for t in trees]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack_nodes([t[j] for t in trees])
+                           for j in range(len(first)))
+    return torch.stack([torch.as_tensor(t) for t in trees])
+
+
+def zoo_vstep(step_fns: Sequence[Callable]) -> Callable:
+    """Stacked train-step dispatcher over per-node closures.
+
+    Each ``step_fns[i]`` sees node i's (params, opt_state, batch) rows and
+    must return the same 3-tuple ``(params, opt_state, metrics)`` (or the
+    reference's true-Fisher 4-tuple) with structurally identical outputs
+    across nodes; the backbones may differ arbitrarily inside the closures.
+    """
+    step_fns = list(step_fns)
+
+    def vstep(p, o, b, s):
+        outs = [fn(_index_node(p, i), _index_node(o, i), _index_node(b, i), s)
+                for i, fn in enumerate(step_fns)]
+        k = len(outs[0])
+        if any(len(out) != k for out in outs):
+            raise ValueError("zoo train steps must agree on the 3-tuple vs "
+                             "true-Fisher 4-tuple return form")
+        return tuple(_stack_nodes([out[j] for out in outs]) for j in range(k))
+
+    return vstep
+
+
+def zoo_veval(eval_fns: Sequence[Callable]) -> Callable:
+    """Stacked eval dispatcher: node i's closure scores its own params row
+    on its own validation rows → the ``[N]`` metric vector."""
+    eval_fns = list(eval_fns)
+
+    def veval(p, val):
+        return torch.stack([
+            torch.as_tensor(fn(_index_node(p, i), _index_node(val, i)),
+                            dtype=torch.float32, device=p.device).reshape(())
+            for i, fn in enumerate(eval_fns)])
+
+    return veval
 
 
 def mixing_matrix(cfg: SwarmConfig, data_sizes: Sequence[float],
@@ -112,11 +188,19 @@ class SwarmEngine:
     def __init__(self, cfg: SwarmConfig, train_step_fn: Optional[Callable],
                  eval_fn: Optional[Callable], *,
                  data_sizes: Optional[Sequence[float]] = None,
-                 layout: Optional[FlatLayout] = None):
-        if (isinstance(train_step_fn, (list, tuple))
-                or isinstance(eval_fn, (list, tuple))):
-            raise _not_ported("per-node closure lists (model zoo)",
-                              "queue 1 item 11, LoRA and the heterogeneous zoo")
+                 layout: Optional[FlatLayout] = None, backend: str = "host"):
+        zoo = (isinstance(train_step_fn, (list, tuple))
+               or isinstance(eval_fn, (list, tuple)))
+        if zoo and backend == "gossip":
+            raise ValueError(
+                "per-node closure lists (model zoo) are engine-backend only: "
+                "the gossip backend shards the node axis and per-node "
+                "dispatch would lower to cross-shard gathers")
+        if backend == "gossip":
+            raise _not_ported("backend='gossip'",
+                              "queue 1 item 13, distributed gossip backend")
+        if backend != "host":
+            raise ValueError(f"unknown engine backend {backend!r}")
         self.cfg = cfg
         self.wire_dtype = comms.validate_wire_dtype(cfg.wire_dtype)
         self.wire_block = comms.validate_wire_block(cfg.wire_block)
@@ -137,13 +221,28 @@ class SwarmEngine:
         if not 0.0 <= self.fairness_floor <= 1.0:
             raise ValueError("fairness_floor must be a gate-metric value in "
                              f"[0, 1], got {self.fairness_floor}")
-        # vmapped over the node axis; a stateless optimizer (opt_state
-        # None) is passed through unbatched
-        self._vstep = (None if train_step_fn is None else {
-            True: torch.func.vmap(train_step_fn, in_dims=(0, 0, 0, None)),
-            False: torch.func.vmap(train_step_fn, in_dims=(0, None, 0, None),
-                                   out_dims=(0, None, 0))})
-        self._veval = eval_fn
+
+        def fn_list(fn, what):
+            fns = list(fn)
+            if len(fns) != cfg.n_nodes:
+                raise ValueError(f"{what} zoo must list one closure per node "
+                                 f"(got {len(fns)}, n_nodes={cfg.n_nodes})")
+            return fns
+
+        # closure lists run node by node; a single train step is vmapped
+        # over the node axis, and a stateless optimizer (opt_state None) is
+        # passed through unbatched
+        if isinstance(train_step_fn, (list, tuple)):
+            zstep = zoo_vstep(fn_list(train_step_fn, "train_step_fn"))
+            self._vstep = {True: zstep, False: zstep}
+        else:
+            self._vstep = (None if train_step_fn is None else {
+                True: torch.func.vmap(train_step_fn, in_dims=(0, 0, 0, None)),
+                False: torch.func.vmap(train_step_fn,
+                                       in_dims=(0, None, 0, None),
+                                       out_dims=(0, None, 0))})
+        self._veval = (zoo_veval(fn_list(eval_fn, "eval_fn"))
+                       if isinstance(eval_fn, (list, tuple)) else eval_fn)
         self._base_W = mixing_matrix(cfg, self.data_sizes)
         self.spectral_gap = topo.spectral_gap(self._base_W)
 
@@ -162,8 +261,13 @@ class SwarmEngine:
         metrics = []
         for k in range(t):
             batch = _index(batches, k)
-            p2, opt_state, m = self._vstep[opt_state is not None](
-                params, opt_state, batch, step0 + k)
+            out = self._vstep[opt_state is not None](params, opt_state,
+                                                     batch, step0 + k)
+            if len(out) == 4:
+                raise _not_ported("the true-Fisher 4-tuple train step "
+                                  "(accumulate_grads)",
+                                  "queue 1 item 5, merge and topology")
+            p2, opt_state, m = out
             if stats is not None:
                 stats = self.strategy.accumulate(stats, params, p2, step0 + k)
             params = p2
@@ -208,12 +312,16 @@ class SwarmEngine:
         if faults is not None:
             raise _not_ported("in-graph fault injection (faults=)",
                               "queue 1 item 10, the fault plane")
-        if cfg.payload != "full":
-            raise _not_ported(f"payload={cfg.payload!r}",
-                              "queue 1 item 11, LoRA and the heterogeneous zoo")
-        if cfg.lora_only:
-            raise _not_ported("lora_only=True at sync",
-                              "queue 1 item 11, LoRA and the heterogeneous zoo")
+        if comms.split_payload_at_sync(cfg):
+            # payload="lora" has nothing to carve (the state is the
+            # payload); a full state would need its adapters carved out, and
+            # only the LM families' linears read adapters in the reference
+            raise _not_ported(
+                "lora_only=True with payload='full' at sync (carving the "
+                "adapter subtree out of a full state; in the reference only "
+                "models/layers.linear reads adapters and the CNN's forward "
+                "ignores them)",
+                "queue 1 items 14-15, the LM families and trainer")
 
     def _wire_grid(self, params) -> comms.WireGrid:
         """The payload's :class:`~repro_torch.core.comms.WireGrid` on the

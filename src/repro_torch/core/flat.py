@@ -8,7 +8,8 @@ views into it, so a commit is one kernel launch over ``[N, P]``.
 
 Leaf paths are dotted (``"blocks.0.layers.1.bn.scale"``), the same names
 ``nn.Module.named_parameters`` gives, and map one to one onto the reference's
-tree paths (``["blocks"][0]["layers"][1]["bn"]["scale"]``).
+tree paths (``["blocks"][0]["layers"][1]["bn"]["scale"]``). A flat payload
+dict's ``/``-joined paths (``"head/proj/lora_A"``) are single keys.
 """
 from __future__ import annotations
 
@@ -49,6 +50,13 @@ class FlatLayout:
     @classmethod
     def of_module(cls, module: torch.nn.Module) -> "FlatLayout":
         return cls([(name, p.shape) for name, p in module.named_parameters()])
+
+    @classmethod
+    def of_payload(cls, payload: Dict[str, torch.Tensor]) -> "FlatLayout":
+        """The layout of a flat payload dict (``{"head/out/b": ...}``, the
+        heterogeneous swarm's wire payload): its paths sorted, the
+        reference's leaf order."""
+        return cls([(k, tuple(payload[k].shape)) for k in sorted(payload)])
 
     def unflatten(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``[..., P]`` → {path: ``[..., *shape]`` view}. One ``split``, so the

@@ -22,6 +22,13 @@ global counters. Checkpoints hold all of it in the reference's msgpack
 layout (`repro_torch.checkpointing`), so either package restores the
 other's files.
 
+In the heterogeneous ``cfg.payload="lora"`` mode (the model zoo) the
+state is the shared adapter payload: ``params`` is a list of the N nodes'
+payload rows, stacked into ``[N, P]`` under the :class:`FlatLayout` of the
+sorted payload paths (:meth:`FlatLayout.of_payload`), and ``train_step_fn`` /
+``eval_fn`` are lists of per-node closures that hold each node's frozen
+backbone (`repro_torch.experiments.scenarios`).
+
 Not in this slice: the gossip and host backends.
 """
 from __future__ import annotations
@@ -39,7 +46,8 @@ from repro_torch.checkpointing import (Fields, load_metadata, load_pytree,
 from repro_torch.configs.base import SwarmConfig
 from repro_torch.convert import from_reference, to_reference_tree
 from repro_torch.core import comms
-from repro_torch.core.engine import SwarmEngine, _leading, _not_ported
+from repro_torch.core.engine import (SwarmEngine, _leading, _not_ported,
+                                     _stack_nodes)
 from repro_torch.core.flat import FlatLayout
 from repro_torch.core.prng import fold_in_key, prng_key
 
@@ -65,10 +73,17 @@ class SwarmState:
 
 
 def _stack_per_node(value, n: int, device):
-    """One node's value (a tensor, or a dict of tensors such as an optimizer
-    state) tiled over the N nodes, on ``device``."""
+    """A list/tuple of N per-node values (tensors, or dicts of tensors such
+    as optimizer states) → stacked; a single value → tiled over the N nodes
+    (the shared warm start). On ``device``."""
     if value is None:
         return None
+    if isinstance(value, (list, tuple)):
+        if len(value) != n:
+            raise ValueError(
+                f"expected {n} per-node values, got a length-{len(value)} "
+                "list/tuple (a top-level list/tuple is one entry per node)")
+        return _stack_nodes([_to_device(v, device) for v in value])
     if isinstance(value, dict):
         return {k: _stack_per_node(v, n, device) for k, v in value.items()}
     t = torch.as_tensor(value).to(device)
@@ -94,8 +109,14 @@ class SwarmSession:
     train_step_fn : per-node ``(params [P], opt_state, batch, step) ->
         (params, opt_state, metrics)``; the engine vmaps it over the nodes.
     eval_fn : ``(params [N, P], val) -> [N]`` gate metric for every node.
+        Both may instead be a LIST of ``n_nodes`` per-node closures (model
+        zoo: heterogeneous frozen backbones captured per closure, the shared
+        adapter payload as the state, ``cfg.payload="lora"``); an eval
+        closure then scores its own node, ``(params [P], val_i) -> scalar``.
     params / opt_state : one node's flat params ``[P]`` and optimizer state,
-        replicated over the N nodes (the shared warm start).
+        replicated over the N nodes (the shared warm start), or a list of N
+        per-node values (a zoo's payload rows, flattened through
+        :meth:`FlatLayout.of_payload`).
     data_sizes : per-node dataset sizes (fedavg / weighted-merge weights).
     layout : the :class:`FlatLayout` of the params: the leaf boundaries of
         the wire's block grid, the reference tree of :attr:`node_params` and
@@ -110,11 +131,20 @@ class SwarmSession:
                  backend: str = "engine",
                  layout: Optional[FlatLayout] = None, device="cuda",
                  seed: Optional[int] = None):
-        if backend in ("gossip", "host"):
-            item = ("queue 1 item 13, distributed gossip backend"
-                    if backend == "gossip" else "queue 1 item 12, host backend")
-            raise _not_ported(f"backend={backend!r}", item)
-        if backend != "engine":
+        zoo = (isinstance(train_step_fn, (list, tuple))
+               or isinstance(eval_fn, (list, tuple)))
+        if backend == "host" and comms.payload_mode(cfg) == "lora":
+            raise ValueError(
+                'payload="lora" (adapter-only state, heterogeneous '
+                "backbones in per-node closures) needs a compiled backend; "
+                "the host loop threads full per-node param pytrees")
+        if backend == "host" and zoo:
+            raise ValueError(
+                "per-node closure lists (model zoo) are engine-backend "
+                "only; the host loop applies one callable to every node")
+        if backend == "host":
+            raise _not_ported("backend='host'", "queue 1 item 12, host backend")
+        if backend not in ("engine", "gossip"):
             raise ValueError(f"unknown backend {backend!r}")
         if torch.backends.cuda.matmul.allow_tf32:
             raise RuntimeError(
@@ -123,14 +153,17 @@ class SwarmSession:
                 "HIGHEST-precision mix does")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.layout = layout
         n = cfg.n_nodes
         if params is None:
             raise ValueError("SwarmSession needs initial params")
+        self.layout = layout
+        # the gossip backend raises here: not ported (a zoo closure list is
+        # rejected on it first, as the reference's engine rejects it)
+        self.engine = SwarmEngine(
+            cfg, train_step_fn, eval_fn, data_sizes=data_sizes,
+            layout=layout, backend="gossip" if backend == "gossip" else "host")
         stacked_params = _stack_per_node(params, n, self.device)
         stacked_opt = _stack_per_node(opt_state, n, self.device)
-        self.engine = SwarmEngine(cfg, train_step_fn, eval_fn,
-                                  data_sizes=data_sizes, layout=layout)
         self._state = SwarmState(
             params=stacked_params, opt_state=stacked_opt,
             stats=self.engine.init_stats(stacked_params),
@@ -147,7 +180,7 @@ class SwarmSession:
         """Per-node payload values P that cross the wire per sync."""
         return comms.payload_param_count(
             self._state.params, comms.split_payload_at_sync(self.cfg),
-            self.cfg.n_nodes)
+            self.cfg.n_nodes, self.layout)
 
     @property
     def predicted_sync_bytes(self) -> float:
@@ -165,9 +198,10 @@ class SwarmSession:
 
     @property
     def node_params(self) -> List[dict]:
-        """Per-node parameters in the reference's tree layout
-        (``stem``/``blocks``/``head``, HWIO convs); flat ``[P]`` rows when the
-        session has no layout."""
+        """Per-node parameters in the reference's tree layout (numpy
+        leaves): ``stem``/``blocks``/``head`` with HWIO convs for the CNN,
+        the flat path-keyed payload dict in ``payload="lora"`` mode; flat
+        ``[P]`` rows when the session has no layout."""
         rows = list(self._state.params.unbind(0))
         if self.layout is None:
             return rows

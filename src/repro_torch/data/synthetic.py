@@ -1,5 +1,5 @@
 """Synthetic histopathology data: own numpy copy of the image half of
-``repro.data.synthetic``. Bit-identical to it for the same seed (the tests
+``repro.data.synthetic`` (its Dirichlet non-IID sharding included). Bit-identical to it for the same seed (the tests
 hold the two against each other).
 
 Images are class-conditional random textures: each of the 3 classes has a
@@ -102,6 +102,22 @@ def shard_to_nodes(images, labels, sizes: Sequence[int], *, seed: int = 0,
         pool[pick] = False
         shards.append((images[pick], labels[pick]))
     return shards
+
+
+def dirichlet_shards(images, labels, n_nodes: int, alpha: float = 0.5,
+                     seed: int = 0):
+    """Standard non-IID federated benchmark sharding (Dirichlet over classes)."""
+    rng = np.random.default_rng(seed)
+    n_classes = int(labels.max()) + 1
+    node_of = np.empty(len(labels), np.int32)
+    for c in range(n_classes):
+        idx = np.flatnonzero(labels == c)
+        rng.shuffle(idx)
+        props = rng.dirichlet([alpha] * n_nodes)
+        cuts = (np.cumsum(props)[:-1] * len(idx)).astype(int)
+        for node, part in enumerate(np.split(idx, cuts)):
+            node_of[part] = node
+    return [(images[node_of == i], labels[node_of == i]) for i in range(n_nodes)]
 
 
 def batches(images, labels, batch_size: int, rng: np.random.Generator,

@@ -25,7 +25,8 @@ in one launch of ``csrc/fused_quant_merge.cu``. Bound: memory — x and r
 
 On a CPU tensor each wrapper computes its plain version
 (`repro_torch.kernels.ref`); on a CUDA tensor it launches the kernel or
-raises. ``LAUNCHES`` counts kernel launches per form.
+raises. ``LAUNCHES`` (shared by every kernel of the port) counts
+kernel launches per form.
 """
 from __future__ import annotations
 
@@ -33,21 +34,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import LAUNCHES, build, reset_launches  # noqa: F401
 from repro_torch.kernels.ref import (fused_merge_all_plain,
                                      fused_quant_merge_all_plain)
 
-#: kernel launches per form, counted where the kernel is launched
-LAUNCHES = {"fused_merge_all": 0, "fused_merge_all_imp": 0,
-            "fused_quant_merge_all": 0, "fused_quant_merge_all_imp": 0}
 MAX_NODES = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WIRES = {"f32": 0, "bf16": 1, "int8": 2}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _lib():

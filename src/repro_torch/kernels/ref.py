@@ -9,6 +9,13 @@ quantized-wire commit: the error-feedback advance of `core.comms` (the
 port's one quantization core), then the same merge. The CPU path of each
 commit wrapper runs them; on the card they only serve as the yardstick the
 kernels are held against.
+
+``lora_matmul_ref`` is the torch twin of the reference's oracle
+``repro.kernels.ref.lora_matmul_ref`` (f32 throughout, one cast at the
+end); ``lora_matmul_plain`` is the plain form of the fused LoRA matmul
+(`repro_torch.kernels.lora_matmul`), which also rounds ``x @ A`` to x's
+dtype before the low-rank product, as the TPU kernel and the CUDA kernel
+do. The two agree for f32 inputs.
 """
 from __future__ import annotations
 
@@ -66,3 +73,24 @@ def fused_quant_merge_all_plain(x, r, W, gates, imp=None, *, grid):
         rp, W, torch.ones(n, dtype=torch.bool, device=x.device), imp)
     g = gates.to(device=x.device, dtype=torch.bool)[:, None]
     return torch.where(g, merged, x), rp
+
+
+def lora_matmul_ref(x, w, a, b, scale):
+    """y = x @ W + scale · (x @ A) @ B, f32 accumulation, cast to x's dtype."""
+    xf = x.to(torch.float32)
+    y = xf @ w.to(torch.float32)
+    y = y + torch.as_tensor(scale, dtype=torch.float32, device=x.device) * (
+        (xf @ a.to(torch.float32)) @ b.to(torch.float32))
+    return y.to(x.dtype)
+
+
+def lora_matmul_plain(x, w, a, b, scale):
+    """x [M, K], W [K, N], A [K, r], B [r, N] → y [M, N] in x's dtype:
+    ``acc = x@W`` and ``xa = x@A`` in f32, xa rounded to x's dtype, then
+    ``acc + scale · (xa @ B)`` in f32 and one cast."""
+    xf = x.to(torch.float32)
+    acc = xf @ w.to(torch.float32)
+    xa = (xf @ a.to(torch.float32)).to(x.dtype).to(torch.float32)
+    low = xa @ b.to(torch.float32)
+    s = torch.as_tensor(scale, device=x.device).to(torch.float32)
+    return (acc + s * low).to(x.dtype)

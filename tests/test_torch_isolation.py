@@ -1,8 +1,8 @@
 """The port stands alone: it imports neither jax nor anything of the
 reference package ``repro``, nor the ``msgpack`` package (the card's
 machine has none) — checked at run time in a fresh interpreter that drives
-one small CPU round on the int8 wire and a checkpoint round trip, and
-statically over every source file."""
+one small CPU round on the int8 wire, a checkpoint round trip and one small
+model-zoo scenario, and statically over every source file."""
 import ast
 import subprocess
 import sys
@@ -49,6 +49,12 @@ import tempfile, os
 path = os.path.join(tempfile.mkdtemp(), "s.msgpack")
 sess.save(path)
 assert torch.equal(sess.load(path).state.wire, sess.state.wire)
+from repro_torch.experiments import scenarios
+rcfg = scenarios.ScenarioRunConfig(n_train=64, n_test=16, feat_dim=8,
+                                   hidden=8, steps=6)
+row = scenarios.run_scenario(scenarios.scenario_grid()[2], rcfg,
+                             device="cpu")
+assert row["payload_class"] == "lora" and len(row["per_site"]) == 4
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "msgpack" or m.startswith("msgpack.")

@@ -1,6 +1,6 @@
-"""The port's CUDA commit kernels (the f32 commit and the quantized-wire
-commit) against their plain versions, and the wrappers' dispatch and input
-checks. Imports neither jax nor the reference, so it also runs on the
+"""The port's CUDA kernels (the f32 commit, the quantized-wire commit and
+the fused LoRA matmul) against their plain versions, and the wrappers'
+dispatch, input checks and (LoRA) gradient. Imports neither jax nor the reference, so it also runs on the
 machine with the card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels.py
@@ -14,8 +14,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import comms  # noqa: E402
 from repro_torch.core.flat import FlatLayout  # noqa: E402
 from repro_torch.kernels import fused_merge as fm  # noqa: E402
+from repro_torch.kernels import lora_matmul as lm  # noqa: E402
 from repro_torch.kernels.ref import (fused_merge_all_plain,  # noqa: E402
-                                     fused_quant_merge_all_plain)
+                                     fused_quant_merge_all_plain,
+                                     lora_matmul_plain, lora_matmul_ref)
 
 torch.set_num_threads(2)
 CASES = [(4, 100_003, torch.float32, False), (4, 100_003, torch.float32, True),
@@ -187,3 +189,133 @@ def test_quant_kernel_input_checks_on_card():
     with pytest.raises(ValueError, match="grid.segments"):
         fm.fused_quant_merge_all(
             x, r, W, g, grid=comms.wire_grid(1000, "int8", 128))
+
+
+# -- the fused LoRA matmul ------------------------------------------------------
+
+# (M, K, N, r, dtype): the zoo head's train, validation and test shapes, the
+# reference's sweep shapes (tests/test_kernels.py), ragged edges, r = 128
+LORA_CASES = [(8, 16, 16, 4, torch.float32), (20, 16, 16, 4, torch.float32),
+              (160, 16, 16, 4, torch.float32),
+              (128, 256, 128, 8, torch.float32),
+              (256, 512, 384, 16, torch.float32),
+              (128, 1024, 256, 64, torch.float32),
+              (256, 256, 256, 16, torch.bfloat16),
+              (37, 70, 45, 3, torch.float32), (33, 65, 31, 128, torch.float32),
+              (37, 70, 45, 5, torch.bfloat16), (1, 1, 1, 1, torch.float32)]
+
+
+def _lora_tol(dtype):
+    # the reference's _tol (tests/test_kernels.py)
+    return (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+            else dict(rtol=2e-5, atol=2e-5))
+
+
+def _lora_inputs(m, k, n, r, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.normal(0, 1, shape) * scale).astype(np.float32)).to(
+                device=device, dtype=dtype)
+
+    return (t(m, k), t(k, n, scale=k ** -0.5), t(k, r, scale=k ** -0.5),
+            t(r, n, scale=r ** -0.5),
+            torch.tensor(1.5, dtype=torch.float32, device=device))
+
+
+def test_lora_plain_form_semantics_on_cpu():
+    """y = x@W + s·(x@A)@B; the plain form rounds x@A to x's dtype, the
+    oracle does not (they agree for f32); a CPU call counts no launch."""
+    x, w, a, b, s = _lora_inputs(9, 12, 7, 3, torch.float32, "cpu")
+    before = dict(lm.LAUNCHES)
+    got = lm.lora_matmul(x, w, a, b, s)
+    assert lm.LAUNCHES == before
+    want = x.double() @ w.double() + 1.5 * (x.double() @ a.double()) @ b.double()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, lora_matmul_plain(x, w, a, b, s))
+    np.testing.assert_allclose(got.numpy(),
+                               lora_matmul_ref(x, w, a, b, s).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    xb, wb, ab, bb, _ = (v.to(torch.bfloat16) if v.dim() else v
+                         for v in (x, w, a, b, s))
+    xa = (xb.float() @ ab.float()).to(torch.bfloat16).float()
+    want_b = (xb.float() @ wb.float() + 1.5 * (xa @ bb.float())).to(
+        torch.bfloat16)
+    assert torch.equal(lm.lora_matmul(xb, wb, ab, bb, s), want_b)
+
+
+def test_lora_wrapper_rejects_bad_shapes():
+    x, w, a, b, s = _lora_inputs(4, 6, 5, 2, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="2-D"):
+        lm.lora_matmul(x[0], w, a, b, s)
+    with pytest.raises(ValueError, match="compose"):
+        lm.lora_matmul(x, w, a, b.T.contiguous(), s)
+
+
+def _lora_grads(fn, x, w, a, b, s, gy):
+    return torch.func.grad(lambda *v: (fn(*v) * gy).sum(),
+                           argnums=(0, 1, 2, 3, 4))(x, w, a, b, s)
+
+
+def test_lora_apply_gradient_on_cpu():
+    """The autograd Function's backward against autograd through the plain
+    form, for every input."""
+    x, w, a, b, s = _lora_inputs(7, 9, 5, 3, torch.float32, "cpu")
+    gy = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (7, 5)).astype(np.float32))
+    got = _lora_grads(lm.lora_apply, x, w, a, b, s, gy)
+    want = _lora_grads(lora_matmul_plain, x, w, a, b, s, gy)
+    for g, h in zip(got, want):
+        assert g.shape == h.shape and g.dtype == h.dtype
+        np.testing.assert_allclose(g.numpy(), h.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("m,k,n,r,dtype", LORA_CASES)
+def test_lora_kernel_matches_plain_on_card(m, k, n, r, dtype):
+    dev = _cuda()
+    x, w, a, b, s = _lora_inputs(m, k, n, r, dtype, dev, seed=m + k + r)
+    before = lm.LAUNCHES["lora_matmul"]
+    got = lm.lora_matmul(x, w, a, b, s)
+    want = lora_matmul_plain(x, w, a, b, s)
+    torch.cuda.synchronize()
+    assert lm.LAUNCHES["lora_matmul"] == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **_lora_tol(dtype))
+    # zero B: exactly the base product's f32 sum
+    zb = lm.lora_matmul(x, w, a, torch.zeros_like(b), s)
+    np.testing.assert_allclose(zb.float().cpu().numpy(),
+                               (x.float() @ w.float()).to(dtype).float()
+                               .cpu().numpy(), **_lora_tol(dtype))
+
+
+def test_lora_kernel_gradient_on_card():
+    """grad_and_value through the Function on the card (the forward gets
+    plain tensors and launches the kernel) against autograd through the
+    plain form, at 1e-5."""
+    dev = _cuda()
+    x, w, a, b, s = _lora_inputs(20, 16, 16, 4, torch.float32, dev, seed=3)
+    gy = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (20, 16)).astype(np.float32)).to(dev)
+    before = lm.LAUNCHES["lora_matmul"]
+    got = _lora_grads(lm.lora_apply, x, w, a, b, s, gy)
+    assert lm.LAUNCHES["lora_matmul"] == before + 1
+    want = _lora_grads(lora_matmul_plain, x, w, a, b, s, gy)
+    for g, h in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), h.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_lora_kernel_input_checks_on_card():
+    dev = _cuda()
+    x, w, a, b, s = _lora_inputs(8, 16, 16, 4, torch.float32, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        lm.lora_matmul(x.t().contiguous().t(), w, a, b, s)
+    with pytest.raises(TypeError, match="dtype"):
+        lm.lora_matmul(x.double(), w.double(), a.double(), b.double(), s)
+    with pytest.raises(ValueError, match="W must be"):
+        lm.lora_matmul(x, w.to(torch.bfloat16), a, b, s)
+    big = torch.zeros(16, 129, device=dev)
+    with pytest.raises(ValueError, match="rank"):
+        lm.lora_matmul(x, w, big, torch.zeros(129, 16, device=dev), s)

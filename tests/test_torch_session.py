@@ -102,19 +102,30 @@ def test_overlap_sync_run_rounds_matches_reference():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(lora_only=True), "lora_only"),
-    (dict(payload="lora", lora_only=False), "payload"),
+    pytest.param(dict(payload="lora", lora_only=False), None,
+                 id="kw1-payload"),
 ])
 def test_unported_sync_options_raise_when_sync_runs(kw, match):
     """The session builds and trains locally with these options (the
-    reference's local baseline keeps lora_only=True and never syncs); the
-    sync that needs them raises."""
+    reference's local baseline keeps lora_only=True and never syncs).
+    ``lora_only`` with ``payload="full"`` raises at the sync that needs it;
+    ``payload="lora"`` is ported: the state is the payload, nothing is
+    carved, and the round matches the reference's."""
     base = dict(n_nodes=4, sync_every=2, topology="full", merge="fedavg",
                 lora_only=False)
-    _, ts, _ = tp.sessions(dict(base, **kw))
+    js, ts, layout = tp.sessions(dict(base, **kw))
     xs, ys, val = tp.round_data(4, t=2)
     ts.run_local((xs[0], ys[0]))
-    with pytest.raises(NotImplementedError, match=match):
-        ts.round((xs[0], ys[0]), val)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            ts.round((xs[0], ys[0]), val)
+        return
+    js.run_local((jnp.asarray(xs[0]), jnp.asarray(ys[0])))
+    jlog = js.round((jnp.asarray(xs[0]), jnp.asarray(ys[0])),
+                    tuple(jnp.asarray(v) for v in val))
+    tlog = ts.round((xs[0], ys[0]), val)
+    _check(js, ts, layout, jlog, tlog)
+    assert ts.payload_params == js.payload_params == layout.size
 
 
 @pytest.mark.parametrize("wire,merge,topology", [
@@ -158,8 +169,13 @@ def test_unported_backends_and_device_policy():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SwarmSession(cfg, None, None, params=flat, backend=backend,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="zoo"):
-        SwarmSession(cfg, [None, None], None, params=flat, device="cpu")
+    # closure lists (model zoo): one per node, engine backend only
+    with pytest.raises(ValueError, match="one closure per node"):
+        SwarmSession(cfg, [None], None, params=flat, device="cpu")
+    for backend in ("gossip", "host"):
+        with pytest.raises(ValueError, match="engine-backend only"):
+            SwarmSession(cfg, [None, None], None, params=flat,
+                         backend=backend, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SwarmSession(cfg, None, None, params=flat)

@@ -207,8 +207,15 @@ def test_cost_model_matches_reference():
         comms.validate_wire_block(100)
     with pytest.raises(ValueError, match="wire_dtype"):
         comms.validate_wire_dtype("fp8")
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        comms.payload_param_count(torch.zeros(4, 8), True, 4)
+    # lora_only counts the adapter leaves, as the reference does
+    lay = FlatLayout([("w", (2, 3)), ("lora_A", (2, 1)), ("lora_B", (1, 3))])
+    tree = {k: jnp.zeros((4,) + lf.shape) for k, lf in
+            ((lf.path, lf) for lf in lay.leaves)}
+    for lora_only in (True, False):
+        assert (comms.payload_param_count(torch.zeros(4, lay.size),
+                                          lora_only, 4, lay)
+                == jcomms.payload_param_count(tree, lora_only, 4))
+    assert comms.payload_param_count(torch.zeros(4, 8), True, 4) == 0
     assert comms.payload_param_count(torch.zeros(4, 8), False, 4) == 8
 
 
