@@ -55,7 +55,46 @@ Phases, each printing one JSON line:
                  reference's row keys; then one profiled zoo round and a
                  card-vs-CPU parity of one zoo round (TF32 off, payload rows
                  at 1e-4);
- 12. kernels     the per-kernel summary line, then the ``ok`` line.
+ 12. flash_kernel the flash attention kernel against its plain version
+                 (``attention_ref``): the reference's sweep shapes at 2e-5
+                 (f32) and its bf16 case at 3e-2, ragged and strided cases,
+                 and Hymba-1.5B's prefill shapes (q [1,25,2048,64], K/V
+                 [1,5,T,64] bf16, T the serve phase's max_len) with window
+                 0 and 1024 within one bf16 ulp (atol 2e-4, rtol 8e-3);
+                 there the kernel's device time beside
+                 the plain version's, one ``scaled_dot_product_attention``
+                 call (``enable_gqa``, the mask as a boolean tensor; never
+                 used by the port) and the bound;
+ 13. ssd_kernel  the SSD scan kernel against its plain version: the
+                 reference's sweep at 1e-4 (f32) and Hymba's (1, 2048, 50,
+                 64, 16, 256) and Mamba2's (1, 2048, 32, 64, 128, 256) bf16
+                 shapes, y at 2e-2 and the f32 final state at 1e-4; times
+                 and bounds (no single PyTorch call
+                 computes it);
+ 14. merge_one   the one-node commit through ``kernels.ops.merge_op``: each
+                 node of a [4, 1,639,705] f32 swarm state committed alone
+                 (the counted path) equals the all-nodes kernel's row bit
+                 for bit; bit-equal to its plain version under an accepting
+                 and a rejecting gate; timed beside one
+                 ``torch.where(g, w @ x, x[self_idx])``;
+ 15. lm_parity   the smoke variants of hymba-1.5b, minicpm-2b and
+                 mamba2-370m in f32 on the card against the CPU (TF32 off):
+                 prefill logits and 4 decode steps within 1e-4;
+ 16. serve       the LM serving path at full width: hymba-1.5b in bf16, an
+                 N = 4 ensemble initialised on the card from
+                 ``torch.Generator`` seeds, ``ServeEngine`` in consensus
+                 mode with 4 slots and seq buckets (256, 2048), 8 requests of
+                 16 new tokens (prompts of 2048 and 256 tokens), a ``swap()``
+                 of a second ensemble while requests are in flight, then one
+                 ``generate()`` of batch 4; every request must finish, the
+                 flash and SSD launches must equal 4 nodes × 32 layers ×
+                 8 prefills, and two requests (one per version) served
+                 again outside the engine, node by node at the engine's
+                 shapes, must give the same tokens; tokens/s, p50/p99
+                 latency, prefill and decode
+                 tick times, the device busy share of a profiled decode tick
+                 and peak memory;
+ 17. kernels     the per-kernel summary line, then the ``ok`` line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's sources beside it. Imports nothing of the JAX package.
@@ -69,13 +108,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# memory rate (bytes/s) and f32 non-tensor-core peak (flop/s) by card, from
-# NVIDIA's data sheets (dense, at the full power limit)
-CARDS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
+# memory rate (bytes/s), f32 non-tensor-core peak and bf16 tensor-core peak
+# (flop/s) by card, from NVIDIA's data sheets (dense, at the full power
+# limit)
+CARDS = (("H200", 4.8e12, 67e12, 989e12), ("H100 NVL", 3.9e12, 60e12, 835e12),
+         ("H100 PCIe", 2.0e12, 51e12, 756e12),
+         ("H100", 3.35e12, 67e12, 989e12))
 SOURCES = {"fused_merge": "src/repro_torch/csrc/fused_merge.cu",
            "fused_quant_merge": "src/repro_torch/csrc/fused_quant_merge.cu",
-           "lora_matmul": "src/repro_torch/csrc/lora_matmul.cu"}
+           "lora_matmul": "src/repro_torch/csrc/lora_matmul.cu",
+           "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+           "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu"}
 # kernel → (source stem, the TPU kernel body it replaces)
 KERNELS = {
     "fused_merge_all": ("fused_merge",
@@ -86,7 +129,11 @@ KERNELS = {
                               "src/repro/kernels/fused_merge.py:206"),
     "fused_quant_merge_all_imp": ("fused_quant_merge",
                                   "src/repro/kernels/fused_merge.py:226"),
-    "lora_matmul": ("lora_matmul", "src/repro/kernels/lora_matmul.py:26")}
+    "lora_matmul": ("lora_matmul", "src/repro/kernels/lora_matmul.py:26"),
+    "fused_merge": ("fused_merge", "src/repro/kernels/fused_merge.py:69"),
+    "flash_attention": ("flash_attention",
+                        "src/repro/kernels/flash_attention.py:24"),
+    "ssd_scan": ("ssd_scan", "src/repro/kernels/ssd_scan.py:25")}
 N, P = 4, 1_639_705
 WIRE_BLOCK = 512
 
@@ -96,10 +143,19 @@ def emit(phase, **kw):
 
 
 def card_rates(name):
-    for key, bw, flops in CARDS:
+    """(memory rate, f32 peak, bf16 tensor-core peak) of the card."""
+    for key, bw, flops, bf16 in CARDS:
         if key in name:
-            return bw, flops
+            return bw, flops, bf16
     raise RuntimeError(f"no memory/flop rates on record for {name!r}")
+
+
+def bound(nbytes, flops, bw, rate):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over ``rate``."""
+    bytes_ms, flops_ms = nbytes / bw * 1e3, flops / rate * 1e3
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations")
 
 
 def time_ms(fn, iters=50, warm=20, repeats=7):
@@ -788,6 +844,496 @@ def phase_hetero_parity(dev):
          gates=res[dev][1].tolist())
 
 
+# (B, H, Hkv, S, T, D, causal, window, dtype name): the reference's flash
+# sweep (tests/test_kernels.py), its bf16 case, a ragged and a strided case
+FLASH_SWEEP = ((1, 4, 4, 128, 128, 64, True, 0, "float32"),
+               (2, 4, 2, 256, 256, 64, True, 0, "float32"),
+               (1, 8, 2, 256, 256, 64, True, 64, "float32"),
+               (1, 4, 1, 128, 128, 128, True, 0, "float32"),
+               (2, 2, 2, 128, 128, 64, False, 0, "float32"),
+               (1, 2, 2, 128, 128, 64, True, 0, "bfloat16"),
+               (2, 6, 3, 77, 90, 32, True, 20, "float32"))
+# the serve phase: Hymba-1.5B, prompts of these lengths, 16 new tokens
+SERVE_SEQ = (256, 2048)
+SERVE_NEW = 16
+SERVE_MAX_LEN = SERVE_SEQ[-1] + SERVE_NEW
+
+
+def _flash_pairs(s, t, causal, window):
+    """(query, key) pairs the mask keeps: the work this input needs."""
+    if not causal:
+        return s * t
+    return sum(min(i + 1, t, window or i + 1) for i in range(s))
+
+
+def phase_flash_kernel(dev, bw, peak, bf16_peak):
+    """The flash kernel against its plain version on the card; at Hymba's
+    prefill shapes its device time beside the plain version's, one SDPA
+    call's and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_plain
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def inputs(b, h, hkv, s, t, d, dtype):
+        dt = getattr(torch, dtype)
+        return tuple(torch.randn(*shape, device=dev, generator=gen).to(dt)
+                     for shape in ((b, h, s, d), (b, hkv, t, d),
+                                   (b, hkv, t, d)))
+
+    max_err = 0.0
+    for b, h, hkv, s, t, d, causal, window, dtype in FLASH_SWEEP:
+        tol = 3e-2 if dtype == "bfloat16" else 2e-5
+        q, k, v = inputs(b, h, hkv, s, t, d, dtype)
+        # K/V as a [B, T, Hkv, D] cache seen through a transpose (no copy)
+        ks = k.transpose(1, 2).contiguous().transpose(1, 2)
+        vs = v.transpose(1, 2).contiguous().transpose(1, 2)
+        got = fa.flash_attention(q, ks, vs, causal=causal, window=window)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        if bool((err > tol + tol * want.float().abs()).any()):
+            raise AssertionError(f"flash {(b, h, hkv, s, t, d, causal, window, dtype)}: "
+                                 f"max err {float(err.max())}")
+        if dtype == "float32":
+            max_err = max(max_err, float(err.max()))
+    out = {}
+    # at Hymba's shapes both sides work in f32 on the same bf16 inputs and
+    # round once to bf16, so they may differ by one bf16 ulp (2^-7 of the
+    # value) where the f32 sums straddle a rounding boundary
+    atol, rtol = 2e-4, 8e-3
+    h, hkv, s, d = 25, 5, SERVE_SEQ[-1], 64
+    q, k, v = inputs(1, h, hkv, s, SERVE_MAX_LEN, d, "bfloat16")
+    for window in (0, 1024):
+        got = fa.flash_attention(q, k, v, window=window)
+        want = flash_attention_plain(q, k, v, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        if bool((err > atol + rtol * want.float().abs()).any()):
+            raise AssertionError(f"flash at Hymba's shape, window {window}: "
+                                 f"max err {float(err.max())}")
+        qpos = torch.arange(s, device=dev)[:, None]
+        kpos = torch.arange(SERVE_MAX_LEN, device=dev)[None, :]
+        mask = kpos <= qpos
+        if window:
+            mask = mask & (kpos > qpos - window)
+        row = dict(window=window, max_abs_err_bf16=float(err.max()),
+                   kernel_ms=device_ms(lambda: fa.flash_attention(
+                       q, k, v, window=window), iters=20, warm=3),
+                   plain_ms=device_ms(lambda: flash_attention_plain(
+                       q, k, v, window=window), iters=5, warm=2))
+        try:
+            row["library_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True),
+                iters=20, warm=3)
+        except RuntimeError as exc:      # the yardstick only, never the port
+            row["library_ms"], row["library_error"] = None, str(exc)[:200]
+        pairs = _flash_pairs(s, SERVE_MAX_LEN, True, window)
+        nbytes = 2 * (2 * h * s * d + 2 * hkv * SERVE_MAX_LEN * d)
+        row["gflop"] = 4 * h * d * pairs / 1e9
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * h * d * pairs,
+                                                 bw, bf16_peak)
+        out[window] = row
+    emit("flash_kernel", sweep=[list(c) for c in FLASH_SWEEP],
+         max_abs_err_f32=max_err, hymba={str(w): r for w, r in out.items()},
+         shape=dict(q=[1, h, s, d], kv=[1, hkv, SERVE_MAX_LEN, d],
+                    dtype="bfloat16"),
+         rate="bf16 tensor cores", tolerance={"float32": 2e-5,
+                                              "bfloat16": 3e-2,
+                                              "hymba": [atol, rtol]})
+    g = out[0]
+    return {"flash_attention": dict(
+        max_abs_err=max_err, ms=g["kernel_ms"], plain_ms=g["plain_ms"],
+        library_ms=g["library_ms"], bound_ms=g["bound_ms"],
+        bound_by=g["bound_by"])}
+
+
+# (B, S, H, P, N, chunk): the reference's SSD sweep, then Hymba's and
+# Mamba2-370M's prefill shapes
+SSD_SWEEP = ((1, 64, 2, 32, 16, 16), (2, 128, 3, 32, 16, 32),
+             (1, 256, 4, 64, 128, 64), (2, 96, 2, 32, 8, 32))
+SSD_MODELS = (("hymba", (1, 2048, 50, 64, 16, 256)),
+              ("mamba2", (1, 2048, 32, 64, 128, 256)))
+
+
+def _ssd_cost(b, s, h, p, n, chunk, itemsize):
+    """(bytes, operations) of one call with B/C in one group: x, dt, a_log,
+    B, C in, y and the f32 state out; per chunk the causal pairs' C·B
+    (2N) and their weighted x (2P), the carried state's 2·L·N·P twice."""
+    nbytes = (2 * b * s * h * p + 2 * b * s * n) * itemsize + \
+        b * s * h * 4 + h * 4 + b * h * p * n * 4
+    pairs = chunk * (chunk + 1) // 2
+    flops = b * h * (s // chunk) * (pairs * 2 * (n + p) + 4 * chunk * n * p)
+    return nbytes, flops
+
+
+def phase_ssd_kernel(dev, bw, peak):
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels.ref import ssd_scan_plain
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def inputs(b, s, h, p, n, dtype, g=1):
+        dt = getattr(torch, dtype)
+        x = torch.randn(b, s, h, p, device=dev, generator=gen).to(dt)
+        d = torch.rand(b, s, h, device=dev, generator=gen) * 0.1 + 0.05
+        alog = torch.log(torch.linspace(1, 16, h, device=dev))
+        bm = (torch.randn(b, s, g, n, device=dev, generator=gen) * 0.5).to(dt)
+        cm = (torch.randn(b, s, g, n, device=dev, generator=gen) * 0.5).to(dt)
+        return x, d, alog, bm, cm
+
+    max_err = 0.0
+    for b, s, h, p, n, chunk in SSD_SWEEP:
+        args = inputs(b, s, h, p, n, "float32", g=h)
+        y, st = ss.ssd_scan(*args, chunk=chunk)
+        yw, sw = ssd_scan_plain(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        for got, want in ((y, yw), (st, sw)):
+            err = (got - want).abs()
+            if bool((err > 1e-4 + 1e-4 * want.abs()).any()):
+                raise AssertionError(f"ssd {(b, s, h, p, n, chunk)}: max err "
+                                     f"{float(err.max())}")
+            max_err = max(max_err, float(err.max()))
+    rows = {}
+    for name, (b, s, h, p, n, chunk) in SSD_MODELS:
+        args = inputs(b, s, h, p, n, "bfloat16")
+        y, st = ss.ssd_scan(*args, chunk=chunk)
+        yw, sw = ssd_scan_plain(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        errs = []
+        # y in bf16; the final state f32 on both sides
+        for got, want, tol in ((y.float(), yw.float(), 2e-2),
+                               (st, sw, 1e-4)):
+            err = (got - want).abs()
+            if bool((err > tol + tol * want.abs()).any()):
+                raise AssertionError(f"ssd at {name}'s shape: max err "
+                                     f"{float(err.max())}")
+            errs.append(float(err.max()))
+        nbytes, flops = _ssd_cost(b, s, h, p, n, chunk, 2)
+        bms, by = bound(nbytes, flops, bw, peak)
+        rows[name] = dict(
+            shape=[b, s, h, p, n, chunk], max_abs_err_y=errs[0],
+            max_abs_err_state=errs[1], gflop=flops / 1e9, mbytes=nbytes / 1e6,
+            kernel_ms=device_ms(lambda: ss.ssd_scan(*args, chunk=chunk),
+                                iters=20, warm=3),
+            plain_ms=device_ms(lambda: ssd_scan_plain(*args, chunk=chunk),
+                               iters=5, warm=2),
+            bound_ms=bms, bound_by=by)
+    emit("ssd_kernel", sweep=[list(c) for c in SSD_SWEEP],
+         max_abs_err_f32=max_err, models=rows, rate="f32 CUDA cores",
+         tolerance={"float32": 1e-4, "bfloat16": 2e-2, "state": 1e-4})
+    hy = rows["hymba"]
+    return {"ssd_scan": dict(
+        max_abs_err=max_err, ms=hy["kernel_ms"], plain_ms=hy["plain_ms"],
+        library_ms=None, bound_ms=hy["bound_ms"], bound_by=hy["bound_by"])}
+
+
+def phase_merge_one(dev, bw, peak):
+    """The one-node commit through ``ops.merge_op``: the path (each node of
+    a [4, P] state committed alone, counted) against the all-nodes kernel,
+    then against its plain version, and its time."""
+    import torch
+    from repro_torch.core.topology import ring_matrix
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.kernels import fused_merge as fm
+    from repro_torch.kernels.ref import fused_merge_ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(N, P, device=dev, generator=gen)
+    W = torch.as_tensor(ring_matrix(N, 0.5), dtype=torch.float32, device=dev)
+    gates = torch.tensor([True, False, True, True], device=dev)
+    reset_launches()
+    rows = [ops.merge_op(x, W[i], i, gates[i]) for i in range(N)]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if launches != {k: N if k == "fused_merge" else 0 for k in LAUNCHES}:
+        raise AssertionError(f"one-node commits launched {launches}")
+    if not torch.equal(torch.stack(rows), fm.fused_merge_all(x, W, gates)):
+        raise AssertionError("one-node commits differ from the all-nodes "
+                             "kernel")
+    w = W[0]
+    for gate in (True, False):
+        got = ops.merge_op(x, w, 0, gate)
+        want = fused_merge_ref(x, w, 0, gate)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"one-node commit (gate {gate}) differs "
+                                 f"from plain: max err "
+                                 f"{float((got - want).abs().max())}")
+    g = torch.tensor(True, device=dev)
+    ms = device_ms(lambda: ops.merge_op(x, w, 0, g), iters=50)
+    plain_ms = device_ms(lambda: fused_merge_ref(x, w, 0, g), iters=20)
+    library_ms = device_ms(lambda: torch.where(g, w @ x, x[0]), iters=50)
+    bms, by = bound((N + 1) * P * 4 + N * 4, 2 * N * P, bw, peak)
+    emit("merge_one", shape=[N, P], launches=launches, kernel_ms=ms,
+         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by,
+         bit_equal=True)
+    return ({"fused_merge": dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                 library_ms=library_ms, bound_ms=bms,
+                                 bound_by=by)}, launches)
+
+
+def phase_lm_parity(dev):
+    """The smoke variants in f32 on the card against the CPU: prefill
+    logits and 4 decode steps (TF32 off)."""
+    import torch
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import build_model
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    try:
+        for arch in ("hymba-1.5b", "minicpm-2b", "mamba2-370m"):
+            model = build_model(smoke_variant(get_config(arch)))
+            flat = model.init(torch.Generator().manual_seed(0), "cpu")
+            rng = torch.Generator().manual_seed(1)
+            toks = torch.randint(0, 512, (2, 40), generator=rng)
+            res = {}
+            for d in ("cpu", dev):
+                params = model.layout.unflatten(flat.to(d))
+                caches = model.init_cache(2, 48, d)
+                lg, caches = model.prefill(params, {"tokens": toks[:, :36]
+                                                    .to(d)}, caches)
+                outs = [lg[:, -1]]
+                for i in range(4):
+                    lg, caches = model.decode(params, toks[:, 36 + i:37 + i]
+                                              .to(d), caches, 36 + i)
+                    outs.append(lg[:, -1])
+                res[d] = torch.stack(outs).cpu()
+            err = float((res[dev] - res["cpu"]).abs().max())
+            if not err <= 1e-4 or not bool(torch.isfinite(res[dev]).all()):
+                raise AssertionError(f"{arch}: card vs CPU logits err {err}")
+            errs[arch] = err
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    emit("lm_parity", max_abs_err=errs, tolerance=1e-4, steps=5)
+
+
+def _replay_consensus(model, params, req, bucket, dev):
+    """``req``'s consensus tokens [new, N] served again outside the engine,
+    from the same ensemble ``params`` [N, P]: each node's prefill of the
+    prompt on a fresh one-lane cache, then its decode fed the served
+    tokens, at the engine's decode shape (``bucket`` rows, every row this
+    request), and the same aggregation over the nodes. The engine's rows
+    do not mix, so its slot, version and cache bookkeeping must give these
+    tokens bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import make_logits_step
+    from repro_torch.serve.engine import aggregate_logits, tree_map
+
+    step = make_logits_step(model)
+    n_nodes = params.shape[0]
+    views = [model.layout.unflatten(params[i]) for i in range(n_nodes)]
+    mask = torch.ones(n_nodes, dtype=torch.bool, device=dev)
+    length = len(req.prompt)
+    prompt = torch.as_tensor(req.prompt, device=dev).to(torch.long)[None]
+    caches, logits = [], []
+    for n in range(n_nodes):
+        lane = model.init_cache(1, SERVE_MAX_LEN, dev)
+        lg, _ = step(views[n], prompt, lane, 0)
+        logits.append(lg[0, length - 1])
+        caches.append(tree_map(lambda t: t.repeat(
+            (bucket,) + (1,) * (t.dim() - 1)), lane))
+    out = [aggregate_logits(torch.stack(logits)[:, None], "consensus",
+                            node_mask=mask)[:, 0]]
+    commit = torch.ones(bucket, dtype=torch.bool, device=dev)
+    for k in range(1, len(req.node_tokens)):
+        fed = req.node_tokens[k - 1]
+        pos = torch.full((bucket,), length + k - 1, dtype=torch.long,
+                         device=dev)
+        logits = [step(views[n], torch.full((bucket, 1), int(fed[n]),
+                                            dtype=torch.long, device=dev),
+                       caches[n], pos, commit=commit)[0][:, -1]
+                  for n in range(n_nodes)]
+        out.append(aggregate_logits(torch.stack(logits), "consensus",
+                                    node_mask=mask)[:, 0])
+    return np.stack([o.cpu().numpy() for o in out])
+
+
+def phase_serve(dev):
+    """The LM serving path at Hymba-1.5B width, counts set to 0 just
+    before it and read just after."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.serve import BucketPolicy, ServeEngine
+
+    cfg = get_config("hymba-1.5b")
+    model = build_model(cfg)
+    size = model.layout.size
+
+    def ensemble(seed):
+        buf = torch.empty((N, size), dtype=torch.bfloat16, device=dev)
+        for i in range(N):
+            model.init(torch.Generator(device=dev).manual_seed(seed + i), dev,
+                       out=buf[i])
+        return buf
+
+    prefill_s, decode_s = [], []
+
+    class TimedEngine(ServeEngine):
+        """Synchronized host time of each prefill (all N nodes) and each
+        decode dispatch."""
+
+        def _prefill_commit(self, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super()._prefill_commit(*args)
+            prefill_s.append(time.perf_counter() - t0)
+            return out
+
+        def _decode_commit(self, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super()._decode_commit(*args)
+            decode_s.append(time.perf_counter() - t0)
+            return out
+
+    t0 = time.perf_counter()
+    ens_a, ens_b = ensemble(100), ensemble(200)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = np.random.default_rng(0)
+    short, long_ = SERVE_SEQ
+    lengths = (long_, short, long_, short, short, long_, short, long_)
+    prompts = [gen.integers(0, cfg.vocab_size, n) for n in lengths]
+    eng = TimedEngine(model, ens_a, mode="consensus", max_len=SERVE_MAX_LEN,
+                      max_slots=4, device=dev,
+                      policy=BucketPolicy(batch_buckets=(1, 2, 4),
+                                          seq_buckets=SERVE_SEQ))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, SERVE_NEW) for p in prompts[:4]]
+    eng.step()
+    eng.step()
+    swapped = eng.swap(ens_b)                 # requests are in flight
+    reqs += [eng.submit(p, SERVE_NEW) for p in prompts[4:]]
+    tick = None
+    while len(eng.queue) or eng.live_count:
+        if tick is None and not len(eng.queue) and eng.live_count == 4 \
+                and all(len(r.node_tokens) > 1 for r in reqs[4:]):
+            # one decode-only tick under the profiler
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+            evts = prof.key_averages()
+            cuda = [e for e in evts
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(getattr(e, "self_device_time_total", 0.0)
+                       for e in cuda)
+            host = sorted((e for e in evts
+                           if e.device_type != torch.autograd.DeviceType.CUDA),
+                          key=lambda e: -e.self_cpu_time_total)
+            dev_top = sorted(cuda, key=lambda e: -getattr(
+                e, "self_device_time_total", 0.0))
+            tick = dict(wall_s=wall, device_busy_s=busy / 1e6,
+                        device_busy_share=busy / 1e6 / wall,
+                        host_ops=sum(e.count for e in evts if e.key.startswith(
+                            "aten::") and e.device_type !=
+                            torch.autograd.DeviceType.CUDA),
+                        kernel_launches=sum(e.count for e in cuda),
+                        top_host=[{"op": e.key[:60], "calls": e.count,
+                                   "self_ms": e.self_cpu_time_total / 1e3}
+                                  for e in host[:10]],
+                        top_device=[{"kernel": e.key[:80], "calls": e.count,
+                                     "ms": getattr(e, "self_device_time_total",
+                                                   0.0) / 1e3}
+                                    for e in dev_top[:8]])
+        else:
+            eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_pref = len(prompts)
+    want = {k: 0 for k in LAUNCHES}
+    want.update(flash_attention=N * cfg.n_layers * n_pref,
+                ssd_scan=N * cfg.n_layers * n_pref)
+    if launches != want:
+        raise AssertionError(f"serve launches {launches}, want {want}")
+    for i, r in enumerate(reqs):
+        if r.status != "done" or len(r.tokens) != SERVE_NEW:
+            raise AssertionError(f"request {r.rid}: {r.status}, "
+                                 f"{len(r.tokens)} tokens")
+        if r.param_version != (0 if i < 4 else swapped):
+            raise AssertionError(f"request {r.rid} ran on version "
+                                 f"{r.param_version}")
+        toks = np.stack(r.node_tokens)
+        if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"request {r.rid}: tokens {toks.tolist()}")
+    if tick is None:
+        raise AssertionError("no decode-only tick was profiled")
+    # a long request of the first version and a short one of the swapped
+    # version, served again outside the engine: their tokens must match
+    decode_bucket, = {key[1] for key in eng.trace_counts
+                      if key[0] == "decode"}
+    replayed = {}
+    for r, params in ((reqs[0], ens_a), (reqs[4], ens_b)):
+        again = _replay_consensus(model, params, r, decode_bucket, dev)
+        if not np.array_equal(again, np.stack(r.node_tokens)):
+            raise AssertionError(
+                f"request {r.rid}: served {np.stack(r.node_tokens)[:, 0]}, "
+                f"replayed {again[:, 0]}")
+        replayed[r.rid] = dict(prompt=len(r.prompt), version=r.param_version,
+                               tokens=again[:, 0].tolist())
+    lat = sorted(r.latency_s for r in reqs)
+    by_len = {n: [s for s, m in zip(prefill_s, lengths) if m == n]
+              for n in SERVE_SEQ}
+    reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prompt = torch.as_tensor(np.stack([gen.integers(0, cfg.vocab_size, short)
+                                       for _ in range(4)]))
+    out = generate(model, ens_b[0], prompt, SERVE_NEW, short + SERVE_NEW,
+                   device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t1
+    if tuple(out.shape) != (4, SERVE_NEW) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"generate gave {tuple(out.shape)}")
+    if (LAUNCHES["flash_attention"], LAUNCHES["ssd_scan"]) != (
+            cfg.n_layers, cfg.n_layers):
+        raise AssertionError(f"generate launches {dict(LAUNCHES)}")
+    emit("serve", arch=cfg.name, dtype=cfg.param_dtype, nodes=N,
+         params_per_node=size, ensemble_gib=N * size * 2 / 2 ** 30,
+         requests=len(reqs), new_tokens=SERVE_NEW, prompt_lengths=lengths,
+         max_len=SERVE_MAX_LEN, swapped_to=swapped,
+         init_seconds=init_s, wall_seconds=wall,
+         tokens_per_s=len(reqs) * SERVE_NEW / wall,
+         latency_p50_s=float(np.percentile(lat, 50)),
+         latency_p99_s=float(np.percentile(lat, 99)),
+         prefill_s={str(n): v for n, v in by_len.items()},
+         decode_tick_s=dict(n=len(decode_s),
+                            median=float(np.median(decode_s)),
+                            max=float(max(decode_s))),
+         profiled_decode_tick=tick, peak_mem_gib=peak_gib,
+         launches={k: v for k, v in launches.items() if v},
+         dispatch_keys=sorted(map(str, eng.trace_counts)),
+         generate=dict(batch=4, prompt=short, seconds=gen_s,
+                       tokens_per_s=4 * SERVE_NEW / gen_s),
+         replayed=replayed)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -801,13 +1347,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    bw, peak = card_rates(kind)
+    bw, peak, bf16_peak = card_rates(kind)
     print(smi, flush=True)
     emit("device", nvidia_smi=smi, kind=kind, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
-         memory_rate=bw, f32_peak=peak)
+         memory_rate=bw, f32_peak=peak, bf16_peak=bf16_peak)
 
     t0 = time.perf_counter()
     build.build(list(SOURCES))
@@ -845,6 +1391,17 @@ def main() -> int:
     launches.update({k: v for k, v in counts.items()
                      if v and k not in launches})
     phase_hetero_parity(dev)
+    # the LM slice: kernels, the one-node commit's path, parity, serving
+    stats.update(phase_flash_kernel(dev, bw, peak, bf16_peak))
+    stats.update(phase_ssd_kernel(dev, bw, peak))
+    mstats, counts = phase_merge_one(dev, bw, peak)
+    stats.update(mstats)
+    launches.update({k: v for k, v in counts.items()
+                     if v and k not in launches})
+    phase_lm_parity(dev)
+    counts = phase_serve(dev)
+    launches.update({k: v for k, v in counts.items()
+                     if v and k not in launches})
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[stem],
                     replaces=replaces, launches=launches.get(name, 0),

@@ -10,6 +10,19 @@ packages can be fed the same weights and AdamW state. A flat payload dict's
 as single keys. :func:`zoo_node_from_reference` carries a node of the
 reference's model zoo across: its backbone (CNN convs HWIO → OIHW) and the
 whole head, its frozen ``proj/w`` included.
+
+:func:`lm_params_from_reference` and :func:`lm_params_to_reference` carry
+an LM's params (`repro_torch.models.build_model`): the reference's tree,
+its layer leaves stacked ``[L, ...]``, and the port's flat vector over the
+same paths. Layer i's params are views ``leaf[i]`` of the stacked leaves
+at run time (`repro_torch.models.transformer.layer_params`); keeping the
+stacked leaves in the flat vector keeps the checkpoint keys the
+reference's, so a reference ``SwarmSession.save`` of an LM ensemble loads
+through `repro_torch.core.session.load_checkpoint_params` unchanged. The
+way in keeps the arrays' dtype: f32, or bf16 (a JAX bf16 array arrives as
+an ``ml_dtypes.bfloat16`` numpy array and is reinterpreted bit for bit),
+and the leaves the reference keeps in f32 inside a bf16 model stay f32
+(the layout's wide leaves).
 """
 from __future__ import annotations
 
@@ -43,31 +56,31 @@ def _conv_axes(lead: int, to_torch: bool):
     return tuple(range(lead)) + tuple(lead + a for a in tail)
 
 
-def from_reference(layout: FlatLayout, tree, lead: int = 0) -> torch.Tensor:
+def from_reference(layout: FlatLayout, tree, lead: int = 0,
+                   dtype=None) -> torch.Tensor:
     """Reference param tree (leaves ``[*lead, *shape]``) → flat
-    ``[*lead, P]`` f32 CPU tensor."""
-    parts = []
+    ``[*lead, P]`` CPU tensor, f32 (or ``dtype``)."""
+    parts = {}
     for leaf in layout.leaves:
-        a = np.asarray(_get(tree, leaf.path), np.float32)
+        a = np.array(_get(tree, leaf.path), np.float32)
         if len(leaf.shape) == 4:
             a = np.transpose(a, _conv_axes(lead, to_torch=True))
-        parts.append(a.reshape(a.shape[:lead] + (leaf.size,)))
-    return torch.from_numpy(np.ascontiguousarray(np.concatenate(parts, -1)))
+        parts[leaf.path] = torch.from_numpy(np.ascontiguousarray(a))
+    return layout.flatten(parts, dtype)
 
 
 def to_reference_tree(layout: FlatLayout, flat: torch.Tensor) -> Any:
-    """Flat ``[*lead, P]`` → reference param tree of numpy arrays."""
-    flat = flat.detach().to("cpu", torch.float32)
+    """Flat ``[*lead, P]`` → reference param tree of f32 numpy arrays."""
+    flat = flat.detach().cpu()
     lead = flat.dim() - 1
     root: Dict = {}
-    for leaf, part in zip(layout.leaves,
-                          flat.split([lf.size for lf in layout.leaves], -1)):
-        a = part.reshape(tuple(flat.shape[:-1]) + leaf.shape).numpy()
-        if len(leaf.shape) == 4:
+    for path, part in layout.unflatten(flat).items():
+        a = part.to(torch.float32).numpy()
+        if a.ndim - lead == 4:
             a = np.ascontiguousarray(
                 np.transpose(a, _conv_axes(lead, to_torch=False)))
         node = root
-        keys = [int(p) if p.isdigit() else p for p in leaf.path.split(".")]
+        keys = [int(p) if p.isdigit() else p for p in path.split(".")]
         for k in keys[:-1]:
             node = node.setdefault(k, {})
         node[keys[-1]] = a
@@ -112,3 +125,33 @@ def zoo_node_from_reference(family: str, template, *,
                                      template["head"])},
                        features=zoo.backbone_features(family,
                                                       feat_dim=feat_dim))
+
+
+def _tensor(a) -> torch.Tensor:
+    """numpy array (f32, or ``ml_dtypes.bfloat16`` by its bits) → tensor."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_reference(layout: FlatLayout, tree, lead: int = 0,
+                             dtype=None) -> torch.Tensor:
+    """Reference LM param tree (leaves ``[*lead, *shape]``, layer leaves
+    stacked ``[L, ...]``) → flat ``[*lead, P]`` CPU tensor in ``dtype``
+    (default: the dtype of the leaves the layout does not hold wide; its
+    wide leaves keep their f32 values)."""
+    parts = {leaf.path: _tensor(_get(tree, leaf.path))
+             for leaf in layout.leaves}
+    if dtype is None:
+        dtype = next(parts[leaf.path].dtype for leaf in layout.leaves
+                     if not leaf.wide)
+    return layout.flatten(parts, dtype)
+
+
+def lm_params_to_reference(layout: FlatLayout, flat: torch.Tensor):
+    """Flat ``[*lead, P]`` LM params → the reference's tree of f32 numpy
+    arrays (exact for bf16 values; cast to bf16 on the reference's side)."""
+    if any(len(leaf.shape) == 4 for leaf in layout.leaves):
+        raise ValueError("an LM layout has no 4-D (conv) leaves")
+    return to_reference_tree(layout, flat)

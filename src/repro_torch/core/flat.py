@@ -13,8 +13,9 @@ dict's ``/``-joined paths (``"head/proj/lora_A"``) are single keys.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -24,6 +25,7 @@ class Leaf:
     path: str
     shape: Tuple[int, ...]
     offset: int
+    wide: bool = False   # f32 values in two slots of a 16-bit buffer
 
     @property
     def size(self) -> int:
@@ -32,20 +34,36 @@ class Leaf:
             n *= s
         return n
 
+    @property
+    def slots(self) -> int:
+        return 2 * self.size if self.wide else self.size
+
 
 class FlatLayout:
-    """Fixed leaf order over a flat parameter vector of length ``size``."""
+    """Fixed leaf order over a flat parameter vector of length ``size``
+    (slots; ``wide`` names the leaves held as f32 in a 16-bit buffer)."""
 
-    def __init__(self, leaves: Sequence[Tuple[str, Sequence[int]]]):
-        out: List[Leaf] = []
+    def __init__(self, leaves: Sequence[Tuple[str, Sequence[int]]],
+                 wide: Iterable[str] = ()):
+        wide = frozenset(wide)
+        leaves = [Leaf(path, tuple(int(s) for s in shape), 0, path in wide)
+                  for path, shape in leaves]
+        if wide - {leaf.path for leaf in leaves}:
+            raise ValueError(f"wide leaves {sorted(wide)} not in the layout")
+        # buffer order: the wide leaves first (even offsets), then the rest
+        self._order = sorted(range(len(leaves)), key=lambda i: not
+                             leaves[i].wide)
         off = 0
-        for path, shape in leaves:
-            leaf = Leaf(path, tuple(int(s) for s in shape), off)
-            out.append(leaf)
-            off += leaf.size
-        self.leaves: Tuple[Leaf, ...] = tuple(out)
+        for i in self._order:
+            leaves[i] = dataclasses.replace(leaves[i], offset=off)
+            off += leaves[i].slots
+        self.leaves: Tuple[Leaf, ...] = tuple(leaves)
+        self.wide = wide
+        self._sizes = [leaves[i].slots for i in self._order]
+        if wide and off % 2:
+            self._sizes.append(1)
+            off += 1
         self.size = off
-        self._sizes = [leaf.size for leaf in self.leaves]
 
     @classmethod
     def of_module(cls, module: torch.nn.Module) -> "FlatLayout":
@@ -61,13 +79,38 @@ class FlatLayout:
     def unflatten(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``[..., P]`` → {path: ``[..., *shape]`` view}. One ``split``, so the
         gradient of a loss over the views comes back as one flat ``[..., P]``
-        tensor (the split's backward is a single concatenation)."""
+        tensor (the split's backward is a single concatenation); a wide
+        leaf's f32 view carries no gradient."""
         lead = flat.shape[:-1]
+        if self.wide and flat.element_size() != 2:
+            raise ValueError(f"a layout with wide leaves needs a 16-bit "
+                             f"buffer, got {flat.dtype}")
         parts = flat.split(self._sizes, dim=-1)
-        return {leaf.path: part.reshape(lead + leaf.shape)
-                for leaf, part in zip(self.leaves, parts)}
+        views = {}
+        for i, part in zip(self._order, parts):
+            leaf = self.leaves[i]
+            if leaf.wide:
+                part = part.view(torch.float32)
+            views[leaf.path] = part.reshape(lead + leaf.shape)
+        return {leaf.path: views[leaf.path] for leaf in self.leaves}
 
-    def flatten(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """{path: tensor of the leaf's shape} → contiguous ``[P]``."""
-        return torch.cat([params[leaf.path].reshape(-1)
-                          for leaf in self.leaves])
+    def flatten(self, params: Dict[str, torch.Tensor],
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """{path: tensor ``[*lead, *shape]``} → contiguous ``[*lead, P]``,
+        in ``dtype`` when given (wide leaves as f32 bits)."""
+        if self.wide and (dtype is None or dtype.itemsize != 2):
+            raise ValueError("a layout with wide leaves flattens into a "
+                             "16-bit dtype")
+        parts = []
+        for i in self._order:
+            leaf = self.leaves[i]
+            t = params[leaf.path]
+            t = t.reshape(t.shape[:t.dim() - len(leaf.shape)] + (-1,))
+            if leaf.wide:
+                t = t.to(torch.float32).contiguous().view(dtype)
+            elif dtype is not None:
+                t = t.to(dtype)
+            parts.append(t)
+        if len(self._sizes) > len(parts):      # the pad slot
+            parts.append(parts[-1].new_zeros(parts[-1].shape[:-1] + (1,)))
+        return torch.cat(parts, dim=-1)

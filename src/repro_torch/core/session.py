@@ -156,6 +156,10 @@ class SwarmSession:
         n = cfg.n_nodes
         if params is None:
             raise ValueError("SwarmSession needs initial params")
+        if layout is not None and layout.wide:
+            raise ValueError(
+                "the layout holds f32 leaves in a 16-bit buffer (an LM in "
+                "bf16): a commit would merge their halves as numbers")
         self.layout = layout
         # the gossip backend raises here: not ported (a zoo closure list is
         # rejected on it first, as the reference's engine rejects it)
@@ -406,5 +410,6 @@ def load_checkpoint_params(path: str, params_template: torch.Tensor, *,
     like = t.numpy() if layout is None else to_reference_tree(layout, t)
     tree = load_pytree(path, Fields(params=like))["params"]
     out = (torch.from_numpy(np.array(tree)) if layout is None
-           else from_reference(layout, tree, lead=1))
+           else from_reference(layout, tree, lead=1,
+                               dtype=params_template.dtype))
     return out.to(device=params_template.device, dtype=params_template.dtype)

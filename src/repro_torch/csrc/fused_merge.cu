@@ -1,5 +1,5 @@
-// Fused gated swarm commit for Hopper (sm_90a): the whole swarm's commit
-// over the flat [N, P] state in one launch.
+// Fused gated swarm commits for Hopper (sm_90a): the whole swarm's commit
+// over the flat [N, P] state in one launch, and one node's commit.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/fused_merge.py
 // `fused_merge_all` — body `_merge_all_kernel` (W-row form, mean/fedavg
@@ -28,6 +28,19 @@
 // value itself, so it is bit-exact. bf16 inputs are widened to f32 and the
 // result rounds to nearest even. N is a template bound (4..64) so the
 // per-column arrays stay in registers.
+//
+// The one-node form replaces `fused_merge` (body `_merge_kernel`), the
+// commit of a single node from one weight row, its own row index and a
+// scalar gate, [N, D] -> [D]:
+//
+//   out = gate ? sum_j w[j] * x[j] : x[self_idx]
+//
+// Bound: memory, (N + 1)*D*4 bytes for f32. Same design, one output row:
+// a thread per column, the weights in shared memory, the gate and self_idx
+// read on the device (no host synchronization), the sum f32 in j order
+// with separately rounded multiplies and adds (bit-equal to
+// kernels/ref.py::fused_merge_plain), a rejected gate storing row self_idx
+// itself.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -143,7 +156,61 @@ int dispatch(const void* x, const void* imp, const void* W, const void* gates,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+merge_one_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                 const int32_t* __restrict__ gate_self, T* __restrict__ out,
+                 int n, int64_t d) {
+  __shared__ float sw[64];
+  for (int k = threadIdx.x; k < n; k += blockDim.x) sw[k] = w[k];
+  __syncthreads();
+  const bool gate = gate_self[0] != 0;
+  const int64_t self_row = gate_self[1];
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t col = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       col < d; col += stride) {
+    if (gate) {
+      float acc = 0.f;
+      for (int j = 0; j < n; ++j)
+        acc = __fadd_rn(acc, __fmul_rn(sw[j],
+                                       to_f32(x[static_cast<int64_t>(j) * d +
+                                                col])));
+      out[col] = from_f32(acc, T());
+    } else {
+      out[col] = x[self_row * d + col];
+    }
+  }
+}
+
+template <typename T>
+int launch_one(const void* x, const void* w, const void* gate_self,
+               void* out, int n, int64_t d, cudaStream_t stream) {
+  const int64_t want = (d + kThreads - 1) / kThreads;
+  const unsigned blocks = static_cast<unsigned>(want < 2147483647 ? want
+                                                                  : 2147483647);
+  merge_one_kernel<T><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<const int32_t*>(gate_self), static_cast<T*>(out), n, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// Plain C entry point (bound with ctypes) of the one-node commit. x: [n, d]
+// row-major, f32 (dtype 0) or bf16 (dtype 1); w: [n] f32; gate_self: [2]
+// int32 on the device, (gate, self_idx); out: [d]. Launches on `stream`,
+// does not synchronize, and returns cudaGetLastError() (0 on success).
+extern "C" int fused_merge_launch(const void* x, const void* w,
+                                  const void* gate_self, void* out, int n,
+                                  long long d, int dtype, void* stream) {
+  if (n < 1 || n > 64 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_one<float>(x, w, gate_self, out, n, d, s);
+  if (dtype == 1)
+    return launch_one<__nv_bfloat16>(x, w, gate_self, out, n, d, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // Plain C entry point (bound with ctypes). x/out: [n, d] row-major, f32
 // (dtype 0) or bf16 (dtype 1); imp: [n, d] f32 or null; W: [n, n] f32;

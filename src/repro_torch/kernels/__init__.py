@@ -9,7 +9,8 @@ plain version and counts nothing.
 #: kernel launches per kernel and form, counted where each is launched
 LAUNCHES = {"fused_merge_all": 0, "fused_merge_all_imp": 0,
             "fused_quant_merge_all": 0, "fused_quant_merge_all_imp": 0,
-            "lora_matmul": 0}
+            "lora_matmul": 0, "fused_merge": 0, "flash_attention": 0,
+            "ssd_scan": 0}
 
 
 def reset_launches() -> None:

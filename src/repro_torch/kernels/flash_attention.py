@@ -1,0 +1,97 @@
+"""Flash attention with GQA, a causal mask and a sliding window, in one
+CUDA launch.
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py`` ::
+``flash_attention`` (body ``_flash_kernel``), which on the LM path computes
+every prefill's attention (`repro_torch.models.attention`, the self-
+attention form with query positions 0..S-1). The CUDA kernel
+(``csrc/flash_attention.cu``) keeps the online softmax state in f32,
+streams K/V tiles of 64 keys through shared memory for each (q tile of 64
+rows, query head), and skips every key tile the TPU kernel skips (wholly
+in the future of the q tile, or wholly older than the window). Bound: the
+operations, about 4·H·D·S²/2 for a causal prefill (13.4 GFLOP at Hymba's
+S = 2048: 13.6 µs at an H100 SXM's bf16 tensor-core rate of 989 TFLOP/s,
+700 W), against about 16 MB moved. This first kernel runs on the f32 CUDA
+cores; see the source for the design.
+
+:func:`flash_attention` takes q ``[B, H, S, D]`` and k/v ``[B, Hkv, T, D]``
+as views with any (batch, head, seq) strides and a contiguous D, so the
+module's ``[B, S, H, D]`` projections and a ``[B, T, Hkv, D]`` KV cache pass
+without a copy; its output is a ``[B, H, S, D]`` view of a ``[B, S, H, D]``
+buffer, so the module's reshape back to ``[B, S, H·D]`` is free. On a CPU
+tensor it computes the plain version (`repro_torch.kernels.ref.
+flash_attention_plain`, the twin of the reference's ``attention_ref``); on
+a CUDA tensor it launches the kernel or raises. ``causal=False`` with
+``window > 0`` raises on both: the TPU kernel and its oracle disagree there.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels.ref import flash_attention_plain
+
+HEAD_DIMS = (32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib():
+    fn = build.load("flash_attention").flash_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q [B, H, S, D], k/v [B, Hkv, T, D] (H % Hkv == 0) → [B, H, S, D] in
+    q's dtype: softmax(q kᵀ/√D, masked) v with query positions 0..S-1 and
+    key positions 0..T-1."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"need q [B,H,S,D] and k/v [B,Hkv,T,D], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or h % hkv:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         "compose (batch, head dim, H % Hkv)")
+    window = int(window)
+    if not causal and window > 0:
+        raise ValueError("flash_attention: a sliding window needs "
+                         "causal=True")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"dtype {q.dtype} not supported (float32 or "
+                        "bfloat16)")
+    for name, x in (("k", k), ("v", v)):
+        if x.device != q.device or x.dtype != q.dtype:
+            raise ValueError(f"{name} must be a {q.dtype} tensor on "
+                             f"{q.device}, got {x.dtype} on {x.device}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if b > 65535 or h > 65535 or max(s, t) >= 2 ** 31:
+        raise ValueError(f"shape {tuple(q.shape)} / {tuple(k.shape)} outside "
+                         "the kernel's range")
+    buf = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    out = buf.transpose(1, 2)
+    strides = [x.stride(i) for x in (q, k, v, out) for i in range(3)]
+    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, h, hkv, s, t, d, (ctypes.c_longlong * 12)(*strides),
+                 int(bool(causal)), window, 1.0 / d ** 0.5, _DTYPES[q.dtype],
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    LAUNCHES["flash_attention"] += 1
+    return out

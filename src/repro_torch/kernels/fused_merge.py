@@ -23,6 +23,12 @@ in one launch of ``csrc/fused_quant_merge.cu``. Bound: memory — x and r
 (and imp) read once, committed and r' written once: 4·N·P·4 bytes
 (5·N·P·4 with ``imp``).
 
+:func:`fused_merge` is the one-node commit (the reference's
+``fused_merge``, body ``_merge_kernel``, reached through
+`repro_torch.kernels.ops.merge_op`): ``out = gate ? Σ_j w_j·θ_j : θ_self``,
+``[N, D] → [D]``, a third form in ``csrc/fused_merge.cu``. Bound: memory,
+(N + 1)·D·4 bytes for f32.
+
 On a CPU tensor each wrapper computes its plain version
 (`repro_torch.kernels.ref`); on a CUDA tensor it launches the kernel or
 raises. ``LAUNCHES`` (shared by every kernel of the port) counts
@@ -36,6 +42,7 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, build, reset_launches  # noqa: F401
 from repro_torch.kernels.ref import (fused_merge_all_plain,
+                                     fused_merge_ref,
                                      fused_quant_merge_all_plain)
 
 MAX_NODES = 64
@@ -50,6 +57,16 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _one_lib():
+    fn = build.load("fused_merge").fused_merge_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int,
+                                               ctypes.c_longlong, ctypes.c_int,
+                                               ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -107,6 +124,48 @@ def fused_merge_all(stacked: torch.Tensor, W, gates, imp=None) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"fused_merge_all launch failed: CUDA error {err}")
     LAUNCHES["fused_merge_all" if imp is None else "fused_merge_all_imp"] += 1
+    return out
+
+
+def fused_merge(stacked: torch.Tensor, weights, self_idx, gate
+                ) -> torch.Tensor:
+    """One node's commit: stacked [N, D] (f32 or bf16) → [D] in the same
+    dtype, ``gate ? Σ_j weights[j]·θ_j : θ_self``. ``weights`` [N] (taken
+    as f32); ``self_idx`` and ``gate`` are ints/bools or 0-d tensors, read
+    on the device by the kernel. A rejected gate returns row ``self_idx``
+    bit for bit."""
+    if stacked.dim() != 2:
+        raise ValueError(f"stacked must be [N, D], got {tuple(stacked.shape)}")
+    n, d = stacked.shape
+    if stacked.device.type == "cpu":
+        return fused_merge_ref(stacked, weights, self_idx, gate)
+    if stacked.device.type != "cuda":
+        raise ValueError(f"unsupported device {stacked.device}")
+    if stacked.dtype not in _DTYPES:
+        raise TypeError(f"stacked dtype {stacked.dtype} not supported "
+                        "(float32 or bfloat16)")
+    if not stacked.is_contiguous():
+        raise ValueError("stacked must be contiguous")
+    if not 1 <= n <= MAX_NODES or d < 1:
+        raise ValueError(f"need 1 <= N <= {MAX_NODES} and D >= 1, got "
+                         f"N={n}, D={d}")
+    dev = stacked.device
+    wd = torch.as_tensor(weights, dtype=torch.float32, device=dev).contiguous()
+    if wd.shape != (n,):
+        raise ValueError(f"weights must be [{n}], got {tuple(wd.shape)}")
+    if isinstance(self_idx, int) and not 0 <= self_idx < n:
+        raise ValueError(f"self_idx {self_idx} outside 0..{n - 1}")
+    gs = torch.stack([torch.as_tensor(gate, device=dev).reshape(()).to(
+                          torch.int32),
+                      torch.as_tensor(self_idx, device=dev).reshape(()).to(
+                          torch.int32)])
+    out = torch.empty(d, dtype=stacked.dtype, device=dev)
+    err = _one_lib()(stacked.data_ptr(), wd.data_ptr(), gs.data_ptr(),
+                     out.data_ptr(), n, d, _DTYPES[stacked.dtype],
+                     torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_merge launch failed: CUDA error {err}")
+    LAUNCHES["fused_merge"] += 1
     return out
 
 

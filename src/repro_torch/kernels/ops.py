@@ -1,0 +1,27 @@
+"""The dispatch layer over the port's kernels: the counterpart of the
+reference's ``repro.kernels.ops`` (``attention_op``, ``merge_op``,
+``lora_op``, ``ssd_op``), without its ``interpret`` argument: each wrapper
+launches its CUDA kernel for a CUDA tensor and computes its plain version
+for a CPU tensor."""
+from __future__ import annotations
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.fused_merge import fused_merge
+from repro_torch.kernels.lora_matmul import lora_matmul
+from repro_torch.kernels.ssd_scan import ssd_scan
+
+
+def attention_op(q, k, v, *, causal=True, window=0):
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+def merge_op(stacked, weights, self_idx, gate):
+    return fused_merge(stacked, weights, self_idx, gate)
+
+
+def lora_op(x, w, a, b, scale):
+    return lora_matmul(x, w, a, b, scale)
+
+
+def ssd_op(x, dt, a_log, bmat, cmat, *, chunk=256):
+    return ssd_scan(x, dt, a_log, bmat, cmat, chunk=chunk)

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the port's kernels (the allclose ground truth).
 
-``fused_merge_ref`` is the one-node oracle of ``repro.kernels.ref``;
-``fused_merge_all_plain`` is the plain form of the all-nodes commit
+``fused_merge_ref`` is the one-node oracle of ``repro.kernels.ref`` and
+the plain form of the one-node commit
+(`repro_torch.kernels.fused_merge.fused_merge`), summed in the CUDA
+kernel's order; ``fused_merge_all_plain`` is the plain form of the all-nodes commit
 (`repro_torch.kernels.fused_merge`), in the CUDA kernel's order: for each
 output row, accumulate over j = 0..N-1 in f32, then select against the
 input row. ``fused_quant_merge_all_plain`` is the plain form of the
@@ -16,8 +18,18 @@ end); ``lora_matmul_plain`` is the plain form of the fused LoRA matmul
 (`repro_torch.kernels.lora_matmul`), which also rounds ``x @ A`` to x's
 dtype before the low-rank product, as the TPU kernel and the CUDA kernel
 do. The two agree for f32 inputs.
+
+``attention_ref`` and ``ssd_scan_ref`` are the torch twins of the
+reference's oracles. ``flash_attention_plain`` is the plain form of the
+flash kernel's function: ``attention_ref``, refusing ``causal=False`` with
+a window (the TPU kernel and its oracle disagree there).
+``ssd_scan_plain`` is the plain form of the chunked SSD kernel: the TPU
+kernel's per-chunk schedule (decay-masked quadratic within a chunk, the
+``[N, P]`` state carried across chunks) in f32, B/C read per group.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -26,12 +38,19 @@ from repro_torch.core import comms
 
 def fused_merge_ref(stacked, weights, self_idx, gate):
     """stacked [N, D]; weights [N]; gate scalar bool.
-    out [D] = gate ? Σ_j w_j θ_j : θ_self   (fp32 accumulation)."""
-    merged = torch.einsum("n,nd->d", weights.to(torch.float32),
-                          stacked.to(torch.float32))
-    keep = stacked[self_idx].to(torch.float32)
-    return torch.where(torch.as_tensor(gate, device=stacked.device),
-                       merged, keep).to(stacked.dtype)
+    out [D] = gate ? Σ_j w_j θ_j : θ_self   (fp32 accumulation).
+
+    The twin of ``repro.kernels.ref``'s oracle, and the plain form of the
+    one-node commit: the sum runs over j = 0..N-1 in order, one rounding
+    per multiply and per add, as the CUDA kernel adds, so the two agree
+    bit for bit; a rejected gate returns row ``self_idx`` itself."""
+    w = torch.as_tensor(weights, device=stacked.device).to(torch.float32)
+    acc = torch.zeros(stacked.shape[1], dtype=torch.float32,
+                      device=stacked.device)
+    for j in range(stacked.shape[0]):
+        acc = acc + w[j] * stacked[j].to(torch.float32)
+    g = torch.as_tensor(gate, device=stacked.device).to(torch.bool)
+    return torch.where(g, acc.to(stacked.dtype), stacked[self_idx])
 
 
 def fused_merge_all_plain(stacked, W, gates, imp=None):
@@ -94,3 +113,94 @@ def lora_matmul_plain(x, w, a, b, scale):
     low = xa @ b.to(torch.float32)
     s = torch.as_tensor(scale, device=x.device).to(torch.float32)
     return (acc + s * low).to(x.dtype)
+
+
+def attention_ref(q, k, v, *, causal=True, window=0):
+    """q [B,H,S,D], k/v [B,Hkv,T,D] (GQA: H multiple of Hkv). Softmax in
+    f32; masked scores are −1e30. Twin of ``repro.kernels.ref``'s."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, hkv, g, s, d)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg.to(torch.float32),
+                          k.to(torch.float32)) / math.sqrt(d)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = kpos <= qpos
+        if window > 0:
+            mask = mask & (kpos > qpos - window)
+    scores = torch.where(mask, scores, torch.tensor(-1e30, device=q.device))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(torch.float32))
+    return out.reshape(b, h, s, d).to(q.dtype)
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=0):
+    """The flash kernel's function: ``attention_ref``. ``causal=False``
+    with ``window > 0`` raises: the TPU kernel skips tiles by window there
+    while its oracle ignores the window, so the case has no single
+    meaning."""
+    if not causal and window > 0:
+        raise ValueError("flash_attention: a sliding window needs "
+                         "causal=True")
+    return attention_ref(q, k, v, causal=causal, window=window)
+
+
+def ssd_scan_ref(x, dt, a_log, bmat, cmat):
+    """Exact sequential SSD recurrence (the slow oracle). x [B,S,H,P]; dt
+    [B,S,H] (softplus'd); a_log [H]; bmat/cmat [B,S,H,N]. Returns y
+    [B,S,H,P] in x's dtype and the final state [B,H,P,N] f32. Twin of
+    ``repro.kernels.ref``'s."""
+    bsz, s, h, p = x.shape
+    n = bmat.shape[-1]
+    f32 = torch.float32
+    decay = torch.exp(dt * (-torch.exp(a_log.to(f32))))      # [B,S,H]
+    xdt = x.to(f32) * dt[..., None]
+    state = torch.zeros((bsz, h, p, n), dtype=f32, device=x.device)
+    ys = []
+    for t in range(s):
+        state = state * decay[:, t, :, None, None] + torch.einsum(
+            "bhp,bhn->bhpn", xdt[:, t], bmat[:, t].to(f32))
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, cmat[:, t].to(f32)))
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def ssd_scan_plain(x, dt, a_log, bmat, cmat, *, chunk):
+    """The chunked SSD kernel's function. x [B,S,H,P]; dt [B,S,H] f32
+    (softplus'd); a_log [H]; bmat/cmat [B,S,G,N] with H % G == 0 (G = H is
+    the reference's pre-broadcast form); S a multiple of ``chunk``. Per
+    chunk, in f32: ``cum = cumsum(dt·a)``, ``y = (C·Bᵀ ⊙ L)(x·dt) +
+    (C ⊙ e^cum)·state``, ``state ← e^{cum_L}·state + (B ⊙
+    e^{cum_L − cum})ᵀ(x·dt)``. Returns y in x's dtype and the final state
+    [B,H,P,N] f32."""
+    b, s, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    f32 = torch.float32
+    bm = bmat.to(f32).repeat_interleave(h // g, dim=2)
+    cm = cmat.to(f32).repeat_interleave(h // g, dim=2)
+    a = -torch.exp(a_log.to(f32))
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))[None, :, :, None]
+    state = torch.zeros((b, h, n, p), dtype=f32, device=x.device)
+    ys = []
+    for t0 in range(0, s, chunk):
+        sl = slice(t0, t0 + chunk)
+        dtc = dt[:, sl].to(f32)                                 # [B,L,H]
+        cum = torch.cumsum(dtc * a, dim=1)                      # [B,L,H]
+        xdt = x[:, sl].to(f32) * dtc[..., None]                 # [B,L,H,P]
+        diff = cum[:, :, None, :] - cum[:, None, :, :]          # [B,L,L,H]
+        lmat = torch.where(causal, torch.exp(torch.where(causal, diff, 0.0)),
+                           0.0)
+        scores = torch.einsum("bihn,bjhn->bijh", cm[:, sl], bm[:, sl]) * lmat
+        y = torch.einsum("bijh,bjhp->bihp", scores, xdt)
+        y = y + torch.einsum("bihn,bhnp->bihp",
+                             cm[:, sl] * torch.exp(cum)[..., None], state)
+        decay_to_end = torch.exp(cum[:, -1:] - cum)             # [B,L,H]
+        state = (torch.exp(cum[:, -1])[..., None, None] * state
+                 + torch.einsum("bjhn,bjhp->bhnp",
+                                bm[:, sl] * decay_to_end[..., None], xdt))
+        ys.append(y)
+    y = torch.cat(ys, dim=1).to(x.dtype)
+    return y, state.transpose(-1, -2).contiguous()

@@ -1,0 +1,171 @@
+"""Unified LM model API: port of ``repro.models.build_model`` for the dense,
+ssm and hybrid families.
+
+``build_model(cfg)`` returns a :class:`Model` bundle of plain functions with
+the reference's conventions, plus the :class:`~repro_torch.core.flat.
+FlatLayout` of one node's params. A node's params are a flat vector
+``[P]`` in the config's param dtype (the swarm state's form); a call takes
+the layout's views of it (``{dotted path: tensor}``) and runs them through
+``torch.func.functional_call`` over :class:`CausalLM`, a meta-device
+``nn.Module`` that fixes the reference's param tree and names. The leaf
+paths are the reference's tree paths with layer leaves stacked ``[L, ...]``,
+so the port's checkpoints use the reference's keys and either package's
+``SwarmSession.save`` loads in the other.
+
+  train:  loss_fn(params, {tokens, labels[, mask]}) -> (loss, metrics)
+  decode: decode(params, tokens [B,S], caches, cache_pos[, commit])
+          -> (logits [B,S,V], caches)      (caches updated in place)
+  prefill(params, {tokens}, caches) -> (last logits [B,1,V], caches)
+
+The reference keeps an SSM's ``A_log``, ``D`` and ``dt_bias`` in f32
+inside a bf16 model; so does the port: in a 16-bit buffer they are the
+layout's wide leaves (`repro_torch.core.flat`), f32 values viewed over two
+slots each.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.flat import FlatLayout
+from repro_torch.models.layers import dtype_of, softmax_xent
+from repro_torch.models.transformer import (forward_lm, init_lm_, lm_shapes,
+                                            make_lm_cache)
+
+
+@dataclass(frozen=True, eq=False)
+class Model:
+    cfg: Optional[ModelConfig]
+    init: Optional[Callable[..., Any]]    # (generator, device) -> [P]
+    loss_fn: Optional[Callable[..., Any]]  # (params, batch) -> (loss, metrics)
+    decode: Callable[..., Any]            # (params, tokens, caches, cache_pos)
+    init_cache: Callable[..., Any]        # (batch, max_len, device) -> caches
+    prefill: Optional[Callable[..., Any]] = None
+    layout: Optional[FlatLayout] = None
+
+
+def _leaves(shapes: dict, prefix: str = ""):
+    """(dotted path, shape) in the reference's flatten order (keys sorted)."""
+    for key in sorted(shapes):
+        path = f"{prefix}{key}"
+        sub = shapes[key]
+        if isinstance(sub, dict):
+            yield from _leaves(sub, path + ".")
+        else:
+            yield path, tuple(sub)
+
+
+F32_LEAVES = ("A_log", "D", "dt_bias")   # f32 whatever the param dtype
+
+
+def _f32_paths(cfg: ModelConfig):
+    """The leaves the reference keeps in f32, when the param dtype is not."""
+    if dtype_of(cfg.param_dtype).itemsize == 4:
+        return frozenset()
+    return frozenset(path for path, _ in _leaves(lm_shapes(cfg))
+                     if path.split(".")[-1] in F32_LEAVES
+                     and ".ssm." in f".{path}")
+
+
+def nest(flat: Dict[str, torch.Tensor]) -> dict:
+    """{dotted path: tensor} → the nested param tree."""
+    root: dict = {}
+    for path, t in flat.items():
+        node = root
+        keys = path.split(".")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = t
+    return root
+
+
+class CausalLM(nn.Module):
+    """The LM's structure: meta parameters named by the reference's tree
+    paths (layer leaves stacked ``[L, ...]``). Called through
+    ``torch.func.functional_call`` with a node's params."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.paths = []
+        wide = _f32_paths(cfg)
+        for path, shape in _leaves(lm_shapes(cfg)):
+            dtype = (torch.float32 if path in wide
+                     else dtype_of(cfg.param_dtype))
+            *mods, name = path.split(".")
+            owner = self
+            for m in mods:
+                if not hasattr(owner, m):
+                    owner.add_module(m, nn.Module())
+                owner = getattr(owner, m)
+            owner.register_parameter(name, nn.Parameter(
+                torch.empty(shape, dtype=dtype, device="meta"),
+                requires_grad=False))
+            self.paths.append(path)
+
+    def tree(self) -> dict:
+        out = {}
+        for path in self.paths:
+            t = self
+            for part in path.split("."):
+                t = getattr(t, part)
+            out[path] = t
+        return nest(out)
+
+    def forward(self, tokens, caches=None, cache_pos=None, commit=None):
+        return forward_lm(self.tree(), self.cfg, tokens, caches=caches,
+                          cache_pos=cache_pos, commit=commit)
+
+
+def _lm_model(cfg: ModelConfig) -> Model:
+    module = CausalLM(cfg)
+    layout = FlatLayout(list(_leaves(lm_shapes(cfg))), _f32_paths(cfg))
+
+    def forward(params, tokens, **kw):
+        return torch.func.functional_call(module, params, (tokens,), kw)
+
+    def init(generator: torch.Generator, device="cuda",
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One node's params ``[P]`` drawn from ``generator`` (on
+        ``device``), written into ``out`` (e.g. a row of an ensemble
+        buffer) when given."""
+        if out is None:
+            out = torch.empty(layout.size, dtype=dtype_of(cfg.param_dtype),
+                              device=resolve_device(device))
+        init_lm_(nest(layout.unflatten(out)), cfg, generator)
+        return out
+
+    def loss_fn(params, batch):
+        logits, aux, _ = forward(params, batch["tokens"])
+        xent = softmax_xent(logits, batch["labels"], batch.get("mask"))
+        return xent + aux, {"xent": xent, "aux": aux}
+
+    def prefill(params, batch, caches):
+        logits, _, caches = forward(params, batch["tokens"], caches=caches,
+                                    cache_pos=0)
+        return logits[:, -1:], caches
+
+    def decode(params, tokens, caches, cache_pos, commit=None):
+        logits, _, caches = forward(params, tokens, caches=caches,
+                                    cache_pos=cache_pos, commit=commit)
+        return logits, caches
+
+    return Model(cfg, init, loss_fn, decode,
+                 lambda b, m, device: make_lm_cache(cfg, b, m, device),
+                 prefill, layout)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.is_encdec or cfg.family == "audio":
+        raise NotImplementedError(
+            "the enc-dec (audio) family is not ported yet: ROADMAP queue 1 "
+            "item 14")
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            "the vlm family is not ported yet: ROADMAP queue 1 item 14")
+    return _lm_model(cfg)

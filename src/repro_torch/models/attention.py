@@ -1,0 +1,145 @@
+"""Grouped-query attention with RoPE, sliding-window masking and a KV cache:
+port of ``repro.models.attention`` (self-attention; the cross-attention of
+the enc-dec family comes with that family).
+
+Two forms, chosen explicitly by the call's shape, never by catching a
+failure:
+
+* **prefill** — S > 1 with query positions 0..S-1: no cache, or a cache
+  written at ``cache_pos = 0``. It runs through
+  `repro_torch.kernels.ops.attention_op`: the hand-written flash kernel on
+  a CUDA tensor (counted in ``kernels.LAUNCHES["flash_attention"]``), its
+  plain version on a CPU tensor. With a cache, K/V are the cache's whole
+  depth T, as the reference attends over it; keys past the prompt are
+  masked by causality (and skipped by the kernel's tile skip). The kernel
+  keeps scores and probabilities in f32 throughout, where the reference's
+  jnp module forms scores in the compute dtype and casts the probabilities
+  to it before ``P·V``; at f32 the two agree within the reference's 2e-4.
+* **everything else** (decode, ``S = 1``) — plain torch, as the reference
+  computes it in jnp outside any Pallas kernel.
+
+``cache_pos`` is a Python int (one position for every row) or an int
+tensor ``[B]`` (one per row: the serving engine's slots sit at different
+depths). The cache is updated in place by index writes, never copied;
+``commit`` (bool ``[B]``, optional) limits the write to the rows it marks,
+as the reference engine's masked commit keeps the other lanes' caches.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, linear
+
+NEG_INF = -1e30
+
+
+def attention_shapes(cfg: ModelConfig) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    dims = {"q": (d, nh * hd), "k": (d, nkv * hd), "v": (d, nkv * hd),
+            "o": (nh * hd, d)}
+    out = {}
+    for name, (i, o) in dims.items():
+        out[name] = {"w": (i, o)}
+        if cfg.use_bias:
+            out[name]["b"] = (o,)
+    return out
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _gqa_scores(q, k):
+    """q [B,S,nh,hd], k [B,T,nkv,hd] -> scores [B,nkv,g,S,T]."""
+    b, s, nh, hd = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(b, s, nkv, nh // nkv, hd)
+    # √hd rounded to q's dtype, as the reference divides (a host scalar:
+    # no copy to the device)
+    scale = float(torch.tensor(math.sqrt(hd), dtype=q.dtype))
+    return torch.einsum("bskgh,btkh->bkgst", qg, k) / scale
+
+
+def _gqa_out(probs, v):
+    """probs [B,nkv,g,S,T], v [B,T,nkv,hd] -> [B,S,nh,hd]."""
+    b, nkv, g, s, t = probs.shape
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    return out.reshape(b, s, nkv * g, -1)
+
+
+def is_prefill(s: int, cache, cache_pos) -> bool:
+    """The flash kernel's form: S > 1 with query positions 0..S-1."""
+    return s > 1 and (cache is None or (isinstance(cache_pos, int)
+                                        and cache_pos == 0))
+
+
+def write_rows(buf, new, positions, commit=None):
+    """``buf[b, positions[b, i]] = new[b, i]`` in place (buf [B, T, ...],
+    new [B, S, ...], positions [B, S] int); with ``commit`` [B] only the
+    rows it marks change."""
+    b, s = positions.shape
+    rows = torch.arange(b, device=buf.device)[:, None].expand(b, s)
+    if commit is not None:
+        keep = commit.reshape((b, 1) + (1,) * (new.dim() - 2))
+        new = torch.where(keep, new, buf[rows, positions])
+    buf[rows, positions] = new.to(buf.dtype)
+
+
+def attention(p, x, cfg: ModelConfig, *, positions, causal: bool = True,
+              window: int = 0, cache: Optional[dict] = None, cache_pos=None,
+              commit=None):
+    """x [B,S,D], positions [B,S] → output [B,S,D]; a cache's ``k``/``v``
+    ([B,T,nkv,hd]) are written in place at the positions. Without a cache
+    the query positions are 0..S-1, as every caller of the reference's
+    self-attention gives them."""
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, s, _ = x.shape
+    q = linear(p["q"], x).reshape(b, s, nh, hd)
+    k = linear(p["k"], x).reshape(b, s, nkv, hd)
+    v = linear(p["v"], x).reshape(b, s, nkv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    window = int(window)
+    if cache is not None:
+        if isinstance(cache_pos, int) and commit is None:
+            cache["k"][:, cache_pos:cache_pos + s] = k.to(cache["k"].dtype)
+            cache["v"][:, cache_pos:cache_pos + s] = v.to(cache["v"].dtype)
+        else:
+            write_rows(cache["k"], k, positions, commit)
+            write_rows(cache["v"], v, positions, commit)
+
+    if causal and is_prefill(s, cache, cache_pos):
+        kk, vv = (k, v) if cache is None else (cache["k"].to(x.dtype),
+                                               cache["v"].to(x.dtype))
+        out = ops.attention_op(q.transpose(1, 2), kk.transpose(1, 2),
+                               vv.transpose(1, 2), causal=True,
+                               window=window)
+        out = out.transpose(1, 2)                           # [B,S,nh,hd]
+    else:
+        if cache is not None:
+            k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+            key_positions = torch.arange(k.shape[1], device=x.device)[None]
+        else:
+            key_positions = positions
+        scores = _gqa_scores(q, k)                          # [B,nkv,g,S,T]
+        qpos = positions[:, None, None, :, None]
+        kpos = key_positions[:, None, None, None, :]
+        if causal:
+            w_eff = window if window > 0 else 2 ** 30
+            mask = (kpos <= qpos) & (kpos > qpos - w_eff)
+        else:
+            mask = torch.ones(scores.shape[-2:], dtype=torch.bool,
+                              device=x.device)
+        scores = torch.where(mask, scores.to(torch.float32), NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = _gqa_out(probs, v)                            # [B,S,nh,hd]
+    return linear(p["o"], out.reshape(b, s, nh * hd))

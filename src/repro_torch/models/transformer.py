@@ -1,0 +1,215 @@
+"""Decoder-only LM for the dense, ssm and hybrid families: port of
+``repro.models.transformer``.
+
+Params are the reference's tree: ``embed``/``embed_tied``, ``layers`` (every
+leaf stacked ``[L, ...]`` over the layers, as the reference's
+scan-over-layers keeps them), ``final_norm`` and ``lm_head``. The forward
+loops over the layers in Python, slicing layer i's params as views
+(``leaf[i]``), so each layer's attention window is a Python int, as the
+flash kernel takes it. The reference's ``logical_shard`` /
+``constrain_block_params`` are no-ops on one device and are dropped. The
+moe family raises in :func:`block_shapes` (its ROADMAP item); the kernels
+of this path are the flash attention and SSD scan of every prefill.
+
+Caches are a list with one dict per layer (``k``/``v`` ``[B, T, nkv, hd]``
+in the compute dtype; ``ssd`` ``[B, H, P, N]`` f32 and ``conv``
+``[B, W-1, C]``), updated in place by the forward.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import (attention, attention_shapes,
+                                          make_cache)
+from repro_torch.models.layers import (dtype_of, embed, init_linear_, mlp,
+                                       normal_, rmsnorm, unembed)
+from repro_torch.models.ssm import (init_ssm_, make_ssm_state, ssm_block,
+                                    ssm_shapes)
+
+# ---------------------------------------------------------------------------
+# param shapes and init
+# ---------------------------------------------------------------------------
+
+def block_shapes(cfg: ModelConfig) -> dict:
+    """One layer's param shapes (a nested dict of tuples)."""
+    d = cfg.d_model
+    fam = cfg.family
+    if fam == "moe":
+        raise NotImplementedError(
+            "the moe family is not ported yet: ROADMAP queue 1 item 14")
+    if fam == "ssm":
+        return {"ssm_norm": {"scale": (d,)}, "ssm": ssm_shapes(cfg)}
+    lin = (lambda i, o: {"w": (i, o), "b": (o,)} if cfg.use_bias
+           else {"w": (i, o)})
+    f = cfg.d_ff
+    mlp_p = ({"gate": lin(d, f), "up": lin(d, f), "down": lin(f, d)}
+             if cfg.activation == "swiglu" else
+             {"up": lin(d, f), "down": lin(f, d)})
+    p = {"attn_norm": {"scale": (d,)}, "attn": attention_shapes(cfg),
+         "mlp_norm": {"scale": (d,)}, "mlp": mlp_p}
+    if fam == "hybrid":
+        p["ssm"] = ssm_shapes(cfg)
+        p["beta_attn"] = (d,)
+        p["beta_ssm"] = (d,)
+    return p
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_shapes(cfg: ModelConfig) -> dict:
+    """The whole model's param shapes, layer leaves stacked ``[L, ...]``."""
+    emb = "embed_tied" if cfg.tie_embeddings else "embed"
+    shapes = {emb: {"table": (cfg.padded_vocab, cfg.d_model)},
+              "layers": _map(block_shapes(cfg),
+                             lambda s: (cfg.n_layers,) + tuple(s)),
+              "final_norm": {"scale": (cfg.d_model,)}}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = {"w": (cfg.d_model, cfg.padded_vocab)}
+    return shapes
+
+
+def layer_params(layers: dict, i: int) -> dict:
+    """Layer i's params: views ``leaf[i]`` of the stacked leaves."""
+    return _map(layers, lambda t: t[i])
+
+
+def init_lm_(params: dict, cfg: ModelConfig,
+             generator: torch.Generator) -> None:
+    """Fill a param tree (e.g. views of a flat buffer) in place with the
+    reference's init scales, drawn from ``generator`` (its numbers differ
+    from the reference's ``jax.random`` draws by design)."""
+    emb = "embed_tied" if cfg.tie_embeddings else "embed"
+    normal_(params[emb]["table"], generator, 0.02)
+    params["final_norm"]["scale"].fill_(1.0)
+    if "lm_head" in params:
+        init_linear_(params["lm_head"], generator)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        if cfg.family == "ssm":
+            lp["ssm_norm"]["scale"].fill_(1.0)
+            init_ssm_(lp["ssm"], cfg, generator)
+            continue
+        lp["attn_norm"]["scale"].fill_(1.0)
+        lp["mlp_norm"]["scale"].fill_(1.0)
+        for name in ("q", "k", "v", "o"):
+            init_linear_(lp["attn"][name], generator)
+        for layer in lp["mlp"].values():
+            init_linear_(layer, generator)
+        if cfg.family == "hybrid":
+            init_ssm_(lp["ssm"], cfg, generator)
+            lp["beta_attn"].fill_(1.0)
+            lp["beta_ssm"].fill_(1.0)
+
+
+# ---------------------------------------------------------------------------
+# per-layer block
+# ---------------------------------------------------------------------------
+
+def _write_state(cache: dict, state: dict, commit) -> None:
+    """Copy an SSM state into the cache in place (only rows ``commit``
+    marks, when given)."""
+    for key, new in state.items():
+        old = cache[key]
+        if commit is not None:
+            keep = commit.reshape((-1,) + (1,) * (new.dim() - 1))
+            new = torch.where(keep, new.to(old.dtype), old)
+        old.copy_(new)
+
+
+def block_apply(p, x, cfg: ModelConfig, *, positions, window: int,
+                cache: Optional[dict], cache_pos, commit=None):
+    """One residual block; ``cache`` (the layer's dict, or None) is
+    updated in place."""
+    fam = cfg.family
+    if fam == "ssm":
+        h = rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
+        y, st = ssm_block(p["ssm"], h, cfg, state=cache)
+        if cache is not None:
+            _write_state(cache, st, commit)
+        return x + y
+
+    h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+    a = attention(p["attn"], h, cfg, positions=positions, window=window,
+                  cache=cache, cache_pos=cache_pos, commit=commit)
+    if fam == "hybrid":
+        s, st = ssm_block(p["ssm"], h, cfg, state=cache)
+        x = x + 0.5 * (a * p["beta_attn"].to(a.dtype)
+                       + s * p["beta_ssm"].to(a.dtype))
+        if cache is not None:
+            _write_state(cache, st, commit)
+    else:
+        x = x + a
+    h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+    return x + mlp(p["mlp"], h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
+
+def layer_windows(cfg: ModelConfig) -> np.ndarray:
+    """Per-layer attention window (0 = full attention)."""
+    w = np.full((cfg.n_layers,), cfg.sliding_window, np.int32)
+    if cfg.sliding_window and cfg.attn_every:
+        w[:: cfg.attn_every] = 0  # periodic global-attention layers
+    return w
+
+
+def make_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  device) -> List[dict]:
+    """Per-layer decode state: a list of ``n_layers`` dicts."""
+    dtype = dtype_of(cfg.compute_dtype)
+    caches = []
+    for _ in range(cfg.n_layers):
+        c = {}
+        if cfg.family != "ssm":
+            c.update(make_cache(cfg, batch, max_len, dtype, device))
+        if cfg.family in ("ssm", "hybrid"):
+            c.update(make_ssm_state(cfg, batch, dtype, device))
+        caches.append(c)
+    return caches
+
+
+def forward_lm(params, cfg: ModelConfig, tokens, *, caches=None,
+               cache_pos=None, commit=None):
+    """tokens [B,S] → (logits [B,S,V_padded], aux, caches). ``cache_pos`` is
+    an int or an int tensor ``[B]`` (per-row decode positions); caches are
+    written in place (``commit`` [B] bool limits the rows)."""
+    compute_dtype = dtype_of(cfg.compute_dtype)
+    emb_p = params["embed_tied"] if cfg.tie_embeddings else params["embed"]
+    x = embed(emb_p, tokens, compute_dtype)
+    b, s = x.shape[:2]
+    ar = torch.arange(s, device=x.device)
+    if cache_pos is None:
+        positions = ar[None].expand(b, s)
+    elif isinstance(cache_pos, int):
+        positions = (cache_pos + ar)[None].expand(b, s)
+    else:
+        positions = cache_pos.to(x.device).reshape(-1, 1) + ar[None]
+        positions = positions.expand(b, s)
+    windows = layer_windows(cfg)
+    for i in range(cfg.n_layers):
+        x = block_apply(layer_params(params["layers"], i), x, cfg,
+                        positions=positions, window=int(windows[i]),
+                        cache=None if caches is None else caches[i],
+                        cache_pos=cache_pos, commit=commit)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = unembed(params["embed_tied"], x)
+    else:
+        logits = x @ params["lm_head"]["w"].to(x.dtype)
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    if cfg.padded_vocab != cfg.vocab_size:  # mask the padding columns
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux, caches

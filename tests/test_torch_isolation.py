@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither jax nor anything of the
 reference package ``repro``, nor the ``msgpack`` package (the card's
 machine has none) — checked at run time in a fresh interpreter that drives
-one small CPU round on the int8 wire, a checkpoint round trip and one small
-model-zoo scenario, and statically over every source file."""
+one small CPU round on the int8 wire, a checkpoint round trip, one small
+model-zoo scenario and one small LM serve, and statically over every
+source file."""
 import ast
 import subprocess
 import sys
@@ -55,6 +56,17 @@ rcfg = scenarios.ScenarioRunConfig(n_train=64, n_test=16, feat_dim=8,
 row = scenarios.run_scenario(scenarios.scenario_grid()[2], rcfg,
                              device="cpu")
 assert row["payload_class"] == "lora" and len(row["per_site"]) == 4
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.models import build_model
+from repro_torch.serve import BucketPolicy, ServeEngine
+lm = build_model(smoke_variant(get_config("hymba-1.5b")))
+ens = torch.stack([lm.init(torch.Generator().manual_seed(i), "cpu")
+                   for i in range(2)])
+eng = ServeEngine(lm, ens, max_len=24, max_slots=1, device="cpu",
+                  policy=BucketPolicy(batch_buckets=(1,), seq_buckets=(16,)))
+req = eng.submit(np.arange(1, 17), max_new=3)
+eng.drain()
+assert req.status == "done" and len(req.tokens) == 3
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "msgpack" or m.startswith("msgpack.")

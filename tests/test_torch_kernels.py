@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (the f32 commit, the quantized-wire commit and
-the fused LoRA matmul) against their plain versions, and the wrappers'
-dispatch, input checks and (LoRA) gradient. Imports neither jax nor the reference, so it also runs on the
+"""The port's CUDA kernels (the f32 commit, the quantized-wire commit, the
+fused LoRA matmul, the one-node commit, flash attention and the SSD scan)
+against their plain versions, and the wrappers' dispatch, input checks and
+(LoRA) gradient. Imports neither jax nor the reference, so it also runs on the
 machine with the card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels.py
@@ -15,9 +16,14 @@ from repro_torch.core import comms  # noqa: E402
 from repro_torch.core.flat import FlatLayout  # noqa: E402
 from repro_torch.kernels import fused_merge as fm  # noqa: E402
 from repro_torch.kernels import lora_matmul as lm  # noqa: E402
-from repro_torch.kernels.ref import (fused_merge_all_plain,  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
+from repro_torch.kernels.ref import (attention_ref,  # noqa: E402
+                                     flash_attention_plain,
+                                     fused_merge_all_plain, fused_merge_ref,
                                      fused_quant_merge_all_plain,
-                                     lora_matmul_plain, lora_matmul_ref)
+                                     lora_matmul_plain, lora_matmul_ref,
+                                     ssd_scan_plain, ssd_scan_ref)
 
 torch.set_num_threads(2)
 CASES = [(4, 100_003, torch.float32, False), (4, 100_003, torch.float32, True),
@@ -319,3 +325,244 @@ def test_lora_kernel_input_checks_on_card():
     big = torch.zeros(16, 129, device=dev)
     with pytest.raises(ValueError, match="rank"):
         lm.lora_matmul(x, w, big, torch.zeros(129, 16, device=dev), s)
+
+
+# -- the one-node commit ------------------------------------------------------
+
+def test_merge_one_plain_semantics_on_cpu():
+    x, _, _, rng = _inputs(5, 300, torch.float32, False, "cpu")
+    w = torch.from_numpy(rng.dirichlet(np.ones(5)).astype(np.float32))
+    before = dict(fm.LAUNCHES)
+    for gate in (True, False, torch.tensor(True)):
+        got = fm.fused_merge(x, w, 3, gate)
+        want = w @ x if bool(gate) else x[3]
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    assert torch.equal(fm.fused_merge(x, w, torch.tensor(3), False), x[3])
+    assert fm.LAUNCHES == before
+    with pytest.raises(ValueError, match=r"\[N, D\]"):
+        fm.fused_merge(torch.zeros(8), w, 0, True)
+
+
+@pytest.mark.parametrize("n,d,dtype", [(4, 100_003, torch.float32),
+                                       (64, 777, torch.float32),
+                                       (4, 2048, torch.bfloat16),
+                                       (1, 1, torch.float32)])
+def test_merge_one_kernel_matches_plain_on_card(n, d, dtype):
+    dev = _cuda()
+    x, _, _, rng = _inputs(n, d, dtype, False, dev, seed=n + d)
+    w = torch.from_numpy(rng.dirichlet(np.ones(n)).astype(np.float32)).to(dev)
+    for gate in (True, False, torch.tensor(True, device=dev)):
+        before = fm.LAUNCHES["fused_merge"]
+        got = fm.fused_merge(x, w, n - 1, gate)
+        want = fused_merge_ref(x, w, n - 1, gate)
+        torch.cuda.synchronize()
+        assert fm.LAUNCHES["fused_merge"] == before + 1
+        assert got.dtype == dtype and got.shape == (d,)
+        assert torch.equal(got, want)        # the same arithmetic, in order
+    assert torch.equal(fm.fused_merge(x, w, 0, False), x[0])
+
+
+# -- flash attention ----------------------------------------------------------
+
+# (B, H, Hkv, S, T, D, causal, window, dtype): the reference's sweep, the
+# bf16 case, ragged S and T (a prompt in a deeper cache), D = 32
+FLASH_CASES = [
+    (1, 4, 4, 128, 128, 64, True, 0, torch.float32),
+    (2, 4, 2, 256, 256, 64, True, 0, torch.float32),
+    (1, 8, 2, 256, 256, 64, True, 64, torch.float32),
+    (1, 4, 1, 128, 128, 128, True, 0, torch.float32),
+    (2, 2, 2, 128, 128, 64, False, 0, torch.float32),
+    (1, 2, 2, 128, 128, 64, True, 0, torch.bfloat16),
+    (1, 5, 1, 100, 133, 64, True, 0, torch.float32),
+    (2, 6, 3, 77, 77, 32, True, 20, torch.float32),
+    (1, 25, 5, 200, 211, 64, True, 64, torch.bfloat16)]
+
+
+def _flash_tol(dtype):
+    # the reference's sweep tolerances (tests/test_kernels.py)
+    return (dict(rtol=3e-2, atol=3e-2) if dtype == torch.bfloat16
+            else dict(rtol=2e-5, atol=2e-5))
+
+
+def _flash_inputs(b, h, hkv, s, t, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    def f(*shape):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(
+            np.float32)).to(dtype).to(device)
+
+    return f(b, h, s, d), f(b, hkv, t, d), f(b, hkv, t, d)
+
+
+def test_flash_plain_semantics_on_cpu():
+    q, k, v = _flash_inputs(1, 4, 2, 24, 24, 16, torch.float32, "cpu")
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention(q, k, v, window=5)
+    assert fa.LAUNCHES == before
+    assert torch.equal(got, attention_ref(q, k, v, window=5))
+    # one query row by hand: GQA head 3 reads KV head 1, window of 5 keys
+    i = 10
+    sc = (q[0, 3, i] @ k[0, 1, i - 4:i + 1].T) / 4.0
+    want = torch.softmax(sc, -1) @ v[0, 1, i - 4:i + 1]
+    np.testing.assert_allclose(got[0, 3, i].numpy(), want.numpy(),
+                               rtol=1e-5, atol=1e-6)
+    # a window at least as long as the sequence is full causal attention
+    torch.testing.assert_close(fa.flash_attention(q, k, v, window=24),
+                               fa.flash_attention(q, k, v), rtol=1e-6,
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention_plain(q, k, v, causal=False, window=3)
+    with pytest.raises(ValueError, match="compose"):
+        fa.flash_attention(q, k[:, :, :, :8], v[:, :, :, :8])
+
+
+@pytest.mark.parametrize("b,h,hkv,s,t,d,causal,window,dtype", FLASH_CASES)
+def test_flash_kernel_matches_plain_on_card(b, h, hkv, s, t, d, causal,
+                                            window, dtype):
+    dev = _cuda()
+    q, k, v = _flash_inputs(b, h, hkv, s, t, d, dtype, dev, seed=s + t)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **_flash_tol(dtype))
+
+
+def test_flash_kernel_takes_strided_views_on_card():
+    """q as [B,S,H,D] and K/V as a [B,T,Hkv,D] cache, passed transposed
+    (no copy), give what the contiguous tensors give."""
+    dev = _cuda()
+    q, k, v = _flash_inputs(2, 4, 2, 70, 90, 64, torch.float32, dev, seed=7)
+    qs = q.transpose(1, 2).contiguous().transpose(1, 2)
+    ks = k.transpose(1, 2).contiguous().transpose(1, 2)
+    vs = v.transpose(1, 2).contiguous().transpose(1, 2)
+    got = fa.flash_attention(qs, ks, vs, window=16)
+    want = fa.flash_attention(q, k, v, window=16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_flash_kernel_input_checks_on_card():
+    dev = _cuda()
+    q, k, v = _flash_inputs(1, 2, 2, 16, 16, 64, torch.float32, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                           k, v)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="must be a"):
+        fa.flash_attention(q, k.to(torch.bfloat16), v)
+    q48, k48, v48 = _flash_inputs(1, 2, 2, 16, 16, 48, torch.float32, dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q48, k48, v48)
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention(q, k, v, causal=False, window=4)
+
+
+# -- the SSD scan ---------------------------------------------------------------
+
+# (B, S, H, P, N, chunk, G, dtype): the reference's sweep, a group
+# broadcast, a short final chunk count, bf16
+SSD_CASES = [(1, 64, 2, 32, 16, 16, 2, torch.float32),
+             (2, 128, 3, 32, 16, 32, 3, torch.float32),
+             (1, 256, 4, 64, 128, 64, 4, torch.float32),
+             (2, 96, 2, 32, 8, 32, 2, torch.float32),
+             (1, 512, 6, 64, 16, 256, 1, torch.float32),
+             (1, 48, 4, 16, 8, 24, 2, torch.float32),
+             (1, 256, 5, 64, 16, 128, 1, torch.bfloat16)]
+
+
+def _ssd_tol(dtype):
+    # the reference's 1e-4 for f32; bf16 outputs hold 8 bits
+    return (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+            else dict(rtol=1e-4, atol=1e-4))
+
+
+def _ssd_inputs(b, s, h, p, n, g, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    x = t(rng.normal(0, 1, (b, s, h, p))).to(dtype)
+    dt = t(np.abs(rng.normal(0.1, 0.05, (b, s, h))))
+    alog = t(np.log(np.linspace(1, 8, h)))
+    bm = t(rng.normal(0, 0.5, (b, s, g, n))).to(dtype)
+    cm = t(rng.normal(0, 0.5, (b, s, g, n))).to(dtype)
+    return x, dt, alog, bm, cm
+
+
+def test_ssd_plain_semantics_on_cpu():
+    """The chunked plain version against the exact sequential recurrence,
+    B/C per group against the reference's pre-broadcast form."""
+    x, dt, alog, bm, cm = _ssd_inputs(2, 48, 4, 8, 6, 2, torch.float32, "cpu")
+    before = dict(ss.LAUNCHES)
+    y, st = ss.ssd_scan(x, dt, alog, bm, cm, chunk=16)
+    assert ss.LAUNCHES == before
+    def rep(t):
+        return t.repeat_interleave(2, dim=2)
+
+    yr, sr = ssd_scan_ref(x, dt, alog, rep(bm), rep(cm))
+    np.testing.assert_allclose(y.numpy(), yr.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(st.numpy(), sr.numpy(), rtol=1e-4, atol=1e-4)
+    yb, sb = ssd_scan_plain(x, dt, alog, rep(bm), rep(cm), chunk=16)
+    assert torch.equal(y, yb) and torch.equal(st, sb)
+    with pytest.raises(ValueError, match="divide"):
+        ss.ssd_scan(x, dt, alog, bm, cm, chunk=20)
+    with pytest.raises(ValueError, match="compose"):
+        ss.ssd_scan(x, dt, alog, bm[:, :, :1].expand(2, 48, 3, 6).contiguous()
+                    [:, :, :3], cm[:, :, :1].expand(2, 48, 3, 6)
+                    .contiguous(), chunk=16)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,g,dtype", SSD_CASES)
+def test_ssd_kernel_matches_plain_on_card(b, s, h, p, n, chunk, g, dtype):
+    dev = _cuda()
+    x, dt, alog, bm, cm = _ssd_inputs(b, s, h, p, n, g, dtype, dev, seed=s)
+    before = ss.LAUNCHES["ssd_scan"]
+    y, st = ss.ssd_scan(x, dt, alog, bm, cm, chunk=chunk)
+    yw, sw = ssd_scan_plain(x, dt, alog, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan"] == before + 1
+    assert y.dtype == dtype and st.dtype == torch.float32
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               yw.float().cpu().numpy(), **_ssd_tol(dtype))
+    # the final state is f32 on both sides, whatever x's dtype
+    np.testing.assert_allclose(st.cpu().numpy(), sw.cpu().numpy(),
+                               **_ssd_tol(torch.float32))
+
+
+def test_ssd_kernel_takes_strided_views_on_card():
+    """x, B and C as column slices of one [B, S, C] buffer (the module's
+    split of its conv output) give what contiguous copies give."""
+    dev = _cuda()
+    b, s, h, p, n = 1, 128, 4, 32, 16
+    buf = torch.randn(b, s, h * p + 2 * n, device=dev)
+    x = buf[..., :h * p].reshape(b, s, h, p)
+    bm = buf[..., h * p:h * p + n].reshape(b, s, 1, n)
+    cm = buf[..., h * p + n:].reshape(b, s, 1, n)
+    dt = torch.rand(b, s, h, device=dev) * 0.2
+    alog = torch.zeros(h, device=dev)
+    got = ss.ssd_scan(x, dt, alog, bm, cm, chunk=64)
+    want = ss.ssd_scan(x.contiguous(), dt, alog, bm.contiguous(),
+                       cm.contiguous(), chunk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_ssd_kernel_input_checks_on_card():
+    dev = _cuda()
+    x, dt, alog, bm, cm = _ssd_inputs(1, 32, 2, 16, 8, 1, torch.float32, dev)
+    with pytest.raises(ValueError, match="dt"):
+        ss.ssd_scan(x, dt.double(), alog, bm, cm, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, alog,
+                    bm, cm, chunk=16)
+    with pytest.raises(TypeError, match="dtype"):
+        ss.ssd_scan(x.double(), dt, alog, bm.double(), cm.double(), chunk=16)
+    xb, dtb, alb, bmb, cmb = _ssd_inputs(1, 32, 2, 160, 8, 1, torch.float32,
+                                         dev)
+    with pytest.raises(ValueError, match="range"):
+        ss.ssd_scan(xb, dtb, alb, bmb, cmb, chunk=16)
