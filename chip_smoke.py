@@ -8,7 +8,9 @@ Phases, each printing one JSON line:
   1. device      the card's name and power limit (``nvidia-smi``), torch/CUDA
                  versions, both TF32 flags;
   2. build       nvcc build of every kernel source, in seconds, with the
-                 registers of every variant and any that spill;
+                 registers of every variant, any that spill, and each
+                 library's tensor-core instructions (``cuobjdump -sass``:
+                 HGMMA for wgmma, HMMA for mma.sync);
   3. kernel      each kernel against its plain PyTorch version on the card
                  (the f32 commit: accepted rows within rtol = atol = 1e-6 for
                  f32 or one bf16 ulp; the quantized-wire commit: r' and every
@@ -58,19 +60,24 @@ Phases, each printing one JSON line:
  12. flash_kernel the flash attention kernel against its plain version
                  (``attention_ref``): the reference's sweep shapes at 2e-5
                  (f32) and its bf16 case at 3e-2, ragged and strided cases,
-                 and Hymba-1.5B's prefill shapes (q [1,25,2048,64], K/V
-                 [1,5,T,64] bf16, T the serve phase's max_len) with window
-                 0 and 1024 within one bf16 ulp (atol 2e-4, rtol 8e-3);
-                 there the kernel's device time beside
-                 the plain version's, one ``scaled_dot_product_attention``
-                 call (``enable_gqa``, the mask as a boolean tensor; never
-                 used by the port) and the bound;
+                 and Hymba-1.5B's prefill shapes (q [1,25,S,64] at both of
+                 the serve phase's prompt lengths S = 256 and 2048, K/V
+                 [1,5,T,64] bf16, T its max_len) with window 0 and 1024
+                 within one bf16 ulp (atol 2e-4, rtol 8e-3); there the
+                 kernel's device time (and the same calls timed by
+                 ``events_ms``, the clock ``device_ms`` falls back to) and
+                 TFLOP/s beside the plain version's, one
+                 ``scaled_dot_product_attention`` call
+                 (``enable_gqa``, the mask as a boolean tensor; never used
+                 by the port), at window 0 also one with ``is_causal=True``
+                 and no mask (the summary takes the faster), and the bound;
  13. ssd_kernel  the SSD scan kernel against its plain version: the
-                 reference's sweep at 1e-4 (f32) and Hymba's (1, 2048, 50,
-                 64, 16, 256) and Mamba2's (1, 2048, 32, 64, 128, 256) bf16
-                 shapes, y at 2e-2 and the f32 final state at 1e-4; times
-                 and bounds (no single PyTorch call
-                 computes it);
+                 reference's sweep at 1e-4 (f32) and Hymba's (1, S, 50,
+                 64, 16, 256) at S = 2048 and 256 and Mamba2's (1, 2048,
+                 32, 64, 128, 256) bf16 shapes, y at 2e-2 and the f32 final
+                 state at 1e-4; times, TFLOP/s and bounds (C·Bᵀ at the bf16
+                 tensor-core rate, the rest at the f32 rate; no single
+                 PyTorch call computes it);
  14. merge_one   the one-node commit through ``kernels.ops.merge_op``: each
                  node of a [4, 1,639,705] f32 swarm state committed alone
                  (the counted path) equals the all-nodes kernel's row bit
@@ -93,13 +100,24 @@ Phases, each printing one JSON line:
                  shapes, must give the same tokens; tokens/s, p50/p99
                  latency, prefill and decode
                  tick times, the device busy share of a profiled decode tick
-                 and peak memory;
- 17. kernels     the per-kernel summary line, then the ``ok`` line.
+                 and of one engine prefill of each length profiled after
+                 the timed run, and peak memory;
+ 17. timing      how many device times the profiler read, how many traces
+                 ``device_ms`` discarded for lost kernel records, and how
+                 many times it fell back to CUDA events;
+ 18. kernels     the per-kernel summary line (each kernel's achieved
+                 TFLOP/s among its numbers), then the ``ok`` line.
+
+The kernel phases (3, 10, 12-14) run before the paths 4-9 and 11: in a
+process that has run those paths, most of ``torch.profiler``'s traces on
+the H100 lose kernel records, and ``device_ms`` would fall back to CUDA
+events.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's sources beside it. Imports nothing of the JAX package.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -138,6 +156,23 @@ N, P = 4, 1_639_705
 WIRE_BLOCK = 512
 
 
+def mma_counts(build, stems):
+    """{library: {"HGMMA": n, "HMMA": n}} from ``cuobjdump -sass`` (the
+    tensor-core instructions each library holds: HGMMA is wgmma, HMMA
+    mma.sync), or "not available" where the toolkit lacks cuobjdump."""
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    out = {}
+    for stem in stems:
+        if not tool.exists():
+            out[stem] = "not available"
+            continue
+        sass = subprocess.run([str(tool), "-sass", str(build.library_path(
+            stem))], capture_output=True, text=True, timeout=120).stdout
+        out[stem] = {op: len(re.findall(rf"\b{op}\b", sass))
+                     for op in ("HGMMA", "HMMA")}
+    return out
+
+
 def emit(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
@@ -156,6 +191,11 @@ def bound(nbytes, flops, bw, rate):
     bytes_ms, flops_ms = nbytes / bw * 1e3, flops / rate * 1e3
     return (max(bytes_ms, flops_ms),
             "bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def tflops(flops, ms):
+    """Achieved rate: the operations the function needs over its time."""
+    return flops / (ms * 1e-3) / 1e12
 
 
 def time_ms(fn, iters=50, warm=20, repeats=7):
@@ -178,27 +218,71 @@ def time_ms(fn, iters=50, warm=20, repeats=7):
     return sorted(times)[len(times) // 2]
 
 
-def device_ms(fn, iters=200, warm=20):
+TIMERS = {"profiler": 0, "events": 0, "traces_discarded": 0}
+
+
+def device_ms(fn, iters=200, warm=20, tries=4):
     """Device time per call: the CUDA kernels' own time summed over
     ``iters`` calls under ``torch.profiler``, over ``iters``. Where one call
     takes microseconds, CUDA events around back-to-back calls measure the
-    host's rate of enqueueing them (the Python wrapper), not the card."""
+    host's rate of enqueueing them (the Python wrapper), not the card.
+
+    The profiler's CUPTI trace on the H100 now and then loses kernel
+    records: some of a session's, or all of them. A call launches the same
+    kernels every time, so a trace is kept only if each kernel's record
+    count is a whole multiple of ``iters``; otherwise it is discarded and
+    the calls traced again. After ``tries`` discarded traces the time is
+    taken with ``events_ms`` instead. ``TIMERS`` counts the readings of
+    each clock and the traces discarded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0.0)
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return us / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        cuda = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if cuda and all(e.count % iters == 0 for e in cuda):
+            TIMERS["profiler"] += 1
+            return sum(e.self_device_time_total for e in cuda) / 1e3 / iters
+        TIMERS["traces_discarded"] += 1
+    print("device_ms: the profiler lost kernel records in every trace; "
+          "timing with CUDA events", file=sys.stderr, flush=True)
+    TIMERS["events"] += 1
+    return events_ms(fn, iters)
+
+
+def events_ms(fn, iters=200):
+    """Device time per call from CUDA events around ``iters`` back-to-back
+    calls, enqueued while the card spins in ``torch.cuda._sleep`` for
+    longer than the host takes to enqueue them, so that the calls run
+    without gaps between them and the events read the card, not the host."""
+    import torch
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0        # an upper bound on enqueueing
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 10 ** 7
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    per_s = cycles / (start.elapsed_time(end) * 1e-3)
+    torch.cuda._sleep(int(1.2 * host_s * per_s))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def check_commit(got, want, x, gates):
@@ -266,7 +350,7 @@ def phase_kernels(dev, bw, peak):
         library_ms = time_ms(lib, iters=20)
         bytes_ms, flops_ms = nbytes / bw * 1e3, flops / peak * 1e3
         stats[form] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                           library_ms=library_ms,
+                           library_ms=library_ms, tflops=tflops(flops, ms),
                            bound_ms=max(bytes_ms, flops_ms),
                            bound_by="bytes" if bytes_ms >= flops_ms
                            else "operations")
@@ -342,7 +426,8 @@ def phase_quant_kernels(dev, bw, peak):
                      else 2 * N * N * P) + 10 * N * P
             bytes_ms, flops_ms = nbytes / bw * 1e3, flops / peak * 1e3
             row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                       library_ms=None, bound_ms=max(bytes_ms, flops_ms),
+                       library_ms=None, tflops=tflops(flops, ms),
+                       bound_ms=max(bytes_ms, flops_ms),
                        bound_by="bytes" if bytes_ms >= flops_ms
                        else "operations")
             emit("kernel", name=form, wire=wire, shape=[N, P],
@@ -738,9 +823,12 @@ def phase_lora_kernel(dev, bw, peak):
          timings=out, tolerance={"float32": 2e-5, "bfloat16": 2e-2,
                                  "grad": 1e-5})
     zoo = out["zoo"]
+    m, k, n, r = LORA_ZOO
     return {"lora_matmul": dict(
         max_abs_err=max_err, ms=zoo["kernel_ms"], plain_ms=zoo["plain_ms"],
-        library_ms=None, bound_ms=zoo["bound_ms"],
+        library_ms=None, tflops=tflops(2 * m * n * k + 2 * m * k * r
+                                       + 2 * m * r * n, zoo["kernel_ms"]),
+        bound_ms=zoo["bound_ms"],
         bound_by=zoo["bound_by"])}
 
 
@@ -904,73 +992,102 @@ def phase_flash_kernel(dev, bw, peak, bf16_peak):
     # round once to bf16, so they may differ by one bf16 ulp (2^-7 of the
     # value) where the f32 sums straddle a rounding boundary
     atol, rtol = 2e-4, 8e-3
-    h, hkv, s, d = 25, 5, SERVE_SEQ[-1], 64
-    q, k, v = inputs(1, h, hkv, s, SERVE_MAX_LEN, d, "bfloat16")
-    for window in (0, 1024):
-        got = fa.flash_attention(q, k, v, window=window)
-        want = flash_attention_plain(q, k, v, window=window)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        if bool((err > atol + rtol * want.float().abs()).any()):
-            raise AssertionError(f"flash at Hymba's shape, window {window}: "
-                                 f"max err {float(err.max())}")
-        qpos = torch.arange(s, device=dev)[:, None]
-        kpos = torch.arange(SERVE_MAX_LEN, device=dev)[None, :]
-        mask = kpos <= qpos
-        if window:
-            mask = mask & (kpos > qpos - window)
-        row = dict(window=window, max_abs_err_bf16=float(err.max()),
-                   kernel_ms=device_ms(lambda: fa.flash_attention(
-                       q, k, v, window=window), iters=20, warm=3),
-                   plain_ms=device_ms(lambda: flash_attention_plain(
-                       q, k, v, window=window), iters=5, warm=2))
-        try:
-            row["library_ms"] = device_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, enable_gqa=True),
-                iters=20, warm=3)
-        except RuntimeError as exc:      # the yardstick only, never the port
-            row["library_ms"], row["library_error"] = None, str(exc)[:200]
-        pairs = _flash_pairs(s, SERVE_MAX_LEN, True, window)
-        nbytes = 2 * (2 * h * s * d + 2 * hkv * SERVE_MAX_LEN * d)
-        row["gflop"] = 4 * h * d * pairs / 1e9
-        row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * h * d * pairs,
-                                                 bw, bf16_peak)
-        out[window] = row
+    h, hkv, d, t = 25, 5, 64, SERVE_MAX_LEN
+    for s in SERVE_SEQ:
+        q, k, v = inputs(1, h, hkv, s, t, d, "bfloat16")
+        for window in (0, 1024):
+            got = fa.flash_attention(q, k, v, window=window)
+            want = flash_attention_plain(q, k, v, window=window)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            if bool((err > atol + rtol * want.float().abs()).any()):
+                raise AssertionError(f"flash at Hymba's shape, S {s}, window "
+                                     f"{window}: max err {float(err.max())}")
+            qpos = torch.arange(s, device=dev)[:, None]
+            kpos = torch.arange(t, device=dev)[None, :]
+            mask = kpos <= qpos
+            if window:
+                mask = mask & (kpos > qpos - window)
+            row = dict(s=s, window=window, max_abs_err_bf16=float(err.max()),
+                       kernel_ms=device_ms(lambda: fa.flash_attention(
+                           q, k, v, window=window), iters=20, warm=3),
+                       # the clock device_ms falls back to, on the same calls
+                       kernel_events_ms=events_ms(lambda: fa.flash_attention(
+                           q, k, v, window=window), iters=20),
+                       plain_ms=device_ms(lambda: flash_attention_plain(
+                           q, k, v, window=window), iters=5, warm=2))
+            try:
+                row["library_ms"] = device_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, enable_gqa=True),
+                    iters=20, warm=3)
+            except RuntimeError as exc:  # the yardstick only, never the port
+                row["library_ms"], row["library_error"] = None, str(exc)[:200]
+            if not window:
+                # is_causal with no mask: aligned top-left, so for T >= S
+                # the same mask as the boolean one (SDPA's causal kernels)
+                try:
+                    row["library_causal_ms"] = device_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True, enable_gqa=True),
+                        iters=20, warm=3)
+                except RuntimeError as exc:
+                    row["library_causal_ms"] = None
+                    row["library_causal_error"] = str(exc)[:200]
+            pairs = _flash_pairs(s, t, True, window)
+            nbytes = 2 * (2 * h * s * d + 2 * hkv * t * d)
+            row["gflop"] = 4 * h * d * pairs / 1e9
+            row["tflops"] = tflops(4 * h * d * pairs, row["kernel_ms"])
+            row["bound_ms"], row["bound_by"] = bound(
+                nbytes, 4 * h * d * pairs, bw, bf16_peak)
+            out[(s, window)] = row
     emit("flash_kernel", sweep=[list(c) for c in FLASH_SWEEP],
-         max_abs_err_f32=max_err, hymba={str(w): r for w, r in out.items()},
-         shape=dict(q=[1, h, s, d], kv=[1, hkv, SERVE_MAX_LEN, d],
+         max_abs_err_f32=max_err,
+         hymba={f"s{s}_w{w}": r for (s, w), r in out.items()},
+         shape=dict(q=[1, h, list(SERVE_SEQ), d], kv=[1, hkv, t, d],
                     dtype="bfloat16"),
          rate="bf16 tensor cores", tolerance={"float32": 2e-5,
                                               "bfloat16": 3e-2,
                                               "hymba": [atol, rtol]})
-    g = out[0]
+    g = out[(SERVE_SEQ[-1], 0)]
+    # the summary's yardstick: the faster of the two SDPA calls that compute
+    # this function (at window 0 the boolean mask and is_causal agree)
+    libs = [g[key] for key in ("library_ms", "library_causal_ms")
+            if g.get(key) is not None]
     return {"flash_attention": dict(
         max_abs_err=max_err, ms=g["kernel_ms"], plain_ms=g["plain_ms"],
-        library_ms=g["library_ms"], bound_ms=g["bound_ms"],
-        bound_by=g["bound_by"])}
+        library_ms=min(libs) if libs else None, tflops=g["tflops"],
+        bound_ms=g["bound_ms"], bound_by=g["bound_by"])}
 
 
-# (B, S, H, P, N, chunk): the reference's SSD sweep, then Hymba's and
-# Mamba2-370M's prefill shapes
+# (B, S, H, P, N, chunk): the reference's SSD sweep, then Hymba's prefill
+# shapes at the serve phase's two prompt lengths and Mamba2-370M's
 SSD_SWEEP = ((1, 64, 2, 32, 16, 16), (2, 128, 3, 32, 16, 32),
              (1, 256, 4, 64, 128, 64), (2, 96, 2, 32, 8, 32))
 SSD_MODELS = (("hymba", (1, 2048, 50, 64, 16, 256)),
+              ("hymba256", (1, 256, 50, 64, 16, 256)),
               ("mamba2", (1, 2048, 32, 64, 128, 256)))
 
 
-def _ssd_cost(b, s, h, p, n, chunk, itemsize):
-    """(bytes, operations) of one call with B/C in one group: x, dt, a_log,
-    B, C in, y and the f32 state out; per chunk the causal pairs' C·B
-    (2N) and their weighted x (2P), the carried state's 2·L·N·P twice."""
-    nbytes = (2 * b * s * h * p + 2 * b * s * n) * itemsize + \
+def ssd_bound(b, s, h, p, n, chunk, g, bw, peak, bf16_peak, itemsize=2):
+    """(bound_ms, bound_by, flops, bytes) of one bf16 call: x, dt, a_log,
+    B, C in, y and the f32 state out; per chunk C·Bᵀ over the causal pairs
+    (2N each) once per group, bf16 operands at the tensor-core rate, and
+    per head the pairs' weighted x (2P each) and the carried state's
+    2·L·N·P twice, f32 operands at the f32 rate. The operation time is the
+    sum of the two."""
+    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * itemsize + \
         b * s * h * 4 + h * 4 + b * h * p * n * 4
-    pairs = chunk * (chunk + 1) // 2
-    flops = b * h * (s // chunk) * (pairs * 2 * (n + p) + 4 * chunk * n * p)
-    return nbytes, flops
+    pairs, chunks = chunk * (chunk + 1) // 2, s // chunk
+    f32_ops = b * h * chunks * (pairs * 2 * p + 4 * chunk * n * p)
+    bf16_ops = b * g * chunks * pairs * 2 * n
+    bytes_ms = nbytes / bw * 1e3
+    ops_ms = (f32_ops / peak + bf16_ops / bf16_peak) * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms
+            else "operations", f32_ops + bf16_ops, nbytes)
 
 
-def phase_ssd_kernel(dev, bw, peak):
+def phase_ssd_kernel(dev, bw, peak, bf16_peak):
     import torch
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels.ref import ssd_scan_plain
@@ -1013,23 +1130,26 @@ def phase_ssd_kernel(dev, bw, peak):
                 raise AssertionError(f"ssd at {name}'s shape: max err "
                                      f"{float(err.max())}")
             errs.append(float(err.max()))
-        nbytes, flops = _ssd_cost(b, s, h, p, n, chunk, 2)
-        bms, by = bound(nbytes, flops, bw, peak)
+        bms, by, flops, nbytes = ssd_bound(b, s, h, p, n, chunk, 1, bw, peak,
+                                           bf16_peak)
+        ms = device_ms(lambda: ss.ssd_scan(*args, chunk=chunk), iters=20,
+                       warm=3)
         rows[name] = dict(
             shape=[b, s, h, p, n, chunk], max_abs_err_y=errs[0],
             max_abs_err_state=errs[1], gflop=flops / 1e9, mbytes=nbytes / 1e6,
-            kernel_ms=device_ms(lambda: ss.ssd_scan(*args, chunk=chunk),
-                                iters=20, warm=3),
+            kernel_ms=ms, tflops=tflops(flops, ms),
             plain_ms=device_ms(lambda: ssd_scan_plain(*args, chunk=chunk),
                                iters=5, warm=2),
             bound_ms=bms, bound_by=by)
     emit("ssd_kernel", sweep=[list(c) for c in SSD_SWEEP],
-         max_abs_err_f32=max_err, models=rows, rate="f32 CUDA cores",
+         max_abs_err_f32=max_err, models=rows,
+         rate="C·Bᵀ at the bf16 tensor-core rate, the rest at the f32 rate",
          tolerance={"float32": 1e-4, "bfloat16": 2e-2, "state": 1e-4})
     hy = rows["hymba"]
     return {"ssd_scan": dict(
         max_abs_err=max_err, ms=hy["kernel_ms"], plain_ms=hy["plain_ms"],
-        library_ms=None, bound_ms=hy["bound_ms"], bound_by=hy["bound_by"])}
+        library_ms=None, tflops=hy["tflops"], bound_ms=hy["bound_ms"],
+        bound_by=hy["bound_by"])}
 
 
 def phase_merge_one(dev, bw, peak):
@@ -1073,7 +1193,8 @@ def phase_merge_one(dev, bw, peak):
          plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by,
          bit_equal=True)
     return ({"fused_merge": dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                                 library_ms=library_ms, bound_ms=bms,
+                                 library_ms=library_ms,
+                                 tflops=tflops(2 * N * P, ms), bound_ms=bms,
                                  bound_by=by)}, launches)
 
 
@@ -1159,6 +1280,33 @@ def _replay_consensus(model, params, req, bucket, dev):
     return np.stack([o.cpu().numpy() for o in out])
 
 
+def _busy(prof, wall):
+    """A profiled stretch of ``wall`` seconds: the device's busy time and
+    share, host-side ops and kernel launches, the top host ops and
+    kernels."""
+    import torch
+    cuda_t = torch.autograd.DeviceType.CUDA
+    evts = prof.key_averages()
+    cuda = [e for e in evts if e.device_type == cuda_t]
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in cuda)
+    host = sorted((e for e in evts if e.device_type != cuda_t),
+                  key=lambda e: -e.self_cpu_time_total)
+    dev_top = sorted(cuda, key=lambda e: -getattr(
+        e, "self_device_time_total", 0.0))
+    return dict(wall_s=wall, device_busy_s=busy / 1e6,
+                device_busy_share=busy / 1e6 / wall,
+                host_ops=sum(e.count for e in evts if e.key.startswith(
+                    "aten::") and e.device_type != cuda_t),
+                kernel_launches=sum(e.count for e in cuda),
+                top_host=[{"op": e.key[:60], "calls": e.count,
+                           "self_ms": e.self_cpu_time_total / 1e3}
+                          for e in host[:10]],
+                top_device=[{"kernel": e.key[:80], "calls": e.count,
+                             "ms": getattr(e, "self_device_time_total",
+                                           0.0) / 1e3}
+                            for e in dev_top[:8]])
+
+
 def phase_serve(dev):
     """The LM serving path at Hymba-1.5B width, counts set to 0 just
     before it and read just after."""
@@ -1185,14 +1333,26 @@ def phase_serve(dev):
     prefill_s, decode_s = [], []
 
     class TimedEngine(ServeEngine):
-        """Synchronized host time of each prefill (all N nodes) and each
-        decode dispatch."""
+        """Synchronized host time of each prefill (all N nodes), by prompt
+        length, and of each decode dispatch; while ``profiled`` is a dict,
+        each prefill runs under the profiler instead, its summary kept
+        there by prompt length."""
+        profiled = None
 
-        def _prefill_commit(self, *args):
+        def _prefill_commit(self, version, prompt, slot, length):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = super()._prefill_commit(*args)
-            prefill_s.append(time.perf_counter() - t0)
+            if self.profiled is None:
+                t0 = time.perf_counter()
+                out = super()._prefill_commit(version, prompt, slot, length)
+                prefill_s.append((length, time.perf_counter() - t0))
+                return out
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = super()._prefill_commit(version, prompt, slot, length)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            self.profiled[length] = _busy(prof, wall)
             return out
 
         def _decode_commit(self, *args):
@@ -1235,29 +1395,7 @@ def phase_serve(dev):
                 eng.step()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t1
-            evts = prof.key_averages()
-            cuda = [e for e in evts
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-            busy = sum(getattr(e, "self_device_time_total", 0.0)
-                       for e in cuda)
-            host = sorted((e for e in evts
-                           if e.device_type != torch.autograd.DeviceType.CUDA),
-                          key=lambda e: -e.self_cpu_time_total)
-            dev_top = sorted(cuda, key=lambda e: -getattr(
-                e, "self_device_time_total", 0.0))
-            tick = dict(wall_s=wall, device_busy_s=busy / 1e6,
-                        device_busy_share=busy / 1e6 / wall,
-                        host_ops=sum(e.count for e in evts if e.key.startswith(
-                            "aten::") and e.device_type !=
-                            torch.autograd.DeviceType.CUDA),
-                        kernel_launches=sum(e.count for e in cuda),
-                        top_host=[{"op": e.key[:60], "calls": e.count,
-                                   "self_ms": e.self_cpu_time_total / 1e3}
-                                  for e in host[:10]],
-                        top_device=[{"kernel": e.key[:80], "calls": e.count,
-                                     "ms": getattr(e, "self_device_time_total",
-                                                   0.0) / 1e3}
-                                    for e in dev_top[:8]])
+            tick = _busy(prof, wall)
         else:
             eng.step()
     torch.cuda.synchronize()
@@ -1296,8 +1434,7 @@ def phase_serve(dev):
         replayed[r.rid] = dict(prompt=len(r.prompt), version=r.param_version,
                                tokens=again[:, 0].tolist())
     lat = sorted(r.latency_s for r in reqs)
-    by_len = {n: [s for s, m in zip(prefill_s, lengths) if m == n]
-              for n in SERVE_SEQ}
+    by_len = {n: [t for m, t in prefill_s if m == n] for n in SERVE_SEQ}
     reset_launches()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1313,6 +1450,15 @@ def phase_serve(dev):
     if (LAUNCHES["flash_attention"], LAUNCHES["ssd_scan"]) != (
             cfg.n_layers, cfg.n_layers):
         raise AssertionError(f"generate launches {dict(LAUNCHES)}")
+    # one engine prefill of each length under the profiler, after the
+    # timed run (the trace's processing would otherwise count in its wall)
+    eng.profiled = {}
+    for n in SERVE_SEQ:
+        r = eng.submit(gen.integers(0, cfg.vocab_size, n), 1)
+        while len(eng.queue) or eng.live_count:
+            eng.step()
+        if r.status != "done" or n not in eng.profiled:
+            raise AssertionError(f"profiled prefill of {n}: {r.status}")
     emit("serve", arch=cfg.name, dtype=cfg.param_dtype, nodes=N,
          params_per_node=size, ensemble_gib=N * size * 2 / 2 ** 30,
          requests=len(reqs), new_tokens=SERVE_NEW, prompt_lengths=lengths,
@@ -1325,7 +1471,9 @@ def phase_serve(dev):
          decode_tick_s=dict(n=len(decode_s),
                             median=float(np.median(decode_s)),
                             max=float(max(decode_s))),
-         profiled_decode_tick=tick, peak_mem_gib=peak_gib,
+         profiled_decode_tick=tick,
+         profiled_prefill={str(n): v for n, v in eng.profiled.items()},
+         peak_mem_gib=peak_gib,
          launches={k: v for k, v in launches.items() if v},
          dispatch_keys=sorted(map(str, eng.trace_counts)),
          generate=dict(batch=4, prompt=short, seconds=gen_s,
@@ -1368,14 +1516,21 @@ def main() -> int:
                       "spill loads" not in ln])
     emit("build", seconds=time.perf_counter() - t0,
          build_seconds={k: v["seconds"] for k, v in build.BUILD_LOG.items()},
-         variants=variants)
+         variants=variants, mma_instructions=mma_counts(build, SOURCES))
 
     stats = phase_kernels(dev, bw, peak)
     stats.update(phase_quant_kernels(dev, bw, peak))
     stats.update(phase_lora_kernel(dev, bw, peak))
+    # the LM slice's kernels and the one-node commit's path are timed before
+    # the swarm paths: once a process has run those, most of the profiler's
+    # traces lose kernel records (device_ms)
+    stats.update(phase_flash_kernel(dev, bw, peak, bf16_peak))
+    stats.update(phase_ssd_kernel(dev, bw, peak, bf16_peak))
+    mstats, counts = phase_merge_one(dev, bw, peak)
+    stats.update(mstats)
     # each path runs with the launch counts set to 0 just before it; a
     # kernel's launches are those of the first path that carries it
-    launches = {}
+    launches = {k: v for k, v in counts.items() if v}
     for counts in (phase_histo(dev), phase_fisher(dev)[0],
                    phase_histo(dev, dict(wire_dtype="int8",
                                          wire_block=WIRE_BLOCK))):
@@ -1391,13 +1546,7 @@ def main() -> int:
     launches.update({k: v for k, v in counts.items()
                      if v and k not in launches})
     phase_hetero_parity(dev)
-    # the LM slice: kernels, the one-node commit's path, parity, serving
-    stats.update(phase_flash_kernel(dev, bw, peak, bf16_peak))
-    stats.update(phase_ssd_kernel(dev, bw, peak))
-    mstats, counts = phase_merge_one(dev, bw, peak)
-    stats.update(mstats)
-    launches.update({k: v for k, v in counts.items()
-                     if v and k not in launches})
+    # the LM slice: parity, serving
     phase_lm_parity(dev)
     counts = phase_serve(dev)
     launches.update({k: v for k, v in counts.items()
@@ -1409,6 +1558,7 @@ def main() -> int:
                for name, (stem, replaces) in KERNELS.items()]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: {kernels}")
+    emit("timing", **TIMERS)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

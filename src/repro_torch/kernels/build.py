@@ -28,7 +28,7 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, dict] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     cand = Path(home or "/usr/local/cuda") / "bin" / "nvcc"
     if cand.exists():
@@ -58,7 +58,7 @@ def build(stems: Sequence[str]) -> Dict[str, Path]:
         if path.exists():
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
         procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp)

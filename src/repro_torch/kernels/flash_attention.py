@@ -5,21 +5,30 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py`` ::
 ``flash_attention`` (body ``_flash_kernel``), which on the LM path computes
 every prefill's attention (`repro_torch.models.attention`, the self-
 attention form with query positions 0..S-1). The CUDA kernel
-(``csrc/flash_attention.cu``) keeps the online softmax state in f32,
-streams K/V tiles of 64 keys through shared memory for each (q tile of 64
-rows, query head), and skips every key tile the TPU kernel skips (wholly
-in the future of the q tile, or wholly older than the window). Bound: the
-operations, about 4·H·D·S²/2 for a causal prefill (13.4 GFLOP at Hymba's
-S = 2048: 13.6 µs at an H100 SXM's bf16 tensor-core rate of 989 TFLOP/s,
-700 W), against about 16 MB moved. This first kernel runs on the f32 CUDA
-cores; see the source for the design.
+(``csrc/flash_attention.cu``) keeps the online softmax state in f32 and
+skips every key tile the TPU kernel skips (wholly in the future of the q
+tile, or wholly older than the window). Bound: the operations, about
+4·H·D·S²/2 for a causal prefill (13.4 GFLOP at Hymba's S = 2048: 13.6 µs
+at an H100 SXM's bf16 tensor-core rate of 989 TFLOP/s, 700 W), against
+about 16 MB moved.
+
+The bf16 form, the serving path's, runs Q·Kᵀ and P·V on the tensor cores
+(``wgmma``, f32 accumulators): 192 query rows of one head per block in
+three consumer warpgroups (128 in two at D = 128), 64-key K/V tiles in a
+swizzled layout, streamed by a producer warp with ``cp.async`` into a
+two-stage ring signalled on mbarriers. P is split into two bf16 terms
+(P = P_hi + P_lo) so that P·V holds P to about 2⁻¹⁷, as the TPU kernel's
+f32 P·V does; Q·Kᵀ is exact in f32 as it is. The f32 form runs on the
+CUDA cores (f32 register micro-tiles), for the f32 sweeps. See the source
+for the design and the precision reckoning.
 
 :func:`flash_attention` takes q ``[B, H, S, D]`` and k/v ``[B, Hkv, T, D]``
-as views with any (batch, head, seq) strides and a contiguous D, so the
-module's ``[B, S, H, D]`` projections and a ``[B, T, Hkv, D]`` KV cache pass
-without a copy; its output is a ``[B, H, S, D]`` view of a ``[B, S, H, D]``
-buffer, so the module's reshape back to ``[B, S, H·D]`` is free. On a CPU
-tensor it computes the plain version (`repro_torch.kernels.ref.
+as views with any (batch, head, seq) strides and a contiguous D (for bf16,
+16-byte-aligned rows and strides), so the module's ``[B, S, H, D]``
+projections and a ``[B, T, Hkv, D]`` KV cache pass without a copy; its
+output is a ``[B, H, S, D]`` view of a ``[B, S, H, D]`` buffer, so the
+module's reshape back to ``[B, S, H·D]`` is free. On a CPU tensor it
+computes the plain version (`repro_torch.kernels.ref.
 flash_attention_plain`, the twin of the reference's ``attention_ref``); on
 a CUDA tensor it launches the kernel or raises. ``causal=False`` with
 ``window > 0`` raises on both: the TPU kernel and its oracle disagree there.
@@ -81,6 +90,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"{name}'s head dim must be contiguous")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if q.dtype == torch.bfloat16:
+        # the bf16 kernel copies 16-byte chunks (cp.async)
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16 or any(x.stride(i) * 2 % 16
+                                        for i in range(3)):
+                raise ValueError(f"{name} must have 16-byte-aligned rows "
+                                 "and strides in bfloat16")
     if b > 65535 or h > 65535 or max(s, t) >= 2 ** 31:
         raise ValueError(f"shape {tuple(q.shape)} / {tuple(k.shape)} outside "
                          "the kernel's range")

@@ -15,7 +15,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
 
 _PROBE = r"""
 import sys

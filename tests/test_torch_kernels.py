@@ -366,7 +366,8 @@ def test_merge_one_kernel_matches_plain_on_card(n, d, dtype):
 # -- flash attention ----------------------------------------------------------
 
 # (B, H, Hkv, S, T, D, causal, window, dtype): the reference's sweep, the
-# bf16 case, ragged S and T (a prompt in a deeper cache), D = 32
+# bf16 case, ragged S and T (a prompt in a deeper cache), D = 32, bf16
+# without the causal mask
 FLASH_CASES = [
     (1, 4, 4, 128, 128, 64, True, 0, torch.float32),
     (2, 4, 2, 256, 256, 64, True, 0, torch.float32),
@@ -376,7 +377,8 @@ FLASH_CASES = [
     (1, 2, 2, 128, 128, 64, True, 0, torch.bfloat16),
     (1, 5, 1, 100, 133, 64, True, 0, torch.float32),
     (2, 6, 3, 77, 77, 32, True, 20, torch.float32),
-    (1, 25, 5, 200, 211, 64, True, 64, torch.bfloat16)]
+    (1, 25, 5, 200, 211, 64, True, 64, torch.bfloat16),
+    (2, 4, 2, 150, 170, 64, False, 0, torch.bfloat16)]
 
 
 def _flash_tol(dtype):
@@ -462,6 +464,55 @@ def test_flash_kernel_input_checks_on_card():
         fa.flash_attention(q, k, v, causal=False, window=4)
 
 
+# (H, Hkv, S, T, D, window) in bf16 at the model's tolerance: Hymba's
+# prefill shapes at both served prompt lengths (S and T not multiples of
+# the 192-row / 64-key tiles), a window edge inside a tile, GQA groups of
+# 1, 5 and 8, D of 32, 64 and 128
+FLASH_BF16_CASES = [(25, 5, 200, 2064, 64, 0), (25, 5, 2048, 2064, 64, 0),
+                    (25, 5, 2048, 2064, 64, 1024), (25, 5, 256, 2064, 64, 0),
+                    (25, 5, 256, 2064, 64, 1024), (8, 8, 300, 300, 64, 100),
+                    (10, 2, 333, 400, 32, 100), (40, 5, 256, 300, 128, 0),
+                    (16, 2, 130, 130, 128, 100), (5, 1, 77, 90, 32, 0)]
+
+
+@pytest.mark.parametrize("h,hkv,s,t,d,window", FLASH_BF16_CASES)
+def test_flash_bf16_within_one_ulp_on_card(h, hkv, s, t, d, window):
+    """Both sides work in f32 on the same bf16 inputs and round once, so
+    they differ by at most one bf16 ulp (atol 2e-4, rtol 8e-3, as
+    chip_smoke holds Hymba's shape). The first rows of a causal prefill
+    average a few keys, where a P rounded to bf16 would miss: they are
+    checked on their own."""
+    dev = _cuda()
+    q, k, v = _flash_inputs(1, h, hkv, s, t, d, torch.bfloat16, dev,
+                            seed=s + d + window)
+    got = fa.flash_attention(q, k, v, window=window).float().cpu()
+    want = flash_attention_plain(q, k, v, window=window).float().cpu()
+    tol = dict(atol=2e-4, rtol=8e-3)
+    np.testing.assert_allclose(got[:, :, :4].numpy(),
+                               want[:, :, :4].numpy(), **tol)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+
+
+def test_flash_kernel_deterministic_on_card():
+    """Two calls on the same inputs give the same bits, in both forms."""
+    dev = _cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _flash_inputs(1, 25, 5, 300, 2064, 64, dtype, dev, seed=3)
+        a = fa.flash_attention(q, k, v, window=100)
+        b = fa.flash_attention(q, k, v, window=100)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+def test_flash_bf16_rejects_unaligned_rows_on_card():
+    dev = _cuda()
+    q, k, v = _flash_inputs(1, 2, 2, 16, 17, 64, torch.bfloat16, dev)
+    k1 = torch.zeros(1, 2, 17 * 64 + 1, dtype=torch.bfloat16,
+                     device=dev)[..., 1:].view(1, 2, 17, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(q, k1, v)
+
+
 # -- the SSD scan ---------------------------------------------------------------
 
 # (B, S, H, P, N, chunk, G, dtype): the reference's sweep, a group
@@ -472,7 +523,15 @@ SSD_CASES = [(1, 64, 2, 32, 16, 16, 2, torch.float32),
              (2, 96, 2, 32, 8, 32, 2, torch.float32),
              (1, 512, 6, 64, 16, 256, 1, torch.float32),
              (1, 48, 4, 16, 8, 24, 2, torch.float32),
-             (1, 256, 5, 64, 16, 128, 1, torch.bfloat16)]
+             (1, 256, 5, 64, 16, 128, 1, torch.bfloat16),
+             # one chunk (Hymba's 256-token prefill), sixteen chunks,
+             # G < H, Mamba2's N = 128 in bf16
+             (1, 256, 50, 64, 16, 256, 1, torch.bfloat16),
+             (1, 256, 8, 64, 16, 256, 1, torch.bfloat16),
+             (1, 4096, 4, 64, 16, 256, 1, torch.bfloat16),
+             (2, 512, 8, 64, 16, 128, 2, torch.bfloat16),
+             (1, 512, 4, 64, 128, 256, 1, torch.bfloat16),
+             (1, 512, 6, 32, 64, 256, 3, torch.float32)]
 
 
 def _ssd_tol(dtype):
@@ -566,3 +625,41 @@ def test_ssd_kernel_input_checks_on_card():
                                          dev)
     with pytest.raises(ValueError, match="range"):
         ss.ssd_scan(xb, dtb, alb, bmb, cmb, chunk=16)
+
+
+@pytest.mark.parametrize("n", [16, 12])
+def test_ssd_kernel_on_conv_output_views_on_card(n):
+    """x, B and C as column slices of one bf16 [B, S, H·P + 2·G·N] buffer
+    (the module's split of its conv output) against the plain version;
+    N = 12 leaves B and C rows off 16-byte alignment, so their tiles are
+    loaded element by element."""
+    dev = _cuda()
+    b, s, h, p, g, chunk = 1, 512, 8, 64, 1, 256
+    rng = np.random.default_rng(n)
+    buf = torch.from_numpy(rng.normal(0, 0.5, (b, s, h * p + 2 * g * n))
+                           .astype(np.float32)).to(torch.bfloat16).to(dev)
+    x = buf[..., :h * p].reshape(b, s, h, p)
+    bm = buf[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    cm = buf[..., h * p + g * n:].reshape(b, s, g, n)
+    dt = torch.from_numpy(np.abs(rng.normal(0.1, 0.05, (b, s, h)))
+                          .astype(np.float32)).to(dev)
+    alog = torch.log(torch.linspace(1, 8, h, device=dev))
+    y, st = ss.ssd_scan(x, dt, alog, bm, cm, chunk=chunk)
+    yw, sw = ssd_scan_plain(x, dt, alog, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               yw.float().cpu().numpy(),
+                               **_ssd_tol(torch.bfloat16))
+    np.testing.assert_allclose(st.cpu().numpy(), sw.cpu().numpy(),
+                               **_ssd_tol(torch.float32))
+
+
+def test_ssd_kernel_deterministic_on_card():
+    """Two calls on the same inputs give the same bits, in both forms."""
+    dev = _cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        args = _ssd_inputs(1, 1024, 8, 64, 16, 1, dtype, dev, seed=5)
+        y1, s1 = ss.ssd_scan(*args, chunk=256)
+        y2, s2 = ss.ssd_scan(*args, chunk=256)
+        torch.cuda.synchronize()
+        assert torch.equal(y1, y2) and torch.equal(s1, s2)
