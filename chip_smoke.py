@@ -17,7 +17,12 @@ Phases, each printing one JSON line:
                  row bit-equal; rejected rows bit-equal for both), and at the
                  main-path shape its time beside the plain version, a
                  one-call library yardstick where one exists, and the card's
-                 bound;
+                 bound; the quantized commit on the int8 and the bf16 grid
+                 by its own device time (profiler; on int8 also by pass:
+                 maxima, commit, memset), by CUDA events, and with L2 cold
+                 (64 MB written before each call), with its launch
+                 shape (tiles, and each pass's thread blocks and shared
+                 memory per block);
   4. histo       the main path: ``run_experiment`` at the paper's full width
                  (224 px, P = 1,639,705 params per node, N = 4) — centralized,
                  local and swarm rows; every commit must launch the fedavg
@@ -47,6 +52,8 @@ Phases, each printing one JSON line:
                  version, the unfused cuBLAS form (three calls, never used
                  by the port) and the card's bound: device time per call
                  from the profiler, and the host clock's time per call;
+                 beside them the device time of a one-element kernel
+                 (``zero_``), the floor under any launch;
  11. hetero      the heterogeneous model-zoo swarm: ``run_scenario`` over
                  the five cells of ``scenario_grid`` at the
                  ``ScenarioRunConfig`` defaults (N = 4, 16 px, feat 16,
@@ -83,7 +90,9 @@ Phases, each printing one JSON line:
                  (the counted path) equals the all-nodes kernel's row bit
                  for bit; bit-equal to its plain version under an accepting
                  and a rejecting gate; timed beside one
-                 ``torch.where(g, w @ x, x[self_idx])``;
+                 ``torch.where(g, w @ x, x[self_idx])``, and by CUDA events
+                 with the gate and self_idx as Python values (passed by
+                 value) and as device tensors;
  15. lm_parity   the smoke variants of hymba-1.5b, minicpm-2b and
                  mamba2-370m in f32 on the card against the CPU (TF32 off):
                  prefill logits and 4 decode steps within 1e-4;
@@ -154,6 +163,11 @@ KERNELS = {
     "ssd_scan": ("ssd_scan", "src/repro/kernels/ssd_scan.py:25")}
 N, P = 4, 1_639_705
 WIRE_BLOCK = 512
+# the device records of one quantized commit: its two kernels and the
+# int8 maxima array's memset
+QUANT_KERNELS = ("quant_merge_kernel", "Memset")
+QUANT_PASSES = ("quant_merge_kernel_max", "quant_merge_kernel_commit",
+                "Memset")
 
 
 def mma_counts(build, stems):
@@ -221,7 +235,7 @@ def time_ms(fn, iters=50, warm=20, repeats=7):
 TIMERS = {"profiler": 0, "events": 0, "traces_discarded": 0}
 
 
-def device_ms(fn, iters=200, warm=20, tries=4):
+def device_ms(fn, iters=200, warm=20, tries=4, match=None):
     """Device time per call: the CUDA kernels' own time summed over
     ``iters`` calls under ``torch.profiler``, over ``iters``. Where one call
     takes microseconds, CUDA events around back-to-back calls measure the
@@ -233,7 +247,10 @@ def device_ms(fn, iters=200, warm=20, tries=4):
     count is a whole multiple of ``iters``; otherwise it is discarded and
     the calls traced again. After ``tries`` discarded traces the time is
     taken with ``events_ms`` instead. ``TIMERS`` counts the readings of
-    each clock and the traces discarded."""
+    each clock and the traces discarded. With ``match`` (a string or a
+    tuple of them), only the kernels whose name holds one are summed (a
+    wrapper's own small copies left out); the CUDA-event fallback cannot
+    separate them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
@@ -246,7 +263,10 @@ def device_ms(fn, iters=200, warm=20, tries=4):
                 fn()
             torch.cuda.synchronize()
         cuda = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and (match is None or any(
+                    m in e.key for m in ((match,) if isinstance(match, str)
+                                         else match)))]
         if cuda and all(e.count % iters == 0 for e in cuda):
             TIMERS["profiler"] += 1
             return sum(e.self_device_time_total for e in cuda) / 1e3 / iters
@@ -406,7 +426,10 @@ def phase_quant_kernels(dev, bw, peak):
                         raise AssertionError(
                             f"{form} {wire} N={n}: committed differs from "
                             f"plain, max err {float((got - want).abs().max())}")
-            # time at the main-path shape, every gate accepting
+            # time at the main-path shape, every gate accepting: device
+            # time (profiler), CUDA events around back-to-back calls, and
+            # with L2 cold (a 64 MB buffer written before each call, as a
+            # round's local steps would leave it)
             grid = comms.wire_grid(layout, wire, WIRE_BLOCK, device=dev)
             x = torch.randn(N, P, device=dev, generator=gen)
             r = x + 0.01 * torch.randn(N, P, device=dev, generator=gen)
@@ -414,8 +437,14 @@ def phase_quant_kernels(dev, bw, peak):
             f = (torch.rand(N, P, device=dev, generator=gen) + 0.1
                  if imp_form else None)
             g = torch.ones(N, dtype=torch.bool, device=dev)
-            ms = time_ms(lambda: fm.fused_quant_merge_all(x, r, W, g, f,
-                                                          grid=grid))
+            call = lambda: fm.fused_quant_merge_all(x, r, W, g, f, grid=grid)
+            ms = device_ms(call, match=QUANT_KERNELS)
+            passes = ({k: device_ms(call, match=k) for k in QUANT_PASSES}
+                      if wire == "int8" else None)
+            ev_ms = time_ms(call)
+            flush = torch.empty(16 * 2 ** 20, device=dev)
+            cold_ms = device_ms(lambda: (flush.zero_(), call()), iters=50,
+                                match=QUANT_KERNELS)
             plain_ms = time_ms(lambda: fused_quant_merge_all_plain(
                 x, r, W, g, f, grid=grid), iters=10)
             # x and r (and f) read once, committed and r' written once; the
@@ -433,6 +462,8 @@ def phase_quant_kernels(dev, bw, peak):
             emit("kernel", name=form, wire=wire, shape=[N, P],
                  segments=int(grid.segments.shape[0]),
                  gathered=grid.perm is not None, kernel_ms=ms,
+                 passes_ms=passes, events_ms=ev_ms, cold_l2_ms=cold_ms,
+                 launch=fm.quant_launch_shape(grid, N),
                  **{k: v for k, v in row.items() if k != "ms"})
             if wire == "int8":      # the main path's wire
                 stats[form] = row
@@ -818,10 +849,13 @@ def phase_lora_kernel(dev, bw, peak):
         for name, fn in fns.items():
             out[label][f"{name}_ms"] = device_ms(fn)
             out[label][f"{name}_host_ms"] = time_ms(fn)
+    # the device time of a one-element kernel: what a launch costs at least
+    one = torch.empty(1, device=dev)
+    floor_ms = device_ms(one.zero_)
     emit("lora_kernel", shapes=[list(t) for t in LORA_SHAPES],
          max_abs_err_f32=max_err, grad_max_abs_err=grad_err,
-         timings=out, tolerance={"float32": 2e-5, "bfloat16": 2e-2,
-                                 "grad": 1e-5})
+         launch_floor_ms=floor_ms, timings=out,
+         tolerance={"float32": 2e-5, "bfloat16": 2e-2, "grad": 1e-5})
     zoo = out["zoo"]
     m, k, n, r = LORA_ZOO
     return {"lora_matmul": dict(
@@ -1186,12 +1220,17 @@ def phase_merge_one(dev, bw, peak):
                                  f"{float((got - want).abs().max())}")
     g = torch.tensor(True, device=dev)
     ms = device_ms(lambda: ops.merge_op(x, w, 0, g), iters=50)
+    # the gate and self_idx as Python values go to the kernel by value; as
+    # 0-d device tensors the kernel reads them: CUDA events around calls
+    # read the host's share too
+    host_ms = {"python": time_ms(lambda: ops.merge_op(x, w, 0, True)),
+               "device_tensor": time_ms(lambda: ops.merge_op(x, w, 0, g))}
     plain_ms = device_ms(lambda: fused_merge_ref(x, w, 0, g), iters=20)
     library_ms = device_ms(lambda: torch.where(g, w @ x, x[0]), iters=50)
     bms, by = bound((N + 1) * P * 4 + N * 4, 2 * N * P, bw, peak)
     emit("merge_one", shape=[N, P], launches=launches, kernel_ms=ms,
-         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by,
-         bit_equal=True)
+         events_ms=host_ms, plain_ms=plain_ms, library_ms=library_ms,
+         bound_ms=bms, bound_by=by, bit_equal=True)
     return ({"fused_merge": dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                                  library_ms=library_ms,
                                  tflops=tflops(2 * N * P, ms), bound_ms=bms,

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times this tree's flash attention and SSD scan kernels against an earlier
-tree's, in one run on one GPU.
+"""Times this tree's quantized-wire commit, LoRA matmul, flash attention and
+SSD scan kernels against an earlier tree's, in one run on one GPU.
 
     mkdir -p _archive/parent
     git archive <rev> src/repro_torch | tar -x -C _archive/parent
@@ -8,47 +8,68 @@ tree's, in one run on one GPU.
 
 ``<rev>`` is the commit to compare with (``HEAD`` while the change is not
 yet committed). Each tree's package is imported in turn and called through
-its own wrappers (``kernels.flash_attention.flash_attention`` and
-``kernels.ssd_scan.ssd_scan``, whose signatures every tree shares), so the
-earlier kernels run with their own C interfaces; each tree builds its
-kernels into its own ``csrc/build``. At Hymba-1.5B's prefill shapes (the
-serve phase's 256- and 2048-token prompts against its cache, bf16, both
-windows) and at Mamba2-370M's SSD shape (``chip_smoke.SSD_MODELS``), both
-are held against this tree's plain version, then timed in turns earlier,
-current, current, earlier: device time per call from ``torch.profiler``
-(``chip_smoke.device_ms``). Prints the card's name and power limit, then
-one JSON line per shape with the bound (``chip_smoke``'s); ``--out`` also
-writes the lines to a file. Imports nothing of the JAX package.
+its own wrappers (``kernels.fused_merge.fused_quant_merge_all`` on a wire
+grid built by its own ``core.comms.wire_grid``,
+``kernels.lora_matmul.lora_matmul``, ``kernels.flash_attention.
+flash_attention`` and ``kernels.ssd_scan.ssd_scan``, whose signatures every
+tree shares), so the earlier kernels run with their own C interfaces and
+tables; each tree builds its kernels into its own ``csrc/build``. Shapes:
+the quantized commit, both forms, at the paper CNN's layout (N = 4,
+``wire_block`` 512) on the int8 and the bf16 grid and at the model zoo's
+180-value payload (int8, ``wire_block`` 128); the LoRA matmul at the zoo
+head's three shapes and the reference's sweep shape (f32); flash at
+Hymba-1.5B's prefill shapes (the serve phase's 256- and 2048-token prompts
+against its cache, bf16, both windows); SSD at Hymba's and Mamba2-370M's
+(``chip_smoke.SSD_MODELS``). Both trees are held against this tree's plain
+version (the commit bit for bit), then timed in turns earlier, current,
+current, earlier: the kernel's own device time per call from
+``torch.profiler`` (``chip_smoke.device_ms``). Prints the card's name and
+power limit, then one JSON line per shape with the bound (``chip_smoke``'s);
+``--kernels`` picks kernels; ``--out`` also writes the lines to a file.
+Imports nothing of the JAX package.
 """
 import argparse
 import json
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 
 
-def wrappers(tree: Path):
-    """(flash_attention, ssd_scan) of the ``repro_torch`` package in
-    ``tree``, with both kernels built. The package's modules are taken out of
-    ``sys.modules`` before the import, so two trees load side by side: each
-    wrapper keeps its own module's globals."""
+KERNELS = ("quant", "lora", "flash", "ssd")
+
+
+def package(tree: Path):
+    """The ``repro_torch`` package in ``tree`` as a namespace of the modules
+    used here, with its kernels built. The package's modules are taken out
+    of ``sys.modules`` before the import, so two trees load side by side:
+    each wrapper keeps its own module's globals."""
     for name in [m for m in sys.modules
                  if m == "repro_torch" or m.startswith("repro_torch.")]:
         del sys.modules[name]
     src = str(tree / "src")
     sys.path.insert(0, src)
     try:
+        from repro_torch.configs.paper_histo import PAPER_FULL
+        from repro_torch.core import comms
+        from repro_torch.core.flat import FlatLayout
+        from repro_torch.experiments import histo
         from repro_torch.kernels import build
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import fused_merge as fm
+        from repro_torch.kernels import lora_matmul as lm
         from repro_torch.kernels import ssd_scan as ss
         if Path(build.__file__).resolve().parents[2] != Path(src).resolve():
             raise RuntimeError(f"no repro_torch package under {src}")
-        build.build(["flash_attention", "ssd_scan"])
+        build.build(["fused_quant_merge", "lora_matmul", "flash_attention",
+                     "ssd_scan"])
     finally:
         sys.path.remove(src)
-    return fa.flash_attention, ss.ssd_scan
+    paper = FlatLayout.of_module(histo._model(PAPER_FULL))
+    return SimpleNamespace(comms=comms, FlatLayout=FlatLayout, paper=paper,
+                           fm=fm, lm=lm, fa=fa, ss=ss)
 
 
 def main() -> int:
@@ -56,18 +77,29 @@ def main() -> int:
     ap.add_argument("--parent", type=Path, required=True,
                     help="an unpacked earlier tree holding src/repro_torch")
     ap.add_argument("--out", type=Path, help="also write the lines here")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help=f"comma-separated subset of {','.join(KERNELS)}")
     args = ap.parse_args()
+    todo = set(args.kernels.split(","))
+    if not todo <= set(KERNELS):
+        ap.error(f"--kernels: choose from {KERNELS}")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
-    old_fa, old_ss = wrappers(args.parent.resolve())
-    new_fa, new_ss = wrappers(ROOT)
+    old = package(args.parent.resolve())
+    new = package(ROOT)
+    old_fa, old_ss = old.fa.flash_attention, old.ss.ssd_scan
+    new_fa, new_ss = new.fa.flash_attention, new.ss.ssd_scan
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import (SERVE_MAX_LEN, SERVE_SEQ, SSD_MODELS,
-                            _flash_pairs, bound, card_rates, device_ms,
-                            ssd_bound, tflops)
-    from repro_torch.kernels.ref import flash_attention_plain, ssd_scan_plain
+    from chip_smoke import (LORA_SHAPES, LORA_SWEEP, N, QUANT_KERNELS,
+                            SERVE_MAX_LEN, SERVE_SEQ, SSD_MODELS, WIRE_BLOCK,
+                            _flash_pairs,
+                            _lora_bound, _lora_inputs, bound, card_rates,
+                            device_ms, ssd_bound, tflops)
+    from repro_torch.kernels.ref import (flash_attention_plain,
+                                         fused_quant_merge_all_plain,
+                                         lora_matmul_plain, ssd_scan_plain)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -79,22 +111,77 @@ def main() -> int:
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(5)
 
-    def compare(row, old, new, want, flops):
-        """Errors of both against ``want`` and their times in turns."""
+    def compare(row, old, new, want, flops, match=None, exact=False,
+                iters=30):
+        """Errors of both against ``want`` (``exact``: raise unless equal
+        bit for bit) and their times in turns."""
         errs = {}
         for tag, fn in (("parent", old), ("new", new)):
             got = fn()
             got = got if isinstance(got, tuple) else (got,)
+            torch.cuda.synchronize()
+            if exact and not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{tag} differs from plain: {row}")
             errs[tag] = [float((g.float() - w.float()).abs().max())
                          for g, w in zip(got, want)]
-        t = [device_ms(f, iters=30, warm=3) for f in (old, new, new, old)]
+        t = [device_ms(f, iters=iters, warm=3, match=match)
+             for f in (old, new, new, old)]
         row.update(max_abs_err=errs, parent_ms=[t[0], t[3]], ms=[t[1], t[2]],
                    tflops=tflops(flops, min(t[1:3])))
         lines.append(row)
         print(json.dumps(row), flush=True)
 
+    if "quant" in todo:
+        zoo = [("head/out/b", (3,)), ("head/out/w", (16, 3)),
+               ("head/proj/lora_A", (16, 4)), ("head/proj/lora_B", (4, 16)),
+               ("head/proj/lora_scale", ())]
+        for label, wire, block in (("paper", "int8", WIRE_BLOCK),
+                                   ("paper", "bf16", WIRE_BLOCK),
+                                   ("zoo", "int8", 128)):
+            grids = [pk.comms.wire_grid(
+                pk.paper if label == "paper" else pk.FlatLayout(zoo), wire,
+                block, device=dev) for pk in (old, new)]
+            d = grids[1].size
+            x = torch.randn(N, d, device=dev, generator=gen)
+            r = x + 0.01 * torch.randn(N, d, device=dev, generator=gen)
+            W = torch.full((N, N), 1.0 / N, device=dev)
+            g = torch.ones(N, dtype=torch.bool, device=dev)
+            for imp_form in (False, True):
+                f = (torch.rand(N, d, device=dev, generator=gen) + 0.1
+                     if imp_form else None)
+                nbytes = (5 if imp_form else 4) * N * d * 4 + N * N * 4 + N
+                flops = (4 * N * N * d + N * d if imp_form
+                         else 2 * N * N * d) + 10 * N * d
+                bms, by = bound(nbytes, flops, bw, peak)
+                row = dict(kernel="fused_quant_merge_all"
+                           + ("_imp" if imp_form else ""), payload=label,
+                           wire=wire, wire_block=block, shape=[N, d],
+                           bound_ms=bms, bound_by=by,
+                           launch=new.fm.quant_launch_shape(grids[1], N))
+                compare(row,
+                        lambda: old.fm.fused_quant_merge_all(
+                            x, r, W, g, f, grid=grids[0]),
+                        lambda: new.fm.fused_quant_merge_all(
+                            x, r, W, g, f, grid=grids[1]),
+                        fused_quant_merge_all_plain(x, r, W, g, f,
+                                                    grid=grids[1]),
+                        flops, match=QUANT_KERNELS, exact=True,
+                        iters=100)
+
+    if "lora" in todo:
+        for m, k, n, r in [s[:4] for s in LORA_SHAPES[:3]] + [LORA_SWEEP]:
+            a5 = _lora_inputs(dev, gen, m, k, n, r, "float32")
+            bms, by = _lora_bound(m, k, n, r, bw, peak)
+            compare(dict(kernel="lora_matmul", shape=[m, k, n, r],
+                         bound_ms=bms, bound_by=by),
+                    lambda: old.lm.lora_matmul(*a5),
+                    lambda: new.lm.lora_matmul(*a5),
+                    (lora_matmul_plain(*a5),),
+                    2 * m * n * k + 2 * m * k * r + 2 * m * r * n,
+                    match="lora", iters=200)
+
     h, hkv, d, t = 25, 5, 64, SERVE_MAX_LEN
-    for s in SERVE_SEQ:
+    for s in (SERVE_SEQ if "flash" in todo else ()):
         q = torch.randn(1, h, s, d, device=dev, generator=gen).bfloat16()
         k, v = (torch.randn(1, hkv, t, d, device=dev, generator=gen)
                 .bfloat16() for _ in range(2))
@@ -109,7 +196,8 @@ def main() -> int:
                     lambda: new_fa(q, k, v, window=w),
                     (flash_attention_plain(q, k, v, window=w),), flops)
 
-    for name, (b, s, hh, p, n, chunk) in SSD_MODELS:
+    for name, (b, s, hh, p, n, chunk) in (SSD_MODELS if "ssd" in todo
+                                          else ()):
         x = torch.randn(b, s, hh, p, device=dev, generator=gen).bfloat16()
         dt = torch.rand(b, s, hh, device=dev, generator=gen) * 0.1 + 0.05
         alog = torch.log(torch.linspace(1, 16, hh, device=dev))

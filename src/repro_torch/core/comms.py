@@ -17,10 +17,11 @@ stacked leaf per node, in its own element order, and cuts it into
 zero-padded, which never raises a max-abs). The port's state is one
 unpadded ``[N, P]`` buffer whose conv leaves are stored OIHW, while the
 reference's are HWIO. A :class:`WireGrid` maps every stored element to the
-reference's block it belongs to (``seg_id``), and lists each block's
-elements for the kernel (``perm`` + ``segments``). A grid taken over the
-whole buffer, or over the OIHW order, would group other elements into a
-block and give other scales.
+reference's block it belongs to (``seg_id``), lists each block's elements
+(``perm`` + ``segments``), and groups whole blocks into tiles of contiguous
+runs for the commit kernel. A grid taken over the whole buffer, or over the
+OIHW order, would group other elements into a block and give other
+scales.
 
 The schedule table and the per-link-class cost model are the reference's,
 line for line (pure Python); see its module docstring for the derivation.
@@ -338,16 +339,29 @@ def _size(layout) -> int:
 @dataclass(frozen=True)
 class WireGrid:
     """Where every stored element of ``[N, P]`` falls on the wire's block
-    grid, for one wire dtype.
+    grid, for one wire dtype, and the tile table the commit kernel walks.
 
     ``seg_id`` [P] int64: the block (segment) of each stored element — what
     the plain wire functions reduce over. ``segments`` [S, 2] int64
     ``(start, length ≤ wire_block)`` into ``perm``, and ``perm`` [P] int64
     the stored indices grouped by segment (ascending within one), or None
     when every segment is a contiguous range ``[start, start + length)`` of
-    the buffer — what the kernel walks, one thread block per segment. For
-    bf16/f32 wires (no scales) the grid is plain ``wire_block`` chunks of
-    the buffer and ``seg_id`` is None.
+    the buffer. For bf16/f32 wires (no scales) the grid is plain
+    ``wire_block`` chunks of the buffer and ``seg_id`` is None.
+
+    The int8 tile table (:func:`_tile_table`), what the commit kernel's
+    maxima pass walks: a tile is a set of at most ``TILE_SEGS`` whole
+    segments whose stored positions form contiguous runs of the buffer.
+    ``chunks`` [C + 1, 2] int64 ``(buffer start, tile-order offset)``: the
+    runs, tile by tile, cut into chunks of at most ``TILE_CHUNK`` values
+    (chunk k holds ``chunks[k + 1, 1] − chunks[k, 1]`` values; the last row
+    is a sentinel); ``pieces`` [Q, 4] int64 ``(first chunk, end chunk,
+    first entry in tile_segs, segments)``: each tile's chunks cut into
+    pieces of at most ``PIECE_CHUNKS``, one thread block each, in the order
+    of their first stored position; ``tile_segs`` [S] int32: the segments of each tile, ascending;
+    ``lseg`` [P] uint8: each stored element's segment as an index into its
+    tile's list; ``seg32`` [P] int32: ``seg_id`` for the commit pass;
+    ``max_segs`` the most segments in a tile. All None (0) for bf16/f32.
     """
 
     size: int
@@ -356,6 +370,164 @@ class WireGrid:
     segments: torch.Tensor
     perm: Optional[torch.Tensor]
     seg_id: Optional[torch.Tensor]
+    chunks: Optional[torch.Tensor] = None
+    pieces: Optional[torch.Tensor] = None
+    tile_segs: Optional[torch.Tensor] = None
+    lseg: Optional[torch.Tensor] = None
+    seg32: Optional[torch.Tensor] = None
+    max_segs: int = 0
+
+
+#: tile table sizes: a chunk (what one warp walks at a time), the segments
+#: of a tile (its maxima sit in one block's shared memory; uint8 local
+#: ids), and the chunks of a piece (one thread block's work)
+TILE_CHUNK = 128
+TILE_SEGS = 128
+PIECE_CHUNKS = 16
+
+
+def _runs_of(pos: torch.Tensor) -> torch.Tensor:
+    """Sorted stored positions → [k, 2] ``(start, length)`` maximal runs."""
+    brk = torch.nonzero(pos[1:] != pos[:-1] + 1).flatten() + 1
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64), brk])
+    ends = torch.cat([brk, torch.tensor([pos.numel()])])
+    return torch.stack([pos[starts], ends - starts], 1)
+
+
+def _leaf_atoms(off, shape, seg, wire_block):
+    """The smallest sets of whole segments of one leaf whose stored
+    positions form runs, in storage order: [(runs [k, 2], segments,
+    values)]. ``seg`` is the leaf's slice of ``seg_id``.
+
+    A conv leaf (O, I, H, W) is stored OIHW and blocked in HWIO order, so a
+    segment spans some input channels at one or more (h, w), for every
+    output channel. The leaf is cut between input channels c − 1 and c
+    wherever no segment holds channels on both sides; an i-slab between two
+    cuts holds whole segments and is, for each output channel, one run of
+    (channels × H × W) values. Consecutive slabs are merged while their
+    runs are shorter than 32 values and the segment cap allows. A
+    leaf with no cut is one slab, one run. A slab of more than
+    ``TILE_SEGS`` segments is split into its segments, whose runs may be
+    short. Any other leaf is contiguous: each segment is one run."""
+    size = 1
+    for d in shape:
+        size *= d
+    if len(shape) != 4:
+        return [(torch.tensor([[off + b, min(wire_block, size - b)]]), 1,
+                 min(wire_block, size - b))
+                for b in range(0, size, wire_block)]
+    o, i, h, w = shape
+    hw = h * w
+    rel = seg - seg.min()
+    count = torch.bincount(rel)                    # values per segment
+    nseg = len(count)
+    ch = torch.arange(i).view(1, i, 1).expand(o, i, hw).reshape(-1)
+    lo = torch.full((nseg,), i, dtype=torch.int64).scatter_reduce(
+        0, rel, ch, "amin")
+    hi = torch.zeros(nseg, dtype=torch.int64).scatter_reduce(
+        0, rel, ch, "amax")
+    # a cut at c is blocked by every segment with lo < c <= hi
+    cover = torch.zeros(i + 2, dtype=torch.int64)
+    cover.index_add_(0, lo + 1, torch.ones(nseg, dtype=torch.int64))
+    cover.index_add_(0, hi + 1, -torch.ones(nseg, dtype=torch.int64))
+    free = torch.cumsum(cover, 0) == 0
+    lo, free, count = lo.tolist(), free.tolist(), count.tolist()  # noqa: SWL002 — CPU tensors, read once per layout when the grid is built
+    cuts = [0] + [c for c in range(1, i) if free[c]] + [i]
+    starting = [0] * i                             # segments by first channel
+    for c in lo:
+        starting[c] += 1
+    slabs = []                                 # [first channel, end, segs]
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        segs = sum(starting[a:b])
+        if slabs:
+            pa, _, psegs = slabs[-1]
+            if psegs + segs <= TILE_SEGS and (a - pa) * hw < 32:
+                slabs[-1] = [pa, b, psegs + segs]
+                continue
+        slabs.append([a, b, segs])
+    atoms = []
+    for a, b, segs in slabs:
+        if segs <= TILE_SEGS:
+            starts = off + (torch.arange(o) * i + a) * hw
+            atoms.append((torch.stack(
+                [starts, torch.full((o,), (b - a) * hw)], 1), segs,
+                o * (b - a) * hw))
+            continue
+        order = torch.argsort(rel, stable=True)
+        for k, pos in enumerate(torch.split(order, count)):
+            if a <= lo[k] < b:
+                atoms.append((_runs_of(off + pos), 1, len(pos)))
+    return atoms
+
+
+def _tile_table(layout, seg_id, wire_block, size):
+    """Group the leaves' atoms, in storage order, into tiles of at most
+    ``TILE_SEGS`` segments, merge the runs of a tile that touch, cut them
+    into chunks and the chunks into pieces. Returns the WireGrid's tile
+    fields."""
+    if isinstance(layout, FlatLayout):
+        specs = [(lf.offset, lf.shape, lf.size)
+                 for lf in sorted(layout.leaves, key=lambda lf: lf.offset)]
+    else:
+        specs = [(0, (size,), size)]
+    tiles, cur, cur_segs = [], [], 0
+    for off, shape, n in specs:
+        for runs, segs, values in _leaf_atoms(off, shape, seg_id[off:off + n],
+                                              wire_block):
+            # a leaf's tail of fewer than 8 values joins the tile before it
+            tail = values < 8 and cur_segs + segs <= TILE_SEGS
+            if cur and not tail and cur_segs + segs > TILE_SEGS:
+                tiles.append((cur, cur_segs))
+                cur, cur_segs = [], 0
+            cur.append(runs)
+            cur_segs += segs
+    tiles.append((cur, cur_segs))
+    starts, cum, pieces, tile_chunks, seg_base = [], [0], [], [], 0
+    for runs, segs in tiles:
+        runs = torch.cat(runs)
+        runs = runs[torch.argsort(runs[:, 0])].tolist()  # noqa: SWL002 — CPU tensors, read once per layout when the grid is built
+        merged = [runs[0]]
+        for st, ln in runs[1:]:
+            if merged[-1][0] + merged[-1][1] == st:
+                merged[-1][1] += ln
+            else:
+                merged.append([st, ln])
+        first = len(starts)
+        for st, ln in merged:
+            for c in range(0, ln, TILE_CHUNK):
+                starts.append(st + c)
+                cum.append(cum[-1] + min(TILE_CHUNK, ln - c))
+        nc = len(starts) - first
+        tile_chunks.append(nc)
+        k = -(-nc // PIECE_CHUNKS)
+        bounds = [first + nc * q // k for q in range(k + 1)]
+        pieces += [(a, b, seg_base, segs) for a, b in
+                   zip(bounds[:-1], bounds[1:])]
+        seg_base += segs
+    chunks = torch.tensor([starts + [0], cum], dtype=torch.int64).T
+    # pieces in the order of their first stored position: blocks that run
+    # together read neighbouring stretches of each row (the i-slabs of one
+    # conv interleave in storage)
+    pieces.sort(key=lambda pc: starts[pc[0]])
+    lens = chunks[1:, 1] - chunks[:-1, 1]
+    pos = (torch.repeat_interleave(chunks[:-1, 0] - chunks[:-1, 1], lens)
+           + torch.arange(size))
+    # the tile of every stored element, then each tile's segments ascending
+    tile_of_chunk = torch.repeat_interleave(torch.arange(len(tiles)),
+                                            torch.tensor(tile_chunks))
+    nseg = len(torch.bincount(seg_id))
+    seg_tile = torch.empty(nseg, dtype=torch.int64)
+    seg_tile[seg_id[pos]] = torch.repeat_interleave(tile_of_chunk, lens)
+    order = torch.argsort(seg_tile * nseg + torch.arange(nseg))
+    grouped = seg_tile[order]
+    local = torch.empty(nseg, dtype=torch.int64)
+    local[order] = torch.arange(nseg) - torch.searchsorted(grouped, grouped)
+    return dict(chunks=chunks.contiguous(),
+                pieces=torch.tensor(pieces, dtype=torch.int64),
+                tile_segs=order.to(torch.int32),
+                lseg=local[seg_id].to(torch.uint8),
+                seg32=seg_id.to(torch.int32),
+                max_segs=max(segs for _, segs in tiles))
 
 
 def wire_grid(layout: "FlatLayout | int", wire_dtype: str, wire_block: int,
@@ -379,9 +551,12 @@ def wire_grid(layout: "FlatLayout | int", wire_dtype: str, wire_block: int,
     segs = torch.stack([torch.cumsum(counts, 0) - counts, counts], 1)
     perm = (None if (seg_id[1:] >= seg_id[:-1]).all()
             else torch.argsort(seg_id, stable=True))
+    table = _tile_table(layout, seg_id, wire_block, p)
+    max_segs = table.pop("max_segs")
     return WireGrid(p, wire_dtype, wire_block, segs.to(device),
                     None if perm is None else perm.to(device),
-                    seg_id.to(device))
+                    seg_id.to(device), max_segs=max_segs,
+                    **{k: v.to(device) for k, v in table.items()})
 
 
 # ---------------------------------------------------------------------------

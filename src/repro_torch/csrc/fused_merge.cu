@@ -37,7 +37,9 @@
 //
 // Bound: memory, (N + 1)*D*4 bytes for f32. Same design, one output row:
 // a thread per column, the weights in shared memory, the gate and self_idx
-// read on the device (no host synchronization), the sum f32 in j order
+// taken by value when the caller has them on the host, else read on the
+// device (a 0-d device tensor: no host synchronization), the sum f32 in j
+// order
 // with separately rounded multiplies and adds (bit-equal to
 // kernels/ref.py::fused_merge_plain), a rejected gate storing row self_idx
 // itself.
@@ -159,13 +161,13 @@ int dispatch(const void* x, const void* imp, const void* W, const void* gates,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 merge_one_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                 const int32_t* __restrict__ gate_self, T* __restrict__ out,
-                 int n, int64_t d) {
+                 const int32_t* __restrict__ gate_self, int gate_value,
+                 int self_value, T* __restrict__ out, int n, int64_t d) {
   __shared__ float sw[64];
   for (int k = threadIdx.x; k < n; k += blockDim.x) sw[k] = w[k];
   __syncthreads();
-  const bool gate = gate_self[0] != 0;
-  const int64_t self_row = gate_self[1];
+  const bool gate = (gate_self != nullptr ? gate_self[0] : gate_value) != 0;
+  const int64_t self_row = gate_self != nullptr ? gate_self[1] : self_value;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t col = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
@@ -185,13 +187,15 @@ merge_one_kernel(const T* __restrict__ x, const float* __restrict__ w,
 
 template <typename T>
 int launch_one(const void* x, const void* w, const void* gate_self,
-               void* out, int n, int64_t d, cudaStream_t stream) {
+               int gate, int self_idx, void* out, int n, int64_t d,
+               cudaStream_t stream) {
   const int64_t want = (d + kThreads - 1) / kThreads;
   const unsigned blocks = static_cast<unsigned>(want < 2147483647 ? want
                                                                   : 2147483647);
   merge_one_kernel<T><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const int32_t*>(gate_self), static_cast<T*>(out), n, d);
+      static_cast<const int32_t*>(gate_self), gate, self_idx,
+      static_cast<T*>(out), n, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -199,16 +203,23 @@ int launch_one(const void* x, const void* w, const void* gate_self,
 
 // Plain C entry point (bound with ctypes) of the one-node commit. x: [n, d]
 // row-major, f32 (dtype 0) or bf16 (dtype 1); w: [n] f32; gate_self: [2]
-// int32 on the device, (gate, self_idx); out: [d]. Launches on `stream`,
-// does not synchronize, and returns cudaGetLastError() (0 on success).
+// int32 on the device, (gate, self_idx), read by the kernel, or null, and
+// then `gate` and `self_idx` are taken by value; out: [d]. Launches on
+// `stream`, does not synchronize, and returns cudaGetLastError() (0 on
+// success).
 extern "C" int fused_merge_launch(const void* x, const void* w,
-                                  const void* gate_self, void* out, int n,
+                                  const void* gate_self, int gate,
+                                  int self_idx, void* out, int n,
                                   long long d, int dtype, void* stream) {
-  if (n < 1 || n > 64 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > 64 || d < 1 ||
+      (gate_self == nullptr && (self_idx < 0 || self_idx >= n)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_one<float>(x, w, gate_self, out, n, d, s);
+  if (dtype == 0)
+    return launch_one<float>(x, w, gate_self, gate, self_idx, out, n, d, s);
   if (dtype == 1)
-    return launch_one<__nv_bfloat16>(x, w, gate_self, out, n, d, s);
+    return launch_one<__nv_bfloat16>(x, w, gate_self, gate, self_idx, out, n,
+                                     d, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -19,9 +19,11 @@ Its quantized-wire sibling :func:`fused_quant_merge_all` replaces
 ``_quant_merge_imp_kernel``): the error-feedback wire advance
 ``r' = r + deq(q(x − r))`` on the per-leaf block grid of
 :class:`repro_torch.core.comms.WireGrid`, then the same gated merge of r',
-in one launch of ``csrc/fused_quant_merge.cu``. Bound: memory — x and r
-(and imp) read once, committed and r' written once: 4·N·P·4 bytes
-(5·N·P·4 with ``imp``).
+in ``csrc/fused_quant_merge.cu``: on the int8 wire a maxima pass over the
+grid's tile table and a commit pass in storage order (one block per
+segment for both when every segment is contiguous), on bf16/f32 the
+commit pass alone. Bound: memory — x and r (and imp) read once, committed
+and r' written once: 4·N·P·4 bytes (5·N·P·4 with ``imp``).
 
 :func:`fused_merge` is the one-node commit (the reference's
 ``fused_merge``, body ``_merge_kernel``, reached through
@@ -64,9 +66,9 @@ def _lib():
 def _one_lib():
     fn = build.load("fused_merge").fused_merge_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int,
-                                               ctypes.c_longlong, ctypes.c_int,
-                                               ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -75,11 +77,30 @@ def _quant_lib():
     lib = build.load("fused_quant_merge")
     fn = lib.fused_quant_merge_all_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 14 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong] + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def quant_launch_shape(grid, n: int) -> dict:
+    """How ``fused_quant_merge_all`` launches on ``grid`` for N = ``n``: the
+    tiles, and the thread blocks and dynamic shared memory (bytes) of the
+    int8 maxima pass (one block per piece of a tile) and of the commit pass
+    (a block per 256 columns; on an int8 grid of contiguous segments, one
+    block per segment for both passes)."""
+    base = (n * n + n) * 4
+    if grid.wire_dtype != "int8":
+        return dict(max_blocks=0, commit_blocks=-(-grid.size // 256),
+                    max_smem_bytes=0, commit_smem_bytes=0)
+    if grid.perm is None:
+        return dict(max_blocks=0, commit_blocks=int(grid.segments.shape[0]),
+                    max_smem_bytes=0, commit_smem_bytes=base + 9 * n * 4)
+    return dict(tiles=len(torch.unique(grid.pieces[:, 2])),
+                max_blocks=int(grid.pieces.shape[0]),
+                commit_blocks=-(-grid.size // 256),
+                max_smem_bytes=grid.max_segs * n * 4, commit_smem_bytes=0)
 
 
 def fused_merge_all(stacked: torch.Tensor, W, gates, imp=None) -> torch.Tensor:
@@ -131,9 +152,10 @@ def fused_merge(stacked: torch.Tensor, weights, self_idx, gate
                 ) -> torch.Tensor:
     """One node's commit: stacked [N, D] (f32 or bf16) → [D] in the same
     dtype, ``gate ? Σ_j weights[j]·θ_j : θ_self``. ``weights`` [N] (taken
-    as f32); ``self_idx`` and ``gate`` are ints/bools or 0-d tensors, read
-    on the device by the kernel. A rejected gate returns row ``self_idx``
-    bit for bit."""
+    as f32); ``self_idx`` and ``gate`` are ints/bools, passed to the kernel
+    by value, or 0-d tensors, read on the device by the kernel (no host
+    synchronization). A rejected gate returns row ``self_idx`` bit for
+    bit."""
     if stacked.dim() != 2:
         raise ValueError(f"stacked must be [N, D], got {tuple(stacked.shape)}")
     n, d = stacked.shape
@@ -153,14 +175,22 @@ def fused_merge(stacked: torch.Tensor, weights, self_idx, gate
     wd = torch.as_tensor(weights, dtype=torch.float32, device=dev).contiguous()
     if wd.shape != (n,):
         raise ValueError(f"weights must be [{n}], got {tuple(wd.shape)}")
-    if isinstance(self_idx, int) and not 0 <= self_idx < n:
-        raise ValueError(f"self_idx {self_idx} outside 0..{n - 1}")
-    gs = torch.stack([torch.as_tensor(gate, device=dev).reshape(()).to(
-                          torch.int32),
-                      torch.as_tensor(self_idx, device=dev).reshape(()).to(
-                          torch.int32)])
+    on_host = not (isinstance(gate, torch.Tensor)
+                   or isinstance(self_idx, torch.Tensor))
+    if on_host:
+        # Python values go to the kernel by value: no copy to the card
+        gate_v, self_v, gs = int(bool(gate)), int(self_idx), None
+        if not 0 <= self_v < n:
+            raise ValueError(f"self_idx {self_v} outside 0..{n - 1}")
+    else:
+        gate_v = self_v = 0
+        gs = torch.stack([torch.as_tensor(gate, device=dev).reshape(()).to(
+                              torch.int32),
+                          torch.as_tensor(self_idx, device=dev).reshape(()).to(
+                              torch.int32)])
     out = torch.empty(d, dtype=stacked.dtype, device=dev)
-    err = _one_lib()(stacked.data_ptr(), wd.data_ptr(), gs.data_ptr(),
+    err = _one_lib()(stacked.data_ptr(), wd.data_ptr(),
+                     None if gs is None else gs.data_ptr(), gate_v, self_v,
                      out.data_ptr(), n, d, _DTYPES[stacked.dtype],
                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -182,7 +212,8 @@ def fused_quant_merge_all(x: torch.Tensor, r: torch.Tensor, W, gates,
     reference θ̂ (both f32) → ``(committed [N, D], new reference [N, D])``.
 
     ``grid`` is the :class:`~repro_torch.core.comms.WireGrid` of the
-    payload (its wire dtype, block size and segment table, on x's device).
+    payload (its wire dtype, block size, segment and tile tables, on x's
+    device).
     ``W`` [N, N] mixing rows, ``gates`` [N] acceptance bits, ``imp``
     optional [N, D] f32 importance. Rejected rows are x, bit for bit; the
     reference advances for every row.
@@ -210,22 +241,39 @@ def fused_quant_merge_all(x: torch.Tensor, r: torch.Tensor, W, gates,
     if Wd.shape != (n, n) or gd.shape != (n,):
         raise ValueError(f"W must be [{n}, {n}] and gates [{n}], got "
                          f"{tuple(Wd.shape)} and {tuple(gd.shape)}")
-    segs, perm = grid.segments, grid.perm
-    for name, t in (("grid.segments", segs), ("grid.perm", perm)):
-        if t is not None and (t.device != dev or t.dtype != torch.int64
-                              or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous int64 tensor "
-                             f"on {dev}")
-    if segs.dim() != 2 or segs.shape[1] != 2 or (perm is not None
-                                                 and perm.shape != (d,)):
-        raise ValueError("grid.segments must be [S, 2] and grid.perm [D]")
+    int8 = grid.wire_dtype == "int8"
+    tables = (("segments", torch.int64), ("pieces", torch.int64),
+              ("chunks", torch.int64), ("tile_segs", torch.int32),
+              ("lseg", torch.uint8), ("seg32", torch.int32))
+    for name, want in tables[:None if int8 else 1]:
+        t = getattr(grid, name)
+        if t is None or t.device != dev or t.dtype != want \
+                or not t.is_contiguous():
+            raise ValueError(f"grid.{name} must be a contiguous {want} "
+                             f"tensor on {dev}")
+    nseg = int(grid.segments.shape[0])
+    if int8 and (grid.pieces.dim() != 2 or grid.pieces.shape[1] != 4
+                 or grid.chunks.dim() != 2 or grid.chunks.shape[1] != 2
+                 or grid.tile_segs.shape != (nseg,)
+                 or grid.lseg.shape != (d,) or grid.seg32.shape != (d,)):
+        raise ValueError("grid.pieces must be [Q, 4], grid.chunks [C + 1, 2], "
+                         "grid.tile_segs [S] and grid.lseg, grid.seg32 [D]")
+    gmax = (torch.empty(nseg * n, dtype=torch.int32, device=dev)
+            if int8 and grid.perm is not None else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     out = torch.empty_like(x)
     new_ref = torch.empty_like(x)
+    contiguous = int8 and grid.perm is None
     err = _quant_lib()(
-        x.data_ptr(), r.data_ptr(), None if imp is None else imp.data_ptr(),
-        Wd.data_ptr(), gd.data_ptr(), segs.data_ptr(),
-        None if perm is None else perm.data_ptr(), out.data_ptr(),
-        new_ref.data_ptr(), segs.shape[0], n, d, _WIRES[grid.wire_dtype],
+        x.data_ptr(), r.data_ptr(), ptr(imp), Wd.data_ptr(), gd.data_ptr(),
+        grid.segments.data_ptr() if int8 else None, ptr(grid.pieces),
+        ptr(grid.chunks), ptr(grid.tile_segs), ptr(grid.lseg),
+        ptr(grid.seg32), ptr(gmax), out.data_ptr(), new_ref.data_ptr(),
+        grid.pieces.shape[0] if int8 else 0, n, d, _WIRES[grid.wire_dtype],
+        nseg, grid.max_segs, int(contiguous),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_quant_merge_all launch failed: CUDA error "

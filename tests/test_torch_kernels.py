@@ -123,10 +123,26 @@ def test_kernel_input_checks_on_card():
 # leaf whose blocks (HWIO order) are scattered over its OIHW storage
 LAYOUT = FlatLayout([("b", (300,)), ("conv", (16, 8, 3, 3)), ("a", (6, 9)),
                      ("c", (3, 5, 2))])
-QCASES = [(4, LAYOUT), (4, 100_003), (64, 777), (5, LAYOUT), (2, 128)]
+# (N, layout, wire_block): the cases above on the 128 grid, then the paper
+# CNN's own layout at the main path's 512 (the four 3x3 convs that cannot
+# be cut are whole-leaf tiles over many blocks), a wide 1x1 conv, and at
+# N = 64 a conv that cannot be cut: one tile of 122 segments, whose maxima
+# (x 64 rows) fill nearly the most shared memory a maxima block takes,
+# merged across many blocks
+WIDE = FlatLayout([("w", (96, 40, 1, 1)), ("b", (96,))])
+BIG = FlatLayout([("conv", (32, 216, 3, 3)), ("bias", (32,))])
+QCASES = [(4, LAYOUT, 128), (4, 100_003, 128), (64, 777, 128),
+          (5, LAYOUT, 128), (2, 128, 128), (4, "paper", 512),
+          (5, WIDE, 512), (64, BIG, 512)]
 
 
-def _quant_inputs(n, layout, wire, with_imp, device, seed=0):
+def _paper_layout():
+    from repro_torch.configs.paper_histo import PAPER_FULL
+    from repro_torch.experiments import histo
+    return FlatLayout.of_module(histo._model(PAPER_FULL))
+
+
+def _quant_inputs(n, layout, wire, with_imp, device, seed=0, block=128):
     rng = np.random.default_rng(seed)
     d = layout.size if isinstance(layout, FlatLayout) else layout
     x = torch.from_numpy(rng.normal(0, 1, (n, d)).astype(np.float32))
@@ -134,7 +150,7 @@ def _quant_inputs(n, layout, wire, with_imp, device, seed=0):
     W = torch.from_numpy(rng.dirichlet(np.ones(n), size=n).astype(np.float32))
     f = (torch.from_numpy(np.abs(rng.normal(1, 0.4, (n, d))).astype(np.float32))
          if with_imp else None)
-    grid = comms.wire_grid(layout, wire, 128, device=device)
+    grid = comms.wire_grid(layout, wire, block, device=device)
     return (x.to(device), r.to(device), W.to(device),
             None if f is None else f.to(device), grid, rng)
 
@@ -161,13 +177,15 @@ def test_quant_plain_form_semantics_on_cpu():
 
 @pytest.mark.parametrize("wire", ["int8", "bf16", "f32"])
 @pytest.mark.parametrize("with_imp", [False, True])
-@pytest.mark.parametrize("n,layout", QCASES,
+@pytest.mark.parametrize("n,layout,block", QCASES,
                          ids=lambda v: "layout" if isinstance(v, FlatLayout)
                          else str(v))
-def test_quant_kernel_matches_plain_on_card(n, layout, wire, with_imp):
+def test_quant_kernel_matches_plain_on_card(n, layout, wire, with_imp, block):
     dev = _cuda()
+    if layout == "paper":
+        layout = _paper_layout()
     x, r, W, f, grid, rng = _quant_inputs(n, layout, wire, with_imp, dev,
-                                          seed=n)
+                                          seed=n, block=block)
     name = "fused_quant_merge_all_imp" if with_imp else "fused_quant_merge_all"
     for gates in (torch.ones(n, dtype=torch.bool),
                   torch.zeros(n, dtype=torch.bool),
@@ -208,7 +226,15 @@ LORA_CASES = [(8, 16, 16, 4, torch.float32), (20, 16, 16, 4, torch.float32),
               (128, 1024, 256, 64, torch.float32),
               (256, 256, 256, 16, torch.bfloat16),
               (37, 70, 45, 3, torch.float32), (33, 65, 31, 128, torch.float32),
-              (37, 70, 45, 5, torch.bfloat16), (1, 1, 1, 1, torch.float32)]
+              (37, 70, 45, 5, torch.bfloat16), (1, 1, 1, 1, torch.float32),
+              # the small body's bounds (K <= 16, r <= 4, N <= 32) and one
+              # step past each, several row blocks, bf16 at the zoo shape;
+              # the large body with more column tiles than a cluster's 8,
+              # and with fewer xa columns than blocks
+              (64, 16, 32, 4, torch.float32), (300, 16, 16, 4, torch.float32),
+              (8, 16, 16, 4, torch.bfloat16), (64, 17, 16, 4, torch.float32),
+              (64, 16, 33, 4, torch.float32), (64, 16, 16, 5, torch.float32),
+              (40, 64, 600, 8, torch.float32), (37, 70, 300, 3, torch.float32)]
 
 
 def _lora_tol(dtype):
@@ -361,6 +387,12 @@ def test_merge_one_kernel_matches_plain_on_card(n, d, dtype):
         assert got.dtype == dtype and got.shape == (d,)
         assert torch.equal(got, want)        # the same arithmetic, in order
     assert torch.equal(fm.fused_merge(x, w, 0, False), x[0])
+    # self_idx and gate by value (Python) and read on the device (0-d)
+    for gate in (False, torch.tensor(False, device=dev)):
+        for idx in (n - 1, torch.tensor(n - 1, device=dev)):
+            assert torch.equal(fm.fused_merge(x, w, idx, gate), x[n - 1])
+    with pytest.raises(ValueError, match="self_idx"):
+        fm.fused_merge(x, w, n, True)
 
 
 # -- flash attention ----------------------------------------------------------
