@@ -17,10 +17,12 @@ Phases, each printing one JSON line:
                  row bit-equal; rejected rows bit-equal for both), and at the
                  main-path shape its time beside the plain version, a
                  one-call library yardstick where one exists, and the card's
-                 bound; the quantized commit on the int8 and the bf16 grid
-                 by its own device time (profiler; on int8 also by pass:
-                 maxima, commit, memset), by CUDA events, and with L2 cold
-                 (64 MB written before each call), with its launch
+                 bound; both commits (the quantized one on the int8 and the
+                 bf16 grid) by their own device time (profiler; the quantized
+                 int8 one also by pass: maxima, commit, memset), by CUDA
+                 events behind a sleep (``events_ms``), with L2 cold (64 MB
+                 written before each call), and by the host's rate of
+                 back-to-back calls; the quantized commit with its launch
                  shape (tiles, and each pass's thread blocks and shared
                  memory per block);
   4. histo       the main path: ``run_experiment`` at the paper's full width
@@ -41,6 +43,22 @@ Phases, each printing one JSON line:
                  set deterministic for the round);
   9. parity      one small round on the card against the same round on the
                  CPU (plain commit, CPU convs), TF32 off, params at 1e-4;
+  9b. faults     the fault plane at the same width on the int8 wire
+                 (fedavg/full, quorum 2, 2 steps a round at batch 16):
+                 ``run_plan`` over a 7-round plan of seed 7 (crash node 1 at
+                 round 1, back at 3; straggle node 3 at 3; drop node 0 at 4;
+                 corrupt node 2 at 5; preempt at 6); every inactive gate
+                 off, ``wire_ok`` false only for node 2 in round 5, whose
+                 committed row is its pre-sync row bit for bit, round 5's
+                 flip pattern on the card equal to the same call on the CPU,
+                 the preempted run equal to a twin without the preempt bit
+                 for bit (cuDNN deterministic), one quantized commit a round
+                 and no f32 commit; the wall time of every round, the sync's
+                 time with idle and armed signals beside a plain sync, the
+                 device time of a checksum and of an armed flip; then two
+                 rounds of a fisher/ring session whose train step returns
+                 its gradient (the true-Fisher 4-tuple): one quantized imp
+                 commit a round, stats finite and non-zero;
  10. lora_kernel the fused LoRA matmul against its plain version on the card
                  (the reference's tolerance: 2e-5 f32, 2e-2 bf16) at the
                  zoo head's train, validation and test shapes, the
@@ -117,7 +135,7 @@ Phases, each printing one JSON line:
  18. kernels     the per-kernel summary line (each kernel's achieved
                  TFLOP/s among its numbers), then the ``ok`` line.
 
-The kernel phases (3, 10, 12-14) run before the paths 4-9 and 11: in a
+The kernel phases (3, 10, 12-14) run before the paths 4-9b and 11: in a
 process that has run those paths, most of ``torch.profiler``'s traces on
 the H100 lose kernel records, and ``device_ms`` would fall back to CUDA
 events.
@@ -356,7 +374,17 @@ def phase_kernels(dev, bw, peak):
         W = torch.full((N, N), 1.0 / N, device=dev)
         f = torch.rand(N, P, device=dev, generator=gen) + 0.1 if imp_form else None
         g = torch.ones(N, dtype=torch.bool, device=dev)
-        ms = time_ms(lambda: fm.fused_merge_all(x, W, g, f))
+        # the kernel's own device time (profiler; the wrapper's gate cast
+        # left out), CUDA events behind a sleep, with L2 cold (a 64 MB
+        # buffer written before each call: x alone is 26 MB), and the
+        # host's rate of back-to-back calls
+        call = lambda: fm.fused_merge_all(x, W, g, f)
+        ms = device_ms(call, match="merge_all_kernel")
+        ev_ms = events_ms(call)
+        flush = torch.empty(16 * 2 ** 20, device=dev)
+        cold_ms = device_ms(lambda: (flush.zero_(), call()), iters=50,
+                            match="merge_all_kernel")
+        host_ms = time_ms(call)
         plain_ms = time_ms(lambda: fused_merge_all_plain(x, W, g, f), iters=20)
         if imp_form:
             lib = lambda: torch.where(g[:, None], (W @ (f * x))
@@ -375,6 +403,7 @@ def phase_kernels(dev, bw, peak):
                            bound_by="bytes" if bytes_ms >= flops_ms
                            else "operations")
         emit("kernel", name=form, shape=[N, P], kernel_ms=ms,
+             events_ms=ev_ms, cold_l2_ms=cold_ms, host_rate_ms=host_ms,
              **{k: v for k, v in stats[form].items() if k != "ms"})
     return stats
 
@@ -427,9 +456,10 @@ def phase_quant_kernels(dev, bw, peak):
                             f"{form} {wire} N={n}: committed differs from "
                             f"plain, max err {float((got - want).abs().max())}")
             # time at the main-path shape, every gate accepting: device
-            # time (profiler), CUDA events around back-to-back calls, and
-            # with L2 cold (a 64 MB buffer written before each call, as a
-            # round's local steps would leave it)
+            # time (profiler), CUDA events behind a sleep, with L2 cold (a
+            # 64 MB buffer written before each call, as a round's local
+            # steps would leave it), and the host's rate of back-to-back
+            # calls
             grid = comms.wire_grid(layout, wire, WIRE_BLOCK, device=dev)
             x = torch.randn(N, P, device=dev, generator=gen)
             r = x + 0.01 * torch.randn(N, P, device=dev, generator=gen)
@@ -441,7 +471,8 @@ def phase_quant_kernels(dev, bw, peak):
             ms = device_ms(call, match=QUANT_KERNELS)
             passes = ({k: device_ms(call, match=k) for k in QUANT_PASSES}
                       if wire == "int8" else None)
-            ev_ms = time_ms(call)
+            ev_ms = events_ms(call)
+            host_ms = time_ms(call)
             flush = torch.empty(16 * 2 ** 20, device=dev)
             cold_ms = device_ms(lambda: (flush.zero_(), call()), iters=50,
                                 match=QUANT_KERNELS)
@@ -463,6 +494,7 @@ def phase_quant_kernels(dev, bw, peak):
                  segments=int(grid.segments.shape[0]),
                  gathered=grid.perm is not None, kernel_ms=ms,
                  passes_ms=passes, events_ms=ev_ms, cold_l2_ms=cold_ms,
+                 host_rate_ms=host_ms,
                  launch=fm.quant_launch_shape(grid, N),
                  **{k: v for k, v in row.items() if k != "ms"})
             if wire == "int8":      # the main path's wire
@@ -751,6 +783,254 @@ def phase_parity(dev):
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     emit("parity", max_abs_err=out)
+
+
+# the fault phase's plan at N = 4: rounds, local steps a round, the corrupt
+# sync and its sender
+FAULT_ROUNDS, FAULT_T, CORRUPT_ROUND, CORRUPT_NODE = 7, 2, 5, 2
+
+
+def _fault_plan(preempt=True):
+    from repro_torch.faults import FaultPlan
+    plan = (FaultPlan(N, FAULT_ROUNDS, seed=7)
+            .crash(1, at=1, rejoin=3)
+            .straggle(3, at=3)
+            .drop(0, at=4)
+            .corrupt(CORRUPT_NODE, at=CORRUPT_ROUND))
+    return plan.preempt(at=6) if preempt else plan
+
+
+def _true_fisher_step(ecfg, model, layout):
+    """The protocol's train step (`experiments.histo`) returning its
+    gradient as a 4th output: the true-Fisher hook's 4-tuple."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.cnn import bce_loss, forward_cnn, one_hot
+    from repro_torch.optim import adamw_update, make_schedule
+
+    tc = TrainConfig(lr=ecfg.lr, warmup_steps=20, max_steps=ecfg.steps,
+                     weight_decay=1e-4, schedule="cosine")
+    sched = make_schedule(tc)
+
+    def loss(flat, x, y):
+        return bce_loss(forward_cnn(model, layout.unflatten(flat), x),
+                        one_hot(y, 3))
+
+    def step(params, opt_state, batch, s):
+        x, y = batch
+        g, l = torch.func.grad_and_value(loss)(params, x, y)
+        params, opt_state = adamw_update(params, g, opt_state, tc,
+                                         sched(opt_state["count"]))
+        return params, opt_state, {"loss": l}, g
+
+    return step
+
+
+def phase_faults(dev, smi):
+    """The fault plane on the int8 wire at paper width: ``run_plan`` over a
+    7-round plan (crash + rejoin, straggle, drop, a corrupt sender, a
+    preempt), checked against the plan and against a twin without the
+    preempt, bit for bit; then the sync's time with idle and armed signals
+    beside a plain one, and two rounds of a true-Fisher session. ``smi``:
+    the card's name and power limit, printed beside the times."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.configs.base import SwarmConfig
+    from repro_torch.configs.paper_histo import PAPER_FULL
+    from repro_torch.core import comms
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.data import make_histo_dataset, paper_splits, shard_to_nodes
+    from repro_torch.experiments import histo
+    from repro_torch.faults import flip_payload_bits, idle_signals, run_plan
+    from repro_torch.kernels import fused_merge as fm
+    from repro_torch.optim import adamw_init
+
+    cfg = SwarmConfig(n_nodes=N, sync_every=FAULT_T, topology="full",
+                      merge="fedavg", lora_only=False, val_threshold=0.8,
+                      wire_dtype="int8", wire_block=WIRE_BLOCK, quorum=2)
+    ecfg = histo.HistoExperimentConfig(
+        n_train=256, image_size=PAPER_FULL.image_size, batch_size=16,
+        steps=FAULT_ROUNDS * FAULT_T, swarm=cfg, growth=PAPER_FULL.growth,
+        stem=PAPER_FULL.stem, feat_dim=PAPER_FULL.feat_dim,
+        hidden=PAPER_FULL.hidden, n_blocks=PAPER_FULL.n_blocks,
+        layers_per_block=PAPER_FULL.layers_per_block)
+    x, y = make_histo_dataset(ecfg.n_train, size=ecfg.image_size,
+                              noise=ecfg.noise, class_probs=ecfg.class_probs,
+                              seed=2)
+    shards = shard_to_nodes(x, y, paper_splits(ecfg.n_train), seed=2)
+    xs, ys, val = _round_data(ecfg, shards, FAULT_ROUNDS, FAULT_T)
+    xs, ys = xs.to(dev), ys.to(dev)
+    val = tuple(torch.from_numpy(v).to(dev) for v in val)
+    layout = FlatLayout.of_module(histo._model(ecfg))
+    if layout.size != P:
+        raise AssertionError(f"{layout.size} params per node, want {P}")
+
+    def batches(r):
+        return xs[r], ys[r]
+
+    def make():
+        return _session(dev, cfg, ecfg, shards)
+
+    # the preempt's twin must replay the rounds bit for bit
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # the plan, the corrupt round's sync watched (its inputs and
+            # its committed params)
+            first = make()
+            sync, armed = first.engine.sync, {}
+
+            def watched_sync(params, val, active=None, stats=None,
+                             wire=None, faults=None):
+                out = sync(params, val, active, stats=stats, wire=wire,
+                           faults=faults)
+                if faults is not None and bool(faults.corrupt.any()):
+                    armed.update(args=(params, val, active, stats, wire),
+                                 faults=faults, committed=out[0])
+                return out
+
+            first.engine.sync = watched_sync
+            marks = []
+            fm.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess, logs = run_plan(
+                first, _fault_plan(), batches, val, make_session=make,
+                checkpoint_path=os.path.join(tmp, "preempt.msgpack"),
+                on_round=lambda r, lg: marks.append(time.perf_counter()))
+            torch.cuda.synchronize()
+            plan_s = time.perf_counter() - t0
+            launches = dict(fm.LAUNCHES)
+            del first.engine.sync
+            # the twin: the same plan without the preempt
+            twin, twin_logs = run_plan(make(), _fault_plan(preempt=False),
+                                       batches, val)
+            torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+    round_s = [b - a for a, b in zip([t0] + marks, marks)]
+    if launches != {k: FAULT_ROUNDS if k == "fused_quant_merge_all" else 0
+                    for k in fm.LAUNCHES}:
+        raise AssertionError(f"commit launches {launches}, want "
+                             f"{FAULT_ROUNDS} fused_quant_merge_all")
+    lowered = _fault_plan().lower()
+    for lg in logs:
+        r = lg["round"]
+        if lg["gates"][~lg["active"]].any():
+            raise AssertionError(f"round {r}: an inactive node's gate is on "
+                                 f"{lg['gates']} {lg['active']}")
+        if not (lg["wire_ok"] == ~lowered.corrupt[r]).all():
+            raise AssertionError(f"round {r}: wire_ok {lg['wire_ok']}, want "
+                                 f"{~lowered.corrupt[r]}")
+    if sum(lg["preempted"] for lg in logs) != 1:
+        raise AssertionError("the plan's preempt never ran")
+    # the quarantined sender kept its own pre-sync params, bit for bit
+    params, val_r, active, stats, wire = armed["args"]
+    if not torch.equal(armed["committed"][CORRUPT_NODE],
+                       params[CORRUPT_NODE]):
+        raise AssertionError("the corrupt sender's row changed in its sync")
+    # the round's flip pattern on the card equals the same call on the CPU
+    sig = armed["faults"]
+    eff = comms.wire_effective(params, wire, first.engine._wire_grid(params))
+    card = flip_payload_bits(eff, sig.corrupt, sig.key, layout)
+    host = flip_payload_bits(eff.cpu(), sig.corrupt, sig.key, layout)
+    if not torch.equal(card.cpu().view(torch.int32), host.view(torch.int32)):
+        raise AssertionError("the flip pattern on the card differs from "
+                             "the CPU's")
+    flipped = (card != eff).sum(1).tolist()
+    if [i for i, c in enumerate(flipped) if c] != [CORRUPT_NODE]:
+        raise AssertionError(f"flips by row {flipped}")
+    # the preempted run equals the uninterrupted twin, bit for bit
+    a, b = sess.state, twin.state
+    same = {f: bool(torch.equal(getattr(a, f), getattr(b, f)))
+            for f in ("params", "wire", "active")}
+    same.update({f"opt_{k}": bool(torch.equal(a.opt_state[k],
+                                              b.opt_state[k]))
+                 for k in a.opt_state})
+    same["counters"] = ((a.round, a.step, a.rng.tolist())
+                        == (b.round, b.step, b.rng.tolist()))
+    same["gates"] = all((la["gates"] == lb["gates"]).all()
+                        for la, lb in zip(logs, twin_logs))
+    if not all(same.values()):
+        raise AssertionError(f"the preempted run diverged from its twin: "
+                             f"{same}")
+
+    # the sync's wall time (synchronized host clock): plain, with idle
+    # signals, armed — in turns, the order reversed every other repeat
+    eng = first.engine
+    calls = {
+        "plain": lambda: eng.sync(params, val_r, active, stats=stats,
+                                  wire=wire),
+        "idle": lambda: eng.sync(params, val_r, active, stats=stats,
+                                 wire=wire, faults=idle_signals(N)),
+        "armed": lambda: eng.sync(params, val_r, active, stats=stats,
+                                  wire=wire, faults=sig)}
+    for _ in range(2):
+        for fn in calls.values():
+            fn()
+    sync_s = {k: [] for k in calls}
+    for rep in range(7):
+        for k in (list(calls) if rep % 2 == 0 else list(calls)[::-1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            calls[k]()
+            torch.cuda.synchronize()
+            sync_s[k].append(time.perf_counter() - t)
+    # device time of the fault plane's own work in a sync: one checksum of
+    # θ̂' (an idle sync takes two), one armed flip; and the one-off index
+    ref = eng._ref_index(params)
+    ops_ms = {
+        "checksum": device_ms(lambda: comms.payload_checksum(eff, ref),
+                              iters=20),
+        "flip": device_ms(lambda: flip_payload_bits(eff, sig.corrupt,
+                                                    sig.key, ref), iters=20),
+        "ref_index": device_ms(lambda: comms.ref_index(layout, dev),
+                               iters=5)}
+
+    # true Fisher: a fisher/ring session whose train step returns its
+    # gradient; every commit is one launch of the quantized imp form
+    fcfg = SwarmConfig(n_nodes=N, sync_every=FAULT_T, topology="ring",
+                       merge="fisher", lora_only=False, val_threshold=0.8,
+                       wire_dtype="int8", wire_block=WIRE_BLOCK)
+    model = histo._model(ecfg)
+    flat = layout.flatten(histo._init_params(ecfg, model))
+    fsess = histo.SwarmSession(
+        fcfg, _true_fisher_step(ecfg, model, layout),
+        histo._make_eval_fn(fcfg, model, layout), params=flat,
+        opt_state=adamw_init(flat), data_sizes=[len(y) for _, y in shards],
+        layout=layout, device=dev)
+    fm.reset_launches()
+    fisher_gates = [fsess.round(batches(r), val)["gates"].tolist()
+                    for r in range(2)]
+    fisher_launches = dict(fm.LAUNCHES)
+    if fisher_launches != {k: 2 if k == "fused_quant_merge_all_imp" else 0
+                           for k in fm.LAUNCHES}:
+        raise AssertionError(f"true-Fisher commit launches {fisher_launches}")
+    st = fsess.state.stats
+    if not bool(torch.isfinite(st).all()) or not bool((st != 0).any()):
+        raise AssertionError("true-Fisher stats not finite and non-zero")
+
+    emit("faults", card=smi, plan=[[e.kind, e.node, e.round, e.until]
+                         for e in _fault_plan().events],
+         nodes=N, params_per_node=P, wire="int8", quorum=cfg.quorum,
+         steps_per_round=FAULT_T,
+         active=[lg["active"].tolist() for lg in logs],
+         gates=[lg["gates"].tolist() for lg in logs],
+         wire_ok=[lg["wire_ok"].tolist() for lg in logs],
+         flips_by_node=flipped, round_seconds=round_s, plan_seconds=plan_s,
+         sync_seconds={k: dict(median=sorted(v)[len(v) // 2], min=min(v),
+                               all=v) for k, v in sync_s.items()},
+         fault_ops_ms=ops_ms, preempt_bit_identical=same, launches=launches,
+         true_fisher=dict(gates=fisher_gates, launches=fisher_launches,
+                          stats_mean=float(st.mean()),
+                          stats_max=float(st.max())))
+    return {k: v + fisher_launches[k] for k, v in launches.items()}
 
 
 # (M, K, N, r, dtype name): the zoo head's train, validation and test
@@ -1581,6 +1861,9 @@ def main() -> int:
                      if v and k not in launches})
     phase_checkpoint(dev, run)
     phase_parity(dev)
+    counts = phase_faults(dev, smi)
+    launches.update({k: v for k, v in counts.items()
+                     if v and k not in launches})
     counts = phase_hetero(dev)
     launches.update({k: v for k, v in counts.items()
                      if v and k not in launches})

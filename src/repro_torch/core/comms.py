@@ -333,7 +333,41 @@ def _leaves(layout: "FlatLayout | int"):
 
 
 def _size(layout) -> int:
+    if isinstance(layout, RefIndex):
+        return layout.pos.numel()
     return layout.size if isinstance(layout, FlatLayout) else layout
+
+
+@dataclass(frozen=True)
+class RefIndex:
+    """Where every stored element of ``[N, P]`` sits in the reference's
+    stacked payload tree, as int64 tensors [P] on one device: ``leaf`` the
+    index of its leaf among the reference's leaves, ``pos`` its position in
+    the leaf's flattening (HWIO for a conv stored OIHW), ``size`` the leaf's
+    size; ``n_leaves`` the number of leaves. What the checksum salts with
+    and what the fault plane's flip pattern is keyed on; built once per
+    layout and device (:func:`ref_index`) and passed in place of the
+    layout."""
+
+    leaf: torch.Tensor
+    pos: torch.Tensor
+    size: torch.Tensor
+    n_leaves: int
+
+
+def ref_index(layout: "FlatLayout | int | RefIndex", device=None) -> RefIndex:
+    """The :class:`RefIndex` of a layout (an integer is one leaf of that
+    size) on ``device``; a :class:`RefIndex` passes through."""
+    if isinstance(layout, RefIndex):
+        return layout
+    leaves = _leaves(layout)
+    p = _size(layout)
+    leaf, pos, size = (torch.empty(p, dtype=torch.int64) for _ in range(3))
+    for off, i, local in leaves:
+        sl = slice(off, off + local.numel())
+        leaf[sl], pos[sl], size[sl] = i, local, local.numel()
+    return RefIndex(leaf.to(device), pos.to(device), size.to(device),
+                    len(leaves))
 
 
 @dataclass(frozen=True)
@@ -630,7 +664,8 @@ def _mix32(v: torch.Tensor) -> torch.Tensor:
 
 
 def payload_checksum(payload: torch.Tensor,
-                     layout: "FlatLayout | int | None" = None) -> torch.Tensor:
+                     layout: "FlatLayout | int | RefIndex | None" = None
+                     ) -> torch.Tensor:
     """Per-node uint32 checksum of a stacked ``[N, P]`` payload, as ``[N]``
     int64 values in [0, 2³²) — equal to the reference's on the same tree.
 
@@ -638,16 +673,15 @@ def payload_checksum(payload: torch.Tensor,
     element's index within its leaf and the leaf's index (both in the
     reference's order: HWIO convs, sorted leaves), avalanche-mixed, and
     summed per node mod 2³². The sum is order-free, so the stored order of
-    the buffer does not matter."""
+    the buffer does not matter. ``layout`` may be the layout's
+    :class:`RefIndex` on the payload's device (built once by the caller)."""
     pf = payload.to(torch.float32).contiguous()
     n, p = pf.shape
     layout = p if layout is None else layout
     if _size(layout) != p:
         raise ValueError(f"layout covers {_size(layout)} values, payload "
                          f"has {p}")
-    key = torch.empty(p, dtype=torch.int64)
-    for off, i, local in _leaves(layout):
-        key[off:off + local.numel()] = local + i
-    salt = _mul32(key.to(pf.device), 0x9E3779B9)
+    idx = ref_index(layout, pf.device)
+    salt = _mul32(idx.pos + idx.leaf, 0x9E3779B9)
     u = pf.view(torch.int32).to(torch.int64) & _M32
     return _mix32(u ^ salt[None, :]).sum(1) & _M32

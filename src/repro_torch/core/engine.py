@@ -18,12 +18,17 @@ With ``cfg.wire_dtype`` = ``"int8"``/``"bf16"`` the peers exchange the
 quantized error-feedback wire (`core.comms`): propose and the gate see the
 wire reconstruction θ̂' = θ̂ + deq(q(θ − θ̂)), and the commit is one launch of
 `kernels.fused_merge.fused_quant_merge_all`, which re-derives θ̂' and merges
-it; the advanced θ̂' comes back in the log under ``"wire"``.
+it; the advanced θ̂' comes back in the log under ``"wire"``. On that wire a
+round takes fault signals (``faults=``, `repro_torch.faults`): flagged
+senders' θ̂' arrive bit-flipped, the per-payload checksum detects it, and the
+sender is quarantined for the round (``"wire_ok"`` in the log).
 
 Contracts: ``train_step_fn(params [P], opt_state, batch, step) -> (params,
 opt_state, metrics)`` is per node and is vmapped here, as the reference
-vmaps it; ``eval_fn(params [N, P], val) -> [N]`` takes the whole swarm (the
-gate metrics carry an explicit node axis). Both may instead be a LIST of N
+vmaps it (or the true-Fisher 4-tuple ``(..., grads)``, whose per-step
+gradients feed the strategy's ``accumulate_grads``); ``eval_fn(params
+[N, P], val) -> [N]`` takes the whole swarm (the gate metrics carry an
+explicit node axis). Both may instead be a LIST of N
 per-node closures (the heterogeneous model zoo, ``cfg.payload="lora"``:
 each node's frozen backbone lives in its closures, the stacked state is the
 shared adapter payload): :func:`zoo_vstep` and :func:`zoo_veval` call them
@@ -31,9 +36,8 @@ node by node and restack, with the same stacked-in, stacked-out contract;
 an eval closure then scores one node, ``(params [P], val_i) -> scalar``.
 
 Not in this slice (``NotImplementedError``, see ROADMAP): the gossip and
-host backends, in-graph fault injection (``faults=``), and ``lora_only``
-with ``payload="full"`` at sync (carving adapters out of a full state:
-the LM/trainer slice).
+host backends, and ``lora_only`` with ``payload="full"`` at sync (carving
+adapters out of a full state: the LM/trainer slice).
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ from repro_torch.core import comms
 from repro_torch.core import merge_impl as merge_lib
 from repro_torch.core import topology as topo
 from repro_torch.core.flat import FlatLayout
+from repro_torch.faults.signals import flip_payload_bits
 from repro_torch.kernels.fused_merge import (fused_merge_all,
                                              fused_quant_merge_all)
 
@@ -124,6 +129,23 @@ def zoo_veval(eval_fns: Sequence[Callable]) -> Callable:
             for i, fn in enumerate(eval_fns)])
 
     return veval
+
+
+def _vmap_stateless(step_fn: Callable) -> Callable:
+    """vmap of a per-node train step over the node axis for a stateless
+    optimizer: the ``None`` opt_state goes around the vmap, so the step may
+    return the 3-tuple or the true-Fisher 4-tuple."""
+    def step(p, b, s):
+        out = step_fn(p, None, b, s)
+        return (out[0],) + tuple(out[2:])
+
+    vstep = torch.func.vmap(step, in_dims=(0, 0, None))
+
+    def run(p, o, b, s):
+        out = vstep(p, b, s)
+        return (out[0], None) + tuple(out[1:])
+
+    return run
 
 
 def mixing_matrix(cfg: SwarmConfig, data_sizes: Sequence[float],
@@ -208,6 +230,7 @@ class SwarmEngine:
         # at every leaf, as the reference's per-leaf quantization does
         self.layout = layout
         self._grid = None
+        self._ref = None
         # the engine backend reports the SPMD-equivalent wire cost
         self.sync_schedule = comms.pick_schedule(cfg, simulated=True)
         self.data_sizes = (np.ones(cfg.n_nodes) if data_sizes is None
@@ -238,9 +261,7 @@ class SwarmEngine:
         else:
             self._vstep = (None if train_step_fn is None else {
                 True: torch.func.vmap(train_step_fn, in_dims=(0, 0, 0, None)),
-                False: torch.func.vmap(train_step_fn,
-                                       in_dims=(0, None, 0, None),
-                                       out_dims=(0, None, 0))})
+                False: _vmap_stateless(train_step_fn)})
         self._veval = (zoo_veval(fn_list(eval_fn, "eval_fn"))
                        if isinstance(eval_fn, (list, tuple)) else eval_fn)
         self._base_W = mixing_matrix(cfg, self.data_sizes)
@@ -256,20 +277,25 @@ class SwarmEngine:
     def local_steps(self, params, opt_state, batches, step0, stats=None):
         """Loop over the leading [T] time axis of vmapped local steps; the
         strategy's importance accumulation rides in the same loop. Returns
-        ``(params, opt_state, stats, metrics)`` with metrics stacked [T, N]."""
+        ``(params, opt_state, stats, metrics)`` with metrics stacked [T, N].
+
+        A train step may opt into the true-Fisher hook by returning a
+        4-tuple ``(params, opt_state, metrics, grads)``: the per-step grads
+        feed ``strategy.accumulate_grads`` (exact squared gradients) instead
+        of the Δθ² proxy."""
         t = _leading(batches)
         metrics = []
         for k in range(t):
             batch = _index(batches, k)
             out = self._vstep[opt_state is not None](params, opt_state,
                                                      batch, step0 + k)
-            if len(out) == 4:
-                raise _not_ported("the true-Fisher 4-tuple train step "
-                                  "(accumulate_grads)",
-                                  "queue 1 item 5, merge and topology")
-            p2, opt_state, m = out
+            p2, opt_state, m = out[:3]
             if stats is not None:
-                stats = self.strategy.accumulate(stats, params, p2, step0 + k)
+                stats = (self.strategy.accumulate_grads(stats, out[3],
+                                                        step0 + k)
+                         if len(out) == 4 else
+                         self.strategy.accumulate(stats, params, p2,
+                                                  step0 + k))
             params = p2
             metrics.append(m)
         return params, opt_state, stats, _stack_logs(metrics)
@@ -307,12 +333,8 @@ class SwarmEngine:
 
     # -- gated sync ----------------------------------------------------------
 
-    def _check_sync_options(self, faults):
-        cfg = self.cfg
-        if faults is not None:
-            raise _not_ported("in-graph fault injection (faults=)",
-                              "queue 1 item 10, the fault plane")
-        if comms.split_payload_at_sync(cfg):
+    def _check_sync_options(self):
+        if comms.split_payload_at_sync(self.cfg):
             # payload="lora" has nothing to carve (the state is the
             # payload); a full state would need its adapters carved out, and
             # only the LM families' linears read adapters in the reference
@@ -335,6 +357,19 @@ class SwarmEngine:
             self._grid = g
         return g
 
+    def _ref_index(self, params) -> comms.RefIndex:
+        """The payload's :class:`~repro_torch.core.comms.RefIndex` on the
+        params' device (what the checksum and the flip pattern are keyed
+        on), built once."""
+        ref = self._ref
+        if ref is None or ref.pos.numel() != params.shape[-1] \
+                or ref.pos.device != params.device:
+            ref = comms.ref_index(
+                self.layout if self.layout is not None else params.shape[-1],
+                params.device)
+            self._ref = ref
+        return ref
+
     def _auto_wire(self, params, wire):
         """Default EF wire reference when ``cfg.wire_dtype`` enables
         compression but the caller threads no state (the direct engine API):
@@ -354,18 +389,45 @@ class SwarmEngine:
         ``wire``: the error-feedback reference θ̂ [N, P] of a quantized wire
         — peers merge the wire reconstruction θ̂' instead of the exact
         params, rejected nodes keep their exact f32 locals, and the advanced
-        θ̂' is returned in the log under ``"wire"``."""
-        self._check_sync_options(faults)
+        θ̂' is returned in the log under ``"wire"``.
+
+        ``faults``: optional `repro_torch.faults.signals.FaultSignals` —
+        corrupt-wire injection. Flagged nodes' θ̂' arrive bit-flipped; the
+        per-payload checksum (`comms.payload_checksum`) detects the damage
+        and the sender is quarantined for the round (reject-and-keep-local:
+        excluded from the merge AND gated off, so nobody — the sender
+        included — commits corrupted bytes); ``"wire_ok"`` [N] in the log.
+        Only the quantized wire carries it; elsewhere lower corrupt events
+        to drops."""
+        self._check_sync_options()
         n = self.cfg.n_nodes
         a = (torch.ones((n,), dtype=torch.bool, device=params.device)
              if active is None else active.to(torch.bool))
         wire = self._auto_wire(params, wire)
+        if faults is not None and wire is None:
+            raise ValueError(
+                "in-graph corrupt-wire injection (faults=) requires the "
+                "engine backend with a quantized/EF wire (SwarmState.wire); "
+                "lower corrupt events to drops instead "
+                "(FaultPlan.lower(corrupt_in_graph=False))")
         log = {}
         if wire is not None:
             grid = self._wire_grid(params)
             # θ̂' — what every peer reconstructs from this round's wire
             # traffic; also next round's reference
             eff = comms.wire_effective(params, wire, grid)
+            if faults is not None:
+                # sender-side checksum of the honest reconstruction, then
+                # the seeded wire damage, then the receiver-side checksum:
+                # a mismatch quarantines the sender like an absence. The
+                # commit below re-derives θ̂' from the honest params and
+                # wire, so the damage reaches only the candidate.
+                ref = self._ref_index(params)
+                sent = comms.payload_checksum(eff, ref)
+                eff = flip_payload_bits(eff, faults.corrupt, faults.key, ref)
+                wire_ok = sent == comms.payload_checksum(eff, ref)
+                a = a & wire_ok
+                log["wire_ok"] = wire_ok
             fishers = None
             if self.strategy.uses_stats:
                 f = stats if stats is not None else torch.zeros_like(params)

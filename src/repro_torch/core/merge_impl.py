@@ -8,9 +8,9 @@ swarm state. Port of ``repro.core.merge_impl``.
                   Fisher-preconditioned delta correction around a reference
 
 :class:`MergeStrategy` wraps each method with ``init_stats / accumulate /
-fishers / propose`` hooks. ``propose`` returns the merge candidate (what the
-gate evaluates) plus the row weights and optional importance the commit
-kernel re-contracts with. Where the reference maps each of these over a
+accumulate_grads / fishers / propose`` hooks. ``propose`` returns the merge
+candidate (what the gate evaluates) plus the row weights and optional
+importance the commit kernel re-contracts with. Where the reference maps each of these over a
 stacked pytree leaf by leaf, here each is one tensor op over ``[N, P]``.
 """
 from __future__ import annotations
@@ -96,6 +96,12 @@ class MergeStrategy:
     def accumulate(self, stats, old_params, new_params, step):
         return stats
 
+    def accumulate_grads(self, stats, grads, step):
+        """True-Fisher accumulation from the exact per-step gradients a
+        4-tuple train step returns (instead of the Δθ² proxy). Default:
+        no-op."""
+        return stats
+
     def fishers(self, stats):
         return stats
 
@@ -129,7 +135,8 @@ class MixStrategy(MergeStrategy):
 class FisherStrategy(MergeStrategy):
     """Diagonal-Fisher-weighted merging with on-device mass accumulation:
     F ← γF + (θ_{t+1} − θ_t)², a curvature proxy whose scale cancels in the
-    merge ratio (see the reference's docstring for its AdamW caveat)."""
+    merge ratio (see the reference's docstring for its AdamW caveat), or,
+    from a 4-tuple train step, the exact F ← γF + g²."""
 
     method = "fisher"
     uses_stats = True
@@ -145,6 +152,13 @@ class FisherStrategy(MergeStrategy):
     def accumulate(self, stats, old_params, new_params, step):
         d = (new_params - old_params).to(torch.float32)
         return self.decay * stats + d * d
+
+    def accumulate_grads(self, stats, grads, step):
+        """Exact diagonal-Fisher mass from per-step gradients: F ← γF + g²
+        (same decayed-sum shape as the Δθ² proxy, but scale-correct under
+        adaptive optimizers)."""
+        g = grads.to(torch.float32)
+        return self.decay * stats + g * g
 
     def fishers(self, stats):
         """Normalize accumulated mass to a global mean of 1 — one mean over

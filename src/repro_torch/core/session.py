@@ -259,8 +259,11 @@ class SwarmSession:
         """One full round: ``sync_every`` local steps + gated sync over a
         stacked ``[T, N, ...]`` batch pytree. The log holds device tensors
         ``gates`` / ``metric_local`` / ``metric_merged`` [N] and ``train``
-        ([T, N] per-step metrics). ``faults`` (in-graph corrupt-wire
-        injection) is not ported yet and raises."""
+        ([T, N] per-step metrics). ``faults``: optional
+        `repro_torch.faults.signals.FaultSignals` — corrupt-wire injection
+        on the quantized wire (flagged senders quarantined for the round,
+        ``"wire_ok"`` in the log); a ``ValueError`` on the f32 wire.
+        `repro_torch.faults.run_plan` drives a whole fault plan."""
         st = self._state
         batches, val = _to_device(batches, self.device), _to_device(
             val, self.device)

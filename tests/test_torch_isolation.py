@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither jax nor anything of the
 reference package ``repro``, nor the ``msgpack`` package (the card's
 machine has none) — checked at run time in a fresh interpreter that drives
-one small CPU round on the int8 wire, a checkpoint round trip, one small
-model-zoo scenario and one small LM serve, and statically over every
+one small CPU round on the int8 wire, a checkpoint round trip, a
+one-round fault plan with a corrupt sender, one small model-zoo scenario
+and one small LM serve, and statically over every
 source file."""
 import ast
 import subprocess
@@ -50,6 +51,10 @@ import tempfile, os
 path = os.path.join(tempfile.mkdtemp(), "s.msgpack")
 sess.save(path)
 assert torch.equal(sess.load(path).state.wire, sess.state.wire)
+from repro_torch.faults import FaultPlan, run_plan
+_, logs = run_plan(sess, FaultPlan(2, 1, seed=3).corrupt(1, at=0),
+                   (xs, ys), val)
+assert logs[0]["wire_ok"].tolist() == [True, False]
 from repro_torch.experiments import scenarios
 rcfg = scenarios.ScenarioRunConfig(n_train=64, n_test=16, feat_dim=8,
                                    hidden=8, steps=6)

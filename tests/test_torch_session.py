@@ -16,49 +16,12 @@ torch = pytest.importorskip("torch")
 import torch_parity as tp  # noqa: E402
 from repro.configs.base import SwarmConfig as JSwarmConfig  # noqa: E402
 from repro_torch.configs.base import SwarmConfig  # noqa: E402
-from repro_torch.convert import from_reference  # noqa: E402
 from repro_torch.core.session import SwarmSession  # noqa: E402
 
 tp.torch_cpu()
 SIZES = tp.SIZES
-THR = 0.8
-
-
-def _check_flat(got, want, layout):
-    # The FC biases feed a batch-statistics BN, so their gradient is zero in
-    # exact arithmetic: AdamW turns each framework's rounding noise into
-    # ±lr steps. They are held to the summed lr of the steps taken instead.
-    noise = np.zeros(got.shape[1], bool)
-    for leaf in layout.leaves:
-        if leaf.path in ("head.fc1.b", "head.fc2.b"):
-            noise[leaf.offset:leaf.offset + leaf.size] = True
-    np.testing.assert_allclose(got[:, ~noise], want[:, ~noise],
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(got[:, noise], want[:, noise], atol=2e-3)
-
-
-def _check(js, ts, layout, jlog, tlog):
-    _check_flat(ts.state.params.numpy(),
-                from_reference(layout, jax.tree.map(np.asarray,
-                                                    js.state.params),
-                               lead=1).numpy(), layout)
-    if js.state.wire is not None:
-        _check_flat(ts.state.wire.numpy(),
-                    from_reference(layout, jax.tree.map(np.asarray,
-                                                        js.state.wire),
-                                   lead=1).numpy(), layout)
-    ml = np.asarray(jlog["metric_local"]).reshape(-1)
-    mm = np.asarray(jlog["metric_merged"]).reshape(-1)
-    clear = np.abs(mm - THR * ml) >= 1e-4
-    assert clear.any()
-    np.testing.assert_array_equal(
-        tlog["gates"].numpy().reshape(-1)[clear],
-        np.asarray(jlog["gates"]).reshape(-1)[clear])
-    np.testing.assert_allclose(tlog["metric_local"].numpy().reshape(-1), ml,
-                               rtol=2e-3, atol=2e-3)
-    np.testing.assert_allclose(tlog["metric_merged"].numpy().reshape(-1), mm,
-                               rtol=2e-3, atol=2e-3)
-    assert np.array_equal(ts.active, js.active)
+THR = tp.THR
+_check_flat, _check = tp.check_flat, tp.check_round
 
 
 @pytest.mark.parametrize("merge,topology", [("fedavg", "full"),
@@ -151,15 +114,6 @@ def test_wire_rounds_match_reference(wire, merge, topology):
             == dataclasses.asdict(js.sync_schedule))
     assert ts.payload_params == js.payload_params
     assert ts.predicted_link_bytes == js.predicted_link_bytes
-
-
-def test_faults_option_raises_not_ported():
-    kw = dict(n_nodes=4, sync_every=2, topology="full", merge="fedavg",
-              lora_only=False, wire_dtype="int8", wire_block=128)
-    _, ts, _ = tp.sessions(kw)
-    xs, ys, val = tp.round_data(4, t=2)
-    with pytest.raises(NotImplementedError, match="fault plane"):
-        ts.round((xs[0], ys[0]), val, faults=object())
 
 
 def test_unported_backends_and_device_policy():
