@@ -117,18 +117,37 @@ Phases, each printing one JSON line:
  16. serve       the LM serving path at full width: hymba-1.5b in bf16, an
                  N = 4 ensemble initialised on the card from
                  ``torch.Generator`` seeds, ``ServeEngine`` in consensus
-                 mode with 4 slots and seq buckets (256, 2048), 8 requests of
-                 16 new tokens (prompts of 2048 and 256 tokens), a ``swap()``
-                 of a second ensemble while requests are in flight, then one
-                 ``generate()`` of batch 4; every request must finish, the
-                 flash and SSD launches must equal 4 nodes × 32 layers ×
-                 8 prefills, and two requests (one per version) served
+                 mode with 4 slots and seq buckets (256, 2048), one
+                 captured CUDA graph per dispatch key and pool buffer
+                 (``repro_torch.launch.capture``). Three waves, the counts
+                 set to 0 before each: a cold one (8 requests of 16 new
+                 tokens, prompts of 2048 and 256 tokens, a ``swap()`` of a
+                 second ensemble while requests are in flight) in which
+                 every key it dispatches is built exactly once (flash and
+                 SSD launches = 4 nodes × 32 layers × (8 prefills + the
+                 builds' warm-up passes)); a warm one with the same traffic
+                 and a swap back (no build; launches = 4 × 32 × 8); and one
+                 of 4 new tokens with node 1 failed and restored mid-flight
+                 (no build; a decode-only tick profiled). Every request
+                 must finish;
+                 two requests of the cold wave (one per version) served
                  again outside the engine, node by node at the engine's
-                 shapes, must give the same tokens; tokens/s, p50/p99
-                 latency, prefill and decode
-                 tick times, the device busy share of a profiled decode tick
-                 and of one engine prefill of each length profiled after
-                 the timed run, and peak memory;
+                 shapes, must give the same tokens; ``generate()`` of batch
+                 4 cold (its two programs built) and warm (flash and SSD 32
+                 launches each); on the card every program's body ran
+                 eagerly only in its one warm-up (each under
+                 ``torch.cuda.set_sync_debug_mode("error")``). Lines
+                 ``serve_builds`` (per key: builds, seconds, capture
+                 seconds per buffer, launches per replay), ``serve``
+                 (tokens/s, p50/p99 latency, prefill and decode-tick times
+                 over the warm wave, the cold wave's wall and build time
+                 apart, the profiled tick's busy share, host ops and
+                 launches, peak memory) and ``serve_replay`` (on warm keys,
+                 a decode tick and a prefill of each length: the body
+                 called eagerly against a replay, in turns, wall, device
+                 time and busy share; a profiled replayed prefill's flash
+                 and SSD kernel records equal to its launches), each with
+                 the card's name and power limit;
  17. timing      how many device times the profiler read, how many traces
                  ``device_ms`` discarded for lost kernel records, and how
                  many times it fell back to CUDA events;
@@ -1626,21 +1645,98 @@ def _busy(prof, wall):
                             for e in dev_top[:8]])
 
 
-def phase_serve(dev):
-    """The LM serving path at Hymba-1.5B width, counts set to 0 just
-    before it and read just after."""
+def _timed_runs(fn, runs=3):
+    """Host-clock seconds of ``runs`` synchronized calls of ``fn``."""
+    import torch
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def _eager_vs_replay(prog):
+    """A warm program's body called eagerly against ``run()`` (a replay),
+    in turns: each one's wall (median of 3 synchronized calls, no
+    profiler), then one call of each under the profiler: its device busy
+    time, the busy share of the unprofiled wall, host ops and launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name, fn in (("eager", prog.body), ("replay", prog.run),
+                     ("replay_2", prog.run), ("eager_2", prog.body)):
+        walls = _timed_runs(fn)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        busy = _busy(prof, pwall)
+        wall = sorted(walls)[1]
+        out[name] = dict(wall_s=wall, walls_s=walls,
+                         device_s=busy["device_busy_s"],
+                         busy_share=busy["device_busy_s"] / wall,
+                         profiled_wall_s=pwall, host_ops=busy["host_ops"],
+                         kernel_launches=busy["kernel_launches"])
+    return out
+
+
+def _profiled_replay_launches(prog, tries=4):
+    """One replay of a prefill program under the profiler: the flash and
+    SSD (``chunk_out``) kernel records against the ``LAUNCHES`` the replay
+    added; a trace whose records fall short is traced again (the
+    profiler's short traces on the H100 lose records now and then, see
+    ``device_ms``), up to ``tries`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import LAUNCHES
+    for attempt in range(1, tries + 1):
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prog.run()
+            torch.cuda.synchronize()
+        added = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                 if LAUNCHES[k] != before[k]}
+        cuda = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        records = {"flash_attention": sum(e.count for e in cuda
+                                          if "flash_kernel" in e.key),
+                   "ssd_scan": sum(e.count for e in cuda
+                                   if "chunk_out_kernel" in e.key)}
+        if records == added:
+            return dict(launches=added, records=records, traces=attempt)
+        TIMERS["traces_discarded"] += 1
+    raise AssertionError(f"profiled replay: kernel records {records}, "
+                         f"launches {added} in {tries} traces")
+
+
+def phase_serve(dev, smi):
+    """The LM serving path at Hymba-1.5B width through captured programs,
+    counts set to 0 just before each wave and read just after it."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.launch.serve import generate
+    from repro_torch.launch.capture import WARMUP
+    from repro_torch.launch.serve import (generate, prefill_step_for,
+                                          serve_step_for)
     from repro_torch.models import build_model
     from repro_torch.serve import BucketPolicy, ServeEngine
 
     cfg = get_config("hymba-1.5b")
     model = build_model(cfg)
     size = model.layout.size
+    per_prefill = N * cfg.n_layers       # flash / SSD launches a prefill
+    buckets = (1, 2, 4)
+    grid = ({("decode", b) for b in buckets}
+            | {("prefill", s, b) for s in SERVE_SEQ for b in buckets})
 
     def ensemble(seed):
         buf = torch.empty((N, size), dtype=torch.bfloat16, device=dev)
@@ -1649,36 +1745,28 @@ def phase_serve(dev):
                        out=buf[i])
         return buf
 
-    prefill_s, decode_s = [], []
+    prefill_s, decode_s = [], []   # (length, s, built), (s, built)
 
     class TimedEngine(ServeEngine):
-        """Synchronized host time of each prefill (all N nodes), by prompt
-        length, and of each decode dispatch; while ``profiled`` is a dict,
-        each prefill runs under the profiler instead, its summary kept
-        there by prompt length."""
-        profiled = None
+        """Synchronized host time of each prefill (all N nodes) by prompt
+        length and of each decode dispatch, each marked with whether it
+        found its key's program built (else its time holds the build)."""
 
         def _prefill_commit(self, version, prompt, slot, length):
-            torch.cuda.synchronize()
-            if self.profiled is None:
-                t0 = time.perf_counter()
-                out = super()._prefill_commit(version, prompt, slot, length)
-                prefill_s.append((length, time.perf_counter() - t0))
-                return out
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                out = super()._prefill_commit(version, prompt, slot, length)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            self.profiled[length] = _busy(prof, wall)
-            return out
-
-        def _decode_commit(self, *args):
+            built = self._built(("prefill", prompt.shape[0], self._bucket),
+                                version)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = super()._decode_commit(*args)
-            decode_s.append(time.perf_counter() - t0)
+            out = super()._prefill_commit(version, prompt, slot, length)
+            prefill_s.append((length, time.perf_counter() - t0, built))
+            return out
+
+        def _decode_commit(self, version, tokens, pos, live):
+            built = self._built(("decode", tokens.shape[1]), version)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super()._decode_commit(version, tokens, pos, live)
+            decode_s.append((time.perf_counter() - t0, built))
             return out
 
     t0 = time.perf_counter()
@@ -1691,60 +1779,109 @@ def phase_serve(dev):
     prompts = [gen.integers(0, cfg.vocab_size, n) for n in lengths]
     eng = TimedEngine(model, ens_a, mode="consensus", max_len=SERVE_MAX_LEN,
                       max_slots=4, device=dev,
-                      policy=BucketPolicy(batch_buckets=(1, 2, 4),
+                      policy=BucketPolicy(batch_buckets=buckets,
                                           seq_buckets=SERVE_SEQ))
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    reqs = [eng.submit(p, SERVE_NEW) for p in prompts[:4]]
-    eng.step()
-    eng.step()
-    swapped = eng.swap(ens_b)                 # requests are in flight
-    reqs += [eng.submit(p, SERVE_NEW) for p in prompts[4:]]
-    tick = None
-    while len(eng.queue) or eng.live_count:
-        if tick is None and not len(eng.queue) and eng.live_count == 4 \
-                and all(len(r.node_tokens) > 1 for r in reqs[4:]):
-            # one decode-only tick under the profiler
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t1 = time.perf_counter()
-                eng.step()
+
+    def wave(swap_to=None, max_new=SERVE_NEW, flip=False,
+             profile_tick=False):
+        """Four requests, two ticks (node 1 failed between them with
+        ``flip``, restored after), a swap to ``swap_to`` while they are in
+        flight, four more requests, drained; launch counts set to 0 just
+        before. Returns (requests, swapped-to version, wall s, the
+        profiled decode-only tick, launches)."""
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new) for p in prompts[:4]]
+        eng.step()
+        if flip:
+            eng.fail_node(1)
+        eng.step()
+        if flip:
+            eng.restore_node(1)
+        swapped = eng.swap(swap_to) if swap_to is not None else None
+        reqs += [eng.submit(p, max_new) for p in prompts[4:]]
+        tick = None
+        while len(eng.queue) or eng.live_count:
+            if profile_tick and tick is None and not len(eng.queue) \
+                    and eng.live_count == 4 \
+                    and all(len(r.node_tokens) > 1 for r in reqs[4:]):
+                # one decode-only tick under the profiler, on a built key
+                traces = eng.total_traces
                 torch.cuda.synchronize()
-                wall = time.perf_counter() - t1
-            tick = _busy(prof, wall)
-        else:
-            eng.step()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t1 = time.perf_counter()
+                    eng.step()
+                    torch.cuda.synchronize()
+                    twall = time.perf_counter() - t1
+                if eng.total_traces != traces:
+                    raise AssertionError("the profiled tick built a program")
+                tick = _busy(prof, twall)
+            else:
+                eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for i, r in enumerate(reqs):
+            if r.status != "done" or len(r.tokens) != max_new:
+                raise AssertionError(f"request {r.rid}: {r.status}, "
+                                     f"{len(r.tokens)} tokens")
+            toks = np.stack(r.node_tokens)
+            if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+                raise AssertionError(f"request {r.rid}: {toks.tolist()}")
+            if swapped is not None and i >= 4 and r.param_version != swapped:
+                raise AssertionError(f"request {r.rid} ran on version "
+                                     f"{r.param_version}, not {swapped}")
+        return reqs, swapped, wall, tick, dict(LAUNCHES)
+
+    def check_launches(launches, prefills, what):
+        want = {k: 0 for k in LAUNCHES}
+        want.update(flash_attention=per_prefill * prefills,
+                    ssd_scan=per_prefill * prefills)
+        if launches != want:
+            raise AssertionError(f"{what}: launches {launches}, want {want}")
+
+    # wave 1, cold: every key it dispatches is built at its first dispatch
+    torch.cuda.reset_peak_memory_stats()
+    reqs1, swapped, wall1, _, launches1 = wave(swap_to=ens_b)
+    if reqs1[0].param_version != 0:
+        raise AssertionError(f"request {reqs1[0].rid} ran on version "
+                             f"{reqs1[0].param_version}")
+    built = dict(eng.trace_counts)
+    if not set(built) <= grid or any(v != 1 for v in built.values()):
+        raise AssertionError(f"builds {built} off the grid or repeated")
+    if set(eng.programs) != {(k, i) for k in built
+                             for i in range(len(eng.slot.pool))} \
+            or len(eng.slot.pool) != 2:
+        raise AssertionError(f"programs {sorted(map(str, eng.programs))}")
+    warm_passes = sum(p.eager_calls for (k, _), p in eng.programs.items()
+                      if k[0] == "prefill")
+    # warm-up passes run on the card too: launches = prefills + warm-ups
+    check_launches(launches1, len(reqs1) + warm_passes, "wave 1")
+    mark = len(prefill_s), len(decode_s)
+    # wave 2, warm: the same traffic on the built keys, a swap back
+    reqs2, _, wall2, _, launches2 = wave(swap_to=ens_a)
+    check_launches(launches2, len(reqs2), "wave 2")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    n_pref = len(prompts)
-    want = {k: 0 for k in LAUNCHES}
-    want.update(flash_attention=N * cfg.n_layers * n_pref,
-                ssd_scan=N * cfg.n_layers * n_pref)
-    if launches != want:
-        raise AssertionError(f"serve launches {launches}, want {want}")
-    for i, r in enumerate(reqs):
-        if r.status != "done" or len(r.tokens) != SERVE_NEW:
-            raise AssertionError(f"request {r.rid}: {r.status}, "
-                                 f"{len(r.tokens)} tokens")
-        if r.param_version != (0 if i < 4 else swapped):
-            raise AssertionError(f"request {r.rid} ran on version "
-                                 f"{r.param_version}")
-        toks = np.stack(r.node_tokens)
-        if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
-            raise AssertionError(f"request {r.rid}: tokens {toks.tolist()}")
+    reserved_gib = torch.cuda.max_memory_reserved() / 2 ** 30
+    if dict(eng.trace_counts) != built:
+        raise AssertionError(f"wave 2 built: {dict(eng.trace_counts)}")
+    # wave 3: node 1 failed and restored mid-flight, no new build; one
+    # decode-only tick profiled (out of the timed wave 2: processing the
+    # trace takes seconds of host time)
+    reqs3, _, wall3, tick, launches3 = wave(max_new=4, flip=True,
+                                            profile_tick=True)
     if tick is None:
         raise AssertionError("no decode-only tick was profiled")
+    check_launches(launches3, len(reqs3), "wave 3")
+    if dict(eng.trace_counts) != built or len(eng.slot.pool) != 2:
+        raise AssertionError(f"wave 3 built: {dict(eng.trace_counts)}")
     # a long request of the first version and a short one of the swapped
     # version, served again outside the engine: their tokens must match
     decode_bucket, = {key[1] for key in eng.trace_counts
                       if key[0] == "decode"}
     replayed = {}
-    for r, params in ((reqs[0], ens_a), (reqs[4], ens_b)):
+    for r, params in ((reqs1[0], ens_a), (reqs1[4], ens_b)):
         again = _replay_consensus(model, params, r, decode_bucket, dev)
         if not np.array_equal(again, np.stack(r.node_tokens)):
             raise AssertionError(
@@ -1752,53 +1889,90 @@ def phase_serve(dev):
                 f"replayed {again[:, 0]}")
         replayed[r.rid] = dict(prompt=len(r.prompt), version=r.param_version,
                                tokens=again[:, 0].tolist())
-    lat = sorted(r.latency_s for r in reqs)
-    by_len = {n: [t for m, t in prefill_s if m == n] for n in SERVE_SEQ}
-    reset_launches()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
+    # generate: a cold call builds its two programs, a warm one replays
     prompt = torch.as_tensor(np.stack([gen.integers(0, cfg.vocab_size, short)
                                        for _ in range(4)]))
-    out = generate(model, ens_b[0], prompt, SERVE_NEW, short + SERVE_NEW,
-                   device=dev)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t1
-    if tuple(out.shape) != (4, SERVE_NEW) or not bool(
-            ((out >= 0) & (out < cfg.vocab_size)).all()):
-        raise AssertionError(f"generate gave {tuple(out.shape)}")
+    gens = {}
+    for name in ("cold", "warm"):
+        reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = generate(model, ens_b[0], prompt, SERVE_NEW, short + SERVE_NEW,
+                       device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        gens[name] = dict(seconds=seconds, tokens_per_s=4 * SERVE_NEW / seconds,
+                          launches={k: v for k, v in LAUNCHES.items() if v})
+        if tuple(out.shape) != (4, SERVE_NEW) or not bool(
+                ((out >= 0) & (out < cfg.vocab_size)).all()):
+            raise AssertionError(f"generate gave {tuple(out.shape)}")
     if (LAUNCHES["flash_attention"], LAUNCHES["ssd_scan"]) != (
             cfg.n_layers, cfg.n_layers):
-        raise AssertionError(f"generate launches {dict(LAUNCHES)}")
-    # one engine prefill of each length under the profiler, after the
-    # timed run (the trace's processing would otherwise count in its wall)
-    eng.profiled = {}
+        raise AssertionError(f"warm generate launches {dict(LAUNCHES)}")
+    gen_progs = (serve_step_for(model, 4, short + SERVE_NEW, torch.device(dev)),
+                 prefill_step_for(model, 4, short, short + SERVE_NEW,
+                                  torch.device(dev)))
+    # on the card a body runs eagerly only in its warm-up
+    calls = [p.eager_calls for p in list(eng.programs.values()) + list(
+        gen_progs)]
+    if any(c != WARMUP for c in calls) or not all(
+            p.captured for p in list(eng.programs.values()) + list(gen_progs)):
+        raise AssertionError(f"eager body calls {calls}, want {WARMUP} each")
+    # eager against replay on warm keys, and a profiled replayed prefill's
+    # kernel records against its launches
+    versus, records = {}, {}
+    prog = eng.programs[("decode", decode_bucket), 0]
+    versus["decode"] = _eager_vs_replay(prog)
     for n in SERVE_SEQ:
-        r = eng.submit(gen.integers(0, cfg.vocab_size, n), 1)
-        while len(eng.queue) or eng.live_count:
-            eng.step()
-        if r.status != "done" or n not in eng.profiled:
-            raise AssertionError(f"profiled prefill of {n}: {r.status}")
-    emit("serve", arch=cfg.name, dtype=cfg.param_dtype, nodes=N,
+        prog = eng.programs[("prefill", n, decode_bucket), 0]
+        eng._stage_prefill(gen.integers(0, cfg.vocab_size, n), 0, n)
+        versus[f"prefill_{n}"] = _eager_vs_replay(prog)
+        records[n] = _profiled_replay_launches(prog)
+        if records[n]["launches"] != {"flash_attention": per_prefill,
+                                      "ssd_scan": per_prefill}:
+            raise AssertionError(f"replayed prefill {n}: {records[n]}")
+    lat = sorted(r.latency_s for r in reqs2)
+    warm_prefill = {n: [t for m, t, b in prefill_s[mark[0]:] if m == n]
+                    for n in SERVE_SEQ}
+    warm_ticks = [t for t, _ in decode_s[mark[1]:]]
+    emit("serve_builds", card=smi, keys={
+        str(k): dict(builds=v, seconds=eng.build_seconds[k],
+                     capture_s=[eng.programs[k, i].capture_s
+                                for i in range(len(eng.slot.pool))],
+                     launches_per_replay=eng.programs[k, 0].launches)
+        for k, v in sorted(built.items())},
+         build_seconds_total=sum(eng.build_seconds.values()),
+         programs=len(eng.programs), pool_buffers=len(eng.slot.pool),
+         warmup_passes=WARMUP, sync_debug_mode_in_warmups="error",
+         eager_body_calls=sum(calls),
+         replays=sum(p.replays for p in eng.programs.values()))
+    emit("serve", card=smi, arch=cfg.name, dtype=cfg.param_dtype, nodes=N,
          params_per_node=size, ensemble_gib=N * size * 2 / 2 ** 30,
-         requests=len(reqs), new_tokens=SERVE_NEW, prompt_lengths=lengths,
-         max_len=SERVE_MAX_LEN, swapped_to=swapped,
-         init_seconds=init_s, wall_seconds=wall,
-         tokens_per_s=len(reqs) * SERVE_NEW / wall,
+         requests=len(reqs2), new_tokens=SERVE_NEW, prompt_lengths=lengths,
+         max_len=SERVE_MAX_LEN, init_seconds=init_s,
+         cold_wave=dict(wall_seconds=wall1,
+                        tokens_per_s=len(reqs1) * SERVE_NEW / wall1,
+                        build_seconds=sum(eng.build_seconds.values()),
+                        prefill_s=[[m, t, b] for m, t, b in
+                                   prefill_s[:mark[0]]],
+                        launches={k: v for k, v in launches1.items() if v}),
+         wall_seconds=wall2, tokens_per_s=len(reqs2) * SERVE_NEW / wall2,
          latency_p50_s=float(np.percentile(lat, 50)),
          latency_p99_s=float(np.percentile(lat, 99)),
-         prefill_s={str(n): v for n, v in by_len.items()},
-         decode_tick_s=dict(n=len(decode_s),
-                            median=float(np.median(decode_s)),
-                            max=float(max(decode_s))),
-         profiled_decode_tick=tick,
-         profiled_prefill={str(n): v for n, v in eng.profiled.items()},
-         peak_mem_gib=peak_gib,
-         launches={k: v for k, v in launches.items() if v},
+         prefill_s={str(n): v for n, v in warm_prefill.items()},
+         decode_tick_s=dict(n=len(warm_ticks),
+                            median=float(np.median(warm_ticks)),
+                            max=float(max(warm_ticks))),
+         profiled_decode_tick=tick, peak_mem_gib=peak_gib,
+         peak_reserved_gib=reserved_gib,
+         launches={k: v for k, v in launches2.items() if v},
+         flip_wave=dict(wall_seconds=wall3, requests=len(reqs3),
+                        new_tokens=4),
          dispatch_keys=sorted(map(str, eng.trace_counts)),
-         generate=dict(batch=4, prompt=short, seconds=gen_s,
-                       tokens_per_s=4 * SERVE_NEW / gen_s),
-         replayed=replayed)
-    return launches
+         generate=dict(batch=4, prompt=short, **gens), replayed=replayed)
+    emit("serve_replay", card=smi, eager_vs_replay=versus,
+         profiled_replay=records)
+    return launches2
 
 
 def main() -> int:
@@ -1870,7 +2044,7 @@ def main() -> int:
     phase_hetero_parity(dev)
     # the LM slice: parity, serving
     phase_lm_parity(dev)
-    counts = phase_serve(dev)
+    counts = phase_serve(dev, smi)
     launches.update({k: v for k, v in counts.items()
                      if v and k not in launches})
 

@@ -28,7 +28,9 @@ multiple of ``chunk`` (the caller pads, as the reference's model does). On
 a CPU tensor it computes the plain version (`repro_torch.kernels.ref.
 ssd_scan_plain`); on a CUDA tensor it launches the kernels or raises. The
 chunk states live in an f32 scratch of ``B·H·(S/chunk)·N·P`` values that
-the wrapper allocates per call (1.6 MB at Hymba's 2048-token prefill).
+the wrapper allocates per call (1.6 MB at Hymba's 2048-token prefill);
+under a captured CUDA graph it is the graph pool's memory, which no host
+reference holds across replays.
 """
 from __future__ import annotations
 

@@ -14,6 +14,12 @@ of this path are the flash attention and SSD scan of every prefill.
 Caches are a list with one dict per layer (``k``/``v`` ``[B, T, nkv, hd]``
 in the compute dtype; ``ssd`` ``[B, H, P, N]`` f32 and ``conv``
 ``[B, W-1, C]``), updated in place by the forward.
+
+The forward never reads a value back from the card: windows and shapes
+are host ints, decode positions and the commit mask device tensors, and
+no host tensor is copied in. So a serving step that calls it can be
+captured into a CUDA graph (`repro_torch.launch.capture`, whose warm-up
+runs under ``torch.cuda.set_sync_debug_mode("error")``).
 """
 from __future__ import annotations
 

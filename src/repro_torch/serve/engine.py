@@ -5,45 +5,65 @@
   cache, a position counter and a pinned param version. ``step()`` is one
   scheduler tick: admit pending requests into free slots (one bucketed
   prefill each), then advance every live slot one token with one batched
-  decode per node.
-* **Bucketed shapes.** Dispatch shapes come from :class:`BucketPolicy`:
-  prompts right-pad to a seq bucket, the slot table grows and shrinks
-  across batch buckets. The port runs eagerly, so there is nothing to
-  compile; ``trace_counts`` keeps the reference's keys ``(kind, shape)``
-  and counts the first dispatch of each shape, so the tests can hold that
-  steady serving and hot-swaps add no key outside the bucket grid. (A
-  captured CUDA graph per bucket is later work.)
+  decode.
+* **One captured program per dispatch key.** The keys are the reference's
+  ``trace_counts`` keys: ``("decode", batch bucket)`` and ``("prefill",
+  seq bucket, batch bucket)``. A key's program covers all N nodes and the
+  ensemble aggregation, and reads every per-dispatch value from static
+  device buffers: the host stages tokens, positions, the commit mask, the
+  node mask, the padded prompt, the slot and the prompt length in one
+  pinned int64 row, copies the span a dispatch reads to the card, replays,
+  and reads the aggregated tokens back (the one sync per dispatch the
+  scheduler needs). On CUDA a program is a CUDA graph
+  (`repro_torch.launch.capture`), on the CPU its body called directly.
+* **Builds.** ``trace_counts[key]`` counts builds of a key's program. A
+  build captures one graph per physical param buffer of the
+  :class:`~repro_torch.serve.hot_swap.HotSwapSlot`'s pool (programs are
+  keyed by ``(key, buffer index)`` in ``programs``), each after one eager
+  warm-up pass; on the card that is about two eager passes of the body
+  and two captures, seconds at full width (``build_seconds``). Steady
+  serving, a hot swap into a free buffer and ``fail_node`` /
+  ``restore_node`` (the node mask is data) build nothing; a swap during a
+  swap, which grows the pool, builds each key again on its next dispatch
+  on the new buffer.
 * **The ensemble.** The N per-node variants are the swarm state's
   ``[N, P]`` tensor (in the model's param dtype) and the model's
   :class:`~repro_torch.core.flat.FlatLayout`. The reference double-vmaps
-  its decode over nodes and slots; the port's kernels take device pointers,
-  which a ``vmap``'d tensor cannot give, so the port loops over the N nodes
-  and folds the slots into the batch: each node's decode serves every slot
-  in one call with a per-row position vector (RoPE, the mask and the cache
-  write take per-lane positions), and :func:`aggregate_logits` chooses the
-  token every node continues with.
+  its decode over nodes and slots; the port's kernels take device
+  pointers, which a ``vmap``'d tensor cannot give, so a program loops over
+  the N nodes and folds the slots into the batch: each node's decode
+  serves every slot in one call with a per-row position vector (RoPE, the
+  mask and the cache write take per-lane positions), and
+  :func:`aggregate_logits` chooses the token every node continues with.
 * **Caches** are the model's per-layer dicts with leaves ``[N, slots,
-  ...]``. Every write is an index write into them, never a copy of the
-  table (the counterpart of the reference's donated buffers): the prefill
-  zeroes and fills one slot's lane in place, a decode writes only the lanes
-  its ``commit`` mask marks (the reference's masked commit).
+  ...]``, allocated and zeroed once at the batch bucket ``max_slots``
+  needs; bucket b's programs read the view ``[:, :b]``, so growing or
+  shrinking the bucket moves no storage. A decode writes only the lanes its
+  commit mask marks (the reference's masked commit; the others, live lanes
+  of another version included, are computed and discarded). A prefill runs
+  each node on a fresh one-lane scratch cache and copies the lane into the
+  table at the slot's device index (``index_copy_``, the reference's
+  ``dynamic_update_index_in_dim``), so one program serves every slot and
+  prompt length of its key.
 * **Hot swap.** Params live in a :class:`~repro_torch.serve.hot_swap.
   HotSwapSlot`. Each request decodes under the version it was admitted
-  with; during a transition a tick issues one decode per live version,
-  and superseded buffers are retired once their last request drains.
+  with; during a transition a tick issues one decode per live version
+  (the program of that version's buffer), and superseded versions are
+  retired once their last request drains.
 """
 from __future__ import annotations
 
 import collections
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.launch.serve import make_logits_step
+from repro_torch.launch.capture import Program, ProgramPool
+from repro_torch.launch.serve import make_logits_step, tree_leaves, tree_map
 from repro_torch.models import Model
 from repro_torch.serve.batcher import BucketPolicy
 from repro_torch.serve.hot_swap import HotSwapSlot
@@ -123,13 +143,9 @@ def aggregate_logits(logits, mode: str, top_k: int = 2, node_mask=None):
     return winner[None].expand(n, b).to(torch.int32)
 
 
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every tensor of a cache tree (dicts and lists)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+# the engine's static int64 inputs, in staging order: a decode reads
+# tokens..mask, a prefill mask..prompt
+_INPUTS = ("tokens", "pos", "commit", "mask", "slot", "last", "prompt")
 
 
 class ServeEngine:
@@ -186,90 +202,193 @@ class ServeEngine:
         # ensemble-lane health: a crashed node's lane is dropped from every
         # aggregation; per_node mode keeps decoding all lanes
         self._node_mask = np.ones(self.n_nodes, bool)
-        # (kind, shape) -> 1 at the first dispatch of that shape
+        # key -> builds of its program; (key, pool index) -> the program
         self.trace_counts = collections.defaultdict(int)
-        self._views = {}       # version -> per-node {path: view} dicts
+        self.build_seconds = collections.defaultdict(float)
+        self.programs: Dict[tuple, Program] = {}
+        self._graphs = ProgramPool(self.device)
+        self._views: Dict[int, list] = {}   # pool index -> per-node views
+        self._init_static()
         self._bucket = self.policy.batch_buckets[0]
-        self._caches = self._init_caches(self._bucket)
         self._pos = np.zeros(self._bucket, np.int32)
         self._live = np.zeros(self._bucket, bool)
         self._pinned = np.zeros(self._bucket, np.int64)
         self._tokens = np.zeros((self.n_nodes, self._bucket), np.int32)
         self._reqs: List[Optional[Request]] = [None] * self._bucket
 
-    # -- dispatch cores -----------------------------------------------------
+    # -- static buffers -----------------------------------------------------
 
-    def _dispatch(self, key) -> None:
-        if key not in self.trace_counts:
-            self.trace_counts[key] = 1
-
-    def _node_params(self, version: int):
-        views = self._views.get(version)
-        if views is None:
-            buf = self.slot.buffer(version)
-            views = [self.model.layout.unflatten(buf[i])
-                     for i in range(self.n_nodes)]
-            self._views[version] = views
-        return views
-
-    def _node_mask_tensor(self) -> torch.Tensor:
-        return torch.as_tensor(self._node_mask, device=self.device)
-
-    def _decode_commit(self, version, tokens, pos, live) -> np.ndarray:
-        """One batched ensemble decode tick: tokens [N,B], pos [B], live
-        [B] (host arrays) -> aggregated next tokens [N,B]; only the lanes
-        ``live`` marks are written."""
-        self._dispatch(("decode", tokens.shape[1]))
-        params = self._node_params(version)
-        tok = torch.as_tensor(tokens, device=self.device).to(torch.long)
-        pos_t = torch.as_tensor(pos, device=self.device).to(torch.long)
-        commit = torch.as_tensor(live, device=self.device)
-        logits = []
-        for n in range(self.n_nodes):
-            caches = tree_map(lambda t: t[n], self._caches)
-            lg, _ = self._logits_step(params[n], tok[n][:, None], caches,
-                                      pos_t, commit=commit)
-            logits.append(lg[:, -1])
-        nxt = aggregate_logits(torch.stack(logits), self.mode, self.top_k,
-                               node_mask=self._node_mask_tensor())
-        return nxt.cpu().numpy()
-
-    def _prefill_commit(self, version, prompt, slot: int,
-                        length: int) -> np.ndarray:
-        """Ensemble prefill of ONE slot: padded prompt [S] -> per-node first
-        tokens [N]; the slot's cache lane is replaced in place."""
-        self._dispatch(("prefill", prompt.shape[0], self._bucket))
-        params = self._node_params(version)
-        toks = torch.as_tensor(prompt, device=self.device).to(
-            torch.long)[None]
-        logits = []
-        for n in range(self.n_nodes):
-            lane = tree_map(lambda t: t[n, slot:slot + 1], self._caches)
-            tree_map(lambda t: t.zero_(), lane)   # a fresh cache, in place
-            lg, _ = self._logits_step(params[n], toks, lane, 0)
-            logits.append(lg[0, length - 1])
-        first = aggregate_logits(torch.stack(logits)[:, None, :], self.mode,
-                                 self.top_k,
-                                 node_mask=self._node_mask_tensor())[:, 0]
-        return first.cpu().numpy()
-
-    # -- slot-table plumbing ------------------------------------------------
+    def _init_static(self) -> None:
+        """The cache table, the prefill's scratch lane, the staged inputs
+        and the outputs: allocated once, read and written by every
+        program in place."""
+        n, dev = self.n_nodes, self.device
+        bmax = self.policy.batch_bucket(self.max_slots)
+        self._table = self._init_caches(bmax)
+        self._scratch = self.model.init_cache(1, self.max_len, dev)
+        sizes = dict(tokens=n * bmax, pos=bmax, commit=bmax, mask=n, slot=1,
+                     last=1, prompt=self.policy.seq_buckets[-1])
+        pin = dev.type == "cuda"
+        total = sum(sizes.values())
+        self._host = torch.zeros(total, dtype=torch.int64, pin_memory=pin)
+        self._dev = torch.zeros(total, dtype=torch.int64, device=dev)
+        host = self._host.numpy()
+        self._span, self._in, self._staged = {}, {}, {}
+        at = 0
+        for name in _INPUTS:
+            self._span[name] = (at, at + sizes[name])
+            self._in[name] = self._dev[at:at + sizes[name]]
+            self._staged[name] = host[at:at + sizes[name]]
+            at += sizes[name]
+        self._in["tokens"] = self._in["tokens"].view(n, bmax)
+        self._staged["tokens"] = self._staged["tokens"].reshape(n, bmax)
+        # decode tokens in columns :bmax, a prefill's first tokens in bmax
+        self._out = torch.zeros((n, bmax + 1), dtype=torch.int32, device=dev)
+        self._host_out = torch.zeros((n, bmax + 1), dtype=torch.int32,
+                                     pin_memory=pin)
 
     def _init_caches(self, b: int):
-        """Stacked slot caches: leaves [N, b, *single-slot cache dims]."""
+        """Stacked slot caches, zeroed: leaves [N, b, *single-slot cache
+        dims]."""
         one = self.model.init_cache(1, self.max_len, self.device)
         return tree_map(
             lambda leaf: torch.zeros((self.n_nodes, b) + tuple(leaf.shape[1:]),
                                      dtype=leaf.dtype, device=self.device),
             one)
 
+    def _upload(self, first: str, last: str, stop: Optional[int] = None):
+        """Copy the staged inputs ``first``..``last`` to the card (``stop``
+        cuts the last one short)."""
+        a = self._span[first][0]
+        z = self._span[last][1] if stop is None else \
+            self._span[last][0] + stop
+        self._dev[a:z].copy_(self._host[a:z], non_blocking=True)
+
+    def _read(self) -> np.ndarray:
+        """The outputs on the host: the dispatch's one sync."""
+        self._host_out.copy_(self._out, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return self._host_out.numpy()
+
+    # -- programs -------------------------------------------------------------
+
+    def _params(self, index: int):
+        """Per-node param views of pool buffer ``index``."""
+        views = self._views.get(index)
+        if views is None:
+            buf = self.slot.pool[index]
+            views = [self.model.layout.unflatten(buf[i])
+                     for i in range(self.n_nodes)]
+            self._views[index] = views
+        return views
+
+    def _built(self, key, version: int) -> bool:
+        return (key, self.slot.index(version)) in self.programs
+
+    def _build(self, key, body_for: Callable) -> None:
+        """Build ``key``'s program on every pool buffer that lacks one;
+        ``body_for(per-node params)`` makes the body."""
+        t0 = time.perf_counter()
+        for index in range(len(self.slot.pool)):
+            if (key, index) not in self.programs:
+                self.programs[key, index] = self._graphs.capture(
+                    body_for(self._params(index)))
+        self.trace_counts[key] += 1
+        self.build_seconds[key] += time.perf_counter() - t0
+
+    def _decode_body(self, b: int, params) -> Callable[[], None]:
+        tokens, pos = self._in["tokens"][:, :b], self._in["pos"][:b]
+        lanes = [tree_map(lambda t, n=n: t[n, :b], self._table)
+                 for n in range(self.n_nodes)]
+
+        def body():
+            commit = self._in["commit"][:b] != 0
+            logits = []
+            for n in range(self.n_nodes):
+                lg, _ = self._logits_step(params[n], tokens[n][:, None],
+                                          lanes[n], pos, commit=commit)
+                logits.append(lg[:, -1])
+            nxt = aggregate_logits(torch.stack(logits), self.mode,
+                                   self.top_k, node_mask=self._in["mask"])
+            self._out[:, :b].copy_(nxt)
+
+        return body
+
+    def _prefill_body(self, s: int, b: int, params) -> Callable[[], None]:
+        prompt = self._in["prompt"][:s][None]
+        slot, last = self._in["slot"], self._in["last"]
+        scratch = tree_leaves(self._scratch)
+        lanes = [tree_leaves(tree_map(lambda t, n=n: t[n, :b], self._table))
+                 for n in range(self.n_nodes)]
+
+        def body():
+            logits = []
+            for n in range(self.n_nodes):
+                for t in scratch:           # a fresh cache, in place
+                    t.zero_()
+                lg, _ = self._logits_step(params[n], prompt, self._scratch,
+                                          0)
+                logits.append(lg[0].index_select(0, last))
+                for full, new in zip(lanes[n], scratch):
+                    full.index_copy_(0, slot, new)
+            first = aggregate_logits(torch.cat(logits)[:, None], self.mode,
+                                     self.top_k,
+                                     node_mask=self._in["mask"])[:, 0]
+            self._out[:, -1].copy_(first)
+
+        return body
+
+    # -- dispatch cores -----------------------------------------------------
+
+    def _stage_decode(self, tokens, pos, commit) -> None:
+        b = tokens.shape[1]
+        self._staged["tokens"][:, :b] = tokens
+        self._staged["pos"][:b] = pos
+        self._staged["commit"][:b] = commit
+        self._staged["mask"][:] = self._node_mask
+        self._upload("tokens", "mask")
+
+    def _stage_prefill(self, prompt, slot: int, length: int) -> None:
+        s = prompt.shape[0]
+        self._staged["mask"][:] = self._node_mask
+        self._staged["slot"][0] = slot
+        self._staged["last"][0] = length - 1
+        self._staged["prompt"][:s] = prompt
+        self._upload("mask", "prompt", stop=s)
+
+    def _decode_commit(self, version, tokens, pos, live) -> np.ndarray:
+        """One batched ensemble decode tick: tokens [N,B], pos [B], live
+        [B] (host arrays) -> aggregated next tokens [N,B]; only the lanes
+        ``live`` marks are written."""
+        b = tokens.shape[1]
+        key = ("decode", b)
+        if not self._built(key, version):
+            # the build's warm-up passes commit no lane
+            self._stage_decode(tokens, pos, np.zeros(b, bool))
+            self._build(key, lambda params: self._decode_body(b, params))
+        self._stage_decode(tokens, pos, live)
+        self.programs[key, self.slot.index(version)].run()
+        return self._read()[:, :b].copy()
+
+    def _prefill_commit(self, version, prompt, slot: int,
+                        length: int) -> np.ndarray:
+        """Ensemble prefill of ONE slot: padded prompt [S] -> per-node first
+        tokens [N]; the slot's cache lane is replaced in place."""
+        s, b = prompt.shape[0], self._bucket
+        key = ("prefill", s, b)
+        self._stage_prefill(prompt, slot, length)
+        if not self._built(key, version):
+            # the build's warm-up passes write only this (free) lane, which
+            # the dispatch then replaces
+            self._build(key, lambda params: self._prefill_body(s, b, params))
+        self.programs[key, self.slot.index(version)].run()
+        return self._read()[:, -1].copy()
+
+    # -- slot-table plumbing ------------------------------------------------
+
     def _grow(self, nb: int) -> None:
         pad = nb - self._bucket
-        self._caches = tree_map(
-            lambda c: torch.cat(
-                [c, torch.zeros(c.shape[:1] + (pad,) + c.shape[2:],
-                                dtype=c.dtype, device=c.device)], dim=1),
-            self._caches)
         self._pos = np.concatenate([self._pos, np.zeros(pad, np.int32)])
         self._live = np.concatenate([self._live, np.zeros(pad, bool)])
         self._pinned = np.concatenate([self._pinned, np.zeros(pad, np.int64)])
@@ -282,14 +401,12 @@ class ServeEngine:
         b0 = self.policy.batch_buckets[0]
         if self._bucket == b0 or self._live.any() or len(self.queue):
             return
-        self._caches = tree_map(lambda c: c[:, :b0].clone(), self._caches)
         self._pos = self._pos[:b0].copy()
         self._live = self._live[:b0].copy()
         self._pinned = self._pinned[:b0].copy()
         self._tokens = self._tokens[:, :b0].copy()
         self._reqs = self._reqs[:b0]
         self._bucket = b0
-
     # -- public API ---------------------------------------------------------
 
     @property
@@ -363,8 +480,6 @@ class ServeEngine:
         if self._live.any():
             self._decode_tick(done)
         self.slot.retire(self._pinned[self._live].tolist())
-        for version in [v for v in self._views if v not in self.slot.versions]:
-            del self._views[version]
         self._maybe_shrink()
         self.completed.extend(done)
         return done

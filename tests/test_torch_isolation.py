@@ -4,7 +4,7 @@ machine has none) — checked at run time in a fresh interpreter that drives
 one small CPU round on the int8 wire, a checkpoint round trip, a
 one-round fault plan with a corrupt sender, one small model-zoo scenario
 and one small LM serve, and statically over every
-source file."""
+source file and the jax-free test of the captured programs."""
 import ast
 import subprocess
 import sys
@@ -16,7 +16,8 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
+    ROOT / "tests" / "test_torch_capture.py"]
 
 _PROBE = r"""
 import sys

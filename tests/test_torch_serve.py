@@ -29,7 +29,7 @@ from repro_torch.configs.base import SwarmConfig  # noqa: E402
 from repro_torch.convert import lm_params_from_reference  # noqa: E402
 from repro_torch.core.flat import FlatLayout  # noqa: E402
 from repro_torch.core.session import SwarmSession  # noqa: E402
-from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.launch.serve import generate, tree_leaves  # noqa: E402
 from repro_torch.models import Model, build_model  # noqa: E402
 from repro_torch.models.attention import write_rows  # noqa: E402
 from repro_torch.serve import (AGG_MODES, BucketPolicy,  # noqa: E402
@@ -269,6 +269,116 @@ def test_steady_state_serving_stays_on_the_bucket_grid():
     grid = {("decode", b) for b in (1, 2)} | {("prefill", 8, b)
                                               for b in (1, 2)}
     assert set(warm) <= grid and all(v == 1 for v in warm.values())
+
+
+def _fresh_lane(tm, params, padded, max_len):
+    """One node's cache after a prefill of ``padded`` on a fresh lane."""
+    lane = tm.init_cache(1, max_len, "cpu")
+    tm.decode(tm.layout.unflatten(params), torch.from_numpy(
+        padded.astype(np.int64))[None], lane, 0)
+    return tree_leaves(lane)
+
+
+def test_prefill_program_serves_other_slots_and_lengths():
+    """The prefill program built at slot 0 and length L, dispatched again
+    at slot 1 and length L' < L (same seq bucket): it writes lane 1 (and
+    leaves lane 0), and both first tokens equal the JAX engine's."""
+    jm, tm = _models(vocab_size=64)
+    tree, flat = _stacked(jm, tm)
+    prompts = [np.arange(1, 8) % 64, np.arange(5, 9) % 64]   # L 7, L' 4
+    policy = dict(batch_buckets=(2,), seq_buckets=(8,))
+    jeng = JServeEngine(jm, tree, max_len=32, max_slots=2,
+                        policy=JBucketPolicy(**policy))
+    teng = _engine(tm, flat, max_len=32, max_slots=2,
+                   policy=BucketPolicy(**policy))
+    reqs = []
+    for eng in (jeng, teng):
+        reqs.append([eng.submit(p, max_new=4) for p in prompts])
+        eng._admit([])                     # the two prefills, no decode
+    assert [r.node_tokens[0].tolist() for r in reqs[1]] \
+        == [np.asarray(r.node_tokens[0]).tolist() for r in reqs[0]]
+    assert teng._live.tolist() == [True, True]
+    assert dict(teng.trace_counts) == {("prefill", 8, 2): 1}
+    assert teng.programs[("prefill", 8, 2), 0].eager_calls == 2
+    for slot, prompt in enumerate(prompts):
+        padded, _ = teng.policy.pad_prompt(prompt)
+        for n in range(N):
+            want = _fresh_lane(tm, flat[n], padded, 32)
+            got = [t[n, slot] for t in tree_leaves(teng._table)]
+            assert all(torch.equal(g, w[0]) for g, w in zip(got, want))
+
+
+def test_cache_table_storage_is_fixed_across_grow_and_shrink():
+    """The cache table is allocated once at the bucket ``max_slots`` needs;
+    growing and shrinking the bucket moves no storage."""
+    jm, tm = _models(vocab_size=64)
+    _, params = _stacked(jm, tm)
+    eng = _engine(tm, params, max_len=32, max_slots=4,
+                  policy=_policy((1, 2, 4), (8,)))
+    leaves = tree_leaves(eng._table)
+    ptrs = [t.data_ptr() for t in leaves]
+    assert all(t.shape[:2] == (N, 4) for t in leaves)
+    for n in (4, 6, 5):
+        eng.submit(np.arange(1, 1 + n), max_new=3)
+    eng.step()
+    assert eng._bucket == 4 and eng.live_count == 3
+    eng.drain()
+    assert eng._bucket == 1
+    assert [t.data_ptr() for t in tree_leaves(eng._table)] == ptrs
+
+
+def test_hot_swap_slot_pool_keeps_addresses():
+    """Buffer 0 adopts the constructor's tensor; ``publish`` copies into a
+    buffer no version holds, and the pool grows only when every buffer is
+    held (a swap during a swap); addresses never move."""
+    first = _peaked(3)
+    slot = HotSwapSlot(first)
+    assert len(slot.pool) == 2 and slot.pool[0] is first
+    ptrs = [b.data_ptr() for b in slot.pool]
+    v1 = slot.publish(_peaked(9))
+    assert slot.index(v1) == 1 and slot.live.data_ptr() == ptrs[1]
+    slot.retire(pinned=[])
+    v2 = slot.publish(_peaked(5))                  # back into buffer 0
+    assert slot.index(v2) == 0 and len(slot.pool) == 2
+    v3 = slot.publish(_peaked(7))                  # v1, v2 held: grow
+    assert slot.index(v3) == 2 and len(slot.pool) == 3
+    assert [b.data_ptr() for b in slot.pool[:2]] == ptrs
+    assert [int(slot.buffer(v).argmax(-1)[0]) for v in slot.versions] \
+        == [9, 5, 7]
+    slot.retire(pinned=[v1])                       # v2 dropped
+    assert slot.versions == (v1, v3)
+    v4 = slot.publish(_peaked(2))
+    assert slot.index(v4) == 0 and len(slot.pool) == 3
+    assert torch.equal(slot.live, _peaked(2))
+
+
+def test_trace_counts_equal_builds():
+    """``trace_counts[key]`` counts builds: one per key on the grid, each
+    on every pool buffer; a swap during a swap grows the pool, and a key
+    dispatched on the new buffer is built again."""
+    eng = _engine(_toy_model(), _peaked(3), mode="consensus", max_len=32,
+                  max_slots=2, policy=_policy((1, 2), (8,)))
+    eng.submit([1, 2, 3], max_new=2)
+    eng.submit([4, 5], max_new=2)
+    eng.drain()
+    warm = dict(eng.trace_counts)
+    assert warm == {("prefill", 8, 1): 1, ("prefill", 8, 2): 1,
+                    ("decode", 2): 1}
+    assert set(eng.programs) == {(k, i) for k in warm for i in (0, 1)}
+    old = eng.submit([1, 2, 3], max_new=5)
+    eng.step()
+    eng.swap(_peaked(9))                  # into buffer 1
+    v2 = eng.swap(_peaked(5))             # v0 and v1 held: buffer 2
+    assert eng.slot.index(v2) == 2
+    new = eng.submit([6, 7], max_new=3)
+    eng.drain()
+    assert old.tokens == [3] * 5 and new.tokens == [5] * 3
+    assert dict(eng.trace_counts) == {("prefill", 8, 1): 1,
+                                      ("prefill", 8, 2): 2,
+                                      ("decode", 1): 1, ("decode", 2): 2}
+    assert sum(eng.trace_counts.values()) == len(
+        {(k, i) for k, i in eng.programs if i < 2}) // 2 + len(
+        [1 for k, i in eng.programs if i == 2])
 
 
 # ---------------------------------------------------------------------------
