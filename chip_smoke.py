@@ -100,9 +100,11 @@ Phases, each printing one JSON line:
                  reference's sweep at 1e-4 (f32) and Hymba's (1, S, 50,
                  64, 16, 256) at S = 2048 and 256 and Mamba2's (1, 2048,
                  32, 64, 128, 256) bf16 shapes, y at 2e-2 and the f32 final
-                 state at 1e-4; times, TFLOP/s and bounds (C·Bᵀ at the bf16
-                 tensor-core rate, the rest at the f32 rate; no single
-                 PyTorch call computes it);
+                 state at 1e-4; a_log per batch row (the trainer's folded
+                 nodes) against one row at a time with a shared [H] (the
+                 serving path's stride 0), bit for bit; times, TFLOP/s and
+                 bounds (C·Bᵀ at the bf16 tensor-core rate, the rest at the
+                 f32 rate; no single PyTorch call computes it);
  14. merge_one   the one-node commit through ``kernels.ops.merge_op``: each
                  node of a [4, 1,639,705] f32 swarm state committed alone
                  (the counted path) equals the all-nodes kernel's row bit
@@ -148,6 +150,27 @@ Phases, each printing one JSON line:
                  time and busy share; a profiled replayed prefill's flash
                  and SSD kernel records equal to its launches), each with
                  the card's name and power limit;
+ 16b. train_grads the flash and SSD autograd Functions (kernel forward,
+                 plain backward, vmap rule) under torch.func.vmap(grad) over
+                 2 nodes at Hymba-1.5B's (q [4,25,256,64], K/V [4,5,256,64],
+                 windows 0 and 1024; SSD [4,256,50,64], N 16) and
+                 Mamba2-370M's (SSD [8,256,32,64], N 128) training shapes,
+                 f32 and bf16, against autograd through the plain versions
+                 (1e-4 / 2e-2 of 1 + |want|), and the folded forward against
+                 a per-node loop bit for bit;
+ 16c. train_parity one train step of the hybrid smoke variant in f32 on the
+                 card (flash and SSD kernels) against the CPU (TF32 off):
+                 the loss within 1e-5 relative, params within 2·lr;
+ 16d. train      the LM trainer at full width through its CLI entry point
+                 (``repro_torch.launch.train.run``), counts set to 0 before
+                 each path: Mamba2-370M (bf16, f32 A_log/D/dt_bias) as an
+                 N = 4 swarm, ``--sync-every 2 --steps 4 --batch 8 --seq
+                 256``, on the f32 and on the int8 wire, and Hymba-1.5B as
+                 one learner, 3 steps at ``--batch 4 --seq 256``; each with
+                 finite params and losses, changed f32 leaves and the
+                 predicted launches (``TRAIN_PATHS``), its last round's
+                 (step's) wall and tokens/s, then one profiled round (step):
+                 device time per step, busy share, peak memory;
  17. timing      how many device times the profiler read, how many traces
                  ``device_ms`` discarded for lost kernel records, and how
                  many times it fell back to CUDA events;
@@ -1448,6 +1471,20 @@ def phase_ssd_kernel(dev, bw, peak, bf16_peak):
                 raise AssertionError(f"ssd {(b, s, h, p, n, chunk)}: max err "
                                      f"{float(err.max())}")
             max_err = max(max_err, float(err.max()))
+    # a_log per batch row (the trainer's nodes folded into the batch)
+    # against one row at a time with a shared [H] (stride 0, the serving
+    # path's form): bit for bit, both dtypes
+    for dtype in ("float32", "bfloat16"):
+        x, d, alog, bm, cm = inputs(4, 512, 32, 64, 128, dtype)
+        per_row = torch.stack([alog + 0.1 * i for i in range(4)])
+        y, st = ss.ssd_scan(x, d, per_row, bm, cm, chunk=256)
+        for i in range(4):
+            yi, si = ss.ssd_scan(x[i:i + 1], d[i:i + 1], per_row[i],
+                                 bm[i:i + 1], cm[i:i + 1], chunk=256)
+            if not (torch.equal(y[i:i + 1], yi)
+                    and torch.equal(st[i:i + 1], si)):
+                raise AssertionError(f"ssd a_log per row differs from the "
+                                     f"shared form at row {i} ({dtype})")
     rows = {}
     for name, (b, s, h, p, n, chunk) in SSD_MODELS:
         args = inputs(b, s, h, p, n, "bfloat16")
@@ -1476,6 +1513,7 @@ def phase_ssd_kernel(dev, bw, peak, bf16_peak):
             bound_ms=bms, bound_by=by)
     emit("ssd_kernel", sweep=[list(c) for c in SSD_SWEEP],
          max_abs_err_f32=max_err, models=rows,
+         a_log_per_row_bit_equal=True,
          rate="C·Bᵀ at the bf16 tensor-core rate, the rest at the f32 rate",
          tolerance={"float32": 1e-4, "bfloat16": 2e-2, "state": 1e-4})
     hy = rows["hymba"]
@@ -1975,6 +2013,340 @@ def phase_serve(dev, smi):
     return launches2
 
 
+# the train phase's gradient checks: (name, flash q/K/V shapes and windows
+# or SSD shapes) at Hymba-1.5B's and Mamba2-370M's training shapes, batch
+# 4 / 8 at 256 tokens, two nodes under vmap
+GRAD_FLASH = (("hymba", 4, 25, 5, 256, 64, (0, 1024)),)
+GRAD_SSD = (("hymba", 4, 256, 50, 64, 16, 256), ("mamba2", 8, 256, 32, 64,
+                                                 128, 256))
+# the train phase's paths: (name, CLI arguments, predicted launches). A
+# vmapped train step runs one flash and one SSD launch per layer for all N
+# nodes (the vmap rules fold the nodes into the batch; the backwards are
+# plain PyTorch); a sync scores the params and the candidate (one vmapped
+# forward each) and commits in one launch over the f32 value vector.
+# Mamba2-370M: 48 SSD layers, no attention; 4 steps in 2 rounds: 4 x 48
+# training launches + 2 syncs x 2 scores x 48. Hymba-1.5B: 32 layers, each
+# one flash and one SSD launch a step, 3 steps.
+TRAIN_PATHS = (
+    ("mamba2_f32_wire",
+     ["--arch", "mamba2-370m", "--swarm-nodes", "4", "--sync-every", "2",
+      "--steps", "4", "--batch", "8", "--seq", "256"],
+     {"ssd_scan": 4 * 48 + 2 * 2 * 48, "fused_merge_all": 2}),
+    ("mamba2_int8_wire",
+     ["--arch", "mamba2-370m", "--swarm-nodes", "4", "--sync-every", "2",
+      "--steps", "4", "--batch", "8", "--seq", "256", "--wire-dtype",
+      "int8"],
+     {"ssd_scan": 4 * 48 + 2 * 2 * 48, "fused_quant_merge_all": 2}),
+    ("hymba_plain",
+     ["--arch", "hymba-1.5b", "--steps", "3", "--batch", "4", "--seq",
+      "256"],
+     {"flash_attention": 3 * 32, "ssd_scan": 3 * 32}),
+)
+
+
+def _grad_check(fn, plain, inputs, nodes, tol):
+    """vmap(grad) over ``nodes`` of a linear loss through the kernel
+    Function ``fn`` against the same through the plain version ``plain``
+    (autograd): the max abs gradient error, raising beyond ``tol`` (as
+    ``|got - want| <= tol * (1 + |want|)``); then the vmapped forward
+    against a per-node loop, bit for bit."""
+    import torch
+    with torch.no_grad():
+        outs = torch.func.vmap(fn)(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        for i in range(nodes):
+            one = fn(*(t[i] for t in inputs))
+            one = one if isinstance(one, tuple) else (one,)
+            if not all(torch.equal(a[i], b) for a, b in zip(outs, one)):
+                raise AssertionError("vmap fold differs from the node loop")
+    gen = torch.Generator(device=outs[0].device).manual_seed(0)
+    weights = [torch.randn(o.shape[1:], generator=gen, device=o.device)
+               for o in outs]
+
+    def loss(f):
+        def inner(*args):
+            out = f(*args)
+            out = out if isinstance(out, tuple) else (out,)
+            return sum(torch.sum(o.float() * w) for o, w in zip(out, weights))
+        return inner
+
+    argn = tuple(range(len(inputs)))
+    got = torch.func.vmap(torch.func.grad(loss(fn), argnums=argn))(*inputs)
+    want = torch.func.vmap(torch.func.grad(loss(plain),
+                                           argnums=argn))(*inputs)
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError("non-finite gradient")
+        if bool(((g - w).abs() > tol * (1 + w.abs())).any()):
+            raise AssertionError(f"gradient error {float((g - w).abs().max())}"
+                                 f" beyond {tol}")
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def phase_train_grads(dev):
+    """The flash and SSD Functions (kernel forward, plain backward, vmap
+    rule) under torch.func.vmap(grad) over 2 nodes at Hymba-1.5B's and
+    Mamba2-370M's training shapes, f32 and bf16, against autograd through
+    the plain versions; the folded forward against a per-node loop, bit
+    for bit."""
+    import functools
+    import torch
+    from repro_torch.kernels.flash_attention import flash_apply
+    from repro_torch.kernels.ref import flash_attention_plain, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_apply
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    out = {}
+    nodes = 2
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        dn = str(dtype).split(".")[-1]
+        for name, b, h, hkv, s, d, windows in GRAD_FLASH:
+            q = randn(nodes, b, h, s, d).to(dtype)
+            k = randn(nodes, b, hkv, s, d).to(dtype)
+            v = randn(nodes, b, hkv, s, d).to(dtype)
+            for w in windows:
+                out[f"flash_{name}_w{w}_{dn}"] = _grad_check(
+                    functools.partial(flash_apply, causal=True, window=w),
+                    functools.partial(flash_attention_plain, causal=True,
+                                      window=w), (q, k, v), nodes, tol)
+        for name, b, s, h, p, n, chunk in GRAD_SSD:
+            x = randn(nodes, b, s, h, p).to(dtype)
+            dt = torch.nn.functional.softplus(randn(nodes, b, s, h) - 2.0)
+            a_log = torch.log(torch.linspace(1, 16, h, device=dev)) \
+                + randn(nodes, h, scale=0.1)
+            bm = randn(nodes, b, s, 1, n, scale=0.5).to(dtype)
+            cm = randn(nodes, b, s, 1, n, scale=0.5).to(dtype)
+            out[f"ssd_{name}_{dn}"] = _grad_check(
+                functools.partial(ssd_apply, chunk=chunk),
+                functools.partial(ssd_scan_plain, chunk=chunk),
+                (x, dt, a_log, bm, cm), nodes, tol)
+    torch.cuda.synchronize()
+    emit("train_grads", max_abs_err=out, nodes=nodes,
+         tolerance={"float32": 1e-4, "bfloat16": 2e-2},
+         tolerance_form="|got - want| <= tol * (1 + |want|)")
+
+
+def phase_train_parity(dev):
+    """One train step of the hybrid smoke variant (f32) on the card, its
+    forward through the flash and SSD kernels and its backward through
+    their Functions, against the same step on the CPU through their plain
+    versions, from the same init and batch (TF32 off), at lr 1e-4 from the
+    first step (no warmup): the loss within 1e-5 relative; AdamW's moments
+    (0.1·g and 0.05·g² of the clipped gradient) of every leaf within 1e-3
+    of the leaf's largest magnitude; the update p − init within 1 % of its
+    norm on the CPU; every param within 2·lr (AdamW moves a param whose
+    gradient sits at the rounding floor by up to ±lr in either run)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.models import build_model
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = build_model(smoke_variant(get_config("hymba-1.5b")))
+        tc = TrainConfig(warmup_steps=0, max_steps=10, remat=False)
+        step = make_train_step(model, tc)
+        p, o = init_train_state(model, torch.Generator().manual_seed(0),
+                                "cpu")
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, 512, (4, 65)))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        res = {}
+        reset_launches()
+        for d in ("cpu", dev):
+            moved = {k: v.to(d) for k, v in o.items()}
+            pp, oo, m = step(p.to(d), moved, {k: v.to(d)
+                                              for k, v in batch.items()})
+            res[d] = (pp.cpu(), {k: oo[k].cpu() for k in ("mu", "nu")},
+                      float(m["loss"]))
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (pc, oc, lc), (pg, og, lg) = res["cpu"], res[dev]
+    loss_err = abs(lg - lc) / abs(lc)
+    p_err = float((pg - pc).abs().max())
+    values = model.layout.value_layout
+    moment_err = {}
+    for key in ("mu", "nu"):
+        got, want = values.unflatten(og[key]), values.unflatten(oc[key])
+        moment_err[key] = max(
+            float((got[path] - want[path]).abs().max()
+                  / want[path].abs().max().clamp(min=1e-30))
+            for path in want)
+    update_err = float((pg - pc).norm() / (pc - p).norm())
+    if not (loss_err <= 1e-5 and p_err <= 2 * tc.lr
+            and max(moment_err.values()) <= 1e-3 and update_err <= 1e-2):
+        raise AssertionError(f"train step card vs CPU: loss {loss_err}, "
+                             f"params {p_err}, moments {moment_err}, "
+                             f"update {update_err}")
+    if launches != {"flash_attention": 2, "ssd_scan": 2}:
+        raise AssertionError(f"card train step launches {launches}")
+    emit("train_parity", arch="hymba-1.5b-smoke", lr=tc.lr,
+         loss_rel_err=loss_err, params_max_abs_err=p_err,
+         moment_err_rel_to_leaf_max=moment_err, update_norm_rel_err=update_err,
+         tolerance={"loss_rel": 1e-5, "params_abs": 2 * tc.lr,
+                    "moments_rel_to_leaf_max": 1e-3, "update_norm_rel": 1e-2},
+         launches=launches)
+
+
+def _wide_changed(model, params, dev):
+    """True when every wide (f32) leaf of ``params`` [N, P] or [P] differs
+    from its initial value somewhere."""
+    import torch
+    init = model.layout.unflatten(model.init(
+        torch.Generator(device=dev).manual_seed(0), dev))
+    now = model.layout.unflatten(params)
+    return {path: bool((now[path].float() - init[path].float()).abs().max()
+                       > 0) for path in sorted(model.layout.wide)}
+
+
+def _train_path(name, argv, predicted, dev, smi):
+    """One path of :func:`phase_train`; returns its launch counts."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+
+    args = train.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = train.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in LAUNCHES.items() if v}
+    if counts != predicted:
+        raise AssertionError(f"{name}: launches {counts}, predicted "
+                             f"{predicted}")
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    model, sess = res["model"], res.get("session")
+    n = args.swarm_nodes or 1
+    walls = res["walls"]
+    # the last round (step) alone: the first one's wall holds the
+    # allocator's growth and the kernels' first calls
+    per_block = walls[-1][1] - walls[-2][1]
+    steps_block = walls[-1][0] - walls[-2][0]
+    params = sess.state.params if sess is not None else res["params"]
+    if not bool(torch.isfinite(model.layout.values(params)).all()):
+        raise AssertionError(f"{name}: non-finite params")
+    wide = _wide_changed(model, params, dev)
+    if not all(wide.values()):
+        raise AssertionError(f"{name}: wide leaves unchanged {wide}")
+    # one more round (step) under the profiler, on fresh tokens
+    rng = np.random.default_rng(1)
+
+    def toks(*shape):
+        a = rng.integers(0, model.cfg.vocab_size, shape + (args.seq + 1,))
+        return {"tokens": torch.from_numpy(a[..., :-1]).to(dev),
+                "labels": torch.from_numpy(a[..., 1:]).to(dev)}
+
+    sync_mem = {}
+    if sess is not None:
+        block, val = toks(steps_block, n, args.batch), toks(n, 8)
+        sync = sess.engine.sync
+
+        def measured_sync(*a, **kw):
+            # the sync's own peak, above what the round holds before it
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = sync(*a, **kw)
+            torch.cuda.synchronize()
+            sync_mem.update(
+                held_before_gib=before / 2 ** 30,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                extra_gib=(torch.cuda.max_memory_allocated() - before)
+                / 2 ** 30)
+            return out
+
+        def fn():
+            return sess.round(block, val)["train"]["loss"]
+    else:
+        batch = toks(args.batch)
+
+        def fn():
+            return res["step_fn"](res["params"], res["opt_state"],
+                                  batch)[2]["loss"]
+    torch.cuda.synchronize()
+    # device records only: a round's host ops would make the trace slow to
+    # process
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        losses = fn().float().cpu()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t1
+    busy = _busy(prof, pwall)
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    if sess is not None:
+        # one more round, outside the trace, for the sync's memory
+        sess.engine.sync = measured_sync
+        try:
+            sess.round(block, val)
+        finally:
+            del sess.engine.sync
+    tokens = steps_block * n * args.batch * args.seq
+    emit("train", path=name, nvidia_smi=smi, argv=argv,
+         values_per_node=model.layout.n_values,
+         slots_per_node=model.layout.size, wide_values=model.layout.n_wide,
+         wide_changed=wide, steps=res["steps"], wall_s=wall,
+         walls=[[st, w] for st, w in walls],
+         step_wall_s=per_block / steps_block,
+         tokens_per_s=tokens / per_block, profiled_wall_s=pwall,
+         device_s_per_step=busy["device_busy_s"] / steps_block,
+         busy_share=busy["device_busy_share"],
+         kernel_launches_profiled=busy["kernel_launches"],
+         top_device=busy["top_device"][:6],
+         loss_profiled=[float(x) for x in losses.reshape(-1)],
+         peak_allocated_gib=peak / 2 ** 30,
+         peak_reserved_gib=reserved / 2 ** 30,
+         card_memory_gib=torch.cuda.get_device_properties(0).total_memory
+         / 2 ** 30, sync_memory=sync_mem,
+         launches=counts, predicted=predicted, sync_log=res["sync_log"])
+    return counts
+
+
+def phase_train(dev, smi):
+    """The LM trainer at full width through its CLI entry point
+    (``repro_torch.launch.train.run`` on parsed arguments), counts set to 0
+    just before each path and read just after: Mamba2-370M as an N = 4
+    swarm on the f32 and the int8 wire, Hymba-1.5B as one learner. Each
+    path's params and losses finite, its wide (f32) leaves changed, its
+    launches equal to the prediction; then one more round (step) of it
+    under the profiler for the device time and busy share."""
+    import gc
+    import torch
+    from repro_torch.launch import serve as lserve
+
+    # the serving phase's cached step programs hold their buffers
+    for cached in (lserve.step_buffers, lserve.serve_step_for,
+                   lserve.prefill_step_for):
+        cached.cache_clear()
+    all_counts = {}
+    for name, argv, predicted in TRAIN_PATHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k, v in _train_path(name, argv, predicted, dev, smi).items():
+            all_counts[k] = all_counts.get(k, 0) + v
+    return all_counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2045,6 +2417,12 @@ def main() -> int:
     # the LM slice: parity, serving
     phase_lm_parity(dev)
     counts = phase_serve(dev, smi)
+    launches.update({k: v for k, v in counts.items()
+                     if v and k not in launches})
+    # the trainer: gradient checks, card vs CPU, then the full-width paths
+    phase_train_grads(dev)
+    phase_train_parity(dev)
+    counts = phase_train(dev, smi)
     launches.update({k: v for k, v in counts.items()
                      if v and k not in launches})
 

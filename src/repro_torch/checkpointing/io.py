@@ -22,6 +22,7 @@ file raises ``ValueError``. The codec is the port's own
 """
 from __future__ import annotations
 
+import json
 import os
 import tempfile
 from typing import Any, Dict, Iterator, Tuple
@@ -175,3 +176,11 @@ def load_pytree(path: str, like: Any) -> Any:
 
 def load_metadata(path: str) -> dict:
     return _read_payload(path)["metadata"]
+
+
+def save_json(path: str, obj: Any) -> None:
+    """A copy of the reference's ``save_json`` (indent 2, numbers through
+    ``float``)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=2, default=float)

@@ -143,9 +143,9 @@ class SwarmConfig:
     """P2P-SL: the paper's technique as a first-class feature.
 
     ``payload="lora"`` (the heterogeneous model zoo: the state is the
-    shared adapter payload) is ported. ``lora_only`` with ``payload="full"``
-    (carving adapters out of a full state) waits for the LM/trainer slice
-    and raises ``NotImplementedError`` when the sync that needs it runs.
+    shared adapter payload) and ``lora_only`` with ``payload="full"`` (the
+    sync carves the adapter leaves out of a full state, e.g. the LoRA'd LM
+    of ``repro_torch.launch.train --lora``) are both ported.
     """
 
     n_nodes: int = 4

@@ -88,9 +88,11 @@ def to_reference_tree(layout: FlatLayout, flat: torch.Tensor) -> Any:
 
 
 def adamw_from_reference(layout: FlatLayout, opt_state, lead: int = 0):
-    """Reference AdamW state ``{"mu", "nu", "count"}`` → the port's."""
-    return {"mu": from_reference(layout, opt_state["mu"], lead),
-            "nu": from_reference(layout, opt_state["nu"], lead),
+    """Reference AdamW state ``{"mu", "nu", "count"}`` → the port's (the
+    moments over the layout's values: a wide leaf's f32 value once)."""
+    values = layout.value_layout
+    return {"mu": from_reference(values, opt_state["mu"], lead),
+            "nu": from_reference(values, opt_state["nu"], lead),
             "count": torch.as_tensor(np.array(opt_state["count"]),
                                      dtype=torch.int32)}
 

@@ -235,10 +235,13 @@ def payload_param_count(stacked: torch.Tensor, lora_only: bool,
                         n_nodes: int, layout: Optional[FlatLayout] = None
                         ) -> int:
     """Per-node payload values P of a stacked ``[N, P]`` state: all of
-    them, or with ``lora_only`` (adapters carved out of a full state at
-    sync) those of the adapter leaves of its ``layout`` (``lora_`` paths;
-    0 without a layout, as the reference counts a tree without adapters)."""
+    them (a wide leaf's f32 value counted once, not as its two slots), or
+    with ``lora_only`` (adapters carved out of a full state at sync) those
+    of the adapter leaves of its ``layout`` (``lora_`` paths; 0 without a
+    layout, as the reference counts a tree without adapters)."""
     if not lora_only:
+        if layout is not None:
+            return layout.n_values
         return int(stacked.numel() // max(n_nodes, 1))
     # without a layout the state is one unnamed leaf: no adapters
     leaves = layout.leaves if layout is not None else ()
@@ -597,19 +600,54 @@ def wire_grid(layout: "FlatLayout | int", wire_dtype: str, wire_block: int,
 # quantized wire: stateless round-trip + error-feedback advance over [N, P]
 # ---------------------------------------------------------------------------
 
+#: columns per chunk of the wire's round trip over ``[N, P]``: a
+#: full-width LM's temporaries (the residual, its magnitudes, the gathered
+#: scales, the quotient) live one chunk at a time
+CHUNK = 1 << 24
+
+
+def _round_trip(x: torch.Tensor, wire: Optional[torch.Tensor],
+                grid: WireGrid) -> torch.Tensor:
+    """``wire + deq(q(x − wire))`` over a stacked ``[N, P]`` tensor (``wire``
+    None: ``deq(q(x))``), f32 out, ``CHUNK`` columns at a time: one pass
+    gathers every block's max |x − wire| (a max is exact in any order),
+    a second quantizes with it. The same operations, element by element,
+    as on the whole tensor at once, so the bits do not depend on
+    ``CHUNK``."""
+    shape = x.shape
+    x = x.reshape(-1, shape[-1])
+    wire = None if wire is None else wire.reshape(-1, shape[-1])
+    n, p = x.shape
+    spans = [(a, min(a + CHUNK, p)) for a in range(0, p, CHUNK)]
+
+    def residual(a, b):
+        v = x[:, a:b].to(torch.float32)
+        return v if wire is None else v - wire[:, a:b]
+
+    maxabs = None
+    if grid.wire_dtype == "int8":
+        maxabs = torch.zeros((n, grid.segments.shape[0]), dtype=torch.float32,
+                             device=x.device)
+        for a, b in spans:
+            maxabs.scatter_reduce_(1, grid.seg_id[a:b].expand(n, -1),
+                                   residual(a, b).abs(), "amax")
+    out = torch.empty((n, p), dtype=torch.float32, device=x.device)
+    for a, b in spans:
+        v = residual(a, b)
+        if maxabs is None:
+            deq = quant_dequant_block(v, grid.wire_dtype, grid.wire_block)
+        else:
+            q, scale = _quantize(v, maxabs.gather(
+                1, grid.seg_id[a:b].expand(n, -1)))
+            deq = q * scale
+        out[:, a:b] = deq if wire is None else wire[:, a:b] + deq
+    return out.reshape(shape)
+
+
 def quant_dequant(v: torch.Tensor, grid: WireGrid) -> torch.Tensor:
     """Stateless wire round-trip of a stacked ``[N, P]`` tensor on the
     per-leaf grid (f32 out): the reference's ``quant_dequant_tree``."""
-    vf = v.to(torch.float32)
-    if grid.wire_dtype != "int8":
-        return quant_dequant_block(vf, grid.wire_dtype, grid.wire_block)
-    n = vf.shape[0]
-    s = grid.segments.shape[0]
-    idx = grid.seg_id.expand(n, -1)
-    maxabs = torch.zeros((n, s), dtype=torch.float32, device=vf.device)
-    maxabs.scatter_reduce_(1, idx, vf.abs(), "amax")
-    q, scale = _quantize(vf, maxabs.gather(1, idx))
-    return q * scale
+    return _round_trip(v, None, grid)
 
 
 def init_wire(payload: torch.Tensor) -> torch.Tensor:
@@ -627,9 +665,7 @@ def wire_effective(payload: torch.Tensor, wire: torch.Tensor,
     subtraction, the round-trip and the addition are separate roundings
     (no fused multiply-add), the same operations the commit kernel does,
     so the gate sees exactly the bits the kernel commits."""
-    v = payload.to(torch.float32) - wire
-    deq = quant_dequant(v, grid)
-    return wire + deq
+    return _round_trip(payload, wire, grid)
 
 
 def wire_residual(payload: torch.Tensor, wire: torch.Tensor) -> torch.Tensor:

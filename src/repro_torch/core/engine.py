@@ -1,6 +1,9 @@
 """Stacked swarm engine: the P2P-SL round over the flat ``[N, P]`` state.
 
-Port of ``repro.core.engine`` (engine/host backend). One round is
+Port of ``repro.core.engine`` (engine/host backend). The engine gives the
+pieces of a round and `repro_torch.core.session.SwarmSession` drives them
+(``round``, ``run_rounds``, ``run_local``: one :meth:`SwarmEngine.
+local_steps` call a step, then :meth:`SwarmEngine.sync`). One round is
 
   local steps   ``torch.func.vmap`` of the per-node train step over the node
                 axis, a Python loop over the ``sync_every`` steps; the merge
@@ -11,8 +14,10 @@ Port of ``repro.core.engine`` (engine/host backend). One round is
   gate          the stacked ``eval_fn`` scores local and merged params for
                 every node at once → per-node accept bits, all on the device;
   commit        `kernels.fused_merge.fused_merge_all`: one launch of the
-                hand-written CUDA kernel over ``[N, P]`` (W rows, optionally
-                importance-weighted for fisher/gradmatch, plus the gate).
+                hand-written CUDA kernel over ``[N, P]`` (mean/fedavg
+                re-contract the W rows, fisher/gradmatch pass their
+                importance, plus the gate), as the reference's
+                ``host_commit`` does leaf by leaf.
 
 With ``cfg.wire_dtype`` = ``"int8"``/``"bf16"`` the peers exchange the
 quantized error-feedback wire (`core.comms`): propose and the gate see the
@@ -35,9 +40,28 @@ shared adapter payload): :func:`zoo_vstep` and :func:`zoo_veval` call them
 node by node and restack, with the same stacked-in, stacked-out contract;
 an eval closure then scores one node, ``(params [P], val_i) -> scalar``.
 
+**Values.** The sync treats the params as numbers. A buffer whose slots
+are its values (no wide leaf) syncs on the f32 wire in its own dtype, one
+``fused_merge_all`` launch, as before the wide leaves. Otherwise it reads
+the ``[N, P]`` slot buffer as its f32 value vector (`repro_torch.core.flat`:
+``FlatLayout.values``), so a bf16 LM's wide leaves (f32 ``A_log``, ``D``,
+``dt_bias``, ``lora_scale``) merge, cross the wire and enter the checksum
+as f32 numbers and the rest as the f32 of its bf16 values; importance
+statistics, the wire reference θ̂ and the optimizer's moments live over
+values too. Propose, the quantized round trip and the commit run on that
+``[N, n_values]`` f32 vector (one commit launch: `fused_quant_merge_all`
+takes f32 params only, so the quantized wire needs that vector in any
+case), and the result is written back into slots, each leaf in its dtype:
+a rejected row or a leaf outside the payload comes back bit for bit.
+
+**Adapter-only sync** (``lora_only=True`` with ``payload="full"``, the
+LoRA'd LM of the trainer): the adapter leaves (``lora_`` paths) are carved
+out of the value vector at sync; propose, the wire, the checksum and the
+commit see only them, and the base passes through, as the reference's
+``strategy_propose`` / ``host_commit`` do with ``split_adapters``.
+
 Not in this slice (``NotImplementedError``, see ROADMAP): the gossip and
-host backends, and ``lora_only`` with ``payload="full"`` at sync (carving
-adapters out of a full state: the LM/trainer slice).
+host backends.
 """
 from __future__ import annotations
 
@@ -51,6 +75,7 @@ from repro_torch.core import comms
 from repro_torch.core import merge_impl as merge_lib
 from repro_torch.core import topology as topo
 from repro_torch.core.flat import FlatLayout
+from repro_torch.core.lora import is_adapter_path
 from repro_torch.faults.signals import flip_payload_bits
 from repro_torch.kernels.fused_merge import (fused_merge_all,
                                              fused_quant_merge_all)
@@ -193,15 +218,6 @@ def gated_commit(candidate, local, gates):
     return torch.where(gates.reshape(-1, 1), candidate, local)
 
 
-def host_commit(stacked, candidate, W, gates, cfg: SwarmConfig, *, imp=None):
-    """Commit through the fused kernel: mean/fedavg re-contract the W rows;
-    fisher/gradmatch pass their importance so the normalized weighted merge
-    runs in the same single launch."""
-    if cfg.merge in ("mean", "fedavg") or imp is not None:
-        return fused_merge_all(stacked, W, gates, imp)
-    return gated_commit(candidate, stacked, gates)
-
-
 class SwarmEngine:
     """Stacked swarm over one device: vmapped local steps + on-device gated
     sync — the reference's ``backend="host"`` (N param copies on one device,
@@ -229,6 +245,8 @@ class SwarmEngine:
         # the leaf boundaries of the payload: the wire's block grid restarts
         # at every leaf, as the reference's per-leaf quantization does
         self.layout = layout
+        self._split_lora = comms.split_payload_at_sync(cfg)
+        self._adapters = None
         self._grid = None
         self._ref = None
         # the engine backend reports the SPMD-equivalent wire cost
@@ -268,9 +286,62 @@ class SwarmEngine:
         self.spectral_gap = topo.spectral_gap(self._base_W)
 
     def init_stats(self, stacked):
-        """Strategy importance accumulators (None for mean/fedavg)."""
-        return (self.strategy.init_stats(stacked)
-                if self.strategy.uses_stats else None)
+        """Strategy importance accumulators over the params' values
+        (None for mean/fedavg)."""
+        if not self.strategy.uses_stats:
+            return None
+        shape = (stacked.shape[0], self._n_values(stacked))
+        return self.strategy.init_stats(
+            torch.empty((), device=stacked.device).expand(shape))
+
+    # -- slots and values ----------------------------------------------------
+
+    def _n_values(self, params) -> int:
+        return (params.shape[-1] if self.layout is None
+                else self.layout.n_values)
+
+    def _values(self, params):
+        """``[N, P]`` slots → the f32 value vector ``[N, n_values]``."""
+        if self.layout is None:
+            return params.to(torch.float32)
+        return self.layout.values(params)
+
+    def _slots(self, values, like):
+        """Inverse of :meth:`_values`, in ``like``'s dtype."""
+        if self.layout is None:
+            return values.to(like.dtype)
+        return self.layout.from_values(values, like.dtype)
+
+    def _parts(self, params):
+        """What the strategy differences: the layout's parts for a layout
+        with wide leaves, else the buffer."""
+        if self.layout is None or not self.layout.wide:
+            return params
+        return self.layout.parts(params)
+
+    def _adapter_index(self, device):
+        """``(payload layout, value positions [A])`` of the adapter leaves
+        (``lora_`` paths) in the value vector, in value order; built once
+        per device. Without a layout the state has no adapters."""
+        ad = self._adapters
+        if ad is None or ad[1].device != torch.device(device):
+            leaves = ([] if self.layout is None else
+                      [lf for lf in self.layout.value_layout.leaves
+                       if is_adapter_path(lf.path)])
+            idx = torch.cat([torch.arange(lf.offset, lf.offset + lf.size)
+                             for lf in leaves] or
+                            [torch.zeros(0, dtype=torch.int64)])
+            ad = (FlatLayout([(lf.path, lf.shape) for lf in leaves]),
+                  idx.to(device))
+            self._adapters = ad
+        return ad
+
+    def _payload_layout(self, device):
+        """The layout the wire grid and the checksum walk: the adapter
+        leaves, or every leaf of the value vector."""
+        if self._split_lora:
+            return self._adapter_index(device)[0]
+        return None if self.layout is None else self.layout.value_layout
 
     # -- local training ------------------------------------------------------
 
@@ -294,7 +365,8 @@ class SwarmEngine:
                 stats = (self.strategy.accumulate_grads(stats, out[3],
                                                         step0 + k)
                          if len(out) == 4 else
-                         self.strategy.accumulate(stats, params, p2,
+                         self.strategy.accumulate(stats, self._parts(params),
+                                                  self._parts(p2),
                                                   step0 + k))
             params = p2
             metrics.append(m)
@@ -309,7 +381,10 @@ class SwarmEngine:
                                          self_weight=self.cfg.self_weight)
 
     def propose(self, stacked, active=None, fishers=None, stats=None):
-        """Merge candidate for every node: ``(candidate, W_commit, imp)``."""
+        """Merge candidate for every node: ``(candidate, W_commit, imp)``,
+        over the payload's f32 values ``stacked`` [N, A]. Importance over the
+        whole value vector is normalized whole, then carved to the adapters
+        (as the reference finalizes the full tree before its split)."""
         if fishers is None and stats is not None:
             fishers = stats
         n = self.cfg.n_nodes
@@ -322,6 +397,9 @@ class SwarmEngine:
             # eps floor turns into a uniform mean
             fishers = torch.zeros_like(stacked)
         fishers = self.strategy.finalize_mass(fishers, a)
+        if fishers is not None and fishers.shape[-1] != stacked.shape[-1]:
+            fishers = fishers.index_select(
+                1, self._adapter_index(stacked.device)[1])
         rows = None
         if self.strategy.uses_stats and self.cfg.topology in ("ring",
                                                               "dynamic"):
@@ -333,40 +411,30 @@ class SwarmEngine:
 
     # -- gated sync ----------------------------------------------------------
 
-    def _check_sync_options(self):
-        if comms.split_payload_at_sync(self.cfg):
-            # payload="lora" has nothing to carve (the state is the
-            # payload); a full state would need its adapters carved out, and
-            # only the LM families' linears read adapters in the reference
-            raise _not_ported(
-                "lora_only=True with payload='full' at sync (carving the "
-                "adapter subtree out of a full state; in the reference only "
-                "models/layers.linear reads adapters and the CNN's forward "
-                "ignores them)",
-                "queue 1 items 14-15, the LM families and trainer")
-
-    def _wire_grid(self, params) -> comms.WireGrid:
-        """The payload's :class:`~repro_torch.core.comms.WireGrid` on the
-        params' device, built once (from the layout, or as one leaf)."""
+    def _wire_grid(self, payload) -> comms.WireGrid:
+        """The payload's :class:`~repro_torch.core.comms.WireGrid` on its
+        device, built once (from the payload's layout, or as one leaf)."""
         g = self._grid
-        if g is None or g.size != params.shape[-1] \
-                or g.segments.device != params.device:
+        if g is None or g.size != payload.shape[-1] \
+                or g.segments.device != payload.device:
+            layout = self._payload_layout(payload.device)
             g = comms.wire_grid(
-                self.layout if self.layout is not None else params.shape[-1],
-                self.wire_dtype, self.wire_block, device=params.device)
+                layout if layout is not None else payload.shape[-1],
+                self.wire_dtype, self.wire_block, device=payload.device)
             self._grid = g
         return g
 
-    def _ref_index(self, params) -> comms.RefIndex:
-        """The payload's :class:`~repro_torch.core.comms.RefIndex` on the
-        params' device (what the checksum and the flip pattern are keyed
-        on), built once."""
+    def _ref_index(self, payload) -> comms.RefIndex:
+        """The payload's :class:`~repro_torch.core.comms.RefIndex` on its
+        device (what the checksum and the flip pattern are keyed on), built
+        once."""
         ref = self._ref
-        if ref is None or ref.pos.numel() != params.shape[-1] \
-                or ref.pos.device != params.device:
+        if ref is None or ref.pos.numel() != payload.shape[-1] \
+                or ref.pos.device != payload.device:
+            layout = self._payload_layout(payload.device)
             ref = comms.ref_index(
-                self.layout if self.layout is not None else params.shape[-1],
-                params.device)
+                layout if layout is not None else payload.shape[-1],
+                payload.device)
             self._ref = ref
         return ref
 
@@ -374,10 +442,24 @@ class SwarmEngine:
         """Default EF wire reference when ``cfg.wire_dtype`` enables
         compression but the caller threads no state (the direct engine API):
         a zero reference per call — stateless quantization, so the knob is
-        honoured even without the session's carried ``SwarmState.wire``."""
+        honoured even without the session's carried ``SwarmState.wire``.
+        It covers the payload's values: the adapters, or every value."""
         if wire is not None or self.wire_dtype == "f32":
             return wire
-        return comms.init_wire(params)
+        width = (self._adapter_index(params.device)[1].numel()
+                 if self._split_lora else self._n_values(params))
+        return torch.zeros((params.shape[0], width), dtype=torch.float32,
+                           device=params.device)
+
+    def check_faults(self, faults, wire) -> None:
+        """Corrupt-wire injection needs the quantized wire's state."""
+        if faults is not None and wire is None \
+                and self.wire_dtype == "f32":
+            raise ValueError(
+                "in-graph corrupt-wire injection (faults=) requires the "
+                "engine backend with a quantized/EF wire (SwarmState.wire); "
+                "lower corrupt events to drops instead "
+                "(FaultPlan.lower(corrupt_in_graph=False))")
 
     def sync(self, params, val, active=None, stats=None, wire=None,
              faults=None):
@@ -399,30 +481,39 @@ class SwarmEngine:
         included — commits corrupted bytes); ``"wire_ok"`` [N] in the log.
         Only the quantized wire carries it; elsewhere lower corrupt events
         to drops."""
-        self._check_sync_options()
         n = self.cfg.n_nodes
         a = (torch.ones((n,), dtype=torch.bool, device=params.device)
              if active is None else active.to(torch.bool))
         wire = self._auto_wire(params, wire)
-        if faults is not None and wire is None:
-            raise ValueError(
-                "in-graph corrupt-wire injection (faults=) requires the "
-                "engine backend with a quantized/EF wire (SwarmState.wire); "
-                "lower corrupt events to drops instead "
-                "(FaultPlan.lower(corrupt_in_graph=False))")
+        self.check_faults(faults, wire)
+        # the payload: the buffer as it is where slots are values and the
+        # f32 wire commits it in its dtype, else the f32 numbers the wire's
+        # kernel takes: every value, or the adapters carved out of them
+        # (``full`` keeps the rest, which passes through)
+        native = (wire is None and not self._split_lora
+                  and (self.layout is None or not self.layout.wide))
+        x = params if native else self._values(params)
+        full = None
+        if self._split_lora:
+            full, x = x, x.index_select(
+                1, self._adapter_index(params.device)[1])
         log = {}
-        if wire is not None:
-            grid = self._wire_grid(params)
+        if x.shape[-1] == 0:
+            # nothing crosses the wire (lora_only on a state without
+            # adapters): the candidate is the local state, no commit
+            candidate, cand_eval = x, params
+        elif wire is not None:
+            grid = self._wire_grid(x)
             # θ̂' — what every peer reconstructs from this round's wire
             # traffic; also next round's reference
-            eff = comms.wire_effective(params, wire, grid)
+            eff = comms.wire_effective(x, wire, grid)
             if faults is not None:
                 # sender-side checksum of the honest reconstruction, then
                 # the seeded wire damage, then the receiver-side checksum:
                 # a mismatch quarantines the sender like an absence. The
                 # commit below re-derives θ̂' from the honest params and
                 # wire, so the damage reaches only the candidate.
-                ref = self._ref_index(params)
+                ref = self._ref_index(x)
                 sent = comms.payload_checksum(eff, ref)
                 eff = flip_payload_bits(eff, faults.corrupt, faults.key, ref)
                 wire_ok = sent == comms.payload_checksum(eff, ref)
@@ -430,17 +521,28 @@ class SwarmEngine:
                 log["wire_ok"] = wire_ok
             fishers = None
             if self.strategy.uses_stats:
-                f = stats if stats is not None else torch.zeros_like(params)
+                f = (stats if stats is not None else torch.zeros(
+                    (n, self._n_values(params)), dtype=torch.float32,
+                    device=params.device))
                 f = self.strategy.finalize_mass(f, a)
+                if self._split_lora:
+                    f = f.index_select(1, self._adapter_index(
+                        params.device)[1])
                 # the importance mass crosses the wire too (stateless
                 # round-trip); propose re-finalizes, which only rescales
                 fishers = comms.quant_dequant(f, grid)
             candidate, W, imp = self.propose(eff, a, fishers=fishers)
+            del eff, fishers     # the commit re-derives θ̂' from x and wire
+            # the gate sees the wire's f32 reconstruction, as the
+            # reference's does
+            cand_eval = self._full(candidate, full)
         else:
-            candidate, W, imp = self.propose(params, a, stats=stats)
+            candidate, W, imp = self.propose(x, a, stats=stats)
+            # the gate sees the candidate in the params' dtypes
+            cand_eval = self._slots(self._full(candidate, full), params)
         with torch.no_grad():
             metric_local = torch.where(a, self._veval(params, val), 1.0)
-            metric_merged = torch.where(a, self._veval(candidate, val), 0.0)
+            metric_merged = torch.where(a, self._veval(cand_eval, val), 0.0)
         gates = gate_decisions(metric_merged, metric_local,
                                self.cfg.val_threshold) & a
         if self.quorum > 0:
@@ -455,77 +557,35 @@ class SwarmEngine:
             gates = gates & fair_ok
             log["fairness_ok"] = fair_ok
             log["worst_site"] = worst
-        if wire is not None:
-            committed, log["wire"] = fused_quant_merge_all(
-                params, wire, W, gates, imp, grid=grid)
+        if x.shape[-1] == 0:
+            committed = params
+            if wire is not None:
+                log["wire"] = wire
         else:
-            committed = host_commit(params, candidate, W, gates, self.cfg,
-                                    imp=imp)
+            # what the gate read goes back before the commit allocates
+            if wire is not None:
+                del candidate, cand_eval   # re-derived from x and the wire
+                committed, log["wire"] = fused_quant_merge_all(
+                    x, wire, W, gates, imp, grid=grid)
+            elif self.cfg.merge in ("mean", "fedavg") or imp is not None:
+                # the kernel re-contracts the W rows (with the importance)
+                del candidate, cand_eval
+                committed = fused_merge_all(x, W, gates, imp)
+            else:
+                # a candidate with no kernel form
+                committed = gated_commit(candidate, x, gates)
+            del x
+            committed = self._slots(self._full(committed, full), params)
         return committed, dict(log, gates=gates, metric_local=metric_local,
                                metric_merged=metric_merged)
 
-    # -- drivers -------------------------------------------------------------
-
-    def round(self, params, opt_state, batches, val, active=None, step0=0,
-              stats=None, wire=None, faults=None):
-        """T local steps + one gated sync."""
-        if stats is None:
-            stats = self.init_stats(params)
-        params, opt_state, stats, train_metrics = self.local_steps(
-            params, opt_state, batches, step0, stats)
-        params, log = self.sync(params, val, active, stats=stats, wire=wire,
-                                faults=faults)
-        out = dict(log, train=train_metrics)
-        if stats is not None:
-            out["stats"] = stats
-        return params, opt_state, out
-
-    def run_rounds(self, params, opt_state, batches, val, active=None,
-                   step0=0, stats=None, wire=None):
-        """R rounds over [R, T, N, ...] batches. Logs come back stacked
-        [R, ...], with the final ``stats`` and ``wire`` when present.
-        ``cfg.overlap_sync`` switches to the stale-by-one schedule: round
-        k's commit delta is folded in after round k+1's local steps."""
-        r = _leading(batches)
-        t = _leading(_index(batches, 0))
-        if stats is None:
-            stats = self.init_stats(params)
-        # the wire reference is made once, outside the loop, so the EF
-        # state accumulates across rounds
-        wire = self._auto_wire(params, wire)
-        logs, train = [], []
-        pending = torch.zeros_like(params) if self.cfg.overlap_sync else None
-        for k in range(r):
-            p_loc, opt_state, stats, tm = self.local_steps(
-                params, opt_state, _index(batches, k), step0 + k * t, stats)
-            committed, log = self.sync(p_loc, val, active, stats=stats,
-                                       wire=wire)
-            wire = log.pop("wire", wire)
-            if self.cfg.overlap_sync:
-                # local steps never wait on the in-flight merge: this
-                # round's commit lands one round late
-                params = p_loc + pending
-                pending = committed - p_loc
-            else:
-                params = committed
-            logs.append(log)
-            train.append(tm)
-        if self.cfg.overlap_sync:
-            params = params + pending   # no accepted merge is dropped
-        out = _stack_logs(logs)
-        if stats is not None:
-            out["stats"] = stats
-        if wire is not None:
-            out["wire"] = wire
-        return params, opt_state, _stack_logs(train), out
-
-    def run_local(self, params, opt_state, batches, step0=0, stats=None):
-        """Sync-free local training over [S, N, ...] batches. Returns
-        ``(params, opt_state, metrics, stats)``."""
-        p, o, st, metrics = self.local_steps(params, opt_state, batches,
-                                             step0, stats)
-        return p, o, metrics, st
-
+    def _full(self, payload, full):
+        """An adapter payload [N, A] written into a copy of the full value
+        vector (``full`` None: the payload is the whole vector)."""
+        if full is None:
+            return payload
+        return full.index_copy(1, self._adapter_index(full.device)[1],
+                               payload)
 
 def _stack_logs(logs):
     """A list of same-keyed dicts of tensors → one dict of stacked tensors."""
@@ -533,11 +593,16 @@ def _stack_logs(logs):
 
 
 def _leading(batches) -> int:
+    """The leading (time) axis of a batch tensor, tuple or dict."""
+    if isinstance(batches, dict):
+        batches = next(iter(batches.values()))
     first = batches[0] if isinstance(batches, (tuple, list)) else batches
     return first.shape[0]
 
 
 def _index(batches, k: int):
+    if isinstance(batches, dict):
+        return {key: b[k] for key, b in batches.items()}
     if isinstance(batches, (tuple, list)):
         return type(batches)(b[k] for b in batches)
     return batches[k]

@@ -56,6 +56,26 @@ def inject_lora(params, generator: torch.Generator, rank: int = 16,
     return rec(params, "")
 
 
+def lora_shapes(shapes, rank: int, targets: str = DEFAULT_TARGETS):
+    """:func:`inject_lora` on a tree of shapes (tuples as leaves): the
+    adapter leaves' shapes the injected tree has, ``lora_scale`` ``()`` or
+    ``(L,)`` for a stacked ``[L, in, out]`` weight."""
+    def rec(node, path):
+        if not isinstance(node, dict):
+            return node
+        out = {k: rec(v, f"{path}/{k}") for k, v in node.items()}
+        w = node.get("w")
+        if (isinstance(w, tuple) and len(w) in (2, 3)
+                and re.search(targets, path) and "lora_A" not in node):
+            *lead, i, o = w
+            out["lora_A"] = (*lead, i, rank)
+            out["lora_B"] = (*lead, rank, o)
+            out["lora_scale"] = tuple(lead)
+        return out
+
+    return rec(shapes, "")
+
+
 def is_adapter_path(path: str) -> bool:
     return "lora_" in path
 

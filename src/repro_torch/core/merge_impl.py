@@ -12,6 +12,11 @@ accumulate_grads / fishers / propose`` hooks. ``propose`` returns the merge
 candidate (what the gate evaluates) plus the row weights and optional
 importance the commit kernel re-contracts with. Where the reference maps each of these over a
 stacked pytree leaf by leaf, here each is one tensor op over ``[N, P]``.
+
+A layout with wide leaves (a bf16 LM, `repro_torch.core.flat`) keeps its
+statistics over values ``[N, n_values]`` f32; ``accumulate`` then takes the
+params as the layout's parts (a tuple: the f32 prefix, the 16-bit rest) and
+differences each part in its own dtype, as the reference does leaf by leaf.
 """
 from __future__ import annotations
 
@@ -150,7 +155,11 @@ class FisherStrategy(MergeStrategy):
                            device=stacked.device)
 
     def accumulate(self, stats, old_params, new_params, step):
-        d = (new_params - old_params).to(torch.float32)
+        if isinstance(old_params, tuple):      # the parts of a wide layout
+            d = torch.cat([(pn - po).to(torch.float32) for po, pn
+                           in zip(old_params, new_params)], dim=-1)
+        else:
+            d = (new_params - old_params).to(torch.float32)
         return self.decay * stats + d * d
 
     def accumulate_grads(self, stats, grads, step):

@@ -16,7 +16,10 @@ Port of ``repro.core.session`` for the engine backend:
 The swarm lives in one :class:`SwarmState`: ``params``, the AdamW moments,
 the strategy's importance statistics and the quantized wire's
 error-feedback reference are flat ``[N, P]`` tensors on the session's
-device (see `repro_torch.core.flat`), ``active`` is the ``[N]`` membership
+device (see `repro_torch.core.flat`; with a bf16 LM's wide leaves the
+params are ``[N, P]`` slots and the others f32 over its ``n_values``
+values, the wire over the adapters' values when ``lora_only`` carves
+them out of a full state), ``active`` is the ``[N]`` membership
 mask, ``rng`` the reference's legacy PRNG key and ``round``/``step`` the
 global counters. Checkpoints hold all of it in the reference's msgpack
 layout (`repro_torch.checkpointing`), so either package restores the
@@ -46,8 +49,8 @@ from repro_torch.checkpointing import (Fields, load_metadata, load_pytree,
 from repro_torch.configs.base import SwarmConfig
 from repro_torch.convert import from_reference, to_reference_tree
 from repro_torch.core import comms
-from repro_torch.core.engine import (SwarmEngine, _leading, _not_ported,
-                                     _stack_nodes)
+from repro_torch.core.engine import (SwarmEngine, _index, _leading,
+                                     _not_ported, _stack_logs, _stack_nodes)
 from repro_torch.core.flat import FlatLayout
 from repro_torch.core.prng import fold_in_key, prng_key
 
@@ -156,10 +159,6 @@ class SwarmSession:
         n = cfg.n_nodes
         if params is None:
             raise ValueError("SwarmSession needs initial params")
-        if layout is not None and layout.wide:
-            raise ValueError(
-                "the layout holds f32 leaves in a 16-bit buffer (an LM in "
-                "bf16): a commit would merge their halves as numbers")
         self.layout = layout
         # the gossip backend raises here: not ported (a zoo closure list is
         # rejected on it first, as the reference's engine rejects it)
@@ -262,58 +261,109 @@ class SwarmSession:
         ([T, N] per-step metrics). ``faults``: optional
         `repro_torch.faults.signals.FaultSignals` — corrupt-wire injection
         on the quantized wire (flagged senders quarantined for the round,
-        ``"wire_ok"`` in the log); a ``ValueError`` on the f32 wire.
-        `repro_torch.faults.run_plan` drives a whole fault plan."""
-        st = self._state
+        ``"wire_ok"`` in the log); a ``ValueError`` on the f32 wire, raised
+        before any step runs. `repro_torch.faults.run_plan` drives a whole
+        fault plan."""
+        self.engine.check_faults(faults, self._state.wire)
         batches, val = _to_device(batches, self.device), _to_device(
             val, self.device)
-        t = _leading(batches)
-        p, o, out = self.engine.round(st.params, st.opt_state, batches, val,
-                                      st.active, st.step, st.stats, st.wire,
-                                      faults)
-        stats = out.pop("stats", None)
-        wire = out.pop("wire", st.wire)
-        self._state = SwarmState(params=p, opt_state=o, stats=stats,
-                                 wire=wire, active=st.active,
-                                 rng=fold_in_key(st.rng, st.round),
-                                 round=st.round + 1, step=st.step + t)
-        return out
+        train = self._local_steps(batches)
+        committed, log = self._sync(val, faults)
+        self._state = dataclasses.replace(self._state, params=committed)
+        return dict(log, train=train)
+
+    def _local_steps(self, batches):
+        """The local steps of ``[T, N, ...]`` batches, one engine call a
+        step, the session's state replaced after each: a step's inputs are
+        then held by nobody once the next one returns, so at most two
+        generations of params and moments are alive (the reference donates
+        them to its compiled round). A round whose sync then fails keeps
+        its local steps. Returns the metrics stacked [T, N]."""
+        logs = []
+        for k in range(_leading(batches)):
+            st = self._state
+            stats = (st.stats if st.stats is not None
+                     else self.engine.init_stats(st.params))
+            p, o, stats, m = self.engine.local_steps(
+                st.params, st.opt_state, _index(batches, slice(k, k + 1)),
+                st.step, stats)
+            self._state = dataclasses.replace(st, params=p, opt_state=o,
+                                              stats=stats, step=st.step + 1)
+            logs.append(m)
+        return {key: torch.cat([m[key] for m in logs]) for key in logs[0]}
+
+    def _sync(self, val, faults=None):
+        """The gated sync of the session's params: the wire reference
+        advances, the round counter and the rng fold; returns (committed
+        params, log) and leaves the params to the caller."""
+        st = self._state
+        committed, log = self.engine.sync(st.params, val, st.active,
+                                          stats=st.stats, wire=st.wire,
+                                          faults=faults)
+        self._state = dataclasses.replace(
+            st, wire=log.pop("wire", st.wire),
+            rng=fold_in_key(st.rng, st.round), round=st.round + 1)
+        return committed, log
 
     def run_rounds(self, batches, val):
         """R rounds over ``[R, T, N, ...]`` batches. Returns the per-round
-        logs stacked ``[R, ...]`` plus a ``train`` key."""
-        st = self._state
+        logs stacked ``[R, ...]`` plus a ``train`` key ([R, T, N]).
+        ``cfg.overlap_sync`` switches to the stale-by-one schedule: round
+        k's commit delta is folded in after round k+1's local steps, each
+        part of the params in its own dtype."""
         batches, val = _to_device(batches, self.device), _to_device(
             val, self.device)
-        r = _leading(batches)
-        t = (batches[0] if isinstance(batches, (tuple, list))
-             else batches).shape[1]
-        p, o, tm, logs = self.engine.run_rounds(
-            st.params, st.opt_state, batches, val, st.active, st.step,
-            st.stats, st.wire)
-        stats = logs.pop("stats", None)
-        wire = logs.pop("wire", st.wire)
-        rng = st.rng
-        for i in range(r):   # the same per-round folds as r round()s
-            rng = fold_in_key(rng, st.round + i)
-        self._state = SwarmState(params=p, opt_state=o, stats=stats,
-                                 wire=wire, active=st.active, rng=rng,
-                                 round=st.round + r, step=st.step + r * t)
-        return dict(logs, train=tm)
+        split = ((lambda p: (p,)) if self.layout is None
+                 else self.layout.parts)
+        join = (lambda ps: ps[0]) if self.layout is None else self.layout.join
+        pending = None
+        logs, train = [], []
+        for k in range(_leading(batches)):
+            train.append(self._local_steps(_index(batches, k)))
+            committed, log = self._sync(val)
+            p_loc = self._state.params
+            if self.cfg.overlap_sync:
+                # local steps never wait on the in-flight merge: this
+                # round's commit lands one round late
+                if pending is not None:
+                    p_loc = join(tuple(a + d for a, d in
+                                       zip(split(p_loc), pending)))
+                pending = tuple(c - a for c, a in
+                                zip(split(committed), split(
+                                    self._state.params)))
+                committed = p_loc
+            self._state = dataclasses.replace(self._state, params=committed)
+            logs.append(log)
+        if pending is not None:       # no accepted merge is dropped
+            self._state = dataclasses.replace(self._state, params=join(tuple(
+                a + d for a, d in zip(split(self._state.params), pending))))
+        return dict(_stack_logs(logs), train=_stack_logs(train))
 
     def run_local(self, batches):
         """Sync-free local training over ``[S, N, ...]`` batches."""
-        st = self._state
-        batches = _to_device(batches, self.device)
-        s_count = _leading(batches)
-        p, o, tm, stats = self.engine.run_local(st.params, st.opt_state,
-                                                batches, st.step, st.stats)
-        self._state = dataclasses.replace(st, params=p, opt_state=o,
-                                          stats=stats, step=st.step + s_count)
-        return tm
-
+        return self._local_steps(_to_device(batches, self.device))
 
     # -- checkpoint / resume -------------------------------------------------
+
+    def _tree_layout(self, t) -> Optional[FlatLayout]:
+        """The layout a stacked ``[N, W]`` state tensor is laid out in: the
+        params' slots, the value vector (moments, statistics, the wire) or
+        the adapter payload (the wire of an adapter-only sync); None for
+        anything else."""
+        if self.layout is None or t.dim() != 2 \
+                or t.shape[0] != self.cfg.n_nodes:
+            return None
+        width = t.shape[1]
+        if width == self._state.params.shape[1] and (
+                t.dtype == self._state.params.dtype or not self.layout.wide):
+            return self.layout
+        if t.dtype == torch.float32 and width == self.layout.n_values:
+            return self.layout.value_layout
+        if self.engine._split_lora:
+            payload = self.engine._adapter_index("cpu")[0]
+            if t.dtype == torch.float32 and width == payload.size:
+                return payload
+        return None
 
     def _reference_tree(self, value):
         """A state field in the reference's tree layout (numpy leaves):
@@ -323,13 +373,14 @@ class SwarmSession:
         if isinstance(value, dict):
             return {k: self._reference_tree(v) for k, v in value.items()}
         t = value.detach().cpu()
-        if (self.layout is not None and t.dim() == 2
-                and t.shape == self._state.params.shape):
-            return to_reference_tree(self.layout, t)
+        layout = self._tree_layout(t)
+        if layout is not None:
+            return to_reference_tree(layout, t)
         return t.numpy()
 
     def _from_reference_tree(self, tree, like):
-        """Inverse of :meth:`_reference_tree`, onto ``like``'s device."""
+        """Inverse of :meth:`_reference_tree`, onto ``like``'s device and
+        dtype."""
         if like is None:
             return None
         if isinstance(like, dict):
@@ -338,7 +389,8 @@ class SwarmSession:
         if isinstance(tree, np.ndarray):
             out = torch.from_numpy(np.array(tree))
         else:
-            out = from_reference(self.layout, tree, lead=1)
+            out = from_reference(self._tree_layout(like), tree, lead=1,
+                                 dtype=like.dtype)
         return out.to(like.device)
 
     def _checkpoint_tree(self, st: SwarmState) -> Fields:

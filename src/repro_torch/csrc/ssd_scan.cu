@@ -2,9 +2,11 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan.py `ssd_scan`
 // (body `_ssd_kernel`). Inputs: x [B,S,H,P], dt [B,S,H] f32 (softplus'd),
-// a_log [H] f32, B/C [B,S,G,N] with H % G == 0 (head h reads group
-// h / (H/G); G = H is the reference's pre-broadcast form). Per chunk of L
-// steps, in f32, with a = -exp(a_log[h]):
+// a_log f32 ([H] shared by every batch row, or one [H] row per batch row:
+// a swarm's nodes folded into the batch each bring their own), B/C
+// [B,S,G,N] with H % G == 0 (head h reads group h / (H/G); G = H is the
+// reference's pre-broadcast form). Per chunk of L steps, in f32, with
+// a = -exp(a_log[b, h]):
 //
 //   cum   = cumsum(dt * a)
 //   y     = (C B^T (.) Lmat)(x dt) + (C (.) e^cum) state,
@@ -85,6 +87,7 @@ struct SsdArgs {
   float* chunk_state;  // [B, H, chunks, N, P] scratch
   float* chunk_decay;  // [B, H, chunks] scratch
   int S, H, P, G, N, L, nc;
+  int als;           // a_log row stride: batch row b reads a_log[b * als + h]
   long long xb, xs;  // x strides (batch, seq); (head, p) contiguous
   long long bb, bs;  // B strides (batch, seq); (group, n) contiguous
   long long cb, cs;  // C strides (batch, seq); (group, n) contiguous
@@ -263,7 +266,7 @@ __global__ void __launch_bounds__(kThreads) chunk_state_kernel(SsdArgs a) {
   const int nw = min(RS, a.N - n0);
   const int L = a.L, t0 = c * L;
   const int g = h / (a.H / a.G);
-  const float A = -expf(a.a_log[h]);
+  const float A = -expf(a.a_log[b * a.als + h]);
   const T* x = static_cast<const T*>(a.x) + b * a.xb + t0 * a.xs +
                static_cast<long long>(h) * a.P;
   const T* bm = static_cast<const T*>(a.bm) + b * a.bb + t0 * a.bs +
@@ -464,7 +467,7 @@ __global__ void __launch_bounds__(kThreads) chunk_out_kernel(SsdArgs a) {
   const int L = a.L, t0 = c * L, i0 = strip * RS;
   const int rows = min(RS, L - i0);
   const int g = h / (a.H / a.G);
-  const float A = -expf(a.a_log[h]);
+  const float A = -expf(a.a_log[b * a.als + h]);
   const T* x = static_cast<const T*>(a.x) + b * a.xb + t0 * a.xs +
                static_cast<long long>(h) * a.P;
   const T* bm = static_cast<const T*>(a.bm) + b * a.bb + t0 * a.bs +
@@ -591,7 +594,9 @@ bool aligned16(const void* p, long long s0, long long s1, int width,
 }  // namespace
 
 // Plain C entry point (bound with ctypes). x, B, C and y in f32 (dtype 0) or
-// bf16 (dtype 1); dt [B,S,H] and a_log [H] f32, contiguous; y [B,S,H,P] and
+// bf16 (dtype 1); dt [B,S,H] f32, contiguous; a_log f32, batch row b's
+// head h at a_log[b * a_log_stride + h] (stride 0: one [H] for every row,
+// H: a contiguous [B,H], one per row); y [B,S,H,P] and
 // state [B,H,P,N] contiguous outputs; chunk_state [B,H,S/L,N,P] and
 // chunk_decay [B,H,S/L] f32 scratch; strides[6] = (batch, seq) strides of
 // x, B and C in elements, their last two dims contiguous. S % L == 0,
@@ -603,9 +608,10 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a_log,
                                void* state, void* chunk_state,
                                void* chunk_decay, int B, int S, int H, int P,
                                int G, int N, int L, const long long* strides,
-                               int dtype, void* stream) {
+                               int a_log_stride, int dtype, void* stream) {
   if (B < 1 || S < 1 || H < 1 || G < 1 || H % G != 0 || P < 1 ||
       P > MAXP || N < 1 || N > MAXN || L < 1 || L > MAXL || S % L != 0 ||
+      a_log_stride < 0 ||
       static_cast<long long>(B) * H > 65535 || S / L > 65535 ||
       static_cast<long long>(B) * ((N + RS - 1) / RS) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -626,6 +632,7 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a_log,
   a.N = N;
   a.L = L;
   a.nc = S / L;
+  a.als = a_log_stride;
   a.xb = strides[0];
   a.xs = strides[1];
   a.bb = strides[2];

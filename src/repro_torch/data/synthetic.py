@@ -1,6 +1,7 @@
-"""Synthetic histopathology data: own numpy copy of the image half of
-``repro.data.synthetic`` (its Dirichlet non-IID sharding included). Bit-identical to it for the same seed (the tests
-hold the two against each other).
+"""Synthetic data: own numpy copy of ``repro.data.synthetic``'s
+histopathology images (its Dirichlet non-IID sharding included) and of its
+LM token streams (``make_lm_stream``). Bit-identical to it for the same
+seed (the tests hold the two against each other).
 
 Images are class-conditional random textures: each of the 3 classes has a
 distinct spatial frequency / color signature plus per-image noise.
@@ -130,3 +131,24 @@ def batches(images, labels, batch_size: int, rng: np.random.Generator,
         if augment_data:
             x = augment(x, rng)
         yield x, labels[idx]
+
+
+# ---------------------------------------------------------------------------
+# LM token streams (assigned-architecture training)
+# ---------------------------------------------------------------------------
+
+def make_lm_stream(n_seqs: int, seq_len: int, vocab: int, *, seed: int = 0,
+                   topic_bias: float = 0.0, n_topics: int = 8):
+    """Zipf token sequences; topic_bias>0 skews each node toward one topic.
+    A copy of the reference's ``make_lm_stream`` (the same numpy draws)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    base = 1.0 / ranks ** 1.1
+    topic = seed % n_topics
+    boost = np.ones(vocab)
+    span = vocab // n_topics
+    boost[topic * span:(topic + 1) * span] += topic_bias * 10
+    p = base * boost
+    p /= p.sum()
+    toks = rng.choice(vocab, size=(n_seqs, seq_len + 1), p=p).astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -32,10 +32,21 @@ computes the plain version (`repro_torch.kernels.ref.
 flash_attention_plain`, the twin of the reference's ``attention_ref``); on
 a CUDA tensor it launches the kernel or raises. ``causal=False`` with
 ``window > 0`` raises on both: the TPU kernel and its oracle disagree there.
+
+:func:`flash_apply` is the differentiable entry point the model calls
+(through `repro_torch.kernels.ops.attention_op`): :class:`FlashAttention`,
+a ``torch.autograd.Function`` whose forward is :func:`flash_attention` and
+whose backward is plain PyTorch (the reference has no backward kernel): it
+recomputes the f32 probabilities from the saved q, k and v under the plain
+version's mask and forms dQ, dK and dV, dK and dV summed over each GQA
+group. Its ``vmap`` rule folds the vmapped axis (the engine's node axis)
+into the kernel's batch axis, so a vmapped train step runs one kernel call
+per layer for all N nodes.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -81,6 +92,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPES:
         raise TypeError(f"dtype {q.dtype} not supported (float32 or "
                         "bfloat16)")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if torch._C._functorch.is_functorch_wrapped_tensor(x):
+            raise TypeError(f"{name} is a torch.func-wrapped tensor; call "
+                            "flash_apply, whose autograd.Function unwraps "
+                            "it")
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device or x.dtype != q.dtype:
             raise ValueError(f"{name} must be a {q.dtype} tensor on "
@@ -111,3 +127,73 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient and a ``vmap`` rule.
+
+    Backward (plain PyTorch, f32), with P the recomputed probabilities
+    and dO the output's cotangent, per (query, key) pair the mask keeps:
+
+        dV = Pᵀ dO      dP = dO Vᵀ      dS = P ⊙ (dP − rowsum(dP ⊙ P))
+        dQ = dS K / √D  dK = dSᵀ Q / √D
+
+    dK and dV summed over the query heads of each KV head; each cast to
+    its input's dtype. Vmap: the vmapped axis is folded into the batch
+    axis and the kernel runs once over all of it."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window):
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = bool(causal), int(window)
+
+    @staticmethod
+    def backward(ctx, go):
+        q, k, v = ctx.saved_tensors
+        f32 = torch.float32
+        b, h, s, d = q.shape
+        hkv, t = k.shape[1], k.shape[2]
+        qf = q.to(f32).reshape(b, hkv, h // hkv, s, d)
+        kf, vf = k.to(f32), v.to(f32)
+        scores = torch.einsum("bkgsd,bktd->bkgst", qf, kf) / math.sqrt(d)
+        qpos = torch.arange(s, device=q.device)[:, None]
+        kpos = torch.arange(t, device=q.device)[None, :]
+        mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+        if ctx.causal:
+            mask = kpos <= qpos
+            if ctx.window > 0:
+                mask = mask & (kpos > qpos - ctx.window)
+        p = torch.softmax(torch.where(mask, scores, -1e30), dim=-1)
+        gof = go.to(f32).reshape(b, hkv, h // hkv, s, d)
+        dv = torch.einsum("bkgst,bkgsd->bktd", p, gof)
+        dp = torch.einsum("bkgsd,bktd->bkgst", gof, vf)
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf) / math.sqrt(d)
+        dk = torch.einsum("bkgst,bkgsd->bktd", ds, qf) / math.sqrt(d)
+        return (dq.reshape(b, h, s, d).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype), None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window):
+        n = info.batch_size
+
+        def fold(t, dim):
+            t = (t.movedim(dim, 0) if dim is not None
+                 else t.expand((n,) + tuple(t.shape)))
+            return t.reshape((n * t.shape[1],) + tuple(t.shape[2:]))
+
+        out = FlashAttention.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
+                                   fold(v, in_dims[2]), causal, window)
+        return out.reshape((n, -1) + tuple(out.shape[1:])), 0
+
+
+def flash_apply(q, k, v, *, causal: bool = True, window: int = 0):
+    """Flash attention with a gradient (plain backward) and a vmap rule:
+    the kernel for CUDA tensors, its plain version for CPU tensors. Same
+    arguments and result as :func:`flash_attention`."""
+    return FlashAttention.apply(q, k, v, causal, window)

@@ -169,8 +169,9 @@ def ssd_scan_ref(x, dt, a_log, bmat, cmat):
 
 def ssd_scan_plain(x, dt, a_log, bmat, cmat, *, chunk):
     """The chunked SSD kernel's function. x [B,S,H,P]; dt [B,S,H] f32
-    (softplus'd); a_log [H]; bmat/cmat [B,S,G,N] with H % G == 0 (G = H is
-    the reference's pre-broadcast form); S a multiple of ``chunk``. Per
+    (softplus'd); a_log [H] or [B,H] (one per batch row); bmat/cmat
+    [B,S,G,N] with H % G == 0 (G = H is the reference's pre-broadcast
+    form); S a multiple of ``chunk``. Per
     chunk, in f32: ``cum = cumsum(dt·a)``, ``y = (C·Bᵀ ⊙ L)(x·dt) +
     (C ⊙ e^cum)·state``, ``state ← e^{cum_L}·state + (B ⊙
     e^{cum_L − cum})ᵀ(x·dt)``. Returns y in x's dtype and the final state
@@ -180,7 +181,7 @@ def ssd_scan_plain(x, dt, a_log, bmat, cmat, *, chunk):
     f32 = torch.float32
     bm = bmat.to(f32).repeat_interleave(h // g, dim=2)
     cm = cmat.to(f32).repeat_interleave(h // g, dim=2)
-    a = -torch.exp(a_log.to(f32))
+    a = -torch.exp(a_log.to(f32)).reshape(-1, 1, h)         # [B or 1,1,H]
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=x.device))[None, :, :, None]
     state = torch.zeros((b, h, n, p), dtype=f32, device=x.device)

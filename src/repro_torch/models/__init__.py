@@ -12,15 +12,26 @@ paths are the reference's tree paths with layer leaves stacked ``[L, ...]``,
 so the port's checkpoints use the reference's keys and either package's
 ``SwarmSession.save`` loads in the other.
 
-  train:  loss_fn(params, {tokens, labels[, mask]}) -> (loss, metrics)
+  train:  loss_fn(params, {tokens, labels[, mask]}, remat=True)
+          -> (loss, metrics)       (the reference's signature and default;
+          remat=True raises NotImplementedError, so callers pass
+          remat=False, as the reference's CLI does)
   decode: decode(params, tokens [B,S], caches, cache_pos[, commit])
           -> (logits [B,S,V], caches)      (caches updated in place)
   prefill(params, {tokens}, caches) -> (last logits [B,1,V], caches)
 
-The reference keeps an SSM's ``A_log``, ``D`` and ``dt_bias`` in f32
-inside a bf16 model; so does the port: in a 16-bit buffer they are the
-layout's wide leaves (`repro_torch.core.flat`), f32 values viewed over two
-slots each.
+The reference keeps an SSM's ``A_log``, ``D`` and ``dt_bias`` (and an
+adapter's ``lora_scale``) in f32 inside a bf16 model; so does the port: in
+a 16-bit buffer they are the layout's wide leaves
+(`repro_torch.core.flat`), f32 values viewed over two slots each. A
+training step differentiates the layout's two parts
+(``layout.unflatten_parts``), so those leaves train as f32.
+
+``build_model(cfg, lora_rank=r)`` is the model over the tree
+``repro.core.lora.inject_lora`` gives (``lora_A``/``lora_B``/``lora_scale``
+beside every targeted linear, alpha 32): its layout holds the
+adapters, and ``init`` draws them as the reference does (A ~ N(0, 1/r), B
+zero, scale alpha/r).
 """
 from __future__ import annotations
 
@@ -33,6 +44,7 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.flat import FlatLayout
+from repro_torch.core.lora import is_adapter_path, lora_shapes
 from repro_torch.models.layers import dtype_of, softmax_xent
 from repro_torch.models.transformer import (forward_lm, init_lm_, lm_shapes,
                                             make_lm_cache)
@@ -61,15 +73,19 @@ def _leaves(shapes: dict, prefix: str = ""):
 
 
 F32_LEAVES = ("A_log", "D", "dt_bias")   # f32 whatever the param dtype
+LORA_ALPHA = 32.0                        # inject_lora's default alpha
 
 
-def _f32_paths(cfg: ModelConfig):
-    """The leaves the reference keeps in f32, when the param dtype is not."""
+def _f32_paths(cfg: ModelConfig, shapes: Optional[dict] = None):
+    """The leaves the reference keeps in f32, when the param dtype is not:
+    the SSM's ``A_log``, ``D``, ``dt_bias`` and every ``lora_scale``."""
     if dtype_of(cfg.param_dtype).itemsize == 4:
         return frozenset()
-    return frozenset(path for path, _ in _leaves(lm_shapes(cfg))
-                     if path.split(".")[-1] in F32_LEAVES
-                     and ".ssm." in f".{path}")
+    shapes = lm_shapes(cfg) if shapes is None else shapes
+    return frozenset(path for path, _ in _leaves(shapes)
+                     if (path.split(".")[-1] in F32_LEAVES
+                         and ".ssm." in f".{path}")
+                     or path.split(".")[-1] == "lora_scale")
 
 
 def nest(flat: Dict[str, torch.Tensor]) -> dict:
@@ -89,12 +105,13 @@ class CausalLM(nn.Module):
     paths (layer leaves stacked ``[L, ...]``). Called through
     ``torch.func.functional_call`` with a node's params."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, shapes: Optional[dict] = None):
         super().__init__()
         self.cfg = cfg
         self.paths = []
-        wide = _f32_paths(cfg)
-        for path, shape in _leaves(lm_shapes(cfg)):
+        shapes = lm_shapes(cfg) if shapes is None else shapes
+        wide = _f32_paths(cfg, shapes)
+        for path, shape in _leaves(shapes):
             dtype = (torch.float32 if path in wide
                      else dtype_of(cfg.param_dtype))
             *mods, name = path.split(".")
@@ -122,25 +139,54 @@ class CausalLM(nn.Module):
                           cache_pos=cache_pos, commit=commit)
 
 
-def _lm_model(cfg: ModelConfig) -> Model:
-    module = CausalLM(cfg)
-    layout = FlatLayout(list(_leaves(lm_shapes(cfg))), _f32_paths(cfg))
+def _lm_model(cfg: ModelConfig, lora_rank: int = 0) -> Model:
+    shapes = lm_shapes(cfg)
+    if lora_rank:
+        shapes = lora_shapes(shapes, lora_rank)
+    module = CausalLM(cfg, shapes)
+    layout = FlatLayout(list(_leaves(shapes)), _f32_paths(cfg, shapes))
 
     def forward(params, tokens, **kw):
         return torch.func.functional_call(module, params, (tokens,), kw)
 
     def init(generator: torch.Generator, device="cuda",
-             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+             out: Optional[torch.Tensor] = None,
+             adapter_generator: Optional[torch.Generator] = None
+             ) -> torch.Tensor:
         """One node's params ``[P]`` drawn from ``generator`` (on
         ``device``), written into ``out`` (e.g. a row of an ensemble
-        buffer) when given."""
+        buffer) when given; the adapters' A from ``adapter_generator``
+        when given (the reference injects each node's adapters from its
+        own key into a shared base)."""
         if out is None:
             out = torch.empty(layout.size, dtype=dtype_of(cfg.param_dtype),
                               device=resolve_device(device))
-        init_lm_(nest(layout.unflatten(out)), cfg, generator)
+        views = layout.unflatten(out)
+        init_lm_(nest(views), cfg, generator)
+        for path, t in views.items():
+            if not is_adapter_path(path):
+                continue
+            if path.endswith("lora_A"):
+                t.copy_(torch.randn(t.shape, generator=adapter_generator
+                                    or generator, device=t.device)
+                        / lora_rank ** 0.5)
+            elif path.endswith("lora_B"):
+                t.zero_()
+            else:
+                t.fill_(LORA_ALPHA / lora_rank)
+        if layout.pad:
+            out[-1:].zero_()
         return out
 
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, remat=True):
+        """(loss, {"xent", "aux"}); ``remat`` is the reference's
+        activation checkpointing, which ``torch.utils.checkpoint`` cannot
+        give under ``torch.func.grad``: ``remat=True`` raises."""
+        if remat:
+            raise NotImplementedError(
+                "remat=True (activation checkpointing under torch.func) is "
+                "not ported to repro_torch yet (ROADMAP.md: queue 1 item "
+                "15, remat); pass remat=False")
         logits, aux, _ = forward(params, batch["tokens"])
         xent = softmax_xent(logits, batch["labels"], batch.get("mask"))
         return xent + aux, {"xent": xent, "aux": aux}
@@ -160,7 +206,10 @@ def _lm_model(cfg: ModelConfig) -> Model:
                  prefill, layout)
 
 
-def build_model(cfg: ModelConfig) -> Model:
+def build_model(cfg: ModelConfig, lora_rank: int = 0) -> Model:
+    """The LM of ``cfg``; with ``lora_rank`` > 0, over the tree with LoRA
+    adapters of that rank injected (the reference's ``inject_lora``, its
+    default alpha)."""
     if cfg.is_encdec or cfg.family == "audio":
         raise NotImplementedError(
             "the enc-dec (audio) family is not ported yet: ROADMAP queue 1 "
@@ -168,4 +217,4 @@ def build_model(cfg: ModelConfig) -> Model:
     if cfg.family == "vlm":
         raise NotImplementedError(
             "the vlm family is not ported yet: ROADMAP queue 1 item 14")
-    return _lm_model(cfg)
+    return _lm_model(cfg, lora_rank)

@@ -202,8 +202,13 @@ def forward_lm(params, cfg: ModelConfig, tokens, *, caches=None,
         positions = cache_pos.to(x.device).reshape(-1, 1) + ar[None]
         positions = positions.expand(b, s)
     windows = layer_windows(cfg)
+    # every stacked leaf unbound once into its layers' views: a gradient
+    # then comes back as one stack per leaf, where indexing layer by layer
+    # would write a zero-padded full-size gradient per layer (quadratic in
+    # the depth)
+    layers = _map(params["layers"], lambda t: t.unbind(0))
     for i in range(cfg.n_layers):
-        x = block_apply(layer_params(params["layers"], i), x, cfg,
+        x = block_apply(_map(layers, lambda ts: ts[i]), x, cfg,
                         positions=positions, window=int(windows[i]),
                         cache=None if caches is None else caches[i],
                         cache_pos=cache_pos, commit=commit)

@@ -405,9 +405,13 @@ def test_corrupt_wire_on_the_zoo_payload_and_bf16(wire):
 
 def test_faults_rejected_off_the_wire_path():
     sess = _session(_cfg())                          # f32: no wire state
+    before = sess.state.params.clone()
     with pytest.raises(ValueError, match="corrupt-wire injection"):
         sess.round(np.zeros((2, N, 8), np.float32), VAL,
                    faults=idle_signals(N))
+    # refused before any local step ran
+    assert sess.state.step == 0 and sess.state.round == 0
+    assert torch.equal(sess.state.params, before)
 
 
 def test_whole_plan_runs_the_train_step_once_per_step():

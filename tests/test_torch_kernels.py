@@ -695,3 +695,206 @@ def test_ssd_kernel_deterministic_on_card():
         y2, s2 = ss.ssd_scan(*args, chunk=256)
         torch.cuda.synchronize()
         assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+# ---------------------------------------------------------------------------
+# the flash and SSD autograd Functions (the LM trainer's path)
+# ---------------------------------------------------------------------------
+
+def _fn_inputs(device, dtype=torch.float32, n=3, seed=0):
+    """Per-node flash (q, k, v) and SSD (x, dt, a_log, B, C) inputs with a
+    leading node axis of ``n``; a_log differs per node."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(0, scale, shape))
+                                .astype(np.float32)).to(device)
+
+    b, h, hkv, s, d = 2, 4, 2, 64, 64
+    flash = (t(n, b, h, s, d).to(dtype), t(n, b, hkv, s, d).to(dtype),
+             t(n, b, hkv, s, d).to(dtype))
+    sh, p, st = 4, 32, 16
+    ssd = (t(n, b, s, sh, p).to(dtype),
+           torch.nn.functional.softplus(t(n, b, s, sh)),
+           t(n, sh, scale=0.5), t(n, b, s, 1, st).to(dtype),
+           t(n, b, s, 1, st).to(dtype))
+    return flash, ssd
+
+
+def _fn_grads(flash_fn, ssd_fn, flash, ssd, window=16, chunk=32):
+    """vmap(grad) over the node axis of a linear loss (fixed weights, so
+    the gradients do not depend on the forward's rounding) through each
+    function."""
+    gen = torch.Generator(device=flash[0].device).manual_seed(1)
+
+    def weights(*shape):
+        return torch.randn(shape, generator=gen, device=flash[0].device)
+
+    n, b, h, s, d = flash[0].shape
+    wf = weights(b, h, s, d)
+    x = ssd[0]
+    wy, ws = weights(*x.shape[1:]), weights(b, x.shape[3], x.shape[4],
+                                             ssd[3].shape[-1])
+
+    def fl(q, k, v):
+        out = flash_fn(q, k, v, causal=True, window=window)
+        return torch.sum(out.float() * wf)
+
+    def sl(x, dt, a_log, bm, cm):
+        y, state = ssd_fn(x, dt, a_log, bm, cm, chunk=chunk)
+        return torch.sum(y.float() * wy) + torch.sum(state * ws)
+
+    gf = torch.func.vmap(torch.func.grad(fl, argnums=(0, 1, 2)))(*flash)
+    gs = torch.func.vmap(torch.func.grad(sl, argnums=(0, 1, 2, 3, 4)))(*ssd)
+    return gf, gs
+
+
+def test_kernel_functions_grad_matches_plain_autograd_on_cpu():
+    """On CPU tensors the Functions' plain backwards under vmap(grad) equal
+    autograd through the plain versions (flash 1e-5: its backward's f32
+    formulas round differently; SSD bit for bit: the same recomputation)."""
+    flash, ssd = _fn_inputs("cpu")
+    before = dict(ss.LAUNCHES)
+    gf, gs = _fn_grads(fa.flash_apply, ss.ssd_apply, flash, ssd)
+    assert ss.LAUNCHES == before
+    wf, ws = _fn_grads(flash_attention_plain, ssd_scan_plain, flash, ssd)
+    for got, want in zip(gf, wf):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    for got, want in zip(gs, ws):
+        assert torch.equal(got, want)
+
+
+def test_ssd_takes_a_log_per_batch_row_on_cpu():
+    """a_log [B, H] gives row b what a_log[b] alone gives it; [H] is every
+    row's."""
+    x, dt, alog, bm, cm = _ssd_inputs(3, 32, 4, 8, 6, 1, torch.float32,
+                                      "cpu")
+    rows = torch.stack([alog, alog * 0.5, alog + 0.3])
+    y, st = ss.ssd_scan(x, dt, rows, bm, cm, chunk=16)
+    for i in range(3):
+        yi, si = ss.ssd_scan(x[i:i + 1], dt[i:i + 1], rows[i], bm[i:i + 1],
+                             cm[i:i + 1], chunk=16)
+        assert torch.equal(y[i:i + 1], yi) and torch.equal(st[i:i + 1], si)
+    with pytest.raises(ValueError, match="compose"):
+        ss.ssd_scan(x, dt, rows[:2], bm, cm, chunk=16)
+
+
+def test_flat_layout_parts_and_values():
+    """A wide layout: the parts are views of the slots, join inverts them,
+    values/from_values round-trip, the value vector unflattens to the
+    slots' leaves, and a loss over unflatten_parts reaches both parts."""
+    layout = FlatLayout([("a", (3,)), ("b", (2, 2)), ("c", (5,))],
+                        wide=("a",))
+    assert (layout.n_wide, layout.n_rest, layout.n_values) == (3, 9, 12)
+    assert layout.size == 16 and layout.pad == 1
+    vals = torch.arange(12, dtype=torch.float32) / 7
+    flat = layout.from_values(vals, torch.bfloat16)
+    assert flat.shape == (16,) and flat.dtype == torch.bfloat16
+    wide, rest = layout.parts(flat)
+    assert wide.dtype == torch.float32 and torch.equal(wide, vals[:3])
+    assert torch.equal(layout.join((wide, rest)), flat)
+    back = layout.values(flat)
+    assert torch.equal(back[:3], vals[:3])
+    assert torch.equal(back[3:], vals[3:].to(torch.bfloat16).float())
+    assert torch.equal(layout.from_values(back, torch.bfloat16), flat)
+    by_slots, by_values = layout.unflatten(flat), layout.unflatten(back)
+    for path in by_slots:
+        assert torch.equal(by_slots[path].float(), by_values[path])
+    assert [lf.path for lf in layout.value_layout.leaves] == ["a", "b", "c"]
+    g = torch.func.grad(lambda parts: sum(
+        v.float().sum() * (i + 1) for i, v in enumerate(
+            layout.unflatten_parts(parts).values())))((wide, rest))
+    assert torch.equal(g[0], torch.ones(3))
+    assert torch.equal(g[1], torch.tensor([2.0] * 4 + [3.0] * 5).to(
+        torch.bfloat16))
+    plain = FlatLayout([("a", (3,)), ("c", (5,))])
+    f32 = torch.arange(8, dtype=torch.float32)
+    assert plain.value_layout is plain and plain.parts(f32)[0] is f32
+    assert plain.values(f32) is f32
+
+
+def test_adamw_over_parts_updates_each_part_in_its_dtype():
+    """AdamW over (f32 prefix, bf16 rest) parts: moments over the values,
+    the prefix updated as f32 numbers, the rest in f32 and cast back, the
+    clipping norm over both, as the reference's per-leaf update."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optim import adamw_init, adamw_update
+    rng = np.random.default_rng(0)
+    wide = torch.from_numpy(rng.normal(0, 1, 5).astype(np.float32))
+    rest = torch.from_numpy(rng.normal(0, 1, 7).astype(np.float32)).to(
+        torch.bfloat16)
+    gw = torch.from_numpy(rng.normal(0, 3, 5).astype(np.float32))
+    gr = torch.from_numpy(rng.normal(0, 3, 7).astype(np.float32)).to(
+        torch.bfloat16)
+    cfg = TrainConfig(grad_clip=1.0)
+    state = adamw_init((wide, rest))
+    assert state["mu"].shape == (12,)
+    (nw, nr), st = adamw_update((wide, rest), (gw, gr), state, cfg, 1e-2)
+    assert nw.dtype == torch.float32 and nr.dtype == torch.bfloat16
+    norm = torch.sqrt((gw ** 2).sum() + (gr.float() ** 2).sum())
+    scale = min(1.0, 1.0 / float(norm))
+    g = torch.cat([gw * scale, (gr.float() * scale).to(torch.bfloat16)
+                   .float()])
+    p = torch.cat([wide, rest.float()])
+    mu, nu = 0.1 * g, 0.05 * g * g
+    step = (mu / 0.1) / (torch.sqrt(nu / 0.05) + cfg.eps)
+    want = p - 1e-2 * (step + cfg.weight_decay * p)
+    torch.testing.assert_close(nw, want[:5], rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(nr, want[5:].to(torch.bfloat16), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(st["mu"], mu, rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_functions_grad_on_card(dtype):
+    """On the card, vmap(grad) through the Functions launches the kernels
+    (one call per vmapped forward, the node axis folded into the batch)
+    and gives the plain versions' autograd gradients: f32 at 1e-4, bf16 at
+    the kernels' bf16 output tolerances."""
+    dev = _cuda()
+    flash, ssd = _fn_inputs(dev, dtype)
+    before = dict(ss.LAUNCHES)
+    gf, gs = _fn_grads(fa.flash_apply, ss.ssd_apply, flash, ssd)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert ss.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
+    wf, ws = _fn_grads(flash_attention_plain, ssd_scan_plain, flash, ssd)
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
+           else dict(rtol=5e-2, atol=5e-2))
+    for got, want in list(zip(gf, wf)) + list(zip(gs, ws)):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **tol)
+
+
+def test_kernel_functions_vmap_fold_equals_node_loop_on_card():
+    """The vmap rules' folded launch (a_log per batch row for the SSD)
+    gives each node what its own launch gives, bit for bit."""
+    dev = _cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        flash, ssd = _fn_inputs(dev, dtype, seed=3)
+        with torch.no_grad():
+            fo = torch.func.vmap(lambda q, k, v: fa.flash_apply(
+                q, k, v, causal=True, window=16))(*flash)
+            so = torch.func.vmap(lambda *a: ss.ssd_apply(*a, chunk=32))(*ssd)
+            for i in range(3):
+                f1 = fa.flash_attention(*(t[i] for t in flash), causal=True,
+                                        window=16)
+                s1 = ss.ssd_scan(*(t[i] for t in ssd), chunk=32)
+                assert torch.equal(fo[i], f1)
+                assert torch.equal(so[0][i], s1[0])
+                assert torch.equal(so[1][i], s1[1])
+
+
+def test_kernel_wrappers_refuse_wrapped_tensors_on_card():
+    """Called directly inside torch.func.grad, the wrappers raise instead of
+    reading a wrapped tensor's storage; the Functions unwrap."""
+    dev = _cuda()
+    flash, ssd = _fn_inputs(dev)
+    q, k, v = (t[0] for t in flash)
+    with pytest.raises(TypeError, match="flash_apply"):
+        torch.func.grad(lambda q: fa.flash_attention(q, k, v).sum())(q)
+    x, dt, alog, bm, cm = (t[0] for t in ssd)
+    with pytest.raises(TypeError, match="ssd_apply"):
+        torch.func.grad(lambda x: ss.ssd_scan(x, dt, alog, bm, cm,
+                                              chunk=32)[0].sum())(x)

@@ -64,16 +64,18 @@ def test_overlap_sync_run_rounds_matches_reference():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(lora_only=True), "lora_only"),
+    pytest.param(dict(lora_only=True), None, id="kw0-lora_only"),
     pytest.param(dict(payload="lora", lora_only=False), None,
                  id="kw1-payload"),
 ])
 def test_unported_sync_options_raise_when_sync_runs(kw, match):
     """The session builds and trains locally with these options (the
-    reference's local baseline keeps lora_only=True and never syncs).
-    ``lora_only`` with ``payload="full"`` raises at the sync that needs it;
-    ``payload="lora"`` is ported: the state is the payload, nothing is
-    carved, and the round matches the reference's."""
+    reference's local baseline keeps lora_only=True and never syncs), and
+    both are ported now: ``lora_only`` with ``payload="full"`` carves the
+    adapters out of the state at sync (the CNN has none, so nothing crosses
+    the wire and the sync commits nothing, as the reference's); with
+    ``payload="lora"`` the state is the payload, nothing is carved. The
+    round matches the reference's."""
     base = dict(n_nodes=4, sync_every=2, topology="full", merge="fedavg",
                 lora_only=False)
     js, ts, layout = tp.sessions(dict(base, **kw))
@@ -87,8 +89,31 @@ def test_unported_sync_options_raise_when_sync_runs(kw, match):
     jlog = js.round((jnp.asarray(xs[0]), jnp.asarray(ys[0])),
                     tuple(jnp.asarray(v) for v in val))
     tlog = ts.round((xs[0], ys[0]), val)
-    _check(js, ts, layout, jlog, tlog)
-    assert ts.payload_params == js.payload_params == layout.size
+    if not kw.get("lora_only"):
+        _check(js, ts, layout, jlog, tlog)
+        assert ts.payload_params == js.payload_params == layout.size
+        return
+    # no adapter to carve: the committed params are the local steps' own,
+    # bit for bit (a twin that only trains), and the reference's; with no
+    # merge to average it, AdamW's ±lr step on a gradient at the rounding
+    # floor is held to the summed lr of the 4 warm-up steps (5e-4), as
+    # check_flat holds the FC biases
+    twin = tp.sessions(dict(base, **kw))[1]
+    for _ in range(2):
+        twin.run_local((xs[0], ys[0]))
+    assert torch.equal(ts.state.params, twin.state.params)
+    np.testing.assert_array_equal(tlog["gates"].numpy(),
+                                  np.asarray(jlog["gates"]))
+    np.testing.assert_allclose(tlog["metric_merged"].numpy(),
+                               tlog["metric_local"].numpy())
+    np.testing.assert_allclose(tlog["metric_local"].numpy(),
+                               np.asarray(jlog["metric_local"]), rtol=2e-3,
+                               atol=2e-3)
+    np.testing.assert_allclose(
+        ts.state.params.numpy(),
+        tp.from_reference(layout, jax.tree.map(np.asarray, js.state.params),
+                          lead=1).numpy(), atol=5e-4)
+    assert ts.payload_params == js.payload_params == 0
 
 
 @pytest.mark.parametrize("wire,merge,topology", [

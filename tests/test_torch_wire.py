@@ -109,6 +109,24 @@ def test_wire_effective_on_the_per_leaf_grid(wire_dtype):
                     jax.tree.map(jnp.abs, jx), wire_dtype, 128)))
 
 
+@pytest.mark.parametrize("chunk", [7, 100])
+@pytest.mark.parametrize("wire_dtype", ["int8", "bf16"])
+def test_wire_round_trip_in_column_chunks_equals_reference(wire_dtype, chunk,
+                                                           monkeypatch):
+    """The round trip runs ``comms.CHUNK`` columns at a time (a block's
+    maximum gathered over every chunk first): chunks that cut blocks,
+    segments and leaves still give the reference's bits."""
+    monkeypatch.setattr(comms, "CHUNK", chunk)
+    layout, x, jx = _layout_and_tree(0)
+    _, r, jr = _layout_and_tree(1, scale=0.5)
+    grid = comms.wire_grid(layout, wire_dtype, 128)
+    _equal_bits(comms.wire_effective(x, r, grid).numpy(),
+                _port(layout, jcomms.wire_effective(jx, jr, wire_dtype, 128)))
+    _equal_bits(comms.quant_dequant(x.abs(), grid).numpy(),
+                _port(layout, jcomms.quant_dequant_tree(
+                    jax.tree.map(jnp.abs, jx), wire_dtype, 128)))
+
+
 def test_a_grid_that_ignores_leaves_or_conv_order_is_caught():
     """Blocks taken over the whole buffer, or over the conv's OIHW storage
     order, group other elements and give other bits than the reference."""

@@ -355,14 +355,22 @@ def test_payload_checkpoints_cross_packages_bit_identical(zoos):
 
 
 def test_lora_only_full_payload_still_raises_at_sync(zoos):
-    """lora_only with payload="full" (carve adapters out of a full state)
-    waits for the LM/trainer slice; payload="lora" needs no carving."""
+    """lora_only with payload="full" carves the adapter leaves (``lora_``
+    paths) out of the state at sync: only they merge and the rest passes
+    through, as the reference's ``split_adapters`` does (this once raised,
+    before the LM trainer's slice); payload="lora" needs no carving."""
     payloads = _payloads(zoos)
-    sess = _tsession(_cfg(payload="full", lora_only=True), payloads)
-    with pytest.raises(NotImplementedError, match="LM families"):
-        sess.round(np.zeros((2, N, 1), np.float32), np.zeros((N, 1)))
+    cfg = _cfg(payload="full", lora_only=True)
+    js, ts = _jsession(cfg, payloads), _tsession(cfg, payloads)
+    batches, val = np.zeros((2, N, 1), np.float32), np.zeros((N, 1))
+    jlog = js.round(jnp.asarray(batches), jnp.asarray(val))
+    tlog = ts.round(batches, val)
+    _compare(js, ts, jlog, tlog)
+    adapters = sum(lf.size for lf in ts.layout.leaves
+                   if "lora_" in lf.path)
+    assert 0 < ts.payload_params == js.payload_params == adapters < 60
     sess = _tsession(_cfg(lora_only=True), payloads)    # payload="lora"
-    sess.round(np.zeros((2, N, 1), np.float32), np.zeros((N, 1)))
+    sess.round(batches, val)
     assert sess.payload_params == 60
 
 
