@@ -96,6 +96,13 @@ Phases, each printing one JSON line:
                  (``enable_gqa``, the mask as a boolean tensor; never used
                  by the port), at window 0 also one with ``is_causal=True``
                  and no mask (the summary takes the faster), and the bound;
+                 then the families' full-width shapes (``FAMILY_FLASH``:
+                 granite-moe's q [1,24,2048,64] in a 2064-deep lane, a GQA
+                 group of 3; internvl2's [4,14,2048,64], a group of 7;
+                 seamless's non-causal encoder [4,16,1024,64]; K/V strided
+                 views of [B,T,Hkv,D], as the path gives them) held at the
+                 same tolerance and timed beside the plain version, one
+                 SDPA call and the bound;
  13. ssd_kernel  the SSD scan kernel against its plain version: the
                  reference's sweep at 1e-4 (f32) and Hymba's (1, S, 50,
                  64, 16, 256) at S = 2048 and 256 and Mamba2's (1, 2048,
@@ -158,19 +165,43 @@ Phases, each printing one JSON line:
                  f32 and bf16, against autograd through the plain versions
                  (1e-4 / 2e-2 of 1 + |want|), and the folded forward against
                  a per-node loop bit for bit;
- 16c. train_parity one train step of the hybrid smoke variant in f32 on the
-                 card (flash and SSD kernels) against the CPU (TF32 off):
-                 the loss within 1e-5 relative, params within 2·lr;
+ 16c. train_parity one train step of the hybrid and of the moe (granite)
+                 smoke variant in f32 on the card (flash and SSD kernels,
+                 the MoE's backward) against the CPU (TF32 off): the loss
+                 within 1e-5 relative, AdamW's moments within 1e-3 of each
+                 leaf's largest magnitude, the update within 1 % of its
+                 norm, params within 2·lr, launches as ``TRAIN_PARITY``;
  16d. train      the LM trainer at full width through its CLI entry point
                  (``repro_torch.launch.train.run``), counts set to 0 before
                  each path: Mamba2-370M (bf16, f32 A_log/D/dt_bias) as an
                  N = 4 swarm, ``--sync-every 2 --steps 4 --batch 8 --seq
-                 256``, on the f32 and on the int8 wire, and Hymba-1.5B as
+                 256``, on the f32 and on the int8 wire, and Hymba-1.5B and
+                 granite-moe-3b (bf16, its routers' weights f32) each as
                  one learner, 3 steps at ``--batch 4 --seq 256``; each with
                  finite params and losses, changed f32 leaves and the
                  predicted launches (``TRAIN_PATHS``), its last round's
                  (step's) wall and tokens/s, then one profiled round (step):
                  device time per step, busy share, peak memory;
+ 16e. families_parity the smoke variants of granite-moe-3b, internvl2-1b
+                 (with patch embeddings) and seamless-m4t-medium (its
+                 encoder output) in f32 on the card against the CPU (TF32
+                 off): prefill logits and 4 decode steps within 1e-4, and
+                 the MoE's expert ids and keep masks equal;
+ 16f. families_serve one model of each new family at full width in bf16
+                 (random weights from seeded generators), counts set to 0
+                 before each: granite-moe-3b behind ``ServeEngine`` (N = 4,
+                 4 slots, buckets (256, 2048), captured graphs, a cold and
+                 a warm wave of 8 requests of 16 tokens, no hot swap; flash
+                 = 4 × 32 a prefill); internvl2-1b's ``model.prefill`` of
+                 256 patch embeddings + 1,792 tokens at batch 4 (flash 24)
+                 then 16 replays of the captured decode step;
+                 seamless-m4t-medium's ``encode`` of 4 × 1024 frames
+                 (flash 12, ``causal=False``) copied into the step
+                 buffers' ``enc_out``, then 32 replays of the captured
+                 decode step. Each: wall, tokens/s, a profiled prefill (or
+                 encode) and decode tick (device time, busy share), peak
+                 allocated and reserved memory, launches against the
+                 prediction;
  17. timing      how many device times the profiler read, how many traces
                  ``device_ms`` discarded for lost kernel records, and how
                  many times it fell back to CUDA events;
@@ -1297,6 +1328,14 @@ FLASH_SWEEP = ((1, 4, 4, 128, 128, 64, True, 0, "float32"),
                (2, 2, 2, 128, 128, 64, False, 0, "float32"),
                (1, 2, 2, 128, 128, 64, True, 0, "bfloat16"),
                (2, 6, 3, 77, 90, 32, True, 20, "float32"))
+# the families phase's flash shapes at full width (name, B, H, Hkv, S, T,
+# causal; D = 64, bf16): granite-moe's engine prefill (a GQA group of 3,
+# one node's prompt of 2048 in a 2064-deep lane), internvl2's prefill of
+# 256 patches + 1,792 tokens at batch 4 (a group of 7, the same depth) and
+# seamless's bidirectional encoder (batch 4, 1024 frames)
+FAMILY_FLASH = (("granite", 1, 24, 8, 2048, 2064, True),
+                ("internvl2", 4, 14, 2, 2048, 2064, True),
+                ("seamless", 4, 16, 16, 1024, 1024, False))
 # the serve phase: Hymba-1.5B, prompts of these lengths, 16 new tokens
 SERVE_SEQ = (256, 2048)
 SERVE_NEW = 16
@@ -1397,9 +1436,46 @@ def phase_flash_kernel(dev, bw, peak, bf16_peak):
             row["bound_ms"], row["bound_by"] = bound(
                 nbytes, 4 * h * d * pairs, bw, bf16_peak)
             out[(s, window)] = row
+    families = {}
+    for name, fb, fh, fhkv, fs, ft, causal in FAMILY_FLASH:
+        q, k, v = inputs(fb, fh, fhkv, fs, ft, d, "bfloat16")
+        # K/V as the path gives them: [B, T, Hkv, D] (the cache, the
+        # encoder's projection) seen through a transpose
+        k = k.transpose(1, 2).contiguous().transpose(1, 2)
+        v = v.transpose(1, 2).contiguous().transpose(1, 2)
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        if bool((err > atol + rtol * want.float().abs()).any()):
+            raise AssertionError(f"flash at {name}'s shape: max err "
+                                 f"{float(err.max())}")
+        flops = 4 * fh * d * fb * _flash_pairs(fs, ft, causal, 0)
+        row = dict(q=[fb, fh, fs, d], kv=[fb, fhkv, ft, d], causal=causal,
+                   max_abs_err_bf16=float(err.max()),
+                   kernel_ms=device_ms(lambda: fa.flash_attention(
+                       q, k, v, causal=causal), iters=20, warm=3),
+                   plain_ms=device_ms(lambda: flash_attention_plain(
+                       q, k, v, causal=causal), iters=5, warm=2))
+        # is_causal is top-left aligned, as the kernel's mask is, so for
+        # T >= S it computes the same function
+        try:
+            row["library_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True),
+                iters=20, warm=3)
+        except RuntimeError as exc:  # the yardstick only, never the port
+            row["library_ms"], row["library_error"] = None, str(exc)[:200]
+        row["gflop"] = flops / 1e9
+        row["tflops"] = tflops(flops, row["kernel_ms"])
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * fb * (2 * fh * fs * d + 2 * fhkv * ft * d), flops, bw,
+            bf16_peak)
+        families[name] = row
     emit("flash_kernel", sweep=[list(c) for c in FLASH_SWEEP],
          max_abs_err_f32=max_err,
          hymba={f"s{s}_w{w}": r for (s, w), r in out.items()},
+         families=families,
          shape=dict(q=[1, h, list(SERVE_SEQ), d], kv=[1, hkv, t, d],
                     dtype="bfloat16"),
          rate="bf16 tensor cores", tolerance={"float32": 2e-5,
@@ -1696,31 +1772,34 @@ def _timed_runs(fn, runs=3):
     return walls
 
 
-def _eager_vs_replay(prog):
-    """A warm program's body called eagerly against ``run()`` (a replay),
-    in turns: each one's wall (median of 3 synchronized calls, no
-    profiler), then one call of each under the profiler: its device busy
-    time, the busy share of the unprofiled wall, host ops and launches."""
+def _profiled(fn, runs=3):
+    """``fn``'s wall (median of ``runs`` synchronized calls, no profiler),
+    then one call under the profiler: its device busy time, the busy share
+    of the unprofiled wall, host ops, launches and the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    out = {}
-    for name, fn in (("eager", prog.body), ("replay", prog.run),
-                     ("replay_2", prog.run), ("eager_2", prog.body)):
-        walls = _timed_runs(fn)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            pwall = time.perf_counter() - t0
-        busy = _busy(prof, pwall)
-        wall = sorted(walls)[1]
-        out[name] = dict(wall_s=wall, walls_s=walls,
-                         device_s=busy["device_busy_s"],
-                         busy_share=busy["device_busy_s"] / wall,
-                         profiled_wall_s=pwall, host_ops=busy["host_ops"],
-                         kernel_launches=busy["kernel_launches"])
-    return out
+    walls = _timed_runs(fn, runs)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    busy = _busy(prof, pwall)
+    wall = sorted(walls)[len(walls) // 2]
+    return dict(wall_s=wall, walls_s=walls, device_s=busy["device_busy_s"],
+                busy_share=busy["device_busy_s"] / wall,
+                profiled_wall_s=pwall, host_ops=busy["host_ops"],
+                kernel_launches=busy["kernel_launches"],
+                top_device=busy["top_device"][:5])
+
+
+def _eager_vs_replay(prog):
+    """A warm program's body called eagerly against ``run()`` (a replay),
+    in turns, each through :func:`_profiled`."""
+    return {name: _profiled(fn) for name, fn in (
+        ("eager", prog.body), ("replay", prog.run), ("replay_2", prog.run),
+        ("eager_2", prog.body))}
 
 
 def _profiled_replay_launches(prog, tries=4):
@@ -2013,6 +2092,360 @@ def phase_serve(dev, smi):
     return launches2
 
 
+# the families phases: the smoke variants held card vs CPU, then one model
+# of each family at full width (bf16, random weights from seeded
+# generators, published widths and depths)
+FAMILIES = ("granite-moe-3b-a800m", "internvl2-1b", "seamless-m4t-medium")
+VLM_BATCH, VLM_TEXT = 4, 1792          # + 256 patches = 2048 positions
+ENC_BATCH, ENC_NEW = 4, 32             # 1024 frames each, 32 decode steps
+
+
+def phase_families_parity(dev):
+    """The moe, vlm and enc-dec smoke variants in f32 on the card against
+    the CPU (TF32 off): the prefill logits (a vlm's with its patch
+    embeddings; seamless's encoder output instead) and 4 decode steps
+    within 1e-4, and the MoE's expert ids and keep masks equal."""
+    import torch
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import build_model, nest
+    from repro_torch.models import moe
+    from repro_torch.models.encdec import encode
+    from repro_torch.models.transformer import layer_params
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs, routing = {}, {}
+    try:
+        for arch in FAMILIES:
+            cfg = smoke_variant(get_config(arch))
+            model = build_model(cfg)
+            flat = model.init(torch.Generator().manual_seed(0), "cpu")
+            rng = torch.Generator().manual_seed(1)
+            toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=rng)
+            extra = {}
+            if cfg.family == "vlm":
+                extra["patch_embeds"] = torch.randn(
+                    2, cfg.n_patches, cfg.frontend_dim, generator=rng)
+            if cfg.is_encdec:
+                extra["frames"] = torch.randn(
+                    2, cfg.enc_seq_len, cfg.frontend_dim, generator=rng)
+            x = torch.randn(2, 36, cfg.d_model, generator=rng)
+            res = {}
+            for d in ("cpu", dev):
+                params = model.layout.unflatten(flat.to(d))
+                caches = model.init_cache(2, 48, d)
+                if cfg.is_encdec:
+                    enc = encode(nest(params), cfg, extra["frames"].to(d))
+                    caches["enc_out"].copy_(enc)
+                    outs, start, fed = [enc], 0, toks[:, :4]
+                else:  # a vlm's patches sit before its 36 tokens
+                    batch = {"tokens": toks[:, :36].to(d),
+                             **{k: v.to(d) for k, v in extra.items()}}
+                    lg, caches = model.prefill(params, batch, caches)
+                    outs, fed = [lg[:, -1]], toks[:, 36:40]
+                    start = 36 + (cfg.n_patches if cfg.family == "vlm"
+                                  else 0)
+                for i in range(4):
+                    lg, caches = model.decode(params, fed[:, i:i + 1].to(d),
+                                              caches, start + i)
+                    outs.append(lg[:, -1])
+                res[d] = [o.float().cpu() for o in outs]
+                if cfg.family == "moe":
+                    lp = layer_params(nest(params)["layers"], 0)["moe"]
+                    _, ids, _ = moe.route(lp, x.to(d), cfg)
+                    _, keep, _ = moe.dispatch(ids, cfg)
+                    res[d, "routing"] = (ids.cpu(), keep.cpu())
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(res[dev], res["cpu"]))
+            if not err <= 1e-4 or not all(bool(torch.isfinite(o).all())
+                                          for o in res[dev]):
+                raise AssertionError(f"{arch}: card vs CPU err {err}")
+            errs[arch] = err
+            if cfg.family == "moe":
+                (ids, keep), (cids, ckeep) = (res[dev, "routing"],
+                                              res["cpu", "routing"])
+                bad = (ids != cids).nonzero().tolist()
+                if bad or not torch.equal(keep, ckeep):
+                    raise AssertionError(f"{arch}: expert ids differ at "
+                                         f"{bad[:20]}, keep equal "
+                                         f"{torch.equal(keep, ckeep)}")
+                routing[arch] = dict(assignments=ids.numel(),
+                                     kept=int(keep.sum()), ids_equal=True,
+                                     keep_equal=True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    emit("families_parity", max_abs_err=errs, tolerance=1e-4, steps=5,
+         moe_routing=routing)
+
+
+def _memory():
+    import torch
+    return dict(peak_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                peak_reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
+                card_gib=torch.cuda.get_device_properties(0).total_memory
+                / 2 ** 30)
+
+
+def _moe_serve(dev, smi):
+    """granite-moe-3b-a800m behind ``ServeEngine``: N = 4 nodes, 4 slots,
+    seq buckets (256, 2048), captured programs, a cold wave of 8 requests
+    (its keys built) and a warm one of the same traffic (no build; flash
+    launches = 4 nodes × 32 layers a prefill), no hot swap."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.serve import BucketPolicy, ServeEngine
+
+    cfg = get_config(FAMILIES[0])
+    model = build_model(cfg)
+    size = model.layout.size
+    per_prefill = N * cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ens = torch.empty((N, size), dtype=torch.bfloat16, device=dev)
+    for i in range(N):
+        model.init(torch.Generator(device=dev).manual_seed(300 + i), dev,
+                   out=ens[i])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = ServeEngine(model, ens, mode="consensus", max_len=SERVE_MAX_LEN,
+                      max_slots=4, device=dev,
+                      policy=BucketPolicy(batch_buckets=(1, 2, 4),
+                                          seq_buckets=SERVE_SEQ))
+    del ens
+    gen = np.random.default_rng(3)
+    short, long_ = SERVE_SEQ
+    lengths = (long_, short, long_, short, short, long_, short, long_)
+    prompts = [gen.integers(0, cfg.vocab_size, n) for n in lengths]
+
+    def wave():
+        reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reqs = [eng.submit(p, SERVE_NEW) for p in prompts[:4]]
+        eng.step()
+        reqs += [eng.submit(p, SERVE_NEW) for p in prompts[4:]]
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        for r in reqs:
+            toks = np.stack(r.node_tokens)
+            if r.status != "done" or len(r.tokens) != SERVE_NEW or not (
+                    (toks >= 0) & (toks < cfg.vocab_size)).all():
+                raise AssertionError(f"granite request {r.rid}: {r.status}")
+        return reqs, wall, dict(LAUNCHES)
+
+    reqs1, wall1, _ = wave()
+    built = dict(eng.trace_counts)
+    reqs2, wall2, launches = wave()
+    if dict(eng.trace_counts) != built:
+        raise AssertionError(f"the warm wave built {dict(eng.trace_counts)}")
+    predicted = per_prefill * len(reqs2)
+    if launches["flash_attention"] != predicted or any(
+            v for k, v in launches.items() if k != "flash_attention"):
+        raise AssertionError(f"granite launches {launches}, predicted "
+                             f"flash {predicted}")
+    decode_bucket = max(k[1] for k in built if k[0] == "decode")
+    prog = eng.programs[("decode", decode_bucket), 0]
+    tick = _profiled(prog.run)
+    pre = {}
+    for n in SERVE_SEQ:
+        prog = eng.programs[("prefill", n, decode_bucket), 0]
+        eng._stage_prefill(gen.integers(0, cfg.vocab_size, n), 0, n)
+        pre[str(n)] = _profiled(prog.run)
+        reset_launches()
+        prog.run()
+        torch.cuda.synchronize()
+        if LAUNCHES["flash_attention"] != per_prefill:
+            raise AssertionError(f"a replayed prefill launched "
+                                 f"{dict(LAUNCHES)}")
+    lat = sorted(r.latency_s for r in reqs2)
+    return dict(arch=cfg.name, nodes=N, params_per_node=size,
+                ensemble_gib=N * size * 2 / 2 ** 30,
+                pool_buffers=len(eng.slot.pool), init_seconds=init_s,
+                requests=len(reqs2), new_tokens=SERVE_NEW,
+                prompt_lengths=lengths, max_len=SERVE_MAX_LEN,
+                cold_wave=dict(wall_s=wall1,
+                               builds={str(k): v for k, v in built.items()},
+                               build_seconds=sum(eng.build_seconds.values())),
+                wall_s=wall2, tokens_per_s=len(reqs2) * SERVE_NEW / wall2,
+                latency_p50_s=float(np.percentile(lat, 50)),
+                latency_p99_s=float(np.percentile(lat, 99)),
+                decode_tick=dict(bucket=decode_bucket, **tick),
+                prefill_replay=pre,
+                flash_launches=dict(warm_wave=launches["flash_attention"],
+                                    predicted=predicted,
+                                    per_prefill=per_prefill),
+                **_memory())
+
+
+def _vlm_serve(dev):
+    """internvl2-1b: ``model.prefill`` of 256 patch embeddings + 1,792
+    tokens at batch 4 into the step buffers' caches (24 flash launches),
+    then 16 replays of the captured decode step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import serve_step_for, step_buffers
+    from repro_torch.models import build_model
+
+    cfg = get_config(FAMILIES[1])
+    model = build_model(cfg)
+    s = cfg.n_patches + VLM_TEXT
+    max_len = s + SERVE_NEW
+    torch.cuda.reset_peak_memory_stats()
+    st = step_buffers(model, VLM_BATCH, max_len, torch.device(dev))
+    decode = serve_step_for(model, VLM_BATCH, max_len, torch.device(dev))
+    model.init(torch.Generator(device=dev).manual_seed(400), dev,
+               out=st.params)
+    gen = torch.Generator(device=dev).manual_seed(401)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (VLM_BATCH, VLM_TEXT),
+                                     device=dev, generator=gen),
+             "patch_embeds": torch.randn(VLM_BATCH, cfg.n_patches,
+                                         cfg.frontend_dim, device=dev,
+                                         generator=gen)}
+
+    def prefill():
+        logits, _ = model.prefill(st.views, batch, st.caches)
+        st.tok.copy_(torch.argmax(logits[:, -1], dim=-1, keepdim=True))
+        st.pos.fill_(s)
+
+    def serve():
+        prefill()
+        out = [st.tok.clone()]
+        for _ in range(SERVE_NEW - 1):
+            decode.run()
+            out.append(st.tok.clone())
+        return torch.cat(out, dim=1)
+
+    reset_launches()
+    prefill()
+    torch.cuda.synchronize()
+    if dict((k, v) for k, v in LAUNCHES.items() if v) != {
+            "flash_attention": cfg.n_layers}:
+        raise AssertionError(f"internvl2 prefill launches {dict(LAUNCHES)}")
+    pre = _profiled(prefill)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if tuple(out.shape) != (VLM_BATCH, SERVE_NEW) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"internvl2 tokens {out.tolist()}")
+    st.pos.fill_(s)    # the profiled ticks write positions s .. s + 3
+    tick = _profiled(decode.run)
+    return dict(arch=cfg.name, batch=VLM_BATCH, patches=cfg.n_patches,
+                text_tokens=VLM_TEXT, positions=s, new_tokens=SERVE_NEW,
+                params=model.layout.size, wall_s=wall,
+                tokens_per_s=VLM_BATCH * SERVE_NEW / wall,
+                prefill=pre, decode_tick=tick,
+                flash_launches=dict(per_prefill=cfg.n_layers,
+                                    predicted=cfg.n_layers),
+                **_memory())
+
+
+def _encdec_serve(dev):
+    """seamless-m4t-medium: ``encode`` of 4 × 1024 frames (12 flash
+    launches, ``causal=False``), the output copied into the step buffers'
+    ``enc_out``, then 32 replays of the captured decode step (its S = 1
+    attention plain; the cross K/V recomputed from ``enc_out`` every
+    step)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import serve_step_for, step_buffers
+    from repro_torch.models import build_model, nest
+    from repro_torch.models.encdec import encode
+
+    cfg = get_config(FAMILIES[2])
+    model = build_model(cfg)
+    max_len = ENC_NEW
+    torch.cuda.reset_peak_memory_stats()
+    st = step_buffers(model, ENC_BATCH, max_len, torch.device(dev))
+    decode = serve_step_for(model, ENC_BATCH, max_len, torch.device(dev))
+    model.init(torch.Generator(device=dev).manual_seed(500), dev,
+               out=st.params)
+    gen = torch.Generator(device=dev).manual_seed(501)
+    frames = torch.randn(ENC_BATCH, cfg.enc_seq_len, cfg.frontend_dim,
+                         device=dev, generator=gen)
+    tree = nest(st.views)
+
+    def encode_():
+        st.caches["enc_out"].copy_(encode(tree, cfg, frames))
+
+    def serve():
+        encode_()
+        for t in st.caches["self"]:
+            t["k"].zero_()
+            t["v"].zero_()
+        st.tok.zero_()
+        st.pos.zero_()
+        out = []
+        for _ in range(ENC_NEW):
+            decode.run()
+            out.append(st.tok.clone())
+        return torch.cat(out, dim=1)
+
+    reset_launches()
+    encode_()
+    torch.cuda.synchronize()
+    if dict((k, v) for k, v in LAUNCHES.items() if v) != {
+            "flash_attention": cfg.n_enc_layers}:
+        raise AssertionError(f"seamless encode launches {dict(LAUNCHES)}")
+    enc = _profiled(encode_)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if LAUNCHES["flash_attention"] != cfg.n_enc_layers:
+        raise AssertionError(f"seamless serve launches {dict(LAUNCHES)}")
+    if tuple(out.shape) != (ENC_BATCH, ENC_NEW) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"seamless tokens {out.tolist()}")
+    if not bool(torch.isfinite(st.caches["enc_out"]).all()):
+        raise AssertionError("seamless: non-finite encoder output")
+    st.pos.zero_()     # the profiled ticks write positions 0 .. 3
+    tick = _profiled(decode.run)
+    return dict(arch=cfg.name, batch=ENC_BATCH, frames=cfg.enc_seq_len,
+                new_tokens=ENC_NEW, params=model.layout.size, wall_s=wall,
+                tokens_per_s=ENC_BATCH * ENC_NEW / wall, encode=enc,
+                decode_tick=tick,
+                flash_launches=dict(per_encode=cfg.n_enc_layers,
+                                    predicted=cfg.n_enc_layers,
+                                    causal=False),
+                **_memory())
+
+
+def phase_families_serve(dev, smi):
+    """One model of each new family served at full width on the card, the
+    counts set to 0 just before each path's measured run."""
+    import gc
+    import torch
+    from repro_torch.launch import serve as lserve
+
+    out = {}
+    for name, fn in (("moe", lambda: _moe_serve(dev, smi)),
+                     ("vlm", lambda: _vlm_serve(dev)),
+                     ("encdec", lambda: _encdec_serve(dev))):
+        for cached in (lserve.step_buffers, lserve.serve_step_for,
+                       lserve.prefill_step_for):
+            cached.cache_clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        out[name] = dict(held_before_gib=held, **fn())
+        emit("families_serve", card=smi, path=name, **out[name])
+    return out
+
+
 # the train phase's gradient checks: (name, flash q/K/V shapes and windows
 # or SSD shapes) at Hymba-1.5B's and Mamba2-370M's training shapes, batch
 # 4 / 8 at 256 tokens, two nodes under vmap
@@ -2026,7 +2459,8 @@ GRAD_SSD = (("hymba", 4, 256, 50, 64, 16, 256), ("mamba2", 8, 256, 32, 64,
 # forward each) and commits in one launch over the f32 value vector.
 # Mamba2-370M: 48 SSD layers, no attention; 4 steps in 2 rounds: 4 x 48
 # training launches + 2 syncs x 2 scores x 48. Hymba-1.5B: 32 layers, each
-# one flash and one SSD launch a step, 3 steps.
+# one flash and one SSD launch a step, 3 steps. Granite-moe-3b: 32 layers,
+# one flash launch each a step, 3 steps.
 TRAIN_PATHS = (
     ("mamba2_f32_wire",
      ["--arch", "mamba2-370m", "--swarm-nodes", "4", "--sync-every", "2",
@@ -2041,6 +2475,10 @@ TRAIN_PATHS = (
      ["--arch", "hymba-1.5b", "--steps", "3", "--batch", "4", "--seq",
       "256"],
      {"flash_attention": 3 * 32, "ssd_scan": 3 * 32}),
+    ("granite_plain",
+     ["--arch", "granite-moe-3b-a800m", "--steps", "3", "--batch", "4",
+      "--seq", "256"],
+     {"flash_attention": 3 * 32}),
 )
 
 
@@ -2133,16 +2571,26 @@ def phase_train_grads(dev):
          tolerance_form="|got - want| <= tol * (1 + |want|)")
 
 
+# the train_parity phase's smoke variants and each one's launches a step
+# (one flash launch a layer, and one SSD launch an SSM layer, in the
+# forward; the backwards are plain)
+TRAIN_PARITY = (("hymba-1.5b", {"flash_attention": 2, "ssd_scan": 2}),
+                ("granite-moe-3b-a800m", {"flash_attention": 2}))
+
+
 def phase_train_parity(dev):
-    """One train step of the hybrid smoke variant (f32) on the card, its
-    forward through the flash and SSD kernels and its backward through
-    their Functions, against the same step on the CPU through their plain
-    versions, from the same init and batch (TF32 off), at lr 1e-4 from the
-    first step (no warmup): the loss within 1e-5 relative; AdamW's moments
-    (0.1·g and 0.05·g² of the clipped gradient) of every leaf within 1e-3
-    of the leaf's largest magnitude; the update p − init within 1 % of its
-    norm on the CPU; every param within 2·lr (AdamW moves a param whose
-    gradient sits at the rounding floor by up to ±lr in either run)."""
+    """One train step of the hybrid and of the moe smoke variant (f32) on
+    the card, the forward through the flash (and SSD) kernels and the
+    backward through their Functions and, for the moe, through the
+    router's sorted gate values, the index copy into the experts' buffer,
+    the gather back and the aux term, against the same step on the CPU
+    through the plain versions, from the same init and batch (TF32 off),
+    at lr 1e-4 from the first step (no warmup): the loss within 1e-5
+    relative; AdamW's moments (0.1·g and 0.05·g² of the clipped gradient)
+    of every leaf within 1e-3 of the leaf's largest magnitude; the update
+    p − init within 1 % of its norm on the CPU; every param within 2·lr
+    (AdamW moves a param whose gradient sits at the rounding floor by up
+    to ±lr in either run)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config, smoke_variant
@@ -2155,52 +2603,61 @@ def phase_train_parity(dev):
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    tc = TrainConfig(warmup_steps=0, max_steps=10, remat=False)
+    tol = {"loss_rel": 1e-5, "params_abs": 2 * tc.lr,
+           "moments_rel_to_leaf_max": 1e-3, "update_norm_rel": 1e-2}
     try:
-        model = build_model(smoke_variant(get_config("hymba-1.5b")))
-        tc = TrainConfig(warmup_steps=0, max_steps=10, remat=False)
-        step = make_train_step(model, tc)
-        p, o = init_train_state(model, torch.Generator().manual_seed(0),
-                                "cpu")
-        rng = np.random.default_rng(0)
-        toks = torch.from_numpy(rng.integers(0, 512, (4, 65)))
-        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-        res = {}
-        reset_launches()
-        for d in ("cpu", dev):
-            moved = {k: v.to(d) for k, v in o.items()}
-            pp, oo, m = step(p.to(d), moved, {k: v.to(d)
-                                              for k, v in batch.items()})
-            res[d] = (pp.cpu(), {k: oo[k].cpu() for k in ("mu", "nu")},
-                      float(m["loss"]))
-        launches = {k: v for k, v in LAUNCHES.items() if v}
+        for arch, predicted in TRAIN_PARITY:
+            model = build_model(smoke_variant(get_config(arch)))
+            step = make_train_step(model, tc)
+            p, o = init_train_state(model, torch.Generator().manual_seed(0),
+                                    "cpu")
+            rng = np.random.default_rng(0)
+            toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
+                                                 (4, 65)))
+            batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            res = {}
+            reset_launches()
+            for d in ("cpu", dev):
+                moved = {k: v.to(d) for k, v in o.items()}
+                pp, oo, m = step(p.to(d), moved, {k: v.to(d)
+                                                  for k, v in batch.items()})
+                res[d] = (pp.cpu(), {k: oo[k].cpu() for k in ("mu", "nu")},
+                          float(m["loss"]))
+            launches = {k: v for k, v in LAUNCHES.items() if v}
+            (pc, oc, lc), (pg, og, lg) = res["cpu"], res[dev]
+            loss_err = abs(lg - lc) / abs(lc)
+            p_err = float((pg - pc).abs().max())
+            values = model.layout.value_layout
+            moment_err = {}
+            for key in ("mu", "nu"):
+                got, want = values.unflatten(og[key]), values.unflatten(
+                    oc[key])
+                moment_err[key] = max(
+                    float((got[path] - want[path]).abs().max()
+                          / want[path].abs().max().clamp(min=1e-30))
+                    for path in want)
+            update_err = float((pg - pc).norm() / (pc - p).norm())
+            if not (loss_err <= tol["loss_rel"]
+                    and p_err <= tol["params_abs"]
+                    and max(moment_err.values())
+                    <= tol["moments_rel_to_leaf_max"]
+                    and update_err <= tol["update_norm_rel"]):
+                raise AssertionError(
+                    f"{arch} train step card vs CPU: loss {loss_err}, "
+                    f"params {p_err}, moments {moment_err}, update "
+                    f"{update_err}")
+            if launches != predicted:
+                raise AssertionError(f"{arch} card train step launches "
+                                     f"{launches}, predicted {predicted}")
+            emit("train_parity", arch=model.cfg.name, lr=tc.lr,
+                 loss_rel_err=loss_err, params_max_abs_err=p_err,
+                 moment_err_rel_to_leaf_max=moment_err,
+                 update_norm_rel_err=update_err, tolerance=tol,
+                 launches=launches)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
-    (pc, oc, lc), (pg, og, lg) = res["cpu"], res[dev]
-    loss_err = abs(lg - lc) / abs(lc)
-    p_err = float((pg - pc).abs().max())
-    values = model.layout.value_layout
-    moment_err = {}
-    for key in ("mu", "nu"):
-        got, want = values.unflatten(og[key]), values.unflatten(oc[key])
-        moment_err[key] = max(
-            float((got[path] - want[path]).abs().max()
-                  / want[path].abs().max().clamp(min=1e-30))
-            for path in want)
-    update_err = float((pg - pc).norm() / (pc - p).norm())
-    if not (loss_err <= 1e-5 and p_err <= 2 * tc.lr
-            and max(moment_err.values()) <= 1e-3 and update_err <= 1e-2):
-        raise AssertionError(f"train step card vs CPU: loss {loss_err}, "
-                             f"params {p_err}, moments {moment_err}, "
-                             f"update {update_err}")
-    if launches != {"flash_attention": 2, "ssd_scan": 2}:
-        raise AssertionError(f"card train step launches {launches}")
-    emit("train_parity", arch="hymba-1.5b-smoke", lr=tc.lr,
-         loss_rel_err=loss_err, params_max_abs_err=p_err,
-         moment_err_rel_to_leaf_max=moment_err, update_norm_rel_err=update_err,
-         tolerance={"loss_rel": 1e-5, "params_abs": 2 * tc.lr,
-                    "moments_rel_to_leaf_max": 1e-3, "update_norm_rel": 1e-2},
-         launches=launches)
 
 
 def _wide_changed(model, params, dev):
@@ -2326,7 +2783,8 @@ def phase_train(dev, smi):
     """The LM trainer at full width through its CLI entry point
     (``repro_torch.launch.train.run`` on parsed arguments), counts set to 0
     just before each path and read just after: Mamba2-370M as an N = 4
-    swarm on the f32 and the int8 wire, Hymba-1.5B as one learner. Each
+    swarm on the f32 and the int8 wire, Hymba-1.5B and granite-moe-3b each
+    as one learner. Each
     path's params and losses finite, its wide (f32) leaves changed, its
     launches equal to the prediction; then one more round (step) of it
     under the profiler for the device time and busy share."""
@@ -2425,6 +2883,9 @@ def main() -> int:
     counts = phase_train(dev, smi)
     launches.update({k: v for k, v in counts.items()
                      if v and k not in launches})
+    # the moe, vlm and enc-dec families: card vs CPU, then full width
+    phase_families_parity(dev)
+    phase_families_serve(dev, smi)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[stem],
                     replaces=replaces, launches=launches.get(name, 0),

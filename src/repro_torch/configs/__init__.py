@@ -1,16 +1,25 @@
 """Architecture config registry of the port: own copies of the reference's
-configs (``repro.configs``) for the LM families ported so far — hymba-1.5b
-(hybrid), minicpm-2b (dense) and mamba2-370m (ssm). The other seven come
-with their families (ROADMAP). ``get_config`` and ``smoke_variant`` are
-copies of the reference's."""
+ten configs (``repro.configs``), one module each, in the reference's
+registry order. ``get_config`` and ``smoke_variant`` are copies of the
+reference's."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, SwarmConfig, TrainConfig  # noqa: F401
+from repro_torch.configs.command_r_plus_104b import CONFIG as _commandr
+from repro_torch.configs.deepseek_coder_33b import CONFIG as _deepseek
+from repro_torch.configs.granite_moe_3b import CONFIG as _granite
 from repro_torch.configs.hymba_1_5b import CONFIG as _hymba
+from repro_torch.configs.internvl2_1b import CONFIG as _internvl2
 from repro_torch.configs.mamba2_370m import CONFIG as _mamba2
 from repro_torch.configs.minicpm_2b import CONFIG as _minicpm
+from repro_torch.configs.nemotron_4_15b import CONFIG as _nemotron
+from repro_torch.configs.phi35_moe_42b import CONFIG as _phi35
+from repro_torch.configs.seamless_m4t_medium import CONFIG as _seamless
 
-ARCHS = {c.name: c for c in [_hymba, _mamba2, _minicpm]}
+ARCHS = {c.name: c for c in [
+    _internvl2, _commandr, _hymba, _mamba2, _nemotron,
+    _phi35, _minicpm, _seamless, _deepseek, _granite,
+]}
 ARCH_IDS = tuple(ARCHS)
 
 

@@ -14,7 +14,9 @@ whole head, its frozen ``proj/w`` included.
 :func:`lm_params_from_reference` and :func:`lm_params_to_reference` carry
 an LM's params (`repro_torch.models.build_model`): the reference's tree,
 its layer leaves stacked ``[L, ...]``, and the port's flat vector over the
-same paths. Layer i's params are views ``leaf[i]`` of the stacked leaves
+same paths (the vlm and enc-dec trees too: the projectors, the stacked
+encoder and decoder layers). Layer i's params are views ``leaf[i]`` of the
+stacked leaves
 at run time (`repro_torch.models.transformer.layer_params`); keeping the
 stacked leaves in the flat vector keeps the checkpoint keys the
 reference's, so a reference ``SwarmSession.save`` of an LM ensemble loads
@@ -50,9 +52,12 @@ def _listify(node):
     return out
 
 
-def _conv_axes(lead: int, to_torch: bool):
-    """Permutation of the last four axes: HWIO → OIHW or back."""
-    tail = (3, 2, 0, 1) if to_torch else (2, 3, 1, 0)
+def _ref_axes(leaf, lead: int, to_torch: bool):
+    """Permutation of a ``[*lead, *shape]`` leaf: the stored layout to the
+    reference's (a conv OIHW → HWIO) or back."""
+    tail = leaf.ref_axes
+    if to_torch:
+        tail = tuple(sorted(range(len(tail)), key=tail.__getitem__))
     return tuple(range(lead)) + tuple(lead + a for a in tail)
 
 
@@ -63,22 +68,23 @@ def from_reference(layout: FlatLayout, tree, lead: int = 0,
     parts = {}
     for leaf in layout.leaves:
         a = np.array(_get(tree, leaf.path), np.float32)
-        if len(leaf.shape) == 4:
-            a = np.transpose(a, _conv_axes(lead, to_torch=True))
+        a = np.transpose(a, _ref_axes(leaf, lead, to_torch=True))
         parts[leaf.path] = torch.from_numpy(np.ascontiguousarray(a))
     return layout.flatten(parts, dtype)
 
 
 def to_reference_tree(layout: FlatLayout, flat: torch.Tensor) -> Any:
-    """Flat ``[*lead, P]`` → reference param tree of f32 numpy arrays."""
+    """Flat ``[*lead, P]`` → reference param tree of f32 numpy arrays (a
+    conv OIHW → HWIO)."""
     flat = flat.detach().cpu()
     lead = flat.dim() - 1
+    leaves = {leaf.path: leaf for leaf in layout.leaves}
     root: Dict = {}
     for path, part in layout.unflatten(flat).items():
         a = part.to(torch.float32).numpy()
-        if a.ndim - lead == 4:
-            a = np.ascontiguousarray(
-                np.transpose(a, _conv_axes(lead, to_torch=False)))
+        axes = _ref_axes(leaves[path], lead, to_torch=False)
+        if axes != tuple(range(a.ndim)):
+            a = np.ascontiguousarray(np.transpose(a, axes))
         node = root
         keys = [int(p) if p.isdigit() else p for p in path.split(".")]
         for k in keys[:-1]:
@@ -154,6 +160,6 @@ def lm_params_from_reference(layout: FlatLayout, tree, lead: int = 0,
 def lm_params_to_reference(layout: FlatLayout, flat: torch.Tensor):
     """Flat ``[*lead, P]`` LM params → the reference's tree of f32 numpy
     arrays (exact for bf16 values; cast to bf16 on the reference's side)."""
-    if any(len(leaf.shape) == 4 for leaf in layout.leaves):
-        raise ValueError("an LM layout has no 4-D (conv) leaves")
+    if layout.convs:
+        raise ValueError("an LM layout has no conv leaves")
     return to_reference_tree(layout, flat)

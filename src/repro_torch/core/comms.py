@@ -326,11 +326,11 @@ def _leaves(layout: "FlatLayout | int"):
         sorted(layout.leaves, key=lambda lf: _ref_sort_key(lf.path)))}
     out = []
     for leaf in layout.leaves:
-        local = torch.arange(leaf.size)
-        if len(leaf.shape) == 4:
-            o, i, h, w = leaf.shape
-            # stored (o, i, h, w) sits at ((h·W + w)·I + i)·O + o in HWIO
-            local = local.reshape(h, w, i, o).permute(3, 2, 0, 1).reshape(-1)
+        axes = leaf.ref_axes
+        back = sorted(range(len(axes)), key=axes.__getitem__)
+        # a conv's stored (o, i, h, w) sits at ((h·W + w)·I + i)·O + o
+        local = torch.arange(leaf.size).reshape(
+            [leaf.shape[a] for a in axes]).permute(back).reshape(-1)
         out.append((leaf.offset, rank[leaf.path], local))
     return out
 

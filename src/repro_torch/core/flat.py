@@ -41,6 +41,7 @@ class Leaf:
     shape: Tuple[int, ...]
     offset: int
     wide: bool = False   # f32 values in two slots of a 16-bit buffer
+    conv: bool = False   # a conv weight, stored OIHW (HWIO in the reference)
 
     @property
     def size(self) -> int:
@@ -52,6 +53,13 @@ class Leaf:
     @property
     def slots(self) -> int:
         return 2 * self.size if self.wide else self.size
+
+    @property
+    def ref_axes(self) -> Tuple[int, ...]:
+        """The stored leaf's axes in the reference's order: the stored
+        leaf transposed by them is the reference's (OIHW → HWIO for a
+        conv, no change otherwise)."""
+        return (2, 3, 1, 0) if self.conv else tuple(range(len(self.shape)))
 
 
 class _DtypeView(torch.autograd.Function):
@@ -83,15 +91,22 @@ def view_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 class FlatLayout:
     """Fixed leaf order over a flat parameter vector of length ``size``
-    (slots; ``wide`` names the leaves held as f32 in a 16-bit buffer)."""
+    (slots; ``wide`` names the leaves held as f32 in a 16-bit buffer,
+    ``convs`` the conv weights, stored OIHW where the reference keeps
+    HWIO; any other leaf is stored as the reference keeps it)."""
 
     def __init__(self, leaves: Sequence[Tuple[str, Sequence[int]]],
-                 wide: Iterable[str] = ()):
-        wide = frozenset(wide)
-        leaves = [Leaf(path, tuple(int(s) for s in shape), 0, path in wide)
+                 wide: Iterable[str] = (), convs: Iterable[str] = ()):
+        wide, convs = frozenset(wide), frozenset(convs)
+        leaves = [Leaf(path, tuple(int(s) for s in shape), 0, path in wide,
+                       path in convs)
                   for path, shape in leaves]
         if wide - {leaf.path for leaf in leaves}:
             raise ValueError(f"wide leaves {sorted(wide)} not in the layout")
+        if convs - {leaf.path for leaf in leaves if len(leaf.shape) == 4}:
+            raise ValueError(f"conv leaves {sorted(convs)} are not 4-D "
+                             f"leaves of the layout")
+        self.convs = convs
         # buffer order: the wide leaves first (even offsets), then the rest
         self._order = sorted(range(len(leaves)), key=lambda i: not
                              leaves[i].wide)
@@ -122,7 +137,7 @@ class FlatLayout:
         if self._value_layout is None:
             self._value_layout = FlatLayout(
                 [(self.leaves[i].path, self.leaves[i].shape)
-                 for i in self._order])
+                 for i in self._order], convs=self.convs)
         return self._value_layout
 
     def parts(self, flat: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -176,7 +191,11 @@ class FlatLayout:
 
     @classmethod
     def of_module(cls, module: torch.nn.Module) -> "FlatLayout":
-        return cls([(name, p.shape) for name, p in module.named_parameters()])
+        """The layout of a module's params; its 4-D params are conv
+        weights (OIHW, PyTorch's layout)."""
+        named = list(module.named_parameters())
+        return cls([(name, p.shape) for name, p in named],
+                   convs=[name for name, p in named if p.dim() == 4])
 
     @classmethod
     def of_payload(cls, payload: Dict[str, torch.Tensor]) -> "FlatLayout":

@@ -78,6 +78,7 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
             grads, (l, metrics) = grads_of(parts, batch)
         lr = schedule(opt_state["count"])
         parts, opt_state = adamw_update(parts, grads, opt_state, tc, lr)
+        del grads  # freed before the join allocates the new slot buffer
         return layout.join(parts), opt_state, dict(metrics, loss=l, lr=lr)
 
     return train_step

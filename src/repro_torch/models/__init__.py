@@ -1,29 +1,37 @@
-"""Unified LM model API: port of ``repro.models.build_model`` for the dense,
-ssm and hybrid families.
+"""Unified LM model API: port of ``repro.models.build_model`` for all six
+families (dense, moe, ssm, hybrid, vlm, audio enc-dec).
 
 ``build_model(cfg)`` returns a :class:`Model` bundle of plain functions with
 the reference's conventions, plus the :class:`~repro_torch.core.flat.
 FlatLayout` of one node's params. A node's params are a flat vector
 ``[P]`` in the config's param dtype (the swarm state's form); a call takes
 the layout's views of it (``{dotted path: tensor}``) and runs them through
-``torch.func.functional_call`` over :class:`CausalLM`, a meta-device
+``torch.func.functional_call`` over a :class:`ParamTree`, a meta-device
 ``nn.Module`` that fixes the reference's param tree and names. The leaf
 paths are the reference's tree paths with layer leaves stacked ``[L, ...]``,
 so the port's checkpoints use the reference's keys and either package's
 ``SwarmSession.save`` loads in the other.
 
-  train:  loss_fn(params, {tokens, labels[, mask]}, remat=True)
-          -> (loss, metrics)       (the reference's signature and default;
-          remat=True raises NotImplementedError, so callers pass
+  train:  loss_fn(params, {tokens, labels[, mask][, patch_embeds | frames]},
+          remat=True) -> (loss, metrics)  (the reference's signature and
+          default; remat=True raises NotImplementedError, so callers pass
           remat=False, as the reference's CLI does)
   decode: decode(params, tokens [B,S], caches, cache_pos[, commit])
           -> (logits [B,S,V], caches)      (caches updated in place)
-  prefill(params, {tokens}, caches) -> (last logits [B,1,V], caches)
+  prefill(params, {tokens[, patch_embeds]}, caches) -> (last logits
+          [B,1,V], caches); the enc-dec model has none (``prefill=None``),
+          as in the reference: its prompt is fed token by token
 
-The reference keeps an SSM's ``A_log``, ``D`` and ``dt_bias`` (and an
-adapter's ``lora_scale``) in f32 inside a bf16 model; so does the port: in
-a 16-bit buffer they are the layout's wide leaves
-(`repro_torch.core.flat`), f32 values viewed over two slots each. A
+The vlm model runs the LM backbone on the projected patch embeddings
+followed by the text tokens (its loss reads the text positions); decode is
+text only. The enc-dec model's loss is the teacher-forced
+``forward_encdec``; its decode reads the encoder output from the cache's
+``enc_out``.
+
+The reference keeps an SSM's ``A_log``, ``D`` and ``dt_bias``, a moe
+router's weight (and an adapter's ``lora_scale``) in f32 inside a bf16
+model; so does the port: in a 16-bit buffer they are the layout's wide
+leaves (`repro_torch.core.flat`), f32 values viewed over two slots each. A
 training step differentiates the layout's two parts
 (``layout.unflatten_parts``), so those leaves train as f32.
 
@@ -45,9 +53,12 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.flat import FlatLayout
 from repro_torch.core.lora import is_adapter_path, lora_shapes
-from repro_torch.models.layers import dtype_of, softmax_xent
+from repro_torch.models.encdec import (decode_step, encdec_shapes,
+                                       forward_encdec, init_encdec_,
+                                       make_encdec_cache)
+from repro_torch.models.layers import dtype_of, embed, softmax_xent
 from repro_torch.models.transformer import (forward_lm, init_lm_, lm_shapes,
-                                            make_lm_cache)
+                                            make_lm_cache, project_frontend)
 
 
 @dataclass(frozen=True, eq=False)
@@ -76,15 +87,16 @@ F32_LEAVES = ("A_log", "D", "dt_bias")   # f32 whatever the param dtype
 LORA_ALPHA = 32.0                        # inject_lora's default alpha
 
 
-def _f32_paths(cfg: ModelConfig, shapes: Optional[dict] = None):
+def _f32_paths(cfg: ModelConfig, shapes: dict):
     """The leaves the reference keeps in f32, when the param dtype is not:
-    the SSM's ``A_log``, ``D``, ``dt_bias`` and every ``lora_scale``."""
+    the SSM's ``A_log``, ``D``, ``dt_bias``, a moe router's weight
+    (``layers.moe.router.w``) and every ``lora_scale``."""
     if dtype_of(cfg.param_dtype).itemsize == 4:
         return frozenset()
-    shapes = lm_shapes(cfg) if shapes is None else shapes
     return frozenset(path for path, _ in _leaves(shapes)
                      if (path.split(".")[-1] in F32_LEAVES
                          and ".ssm." in f".{path}")
+                     or path.endswith(".moe.router.w")
                      or path.split(".")[-1] == "lora_scale")
 
 
@@ -100,16 +112,15 @@ def nest(flat: Dict[str, torch.Tensor]) -> dict:
     return root
 
 
-class CausalLM(nn.Module):
-    """The LM's structure: meta parameters named by the reference's tree
-    paths (layer leaves stacked ``[L, ...]``). Called through
-    ``torch.func.functional_call`` with a node's params."""
+class ParamTree(nn.Module):
+    """A model's param structure: meta parameters named by the reference's
+    tree paths (layer leaves stacked ``[L, ...]``). Called through
+    ``torch.func.functional_call`` with a node's params and a function of
+    the nested tree: ``forward(fn, *args)`` is ``fn(tree, *args)``."""
 
-    def __init__(self, cfg: ModelConfig, shapes: Optional[dict] = None):
+    def __init__(self, cfg: ModelConfig, shapes: dict):
         super().__init__()
-        self.cfg = cfg
         self.paths = []
-        shapes = lm_shapes(cfg) if shapes is None else shapes
         wide = _f32_paths(cfg, shapes)
         for path, shape in _leaves(shapes):
             dtype = (torch.float32 if path in wide
@@ -134,20 +145,33 @@ class CausalLM(nn.Module):
             out[path] = t
         return nest(out)
 
-    def forward(self, tokens, caches=None, cache_pos=None, commit=None):
-        return forward_lm(self.tree(), self.cfg, tokens, caches=caches,
-                          cache_pos=cache_pos, commit=commit)
+    def forward(self, fn, *args, **kw):
+        return fn(self.tree(), *args, **kw)
 
 
-def _lm_model(cfg: ModelConfig, lora_rank: int = 0) -> Model:
-    shapes = lm_shapes(cfg)
+def _refuse_remat(remat: bool) -> None:
+    """``remat`` is the reference's activation checkpointing, which
+    ``torch.utils.checkpoint`` cannot give under ``torch.func.grad``."""
+    if remat:
+        raise NotImplementedError(
+            "remat=True (activation checkpointing under torch.func) is "
+            "not ported to repro_torch yet (ROADMAP.md: queue 1 item "
+            "15, remat); pass remat=False")
+
+
+def _node(cfg: ModelConfig, shapes: dict, init_tree: Callable,
+          lora_rank: int):
+    """``(layout, init, call)`` of a node's params over ``shapes``
+    (adapters injected with ``lora_rank``): ``init_tree(tree, cfg,
+    generator)`` fills a tree in place; ``call(params, fn, *args)`` runs
+    ``fn(tree, *args)`` on a node's params."""
     if lora_rank:
         shapes = lora_shapes(shapes, lora_rank)
-    module = CausalLM(cfg, shapes)
+    module = ParamTree(cfg, shapes)
     layout = FlatLayout(list(_leaves(shapes)), _f32_paths(cfg, shapes))
 
-    def forward(params, tokens, **kw):
-        return torch.func.functional_call(module, params, (tokens,), kw)
+    def call(params, fn, *args, **kw):
+        return torch.func.functional_call(module, params, (fn,) + args, kw)
 
     def init(generator: torch.Generator, device="cuda",
              out: Optional[torch.Tensor] = None,
@@ -162,7 +186,7 @@ def _lm_model(cfg: ModelConfig, lora_rank: int = 0) -> Model:
             out = torch.empty(layout.size, dtype=dtype_of(cfg.param_dtype),
                               device=resolve_device(device))
         views = layout.unflatten(out)
-        init_lm_(nest(views), cfg, generator)
+        init_tree(nest(views), cfg, generator)
         for path, t in views.items():
             if not is_adapter_path(path):
                 continue
@@ -178,27 +202,42 @@ def _lm_model(cfg: ModelConfig, lora_rank: int = 0) -> Model:
             out[-1:].zero_()
         return out
 
+    return layout, init, call
+
+
+def _lm_model(cfg: ModelConfig, lora_rank: int) -> Model:
+    """The LM backbone; a vlm's runs on the projected patch embeddings
+    followed by the text tokens', and its loss reads the text positions."""
+    layout, init, call = _node(cfg, lm_shapes(cfg), init_lm_, lora_rank)
+    text_from = cfg.n_patches if cfg.family == "vlm" else 0
+
+    def forward(tree, batch, **kw):
+        if cfg.family != "vlm":
+            return forward_lm(tree, cfg, batch["tokens"], **kw)
+        tok = embed(tree["embed"], batch["tokens"],
+                    dtype_of(cfg.compute_dtype))
+        patches = project_frontend(tree, cfg,
+                                   batch["patch_embeds"].to(tok.dtype))
+        return forward_lm(tree, cfg, embeds=torch.cat([patches, tok], dim=1),
+                          **kw)
+
     def loss_fn(params, batch, remat=True):
-        """(loss, {"xent", "aux"}); ``remat`` is the reference's
-        activation checkpointing, which ``torch.utils.checkpoint`` cannot
-        give under ``torch.func.grad``: ``remat=True`` raises."""
-        if remat:
-            raise NotImplementedError(
-                "remat=True (activation checkpointing under torch.func) is "
-                "not ported to repro_torch yet (ROADMAP.md: queue 1 item "
-                "15, remat); pass remat=False")
-        logits, aux, _ = forward(params, batch["tokens"])
-        xent = softmax_xent(logits, batch["labels"], batch.get("mask"))
+        """(loss, {"xent", "aux"})."""
+        _refuse_remat(remat)
+        logits, aux, _ = call(params, forward, batch)
+        xent = softmax_xent(logits[:, text_from:], batch["labels"],
+                            batch.get("mask"))
         return xent + aux, {"xent": xent, "aux": aux}
 
     def prefill(params, batch, caches):
-        logits, _, caches = forward(params, batch["tokens"], caches=caches,
-                                    cache_pos=0)
+        logits, _, caches = call(params, forward, batch, caches=caches,
+                                 cache_pos=0)
         return logits[:, -1:], caches
 
     def decode(params, tokens, caches, cache_pos, commit=None):
-        logits, _, caches = forward(params, tokens, caches=caches,
-                                    cache_pos=cache_pos, commit=commit)
+        logits, _, caches = call(params, forward_lm, cfg, tokens,
+                                 caches=caches, cache_pos=cache_pos,
+                                 commit=commit)
         return logits, caches
 
     return Model(cfg, init, loss_fn, decode,
@@ -206,15 +245,32 @@ def _lm_model(cfg: ModelConfig, lora_rank: int = 0) -> Model:
                  prefill, layout)
 
 
+def _encdec_model(cfg: ModelConfig, lora_rank: int) -> Model:
+    """The teacher-forced enc-dec; no prefill, as in the reference."""
+    layout, init, call = _node(cfg, encdec_shapes(cfg), init_encdec_,
+                               lora_rank)
+
+    def loss_fn(params, batch, remat=True):
+        _refuse_remat(remat)
+        logits, aux = call(params, forward_encdec, cfg, batch["frames"],
+                           batch["tokens"])
+        xent = softmax_xent(logits, batch["labels"], batch.get("mask"))
+        return xent + aux, {"xent": xent, "aux": aux}
+
+    def decode(params, tokens, caches, cache_pos, commit=None):
+        logits, _, caches = call(params, decode_step, cfg, tokens, caches,
+                                 cache_pos, commit=commit)
+        return logits, caches
+
+    return Model(cfg, init, loss_fn, decode,
+                 lambda b, m, device: make_encdec_cache(cfg, b, m, device),
+                 None, layout)
+
+
 def build_model(cfg: ModelConfig, lora_rank: int = 0) -> Model:
-    """The LM of ``cfg``; with ``lora_rank`` > 0, over the tree with LoRA
+    """The model of ``cfg``; with ``lora_rank`` > 0, over the tree with LoRA
     adapters of that rank injected (the reference's ``inject_lora``, its
     default alpha)."""
-    if cfg.is_encdec or cfg.family == "audio":
-        raise NotImplementedError(
-            "the enc-dec (audio) family is not ported yet: ROADMAP queue 1 "
-            "item 14")
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            "the vlm family is not ported yet: ROADMAP queue 1 item 14")
+    if cfg.is_encdec:
+        return _encdec_model(cfg, lora_rank)
     return _lm_model(cfg, lora_rank)

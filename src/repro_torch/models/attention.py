@@ -1,12 +1,14 @@
-"""Grouped-query attention with RoPE, sliding-window masking and a KV cache:
-port of ``repro.models.attention`` (self-attention; the cross-attention of
-the enc-dec family comes with that family).
+"""Grouped-query attention with RoPE, sliding-window masking, a KV cache
+and cross-attention: port of ``repro.models.attention``.
 
 Two forms, chosen explicitly by the call's shape, never by catching a
 failure:
 
-* **prefill** — S > 1 with query positions 0..S-1: no cache, or a cache
-  written at ``cache_pos = 0``. It runs through
+* **the kernel's** — S > 1 and either a causal self-attention prefill
+  (query positions 0..S-1: no cache, or a cache written at ``cache_pos =
+  0``) or a call with no mask and no cache (the enc-dec encoder's
+  bidirectional self-attention, ``causal=False``, and the teacher-forced
+  cross-attention to the encoder output). It runs through
   `repro_torch.kernels.ops.attention_op`: the hand-written flash kernel on
   a CUDA tensor (counted in ``kernels.LAUNCHES["flash_attention"]``), its
   plain version on a CPU tensor. With a cache, K/V are the cache's whole
@@ -17,6 +19,11 @@ failure:
   to it before ``P·V``; at f32 the two agree within the reference's 2e-4.
 * **everything else** (decode, ``S = 1``) — plain torch, as the reference
   computes it in jnp outside any Pallas kernel.
+
+Cross-attention (``kv_x``, the encoder output ``[B, T, D]``) takes K/V
+from ``kv_x`` and applies neither RoPE nor a mask, as the reference does;
+the reference's ``kv_positions`` feeds only RoPE and the causal mask, so a
+cross call has no use for it and the port does not take it.
 
 ``cache_pos`` is a Python int (one position for every row) or an int
 tensor ``[B]`` (one per row: the serving engine's slots sit at different
@@ -75,12 +82,6 @@ def _gqa_out(probs, v):
     return out.reshape(b, s, nkv * g, -1)
 
 
-def is_prefill(s: int, cache, cache_pos) -> bool:
-    """The flash kernel's form: S > 1 with query positions 0..S-1."""
-    return s > 1 and (cache is None or (isinstance(cache_pos, int)
-                                        and cache_pos == 0))
-
-
 def write_rows(buf, new, positions, commit=None):
     """``buf[b, positions[b, i]] = new[b, i]`` in place (buf [B, T, ...],
     new [B, S, ...], positions [B, S] int); with ``commit`` [B] only the
@@ -93,22 +94,42 @@ def write_rows(buf, new, positions, commit=None):
     buf[rows, positions] = new.to(buf.dtype)
 
 
+def uses_kernel(s: int, cache, cache_pos, masked: bool) -> bool:
+    """Whether a call takes the flash kernel's form: S > 1 and either a
+    causal prefill (``masked``: query positions 0..S-1, no cache or a
+    cache written at position 0) or an unmasked call with no cache."""
+    if s <= 1:
+        return False
+    if masked:
+        return cache is None or (isinstance(cache_pos, int)
+                                 and cache_pos == 0)
+    return cache is None
+
+
 def attention(p, x, cfg: ModelConfig, *, positions, causal: bool = True,
               window: int = 0, cache: Optional[dict] = None, cache_pos=None,
-              commit=None):
+              commit=None, kv_x=None):
     """x [B,S,D], positions [B,S] → output [B,S,D]; a cache's ``k``/``v``
     ([B,T,nkv,hd]) are written in place at the positions. Without a cache
     the query positions are 0..S-1, as every caller of the reference's
-    self-attention gives them."""
+    self-attention gives them. ``kv_x`` [B,T,D] makes it cross-attention
+    (no RoPE, no mask, no cache)."""
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, s, _ = x.shape
+    is_cross = kv_x is not None
+    if is_cross and cache is not None:
+        raise ValueError("cross-attention takes no cache")
+    src = kv_x if is_cross else x
+    t = src.shape[1]
     q = linear(p["q"], x).reshape(b, s, nh, hd)
-    k = linear(p["k"], x).reshape(b, s, nkv, hd)
-    v = linear(p["v"], x).reshape(b, s, nkv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k = linear(p["k"], src).reshape(b, t, nkv, hd)
+    v = linear(p["v"], src).reshape(b, t, nkv, hd)
+    if not is_cross:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
-    window = int(window)
+    masked = causal and not is_cross
+    window = int(window) if masked else 0
     if cache is not None:
         if isinstance(cache_pos, int) and commit is None:
             cache["k"][:, cache_pos:cache_pos + s] = k.to(cache["k"].dtype)
@@ -116,24 +137,20 @@ def attention(p, x, cfg: ModelConfig, *, positions, causal: bool = True,
         else:
             write_rows(cache["k"], k, positions, commit)
             write_rows(cache["v"], v, positions, commit)
+        k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
 
-    if causal and is_prefill(s, cache, cache_pos):
-        kk, vv = (k, v) if cache is None else (cache["k"].to(x.dtype),
-                                               cache["v"].to(x.dtype))
-        out = ops.attention_op(q.transpose(1, 2), kk.transpose(1, 2),
-                               vv.transpose(1, 2), causal=True,
+    if uses_kernel(s, cache, cache_pos, masked):
+        out = ops.attention_op(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=masked,
                                window=window)
         out = out.transpose(1, 2)                           # [B,S,nh,hd]
     else:
-        if cache is not None:
-            k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
-            key_positions = torch.arange(k.shape[1], device=x.device)[None]
-        else:
-            key_positions = positions
         scores = _gqa_scores(q, k)                          # [B,nkv,g,S,T]
-        qpos = positions[:, None, None, :, None]
-        kpos = key_positions[:, None, None, None, :]
-        if causal:
+        if masked:
+            key_positions = (positions if cache is None else
+                             torch.arange(k.shape[1], device=x.device)[None])
+            qpos = positions[:, None, None, :, None]
+            kpos = key_positions[:, None, None, None, :]
             w_eff = window if window > 0 else 2 ** 30
             mask = (kpos <= qpos) & (kpos > qpos - w_eff)
         else:

@@ -1,0 +1,158 @@
+"""Encoder-decoder transformer (the SeamlessM4T-style audio family): port of
+``repro.models.encdec``.
+
+The modality frontend (mel spectrogram and conv feature extractor) is a
+stub, as in the reference: the model consumes precomputed frame embeddings
+``[B, S_enc, frontend_dim]``, projected by ``frontend_proj`` (biased). The
+encoder is bidirectional: its self-attention (RoPE, no mask) takes the
+flash kernel with ``causal=False`` at S = T = the frame count. The decoder
+has cached causal self-attention and cross-attention to the encoder
+output, whose K/V ``decode_step`` recomputes from ``enc_out`` at every
+step, as the reference does.
+
+Params are the reference's tree: ``frontend_proj``, ``enc_layers`` and
+``dec_layers`` (leaves stacked ``[L, ...]``), ``enc_norm``, ``embed``,
+``final_norm`` and ``lm_head``. Caches are ``{"self": [per-layer {"k",
+"v"}], "enc_out": [B, enc_seq_len, D]}`` in the compute dtype, updated in
+place; the serving steps copy an encoder output into ``enc_out`` before
+their replays.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import (attention, attention_shapes,
+                                          make_cache)
+from repro_torch.models.layers import (dtype_of, embed, init_linear_, linear,
+                                       mlp, normal_, rmsnorm)
+from repro_torch.models.transformer import _map, mlp_shapes
+
+
+def _enc_block_shapes(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    return {"attn_norm": {"scale": (d,)}, "attn": attention_shapes(cfg),
+            "mlp_norm": {"scale": (d,)}, "mlp": mlp_shapes(cfg)}
+
+
+def _dec_block_shapes(cfg: ModelConfig) -> dict:
+    return dict(_enc_block_shapes(cfg), cross_norm={"scale": (cfg.d_model,)},
+                cross=attention_shapes(cfg))
+
+
+def encdec_shapes(cfg: ModelConfig) -> dict:
+    d, v = cfg.d_model, cfg.padded_vocab
+
+    def stack(n, tree):
+        return _map(tree, lambda shape: (n,) + tuple(shape))
+
+    return {"frontend_proj": {"w": (cfg.frontend_dim, d), "b": (d,)},
+            "enc_layers": stack(cfg.n_enc_layers, _enc_block_shapes(cfg)),
+            "enc_norm": {"scale": (d,)},
+            "embed": {"table": (v, d)},
+            "dec_layers": stack(cfg.n_layers, _dec_block_shapes(cfg)),
+            "final_norm": {"scale": (d,)},
+            "lm_head": {"w": (d, v)}}
+
+
+def init_encdec_(params: dict, cfg: ModelConfig,
+                 generator: torch.Generator) -> None:
+    """Fill a param tree in place with the reference's init scales, drawn
+    from ``generator``: linears N(0, 1/in) with zero biases, the embedding
+    N(0, 0.02²), norms one."""
+    init_linear_(params["frontend_proj"], generator)
+    normal_(params["embed"]["table"], generator, 0.02)
+    init_linear_(params["lm_head"], generator)
+    for name in ("enc_layers", "dec_layers"):
+        layers = params[name]
+        n = cfg.n_enc_layers if name == "enc_layers" else cfg.n_layers
+        for i in range(n):
+            lp = _map(layers, lambda t: t[i])
+            for key, sub in lp.items():
+                if key.endswith("norm"):
+                    sub["scale"].fill_(1.0)
+                else:  # attn, cross, mlp: dicts of linears
+                    for layer in sub.values():
+                        init_linear_(layer, generator)
+    for name in ("enc_norm", "final_norm"):
+        params[name]["scale"].fill_(1.0)
+
+
+def _layers(stacked: dict, n: int):
+    """Each layer's params: views of the stacked leaves, unbound once."""
+    unbound = _map(stacked, lambda t: t.unbind(0))
+    return [_map(unbound, lambda ts: ts[i]) for i in range(n)]
+
+
+def encode(params, cfg: ModelConfig, frames):
+    """frames [B, S_enc, frontend_dim] → enc_out [B, S_enc, D]."""
+    x = linear(params["frontend_proj"],
+               frames.to(dtype_of(cfg.compute_dtype)))
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    for lp in _layers(params["enc_layers"], cfg.n_enc_layers):
+        a = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+        x = x + attention(lp["attn"], a, cfg, positions=positions,
+                          causal=False)
+        m = rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+        x = x + mlp(lp["mlp"], m, cfg)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def make_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      device) -> dict:
+    dtype = dtype_of(cfg.compute_dtype)
+    return {"self": [make_cache(cfg, batch, max_len, dtype, device)
+                     for _ in range(cfg.n_layers)],
+            "enc_out": torch.zeros((batch, cfg.enc_seq_len, cfg.d_model),
+                                   dtype=dtype, device=device)}
+
+
+def decode_step(params, cfg: ModelConfig, tokens, caches: Optional[dict],
+                cache_pos, *, enc_out=None, commit=None):
+    """Decoder forward: tokens [B,S] → (logits [B,S,V_padded], aux 0,
+    caches). With caches (from :func:`make_encdec_cache`) the
+    self-attention writes them in place at ``cache_pos`` (an int or a
+    ``[B]`` tensor; ``commit`` limits the rows) and the cross-attention
+    reads ``caches["enc_out"]``; without (teacher-forced training) it reads
+    ``enc_out`` and the positions are 0..S-1."""
+    compute_dtype = dtype_of(cfg.compute_dtype)
+    x = embed(params["embed"], tokens, compute_dtype)
+    b, s = x.shape[:2]
+    if enc_out is None:
+        enc_out = caches["enc_out"].to(compute_dtype)
+    ar = torch.arange(s, device=x.device)
+    if cache_pos is None:
+        positions = ar[None].expand(b, s)
+    elif isinstance(cache_pos, int):
+        positions = (cache_pos + ar)[None].expand(b, s)
+    else:
+        positions = (cache_pos.to(x.device).reshape(-1, 1)
+                     + ar[None]).expand(b, s)
+    for i, lp in enumerate(_layers(params["dec_layers"], cfg.n_layers)):
+        a = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+        x = x + attention(lp["attn"], a, cfg, positions=positions,
+                          cache=None if caches is None else caches["self"][i],
+                          cache_pos=cache_pos, commit=commit)
+        c = rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
+        x = x + attention(lp["cross"], c, cfg, positions=positions,
+                          causal=False, kv_x=enc_out)
+        m = rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+        x = x + mlp(lp["mlp"], m, cfg)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = x @ params["lm_head"]["w"].to(x.dtype)
+    if cfg.padded_vocab != cfg.vocab_size:  # mask the padding columns
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux, caches
+
+
+def forward_encdec(params, cfg: ModelConfig, frames, tokens):
+    """Teacher-forced training forward: (logits, aux)."""
+    enc_out = encode(params, cfg, frames)
+    logits, aux, _ = decode_step(params, cfg, tokens, None, None,
+                                 enc_out=enc_out)
+    return logits, aux

@@ -91,13 +91,18 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp(p, x, cfg: ModelConfig):
     if cfg.activation == "swiglu":
         h = F.silu(linear(p["gate"], x)) * linear(p["up"], x)
     elif cfg.activation == "sq_relu":  # nemotron-4: squared ReLU
         h = torch.square(F.relu(linear(p["up"], x)))
     else:
-        h = F.gelu(linear(p["up"], x), approximate="tanh")
+        h = gelu(linear(p["up"], x))
     return linear(p["down"], h)
 
 

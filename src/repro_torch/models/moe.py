@@ -1,0 +1,124 @@
+"""Top-k Mixture-of-Experts with capacity-based dispatch: port of
+``repro.models.moe``.
+
+The reference's semantics, step for step:
+
+* **Routing** in f32 (``x.float() @ router.w``, the router's weight is f32
+  in every model), softmax, top-k, the gate values renormalised by
+  ``max(sum, 1e-9)``. Top-k is a stable descending sort cut to k, so ties
+  go to the lower expert index and the ids come in descending order, as
+  ``jax.lax.top_k`` gives them (``torch.topk`` promises neither on CUDA).
+* **Aux loss**, Switch-style: ``e · Σ(me · ce) · router_aux_coef`` with
+  ``me`` the mean router probability and ``ce`` the share of tokens whose
+  top-1 is each expert.
+* **Capacity per batch row**: ``cap_g = max(1, round(s·k/e·cf))`` (Python's
+  round: halves to even). A row's s·k assignments, token-major, take slots
+  in the order of a cumsum; those at or past ``cap_g`` are dropped.
+* **Dispatch** into ``[E, B·cap_g, D]`` by an index copy into
+  ``[E, B·cap_g + 1, D]`` whose spare row takes every dropped entry and is
+  cut off: each kept (expert, slot) pair is written exactly once, so the
+  result is deterministic (no atomics, no bf16 accumulation).
+* **Expert FFN** ``silu(buf@gate) * (buf@up) @ down``, batched over E by
+  ``torch.bmm`` (the reference computes it in jnp, outside any Pallas
+  kernel).
+* **Combine**: gather (a dropped entry reads slot ``cap - 1`` and its
+  ``keep`` zeroes it), times ``keep · gate`` cast to x's dtype, the k terms
+  summed in f32 and rounded once, as XLA reduces bf16.
+
+The body reads nothing back from the card (no ``nonzero``, no boolean-mask
+indexing, no ``.item()``; one-hots compare with ``arange(e)``), so a
+serving step that runs it can be captured into a CUDA graph, and every op
+has a ``torch.func.vmap`` rule, so the trainer's vmap over nodes runs it.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import init_linear_
+
+
+def moe_shapes(cfg: ModelConfig) -> dict:
+    d, e = cfg.d_model, cfg.n_experts
+    fe = cfg.d_ff_expert or cfg.d_ff
+    return {"router": {"w": (d, e)},
+            "experts": {"gate": {"w": (e, d, fe)}, "up": {"w": (e, d, fe)},
+                        "down": {"w": (e, fe, d)}}}
+
+
+def init_moe_(p: dict, cfg: ModelConfig, generator: torch.Generator) -> None:
+    """The reference's scales: every weight ~ N(0, 1/in)."""
+    init_linear_(p["router"], generator)
+    for name in ("gate", "up", "down"):
+        init_linear_(p["experts"][name], generator)
+
+
+def route(p, x, cfg: ModelConfig):
+    """x [B,S,D] → (gate values [B,S,k] f32, expert ids [B,S,k], aux)."""
+    b, s, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    logits = x.to(torch.float32) @ p["router"]["w"].to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)                        # [B,S,E]
+    gate_vals, expert_ids = torch.sort(probs, dim=-1, descending=True,
+                                       stable=True)
+    gate_vals, expert_ids = gate_vals[..., :k], expert_ids[..., :k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    experts = torch.arange(e, device=x.device)
+    me = probs.reshape(b * s, e).mean(0)
+    ce = (expert_ids[..., 0].reshape(b * s, 1) == experts).to(
+        torch.float32).mean(0)
+    aux = e * torch.sum(me * ce) * cfg.router_aux_coef
+    return gate_vals, expert_ids, aux
+
+
+def dispatch(expert_ids, cfg: ModelConfig):
+    """Expert ids [B,S,k] → (slot [B·S·k], keep [B·S·k] bool, cap_g): each
+    assignment's slot in its expert's ``[B·cap_g]`` rows (row g owns slots
+    ``g·cap_g`` .. ``(g+1)·cap_g - 1``) and whether it fits."""
+    b, s, k = expert_ids.shape
+    e = cfg.n_experts
+    cap_g = int(max(1, round(s * k / e * cfg.capacity_factor)))
+    flat_ids = expert_ids.reshape(b, s * k)                      # token-major
+    # the one-hot expert-major [B, E, S·k], so the running count is a scan
+    # along the last dim (PyTorch's scan over a middle dim took 3 ms a
+    # call at 16,384 assignments on an H100)
+    experts = torch.arange(e, device=flat_ids.device)[:, None]
+    onehot = (flat_ids[:, None, :] == experts).to(torch.int32)
+    pos = torch.cumsum(onehot, dim=-1, dtype=torch.int32) - 1   # per row
+    pos = torch.gather(pos, 1, flat_ids[:, None, :])[:, 0]
+    keep = pos < cap_g
+    pos = torch.where(keep, pos, cap_g)
+    grp = torch.arange(b, device=flat_ids.device)[:, None]
+    slot = grp * cap_g + pos
+    return slot.reshape(-1), keep.reshape(-1), cap_g
+
+
+def moe(p, x, cfg: ModelConfig):
+    """x [B,S,D] → (y [B,S,D], aux scalar f32)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    gate_vals, expert_ids, aux = route(p, x, cfg)
+    slot, keep, cap_g = dispatch(expert_ids, cfg)
+    cap = b * cap_g
+    flat_ids = expert_ids.reshape(t * k)
+
+    # dispatch: [E, cap + 1, D], the spare row cut off
+    src = x.reshape(t, 1, d).expand(t, k, d).reshape(t * k, d)
+    rows = flat_ids * (cap + 1) + torch.where(keep, slot, cap)
+    buf = x.new_zeros((e * (cap + 1), d)).index_copy(0, rows, src)
+    buf = buf.reshape(e, cap + 1, d)[:, :cap]
+
+    w = p["experts"]
+    g = F.silu(torch.bmm(buf, w["gate"]["w"].to(x.dtype)))
+    u = torch.bmm(buf, w["up"]["w"].to(x.dtype))
+    out = torch.bmm(g * u, w["down"]["w"].to(x.dtype))           # [E,cap,D]
+
+    # combine: gather back, weight by the gates
+    rows = flat_ids * cap + torch.where(keep, slot, cap - 1)
+    got = out.reshape(e * cap, d).index_select(0, rows)          # [T*k, D]
+    got = got * (keep[:, None] * gate_vals.reshape(t * k, 1)).to(x.dtype)
+    y = got.reshape(t, k, d).to(torch.float32).sum(1).to(x.dtype)
+    return y.reshape(b, s, d), aux

@@ -1,15 +1,16 @@
-"""Decoder-only LM for the dense, ssm and hybrid families: port of
-``repro.models.transformer``.
+"""Decoder-only LM for the dense, moe, ssm, hybrid and vlm families: port
+of ``repro.models.transformer``.
 
 Params are the reference's tree: ``embed``/``embed_tied``, ``layers`` (every
 leaf stacked ``[L, ...]`` over the layers, as the reference's
-scan-over-layers keeps them), ``final_norm`` and ``lm_head``. The forward
-loops over the layers in Python, slicing layer i's params as views
-(``leaf[i]``), so each layer's attention window is a Python int, as the
-flash kernel takes it. The reference's ``logical_shard`` /
-``constrain_block_params`` are no-ops on one device and are dropped. The
-moe family raises in :func:`block_shapes` (its ROADMAP item); the kernels
-of this path are the flash attention and SSD scan of every prefill.
+scan-over-layers keeps them), ``final_norm``, ``lm_head`` and, for a vlm,
+the ``projector`` (``fc1``, ``fc2``, both biased). The forward loops over
+the layers in Python, slicing layer i's params as views (``leaf[i]``), so
+each layer's attention window is a Python int, as the flash kernel takes
+it. The reference's ``logical_shard`` / ``constrain_block_params`` are
+no-ops on one device and are dropped. The kernels of this path are the
+flash attention and SSD scan of every prefill; a moe block's expert FFN
+(`repro_torch.models.moe`) is plain torch, as the reference's is jnp.
 
 Caches are a list with one dict per layer (``k``/``v`` ``[B, T, nkv, hd]``
 in the compute dtype; ``ssd`` ``[B, H, P, N]`` f32 and ``conv``
@@ -31,8 +32,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (attention, attention_shapes,
                                           make_cache)
-from repro_torch.models.layers import (dtype_of, embed, init_linear_, mlp,
-                                       normal_, rmsnorm, unembed)
+from repro_torch.models.layers import (dtype_of, embed, gelu, init_linear_,
+                                       linear, mlp, normal_, rmsnorm,
+                                       unembed)
+from repro_torch.models.moe import init_moe_, moe, moe_shapes
 from repro_torch.models.ssm import (init_ssm_, make_ssm_state, ssm_block,
                                     ssm_shapes)
 
@@ -40,23 +43,27 @@ from repro_torch.models.ssm import (init_ssm_, make_ssm_state, ssm_block,
 # param shapes and init
 # ---------------------------------------------------------------------------
 
+def mlp_shapes(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    lin = (lambda i, o: {"w": (i, o), "b": (o,)} if cfg.use_bias
+           else {"w": (i, o)})
+    if cfg.activation == "swiglu":
+        return {"gate": lin(d, f), "up": lin(d, f), "down": lin(f, d)}
+    return {"up": lin(d, f), "down": lin(f, d)}
+
+
 def block_shapes(cfg: ModelConfig) -> dict:
     """One layer's param shapes (a nested dict of tuples)."""
     d = cfg.d_model
     fam = cfg.family
-    if fam == "moe":
-        raise NotImplementedError(
-            "the moe family is not ported yet: ROADMAP queue 1 item 14")
     if fam == "ssm":
         return {"ssm_norm": {"scale": (d,)}, "ssm": ssm_shapes(cfg)}
-    lin = (lambda i, o: {"w": (i, o), "b": (o,)} if cfg.use_bias
-           else {"w": (i, o)})
-    f = cfg.d_ff
-    mlp_p = ({"gate": lin(d, f), "up": lin(d, f), "down": lin(f, d)}
-             if cfg.activation == "swiglu" else
-             {"up": lin(d, f), "down": lin(f, d)})
     p = {"attn_norm": {"scale": (d,)}, "attn": attention_shapes(cfg),
-         "mlp_norm": {"scale": (d,)}, "mlp": mlp_p}
+         "mlp_norm": {"scale": (d,)}}
+    if fam == "moe":
+        p["moe"] = moe_shapes(cfg)
+    else:
+        p["mlp"] = mlp_shapes(cfg)
     if fam == "hybrid":
         p["ssm"] = ssm_shapes(cfg)
         p["beta_attn"] = (d,)
@@ -79,6 +86,10 @@ def lm_shapes(cfg: ModelConfig) -> dict:
               "final_norm": {"scale": (cfg.d_model,)}}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = {"w": (cfg.d_model, cfg.padded_vocab)}
+    if cfg.frontend_dim:  # vlm projector (the frontend itself is a stub)
+        d = cfg.d_model
+        shapes["projector"] = {"fc1": {"w": (cfg.frontend_dim, d), "b": (d,)},
+                               "fc2": {"w": (d, d), "b": (d,)}}
     return shapes
 
 
@@ -97,6 +108,8 @@ def init_lm_(params: dict, cfg: ModelConfig,
     params["final_norm"]["scale"].fill_(1.0)
     if "lm_head" in params:
         init_linear_(params["lm_head"], generator)
+    for layer in params.get("projector", {}).values():
+        init_linear_(layer, generator)
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         if cfg.family == "ssm":
@@ -107,8 +120,11 @@ def init_lm_(params: dict, cfg: ModelConfig,
         lp["mlp_norm"]["scale"].fill_(1.0)
         for name in ("q", "k", "v", "o"):
             init_linear_(lp["attn"][name], generator)
-        for layer in lp["mlp"].values():
-            init_linear_(layer, generator)
+        if cfg.family == "moe":
+            init_moe_(lp["moe"], cfg, generator)
+        else:
+            for layer in lp["mlp"].values():
+                init_linear_(layer, generator)
         if cfg.family == "hybrid":
             init_ssm_(lp["ssm"], cfg, generator)
             lp["beta_attn"].fill_(1.0)
@@ -132,15 +148,15 @@ def _write_state(cache: dict, state: dict, commit) -> None:
 
 def block_apply(p, x, cfg: ModelConfig, *, positions, window: int,
                 cache: Optional[dict], cache_pos, commit=None):
-    """One residual block; ``cache`` (the layer's dict, or None) is
-    updated in place."""
+    """One residual block → (x, aux: the moe router's loss, or None);
+    ``cache`` (the layer's dict, or None) is updated in place."""
     fam = cfg.family
     if fam == "ssm":
         h = rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
         y, st = ssm_block(p["ssm"], h, cfg, state=cache)
         if cache is not None:
             _write_state(cache, st, commit)
-        return x + y
+        return x + y, None
 
     h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
     a = attention(p["attn"], h, cfg, positions=positions, window=window,
@@ -154,7 +170,10 @@ def block_apply(p, x, cfg: ModelConfig, *, positions, window: int,
     else:
         x = x + a
     h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
-    return x + mlp(p["mlp"], h, cfg)
+    if fam == "moe":
+        y, aux = moe(p["moe"], h, cfg)
+        return x + y, aux
+    return x + mlp(p["mlp"], h, cfg), None
 
 
 # ---------------------------------------------------------------------------
@@ -184,14 +203,26 @@ def make_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
     return caches
 
 
-def forward_lm(params, cfg: ModelConfig, tokens, *, caches=None,
-               cache_pos=None, commit=None):
-    """tokens [B,S] → (logits [B,S,V_padded], aux, caches). ``cache_pos`` is
-    an int or an int tensor ``[B]`` (per-row decode positions); caches are
-    written in place (``commit`` [B] bool limits the rows)."""
+def project_frontend(params, cfg: ModelConfig, feats):
+    """VLM stub embeddings → d_model through the 2-layer projector (gelu,
+    tanh-approximated as ``jax.nn.gelu``'s default)."""
+    h = gelu(linear(params["projector"]["fc1"], feats))
+    return linear(params["projector"]["fc2"], h)
+
+
+def forward_lm(params, cfg: ModelConfig, tokens=None, *, embeds=None,
+               caches=None, cache_pos=None, commit=None):
+    """tokens [B,S] (or ``embeds`` [B,S,D], the vlm prefix path) →
+    (logits [B,S,V_padded], aux: the layers' router losses summed in f32,
+    caches). ``cache_pos`` is an int or an int tensor ``[B]`` (per-row
+    decode positions); caches are written in place (``commit`` [B] bool
+    limits the rows)."""
     compute_dtype = dtype_of(cfg.compute_dtype)
     emb_p = params["embed_tied"] if cfg.tie_embeddings else params["embed"]
-    x = embed(emb_p, tokens, compute_dtype)
+    if embeds is None:
+        x = embed(emb_p, tokens, compute_dtype)
+    else:
+        x = embeds.to(compute_dtype)
     b, s = x.shape[:2]
     ar = torch.arange(s, device=x.device)
     if cache_pos is None:
@@ -207,11 +238,14 @@ def forward_lm(params, cfg: ModelConfig, tokens, *, caches=None,
     # would write a zero-padded full-size gradient per layer (quadratic in
     # the depth)
     layers = _map(params["layers"], lambda t: t.unbind(0))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x = block_apply(_map(layers, lambda ts: ts[i]), x, cfg,
-                        positions=positions, window=int(windows[i]),
-                        cache=None if caches is None else caches[i],
-                        cache_pos=cache_pos, commit=commit)
+        x, aux_i = block_apply(_map(layers, lambda ts: ts[i]), x, cfg,
+                               positions=positions, window=int(windows[i]),
+                               cache=None if caches is None else caches[i],
+                               cache_pos=cache_pos, commit=commit)
+        if aux_i is not None:
+            aux = aux + aux_i
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = unembed(params["embed_tied"], x)
@@ -222,5 +256,4 @@ def forward_lm(params, cfg: ModelConfig, tokens, *, caches=None,
     if cfg.padded_vocab != cfg.vocab_size:  # mask the padding columns
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, caches

@@ -244,9 +244,12 @@ def test_launches_count_replays_on_card():
     assert prog.replays == 1 + k
 
 
-def test_programs_do_not_sync_on_card():
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "granite-moe-3b-a800m"])
+def test_programs_do_not_sync_on_card(arch):
+    """No synchronizing op in a replay or an eager body, the moe model's
+    routing, dispatch and combine included."""
     dev = _cuda()
-    eng = _engine(dev)
+    eng = _engine(dev, _model(arch, dev))
     rng = np.random.default_rng(6)
     _serve(eng, rng, (16, 32))
     mode = torch.cuda.get_sync_debug_mode()

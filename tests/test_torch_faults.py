@@ -178,7 +178,7 @@ def test_fold_in_matches_jax():
 
 def _small_layout():
     return FlatLayout([("c.w", (5, 3, 3, 3)), ("c.b", (5,)),
-                       ("odd", (37,))])
+                       ("odd", (37,))], convs=["c.w"])
 
 
 def _zoo_layout():

@@ -122,15 +122,16 @@ def test_kernel_input_checks_on_card():
 # leaves off the 128 grid, so segments end at leaf boundaries, and a conv
 # leaf whose blocks (HWIO order) are scattered over its OIHW storage
 LAYOUT = FlatLayout([("b", (300,)), ("conv", (16, 8, 3, 3)), ("a", (6, 9)),
-                     ("c", (3, 5, 2))])
+                     ("c", (3, 5, 2))], convs=["conv"])
 # (N, layout, wire_block): the cases above on the 128 grid, then the paper
 # CNN's own layout at the main path's 512 (the four 3x3 convs that cannot
 # be cut are whole-leaf tiles over many blocks), a wide 1x1 conv, and at
 # N = 64 a conv that cannot be cut: one tile of 122 segments, whose maxima
 # (x 64 rows) fill nearly the most shared memory a maxima block takes,
 # merged across many blocks
-WIDE = FlatLayout([("w", (96, 40, 1, 1)), ("b", (96,))])
-BIG = FlatLayout([("conv", (32, 216, 3, 3)), ("bias", (32,))])
+WIDE = FlatLayout([("w", (96, 40, 1, 1)), ("b", (96,))], convs=["w"])
+BIG = FlatLayout([("conv", (32, 216, 3, 3)), ("bias", (32,))],
+                 convs=["conv"])
 QCASES = [(4, LAYOUT, 128), (4, 100_003, 128), (64, 777, 128),
           (5, LAYOUT, 128), (2, 128, 128), (4, "paper", 512),
           (5, WIDE, 512), (64, BIG, 512)]
@@ -399,7 +400,9 @@ def test_merge_one_kernel_matches_plain_on_card(n, d, dtype):
 
 # (B, H, Hkv, S, T, D, causal, window, dtype): the reference's sweep, the
 # bf16 case, ragged S and T (a prompt in a deeper cache), D = 32, bf16
-# without the causal mask
+# without the causal mask; then the moe, vlm and enc-dec models' shapes:
+# granite-moe's GQA group of 3 (24/8 heads), internvl2's group of 7 (14/2)
+# and seamless's bidirectional encoder at S = T = 1024 (16/16)
 FLASH_CASES = [
     (1, 4, 4, 128, 128, 64, True, 0, torch.float32),
     (2, 4, 2, 256, 256, 64, True, 0, torch.float32),
@@ -410,7 +413,10 @@ FLASH_CASES = [
     (1, 5, 1, 100, 133, 64, True, 0, torch.float32),
     (2, 6, 3, 77, 77, 32, True, 20, torch.float32),
     (1, 25, 5, 200, 211, 64, True, 64, torch.bfloat16),
-    (2, 4, 2, 150, 170, 64, False, 0, torch.bfloat16)]
+    (2, 4, 2, 150, 170, 64, False, 0, torch.bfloat16),
+    (1, 24, 8, 256, 272, 64, True, 0, torch.bfloat16),
+    (2, 14, 2, 300, 300, 64, True, 0, torch.bfloat16),
+    (2, 16, 16, 1024, 1024, 64, False, 0, torch.bfloat16)]
 
 
 def _flash_tol(dtype):

@@ -17,7 +17,7 @@ from repro_torch.core import comms  # noqa: E402
 from repro_torch.core.flat import FlatLayout  # noqa: E402
 
 LAYOUT = FlatLayout([("b", (300,)), ("conv", (16, 8, 3, 3)), ("a", (6, 9)),
-                     ("c", (3, 5, 2))])
+                     ("c", (3, 5, 2))], convs=["conv"])
 
 
 def _paper_layout():
@@ -163,7 +163,8 @@ def layouts(draw):
         else:
             shape = (draw(st.integers(1, 700)),)
         leaves.append((f"l{i}", shape))
-    return FlatLayout(leaves), draw(st.sampled_from([128, 256, 512]))
+    return (FlatLayout(leaves, convs=[p for p, s in leaves if len(s) == 4]),
+            draw(st.sampled_from([128, 256, 512])))
 
 
 @hyp.settings(max_examples=25, deadline=None, database=None,

@@ -81,7 +81,7 @@ def test_quant_core_bit_exact(kind, wire_dtype):
 
 
 def _layout_and_tree(seed, scale=1.0, shift=0.0):
-    layout = FlatLayout(LEAVES)
+    layout = FlatLayout(LEAVES, convs=["conv"])
     rng = np.random.default_rng(seed)
     flat = torch.from_numpy(
         rng.normal(shift, scale, (N, layout.size)).astype(np.float32))
@@ -149,7 +149,7 @@ def test_grid_segments_cover_each_element_once(leaves):
     """The kernel's walk (segments into perm) visits every stored element
     exactly once, segment by segment as ``seg_id`` groups them, in blocks
     of at most wire_block; perm is None when every block is contiguous."""
-    layout = FlatLayout(leaves)
+    layout = FlatLayout(leaves, convs=[p for p, s in leaves if len(s) == 4])
     grid = comms.wire_grid(layout, "int8", 128)
     order = (np.arange(layout.size) if grid.perm is None
              else grid.perm.numpy())
