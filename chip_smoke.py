@@ -202,6 +202,29 @@ Phases, each printing one JSON line:
                  encode) and decode tick (device time, busy share), peak
                  allocated and reserved memory, launches against the
                  prediction;
+ 16g. remat     activation checkpointing at full width: granite-moe-3b and
+                 Hymba-1.5B (bf16), two ``make_train_step`` steps at batch 4
+                 × 256 from the same init and batches with
+                 ``TrainConfig(remat=False)`` then ``remat=True``: peak
+                 allocated (above what was held) and reserved, each step's
+                 wall, the first step's flash/SSD launches (one a layer,
+                 two with remat: the recompute runs the kernels again), the
+                 first step's loss bit-equal and its params within 2·lr
+                 plus one bf16 ulp; at 8 layers, its first moment (0.1·g)
+                 in f32 within 1e-3 of each leaf's largest magnitude (the
+                 bf16 moments' differences reported);
+ 16h. host      the host backend (``SwarmSession(..., backend="host")``)
+                 at the paper CNN's full width, N = 4, fedavg/full and
+                 fisher/ring, three rounds of two steps with node 3 leaving
+                 and rejoining, each round from the engine backend's state
+                 and held against the engine's round (params within the
+                 session tests' 1e-4, after the local steps but for a
+                 few strays within 2·Σlr and each node's update within
+                 1 % of its norm; gates equal outside the 1e-4 margin);
+                 counts set to 0 before each host round: one
+                 ``fused_merge_all`` launch a sync (plain, then ``imp``);
+                 round walls, the engine's round wall, and one profiled
+                 host round's device-busy share;
  17. timing      how many device times the profiler read, how many traces
                  ``device_ms`` discarded for lost kernel records, and how
                  many times it fell back to CUDA events;
@@ -879,7 +902,7 @@ def _true_fisher_step(ecfg, model, layout):
     import torch
     from repro_torch.configs.base import TrainConfig
     from repro_torch.models.cnn import bce_loss, forward_cnn, one_hot
-    from repro_torch.optim import adamw_update, make_schedule
+    from repro_torch.optim import adamw_update_, make_schedule
 
     tc = TrainConfig(lr=ecfg.lr, warmup_steps=20, max_steps=ecfg.steps,
                      weight_decay=1e-4, schedule="cosine")
@@ -892,8 +915,8 @@ def _true_fisher_step(ecfg, model, layout):
     def step(params, opt_state, batch, s):
         x, y = batch
         g, l = torch.func.grad_and_value(loss)(params, x, y)
-        params, opt_state = adamw_update(params, g, opt_state, tc,
-                                         sched(opt_state["count"]))
+        params, opt_state = adamw_update_(params, g, opt_state, tc,
+                                          sched(opt_state["count"]))
         return params, opt_state, {"loss": l}, g
 
     return step
@@ -960,11 +983,16 @@ def phase_faults(dev, smi):
 
             def watched_sync(params, val, active=None, stats=None,
                              wire=None, faults=None):
+                corrupt = faults is not None and bool(faults.corrupt.any())
+                if corrupt:
+                    # the sync's inputs as it sees them: the session
+                    # writes the commit back into its own params buffer
+                    armed.update(args=_clone((params, val, active, stats,
+                                              wire)), faults=faults)
                 out = sync(params, val, active, stats=stats, wire=wire,
                            faults=faults)
-                if faults is not None and bool(faults.corrupt.any()):
-                    armed.update(args=(params, val, active, stats, wire),
-                                 faults=faults, committed=out[0])
+                if corrupt:
+                    armed["committed"] = out[0].clone()
                 return out
 
             first.engine.sync = watched_sync
@@ -2619,8 +2647,9 @@ def phase_train_parity(dev):
             res = {}
             reset_launches()
             for d in ("cpu", dev):
-                moved = {k: v.to(d) for k, v in o.items()}
-                pp, oo, m = step(p.to(d), moved, {k: v.to(d)
+                # copies: the step updates its params and moments in place
+                moved = {k: v.clone().to(d) for k, v in o.items()}
+                pp, oo, m = step(p.clone().to(d), moved, {k: v.to(d)
                                                   for k, v in batch.items()})
                 res[d] = (pp.cpu(), {k: oo[k].cpu() for k in ("mu", "nu")},
                           float(m["loss"]))
@@ -2805,6 +2834,455 @@ def phase_train(dev, smi):
     return all_counts
 
 
+# the remat phase's paths: (name, arch) at the train phase's plain shapes
+# (batch 4, 256 tokens); a step launches each flash / SSD kernel once a
+# layer in the forward and, with remat, once more in the recompute
+REMAT_PATHS = (("granite_plain", "granite-moe-3b-a800m"),
+               ("hymba_plain", "hymba-1.5b"))
+REMAT_BATCH, REMAT_SEQ, REMAT_STEPS = 4, 256, 2
+# the gradient check's depth (one global-attention layer of Hymba's eight)
+REMAT_GRAD_LAYERS = 8
+
+
+def _parts_err(layout, a, b, atol, chunk=1 << 26):
+    """Two slot buffers' values compared part by part (a wide leaf's f32
+    value read as f32, never as two 16-bit slots), chunk by chunk on
+    ``a``'s device: the max abs difference, and the largest excess over
+    ``atol`` plus, in a 16-bit part, one ulp of the value (2^-7 of it in
+    bf16) — a value whose update rounds the other way lands one ulp
+    apart."""
+    err, excess = 0.0, float("-inf")
+    for pa, pb in zip(layout.parts(a), layout.parts(b)):
+        ulp = 2.0 ** -7 if pa.element_size() == 2 else 0.0
+        for i in range(0, pa.shape[-1], chunk):
+            x = pa[i:i + chunk].float()
+            y = pb[i:i + chunk].to(x.device).float()
+            d = (x - y).abs()
+            err = max(err, float(d.max()))
+            excess = max(excess, float((d - atol - ulp * y.abs()).max()))
+    return err, excess
+
+
+def _remat_moments(cfg, batch, dev):
+    """AdamW's first moment (0.1·g) after one step from the seed-0 init,
+    remat off and on, of ``cfg`` at its width with its depth cut to
+    ``REMAT_GRAD_LAYERS``: in its own bf16 (remat off twice) and in f32
+    from the same values (TF32 off). Returns {(dtype, remat, run): {path:
+    mu}} on the card."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+
+    cut = cfg.replace(n_layers=REMAT_GRAD_LAYERS)
+    m16 = build_model(cut)
+    p16, _ = init_train_state(m16, torch.Generator(device=dev).manual_seed(0),
+                              dev)
+    m32 = build_model(cut.replace(param_dtype="float32",
+                                  compute_dtype="float32"))
+    p32 = m32.layout.flatten({k: v.float() for k, v in
+                              m16.layout.unflatten(p16).items()})
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dt, model, p, remat, run in (
+                ("bf16", m16, p16, False, 0), ("bf16", m16, p16, False, 1),
+                ("bf16", m16, p16, True, 0), ("f32", m32, p32, False, 0),
+                ("f32", m32, p32, True, 0)):
+            step = make_train_step(model, TrainConfig(
+                remat=remat, warmup_steps=0, max_steps=10))
+            q = p.clone()
+            _, o, _ = step(q, adamw_init(model.layout.parts(q)), batch)
+            out[dt, remat, run] = model.layout.value_layout.unflatten(
+                o["mu"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def _leaf_rel_err(got, want):
+    """The largest per-leaf max |got − want| over the leaf's largest
+    magnitude, of two {path: tensor} dicts."""
+    return max(float((got[k].float() - w.float()).abs().max()
+                     / w.float().abs().max().clamp(min=1e-30))
+               for k, w in want.items())
+
+
+def _remat_run(model, remat, batches, dev, ref=None, atol=0.0):
+    """``REMAT_STEPS`` steps of ``make_train_step(model, TrainConfig(remat=
+    remat))`` from the seed-0 init: the last step's wall, the peak memory
+    over the steps (above what was held before) and the first step's
+    launches; the first step's loss and params, kept on the host (``ref``
+    None) or held against ``ref``'s."""
+    import gc
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import init_train_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    p, o = init_train_state(model, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    step = make_train_step(model, TrainConfig(remat=remat, warmup_steps=0,
+                                              max_steps=10))
+    walls, first = [], {}
+    for k, batch in enumerate(batches):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if k == 0:
+            launches = {name: v for name, v in LAUNCHES.items() if v}
+            first["loss"] = m["loss"].float().cpu()
+            if ref is None:
+                first["params"] = p.cpu()
+            else:
+                first["params_err"] = _parts_err(model.layout, p,
+                                                 ref["params"], atol)
+    out = dict(step_walls_s=walls, launches_first_step=launches,
+               peak_allocated_gib=(torch.cuda.max_memory_allocated() - held)
+               / 2 ** 30,
+               peak_reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
+               params_gib=p.numel() * p.element_size() / 2 ** 30)
+    del p, o, step
+    return out, first
+
+
+def phase_remat(dev, smi):
+    """Activation checkpointing (``TrainConfig(remat=True)``,
+    `repro_torch.models.remat`) at full width, beside ``remat=False`` in
+    the same call: granite-moe-3b and Hymba-1.5B, batch 4 at 256 tokens,
+    two steps each from the same init and batches. Peak allocated (above
+    what was held before) and reserved, the second step's wall, the first
+    step's flash/SSD launches (with remat twice a layer: the forward and
+    the recompute); the first step's loss bit-equal and the params after
+    it within 2·lr (AdamW moves a param whose gradient sits at the
+    rounding floor by up to ±lr in either run) plus, for the bf16 values,
+    one bf16 ulp of the value (a value whose update rounds the other way).
+    The gradient, through the first step's AdamW first moment (0.1·g), at
+    the same width cut to ``REMAT_GRAD_LAYERS`` layers (the kernels run in
+    the recompute): in f32 (TF32 off) remat on against off within 1e-3 of
+    each leaf's largest magnitude (``phase_train_parity``'s tolerance). In
+    bf16 the two differ by the order the backward sums in: reported, beside
+    the plain step run twice and each one's distance to the f32 moment
+    from the same values."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import build_model
+
+    for cached in (lserve.step_buffers, lserve.serve_step_for,
+                   lserve.prefill_step_for):
+        cached.cache_clear()
+    lr = 1e-4
+    for name, arch in REMAT_PATHS:
+        model = build_model(get_config(arch))
+        layers = model.cfg.n_layers
+        rng = np.random.default_rng(2)
+        batches = []
+        for _ in range(REMAT_STEPS):
+            a = torch.from_numpy(rng.integers(
+                0, model.cfg.vocab_size, (REMAT_BATCH, REMAT_SEQ + 1)))
+            batches.append({"tokens": a[:, :-1].to(dev),
+                            "labels": a[:, 1:].to(dev)})
+        res = {}
+        res[False], plain = _remat_run(model, False, batches, dev)
+        res[True], first = _remat_run(model, True, batches, dev, plain,
+                                      2 * lr)
+        per_layer = {False: 1, True: 2}
+        for remat in (False, True):
+            want = {"flash_attention": per_layer[remat] * layers}
+            if model.cfg.family in ("ssm", "hybrid"):
+                want["ssd_scan"] = per_layer[remat] * layers
+            if res[remat]["launches_first_step"] != want:
+                raise AssertionError(
+                    f"{name} remat={remat}: launches "
+                    f"{res[remat]['launches_first_step']}, predicted {want}")
+        loss_equal = bool(torch.equal(first["loss"], plain["loss"]))
+        p_err, excess = first["params_err"]
+        plain_loss = float(plain["loss"])
+        del plain
+        mu = _remat_moments(model.cfg, batches[0], dev)
+        f32, b16 = mu["f32", False, 0], mu["bf16", False, 0]
+        mu_err = {"f32": _leaf_rel_err(mu["f32", True, 0], f32),
+                  "bf16": _leaf_rel_err(mu["bf16", True, 0], b16),
+                  "bf16_plain_twice": _leaf_rel_err(mu["bf16", False, 1],
+                                                    b16),
+                  "bf16_plain_vs_f32": _leaf_rel_err(b16, f32),
+                  "bf16_remat_vs_f32": _leaf_rel_err(mu["bf16", True, 0],
+                                                     f32)}
+        del f32, b16
+        del mu
+        if not loss_equal or not excess <= 0 or not mu_err["f32"] <= 1e-3:
+            raise AssertionError(f"{name}: remat first-step loss "
+                                 f"{float(first['loss'])}, without remat "
+                                 f"{plain_loss}; params {p_err}, {excess} "
+                                 f"beyond 2·lr + one bf16 ulp; first "
+                                 f"moments {mu_err} of the leaf max")
+        emit("remat", card=smi, path=name, arch=arch, batch=REMAT_BATCH,
+             seq=REMAT_SEQ, layers=layers, loss_bit_equal=loss_equal,
+             first_loss=float(first["loss"]),
+             mu_err_rel_to_leaf_max=mu_err, mu_layers=REMAT_GRAD_LAYERS,
+             mu_tolerance={"f32": 1e-3},
+             params_max_abs_err=p_err,
+             params_tolerance="2·lr + one bf16 ulp of the value",
+             params_excess_over_tolerance=excess, lr=lr,
+             plain={k: v for k, v in res[False].items()},
+             remat={k: v for k, v in res[True].items()},
+             peak_allocated_saved_gib=res[False]["peak_allocated_gib"]
+             - res[True]["peak_allocated_gib"],
+             step_wall_ratio=res[True]["step_walls_s"][-1]
+             / res[False]["step_walls_s"][-1])
+        del model
+
+
+# the host phase: rounds of sync_every local steps, per merge/topology
+HOST_ROUNDS, HOST_T = 3, 2
+HOST_PATHS = (("fedavg", "full", "fused_merge_all"),
+              ("fisher", "ring", "fused_merge_all_imp"))
+
+
+# values of the local-steps half allowed past the per-value limit, per
+# value held (AdamW turns a gradient at the rounding floor into ±lr)
+HOST_STRAY = 1e-5
+
+
+def _host_params_err(got, want, layout, what, start=None, lr_sum=0.0):
+    """``tests/torch_parity.check_flat``: within 1e-4 + 1e-4·|want|, the
+    head's FC biases (fed to a batch-statistics BN, so their gradient is
+    rounding noise that AdamW turns into ±lr steps) within 2e-3. After
+    local steps from ``start`` (the unvmapped and the vmapped convolutions
+    round differently) at most ``HOST_STRAY`` of the values past that
+    limit, each within twice the steps' summed lr (a value whose gradient
+    sits at the rounding floor moves by ±lr a step in either run, as
+    ``phase_train_parity`` allows 2·lr), and each node's update p − start
+    (the biases aside) within 1 % of the engine's norm (a skipped step or
+    another batch moves it by the whole norm). Returns the max abs
+    differences (the rest, the biases), how many values are past the
+    limit, and the largest update error."""
+    import numpy as np
+    noise = np.zeros(got.shape[1], bool)
+    for leaf in layout.leaves:
+        if leaf.path in ("head.fc1.b", "head.fc2.b"):
+            noise[leaf.offset:leaf.offset + leaf.size] = True
+    err = np.abs(got - want)[:, ~noise]
+    past = err > 1e-4 + 1e-4 * np.abs(want[:, ~noise])
+    n_past, upd = int(past.sum()), 0.0
+    ok = n_past == 0
+    if start is not None:
+        ok = (n_past <= HOST_STRAY * err.size
+              and not (err[past] > 2 * lr_sum).any())
+        for i in range(got.shape[0]):
+            dg = got[i, ~noise].astype(np.float64) - start[i, ~noise]
+            dw = want[i, ~noise].astype(np.float64) - start[i, ~noise]
+            norm = np.linalg.norm(dw)
+            e = (np.linalg.norm(dg - dw) / norm if norm
+                 else float(np.abs(dg).max() > 0))
+            upd = max(upd, float(e))
+        ok = ok and upd <= 1e-2
+    bias = np.abs(got - want)[:, noise]
+    if not ok or (bias > 2e-3).any():
+        raise AssertionError(f"{what}: host vs engine params "
+                             f"{float(err.max())}, {n_past} past 1e-4 "
+                             f"(biases {float(bias.max())}), update "
+                             f"{upd}, lr summed {lr_sum}")
+    return float(err.max()), float(bias.max()), n_past, upd
+
+
+def _clone(v):
+    """A copy of a tensor, or of a dict of them, that owns its storage (a
+    session updates its state in place)."""
+    import torch
+    if isinstance(v, dict):
+        return {k: _clone(x) for k, x in v.items()}
+    if isinstance(v, tuple):
+        return tuple(_clone(x) for x in v)
+    return v.clone() if isinstance(v, torch.Tensor) else v
+
+
+def _cloned_state(st):
+    """A copy of a session state whose tensors own their storage."""
+    import dataclasses
+    return dataclasses.replace(st, **{f.name: _clone(getattr(st, f.name))
+                                      for f in dataclasses.fields(st)})
+
+
+def phase_host(dev, smi):
+    """The host backend (``SwarmSession(..., backend="host")``,
+    `repro_torch.core.swarm`) at the paper CNN's full width (224², feat_dim
+    1152), N = 4, on the histo shards: fedavg/full and fisher/ring, three
+    rounds of two local steps each, node 3 leaving for the second round and
+    rejoining for the third, against the engine backend on the same seed,
+    data and membership (cuDNN TF32 off, deterministic), each round from
+    the engine's state and held against the engine's in two halves: the
+    local steps, then the sync (propose, the host-side gate, the commit)
+    from the same post-step state; params within the session tests'
+    tolerances after each half (after the local steps, a few strays
+    within twice the steps' summed lr and each node's update within 1 %
+    of the engine's: ``_host_params_err``), gate bits equal where the
+    engine's margin |merged − 0.8·local| clears 1e-4. (Whole rounds drift further
+    apart: the fisher merge's ratio of Δθ² masses amplifies the local
+    steps' differences.) The counts are set
+    to 0 just before each host round: one ``fused_merge_all`` launch a
+    sync, the plain form for fedavg and the importance form for fisher.
+    Then one more host round under the profiler: its wall and device-busy
+    share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import SwarmConfig, TrainConfig
+    from repro_torch.configs.paper_histo import PAPER_FULL
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.data import make_histo_dataset, paper_splits, shard_to_nodes
+    from repro_torch.experiments import histo
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.optim import adamw_init, make_schedule
+
+    cudnn = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for merge, topology, form in HOST_PATHS:
+            cfg = SwarmConfig(n_nodes=N, sync_every=HOST_T,
+                              topology=topology, merge=merge,
+                              lora_only=False, val_threshold=0.8)
+            ecfg = histo.HistoExperimentConfig(
+                n_train=256, image_size=PAPER_FULL.image_size, batch_size=16,
+                steps=(HOST_ROUNDS + 1) * HOST_T, swarm=cfg,
+                growth=PAPER_FULL.growth, stem=PAPER_FULL.stem,
+                feat_dim=PAPER_FULL.feat_dim, hidden=PAPER_FULL.hidden,
+                n_blocks=PAPER_FULL.n_blocks,
+                layers_per_block=PAPER_FULL.layers_per_block)
+            x, y = make_histo_dataset(ecfg.n_train, size=ecfg.image_size,
+                                      noise=ecfg.noise,
+                                      class_probs=ecfg.class_probs, seed=3)
+            shards = shard_to_nodes(x, y, paper_splits(ecfg.n_train), seed=3)
+            xs, ys, val = _round_data(ecfg, shards, HOST_ROUNDS + 1, HOST_T)
+            xs, ys = xs.to(dev), ys.to(dev)
+            val = tuple(torch.from_numpy(v).to(dev) for v in val)
+            vlist = [tuple(v[i] for v in val) for i in range(N)]
+            eng = _session(dev, cfg, ecfg, shards)
+            model = histo._model(ecfg)
+            layout = FlatLayout.of_module(model)
+            step, _ = histo._make_model_fns(ecfg, model, layout)
+            veval = histo._make_eval_fn(cfg, model, layout)
+
+            def eval_one(p, v):
+                return float(veval(p[None], tuple(t[None] for t in v))[0])
+
+            # the protocol's schedule (`experiments.histo._make_model_fns`)
+            sched = make_schedule(TrainConfig(
+                lr=ecfg.lr, warmup_steps=20, max_steps=ecfg.steps,
+                weight_decay=1e-4, schedule="cosine"))
+            flat = layout.flatten(histo._init_params(ecfg, model))
+            host = histo.SwarmSession(
+                cfg, step, eval_one, params=flat, opt_state=adamw_init(flat),
+                data_sizes=[len(y) for _, y in shards], layout=layout,
+                backend="host", device=dev)
+            # each round from the engine's state, in two halves: the local
+            # steps (the host's unvmapped against the engine's vmapped:
+            # rounding apart), then the sync from the engine's post-step
+            # state (the host loop's propose, host gate and commit against
+            # the engine's on the same inputs); the counts are set to 0
+            # just before each host round and read just after it
+            launches, walls, hlogs, errs = {}, [], [], []
+            for r in range(HOST_ROUNDS):
+                for sess in (eng, host):
+                    if r == 1:
+                        sess.leave(3)
+                    if r == 2:
+                        sess.join(3)
+                host.load_state(_cloned_state(eng.state))
+                hb = [[(xs[r, k, i], ys[r, k, i]) for i in range(N)]
+                      for k in range(HOST_T)]
+                count = int(eng.state.opt_state["count"][0])
+                start = eng.state.params.cpu().numpy()
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                host.run_local(hb)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                eng.run_local((xs[r], ys[r]))
+                lr_sum = sum(float(sched(torch.tensor(count + k)))
+                             for k in range(HOST_T))
+                local_err = _host_params_err(
+                    host.state.params.cpu().numpy(),
+                    eng.state.params.cpu().numpy(), layout,
+                    f"{merge} round {r} local steps", start, lr_sum)
+                host.load_state(_cloned_state(eng.state))
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                hlogs.append(host.round([], vlist))
+                torch.cuda.synchronize()
+                walls.append((t1 - t0) + (time.perf_counter() - t2))
+                for k, v in LAUNCHES.items():
+                    if v:
+                        launches[k] = launches.get(k, 0) + v
+                committed, elog = eng._sync(val)
+                eng._commit(committed)
+                del committed
+                ml = elog["metric_local"].cpu().numpy()
+                mm = elog["metric_merged"].cpu().numpy()
+                clear = np.abs(mm - 0.8 * ml) >= 1e-4
+                eg = elog["gates"].cpu().numpy()
+                if not np.array_equal(np.asarray(hlogs[r]["gates"])[clear],
+                                      eg[clear]):
+                    raise AssertionError(f"{merge} round {r}: host gates "
+                                         f"{hlogs[r]['gates']}, engine {eg}")
+                sync_err = _host_params_err(
+                    host.state.params.cpu().numpy(),
+                    eng.state.params.cpu().numpy(), layout,
+                    f"{merge} round {r} sync")
+                errs.append(dict(local_steps=local_err, sync=sync_err))
+            if launches != {form: HOST_ROUNDS}:
+                raise AssertionError(f"host {merge}: launches {launches}, "
+                                     f"want {HOST_ROUNDS} {form}")
+            gates = [lg["gates"] for lg in hlogs]
+            hb = [[(xs[-1, k, i], ys[-1, k, i]) for i in range(N)]
+                  for k in range(HOST_T)]
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                host.round(hb, vlist)
+                torch.cuda.synchronize()
+                pwall = time.perf_counter() - t0
+            busy = _busy(prof, pwall)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.round((xs[-1], ys[-1]), val)
+            torch.cuda.synchronize()
+            eng_wall = time.perf_counter() - t0
+            emit("host", card=smi, merge=merge, topology=topology, nodes=N,
+                 params_per_node=layout.size, image_size=ecfg.image_size,
+                 rounds=HOST_ROUNDS, steps_per_round=HOST_T,
+                 membership="leave(3) for round 1, join(3) for round 2",
+                 gates=gates, params_err_vs_engine=errs,
+                 launches=launches, round_walls_s=walls,
+                 engine_round_wall_s=eng_wall, profiled_wall_s=pwall,
+                 device_busy_s=busy["device_busy_s"],
+                 device_busy_share=busy["device_busy_share"],
+                 kernel_launches_profiled=busy["kernel_launches"],
+                 host_ops_profiled=busy["host_ops"],
+                 top_host=busy["top_host"][:5],
+                 top_device=busy["top_device"][:5])
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2886,6 +3364,9 @@ def main() -> int:
     # the moe, vlm and enc-dec families: card vs CPU, then full width
     phase_families_parity(dev)
     phase_families_serve(dev, smi)
+    # activation checkpointing, then the host loop
+    phase_remat(dev, smi)
+    phase_host(dev, smi)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[stem],
                     replaces=replaces, launches=launches.get(name, 0),

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Times this tree's quantized-wire commit, LoRA matmul, flash attention and
-SSD scan kernels against an earlier tree's, in one run on one GPU.
+SSD scan kernels, or its LM trainer, against an earlier tree's, in one run
+on one GPU.
 
     mkdir -p _archive/parent
     git archive <rev> src/repro_torch | tar -x -C _archive/parent
@@ -27,9 +28,24 @@ current, earlier: the kernel's own device time per call from
 power limit, then one JSON line per shape with the bound (``chip_smoke``'s);
 ``--kernels`` picks kernels; ``--out`` also writes the lines to a file.
 Imports nothing of the JAX package.
+
+    python3 kernel_ab.py --parent _archive/parent --train granite_plain,mamba2_int8_wire
+
+compares the LM trainer's peak memory and step wall instead (no kernel is
+timed unless ``--kernels`` is also given). Each run is a fresh process that
+imports one tree's ``repro_torch`` (its kernels built into its own
+``csrc/build``) and drives ``repro_torch.launch.train.run`` at full width
+on the train phase's arguments (``chip_smoke.TRAIN_PATHS``, by name), in
+turns earlier, current, current, earlier. Each run reports the peak
+allocated and reserved GiB over the whole run, each train step's own
+allocated peak (a swarm's vmapped step covers all its nodes; the sync is
+outside it), what the run holds at its end, the last round's (step's)
+wall per step, tokens/s and the launches; the runs' params must be
+finite.
 """
 import argparse
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -72,22 +88,130 @@ def package(tree: Path):
                            fm=fm, lm=lm, fa=fa, ss=ss)
 
 
+_WORKER = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[2])
+from chip_smoke import TRAIN_PATHS     # puts this tree's src on the path
+sys.path.insert(0, sys.argv[1] + "/src")
+import torch
+import repro_torch
+from repro_torch.kernels import LAUNCHES, build, reset_launches
+from repro_torch.launch import train
+
+argv = dict((n, a) for n, a, _ in TRAIN_PATHS)[sys.argv[3]]
+build.build(["flash_attention", "ssd_scan", "fused_merge",
+             "fused_quant_merge"])
+# each train step's own peak (the peak counter restarted at its call;
+# the whole run's peak is the larger of those and the rest's)
+step_peaks, rest_peak = [], [0]
+make = train.make_train_step
+
+
+def measured_make(model, tc):
+    step = make(model, tc)
+
+    def measured(*a):
+        rest_peak[0] = max(rest_peak[0], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        out = step(*a)
+        step_peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        return out
+
+    return measured
+
+
+train.make_train_step = measured_make
+torch.cuda.reset_peak_memory_stats()
+reset_launches()
+args = train.parse_args(argv)
+t0 = time.perf_counter()
+res = train.run(args)
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+peak = max(rest_peak[0], torch.cuda.max_memory_allocated()) / 2 ** 30
+reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+held = torch.cuda.memory_allocated() / 2 ** 30
+walls = res["walls"]
+per_block = walls[-1][1] - walls[-2][1]
+steps_block = walls[-1][0] - walls[-2][0]
+sess = res.get("session")
+params = sess.state.params if sess is not None else res["params"]
+finite = bool(torch.isfinite(res["model"].layout.values(params)).all())
+n = args.swarm_nodes or 1
+print("RESULT " + json.dumps(dict(
+    path=sys.argv[3], package=repro_torch.__file__, argv=argv, wall_s=wall,
+    step_wall_s=per_block / steps_block,
+    tokens_per_s=steps_block * n * args.batch * args.seq / per_block,
+    peak_allocated_gib=peak, peak_reserved_gib=reserved,
+    step_peak_allocated_gib=step_peaks, held_after_gib=held,
+    params_finite=finite,
+    launches={k: v for k, v in LAUNCHES.items() if v})), flush=True)
+"""
+
+
+def train_run(tree: Path, path: str) -> dict:
+    env = dict(os.environ, PYTHONPATH="")
+    out = subprocess.run([sys.executable, "-c", _WORKER, str(tree),
+                          str(ROOT), path], capture_output=True, text=True,
+                         env=env, timeout=900)
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("RESULT ")]
+    if out.returncode != 0 or not lines:
+        raise RuntimeError(f"{tree} {path}: exit {out.returncode}\n"
+                           f"{out.stderr[-3000:]}")
+    return json.loads(lines[-1][len("RESULT "):])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, required=True,
                     help="an unpacked earlier tree holding src/repro_torch")
     ap.add_argument("--out", type=Path, help="also write the lines here")
-    ap.add_argument("--kernels", default=",".join(KERNELS),
-                    help=f"comma-separated subset of {','.join(KERNELS)}")
+    ap.add_argument("--kernels",
+                    help=f"comma-separated subset of {','.join(KERNELS)} "
+                         f"(default: all of them, none with --train)")
+    ap.add_argument("--train", default="",
+                    help="comma-separated chip_smoke.TRAIN_PATHS names for "
+                         "the trainer's comparison")
     args = ap.parse_args()
-    todo = set(args.kernels.split(","))
+    if args.kernels is None:
+        args.kernels = "" if args.train else ",".join(KERNELS)
+    todo = set(filter(None, args.kernels.split(",")))
     if not todo <= set(KERNELS):
         ap.error(f"--kernels: choose from {KERNELS}")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
-    old = package(args.parent.resolve())
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    lines = [dict(card=smi)]
+    print(json.dumps(lines[0]), flush=True)
+    parent = args.parent.resolve()
+    for path in filter(None, args.train.split(",")):
+        for tree, label in ((parent, "parent"), (ROOT, "change"),
+                            (ROOT, "change"), (parent, "parent")):
+            row = dict(train_run(tree, path), label=label)
+            if not row["params_finite"]:
+                raise AssertionError(f"{label} {path}: non-finite params")
+            lines.append(row)
+            print(json.dumps(row), flush=True)
+    if todo:
+        kernels(parent, todo, lines)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text("".join(json.dumps(r) + "\n" for r in lines))
+    return 0
+
+
+def kernels(parent: Path, todo, lines) -> None:
+    """The kernels in ``todo`` of both trees held against the plain
+    versions and timed in turns; a JSON line each, appended to
+    ``lines``."""
+    import torch
+    old = package(parent)
     new = package(ROOT)
     old_fa, old_ss = old.fa.flash_attention, old.ss.ssd_scan
     new_fa, new_ss = new.fa.flash_attention, new.ss.ssd_scan
@@ -101,13 +225,7 @@ def main() -> int:
                                          fused_quant_merge_all_plain,
                                          lora_matmul_plain, ssd_scan_plain)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
     bw, peak, bf16_peak = card_rates(torch.cuda.get_device_name(0))
-    lines = [dict(card=smi)]
-    print(json.dumps(lines[0]), flush=True)
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(5)
 
@@ -212,10 +330,6 @@ def main() -> int:
                 lambda: old_ss(*a5, chunk=chunk),
                 lambda: new_ss(*a5, chunk=chunk),
                 ssd_scan_plain(*a5, chunk=chunk), flops)
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text("".join(json.dumps(r) + "\n" for r in lines))
-    return 0
 
 
 if __name__ == "__main__":

@@ -60,8 +60,12 @@ out of the value vector at sync; propose, the wire, the checksum and the
 commit see only them, and the base passes through, as the reference's
 ``strategy_propose`` / ``host_commit`` do with ``split_adapters``.
 
-Not in this slice (``NotImplementedError``, see ROADMAP): the gossip and
-host backends.
+The host loop (`repro_torch.core.swarm.SwarmLearner`, the session's
+``backend="host"``) shares the strategy pieces through
+:meth:`SwarmEngine.propose_host` and :meth:`SwarmEngine.commit_host`.
+
+Not in this slice (``NotImplementedError``, see ROADMAP): the gossip
+backend.
 """
 from __future__ import annotations
 
@@ -120,6 +124,23 @@ def _stack_nodes(trees):
     return torch.stack([torch.as_tensor(t) for t in trees])
 
 
+def _restack(trees, like):
+    """:func:`_stack_nodes` of per-node trees, except that a tensor whose
+    N rows are the rows of ``like``'s tensor (a step that wrote node i's
+    row view in place) comes back as ``like``'s tensor itself."""
+    first = trees[0]
+    if isinstance(first, dict) and isinstance(like, dict):
+        return {key: _restack([t[key] for t in trees], like.get(key))
+                for key in first}
+    if (isinstance(first, torch.Tensor) and isinstance(like, torch.Tensor)
+            and like.dim() > 0 and len(trees) == like.shape[0]
+            and all(t.shape == like.shape[1:] and t.stride()
+                    == like[i].stride() and t.data_ptr()
+                    == like[i].data_ptr() for i, t in enumerate(trees))):
+        return like
+    return _stack_nodes(trees)
+
+
 def zoo_vstep(step_fns: Sequence[Callable]) -> Callable:
     """Stacked train-step dispatcher over per-node closures.
 
@@ -137,7 +158,10 @@ def zoo_vstep(step_fns: Sequence[Callable]) -> Callable:
         if any(len(out) != k for out in outs):
             raise ValueError("zoo train steps must agree on the 3-tuple vs "
                              "true-Fisher 4-tuple return form")
-        return tuple(_stack_nodes([out[j] for out in outs]) for j in range(k))
+        # a step that updated its rows in place hands back the stacked
+        # input itself; any other output is stacked anew
+        return tuple(_restack([out[j] for out in outs], like)
+                     for j, like in zip(range(k), (p, o) + (None,) * k))
 
     return vstep
 
@@ -358,16 +382,20 @@ class SwarmEngine:
         metrics = []
         for k in range(t):
             batch = _index(batches, k)
+            # a step that updates in place leaves nothing of the old params
+            # for the Δθ² proxy: keep a copy
+            old = params.clone() if stats is not None else None
             out = self._vstep[opt_state is not None](params, opt_state,
                                                      batch, step0 + k)
             p2, opt_state, m = out[:3]
             if stats is not None:
-                stats = (self.strategy.accumulate_grads(stats, out[3],
-                                                        step0 + k)
-                         if len(out) == 4 else
-                         self.strategy.accumulate(stats, self._parts(params),
-                                                  self._parts(p2),
-                                                  step0 + k))
+                if len(out) == 4:
+                    stats = self.strategy.accumulate_grads(stats, out[3],
+                                                           step0 + k)
+                else:
+                    stats = self.strategy.accumulate(
+                        stats, self._parts(old), self._parts(p2), step0 + k)
+            del old
             params = p2
             metrics.append(m)
         return params, opt_state, stats, _stack_logs(metrics)
@@ -486,17 +514,7 @@ class SwarmEngine:
              if active is None else active.to(torch.bool))
         wire = self._auto_wire(params, wire)
         self.check_faults(faults, wire)
-        # the payload: the buffer as it is where slots are values and the
-        # f32 wire commits it in its dtype, else the f32 numbers the wire's
-        # kernel takes: every value, or the adapters carved out of them
-        # (``full`` keeps the rest, which passes through)
-        native = (wire is None and not self._split_lora
-                  and (self.layout is None or not self.layout.wide))
-        x = params if native else self._values(params)
-        full = None
-        if self._split_lora:
-            full, x = x, x.index_select(
-                1, self._adapter_index(params.device)[1])
+        x, full = self._payload(params, quantized=wire is not None)
         log = {}
         if x.shape[-1] == 0:
             # nothing crosses the wire (lora_only on a state without
@@ -578,6 +596,57 @@ class SwarmEngine:
             committed = self._slots(self._full(committed, full), params)
         return committed, dict(log, gates=gates, metric_local=metric_local,
                                metric_merged=metric_merged)
+
+    def _payload(self, params, quantized: bool = False):
+        """``(x, full)``: what crosses the wire. The buffer as it is where
+        slots are values and the f32 wire commits it in its dtype, else the
+        f32 numbers the wire's kernel takes: every value, or the adapters
+        carved out of them (``full`` keeps the rest, which passes through;
+        None when ``x`` is the whole vector)."""
+        native = (not quantized and not self._split_lora
+                  and (self.layout is None or not self.layout.wide))
+        x = params if native else self._values(params)
+        if not self._split_lora:
+            return x, None
+        return x.index_select(1, self._adapter_index(params.device)[1]), x
+
+    # -- the host loop's propose and commit (`core.swarm.SwarmLearner`) ------
+
+    def propose_host(self, stacked, W, *, fishers=None, weights=None,
+                     rows=None):
+        """The reference's ``propose_host``: the strategy's candidate for
+        every node of the stacked slot buffer ``[N, P]`` on its device, from
+        a mixing matrix ``W`` [N, N], active FedAvg ``weights`` [N] and
+        topology ``rows`` the host loop built from its membership, and
+        ``fishers`` [N, n_values] it already finalized. With ``lora_only``
+        only the adapters merge. Returns ``(candidate [N, P] slots,
+        W_commit, imp)``."""
+        x, full = self._payload(stacked)
+        if x.shape[-1] == 0:
+            return stacked, W, None
+        if fishers is not None and full is not None:
+            fishers = fishers.index_select(
+                1, self._adapter_index(stacked.device)[1])
+        candidate, W_eff, imp = self.strategy.propose(
+            x, W, weights=weights, fishers=fishers, rows=rows)
+        return (self._slots(self._full(candidate, full), stacked), W_eff,
+                imp)
+
+    def commit_host(self, stacked, candidate, W, gates, imp=None):
+        """The reference's ``host_commit``: mean/fedavg re-contract the W
+        rows and fisher/gradmatch pass their importance ``imp``, both in
+        one ``fused_merge_all`` launch over the payload; any other merge
+        selects between the candidate and the locals by gate. Rejected rows
+        and the base of an adapter-only sync come back bit for bit."""
+        x, full = self._payload(stacked)
+        if x.shape[-1] == 0:
+            return stacked
+        gates = torch.as_tensor(gates, device=stacked.device).to(torch.bool)
+        if self.cfg.merge in ("mean", "fedavg") or imp is not None:
+            committed = fused_merge_all(x, W, gates, imp)
+        else:
+            committed = gated_commit(self._payload(candidate)[0], x, gates)
+        return self._slots(self._full(committed, full), stacked)
 
     def _full(self, payload, full):
         """An adapter payload [N, A] written into a copy of the full value

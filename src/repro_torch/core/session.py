@@ -32,7 +32,15 @@ sorted payload paths (:meth:`FlatLayout.of_payload`), and ``train_step_fn`` /
 ``eval_fn`` are lists of per-node closures that hold each node's frozen
 backbone (`repro_torch.experiments.scenarios`).
 
-Not in this slice: the gossip and host backends.
+``backend="host"`` runs the paper's loop over arbitrary Python callables,
+node by node (`repro_torch.core.swarm.SwarmLearner`): a node's params are
+its flat ``[P]`` row, ``eval_fn(params [P], val) -> float`` runs on the host
+once per node, and propose and commit run stacked on the session's device,
+the commit through the fused merge kernel. f32 wire only, full payloads,
+one callable for every node, as the reference's host loop; its checkpoints
+are the reference's host-session files.
+
+Not in this slice: the gossip backend.
 """
 from __future__ import annotations
 
@@ -49,10 +57,11 @@ from repro_torch.checkpointing import (Fields, load_metadata, load_pytree,
 from repro_torch.configs.base import SwarmConfig
 from repro_torch.convert import from_reference, to_reference_tree
 from repro_torch.core import comms
-from repro_torch.core.engine import (SwarmEngine, _index, _leading,
-                                     _not_ported, _stack_logs, _stack_nodes)
+from repro_torch.core.engine import (SwarmEngine, _index, _index_node,
+                                     _leading, _stack_logs, _stack_nodes)
 from repro_torch.core.flat import FlatLayout
 from repro_torch.core.prng import fold_in_key, prng_key
+from repro_torch.core.swarm import NodeState, SwarmLearner
 
 
 @dataclass
@@ -116,11 +125,16 @@ class SwarmSession:
         zoo: heterogeneous frozen backbones captured per closure, the shared
         adapter payload as the state, ``cfg.payload="lora"``); an eval
         closure then scores its own node, ``(params [P], val_i) -> scalar``.
+        On ``backend="host"`` both are arbitrary Python, called node by
+        node: the train step as above (not vmapped) and ``eval_fn(params
+        [P], val_i) -> float``.
     params / opt_state : one node's flat params ``[P]`` and optimizer state,
         replicated over the N nodes (the shared warm start), or a list of N
         per-node values (a zoo's payload rows, flattened through
         :meth:`FlatLayout.of_payload`).
     data_sizes : per-node dataset sizes (fedavg / weighted-merge weights).
+    backend : ``"engine"`` (default) or ``"host"`` (`core.swarm`);
+        ``"gossip"`` is not ported.
     layout : the :class:`FlatLayout` of the params: the leaf boundaries of
         the wire's block grid, the reference tree of :attr:`node_params` and
         of checkpoints. Without one the params are a single leaf.
@@ -136,6 +150,15 @@ class SwarmSession:
                  seed: Optional[int] = None):
         zoo = (isinstance(train_step_fn, (list, tuple))
                or isinstance(eval_fn, (list, tuple)))
+        if backend not in ("engine", "gossip", "host"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if (backend == "host"
+                and comms.validate_wire_dtype(cfg.wire_dtype) != "f32"):
+            raise ValueError(
+                "wire_dtype compression needs a compiled backend "
+                '(backend="engine" carries the error-feedback reference; '
+                '"gossip" carries the sharded mesh EF state for int8 and '
+                "casts bf16); the host loop is uncompressed")
         if backend == "host" and comms.payload_mode(cfg) == "lora":
             raise ValueError(
                 'payload="lora" (adapter-only state, heterogeneous '
@@ -145,10 +168,6 @@ class SwarmSession:
             raise ValueError(
                 "per-node closure lists (model zoo) are engine-backend "
                 "only; the host loop applies one callable to every node")
-        if backend == "host":
-            raise _not_ported("backend='host'", "queue 1 item 12, host backend")
-        if backend not in ("engine", "gossip"):
-            raise ValueError(f"unknown backend {backend!r}")
         if torch.backends.cuda.matmul.allow_tf32:
             raise RuntimeError(
                 "torch.backends.cuda.matmul.allow_tf32 is True: the merge "
@@ -156,17 +175,38 @@ class SwarmSession:
                 "HIGHEST-precision mix does")
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.backend = backend
         n = cfg.n_nodes
         if params is None:
             raise ValueError("SwarmSession needs initial params")
         self.layout = layout
+        stacked_params = _stack_per_node(params, n, self.device)
+        stacked_opt = _stack_per_node(opt_state, n, self.device)
+        self._param_dtype = stacked_params.dtype
+        self._payload_params = comms.payload_param_count(
+            stacked_params, comms.split_payload_at_sync(cfg), n, layout)
+        if backend == "host":
+            # the host loop: one NodeState a node, its rows views of the
+            # stacked buffers (see `core.swarm`)
+            sizes = (np.ones(n) if data_sizes is None
+                     else np.asarray(data_sizes, np.float64))
+            opts = [None if stacked_opt is None
+                    else _index_node(stacked_opt, i) for i in range(n)]
+            nodes = [NodeState(params=p, opt_state=o, data_size=float(sz))
+                     for p, o, sz in zip(stacked_params.unbind(0), opts,
+                                         sizes)]
+            self._learner = SwarmLearner(cfg, train_step_fn, eval_fn, nodes,
+                                         layout=layout)
+            self.engine = self._learner.engine
+            self._rng = prng_key(cfg.seed if seed is None else seed)
+            self._round_ct = 0
+            self.sync_schedule = comms.pick_schedule(cfg, simulated=True)
+            return
         # the gossip backend raises here: not ported (a zoo closure list is
         # rejected on it first, as the reference's engine rejects it)
         self.engine = SwarmEngine(
             cfg, train_step_fn, eval_fn, data_sizes=data_sizes,
             layout=layout, backend="gossip" if backend == "gossip" else "host")
-        stacked_params = _stack_per_node(params, n, self.device)
-        stacked_opt = _stack_per_node(opt_state, n, self.device)
         self._state = SwarmState(
             params=stacked_params, opt_state=stacked_opt,
             stats=self.engine.init_stats(stacked_params),
@@ -181,9 +221,7 @@ class SwarmSession:
     @property
     def payload_params(self) -> int:
         """Per-node payload values P that cross the wire per sync."""
-        return comms.payload_param_count(
-            self._state.params, comms.split_payload_at_sync(self.cfg),
-            self.cfg.n_nodes, self.layout)
+        return self._payload_params
 
     @property
     def predicted_sync_bytes(self) -> float:
@@ -197,7 +235,45 @@ class SwarmSession:
 
     @property
     def state(self) -> SwarmState:
-        return self._state
+        """The swarm's state. On the engine backend these are the session's
+        own buffers, updated in place by every later step and round (the
+        reference donates them to its compiled round): keep a ``.clone()``
+        of what must outlive one. On the host backend a stacked copy of the
+        nodes' state, built on each read."""
+        if self.backend != "host":
+            return self._state
+        lr = self._learner
+        nodes = lr.nodes
+        stats = None
+        if lr.strategy.uses_stats:
+            stats = torch.stack([
+                nd.fisher_stats if nd.fisher_stats is not None
+                else lr.zero_stats(nd.params) for nd in nodes])
+        opt = (None if all(nd.opt_state is None for nd in nodes)
+               else _stack_nodes([nd.opt_state for nd in nodes]))
+        return SwarmState(
+            params=torch.stack([nd.params for nd in nodes]), opt_state=opt,
+            stats=stats, active=torch.tensor(
+                [nd.active for nd in nodes], device=self.device),
+            rng=self._rng, round=self._round_ct, step=lr.step)
+
+    def load_state(self, state: SwarmState) -> None:
+        """Replace the session's state (either backend)."""
+        if self.backend != "host":
+            self._state = state
+            return
+        lr = self._learner
+        active = np.asarray(torch.as_tensor(state.active).cpu())
+        for i, nd in enumerate(lr.nodes):
+            nd.params = state.params[i]
+            nd.opt_state = (None if state.opt_state is None
+                            else _index_node(state.opt_state, i))
+            nd.fisher_stats = (None if state.stats is None
+                               else state.stats[i])
+            nd.active = bool(active[i])
+        self._rng = np.asarray(state.rng, np.uint32)
+        self._round_ct = int(state.round)
+        lr.step = int(state.step)
 
     @property
     def node_params(self) -> List[dict]:
@@ -205,14 +281,17 @@ class SwarmSession:
         leaves): ``stem``/``blocks``/``head`` with HWIO convs for the CNN,
         the flat path-keyed payload dict in ``payload="lora"`` mode; flat
         ``[P]`` rows when the session has no layout."""
-        rows = list(self._state.params.unbind(0))
+        rows = ([nd.params for nd in self._learner.nodes]
+                if self.backend == "host"
+                else list(self._state.params.unbind(0)))
         if self.layout is None:
             return rows
-        from repro_torch.convert import to_reference_tree
         return [to_reference_tree(self.layout, row) for row in rows]
 
     @property
     def active(self):
+        if self.backend == "host":
+            return np.asarray([nd.active for nd in self._learner.nodes])
         return self._state.active.cpu().numpy()
 
     # -- dynamic membership (runtime data) -----------------------------------
@@ -228,11 +307,18 @@ class SwarmSession:
         self._set_active_index(node, False)
 
     def set_active(self, mask) -> None:
+        if self.backend == "host":
+            for i, v in enumerate(np.asarray(mask)):
+                self._learner.nodes[i].active = bool(v)
+            return
         self._state = dataclasses.replace(
             self._state,
             active=torch.as_tensor(mask, device=self.device).to(torch.bool))
 
     def _set_active_index(self, node: int, value: bool) -> None:
+        if self.backend == "host":
+            self._learner.nodes[node].active = value
+            return
         active = self._state.active.clone()
         active[node] = value
         self._state = dataclasses.replace(self._state, active=active)
@@ -241,7 +327,10 @@ class SwarmSession:
         """Reset the error-feedback reference for a crash → rejoin: zero
         ``node``'s row of θ̂ (its next sync retransmits its full payload;
         everyone else's residual is untouched), or all of θ̂ when ``node``
-        is None. A no-op without wire state."""
+        is None. A no-op without wire state (the host loop's wire is
+        uncompressed)."""
+        if self.backend == "host":
+            return
         wire = self._state.wire
         if wire is None:
             return
@@ -255,22 +344,46 @@ class SwarmSession:
     # -- drivers -------------------------------------------------------------
 
     def round(self, batches, val, faults=None):
-        """One full round: ``sync_every`` local steps + gated sync over a
-        stacked ``[T, N, ...]`` batch pytree. The log holds device tensors
-        ``gates`` / ``metric_local`` / ``metric_merged`` [N] and ``train``
-        ([T, N] per-step metrics). ``faults``: optional
-        `repro_torch.faults.signals.FaultSignals` — corrupt-wire injection
-        on the quantized wire (flagged senders quarantined for the round,
-        ``"wire_ok"`` in the log); a ``ValueError`` on the f32 wire, raised
+        """One full round: ``sync_every`` local steps + gated sync.
+
+        engine: ``batches`` is a stacked ``[T, N, ...]`` batch pytree; the
+        log holds device tensors ``gates`` / ``metric_local`` /
+        ``metric_merged`` [N] and ``train`` ([T, N] per-step metrics). The
+        params, moments and statistics are updated in their own buffers, so
+        a :attr:`state` read before the round sees the round's result.
+        host: ``batches`` is a ``[T][N]`` nested list of per-node batch
+        objects (``None`` skips a node's step), ``val`` an ``[N]`` list,
+        both handed to the callables as they are; the log is the
+        `SwarmLearner` sync record, the same ``gates`` / ``metric_local`` /
+        ``metric_merged`` keys as Python lists plus ``step`` /
+        ``spectral_gap``, with per-step train metrics in each node's
+        ``history``.
+
+        ``faults``: optional `repro_torch.faults.signals.FaultSignals` —
+        corrupt-wire injection on the engine backend's quantized wire
+        (flagged senders quarantined for the round, ``"wire_ok"`` in the
+        log); a ``ValueError`` on the f32 wire or the host loop, raised
         before any step runs. `repro_torch.faults.run_plan` drives a whole
         fault plan."""
+        if self.backend == "host":
+            if faults is not None:
+                raise ValueError(
+                    "in-graph fault injection (faults=) needs a compiled "
+                    "backend; lower corrupt events to drops on the host loop")
+            return self._host_round(batches, val)
         self.engine.check_faults(faults, self._state.wire)
         batches, val = _to_device(batches, self.device), _to_device(
             val, self.device)
         train = self._local_steps(batches)
         committed, log = self._sync(val, faults)
-        self._state = dataclasses.replace(self._state, params=committed)
+        self._commit(committed)
         return dict(log, train=train)
+
+    def _commit(self, committed) -> None:
+        """The committed params written into the state's own buffer."""
+        params = self._state.params
+        if committed is not params:
+            params.copy_(committed)
 
     def _local_steps(self, batches):
         """The local steps of ``[T, N, ...]`` batches, one engine call a
@@ -310,38 +423,61 @@ class SwarmSession:
         logs stacked ``[R, ...]`` plus a ``train`` key ([R, T, N]).
         ``cfg.overlap_sync`` switches to the stale-by-one schedule: round
         k's commit delta is folded in after round k+1's local steps, each
-        part of the params in its own dtype."""
+        part of the params in its own dtype. On the host backend the
+        ``[R][T][N]`` rounds run one by one and the logs come back as
+        per-key lists of the R round logs."""
+        if self.backend == "host":
+            logs = [self._host_round(rb, val) for rb in batches]
+            return {k: [lg[k] for lg in logs] for k in logs[0]}
         batches, val = _to_device(batches, self.device), _to_device(
             val, self.device)
         split = ((lambda p: (p,)) if self.layout is None
                  else self.layout.parts)
-        join = (lambda ps: ps[0]) if self.layout is None else self.layout.join
+
+        def land(deltas):
+            # a commit delta added into the params buffer, part by part
+            for a, d in zip(split(self._state.params), deltas):
+                a.add_(d)
+
         pending = None
         logs, train = [], []
         for k in range(_leading(batches)):
             train.append(self._local_steps(_index(batches, k)))
             committed, log = self._sync(val)
-            p_loc = self._state.params
             if self.cfg.overlap_sync:
                 # local steps never wait on the in-flight merge: this
                 # round's commit lands one round late
+                fresh = tuple(c - a for c, a in zip(
+                    split(committed), split(self._state.params)))
                 if pending is not None:
-                    p_loc = join(tuple(a + d for a, d in
-                                       zip(split(p_loc), pending)))
-                pending = tuple(c - a for c, a in
-                                zip(split(committed), split(
-                                    self._state.params)))
-                committed = p_loc
-            self._state = dataclasses.replace(self._state, params=committed)
+                    land(pending)
+                pending = fresh
+            else:
+                self._commit(committed)
+            del committed
             logs.append(log)
         if pending is not None:       # no accepted merge is dropped
-            self._state = dataclasses.replace(self._state, params=join(tuple(
-                a + d for a, d in zip(split(self._state.params), pending))))
+            land(pending)
         return dict(_stack_logs(logs), train=_stack_logs(train))
 
     def run_local(self, batches):
-        """Sync-free local training over ``[S, N, ...]`` batches."""
+        """Sync-free local training over ``[S, N, ...]`` batches (engine;
+        returns the metrics [S, N]) or ``[S][N]`` nested lists (host;
+        returns None)."""
+        if self.backend == "host":
+            for step_batches in batches:
+                self._learner.local_steps(step_batches)
+            return None
         return self._local_steps(_to_device(batches, self.device))
+
+    def _host_round(self, batches, val):
+        lr = self._learner
+        for step_batches in batches:
+            lr.local_steps(step_batches)
+        log = lr.sync(val)
+        self._rng = fold_in_key(self._rng, self._round_ct)
+        self._round_ct += 1
+        return log
 
     # -- checkpoint / resume -------------------------------------------------
 
@@ -354,8 +490,8 @@ class SwarmSession:
                 or t.shape[0] != self.cfg.n_nodes:
             return None
         width = t.shape[1]
-        if width == self._state.params.shape[1] and (
-                t.dtype == self._state.params.dtype or not self.layout.wide):
+        if width == self.layout.size and (
+                t.dtype == self._param_dtype or not self.layout.wide):
             return self.layout
         if t.dtype == torch.float32 and width == self.layout.n_values:
             return self.layout.value_layout
@@ -409,8 +545,8 @@ class SwarmSession:
         """Checkpoint the FULL session state (params, opt state, strategy
         stats, wire reference, active mask, rng, counters) in the
         reference's msgpack layout."""
-        st = self._state
-        meta = {"cfg": dataclasses.asdict(self.cfg), "backend": "engine",
+        st = self.state
+        meta = {"cfg": dataclasses.asdict(self.cfg), "backend": self.backend,
                 "round": int(st.round), "step": int(st.step), "format": 1}
         save_pytree(path, self._checkpoint_tree(st), metadata=meta)
 
@@ -423,16 +559,16 @@ class SwarmSession:
                 raise ValueError(
                     f"checkpoint cfg mismatch: {key}={saved_cfg[key]!r} "
                     f"saved vs {getattr(self.cfg, key)!r} in session")
-        st = self._state
+        st = self.state
         tree = load_pytree(path, self._checkpoint_tree(st))
         fields = ("params", "opt_state", "stats", "wire")
-        self._state = SwarmState(
+        self.load_state(SwarmState(
             **{f: self._from_reference_tree(tree[f], getattr(st, f))
                for f in fields},
             active=torch.from_numpy(np.array(tree["active"])).to(
                 self.device, torch.bool),
             rng=np.array(tree["rng"], np.uint32),
-            round=int(tree["round"]), step=int(tree["step"]))
+            round=int(tree["round"]), step=int(tree["step"])))
         return self
 
     @classmethod

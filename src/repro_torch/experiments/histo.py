@@ -24,7 +24,7 @@ from repro_torch.data import (augment, batches, make_histo_dataset,
 from repro_torch.metrics import classify_report, davies_bouldin, gate_metric_fn
 from repro_torch.models.cnn import (HistoCNN, bce_loss, forward_cnn, init_cnn,
                                     one_hot)
-from repro_torch.optim import adamw_init, adamw_update, make_schedule
+from repro_torch.optim import adamw_init, adamw_update_, make_schedule
 
 
 @dataclass
@@ -74,8 +74,8 @@ def _make_model_fns(ecfg: HistoExperimentConfig, model: HistoCNN,
     def train_step(params, opt_state, batch, step):
         x, y = batch
         g, l = torch.func.grad_and_value(loss)(params, x, y)
-        params, opt_state = adamw_update(params, g, opt_state, tc,
-                                         sched(opt_state["count"]))
+        params, opt_state = adamw_update_(params, g, opt_state, tc,
+                                          sched(opt_state["count"]))
         return params, opt_state, {"loss": l}
 
     @torch.no_grad()

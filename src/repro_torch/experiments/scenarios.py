@@ -44,7 +44,7 @@ from repro_torch.data import (augment, batches, dirichlet_shards,
 from repro_torch.metrics import classify_report, gate_metric_fn
 from repro_torch.models import zoo
 from repro_torch.models.cnn import bce_loss, one_hot
-from repro_torch.optim import adamw_init, adamw_update, make_schedule
+from repro_torch.optim import adamw_init, adamw_update_, make_schedule
 
 
 @dataclass(frozen=True)
@@ -178,7 +178,7 @@ def _zoo_closures(nodes: Sequence[zoo.ZooNode], layout: FlatLayout,
         def train_step(row, opt, batch, step):
             x, y = batch
             g, lv = torch.func.grad_and_value(loss)(row, x, y)
-            row, opt = adamw_update(row, g, opt, tc, sched(opt["count"]))
+            row, opt = adamw_update_(row, g, opt, tc, sched(opt["count"]))
             return row, opt, {"loss": lv}
 
         def eval_fn(row, v):

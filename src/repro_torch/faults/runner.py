@@ -8,7 +8,8 @@ round already consumes —
     ``session.set_active`` updates between rounds;
   * corruption becomes a :class:`FaultSignals` threaded through
     ``session.round(batches, val, faults=...)`` — armed on the engine
-    backend's quantized wire, lowered to drops elsewhere;
+    backend's quantized wire, lowered to drops elsewhere (the f32 wire and
+    the host loop);
   * a rejoin triggers the EF quarantine (``session.quarantine_wire``) so
     a returning node's stale wire reference cannot poison the telescoping
     residual;
@@ -25,9 +26,23 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.faults.plan import FaultPlan
 from repro_torch.faults.signals import idle_signals, signals_for_round
+
+
+def _supports_in_graph_corrupt(session) -> bool:
+    return (session.backend == "engine"
+            and session.state.wire is not None)
+
+
+def _numpy(value) -> np.ndarray:
+    """A log entry (a device tensor, or the host loop's Python values) as
+    a numpy array."""
+    if isinstance(value, torch.Tensor):
+        return value.cpu().numpy()
+    return np.asarray(value)
 
 
 def run_plan(session, plan: FaultPlan, batches, val, *,
@@ -51,8 +66,9 @@ def run_plan(session, plan: FaultPlan, batches, val, *,
     if plan.n_nodes != session.cfg.n_nodes:
         raise ValueError(f"plan is for {plan.n_nodes} nodes, session has "
                          f"{session.cfg.n_nodes}")
-    # corruption is injected on the quantized wire, dropped elsewhere
-    in_graph = session.state.wire is not None
+    # corruption is injected on the engine backend's quantized wire,
+    # dropped elsewhere (the host loop among them)
+    in_graph = _supports_in_graph_corrupt(session)
     lowered = plan.lower(corrupt_in_graph=in_graph)
     has_preempt = bool(lowered.preempt.any())
     if has_preempt and (make_session is None or checkpoint_path is None):
@@ -81,10 +97,10 @@ def run_plan(session, plan: FaultPlan, batches, val, *,
         log = {"round": r, "active": mask.copy(),
                "preempted": bool(lowered.preempt[r]),
                "corrupt": lowered.corrupt[r].copy(),
-               "gates": out["gates"].cpu().numpy().astype(bool)}
+               "gates": _numpy(out["gates"]).astype(bool)}
         for key in ("wire_ok", "quorum_ok"):
             if key in out:
-                log[key] = out[key].cpu().numpy()
+                log[key] = _numpy(out[key])
         logs.append(log)
         if on_round is not None:
             on_round(r, log)

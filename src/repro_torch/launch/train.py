@@ -33,7 +33,7 @@ import torch
 from repro_torch.configs.base import SwarmConfig, TrainConfig
 from repro_torch.core.engine import _not_ported
 from repro_torch.models import Model
-from repro_torch.optim import adamw_init, adamw_update, make_schedule
+from repro_torch.optim import adamw_init, adamw_update_, make_schedule
 
 
 def make_train_step(model: Model, tc: TrainConfig) -> Callable:
@@ -42,7 +42,8 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
     With ``tc.accum_steps`` = A > 1 the batch is cut into A microbatches of
     B/A rows whose f32 gradients are summed (each divided by A), as the
     reference's ``lax.scan`` does; live activation memory scales with B/A.
-    ``tc.remat=True`` raises at the first step (`Model.loss_fn`)."""
+    ``tc.remat=True`` checkpoints every block (`Model.loss_fn`): the
+    backward recomputes each block's activations from its input."""
     schedule = make_schedule(tc)
     layout = model.layout
 
@@ -77,9 +78,10 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
         else:
             grads, (l, metrics) = grads_of(parts, batch)
         lr = schedule(opt_state["count"])
-        parts, opt_state = adamw_update(parts, grads, opt_state, tc, lr)
-        del grads  # freed before the join allocates the new slot buffer
-        return layout.join(parts), opt_state, dict(metrics, loss=l, lr=lr)
+        # the parts are views of ``params``: the update writes the slot
+        # buffer and the moments in place (the reference donates them)
+        _, opt_state = adamw_update_(parts, grads, opt_state, tc, lr)
+        return params, opt_state, dict(metrics, loss=l, lr=lr)
 
     return train_step
 

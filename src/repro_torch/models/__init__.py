@@ -14,8 +14,8 @@ so the port's checkpoints use the reference's keys and either package's
 
   train:  loss_fn(params, {tokens, labels[, mask][, patch_embeds | frames]},
           remat=True) -> (loss, metrics)  (the reference's signature and
-          default; remat=True raises NotImplementedError, so callers pass
-          remat=False, as the reference's CLI does)
+          default; remat=True checkpoints every decoder block under
+          torch.func, `repro_torch.models.remat`)
   decode: decode(params, tokens [B,S], caches, cache_pos[, commit])
           -> (logits [B,S,V], caches)      (caches updated in place)
   prefill(params, {tokens[, patch_embeds]}, caches) -> (last logits
@@ -149,16 +149,6 @@ class ParamTree(nn.Module):
         return fn(self.tree(), *args, **kw)
 
 
-def _refuse_remat(remat: bool) -> None:
-    """``remat`` is the reference's activation checkpointing, which
-    ``torch.utils.checkpoint`` cannot give under ``torch.func.grad``."""
-    if remat:
-        raise NotImplementedError(
-            "remat=True (activation checkpointing under torch.func) is "
-            "not ported to repro_torch yet (ROADMAP.md: queue 1 item "
-            "15, remat); pass remat=False")
-
-
 def _node(cfg: ModelConfig, shapes: dict, init_tree: Callable,
           lora_rank: int):
     """``(layout, init, call)`` of a node's params over ``shapes``
@@ -222,9 +212,9 @@ def _lm_model(cfg: ModelConfig, lora_rank: int) -> Model:
                           **kw)
 
     def loss_fn(params, batch, remat=True):
-        """(loss, {"xent", "aux"})."""
-        _refuse_remat(remat)
-        logits, aux, _ = call(params, forward, batch)
+        """(loss, {"xent", "aux"}); ``remat`` checkpoints every block
+        (`repro_torch.models.remat`), the reference's default."""
+        logits, aux, _ = call(params, forward, batch, remat=remat)
         xent = softmax_xent(logits[:, text_from:], batch["labels"],
                             batch.get("mask"))
         return xent + aux, {"xent": xent, "aux": aux}
@@ -251,9 +241,10 @@ def _encdec_model(cfg: ModelConfig, lora_rank: int) -> Model:
                                lora_rank)
 
     def loss_fn(params, batch, remat=True):
-        _refuse_remat(remat)
+        """(loss, {"xent", "aux"}); ``remat`` checkpoints every decoder
+        block, the reference's default."""
         logits, aux = call(params, forward_encdec, cfg, batch["frames"],
-                           batch["tokens"])
+                           batch["tokens"], remat=remat)
         xent = softmax_xent(logits, batch["labels"], batch.get("mask"))
         return xent + aux, {"xent": xent, "aux": aux}
 

@@ -28,6 +28,7 @@ from repro_torch.models.attention import (attention, attention_shapes,
                                           make_cache)
 from repro_torch.models.layers import (dtype_of, embed, init_linear_, linear,
                                        mlp, normal_, rmsnorm)
+from repro_torch.models.remat import checkpoint
 from repro_torch.models.transformer import _map, mlp_shapes
 
 
@@ -110,14 +111,41 @@ def make_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
                                    dtype=dtype, device=device)}
 
 
+def _remat_dec_block(cfg: ModelConfig):
+    """A teacher-forced decoder block for
+    :func:`~repro_torch.models.remat.checkpoint`: ``(x, enc_out,
+    positions, p) -> (x,)``; the encoder output's gradient flows back."""
+    def fn(x, enc_out, positions, lp):
+        return (_dec_block(lp, x, cfg, positions, enc_out, None, None,
+                           None),)
+
+    return fn
+
+
+def _dec_block(lp, x, cfg: ModelConfig, positions, enc_out, cache,
+               cache_pos, commit):
+    """One decoder block: self-attention (``cache`` written in place when
+    given), cross-attention over ``enc_out``, the MLP."""
+    a = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+    x = x + attention(lp["attn"], a, cfg, positions=positions, cache=cache,
+                      cache_pos=cache_pos, commit=commit)
+    c = rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
+    x = x + attention(lp["cross"], c, cfg, positions=positions,
+                      causal=False, kv_x=enc_out)
+    m = rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+    return x + mlp(lp["mlp"], m, cfg)
+
+
 def decode_step(params, cfg: ModelConfig, tokens, caches: Optional[dict],
-                cache_pos, *, enc_out=None, commit=None):
+                cache_pos, *, enc_out=None, commit=None, remat=False):
     """Decoder forward: tokens [B,S] → (logits [B,S,V_padded], aux 0,
     caches). With caches (from :func:`make_encdec_cache`) the
     self-attention writes them in place at ``cache_pos`` (an int or a
     ``[B]`` tensor; ``commit`` limits the rows) and the cross-attention
     reads ``caches["enc_out"]``; without (teacher-forced training) it reads
-    ``enc_out`` and the positions are 0..S-1."""
+    ``enc_out`` and the positions are 0..S-1; there ``remat`` checkpoints
+    every decoder block, as the reference's ``jax.checkpoint`` of its
+    decoder body (the encoder is not checkpointed)."""
     compute_dtype = dtype_of(cfg.compute_dtype)
     x = embed(params["embed"], tokens, compute_dtype)
     b, s = x.shape[:2]
@@ -132,15 +160,13 @@ def decode_step(params, cfg: ModelConfig, tokens, caches: Optional[dict],
         positions = (cache_pos.to(x.device).reshape(-1, 1)
                      + ar[None]).expand(b, s)
     for i, lp in enumerate(_layers(params["dec_layers"], cfg.n_layers)):
-        a = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-        x = x + attention(lp["attn"], a, cfg, positions=positions,
-                          cache=None if caches is None else caches["self"][i],
-                          cache_pos=cache_pos, commit=commit)
-        c = rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
-        x = x + attention(lp["cross"], c, cfg, positions=positions,
-                          causal=False, kv_x=enc_out)
-        m = rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + mlp(lp["mlp"], m, cfg)
+        if remat and caches is None:
+            (x,) = checkpoint(_remat_dec_block(cfg), x, enc_out, positions,
+                              lp)
+        else:
+            x = _dec_block(lp, x, cfg, positions, enc_out,
+                           None if caches is None else caches["self"][i],
+                           cache_pos, commit)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = x @ params["lm_head"]["w"].to(x.dtype)
     if cfg.padded_vocab != cfg.vocab_size:  # mask the padding columns
@@ -150,9 +176,10 @@ def decode_step(params, cfg: ModelConfig, tokens, caches: Optional[dict],
     return logits, aux, caches
 
 
-def forward_encdec(params, cfg: ModelConfig, frames, tokens):
+def forward_encdec(params, cfg: ModelConfig, frames, tokens, *,
+                   remat=False):
     """Teacher-forced training forward: (logits, aux)."""
     enc_out = encode(params, cfg, frames)
     logits, aux, _ = decode_step(params, cfg, tokens, None, None,
-                                 enc_out=enc_out)
+                                 enc_out=enc_out, remat=remat)
     return logits, aux

@@ -1,0 +1,87 @@
+"""Activation checkpointing (the reference's ``jax.checkpoint``) that holds
+under ``torch.func``: port of the ``remat`` option of
+``repro.models.transformer.forward_lm`` and ``repro.models.encdec``.
+
+The engine differentiates a node's loss with ``torch.func.vjp`` under
+``torch.func.vmap`` over the node axis. ``torch.utils.checkpoint`` cannot
+run there: its non-reentrant form rests on saved-tensor hooks, which the
+``torch.func`` transforms refuse, and its reentrant form calls
+``torch.autograd.backward`` inside. :func:`checkpoint` is a
+``torch.autograd.Function`` instead, in ``setup_context`` style with a
+generated vmap rule:
+
+* forward: the block runs without recording a graph, and the Function
+  saves only its tensor inputs (the block's input activation and its
+  parameter views), as ``jax.checkpoint`` keeps only the body's inputs;
+* backward: the block is recomputed under ``torch.func.grad`` of the
+  cotangents' dot product with its outputs, which gives the same
+  cotangents as a ``torch.func.vjp`` of the block. (A ``torch.func.vjp``
+  called in a backward that a vjp function runs outside its own level
+  trips a functorch internal assert on PyTorch 2.13 for some ops, matmul
+  among them; ``grad`` runs its backward inside its level.)
+
+The recompute runs the block's kernels again: on a CUDA tensor a
+checkpointed layer launches its flash or SSD kernel twice a step, once in
+the forward and once in the recompute (the kernels' own backwards are
+plain PyTorch). A block that routes (the MoE's top-k, a stable sort)
+routes the same tokens in the recompute as in the forward.
+"""
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+from torch.utils import _pytree as pytree
+
+
+class _Checkpoint(torch.autograd.Function):
+    """``fn(*tree_unflatten(leaves, spec))`` → a tuple of tensors, saving
+    only ``leaves``; the backward recomputes ``fn``."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, spec, *leaves):
+        return fn(*pytree.tree_unflatten(list(leaves), spec))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        fn, spec, *leaves = inputs
+        ctx.fn, ctx.spec = fn, spec
+        ctx.save_for_backward(*leaves)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        leaves = list(ctx.saved_tensors)
+        diff = [i for i, t in enumerate(leaves) if t.is_floating_point()]
+
+        def dot(*ts):
+            ls = list(leaves)
+            for i, t in zip(diff, ts):
+                ls[i] = t
+            outs = ctx.fn(*pytree.tree_unflatten(ls, ctx.spec))
+            return sum(torch.sum(o * c) for o, c in zip(outs, cotangents))
+
+        grads = torch.func.grad(dot, argnums=tuple(range(len(diff))))(
+            *(leaves[i] for i in diff))
+        out = [None] * len(leaves)
+        for i, g in zip(diff, grads):
+            out[i] = g
+        return (None, None) + tuple(out)
+
+
+def checkpoint(fn: Callable[..., Tuple[torch.Tensor, ...]], *args
+               ) -> Tuple[torch.Tensor, ...]:
+    """``fn(*args)`` with its activations recomputed in the backward.
+
+    ``args`` is a tree (dicts, lists, tuples) of every tensor the block
+    reads: its input activation, any other activation (the enc-dec
+    decoder's encoder output), the positions and its per-layer parameter
+    views, passed as they are so that each gradient flows back through the
+    view into its stacked leaf. Gradients flow to the floating tensors;
+    integer ones (the positions) get none. A tensor made inside a
+    ``torch.func`` transform must come in as an argument, not through
+    ``fn``'s closure; ``fn`` captures only Python values (the window, the
+    config). ``fn`` returns a tuple of tensors."""
+    leaves, spec = pytree.tree_flatten(args)
+    return _Checkpoint.apply(fn, spec, *leaves)

@@ -36,6 +36,7 @@ from repro_torch.models.layers import (dtype_of, embed, gelu, init_linear_,
                                        linear, mlp, normal_, rmsnorm,
                                        unembed)
 from repro_torch.models.moe import init_moe_, moe, moe_shapes
+from repro_torch.models.remat import checkpoint
 from repro_torch.models.ssm import (init_ssm_, make_ssm_state, ssm_block,
                                     ssm_shapes)
 
@@ -210,13 +211,26 @@ def project_frontend(params, cfg: ModelConfig, feats):
     return linear(params["projector"]["fc2"], h)
 
 
+def _remat_block(cfg: ModelConfig, window: int):
+    """A training block for :func:`~repro_torch.models.remat.checkpoint`:
+    ``(x, positions, p) -> (x,)`` or, with a router, ``(x, aux)``."""
+    def fn(x, positions, p):
+        y, aux = block_apply(p, x, cfg, positions=positions, window=window,
+                             cache=None, cache_pos=None)
+        return (y,) if aux is None else (y, aux)
+
+    return fn
+
+
 def forward_lm(params, cfg: ModelConfig, tokens=None, *, embeds=None,
-               caches=None, cache_pos=None, commit=None):
+               caches=None, cache_pos=None, commit=None, remat=False):
     """tokens [B,S] (or ``embeds`` [B,S,D], the vlm prefix path) →
     (logits [B,S,V_padded], aux: the layers' router losses summed in f32,
     caches). ``cache_pos`` is an int or an int tensor ``[B]`` (per-row
     decode positions); caches are written in place (``commit`` [B] bool
-    limits the rows)."""
+    limits the rows). ``remat`` checkpoints every block of a forward
+    without caches (`repro_torch.models.remat`), as the reference's
+    ``jax.checkpoint`` of its layer body."""
     compute_dtype = dtype_of(cfg.compute_dtype)
     emb_p = params["embed_tied"] if cfg.tie_embeddings else params["embed"]
     if embeds is None:
@@ -240,10 +254,19 @@ def forward_lm(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     layers = _map(params["layers"], lambda t: t.unbind(0))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, aux_i = block_apply(_map(layers, lambda ts: ts[i]), x, cfg,
-                               positions=positions, window=int(windows[i]),
-                               cache=None if caches is None else caches[i],
-                               cache_pos=cache_pos, commit=commit)
+        lp = _map(layers, lambda ts: ts[i])
+        if remat and caches is None:
+            # the reference's jax.checkpoint of the layer body: only the
+            # block's input and its parameter views are kept
+            x, *aux_i = checkpoint(_remat_block(cfg, int(windows[i])), x,
+                                   positions, lp)
+            aux_i = aux_i[0] if aux_i else None
+        else:
+            x, aux_i = block_apply(lp, x, cfg, positions=positions,
+                                   window=int(windows[i]),
+                                   cache=None if caches is None
+                                   else caches[i],
+                                   cache_pos=cache_pos, commit=commit)
         if aux_i is not None:
             aux = aux + aux_i
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -10,6 +10,11 @@ A bf16 LM's params and grads come as the layout's two parts
 leaves and its 16-bit rest); the moments are f32 vectors over their values
 (``n_wide + n_rest``, not slots), so the wide leaves update in f32 and the
 rest in f32 and then cast back, as the reference updates leaf by leaf.
+
+:func:`adamw_update` is the reference's functional form (fresh buffers);
+:func:`adamw_update_` writes the moments and params back into their own
+buffers, which is what the port's step builders use: the reference donates
+its state to the compiled step, so it never holds two sets of moments.
 """
 from __future__ import annotations
 
@@ -76,14 +81,11 @@ def clip_by_global_norm(grads, max_norm: float):
     return (out if isinstance(grads, (tuple, list)) else out[0]), norm
 
 
-def adamw_update(params, grads, state, cfg: TrainConfig, lr):
-    """Returns (new_params, new_state). ``lr`` may be a tensor.
-    ``params``/``grads`` are tensors, or tuples of parts (the new params
-    then come back as a tuple of parts, each in its dtype). The update runs
-    over chunks of at most ``CHUNK`` values, each with the reference's
-    arithmetic (clipping included), so its f32 temporaries stay a chunk
-    long; the new moments and params are written into fresh buffers."""
-    ps, gs = _parts(params), _parts(grads)
+def _update(ps, gs, state, cfg: TrainConfig, lr, mu, nu, new):
+    """The update's chunk loop, writing the moments into ``mu``/``nu`` and
+    the params into the parts ``new``: each chunk reads its slice of the
+    old moments, the grads and the params before it writes that slice, so
+    the outputs may be the inputs themselves. Returns the new count."""
     scale = (_clip_scale(gs, cfg.grad_clip)[0] if cfg.grad_clip > 0
              else None)
     count = state["count"] + 1
@@ -91,8 +93,6 @@ def adamw_update(params, grads, state, cfg: TrainConfig, lr):
     c = count.to(torch.float32)
     bc1 = 1.0 - torch.pow(b1, c)
     bc2 = 1.0 - torch.pow(b2, c)
-    mu, nu = torch.empty_like(state["mu"]), torch.empty_like(state["nu"])
-    new = [torch.empty_like(p) for p in ps]
     for i, a, b, off in _chunks(ps):
         g = gs[i][..., a:b]
         if scale is not None:
@@ -106,5 +106,37 @@ def adamw_update(params, grads, state, cfg: TrainConfig, lr):
         new[i][..., a:b] = (p32 - lr * (step + cfg.weight_decay * p32)
                             ).to(ps[i].dtype)
         mu[..., sl], nu[..., sl] = m, v
+    return count
+
+
+def adamw_update(params, grads, state, cfg: TrainConfig, lr):
+    """Returns (new_params, new_state). ``lr`` may be a tensor.
+    ``params``/``grads`` are tensors, or tuples of parts (the new params
+    then come back as a tuple of parts, each in its dtype). The update runs
+    over chunks of at most ``CHUNK`` values, each with the reference's
+    arithmetic (clipping included), so its f32 temporaries stay a chunk
+    long; the new moments and params are written into fresh buffers (the
+    reference's functional form; :func:`adamw_update_` writes in place)."""
+    ps, gs = _parts(params), _parts(grads)
+    mu, nu = torch.empty_like(state["mu"]), torch.empty_like(state["nu"])
+    new = [torch.empty_like(p) for p in ps]
+    count = _update(ps, gs, state, cfg, lr, mu, nu, new)
     new = tuple(new) if isinstance(params, (tuple, list)) else new[0]
     return new, {"mu": mu, "nu": nu, "count": count}
+
+
+def adamw_update_(params, grads, state, cfg: TrainConfig, lr):
+    """:func:`adamw_update` in place: the moments go back into
+    ``state["mu"]``/``state["nu"]`` and the params into ``params`` (a
+    tensor, or the layout's parts: views of one slot buffer, so the buffer
+    itself is updated and a 16-bit rest is cast back into it), chunk by
+    chunk with the same arithmetic, so the two forms are bit-identical.
+    Where the reference donates the params and the optimizer state to its
+    compiled step, this is the port's form: no second set of moments or
+    params is ever allocated. Returns ``(params, state)`` (the same tensors;
+    the count is a new scalar). Under ``torch.func.vmap`` the params and
+    moments must be batched along the vmapped axis, as the engine's stacked
+    state always is."""
+    ps, gs = _parts(params), _parts(grads)
+    count = _update(ps, gs, state, cfg, lr, state["mu"], state["nu"], ps)
+    return params, {"mu": state["mu"], "nu": state["nu"], "count": count}

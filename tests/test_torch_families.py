@@ -32,8 +32,9 @@ from repro.models.moe import moe as jmoe  # noqa: E402
 from repro.serve import BucketPolicy as JBucketPolicy  # noqa: E402
 from repro.serve import ServeEngine as JServeEngine  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.convert import (lm_params_from_reference,  # noqa: E402
-                                 lm_params_to_reference)
+                                 lm_params_to_reference, to_reference_tree)
 from repro_torch.kernels import LAUNCHES, ops  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
@@ -43,7 +44,7 @@ from repro_torch.models.encdec import encode as tencode  # noqa: E402
 from repro_torch.models.encdec import forward_encdec  # noqa: E402
 from repro_torch.serve import BucketPolicy, ServeEngine  # noqa: E402
 from test_torch_train import (_assert_f32_steps,  # noqa: E402
-                              _assert_leafwise, _run_steps)
+                              _assert_leafwise, _leaves, _run_steps)
 
 torch.set_num_threads(2)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -237,8 +238,114 @@ def test_loss_fn_matches_reference(arch):
         assert abs(float(got) - float(want)) <= 2e-4 * max(1.0,
                                                            abs(float(want)))
     assert (float(tmet["aux"]) > 0) == (tm.cfg.family == "moe")
-    with pytest.raises(NotImplementedError, match="remat"):
-        tm.loss_fn(params, {k: _t(v) for k, v in batch.items()})
+    # remat, both packages' default, checkpoints the blocks: the forward
+    # is the plain one, bit for bit, and the reference's within the same
+    # tolerance
+    jr, _ = jm.loss_fn(tree, {k: jnp.asarray(v) for k, v in batch.items()})
+    tr, trmet = tm.loss_fn(params, {k: _t(v) for k, v in batch.items()})
+    assert torch.equal(tr, tl) and torch.equal(trmet["aux"], tmet["aux"])
+    assert abs(float(tr) - float(jr)) <= 2e-4 * max(1.0, abs(float(jr)))
+
+
+# ---------------------------------------------------------------------------
+# remat: activation checkpointing under the engine's vmap + vjp
+# ---------------------------------------------------------------------------
+
+REMAT_FAMILIES = {"dense": "minicpm-2b", "hybrid": "hymba-1.5b",
+                  "moe": GRANITE, "vlm": VLM, "audio": AUDIO}
+
+
+def _leaf_tree(layout, flat):
+    """{dotted path: numpy} of a port ``[P]`` f32 vector (params or a
+    gradient) in the reference's tree."""
+    return _leaves(lm_params_to_reference(layout, flat))
+
+
+@pytest.mark.parametrize("family", sorted(REMAT_FAMILIES))
+def test_remat_grads_under_vmap_equal_plain(family):
+    """The swarm step (``make_swarm_train_step``: vmap over 2 nodes of the
+    vjp of ``loss_fn``, launch/train.py) with ``remat=True`` against
+    ``remat=False``, one config of each family: the losses bit for bit and
+    the first moment (0.1 times the clipped gradient) of every leaf within
+    1e-5 of the leaf's largest magnitude (the recompute sums the same
+    products in another order: 1e-6 of it here)."""
+    _, tcfg = _smoke(REMAT_FAMILIES[family])
+    model = build_model(tcfg)
+    p, o = ttrain.init_train_state(model, torch.Generator().manual_seed(3),
+                                   "cpu")
+    rng = np.random.default_rng(4)
+    batch = [_loss_batch(tcfg, rng, b=2, s=16) for _ in range(2)]
+    batch = {k: torch.from_numpy(np.stack([b[k] for b in batch]))
+             for k in batch[0]}
+    out = {}
+    for remat in (True, False):
+        ps = torch.stack([p, p + 0.01 * torch.sin(p)])
+        os_ = {k: torch.stack([v, v]) for k, v in o.items()}
+        step = ttrain.make_swarm_train_step(model, TrainConfig(
+            remat=remat, warmup_steps=0, max_steps=10))
+        out[remat] = step(ps, os_, batch)
+    assert torch.equal(out[True][2]["loss"], out[False][2]["loss"])
+    values = model.layout.value_layout
+    for i in range(2):
+        got = _leaves(to_reference_tree(values, out[True][1]["mu"][i]))
+        want = _leaves(to_reference_tree(values, out[False][1]["mu"][i]))
+        _assert_leafwise(got, want, 1e-5, f"node {i} remat gradient")
+
+
+@pytest.mark.parametrize("arch", [GRANITE, VLM, AUDIO])
+def test_remat_loss_and_grads_match_reference(arch):
+    """``loss_fn(..., remat=True)`` of the moe, vlm and enc-dec smoke
+    models and its gradient (``torch.func.vjp``, the trainer's form)
+    against the reference's ``jax.value_and_grad`` of its ``loss_fn``
+    with ``remat=True``: the loss within 2e-4, every leaf's gradient
+    within 1e-4 of the leaf's largest magnitude."""
+    jm, tm, tree, _ = _models(arch, seed=5)
+    batch = _loss_batch(tm.cfg, np.random.default_rng(12))
+    jl, jg = jax.value_and_grad(lambda t: jm.loss_fn(
+        t, {k: jnp.asarray(v) for k, v in batch.items()},
+        remat=True)[0])(tree)
+    flat = lm_params_from_reference(tm.layout, tree)
+    layout = tm.layout
+    tl, vjp_fn, _ = torch.func.vjp(lambda q: tm.loss_fn(
+        layout.unflatten_parts(q), {k: _t(v) for k, v in batch.items()},
+        remat=True), layout.parts(flat), has_aux=True)
+    (tg,) = vjp_fn(torch.ones_like(tl))
+    assert abs(float(tl) - float(jl)) <= 2e-4 * max(1.0, abs(float(jl)))
+    _assert_leafwise(_leaf_tree(layout, layout.join(tg)),
+                     _leaves(jax.tree.map(np.asarray, jg)), 1e-4,
+                     "remat gradient")
+
+
+def test_remat_moe_recompute_routes_as_forward(monkeypatch):
+    """The checkpointed granite block's recompute routes every token to
+    the experts its forward chose: the expert ids of each layer's forward
+    equal those of its recompute (the backward walks the layers in
+    reverse), under the trainer's vjp."""
+    _, tcfg = _smoke(GRANITE)
+    model = build_model(tcfg)
+    p, _ = ttrain.init_train_state(model, torch.Generator().manual_seed(6),
+                                   "cpu")
+    seen = []
+    route = tmoe.route
+
+    def recording(*args, **kw):
+        out = route(*args, **kw)
+        seen.append(out[1].tolist())
+        return out
+
+    monkeypatch.setattr(tmoe, "route", recording)
+    batch = {k: _t(v) for k, v in _loss_batch(
+        tcfg, np.random.default_rng(7)).items()}
+    layout = model.layout
+    loss, vjp_fn, _ = torch.func.vjp(lambda q: model.loss_fn(
+        layout.unflatten_parts(q), batch, remat=True), layout.parts(p),
+        has_aux=True)
+    n = tcfg.n_layers
+    assert len(seen) == n
+    vjp_fn(torch.ones_like(loss))
+    assert len(seen) == 2 * n
+    for i in range(n):
+        assert seen[i] == seen[2 * n - 1 - i], i
 
 
 def test_encdec_encode_and_decode_match_reference():

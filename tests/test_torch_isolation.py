@@ -2,9 +2,10 @@
 reference package ``repro``, nor the ``msgpack`` package (the card's
 machine has none) — checked at run time in a fresh interpreter that drives
 one small CPU round on the int8 wire, a checkpoint round trip, a
-one-round fault plan with a corrupt sender, one small model-zoo scenario
-and one small LM serve, and statically over every
-source file and the jax-free test of the captured programs."""
+one-round fault plan with a corrupt sender, one host-loop round, one small
+model-zoo scenario and one small LM serve, and statically over every
+source file, the jax-free test of the captured programs and the example
+twins (``examples/torch_*.py``)."""
 import ast
 import subprocess
 import sys
@@ -15,9 +16,12 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
+# every source file of the package (`core/swarm.py`, the host loop, and
+# `models/remat.py` among them) and the example twins
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
-    ROOT / "tests" / "test_torch_capture.py"]
+    ROOT / "tests" / "test_torch_capture.py"] + sorted(
+    (ROOT / "examples").glob("torch_*.py"))
 
 _PROBE = r"""
 import sys
@@ -56,6 +60,13 @@ from repro_torch.faults import FaultPlan, run_plan
 _, logs = run_plan(sess, FaultPlan(2, 1, seed=3).corrupt(1, at=0),
                    (xs, ys), val)
 assert logs[0]["wire_ok"].tolist() == [True, False]
+host = SwarmSession(SwarmConfig(n_nodes=2, sync_every=1, merge="fisher",
+                                topology="full", lora_only=False),
+                    lambda p, o, b, s: (p - 0.1 * (p - b), o, {}),
+                    lambda p, v: 1.0, params=torch.zeros(3),
+                    backend="host", device="cpu")
+assert host.round([[torch.ones(3), torch.zeros(3)]], [1, 1])["gates"] \
+    == [True, True]
 from repro_torch.experiments import scenarios
 rcfg = scenarios.ScenarioRunConfig(n_train=64, n_test=16, feat_dim=8,
                                    hidden=8, steps=6)

@@ -904,3 +904,66 @@ def test_kernel_wrappers_refuse_wrapped_tensors_on_card():
     with pytest.raises(TypeError, match="ssd_apply"):
         torch.func.grad(lambda x: ss.ssd_scan(x, dt, alog, bm, cm,
                                               chunk=32)[0].sum())(x)
+
+
+@pytest.mark.parametrize("merge,name", [("fedavg", "fused_merge_all"),
+                                        ("fisher", "fused_merge_all_imp")])
+def test_host_loop_commits_through_one_launch_a_sync(merge, name):
+    """The host backend's commit (`core.swarm`, ``SwarmEngine.
+    commit_host``) on the card: one ``fused_merge_all`` launch a sync, in
+    the plain form for fedavg and the importance form for fisher."""
+    dev = _cuda()
+    from repro_torch.configs.base import SwarmConfig
+    from repro_torch.core.session import SwarmSession
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    cfg = SwarmConfig(n_nodes=4, sync_every=2, topology="ring", merge=merge,
+                      lora_only=False, val_threshold=0.0)
+    sess = SwarmSession(cfg, lambda p, o, b, s: (p - 0.1 * (p - b), o, {}),
+                        lambda p, v: float(torch.sigmoid(p.mean())),
+                        params=torch.zeros(1000), backend="host", device=dev)
+    targets = [torch.full((1000,), float(i), device=dev) for i in range(4)]
+    reset_launches()
+    for _ in range(3):
+        sess.round([targets] * 2, [1] * 4)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in LAUNCHES.items() if v} == {name: 3}
+
+
+def test_remat_step_launches_each_kernel_twice_a_layer():
+    """A Hymba smoke train step on the card: one flash and one SSD launch a
+    layer without remat, two with it (the forward and the recompute; the
+    Functions' own backwards are plain PyTorch), the same loss, and the
+    same gradient: AdamW's first moment (0.1·g) of every leaf within 1e-3
+    of the leaf's largest magnitude, as the card-vs-CPU train parity holds
+    it."""
+    dev = _cuda()
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.models import build_model
+
+    model = build_model(smoke_variant(get_config("hymba-1.5b")))
+    layers = model.cfg.n_layers
+    p, o = init_train_state(model, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 65), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    losses, mu = {}, {}
+    for remat, per_layer in ((False, 1), (True, 2)):
+        step = make_train_step(model, TrainConfig(remat=remat))
+        reset_launches()
+        _, o2, m = step(p.clone(), {k: v.clone() for k, v in o.items()},
+                        batch)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in LAUNCHES.items() if v} == {
+            "flash_attention": per_layer * layers,
+            "ssd_scan": per_layer * layers}
+        losses[remat] = m["loss"]
+        mu[remat] = model.layout.value_layout.unflatten(o2["mu"])
+    assert torch.equal(losses[True], losses[False])
+    for path, want in mu[False].items():
+        err = (mu[True][path] - want).abs().max()
+        assert err <= 1e-3 * want.abs().max(), (path, float(err))

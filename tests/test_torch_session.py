@@ -144,7 +144,7 @@ def test_wire_rounds_match_reference(wire, merge, topology):
 def test_unported_backends_and_device_policy():
     cfg = SwarmConfig(n_nodes=2)
     flat = torch.zeros(3)
-    for backend in ("gossip", "host"):
+    for backend in ("gossip",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SwarmSession(cfg, None, None, params=flat, backend=backend,
                          device="cpu")

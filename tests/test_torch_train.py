@@ -85,14 +85,14 @@ def _tc(cls, **kw):
     return cls(**dict(dict(warmup_steps=0, max_steps=10, remat=False), **kw))
 
 
-def _run_steps(arch, steps=3, accum=1, lr=1e-4, **kw):
+def _run_steps(arch, steps=3, accum=1, lr=1e-4, remat=False, **kw):
     """``steps`` train steps of both packages from the reference's init.
     Returns a namespace: the losses (``jl``, ``tl``), the initial params
     (``init``), the final params (``jp``, ``tp``) and AdamW moments
     (``jmu``/``tmu``, ``jnu``/``tnu``), and the first moment after the
     first step (``jmu1``/``tmu1``: 0.1 times the clipped gradient at the
     shared init), all as {path: numpy} of the reference's tree, and the
-    port's ``layout``."""
+    port's ``layout``. ``remat`` is both steps' ``TrainConfig.remat``."""
     jcfg, tcfg = _cfgs(arch, **kw)
     jm, tm = jbuild(jcfg), build_model(tcfg)
     tree = jm.init(jax.random.key(0))
@@ -101,14 +101,15 @@ def _run_steps(arch, steps=3, accum=1, lr=1e-4, **kw):
     flat = lm_params_from_reference(tm.layout, _np_tree(tree))
     topt = adamw_from_reference(tm.layout, _np_tree(jopt))
     jstep = jax.jit(jtrain.make_train_step(jm, _tc(
-        JTrainConfig, accum_steps=accum, lr=lr)))
+        JTrainConfig, accum_steps=accum, lr=lr, remat=remat)))
     tstep = ttrain.make_train_step(tm, _tc(TrainConfig, accum_steps=accum,
-                                           lr=lr))
+                                           lr=lr, remat=remat))
     values = tm.layout.value_layout
 
     def moments(jo, to, key):
+        # a copy: the port's step updates the moments in place
         return (_leaves(_np_tree(jo[key])),
-                _leaves(to_reference_tree(values, to[key])))
+                _leaves(to_reference_tree(values, to[key].clone())))
 
     rng = np.random.default_rng(1)
     out = dict(jl=[], tl=[], init=init, layout=tm.layout)
@@ -244,18 +245,45 @@ def test_train_step_accum_steps_matches_reference():
 
 
 def test_remat_raises_and_sync_step_is_gossip_only():
+    """``TrainConfig()`` (remat on, the reference's default) trains: one
+    step's loss equals the ``remat=False`` step's bit for bit, its first
+    moment (0.1 times the clipped gradient) agrees within 1e-5 of each
+    leaf's largest magnitude, and ``loss_fn``'s default (remat) forward
+    equals the plain one. The gossip backend's sync step still raises."""
     _, tcfg = _cfgs("mamba2-370m")
     model = build_model(tcfg)
     params, opt = ttrain.init_train_state(
         model, torch.Generator().manual_seed(0), "cpu")
     batch = {k: torch.from_numpy(v[0]) for k, v in _batch(
         np.random.default_rng(0), 1, 2, 16, tcfg.vocab_size).items()}
-    with pytest.raises(NotImplementedError, match="remat"):
-        ttrain.make_train_step(model, TrainConfig())(params, opt, batch)
-    with pytest.raises(NotImplementedError, match="remat"):
-        model.loss_fn({}, {}, remat=True)
+    out = {}
+    for remat in (True, False):
+        p, o = params.clone(), {k: v.clone() for k, v in opt.items()}
+        out[remat] = ttrain.make_train_step(
+            model, TrainConfig(remat=remat, warmup_steps=0))(p, o, batch)
+    assert torch.equal(out[True][2]["loss"], out[False][2]["loss"])
+    values = model.layout.value_layout
+    _assert_leafwise(_leaves(to_reference_tree(values, out[True][1]["mu"])),
+                     _leaves(to_reference_tree(values,
+                                               out[False][1]["mu"])),
+                     1e-5, "remat first moment")
+    tree = model.layout.unflatten_parts(model.layout.parts(params))
+    assert torch.equal(model.loss_fn(tree, batch)[0],
+                       model.loss_fn(tree, batch, remat=False)[0])
     with pytest.raises(NotImplementedError, match="gossip"):
         ttrain.make_swarm_sync_step(SwarmConfig(), None, "node", [1] * 4)
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_remat_train_step_matches_reference(family):
+    """``remat=True`` on both sides (the reference's ``jax.checkpoint`` of
+    its layer scan, the port's checkpointed blocks): three steps held as
+    the plain steps are (:func:`_assert_f32_steps`), and the first step's
+    gradient (AdamW's first moment) within 1e-4 of each leaf's largest
+    magnitude."""
+    r = _run_steps(FAMILIES[family], remat=True)
+    _assert_leafwise(r.tmu1, r.jmu1, 1e-4, "first-step gradient")
+    _assert_f32_steps(r)
 
 
 def test_swarm_train_step_is_the_vmap_of_the_step():

@@ -138,6 +138,12 @@ def test_zoo_vstep_veval_dispatch():
 
     with pytest.raises(ValueError, match="3-tuple vs"):
         zoo_vstep([step(1.0), four])(p, None, b, 0)
+    # steps that update their rows in place (AdamW's in-place form) hand
+    # back the stacked input itself: its storage is kept
+    in_place = [lambda p, o, b, s: (p.add_(b), o, {"loss": p.sum()})] * 2
+    q = p.clone()
+    out = zoo_vstep(in_place)(q, None, b, 0)
+    assert out[0] is q and torch.equal(q, p + 1)
     got = zoo_veval([lambda p, v: torch.tensor(0.25),
                      lambda p, v: p.sum() * 0 + v[0]])(p, torch.tensor(
                          [[0.5], [0.75]]))
