@@ -103,6 +103,12 @@ Phases, each printing one JSON line:
                  views of [B,T,Hkv,D], as the path gives them) held at the
                  same tolerance and timed beside the plain version, one
                  SDPA call and the bound;
+                 then the bf16 D = 128 body at nemotron-4-15b's and
+                 deepseek-coder-33b's shapes (``WIDE_FLASH``: q
+                 [1,48,2048,128] and [1,56,2048,128] over 8 KV heads,
+                 causal) at the same tolerance: device time with L2 warm
+                 and cold (64 MB written before each call), beside the
+                 plain version, one SDPA call and the bound (``d128``);
  13. ssd_kernel  the SSD scan kernel against its plain version: the
                  reference's sweep at 1e-4 (f32) and Hymba's (1, S, 50,
                  64, 16, 256) at S = 2048 and 256 and Mamba2's (1, 2048,
@@ -225,9 +231,37 @@ Phases, each printing one JSON line:
                  ``fused_merge_all`` launch a sync (plain, then ``imp``);
                  round walls, the engine's round wall, and one profiled
                  host round's device-busy share;
+ 16i. gossip    the gossip backend (``SwarmSession(..., backend=
+                 "gossip")``, `repro_torch.core.gossip`): (a) on a world of
+                 one NCCL rank in this process (4 nodes a rank), the paper
+                 CNN at full width from a shared start state (two local
+                 steps on the engine backend), fedavg/full on the f32
+                 wire, fisher/ring on the int8 wire and fedavg/dynamic on
+                 the int8 wire with node 3 absent: a gossip session round
+                 (no kernel launch: the commit is the where-select), then
+                 from its state the commit after 6 settling syncs (the
+                 reference's settled regime) held against the engine
+                 backend's within 1e-5 (gates equal); the schedule each
+                 picks, sync walls, counted and predicted bytes; (b)
+                 Mamba2-370M at full width on the same world (ring fedavg,
+                 f32 wire, 8 × 256 tokens a node): a round, the next
+                 round's local steps and its gossip sync, ``ssd_scan``
+                 launches equal to the prediction, the sync held against
+                 the engine backend's from the same state (1e-5, one bf16
+                 ulp in the bf16 slots), step and sync walls, tokens/s,
+                 peak memory, counted against predicted bytes, then one
+                 profiled round's busy share; (c) 4 gloo ranks spawned on
+                 the one card (one node each), every schedule of the slice
+                 on every wire it takes (``GOSSIP_C``), each commit held
+                 against the engine backend's (within 1e-5; the fisher
+                 side channel on the bf16 wire within bf16 rounding), sync
+                 walls and counted bytes. One card shows no inter-card
+                 traffic: (a)/(b) are one rank's NCCL calls, (c) goes
+                 through host memory;
  17. timing      how many device times the profiler read, how many traces
-                 ``device_ms`` discarded for lost kernel records, and how
-                 many times it fell back to CUDA events;
+                 ``device_ms`` discarded for lost kernel records, how
+                 many times it fell back to CUDA events, and the gossip
+                 phase's seconds;
  18. kernels     the per-kernel summary line (each kernel's achieved
                  TFLOP/s among its numbers), then the ``ok`` line.
 
@@ -1364,6 +1398,12 @@ FLASH_SWEEP = ((1, 4, 4, 128, 128, 64, True, 0, "float32"),
 FAMILY_FLASH = (("granite", 1, 24, 8, 2048, 2064, True),
                 ("internvl2", 4, 14, 2, 2048, 2064, True),
                 ("seamless", 4, 16, 16, 1024, 1024, False))
+# flash's bf16 D = 128 body (csrc/flash_attention.cu: kWG = 2,
+# hop::launch<128>) at the attention shapes of nemotron-4-15b (48 heads
+# over 8 KV heads, a GQA group of 6) and deepseek-coder-33b (56 over 8, a
+# group of 7): one causal prefill of 2048 tokens, (name, B, H, Hkv, S, T)
+WIDE_FLASH = (("nemotron-4-15b", 1, 48, 8, 2048, 2048),
+              ("deepseek-coder-33b", 1, 56, 8, 2048, 2048))
 # the serve phase: Hymba-1.5B, prompts of these lengths, 16 new tokens
 SERVE_SEQ = (256, 2048)
 SERVE_NEW = 16
@@ -1500,10 +1540,48 @@ def phase_flash_kernel(dev, bw, peak, bf16_peak):
             2 * fb * (2 * fh * fs * d + 2 * fhkv * ft * d), flops, bw,
             bf16_peak)
         families[name] = row
+    wide = {}
+    flush = torch.empty(16 * 2 ** 20, device=dev)    # 64 MB, past the L2
+    for name, fb, fh, fhkv, fs, ft in WIDE_FLASH:
+        wd = 128
+        q, k, v = inputs(fb, fh, fhkv, fs, ft, wd, "bfloat16")
+        got = fa.flash_attention(q, k, v)
+        want = flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        if bool((err > atol + rtol * want.float().abs()).any()):
+            raise AssertionError(f"flash D = 128 at {name}'s shape: max err "
+                                 f"{float(err.max())}")
+        flops = 4 * fh * wd * fb * _flash_pairs(fs, ft, True, 0)
+        call = lambda: fa.flash_attention(q, k, v)
+        row = dict(q=[fb, fh, fs, wd], kv=[fb, fhkv, ft, wd], causal=True,
+                   gqa_group=fh // fhkv, max_abs_err_bf16=float(err.max()),
+                   kernel_ms=device_ms(call, iters=20, warm=3,
+                                       match="flash_kernel"),
+                   # L2 cold: 64 MB written before each call
+                   cold_l2_ms=device_ms(lambda: (flush.zero_(), call()),
+                                        iters=20, warm=3,
+                                        match="flash_kernel"),
+                   plain_ms=device_ms(lambda: flash_attention_plain(
+                       q, k, v), iters=5, warm=2))
+        try:
+            row["library_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True),
+                iters=20, warm=3)
+        except RuntimeError as exc:  # the yardstick only, never the port
+            row["library_ms"], row["library_error"] = None, str(exc)[:200]
+        row["gflop"] = flops / 1e9
+        row["tflops"] = tflops(flops, row["kernel_ms"])
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * fb * (2 * fh * fs * wd + 2 * fhkv * ft * wd), flops, bw,
+            bf16_peak)
+        wide[name] = row
+    del flush
     emit("flash_kernel", sweep=[list(c) for c in FLASH_SWEEP],
          max_abs_err_f32=max_err,
          hymba={f"s{s}_w{w}": r for (s, w), r in out.items()},
-         families=families,
+         families=families, d128=wide,
          shape=dict(q=[1, h, list(SERVE_SEQ), d], kv=[1, hkv, t, d],
                     dtype="bfloat16"),
          rate="bf16 tensor cores", tolerance={"float32": 2e-5,
@@ -3283,6 +3361,503 @@ def phase_host(dev, smi):
          torch.backends.cudnn.benchmark) = cudnn
 
 
+# the gossip phase (``phase_gossip``). (a) on a world of one NCCL rank, the
+# paper CNN at full width: (name, merge, topology, wire, absent node)
+GOSSIP_A = (("fedavg_full_f32", "fedavg", "full", "f32", None),
+            ("fisher_ring_int8", "fisher", "ring", "int8", None),
+            ("fedavg_dynamic_int8_absent3", "fedavg", "dynamic", "int8", 3))
+# (c) a world of 4 gloo ranks on the one card, one node each: every
+# schedule of the slice on every wire it takes, (schedule, merge, topology,
+# wire); each is the one the cost model picks for its setting
+GOSSIP_C = tuple(
+    [(s, m, t, w) for s, m, t in (("ring_ppermute", "fedavg", "ring"),
+                                  ("ring_topo_ppermute", "fisher", "ring"),
+                                  ("gathered_rows", "fedavg", "dynamic"),
+                                  ("gathered_topo_stack", "fisher",
+                                   "dynamic"))
+     for w in ("f32", "bf16", "int8")]
+    + [("fedavg_psum", "fedavg", "full", "f32"),
+       ("fisher_psum", "fisher", "full", "f32"),
+       ("fedavg_psum_q8", "fedavg", "full", "int8"),
+       ("fisher_psum_q8", "fisher", "full", "int8")])
+GOSSIP_WORLD = 4
+# syncs that only advance a stateful wire (the params unchanged) before the
+# compared commit: the reference's settled regime (its mesh-wire tests)
+GOSSIP_SETTLE = 6
+GOSSIP_TOL = 1e-5
+GOSSIP_TIMEOUT = 600
+
+
+def _gossip_ecfg(cfg):
+    from repro_torch.configs.paper_histo import PAPER_FULL
+    from repro_torch.experiments import histo
+    return histo.HistoExperimentConfig(
+        n_train=256, image_size=PAPER_FULL.image_size, batch_size=16,
+        steps=4, swarm=cfg, growth=PAPER_FULL.growth, stem=PAPER_FULL.stem,
+        feat_dim=PAPER_FULL.feat_dim, hidden=PAPER_FULL.hidden,
+        n_blocks=PAPER_FULL.n_blocks,
+        layers_per_block=PAPER_FULL.layers_per_block)
+
+
+def _gossip_cfg(merge, topology, wire):
+    from repro_torch.configs.base import SwarmConfig
+    # every gate opens (threshold 0) but an absent node's
+    return SwarmConfig(n_nodes=N, sync_every=2, topology=topology,
+                       merge=merge, lora_only=False, val_threshold=0.0,
+                       wire_dtype=wire, wire_block=WIRE_BLOCK)
+
+
+def _gossip_base(dev):
+    """The CNN at full width on the histo shards, and a start state: the
+    shared init after two engine-backend local steps on a fisher/ring
+    session (the nodes' params differ, their Δθ² mass is non-zero)."""
+    import torch
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.data import (make_histo_dataset, paper_splits,
+                                  shard_to_nodes)
+    from repro_torch.experiments import histo
+
+    cfg = _gossip_cfg("fisher", "ring", "f32")
+    ecfg = _gossip_ecfg(cfg)
+    x, y = make_histo_dataset(ecfg.n_train, size=ecfg.image_size,
+                              noise=ecfg.noise, class_probs=ecfg.class_probs,
+                              seed=5)
+    shards = shard_to_nodes(x, y, paper_splits(ecfg.n_train), seed=5)
+    xs, ys, val = _round_data(ecfg, shards, 2, 2)
+    xs, ys = xs.to(dev), ys.to(dev)
+    val = tuple(torch.from_numpy(v).to(dev) for v in val)
+    eng = _session(dev, cfg, ecfg, shards)
+    eng.run_local((xs[0], ys[0]))
+    model = histo._model(ecfg)
+    layout = FlatLayout.of_module(model)
+    return dict(params=eng.state.params.clone(),
+                stats=eng.state.stats.clone(), val=val, xs=xs, ys=ys,
+                sizes=[float(len(y)) for _, y in shards], layout=layout,
+                model=model, ecfg=ecfg)
+
+
+def _gossip_state(base, merge, wire):
+    """A setting's start state: the params (bf16-representable for the bf16
+    wire, whose stateless cast is then exact) and the importance mass
+    (None for mean/fedavg; zero on the int8 wire, where the engine backend
+    round-trips the mass statelessly and only zero mass crosses exactly)."""
+    import torch
+    p = base["params"]
+    if wire == "bf16":
+        p = p.to(torch.bfloat16).to(torch.float32)
+    st = None
+    if merge in ("fisher", "gradmatch"):
+        st = (torch.zeros_like(base["stats"]) if wire == "int8"
+              else base["stats"])
+    return p, st
+
+
+def _gossip_commit(engine, params, val, active, stats, settle):
+    """``settle`` syncs that only advance the wire (at least one, which
+    also warms the path up), then the compared commit from the same
+    params: (committed, log, the commit sync's synchronized wall)."""
+    import torch
+    wire = engine._auto_wire(params, None)
+    for _ in range(max(settle, 1)):
+        _, log = engine.sync(params, val, active, stats=stats, wire=wire)
+        wire = log.get("wire", wire)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    committed, log = engine.sync(params, val, active, stats=stats, wire=wire)
+    torch.cuda.synchronize()
+    return committed, log, time.perf_counter() - t0
+
+
+def _engine_reference(base, veval, merge, topology, wire, active):
+    """The engine backend's commit of a setting from its start state."""
+    from repro_torch.core.engine import SwarmEngine
+    cfg = _gossip_cfg(merge, topology, wire)
+    p, st = _gossip_state(base, merge, wire)
+    eng = SwarmEngine(cfg, None, veval, data_sizes=base["sizes"],
+                      layout=base["layout"])
+    return _gossip_commit(eng, p, base["val"], active, st,
+                          0 if wire == "f32" else GOSSIP_SETTLE)
+
+
+def _gossip_hold(got, want, gates_g, gates_e, what, cast_mass=False):
+    """A gossip commit against the engine backend's: gates equal, params
+    within 1e-5 (rtol and atol). ``cast_mass``: the fisher side channel
+    (F⊙θ ⊕ F) on the bf16 wire, cast to bf16 as products (the reference's
+    stateless cast), which the engine's error-fed bf16 wire does not do:
+    within its bf16 rounding, 2^-8 of the largest value. Returns the max
+    abs difference."""
+    import torch
+    if not torch.equal(gates_g.cpu(), gates_e.cpu()):
+        raise AssertionError(f"gossip {what}: gates {gates_g} vs {gates_e}")
+    diff = (got - want).abs()
+    err = float(diff.max())
+    if cast_mass:
+        lim = 2.0 ** -8 * float(want.abs().max())
+        if err > lim:
+            raise AssertionError(f"gossip {what}: {err} from the engine "
+                                 f"backend's (limit {lim})")
+    elif bool((diff > GOSSIP_TOL * (1 + want.abs())).any()):
+        raise AssertionError(f"gossip {what}: params {err} from the engine "
+                             "backend's")
+    return err
+
+
+def _gossip_world1(dev, smi, base):
+    """(a) The paper CNN on a world of one NCCL rank (4 nodes a rank): a
+    gossip session round per setting (no kernel launches: the gossip
+    commit is the where-select), then from its state the settled commit
+    against the engine backend's."""
+    import torch
+    from repro_torch.core.session import SwarmSession
+    from repro_torch.experiments import histo
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_swarm_mesh
+    from repro_torch.optim import adamw_init
+
+    mesh, axis = make_swarm_mesh(N)
+    model, layout, ecfg = base["model"], base["layout"], base["ecfg"]
+    step, _ = histo._make_model_fns(ecfg, model, layout)
+    flat = layout.flatten(histo._init_params(ecfg, model)).to(dev)
+    for name, merge, topology, wire, absent in GOSSIP_A:
+        cfg = _gossip_cfg(merge, topology, wire)
+        veval = histo._make_eval_fn(cfg, model, layout)
+        sess = SwarmSession(cfg, step, veval,
+                            params=list(base["params"].unbind(0)),
+                            opt_state=adamw_init(flat),
+                            data_sizes=base["sizes"], layout=layout,
+                            device=dev, backend="gossip", mesh=mesh,
+                            axis=axis)
+        if absent is not None:
+            sess.leave(absent)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        log = sess.round((base["xs"][1], base["ys"][1]), base["val"])
+        torch.cuda.synchronize()
+        round_wall = time.perf_counter() - t0
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        if launches:
+            raise AssertionError(f"gossip {name}: the round launched "
+                                 f"{launches}; its commit is the select")
+        round_bytes = sess.counted_sync_bytes
+        st0 = sess.state
+        state = dict(base, params=st0.params.clone(),
+                     stats=None if st0.stats is None else st0.stats.clone())
+        p, st = _gossip_state(state, merge, wire)
+        settle = 0 if wire == "f32" else GOSSIP_SETTLE
+        got, glog, gwall = _gossip_commit(sess.engine, p, base["val"],
+                                          st0.active, st, settle)
+        want, elog, ewall = _engine_reference(state, veval, merge, topology,
+                                              wire, st0.active)
+        err = _gossip_hold(got, want, glog["gates"], elog["gates"], name)
+        emit("gossip_a", setting=name, card=smi, world=1, backend="nccl",
+             nodes=N, params_per_node=layout.size,
+             schedule=sess.sync_schedule.name,
+             describe=sess.sync_schedule.describe(sess.payload_params),
+             mass="zero" if st is not None and wire == "int8"
+             else ("Δθ² of the local steps" if st is not None else None),
+             round_gates=log["gates"].tolist(), round_wall_s=round_wall,
+             round_bytes=round_bytes, settle_syncs=settle,
+             gossip_sync_wall_s=gwall, engine_sync_wall_s=ewall,
+             max_abs_err_vs_engine=err, tolerance=GOSSIP_TOL,
+             gates=glog["gates"].tolist(),
+             counted_bytes=sess.counted_sync_bytes,
+             predicted_link_bytes=sess.predicted_link_bytes,
+             note="one rank: its collectives are a single NCCL rank's "
+                  "calls, no inter-card traffic")
+        del sess, got, want
+
+
+def _gossip_mamba(dev, smi):
+    """(b) Mamba2-370M at full width, N = 4 on a world of one NCCL rank, as
+    the train phase's f32-wire path runs it (ring fedavg, 8 × 256 tokens a
+    node, 2 steps a round): a round, the next round's local steps and its
+    gossip sync, counted together (``ssd_scan`` in every step and every
+    gate score); the sync held against the engine backend's from the same
+    state; then one profiled round."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.engine import SwarmEngine
+    from repro_torch.core.session import SwarmSession
+    from repro_torch.data import make_lm_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_swarm_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+
+    mesh, axis = make_swarm_mesh(N)
+    steps, t, batch, seq = 4, 2, 8, 256
+    lcfg = get_config("mamba2-370m")
+    model = build_model(lcfg)
+    layout = model.layout
+    tc = TrainConfig(lr=1e-3, warmup_steps=max(steps // 10, 1),
+                     max_steps=steps, remat=False)
+    step_fn = train.make_train_step(model, tc)
+    streams = [make_lm_stream(256, seq, lcfg.vocab_size, seed=i,
+                              topic_bias=1.0) for i in range(N)]
+    veval = torch.func.vmap(lambda p, v: 1.0 / (1.0 + model.loss_fn(
+        layout.unflatten(p), v, remat=False)[0]))
+    cfg = _gossip_cfg("fedavg", "ring", "f32")
+    ps = [model.init(torch.Generator(device=dev).manual_seed(0), dev)
+          for _ in range(N)]
+    sess = SwarmSession(cfg, lambda p, o, b, s: step_fn(p, o, b),
+                        lambda p, v: veval(p, v), params=ps,
+                        opt_state=adamw_init(layout.parts(ps[0])),
+                        data_sizes=[len(s["tokens"]) for s in streams],
+                        layout=layout, device=dev, backend="gossip",
+                        mesh=mesh, axis=axis)
+    del ps
+    rng = np.random.default_rng(0)
+
+    def to_dev(arrays):
+        return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+    def draw():
+        idx = [rng.integers(0, len(s["tokens"]), (t, batch))
+               for s in streams]
+        return to_dev({k: np.stack([s[k][i] for s, i in zip(streams, idx)],
+                                   axis=1) for k in streams[0]})
+
+    vals = to_dev({k: np.stack([s[k][:8] for s in streams])
+                   for k in streams[0]})
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    log1 = sess.round(draw(), vals)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sess.run_local(draw())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    st = sess.state
+    p0 = st.params.clone()
+    committed, glog = sess.engine.sync(st.params, sess._mine(vals, 0),
+                                       st.active, stats=st.stats,
+                                       wire=st.wire)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    # 4 steps, one SSD launch a layer each (the vmap rule folds the nodes),
+    # and 2 syncs scoring the params and the candidate; no merge kernel
+    layers = lcfg.n_layers
+    predicted = {"ssd_scan": steps * layers + 2 * 2 * layers}
+    if launches != predicted:
+        raise AssertionError(f"gossip mamba2: launches {launches}, "
+                             f"predicted {predicted}")
+    counted = sess.engine.sync_bytes
+    eng = SwarmEngine(cfg, None, lambda p, v: veval(p, v),
+                      data_sizes=[len(s["tokens"]) for s in streams],
+                      layout=layout)
+    want, elog = eng.sync(p0, vals, st.active)
+    del p0
+    if not torch.equal(glog["gates"], elog["gates"]):
+        raise AssertionError(f"gossip mamba2: gates {glog['gates']} vs "
+                             f"{elog['gates']}")
+    errs = [_parts_err(layout, committed[i], want[i], GOSSIP_TOL)
+            for i in range(N)]
+    if max(e[1] for e in errs) > 0:
+        raise AssertionError(f"gossip mamba2: sync vs the engine's {errs}")
+    del want
+    sess._commit(committed)
+    del committed
+    if not bool(torch.isfinite(layout.values(sess.state.params)).all()):
+        raise AssertionError("gossip mamba2: non-finite params")
+    block = draw()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t4 = time.perf_counter()
+        losses = sess.round(block, vals)["train"]["loss"].float().cpu()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t4
+    busy = _busy(prof, pwall)
+    tokens = t * N * batch * seq
+    emit("gossip_b", card=smi, arch="mamba2-370m", world=1, backend="nccl",
+         nodes=N, batch=batch, seq=seq, steps_per_round=t,
+         values_per_node=layout.n_values, slots_per_node=layout.size,
+         schedule=sess.sync_schedule.name,
+         describe=sess.sync_schedule.describe(sess.payload_params),
+         round_wall_s=t1 - t0, step_wall_s=(t2 - t1) / t,
+         tokens_per_s=tokens / (t2 - t1), sync_wall_s=t3 - t2,
+         launches=launches, predicted=predicted,
+         peak_allocated_gib=peak / 2 ** 30,
+         peak_reserved_gib=reserved / 2 ** 30,
+         counted_bytes=counted,
+         predicted_link_bytes=sess.predicted_link_bytes,
+         predicted_sync_bytes=sess.predicted_sync_bytes,
+         sync_err_vs_engine=[e[0] for e in errs],
+         tolerance="1e-5, plus one bf16 ulp in the bf16 slots",
+         round1_gates=log1["gates"].tolist(),
+         profiled_wall_s=pwall, busy_share=busy["device_busy_share"],
+         device_busy_s=busy["device_busy_s"],
+         kernel_launches_profiled=busy["kernel_launches"],
+         top_device=busy["top_device"][:6],
+         loss_profiled=[float(x) for x in losses.reshape(-1)],
+         note="one rank: the all_gather is a single NCCL rank's call, no "
+              "inter-card traffic")
+    del sess
+
+
+def _gossip_rank(rank, world, init, tmp, dev):
+    """(c) One of the 4 gloo ranks on ``cuda:0``: every ``GOSSIP_C`` setting
+    from the start state ``tmp/state.pt``, its settled commit and sync wall
+    and the bytes it handed to the collectives, into
+    ``tmp/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.session import SwarmSession
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.experiments import histo
+    from repro_torch.launch.mesh import make_swarm_mesh
+
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        saved = torch.load(f"{tmp}/state.pt")
+        base = dict(params=saved["params"].to(dev),
+                    stats=saved["stats"].to(dev), sizes=saved["sizes"])
+        val = tuple(v.to(dev) for v in saved["val"])
+        mesh, axis = make_swarm_mesh(N)
+        out = {}
+        for sched, merge, topology, wire in GOSSIP_C:
+            cfg = _gossip_cfg(merge, topology, wire)
+            ecfg = _gossip_ecfg(cfg)
+            model = histo._model(ecfg)
+            layout = FlatLayout.of_module(model)
+            veval = histo._make_eval_fn(cfg, model, layout)
+            p, st = _gossip_state(base, merge, wire)
+            sess = SwarmSession(cfg, None, veval, params=list(p.unbind(0)),
+                                data_sizes=base["sizes"], layout=layout,
+                                device=dev, backend="gossip", mesh=mesh,
+                                axis=axis)
+            if sess.sync_schedule.name != sched:
+                raise AssertionError(f"{merge}/{topology}/{wire} picked "
+                                     f"{sess.sync_schedule.name}, not {sched}")
+            got, log, wall = _gossip_commit(
+                sess.engine, p[mesh.rows], sess._mine(val, 0),
+                sess.state.active, None if st is None else st[mesh.rows],
+                0 if wire == "f32" else GOSSIP_SETTLE)
+            out[f"{sched}/{wire}"] = dict(
+                committed=got.cpu(), gates=log["gates"].cpu(), wall=wall,
+                counted=sess.engine.sync_bytes,
+                predicted=sess.predicted_link_bytes,
+                payload=sess.payload_params)
+            del sess
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _gossip_world4(dev, smi, base):
+    """(c) 4 gloo ranks on the one card, spawned; each setting's committed
+    rows against the engine backend's commit of it; a failed rank raises
+    here."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.core import gossip
+    from repro_torch.experiments import histo
+
+    tmp = tempfile.mkdtemp(prefix="gossip_world4_")
+    torch.save(dict(params=base["params"].cpu(), stats=base["stats"].cpu(),
+                    sizes=base["sizes"],
+                    val=tuple(v.cpu() for v in base["val"])),
+               f"{tmp}/state.pt")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_gossip_rank, args=(GOSSIP_WORLD,
+                                                 f"file://{tmp}/rdv", tmp,
+                                                 str(dev)),
+                             nprocs=GOSSIP_WORLD, join=False,
+                             start_method="spawn")
+    deadline = time.time() + GOSSIP_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() > deadline:
+                raise TimeoutError(f"gossip world of {GOSSIP_WORLD}: ranks "
+                                   f"still running after {GOSSIP_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(30)
+    spawn_wall = time.perf_counter() - t0
+    ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(GOSSIP_WORLD)]
+    layout, model, ecfg = base["layout"], base["model"], base["ecfg"]
+    active = torch.ones(N, dtype=torch.bool, device=dev)
+    rows = {}
+    for sched, merge, topology, wire in GOSSIP_C:
+        key = f"{sched}/{wire}"
+        got = torch.cat([r[key]["committed"] for r in ranks]).to(dev)
+        gates = ranks[0][key]["gates"]
+        cfg = _gossip_cfg(merge, topology, wire)
+        veval = histo._make_eval_fn(cfg, model, layout)
+        want, elog, ewall = _engine_reference(base, veval, merge, topology,
+                                              wire, active)
+        err = _gossip_hold(got, want, gates, elog["gates"], key,
+                           cast_mass=wire == "bf16" and merge == "fisher")
+        # what a rank hands over, priced as the cost model prices a
+        # rank's traffic (tests/test_torch_gossip.py)
+        width = layout.size
+        if wire == "int8":
+            width = gossip.padded_grid(
+                layout, WIRE_BLOCK,
+                GOSSIP_WORLD if "psum" in sched else 1).padded
+        factor = {"ring": 1.0, "all_to_all": 1.0,
+                  "all_gather": float(GOSSIP_WORLD),
+                  "all_reduce": 2.0 * (GOSSIP_WORLD - 1) / GOSSIP_WORLD}
+        counted = ranks[0][key]["counted"]
+        priced = sum(factor[k] * v for k, v in
+                     counted["by_collective"].items())
+        rows[key] = dict(max_abs_err_vs_engine=err,
+                         sync_wall_s=[r[key]["wall"] for r in ranks],
+                         engine_sync_wall_s=ewall, counted_bytes=counted,
+                         counted_priced=priced, width=width,
+                         predicted_link_bytes=ranks[0][key]["predicted"])
+    emit("gossip_c", card=smi, world=GOSSIP_WORLD, backend="gloo",
+         device=f"{dev} (all ranks)", nodes=N, params_per_node=layout.size,
+         settle_syncs=GOSSIP_SETTLE, tolerance=GOSSIP_TOL,
+         spawn_wall_s=spawn_wall, settings=rows,
+         note="4 ranks on one card: gloo stages CUDA tensors through host "
+              "memory, so these walls are host copies and gloo's TCP "
+              "transport, not NVLink")
+
+
+def phase_gossip(dev, smi):
+    """The gossip backend (`repro_torch.core.gossip`, ``SwarmSession(...,
+    backend="gossip")``): (a) and (b) on a world of one NCCL rank in this
+    process, then (c) on 4 gloo ranks spawned on the one card."""
+    import gc
+    import tempfile
+    import torch
+    import torch.distributed as dist
+
+    base = _gossip_base(dev)
+    tmp = tempfile.mkdtemp(prefix="gossip_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        _gossip_world1(dev, smi, base)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _gossip_mamba(dev, smi)
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _gossip_world4(dev, smi, base)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3367,6 +3942,10 @@ def main() -> int:
     # activation checkpointing, then the host loop
     phase_remat(dev, smi)
     phase_host(dev, smi)
+    # the gossip backend: one NCCL rank, then 4 gloo ranks on the card
+    t0 = time.perf_counter()
+    phase_gossip(dev, smi)
+    TIMERS["gossip_s"] = time.perf_counter() - t0
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[stem],
                     replaces=replaces, launches=launches.get(name, 0),

@@ -64,8 +64,17 @@ The host loop (`repro_torch.core.swarm.SwarmLearner`, the session's
 ``backend="host"``) shares the strategy pieces through
 :meth:`SwarmEngine.propose_host` and :meth:`SwarmEngine.commit_host`.
 
-Not in this slice (``NotImplementedError``, see ROADMAP): the gossip
-backend.
+**The gossip backend** (``backend="gossip"``, ``mesh`` a
+`repro_torch.launch.mesh.SwarmMesh`): one engine a rank, over the rank's
+rows ``[per, P]`` of params, statistics and wire, with the rank's rows of
+the validation set; the replicated ``[N]`` active mask. Propose runs the
+collective schedule the cost model picks for ``per`` nodes a rank
+(`core.gossip`, :meth:`SwarmEngine._propose_gossip`), the gate scores the
+rank's nodes and all-gathers the ``[N]`` metrics (every rank returns the
+reference's ``[N]`` logs), and the commit is the reference's where-select
+(:func:`gated_commit`): its gossip backend has no kernel commit. On the
+int8 wire the schedule's mesh error-feedback state (`core.gossip.
+init_mesh_wire`) comes back in the log under ``"wire"``.
 """
 from __future__ import annotations
 
@@ -242,15 +251,33 @@ def gated_commit(candidate, local, gates):
     return torch.where(gates.reshape(-1, 1), candidate, local)
 
 
+def _inner_axes(specs):
+    """The axis names an inner (within-node) param spec tree names."""
+    if specs is None:
+        return []
+    if isinstance(specs, str):
+        return [specs]
+    if isinstance(specs, dict):
+        specs = list(specs.values())
+    if isinstance(specs, (tuple, list)):
+        return [a for sp in specs for a in _inner_axes(sp)]
+    return []
+
+
 class SwarmEngine:
-    """Stacked swarm over one device: vmapped local steps + on-device gated
-    sync — the reference's ``backend="host"`` (N param copies on one device,
-    fused-kernel commit)."""
+    """Stacked swarm: vmapped local steps + on-device gated sync.
+
+    backend="host"    the reference's engine backend: N param copies on one
+                      device, fused-kernel commit.
+    backend="gossip"  one engine a rank of ``mesh`` (``axis`` its swarm
+                      axis), over the rank's rows: merge by the collective
+                      schedule, where-select commit."""
 
     def __init__(self, cfg: SwarmConfig, train_step_fn: Optional[Callable],
                  eval_fn: Optional[Callable], *,
                  data_sizes: Optional[Sequence[float]] = None,
-                 layout: Optional[FlatLayout] = None, backend: str = "host"):
+                 layout: Optional[FlatLayout] = None, backend: str = "host",
+                 mesh=None, axis: Optional[str] = None, param_specs=None):
         zoo = (isinstance(train_step_fn, (list, tuple))
                or isinstance(eval_fn, (list, tuple)))
         if zoo and backend == "gossip":
@@ -258,12 +285,31 @@ class SwarmEngine:
                 "per-node closure lists (model zoo) are engine-backend only: "
                 "the gossip backend shards the node axis and per-node "
                 "dispatch would lower to cross-shard gathers")
-        if backend == "gossip":
-            raise _not_ported("backend='gossip'",
-                              "queue 1 item 13, distributed gossip backend")
-        if backend != "host":
+        if backend not in ("host", "gossip"):
             raise ValueError(f"unknown engine backend {backend!r}")
+        if backend == "gossip" and (mesh is None or axis is None):
+            raise ValueError("gossip backend needs mesh and axis")
+        if backend == "gossip":
+            if axis != mesh.axis:
+                raise ValueError(f"axis {axis!r} is not the mesh's swarm "
+                                 f"axis {mesh.axis!r}")
+            if mesh.n_nodes != cfg.n_nodes:
+                raise ValueError(f"the mesh holds {mesh.n_nodes} nodes, "
+                                 f"cfg.n_nodes={cfg.n_nodes}")
+            inner = _inner_axes(param_specs)
+            if inner:
+                raise ValueError(
+                    f"param_specs name inner axes {inner}: on the gossip "
+                    "backend a rank holds whole nodes, and sharding a node's "
+                    "params over ranks (inner model sharding) is not ported "
+                    "(ROADMAP.md, queue 1 item 1)")
         self.cfg = cfg
+        self.backend = backend
+        self.mesh = mesh if backend == "gossip" else None
+        self._q8 = None
+        # gossip: the bytes each collective moved in the last sync
+        # (`core.gossip.sync_bytes`)
+        self.sync_bytes = None
         self.wire_dtype = comms.validate_wire_dtype(cfg.wire_dtype)
         self.wire_block = comms.validate_wire_block(cfg.wire_block)
         # the leaf boundaries of the payload: the wire's block grid restarts
@@ -273,8 +319,11 @@ class SwarmEngine:
         self._adapters = None
         self._grid = None
         self._ref = None
-        # the engine backend reports the SPMD-equivalent wire cost
-        self.sync_schedule = comms.pick_schedule(cfg, simulated=True)
+        # the engine backend reports the SPMD-equivalent wire cost; the
+        # gossip backend runs the schedule picked for its nodes a rank
+        self.sync_schedule = comms.pick_schedule(
+            cfg, per=1 if self.mesh is None else self.mesh.per,
+            simulated=self.mesh is None)
         self.data_sizes = (np.ones(cfg.n_nodes) if data_sizes is None
                            else np.asarray(data_sizes, np.float64))
         self.strategy = merge_lib.get_strategy(cfg)
@@ -415,6 +464,13 @@ class SwarmEngine:
         (as the reference finalizes the full tree before its split)."""
         if fishers is None and stats is not None:
             fishers = stats
+        if self.mesh is not None:
+            # gossip: the rank's slot rows in and out (`make_swarm_sync_step`)
+            x, full = self._payload(stacked)
+            if x.shape[-1] == 0:
+                return stacked, None, None
+            cand, _ = self._propose_gossip(x, active, fishers)
+            return self._slots(self._full(cand, full), stacked), None, None
         n = self.cfg.n_nodes
         a = (torch.ones((n,), dtype=torch.bool, device=stacked.device)
              if active is None else active.to(torch.bool))
@@ -476,13 +532,45 @@ class SwarmEngine:
             return wire
         width = (self._adapter_index(params.device)[1].numel()
                  if self._split_lora else self._n_values(params))
+        if self.mesh is not None:
+            # the schedule's mesh EF state for int8; bf16 is a stateless cast
+            if self.wire_dtype != "int8":
+                return None
+            return self._mesh_wire(torch.empty((), device=params.device)
+                                   .expand(params.shape[0], width))
         return torch.zeros((params.shape[0], width), dtype=torch.float32,
                            device=params.device)
 
+    def _mesh_wire(self, payload):
+        """Zero mesh EF state of the schedule for the payload rows."""
+        from repro_torch.core import gossip
+        return gossip.init_mesh_wire(
+            self.sync_schedule.name, payload,
+            n_shards=self.mesh.world_size, wire_block=self.wire_block,
+            layout=self._mesh_grid(payload))
+
+    def _mesh_grid(self, payload):
+        """The payload's int8 block grid on its device
+        (`core.gossip.PaddedGrid`; the psum-q8 forms' chunk-major one),
+        built once."""
+        from repro_torch.core import gossip
+        chunks = (self.mesh.world_size
+                  if self.sync_schedule.name.endswith("psum_q8") else 1)
+        g = self._q8
+        if g is None or g.size != payload.shape[-1] \
+                or g.back.device != payload.device:
+            layout = self._payload_layout(payload.device)
+            g = gossip.padded_grid(
+                layout if layout is not None else payload.shape[-1],
+                self.wire_block, chunks, payload.device)
+            self._q8 = g
+        return g
+
     def check_faults(self, faults, wire) -> None:
-        """Corrupt-wire injection needs the quantized wire's state."""
-        if faults is not None and wire is None \
-                and self.wire_dtype == "f32":
+        """Corrupt-wire injection needs the engine backend's quantized
+        wire state."""
+        if faults is not None and (self.mesh is not None or (
+                wire is None and self.wire_dtype == "f32")):
             raise ValueError(
                 "in-graph corrupt-wire injection (faults=) requires the "
                 "engine backend with a quantized/EF wire (SwarmState.wire); "
@@ -508,7 +596,14 @@ class SwarmEngine:
         excluded from the merge AND gated off, so nobody — the sender
         included — commits corrupted bytes); ``"wire_ok"`` [N] in the log.
         Only the quantized wire carries it; elsewhere lower corrupt events
-        to drops."""
+        to drops.
+
+        Gossip backend: ``params``, ``stats``, ``wire`` and ``val`` are the
+        rank's rows, ``active`` the whole [N] mask; the logs are [N] on
+        every rank (see :meth:`_sync_gossip`)."""
+        if self.mesh is not None:
+            self.check_faults(faults, wire)
+            return self._sync_gossip(params, val, active, stats, wire)
         n = self.cfg.n_nodes
         a = (torch.ones((n,), dtype=torch.bool, device=params.device)
              if active is None else active.to(torch.bool))
@@ -561,20 +656,8 @@ class SwarmEngine:
         with torch.no_grad():
             metric_local = torch.where(a, self._veval(params, val), 1.0)
             metric_merged = torch.where(a, self._veval(cand_eval, val), 0.0)
-        gates = gate_decisions(metric_merged, metric_local,
-                               self.cfg.val_threshold) & a
-        if self.quorum > 0:
-            # below quorum the whole round holds locals
-            quorum_ok = a.to(torch.int32).sum() >= self.quorum
-            gates = gates & quorum_ok
-            log["quorum_ok"] = quorum_ok
-        if self.fairness_floor > 0.0:
-            # the merged candidate must clear the floor at every active site
-            worst = torch.min(torch.where(a, metric_merged, 1.0))
-            fair_ok = worst >= self.fairness_floor
-            gates = gates & fair_ok
-            log["fairness_ok"] = fair_ok
-            log["worst_site"] = worst
+        gates = self._gates(a, metric_local, metric_merged, log, lambda:
+                            torch.min(torch.where(a, metric_merged, 1.0)))
         if x.shape[-1] == 0:
             committed = params
             if wire is not None:
@@ -596,6 +679,175 @@ class SwarmEngine:
             committed = self._slots(self._full(committed, full), params)
         return committed, dict(log, gates=gates, metric_local=metric_local,
                                metric_merged=metric_merged)
+
+    # -- the gossip backend -----------------------------------------------
+
+    def _mass_mean(self, f):
+        """The mean of every node's mass, from this rank's rows of it."""
+        from repro_torch.core import gossip
+        total = gossip.all_reduce(self.mesh, f.sum().reshape(1),
+                                  kind="control")
+        return total[0] / float(self.cfg.n_nodes * f.shape[-1])
+
+    def _propose_gossip(self, x, active, fishers, wire=None):
+        """Merge the rank's payload rows ``x`` [per, A] over the ranks, by
+        the schedule the cost model picked (``self.sync_schedule``):
+
+          fedavg_psum / fisher_psum       — all_reduce(s), f32
+          *_psum_q8                       — int8 all_to_all reduce-scatter
+                                            + int8 all_gather
+          ring_ppermute / ring_topo_...   — both ring neighbours
+          gathered_rows / gathered_topo_… — one all_gather + the rank's
+                                            rows of the contraction
+
+        The point-to-point and gathered schedules cast their payloads per
+        ``cfg.wire_dtype``; ``int8`` runs every schedule's error-feedback
+        form against the mesh wire ``wire`` (zero when not threaded).
+        ``fishers``: the rank's raw importance rows [per, n_values].
+        Returns ``(merged [per, A], new_wire)``; ``new_wire`` is None unless
+        the int8 wire is on."""
+        from repro_torch.core import gossip
+
+        cfg, mesh = self.cfg, self.mesh
+        sched = self.sync_schedule.name
+        q8 = self.wire_dtype == "int8"
+        cast = None if self.wire_dtype == "f32" or q8 else self.wire_dtype
+        dev = x.device
+        a = (torch.ones((cfg.n_nodes,), dtype=torch.bool, device=dev)
+             if active is None else active.to(device=dev, dtype=torch.bool))
+        mine = a[mesh.rows]
+        qkw = {}
+        if q8:
+            qkw = dict(layout=self._mesh_grid(x), wire_block=self.wire_block)
+            if wire is None:
+                wire = self._mesh_wire(x)
+        # mean averages uniformly; only fedavg folds dataset sizes in
+        sizes = (torch.as_tensor(self.data_sizes, dtype=torch.float32,
+                                 device=dev) if cfg.merge == "fedavg"
+                 else torch.ones(cfg.n_nodes, device=dev))
+        new_wire = None
+        if cfg.merge in ("fisher", "gradmatch"):
+            if fishers is None:
+                fishers = torch.zeros(x.shape, dtype=torch.float32,
+                                      device=dev)
+            elif fishers.shape[-1] != x.shape[-1]:
+                # the adapters' mass, carved before it is normalized
+                fishers = fishers.index_select(
+                    1, self._adapter_index(dev)[1])
+            fishers = self.strategy.finalize_mass(fishers, mine,
+                                                  mean=self._mass_mean)
+            w = active_weights_traced(self.data_sizes, a)
+            eps = self.strategy.eps
+            if sched in ("fisher_psum", "fisher_psum_q8"):
+                # the strategy folds any weights into the mass (gradmatch)
+                fishers = self.strategy.gossip_mass(fishers, w[mesh.rows])
+                if q8:
+                    merged, new_wire = gossip.fisher_psum_q8(
+                        x, fishers, wire, mesh, eps=eps, **qkw)
+                else:
+                    merged = gossip.fisher_gossip(x, fishers, mesh, eps=eps)
+            else:
+                # topology-restricted ratio over graph neighbours only
+                rows = self.strategy.topo_rows(self._traced_W(a), w)
+                ring = sched == "ring_topo_ppermute"
+                if q8:
+                    fn = (gossip.ring_topo_fisher_gossip_q8 if ring
+                          else gossip.topo_fisher_gossip_q8)
+                    merged, new_wire = fn(x, fishers, rows, wire, mesh,
+                                          eps=eps, **qkw)
+                else:
+                    fn = (gossip.ring_topo_fisher_gossip if ring
+                          else gossip.topo_fisher_gossip)
+                    merged = fn(x, fishers, rows, mesh, eps=eps,
+                                wire_dtype=cast)
+        elif sched in ("fedavg_psum", "fedavg_psum_q8"):
+            # membership stays on the psum: active-masked, renormalized
+            # weights, and absent nodes keep their own rows
+            w_eff = active_weights_traced(sizes, a)
+            if q8:
+                merged, new_wire = gossip.fedavg_psum_q8(x, w_eff, wire,
+                                                         mesh, **qkw)
+            else:
+                merged = gossip.fedavg_gossip(x, w_eff, mesh)
+            merged = torch.where(mine.reshape(-1, 1), merged, x)
+        else:
+            W = self._traced_W(a)
+            if sched == "ring_ppermute":
+                if q8:
+                    merged, new_wire = gossip.ring_rows_gossip_q8(
+                        x, W, wire, mesh, **qkw)
+                else:
+                    merged = gossip.ring_rows_gossip(x, W, mesh,
+                                                     wire_dtype=cast)
+            elif q8:
+                merged, new_wire = gossip.matrix_gossip_q8(x, W, wire, mesh,
+                                                           **qkw)
+            else:
+                merged = gossip.matrix_gossip(x, W, mesh, wire_dtype=cast)
+        return merged, new_wire
+
+    def _sync_gossip(self, params, val, active, stats, wire):
+        """The gossip backend's sync on this rank's rows: propose over the
+        ranks, score the rank's nodes, all-gather the [N] metrics, gate on
+        the replicated mask (quorum, and the fairness floor's min over the
+        active sites by an all_reduce), commit by where-select. The bytes
+        each collective moved land in ``self.sync_bytes``."""
+        from repro_torch.core import gossip
+
+        mesh = self.mesh
+        mesh.reset_counts()
+        n = self.cfg.n_nodes
+        a = (torch.ones((n,), dtype=torch.bool, device=params.device)
+             if active is None else active.to(device=params.device,
+                                              dtype=torch.bool))
+        mine = a[mesh.rows]
+        wire = self._auto_wire(params, wire)
+        x, full = self._payload(params)
+        log = {}
+        if x.shape[-1] == 0:
+            candidate, cand_eval, new_wire = x, params, wire
+        else:
+            candidate, new_wire = self._propose_gossip(x, a, stats, wire)
+            cand_eval = self._slots(self._full(candidate, full), params)
+        with torch.no_grad():
+            ml = torch.where(mine, self._veval(params, val), 1.0)
+            mm = torch.where(mine, self._veval(cand_eval, val), 0.0)
+        del cand_eval
+        metric_local = gossip.all_gather(mesh, ml, kind="control")
+        metric_merged = gossip.all_gather(mesh, mm, kind="control")
+        gates = self._gates(a, metric_local, metric_merged, log, lambda:
+                            gossip.all_reduce(mesh, torch.min(torch.where(
+                                mine, mm, 1.0)).reshape(1), op="min",
+                                kind="control")[0])
+        if x.shape[-1] == 0:
+            committed = params
+        else:
+            committed = self._slots(self._full(gated_commit(
+                candidate, x, gates[mesh.rows]), full), params)
+        if new_wire is not None:
+            log["wire"] = new_wire
+        self.sync_bytes = gossip.sync_bytes(mesh.counts)
+        return committed, dict(log, gates=gates, metric_local=metric_local,
+                               metric_merged=metric_merged)
+
+    def _gates(self, a, metric_local, metric_merged, log, worst):
+        """The accept bits [N] from the [N] metrics and mask: the gate,
+        then the quorum (below it the whole round holds locals) and the
+        fairness floor (the merged candidate must clear it at every active
+        site; ``worst()`` gives the least merged metric among them)."""
+        gates = gate_decisions(metric_merged, metric_local,
+                               self.cfg.val_threshold) & a
+        if self.quorum > 0:
+            quorum_ok = a.to(torch.int32).sum() >= self.quorum
+            gates = gates & quorum_ok
+            log["quorum_ok"] = quorum_ok
+        if self.fairness_floor > 0.0:
+            worst = worst()
+            fair_ok = worst >= self.fairness_floor
+            gates = gates & fair_ok
+            log["fairness_ok"] = fair_ok
+            log["worst_site"] = worst
+        return gates
 
     def _payload(self, params, quantized: bool = False):
         """``(x, full)``: what crosses the wire. The buffer as it is where

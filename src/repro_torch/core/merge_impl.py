@@ -107,17 +107,26 @@ class MergeStrategy:
         no-op."""
         return stats
 
-    def fishers(self, stats):
+    def fishers(self, stats, mean=None):
         return stats
 
-    def finalize_mass(self, fishers, active=None):
+    def gossip_mass(self, fishers, weights):
+        """Per-node importance mass for the collective (psum) realization —
+        the one place any weight-folding identity lives for the gossip
+        backend (``weights``: the rows' dataset weights)."""
+        return fishers
+
+    def finalize_mass(self, fishers, active=None, mean=None):
         """Mask-then-normalize, in that order: a departed node's stale mass
-        must be zeroed before it can drag the normalization mean."""
+        must be zeroed before it can drag the normalization mean.
+        ``mean``: how the mean over every node's mass is taken (default
+        ``Tensor.mean``; the gossip backend's rank holds only its rows and
+        passes a collective mean)."""
         if fishers is None:
             return None
         if active is not None:
             fishers = mask_fishers(fishers, active)
-        return self.fishers(fishers)
+        return self.fishers(fishers, mean)
 
     def topo_rows(self, W, weights=None):
         return None
@@ -169,10 +178,11 @@ class FisherStrategy(MergeStrategy):
         g = grads.to(torch.float32)
         return self.decay * stats + g * g
 
-    def fishers(self, stats):
+    def fishers(self, stats, mean=None):
         """Normalize accumulated mass to a global mean of 1 — one mean over
-        all N·P elements of the flat buffer."""
-        mean = stats.mean()
+        all N·P elements of the flat buffer (``mean``: a callable taking
+        it, when the buffer holds only some of the nodes)."""
+        mean = stats.mean() if mean is None else mean(stats)
         scale = torch.where(mean > 0, 1.0 / torch.clamp(mean, min=1e-30), 1.0)
         return stats * scale
 
@@ -225,6 +235,13 @@ class GradMatchStrategy(FisherStrategy):
 
     def _merge(self, stacked, fishers, weights):
         return gradmatch_merge(stacked, fishers, weights, eps=self.eps)
+
+    def gossip_mass(self, fishers, weights):
+        """Fold w_j into the mass so the fisher psum realizes the weighted
+        ratio Σ w_j F_j θ_j / Σ w_j F_j."""
+        w = torch.as_tensor(weights, dtype=torch.float32,
+                            device=fishers.device)
+        return fishers * w.reshape(-1, 1)
 
 
 def get_strategy(cfg) -> MergeStrategy:

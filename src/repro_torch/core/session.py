@@ -40,7 +40,16 @@ the commit through the fused merge kernel. f32 wire only, full payloads,
 one callable for every node, as the reference's host loop; its checkpoints
 are the reference's host-session files.
 
-Not in this slice: the gossip backend.
+``backend="gossip"`` (``mesh``, ``axis`` from `repro_torch.launch.mesh.
+make_swarm_mesh`) runs the same round with the merge as collectives over a
+process group, one process a rank (`repro_torch.core.gossip`). Every rank
+builds the session with the same global arguments (params, opt_state,
+data_sizes, seed) and keeps the rows of its nodes ``mesh.rows`` of the
+params, moments, statistics and mesh wire; ``round`` / ``run_rounds`` /
+``run_local`` take the global ``[T, N, ...]`` batches and ``[N, ...]``
+validation rows and use the rank's; the logs are ``[N]`` on every rank;
+:attr:`node_params` gathers the whole swarm. Checkpoints of a gossip
+session are not ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -58,7 +67,8 @@ from repro_torch.configs.base import SwarmConfig
 from repro_torch.convert import from_reference, to_reference_tree
 from repro_torch.core import comms
 from repro_torch.core.engine import (SwarmEngine, _index, _index_node,
-                                     _leading, _stack_logs, _stack_nodes)
+                                     _leading, _not_ported, _stack_logs,
+                                     _stack_nodes)
 from repro_torch.core.flat import FlatLayout
 from repro_torch.core.prng import fold_in_key, prng_key
 from repro_torch.core.swarm import NodeState, SwarmLearner
@@ -102,6 +112,22 @@ def _stack_per_node(value, n: int, device):
     return t.unsqueeze(0).expand((n,) + tuple(t.shape)).contiguous()
 
 
+def _node_rows(value, rows: slice, dim: int):
+    """The ``rows`` of the node axis ``dim`` of every tensor in a
+    dict/tuple/list tree (numpy arrays too); a copy when they are not the
+    whole axis, so the rest can be freed."""
+    if value is None:
+        return None
+    if isinstance(value, dict):
+        return {k: _node_rows(v, rows, dim) for k, v in value.items()}
+    if isinstance(value, (tuple, list)):
+        return type(value)(_node_rows(v, rows, dim) for v in value)
+    t = torch.as_tensor(value)
+    idx = (slice(None),) * dim + (rows,)
+    part = t[idx]
+    return part if part.shape == t.shape else part.clone()
+
+
 def _to_device(value, device):
     if value is None:
         return None
@@ -133,8 +159,12 @@ class SwarmSession:
         per-node values (a zoo's payload rows, flattened through
         :meth:`FlatLayout.of_payload`).
     data_sizes : per-node dataset sizes (fedavg / weighted-merge weights).
-    backend : ``"engine"`` (default) or ``"host"`` (`core.swarm`);
-        ``"gossip"`` is not ported.
+    backend : ``"engine"`` (default), ``"host"`` (`core.swarm`) or
+        ``"gossip"`` (collectives over ``mesh``, one rank a process).
+    mesh / axis : the gossip backend's `repro_torch.launch.mesh.SwarmMesh`
+        and its swarm axis (``make_swarm_mesh`` returns both).
+    param_specs : inner (within-node) sharding of the params; a spec that
+        names an axis raises: a gossip rank holds whole nodes.
     layout : the :class:`FlatLayout` of the params: the leaf boundaries of
         the wire's block grid, the reference tree of :attr:`node_params` and
         of checkpoints. Without one the params are a single leaf.
@@ -147,7 +177,8 @@ class SwarmSession:
                  data_sizes: Optional[Sequence[float]] = None,
                  backend: str = "engine",
                  layout: Optional[FlatLayout] = None, device="cuda",
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, mesh=None,
+                 axis: Optional[str] = None, param_specs=None):
         zoo = (isinstance(train_step_fn, (list, tuple))
                or isinstance(eval_fn, (list, tuple)))
         if backend not in ("engine", "gossip", "host"):
@@ -180,6 +211,7 @@ class SwarmSession:
         if params is None:
             raise ValueError("SwarmSession needs initial params")
         self.layout = layout
+        self._rows = None      # gossip: this rank's nodes
         stacked_params = _stack_per_node(params, n, self.device)
         stacked_opt = _stack_per_node(opt_state, n, self.device)
         self._param_dtype = stacked_params.dtype
@@ -202,11 +234,15 @@ class SwarmSession:
             self._round_ct = 0
             self.sync_schedule = comms.pick_schedule(cfg, simulated=True)
             return
-        # the gossip backend raises here: not ported (a zoo closure list is
-        # rejected on it first, as the reference's engine rejects it)
         self.engine = SwarmEngine(
             cfg, train_step_fn, eval_fn, data_sizes=data_sizes,
-            layout=layout, backend="gossip" if backend == "gossip" else "host")
+            layout=layout, backend="gossip" if backend == "gossip" else "host",
+            mesh=mesh, axis=axis, param_specs=param_specs)
+        self._rows = self.engine.mesh.rows if backend == "gossip" else None
+        if self._rows is not None:
+            # a rank keeps its nodes' rows
+            stacked_params = _node_rows(stacked_params, self._rows, 0)
+            stacked_opt = _node_rows(stacked_opt, self._rows, 0)
         self._state = SwarmState(
             params=stacked_params, opt_state=stacked_opt,
             stats=self.engine.init_stats(stacked_params),
@@ -230,6 +266,14 @@ class SwarmSession:
     @property
     def predicted_link_bytes(self) -> dict:
         return self.sync_schedule.bytes_by_link_class(self.payload_params)
+
+    @property
+    def counted_sync_bytes(self) -> Optional[dict]:
+        """Gossip backend: the bytes this rank handed to the collectives in
+        its last sync (`core.gossip.sync_bytes`: ``by_collective``,
+        ``by_link_class``, ``control``); None before one, or on another
+        backend."""
+        return None if self.backend != "gossip" else self.engine.sync_bytes
 
     # -- state ---------------------------------------------------------------
 
@@ -281,9 +325,16 @@ class SwarmSession:
         leaves): ``stem``/``blocks``/``head`` with HWIO convs for the CNN,
         the flat path-keyed payload dict in ``payload="lora"`` mode; flat
         ``[P]`` rows when the session has no layout."""
-        rows = ([nd.params for nd in self._learner.nodes]
-                if self.backend == "host"
-                else list(self._state.params.unbind(0)))
+        if self.backend == "host":
+            rows = [nd.params for nd in self._learner.nodes]
+        elif self._rows is not None:
+            # every rank gathers the whole swarm
+            from repro_torch.core import gossip
+            rows = list(gossip.all_gather(self.engine.mesh,
+                                          self._state.params,
+                                          kind="control").unbind(0))
+        else:
+            rows = list(self._state.params.unbind(0))
         if self.layout is None:
             return rows
         return [to_reference_tree(self.layout, row) for row in rows]
@@ -334,6 +385,13 @@ class SwarmSession:
         wire = self._state.wire
         if wire is None:
             return
+        if self._rows is not None:
+            # the neighbour replicas must track their senders bit for bit:
+            # the whole mesh wire resets, on every rank
+            from repro_torch.core import gossip
+            self._state = dataclasses.replace(
+                self._state, wire=gossip.reset_mesh_wire(wire))
+            return
         wire = wire.clone()
         if node is None:
             wire.zero_()
@@ -372,8 +430,7 @@ class SwarmSession:
                     "backend; lower corrupt events to drops on the host loop")
             return self._host_round(batches, val)
         self.engine.check_faults(faults, self._state.wire)
-        batches, val = _to_device(batches, self.device), _to_device(
-            val, self.device)
+        batches, val = self._mine(batches, 1), self._mine(val, 0)
         train = self._local_steps(batches)
         committed, log = self._sync(val, faults)
         self._commit(committed)
@@ -429,8 +486,7 @@ class SwarmSession:
         if self.backend == "host":
             logs = [self._host_round(rb, val) for rb in batches]
             return {k: [lg[k] for lg in logs] for k in logs[0]}
-        batches, val = _to_device(batches, self.device), _to_device(
-            val, self.device)
+        batches, val = self._mine(batches, 2), self._mine(val, 0)
         split = ((lambda p: (p,)) if self.layout is None
                  else self.layout.parts)
 
@@ -468,7 +524,14 @@ class SwarmSession:
             for step_batches in batches:
                 self._learner.local_steps(step_batches)
             return None
-        return self._local_steps(_to_device(batches, self.device))
+        return self._local_steps(self._mine(batches, 1))
+
+    def _mine(self, tree, dim: int):
+        """Batches or validation rows on the session's device: on the
+        gossip backend the rank's nodes of the node axis ``dim``."""
+        if self._rows is not None:
+            tree = _node_rows(tree, self._rows, dim)
+        return _to_device(tree, self.device)
 
     def _host_round(self, batches, val):
         lr = self._learner
@@ -545,6 +608,7 @@ class SwarmSession:
         """Checkpoint the FULL session state (params, opt state, strategy
         stats, wire reference, active mask, rng, counters) in the
         reference's msgpack layout."""
+        self._refuse_gossip_checkpoint()
         st = self.state
         meta = {"cfg": dataclasses.asdict(self.cfg), "backend": self.backend,
                 "round": int(st.round), "step": int(st.step), "format": 1}
@@ -552,6 +616,7 @@ class SwarmSession:
 
     def load(self, path: str) -> "SwarmSession":
         """Restore a checkpoint into this session (same cfg and shapes)."""
+        self._refuse_gossip_checkpoint()
         saved_cfg = load_metadata(path).get("cfg", {})
         for key in ("n_nodes", "merge", "topology", "lora_only",
                     "payload", "wire_dtype"):
@@ -570,6 +635,12 @@ class SwarmSession:
             rng=np.array(tree["rng"], np.uint32),
             round=int(tree["round"]), step=int(tree["step"])))
         return self
+
+    def _refuse_gossip_checkpoint(self) -> None:
+        if self.backend == "gossip":
+            raise _not_ported("checkpoints of a gossip session (the rank's "
+                              "rows and its sharded mesh wire)",
+                              "queue 1 item 13")
 
     @classmethod
     def restore(cls, path: str, cfg: SwarmConfig, train_step_fn, eval_fn,

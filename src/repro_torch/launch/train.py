@@ -5,7 +5,8 @@ Standard synchronous training (the centralized baseline) and the swarm
 variant, the paper's technique: ``torch.func.vmap`` of the local step over
 a leading node axis (gradients never cross node slices), with the gated
 sync of a :class:`~repro_torch.core.session.SwarmSession` on the engine
-backend between rounds.
+backend between rounds; :func:`make_swarm_sync_step` gives the gossip
+backend's propose and commit over a process group.
 
 A node's params are its flat ``[P]`` vector (`repro_torch.models`); a step
 differentiates the layout's parts (`repro_torch.core.flat.FlatLayout.
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import SwarmConfig, TrainConfig
-from repro_torch.core.engine import _not_ported
+from repro_torch.core.engine import SwarmEngine, gate_decisions, gated_commit
 from repro_torch.models import Model
 from repro_torch.optim import adamw_init, adamw_update_, make_schedule
 
@@ -113,13 +114,33 @@ def make_swarm_train_step(model: Model, tc: TrainConfig) -> Callable:
 
 
 def make_swarm_sync_step(swarm_cfg: SwarmConfig, mesh, axis: str,
-                         data_sizes, param_specs=None) -> Callable:
-    """The gossip sync (collective propose + gated commit on a mesh): the
-    gossip backend is not ported; the engine backend's sync runs inside
-    :class:`~repro_torch.core.session.SwarmSession`."""
-    raise _not_ported("make_swarm_sync_step (the gossip backend's "
-                      "collective propose and commit)",
-                      "queue 1 item 13, distributed gossip backend")
+                         data_sizes, param_specs=None, layout=None):
+    """Gossip sync: ``(propose, commit)`` over the engine's gossip backend
+    on ``mesh`` (`repro_torch.launch.mesh.make_swarm_mesh`), each on this
+    rank's rows.
+
+    ``propose(stacked_params [per, P], active=None, fishers=None,
+    stats=None) -> candidate [per, P]``: the collective merge of the
+    schedule the cost model picks (ring neighbours for a ring of one node a
+    rank, all_reduce for full fedavg, all_gather with the runtime mask for
+    dynamic). ``commit(candidate, local_params, metric_merged,
+    metric_local) -> params``: the validation-gated select on the rank's
+    [per] metrics."""
+    engine = SwarmEngine(swarm_cfg, None, None, data_sizes=data_sizes,
+                         layout=layout, backend="gossip", mesh=mesh,
+                         axis=axis, param_specs=param_specs)
+
+    def propose(stacked_params, active=None, fishers=None, stats=None):
+        candidate, _, _ = engine.propose(stacked_params, active=active,
+                                         fishers=fishers, stats=stats)
+        return candidate
+
+    def commit(candidate, local_params, metric_merged, metric_local):
+        gates = gate_decisions(metric_merged, metric_local,
+                               swarm_cfg.val_threshold)
+        return gated_commit(candidate, local_params, gates)
+
+    return propose, commit
 
 
 # ---------------------------------------------------------------------------

@@ -144,10 +144,10 @@ def test_wire_rounds_match_reference(wire, merge, topology):
 def test_unported_backends_and_device_policy():
     cfg = SwarmConfig(n_nodes=2)
     flat = torch.zeros(3)
-    for backend in ("gossip",):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SwarmSession(cfg, None, None, params=flat, backend=backend,
-                         device="cpu")
+    # the gossip backend needs its mesh and axis, as the reference's does
+    with pytest.raises(ValueError, match="gossip backend needs mesh and axis"):
+        SwarmSession(cfg, None, None, params=flat, backend="gossip",
+                     device="cpu")
     # closure lists (model zoo): one per node, engine backend only
     with pytest.raises(ValueError, match="one closure per node"):
         SwarmSession(cfg, [None], None, params=flat, device="cpu")

@@ -244,12 +244,16 @@ def test_train_step_accum_steps_matches_reference():
     _assert_f32_steps(_run_steps("mamba2-370m", steps=2, accum=2))
 
 
-def test_remat_raises_and_sync_step_is_gossip_only():
+@pytest.mark.spmd
+def test_remat_raises_and_sync_step_is_gossip_only(tmp_path):
     """``TrainConfig()`` (remat on, the reference's default) trains: one
     step's loss equals the ``remat=False`` step's bit for bit, its first
     moment (0.1 times the clipped gradient) agrees within 1e-5 of each
     leaf's largest magnitude, and ``loss_fn``'s default (remat) forward
-    equals the plain one. The gossip backend's sync step still raises."""
+    equals the plain one. The gossip backend's sync step builds on a
+    one-rank gloo group (``make_swarm_mesh``) and its propose and commit
+    give the full ring's mean and the gated select, as the reference's
+    ``make_swarm_sync_step`` does."""
     _, tcfg = _cfgs("mamba2-370m")
     model = build_model(tcfg)
     params, opt = ttrain.init_train_state(
@@ -270,8 +274,24 @@ def test_remat_raises_and_sync_step_is_gossip_only():
     tree = model.layout.unflatten_parts(model.layout.parts(params))
     assert torch.equal(model.loss_fn(tree, batch)[0],
                        model.loss_fn(tree, batch, remat=False)[0])
-    with pytest.raises(NotImplementedError, match="gossip"):
-        ttrain.make_swarm_sync_step(SwarmConfig(), None, "node", [1] * 4)
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_swarm_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        mesh, axis = make_swarm_mesh(4)
+        propose, commit = ttrain.make_swarm_sync_step(
+            SwarmConfig(topology="full", merge="mean", lora_only=False), mesh,
+            axis, [1] * 4)
+        stacked = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+        cand = propose(stacked)
+        assert torch.allclose(cand, stacked.mean(0).expand(4, 3))
+        out = commit(cand, stacked, torch.tensor([1.0, 0.0, 1.0, 0.0]),
+                     torch.ones(4))
+        assert torch.equal(out[1::2], stacked[1::2])
+        assert torch.equal(out[0::2], cand[0::2])
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))

@@ -1,0 +1,489 @@
+"""The gossip backend's worlds for ``tests/test_torch_gossip.py`` and
+``tests/test_torch_gossip_session.py``.
+
+Run as a script, one process a rank (a gloo world on the CPU) or one for
+the reference (JAX with forced host devices):
+
+    python tests/torch_gossip_world.py schedules RANK WORLD INIT OUT
+    python tests/torch_gossip_world.py sessions RANK WORLD INIT OUT
+    python tests/torch_gossip_world.py reference 0 WORLD - OUT
+
+Each reads ``OUT/inputs.npz`` (seeded numpy, written by the test) and
+writes ``OUT/<task>_rank<r>.npz``. The port's side imports no jax; the
+reference's side imports no torch. Every process is torch.set_num_threads(1)
+small.
+"""
+import os
+import sys
+
+import numpy as np
+
+N = 4
+WB = 128
+# the schedules' payload: a conv leaf (stored OIHW, HWIO in the reference)
+# and a plain one, neither a multiple of the wire block
+LEAVES = (("a", (4, 3, 3, 3)), ("b", (200,)))
+REF_SHAPES = {"a": (3, 3, 3, 4), "b": (200,)}
+WIRES = ("f32", "bf16")
+#: the mesh-wire schedule of each q8 function
+Q8_SCHEDULE = {"ring_rows_gossip_q8": "ring_ppermute",
+               "ring_topo_fisher_gossip_q8": "ring_topo_ppermute",
+               "matrix_gossip_q8": "gathered_rows",
+               "topo_fisher_gossip_q8": "gathered_topo_stack",
+               "fedavg_psum_q8": "fedavg_psum_q8",
+               "fisher_psum_q8": "fisher_psum_q8"}
+#: syncs of a q8 schedule on constant inputs; merged and wire are kept
+#: after the first and the last
+Q8_SYNCS = 3
+TELESCOPE_SYNCS = 5
+
+
+def ring_matrix(n, s=0.5):
+    W = np.zeros((n, n))
+    for i in range(n):
+        W[i, i] = s
+        W[i, (i - 1) % n] += (1 - s) / 2
+        W[i, (i + 1) % n] += (1 - s) / 2
+    return W
+
+
+def dynamic_full(sizes, active):
+    """The full FedAvg matrix masked by ``active`` (absent rows identity)."""
+    w = np.asarray(sizes, np.float64) * np.asarray(active, np.float64)
+    n = len(sizes)
+    W = np.tile(w / w.sum(), (n, 1))
+    for i, a in enumerate(active):
+        if not a:
+            W[i] = 0.0
+            W[i, i] = 1.0
+    return W
+
+
+def schedule_inputs(n, seed=0):
+    """Seeded numpy inputs of the schedule tests, reference layout."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, shape in REF_SHAPES.items():
+        out[f"x/{k}"] = rng.normal(0, 1, (n,) + shape).astype(np.float32)
+        out[f"f/{k}"] = np.abs(rng.normal(1, 0.3, (n,) + shape)).astype(
+            np.float32)
+    out["w"] = (np.arange(1, n + 1) / np.arange(1, n + 1).sum()).astype(
+        np.float32)
+    out["Wring"] = ring_matrix(n).astype(np.float32)
+    act = [i != 2 for i in range(n)]
+    out["Wdyn"] = dynamic_full([1] + [3] * (n - 1), act).astype(np.float32)
+    return out
+
+
+def _tree(inp, name):
+    return {k: inp[f"{name}/{k}"] for k in REF_SHAPES}
+
+
+def _flat_keys(prefix, tree, out):
+    """Nested dict of arrays → ``prefix/k1/k2`` keys in ``out``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flat_keys(f"{prefix}/{k}", v, out)
+    else:
+        out[prefix] = tree
+
+
+# ---------------------------------------------------------------------------
+# the port's side (torch, no jax)
+# ---------------------------------------------------------------------------
+
+def layout():
+    from repro_torch.core.flat import FlatLayout
+    return FlatLayout(list(LEAVES), convs=["a"])
+
+
+def port_schedules(mesh, inp):
+    """Every schedule of `repro_torch.core.gossip` on this rank's rows:
+    {key: numpy} with the merged rows ``<case>/merged`` [per, A] (stored
+    order), q8 wires after the first and the last sync, and the bytes the
+    first sync handed to each collective (``<case>/bytes/<kind>``)."""
+    import torch
+    from repro_torch.convert import from_reference
+    from repro_torch.core import gossip as g
+
+    lay = layout()
+    x = from_reference(lay, _tree(inp, "x"), lead=1)[mesh.rows].contiguous()
+    f = from_reference(lay, _tree(inp, "f"), lead=1)[mesh.rows].contiguous()
+    w, Wr, Wd = (torch.from_numpy(inp[k]) for k in ("w", "Wring", "Wdyn"))
+    ring = mesh.per == 1 and mesh.world_size >= 3
+    cases = {"fedavg_gossip": lambda: g.fedavg_gossip(x, w, mesh),
+             "fisher_gossip": lambda: g.fisher_gossip(x, f, mesh)}
+    if ring:
+        cases["ring_gossip"] = lambda: g.ring_gossip(x, mesh, 0.6)
+    for wd in WIRES:
+        cases[f"topo_fisher_gossip_{wd}"] = (
+            lambda wd=wd: g.topo_fisher_gossip(x, f, Wr, mesh,
+                                               wire_dtype=wd))
+        cases[f"matrix_gossip_{wd}"] = (
+            lambda wd=wd: g.matrix_gossip(x, Wd, mesh, wire_dtype=wd))
+        if ring:
+            cases[f"ring_rows_gossip_{wd}"] = (
+                lambda wd=wd: g.ring_rows_gossip(x, Wr, mesh, wire_dtype=wd))
+            cases[f"ring_topo_fisher_gossip_{wd}"] = (
+                lambda wd=wd: g.ring_topo_fisher_gossip(x, f, Wr, mesh,
+                                                        wire_dtype=wd))
+    out = {}
+    for name, fn in cases.items():
+        mesh.reset_counts()
+        out[f"{name}/merged"] = fn().numpy()
+        _flat_keys(f"{name}/bytes", dict(mesh.counts), out)
+    kw = dict(layout=lay, wire_block=WB)
+    q8 = {"matrix_gossip_q8": lambda wr: g.matrix_gossip_q8(
+              x, Wd, wr, mesh, **kw),
+          "topo_fisher_gossip_q8": lambda wr: g.topo_fisher_gossip_q8(
+              x, f, Wr, wr, mesh, **kw),
+          "fedavg_psum_q8": lambda wr: g.fedavg_psum_q8(x, w, wr, mesh, **kw),
+          "fisher_psum_q8": lambda wr: g.fisher_psum_q8(x, f, wr, mesh,
+                                                        **kw)}
+    if ring:
+        q8["ring_rows_gossip_q8"] = lambda wr: g.ring_rows_gossip_q8(
+            x, Wr, wr, mesh, **kw)
+        q8["ring_topo_fisher_gossip_q8"] = (
+            lambda wr: g.ring_topo_fisher_gossip_q8(x, f, Wr, wr, mesh,
+                                                    **kw))
+    for name, fn in q8.items():
+        wire = g.init_mesh_wire(Q8_SCHEDULE[name], x,
+                                n_shards=mesh.world_size, wire_block=WB,
+                                layout=lay)
+        for k in range(Q8_SYNCS):
+            mesh.reset_counts()
+            merged, wire = fn(wire)
+            if k in (0, Q8_SYNCS - 1):
+                tag = "" if k == 0 else str(k + 1)
+                out[f"{name}/merged{tag}"] = merged.numpy()
+                _flat_keys(f"{name}/wire{k + 1}",
+                           _numpy(wire), out)
+            if k == 0:
+                _flat_keys(f"{name}/bytes", dict(mesh.counts), out)
+    if ring:
+        # EF telescoping on constant inputs: the residual |ref − x| per sync
+        wire = g.init_mesh_wire("ring_ppermute", x, n_shards=mesh.world_size,
+                                wire_block=WB, layout=lay)
+        res = []
+        for _ in range(TELESCOPE_SYNCS):
+            _, wire = g.ring_rows_gossip_q8(x, Wr, wire, mesh, **kw)
+            res.append(float((wire["ref"] - x).abs().max()))
+        out["telescope/residual"] = np.asarray(res)
+        _flat_keys("telescope/wire", _numpy(wire), out)
+    return out
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree.numpy()
+
+
+def _init_world(rank, world, init):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+
+
+# --- the session scenarios --------------------------------------------------
+
+SESSION_LEAVES = (("c", (3, 2, 2, 2)), ("v", (40,)))
+LORA_LEAVES = (("attn.w", (8, 6)), ("attn.lora_A", (8, 2)),
+               ("attn.lora_B", (2, 6)))
+SETTLED = (("full", "fedavg"), ("ring", "fisher"), ("dynamic", "mean"))
+REAL = (("full", "fedavg"), ("ring", "fisher"), ("full", "gradmatch"),
+        ("dynamic", "mean"))
+SIZES = [1.0, 2.0, 3.0, 4.0]
+
+
+def session_inputs(n, seed=1):
+    rng = np.random.default_rng(seed)
+    p = sum(int(np.prod(s)) for _, s in SESSION_LEAVES)
+    w0 = rng.normal(0, 1, (n, p)).astype(np.float32)
+    pl = sum(int(np.prod(s)) for _, s in LORA_LEAVES)
+    return {"w0": w0,
+            # bf16-representable params (the bf16 wire's casts are exact)
+            "w0_bf16": (w0.view(np.uint32)
+                        & np.uint32(0xFFFF0000)).view(np.float32),
+            "targets": rng.normal(0, 1, (3, 2, n, p)).astype(np.float32),
+            "lora0": rng.normal(0, 0.1, (n, pl)).astype(np.float32)}
+
+
+def id_step(p, o, b, s):
+    return p, o, {"loss": (p * 0).sum()}
+
+
+def pull_step(p, o, b, s):
+    """A deterministic step toward the node's target ``b`` [P]."""
+    return p + 0.1 * (b - p), o, {"loss": ((b - p) ** 2).mean()}
+
+
+def lora_step(p, o, b, s):
+    return p + 0.01, o, {"loss": b.sum() * 0}
+
+
+def const_eval(params, val):
+    return 1.0 - 0.0 * params.sum(-1)
+
+
+def session_layout(leaves=SESSION_LEAVES):
+    from repro_torch.core.flat import FlatLayout
+    convs = [path for path, s in leaves if len(s) == 4]
+    return FlatLayout(list(leaves), convs=convs)
+
+
+def session_cfg(topo, merge, wire="f32", thr=0.0, **kw):
+    from repro_torch.configs.base import SwarmConfig
+    return SwarmConfig(n_nodes=N, sync_every=1, topology=topo, merge=merge,
+                       lora_only=False, val_threshold=thr, wire_dtype=wire,
+                       wire_block=WB, **kw)
+
+
+def make_session(cfg, step, params, layout, mesh=None, sizes=None):
+    """A SwarmSession on the CPU: the gossip backend with ``mesh``, else
+    the engine backend."""
+    import torch
+    from repro_torch.core.session import SwarmSession
+    kw = {} if mesh is None else dict(backend="gossip", mesh=mesh,
+                                      axis=mesh.axis)
+    return SwarmSession(cfg, step, const_eval,
+                        params=[torch.from_numpy(r) for r in params],
+                        data_sizes=sizes or [1.0] * N, layout=layout,
+                        device="cpu", **kw)
+
+
+def settled_commit(topo, merge, wire, params, mesh=None):
+    """The reference's settled regime: six syncs whose gates reject (the
+    wire settles on unchanged params), then one accepted commit from the
+    same state. Returns (params rows, gates)."""
+    import torch
+    lay = session_layout()
+    val = torch.zeros((N, 1))
+    batches = torch.zeros((1, N, 1))
+    sa = make_session(session_cfg(topo, merge, wire, thr=1.5), id_step,
+                      params, lay, mesh)
+    for _ in range(6):
+        assert not sa.round(batches, val)["gates"].any()
+    sb = make_session(session_cfg(topo, merge, wire, thr=0.0), id_step,
+                      params, lay, mesh)
+    sb.load_state(sa.state)
+    log = sb.round(batches, val)
+    return sb.state.params.clone(), log
+
+
+def real_rounds(topo, merge, inp, mesh=None, membership=False,
+                overlap=False, policy=False):
+    """Rounds of the pull step on the f32 wire, fedavg sizes [1, 2, 3, 4]:
+    two rounds; with ``membership`` three, node 2 leaving for the second;
+    with ``overlap`` three under ``run_rounds`` with ``overlap_sync``;
+    ``policy`` adds a quorum of 4 and a fairness floor of 0.5. Returns
+    (params rows, stacked gates [R, N])."""
+    import torch
+    extra = dict(quorum=4, fairness_floor=0.5) if policy else {}
+    cfg = session_cfg(topo, merge, "f32", thr=0.0, overlap_sync=overlap,
+                      **extra)
+    s = make_session(cfg, pull_step, inp["w0"], session_layout(), mesh,
+                     sizes=SIZES)
+    val = torch.zeros((N, 1))
+    tg = torch.from_numpy(inp["targets"])
+    if overlap:
+        logs = s.run_rounds(tg, val)
+        return s.state.params.clone(), logs["gates"]
+    gates = []
+    for r in range(3 if membership else 2):
+        if membership and r == 1:
+            s.leave(2)
+        if membership and r == 2:
+            s.join(2)
+        gates.append(s.round(tg[r], val)["gates"])
+    return s.state.params.clone(), torch.stack(gates)
+
+
+def port_sessions(mesh, inp):
+    """Every session scenario on this rank: {key: numpy}."""
+    import torch
+    from repro_torch.launch.train import make_swarm_sync_step
+
+    out = {}
+    for topo, merge in SETTLED:
+        for wire in ("f32", "bf16", "int8"):
+            w0 = inp["w0_bf16"] if wire == "bf16" else inp["w0"]
+            p, log = settled_commit(topo, merge, wire, w0, mesh)
+            out[f"settled/{topo}/{merge}/{wire}"] = p.numpy()
+            out[f"settled/{topo}/{merge}/{wire}/gates"] = log["gates"].numpy()
+    for topo, merge in REAL:
+        p, gates = real_rounds(topo, merge, inp, mesh)
+        out[f"real/{topo}/{merge}"] = p.numpy()
+        out[f"real/{topo}/{merge}/gates"] = gates.numpy()
+        p, gates = real_rounds(topo, merge, inp, mesh, membership=True)
+        out[f"member/{topo}/{merge}"] = p.numpy()
+        out[f"member/{topo}/{merge}/gates"] = gates.numpy()
+    p, gates = real_rounds("dynamic", "mean", inp, mesh, membership=True,
+                           policy=True)
+    out["policy"] = p.numpy()
+    out["policy/gates"] = gates.numpy()
+    p, gates = real_rounds("ring", "fisher", inp, mesh, overlap=True)
+    out["overlap/f32"] = p.numpy()
+    out["overlap/f32/gates"] = gates.numpy()
+    # the mesh wire under overlap_sync (the reference's overlap check)
+    ocfg = session_cfg("ring", "fisher", "int8", overlap_sync=True)
+    s = make_session(ocfg, id_step, inp["w0"], session_layout(), mesh)
+    logs = s.run_rounds(torch.zeros((4, 1, N, 1)), torch.zeros((N, 1)))
+    out["overlap/int8"] = s.state.params.numpy()
+    out["overlap/int8/gates"] = logs["gates"].numpy()
+    # adapter-only sync: the base passes through, the adapters merge
+    from repro_torch.core.flat import FlatLayout
+    llay = FlatLayout(list(LORA_LEAVES))
+    for wire in ("f32", "int8"):
+        from repro_torch.configs.base import SwarmConfig
+        lcfg = SwarmConfig(n_nodes=N, sync_every=1, topology="full",
+                           merge="fedavg", lora_only=True, val_threshold=0.0,
+                           wire_dtype=wire, wire_block=WB)
+        s = make_session(lcfg, lora_step, inp["lora0"], llay, mesh)
+        if wire == "int8":
+            out["lora/int8/wire_width"] = np.asarray(
+                s.state.wire["ref"].shape[-1])
+        s.round(torch.zeros((1, N, 4)), torch.zeros((N, 1)))
+        out[f"lora/{wire}"] = s.state.params.numpy()
+    # bitwise determinism of two int8 runs
+    for k in range(2):
+        cfg = session_cfg("ring", "fisher", "int8")
+        s = make_session(cfg, id_step, inp["w0"], session_layout(), mesh)
+        for _ in range(3):
+            s.round(torch.zeros((1, N, 1)), torch.zeros((N, 1)))
+        out[f"determinism/{k}/params"] = s.state.params.numpy()
+        out[f"determinism/{k}/wire"] = s.state.wire["ref"]["num"].numpy()
+        if k == 0:
+            out["bytes/ring_topo_int8/counted"] = np.asarray(
+                s.counted_sync_bytes["by_collective"]["ring"])
+            out["bytes/ring_topo_int8/control"] = np.asarray(
+                s.counted_sync_bytes["control"])
+            trees = s.node_params
+            for path, _ in SESSION_LEAVES:
+                out[f"node_params/{path}"] = np.stack(
+                    [np.asarray(t[path]) for t in trees])
+    # make_swarm_sync_step: propose over the ring, commit by the gates
+    cfg = session_cfg("ring", "fedavg", thr=0.8)
+    propose, commit = make_swarm_sync_step(cfg, mesh, mesh.axis, SIZES,
+                                           layout=session_layout())
+    rows = torch.from_numpy(inp["w0"])[mesh.rows]
+    cand = propose(rows, active=torch.ones(N, dtype=torch.bool))
+    out["sync_step/candidate"] = cand.numpy()
+    ones = torch.ones(mesh.per)
+    keep = mesh.rank % 2 == 1
+    out["sync_step/committed"] = commit(
+        cand, rows, ones * (0.5 if keep else 1.0), ones).numpy()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the reference's side (jax, no torch)
+# ---------------------------------------------------------------------------
+
+def reference_schedules(mesh, inp):
+    """The reference's functions on the same inputs (reference trees)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import gossip as g
+
+    n = mesh.shape["node"]
+    x = {k: jnp.asarray(v) for k, v in _tree(inp, "x").items()}
+    f = {k: jnp.asarray(v) for k, v in _tree(inp, "f").items()}
+    w, Wr, Wd = (jnp.asarray(inp[k]) for k in ("w", "Wring", "Wdyn"))
+    ring = n >= 3 and n == inp["w"].shape[0]
+
+    def psum_form(fn):
+        # the psum forms need the mesh in context on a multi-device mesh
+        def run():
+            with jax.set_mesh(mesh):
+                return jax.jit(fn)()
+        return run
+
+    cases = {"fedavg_gossip": psum_form(
+                 lambda: g.fedavg_gossip(x, w, mesh, "node")),
+             "fisher_gossip": psum_form(
+                 lambda: g.fisher_gossip(x, f, mesh, "node"))}
+    if ring:
+        cases["ring_gossip"] = lambda: g.ring_gossip(x, mesh, "node", 0.6)
+    for wd in WIRES:
+        cases[f"topo_fisher_gossip_{wd}"] = (
+            lambda wd=wd: g.topo_fisher_gossip(x, f, Wr, mesh, "node",
+                                               wire_dtype=wd))
+        cases[f"matrix_gossip_{wd}"] = (
+            lambda wd=wd: g.matrix_gossip(x, Wd, mesh, "node",
+                                          wire_dtype=wd))
+        if ring:
+            cases[f"ring_rows_gossip_{wd}"] = (
+                lambda wd=wd: g.ring_rows_gossip(x, Wr, mesh, "node",
+                                                 wire_dtype=wd))
+            cases[f"ring_topo_fisher_gossip_{wd}"] = (
+                lambda wd=wd: g.ring_topo_fisher_gossip(
+                    x, f, Wr, mesh, "node", wire_dtype=wd))
+    out = {}
+    for name, fn in cases.items():
+        run = fn if name in ("fedavg_gossip", "fisher_gossip") else jax.jit(fn)
+        _flat_keys(f"{name}/merged", jax.tree.map(np.asarray, run()), out)
+    kw = dict(wire_block=WB)
+    q8 = {"matrix_gossip_q8": lambda wr: g.matrix_gossip_q8(
+              x, Wd, wr, mesh, "node", **kw),
+          "topo_fisher_gossip_q8": lambda wr: g.topo_fisher_gossip_q8(
+              x, f, Wr, wr, mesh, "node", **kw),
+          "fedavg_psum_q8": lambda wr: g.fedavg_psum_q8(
+              x, w, wr, mesh, "node", **kw),
+          "fisher_psum_q8": lambda wr: g.fisher_psum_q8(
+              x, f, wr, mesh, "node", **kw)}
+    if ring:
+        q8["ring_rows_gossip_q8"] = lambda wr: g.ring_rows_gossip_q8(
+            x, Wr, wr, mesh, "node", **kw)
+        q8["ring_topo_fisher_gossip_q8"] = (
+            lambda wr: g.ring_topo_fisher_gossip_q8(x, f, Wr, wr, mesh,
+                                                    "node", **kw))
+    for name, fn in q8.items():
+        wire = g.init_mesh_wire(Q8_SCHEDULE[name], x, n_shards=n,
+                                wire_block=WB)
+        # the first sync op by op (XLA's fusion under jit may contract the
+        # EF advance θ̂ + q·s into one rounding), the rest compiled
+        jfn = jax.jit(fn)
+        for k in range(Q8_SYNCS):
+            merged, wire = (fn if k == 0 else jfn)(wire)
+            if k in (0, Q8_SYNCS - 1):
+                tag = "" if k == 0 else str(k + 1)
+                _flat_keys(f"{name}/merged{tag}",
+                           jax.tree.map(np.asarray, merged), out)
+                _flat_keys(f"{name}/wire{k + 1}",
+                           jax.tree.map(np.asarray, wire), out)
+    return out
+
+
+def main(argv):
+    task, rank, world, init, out_dir = argv[:5]
+    rank, world = int(rank), int(world)
+    inp = dict(np.load(os.path.join(out_dir, "inputs.npz")))
+    if task == "reference":
+        import jax
+        mesh = jax.make_mesh((world,), ("node",),
+                             devices=jax.devices()[:world])
+        res = reference_schedules(mesh, inp)
+    else:
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_swarm_mesh
+        _init_world(rank, world, init)
+        try:
+            mesh, _ = make_swarm_mesh(N)
+            if task == "schedules":
+                res = port_schedules(mesh, inp)
+                try:
+                    make_swarm_mesh(N + 2)
+                except ValueError as e:
+                    res["mesh/indivisible"] = np.asarray(str(e))
+            else:
+                res = port_sessions(mesh, inp)
+        finally:
+            dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"{task}_rank{rank}.npz"), **res)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
