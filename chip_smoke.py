@@ -255,9 +255,30 @@ Phases, each printing one JSON line:
                  on every wire it takes (``GOSSIP_C``), each commit held
                  against the engine backend's (within 1e-5; the fisher
                  side channel on the bf16 wire within bf16 rounding), sync
-                 walls and counted bytes. One card shows no inter-card
-                 traffic: (a)/(b) are one rank's NCCL calls, (c) goes
-                 through host memory;
+                 walls and counted bytes; (d) 4 gloo ranks on the card as
+                 a two-level mesh of 2 pods × 2 nodes
+                 (``make_two_level_swarm_mesh``), the CNN at full width,
+                 ring, int8, ``self_weight`` 0.7: the cost model's picks
+                 (the hierarchical forms at ``cross_pod_cost`` 10, the
+                 flat ring forms at 5), each setting's commit after 6
+                 settling syncs held against an f64 numpy oracle within
+                 1e-5 (the pod-ring mix of pod aggregates; the flat
+                 forms' ring merge), the bytes each rank handed, by link
+                 class, against the cost model at the padded width, sync
+                 walls; then a 6-round fault plan (node 1 crashed at round
+                 1, back at 3) with a preempt at round 3 (a collective
+                 save → fresh session → load) against the same plan
+                 without it, bit for bit (params, moments, statistics,
+                 every wire leaf), for both hierarchical schedules and the
+                 flat ring q8 (the CNN's AdamW steps; the fisher form the
+                 reference's fault-test decay step), with the checkpoint's
+                 bytes and save and load seconds; last, the fisher forms
+                 on the int8 mesh wire under the CNN's steps, the largest
+                 |θ| after each of 6 rounds (recorded, not held: their
+                 int8 mass stream can reconstruct to 0 or below, as the
+                 reference's does). One card shows no inter-card traffic:
+                 (a)/(b) are one rank's NCCL calls, (c)/(d) go through
+                 host memory;
  17. timing      how many device times the profiler read, how many traces
                  ``device_ms`` discarded for lost kernel records, how
                  many times it fell back to CUDA events, and the gossip
@@ -3381,6 +3402,34 @@ GOSSIP_C = tuple(
        ("fedavg_psum_q8", "fedavg", "full", "int8"),
        ("fisher_psum_q8", "fisher", "full", "int8")])
 GOSSIP_WORLD = 4
+# (d) the two-level mesh (2 pods × 2 nodes) on the 4 gloo ranks: (name,
+# merge, cross_pod_cost) of each setting; the pod ring mixes at this self
+# weight (asymmetric: s·own pod + (1 − s)·the other)
+GOSSIP_D = (("hier_fedavg_ring_q8", "fedavg", 10.0),
+            ("hier_fisher_ring_q8", "fisher", 10.0),
+            ("ring_ppermute", "fedavg", 5.0),
+            ("ring_topo_ppermute", "fisher", 5.0))
+GOSSIP_D_SW = 0.7
+GOSSIP_D_PODS = (2, 2)
+# the fault plan of (d): rounds, the crashed node's (node, at, rejoin), the
+# preempt's round; run for each of these settings of GOSSIP_D with its
+# local step: the CNN's AdamW steps ("train"), or the reference's fault
+# tests' decay θ ← 0.999·θ ("decay"; `tests/test_faults_spmd.py`), for the
+# fisher form, whose int8 mass stream diverges under the CNN's steps
+# (GOSSIP_D_DIVERGE)
+GOSSIP_D_ROUNDS = 6
+GOSSIP_D_CRASH = (1, 1, 3)
+GOSSIP_D_PREEMPT = 3
+GOSSIP_D_PLANS = {"hier_fedavg_ring_q8": "train",
+                  "hier_fisher_ring_q8": "decay",
+                  "ring_ppermute": "train"}
+# the fisher forms on the int8 mesh wire under the CNN's AdamW steps,
+# GOSSIP_D_ROUNDS rounds without faults: the largest |θ| after each round
+# is recorded, not held. Their mass stream Σ (F+eps) crosses the wire as
+# int8 deltas, as in the reference: where F is small against its block's
+# largest value the reconstruction can fall to 0 or below, and the
+# reference's clamp at 1e-30 then turns the ratio huge
+GOSSIP_D_DIVERGE = ("hier_fisher_ring_q8", "ring_topo_ppermute")
 # syncs that only advance a stateful wire (the params unchanged) before the
 # compared commit: the reference's settled regime (its mesh-wire tests)
 GOSSIP_SETTLE = 6
@@ -3758,25 +3807,325 @@ def _gossip_rank(rank, world, init, tmp, dev):
         dist.destroy_process_group()
 
 
-def _gossip_world4(dev, smi, base):
-    """(c) 4 gloo ranks on the one card, spawned; each setting's committed
-    rows against the engine backend's commit of it; a failed rank raises
-    here."""
-    import tempfile
+def _decay_step(p, o, b, s):
+    """The reference's fault tests' local step: θ ← 0.999·θ."""
+    return p * 0.999, o, {"loss": (p * 0).sum()}
+
+
+def _gossip_d_cfg(merge, cross):
+    import dataclasses
+    return dataclasses.replace(_gossip_cfg(merge, "ring", "int8"),
+                               cross_pod_cost=cross, self_weight=GOSSIP_D_SW)
+
+
+def _gossip_rank_d(rank, world, init, tmp, dev):
+    """(d) One of the 4 gloo ranks on ``cuda:0`` as node ``rank % 2`` of pod
+    ``rank // 2``: each ``GOSSIP_D`` setting's pick and settled commit from
+    the start state, its sync wall and bytes; then each ``GOSSIP_D_PLANS``
+    setting's fault plan with and without the preempt (real local steps of
+    the CNN, cuDNN deterministic), equal bit for bit, and one more timed
+    collective save and load; into ``tmp/hier<r>.pt``."""
+    import functools
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.core.session import SwarmSession
+    from repro_torch.experiments import histo
+    from repro_torch.faults import FaultPlan, run_plan
+    from repro_torch.launch.mesh import make_two_level_swarm_mesh
+    from repro_torch.optim import adamw_init
+
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    # the preempted run and its twin replay the same local steps
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        saved = torch.load(f"{tmp}/state.pt")
+        params = saved["params"].to(dev)
+        stats = saved["stats"].to(dev)
+        sizes = saved["sizes"]
+        val = tuple(v.to(dev) for v in saved["val"])
+        batches = (saved["xs"].to(dev), saved["ys"].to(dev))
+        mesh, axis = make_two_level_swarm_mesh(*GOSSIP_D_PODS)
+        out = {"settings": {}, "plans": {}}
+        ecfg = _gossip_ecfg(_gossip_d_cfg("fedavg", 10.0))
+        model = histo._model(ecfg)
+        layout = FlatLayout.of_module(model)
+        step, _ = histo._make_model_fns(ecfg, model, layout)
+        flat0 = layout.flatten(histo._init_params(ecfg, model)).to(dev)
+
+        def session(name, merge, cross, local=None):
+            cfg = _gossip_d_cfg(merge, cross)
+            sess = SwarmSession(
+                cfg, {None: None, "train": step,
+                      "decay": _decay_step}[local],
+                histo._make_eval_fn(cfg, model, layout),
+                params=list(params.unbind(0)),
+                opt_state=adamw_init(flat0) if local else None,
+                data_sizes=sizes, layout=layout, device=dev,
+                backend="gossip", mesh=mesh, axis=axis)
+            if sess.sync_schedule.name != name:
+                raise AssertionError(f"(d) {merge} at cross_pod_cost "
+                                     f"{cross} picked "
+                                     f"{sess.sync_schedule.name}, not {name}")
+            return sess
+
+        for name, merge, cross in GOSSIP_D:
+            sess = session(name, merge, cross)
+            st = stats[mesh.rows] if merge == "fisher" else None
+            got, log, wall = _gossip_commit(
+                sess.engine, params[mesh.rows], sess._mine(val, 0),
+                sess.state.active, st, GOSSIP_SETTLE)
+            out["settings"][name] = dict(
+                committed=got.cpu(), gates=log["gates"].cpu(), wall=wall,
+                counted=sess.engine.sync_bytes,
+                predicted=sess.predicted_link_bytes)
+            del sess, got
+        node, at, back = GOSSIP_D_CRASH
+        plan = FaultPlan(N, GOSSIP_D_ROUNDS, seed=0).crash(node, at=at,
+                                                           rejoin=back)
+        for name, merge, cross in [g for g in GOSSIP_D
+                                   if g[0] in GOSSIP_D_PLANS]:
+            path = os.path.join(tmp, f"preempt_{name}.msgpack")
+            mk = functools.partial(session, name, merge, cross,
+                                   GOSSIP_D_PLANS[name])
+            twin, tlogs = run_plan(mk(), plan, batches, val)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess, logs = run_plan(mk(), plan.preempt(at=GOSSIP_D_PREEMPT),
+                                  batches, val, make_session=mk,
+                                  checkpoint_path=path)
+            torch.cuda.synchronize()
+            plan_wall = time.perf_counter() - t0
+            a, b = twin.state, sess.state
+            equal = {f: _trees_equal(getattr(a, f), getattr(b, f))
+                     for f in ("params", "opt_state", "stats", "wire",
+                               "active")}
+            equal["rng"] = bool((a.rng == b.rng).all())
+            equal["counters"] = (a.round, a.step) == (b.round, b.step)
+            # one more collective save and load, timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.save(path)
+            save_s = time.perf_counter() - t0
+            fresh = mk()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fresh.load(path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            equal["reloaded"] = _trees_equal(fresh.state.wire, b.wire) and \
+                bool(torch.equal(fresh.state.params, b.params))
+            out["plans"][name] = dict(
+                equal=equal, plan_wall=plan_wall, save_s=save_s,
+                load_s=load_s, file_bytes=os.path.getsize(path),
+                gates=[lg["gates"].tolist() for lg in logs],
+                twin_gates=[lg["gates"].tolist() for lg in tlogs],
+                preempted=[lg["preempted"] for lg in logs],
+                active=[lg["active"].tolist() for lg in logs],
+                wire_keys=sorted(b.wire), params=b.params.cpu())
+            del twin, sess, fresh, a, b
+        out["diverge"] = {}
+        for name, merge, cross in [g for g in GOSSIP_D
+                                   if g[0] in GOSSIP_D_DIVERGE]:
+            sess = session(name, merge, cross, "train")
+            rec = []
+            for _ in range(GOSSIP_D_ROUNDS):
+                sess.round(batches, val)
+                p = sess.state.params
+                rec.append((float(p.abs().max()),
+                            int((~torch.isfinite(p)).sum())))
+            out["diverge"][name] = rec
+            del sess
+        torch.save(out, f"{tmp}/hier{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _trees_equal(a, b) -> bool:
+    """Two state fields (tensors, or dicts of them) equal bit for bit."""
+    import torch
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_trees_equal(a[k], b[k])
+                                            for k in a)
+    if a is None or b is None:
+        return a is b
+    return bool(torch.equal(a, b))
+
+
+def _gossip_d_oracle(base, name, merge):
+    """The settled commit of a (d) setting in f64 numpy, [N, P]: the
+    hierarchical forms mix the pod aggregates over the pod ring (fedavg:
+    the size-weighted pod averages; fisher: Σ (F+eps)⊙θ over Σ (F+eps), F
+    the statistics normalized to a mean of 1), the flat ring forms mix the
+    nodes over the ring (fisher: the ratio over ring neighbours)."""
+    import numpy as np
+    from repro_torch.core.topology import ring_matrix
+
+    theta = base["params"].double().cpu().numpy()
+    eps = 1e-8
+    F = None
+    if merge == "fisher":
+        st = base["stats"].double().cpu().numpy()
+        mean = st.mean()
+        F = (st / mean if mean > 0 else st) + eps
+    if name.startswith("hier_"):
+        k, per = GOSSIP_D_PODS
+        pods = [slice(q * per, (q + 1) * per) for q in range(k)]
+        Wp = ring_matrix(k, GOSSIP_D_SW)
+        if merge == "fedavg":
+            s = np.asarray(base["sizes"], np.float64)
+            agg = np.stack([s[p] @ theta[p] / s[p].sum() for p in pods])
+            return np.repeat(Wp @ agg, per, 0)
+        num = np.stack([(F[p] * theta[p]).sum(0) for p in pods])
+        den = np.stack([F[p].sum(0) for p in pods])
+        return np.repeat((Wp @ num) / (Wp @ den), per, 0)
+    R = ring_matrix(N, GOSSIP_D_SW)
+    if merge == "fedavg":
+        return R @ theta
+    return (R @ (F * theta)) / (R @ F)
+
+
+def _gossip_priced(counted, link, group):
+    """What a rank handed over on one link class, priced as the cost model
+    prices a rank's traffic (a gathered tensor arrives from each of the
+    ``group`` ranks, a ring all_reduce moves 2(n−1)/n of its input)."""
+    factor = {"ring": 1.0, "all_to_all": 1.0, "all_gather": float(group),
+              "all_reduce": 2.0 * (group - 1) / group}
+    kinds = counted["by_link_collective"].get(link, {})
+    return sum(factor[k] * v for k, v in kinds.items())
+
+
+def _gossip_two_level(dev, smi, base, tmp):
+    """(d) 4 gloo ranks on the one card as 2 pods × 2 nodes: each setting's
+    pick and settled commit against the f64 oracle, its bytes by link
+    class against the cost model at the padded width, then each fault
+    plan's preempted run against its twin, bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.core import comms, gossip
+
+    spawn_wall, ranks = _gossip_spawn(_gossip_rank_d, tmp, dev, "hier")
+    layout = base["layout"]
+    k, per = GOSSIP_D_PODS
+    rows = {}
+    for name, merge, cross in GOSSIP_D:
+        got = torch.cat([r["settings"][name]["committed"]
+                         for r in ranks]).double().numpy()
+        gates = ranks[0]["settings"][name]["gates"]
+        if not bool(gates.all()):
+            raise AssertionError(f"(d) {name}: gates {gates}")
+        want = _gossip_d_oracle(base, name, merge)
+        diff = np.abs(got - want)
+        err = float(diff.max())
+        if (diff > GOSSIP_TOL * (1 + np.abs(want))).any():
+            raise AssertionError(f"(d) {name}: commit {err} from the oracle")
+        hier = name.startswith("hier_")
+        grid = gossip.padded_grid(layout, WIRE_BLOCK, per if hier else 1)
+        sched = comms.pick_schedule(_gossip_d_cfg(merge, cross),
+                                    mesh_shape=GOSSIP_D_PODS)
+        model = sched.bytes_by_link_class(grid.padded)
+        priced = []
+        for r in ranks:
+            c = r["settings"][name]["counted"]
+            intra = _gossip_priced(c, "intra", per)
+            cross_b = _gossip_priced(c, "cross", per if hier else N)
+            priced.append(dict(intra=intra, cross=cross_b))
+            # cross: exactly; intra: fedavg beside the pod mass's scalar
+            # all_reduce (2(n−1)/n · 4 bytes), fisher less one f32 payload
+            # (the model prices the gather of both streams, the schedule
+            # gathers their ratio, as the reference's does)
+            want_intra = (model["intra"] + 2.0 * (per - 1) / per * 4
+                          if name == "hier_fedavg_ring_q8"
+                          else model["intra"] - 4 * grid.padded
+                          if hier else 0.0)
+            if cross_b != model["cross"] or intra != want_intra:
+                raise AssertionError(f"(d) {name}: priced {priced[-1]}, "
+                                     f"model {model}, intra want "
+                                     f"{want_intra}")
+        rows[name] = dict(
+            cross_pod_cost=cross, max_abs_err_vs_oracle=err,
+            tolerance=GOSSIP_TOL, padded_width=grid.padded,
+            model_link_bytes=model, priced_link_bytes=priced[0],
+            counted_bytes=ranks[0]["settings"][name]["counted"],
+            predicted_link_bytes=ranks[0]["settings"][name]["predicted"],
+            sync_wall_s=[r["settings"][name]["wall"] for r in ranks])
+    ratio = {m: rows[f"hier_{m}_ring_q8"]["priced_link_bytes"]["cross"]
+             / rows[flat]["priced_link_bytes"]["cross"]
+             for m, flat in (("fedavg", "ring_ppermute"),
+                             ("fisher", "ring_topo_ppermute"))}
+    if max(ratio.values()) > 0.35:
+        raise AssertionError(f"(d) cross-pod bytes hier / flat {ratio}")
+    plans = {}
+    node, at, back = GOSSIP_D_CRASH
+    for name, local in GOSSIP_D_PLANS.items():
+        per_rank = [r["plans"][name] for r in ranks]
+        for r, pr in enumerate(per_rank):
+            if not all(pr["equal"].values()):
+                raise AssertionError(f"(d) {name} rank {r}: preempted run "
+                                     f"vs twin {pr['equal']}")
+            if pr["gates"] != pr["twin_gates"]:
+                raise AssertionError(f"(d) {name}: gates differ")
+        p0 = per_rank[0]
+        if p0["preempted"] != [i == GOSSIP_D_PREEMPT
+                               for i in range(GOSSIP_D_ROUNDS)]:
+            raise AssertionError(f"(d) {name}: preempted {p0['preempted']}")
+        for i, (act, gates) in enumerate(zip(p0["active"], p0["gates"])):
+            if act[node] != (not at <= i < back) or any(
+                    g and not a for g, a in zip(gates, act)):
+                raise AssertionError(f"(d) {name} round {i}: active {act}, "
+                                     f"gates {gates}")
+        want_keys = (["left", "ref"] if name.startswith("hier_")
+                     else ["left", "ref", "right"])
+        if p0["wire_keys"] != want_keys:
+            raise AssertionError(f"(d) {name}: wire {p0['wire_keys']}")
+        final = torch.cat([pr["params"] for pr in per_rank])
+        if not bool(torch.isfinite(final).all()):
+            raise AssertionError(f"(d) {name}: non-finite params")
+        plans[name] = dict(
+            local_step=local, bit_identical=True,
+            file_bytes=p0["file_bytes"],
+            save_s=[pr["save_s"] for pr in per_rank],
+            load_s=[pr["load_s"] for pr in per_rank],
+            plan_wall_s=[pr["plan_wall"] for pr in per_rank],
+            gates=p0["gates"])
+    diverge = {name: dict(
+        max_abs_params=[max(r["diverge"][name][i][0] for r in ranks)
+                        for i in range(GOSSIP_D_ROUNDS)],
+        non_finite=[sum(r["diverge"][name][i][1] for r in ranks)
+                    for i in range(GOSSIP_D_ROUNDS)])
+        for name in GOSSIP_D_DIVERGE}
+    emit("gossip_d", card=smi, world=GOSSIP_WORLD, backend="gloo",
+         mesh={"pod": k, "node": per}, device=f"{dev} (all ranks)",
+         nodes=N, params_per_node=layout.size, wire_block=WIRE_BLOCK,
+         self_weight=GOSSIP_D_SW, settle_syncs=GOSSIP_SETTLE,
+         spawn_wall_s=spawn_wall, settings=rows,
+         cross_ratio_hier_over_flat=ratio,
+         plan=dict(rounds=GOSSIP_D_ROUNDS, crash=GOSSIP_D_CRASH,
+                   preempt_at=GOSSIP_D_PREEMPT, runs=plans),
+         fisher_int8_under_training=diverge,
+         note="4 ranks on one card: gloo stages CUDA tensors through host "
+              "memory, so the walls are host copies and gloo's TCP "
+              "transport, not links between pods")
+
+
+def _gossip_spawn(fn, tmp, dev, tag):
+    """``fn(rank, world, init, tmp, dev)`` on GOSSIP_WORLD spawned ranks,
+    joined within GOSSIP_TIMEOUT (a failed rank raises here, a live one is
+    terminated); returns the wall and each rank's ``tmp/<tag><r>.pt``."""
     import torch
     import torch.multiprocessing as mp
-    from repro_torch.core import gossip
-    from repro_torch.experiments import histo
 
-    tmp = tempfile.mkdtemp(prefix="gossip_world4_")
-    torch.save(dict(params=base["params"].cpu(), stats=base["stats"].cpu(),
-                    sizes=base["sizes"],
-                    val=tuple(v.cpu() for v in base["val"])),
-               f"{tmp}/state.pt")
     t0 = time.perf_counter()
-    ctx = mp.start_processes(_gossip_rank, args=(GOSSIP_WORLD,
-                                                 f"file://{tmp}/rdv", tmp,
-                                                 str(dev)),
+    ctx = mp.start_processes(fn, args=(GOSSIP_WORLD,
+                                       f"file://{tmp}/rdv_{tag}", tmp,
+                                       str(dev)),
                              nprocs=GOSSIP_WORLD, join=False,
                              start_method="spawn")
     deadline = time.time() + GOSSIP_TIMEOUT
@@ -3790,8 +4139,20 @@ def _gossip_world4(dev, smi, base):
             if proc.is_alive():
                 proc.terminate()
                 proc.join(30)
-    spawn_wall = time.perf_counter() - t0
-    ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(GOSSIP_WORLD)]
+    wall = time.perf_counter() - t0
+    return wall, [torch.load(f"{tmp}/{tag}{r}.pt")
+                  for r in range(GOSSIP_WORLD)]
+
+
+def _gossip_world4(dev, smi, base, tmp):
+    """(c) 4 gloo ranks on the one card, spawned; each setting's committed
+    rows against the engine backend's commit of it; a failed rank raises
+    here."""
+    import torch
+    from repro_torch.core import gossip
+    from repro_torch.experiments import histo
+
+    spawn_wall, ranks = _gossip_spawn(_gossip_rank, tmp, dev, "rank")
     layout, model, ecfg = base["layout"], base["model"], base["ecfg"]
     active = torch.ones(N, dtype=torch.bool, device=dev)
     rows = {}
@@ -3835,7 +4196,8 @@ def _gossip_world4(dev, smi, base):
 def phase_gossip(dev, smi):
     """The gossip backend (`repro_torch.core.gossip`, ``SwarmSession(...,
     backend="gossip")``): (a) and (b) on a world of one NCCL rank in this
-    process, then (c) on 4 gloo ranks spawned on the one card."""
+    process, then (c) on 4 gloo ranks spawned on the one card, and (d) on
+    4 more as a two-level mesh."""
     import gc
     import tempfile
     import torch
@@ -3855,7 +4217,16 @@ def phase_gossip(dev, smi):
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
-    _gossip_world4(dev, smi, base)
+    tmp = tempfile.mkdtemp(prefix="gossip_world4_")
+    torch.save(dict(params=base["params"].cpu(), stats=base["stats"].cpu(),
+                    sizes=base["sizes"],
+                    val=tuple(v.cpu() for v in base["val"]),
+                    xs=base["xs"][1].cpu(), ys=base["ys"][1].cpu()),
+               f"{tmp}/state.pt")
+    _gossip_world4(dev, smi, base, tmp)
+    t0 = time.perf_counter()
+    _gossip_two_level(dev, smi, base, tmp)
+    TIMERS["gossip_d_s"] = time.perf_counter() - t0
 
 
 def main() -> int:

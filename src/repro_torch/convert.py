@@ -73,24 +73,51 @@ def from_reference(layout: FlatLayout, tree, lead: int = 0,
     return layout.flatten(parts, dtype)
 
 
-def to_reference_tree(layout: FlatLayout, flat: torch.Tensor) -> Any:
-    """Flat ``[*lead, P]`` → reference param tree of f32 numpy arrays (a
-    conv OIHW → HWIO)."""
-    flat = flat.detach().cpu()
-    lead = flat.dim() - 1
-    leaves = {leaf.path: leaf for leaf in layout.leaves}
+def _nest(arrays: Dict[str, np.ndarray]) -> Any:
+    """``{dotted path: array}`` → the reference's nested dicts/lists."""
     root: Dict = {}
-    for path, part in layout.unflatten(flat).items():
-        a = part.to(torch.float32).numpy()
-        axes = _ref_axes(leaves[path], lead, to_torch=False)
-        if axes != tuple(range(a.ndim)):
-            a = np.ascontiguousarray(np.transpose(a, axes))
+    for path, a in arrays.items():
         node = root
         keys = [int(p) if p.isdigit() else p for p in path.split(".")]
         for k in keys[:-1]:
             node = node.setdefault(k, {})
         node[keys[-1]] = a
     return _listify(root)
+
+
+def to_reference_tree(layout: FlatLayout, flat: torch.Tensor) -> Any:
+    """Flat ``[*lead, P]`` → reference param tree of f32 numpy arrays (a
+    conv OIHW → HWIO)."""
+    flat = flat.detach().cpu()
+    lead = flat.dim() - 1
+    leaves = {leaf.path: leaf for leaf in layout.leaves}
+    arrays = {}
+    for path, part in layout.unflatten(flat).items():
+        a = part.to(torch.float32).numpy()
+        axes = _ref_axes(leaves[path], lead, to_torch=False)
+        if axes != tuple(range(a.ndim)):
+            a = np.ascontiguousarray(np.transpose(a, axes))
+        arrays[path] = a
+    return _nest(arrays)
+
+
+def chunks_to_reference_tree(leaf_chunks, rows: torch.Tensor) -> Any:
+    """Rows ``[R, C]`` of per-leaf chunks (`repro_torch.core.gossip.
+    PaddedGrid.leaf_chunks`: each leaf's path, start and length in a
+    chunk row) → the reference's tree of ``[R, length]`` f32 arrays, as
+    its chunked mesh wire (a psum residual, a delegate chunk) keeps each
+    leaf."""
+    rows = rows.detach().cpu().to(torch.float32)
+    return _nest({path: rows[:, b:b + c].numpy().copy()
+                  for path, b, c in leaf_chunks})
+
+
+def chunks_from_reference(leaf_chunks, tree) -> torch.Tensor:
+    """Inverse of :func:`chunks_to_reference_tree`: ``[R, C]`` f32."""
+    parts = sorted(leaf_chunks, key=lambda lc: lc[1])
+    return torch.cat([torch.from_numpy(np.array(_get(tree, path),
+                                                np.float32))
+                      for path, _, _ in parts], 1)
 
 
 def adamw_from_reference(layout: FlatLayout, opt_state, lead: int = 0):

@@ -74,7 +74,10 @@ rank's nodes and all-gathers the ``[N]`` metrics (every rank returns the
 reference's ``[N]`` logs), and the commit is the reference's where-select
 (:func:`gated_commit`): its gossip backend has no kernel commit. On the
 int8 wire the schedule's mesh error-feedback state (`core.gossip.
-init_mesh_wire`) comes back in the log under ``"wire"``.
+init_mesh_wire`) comes back in the log under ``"wire"``. On a two-level
+``("pod", "node")`` mesh the cost model prices the flat schedules as
+cross-pod traffic and offers the hierarchical pod-delegate forms, which
+win when ``cfg.cross_pod_cost`` dominates.
 """
 from __future__ import annotations
 
@@ -92,11 +95,6 @@ from repro_torch.core.lora import is_adapter_path
 from repro_torch.faults.signals import flip_payload_bits
 from repro_torch.kernels.fused_merge import (fused_merge_all,
                                              fused_quant_merge_all)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP.md: {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -251,19 +249,6 @@ def gated_commit(candidate, local, gates):
     return torch.where(gates.reshape(-1, 1), candidate, local)
 
 
-def _inner_axes(specs):
-    """The axis names an inner (within-node) param spec tree names."""
-    if specs is None:
-        return []
-    if isinstance(specs, str):
-        return [specs]
-    if isinstance(specs, dict):
-        specs = list(specs.values())
-    if isinstance(specs, (tuple, list)):
-        return [a for sp in specs for a in _inner_axes(sp)]
-    return []
-
-
 class SwarmEngine:
     """Stacked swarm: vmapped local steps + on-device gated sync.
 
@@ -296,7 +281,8 @@ class SwarmEngine:
             if mesh.n_nodes != cfg.n_nodes:
                 raise ValueError(f"the mesh holds {mesh.n_nodes} nodes, "
                                  f"cfg.n_nodes={cfg.n_nodes}")
-            inner = _inner_axes(param_specs)
+            from repro_torch.core.gossip import inner_axes
+            inner = inner_axes(param_specs)
             if inner:
                 raise ValueError(
                     f"param_specs name inner axes {inner}: on the gossip "
@@ -319,11 +305,18 @@ class SwarmEngine:
         self._adapters = None
         self._grid = None
         self._ref = None
+        # a two-level ("pod", "node") mesh: the per-link-class cost model
+        # decides whether the hierarchical pod-delegate forms win
+        self.mesh_shape = None
+        if self.mesh is not None and isinstance(self.mesh.axis, tuple):
+            pod_ax, node_ax = self.mesh.axis
+            self.mesh_shape = (self.mesh.shape[pod_ax],
+                               self.mesh.shape[node_ax])
         # the engine backend reports the SPMD-equivalent wire cost; the
         # gossip backend runs the schedule picked for its nodes a rank
         self.sync_schedule = comms.pick_schedule(
             cfg, per=1 if self.mesh is None else self.mesh.per,
-            simulated=self.mesh is None)
+            simulated=self.mesh is None, mesh_shape=self.mesh_shape)
         self.data_sizes = (np.ones(cfg.n_nodes) if data_sizes is None
                            else np.asarray(data_sizes, np.float64))
         self.strategy = merge_lib.get_strategy(cfg)
@@ -547,15 +540,24 @@ class SwarmEngine:
         return gossip.init_mesh_wire(
             self.sync_schedule.name, payload,
             n_shards=self.mesh.world_size, wire_block=self.wire_block,
-            layout=self._mesh_grid(payload))
+            layout=self._mesh_grid(payload), mesh_shape=self.mesh_shape)
+
+    def mesh_chunks(self) -> int:
+        """The chunks of the schedule's padded int8 grid: a chunk a rank
+        for the psum-q8 forms, a chunk a node of a pod for the
+        hierarchical forms, else one."""
+        name = self.sync_schedule.name
+        if name.endswith("psum_q8"):
+            return self.mesh.world_size
+        return self.mesh_shape[1] if name.startswith("hier_") else 1
 
     def _mesh_grid(self, payload):
         """The payload's int8 block grid on its device
-        (`core.gossip.PaddedGrid`; the psum-q8 forms' chunk-major one),
-        built once."""
+        (`core.gossip.PaddedGrid`; the chunk-major one of the psum-q8 forms,
+        a chunk a rank, and of the hierarchical forms, a chunk a node of a
+        pod), built once."""
         from repro_torch.core import gossip
-        chunks = (self.mesh.world_size
-                  if self.sync_schedule.name.endswith("psum_q8") else 1)
+        chunks = self.mesh_chunks()
         g = self._q8
         if g is None or g.size != payload.shape[-1] \
                 or g.back.device != payload.device:
@@ -689,6 +691,26 @@ class SwarmEngine:
                                   kind="control")
         return total[0] / float(self.cfg.n_nodes * f.shape[-1])
 
+    def _pod_rows(self, device):
+        """The pod ring's mixing matrix [K, K] of the hierarchical
+        schedules (`topology.ring_matrix` folds both neighbour edges onto
+        the one peer at K = 2: s·ā_self + (1−s)·ā_peer)."""
+        return torch.as_tensor(topo.ring_matrix(self.mesh_shape[0],
+                                                self.cfg.self_weight),
+                               dtype=torch.float32, device=device)
+
+    def _refuse_absent_pod(self, active) -> None:
+        """The hierarchical schedules average within each pod first: a pod
+        with no active node has no average (the reference leaves this case
+        out of scope; here it raises)."""
+        pods = active.reshape(self.mesh_shape).any(1).tolist()  # noqa: SWL002 — the gossip sync runs eagerly; one [K] read before its first collective, so every rank raises alike
+        if not all(pods):
+            raise ValueError(
+                f"{self.sync_schedule.name}: pod(s) "
+                f"{[q for q, ok in enumerate(pods) if not ok]} have no "
+                "active node; the hierarchical schedules need an active "
+                "node in every pod")
+
     def _propose_gossip(self, x, active, fishers, wire=None):
         """Merge the rank's payload rows ``x`` [per, A] over the ranks, by
         the schedule the cost model picked (``self.sync_schedule``):
@@ -699,6 +721,8 @@ class SwarmEngine:
           ring_ppermute / ring_topo_...   — both ring neighbours
           gathered_rows / gathered_topo_… — one all_gather + the rank's
                                             rows of the contraction
+          hier_*_ring_q8                  — intra-pod all_reduce, int8
+                                            pod ring, intra-pod all_gather
 
         The point-to-point and gathered schedules cast their payloads per
         ``cfg.wire_dtype``; ``int8`` runs every schedule's error-feedback
@@ -726,6 +750,8 @@ class SwarmEngine:
                                  device=dev) if cfg.merge == "fedavg"
                  else torch.ones(cfg.n_nodes, device=dev))
         new_wire = None
+        if sched.startswith("hier_"):
+            self._refuse_absent_pod(a)
         if cfg.merge in ("fisher", "gradmatch"):
             if fishers is None:
                 fishers = torch.zeros(x.shape, dtype=torch.float32,
@@ -738,7 +764,15 @@ class SwarmEngine:
                                                   mean=self._mass_mean)
             w = active_weights_traced(self.data_sizes, a)
             eps = self.strategy.eps
-            if sched in ("fisher_psum", "fisher_psum_q8"):
+            if sched == "hier_fisher_ring_q8":
+                # intra-pod sums of the (num ⊕ mass) side channel; the pod
+                # ring's matrix plays the flat forms' topology rows, and
+                # the strategy folds any weights into the mass (gradmatch)
+                fishers = self.strategy.gossip_mass(fishers, w[mesh.rows])
+                merged, new_wire = gossip.hier_fisher_ring_q8(
+                    x, fishers, self._pod_rows(dev), wire, mesh, eps=eps,
+                    **qkw)
+            elif sched in ("fisher_psum", "fisher_psum_q8"):
                 # the strategy folds any weights into the mass (gradmatch)
                 fishers = self.strategy.gossip_mass(fishers, w[mesh.rows])
                 if q8:
@@ -760,11 +794,16 @@ class SwarmEngine:
                           else gossip.topo_fisher_gossip)
                     merged = fn(x, fishers, rows, mesh, eps=eps,
                                 wire_dtype=cast)
-        elif sched in ("fedavg_psum", "fedavg_psum_q8"):
+        elif sched in ("fedavg_psum", "fedavg_psum_q8",
+                       "hier_fedavg_ring_q8"):
             # membership stays on the psum: active-masked, renormalized
             # weights, and absent nodes keep their own rows
             w_eff = active_weights_traced(sizes, a)
-            if q8:
+            if sched == "hier_fedavg_ring_q8":
+                # each pod's weighted average, mixed over the pod ring
+                merged, new_wire = gossip.hier_fedavg_ring_q8(
+                    x, w_eff, self._pod_rows(dev), wire, mesh, **qkw)
+            elif q8:
                 merged, new_wire = gossip.fedavg_psum_q8(x, w_eff, wire,
                                                          mesh, **qkw)
             else:
@@ -826,7 +865,7 @@ class SwarmEngine:
                 candidate, x, gates[mesh.rows]), full), params)
         if new_wire is not None:
             log["wire"] = new_wire
-        self.sync_bytes = gossip.sync_bytes(mesh.counts)
+        self.sync_bytes = gossip.sync_bytes(mesh)
         return committed, dict(log, gates=gates, metric_local=metric_local,
                                metric_merged=metric_merged)
 

@@ -33,7 +33,13 @@ Schedules (their names are the reference's):
     int8 all_to_all reduce-scatter, the owner's dequant-and-sum and a
     second-stage residual ``cres``, then an int8 all_gather into the
     replicated consensus ``cons``). ``*_q8`` functions return ``(merged,
-    new_wire)``.
+    new_wire)``;
+  * the two-level ``("pod", "node")`` schedules ``hier_fedavg_ring_q8`` /
+    ``hier_fisher_ring_q8`` (`repro_torch.launch.mesh.
+    make_two_level_swarm_mesh`): an intra-pod f32 all_reduce on the
+    rank's node group, the rank's delegate chunk over the pod ring as an
+    int8 EF delta on its pod group, an intra-pod all_gather of the mixed
+    chunks.
 
 bf16 is a stateless cast of what crosses the wire (:func:`_wire_cast`).
 All int8 quantization goes through the port's one quant core
@@ -52,8 +58,11 @@ collectives stage CUDA tensors through host copies, here in
 **Bytes.** Each collective adds the bytes of the tensors this rank hands
 to it (what it sends; never the staging copies) to ``mesh.counts`` under
 its name (``all_reduce``, ``ring``, ``all_gather``, ``all_to_all``), or
-under ``control`` for the engine's gate bookkeeping. :func:`sync_bytes`
-sums them by link class; a flat mesh is one class, ``intra``.
+under ``control`` for the engine's gate bookkeeping, and to
+``mesh.link_counts`` under the group's link class: ``intra`` on a flat
+mesh and a two-level mesh's node group, ``cross`` on its joint world (a
+flat schedule there spans the pods, as the cost model prices it) and its
+pod group. :func:`sync_bytes` sums them.
 """
 from __future__ import annotations
 
@@ -71,9 +80,15 @@ from repro_torch.core.flat import FlatLayout
 # ---------------------------------------------------------------------------
 
 
-def _count(mesh, kind: str, *tensors) -> None:
+def _count(mesh, kind, *tensors) -> None:
+    """Add the bytes of ``tensors`` under ``kind`` and the mesh's link
+    class; ``kind`` None counts nothing (a checkpoint's gather)."""
+    if kind is None:
+        return
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     mesh.counts[kind] = mesh.counts.get(kind, 0) + nbytes
+    link = mesh.link_counts.setdefault(mesh.link, {})
+    link[kind] = link.get(kind, 0) + nbytes
 
 
 def _staged(mesh, t: torch.Tensor) -> torch.Tensor:
@@ -124,42 +139,56 @@ def all_to_all(mesh, t: torch.Tensor) -> torch.Tensor:
     return out.to(t.device)
 
 
-def ring_exchange(mesh, tensors):
+def ring_exchange(mesh, tensors, two_sided: bool = True):
     """Each tensor to both ring neighbours, in one ``batch_isend_irecv``:
     returns ``(from_left, from_right)``, the lists rank − 1 and rank + 1
-    sent (the reference's two ``ppermute`` shifts)."""
+    sent (the reference's two ``ppermute`` shifts). ``two_sided`` False
+    sends rightward only (the reference's forward shift alone, as a pair
+    ring that folds both edges onto one peer) and returns ``from_right``
+    None."""
     n, r = mesh.world_size, mesh.rank
     left, right = _peer(mesh, (r - 1) % n), _peer(mesh, (r + 1) % n)
     srcs = [_staged(mesh, t) for t in tensors]
-    _count(mesh, "ring", *srcs, *srcs)
+    _count(mesh, "ring", *srcs, *(srcs if two_sided else ()))
     from_left = [torch.empty_like(s) for s in srcs]
-    from_right = [torch.empty_like(s) for s in srcs]
+    from_right = [torch.empty_like(s) for s in srcs] if two_sided else None
     ops = []
     for k, s in enumerate(srcs):
-        # tag 2k+1 travels rightward, 2k leftward
+        # tag 2k+1 travels rightward, 2k leftward: the two edges of a pair
+        # ring reach one peer under distinct tags
         ops += [dist.P2POp(dist.isend, s, right, mesh.group, 2 * k + 1),
-                dist.P2POp(dist.isend, s, left, mesh.group, 2 * k),
                 dist.P2POp(dist.irecv, from_left[k], left, mesh.group,
-                           2 * k + 1),
-                dist.P2POp(dist.irecv, from_right[k], right, mesh.group,
-                           2 * k)]
+                           2 * k + 1)]
+        if two_sided:
+            ops += [dist.P2POp(dist.isend, s, left, mesh.group, 2 * k),
+                    dist.P2POp(dist.irecv, from_right[k], right, mesh.group,
+                               2 * k)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     dev = tensors[0].device
-    return ([t.to(dev) for t in from_left], [t.to(dev) for t in from_right])
+    return ([t.to(dev) for t in from_left],
+            None if from_right is None else [t.to(dev) for t in from_right])
 
 
 PAYLOAD_KINDS = ("all_reduce", "ring", "all_gather", "all_to_all")
 
 
-def sync_bytes(counts) -> dict:
-    """The payload bytes of ``mesh.counts`` by collective and by link class
-    (a flat mesh: all ``intra``), and the gate bookkeeping's ``control``
-    bytes apart."""
-    by = {k: counts[k] for k in PAYLOAD_KINDS if k in counts}
-    return {"by_collective": by,
-            "by_link_class": {"intra": sum(by.values()), "cross": 0},
-            "control": counts.get("control", 0)}
+def sync_bytes(mesh) -> dict:
+    """The payload bytes a mesh counted (``mesh.counts``, ``mesh.
+    link_counts``) by collective, by link class, and by collective within
+    each link class (``by_link_collective``), and the gate bookkeeping's
+    ``control`` bytes apart."""
+    def payload(kinds):
+        return {k: kinds[k] for k in PAYLOAD_KINDS if k in kinds}
+
+    per_link = {link: payload(kinds)
+                for link, kinds in mesh.link_counts.items()}
+    by_link = {"intra": 0, "cross": 0}
+    for link, kinds in per_link.items():
+        by_link[link] += sum(kinds.values())
+    return {"by_collective": payload(mesh.counts), "by_link_class": by_link,
+            "by_link_collective": per_link,
+            "control": mesh.counts.get("control", 0)}
 
 
 # ---------------------------------------------------------------------------
@@ -384,7 +413,7 @@ def matrix_gossip(x, W, mesh, wire_dtype=None):
 # ---------------------------------------------------------------------------
 
 def init_mesh_wire(schedule: str, payload, *, n_shards: int,
-                   wire_block: int = 512, layout=None):
+                   wire_block: int = 512, layout=None, mesh_shape=None):
     """Zero EF wire state of a ``*_q8`` schedule for this rank's payload
     rows ``[per, A]`` (``layout``: the payload's leaves; None, one leaf):
 
@@ -394,6 +423,11 @@ def init_mesh_wire(schedule: str, payload, *, n_shards: int,
       psum q8:   {"ref"} [1, A] the rank's contribution reference,
                  {"cons"} [1, A] the replicated consensus, {"cres"} [1, C]
                  the second-stage residual of the chunk this rank owns
+      hier q8:   {"ref", "left"[, "right"]} [1, C] — the references of the
+                 rank's delegate chunk of its own pod and of the
+                 neighbour pods (fisher: {"num", "mass"} each); needs
+                 ``mesh_shape=(n_pods, per_pod)``, and "right" exists only
+                 for n_pods > 2 (a two-pod ring folds onto one peer)
     """
     per, a = payload.shape
     dev = payload.device
@@ -420,6 +454,16 @@ def init_mesh_wire(schedule: str, payload, *, n_shards: int,
         if schedule == "fedavg_psum_q8":
             return {k: f() for k, f in parts.items()}
         return {k: pair(f) for k, f in parts.items()}
+    if schedule in ("hier_fedavg_ring_q8", "hier_fisher_ring_q8"):
+        if mesh_shape is None:
+            raise ValueError(f"{schedule} needs mesh_shape=(n_pods, per_pod)")
+        k_pods, per_pod = mesh_shape
+        chunk = padded_grid(a if layout is None else layout, wire_block,
+                            per_pod).padded // per_pod
+        keys = ("ref", "left", "right") if k_pods > 2 else ("ref", "left")
+        if schedule == "hier_fedavg_ring_q8":
+            return {k: z(1, chunk) for k in keys}
+        return {k: pair(lambda: z(1, chunk)) for k in keys}
     raise ValueError(f"no mesh wire state for schedule {schedule!r}")
 
 
@@ -581,3 +625,157 @@ def fisher_psum_q8(x, fishers, wire, mesh, *, layout=None, eps: float = 1e-8,
             {"ref": {"num": rn, "mass": rm}, "cons": {"num": cn, "mass": cm},
              "cres": {"num": qn, "mass": qm}})
 
+
+# ---------------------------------------------------------------------------
+# the two-level schedules: intra-pod reduce → pod-delegate int8 EF ring →
+# intra-pod all_gather
+# ---------------------------------------------------------------------------
+
+def _hier_shapes(x, mesh):
+    """Validate a hierarchical call; returns (K pods, nodes a pod)."""
+    axis = mesh.axis
+    if not (isinstance(axis, tuple) and len(axis) == 2):
+        raise ValueError("hierarchical schedules need a two-level swarm axis "
+                         f"(pod, node); got {axis!r}")
+    k_pods, per_pod = mesh.shape[axis[0]], mesh.shape[axis[1]]
+    if x.shape[0] != 1:
+        raise ValueError(
+            f"hierarchical schedules need one node per device (leading axis "
+            f"{x.shape[0] * mesh.world_size} vs mesh {axis[0]}×{axis[1]}="
+            f"{k_pods}×{per_pod})")
+    if k_pods < 2 or per_pod < 2:
+        raise ValueError(f"hierarchical schedules need ≥2 pods and ≥2 nodes "
+                         f"per pod; got {k_pods}×{per_pod}")
+    return k_pods, per_pod
+
+
+def inner_axes(specs):
+    """The axis names an inner (within-node) param spec tree names."""
+    if specs is None:
+        return []
+    if isinstance(specs, str):
+        return [specs]
+    if isinstance(specs, dict):
+        specs = list(specs.values())
+    if isinstance(specs, (tuple, list)):
+        return [a for sp in specs for a in inner_axes(sp)]
+    return []
+
+
+def _refuse_inner_sharding(inner_specs, what: str) -> None:
+    if inner_axes(inner_specs):
+        raise ValueError(f"{what} does not support model-sharded payloads "
+                         "(inner_specs): delegate chunks slice the "
+                         "globally-flattened payload")
+
+
+def _delegate_ring(chunk, wire, mesh, k_pods: int, wb: int, pod_rows):
+    """Leg 2 of a hierarchical schedule on the rank's delegate chunk
+    ``chunk`` [rows, C] (rows: the streams): the int8 EF delta against
+    ``wire["ref"]`` over the pod ring (forward only at two pods), the
+    neighbour pods' replicas advanced from what arrives, and the pod-row
+    mix ``Σ_q pod_rows[p, q] · chunk_q``. Returns ``(mixed [rows, C],
+    ref', left', right' or None)``."""
+    pod = mesh.pod_view
+    p = pod.rank
+    two_sided = k_pods > 2
+    q, s = comms.quant_encode(chunk - wire["ref"], wb)
+    ref2 = wire["ref"] + comms.quant_decode(q, s, wb)
+    (ql, sl), from_right = ring_exchange(pod, [q, s], two_sided)
+    lft2 = wire["left"] + comms.quant_decode(ql, sl, wb)
+    Wp = _f32(pod_rows, chunk)
+    mixed = Wp[p, p] * chunk + Wp[p, (p - 1) % k_pods] * lft2
+    rgt2 = None
+    if two_sided:
+        qr, sr = from_right
+        rgt2 = wire["right"] + comms.quant_decode(qr, sr, wb)
+        mixed = mixed + Wp[p, (p + 1) % k_pods] * rgt2
+    return mixed, ref2, lft2, rgt2
+
+
+def _hier_wire(ref2, lft2, rgt2, split):
+    out = {"ref": split(ref2), "left": split(lft2)}
+    if rgt2 is not None:
+        out["right"] = split(rgt2)
+    return out
+
+
+def _pod_gather(mixed, mesh, grid: PaddedGrid, like):
+    """Leg 3: the node group's all_gather of the mixed chunks [1, C], back
+    on the stored values [1, A] in ``like``'s dtype."""
+    full = all_gather(mesh.node_view, mixed).reshape(1, -1)
+    return full[:, grid.back].to(like.dtype)
+
+
+def hier_fedavg_ring_q8(x, weights, pod_rows, wire, mesh, *, layout=None,
+                        inner_specs=None, wire_block: int = 512):
+    """Hierarchical weighted merge on a two-level ``("pod", "node")`` mesh
+    (the ``hier_fedavg_ring_q8`` schedule), on the rank's one row ``x``
+    [1, A]:
+
+      1. **intra-pod reduce** — one f32 all_reduce over the node group of
+         Σ w·θ, laid out on the padded chunk-major grid, with the pod mass
+         Σ w beside it, gives every rank its pod's average ā_q;
+      2. **pod-delegate int8 EF ring** — the rank owns chunk j (its node
+         index) of every leaf of ā_q and sends it over the pod ring as an
+         int8 delta + per-block scales against its EF reference; the
+         neighbour pods' replicas advance from the same stream. Only this
+         leg crosses pods: k·P/per_pod int8 values a rank, k = 1 at two
+         pods (the pair ring folds both edges onto one peer and "right"
+         drops out of the wire), else 2;
+      3. **intra-pod all_gather** of the pod-row-mixed chunks.
+
+    The self-pod term mixes at exact f32; on settling inputs every node
+    converges to the pod-ring mix Σ_q pod_rows[pod(i), q] · ā_q. Every pod
+    needs an active node (a weight > 0): a fully-absent pod raises.
+    Returns ``(merged, new_wire)``."""
+    k_pods, per_pod = _hier_shapes(x, mesh)
+    _refuse_inner_sharding(inner_specs, "hier_fedavg_ring_q8")
+    w = _f32(weights, x)
+    if not bool((w.reshape(k_pods, per_pod) > 0).any(1).all()):
+        raise ValueError("hier_fedavg_ring_q8: a fully-absent pod (every "
+                         "weight of its nodes 0) has no pod average; the "
+                         "hierarchical schedules need an active node in "
+                         "every pod")
+    grid = _grid_of(x, layout, wire_block, per_pod)
+    wl = w[mesh.rows]                                    # [1]
+    z = x.to(torch.float32) * wl[:, None]
+    zp = torch.where(grid.valid, z[:, grid.src], 0.0)    # [1, padded]
+    both = all_reduce(mesh.node_view, torch.cat([zp, wl[:, None]], 1))
+    mass = both[:, -1:]
+    avg = both[:, :-1] / torch.clamp(mass, min=1e-30)
+    clen = grid.padded // per_pod
+    j = mesh.node_view.rank
+    chunk = avg[:, j * clen:(j + 1) * clen]
+    mixed, ref2, lft2, rgt2 = _delegate_ring(chunk, wire, mesh, k_pods,
+                                             grid.wire_block, pod_rows)
+    return (_pod_gather(mixed, mesh, grid, x),
+            _hier_wire(ref2, lft2, rgt2, lambda t: t))
+
+
+def hier_fisher_ring_q8(x, fishers, pod_rows, wire, mesh, *, layout=None,
+                        inner_specs=None, eps: float = 1e-8,
+                        wire_block: int = 512):
+    """Hierarchical importance-weighted merge on a two-level mesh (the
+    ``hier_fisher_ring_q8`` schedule): :func:`hier_fedavg_ring_q8` with the
+    fused ``(F⊙θ ⊕ F)`` side channel. The intra-pod all_reduce sums the pod
+    numerator Σ (F+eps)⊙θ and mass Σ (F+eps); both ride the pod ring as ONE
+    stacked two-stream EF payload (2·k·P/per_pod int8 values a rank), and
+    the merge is the ratio of the pod-row-mixed streams. Any weight folding
+    (gradmatch) is in the mass already. Returns ``(merged, new_wire)``."""
+    k_pods, per_pod = _hier_shapes(x, mesh)
+    _refuse_inner_sharding(inner_specs, "hier_fisher_ring_q8")
+    grid = _grid_of(x, layout, wire_block, per_pod)
+    ff = fishers.to(torch.float32) + eps
+    z = torch.cat([ff * x.to(torch.float32), ff], 0)     # [2, A]
+    zp = torch.where(grid.valid, z[:, grid.src], 0.0)    # [2, padded]
+    red = all_reduce(mesh.node_view, zp)
+    clen = grid.padded // per_pod
+    j = mesh.node_view.rank
+    chunk = red[:, j * clen:(j + 1) * clen]              # [2, C]
+    mixed, ref2, lft2, rgt2 = _delegate_ring(
+        chunk, {k: _cat(v) for k, v in wire.items()}, mesh, k_pods,
+        grid.wire_block, pod_rows)
+    ratio = mixed[0:1] / torch.clamp(mixed[1:2], min=1e-30)
+    return (_pod_gather(ratio, mesh, grid, x),
+            _hier_wire(ref2, lft2, rgt2, _pairs))

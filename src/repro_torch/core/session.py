@@ -48,8 +48,17 @@ data_sizes, seed) and keeps the rows of its nodes ``mesh.rows`` of the
 params, moments, statistics and mesh wire; ``round`` / ``run_rounds`` /
 ``run_local`` take the global ``[T, N, ...]`` batches and ``[N, ...]``
 validation rows and use the rank's; the logs are ``[N]`` on every rank;
-:attr:`node_params` gathers the whole swarm. Checkpoints of a gossip
-session are not ported (ROADMAP).
+:attr:`node_params` gathers the whole swarm. A two-level mesh
+(`repro_torch.launch.mesh.make_two_level_swarm_mesh`) works the same way,
+the cost model choosing between the flat and the hierarchical schedules.
+
+A gossip session's :meth:`SwarmSession.save` and :meth:`SwarmSession.load`
+are collective: every rank calls them. ``save`` gathers every rank's rows
+into the reference's file of the WHOLE swarm (its global ``SwarmState``:
+``[N, ...]`` params, moments and statistics, the mesh wire as the
+reference's ``init_mesh_wire`` lays it out for the schedule), rank 0
+writes it, and a barrier follows; ``load`` reads it on every rank and
+keeps the rank's rows (a replicated leaf whole).
 """
 from __future__ import annotations
 
@@ -64,10 +73,12 @@ from repro_torch import resolve_device
 from repro_torch.checkpointing import (Fields, load_metadata, load_pytree,
                                        save_pytree)
 from repro_torch.configs.base import SwarmConfig
-from repro_torch.convert import from_reference, to_reference_tree
+from repro_torch.convert import (chunks_from_reference,
+                                 chunks_to_reference_tree, from_reference,
+                                 to_reference_tree)
 from repro_torch.core import comms
 from repro_torch.core.engine import (SwarmEngine, _index, _index_node,
-                                     _leading, _not_ported, _stack_logs,
+                                     _leading, _stack_logs,
                                      _stack_nodes)
 from repro_torch.core.flat import FlatLayout
 from repro_torch.core.prng import fold_in_key, prng_key
@@ -126,6 +137,33 @@ def _node_rows(value, rows: slice, dim: int):
     idx = (slice(None),) * dim + (rows,)
     part = t[idx]
     return part if part.shape == t.shape else part.clone()
+
+
+#: the mesh wire's replicated leaves (every rank holds them whole): the
+#: gathered schedules' table and the psum-q8 consensus
+_REPLICATED = ("table", "cons")
+
+
+def _tree_map(fn, value, top=None):
+    """``fn(tensor, top)`` over a dict tree of tensors (None passes
+    through); ``top`` is the first key on the tensor's path."""
+    if value is None:
+        return None
+    if isinstance(value, dict):
+        return {k: _tree_map(fn, v, top or k) for k, v in value.items()}
+    return fn(value, top)
+
+
+def _zip_map(fn, saved, local, top=None):
+    """``fn(saved leaf, local tensor, top)`` over ``local``'s dict tree
+    (None passes through) and the same keys of ``saved``; ``top`` as in
+    :func:`_tree_map`."""
+    if local is None:
+        return None
+    if isinstance(local, dict):
+        return {k: _zip_map(fn, saved[k], v, top or k)
+                for k, v in local.items()}
+    return fn(saved, local, top)
 
 
 def _to_device(value, device):
@@ -604,19 +642,127 @@ class SwarmSession:
             round=np.asarray(st.round, np.int32),
             step=np.asarray(st.step, np.int32))
 
+    # -- the gossip backend's whole-swarm state ----------------------------
+
+    def _gossip_global(self, st: SwarmState, shard):
+        """``(params, opt_state, stats, wire)`` of the whole swarm from this
+        rank's: each rank-sharded tensor ``[r, ...]`` through ``shard`` (to
+        ``[W·r, ...]``, rank order), a replicated wire leaf as it is."""
+        def one(t, top):
+            return t if top in _REPLICATED else shard(t)
+        return (shard(st.params), _tree_map(one, st.opt_state),
+                None if st.stats is None else shard(st.stats),
+                _tree_map(one, st.wire))
+
+    def _wire_chunked(self, top) -> bool:
+        """Whether a mesh wire leaf holds chunks of the padded grid (the
+        psum-q8 residual, every hierarchical reference), which the
+        reference keeps as ``[rows, chunk]`` a leaf."""
+        return top == "cres" or self.sync_schedule.name.startswith("hier_")
+
+    def _wire_codec(self):
+        """``(to_tree, from_tree)`` of one mesh wire tensor and the
+        reference's leaves of it: its payload's tree (``[rows, *leaf]``) or
+        chunk tree (``[rows, chunk]`` a leaf)."""
+        from repro_torch.core import gossip
+        eng = self.engine
+        layout = eng._payload_layout("cpu")
+        chunks = (None if layout is None else gossip.padded_grid(
+            layout, eng.wire_block, eng.mesh_chunks()).leaf_chunks)
+
+        def to_tree(t, top):
+            t = t.detach().cpu()
+            if layout is None:
+                return t.numpy()
+            if self._wire_chunked(top):
+                return chunks_to_reference_tree(chunks, t)
+            return to_reference_tree(layout, t)
+
+        def from_tree(tree, top):
+            if layout is None:
+                return torch.from_numpy(np.array(tree))
+            if self._wire_chunked(top):
+                return chunks_from_reference(chunks, tree)
+            return from_reference(layout, tree, lead=1)
+
+        return to_tree, from_tree
+
+    def _gossip_tree(self, fields, st: SwarmState) -> Fields:
+        """The reference's global ``SwarmState`` pytree of the whole-swarm
+        ``fields`` (:meth:`_gossip_global`)."""
+        params, opt, stats, wire = fields
+        to_tree, _ = self._wire_codec()
+        return Fields(
+            params=self._reference_tree(params),
+            opt_state=self._reference_tree(opt),
+            stats=self._reference_tree(stats),
+            wire=_tree_map(to_tree, wire),
+            active=st.active.cpu().numpy(),
+            rng=np.asarray(st.rng, np.uint32),
+            round=np.asarray(st.round, np.int32),
+            step=np.asarray(st.step, np.int32))
+
+    def _save_gossip(self, path: str, meta: dict) -> None:
+        """Collective: every rank's rows gathered (not sync traffic: no
+        byte count), rank 0 writes, all wait."""
+        import torch.distributed as dist
+        from repro_torch.core import gossip
+
+        mesh = self.engine.mesh
+        st = self._state
+        fields = self._gossip_global(
+            st, lambda t: gossip.all_gather(mesh, t, kind=None))
+        if mesh.rank == 0:
+            save_pytree(path, self._gossip_tree(fields, st), metadata=meta)
+        del fields
+        dist.barrier(group=mesh.group)
+
+    def _load_gossip(self, path: str) -> None:
+        """Every rank reads the whole swarm and keeps its rows."""
+        mesh = self.engine.mesh
+        st = self._state
+        world, rank = mesh.world_size, mesh.rank
+        like = self._gossip_global(st, lambda t: torch.zeros(
+            (world * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype))
+        tree = load_pytree(path, self._gossip_tree(like, st))
+        _, from_tree = self._wire_codec()
+
+        def mine(full, local, top=None):
+            if top not in _REPLICATED:
+                r = local.shape[0]
+                full = full[rank * r:(rank + 1) * r]
+            return full.to(device=local.device, dtype=local.dtype, copy=True)
+
+        fields = {f: _zip_map(mine, self._from_reference_tree(tree[f], glob),
+                              getattr(st, f))
+                  for f, glob in zip(("params", "opt_state", "stats"), like)}
+        fields["wire"] = _zip_map(
+            lambda saved, local, top: mine(from_tree(saved, top), local, top),
+            tree["wire"], st.wire)
+        self.load_state(SwarmState(
+            **fields, active=torch.from_numpy(np.array(tree["active"])).to(
+                self.device, torch.bool),
+            rng=np.array(tree["rng"], np.uint32),
+            round=int(tree["round"]), step=int(tree["step"])))
+
+    # -- checkpoint / resume (every backend) -------------------------------
+
     def save(self, path: str) -> None:
         """Checkpoint the FULL session state (params, opt state, strategy
         stats, wire reference, active mask, rng, counters) in the
-        reference's msgpack layout."""
-        self._refuse_gossip_checkpoint()
+        reference's msgpack layout. On the gossip backend every rank calls
+        it: the file holds the whole swarm, written by rank 0."""
         st = self.state
         meta = {"cfg": dataclasses.asdict(self.cfg), "backend": self.backend,
                 "round": int(st.round), "step": int(st.step), "format": 1}
+        if self._rows is not None:
+            self._save_gossip(path, meta)
+            return
         save_pytree(path, self._checkpoint_tree(st), metadata=meta)
 
     def load(self, path: str) -> "SwarmSession":
-        """Restore a checkpoint into this session (same cfg and shapes)."""
-        self._refuse_gossip_checkpoint()
+        """Restore a checkpoint into this session (same cfg and shapes). On
+        the gossip backend every rank calls it and keeps its rows."""
         saved_cfg = load_metadata(path).get("cfg", {})
         for key in ("n_nodes", "merge", "topology", "lora_only",
                     "payload", "wire_dtype"):
@@ -624,6 +770,9 @@ class SwarmSession:
                 raise ValueError(
                     f"checkpoint cfg mismatch: {key}={saved_cfg[key]!r} "
                     f"saved vs {getattr(self.cfg, key)!r} in session")
+        if self._rows is not None:
+            self._load_gossip(path)
+            return self
         st = self.state
         tree = load_pytree(path, self._checkpoint_tree(st))
         fields = ("params", "opt_state", "stats", "wire")
@@ -635,12 +784,6 @@ class SwarmSession:
             rng=np.array(tree["rng"], np.uint32),
             round=int(tree["round"]), step=int(tree["step"])))
         return self
-
-    def _refuse_gossip_checkpoint(self) -> None:
-        if self.backend == "gossip":
-            raise _not_ported("checkpoints of a gossip session (the rank's "
-                              "rows and its sharded mesh wire)",
-                              "queue 1 item 13")
 
     @classmethod
     def restore(cls, path: str, cfg: SwarmConfig, train_step_fn, eval_fn,

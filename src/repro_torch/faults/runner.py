@@ -17,6 +17,12 @@ round already consumes —
     via ``make_session`` → restore), which must be bit-identical to the
     uninterrupted run.
 
+On the gossip backend every rank replays the same plan against its own
+session: the membership updates are replicated data, a rejoin quarantines
+the whole mesh wire on every rank, corruption lowers to drops (the mesh
+wire carries no in-graph injection), and a preempt's save and load are
+collective (`repro_torch.core.session.SwarmSession.save`).
+
 On the quantized wire the runner threads a (possibly idle)
 ``FaultSignals`` every round, so every round of a plan runs the same steps
 (both checksums) whether or not it is armed.

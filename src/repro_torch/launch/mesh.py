@@ -17,6 +17,16 @@ one rank on a one-card machine is gloo. Nothing here switches backend.
     mesh, axis = make_swarm_mesh(4)          # one node a rank
     session = SwarmSession(cfg, step, eval_fn, params=flat, layout=layout,
                            backend="gossip", mesh=mesh, axis=axis)
+
+A two-level mesh (:func:`make_two_level_swarm_mesh`) groups the ranks into
+pods: rank ``p·per_pod + j`` is node ``j`` of pod ``p``. Its swarm axis is
+the tuple ``("pod", "node")``; the flat schedules run over the joint world
+unchanged, and the hierarchical ones (`repro_torch.core.gossip.
+hier_fedavg_ring_q8` / ``hier_fisher_ring_q8``) move their intra-pod legs
+over the rank's **node group** (:attr:`SwarmMesh.node_view`) and their
+cross-pod leg over its **pod group** (:attr:`SwarmMesh.pod_view`). The
+cost model (``cfg.intra_pod_cost`` / ``cfg.cross_pod_cost``) picks
+between them.
 """
 from __future__ import annotations
 
@@ -28,39 +38,50 @@ MESH_AXES = ("pod", "node", "data", "model")
 
 
 class SwarmMesh:
-    """A process group seen as a one-axis mesh of ``world_size`` shards.
+    """A process group seen as a mesh of ``world_size`` shards.
 
     ``group`` the process group (None: the default group), ``rank`` and
     ``world_size`` this process's place in it, ``backend`` its transport
-    (``"nccl"`` or ``"gloo"``), ``axis`` the swarm axis's name,
-    ``n_nodes`` the swarm's N and ``per`` the nodes a rank holds
-    (``rows``: their slice of the node axis). ``shape`` maps the axis to
-    the world size, as a reference mesh's ``shape`` does.
+    (``"nccl"`` or ``"gloo"``), ``axis`` the swarm axis's name (the tuple
+    ``("pod", "node")`` on a two-level mesh), ``n_nodes`` the swarm's N and
+    ``per`` the nodes a rank holds (``rows``: their slice of the node
+    axis). ``shape`` maps each axis to its size, as a reference mesh's
+    ``shape`` does.
 
     ``counts`` holds the bytes handed to each collective since the last
-    :meth:`reset_counts` (`repro_torch.core.gossip` adds to it)."""
+    :meth:`reset_counts` and ``link_counts`` the same by link class
+    (`repro_torch.core.gossip` adds to both): what crosses this group's
+    links counts as ``link``, ``"intra"`` on a flat mesh, ``"cross"`` on a
+    two-level one, whose joint world spans the pods. A two-level mesh's
+    :attr:`node_view` and :attr:`pod_view` add to the same counts under
+    ``"intra"`` and ``"cross"``."""
 
-    def __init__(self, n_nodes: int, *, group=None, axis: str = "node",
-                 shape: Optional[Dict[str, int]] = None):
+    def __init__(self, n_nodes: int, *, group=None, axis="node",
+                 shape: Optional[Dict[str, int]] = None,
+                 link: str = "intra"):
         import torch.distributed as dist
 
         if not dist.is_initialized():
             raise RuntimeError("no process group: call "
                                "torch.distributed.init_process_group first")
-        if axis not in MESH_AXES:
-            raise ValueError(f"axis {axis!r} is not one of {MESH_AXES}")
+        for name in (axis if isinstance(axis, tuple) else (axis,)):
+            if name not in MESH_AXES:
+                raise ValueError(f"axis {name!r} is not one of {MESH_AXES}")
         self.group = group
         self.world_size = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
         self.backend = str(dist.get_backend(group))
         self.axis = axis
         self.shape = dict(shape or {axis: self.world_size})
+        self.link = link
         if n_nodes % self.world_size:
             raise ValueError(f"n_nodes={n_nodes} must divide over the "
                              f"{self.world_size} ranks of the swarm mesh")
         self.n_nodes = n_nodes
         self.per = n_nodes // self.world_size
-        self.counts: Dict[str, int] = {}
+        self.node_view: Optional[GroupView] = None
+        self.pod_view: Optional[GroupView] = None
+        self.reset_counts()
 
     @property
     def rows(self) -> slice:
@@ -68,11 +89,44 @@ class SwarmMesh:
         return slice(self.rank * self.per, (self.rank + 1) * self.per)
 
     def reset_counts(self) -> None:
-        self.counts = {}
+        self.counts: Dict[str, int] = {}
+        self.link_counts: Dict[str, Dict[str, int]] = {}
 
     def __repr__(self) -> str:
         return (f"SwarmMesh({self.axis}={self.world_size}, rank={self.rank}, "
                 f"per={self.per}, backend={self.backend!r})")
+
+
+class GroupView:
+    """One axis of a two-level :class:`SwarmMesh` as a mesh of its own: the
+    subgroup ``group`` of the ranks that share this rank's pod (the node
+    axis, ``link`` ``"intra"``) or its node index (the pod axis,
+    ``"cross"``). ``rank`` and ``world_size`` are this process's place in
+    the subgroup; the collectives of `repro_torch.core.gossip` take a view
+    as they take a mesh, and add their bytes to the parent's counts."""
+
+    def __init__(self, parent: SwarmMesh, group, axis: str, link: str):
+        import torch.distributed as dist
+
+        self.parent = parent
+        self.group = group
+        self.axis = axis
+        self.link = link
+        self.backend = parent.backend
+        self.world_size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        return self.parent.counts
+
+    @property
+    def link_counts(self) -> Dict[str, Dict[str, int]]:
+        return self.parent.link_counts
+
+    def __repr__(self) -> str:
+        return (f"GroupView({self.axis}={self.world_size}, rank={self.rank}, "
+                f"link={self.link!r})")
 
 
 def make_production_mesh(*, multi_pod: bool = False, group=None):
@@ -103,3 +157,39 @@ def make_swarm_mesh(n_nodes: int = 4, *, group=None):
     Returns ``(mesh, "node")``."""
     mesh = SwarmMesh(n_nodes, group=group, axis="node")
     return mesh, mesh.axis
+
+
+def make_two_level_swarm_mesh(n_pods: int = 2, per_pod: int = 2, *,
+                              group=None):
+    """The two-level swarm mesh: ``(n_pods, per_pod)`` over ``("pod",
+    "node")``, one node a rank. Rank ``p·per_pod + j`` is node ``j`` of pod
+    ``p`` (row-major, the reference's device order). Every rank of the
+    default group must call it: it creates each pod's node group and each
+    node index's pod group (`torch.distributed.new_group`), all of them, in
+    the same order on every rank. A world of another size than ``n_pods ·
+    per_pod`` raises. Returns ``(mesh, ("pod", "node"))``."""
+    import torch.distributed as dist
+
+    n = n_pods * per_pod
+    have = dist.get_world_size(group) if dist.is_initialized() else 0
+    if have != n:
+        raise RuntimeError(
+            f"need {n} devices, have {have} — start a process group of "
+            f"{n} ranks to hold the two-level mesh")
+    axis = ("pod", "node")
+    mesh = SwarmMesh(n, group=group, axis=axis,
+                     shape={"pod": n_pods, "node": per_pod}, link="cross")
+
+    def world(r):
+        return r if group is None else dist.get_global_rank(group, r)
+
+    p, j = divmod(mesh.rank, per_pod)
+    node_groups = [dist.new_group([world(q * per_pod + i)
+                                   for i in range(per_pod)])
+                   for q in range(n_pods)]
+    pod_groups = [dist.new_group([world(q * per_pod + i)
+                                  for q in range(n_pods)])
+                  for i in range(per_pod)]
+    mesh.node_view = GroupView(mesh, node_groups[p], "node", "intra")
+    mesh.pod_view = GroupView(mesh, pod_groups[j], "pod", "cross")
+    return mesh, axis

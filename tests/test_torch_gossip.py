@@ -284,8 +284,9 @@ def test_counted_bytes_match_cost_model(world4, case):
 
 def test_mesh_construction_and_refusals(world4):
     """``make_swarm_mesh`` over the world, the ring's one-node-a-rank rule,
-    the production mesh's size check, and the mesh wire's shapes and
-    reset."""
+    the production mesh's size check, and the mesh wire's shapes, reset and
+    refusals (an unknown schedule; a hierarchical one without its
+    ``mesh_shape``)."""
     port = world4[0]
     assert "must divide over the 4 ranks" in str(port["mesh/indivisible"][0])
     with tempfile.TemporaryDirectory() as d:
@@ -315,6 +316,8 @@ def test_mesh_construction_and_refusals(world4):
             assert all(not t.any() for p in reset.values()
                        for t in p.values())
             with pytest.raises(ValueError, match="no mesh wire state"):
+                gossip.init_mesh_wire("ring_psum_q8", x, n_shards=1)
+            with pytest.raises(ValueError, match="needs mesh_shape"):
                 gossip.init_mesh_wire("hier_fedavg_ring_q8", x, n_shards=1)
         finally:
             dist.destroy_process_group()

@@ -243,8 +243,9 @@ def test_make_swarm_sync_step(ranks, inp):
 
 def test_gossip_refusals():
     """The reference's ValueErrors: no mesh; a model-zoo closure list; an
-    inner param spec (a rank holds whole nodes); and, not ported,
-    checkpoints of a gossip session."""
+    inner param spec (a rank holds whole nodes); the in-graph corrupt wire.
+    A gossip session's checkpoint, refused until its port, now round-trips
+    on a world of one rank (its psum-q8 wire included)."""
     cfg = W.session_cfg("ring", "fedavg")
     flat = torch.zeros(W.session_layout().size)
     with pytest.raises(ValueError, match="gossip backend needs mesh and axis"):
@@ -275,10 +276,26 @@ def test_gossip_refusals():
             assert not s.sync_schedule.simulated
             assert s.predicted_sync_bytes == s.sync_schedule.bytes_per_sync(
                 s.payload_params)
-            with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-                s.save(os.path.join(d, "s.msgpack"))
-            with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-                s.load(os.path.join(d, "s.msgpack"))
+            path = os.path.join(d, "s.msgpack")
+            w0 = [torch.from_numpy(r) for r in W.session_inputs(W.N)["w0"]]
+            q8 = SwarmSession(W.session_cfg("full", "fedavg", "int8"),
+                              W.id_step, W.const_eval, params=w0,
+                              backend="gossip", mesh=mesh, axis=axis,
+                              layout=W.session_layout(), device="cpu")
+            q8.round(torch.zeros((1, W.N, 1)), torch.zeros((W.N, 1)))
+            assert q8.sync_schedule.name == "fedavg_psum_q8"
+            q8.save(path)
+            back = SwarmSession(W.session_cfg("full", "fedavg", "int8"),
+                                W.id_step, W.const_eval, params=flat,
+                                backend="gossip", mesh=mesh, axis=axis,
+                                layout=W.session_layout(),
+                                device="cpu").load(path)
+            assert torch.equal(back.state.params, q8.state.params)
+            # on one rank the second stage re-quantizes a decoded payload:
+            # its residual is zero
+            assert q8.state.wire["ref"].any() and q8.state.wire["cons"].any()
+            for key in ("ref", "cons", "cres"):
+                assert torch.equal(back.state.wire[key], q8.state.wire[key])
             with pytest.raises(ValueError, match="engine backend"):
                 s.round(torch.zeros((1, W.N, 1)), torch.zeros((W.N, 1)),
                         faults=object())

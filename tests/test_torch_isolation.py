@@ -2,8 +2,10 @@
 reference package ``repro``, nor the ``msgpack`` package (the card's
 machine has none) — checked at run time in a fresh interpreter that drives
 one small CPU round on the int8 wire, a checkpoint round trip, a
-one-round fault plan with a corrupt sender, one host-loop round, one small
-model-zoo scenario and one small LM serve, and statically over every
+one-round fault plan with a corrupt sender, one host-loop round, a gossip
+round on a one-rank gloo world with its checkpoint round trip and the
+two-level mesh's size check, one small model-zoo scenario and one small LM
+serve, and statically over every
 source file, the jax-free test of the captured programs and the example
 twins (``examples/torch_*.py``)."""
 import ast
@@ -67,6 +69,28 @@ host = SwarmSession(SwarmConfig(n_nodes=2, sync_every=1, merge="fisher",
                     backend="host", device="cpu")
 assert host.round([[torch.ones(3), torch.zeros(3)]], [1, 1])["gates"] \
     == [True, True]
+import torch.distributed as dist
+from repro_torch.launch.mesh import make_swarm_mesh, make_two_level_swarm_mesh
+dist.init_process_group("gloo", init_method="file://" + os.path.join(
+    tempfile.mkdtemp(), "rdv"), rank=0, world_size=1)
+try:
+    mesh, axis = make_swarm_mesh(2)
+    gsess = SwarmSession(cfg, step, histo._make_eval_fn(cfg, model, layout),
+                         params=flat, opt_state=adamw_init(flat),
+                         layout=layout, device="cpu", backend="gossip",
+                         mesh=mesh, axis=axis)
+    gsess.round((xs, ys), val)
+    gsess.save(path)
+    assert torch.equal(gsess.load(path).state.wire["cres"],
+                       gsess.state.wire["cres"])
+    try:
+        make_two_level_swarm_mesh(2, 2)
+    except RuntimeError as e:
+        assert "need 4 devices" in str(e)
+    else:
+        raise AssertionError("a two-level mesh on one rank")
+finally:
+    dist.destroy_process_group()
 from repro_torch.experiments import scenarios
 rcfg = scenarios.ScenarioRunConfig(n_train=64, n_test=16, feat_dim=8,
                                    hidden=8, steps=6)

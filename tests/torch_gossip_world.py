@@ -1,5 +1,6 @@
-"""The gossip backend's worlds for ``tests/test_torch_gossip.py`` and
-``tests/test_torch_gossip_session.py``.
+"""The gossip backend's worlds for ``tests/test_torch_gossip.py``,
+``tests/test_torch_gossip_session.py``, ``tests/test_torch_hier.py`` and
+``tests/test_torch_gossip_faults.py``.
 
 Run as a script, one process a rank (a gloo world on the CPU) or one for
 the reference (JAX with forced host devices):
@@ -7,6 +8,14 @@ the reference (JAX with forced host devices):
     python tests/torch_gossip_world.py schedules RANK WORLD INIT OUT
     python tests/torch_gossip_world.py sessions RANK WORLD INIT OUT
     python tests/torch_gossip_world.py reference 0 WORLD - OUT
+    python tests/torch_gossip_world.py hier RANK WORLD INIT OUT
+    python tests/torch_gossip_world.py hier_reference 0 WORLD - OUT
+    python tests/torch_gossip_world.py faults RANK WORLD INIT OUT
+
+``hier`` runs on a two-level mesh of WORLD / 2 pods of 2 nodes (the
+schedules; at WORLD 4 also the sessions, picks, bytes and refusals), and
+``hier_reference`` on as many forced devices; ``faults`` runs the gossip
+checkpoints and the fault plane on 4 ranks.
 
 Each reads ``OUT/inputs.npz`` (seeded numpy, written by the test) and
 writes ``OUT/<task>_rank<r>.npz``. The port's side imports no jax; the
@@ -457,29 +466,512 @@ def reference_schedules(mesh, inp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the two-level mesh: the hierarchical schedules, picks, sessions, bytes
+# ---------------------------------------------------------------------------
+
+HIER = ("hier_fedavg_ring_q8", "hier_fisher_ring_q8")
+#: the schedules' payload: a conv leaf and a 700-value leaf, neither a
+#: multiple of the per_pod·wire_block delegate grid (256)
+HIER_LEAVES = (("a", (4, 3, 3, 3)), ("b", (700,)))
+HIER_REF = {"a": (3, 3, 3, 4), "b": (700,)}
+HIER_MESHES = ((2, 2), (3, 2))
+HIER_SYNCS = 6
+HIER_SW = 0.7
+#: the sessions' payload width (a multiple of the delegate grid: the
+#: reference's exact byte arithmetic)
+HIER_D = 1024
+CROSS = (1.0, 5.0, 6.0, 10.0)
+
+
+def hier_inputs(seed=3):
+    """Seeded numpy inputs of the two-level tests (6 nodes; a 2 × 2 mesh
+    takes the first 4), reference layout."""
+    rng = np.random.default_rng(seed)
+    n = max(k * per for k, per in HIER_MESHES)
+    out = {}
+    for k, shape in HIER_REF.items():
+        out[f"x/{k}"] = rng.normal(0, 1, (n,) + shape).astype(np.float32)
+        out[f"f/{k}"] = np.abs(rng.normal(1, 0.3, (n,) + shape)).astype(
+            np.float32)
+    out["w0"] = rng.normal(0, 1, (N, HIER_D)).astype(np.float32)
+    return out
+
+
+def hier_weights(n):
+    return (np.arange(1, n + 1) / np.arange(1, n + 1).sum()).astype(
+        np.float32)
+
+
+def _htree(inp, name, n):
+    return {k: inp[f"{name}/{k}"][:n] for k in HIER_REF}
+
+
+def hier_layout():
+    from repro_torch.core.flat import FlatLayout
+    return FlatLayout(list(HIER_LEAVES), convs=["a"])
+
+
+def port_hier_schedules(mesh, inp, k):
+    """The port's two hierarchical schedules on this rank's row, HIER_SYNCS
+    syncs on constant inputs: merged and wire after the first and the
+    last."""
+    import torch
+    from repro_torch.convert import from_reference
+    from repro_torch.core import gossip as g
+
+    n = 2 * k
+    lay = hier_layout()
+    x = from_reference(lay, _htree(inp, "x", n), lead=1)[mesh.rows]
+    f = from_reference(lay, _htree(inp, "f", n), lead=1)[mesh.rows]
+    w = torch.from_numpy(hier_weights(n))
+    Wp = torch.from_numpy(ring_matrix(k, HIER_SW).astype(np.float32))
+    kw = dict(layout=lay, wire_block=WB)
+    fns = {"hier_fedavg_ring_q8": lambda wr: g.hier_fedavg_ring_q8(
+               x, w, Wp, wr, mesh, **kw),
+           "hier_fisher_ring_q8": lambda wr: g.hier_fisher_ring_q8(
+               x, f, Wp, wr, mesh, **kw)}
+    out = {}
+    for name, fn in fns.items():
+        wire = g.init_mesh_wire(name, x, n_shards=n, wire_block=WB,
+                                layout=lay, mesh_shape=(k, 2))
+        for sync in range(HIER_SYNCS):
+            mesh.reset_counts()
+            merged, wire = fn(wire)
+            if sync in (0, HIER_SYNCS - 1):
+                out[f"{name}/merged{sync + 1}"] = merged.numpy()
+                _flat_keys(f"{name}/wire{sync + 1}", _numpy(wire), out)
+    return out
+
+
+def hier_cfg(merge, thr=0.0, cross=10.0, topo="ring"):
+    from repro_torch.configs.base import SwarmConfig
+    return SwarmConfig(n_nodes=N, sync_every=1, topology=topo, merge=merge,
+                       lora_only=False, val_threshold=thr,
+                       self_weight=HIER_SW, wire_dtype="int8",
+                       wire_block=WB, cross_pod_cost=cross)
+
+
+def _bytes(prefix, counted, out):
+    """A session's counted bytes: by link class, and by collective within
+    each."""
+    for link, v in counted["by_link_class"].items():
+        out[f"{prefix}/link/{link}"] = np.asarray(v)
+    for link, kinds in counted["by_link_collective"].items():
+        for kind, v in kinds.items():
+            out[f"{prefix}/{link}/{kind}"] = np.asarray(v)
+
+
+def port_hier_sessions(mesh, inp):
+    """On the 2 × 2 mesh: the cost model's picks, the settled session
+    commits (hierarchical at cross_pod_cost 10, flat at 5) with their
+    predicted and counted bytes, the flat ring q8 raw on the joint axis,
+    and the refusals."""
+    import torch
+    from repro_torch.core import gossip as g
+    from repro_torch.core.engine import SwarmEngine
+    from repro_torch.launch.mesh import (make_swarm_mesh,
+                                         make_two_level_swarm_mesh)
+
+    out = {}
+    for merge in ("fedavg", "fisher"):
+        for cross in CROSS:
+            eng = SwarmEngine(hier_cfg(merge, cross=cross), None, None,
+                              data_sizes=[1.0] * N, backend="gossip",
+                              mesh=mesh, axis=mesh.axis)
+            out[f"pick/{merge}/{cross:g}"] = np.asarray(
+                eng.sync_schedule.name)
+    # the same ranks as a flat mesh never offer the hierarchical forms
+    flat, _ = make_swarm_mesh(N)
+    eng = SwarmEngine(hier_cfg("fedavg", cross=100.0), None, None,
+                      backend="gossip", mesh=flat, axis=flat.axis)
+    out["pick/flat_mesh"] = np.asarray(eng.sync_schedule.name)
+    w0 = inp["w0"]
+    val, batches = torch.zeros((N, 1)), torch.zeros((1, N, 1))
+    for merge in ("fedavg", "fisher"):
+        for cross in (10.0, 5.0):
+            sa = make_session(hier_cfg(merge, 1.5, cross), id_step, w0, None,
+                              mesh, sizes=SIZES)
+            for _ in range(6):
+                assert not sa.round(batches, val)["gates"].any()
+            sb = make_session(hier_cfg(merge, 0.0, cross), id_step, w0, None,
+                              mesh, sizes=SIZES)
+            sb.load_state(sa.state)
+            log = sb.round(batches, val)
+            key = f"session/{merge}/{cross:g}"
+            out[f"{key}/committed"] = sb.state.params.numpy()
+            out[f"{key}/gates"] = log["gates"].numpy()
+            out[f"{key}/schedule"] = np.asarray(sb.sync_schedule.name)
+            for link, v in sb.predicted_link_bytes.items():
+                out[f"{key}/predicted/{link}"] = np.asarray(v)
+            _bytes(f"{key}/counted", sb.counted_sync_bytes, out)
+    # the flat ring q8 schedule, raw, over the joint ("pod", "node") axis
+    x = torch.from_numpy(w0)[mesh.rows]
+    W4 = torch.from_numpy(ring_matrix(N).astype(np.float32))
+    wire = g.init_mesh_wire("ring_ppermute", x, n_shards=N, wire_block=WB)
+    for _ in range(HIER_SYNCS):
+        merged, wire = g.ring_rows_gossip_q8(x, W4, wire, mesh,
+                                             wire_block=WB)
+    out["flat_ring_q8/merged"] = merged.numpy()
+    out.update(hier_refusals(mesh, x))
+    # a world of the wrong size, and meshes of too few pods or nodes
+    for key, shape in (("refuse/world", (2, 3)),):
+        try:
+            make_two_level_swarm_mesh(*shape)
+        except RuntimeError as e:
+            out[key] = np.asarray(str(e))
+    for key, shape in (("refuse/pods", (1, 4)), ("refuse/nodes", (4, 1))):
+        m, _ = make_two_level_swarm_mesh(*shape)
+        try:
+            g.hier_fedavg_ring_q8(x, np.full(N, 0.25), np.eye(shape[0]),
+                                  None, m, wire_block=WB)
+        except ValueError as e:
+            out[key] = np.asarray(str(e))
+    return out
+
+
+def hier_refusals(mesh, x):
+    """The refusals on the 2 × 2 mesh: {key: message}."""
+    import torch
+    from repro_torch.core import gossip as g
+    from repro_torch.core.engine import SwarmEngine
+
+    out = {}
+    Wp = ring_matrix(2, HIER_SW)
+    w = np.full(N, 0.25, np.float32)
+    wire = g.init_mesh_wire(HIER[0], x, n_shards=N, wire_block=WB,
+                            mesh_shape=(2, 2))
+    cases = {
+        "refuse/rows": lambda: g.hier_fedavg_ring_q8(
+            x.repeat(2, 1), w, Wp, wire, mesh, wire_block=WB),
+        "refuse/inner": lambda: g.hier_fisher_ring_q8(
+            x, x.abs(), Wp, wire, mesh, wire_block=WB,
+            inner_specs={"w": (None, "model")}),
+        "refuse/mesh_shape": lambda: g.init_mesh_wire(
+            HIER[0], x, n_shards=N, wire_block=WB),
+        "refuse/absent_pod": lambda: g.hier_fedavg_ring_q8(
+            x, np.asarray([0.0, 0.0, 0.5, 0.5]), Wp, wire, mesh,
+            wire_block=WB),
+        "refuse/engine_inner": lambda: SwarmEngine(
+            hier_cfg("fedavg"), None, None, backend="gossip", mesh=mesh,
+            axis=mesh.axis, param_specs={"w": (None, "model")}),
+    }
+    for key, fn in cases.items():
+        try:
+            fn()
+        except ValueError as e:
+            out[key] = np.asarray(str(e))
+    # a session whose pod 0 has left: its next sync raises on every rank
+    for merge in HIER:
+        s = make_session(hier_cfg(merge.split("_")[1]), id_step,
+                         np.zeros((N, HIER_D), np.float32), None, mesh)
+        s.leave(0)
+        s.leave(1)
+        try:
+            s.round(torch.zeros((1, N, 1)), torch.zeros((N, 1)))
+        except ValueError as e:
+            out[f"refuse/session_absent_pod/{merge}"] = np.asarray(str(e))
+    return out
+
+
+def reference_hier(inp, world):
+    """The reference's hierarchical schedules on the mesh of ``world``
+    devices, ``world / 2`` pods of 2 (the first sync op by op, as the port's
+    is: compiled, XLA rewrites some of its arithmetic and the references
+    differ in the last bit; the rest compiled), and on 2 × 2 its engine's
+    picks."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.base import SwarmConfig
+    from repro.core import gossip as g
+    from repro.core.engine import SwarmEngine
+
+    devs = jax.devices()
+    axis = ("pod", "node")
+    out = {}
+    for k, per in [m for m in HIER_MESHES if m[0] * m[1] == world]:
+        n = k * per
+        mesh = jax.make_mesh((k, per), axis, devices=devs[:n])
+        x = {a: jnp.asarray(v) for a, v in _htree(inp, "x", n).items()}
+        f = {a: jnp.asarray(v) for a, v in _htree(inp, "f", n).items()}
+        w = jnp.asarray(hier_weights(n))
+        Wp = jnp.asarray(ring_matrix(k, HIER_SW), jnp.float32)
+        fns = {"hier_fedavg_ring_q8": lambda wr: g.hier_fedavg_ring_q8(
+                   x, w, Wp, wr, mesh, axis, wire_block=WB),
+               "hier_fisher_ring_q8": lambda wr: g.hier_fisher_ring_q8(
+                   x, f, Wp, wr, mesh, axis, wire_block=WB)}
+        for name, fn in fns.items():
+            wire = g.init_mesh_wire(name, x, n_shards=n, wire_block=WB,
+                                    mesh_shape=(k, per))
+            jfn = jax.jit(fn)
+            for sync in range(HIER_SYNCS):
+                merged, wire = (fn if sync == 0 else jfn)(wire)
+                if sync in (0, HIER_SYNCS - 1):
+                    pre = f"{k}x{per}/{name}"
+                    _flat_keys(f"{pre}/merged{sync + 1}",
+                               jax.tree.map(np.asarray, merged), out)
+                    _flat_keys(f"{pre}/wire{sync + 1}",
+                               jax.tree.map(np.asarray, wire), out)
+    if world != N:
+        return out
+    mesh = jax.make_mesh((2, 2), axis, devices=devs[:N])
+    for merge in ("fedavg", "fisher"):
+        for cross in CROSS:
+            cfg = SwarmConfig(n_nodes=N, topology="ring", merge=merge,
+                              lora_only=False, wire_dtype="int8",
+                              wire_block=WB, cross_pod_cost=cross)
+            eng = SwarmEngine(cfg, None, None, data_sizes=[1.0] * N,
+                              backend="gossip", mesh=mesh, axis=axis)
+            out[f"pick/{merge}/{cross:g}"] = np.asarray(
+                eng.sync_schedule.name)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# checkpoints of a gossip session, and the fault plane on the gossip backend
+# ---------------------------------------------------------------------------
+
+#: (topology, merge, wire, two-level) of each checkpointed wire
+CKPT = {"f32": ("ring", "fedavg", "f32", False),
+        "ring_q8": ("ring", "fisher", "int8", False),
+        "gathered_q8": ("dynamic", "fedavg", "int8", False),
+        "psum_q8": ("full", "fisher", "int8", False),
+        "hier_fedavg_q8": ("ring", "fedavg", "int8", True),
+        "hier_fisher_q8": ("ring", "fisher", "int8", True)}
+CKPT_ROUNDS = 2
+#: the fault plane's payload: one leaf, as the reference's fault tests
+FAULT_D = 640
+FAULT_LEAVES = (("w", (FAULT_D,)),)
+
+
+def faults_inputs(seed=4):
+    rng = np.random.default_rng(seed)
+    p = sum(int(np.prod(s)) for _, s in SESSION_LEAVES)
+    return {"w0": rng.normal(0, 1, (N, p)).astype(np.float32),
+            "fw0": rng.normal(0, 1, (N, FAULT_D)).astype(np.float32)}
+
+
+def decay_step(p, o, b, s):
+    return p * 0.999, o, {"loss": (p * 0).sum()}
+
+
+def ckpt_cfg(case, thr=0.0):
+    from repro_torch.configs.base import SwarmConfig
+    topo, merge, wire, two = CKPT[case]
+    return SwarmConfig(n_nodes=N, sync_every=1, topology=topo, merge=merge,
+                       lora_only=False, val_threshold=thr, wire_dtype=wire,
+                       wire_block=WB, cross_pod_cost=10.0 if two else 1.0)
+
+
+def _equal(a, b) -> bool:
+    """Two states' trees equal bit for bit."""
+    import torch
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
+    if a is None or b is None:
+        return a is b
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def _states_equal(a, b) -> bool:
+    return all(_equal(getattr(a, f), getattr(b, f))
+               for f in ("params", "opt_state", "stats", "wire", "active",
+                         "rng")) and (a.round, a.step) == (b.round, b.step)
+
+
+def port_checkpoints(meshes, inp, tmp):
+    """Each CKPT wire: CKPT_ROUNDS rounds of the decay step, save, load into
+    a fresh session (equal bit for bit), then CKPT_ROUNDS more rounds of
+    both (equal bit for bit). Records the saved rows and wire, the
+    schedule and the file's path."""
+    import torch
+    from repro_torch.core.session import SwarmSession
+    from repro_torch.optim import adamw_init
+
+    lay = session_layout()
+    val, batches = torch.zeros((N, 1)), torch.zeros((1, N, 1))
+    out = {}
+    for case, (_, _, _, two) in CKPT.items():
+        mesh = meshes[two]
+
+        def mk():
+            return SwarmSession(
+                ckpt_cfg(case), decay_step, const_eval,
+                params=[torch.from_numpy(r) for r in inp["w0"]],
+                opt_state=adamw_init(torch.zeros(lay.size)),
+                data_sizes=SIZES, layout=lay, device="cpu",
+                backend="gossip", mesh=mesh, axis=mesh.axis)
+
+        s1 = mk()
+        for _ in range(CKPT_ROUNDS):
+            s1.round(batches, val)
+        path = os.path.join(tmp, f"ckpt_{case}.msgpack")
+        s1.save(path)
+        pre = f"ckpt/{case}"
+        out[f"{pre}/path"] = np.asarray(path)
+        out[f"{pre}/schedule"] = np.asarray(s1.sync_schedule.name)
+        out[f"{pre}/params"] = s1.state.params.numpy().copy()
+        if s1.state.stats is not None:
+            out[f"{pre}/stats"] = s1.state.stats.numpy().copy()
+        if s1.state.wire is not None:
+            _flat_keys(f"{pre}/wire", _numpy(s1.state.wire), out)
+            for key in [k for k in out if k.startswith(f"{pre}/wire/")]:
+                out[key] = out[key].copy()
+        s2 = mk().load(path)
+        out[f"{pre}/roundtrip"] = np.asarray(_states_equal(s1.state,
+                                                           s2.state))
+        for _ in range(CKPT_ROUNDS):
+            s1.round(batches, val)
+            s2.round(batches, val)
+        out[f"{pre}/resume"] = np.asarray(_states_equal(s1.state, s2.state))
+    return out
+
+
+def fault_cfg(thr, topo="ring", merge="fisher", cross=1.0, **kw):
+    from repro_torch.configs.base import SwarmConfig
+    return SwarmConfig(n_nodes=N, sync_every=1, topology=topo, merge=merge,
+                       lora_only=False, val_threshold=thr, wire_dtype="int8",
+                       wire_block=WB, self_weight=0.5, cross_pod_cost=cross,
+                       **kw)
+
+
+def port_fault_plane(meshes, inp, tmp):
+    """The reference's gossip fault checks (`tests/test_faults_spmd.py`)
+    on the port: crash → rejoin settling, the whole-wire quarantine, a
+    preempt mid-plan (flat and hierarchical), the quorum, and the train
+    step's calls over an 8-round plan."""
+    import torch
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.faults import FaultPlan, run_plan
+
+    flat = meshes[False]
+    lay = FlatLayout(list(FAULT_LEAVES))
+    w0 = inp["fw0"]
+    val, batches = torch.zeros((N, 1)), torch.zeros((1, N, 1))
+    out = {}
+
+    def sess(cfg, step, mesh=flat):
+        return make_session(cfg, step, w0, lay, mesh)
+
+    for topo, merge in (("ring", "fisher"), ("full", "fedavg")):
+        pre = f"crash/{topo}/{merge}"
+        sa = sess(fault_cfg(1.5, topo, merge), id_step)
+        plan = FaultPlan(n_nodes=N, n_rounds=9, seed=0).crash(1, at=1,
+                                                              rejoin=3)
+        sa, logs = run_plan(sa, plan, batches, val)
+        out[f"{pre}/gates_any"] = np.asarray(
+            any(lg["gates"].any() for lg in logs))
+        out[f"{pre}/held"] = sa.state.params.numpy().copy()
+        out[f"{pre}/active"] = sa.active
+        out[f"{pre}/schedule"] = np.asarray(sa.sync_schedule.name)
+        sb = sess(fault_cfg(0.0, topo, merge), id_step)
+        sb.load_state(sa.state)
+        out[f"{pre}/gates"] = sb.round(batches, val)["gates"].numpy()
+        out[f"{pre}/committed"] = sb.state.params.numpy()
+
+    sq = sess(fault_cfg(1.5), id_step)
+    sq.round(batches, val)
+    leaves = lambda w: [t for p in w.values() for t in p.values()]
+    out["quarantine/before"] = np.asarray(
+        any(bool(t.any()) for t in leaves(sq.state.wire)))
+    sq.quarantine_wire(2)
+    out["quarantine/after"] = np.asarray(
+        any(bool(t.any()) for t in leaves(sq.state.wire)))
+
+    base = FaultPlan(n_nodes=N, n_rounds=6, seed=0).crash(2, at=1, rejoin=4)
+    for tag, two, merge in (("flat", False, "fisher"),
+                            ("hier_fedavg", True, "fedavg"),
+                            ("hier_fisher", True, "fisher")):
+        cfg = fault_cfg(0.0, merge=merge, cross=10.0 if two else 1.0)
+
+        def run(plan):
+            mk = lambda: sess(cfg, decay_step, meshes[two])
+            return run_plan(mk(), plan, batches, val, make_session=mk,
+                            checkpoint_path=os.path.join(
+                                tmp, f"preempt_{tag}.msgpack"))
+
+        ra, la = run(base)
+        rb, lb = run(base.preempt(at=3))
+        pre = f"preempt/{tag}"
+        out[f"{pre}/schedule"] = np.asarray(rb.sync_schedule.name)
+        out[f"{pre}/equal"] = np.asarray(_states_equal(ra.state, rb.state))
+        out[f"{pre}/gates_equal"] = np.asarray(
+            [lg["gates"].tolist() for lg in la]
+            == [lg["gates"].tolist() for lg in lb])
+        out[f"{pre}/preempted"] = np.asarray([lg["preempted"] for lg in lb])
+        out[f"{pre}/params"] = rb.state.params.numpy()
+
+    sp = sess(fault_cfg(0.0, quorum=3), id_step)
+    sp.set_active([True, False, False, True])
+    log = sp.round(batches, val)
+    out["quorum/low/gates"] = log["gates"].numpy()
+    out["quorum/low/ok"] = log["quorum_ok"].numpy()
+    out["quorum/low/params"] = sp.state.params.numpy().copy()
+    sp.set_active([True, True, False, True])
+    log = sp.round(batches, val)
+    out["quorum/back/gates"] = log["gates"].numpy()
+    out["quorum/back/ok"] = log["quorum_ok"].numpy()
+
+    calls = []
+
+    def counting_step(p, o, b, s):
+        calls.append(1)
+        return id_step(p, o, b, s)
+
+    sc = sess(fault_cfg(1.5, quorum=2), counting_step)
+    sc.round(batches, val)
+    warm = len(calls)
+    plan = (FaultPlan(n_nodes=N, n_rounds=8, seed=3)
+            .crash(1, at=1, rejoin=3).straggle(3, at=4, rounds=1)
+            .drop(0, at=5).corrupt(2, at=6))
+    _, logs = run_plan(sc, plan, batches, val)
+    out["plan/warm_calls"] = np.asarray(warm)
+    out["plan/calls"] = np.asarray(len(calls))
+    out["plan/active"] = np.stack([lg["active"] for lg in logs])
+    out["plan/gates"] = np.stack([lg["gates"] for lg in logs])
+    return out
+
+
 def main(argv):
     task, rank, world, init, out_dir = argv[:5]
     rank, world = int(rank), int(world)
     inp = dict(np.load(os.path.join(out_dir, "inputs.npz")))
-    if task == "reference":
+    if task in ("reference", "hier_reference"):
         import jax
-        mesh = jax.make_mesh((world,), ("node",),
-                             devices=jax.devices()[:world])
-        res = reference_schedules(mesh, inp)
+        if task == "hier_reference":
+            res = reference_hier(inp, world)
+        else:
+            mesh = jax.make_mesh((world,), ("node",),
+                                 devices=jax.devices()[:world])
+            res = reference_schedules(mesh, inp)
     else:
         import torch.distributed as dist
-        from repro_torch.launch.mesh import make_swarm_mesh
+        from repro_torch.launch.mesh import (make_swarm_mesh,
+                                             make_two_level_swarm_mesh)
         _init_world(rank, world, init)
         try:
-            mesh, _ = make_swarm_mesh(N)
-            if task == "schedules":
-                res = port_schedules(mesh, inp)
-                try:
-                    make_swarm_mesh(N + 2)
-                except ValueError as e:
-                    res["mesh/indivisible"] = np.asarray(str(e))
+            if task == "hier":
+                mesh, _ = make_two_level_swarm_mesh(world // 2, 2)
+                res = port_hier_schedules(mesh, inp, world // 2)
+                if world == N:
+                    res.update(port_hier_sessions(mesh, inp))
+            elif task == "faults":
+                meshes = {False: make_swarm_mesh(N)[0],
+                          True: make_two_level_swarm_mesh(2, 2)[0]}
+                res = port_checkpoints(meshes, inp, out_dir)
+                res.update(port_fault_plane(meshes, inp, out_dir))
             else:
-                res = port_sessions(mesh, inp)
+                mesh, _ = make_swarm_mesh(N)
+                if task == "schedules":
+                    res = port_schedules(mesh, inp)
+                    try:
+                        make_swarm_mesh(N + 2)
+                    except ValueError as e:
+                        res["mesh/indivisible"] = np.asarray(str(e))
+                else:
+                    res = port_sessions(mesh, inp)
         finally:
             dist.destroy_process_group()
     np.savez(os.path.join(out_dir, f"{task}_rank{rank}.npz"), **res)
