@@ -276,9 +276,31 @@ Phases, each printing one JSON line:
                  on the int8 mesh wire under the CNN's steps, the largest
                  |θ| after each of 6 rounds (recorded, not held: their
                  int8 mass stream can reconstruct to 0 or below, as the
-                 reference's does). One card shows no inter-card traffic:
-                 (a)/(b) are one rank's NCCL calls, (c)/(d) go through
-                 host memory;
+                 reference's does); (e) inner (model) sharding within a
+                 node: Mamba2-370M at its published width, 8 of its 48
+                 layers, on 4 gloo ranks as 2
+                 nodes × model 2 (``make_swarm_mesh(2, model=2)``, the
+                 rules' ``param_specs``), fedavg/full, 2 steps a round of
+                 8 × 256 tokens a node, 2 rounds on the f32 wire (the cost
+                 model picks ``fedavg_psum``) and 2 on the int8 wire
+                 (``gathered_rows``: the q8 psums drop out), against an
+                 unsharded twin of the same 2 nodes on 2 gloo ranks from
+                 the same init and batches (the twin's int8 run with specs
+                 of size-1 axes, which pick the same schedule): the f32
+                 params after each round and the gates bit for bit (if the
+                 twin is not bit-reproducible, a second twin run bounds
+                 the difference), the int8 commit after the first sync
+                 within 1e-5 (one bf16 ulp in the bf16 slots) of an f64
+                 oracle of the per-shard block grid, each rank's pick,
+                 the bytes it handed per sync against the twin's and the
+                 cost model's, resident memory between rounds and the
+                 peaks of the local steps and of the sync against the
+                 twin's, round and sync walls, ``ssd_scan`` launches
+                 against the prediction, and one f32 checkpoint of the
+                 sharded session equal byte for byte (SHA-256) to the
+                 twin's. One card shows no inter-card traffic: (a)/(b)
+                 are one rank's NCCL calls, (c)-(e) go through host
+                 memory;
  17. timing      how many device times the profiler read, how many traces
                  ``device_ms`` discarded for lost kernel records, how
                  many times it fell back to CUDA events, and the gossip
@@ -4115,24 +4137,23 @@ def _gossip_two_level(dev, smi, base, tmp):
               "transport, not links between pods")
 
 
-def _gossip_spawn(fn, tmp, dev, tag):
-    """``fn(rank, world, init, tmp, dev)`` on GOSSIP_WORLD spawned ranks,
+def _gossip_spawn(fn, tmp, dev, tag, world=GOSSIP_WORLD):
+    """``fn(rank, world, init, tmp, dev)`` on ``world`` spawned ranks,
     joined within GOSSIP_TIMEOUT (a failed rank raises here, a live one is
     terminated); returns the wall and each rank's ``tmp/<tag><r>.pt``."""
     import torch
     import torch.multiprocessing as mp
 
     t0 = time.perf_counter()
-    ctx = mp.start_processes(fn, args=(GOSSIP_WORLD,
-                                       f"file://{tmp}/rdv_{tag}", tmp,
-                                       str(dev)),
-                             nprocs=GOSSIP_WORLD, join=False,
+    ctx = mp.start_processes(fn, args=(world, f"file://{tmp}/rdv_{tag}",
+                                       tmp, str(dev)),
+                             nprocs=world, join=False,
                              start_method="spawn")
     deadline = time.time() + GOSSIP_TIMEOUT
     try:
         while not ctx.join(timeout=5):
             if time.time() > deadline:
-                raise TimeoutError(f"gossip world of {GOSSIP_WORLD}: ranks "
+                raise TimeoutError(f"gossip world of {world}: ranks "
                                    f"still running after {GOSSIP_TIMEOUT} s")
     finally:
         for proc in ctx.processes:
@@ -4141,7 +4162,7 @@ def _gossip_spawn(fn, tmp, dev, tag):
                 proc.join(30)
     wall = time.perf_counter() - t0
     return wall, [torch.load(f"{tmp}/{tag}{r}.pt")
-                  for r in range(GOSSIP_WORLD)]
+                  for r in range(world)]
 
 
 def _gossip_world4(dev, smi, base, tmp):
@@ -4193,11 +4214,410 @@ def _gossip_world4(dev, smi, base, tmp):
               "transport, not NVLink")
 
 
+# (e) inner (model) sharding: Mamba2-370M at its published width, its
+# depth cut to GOSSIP_E_LAYERS of 48 (at 48 on an H100 the part took
+# 286-338 s, two 8.8 GB checkpoints among them), 2 nodes × model 2 on 4 gloo
+# ranks
+# against an unsharded twin on 2
+GOSSIP_E_NODES, GOSSIP_E_MODEL = 2, 2
+GOSSIP_E_LAYERS = 8
+GOSSIP_E_ROUNDS = 2
+GOSSIP_E_STEPS, GOSSIP_E_BATCH, GOSSIP_E_SEQ = 2, 8, 256
+GOSSIP_E_WIRES = ("f32", "int8")
+GOSSIP_E_PICKS = {"f32": "fedavg_psum", "int8": "gathered_rows"}
+
+
+def _gossip_e_cfg(wire):
+    from repro_torch.configs.base import SwarmConfig
+    return SwarmConfig(n_nodes=GOSSIP_E_NODES, sync_every=GOSSIP_E_STEPS,
+                       topology="full", merge="fedavg", lora_only=False,
+                       val_threshold=0.0, wire_dtype=wire,
+                       wire_block=WIRE_BLOCK)
+
+
+def _gossip_e_oracle(local, pre, weights, got):
+    """The first int8 fedavg sync against an f64 oracle of the per-shard
+    block grid: ``pre`` [N, n_values] the nodes' shard values before the
+    sync (zero wire tables), each leaf of the shard's layout ``local`` (no
+    conv: stored order is the reference's) zero-padded to whole wire
+    blocks and quantized in f32 as the reference's core does (scale
+    max|v|/127, round half to even, clip ±127), the merge Σ_j w_j deq_j
+    in f64; ``got`` [n_values] the rank's committed values. Chunk by chunk
+    of whole blocks. Returns (max abs error, its largest excess over 1e-5
+    plus, in a bf16 leaf, one bf16 ulp of the oracle's value)."""
+    import torch
+    w = torch.as_tensor(weights, dtype=torch.float64, device=pre.device)
+    c127 = torch.full((), 127.0, device=pre.device)
+    step = WIRE_BLOCK << 15
+    err, excess = 0.0, float("-inf")
+    for lf in local.value_layout.leaves:
+        ulp = 0.0 if lf.offset < local.n_wide else 2.0 ** -7
+        for a in range(0, lf.size, step):
+            n = min(step, lf.size - a)
+            at = lf.offset + a
+            v = torch.nn.functional.pad(pre[:, at:at + n],
+                                        (0, (-n) % WIRE_BLOCK)).view(
+                pre.shape[0], -1, WIRE_BLOCK)
+            scale = v.abs().amax(-1, keepdim=True) / c127
+            q = torch.clamp(torch.round(v / torch.where(scale > 0, scale,
+                                                        1.0)), -127.0, 127.0)
+            want = w @ (q * scale).reshape(pre.shape[0], -1)[:, :n].double()
+            d = (got[at:at + n].double() - want).abs()
+            err = max(err, float(d.max()))
+            excess = max(excess, float((d - GOSSIP_TOL
+                                        - ulp * want.abs()).max()))
+            del v, scale, q, want, d
+    return err, excess
+
+
+def _gossip_rank_e(rank, world, init, tmp, dev):
+    """(e) One gloo rank on ``cuda:0``: with a world of 4, block ``m`` of
+    node ``rank // 2`` (2 nodes × model 2, the rules' specs); with a world
+    of 2, node ``rank`` whole (the twin; its int8 run with specs over
+    size-1 axes, which pick the int8 schedule of the sharded run). Mamba2-370M
+    at full width, GOSSIP_E_ROUNDS rounds on each wire from the seed-0 init
+    and the seeded batches, then (f32) one collective save. Into
+    ``tmp/<tag><r>.pt``: picks, gates, hashes of the whole node's params
+    after each round (gathered), walls, memory, bytes, launches, the int8
+    oracle's excess and the checkpoint's SHA-256."""
+    import dataclasses
+    import hashlib
+    import os
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import gossip
+    from repro_torch.core.session import SwarmSession
+    from repro_torch.data import make_lm_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_swarm_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.rules import param_specs
+
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    sharded = world == GOSSIP_E_NODES * GOSSIP_E_MODEL
+    repeat = os.environ.get("GOSSIP_E_REPEAT") == "1"
+    tag = ("eshard" if sharded else "etwin2" if repeat else "etwin")
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        mesh, axis = (make_swarm_mesh(GOSSIP_E_NODES, model=GOSSIP_E_MODEL)
+                      if sharded else make_swarm_mesh(GOSSIP_E_NODES))
+        lcfg = dataclasses.replace(get_config("mamba2-370m"),
+                                   n_layers=GOSSIP_E_LAYERS)
+        model = build_model(lcfg)
+        layout = model.layout
+        step_fn = train.make_train_step(model, TrainConfig(
+            lr=1e-3, warmup_steps=1, max_steps=2 * GOSSIP_E_ROUNDS,
+            remat=False))
+        veval = torch.func.vmap(lambda p, v: 1.0 / (1.0 + model.loss_fn(
+            layout.unflatten(p), v, remat=False)[0]))
+        streams = [make_lm_stream(64, GOSSIP_E_SEQ, lcfg.vocab_size, seed=i,
+                                  topic_bias=1.0)
+                   for i in range(GOSSIP_E_NODES)]
+        sizes = [float(len(st["tokens"])) for st in streams]
+        weights = np.asarray(sizes) / sum(sizes)
+
+        def to_dev(arrays):
+            return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+        vals = to_dev({k: np.stack([st[k][:8] for st in streams])
+                       for k in streams[0]})
+        out = {"coords": dict(mesh.coords), "rows": (mesh.rows.start,
+                                                     mesh.rows.stop),
+               "wires": {}}
+        wires = ("f32",) if repeat else GOSSIP_E_WIRES
+        for wire in wires:
+            specs = None
+            if sharded:
+                specs = param_specs(layout, mesh)
+            elif wire == "int8":
+                specs = param_specs(layout, {"node": GOSSIP_E_NODES,
+                                             "data": 1, "model": 1})
+            p0 = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+            sess = SwarmSession(
+                _gossip_e_cfg(wire), lambda p, o, b, s: step_fn(p, o, b),
+                lambda p, v: veval(p, v), params=p0,
+                opt_state=adamw_init(layout.parts(p0)), data_sizes=sizes,
+                layout=layout, device=dev, backend="gossip", mesh=mesh,
+                axis=axis, param_specs=specs)
+            del p0
+            eng = sess.engine
+            rec = {"schedule": sess.sync_schedule.name,
+                   "slots": int(sess.state.params.shape[-1]),
+                   "values": int(eng.layout.n_values if eng.layout
+                                 is not None else 0),
+                   "rounds": []}
+            # the cost model at the rank's payload width (int8: each leaf
+            # of the shard padded to whole wire blocks)
+            width = (sum(-(-lf.size // WIRE_BLOCK) * WIRE_BLOCK
+                         for lf in eng._payload_layout(dev).leaves)
+                     if wire == "int8" else rec["values"])
+            rec["model_link_bytes"] = sess.sync_schedule.bytes_by_link_class(
+                width)
+            sync_log = {}
+            sync = eng.sync
+
+            def timed_sync(params, val, *a, **kw):
+                # the local steps' peak ends where the sync starts
+                torch.cuda.synchronize()
+                sync_log["steps_peak"] = torch.cuda.max_memory_allocated()
+                if wire == "int8" and not sync_log.get("pre_done"):
+                    sync_log["pre"] = gossip.all_gather(
+                        mesh, eng.layout.values(params), kind=None)
+                    sync_log["pre_done"] = True
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res = sync(params, val, *a, **kw)
+                torch.cuda.synchronize()
+                sync_log["wall"] = time.perf_counter() - t0
+                sync_log["peak"] = torch.cuda.max_memory_allocated()
+                return res
+
+            eng.sync = timed_sync
+            rng = np.random.default_rng(0)
+            reset_launches()
+            for r in range(GOSSIP_E_ROUNDS):
+                idx = [rng.integers(0, len(st["tokens"]),
+                                    (GOSSIP_E_STEPS, GOSSIP_E_BATCH))
+                       for st in streams]
+                batch = to_dev({k: np.stack([st[k][i] for st, i in
+                                             zip(streams, idx)], axis=1)
+                                for k in streams[0]})
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                log = sess.round(batch, vals)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                after = torch.cuda.memory_allocated()
+                node = eng.node_tensor(sess.state.params, kind=None)
+                digest = hashlib.sha256(
+                    node.view(torch.int16).cpu().numpy().tobytes()
+                ).hexdigest()
+                rec["rounds"].append(dict(
+                    gates=log["gates"].tolist(),
+                    metric_merged=log["metric_merged"].tolist(),
+                    loss=log["train"]["loss"].float().cpu().tolist(),
+                    wall=wall, sync_wall=sync_log["wall"],
+                    resident_before=resident, resident_after=after,
+                    steps_peak=sync_log["steps_peak"],
+                    sync_peak=sync_log["peak"], params_sha256=digest,
+                    counted=sess.counted_sync_bytes))
+                if wire == "int8" and r == 0:
+                    # the first sync's commit against the per-shard oracle
+                    # (a rejected node: its own values bit for bit)
+                    pre = sync_log.pop("pre")
+                    got = eng.layout.values(sess.state.params)[0]
+                    gate = bool(log["gates"][mesh.rows.start])
+                    torch.cuda.empty_cache()
+                    if gate:
+                        err, excess = _gossip_e_oracle(eng.layout, pre,
+                                                       weights, got)
+                    else:
+                        err = excess = float((got - pre[mesh.rank]).abs()
+                                             .max())
+                    rec["oracle"] = dict(gate=gate, max_abs_err=err,
+                                         excess=excess)
+                    del pre, got
+                if wire == "f32" and r == GOSSIP_E_ROUNDS - 1 and not sharded:
+                    torch.save(node.cpu(), f"{tmp}/{tag}_params{rank}.pt")
+                if wire == "f32" and r == GOSSIP_E_ROUNDS - 1 and sharded \
+                        and mesh.coords["model"] == 0:
+                    torch.save(node.cpu(), f"{tmp}/{tag}_params{rank}.pt")
+                del node, batch, log
+            rec["launches"] = {k: v for k, v in LAUNCHES.items() if v}
+            if wire == "f32" and not repeat:
+                path = os.path.join(tmp, f"{tag}.msgpack")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sess.save(path)
+                rec["save_s"] = time.perf_counter() - t0
+                if os.path.exists(path) and rank == 0:
+                    h = hashlib.sha256()
+                    with open(path, "rb") as f:
+                        for chunk in iter(lambda: f.read(1 << 26), b""):
+                            h.update(chunk)
+                    rec["file_sha256"] = h.hexdigest()
+                    rec["file_bytes"] = os.path.getsize(path)
+                    os.remove(path)
+                dist.barrier()
+            out["wires"][wire] = rec
+            eng.sync = sync
+            del sess, eng
+            torch.cuda.empty_cache()
+        torch.save(out, f"{tmp}/{tag}{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _gossip_inner(dev, smi, tmp):
+    """(e) The twin (2 ranks, a node each), then the sharded world (4
+    ranks, 2 nodes × model 2), spawned one after the other on the card;
+    a second twin run only when the sharded f32 params differ from the
+    first's. Raises on any failed check."""
+    import os
+    import torch
+
+    # six processes share the card: segments that grow keep the
+    # allocator's reserve from fragmenting across the rounds
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        twin_wall, twin = _gossip_spawn(_gossip_rank_e, tmp, dev, "etwin",
+                                        world=GOSSIP_E_NODES)
+        shard_wall, shard = _gossip_spawn(
+            _gossip_rank_e, tmp, dev, "eshard",
+            world=GOSSIP_E_NODES * GOSSIP_E_MODEL)
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    node_of = {r: shard[r]["rows"][0] for r in range(len(shard))}
+    rows = {}
+    # a step launches SSD once a layer (the vmap rule folds the node), a
+    # sync twice a layer (the gate scores the params and the candidate)
+    predicted = {"ssd_scan": GOSSIP_E_ROUNDS * (GOSSIP_E_STEPS + 2)
+                 * GOSSIP_E_LAYERS}
+    for wire in GOSSIP_E_WIRES:
+        t = [r["wires"][wire] for r in twin]
+        sh = [r["wires"][wire] for r in shard]
+        for rec in t + sh:
+            if rec["schedule"] != GOSSIP_E_PICKS[wire]:
+                raise AssertionError(f"(e) {wire}: picked {rec['schedule']}")
+            if rec["launches"] != predicted:
+                raise AssertionError(f"(e) {wire}: launches "
+                                     f"{rec['launches']}, predicted "
+                                     f"{predicted}")
+        for k in range(GOSSIP_E_ROUNDS):
+            gates = {tuple(rec["rounds"][k]["gates"]) for rec in t + sh}
+            if len(gates) != 1:
+                raise AssertionError(f"(e) {wire} round {k}: gates {gates}")
+        rows[wire] = dict(
+            schedule=sh[0]["schedule"],
+            slots_sharded=[rec["slots"] for rec in sh],
+            slots_twin=t[0]["slots"],
+            gates=[rec["gates"] for rec in sh[0]["rounds"]],
+            loss_twin=[rr["loss"] for rr in t[0]["rounds"]],
+            round_wall_s={"sharded": [[rr["wall"] for rr in rec["rounds"]]
+                                      for rec in sh],
+                          "twin": [[rr["wall"] for rr in rec["rounds"]]
+                                   for rec in t]},
+            sync_wall_s={"sharded": [[rr["sync_wall"] for rr in
+                                      rec["rounds"]] for rec in sh],
+                         "twin": [[rr["sync_wall"] for rr in rec["rounds"]]
+                                  for rec in t]},
+            resident_gib={
+                "sharded": [rec["rounds"][-1]["resident_after"] / 2 ** 30
+                            for rec in sh],
+                "twin": [rec["rounds"][-1]["resident_after"] / 2 ** 30
+                         for rec in t]},
+            steps_peak_gib={
+                "sharded": [max(rr["steps_peak"] for rr in rec["rounds"])
+                            / 2 ** 30 for rec in sh],
+                "twin": [max(rr["steps_peak"] for rr in rec["rounds"])
+                         / 2 ** 30 for rec in t]},
+            sync_peak_gib={
+                "sharded": [max(rr["sync_peak"] for rr in rec["rounds"])
+                            / 2 ** 30 for rec in sh],
+                "twin": [max(rr["sync_peak"] for rr in rec["rounds"])
+                         / 2 ** 30 for rec in t]},
+            counted_bytes={"sharded": sh[0]["rounds"][-1]["counted"],
+                           "twin": t[0]["rounds"][-1]["counted"]},
+            model_link_bytes={"sharded": sh[0]["model_link_bytes"],
+                              "twin": t[0]["model_link_bytes"]},
+            launches=sh[0]["launches"], predicted=predicted)
+        payload = lambda rec: sum(rec["rounds"][-1]["counted"][
+            "by_collective"].values())
+        rows[wire]["bytes_ratio"] = [payload(rec) / payload(t[node_of[r]])
+                                     for r, rec in enumerate(sh)]
+        rows[wire]["resident_ratio"] = [
+            rec["rounds"][-1]["resident_after"]
+            / t[node_of[r]]["rounds"][-1]["resident_after"]
+            for r, rec in enumerate(sh)]
+        rows[wire]["steps_peak_ratio"] = [
+            max(rr["steps_peak"] for rr in rec["rounds"])
+            / max(rr["steps_peak"] for rr in t[node_of[r]]["rounds"])
+            for r, rec in enumerate(sh)]
+    # f32: each round's whole-node params against the twin's, bit for bit
+    f32 = "f32"
+    same = all(shard[r]["wires"][f32]["rounds"][k]["params_sha256"]
+               == twin[node_of[r]]["wires"][f32]["rounds"][k]["params_sha256"]
+               for r in range(len(shard)) for k in range(GOSSIP_E_ROUNDS))
+    bound = None
+    if not same:
+        # the twin run again: the sharded run is held to its run-to-run
+        # difference
+        os.environ["GOSSIP_E_REPEAT"] = "1"
+        try:
+            _, _ = _gossip_spawn(_gossip_rank_e, tmp, dev, "etwin2",
+                                 world=GOSSIP_E_NODES)
+        finally:
+            del os.environ["GOSSIP_E_REPEAT"]
+        bound, err = 0.0, 0.0
+        for i in range(GOSSIP_E_NODES):
+            a = torch.load(f"{tmp}/etwin_params{i}.pt").float()
+            b = torch.load(f"{tmp}/etwin2_params{i}.pt").float()
+            c = torch.load(f"{tmp}/eshard_params{2 * i}.pt").float()
+            bound = max(bound, float((a - b).abs().max()))
+            err = max(err, float((c - a).abs().max()))
+        if err > bound:
+            raise AssertionError(f"(e) f32: sharded params {err} from the "
+                                 f"twin's, beyond its run-to-run {bound}")
+        rows[f32]["params_err_vs_twin"] = err
+    rows[f32]["bit_identical"] = same
+    rows[f32]["twin_run_to_run"] = bound
+    o = [rec["wires"]["int8"]["oracle"] for rec in shard + twin]
+    if any(x["excess"] > 0 for x in o):
+        raise AssertionError(f"(e) int8: commit vs the per-shard oracle {o}")
+    rows["int8"]["oracle_max_abs_err"] = {
+        "sharded": [x["max_abs_err"] for x in o[:len(shard)]],
+        "twin": [x["max_abs_err"] for x in o[len(shard):]]}
+    sha_t = twin[0]["wires"][f32]["file_sha256"]
+    sha_s = shard[0]["wires"][f32]["file_sha256"]
+    if sha_t != sha_s:
+        raise AssertionError("(e) the sharded checkpoint differs from the "
+                             "twin's")
+    for name in os.listdir(tmp):
+        if name.startswith(("etwin", "eshard")) and "_params" in name:
+            os.remove(os.path.join(tmp, name))
+    emit("gossip_e", card=smi, arch="mamba2-370m", layers=GOSSIP_E_LAYERS,
+         backend="gloo",
+         device=f"{dev} (all ranks)",
+         mesh={"node": GOSSIP_E_NODES, "data": 1, "model": GOSSIP_E_MODEL},
+         twin_world=GOSSIP_E_NODES, nodes=GOSSIP_E_NODES,
+         batch=GOSSIP_E_BATCH, seq=GOSSIP_E_SEQ,
+         steps_per_round=GOSSIP_E_STEPS, rounds=GOSSIP_E_ROUNDS,
+         wire_block=WIRE_BLOCK, spawn_wall_s={"twin": twin_wall,
+                                              "sharded": shard_wall},
+         checkpoint=dict(file_bytes=twin[0]["wires"][f32]["file_bytes"],
+                         sha256_equal=True,
+                         save_s={"twin": [r["wires"][f32]["save_s"]
+                                          for r in twin],
+                                 "sharded": [r["wires"][f32]["save_s"]
+                                             for r in shard]}),
+         settings=rows, tolerance_int8="1e-5, plus one bf16 ulp in the "
+         "bf16 slots",
+         note="4 + 2 gloo ranks on one card, one world after the other: "
+              "gloo stages CUDA tensors through host memory, so the walls "
+              "are host copies and TCP, not NVLink")
+
+
 def phase_gossip(dev, smi):
     """The gossip backend (`repro_torch.core.gossip`, ``SwarmSession(...,
     backend="gossip")``): (a) and (b) on a world of one NCCL rank in this
-    process, then (c) on 4 gloo ranks spawned on the one card, and (d) on
-    4 more as a two-level mesh."""
+    process, then (c) on 4 gloo ranks spawned on the one card, (d) on 4
+    more as a two-level mesh, and (e) inner sharding on 4 against an
+    unsharded twin on 2."""
     import gc
     import tempfile
     import torch
@@ -4227,6 +4647,12 @@ def phase_gossip(dev, smi):
     t0 = time.perf_counter()
     _gossip_two_level(dev, smi, base, tmp)
     TIMERS["gossip_d_s"] = time.perf_counter() - t0
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _gossip_inner(dev, smi, tmp)
+    TIMERS["gossip_e_s"] = time.perf_counter() - t0
 
 
 def main() -> int:

@@ -214,6 +214,22 @@ def candidate_schedules(cfg, *, per: int = 1, model_sharded: bool = False,
     return out
 
 
+def has_inner_sharding(param_specs) -> bool:
+    """True when param specs (``{path: spec}``, a spec a tuple of axis
+    names, tuples of names or None) name any inner (model) axis: the
+    layout the q8 psum reductions cannot chunk. An axis of size 1 counts,
+    as in the reference."""
+    if param_specs is None:
+        return False
+    if isinstance(param_specs, str):
+        return True
+    if isinstance(param_specs, dict):
+        param_specs = list(param_specs.values())
+    if isinstance(param_specs, (tuple, list)):
+        return any(has_inner_sharding(s) for s in param_specs)
+    return False
+
+
 def pick_schedule(cfg, *, per: int = 1, payload_params: Optional[int] = None,
                   simulated: bool = False, model_sharded: bool = False,
                   mesh_shape=None) -> SyncSchedule:

@@ -78,6 +78,17 @@ init_mesh_wire`) comes back in the log under ``"wire"``. On a two-level
 ``("pod", "node")`` mesh the cost model prices the flat schedules as
 cross-pod traffic and offers the hierarchical pod-delegate forms, which
 win when ``cfg.cross_pod_cost`` dominates.
+
+With ``param_specs`` that name the swarm mesh's ``data`` / ``model`` axes
+(`repro_torch.sharding.rules.param_specs`) a rank holds one block of each
+of its nodes (`repro_torch.core.flat.ShardLayout`): :attr:`SwarmEngine.
+layout` is the shard's, :attr:`SwarmEngine.step_layout` the node's. The
+sync's payload, wire and commit are the shard's, the schedule runs on the
+rank's node group, and the gate scores the node's params and candidate
+gathered over its shard group (:meth:`SwarmEngine.node_tensor`), so every
+rank of a node reaches the same gate bits. The cost model then drops the
+q8 psums, as the reference's does (``model_sharded``). A two-level mesh
+refuses inner specs.
 """
 from __future__ import annotations
 
@@ -281,14 +292,14 @@ class SwarmEngine:
             if mesh.n_nodes != cfg.n_nodes:
                 raise ValueError(f"the mesh holds {mesh.n_nodes} nodes, "
                                  f"cfg.n_nodes={cfg.n_nodes}")
-            from repro_torch.core.gossip import inner_axes
-            inner = inner_axes(param_specs)
-            if inner:
-                raise ValueError(
-                    f"param_specs name inner axes {inner}: on the gossip "
-                    "backend a rank holds whole nodes, and sharding a node's "
-                    "params over ranks (inner model sharding) is not ported "
-                    "(ROADMAP.md, queue 1 item 1)")
+        model_sharded = (backend == "gossip"
+                         and comms.has_inner_sharding(param_specs))
+        # the params' layout for the local steps; on an inner-sharded mesh
+        # the sync works on the rank's shard (`core.flat.ShardLayout`)
+        self.step_layout = layout
+        self.shard = None
+        if model_sharded:
+            layout = self._shard_layout(mesh, layout, param_specs)
         self.cfg = cfg
         self.backend = backend
         self.mesh = mesh if backend == "gossip" else None
@@ -299,8 +310,10 @@ class SwarmEngine:
         self.wire_dtype = comms.validate_wire_dtype(cfg.wire_dtype)
         self.wire_block = comms.validate_wire_block(cfg.wire_block)
         # the leaf boundaries of the payload: the wire's block grid restarts
-        # at every leaf, as the reference's per-leaf quantization does
+        # at every leaf, as the reference's per-leaf quantization does (the
+        # shard's leaves on an inner-sharded mesh)
         self.layout = layout
+        self._payload_shard = None
         self._split_lora = comms.split_payload_at_sync(cfg)
         self._adapters = None
         self._grid = None
@@ -314,9 +327,11 @@ class SwarmEngine:
                                self.mesh.shape[node_ax])
         # the engine backend reports the SPMD-equivalent wire cost; the
         # gossip backend runs the schedule picked for its nodes a rank
+        # model-sharded payloads drop the q8 psums from the candidates
         self.sync_schedule = comms.pick_schedule(
             cfg, per=1 if self.mesh is None else self.mesh.per,
-            simulated=self.mesh is None, mesh_shape=self.mesh_shape)
+            simulated=self.mesh is None, model_sharded=model_sharded,
+            mesh_shape=self.mesh_shape)
         self.data_sizes = (np.ones(cfg.n_nodes) if data_sizes is None
                            else np.asarray(data_sizes, np.float64))
         self.strategy = merge_lib.get_strategy(cfg)
@@ -351,6 +366,82 @@ class SwarmEngine:
         self._base_W = mixing_matrix(cfg, self.data_sizes)
         self.spectral_gap = topo.spectral_gap(self._base_W)
 
+    def _shard_layout(self, mesh, layout, param_specs):
+        """The rank's shard of a node under ``param_specs`` on the gossip
+        mesh; returns the layout the sync works on (the shard's, or
+        ``layout`` when no leaf is cut). A two-level mesh refuses inner
+        specs, as the reference's hierarchical schedules do."""
+        from repro_torch.core.flat import ShardLayout
+        from repro_torch.core.gossip import inner_axes
+        inner = sorted(set(inner_axes(param_specs)))
+        if isinstance(mesh.axis, tuple):
+            raise ValueError(
+                f"the two-level {mesh.axis} mesh does not support "
+                f"model-sharded payloads (param_specs name {inner}): the "
+                "hierarchical schedules' delegate chunks slice the "
+                "globally-flattened payload, and its flat schedules run "
+                "on whole nodes")
+        unknown = [a for a in inner if a not in ("data", "model")]
+        if unknown:
+            raise ValueError(f"param_specs name {unknown}: an inner spec "
+                             "names the swarm mesh's data and model axes")
+        if layout is None:
+            raise ValueError("param_specs need the params' layout (their "
+                             "leaf paths)")
+        shard = ShardLayout(layout, param_specs, mesh.inner, mesh.coords)
+        if not shard.sharded:
+            return layout
+        self.shard = shard
+        return shard.local
+
+    def payload_shard(self):
+        """The :class:`~repro_torch.core.flat.ShardLayout` of the sync
+        payload's values (every value, or the adapters of an adapter-only
+        sync) on an inner-sharded mesh; None otherwise."""
+        if self.shard is None:
+            return None
+        if self._payload_shard is None:
+            full = self.shard.full.value_layout
+            if self._split_lora:
+                full = FlatLayout([(lf.path, lf.shape) for lf in full.leaves
+                                   if is_adapter_path(lf.path)])
+            self._payload_shard = self.shard.sub(full)
+        return self._payload_shard
+
+    def _shard_for(self, width: int, local: bool = True):
+        """The shard layout of a tensor of ``width`` (a shard's if
+        ``local``, else a node's): the params' (slots or values), else the
+        payload's."""
+        lay = self.shard.local if local else self.shard.full
+        if width in (lay.size, lay.n_values):
+            return self.shard
+        return self.payload_shard()
+
+    def node_width(self, width: int) -> int:
+        """The width of the node tensor whose shard is ``width`` wide."""
+        if self.shard is None:
+            return width
+        shard = self._shard_for(width)
+        return (shard.full.size if width == shard.local.size
+                else shard.full.n_values)
+
+    def node_tensor(self, t, kind="shard_gather"):
+        """A rank's shard rows of a per-node tensor (slots, values or a
+        payload's values) gathered over the node's shard group into the
+        whole node's (``kind`` names the byte count, None for none); ``t``
+        itself without inner sharding."""
+        if self.shard is None:
+            return t
+        return self._shard_for(t.shape[-1]).gather(
+            t, self.mesh.shard_view, kind=kind)
+
+    def shard_tensor(self, t):
+        """Inverse of :meth:`node_tensor`: this rank's shard of a node
+        tensor."""
+        if self.shard is None:
+            return t
+        return self._shard_for(t.shape[-1], local=False).shard(t)
+
     def init_stats(self, stacked):
         """Strategy importance accumulators over the params' values
         (None for mean/fedavg)."""
@@ -363,8 +454,12 @@ class SwarmEngine:
     # -- slots and values ----------------------------------------------------
 
     def _n_values(self, params) -> int:
-        return (params.shape[-1] if self.layout is None
-                else self.layout.n_values)
+        if self.layout is None:
+            return params.shape[-1]
+        if self.shard is not None and \
+                params.shape[-1] == self.step_layout.size:
+            return self.step_layout.n_values     # a whole node's slots
+        return self.layout.n_values
 
     def _values(self, params):
         """``[N, P]`` slots → the f32 value vector ``[N, n_values]``."""
@@ -381,9 +476,9 @@ class SwarmEngine:
     def _parts(self, params):
         """What the strategy differences: the layout's parts for a layout
         with wide leaves, else the buffer."""
-        if self.layout is None or not self.layout.wide:
+        if self.step_layout is None or not self.step_layout.wide:
             return params
-        return self.layout.parts(params)
+        return self.step_layout.parts(params)
 
     def _adapter_index(self, device):
         """``(payload layout, value positions [A])`` of the adapter leaves
@@ -685,11 +780,20 @@ class SwarmEngine:
     # -- the gossip backend -----------------------------------------------
 
     def _mass_mean(self, f):
-        """The mean of every node's mass, from this rank's rows of it."""
+        """The mean of every node's mass, from this rank's rows of it (on
+        an inner-sharded mesh, of its shard: each block counted once over
+        the shard group)."""
         from repro_torch.core import gossip
-        total = gossip.all_reduce(self.mesh, f.sum().reshape(1),
+        shard = self.payload_shard()
+        if shard is None:
+            total = gossip.all_reduce(self.mesh, f.sum().reshape(1),
+                                      kind="control")
+            return total[0] / float(self.cfg.n_nodes * f.shape[-1])
+        total = gossip.all_reduce(self.mesh, shard.share(f).reshape(1),
                                   kind="control")
-        return total[0] / float(self.cfg.n_nodes * f.shape[-1])
+        total = gossip.all_reduce(self.mesh.shard_view, total,
+                                  kind="control")
+        return total[0] / float(self.cfg.n_nodes * shard.full.size)
 
     def _pod_rows(self, device):
         """The pod ring's mixing matrix [K, K] of the hierarchical
@@ -849,8 +953,12 @@ class SwarmEngine:
             candidate, new_wire = self._propose_gossip(x, a, stats, wire)
             cand_eval = self._slots(self._full(candidate, full), params)
         with torch.no_grad():
-            ml = torch.where(mine, self._veval(params, val), 1.0)
-            mm = torch.where(mine, self._veval(cand_eval, val), 0.0)
+            # inner sharding: the gate scores the node's gathered params
+            # and candidate, alike on every rank of the node
+            ml = torch.where(mine, self._veval(self.node_tensor(params),
+                                               val), 1.0)
+            mm = torch.where(mine, self._veval(self.node_tensor(cand_eval),
+                                               val), 0.0)
         del cand_eval
         metric_local = gossip.all_gather(mesh, ml, kind="control")
         metric_merged = gossip.all_gather(mesh, mm, kind="control")

@@ -261,3 +261,190 @@ class FlatLayout:
         if len(self._sizes) > len(parts):      # the pad slot
             parts.append(parts[-1].new_zeros(parts[-1].shape[:-1] + (1,)))
         return torch.cat(parts, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# a rank's shard of a node: inner (model) sharding on the gossip backend
+# ---------------------------------------------------------------------------
+
+def _storage_views(layout: FlatLayout, t: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+    """{path: writable view ``[..., *shape]``} of a slot buffer or of the
+    f32 value vector of ``layout`` (plain views: a wide leaf of a 16-bit
+    buffer is its f32 region, viewed, not a copy)."""
+    lead = t.shape[:-1]
+    if layout.wide and t.element_size() == 2 and t.shape[-1] == layout.size:
+        w = 2 * layout.n_wide
+        wide = t[..., :w].view(torch.float32)
+        rest = t[..., w:w + layout.n_rest]
+        out = {}
+        for leaf in layout.leaves:
+            region, off = ((wide, leaf.offset // 2) if leaf.wide
+                           else (rest, leaf.offset - w))
+            out[leaf.path] = region[..., off:off + leaf.size].view(
+                lead + leaf.shape)
+        return out
+    values = layout.value_layout
+    if t.shape[-1] != values.size:
+        raise ValueError(f"a tensor [..., {t.shape[-1]}] is neither the "
+                         f"slots ({layout.size}) nor the values "
+                         f"({values.size}) of the layout")
+    return {leaf.path: t[..., leaf.offset:leaf.offset + leaf.size].view(
+        lead + leaf.shape) for leaf in values.leaves}
+
+
+class ShardLayout:
+    """What one rank holds of a node whose leaves are sharded over the
+    ``data`` and ``model`` axes of the swarm mesh (the gossip backend's
+    inner sharding; `repro_torch.sharding.rules.param_specs` makes the
+    specs).
+
+    ``specs`` maps a leaf path to a spec, one entry per dimension of the
+    reference's leaf (None, an axis name, or a tuple of names, major
+    first); ``sizes`` the inner axes' sizes and ``coords`` this rank's
+    index on each. A dimension is cut into equal blocks along the
+    reference's axis order (through ``Leaf.ref_axes``: a conv is HWIO
+    there), and the rank keeps its block. A leaf without a spec, an axis of
+    size 1 or a dimension its axes do not divide is replicated.
+
+    :attr:`local` is the :class:`FlatLayout` of the rank's buffer: every
+    leaf's block, contiguous, in the full layout's order, with its wide and
+    conv marks, so a slot buffer, its value vector and the int8 wire's
+    per-leaf block grid (`repro_torch.core.gossip.padded_grid`) of the
+    shard are those of an ordinary layout. :meth:`shard` takes a tensor's
+    shard, :meth:`gather` puts a node's shards back together: every
+    per-node tensor (params, moments, statistics, wire references) goes
+    through this one mapping, its width telling slots from values."""
+
+    def __init__(self, layout: FlatLayout, specs: Dict[str, Sequence],
+                 sizes: Dict[str, int], coords: Dict[str, int]):
+        self.full = layout
+        self.specs = dict(specs)
+        self.sizes = dict(sizes)
+        self.coords = dict(coords)
+        self.group_size = 1
+        for s in self.sizes.values():
+            self.group_size *= s
+        self.cuts = {leaf.path: self._cuts(leaf, self.coords)
+                     for leaf in layout.leaves}
+        shapes = []
+        for leaf in layout.leaves:
+            shape = list(leaf.shape)
+            for dim, _, length in self.cuts[leaf.path]:
+                shape[dim] = length
+            shapes.append((leaf.path, tuple(shape)))
+        self.local = FlatLayout(shapes, wide=layout.wide, convs=layout.convs)
+        self.sharded = any(self.cuts.values())
+
+    def _cuts(self, leaf: Leaf, coords: Dict[str, int]):
+        """``((stored dim, start, length), ...)`` of the block of ``leaf``
+        a rank at ``coords`` holds."""
+        spec = tuple(self.specs.get(leaf.path) or ())
+        out = []
+        for k, ax in enumerate(spec[:len(leaf.shape)]):
+            if ax is None:
+                continue
+            n, idx = 1, 0
+            for a in (ax if isinstance(ax, (tuple, list)) else (ax,)):
+                size = self.sizes.get(a, 1)
+                n, idx = n * size, idx * size + coords.get(a, 0)
+            dim = leaf.ref_axes[k]
+            length = leaf.shape[dim] // n
+            if n > 1 and leaf.shape[dim] % n == 0:
+                out.append((dim, idx * length, length))
+        return tuple(out)
+
+    def coords_of(self, g: int) -> Dict[str, int]:
+        """The coordinates of rank ``g`` of a node's shard group (row-major
+        over the inner axes in ``sizes`` order)."""
+        out = {}
+        for a in reversed(list(self.sizes)):
+            g, out[a] = divmod(g, self.sizes[a])
+        return out
+
+    def _layouts(self, t: torch.Tensor, local: bool):
+        """``(full, local)`` layouts of ``t`` read at its local (or full)
+        width: the slot layouts, or the value layouts."""
+        lay = self.local if local else self.full
+        slots = t.shape[-1] == lay.size and (not lay.wide
+                                              or t.element_size() == 2)
+        if slots:
+            return self.full, self.local
+        return self.full.value_layout, self.local.value_layout
+
+    @staticmethod
+    def _block(view: torch.Tensor, cuts, lead: int) -> torch.Tensor:
+        for dim, start, length in cuts:
+            view = view.narrow(lead + dim, start, length)
+        return view
+
+    def shard(self, t: torch.Tensor) -> torch.Tensor:
+        """A node tensor ``[..., P]`` (slots, or values ``[...,
+        n_values]``) → this rank's shard, a new contiguous tensor."""
+        full, local = self._layouts(t, local=False)
+        out = t.new_empty(t.shape[:-1] + (local.size,))
+        if local.pad:
+            out[..., -1] = 0
+        lead = t.dim() - 1
+        src = _storage_views(full, t)
+        for path, dst in _storage_views(local, out).items():
+            dst.copy_(self._block(src[path], self.cuts[path], lead))
+        return out
+
+    def gather(self, t: torch.Tensor, view, kind="shard_gather"
+               ) -> torch.Tensor:
+        """This rank's shard ``[R, W]`` → the node tensor ``[R, P]``: one
+        all_gather of the shards over the node's shard group ``view``
+        (`repro_torch.launch.mesh.SwarmMesh.shard_view`; ``kind`` the byte
+        count's name, None for none), each rank's block written where its
+        coordinates put it (a replicated block once)."""
+        from repro_torch.core import gossip
+        return self.assemble(gossip.all_gather(view, t, kind=kind).view(
+            (self.group_size,) + tuple(t.shape)))
+
+    def assemble(self, parts: torch.Tensor) -> torch.Tensor:
+        """The shards of every rank of a node's shard group, ``[G, ...,
+        W]`` in group order (:meth:`coords_of`), → the node tensor
+        ``[..., P]``."""
+        full, local = self._layouts(parts[0], local=True)
+        out = parts.new_empty(parts.shape[1:-1] + (full.size,))
+        if full.pad:
+            out[..., -1] = 0
+        dst = _storage_views(full, out)
+        seen = {path: set() for path in dst}
+        for g in range(self.group_size):
+            coords = self.coords_of(g)
+            src = _storage_views(local, parts[g])
+            for leaf in self.full.leaves:
+                cuts = self._cuts(leaf, coords)
+                if cuts in seen[leaf.path]:
+                    continue
+                seen[leaf.path].add(cuts)
+                self._block(dst[leaf.path], cuts, parts.dim() - 2).copy_(
+                    src[leaf.path])
+        return out
+
+    def share(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's share of the sum of a node tensor's values from its
+        shard ``[..., W]``: each leaf's sum weighted by its blocks over the
+        shard group's size, so the shard group's shares add up to the
+        node's sum with every block counted once (f32 scalar)."""
+        _, local = self._layouts(t, local=True)
+        views = _storage_views(local, t)
+        total = t.new_zeros((), dtype=torch.float32)
+        for leaf in self.full.leaves:
+            blocks = 1
+            for dim, _, length in self.cuts[leaf.path]:
+                blocks *= leaf.shape[dim] // length
+            total = total + views[leaf.path].to(torch.float32).sum() * (
+                blocks / self.group_size)
+        return total
+
+    def sub(self, layout: FlatLayout) -> "ShardLayout":
+        """The same specs over another layout of the same leaves (a
+        payload's: the adapters carved out of the values)."""
+        return ShardLayout(layout, self.specs, self.sizes, self.coords)
+
+    def __repr__(self) -> str:
+        return (f"ShardLayout({self.local.size} of {self.full.size} slots, "
+                f"coords={self.coords}, sizes={self.sizes})")

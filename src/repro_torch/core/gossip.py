@@ -41,6 +41,19 @@ Schedules (their names are the reference's):
     int8 EF delta on its pod group, an intra-pod all_gather of the mixed
     chunks.
 
+**Inner (model) sharding.** On a swarm mesh with ``data`` / ``model``
+axes (`repro_torch.launch.mesh.make_swarm_mesh`) a rank holds one block
+of each of its nodes (`repro_torch.core.flat.ShardLayout`) and ``mesh`` is
+its node group: every flat schedule runs unchanged on the rank's shard
+rows ``[per, A_local]``, as the reference's ``_mapped`` runs each leaf's
+local block inside ``shard_map(in_specs=P(axis, *inner))``. The int8
+forms take the shard's layout (``ShardLayout.local``), so each leaf's
+local block is flattened in the reference's order and padded to whole
+wire blocks, as the reference pads a local shard: the scales and the EF
+references are those of its sharded run, not of an unsharded one. The
+psum-q8 forms refuse inner specs, as the reference's do (their chunks
+slice the globally-flattened payload), and so do the hierarchical forms.
+
 bf16 is a stateless cast of what crosses the wire (:func:`_wire_cast`).
 All int8 quantization goes through the port's one quant core
 (`core.comms.quant_encode` / `quant_decode`) on the reference's per-leaf
@@ -177,7 +190,8 @@ def sync_bytes(mesh) -> dict:
     """The payload bytes a mesh counted (``mesh.counts``, ``mesh.
     link_counts``) by collective, by link class, and by collective within
     each link class (``by_link_collective``), and the gate bookkeeping's
-    ``control`` bytes apart."""
+    ``control`` bytes apart; on an inner-sharded mesh also the gate's
+    gathers of a node's shards (``shard_gather``)."""
     def payload(kinds):
         return {k: kinds[k] for k in PAYLOAD_KINDS if k in kinds}
 
@@ -186,9 +200,12 @@ def sync_bytes(mesh) -> dict:
     by_link = {"intra": 0, "cross": 0}
     for link, kinds in per_link.items():
         by_link[link] += sum(kinds.values())
-    return {"by_collective": payload(mesh.counts), "by_link_class": by_link,
-            "by_link_collective": per_link,
-            "control": mesh.counts.get("control", 0)}
+    out = {"by_collective": payload(mesh.counts), "by_link_class": by_link,
+           "by_link_collective": per_link,
+           "control": mesh.counts.get("control", 0)}
+    if "shard_gather" in mesh.counts:
+        out["shard_gather"] = mesh.counts["shard_gather"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -415,7 +432,8 @@ def matrix_gossip(x, W, mesh, wire_dtype=None):
 def init_mesh_wire(schedule: str, payload, *, n_shards: int,
                    wire_block: int = 512, layout=None, mesh_shape=None):
     """Zero EF wire state of a ``*_q8`` schedule for this rank's payload
-    rows ``[per, A]`` (``layout``: the payload's leaves; None, one leaf):
+    rows ``[per, A]`` (``layout``: the payload's leaves, a shard's local
+    layout on an inner-sharded mesh; None, one leaf):
 
       ring:      {"ref", "left", "right"} [per, A] — own and neighbour-
                  replica references (weighted forms: {"num", "mass"} each)
@@ -591,11 +609,13 @@ def _psum_q8_stream(z, ref, cons, cres, mesh, grid: PaddedGrid):
 
 
 def fedavg_psum_q8(x, weights, wire, mesh, *, layout=None,
-                   wire_block: int = 512):
+                   inner_specs=None, wire_block: int = 512):
     """Compression-aware weighted global merge (``fedavg_psum_q8``): every
     node ends with the replicated consensus reconstruction of Σ_j w_j θ_j,
-    from int8 traffic only (:func:`_psum_q8_stream`). Returns ``(merged,
+    from int8 traffic only (:func:`_psum_q8_stream`). An inner spec that
+    names an axis raises, in the reference's words. Returns ``(merged,
     new_wire)``."""
+    _refuse_inner(inner_specs, _PSUM_INNER.format("fedavg_psum_q8"))
     grid = _grid_of(x, layout, wire_block, mesh.world_size)
     wl = _f32(weights, x)[mesh.rows]
     z = (x.to(torch.float32) * wl[:, None]).sum(0, keepdim=True)
@@ -605,12 +625,15 @@ def fedavg_psum_q8(x, weights, wire, mesh, *, layout=None,
             {"ref": ref2, "cons": cons2, "cres": cres2})
 
 
-def fisher_psum_q8(x, fishers, wire, mesh, *, layout=None, eps: float = 1e-8,
+def fisher_psum_q8(x, fishers, wire, mesh, *, layout=None,
+                   inner_specs=None, eps: float = 1e-8,
                    wire_block: int = 512):
     """Compression-aware importance-weighted global merge
     (``fisher_psum_q8``): Σ (F+eps)⊙θ and Σ (F+eps) each ride one
     delta-consensus EF stream; the merge is their ratio. Any weight folding
-    (gradmatch) is in the mass already. Returns ``(merged, new_wire)``."""
+    (gradmatch) is in the mass already. An inner spec that names an axis
+    raises, in the reference's words. Returns ``(merged, new_wire)``."""
+    _refuse_inner(inner_specs, _PSUM_INNER.format("fisher_psum_q8"))
     grid = _grid_of(x, layout, wire_block, mesh.world_size)
     xf = x.to(torch.float32)
     ff = fishers.to(torch.float32) + eps
@@ -662,11 +685,20 @@ def inner_axes(specs):
     return []
 
 
-def _refuse_inner_sharding(inner_specs, what: str) -> None:
-    if inner_axes(inner_specs):
-        raise ValueError(f"{what} does not support model-sharded payloads "
-                         "(inner_specs): delegate chunks slice the "
-                         "globally-flattened payload")
+#: the reference's refusals of inner specs, word for word
+_PSUM_INNER = ("{} does not support model-sharded payloads (inner_specs); "
+               "use a ring/gathered schedule or wire_dtype='bf16'")
+_HIER_INNER = ("{} does not support model-sharded payloads (inner_specs): "
+               "delegate chunks slice the globally-flattened payload")
+
+
+def _refuse_inner(inner_specs, message: str) -> None:
+    """Raise ``message`` when any leaf has a spec (an empty one too), as
+    the reference refuses any PartitionSpec leaf."""
+    specs = (inner_specs.values() if isinstance(inner_specs, dict)
+             else (inner_specs,))
+    if inner_specs is not None and any(s is not None for s in specs):
+        raise ValueError(message)
 
 
 def _delegate_ring(chunk, wire, mesh, k_pods: int, wb: int, pod_rows):
@@ -730,7 +762,7 @@ def hier_fedavg_ring_q8(x, weights, pod_rows, wire, mesh, *, layout=None,
     needs an active node (a weight > 0): a fully-absent pod raises.
     Returns ``(merged, new_wire)``."""
     k_pods, per_pod = _hier_shapes(x, mesh)
-    _refuse_inner_sharding(inner_specs, "hier_fedavg_ring_q8")
+    _refuse_inner(inner_specs, _HIER_INNER.format("hier_fedavg_ring_q8"))
     w = _f32(weights, x)
     if not bool((w.reshape(k_pods, per_pod) > 0).any(1).all()):
         raise ValueError("hier_fedavg_ring_q8: a fully-absent pod (every "
@@ -764,7 +796,7 @@ def hier_fisher_ring_q8(x, fishers, pod_rows, wire, mesh, *, layout=None,
     the merge is the ratio of the pod-row-mixed streams. Any weight folding
     (gradmatch) is in the mass already. Returns ``(merged, new_wire)``."""
     k_pods, per_pod = _hier_shapes(x, mesh)
-    _refuse_inner_sharding(inner_specs, "hier_fisher_ring_q8")
+    _refuse_inner(inner_specs, _HIER_INNER.format("hier_fisher_ring_q8"))
     grid = _grid_of(x, layout, wire_block, per_pod)
     ff = fishers.to(torch.float32) + eps
     z = torch.cat([ff * x.to(torch.float32), ff], 0)     # [2, A]

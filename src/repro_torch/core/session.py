@@ -59,6 +59,20 @@ into the reference's file of the WHOLE swarm (its global ``SwarmState``:
 reference's ``init_mesh_wire`` lays it out for the schedule), rank 0
 writes it, and a barrier follows; ``load`` reads it on every rank and
 keeps the rank's rows (a replicated leaf whole).
+
+**Inner (model) sharding.** With ``param_specs`` that name the mesh's
+``data`` / ``model`` axes (``make_swarm_mesh(n, data=D, model=M)``,
+`repro_torch.sharding.rules.param_specs`) a rank holds, between rounds,
+only its shard of its nodes (`repro_torch.core.flat.ShardLayout`): the
+params, the AdamW moments, the importance statistics and the mesh wire.
+A round gathers the node's params, moments and statistics over the
+node's shard group once, runs the ``sync_every`` unchanged steps on the
+whole node, and keeps the shard; the sync moves only shards, and its gate
+scores the gathered node. Every rank of a node so computes what an
+unsharded rank computes (an f32 round is the unsharded one bit for bit);
+a step's peak memory is a whole node's. ``save`` gathers the shards as
+well, so the file is the unsharded session's; ``load`` keeps the rank's
+shard.
 """
 from __future__ import annotations
 
@@ -201,8 +215,13 @@ class SwarmSession:
         ``"gossip"`` (collectives over ``mesh``, one rank a process).
     mesh / axis : the gossip backend's `repro_torch.launch.mesh.SwarmMesh`
         and its swarm axis (``make_swarm_mesh`` returns both).
-    param_specs : inner (within-node) sharding of the params; a spec that
-        names an axis raises: a gossip rank holds whole nodes.
+    param_specs : inner (within-node) sharding of the params on the
+        gossip backend, ``{leaf path: spec}`` with one entry per dimension
+        of the reference's leaf (`repro_torch.sharding.rules.param_specs`
+        makes them): over a mesh with ``data`` / ``model`` axes each rank
+        keeps its shard of its nodes between rounds. Axes of size 1 shard
+        nothing, and drop the q8 psums from the cost model's picks, as in
+        the reference; a two-level mesh refuses them.
     layout : the :class:`FlatLayout` of the params: the leaf boundaries of
         the wire's block grid, the reference tree of :attr:`node_params` and
         of checkpoints. Without one the params are a single leaf.
@@ -278,9 +297,12 @@ class SwarmSession:
             mesh=mesh, axis=axis, param_specs=param_specs)
         self._rows = self.engine.mesh.rows if backend == "gossip" else None
         if self._rows is not None:
-            # a rank keeps its nodes' rows
-            stacked_params = _node_rows(stacked_params, self._rows, 0)
-            stacked_opt = _node_rows(stacked_opt, self._rows, 0)
+            # a rank keeps its nodes' rows (its shard of them)
+            stacked_params = self.engine.shard_tensor(
+                _node_rows(stacked_params, self._rows, 0))
+            stacked_opt = self._per_node(
+                self.engine.shard_tensor,
+                _node_rows(stacked_opt, self._rows, 0))
         self._state = SwarmState(
             params=stacked_params, opt_state=stacked_opt,
             stats=self.engine.init_stats(stacked_params),
@@ -366,11 +388,12 @@ class SwarmSession:
         if self.backend == "host":
             rows = [nd.params for nd in self._learner.nodes]
         elif self._rows is not None:
-            # every rank gathers the whole swarm
+            # every rank gathers the whole swarm (its shards first)
             from repro_torch.core import gossip
-            rows = list(gossip.all_gather(self.engine.mesh,
-                                          self._state.params,
-                                          kind="control").unbind(0))
+            rows = list(gossip.all_gather(
+                self.engine.mesh, self.engine.node_tensor(
+                    self._state.params, kind="control"),
+                kind="control").unbind(0))
         else:
             rows = list(self._state.params.unbind(0))
         if self.layout is None:
@@ -480,7 +503,45 @@ class SwarmSession:
         if committed is not params:
             params.copy_(committed)
 
+    @staticmethod
+    def _per_node(fn, value):
+        """``fn`` over every per-node ``[rows, W]`` tensor of a state field
+        (a tensor or a dict tree of them); anything else (the AdamW count)
+        as it is."""
+        if value is None:
+            return None
+        if isinstance(value, dict):
+            return {k: SwarmSession._per_node(fn, v)
+                    for k, v in value.items()}
+        return fn(value) if value.dim() == 2 else value
+
+    def _map_state(self, fn, st: SwarmState, wire: bool = False
+                   ) -> SwarmState:
+        """The state with ``fn`` applied to its params, moments and
+        statistics (and its mesh wire, with ``wire``)."""
+        return dataclasses.replace(
+            st, params=fn(st.params),
+            opt_state=self._per_node(fn, st.opt_state),
+            stats=self._per_node(fn, st.stats),
+            wire=self._per_node(fn, st.wire) if wire else st.wire)
+
     def _local_steps(self, batches):
+        """The local steps of ``[T, N, ...]`` batches. With inner sharding
+        the node's params, moments and statistics are gathered over its
+        shard group first (uncounted: not sync traffic), the steps run on
+        the whole node, and the rank keeps its shard after them (also when
+        a step raises)."""
+        if self.engine.shard is None:
+            return self._node_steps(batches)
+        eng = self.engine
+        self._state = self._map_state(
+            lambda t: eng.node_tensor(t, kind=None), self._state)
+        try:
+            return self._node_steps(batches)
+        finally:
+            self._state = self._map_state(eng.shard_tensor, self._state)
+
+    def _node_steps(self, batches):
         """The local steps of ``[T, N, ...]`` batches, one engine call a
         step, the session's state replaced after each: a step's inputs are
         then held by nobody once the next one returns, so at most two
@@ -525,8 +586,9 @@ class SwarmSession:
             logs = [self._host_round(rb, val) for rb in batches]
             return {k: [lg[k] for lg in logs] for k in logs[0]}
         batches, val = self._mine(batches, 2), self._mine(val, 0)
-        split = ((lambda p: (p,)) if self.layout is None
-                 else self.layout.parts)
+        # the state's own layout (a shard's on an inner-sharded mesh)
+        lay = self.engine.layout
+        split = (lambda p: (p,)) if lay is None else lay.parts
 
         def land(deltas):
             # a commit delta added into the params buffer, part by part
@@ -597,10 +659,19 @@ class SwarmSession:
         if t.dtype == torch.float32 and width == self.layout.n_values:
             return self.layout.value_layout
         if self.engine._split_lora:
-            payload = self.engine._adapter_index("cpu")[0]
+            payload = self._full_payload_layout()
             if t.dtype == torch.float32 and width == payload.size:
                 return payload
         return None
+
+    def _full_payload_layout(self):
+        """The sync payload's layout of a whole node: the adapters, or
+        every value (a shard's payload on an inner-sharded mesh is
+        ``engine._payload_layout``)."""
+        eng = self.engine
+        if eng.payload_shard() is not None:
+            return eng.payload_shard().full
+        return eng._payload_layout("cpu")
 
     def _reference_tree(self, value):
         """A state field in the reference's tree layout (numpy leaves):
@@ -666,7 +737,7 @@ class SwarmSession:
         chunk tree (``[rows, chunk]`` a leaf)."""
         from repro_torch.core import gossip
         eng = self.engine
-        layout = eng._payload_layout("cpu")
+        layout = self._full_payload_layout()
         chunks = (None if layout is None else gossip.padded_grid(
             layout, eng.wire_block, eng.mesh_chunks()).leaf_chunks)
 
@@ -703,27 +774,41 @@ class SwarmSession:
             step=np.asarray(st.step, np.int32))
 
     def _save_gossip(self, path: str, meta: dict) -> None:
-        """Collective: every rank's rows gathered (not sync traffic: no
-        byte count), rank 0 writes, all wait."""
+        """Collective: every rank's rows (its shards first) gathered (not
+        sync traffic: no byte count), the first rank writes, all wait."""
         import torch.distributed as dist
         from repro_torch.core import gossip
 
-        mesh = self.engine.mesh
-        st = self._state
-        fields = self._gossip_global(
-            st, lambda t: gossip.all_gather(mesh, t, kind=None))
-        if mesh.rank == 0:
-            save_pytree(path, self._gossip_tree(fields, st), metadata=meta)
-        del fields
-        dist.barrier(group=mesh.group)
+        eng = self.engine
+        mesh = eng.mesh
+        st = self._map_state(lambda t: eng.node_tensor(t, kind=None),
+                             self._state, wire=True)
+        # on an inner-sharded mesh every node group now holds the same
+        # whole nodes: the first one gathers the swarm, its rank 0 writes
+        if not any(mesh.coords.values()):
+            fields = self._gossip_global(
+                st, lambda t: gossip.all_gather(mesh, t, kind=None))
+            if mesh.rank == 0:
+                save_pytree(path, self._gossip_tree(fields, st),
+                            metadata=meta)
+            del fields
+        del st
+        dist.barrier(group=mesh.world_group)
 
     def _load_gossip(self, path: str) -> None:
-        """Every rank reads the whole swarm and keeps its rows."""
-        mesh = self.engine.mesh
-        st = self._state
+        """Every rank reads the whole swarm and keeps its rows (its shard
+        of them)."""
+        eng = self.engine
+        mesh = eng.mesh
         world, rank = mesh.world_size, mesh.rank
-        like = self._gossip_global(st, lambda t: torch.zeros(
-            (world * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype))
+        # the node-wide shapes of the rank's state (no data)
+        st = self._map_state(lambda t: torch.empty(
+            t.shape[:-1] + (eng.node_width(t.shape[-1]),), dtype=t.dtype,
+            device="meta"), self._state, wire=True)
+        like = tuple(_tree_map(
+            lambda t, top: torch.zeros(t.shape, dtype=t.dtype) if t.is_meta
+            else t, f) for f in self._gossip_global(st, lambda t: torch.zeros(
+                (world * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype)))
         tree = load_pytree(path, self._gossip_tree(like, st))
         _, from_tree = self._wire_codec()
 
@@ -731,7 +816,8 @@ class SwarmSession:
             if top not in _REPLICATED:
                 r = local.shape[0]
                 full = full[rank * r:(rank + 1) * r]
-            return full.to(device=local.device, dtype=local.dtype, copy=True)
+            full = full.to(device=self.device, dtype=local.dtype, copy=True)
+            return eng.shard_tensor(full) if full.dim() == 2 else full
 
         fields = {f: _zip_map(mine, self._from_reference_tree(tree[f], glob),
                               getattr(st, f))

@@ -21,7 +21,11 @@ On the gossip backend every rank replays the same plan against its own
 session: the membership updates are replicated data, a rejoin quarantines
 the whole mesh wire on every rank, corruption lowers to drops (the mesh
 wire carries no in-graph injection), and a preempt's save and load are
-collective (`repro_torch.core.session.SwarmSession.save`).
+collective (`repro_torch.core.session.SwarmSession.save`). An
+inner-sharded gossip session (``param_specs`` over a mesh with ``data`` /
+``model`` axes) runs a plan the same way: the quarantine zeroes every
+rank's shard of the mesh wire, and a preempt's save gathers the shards
+into the unsharded session's file, whose load keeps each rank's shard.
 
 On the quantized wire the runner threads a (possibly idle)
 ``FaultSignals`` every round, so every round of a plan runs the same steps

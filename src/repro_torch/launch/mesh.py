@@ -27,6 +27,22 @@ over the rank's **node group** (:attr:`SwarmMesh.node_view`) and their
 cross-pod leg over its **pod group** (:attr:`SwarmMesh.pod_view`). The
 cost model (``cfg.intra_pod_cost`` / ``cfg.cross_pod_cost``) picks
 between them.
+
+A swarm mesh with inner axes (``make_swarm_mesh(n, data=D, model=M)``,
+the reference's ``("node", "data", "model")`` mesh) shards each node over
+``D·M`` ranks: rank ``(i·D + d)·M + m`` holds block ``(d, m)`` of node
+axis position ``i`` (row-major). The schedules run on the rank's **node
+group** (the ranks that hold the same block of every node; the mesh's
+``group``, link class ``intra``), and a node's ranks gather its state over
+their **shard group** (:attr:`SwarmMesh.shard_view`). Which values a block
+holds is decided by the param specs (`repro_torch.sharding.rules.
+param_specs`, `repro_torch.core.flat.ShardLayout`):
+
+    mesh, axis = make_swarm_mesh(2, model=2)   # 4 ranks: 2 nodes × 2
+    specs = param_specs(layout, mesh)
+    session = SwarmSession(cfg, step, eval_fn, params=flat, layout=layout,
+                           backend="gossip", mesh=mesh, axis=axis,
+                           param_specs=specs)
 """
 from __future__ import annotations
 
@@ -47,6 +63,13 @@ class SwarmMesh:
     ``per`` the nodes a rank holds (``rows``: their slice of the node
     axis). ``shape`` maps each axis to its size, as a reference mesh's
     ``shape`` does.
+
+    With inner axes (:func:`make_swarm_mesh` with ``data`` / ``model``
+    above 1) ``group`` is the rank's node group, ``inner`` maps the inner
+    axes to their sizes and ``coords`` to this rank's index on each,
+    :attr:`shard_view` is the node's shard group and ``world_group`` the
+    group the mesh was built over (None: the default group); otherwise
+    ``inner`` and ``coords`` are empty and ``shard_view`` None.
 
     ``counts`` holds the bytes handed to each collective since the last
     :meth:`reset_counts` and ``link_counts`` the same by link class
@@ -81,6 +104,10 @@ class SwarmMesh:
         self.per = n_nodes // self.world_size
         self.node_view: Optional[GroupView] = None
         self.pod_view: Optional[GroupView] = None
+        self.shard_view: Optional[GroupView] = None
+        self.world_group = group
+        self.inner: Dict[str, int] = {}
+        self.coords: Dict[str, int] = {}
         self.reset_counts()
 
     @property
@@ -101,7 +128,8 @@ class GroupView:
     """One axis of a two-level :class:`SwarmMesh` as a mesh of its own: the
     subgroup ``group`` of the ranks that share this rank's pod (the node
     axis, ``link`` ``"intra"``) or its node index (the pod axis,
-    ``"cross"``). ``rank`` and ``world_size`` are this process's place in
+    ``"cross"``), or of a swarm mesh with inner axes the ranks that hold
+    one node (its shard group, ``"intra"``). ``rank`` and ``world_size`` are this process's place in
     the subgroup; the collectives of `repro_torch.core.gossip` take a view
     as they take a mesh, and add their bytes to the parent's counts."""
 
@@ -132,9 +160,10 @@ class GroupView:
 def make_production_mesh(*, multi_pod: bool = False, group=None):
     """The reference's production mesh, ``(16, 16)`` over ``("data",
     "model")`` (``(2, 16, 16)`` over ``("pod", "data", "model")`` with
-    ``multi_pod``), as a descriptor over a world of that many ranks. The
-    port shards no model within a node, so nothing runs on it yet; a world
-    too small raises the reference's error."""
+    ``multi_pod``), as a descriptor over a world of that many ranks; a
+    world too small raises the reference's error. The gossip backend runs
+    on a swarm mesh: a node sharded over ``data`` × ``model`` ranks is
+    :func:`make_swarm_mesh` with those sizes."""
     import torch.distributed as dist
 
     shape = ({"pod": 2, "data": 16, "model": 16} if multi_pod
@@ -150,12 +179,52 @@ def make_production_mesh(*, multi_pod: bool = False, group=None):
     return SwarmMesh(n, group=group, axis="data", shape=shape)
 
 
-def make_swarm_mesh(n_nodes: int = 4, *, group=None):
+def make_swarm_mesh(n_nodes: int = 4, *, data: int = 1, model: int = 1,
+                    group=None):
     """The swarm mesh over an initialized process group: the ``node`` axis
     spans its ranks, each holding ``n_nodes / world_size`` nodes. Raises,
     as the reference does, when the nodes do not divide over the shards.
-    Returns ``(mesh, "node")``."""
-    mesh = SwarmMesh(n_nodes, group=group, axis="node")
+    Returns ``(mesh, "node")``.
+
+    ``data`` / ``model`` above 1 make the reference's ``("node", "data",
+    "model")`` mesh: each node position spans ``data · model`` ranks, rank
+    ``(i·data + d)·model + m`` holding block ``(d, m)`` of the nodes of
+    position ``i``. Every rank of the group must call it then: it creates,
+    in the same order on every rank, the node group of each block ``(d,
+    m)`` (the mesh's ``group``: the schedules run on it) and the shard
+    group of each node position (:attr:`SwarmMesh.shard_view`). A world
+    that ``data · model`` does not divide raises."""
+    import torch.distributed as dist
+
+    inner = data * model
+    if inner == 1:
+        mesh = SwarmMesh(n_nodes, group=group, axis="node")
+        return mesh, mesh.axis
+    have = dist.get_world_size(group) if dist.is_initialized() else 0
+    if have < inner or have % inner:
+        raise RuntimeError(
+            f"need a multiple of {inner} devices (data={data} × "
+            f"model={model}), have {have}")
+    positions = have // inner
+
+    def world(r):
+        return r if group is None else dist.get_global_rank(group, r)
+
+    rank = dist.get_rank(group)
+    i, g = divmod(rank, inner)
+    node_groups = [dist.new_group([world(q * inner + b)
+                                   for q in range(positions)])
+                   for b in range(inner)]
+    shard_groups = [dist.new_group([world(q * inner + b)
+                                    for b in range(inner)])
+                    for q in range(positions)]
+    mesh = SwarmMesh(n_nodes, group=node_groups[g], axis="node",
+                     shape={"node": positions, "data": data,
+                            "model": model})
+    mesh.world_group = group
+    mesh.inner = {"data": data, "model": model}
+    mesh.coords = {"data": g // model, "model": g % model}
+    mesh.shard_view = GroupView(mesh, shard_groups[i], "shard", "intra")
     return mesh, mesh.axis
 
 

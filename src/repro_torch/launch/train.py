@@ -125,7 +125,14 @@ def make_swarm_sync_step(swarm_cfg: SwarmConfig, mesh, axis: str,
     rank, all_reduce for full fedavg, all_gather with the runtime mask for
     dynamic). ``commit(candidate, local_params, metric_merged,
     metric_local) -> params``: the validation-gated select on the rank's
-    [per] metrics."""
+    [per] metrics.
+
+    With ``param_specs`` that name the mesh's ``data`` / ``model`` axes
+    (`repro_torch.sharding.rules.param_specs`; ``layout`` required) both
+    take and return the rank's shard rows ``[per, P_local]`` of
+    ``ShardLayout(layout, param_specs, mesh.inner, mesh.coords)``
+    (`repro_torch.core.flat`: its ``shard`` cuts a node's rows), and the
+    cost model leaves the q8 psums out, as the reference's does."""
     engine = SwarmEngine(swarm_cfg, None, None, data_sizes=data_sizes,
                          layout=layout, backend="gossip", mesh=mesh,
                          axis=axis, param_specs=param_specs)

@@ -243,7 +243,8 @@ def test_make_swarm_sync_step(ranks, inp):
 
 def test_gossip_refusals():
     """The reference's ValueErrors: no mesh; a model-zoo closure list; an
-    inner param spec (a rank holds whole nodes); the in-graph corrupt wire.
+    inner param spec without the params' layout (with it, a mesh without
+    a model axis shards nothing); the in-graph corrupt wire.
     A gossip session's checkpoint, refused until its port, now round-trips
     on a world of one rank (its psum-q8 wire included)."""
     cfg = W.session_cfg("ring", "fedavg")
@@ -259,10 +260,18 @@ def test_gossip_refusals():
                                 rank=0, world_size=1)
         try:
             mesh, axis = make_swarm_mesh(W.N)
-            with pytest.raises(ValueError, match="a rank holds whole nodes"):
+            with pytest.raises(ValueError, match="need the params' layout"):
                 SwarmSession(cfg, None, None, params=flat, backend="gossip",
                              mesh=mesh, axis=axis, device="cpu",
                              param_specs={"c": (None, "model")})
+            # with the layout an inner spec is taken; a mesh without a
+            # model axis shards nothing
+            inner = SwarmSession(cfg, None, None, params=flat,
+                                 backend="gossip", mesh=mesh, axis=axis,
+                                 device="cpu", layout=W.session_layout(),
+                                 param_specs={"c": (None, "model")})
+            assert inner.engine.shard is None
+            assert inner.state.params.shape == (W.N, flat.numel())
             with pytest.raises(ValueError, match="swarm axis"):
                 SwarmSession(cfg, None, None, params=flat, backend="gossip",
                              mesh=mesh, axis="pod", device="cpu")

@@ -330,7 +330,8 @@ REFUSALS = {
     "refuse/inner": "does not support model-sharded payloads",
     "refuse/mesh_shape": "needs mesh_shape=(n_pods, per_pod)",
     "refuse/absent_pod": "fully-absent pod",
-    "refuse/engine_inner": "queue 1 item 1",
+    "refuse/engine_inner": "two-level ('pod', 'node') mesh does not "
+                           "support model-sharded payloads",
     "refuse/session_absent_pod/hier_fedavg_ring_q8": "pod(s) [0] have no "
                                                      "active node",
     "refuse/session_absent_pod/hier_fisher_ring_q8": "pod(s) [0] have no "

@@ -68,11 +68,11 @@ def dynamic_full(sizes, active):
     return W
 
 
-def schedule_inputs(n, seed=0):
+def schedule_inputs(n, seed=0, shapes=REF_SHAPES):
     """Seeded numpy inputs of the schedule tests, reference layout."""
     rng = np.random.default_rng(seed)
     out = {}
-    for k, shape in REF_SHAPES.items():
+    for k, shape in shapes.items():
         out[f"x/{k}"] = rng.normal(0, 1, (n,) + shape).astype(np.float32)
         out[f"f/{k}"] = np.abs(rng.normal(1, 0.3, (n,) + shape)).astype(
             np.float32)
@@ -84,8 +84,8 @@ def schedule_inputs(n, seed=0):
     return out
 
 
-def _tree(inp, name):
-    return {k: inp[f"{name}/{k}"] for k in REF_SHAPES}
+def _tree(inp, name, shapes=REF_SHAPES):
+    return {k: inp[f"{name}/{k}"] for k in shapes}
 
 
 def _flat_keys(prefix, tree, out):
@@ -106,18 +106,29 @@ def layout():
     return FlatLayout(list(LEAVES), convs=["a"])
 
 
-def port_schedules(mesh, inp):
+def port_schedules(mesh, inp, shard=None):
     """Every schedule of `repro_torch.core.gossip` on this rank's rows:
     {key: numpy} with the merged rows ``<case>/merged`` [per, A] (stored
     order), q8 wires after the first and the last sync, and the bytes the
-    first sync handed to each collective (``<case>/bytes/<kind>``)."""
+    first sync handed to each collective (``<case>/bytes/<kind>``).
+
+    ``shard`` (a `ShardLayout` of :func:`inner_layout`): the rank's shard of
+    the rows on an inner-sharded mesh; the psum-q8 forms, which refuse
+    inner specs, are left out, and every tensor kept is the node's,
+    gathered over the shard group."""
     import torch
     from repro_torch.convert import from_reference
     from repro_torch.core import gossip as g
 
-    lay = layout()
-    x = from_reference(lay, _tree(inp, "x"), lead=1)[mesh.rows].contiguous()
-    f = from_reference(lay, _tree(inp, "f"), lead=1)[mesh.rows].contiguous()
+    lay = layout() if shard is None else shard.full
+    shapes = REF_SHAPES if shard is None else INNER_REF
+    cut = (lambda t: t) if shard is None else shard.shard
+    x = cut(from_reference(lay, _tree(inp, "x", shapes),
+                           lead=1)[mesh.rows].contiguous())
+    f = cut(from_reference(lay, _tree(inp, "f", shapes),
+                           lead=1)[mesh.rows].contiguous())
+    if shard is not None:
+        lay = shard.local
     w, Wr, Wd = (torch.from_numpy(inp[k]) for k in ("w", "Wring", "Wdyn"))
     ring = mesh.per == 1 and mesh.world_size >= 3
     cases = {"fedavg_gossip": lambda: g.fedavg_gossip(x, w, mesh),
@@ -136,11 +147,14 @@ def port_schedules(mesh, inp):
             cases[f"ring_topo_fisher_gossip_{wd}"] = (
                 lambda wd=wd: g.ring_topo_fisher_gossip(x, f, Wr, mesh,
                                                         wire_dtype=wd))
+    node = ((lambda t: t) if shard is None
+            else lambda t: shard.gather(t, mesh.shard_view, kind=None))
     out = {}
     for name, fn in cases.items():
         mesh.reset_counts()
-        out[f"{name}/merged"] = fn().numpy()
+        merged = fn()
         _flat_keys(f"{name}/bytes", dict(mesh.counts), out)
+        out[f"{name}/merged"] = node(merged).numpy()
     kw = dict(layout=lay, wire_block=WB)
     q8 = {"matrix_gossip_q8": lambda wr: g.matrix_gossip_q8(
               x, Wd, wr, mesh, **kw),
@@ -149,6 +163,8 @@ def port_schedules(mesh, inp):
           "fedavg_psum_q8": lambda wr: g.fedavg_psum_q8(x, w, wr, mesh, **kw),
           "fisher_psum_q8": lambda wr: g.fisher_psum_q8(x, f, wr, mesh,
                                                         **kw)}
+    if shard is not None:
+        del q8["fedavg_psum_q8"], q8["fisher_psum_q8"]
     if ring:
         q8["ring_rows_gossip_q8"] = lambda wr: g.ring_rows_gossip_q8(
             x, Wr, wr, mesh, **kw)
@@ -162,13 +178,13 @@ def port_schedules(mesh, inp):
         for k in range(Q8_SYNCS):
             mesh.reset_counts()
             merged, wire = fn(wire)
-            if k in (0, Q8_SYNCS - 1):
-                tag = "" if k == 0 else str(k + 1)
-                out[f"{name}/merged{tag}"] = merged.numpy()
-                _flat_keys(f"{name}/wire{k + 1}",
-                           _numpy(wire), out)
             if k == 0:
                 _flat_keys(f"{name}/bytes", dict(mesh.counts), out)
+            if k in (0, Q8_SYNCS - 1):
+                tag = "" if k == 0 else str(k + 1)
+                out[f"{name}/merged{tag}"] = node(merged).numpy()
+                _flat_keys(f"{name}/wire{k + 1}",
+                           _numpy(_map_tree(node, wire)), out)
     if ring:
         # EF telescoping on constant inputs: the residual |ref − x| per sync
         wire = g.init_mesh_wire("ring_ppermute", x, n_shards=mesh.world_size,
@@ -178,8 +194,14 @@ def port_schedules(mesh, inp):
             _, wire = g.ring_rows_gossip_q8(x, Wr, wire, mesh, **kw)
             res.append(float((wire["ref"] - x).abs().max()))
         out["telescope/residual"] = np.asarray(res)
-        _flat_keys("telescope/wire", _numpy(wire), out)
+        _flat_keys("telescope/wire", _numpy(_map_tree(node, wire)), out)
     return out
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _numpy(tree):
@@ -391,15 +413,21 @@ def port_sessions(mesh, inp):
 # the reference's side (jax, no torch)
 # ---------------------------------------------------------------------------
 
-def reference_schedules(mesh, inp):
-    """The reference's functions on the same inputs (reference trees)."""
+def reference_schedules(mesh, inp, specs=None):
+    """The reference's functions on the same inputs (reference trees);
+    with ``specs`` (``{leaf: PartitionSpec or None}``) every schedule on
+    the :data:`INNER_LEAVES` payload with ``inner_specs=specs``, the psum-q8
+    forms, which refuse them, left out."""
     import jax
     import jax.numpy as jnp
     from repro.core import gossip as g
 
+    if specs is not None:
+        g = _with_inner_specs(g, specs)
+    shapes = REF_SHAPES if specs is None else INNER_REF
     n = mesh.shape["node"]
-    x = {k: jnp.asarray(v) for k, v in _tree(inp, "x").items()}
-    f = {k: jnp.asarray(v) for k, v in _tree(inp, "f").items()}
+    x = {k: jnp.asarray(v) for k, v in _tree(inp, "x", shapes).items()}
+    f = {k: jnp.asarray(v) for k, v in _tree(inp, "f", shapes).items()}
     w, Wr, Wd = (jnp.asarray(inp[k]) for k in ("w", "Wring", "Wdyn"))
     ring = n >= 3 and n == inp["w"].shape[0]
 
@@ -443,6 +471,8 @@ def reference_schedules(mesh, inp):
               x, w, wr, mesh, "node", **kw),
           "fisher_psum_q8": lambda wr: g.fisher_psum_q8(
               x, f, wr, mesh, "node", **kw)}
+    if specs is not None:
+        del q8["fedavg_psum_q8"], q8["fisher_psum_q8"]
     if ring:
         q8["ring_rows_gossip_q8"] = lambda wr: g.ring_rows_gossip_q8(
             x, Wr, wr, mesh, "node", **kw)
@@ -463,6 +493,391 @@ def reference_schedules(mesh, inp):
                            jax.tree.map(np.asarray, merged), out)
                 _flat_keys(f"{name}/wire{k + 1}",
                            jax.tree.map(np.asarray, wire), out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# inner (model) sharding within a node
+# ---------------------------------------------------------------------------
+
+#: the sharded schedules' payload: a conv leaf (OIHW, HWIO in the
+#: reference) cut on its output axis, a plain leaf replicated, and a
+#: scan-stacked [L, d, f] leaf with Mamba2's in_proj spec on a mesh without
+#: a data axis (d_model over model); none a multiple of the wire block
+INNER_LEAVES = (("a", (4, 3, 3, 3)), ("b", (200,)), ("c", (3, 16, 10)))
+INNER_REF = {"a": (3, 3, 3, 4), "b": (200,), "c": (3, 16, 10)}
+INNER_SPECS = {"a": (None, None, None, "model"), "b": None,
+               "c": (None, "model", None)}
+#: the sharded schedules' world: 4 nodes × model 2
+INNER_NODES, INNER_MODEL = 4, 2
+
+
+def inner_layout():
+    from repro_torch.core.flat import FlatLayout
+    return FlatLayout(list(INNER_LEAVES), convs=["a"])
+
+
+def _with_inner_specs(g, specs):
+    """The reference's gossip module with ``inner_specs`` bound on every
+    schedule function."""
+    import functools
+    import types
+    from jax.sharding import PartitionSpec as P
+    tree = {k: None if v is None else P(*v) for k, v in specs.items()}
+    names = ("fedavg_gossip", "fisher_gossip", "ring_gossip",
+             "topo_fisher_gossip", "matrix_gossip", "ring_rows_gossip",
+             "ring_topo_fisher_gossip", "ring_rows_gossip_q8",
+             "ring_topo_fisher_gossip_q8", "matrix_gossip_q8",
+             "topo_fisher_gossip_q8")
+    ns = types.SimpleNamespace(**{k: getattr(g, k) for k in dir(g)
+                                  if not k.startswith("__")})
+    for name in names:
+        setattr(ns, name, functools.partial(getattr(g, name),
+                                            inner_specs=tree))
+    return ns
+
+
+#: (merge, topology, wire) of the cost model's picks on a sharded mesh
+INNER_PICKS = tuple((m, t, w) for m in ("fedavg", "fisher")
+                    for t in ("full", "ring", "dynamic")
+                    for w in ("f32", "bf16", "int8"))
+
+
+def inner_cfg(merge, topo, wire, n=INNER_NODES):
+    from repro_torch.configs.base import SwarmConfig
+    return SwarmConfig(n_nodes=n, sync_every=1, topology=topo, merge=merge,
+                       lora_only=False, val_threshold=0.0, wire_dtype=wire,
+                       wire_block=WB)
+
+
+def port_inner(inp):
+    """On 4 nodes × model 2: every flat schedule on the rank's shard
+    (:func:`port_schedules`), the engine's picks with the specs, the
+    shard's coordinates, and the refusals."""
+    import torch
+    from repro_torch.core import gossip as g
+    from repro_torch.core.engine import SwarmEngine
+    from repro_torch.core.flat import ShardLayout
+    from repro_torch.launch.mesh import make_swarm_mesh
+
+    mesh, axis = make_swarm_mesh(INNER_NODES, model=INNER_MODEL)
+    lay = inner_layout()
+    shard = ShardLayout(lay, INNER_SPECS, mesh.inner, mesh.coords)
+    out = port_schedules(mesh, inp, shard)
+    out["mesh/coords"] = np.asarray([mesh.coords["data"],
+                                     mesh.coords["model"]])
+    out["mesh/rows"] = np.asarray([mesh.rows.start, mesh.rows.stop])
+    out["mesh/local_size"] = np.asarray(shard.local.size)
+    for merge, topo, wire in INNER_PICKS:
+        eng = SwarmEngine(inner_cfg(merge, topo, wire), None, None,
+                          layout=lay, backend="gossip", mesh=mesh,
+                          axis=axis, param_specs=INNER_SPECS)
+        out[f"pick/{merge}/{topo}/{wire}"] = np.asarray(
+            eng.sync_schedule.name)
+    # make_swarm_sync_step with the specs: mean on the ring, on the shard
+    from repro_torch.convert import from_reference
+    from repro_torch.launch.train import make_swarm_sync_step
+    propose, _ = make_swarm_sync_step(
+        inner_cfg("mean", "ring", "f32"), mesh, axis, [1.0] * INNER_NODES,
+        param_specs=INNER_SPECS, layout=lay)
+    rows = shard.shard(from_reference(lay, _tree(inp, "x", INNER_REF),
+                                      lead=1)[mesh.rows])
+    out["sync_step/candidate"] = shard.gather(
+        propose(rows), mesh.shard_view, kind=None).numpy()
+    x = torch.zeros((1, shard.local.size))
+    cases = {
+        "refuse/fedavg_psum_q8": lambda: g.fedavg_psum_q8(
+            x, np.full(INNER_NODES, 0.25), None, mesh, wire_block=WB,
+            inner_specs=INNER_SPECS),
+        "refuse/fisher_psum_q8": lambda: g.fisher_psum_q8(
+            x, x, None, mesh, wire_block=WB, inner_specs=INNER_SPECS),
+        "refuse/engine_axis": lambda: SwarmEngine(
+            inner_cfg("fedavg", "full", "f32"), None, None, layout=lay,
+            backend="gossip", mesh=mesh, axis=axis,
+            param_specs={"a": ("pod",)}),
+        "refuse/engine_layout": lambda: SwarmEngine(
+            inner_cfg("fedavg", "full", "f32"), None, None,
+            backend="gossip", mesh=mesh, axis=axis,
+            param_specs=INNER_SPECS),
+    }
+    for key, fn in cases.items():
+        try:
+            fn()
+        except ValueError as e:
+            out[key] = np.asarray(str(e))
+    return out
+
+
+def reference_inner(inp):
+    """The reference on 8 forced devices as a (node, model) = (4, 2)
+    mesh: the schedules with ``inner_specs`` (:func:`reference_schedules`),
+    its psum-q8 refusals, and its cost model's picks with
+    ``model_sharded=True``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+    from repro.configs.base import SwarmConfig
+    from repro.core import comms
+    from repro.core import gossip as g
+
+    mesh = jax.make_mesh((INNER_NODES, INNER_MODEL), ("node", "model"),
+                         devices=jax.devices()[:INNER_NODES * INNER_MODEL])
+    out = reference_schedules(mesh, inp, INNER_SPECS)
+    specs = {k: None if v is None else P(*v) for k, v in INNER_SPECS.items()}
+    x = {k: jnp.zeros((INNER_NODES,) + s) for k, s in INNER_REF.items()}
+    w = np.full(INNER_NODES, 0.25, np.float32)
+    for name, args in (("fedavg_psum_q8", (x, w)),
+                       ("fisher_psum_q8", (x, x))):
+        try:
+            getattr(g, name)(*args, None, mesh, "node", inner_specs=specs,
+                             wire_block=WB)
+        except ValueError as e:
+            out[f"refuse/{name}"] = np.asarray(str(e))
+    for merge, topo, wire in INNER_PICKS:
+        cfg = SwarmConfig(n_nodes=INNER_NODES, sync_every=1, topology=topo,
+                          merge=merge, lora_only=False, val_threshold=0.0,
+                          wire_dtype=wire, wire_block=WB)
+        out[f"pick/{merge}/{topo}/{wire}"] = np.asarray(comms.pick_schedule(
+            cfg, per=1, model_sharded=comms.has_inner_sharding(specs)).name)
+    return out
+
+
+# --- inner-sharded sessions: 2 nodes × model 2 against 2 unsharded ranks ----
+
+INNER_SESSION_NODES = 2
+INNER_SIZES = [1.0, 2.0]
+INNER_ROUNDS = 2
+#: the TINY CNN's widths (tests/torch_parity.py)
+INNER_CNN = dict(steps=4, growth=4, stem=8, feat_dim=32, hidden=16,
+                 n_blocks=1, layers_per_block=2)
+INNER_LM = dict(batch=2, seq=16)
+INNER_FAULT_ROUNDS = 9
+
+
+def inner_session_inputs(seed=5):
+    """Seeded numpy batches of the session worlds: CNN images and labels
+    [R, T, N, B, ...], validation rows [N, 6, ...], the LM's token rows
+    (Mamba2's smoke vocabulary) [R, T, N, B, S], and the fault plane's
+    params [N, P]."""
+    from repro_torch.configs import get_config, smoke_variant
+    rng = np.random.default_rng(seed)
+    n, r = INNER_SESSION_NODES, INNER_ROUNDS
+    vocab = smoke_variant(get_config("mamba2-370m")).vocab_size
+    b, sq = INNER_LM["batch"], INNER_LM["seq"]
+    toks = rng.integers(0, vocab, (r, 1, n, b, sq + 1))
+    p = sum(int(np.prod(sh)) for _, sh in INNER_LEAVES)
+    return {"xs": rng.normal(0, 1, (r, 1, n, 4, 16, 16, 3)).astype(
+                np.float32),
+            "ys": rng.integers(0, 3, (r, 1, n, 4)),
+            "vx": rng.normal(0, 1, (n, 6, 16, 16, 3)).astype(np.float32),
+            "vy": rng.integers(0, 3, (n, 6)),
+            "tokens": toks[..., :-1].astype(np.int64),
+            "labels": toks[..., 1:].astype(np.int64),
+            "fw0": rng.normal(0, 1, (n, p)).astype(np.float32)}
+
+
+def cnn_specs(layout):
+    """Explicit specs for the CNN (reference axes: a conv HWIO): a conv's
+    output axis, a matrix's input axis and a vector over ``model``; the
+    shard layout replicates what 2 does not divide."""
+    axes = {4: (None, None, None, "model"), 2: ("model", None),
+            1: ("model",)}
+    return {lf.path: axes[len(lf.shape)] for lf in layout.leaves}
+
+
+def _cnn(cfg, mesh, sharded):
+    import torch
+    from repro_torch.core.flat import FlatLayout
+    from repro_torch.core.session import SwarmSession
+    from repro_torch.experiments import histo
+    from repro_torch.optim import adamw_init
+
+    ecfg = histo.HistoExperimentConfig(**INNER_CNN)
+    model = histo._model(ecfg)
+    layout = FlatLayout.of_module(model)
+    step, _ = histo._make_model_fns(ecfg, model, layout)
+    flat = layout.flatten(histo._init_params(ecfg, model))
+    return SwarmSession(cfg, step, histo._make_eval_fn(cfg, model, layout),
+                        params=flat, opt_state=adamw_init(flat),
+                        data_sizes=INNER_SIZES, layout=layout, device="cpu",
+                        backend="gossip", mesh=mesh, axis=mesh.axis,
+                        param_specs=cnn_specs(layout) if sharded else None)
+
+
+def _lm(cfg, mesh, sharded):
+    import torch
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.session import SwarmSession
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.rules import param_specs
+
+    model = build_model(smoke_variant(get_config("mamba2-370m")))
+    layout = model.layout
+    step = train.make_train_step(model, TrainConfig(
+        lr=1e-3, warmup_steps=1, max_steps=4, remat=False))
+    veval = torch.func.vmap(lambda p, v: 1.0 / (1.0 + model.loss_fn(
+        layout.unflatten(p), v, remat=False)[0]))
+    p0 = model.init(torch.Generator().manual_seed(0), "cpu")
+    return SwarmSession(cfg, lambda p, o, b, s: step(p, o, b),
+                        lambda p, v: veval(p, v), params=p0,
+                        opt_state=adamw_init(layout.parts(p0)),
+                        data_sizes=INNER_SIZES, layout=layout, device="cpu",
+                        backend="gossip", mesh=mesh, axis=mesh.axis,
+                        param_specs=(param_specs(layout, mesh) if sharded
+                                     else None))
+
+
+def _node_rows(sess):
+    """The rank's rows of the session's params, the whole node's (its
+    shards gathered; uncounted)."""
+    return sess.engine.node_tensor(sess.state.params, kind=None).clone()
+
+
+def _inner_batches(inp, r):
+    import torch
+    cnn = (torch.from_numpy(inp["xs"][r]), torch.from_numpy(inp["ys"][r]))
+    lm = {k: torch.from_numpy(inp[k][r]) for k in ("tokens", "labels")}
+    return cnn, lm
+
+
+def _inner_val(inp):
+    import torch
+    n = INNER_SESSION_NODES
+    cnn = (torch.from_numpy(inp["vx"]), torch.from_numpy(inp["vy"]),
+           torch.ones((n, 6), dtype=torch.bool))
+    lm = {k: torch.from_numpy(inp[k][0, 0]) for k in ("tokens", "labels")}
+    return cnn, lm
+
+
+def port_inner_sessions(inp, tmp, sharded):
+    """``sharded``: 4 ranks as 2 nodes × model 2 with param specs, else
+    2 ranks, one node each: the TINY CNN (explicit specs) and the Mamba2
+    smoke model (the rules' specs) for INNER_ROUNDS rounds of real steps on
+    the f32 wire (fedavg, full), each round's gates and the whole node's
+    params, the sync's counted bytes, and the CNN's checkpoint. Sharded
+    only: the CNN's first int8 sync from its local steps' params, loads
+    across (the unsharded file into a sharded session, the sharded file
+    into a whole-node session on the same ranks) and the fault plane."""
+    import torch
+    from repro_torch.launch.mesh import make_swarm_mesh
+
+    n = INNER_SESSION_NODES
+    if sharded:
+        mesh, _ = make_swarm_mesh(n, model=2)
+    else:
+        mesh, _ = make_swarm_mesh(n)
+    tag = "sharded" if sharded else "twin"
+    val = [v for v in _inner_val(inp)]
+    out = {"coords": np.asarray(list(mesh.coords.values()) or [0, 0]),
+           "rows": np.asarray([mesh.rows.start, mesh.rows.stop])}
+    cfg = inner_cfg("fedavg", "full", "f32", n=n)
+    for k, build in enumerate((_cnn, _lm)):
+        name = ("cnn", "lm")[k]
+        sess = build(cfg, mesh, sharded)
+        out[f"{name}/schedule"] = np.asarray(sess.sync_schedule.name)
+        out[f"{name}/slots"] = np.asarray(sess.state.params.shape[-1])
+        for r in range(INNER_ROUNDS):
+            log = sess.round(_inner_batches(inp, r)[k], val[k])
+            out[f"{name}/gates{r}"] = log["gates"].numpy()
+            out[f"{name}/metric{r}"] = log["metric_merged"].numpy()
+        p = _node_rows(sess)
+        out[f"{name}/params"] = (p.view(torch.int16) if p.element_size()
+                                 == 2 else p).numpy()
+        out[f"{name}/sync_bytes"] = np.asarray(
+            sess.counted_sync_bytes["by_collective"]["all_reduce"])
+        if name == "cnn":
+            path = os.path.join(tmp, f"inner_ckpt_{tag}.msgpack")
+            sess.save(path)
+            out["ckpt/path"] = np.asarray(path)
+            cnn = sess
+    if not sharded:
+        return out
+    # loads across: the unsharded file into a fresh sharded session, the
+    # sharded file into a whole-node session on the same ranks
+    fresh = _cnn(cfg, mesh, True).load(os.path.join(
+        tmp, "inner_ckpt_twin.msgpack"))
+    st, ft = cnn.state, fresh.state
+    out["load/twin_into_sharded"] = np.asarray(
+        _states_equal(st, ft))
+    whole = _cnn(cfg, mesh, False).load(os.path.join(
+        tmp, "inner_ckpt_sharded.msgpack"))
+    out["load/sharded_into_whole"] = np.asarray(
+        torch.equal(whole.state.params, _node_rows(cnn)))
+    out["load/whole_params"] = whole.state.params.numpy()
+    # the int8 wire (gathered_rows: the q8 psums drop out): the first sync
+    # from the local steps' params, on the per-shard grid
+    q8 = _cnn(inner_cfg("fedavg", "full", "int8", n=n), mesh, True)
+    out["int8/schedule"] = np.asarray(q8.sync_schedule.name)
+    q8.run_local(_inner_batches(inp, 0)[0])
+    out["int8/pre"] = _node_rows(q8).numpy()
+    committed, log = q8._sync(q8._mine(val[0], 0))
+    q8._commit(committed)
+    out["int8/gates"] = log["gates"].numpy()
+    out["int8/post"] = _node_rows(q8).numpy()
+    out.update(inner_fault_plane(mesh, inp, tmp))
+    return out
+
+
+def inner_fault_plane(mesh, inp, tmp):
+    """`run_plan` on an inner-sharded session of the :data:`INNER_LEAVES`
+    payload on the int8 wire: a crash of node 1 at round 1 with its rejoin
+    at 3 under held gates, then one accepting round (against
+    `repro.faults.oracle` in the test), and a preempt mid-plan against the
+    same plan without it, bit for bit."""
+    import dataclasses
+    import torch
+    from repro_torch.core.session import SwarmSession
+    from repro_torch.faults import FaultPlan, run_plan
+    from repro_torch.optim import adamw_init
+
+    n = INNER_SESSION_NODES
+    lay = inner_layout()
+    val, batches = torch.zeros((n, 1)), torch.zeros((1, n, 1))
+
+    def sess(thr, merge, topo, step):
+        cfg = dataclasses.replace(inner_cfg(merge, topo, "int8", n=n),
+                                  val_threshold=thr)
+        return SwarmSession(
+            cfg, step, const_eval,
+            params=[torch.from_numpy(r) for r in inp["fw0"]],
+            opt_state=adamw_init(torch.zeros(lay.size)), layout=lay,
+            device="cpu", backend="gossip", mesh=mesh, axis=mesh.axis,
+            param_specs=INNER_SPECS)
+
+    out = {}
+    for topo, merge in (("ring", "fisher"), ("full", "fedavg")):
+        pre = f"fault/crash/{topo}/{merge}"
+        sa = sess(1.5, merge, topo, id_step)
+        plan = FaultPlan(n_nodes=n, n_rounds=INNER_FAULT_ROUNDS,
+                         seed=0).crash(1, at=1, rejoin=3)
+        sa, logs = run_plan(sa, plan, batches, val)
+        out[f"{pre}/gates_any"] = np.asarray(
+            any(lg["gates"].any() for lg in logs))
+        out[f"{pre}/schedule"] = np.asarray(sa.sync_schedule.name)
+        sb = sess(0.0, merge, topo, id_step)
+        sb.load_state(sa.state)
+        out[f"{pre}/gates"] = sb.round(batches, val)["gates"].numpy()
+        out[f"{pre}/committed"] = _node_rows(sb).numpy()
+    base = FaultPlan(n_nodes=n, n_rounds=6, seed=0).crash(1, at=1, rejoin=4)
+
+    def run(plan):
+        mk = lambda: sess(0.0, "fedavg", "full", decay_step)
+        return run_plan(mk(), plan, batches, val, make_session=mk,
+                        checkpoint_path=os.path.join(
+                            tmp, "inner_preempt.msgpack"))
+
+    ra, la = run(base)
+    rb, lb = run(base.preempt(at=3))
+    out["fault/preempt/equal"] = np.asarray(_states_equal(ra.state,
+                                                          rb.state))
+    out["fault/preempt/gates_equal"] = np.asarray(
+        [lg["gates"].tolist() for lg in la]
+        == [lg["gates"].tolist() for lg in lb])
+    out["fault/preempt/preempted"] = np.asarray([lg["preempted"]
+                                                 for lg in lb])
     return out
 
 
@@ -938,10 +1353,12 @@ def main(argv):
     task, rank, world, init, out_dir = argv[:5]
     rank, world = int(rank), int(world)
     inp = dict(np.load(os.path.join(out_dir, "inputs.npz")))
-    if task in ("reference", "hier_reference"):
+    if task in ("reference", "hier_reference", "inner_reference"):
         import jax
         if task == "hier_reference":
             res = reference_hier(inp, world)
+        elif task == "inner_reference":
+            res = reference_inner(inp)
         else:
             mesh = jax.make_mesh((world,), ("node",),
                                  devices=jax.devices()[:world])
@@ -952,7 +1369,12 @@ def main(argv):
                                              make_two_level_swarm_mesh)
         _init_world(rank, world, init)
         try:
-            if task == "hier":
+            if task == "inner":
+                res = port_inner(inp)
+            elif task in ("inner_sessions", "inner_twin"):
+                res = port_inner_sessions(inp, out_dir,
+                                          task == "inner_sessions")
+            elif task == "hier":
                 mesh, _ = make_two_level_swarm_mesh(world // 2, 2)
                 res = port_hier_schedules(mesh, inp, world // 2)
                 if world == N:
