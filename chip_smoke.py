@@ -298,9 +298,25 @@ Phases, each printing one JSON line:
                  twin's, round and sync walls, ``ssd_scan`` launches
                  against the prediction, and one f32 checkpoint of the
                  sharded session equal byte for byte (SHA-256) to the
-                 twin's. One card shows no inter-card traffic: (a)/(b)
-                 are one rank's NCCL calls, (c)-(e) go through host
-                 memory;
+                 twin's; (f) split compute within a node: the same model
+                 on 4 gloo ranks as 2 nodes × data 2
+                 (``make_swarm_mesh(2, data=2)``, the rules' specs) whose
+                 ``TrainStep`` runs split (each layer gathered just in
+                 time inside remat's checkpoint, 4 of a node's 8 rows a
+                 data rank, gradients and AdamW on the shard), 2 rounds
+                 of fedavg/full on the f32 wire at lr 7.5e-5, against an
+                 unsharded twin on 2: the gates equal on every rank, the
+                 node losses within rtol 1e-5 at the first step (the same
+                 params) and 1e-3 after it (bf16 updates rounded apart),
+                 the whole node's params
+                 after each round within rtol 3·2⁻⁸, atol 6e-4 (bf16) and
+                 1e-4, 1e-4 (f32 leaves), each kind's largest difference,
+                 ``ssd_scan`` launches (96 a rank), the gather and
+                 gradient bytes of a step against the layout's count, the
+                 steps' peak and resident memory against the twin's, and
+                 step, round and sync walls. One card shows no inter-card
+                 traffic: (a)/(b) are one rank's NCCL calls, (c)-(f) go
+                 through host memory;
  17. timing      how many device times the profiler read, how many traces
                  ``device_ms`` discarded for lost kernel records, how
                  many times it fell back to CUDA events, and the gossip
@@ -4612,12 +4628,322 @@ def _gossip_inner(dev, smi, tmp):
               "are host copies and TCP, not NVLink")
 
 
+
+# (f) split compute within a node: the model of (e) on 4 gloo ranks as 2
+# nodes × data 2 (``make_swarm_mesh(2, data=2)``) whose TrainStep runs
+# split (each layer gathered just in time, 4 of a node's 8 rows a data
+# rank, gradients and AdamW on the shard), against an unsharded twin on 2
+GOSSIP_F_DATA = 2
+#: lr 7.5e-5 without warmup: the bf16 leaves' atol 6e-4 is 2 · 4 steps ·
+#: lr, an element whose gradient changes sign between the two sums stepping
+#: ±lr apart a step (test_torch_train's bf16 bound: 2 · 3 steps · 1e-4)
+GOSSIP_F_LR = 7.5e-5
+#: (rtol, atol) of the whole node's params against the twin's, by kind
+GOSSIP_F_TOL = {"bf16": (3 * 2 ** -8, 6e-4), "f32": (1e-4, 1e-4)}
+#: the node losses' rtol against the twin's: the first step's (the same
+#: params; the forward on 4 of a node's 8 rows), then every later step's
+#: (bf16 params whose updates rounded apart: a bf16 weight's gradient is
+#: rounded per data rank before the f32 sum, once in the twin)
+GOSSIP_F_LOSS_RTOL = (1e-5, 1e-3)
+
+
+def _gossip_f_bytes(shard, n_layers, rest_itemsize, remat=True):
+    """A split step's bytes by kind, counted from the shard layout: each
+    cut leaf's block of the unscanned unit once and of every layer once
+    (twice with remat: the recompute gathers again), 8-byte aligned, into
+    the all_gathers; the node's f32 values, a layer at a time, into the
+    data group's all_reduce. ``rest_itemsize``: the bytes of a value that
+    is not a wide (f32) leaf's."""
+    pad = lambda n: -(-n // 8) * 8
+    unit = layer = 0
+    for full, local in zip(shard.full.leaves, shard.local.leaves):
+        if full.shape == local.shape:
+            continue          # no axis cuts it: nothing is gathered
+        itemsize = 4 if full.wide else rest_itemsize
+        if full.path.startswith("layers."):
+            layer += pad(local.size // local.shape[0] * itemsize)
+        else:
+            unit += pad(local.size * itemsize)
+    return {"layer_gather": unit + (2 if remat else 1) * n_layers * layer,
+            "grad_reduce": 4 * shard.full.n_values}
+
+
+def _gossip_rank_f(rank, world, init, tmp, dev):
+    """(f) One gloo rank on ``cuda:0``: with a world of 4, data block
+    ``rank % 2`` of node ``rank // 2`` (node, data, model) = (2, 2, 1),
+    the rules' specs, the TrainStep split; with a world of 2, node
+    ``rank`` whole (the twin: it writes its node's params after each round
+    to ``tmp``). Mamba2-370M at full width, GOSSIP_E_LAYERS layers, remat,
+    fedavg/full on the f32 wire, GOSSIP_E_ROUNDS rounds of GOSSIP_E_STEPS
+    steps from the seed-0 init and (e)'s seeded batches. Into
+    ``tmp/<tag><r>.pt``: gates, node losses, step, round and sync walls,
+    memory, the step's counted bytes and the layout's count, launches and,
+    on a sharded rank of data index 0, each round's largest difference
+    from the twin's node by leaf kind."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.session import SwarmSession
+    from repro_torch.data import make_lm_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_swarm_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.rules import param_specs
+
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    sharded = world == GOSSIP_E_NODES * GOSSIP_F_DATA
+    tag = "fshard" if sharded else "ftwin"
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        mesh, axis = (make_swarm_mesh(GOSSIP_E_NODES, data=GOSSIP_F_DATA)
+                      if sharded else make_swarm_mesh(GOSSIP_E_NODES))
+        lcfg = dataclasses.replace(get_config("mamba2-370m"),
+                                   n_layers=GOSSIP_E_LAYERS)
+        model = build_model(lcfg)
+        layout = model.layout
+        step = train.make_train_step(model, TrainConfig(
+            lr=GOSSIP_F_LR, warmup_steps=0, max_steps=10, remat=True))
+        veval = torch.func.vmap(lambda p, v: 1.0 / (1.0 + model.loss_fn(
+            layout.unflatten(p), v, remat=False)[0]))
+        streams = [make_lm_stream(64, GOSSIP_E_SEQ, lcfg.vocab_size, seed=i,
+                                  topic_bias=1.0)
+                   for i in range(GOSSIP_E_NODES)]
+        sizes = [float(len(st["tokens"])) for st in streams]
+
+        def to_dev(arrays):
+            return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+        vals = to_dev({k: np.stack([st[k][:8] for st in streams])
+                       for k in streams[0]})
+        p0 = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        sess = SwarmSession(
+            _gossip_e_cfg("f32"), step, lambda p, v: veval(p, v), params=p0,
+            opt_state=adamw_init(layout.parts(p0)), data_sizes=sizes,
+            layout=layout, device=dev, backend="gossip", mesh=mesh,
+            axis=axis,
+            param_specs=param_specs(layout, mesh) if sharded else None)
+        del p0
+        eng = sess.engine
+        if eng.splits != sharded:
+            raise AssertionError(f"(f) rank {rank}: splits={eng.splits}")
+        node_of = mesh.rows.start
+        out = {"coords": dict(mesh.coords), "node": node_of,
+               "slots": int(sess.state.params.shape[-1]), "rounds": []}
+        if sharded:
+            out["bytes_from_layout"] = _gossip_f_bytes(
+                eng.shard, GOSSIP_E_LAYERS,
+                sess.state.params.element_size())
+        log_t = {"steps": []}
+        sync, local_steps = eng.sync, eng.local_steps
+
+        def timed_sync(*a, **kw):
+            torch.cuda.synchronize()
+            log_t["steps_peak"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = sync(*a, **kw)
+            torch.cuda.synchronize()
+            log_t["sync"] = time.perf_counter() - t0
+            return res
+
+        def timed_steps(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = local_steps(*a, **kw)
+            torch.cuda.synchronize()
+            log_t["steps"].append(time.perf_counter() - t0)
+            return res
+
+        eng.sync, eng.local_steps = timed_sync, timed_steps
+        rng = np.random.default_rng(0)
+        reset_launches()
+        for r in range(GOSSIP_E_ROUNDS):
+            idx = [rng.integers(0, len(st["tokens"]),
+                                (GOSSIP_E_STEPS, GOSSIP_E_BATCH))
+                   for st in streams]
+            batch = to_dev({k: np.stack([st[k][i] for st, i in
+                                         zip(streams, idx)], axis=1)
+                            for k in streams[0]})
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            log_t["steps"] = []
+            t0 = time.perf_counter()
+            log = sess.round(batch, vals)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rec = dict(gates=log["gates"].tolist(),
+                       loss=log["train"]["loss"][:, 0].float().cpu().tolist(),
+                       wall=wall, sync_wall=log_t["sync"],
+                       step_walls=list(log_t["steps"]),
+                       resident_before=resident,
+                       resident_after=torch.cuda.memory_allocated(),
+                       steps_peak=log_t["steps_peak"],
+                       step_bytes=sess.counted_step_bytes)
+            node = eng.node_tensor(sess.state.params, kind=None)[0]
+            if not sharded:
+                torch.save(node.cpu(), f"{tmp}/ftwin_params_r{r}_n{rank}.pt")
+            elif mesh.coords["data"] == 0:
+                twin = torch.load(f"{tmp}/ftwin_params_r{r}_n{node_of}.pt"
+                                  ).to(dev)
+                got, want = layout.values(node), layout.values(twin)
+                w = layout.n_wide
+                diffs = {}
+                for kind, sl in (("f32", slice(0, w)),
+                                 ("bf16", slice(w, None))):
+                    rtol, atol = GOSSIP_F_TOL[kind]
+                    d = (got[sl] - want[sl]).abs()
+                    diffs[kind] = dict(
+                        max_abs=float(d.max()),
+                        excess=float((d - atol - rtol * want[sl].abs())
+                                     .max()),
+                        changed=int((got[sl] != want[sl]).sum()),
+                        values=int(d.numel()))
+                rec["vs_twin"] = diffs
+                del twin, got, want, d
+            del node, batch, log
+            out["rounds"].append(rec)
+        out["launches"] = {k: v for k, v in LAUNCHES.items() if v}
+        eng.sync, eng.local_steps = sync, local_steps
+        torch.save(out, f"{tmp}/{tag}{rank}.pt")
+        del sess, eng
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def _gossip_split(dev, smi, tmp):
+    """(f) The twin (2 ranks, a node each), then the split world (4
+    ranks, 2 nodes × data 2), spawned one after the other on the card.
+    Raises on any failed check."""
+    import os
+
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        twin_wall, twin = _gossip_spawn(_gossip_rank_f, tmp, dev, "ftwin",
+                                        world=GOSSIP_E_NODES)
+        shard_wall, shard = _gossip_spawn(
+            _gossip_rank_f, tmp, dev, "fshard",
+            world=GOSSIP_E_NODES * GOSSIP_F_DATA)
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        for name in os.listdir(tmp):
+            if name.startswith("ftwin_params"):
+                os.remove(os.path.join(tmp, name))
+    # a step launches SSD twice a layer (the forward and remat's
+    # recompute), a sync twice a layer (the gate scores params and
+    # candidate)
+    predicted = {"ssd_scan": GOSSIP_E_ROUNDS * (2 * GOSSIP_E_STEPS + 2)
+                 * GOSSIP_E_LAYERS}
+    for rec in twin + shard:
+        if rec["launches"] != predicted:
+            raise AssertionError(f"(f) launches {rec['launches']}, "
+                                 f"predicted {predicted}")
+    worst = {"f32": {"max_abs": 0.0, "excess": float("-inf")},
+             "bf16": {"max_abs": 0.0, "excess": float("-inf")}}
+    for k in range(GOSSIP_E_ROUNDS):
+        gates = {tuple(rec["rounds"][k]["gates"]) for rec in twin + shard}
+        if len(gates) != 1:
+            raise AssertionError(f"(f) round {k}: gates {gates}")
+        for rec in shard:
+            want = twin[rec["node"]]["rounds"][k]["loss"]
+            got = rec["rounds"][k]["loss"]
+            for j, (g, w) in enumerate(zip(got, want)):
+                rtol = GOSSIP_F_LOSS_RTOL[0 if k == j == 0 else 1]
+                if abs(g - w) > rtol * abs(w):
+                    raise AssertionError(
+                        f"(f) round {k}: node {rec['node']} losses {got}, "
+                        f"the twin's {want} (rtol {rtol})")
+            counted = rec["rounds"][k]["step_bytes"]
+            for kind, n in rec["bytes_from_layout"].items():
+                if counted.get(kind) != n:
+                    raise AssertionError(f"(f) {kind}: counted "
+                                         f"{counted.get(kind)}, the "
+                                         f"layout's {n}")
+            for kind, d in rec["rounds"][k].get("vs_twin", {}).items():
+                worst[kind]["max_abs"] = max(worst[kind]["max_abs"],
+                                             d["max_abs"])
+                worst[kind]["excess"] = max(worst[kind]["excess"],
+                                            d["excess"])
+                if d["excess"] > 0:
+                    raise AssertionError(f"(f) round {k}: {kind} params "
+                                         f"beyond the tolerance: {d}")
+    gib = lambda b: b / 2 ** 30
+    peak = lambda rec: max(rr["steps_peak"] for rr in rec["rounds"])
+    emit("gossip_f", card=smi, arch="mamba2-370m", layers=GOSSIP_E_LAYERS,
+         backend="gloo", device=f"{dev} (all ranks)",
+         mesh={"node": GOSSIP_E_NODES, "data": GOSSIP_F_DATA, "model": 1},
+         twin_world=GOSSIP_E_NODES, batch=GOSSIP_E_BATCH,
+         rows_per_data_rank=GOSSIP_E_BATCH // GOSSIP_F_DATA,
+         seq=GOSSIP_E_SEQ, steps_per_round=GOSSIP_E_STEPS,
+         rounds=GOSSIP_E_ROUNDS, remat=True, lr=GOSSIP_F_LR,
+         spawn_wall_s={"twin": twin_wall, "split": shard_wall},
+         gates=[rec["gates"] for rec in shard[0]["rounds"]],
+         loss={"split": [[rr["loss"] for rr in rec["rounds"]]
+                         for rec in shard],
+               "twin": [[rr["loss"] for rr in rec["rounds"]]
+                        for rec in twin],
+               "rtol_first_step": GOSSIP_F_LOSS_RTOL[0],
+               "rtol_later_steps": GOSSIP_F_LOSS_RTOL[1],
+               "largest_rel_diff": max(
+                   abs(g - w) / abs(w) for rec in shard
+                   for rr, tr in zip(rec["rounds"],
+                                     twin[rec["node"]]["rounds"])
+                   for g, w in zip(rr["loss"], tr["loss"]))},
+         vs_twin=dict(worst, tolerance={k: {"rtol": v[0], "atol": v[1]}
+                                        for k, v in GOSSIP_F_TOL.items()},
+                      by_round=[[rec["rounds"][k].get("vs_twin")
+                                 for rec in shard]
+                                for k in range(GOSSIP_E_ROUNDS)]),
+         slots={"split": [rec["slots"] for rec in shard],
+                "twin": twin[0]["slots"]},
+         resident_gib={"split": [gib(rec["rounds"][-1]["resident_after"])
+                                 for rec in shard],
+                       "twin": [gib(rec["rounds"][-1]["resident_after"])
+                                for rec in twin]},
+         steps_peak_gib={"split": [gib(peak(rec)) for rec in shard],
+                         "twin": [gib(peak(rec)) for rec in twin]},
+         steps_peak_ratio=[peak(rec) / peak(twin[rec["node"]])
+                           for rec in shard],
+         step_bytes={"counted": shard[0]["rounds"][-1]["step_bytes"],
+                     "from_layout": shard[0]["bytes_from_layout"]},
+         step_wall_s={"split": [[rr["step_walls"] for rr in rec["rounds"]]
+                                for rec in shard],
+                      "twin": [[rr["step_walls"] for rr in rec["rounds"]]
+                               for rec in twin]},
+         round_wall_s={"split": [[rr["wall"] for rr in rec["rounds"]]
+                                 for rec in shard],
+                       "twin": [[rr["wall"] for rr in rec["rounds"]]
+                                for rec in twin]},
+         sync_wall_s={"split": [[rr["sync_wall"] for rr in rec["rounds"]]
+                                for rec in shard],
+                      "twin": [[rr["sync_wall"] for rr in rec["rounds"]]
+                               for rec in twin]},
+         launches=shard[0]["launches"], predicted=predicted,
+         note="6 gloo ranks on one card, one world after the other: gloo "
+              "stages CUDA tensors through host memory, so the walls are "
+              "host copies and TCP, not NVLink")
+
+
 def phase_gossip(dev, smi):
     """The gossip backend (`repro_torch.core.gossip`, ``SwarmSession(...,
     backend="gossip")``): (a) and (b) on a world of one NCCL rank in this
     process, then (c) on 4 gloo ranks spawned on the one card, (d) on 4
-    more as a two-level mesh, and (e) inner sharding on 4 against an
-    unsharded twin on 2."""
+    more as a two-level mesh, (e) inner sharding on 4 against an
+    unsharded twin on 2, and (f) the split step on 4 against another."""
     import gc
     import tempfile
     import torch
@@ -4653,6 +4979,9 @@ def phase_gossip(dev, smi):
     t0 = time.perf_counter()
     _gossip_inner(dev, smi, tmp)
     TIMERS["gossip_e_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _gossip_split(dev, smi, tmp)
+    TIMERS["gossip_f_s"] = time.perf_counter() - t0
 
 
 def main() -> int:

@@ -82,7 +82,11 @@ win when ``cfg.cross_pod_cost`` dominates.
 With ``param_specs`` that name the swarm mesh's ``data`` / ``model`` axes
 (`repro_torch.sharding.rules.param_specs`) a rank holds one block of each
 of its nodes (`repro_torch.core.flat.ShardLayout`): :attr:`SwarmEngine.
-layout` is the shard's, :attr:`SwarmEngine.step_layout` the node's. The
+layout` is the shard's, :attr:`SwarmEngine.step_layout` the node's. A
+train step with a split form (`repro_torch.launch.train.TrainStep`) then
+runs on the shard (:attr:`SwarmEngine.splits`: each layer gathered just in
+time, the batch over the node's data ranks, gradients and AdamW on the
+shard); the session gathers the whole node for any other step. The
 sync's payload, wire and commit are the shard's, the schedule runs on the
 rank's node group, and the gate scores the node's params and candidate
 gathered over its shard group (:meth:`SwarmEngine.node_tensor`), so every
@@ -127,6 +131,20 @@ def _index_node(tree, i: int):
     if isinstance(tree, (tuple, list)):
         return type(tree)(_index_node(v, i) for v in tree)
     return tree[i]
+
+
+def _write_node(tree, i: int, new) -> None:
+    """Write a per-node tree ``new`` into row ``i`` of the stacked
+    ``tree`` (a tensor that already is that row passes)."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _write_node(v, i, new[k])
+        return
+    row = tree[i]
+    if not (new.data_ptr() == row.data_ptr() and new.shape == row.shape):
+        row.copy_(new)
 
 
 def _stack_nodes(trees):
@@ -363,6 +381,15 @@ class SwarmEngine:
                 False: _vmap_stateless(train_step_fn)})
         self._veval = (zoo_veval(fn_list(eval_fn, "eval_fn"))
                        if isinstance(eval_fn, (list, tuple)) else eval_fn)
+        # a step with a split form (`launch.train.TrainStep`) runs on the
+        # rank's shard of an inner-sharded mesh; any other closure takes
+        # the node whole (the session gathers it)
+        self.splits = (self.shard is not None
+                       and callable(getattr(train_step_fn, "split", None)))
+        self._split = train_step_fn if self.splits else None
+        #: split steps: the bytes the last step handed to each collective
+        #: (``layer_gather``, ``grad_reduce``, ``step_control``)
+        self.step_bytes = None
         self._base_W = mixing_matrix(cfg, self.data_sizes)
         self.spectral_gap = topo.spectral_gap(self._base_W)
 
@@ -514,7 +541,13 @@ class SwarmEngine:
         A train step may opt into the true-Fisher hook by returning a
         4-tuple ``(params, opt_state, metrics, grads)``: the per-step grads
         feed ``strategy.accumulate_grads`` (exact squared gradients) instead
-        of the Δθ² proxy."""
+        of the Δθ² proxy.
+
+        A split step (:attr:`splits`) runs node by node on the rank's
+        shard rows (:meth:`_split_steps`)."""
+        if self.splits:
+            return self._split_steps(params, opt_state, batches, step0,
+                                     stats)
         t = _leading(batches)
         metrics = []
         for k in range(t):
@@ -535,6 +568,36 @@ class SwarmEngine:
             del old
             params = p2
             metrics.append(m)
+        return params, opt_state, stats, _stack_logs(metrics)
+
+    def _split_steps(self, params, opt_state, batches, step0, stats=None):
+        """:meth:`local_steps` of a split step on the rank's shard rows
+        ``[per, P_local]``: each node's ``step.split`` (`repro_torch.
+        launch.train.TrainStep.split`) outside ``vmap`` (its gathers are
+        collectives), its params and moments updated in place; the Δθ²
+        statistics accumulate on the shard (they are elementwise)."""
+        lay = self.layout
+        parts = ((lambda p: p) if lay is None or not lay.wide
+                 else lay.parts)
+        self.mesh.reset_counts()
+        metrics = []
+        for k in range(_leading(batches)):
+            batch = _index(batches, k)
+            old = params.clone() if stats is not None else None
+            rows = []
+            for j in range(params.shape[0]):
+                o = _index_node(opt_state, j)
+                _, o2, m = self._split.split(
+                    params[j], o, _index_node(batch, j), step0 + k,
+                    shard=self.shard, mesh=self.mesh)
+                _write_node(opt_state, j, o2)
+                rows.append(m)
+            if stats is not None:
+                stats = self.strategy.accumulate(stats, parts(old),
+                                                 parts(params), step0 + k)
+            del old
+            metrics.append(_stack_nodes(rows))
+        self.step_bytes = dict(self.mesh.counts)
         return params, opt_state, stats, _stack_logs(metrics)
 
     # -- propose -------------------------------------------------------------

@@ -327,6 +327,8 @@ class ShardLayout:
             self.group_size *= s
         self.cuts = {leaf.path: self._cuts(leaf, self.coords)
                      for leaf in layout.leaves}
+        self._cut_axes = {leaf.path: self._axes(leaf)
+                          for leaf in layout.leaves}
         shapes = []
         for leaf in layout.leaves:
             shape = list(leaf.shape)
@@ -353,6 +355,29 @@ class ShardLayout:
             if n > 1 and leaf.shape[dim] % n == 0:
                 out.append((dim, idx * length, length))
         return tuple(out)
+
+    def _axes(self, leaf: Leaf):
+        """The inner axes that cut ``leaf`` (the axes of its cut
+        dimensions)."""
+        spec = tuple(self.specs.get(leaf.path) or ())
+        out = set()
+        for k, ax in enumerate(spec[:len(leaf.shape)]):
+            names = () if ax is None else (
+                ax if isinstance(ax, (tuple, list)) else (ax,))
+            n = 1
+            for a in names:
+                n *= self.sizes.get(a, 1)
+            if n > 1 and leaf.shape[leaf.ref_axes[k]] % n == 0:
+                out.update(a for a in names if self.sizes.get(a, 1) > 1)
+        return out
+
+    def owns(self, path: str) -> bool:
+        """Whether this rank counts its block of ``path`` in a sum over
+        the shard group: the ranks that hold one block differ only on the
+        axes that do not cut the leaf, and the one at 0 on each of them
+        counts it."""
+        return all(self.coords.get(a, 0) == 0 for a in self.sizes
+                   if a not in self._cut_axes[path])
 
     def coords_of(self, g: int) -> Dict[str, int]:
         """The coordinates of rank ``g`` of a node's shard group (row-major
@@ -448,3 +473,144 @@ class ShardLayout:
     def __repr__(self) -> str:
         return (f"ShardLayout({self.local.size} of {self.full.size} slots, "
                 f"coords={self.coords}, sizes={self.sizes})")
+
+
+class LayerCut:
+    """Layer ``i`` of scan-stacked leaves (``stacked``: each leaf's stored
+    dim 0 is the layer axis), or a set of leaves whole, as the ranks of a
+    node's shard group hold it under a :class:`ShardLayout`: what a split
+    step (`repro_torch.models.gather`) gathers just before it runs the
+    layer, and where the layer's gradient goes.
+
+    The rules may cut a stacked leaf's layer axis (they cut scan-stacked
+    leaves one dimension early: Mamba2's ``layers.ssm.in_proj.w`` ``[L, d,
+    f]`` is ``("data", "model", None)``), so a rank holds a **span** of the
+    layers of such a leaf, and of its other dimensions a block. A rank's
+    **contribution** to layer ``i`` is its block of each cut leaf's layer
+    (zeros of that size where its span does not hold ``i``), each leaf's
+    bytes padded to 8, in one buffer: one all_gather over the shard group
+    moves every cut leaf's layer (:attr:`gathered` lists them; a leaf no
+    axis cuts is whole on every rank and moves nothing). :meth:`gather`
+    assembles the whole layer from every rank's contribution, each block
+    once, from a rank whose span holds ``i``; :meth:`shard_of` takes a
+    whole-layer tensor to this rank's block. A leaf's bytes travel as
+    they are, so a gathered layer is the node's, bit for bit."""
+
+    def __init__(self, shard: ShardLayout, paths: Sequence[str],
+                 stacked: bool, dtypes: Dict[str, torch.dtype]):
+        leaves = {lf.path: lf for lf in shard.full.leaves}
+        self.paths = tuple(paths)
+        self.stacked = stacked
+        self.dtypes = tuple(dtypes[p] for p in self.paths)
+        self.shapes = []
+        for p in self.paths:
+            lf = leaves[p]
+            if stacked and lf.ref_axes[0] != 0:
+                raise ValueError(f"{p}: a stacked leaf's stored dim 0 is "
+                                 "its layer axis")
+            self.shapes.append(lf.shape[1:] if stacked else lf.shape)
+        self.group_size = shard.group_size
+        self._plans = [self._plan(shard, leaves, shard.coords_of(g))
+                       for g in range(shard.group_size)]
+        self.plan = self._plan(shard, leaves, shard.coords)
+        #: the leaves a cut moves (the others are whole on every rank)
+        self.gathered = tuple(k for k, (span, cuts, _) in enumerate(self.plan)
+                              if span is not None or cuts)
+        self.offsets, off = {}, 0
+        for k in self.gathered:
+            self.offsets[k] = off
+            off += -(-self._numel(k) * self.dtypes[k].itemsize // 8) * 8
+        self.nbytes = off
+
+    def _numel(self, k: int) -> int:
+        n = 1
+        for b in self.plan[k][2]:
+            n *= b
+        return n
+
+    def _plan(self, shard, leaves, coords):
+        """For each leaf, ``(span, cuts, block)`` of a rank at
+        ``coords``: the ``(start, length)`` of the layers it holds (None:
+        all, or not stacked), the cuts of a layer's dims and the block's
+        shape."""
+        out = []
+        for p, shape in zip(self.paths, self.shapes):
+            span, cuts = None, []
+            for dim, start, length in shard._cuts(leaves[p], coords):
+                if self.stacked and dim == 0:
+                    span = (start, length)
+                else:
+                    cuts.append((dim - 1 if self.stacked else dim, start,
+                                 length))
+            block = list(shape)
+            for dim, _, length in cuts:
+                block[dim] = length
+            out.append((span, tuple(cuts), tuple(block)))
+        return out
+
+    @staticmethod
+    def _holds(span, i) -> bool:
+        return span is None or span[0] <= i < span[0] + span[1]
+
+    def holds(self, k: int, i: int) -> bool:
+        """Whether this rank holds leaf ``k``'s layer ``i``."""
+        return self._holds(self.plan[k][0], i)
+
+    def local_index(self, k: int, i: int) -> int:
+        """Layer ``i``'s index in this rank's span of leaf ``k``."""
+        span = self.plan[k][0]
+        return i if span is None else i - span[0]
+
+    def contribution(self, local, i: int, device) -> torch.Tensor:
+        """This rank's bytes of layer ``i`` (``local[k]``: its block of
+        leaf ``k``'s layer, None where it does not hold it)."""
+        buf = torch.zeros(self.nbytes, dtype=torch.uint8, device=device)
+        for k, off in self.offsets.items():
+            t = local[k]
+            if t is not None:
+                b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+                buf[off:off + b.numel()] = b
+        return buf
+
+    def assemble(self, parts: torch.Tensor, i: int, local):
+        """Every rank's contribution ``[G, nbytes]`` (group order) → the
+        whole layer ``i``, one tensor a leaf (a leaf no axis cuts is this
+        rank's ``local`` tensor, detached)."""
+        out = [local[k].detach() if k not in self.offsets
+               else parts.new_empty(shape, dtype=dtype)
+               for k, (shape, dtype) in enumerate(zip(self.shapes,
+                                                      self.dtypes))]
+        seen = {k: set() for k in self.gathered}
+        for g, plan in enumerate(self._plans):
+            for k in self.gathered:
+                span, cuts, block = plan[k]
+                if not self._holds(span, i) or cuts in seen[k]:
+                    continue
+                seen[k].add(cuts)
+                off = self.offsets[k]
+                src = parts[g, off:off + self._numel(k)
+                            * self.dtypes[k].itemsize]
+                ShardLayout._block(out[k], cuts, 0).copy_(
+                    src.view(self.dtypes[k]).view(block))
+        return out
+
+    def gather(self, local, i: int, view, device, kind="layer_gather"):
+        """The whole layer ``i`` from this rank's blocks ``local`` (see
+        :meth:`contribution`): one all_gather over the shard group
+        ``view`` (``kind`` the byte count's name), none when no leaf is
+        cut."""
+        from repro_torch.core import gossip
+        parts = None
+        if self.nbytes:
+            parts = gossip.all_gather(view, self.contribution(
+                local, i, device), kind=kind).view(self.group_size,
+                                                    self.nbytes)
+        else:
+            parts = torch.empty((self.group_size, 0), dtype=torch.uint8,
+                                device=device)
+        return self.assemble(parts, i, local)
+
+    def shard_of(self, k: int, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a whole-layer tensor of leaf ``k`` (a
+        view)."""
+        return ShardLayout._block(whole, self.plan[k][1], 0)

@@ -65,14 +65,33 @@ keeps the rank's rows (a replicated leaf whole).
 `repro_torch.sharding.rules.param_specs`) a rank holds, between rounds,
 only its shard of its nodes (`repro_torch.core.flat.ShardLayout`): the
 params, the AdamW moments, the importance statistics and the mesh wire.
-A round gathers the node's params, moments and statistics over the
-node's shard group once, runs the ``sync_every`` unchanged steps on the
-whole node, and keeps the shard; the sync moves only shards, and its gate
-scores the gathered node. Every rank of a node so computes what an
-unsharded rank computes (an f32 round is the unsharded one bit for bit);
-a step's peak memory is a whole node's. ``save`` gathers the shards as
-well, so the file is the unsharded session's; ``load`` keeps the rank's
-shard.
+Which steps split:
+
+* a `repro_torch.launch.train.TrainStep` (``make_train_step``'s, passed
+  as the session's ``train_step_fn``) runs **split** on the shard
+  (``TrainStep.split``): the rank takes ``B / D`` of its node's rows (all
+  of them when ``D · accum_steps`` does not divide ``B``), each layer is
+  gathered over the shard group just before its block
+  (`repro_torch.models.gather`; with ``remat`` inside the checkpoint, so
+  at most two whole layers are alive), the gradient comes back summed over
+  the node's data group to the shard, and AdamW and the Δθ² statistics
+  update the shard in place. No rank holds a whole node's gradient or
+  moments; with ``D = 1`` the step is the whole node's bit for bit, with
+  ``D > 1`` the gradient is summed in another order (exact to the
+  train-parity tolerances). The model ranks of one data index compute the
+  same rows (tensor parallelism is not ported);
+* any other closure (the CNN's batch-statistics step, the true-Fisher
+  4-tuple, a lambda around a step) **gathers**: the round gathers the
+  node's params, moments and statistics over the shard group once, runs
+  the ``sync_every`` unchanged steps on the whole node and keeps the
+  shard, so every rank of a node computes what an unsharded rank computes
+  (an f32 round is the unsharded one bit for bit) and a step's peak
+  memory is a whole node's.
+
+The sync moves only shards, and its gate scores the node's gathered
+params (not its moments or statistics) alike on every rank of the node.
+``save`` gathers the shards as well, so the file is the unsharded
+session's; ``load`` keeps the rank's shard.
 """
 from __future__ import annotations
 
@@ -219,9 +238,10 @@ class SwarmSession:
         gossip backend, ``{leaf path: spec}`` with one entry per dimension
         of the reference's leaf (`repro_torch.sharding.rules.param_specs`
         makes them): over a mesh with ``data`` / ``model`` axes each rank
-        keeps its shard of its nodes between rounds. Axes of size 1 shard
-        nothing, and drop the q8 psums from the cost model's picks, as in
-        the reference; a two-level mesh refuses them.
+        keeps its shard of its nodes between rounds, and a ``TrainStep``
+        runs split on it (see the module's docstring). Axes of size 1
+        shard nothing, and drop the q8 psums from the cost model's picks,
+        as in the reference; a two-level mesh refuses them.
     layout : the :class:`FlatLayout` of the params: the leaf boundaries of
         the wire's block grid, the reference tree of :attr:`node_params` and
         of checkpoints. Without one the params are a single leaf.
@@ -326,6 +346,13 @@ class SwarmSession:
     @property
     def predicted_link_bytes(self) -> dict:
         return self.sync_schedule.bytes_by_link_class(self.payload_params)
+
+    @property
+    def counted_step_bytes(self) -> Optional[dict]:
+        """A split step's bytes by collective, of this rank's last step
+        (`core.engine.SwarmEngine.step_bytes`: ``layer_gather``,
+        ``grad_reduce``, ``step_control``); None without one."""
+        return None if self.backend == "host" else self.engine.step_bytes
 
     @property
     def counted_sync_bytes(self) -> Optional[dict]:
@@ -527,11 +554,12 @@ class SwarmSession:
 
     def _local_steps(self, batches):
         """The local steps of ``[T, N, ...]`` batches. With inner sharding
-        the node's params, moments and statistics are gathered over its
-        shard group first (uncounted: not sync traffic), the steps run on
-        the whole node, and the rank keeps its shard after them (also when
-        a step raises)."""
-        if self.engine.shard is None:
+        a split step (`repro_torch.launch.train.TrainStep`) runs on the
+        rank's shard; for any other step the node's params, moments and
+        statistics are gathered over its shard group first (uncounted: not
+        sync traffic), the steps run on the whole node, and the rank keeps
+        its shard after them (also when a step raises)."""
+        if self.engine.shard is None or self.engine.splits:
             return self._node_steps(batches)
         eng = self.engine
         self._state = self._map_state(

@@ -36,7 +36,9 @@ group** (the ranks that hold the same block of every node; the mesh's
 ``group``, link class ``intra``), and a node's ranks gather its state over
 their **shard group** (:attr:`SwarmMesh.shard_view`). Which values a block
 holds is decided by the param specs (`repro_torch.sharding.rules.
-param_specs`, `repro_torch.core.flat.ShardLayout`):
+param_specs`, `repro_torch.core.flat.ShardLayout`). A split step splits the
+node's batch rows over its **data group** (:attr:`SwarmMesh.data_view`,
+the ranks of one position and model index):
 
     mesh, axis = make_swarm_mesh(2, model=2)   # 4 ranks: 2 nodes × 2
     specs = param_specs(layout, mesh)
@@ -67,9 +69,10 @@ class SwarmMesh:
     With inner axes (:func:`make_swarm_mesh` with ``data`` / ``model``
     above 1) ``group`` is the rank's node group, ``inner`` maps the inner
     axes to their sizes and ``coords`` to this rank's index on each,
-    :attr:`shard_view` is the node's shard group and ``world_group`` the
-    group the mesh was built over (None: the default group); otherwise
-    ``inner`` and ``coords`` are empty and ``shard_view`` None.
+    :attr:`shard_view` is the node's shard group, :attr:`data_view` (with
+    ``data`` above 1) the rank's data group within it, and ``world_group``
+    the group the mesh was built over (None: the default group); otherwise
+    ``inner`` and ``coords`` are empty and both views None.
 
     ``counts`` holds the bytes handed to each collective since the last
     :meth:`reset_counts` and ``link_counts`` the same by link class
@@ -105,6 +108,7 @@ class SwarmMesh:
         self.node_view: Optional[GroupView] = None
         self.pod_view: Optional[GroupView] = None
         self.shard_view: Optional[GroupView] = None
+        self.data_view: Optional[GroupView] = None
         self.world_group = group
         self.inner: Dict[str, int] = {}
         self.coords: Dict[str, int] = {}
@@ -191,9 +195,13 @@ def make_swarm_mesh(n_nodes: int = 4, *, data: int = 1, model: int = 1,
     ``(i·data + d)·model + m`` holding block ``(d, m)`` of the nodes of
     position ``i``. Every rank of the group must call it then: it creates,
     in the same order on every rank, the node group of each block ``(d,
-    m)`` (the mesh's ``group``: the schedules run on it) and the shard
-    group of each node position (:attr:`SwarmMesh.shard_view`). A world
-    that ``data · model`` does not divide raises."""
+    m)`` (the mesh's ``group``: the schedules run on it), the shard
+    group of each node position (:attr:`SwarmMesh.shard_view`) and, with
+    ``data`` above 1, the data group of each position and model index
+    ``m``, the ranks ``(i, ·, m)`` (:attr:`SwarmMesh.data_view`): a split
+    step (`repro_torch.launch.train.TrainStep.split`) gives each its share
+    of the node's batch rows and sums the gradients and batch statistics
+    over it. A world that ``data · model`` does not divide raises."""
     import torch.distributed as dist
 
     inner = data * model
@@ -218,6 +226,12 @@ def make_swarm_mesh(n_nodes: int = 4, *, data: int = 1, model: int = 1,
     shard_groups = [dist.new_group([world(q * inner + b)
                                     for b in range(inner)])
                     for q in range(positions)]
+    # with data above 1: each (position, model index)'s data group, made
+    # after the groups above so that they keep their order
+    data_groups = [[dist.new_group([world((q * data + d) * model + m)
+                                    for d in range(data)])
+                    for m in range(model)]
+                   for q in range(positions)] if data > 1 else None
     mesh = SwarmMesh(n_nodes, group=node_groups[g], axis="node",
                      shape={"node": positions, "data": data,
                             "model": model})
@@ -225,6 +239,9 @@ def make_swarm_mesh(n_nodes: int = 4, *, data: int = 1, model: int = 1,
     mesh.inner = {"data": data, "model": model}
     mesh.coords = {"data": g // model, "model": g % model}
     mesh.shard_view = GroupView(mesh, shard_groups[i], "shard", "intra")
+    if data_groups is not None:
+        mesh.data_view = GroupView(mesh, data_groups[i][g % model], "data",
+                                   "intra")
     return mesh, mesh.axis
 
 

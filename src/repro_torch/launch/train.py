@@ -18,6 +18,13 @@ form goes through the flash and SSD kernels' autograd Functions
 a CUDA tensor, their backwards plain PyTorch, and their vmap rules fold the
 node axis into the kernels' batch.
 
+:func:`make_train_step` returns a :class:`TrainStep`, a callable class that
+a session takes as its train step directly. On a gossip session with inner
+specs (`repro_torch.launch.mesh.make_swarm_mesh(n, data=D, model=M)`) it
+runs split (:meth:`TrainStep.split`): on the rank's shard of its node, the
+batch's rows over the node's data group, each layer gathered just in time
+(`repro_torch.models.gather`), the gradient and AdamW on the shard.
+
     python -m repro_torch.launch.train --arch mamba2-370m --smoke \\
         --swarm-nodes 4 --sync-every 2 --steps 4 --batch 2 --seq 32 \\
         --device cpu
@@ -34,57 +41,145 @@ import torch
 from repro_torch.configs.base import SwarmConfig, TrainConfig
 from repro_torch.core.engine import SwarmEngine, gate_decisions, gated_commit
 from repro_torch.models import Model
+from repro_torch.models.gather import node_norm
 from repro_torch.optim import adamw_init, adamw_update_, make_schedule
 
 
-def make_train_step(model: Model, tc: TrainConfig) -> Callable:
-    """(params [P], opt_state, batch) -> (params, opt_state, metrics).
+class TrainStep:
+    """One node's train step: ``(params [P], opt_state, batch[, step]) ->
+    (params, opt_state, metrics)``, the params and moments updated in
+    place. It takes the engine's fourth ``step`` argument (and ignores it:
+    the schedule reads the optimizer's count), so a session takes it as
+    its ``train_step_fn`` directly.
 
     With ``tc.accum_steps`` = A > 1 the batch is cut into A microbatches of
     B/A rows whose f32 gradients are summed (each divided by A), as the
     reference's ``lax.scan`` does; live activation memory scales with B/A.
     ``tc.remat=True`` checkpoints every block (`Model.loss_fn`): the
-    backward recomputes each block's activations from its input."""
-    schedule = make_schedule(tc)
-    layout = model.layout
+    backward recomputes each block's activations from its input. The
+    clipping norm's squares are summed in f64 (`repro_torch.models.gather.
+    node_norm`), so a shard's step (:meth:`split`) reaches the same norm.
 
-    def grads_of(parts, batch):
-        """(grads of ``parts``, (loss, metrics)). A vjp whose backward
-        neither keeps nor records its graph: ``torch.func.grad`` records the
-        backward for a higher derivative (``create_graph``), which holds
-        every intermediate gradient until the step ends (about 9x the
-        activations of plain autograd, measured on the CPU at Mamba2-370M's
-        width)."""
-        loss, vjp_fn, metrics = torch.func.vjp(
-            lambda p: model.loss_fn(layout.unflatten_parts(p), batch,
-                                    remat=tc.remat), parts, has_aux=True)
-        (grads,) = vjp_fn(torch.ones_like(loss), retain_graph=False,
-                          create_graph=False)
-        return grads, (loss, metrics)
+    On an inner-sharded gossip mesh a session runs :meth:`split` instead:
+    the step on the rank's shard of the node, each layer gathered just in
+    time, the batch's rows over the node's data group."""
 
-    def train_step(params, opt_state, batch):
+    def __init__(self, model: Model, tc: TrainConfig):
+        self.model = model
+        self.tc = tc
+        self.schedule = make_schedule(tc)
+
+    def _grads(self, grads_of, batch):
+        """(grads, loss, metrics) of ``grads_of(microbatch) -> (grads,
+        (loss, metrics))`` over the batch, accumulated over
+        ``tc.accum_steps`` microbatches."""
+        a = self.tc.accum_steps
+        if a <= 1:
+            grads, (l, metrics) = grads_of(batch)
+            return grads, l, metrics
+        grads, l = None, 0.0
+        for i in range(a):
+            mb = {k: v.reshape((a, v.shape[0] // a) + tuple(v.shape[1:]))[i]
+                  for k, v in batch.items()}
+            g, (li, _) = grads_of(mb)
+            g = tuple(t.to(torch.float32) / a for t in g)
+            grads = g if grads is None else tuple(
+                x + y for x, y in zip(grads, g))
+            l = l + li / a
+        return grads, l, {"xent": l, "aux": torch.zeros_like(l)}
+
+    def __call__(self, params, opt_state, batch, step=None):
+        model, tc = self.model, self.tc
+        layout = model.layout
         parts = layout.parts(params)
-        if tc.accum_steps > 1:
-            a = tc.accum_steps
-            grads, l = None, 0.0
-            for i in range(a):
-                mb = {k: v.reshape((a, v.shape[0] // a) + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
-                g, (li, _) = grads_of(parts, mb)
-                g = tuple(t.to(torch.float32) / a for t in g)
-                grads = g if grads is None else tuple(
-                    x + y for x, y in zip(grads, g))
-                l = l + li / a
-            metrics = {"xent": l, "aux": torch.zeros_like(l)}
-        else:
-            grads, (l, metrics) = grads_of(parts, batch)
-        lr = schedule(opt_state["count"])
+
+        def grads_of(mb):
+            """(grads of ``parts``, (loss, metrics)). A vjp whose backward
+            neither keeps nor records its graph: ``torch.func.grad``
+            records the backward for a higher derivative
+            (``create_graph``), which holds every intermediate gradient
+            until the step ends (about 9x the activations of plain
+            autograd, measured on the CPU at Mamba2-370M's width)."""
+            loss, vjp_fn, metrics = torch.func.vjp(
+                lambda p: model.loss_fn(layout.unflatten_parts(p), mb,
+                                        remat=tc.remat), parts, has_aux=True)
+            (grads,) = vjp_fn(torch.ones_like(loss), retain_graph=False,
+                              create_graph=False)
+            return grads, (loss, metrics)
+
+        grads, l, metrics = self._grads(grads_of, batch)
+        lr = self.schedule(opt_state["count"])
         # the parts are views of ``params``: the update writes the slot
         # buffer and the moments in place (the reference donates them)
-        _, opt_state = adamw_update_(parts, grads, opt_state, tc, lr)
+        _, opt_state = adamw_update_(
+            parts, grads, opt_state, tc, lr,
+            norm=node_norm(grads) if tc.grad_clip > 0 else None)
         return params, opt_state, dict(metrics, loss=l, lr=lr)
 
-    return train_step
+    def split(self, params, opt_state, batch, step=None, *, shard, mesh):
+        """The step on this rank's shard of one node: ``params`` its shard
+        ``[P_local]`` (``shard``: the :class:`~repro_torch.core.flat.
+        ShardLayout`), ``opt_state`` its AdamW moments over the shard's
+        values, ``batch`` the node's whole batch ``[B, ...]``, ``mesh`` the
+        inner-sharded `repro_torch.launch.mesh.SwarmMesh`.
+
+        The rank takes its ``B / D`` rows over the node's ``D`` data ranks
+        (the reference's ``batch → data``); rows that ``D · accum_steps``
+        does not divide stay whole on every data rank, as the reference's
+        batch falls back to replicated. The loss runs under the data group
+        (`repro_torch.sharding.batch`) with each layer gathered from the
+        shard group (`repro_torch.models.gather`, inside the checkpoint
+        with ``remat``), the shard's gradient comes back summed over the
+        data group, and AdamW updates the shard in place with the whole
+        node's clipping norm. The metrics are the node's (the loss averaged
+        over the data group), alike on every rank of the node. With one
+        data rank the step is the whole node's, bit for bit."""
+        from repro_torch.models.gather import NodeSplit
+        from repro_torch.sharding.batch import batch_group
+
+        model, tc = self.model, self.tc
+        d_size = mesh.inner.get("data", 1)
+        b = next(iter(batch.values())).shape[0]
+        rows = d_size > 1 and b % (d_size * tc.accum_steps) == 0
+        if rows:
+            n, d = b // d_size, mesh.coords["data"]
+            batch = {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
+        plan = NodeSplit(shard, mesh.shard_view,
+                         mesh.data_view if rows else None,
+                         dtype=params.dtype, device=params.device)
+        local = shard.local
+        parts = local.parts(params)
+        leaves = tuple(p.detach().requires_grad_() for p in parts)
+
+        def grads_of(mb):
+            with batch_group(plan.data_view):
+                loss, metrics = model.loss_fn(local.unflatten_parts(leaves),
+                                              mb, remat=tc.remat, split=plan)
+                grads = torch.autograd.grad(loss, leaves)
+            return grads, (loss.detach(),
+                           {k: v.detach() for k, v in metrics.items()})
+
+        grads, l, metrics = self._grads(grads_of, batch)
+        lr = self.schedule(opt_state["count"])
+        _, opt_state = adamw_update_(
+            parts, grads, opt_state, tc, lr,
+            norm=plan.grad_norm(grads) if tc.grad_clip > 0 else None)
+        metrics = dict(metrics, loss=l)
+        if plan.data_view is not None:
+            from repro_torch.core import gossip
+            keys = sorted(metrics)
+            mean = gossip.all_reduce(
+                plan.data_view, torch.stack([metrics[k] for k in keys]),
+                kind="step_control") / d_size
+            metrics = dict(zip(keys, mean.unbind(0)))
+        return params, opt_state, dict(metrics, lr=lr)
+
+
+def make_train_step(model: Model, tc: TrainConfig) -> TrainStep:
+    """One node's :class:`TrainStep`: ``(params [P], opt_state, batch[,
+    step]) -> (params, opt_state, metrics)``, and its :meth:`TrainStep.
+    split` on a rank's shard (a gossip session with inner specs runs it)."""
+    return TrainStep(model, tc)
 
 
 def make_eval_step(model: Model) -> Callable:
@@ -108,8 +203,9 @@ def init_train_state(model: Model, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def make_swarm_train_step(model: Model, tc: TrainConfig) -> Callable:
-    """vmapped local step: stacked (params [N, P], opt_state) with a leading
-    node axis, batch [N, local_B, ...]. Gradients stay within each node."""
+    """vmapped local step (of the :class:`TrainStep`): stacked (params
+    [N, P], opt_state) with a leading node axis, batch [N, local_B, ...].
+    Gradients stay within each node."""
     return torch.func.vmap(make_train_step(model, tc), in_dims=(0, 0, 0))
 
 
@@ -276,16 +372,13 @@ def run(args) -> dict:
     else:  # P2P-SL: one SwarmSession over the stacked node axis
         smodel = build_model(cfg, lora_rank=8) if args.lora else model
         layout = smodel.layout
-        step_fn = make_train_step(smodel, tc)
+        train_step = make_train_step(smodel, tc)
         # every node starts from the same base; with --lora each injects
         # its own adapters, as the reference's nodes do
         ps = [smodel.init(_generator(args.seed, device), device,
                           adapter_generator=_generator(args.seed + 1 + i,
                                                        device))
               for i in range(n_nodes)]
-
-        def train_step(params, opt_state, batch, step):
-            return step_fn(params, opt_state, batch)
 
         veval = torch.func.vmap(lambda p, v: 1.0 / (1.0 + smodel.loss_fn(
             layout.unflatten(p), v, remat=False)[0]))

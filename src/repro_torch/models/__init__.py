@@ -15,7 +15,8 @@ so the port's checkpoints use the reference's keys and either package's
   train:  loss_fn(params, {tokens, labels[, mask][, patch_embeds | frames]},
           remat=True) -> (loss, metrics)  (the reference's signature and
           default; remat=True checkpoints every decoder block under
-          torch.func, `repro_torch.models.remat`)
+          torch.func, `repro_torch.models.remat`; split= runs it on a
+          rank's shard, each layer gathered, `repro_torch.models.gather`)
   decode: decode(params, tokens [B,S], caches, cache_pos[, commit])
           -> (logits [B,S,V], caches)      (caches updated in place)
   prefill(params, {tokens[, patch_embeds]}, caches) -> (last logits
@@ -211,10 +212,16 @@ def _lm_model(cfg: ModelConfig, lora_rank: int) -> Model:
         return forward_lm(tree, cfg, embeds=torch.cat([patches, tok], dim=1),
                           **kw)
 
-    def loss_fn(params, batch, remat=True):
+    def loss_fn(params, batch, remat=True, split=None):
         """(loss, {"xent", "aux"}); ``remat`` checkpoints every block
-        (`repro_torch.models.remat`), the reference's default."""
-        logits, aux, _ = call(params, forward, batch, remat=remat)
+        (`repro_torch.models.remat`), the reference's default. ``split``
+        (`repro_torch.models.gather.NodeSplit`): ``params`` are a rank's
+        local leaf views of its shard, gathered layer by layer."""
+        if split is None:
+            logits, aux, _ = call(params, forward, batch, remat=remat)
+        else:
+            logits, aux, _ = forward(split.tree(params), batch, remat=remat,
+                                     split=split)
         xent = softmax_xent(logits[:, text_from:], batch["labels"],
                             batch.get("mask"))
         return xent + aux, {"xent": xent, "aux": aux}
@@ -240,11 +247,16 @@ def _encdec_model(cfg: ModelConfig, lora_rank: int) -> Model:
     layout, init, call = _node(cfg, encdec_shapes(cfg), init_encdec_,
                                lora_rank)
 
-    def loss_fn(params, batch, remat=True):
+    def loss_fn(params, batch, remat=True, split=None):
         """(loss, {"xent", "aux"}); ``remat`` checkpoints every decoder
-        block, the reference's default."""
-        logits, aux = call(params, forward_encdec, cfg, batch["frames"],
-                           batch["tokens"], remat=remat)
+        block, the reference's default; ``split`` as the LM's."""
+        if split is None:
+            logits, aux = call(params, forward_encdec, cfg, batch["frames"],
+                               batch["tokens"], remat=remat)
+        else:
+            logits, aux = forward_encdec(split.tree(params), cfg,
+                                         batch["frames"], batch["tokens"],
+                                         remat=remat, split=split)
         xent = softmax_xent(logits, batch["labels"], batch.get("mask"))
         return xent + aux, {"xent": xent, "aux": aux}
 

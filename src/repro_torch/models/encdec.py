@@ -29,7 +29,7 @@ from repro_torch.models.attention import (attention, attention_shapes,
 from repro_torch.models.layers import (dtype_of, embed, init_linear_, linear,
                                        mlp, normal_, rmsnorm)
 from repro_torch.models.remat import checkpoint
-from repro_torch.models.transformer import _map, mlp_shapes
+from repro_torch.models.transformer import _layer_source, _map, mlp_shapes
 
 
 def _enc_block_shapes(cfg: ModelConfig) -> dict:
@@ -81,19 +81,16 @@ def init_encdec_(params: dict, cfg: ModelConfig,
         params[name]["scale"].fill_(1.0)
 
 
-def _layers(stacked: dict, n: int):
-    """Each layer's params: views of the stacked leaves, unbound once."""
-    unbound = _map(stacked, lambda t: t.unbind(0))
-    return [_map(unbound, lambda ts: ts[i]) for i in range(n)]
-
-
-def encode(params, cfg: ModelConfig, frames):
-    """frames [B, S_enc, frontend_dim] → enc_out [B, S_enc, D]."""
+def encode(params, cfg: ModelConfig, frames, split=None):
+    """frames [B, S_enc, frontend_dim] → enc_out [B, S_enc, D]; ``split``
+    gathers each layer from a rank's blocks (`forward_lm`)."""
     x = linear(params["frontend_proj"],
                frames.to(dtype_of(cfg.compute_dtype)))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    for lp in _layers(params["enc_layers"], cfg.n_enc_layers):
+    layer = _layer_source(params["enc_layers"], split, "enc_layers", False)
+    for i in range(cfg.n_enc_layers):
+        lp = layer(i)
         a = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
         x = x + attention(lp["attn"], a, cfg, positions=positions,
                           causal=False)
@@ -137,7 +134,8 @@ def _dec_block(lp, x, cfg: ModelConfig, positions, enc_out, cache,
 
 
 def decode_step(params, cfg: ModelConfig, tokens, caches: Optional[dict],
-                cache_pos, *, enc_out=None, commit=None, remat=False):
+                cache_pos, *, enc_out=None, commit=None, remat=False,
+                split=None):
     """Decoder forward: tokens [B,S] → (logits [B,S,V_padded], aux 0,
     caches). With caches (from :func:`make_encdec_cache`) the
     self-attention writes them in place at ``cache_pos`` (an int or a
@@ -145,7 +143,8 @@ def decode_step(params, cfg: ModelConfig, tokens, caches: Optional[dict],
     reads ``caches["enc_out"]``; without (teacher-forced training) it reads
     ``enc_out`` and the positions are 0..S-1; there ``remat`` checkpoints
     every decoder block, as the reference's ``jax.checkpoint`` of its
-    decoder body (the encoder is not checkpointed)."""
+    decoder body (the encoder is not checkpointed), and ``split`` gathers
+    each layer from a rank's blocks (`forward_lm`)."""
     compute_dtype = dtype_of(cfg.compute_dtype)
     x = embed(params["embed"], tokens, compute_dtype)
     b, s = x.shape[:2]
@@ -159,7 +158,10 @@ def decode_step(params, cfg: ModelConfig, tokens, caches: Optional[dict],
     else:
         positions = (cache_pos.to(x.device).reshape(-1, 1)
                      + ar[None]).expand(b, s)
-    for i, lp in enumerate(_layers(params["dec_layers"], cfg.n_layers)):
+    layer = _layer_source(params["dec_layers"], split, "dec_layers",
+                          remat and caches is None)
+    for i in range(cfg.n_layers):
+        lp = layer(i)
         if remat and caches is None:
             (x,) = checkpoint(_remat_dec_block(cfg), x, enc_out, positions,
                               lp)
@@ -177,9 +179,9 @@ def decode_step(params, cfg: ModelConfig, tokens, caches: Optional[dict],
 
 
 def forward_encdec(params, cfg: ModelConfig, frames, tokens, *,
-                   remat=False):
+                   remat=False, split=None):
     """Teacher-forced training forward: (logits, aux)."""
-    enc_out = encode(params, cfg, frames)
+    enc_out = encode(params, cfg, frames, split=split)
     logits, aux, _ = decode_step(params, cfg, tokens, None, None,
-                                 enc_out=enc_out, remat=remat)
+                                 enc_out=enc_out, remat=remat, split=split)
     return logits, aux

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import batch
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -107,7 +108,13 @@ def mlp(p, x, cfg: ModelConfig):
 
 
 def softmax_xent(logits, labels, mask: Optional[torch.Tensor] = None):
-    """Token-mean cross entropy. logits [..., V]; labels int [...]."""
+    """Token-mean cross entropy. logits [..., V]; labels int [...].
+
+    Under a batch group (`repro_torch.sharding.batch`: a split step's
+    ``D`` data ranks, each with ``B / D`` of the node's rows) the masked
+    mean is ``D`` times the rank's masked sum over the group's token count,
+    so that the node's loss is the mean of its ranks' (the unmasked mean of
+    equal row counts already is)."""
     lf = logits.to(torch.float32)
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
@@ -115,4 +122,9 @@ def softmax_xent(logits, labels, mask: Optional[torch.Tensor] = None):
     if mask is None:
         return torch.mean(nll)
     mask = mask.to(torch.float32)
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    group = batch.current()
+    if group is None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    count = batch.group_sum(torch.sum(mask).reshape(1))[0]
+    return (group.world_size * torch.sum(nll * mask)
+            / torch.clamp(count, min=1.0))

@@ -10,7 +10,9 @@ The reference's semantics, step for step:
   ``jax.lax.top_k`` gives them (``torch.topk`` promises neither on CUDA).
 * **Aux loss**, Switch-style: ``e · Σ(me · ce) · router_aux_coef`` with
   ``me`` the mean router probability and ``ce`` the share of tokens whose
-  top-1 is each expert.
+  top-1 is each expert; under a batch group (a split step's data ranks,
+  `repro_torch.sharding.batch`) both means are the group's, ``me``
+  differentiably, as GSPMD reduces them over the reference's ``data``.
 * **Capacity per batch row**: ``cap_g = max(1, round(s·k/e·cf))`` (Python's
   round: halves to even). A row's s·k assignments, token-major, take slots
   in the order of a cumsum; those at or past ``cap_g`` are dropped.
@@ -37,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import init_linear_
+from repro_torch.sharding import batch
 
 
 def moe_shapes(cfg: ModelConfig) -> dict:
@@ -69,6 +72,11 @@ def route(p, x, cfg: ModelConfig):
     me = probs.reshape(b * s, e).mean(0)
     ce = (expert_ids[..., 0].reshape(b * s, 1) == experts).to(
         torch.float32).mean(0)
+    if batch.current() is not None:
+        # a split step's rank holds B / D of the node's rows: both batch
+        # means are the node's before their product (`sharding.batch`)
+        me = batch.group_mean(me)
+        ce = batch.group_sum(ce) / batch.current().world_size
     aux = e * torch.sum(me * ce) * cfg.router_aux_coef
     return gate_vals, expert_ids, aux
 

@@ -70,6 +70,55 @@ class _Checkpoint(torch.autograd.Function):
         return (None, None) + tuple(out)
 
 
+class _GatheredCheckpoint(torch.autograd.Function):
+    """:class:`_Checkpoint` of a block whose last argument is a rank's
+    `repro_torch.models.gather.LayerShards`: the forward gathers the whole
+    layer, runs the block without a graph and drops the layer; the
+    backward gathers it again, recomputes the block under
+    ``torch.func.grad`` with the whole layer as an input, and takes the
+    layer's cotangent to the rank's blocks (`LayerShards.reduce`). Its
+    collectives so run on plain tensors. No vmap rule: a split step runs
+    node by node."""
+
+    @staticmethod
+    def forward(fn, spec, shards, *leaves):
+        n = len(leaves) - len(shards.held())
+        args = pytree.tree_unflatten(list(leaves[:n]), spec)
+        return fn(*args, shards.tree(shards.assemble()))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        fn, spec, shards, *leaves = inputs
+        ctx.fn, ctx.spec, ctx.shards = fn, spec, shards
+        ctx.n = len(leaves) - len(shards.held())
+        ctx.save_for_backward(*leaves[:ctx.n])
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        shards = ctx.shards
+        leaves = list(ctx.saved_tensors)
+        whole = shards.assemble()
+        diff = [i for i, t in enumerate(leaves) if t.is_floating_point()]
+        k = len(diff)
+
+        def dot(*ts):
+            ls = list(leaves)
+            for i, t in zip(diff, ts[:k]):
+                ls[i] = t
+            outs = ctx.fn(*pytree.tree_unflatten(ls, ctx.spec),
+                          shards.tree(ts[k:]))
+            return sum(torch.sum(o * c) for o, c in zip(outs, cotangents))
+
+        grads = torch.func.grad(dot, argnums=tuple(range(k + len(whole))))(
+            *(leaves[i] for i in diff), *whole)
+        del whole
+        out = [None] * len(leaves)
+        for i, g in zip(diff, grads[:k]):
+            out[i] = g
+        return (None, None, None) + tuple(out) + tuple(
+            shards.reduce(list(grads[k:])))
+
+
 def checkpoint(fn: Callable[..., Tuple[torch.Tensor, ...]], *args
                ) -> Tuple[torch.Tensor, ...]:
     """``fn(*args)`` with its activations recomputed in the backward.
@@ -82,6 +131,17 @@ def checkpoint(fn: Callable[..., Tuple[torch.Tensor, ...]], *args
     integer ones (the positions) get none. A tensor made inside a
     ``torch.func`` transform must come in as an argument, not through
     ``fn``'s closure; ``fn`` captures only Python values (the window, the
-    config). ``fn`` returns a tuple of tensors."""
+    config). ``fn`` returns a tuple of tensors.
+
+    On a split step (`repro_torch.models.gather`) the last argument is the
+    rank's `LayerShards` of the layer instead of its views: the layer is
+    gathered inside the checkpoint, for the forward and again for the
+    recompute, and ``fn`` receives it whole."""
+    from repro_torch.models.gather import LayerShards
+    if args and isinstance(args[-1], LayerShards):
+        shards = args[-1]
+        leaves, spec = pytree.tree_flatten(args[:-1])
+        return _GatheredCheckpoint.apply(fn, spec, shards, *leaves,
+                                         *shards.held())
     leaves, spec = pytree.tree_flatten(args)
     return _Checkpoint.apply(fn, spec, *leaves)

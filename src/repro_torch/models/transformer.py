@@ -222,15 +222,32 @@ def _remat_block(cfg: ModelConfig, window: int):
     return fn
 
 
+def _layer_source(stacked: dict, split, top: str, lazy: bool):
+    """``i -> layer i``'s params of a stacked subtree: views of the stacked
+    leaves, each unbound once (a gradient then comes back as one stack per
+    leaf, where indexing layer by layer would write a zero-padded full-size
+    gradient per layer, quadratic in the depth); on a split step the layer
+    gathered from the rank's blocks, or with ``lazy`` the blocks a
+    checkpoint gathers (`repro_torch.models.gather.NodeSplit.layers`)."""
+    if split is not None:
+        return split.layers(top, stacked, lazy)
+    layers = _map(stacked, lambda t: t.unbind(0))
+    return lambda i: _map(layers, lambda ts: ts[i])
+
+
 def forward_lm(params, cfg: ModelConfig, tokens=None, *, embeds=None,
-               caches=None, cache_pos=None, commit=None, remat=False):
+               caches=None, cache_pos=None, commit=None, remat=False,
+               split=None):
     """tokens [B,S] (or ``embeds`` [B,S,D], the vlm prefix path) →
     (logits [B,S,V_padded], aux: the layers' router losses summed in f32,
     caches). ``cache_pos`` is an int or an int tensor ``[B]`` (per-row
     decode positions); caches are written in place (``commit`` [B] bool
     limits the rows). ``remat`` checkpoints every block of a forward
     without caches (`repro_torch.models.remat`), as the reference's
-    ``jax.checkpoint`` of its layer body."""
+    ``jax.checkpoint`` of its layer body. ``split`` (a training forward on
+    a rank's shard, `repro_torch.models.gather.NodeSplit`): ``layers``
+    holds the rank's blocks, and each layer is gathered just before its
+    block (inside the checkpoint with ``remat``)."""
     compute_dtype = dtype_of(cfg.compute_dtype)
     emb_p = params["embed_tied"] if cfg.tie_embeddings else params["embed"]
     if embeds is None:
@@ -247,14 +264,11 @@ def forward_lm(params, cfg: ModelConfig, tokens=None, *, embeds=None,
         positions = cache_pos.to(x.device).reshape(-1, 1) + ar[None]
         positions = positions.expand(b, s)
     windows = layer_windows(cfg)
-    # every stacked leaf unbound once into its layers' views: a gradient
-    # then comes back as one stack per leaf, where indexing layer by layer
-    # would write a zero-padded full-size gradient per layer (quadratic in
-    # the depth)
-    layers = _map(params["layers"], lambda t: t.unbind(0))
+    layer = _layer_source(params["layers"], split, "layers",
+                          remat and caches is None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        lp = _map(layers, lambda ts: ts[i])
+        lp = layer(i)
         if remat and caches is None:
             # the reference's jax.checkpoint of the layer body: only the
             # block's input and its parameter views are kept

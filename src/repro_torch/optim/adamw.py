@@ -81,13 +81,18 @@ def clip_by_global_norm(grads, max_norm: float):
     return (out if isinstance(grads, (tuple, list)) else out[0]), norm
 
 
-def _update(ps, gs, state, cfg: TrainConfig, lr, mu, nu, new):
+def _update(ps, gs, state, cfg: TrainConfig, lr, mu, nu, new, norm=None):
     """The update's chunk loop, writing the moments into ``mu``/``nu`` and
     the params into the parts ``new``: each chunk reads its slice of the
     old moments, the grads and the params before it writes that slice, so
-    the outputs may be the inputs themselves. Returns the new count."""
-    scale = (_clip_scale(gs, cfg.grad_clip)[0] if cfg.grad_clip > 0
-             else None)
+    the outputs may be the inputs themselves. ``norm``: the clipping norm,
+    when the caller computed it (else :func:`global_norm` of ``gs``).
+    Returns the new count."""
+    scale = None
+    if cfg.grad_clip > 0:
+        scale = (_clip_scale(gs, cfg.grad_clip)[0] if norm is None else
+                 torch.clamp(cfg.grad_clip / torch.clamp(norm, min=1e-9),
+                             max=1.0))
     count = state["count"] + 1
     b1, b2 = cfg.b1, cfg.b2
     c = count.to(torch.float32)
@@ -125,7 +130,7 @@ def adamw_update(params, grads, state, cfg: TrainConfig, lr):
     return new, {"mu": mu, "nu": nu, "count": count}
 
 
-def adamw_update_(params, grads, state, cfg: TrainConfig, lr):
+def adamw_update_(params, grads, state, cfg: TrainConfig, lr, norm=None):
     """:func:`adamw_update` in place: the moments go back into
     ``state["mu"]``/``state["nu"]`` and the params into ``params`` (a
     tensor, or the layout's parts: views of one slot buffer, so the buffer
@@ -136,7 +141,10 @@ def adamw_update_(params, grads, state, cfg: TrainConfig, lr):
     params is ever allocated. Returns ``(params, state)`` (the same tensors;
     the count is a new scalar). Under ``torch.func.vmap`` the params and
     moments must be batched along the vmapped axis, as the engine's stacked
-    state always is."""
+    state always is. ``norm``: the clipping norm when the caller computed
+    it (a shard's step takes the whole node's, `repro_torch.launch.
+    train`)."""
     ps, gs = _parts(params), _parts(grads)
-    count = _update(ps, gs, state, cfg, lr, state["mu"], state["nu"], ps)
+    count = _update(ps, gs, state, cfg, lr, state["mu"], state["nu"], ps,
+                    norm)
     return params, {"mu": state["mu"], "nu": state["nu"], "count": count}

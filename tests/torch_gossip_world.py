@@ -1349,9 +1349,431 @@ def port_fault_plane(meshes, inp, tmp):
     return out
 
 
+# --- split compute within a node: a TrainStep on its shard ------------------
+
+#: a node's leaves for the gather Function on a (1, 2, 2) world, named so
+#: that the rules' specs cut them: the embedding over model, the final norm
+#: replicated; stacked [L, ...]: Mamba2's in_proj (the layer axis over
+#: data, d over model), the SSM's conv (its kernel axis over model) and a
+#: replicated norm
+SPLIT_LEAVES = (("embed.table", (10, 8)), ("final_norm.scale", (8,)),
+                ("layers.ssm.in_proj.w", (4, 8, 12)),
+                ("layers.ssm.conv_w", (4, 4, 6)),
+                ("layers.ssm_norm.scale", (4, 8)))
+SPLIT_L = 4
+#: the (node, data, model) shapes of the split worlds
+SPLIT_UNITS, SPLIT_D1 = (1, 2, 2), (2, 1, 2)
+SPLIT_D2, SPLIT_D2M2 = (2, 2, 1), (2, 2, 2)
+#: the session families: (name, arch) of the ssm, hybrid and moe smokes
+SPLIT_ARCHS = (("ssm", "mamba2-370m"), ("hybrid", "hymba-1.5b"),
+               ("moe", "granite-moe-3b-a800m"))
+#: the JAX package's step against one node's split step
+SPLIT_JAX = (("dense", "minicpm-2b"), ("ssm", "mamba2-370m"))
+SPLIT_NODES, SPLIT_ROUNDS, SPLIT_STEPS = 2, 2, 2
+SPLIT_BATCH, SPLIT_SEQ = 4, 16
+SPLIT_JAX_STEPS, SPLIT_JAX_BATCH, SPLIT_JAX_SEQ = 2, 4, 32
+SPLIT_WIRES = ("f32", "int8")
+
+
+def split_layout():
+    from repro_torch.core.flat import FlatLayout
+    return FlatLayout(list(SPLIT_LEAVES))
+
+
+def split_cotangents(rank):
+    """A rank's seeded cotangents of the whole unit and of each whole layer
+    (``{path: [*shape]}`` for the unit's leaves, ``[L, ...]`` for the
+    stacked ones, layer i at index i)."""
+    rng = np.random.default_rng(100 + rank)
+    return {p: rng.normal(0, 1, sh).astype(np.float32)
+            for p, sh in SPLIT_LEAVES}
+
+
+def split_inputs(seed=6):
+    """Seeded numpy inputs of the split worlds: the gather's node [P], the
+    sessions' token rows per family [R, T, N, B, S] and validation rows
+    [N, B, S], a fallback batch of 3 rows."""
+    from repro_torch.configs import get_config, smoke_variant
+    rng = np.random.default_rng(seed)
+    p = sum(int(np.prod(sh)) for _, sh in SPLIT_LEAVES)
+    out = {"node": rng.normal(0, 1, (p,)).astype(np.float32)}
+    for fam, arch in SPLIT_ARCHS:
+        vocab = smoke_variant(get_config(arch)).vocab_size
+        toks = rng.integers(0, vocab, (SPLIT_ROUNDS, SPLIT_STEPS,
+                                       SPLIT_NODES, SPLIT_BATCH,
+                                       SPLIT_SEQ + 1))
+        out[f"{fam}/tokens"] = toks[..., :-1].astype(np.int64)
+        out[f"{fam}/labels"] = toks[..., 1:].astype(np.int64)
+        val = rng.integers(0, vocab, (SPLIT_NODES, SPLIT_BATCH,
+                                      SPLIT_SEQ + 1))
+        out[f"{fam}/vtokens"] = val[..., :-1].astype(np.int64)
+        out[f"{fam}/vlabels"] = val[..., 1:].astype(np.int64)
+    odd = rng.integers(0, 64, (3, SPLIT_SEQ + 1))
+    out["odd/tokens"] = odd[:, :-1].astype(np.int64)
+    out["odd/labels"] = odd[:, 1:].astype(np.int64)
+    return out
+
+
+#: the session worlds: the unsharded twin and the split meshes
+SPLIT_WORLDS = {"split_twin": None, "split_d2": SPLIT_D2,
+                "split_d2m2": SPLIT_D2M2}
+
+
+def _split_mesh(shape):
+    """The (node, data, model) mesh of ``shape``: a node a position."""
+    from repro_torch.launch.mesh import make_swarm_mesh
+    n, d, m = shape
+    return make_swarm_mesh(n, data=d, model=m)[0]
+
+
+def split_tc(remat=False, lr=1e-3, **kw):
+    from repro_torch.configs.base import TrainConfig
+    return TrainConfig(**dict(dict(lr=lr, warmup_steps=1, max_steps=4,
+                                   remat=remat), **kw))
+
+
+def _smoke(arch):
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import build_model
+    return build_model(smoke_variant(get_config(arch)))
+
+
+def _gather_case(mesh, out):
+    """The gather Function on :data:`SPLIT_LEAVES` with the rules' specs:
+    each unit forward against ``ShardLayout.gather`` of the node, and the
+    local gradient of Σ whole · cotangent (the test holds it against the
+    data group's cotangents)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.flat import ShardLayout
+    from repro_torch.models.gather import NodeSplit
+    from repro_torch.sharding.rules import param_specs
+
+    layout = split_layout()
+    specs = param_specs(layout, mesh)
+    shard = ShardLayout(layout, specs, mesh.inner, mesh.coords)
+    inp = np.load(os.path.join(os.environ["SPLIT_DIR"], "inputs.npz"))
+    node = torch.from_numpy(inp["node"])
+    local = shard.shard(node[None])[0].clone().requires_grad_()
+    want = layout.unflatten(shard.gather(local.detach()[None],
+                                         mesh.shard_view, kind=None)[0])
+    plan = NodeSplit(shard, mesh.shard_view, mesh.data_view)
+    tree = plan.tree(shard.local.unflatten(local))
+    layer = plan.layers("layers", tree["layers"], lazy=False)
+    cots = {p: torch.from_numpy(c)
+            for p, c in split_cotangents(dist.get_rank()).items()}
+    loss, equal = 0.0, []
+    for path in plan.unit.paths:
+        t = tree
+        for key in path.split("."):
+            t = t[key]
+        equal.append(torch.equal(t, want[path]))
+        loss = loss + (t * cots[path]).sum()
+    for i in range(SPLIT_L):
+        lp = layer(i)
+        for path in plan.cuts["layers"].paths:
+            t = lp
+            for key in path.split(".")[1:]:
+                t = t[key]
+            equal.append(torch.equal(t, want[path][i]))
+            loss = loss + (t * cots[path][i]).sum()
+    (grad,) = torch.autograd.grad(loss, local)
+    out["gather/forward_equal"] = np.asarray(equal)
+    out["gather/grad"] = grad.numpy()
+    out["gather/coords"] = np.asarray([mesh.coords["data"],
+                                       mesh.coords["model"]])
+    out["gather/specs"] = np.asarray(repr(sorted(specs.items())))
+
+
+def _node_params(shard, mesh, local):
+    """The whole node gathered from the rank's shard (uncounted)."""
+    return shard.gather(local[None], mesh.shard_view, kind=None)[0]
+
+
+def _memory_case(mesh, out):
+    """A Mamba2 smoke split step with the whole layers that are alive at
+    once counted (remat on and off), the gradient's and moments' sizes and
+    the largest whole cotangent a reduce takes."""
+    import gc
+    import weakref
+    import torch
+    from repro_torch.core.flat import ShardLayout
+    from repro_torch.launch import train
+    from repro_torch.models import gather
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.rules import param_specs
+
+    model = _smoke("mamba2-370m")
+    layout = model.layout
+    shard = ShardLayout(layout, param_specs(layout, mesh), mesh.inner,
+                        mesh.coords)
+    inp = np.load(os.path.join(os.environ["SPLIT_DIR"], "inputs.npz"))
+    batch = {k: torch.from_numpy(inp[f"ssm/{k}"][0, 0, 0])
+             for k in ("tokens", "labels")}
+    live, peak, sizes, cots = [0], [0], {}, [0]
+
+    orig_gather, orig_reduce = gather.NodeSplit.gather, gather.NodeSplit.reduce
+
+    def gathered(self, cut, local, i):
+        whole = orig_gather(self, cut, local, i)
+        if cut.stacked:
+            gc.collect()
+            live[0] += 1
+            peak[0] = max(peak[0], live[0])
+            weakref.finalize(whole[cut.gathered[0]],
+                             lambda: live.__setitem__(0, live[0] - 1))
+        return whole
+
+    def reduce(self, cut, cts, i, local):
+        cots[0] = max(cots[0], sum(c.numel() for c in cts if c is not None))
+        return orig_reduce(self, cut, cts, i, local)
+
+    orig_update = train.adamw_update_
+
+    def update(parts, grads, opt, tc, lr, norm=None):
+        sizes["grads"] = sum(g.numel() for g in grads)
+        sizes["mu"] = opt["mu"].numel()
+        return orig_update(parts, grads, opt, tc, lr, norm=norm)
+
+    gather.NodeSplit.gather, gather.NodeSplit.reduce = gathered, reduce
+    train.adamw_update_ = update
+    try:
+        for remat in (True, False):
+            live[0] = peak[0] = cots[0] = 0
+            step = train.make_train_step(model, split_tc(remat))
+            p0 = model.init(torch.Generator().manual_seed(0), "cpu")
+            p = shard.shard(p0[None])[0]
+            o = adamw_init(shard.local.parts(p))
+            step.split(p, o, batch, shard=shard, mesh=mesh)
+            gc.collect()
+            tag = "remat" if remat else "plain"
+            out[f"memory/{tag}/peak_layers"] = np.asarray(peak[0])
+            out[f"memory/{tag}/grads"] = np.asarray(sizes["grads"])
+            out[f"memory/{tag}/mu"] = np.asarray(sizes["mu"])
+            out[f"memory/{tag}/largest_cotangent"] = np.asarray(cots[0])
+    finally:
+        gather.NodeSplit.gather, gather.NodeSplit.reduce = (orig_gather,
+                                                            orig_reduce)
+        train.adamw_update_ = orig_update
+    cuts = gather.NodeSplit(shard, mesh.shard_view).cuts["layers"]
+    out["memory/layer_values"] = np.asarray(
+        sum(int(np.prod(sh)) for sh in cuts.shapes))
+    out["memory/local_values"] = np.asarray(shard.local.n_values)
+    out["memory/node_values"] = np.asarray(layout.n_values)
+    out["memory/n_layers"] = np.asarray(model.cfg.n_layers)
+
+
+def _step_case(mesh, out):
+    """One node's split step on this rank's shard: the JAX package's
+    params (converted), SPLIT_JAX_STEPS steps, the node's params gathered;
+    a batch of 3 rows (no split over 2 data ranks) against the opaque
+    whole-node step, bit for bit; remat on against off."""
+    import torch
+    from repro_torch.core.flat import ShardLayout
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.rules import param_specs
+
+    inp = np.load(os.path.join(os.environ["SPLIT_DIR"], "inputs.npz"))
+    for fam, arch in SPLIT_JAX:
+        model = _smoke(arch)
+        layout = model.layout
+        shard = ShardLayout(layout, param_specs(layout, mesh), mesh.inner,
+                            mesh.coords)
+        # test_torch_train's settings (lr 1e-4, no warmup), remat on
+        step = train.make_train_step(model, split_tc(
+            True, lr=1e-4, warmup_steps=0, max_steps=10))
+        p = shard.shard(torch.from_numpy(inp[f"jax/{fam}/flat"])[None])[0]
+        o = adamw_init(shard.local.parts(p))
+        losses = []
+        for k in range(SPLIT_JAX_STEPS):
+            b = {key: torch.from_numpy(inp[f"jax/{fam}/{key}"][k])
+                 for key in ("tokens", "labels")}
+            p, o, m = step.split(p, o, b, shard=shard, mesh=mesh)
+            losses.append(float(m["loss"]))
+        out[f"jax/{fam}/loss"] = np.asarray(losses)
+        out[f"jax/{fam}/params"] = _node_params(shard, mesh, p).numpy()
+    # the fallback: 3 rows over 2 data ranks stay whole
+    model = _smoke("mamba2-370m")
+    layout = model.layout
+    shard = ShardLayout(layout, param_specs(layout, mesh), mesh.inner,
+                        mesh.coords)
+    odd = {k: torch.from_numpy(inp[f"odd/{k}"]) for k in ("tokens",
+                                                           "labels")}
+    p0 = model.init(torch.Generator().manual_seed(0), "cpu")
+    step = train.make_train_step(model, split_tc())
+    pw, ow = p0.clone(), adamw_init(layout.parts(p0))
+    ps = shard.shard(p0[None])[0]
+    os_ = adamw_init(shard.local.parts(ps))
+    for _ in range(2):
+        pw, ow, mw = step(pw, ow, odd)
+        ps, os_, ms = step.split(ps, os_, odd, shard=shard, mesh=mesh)
+    out["odd/params_equal"] = np.asarray(torch.equal(
+        shard.shard(pw[None])[0], ps))
+    out["odd/moments_equal"] = np.asarray(
+        torch.equal(shard.shard(ow["mu"][None])[0], os_["mu"])
+        and torch.equal(shard.shard(ow["nu"][None])[0], os_["nu"]))
+    out["odd/loss"] = np.asarray([float(mw["loss"]), float(ms["loss"])])
+    # accumulation: 4 rows over 2 data ranks in 2 microbatches of one row
+    # against the whole node's 2 microbatches of two; 6 rows stay whole
+    for rows in (4, 6):
+        tc = split_tc(accum_steps=2)
+        st = train.make_train_step(model, tc)
+        b = {k: torch.from_numpy(np.concatenate(
+            [inp[f"ssm/{k}"][0, 0, 0], inp[f"ssm/{k}"][0, 1, 0]])[:rows])
+             for k in ("tokens", "labels")}
+        pw, ow = p0.clone(), adamw_init(layout.parts(p0))
+        pw, ow, mw = st(pw, ow, b)
+        ps = shard.shard(p0[None])[0]
+        os_ = adamw_init(shard.local.parts(ps))
+        ps, os_, ms = st.split(ps, os_, b, shard=shard, mesh=mesh)
+        want = shard.shard(ow["mu"][None])[0] / (1 - tc.b1)
+        out[f"accum/{rows}/grad_diff"] = np.asarray(float(
+            (os_["mu"] / (1 - tc.b1) - want).abs().max()))
+        out[f"accum/{rows}/params_equal"] = np.asarray(torch.equal(
+            shard.shard(pw[None])[0], ps))
+        out[f"accum/{rows}/loss"] = np.asarray([float(mw["loss"]),
+                                                float(ms["loss"])])
+    # remat on against off on the split path (4 rows: split over data):
+    # one step's loss and clipped gradient (its first moment over 1 - b1)
+    batch = {k: torch.from_numpy(inp[f"ssm/{k}"][0, 0, 0])
+             for k in ("tokens", "labels")}
+    got = {}
+    for remat in (False, True):
+        tc = split_tc(remat)
+        st = train.make_train_step(model, tc)
+        p = shard.shard(p0[None])[0]
+        o = adamw_init(shard.local.parts(p))
+        p, o, m = st.split(p, o, batch, shard=shard, mesh=mesh)
+        got[remat] = (o["mu"] / (1 - tc.b1), float(m["loss"]))
+    out["remat/grad_diff"] = np.asarray(float(
+        (got[True][0] - got[False][0]).abs().max()))
+    out["remat/loss"] = np.asarray([got[False][1], got[True][1]])
+
+
+def port_split_units(inp):
+    """On one node as (data, model) = (2, 2): the gather Function, one
+    node's split step against the JAX package's (converted params), the
+    indivisible batch's fallback, remat, and the memory a step holds."""
+    mesh = _split_mesh(SPLIT_UNITS)
+    out = {}
+    _gather_case(mesh, out)
+    _step_case(mesh, out)
+    _memory_case(mesh, out)
+    return out
+
+
+def _split_session(arch, cfg, mesh, sharded, opaque=False):
+    """A Mamba2 / Hymba / granite smoke session of SPLIT_NODES on the
+    gossip backend, remat on: with ``sharded`` the rules' specs; the step
+    the ``TrainStep`` itself, or with ``opaque`` a lambda around it (the
+    whole-node gather)."""
+    import torch
+    from repro_torch.core.session import SwarmSession
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.rules import param_specs
+
+    model = _smoke(arch)
+    layout = model.layout
+    step = train.make_train_step(model, split_tc(remat=True))
+    veval = torch.func.vmap(lambda p, v: 1.0 / (1.0 + model.loss_fn(
+        layout.unflatten(p), v, remat=False)[0]))
+    p0 = model.init(torch.Generator().manual_seed(0), "cpu")
+    return SwarmSession(cfg, (lambda p, o, b, s: step(p, o, b)) if opaque
+                        else step, lambda p, v: veval(p, v), params=p0,
+                        opt_state=adamw_init(layout.parts(p0)),
+                        data_sizes=INNER_SIZES, layout=layout, device="cpu",
+                        backend="gossip", mesh=mesh, axis=mesh.axis,
+                        param_specs=(param_specs(layout, mesh) if sharded
+                                     else None))
+
+
+def split_cfg(wire="f32"):
+    from repro_torch.configs.base import SwarmConfig
+    return SwarmConfig(n_nodes=SPLIT_NODES, sync_every=SPLIT_STEPS,
+                       topology="full", merge="fedavg", lora_only=False,
+                       val_threshold=0.0, wire_dtype=wire, wire_block=WB)
+
+
+def _split_batches(inp, fam, r):
+    import torch
+    return {k: torch.from_numpy(inp[f"{fam}/{k}"][r])
+            for k in ("tokens", "labels")}
+
+
+def _split_val(inp, fam):
+    import torch
+    return {"tokens": torch.from_numpy(inp[f"{fam}/vtokens"]),
+            "labels": torch.from_numpy(inp[f"{fam}/vlabels"])}
+
+
+def port_split_d1(inp):
+    """(node, data, model) = (2, 1, 2): the Mamba2 smoke session with its
+    TrainStep split (remat on) against the same session with the step
+    opaque (the whole-node gather) on each wire: params, moments, gates
+    and losses bit for bit, every round."""
+    import torch
+    mesh = _split_mesh(SPLIT_D1)
+    out = {}
+    for wire in SPLIT_WIRES:
+        runs = {}
+        for opaque in (False, True):
+            sess = _split_session("mamba2-370m", split_cfg(wire), mesh, True,
+                                  opaque=opaque)
+            assert sess.engine.splits != opaque
+            rec = []
+            for r in range(SPLIT_ROUNDS):
+                log = sess.round(_split_batches(inp, "ssm", r),
+                                 _split_val(inp, "ssm"))
+                st = sess.state
+                rec.append((log["gates"].clone(), st.params.clone(),
+                            st.opt_state["mu"].clone(),
+                            st.opt_state["nu"].clone(),
+                            log["train"]["loss"].clone()))
+            runs[opaque] = rec
+        for r in range(SPLIT_ROUNDS):
+            a, b = runs[False][r], runs[True][r]
+            out[f"d1/{wire}/{r}/equal"] = np.asarray(
+                [torch.equal(x, y) for x, y in zip(a, b)])
+            out[f"d1/{wire}/{r}/gates"] = a[0].numpy()
+        out[f"d1/{wire}/schedule"] = np.asarray(sess.sync_schedule.name)
+    return out
+
+
+def port_split_sessions(inp, shape):
+    """The three smoke families' sessions: ``shape`` None, 2 unsharded
+    ranks (the twin); else the (node, data, model) world with the rules'
+    specs and the TrainStep split. Each round's gates and node losses,
+    the node's params after the last round (gathered), the steps' and the
+    sync's counted bytes."""
+    import torch
+    from repro_torch.launch.mesh import make_swarm_mesh
+    mesh = (make_swarm_mesh(SPLIT_NODES)[0] if shape is None
+            else _split_mesh(shape))
+    out = {"rows": np.asarray([mesh.rows.start, mesh.rows.stop]),
+           "coords": np.asarray([mesh.coords.get("data", 0),
+                                 mesh.coords.get("model", 0)])}
+    for fam, arch in SPLIT_ARCHS:
+        sess = _split_session(arch, split_cfg(), mesh, shape is not None)
+        out[f"{fam}/splits"] = np.asarray(sess.engine.splits)
+        for r in range(SPLIT_ROUNDS):
+            log = sess.round(_split_batches(inp, fam, r),
+                             _split_val(inp, fam))
+            out[f"{fam}/gates{r}"] = log["gates"].numpy()
+            out[f"{fam}/loss{r}"] = log["train"]["loss"].numpy()
+        out[f"{fam}/params"] = sess.engine.node_tensor(
+            sess.state.params, kind=None).numpy()
+        if shape is not None:
+            for k, v in (sess.counted_step_bytes or {}).items():
+                out[f"{fam}/step_bytes/{k}"] = np.asarray(v)
+    return out
+
+
 def main(argv):
     task, rank, world, init, out_dir = argv[:5]
     rank, world = int(rank), int(world)
+    os.environ["SPLIT_DIR"] = out_dir
     inp = dict(np.load(os.path.join(out_dir, "inputs.npz")))
     if task in ("reference", "hier_reference", "inner_reference"):
         import jax
@@ -1374,6 +1796,12 @@ def main(argv):
             elif task in ("inner_sessions", "inner_twin"):
                 res = port_inner_sessions(inp, out_dir,
                                           task == "inner_sessions")
+            elif task == "split_units":
+                res = port_split_units(inp)
+            elif task == "split_d1":
+                res = port_split_d1(inp)
+            elif task in SPLIT_WORLDS:
+                res = port_split_sessions(inp, SPLIT_WORLDS[task])
             elif task == "hier":
                 mesh, _ = make_two_level_swarm_mesh(world // 2, 2)
                 res = port_hier_schedules(mesh, inp, world // 2)
