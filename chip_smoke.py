@@ -97,18 +97,25 @@ Phases, each printing one JSON line:
                  by the port), at window 0 also one with ``is_causal=True``
                  and no mask (the summary takes the faster), and the bound;
                  then the families' full-width shapes (``FAMILY_FLASH``:
-                 granite-moe's q [1,24,2048,64] in a 2064-deep lane, a GQA
-                 group of 3; internvl2's [4,14,2048,64], a group of 7;
-                 seamless's non-causal encoder [4,16,1024,64]; K/V strided
-                 views of [B,T,Hkv,D], as the path gives them) held at the
-                 same tolerance and timed beside the plain version, one
-                 SDPA call and the bound;
+                 granite-moe's q [1,24,2048,64] and [1,24,256,64] in a
+                 2064-deep lane, a GQA group of 3; internvl2's
+                 [4,14,2048,64], a group of 7; seamless's non-causal
+                 encoder [4,16,1024,64]; minicpm-2b's [1,36,2048,64] and
+                 [1,36,256,64] in a 2064-deep lane and its training step's
+                 [4,36,256,64] over 256 keys, a group of 1; q, K and V
+                 strided views of [B,S,H,D] and [B,T,Hkv,D], as the path
+                 gives them) held at the same tolerance and timed beside
+                 the plain version, one SDPA call and the bound;
                  then the bf16 D = 128 body at nemotron-4-15b's and
                  deepseek-coder-33b's shapes (``WIDE_FLASH``: q
                  [1,48,2048,128] and [1,56,2048,128] over 8 KV heads,
-                 causal) at the same tolerance: device time with L2 warm
-                 and cold (64 MB written before each call), beside the
-                 plain version, one SDPA call and the bound (``d128``);
+                 causal, K/V [1,8,2048,128]; then as their served paths
+                 give them, q strided and K/V strided views of a
+                 2064-deep cache, nemotron's q [1,48,2048,128] and
+                 [1,48,256,128] and deepseek's at batch 4) at the
+                 same tolerance: device time with L2 warm and cold (64 MB
+                 written before each call), beside the plain version, one
+                 SDPA call and the bound (``d128``);
  13. ssd_kernel  the SSD scan kernel against its plain version: the
                  reference's sweep at 1e-4 (f32) and Hymba's (1, S, 50,
                  64, 16, 256) at S = 2048 and 256 and Mamba2's (1, 2048,
@@ -127,8 +134,11 @@ Phases, each printing one JSON line:
                  with the gate and self_idx as Python values (passed by
                  value) and as device tensors;
  15. lm_parity   the smoke variants of hymba-1.5b, minicpm-2b and
-                 mamba2-370m in f32 on the card against the CPU (TF32 off):
-                 prefill logits and 4 decode steps within 1e-4;
+                 mamba2-370m, and nemotron-4-15b's and deepseek-coder-33b's
+                 at head dim 128 with their GQA groups (6 and 7 heads over
+                 one: flash's f32 D = 128 body), in f32 on the card against
+                 the CPU (TF32 off): prefill logits and 4 decode steps
+                 within 1e-4;
  16. serve       the LM serving path at full width: hymba-1.5b in bf16, an
                  N = 4 ensemble initialised on the card from
                  ``torch.Generator`` seeds, ``ServeEngine`` in consensus
@@ -208,6 +218,30 @@ Phases, each printing one JSON line:
                  encode) and decode tick (device time, busy share), peak
                  allocated and reserved memory, launches against the
                  prediction;
+ 16f'. wide_serve the three dense configs not run at full width before,
+                 bf16, random weights from seeded generators, the counts
+                 set to 0 before each path, the step programs' caches
+                 cleared before each and after the phase: nemotron-4-15b
+                 behind ``ServeEngine`` at N = 1 (as granite-moe above: 4
+                 slots, buckets (256, 2048), a cold and a warm wave of 8
+                 requests of 16 tokens, no hot swap, the warm wave building
+                 nothing; flash 32 a prefill, 256 in the warm wave), its
+                 warm decode key and 2048 prefill key run eagerly against a
+                 replay (tokens equal; wall, device time, busy share);
+                 deepseek-coder-33b through ``generate`` at batch 4,
+                 prompts of 2048, 16 new tokens, ``max_len`` 2064, its
+                 weights initialised into the step buffers' params and
+                 handed back (no copy: the buffer unwritten), cold (flash
+                 124: the prefill build's warm-up and its replay) then warm
+                 (flash 62), the same tokens, each program's body eagerly
+                 against a replay (tokens equal), a profiled prefill and
+                 decode step; minicpm-2b behind the engine at N = 4 as
+                 nemotron (flash 160 a prefill, 1,280 in the warm wave),
+                 then trained plain through ``launch/train.run`` (3 steps
+                 at 4 × 256, as ``hymba_plain``; flash 120). Each line: the
+                 card, memory allocated before the path, its peak (under
+                 the card's), walls, tokens/s, prefill and tick times and
+                 busy shares, launches against the prediction;
  16g. remat     activation checkpointing at full width: granite-moe-3b and
                  Hymba-1.5B (bf16), two ``make_train_step`` steps at batch 4
                  × 256 from the same init and batches with
@@ -277,7 +311,7 @@ Phases, each printing one JSON line:
                  |θ| after each of 6 rounds (recorded, not held: their
                  int8 mass stream can reconstruct to 0 or below, as the
                  reference's does); (e) inner (model) sharding within a
-                 node: Mamba2-370M at its published width, 8 of its 48
+                 node: Mamba2-370M at its published width, 4 of its 48
                  layers, on 4 gloo ranks as 2
                  nodes × model 2 (``make_swarm_mesh(2, model=2)``, the
                  rules' ``param_specs``), fedavg/full, 2 steps a round of
@@ -311,7 +345,7 @@ Phases, each printing one JSON line:
                  the whole node's params
                  after each round within rtol 3·2⁻⁸, atol 6e-4 (bf16) and
                  1e-4, 1e-4 (f32 leaves), each kind's largest difference,
-                 ``ssd_scan`` launches (96 a rank), the gather and
+                 ``ssd_scan`` launches (48 a rank), the gather and
                  gradient bytes of a step against the layout's count, the
                  steps' peak and resident memory against the twin's, and
                  step, round and sync walls. One card shows no inter-card
@@ -319,10 +353,12 @@ Phases, each printing one JSON line:
                  through host memory;
  17. timing      how many device times the profiler read, how many traces
                  ``device_ms`` discarded for lost kernel records, how
-                 many times it fell back to CUDA events, and the gossip
-                 phase's seconds;
+                 many times it fell back to CUDA events, the wide_serve
+                 and gossip phases' seconds and the script's;
  18. kernels     the per-kernel summary line (each kernel's achieved
-                 TFLOP/s among its numbers), then the ``ok`` line.
+                 TFLOP/s among its numbers; flash's launches of its D = 128
+                 body on the wide_serve paths, ``launches_d128``, must be
+                 more than 0), then the ``ok`` line.
 
 The kernel phases (3, 10, 12-14) run before the paths 4-9b and 11: in a
 process that has run those paths, most of ``torch.profiler``'s traces on
@@ -1450,19 +1486,33 @@ FLASH_SWEEP = ((1, 4, 4, 128, 128, 64, True, 0, "float32"),
                (1, 2, 2, 128, 128, 64, True, 0, "bfloat16"),
                (2, 6, 3, 77, 90, 32, True, 20, "float32"))
 # the families phase's flash shapes at full width (name, B, H, Hkv, S, T,
-# causal; D = 64, bf16): granite-moe's engine prefill (a GQA group of 3,
-# one node's prompt of 2048 in a 2064-deep lane), internvl2's prefill of
-# 256 patches + 1,792 tokens at batch 4 (a group of 7, the same depth) and
-# seamless's bidirectional encoder (batch 4, 1024 frames)
+# causal; D = 64, bf16): granite-moe's engine prefills (a GQA group of 3,
+# one node's prompt of 2048 or 256 in a 2064-deep lane), internvl2's
+# prefill of 256 patches + 1,792 tokens at batch 4 (a group of 7, the same
+# depth), seamless's bidirectional encoder (batch 4, 1024 frames),
+# minicpm-2b's engine prefills (36 heads, a group of 1) and its training
+# step (batch 4 at 256 tokens, no cache)
 FAMILY_FLASH = (("granite", 1, 24, 8, 2048, 2064, True),
+                ("granite_256", 1, 24, 8, 256, 2064, True),
                 ("internvl2", 4, 14, 2, 2048, 2064, True),
-                ("seamless", 4, 16, 16, 1024, 1024, False))
+                ("seamless", 4, 16, 16, 1024, 1024, False),
+                ("minicpm", 1, 36, 36, 2048, 2064, True),
+                ("minicpm_256", 1, 36, 36, 256, 2064, True),
+                ("minicpm_train", 4, 36, 36, 256, 256, True))
 # flash's bf16 D = 128 body (csrc/flash_attention.cu: kWG = 2,
 # hop::launch<128>) at the attention shapes of nemotron-4-15b (48 heads
 # over 8 KV heads, a GQA group of 6) and deepseek-coder-33b (56 over 8, a
-# group of 7): one causal prefill of 2048 tokens, (name, B, H, Hkv, S, T)
-WIDE_FLASH = (("nemotron-4-15b", 1, 48, 8, 2048, 2048),
-              ("deepseek-coder-33b", 1, 56, 8, 2048, 2048))
+# group of 7): one causal prefill of 2048 tokens, (name, B, H, Hkv, S, T,
+# K/V strided); S = T with contiguous K/V, then as the served paths give
+# them: q a strided view of [B, S, H, 128], K/V strided views of a
+# [B, 2064, 8, 128] cache (2064 = 32 key tiles of 64 and 16 more),
+# nemotron's engine prefills of 2048 and 256 tokens at batch 1 and
+# deepseek's generate at batch 4
+WIDE_FLASH = (("nemotron-4-15b", 1, 48, 8, 2048, 2048, False),
+              ("deepseek-coder-33b", 1, 56, 8, 2048, 2048, False),
+              ("nemotron-4-15b_served", 1, 48, 8, 2048, 2064, True),
+              ("nemotron-4-15b_served_256", 1, 48, 8, 256, 2064, True),
+              ("deepseek-coder-33b_served", 4, 56, 8, 2048, 2064, True))
 # the serve phase: Hymba-1.5B, prompts of these lengths, 16 new tokens
 SERVE_SEQ = (256, 2048)
 SERVE_NEW = 16
@@ -1566,10 +1616,11 @@ def phase_flash_kernel(dev, bw, peak, bf16_peak):
     families = {}
     for name, fb, fh, fhkv, fs, ft, causal in FAMILY_FLASH:
         q, k, v = inputs(fb, fh, fhkv, fs, ft, d, "bfloat16")
-        # K/V as the path gives them: [B, T, Hkv, D] (the cache, the
-        # encoder's projection) seen through a transpose
-        k = k.transpose(1, 2).contiguous().transpose(1, 2)
-        v = v.transpose(1, 2).contiguous().transpose(1, 2)
+        # as the path gives them: q [B, S, H, D] and K/V [B, T, Hkv, D]
+        # (the cache, the encoder's or the training step's projection)
+        # seen through a transpose
+        q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                   for x in (q, k, v))
         got = fa.flash_attention(q, k, v, causal=causal)
         want = flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -1601,9 +1652,12 @@ def phase_flash_kernel(dev, bw, peak, bf16_peak):
         families[name] = row
     wide = {}
     flush = torch.empty(16 * 2 ** 20, device=dev)    # 64 MB, past the L2
-    for name, fb, fh, fhkv, fs, ft in WIDE_FLASH:
+    for name, fb, fh, fhkv, fs, ft, strided in WIDE_FLASH:
         wd = 128
         q, k, v = inputs(fb, fh, fhkv, fs, ft, wd, "bfloat16")
+        if strided:
+            q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                       for x in (q, k, v))
         got = fa.flash_attention(q, k, v)
         want = flash_attention_plain(q, k, v)
         torch.cuda.synchronize()
@@ -1614,7 +1668,8 @@ def phase_flash_kernel(dev, bw, peak, bf16_peak):
         flops = 4 * fh * wd * fb * _flash_pairs(fs, ft, True, 0)
         call = lambda: fa.flash_attention(q, k, v)
         row = dict(q=[fb, fh, fs, wd], kv=[fb, fhkv, ft, wd], causal=True,
-                   gqa_group=fh // fhkv, max_abs_err_bf16=float(err.max()),
+                   kv_strided=strided, gqa_group=fh // fhkv,
+                   max_abs_err_bf16=float(err.max()),
                    kernel_ms=device_ms(call, iters=20, warm=3,
                                        match="flash_kernel"),
                    # L2 cold: 64 MB written before each call
@@ -1815,6 +1870,16 @@ def phase_merge_one(dev, bw, peak):
                                  bound_by=by)}, launches)
 
 
+# the lm_parity phase's smoke variants: three at their smoke widths, and
+# nemotron-4-15b's and deepseek-coder-33b's at their real head dim and GQA
+# group (flash's f32 D = 128 body on a model path: the prefill of 36
+# tokens into a 48-deep cache)
+LM_PARITY = (("hymba-1.5b", {}), ("minicpm-2b", {}), ("mamba2-370m", {}),
+             ("nemotron-4-15b", dict(head_dim=128, n_heads=6, n_kv_heads=1)),
+             ("deepseek-coder-33b", dict(head_dim=128, n_heads=7,
+                                         n_kv_heads=1)))
+
+
 def phase_lm_parity(dev):
     """The smoke variants in f32 on the card against the CPU: prefill
     logits and 4 decode steps (TF32 off)."""
@@ -1828,8 +1893,9 @@ def phase_lm_parity(dev):
     torch.backends.cudnn.allow_tf32 = False
     errs = {}
     try:
-        for arch in ("hymba-1.5b", "minicpm-2b", "mamba2-370m"):
-            model = build_model(smoke_variant(get_config(arch)))
+        for arch, upd in LM_PARITY:
+            model = build_model(smoke_variant(get_config(arch))
+                                .replace(**upd))
             flat = model.init(torch.Generator().manual_seed(0), "cpu")
             rng = torch.Generator().manual_seed(1)
             toks = torch.randint(0, 512, (2, 40), generator=rng)
@@ -1848,7 +1914,7 @@ def phase_lm_parity(dev):
             err = float((res[dev] - res["cpu"]).abs().max())
             if not err <= 1e-4 or not bool(torch.isfinite(res[dev]).all()):
                 raise AssertionError(f"{arch}: card vs CPU logits err {err}")
-            errs[arch] = err
+            errs[model.cfg.name + ("-d128" if upd else "")] = err
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
@@ -1959,12 +2025,39 @@ def _profiled(fn, runs=3):
                 top_device=busy["top_device"][:5])
 
 
-def _eager_vs_replay(prog):
+def _eager_vs_replay(prog, out=None, state=(), timed=True):
     """A warm program's body called eagerly against ``run()`` (a replay),
-    in turns, each through :func:`_profiled`."""
-    return {name: _profiled(fn) for name, fn in (
-        ("eager", prog.body), ("replay", prog.run), ("replay_2", prog.run),
-        ("eager_2", prog.body))}
+    from the same inputs: with ``timed``, in turns eager, replay, replay,
+    eager, each a :func:`_profiled` group of calls; else once each.
+    ``out``, where given, are the tokens the program writes: zeroed before
+    each turn (unless ``state`` holds it) and read after it, and every turn
+    must give the same (``tokens``). ``state`` are inputs that the body
+    advances itself (generate's ``tok`` and ``pos``), set back before each
+    turn."""
+    import torch
+    turns = (("eager", prog.body), ("replay", prog.run))
+    if timed:
+        turns += (("replay_2", prog.run), ("eager_2", prog.body))
+    saved = [t.clone() for t in state]
+    res, got = {}, []
+    for name, fn in turns:
+        for t, v in zip(state, saved):
+            t.copy_(v)
+        if out is not None and not any(out is t for t in state):
+            out.zero_()
+        if timed:
+            res[name] = _profiled(fn)
+        else:
+            fn()
+        if out is not None:
+            torch.cuda.synchronize()
+            got.append(out.clone())
+    if out is not None:
+        res["tokens"] = dict(equal=all(torch.equal(got[0], g)
+                                       for g in got[1:]),
+                             eager=got[0].reshape(-1)[:8].tolist(),
+                             replay=got[1].reshape(-1)[:8].tolist())
+    return res
 
 
 def _profiled_replay_launches(prog, tries=4):
@@ -2354,11 +2447,15 @@ def _memory():
                 / 2 ** 30)
 
 
-def _moe_serve(dev, smi):
-    """granite-moe-3b-a800m behind ``ServeEngine``: N = 4 nodes, 4 slots,
-    seq buckets (256, 2048), captured programs, a cold wave of 8 requests
-    (its keys built) and a warm one of the same traffic (no build; flash
-    launches = 4 nodes × 32 layers a prefill), no hot swap."""
+def _engine_serve(dev, arch, nodes, seed, timed=False):
+    """``arch`` at full width behind ``ServeEngine``: ``nodes`` nodes
+    initialised on the card from seeds ``seed``, ``seed + 1``, ..., 4
+    slots, seq buckets (256, 2048), captured programs, a cold wave of 8
+    requests (its keys built) and a warm one of the same traffic (no
+    build; flash launches = nodes × layers a prefill), no hot swap. The
+    warm decode key and the warm 2048 prefill key then run their body
+    eagerly against a replay: their tokens must be equal; with
+    ``timed``, in timed turns (:func:`_eager_vs_replay`)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2366,15 +2463,15 @@ def _moe_serve(dev, smi):
     from repro_torch.models import build_model
     from repro_torch.serve import BucketPolicy, ServeEngine
 
-    cfg = get_config(FAMILIES[0])
+    cfg = get_config(arch)
     model = build_model(cfg)
     size = model.layout.size
-    per_prefill = N * cfg.n_layers
+    per_prefill = nodes * cfg.n_layers
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    ens = torch.empty((N, size), dtype=torch.bfloat16, device=dev)
-    for i in range(N):
-        model.init(torch.Generator(device=dev).manual_seed(300 + i), dev,
+    ens = torch.empty((nodes, size), dtype=torch.bfloat16, device=dev)
+    for i in range(nodes):
+        model.init(torch.Generator(device=dev).manual_seed(seed + i), dev,
                    out=ens[i])
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -2402,7 +2499,7 @@ def _moe_serve(dev, smi):
             toks = np.stack(r.node_tokens)
             if r.status != "done" or len(r.tokens) != SERVE_NEW or not (
                     (toks >= 0) & (toks < cfg.vocab_size)).all():
-                raise AssertionError(f"granite request {r.rid}: {r.status}")
+                raise AssertionError(f"{arch} request {r.rid}: {r.status}")
         return reqs, wall, dict(LAUNCHES)
 
     reqs1, wall1, _ = wave()
@@ -2413,11 +2510,12 @@ def _moe_serve(dev, smi):
     predicted = per_prefill * len(reqs2)
     if launches["flash_attention"] != predicted or any(
             v for k, v in launches.items() if k != "flash_attention"):
-        raise AssertionError(f"granite launches {launches}, predicted "
+        raise AssertionError(f"{arch} launches {launches}, predicted "
                              f"flash {predicted}")
     decode_bucket = max(k[1] for k in built if k[0] == "decode")
     prog = eng.programs[("decode", decode_bucket), 0]
     tick = _profiled(prog.run)
+    versus = {"decode": _eager_vs_replay(prog, eng._out, timed=timed)}
     pre = {}
     for n in SERVE_SEQ:
         prog = eng.programs[("prefill", n, decode_bucket), 0]
@@ -2429,9 +2527,16 @@ def _moe_serve(dev, smi):
         if LAUNCHES["flash_attention"] != per_prefill:
             raise AssertionError(f"a replayed prefill launched "
                                  f"{dict(LAUNCHES)}")
+        if n == long_:
+            versus[f"prefill_{n}"] = _eager_vs_replay(prog, eng._out,
+                                                      timed=timed)
+    unequal = [k for k, v in versus.items() if not v["tokens"]["equal"]]
+    if unequal:
+        raise AssertionError(f"{arch}: eager and replayed tokens differ "
+                             f"at {unequal}: {versus}")
     lat = sorted(r.latency_s for r in reqs2)
-    return dict(arch=cfg.name, nodes=N, params_per_node=size,
-                ensemble_gib=N * size * 2 / 2 ** 30,
+    return dict(arch=cfg.name, nodes=nodes, params_per_node=size,
+                ensemble_gib=nodes * size * 2 / 2 ** 30,
                 pool_buffers=len(eng.slot.pool), init_seconds=init_s,
                 requests=len(reqs2), new_tokens=SERVE_NEW,
                 prompt_lengths=lengths, max_len=SERVE_MAX_LEN,
@@ -2446,7 +2551,7 @@ def _moe_serve(dev, smi):
                 flash_launches=dict(warm_wave=launches["flash_attention"],
                                     predicted=predicted,
                                     per_prefill=per_prefill),
-                **_memory())
+                eager_vs_replay=versus, **_memory())
 
 
 def _vlm_serve(dev):
@@ -2592,23 +2697,168 @@ def _encdec_serve(dev):
 def phase_families_serve(dev, smi):
     """One model of each new family served at full width on the card, the
     counts set to 0 just before each path's measured run."""
+    out = {}
+    for name, fn in (("moe", lambda: _engine_serve(dev, FAMILIES[0], N,
+                                                   300)),
+                     ("vlm", lambda: _vlm_serve(dev)),
+                     ("encdec", lambda: _encdec_serve(dev))):
+        held = _release_serving()
+        out[name] = dict(held_before_gib=held, **fn())
+        emit("families_serve", card=smi, path=name, **out[name])
+    return out
+
+
+def _release_serving():
+    """Drop the cached step programs and their buffers (``step_buffers``
+    is an ``lru_cache``: it would keep a model's params alive into the next
+    phase), collect the engines' reference cycles and hand the freed blocks
+    back to the card; returns the GiB still allocated."""
     import gc
     import torch
     from repro_torch.launch import serve as lserve
 
+    for cached in (lserve.step_buffers, lserve.serve_step_for,
+                   lserve.prefill_step_for):
+        cached.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+# the wide_serve phase: deepseek-coder-33b's generate at this batch (its
+# weights fit the card once: 62.1 GiB in bf16); minicpm-2b trained plain
+# at the train phase's plain shapes (40 layers, one flash launch each a
+# step: the backward is plain)
+WIDE_BATCH = 4
+WIDE_TRAIN = ("minicpm_plain",
+              ["--arch", "minicpm-2b", "--steps", "3", "--batch", "4",
+               "--seq", "256"],
+              {"flash_attention": 3 * 40})
+
+
+def _generate_wide(dev, arch, seed):
+    """``arch`` at full width through ``generate``: its weights initialised
+    straight into the step buffers' params (``model.init(..., out=
+    st.params)``, one copy on the card) and handed back as ``params``, so
+    nothing is copied; batch 4, prompts of 2048 tokens, 16 new tokens,
+    ``max_len`` 2064. A cold run (its prefill and decode programs built:
+    flash once a layer in the prefill's warm-up and once in its replay),
+    then a warm one (once a layer), the same tokens; then each program's
+    body eagerly against a replay (tokens equal), and a profiled prefill
+    and decode tick."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.capture import WARMUP
+    from repro_torch.launch.serve import (generate, prefill_step_for,
+                                          serve_step_for, step_buffers)
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    d = torch.device(dev)
+    b, s = WIDE_BATCH, SERVE_SEQ[-1]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = step_buffers(model, b, SERVE_MAX_LEN, d)
+    model.init(torch.Generator(device=dev).manual_seed(seed), dev,
+               out=st.params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ptr, version = st.params.data_ptr(), st.params._version
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (b, s)))
+    runs, toks = {}, {}
+    for name in ("cold", "warm"):
+        reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks[name] = generate(model, st.params, prompt, SERVE_NEW,
+                              SERVE_MAX_LEN, device=dev).cpu()
+        runs[name] = dict(wall_s=time.perf_counter() - t1,
+                          launches={k: v for k, v in LAUNCHES.items() if v},
+                          allocated_gib=torch.cuda.memory_allocated()
+                          / 2 ** 30)
+    if st.params.data_ptr() != ptr or st.params._version != version:
+        raise AssertionError(f"{arch}: generate wrote into the step "
+                             "buffers' params")
+    predicted = {"cold": {"flash_attention": (WARMUP + 1) * cfg.n_layers},
+                 "warm": {"flash_attention": cfg.n_layers}}
+    for name, want in predicted.items():
+        if runs[name]["launches"] != want:
+            raise AssertionError(f"{arch} {name}: launches "
+                                 f"{runs[name]['launches']}, predicted {want}")
+    out = toks["warm"]
+    if tuple(out.shape) != (b, SERVE_NEW) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()) or \
+            not torch.equal(out, toks["cold"].to(out.dtype)):
+        raise AssertionError(f"{arch} tokens {toks}")
+    prefill = prefill_step_for(model, b, s, SERVE_MAX_LEN, d)
+    decode = serve_step_for(model, b, SERVE_MAX_LEN, d)
+    programs = {}
+    for name, prog in (("prefill", prefill), ("decode", decode)):
+        if not prog.captured or prog.eager_calls != WARMUP:
+            raise AssertionError(f"{arch} {name}: captured {prog.captured}, "
+                                 f"eager passes {prog.eager_calls}")
+        programs[name] = dict(capture_s=prog.capture_s,
+                              launches_per_replay=prog.launches)
+    # the prefill first: it sets tok and pos for the decode
+    versus = {"prefill": _eager_vs_replay(prefill, st.tok, timed=False),
+              "decode": _eager_vs_replay(decode, st.tok, (st.tok, st.pos),
+                                         timed=False)}
+    if not all(v["tokens"]["equal"] for v in versus.values()):
+        raise AssertionError(f"{arch}: eager and replayed tokens differ "
+                             f"{versus}")
+    pre = _profiled(prefill.run)
+    tick = _profiled(decode.run)           # positions 2048 .. 2051
+    warm = runs["warm"]["wall_s"]
+    return dict(arch=cfg.name, params=model.layout.size,
+                params_gib=model.layout.size * 2 / 2 ** 30,
+                init_seconds=init_s, batch=b, prompt_length=s,
+                new_tokens=SERVE_NEW, max_len=SERVE_MAX_LEN, runs=runs,
+                tokens_per_s=b * SERVE_NEW / warm, programs=programs,
+                eager_vs_replay=versus, prefill=pre, decode_tick=tick,
+                flash_launches=dict(cold=runs["cold"]["launches"],
+                                    warm=runs["warm"]["launches"][
+                                        "flash_attention"],
+                                    predicted=predicted),
+                **_memory())
+
+
+def phase_wide_serve(dev, smi):
+    """The three dense configs not yet run at full width, the counts set to
+    0 just before each path's measured run: nemotron-4-15b behind
+    ``ServeEngine`` at N = 1 and deepseek-coder-33b through ``generate``
+    (flash's bf16 D = 128 body on a served path: K/V strided views of a
+    2064-deep cache), minicpm-2b behind the engine at N = 4, then trained
+    plain. Each line holds the memory allocated before the path and its
+    peak, which must stay under the card's. Returns flash's D = 128
+    launches on the paths' measured runs."""
     out = {}
-    for name, fn in (("moe", lambda: _moe_serve(dev, smi)),
-                     ("vlm", lambda: _vlm_serve(dev)),
-                     ("encdec", lambda: _encdec_serve(dev))):
-        for cached in (lserve.step_buffers, lserve.serve_step_for,
-                       lserve.prefill_step_for):
-            cached.cache_clear()
-        gc.collect()
-        torch.cuda.empty_cache()
-        held = torch.cuda.memory_allocated() / 2 ** 30
-        out[name] = dict(held_before_gib=held, **fn())
-        emit("families_serve", card=smi, path=name, **out[name])
-    return out
+    for name, fn in (
+            ("nemotron_engine",
+             lambda: _engine_serve(dev, "nemotron-4-15b", 1, 600,
+                                   timed=True)),
+            ("deepseek_generate",
+             lambda: _generate_wide(dev, "deepseek-coder-33b", 700)),
+            ("minicpm_engine",
+             lambda: _engine_serve(dev, "minicpm-2b", N, 800))):
+        held = _release_serving()
+        t0 = time.perf_counter()
+        row = fn()
+        if not row["peak_allocated_gib"] < row["card_gib"]:
+            raise AssertionError(f"{name}: peak {row['peak_allocated_gib']} "
+                                 f"GiB, the card {row['card_gib']}")
+        out[name] = dict(held_before_gib=held,
+                         seconds=time.perf_counter() - t0, **row)
+        emit("wide_serve", card=smi, path=name, **out[name])
+    _release_serving()
+    name, argv, predicted = WIDE_TRAIN
+    _train_path(name, argv, predicted, dev, smi, phase="wide_serve")
+    _release_serving()
+    return (out["nemotron_engine"]["flash_launches"]["warm_wave"]
+            + out["deepseek_generate"]["flash_launches"]["warm"])
 
 
 # the train phase's gradient checks: (name, flash q/K/V shapes and windows
@@ -2837,8 +3087,9 @@ def _wide_changed(model, params, dev):
                        > 0) for path in sorted(model.layout.wide)}
 
 
-def _train_path(name, argv, predicted, dev, smi):
-    """One path of :func:`phase_train`; returns its launch counts."""
+def _train_path(name, argv, predicted, dev, smi, phase="train"):
+    """One path of :func:`phase_train` (or of another ``phase``), its line
+    printed under that phase; returns its launch counts."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2846,6 +3097,7 @@ def _train_path(name, argv, predicted, dev, smi):
     from repro_torch.launch import train
 
     args = train.parse_args(argv)
+    held = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
@@ -2858,6 +3110,8 @@ def _train_path(name, argv, predicted, dev, smi):
                              f"{predicted}")
     peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.max_memory_reserved()
+    if not peak < torch.cuda.get_device_properties(0).total_memory:
+        raise AssertionError(f"{name}: peak {peak} B past the card's memory")
     model, sess = res["model"], res.get("session")
     n = args.swarm_nodes or 1
     walls = res["walls"]
@@ -2925,7 +3179,7 @@ def _train_path(name, argv, predicted, dev, smi):
         finally:
             del sess.engine.sync
     tokens = steps_block * n * args.batch * args.seq
-    emit("train", path=name, nvidia_smi=smi, argv=argv,
+    emit(phase, path=name, nvidia_smi=smi, argv=argv, held_before_gib=held,
          values_per_node=model.layout.n_values,
          slots_per_node=model.layout.size, wide_values=model.layout.n_wide,
          wide_changed=wide, steps=res["steps"], wall_s=wall,
@@ -2954,18 +3208,10 @@ def phase_train(dev, smi):
     path's params and losses finite, its wide (f32) leaves changed, its
     launches equal to the prediction; then one more round (step) of it
     under the profiler for the device time and busy share."""
-    import gc
-    import torch
-    from repro_torch.launch import serve as lserve
-
-    # the serving phase's cached step programs hold their buffers
-    for cached in (lserve.step_buffers, lserve.serve_step_for,
-                   lserve.prefill_step_for):
-        cached.cache_clear()
     all_counts = {}
     for name, argv, predicted in TRAIN_PATHS:
-        gc.collect()
-        torch.cuda.empty_cache()
+        # the serving phases' cached step programs hold their buffers
+        _release_serving()
         for k, v in _train_path(name, argv, predicted, dev, smi).items():
             all_counts[k] = all_counts.get(k, 0) + v
     return all_counts
@@ -3113,12 +3359,9 @@ def phase_remat(dev, smi):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve as lserve
     from repro_torch.models import build_model
 
-    for cached in (lserve.step_buffers, lserve.serve_step_for,
-                   lserve.prefill_step_for):
-        cached.cache_clear()
+    _release_serving()
     lr = 1e-4
     for name, arch in REMAT_PATHS:
         model = build_model(get_config(arch))
@@ -4231,12 +4474,11 @@ def _gossip_world4(dev, smi, base, tmp):
 
 
 # (e) inner (model) sharding: Mamba2-370M at its published width, its
-# depth cut to GOSSIP_E_LAYERS of 48 (at 48 on an H100 the part took
-# 286-338 s, two 8.8 GB checkpoints among them), 2 nodes × model 2 on 4 gloo
-# ranks
-# against an unsharded twin on 2
+# depth cut to GOSSIP_E_LAYERS of 48 (on an H100 the part took 286-338 s at
+# 48, two 8.8 GB checkpoints among them, and 111-136 s at 8; (f) 51-75 s at
+# 8), 2 nodes × model 2 on 4 gloo ranks against an unsharded twin on 2
 GOSSIP_E_NODES, GOSSIP_E_MODEL = 2, 2
-GOSSIP_E_LAYERS = 8
+GOSSIP_E_LAYERS = 4
 GOSSIP_E_ROUNDS = 2
 GOSSIP_E_STEPS, GOSSIP_E_BATCH, GOSSIP_E_SEQ = 2, 8, 256
 GOSSIP_E_WIRES = ("f32", "int8")
@@ -4985,6 +5227,7 @@ def phase_gossip(dev, smi):
 
 
 def main() -> int:
+    start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5065,6 +5308,10 @@ def main() -> int:
     # the moe, vlm and enc-dec families: card vs CPU, then full width
     phase_families_parity(dev)
     phase_families_serve(dev, smi)
+    # nemotron-4-15b, deepseek-coder-33b and minicpm-2b at full width
+    t0 = time.perf_counter()
+    stats["flash_attention"]["launches_d128"] = phase_wide_serve(dev, smi)
+    TIMERS["wide_serve_s"] = time.perf_counter() - t0
     # activation checkpointing, then the host loop
     phase_remat(dev, smi)
     phase_host(dev, smi)
@@ -5077,8 +5324,10 @@ def main() -> int:
                     replaces=replaces, launches=launches.get(name, 0),
                     **stats[name])
                for name, (stem, replaces) in KERNELS.items()]
-    if any(k["launches"] < 1 for k in kernels):
+    if any(k["launches"] < 1 for k in kernels) or \
+            not stats["flash_attention"]["launches_d128"] > 0:
         raise AssertionError(f"a kernel of the path never launched: {kernels}")
+    TIMERS["script_s"] = time.perf_counter() - start
     emit("timing", **TIMERS)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,11 +8,11 @@ engine (`repro_torch.serve`) runs over nodes and slots.
 reference's cached jitted steps: captured programs
 (`repro_torch.launch.capture`), cached per (model, batch, max_len[, seq],
 device), over one :class:`StepBuffers` per (model, batch, max_len,
-device) — one node's params (the caller's copied in), the caches, the
-token fed ``[B, 1]`` and the per-row position ``[B]``, both int64 on the
-device. The decode step feeds its own token and advances the position on
-the card, so ``generate`` replays it back to back with no host work
-between tokens.
+device) — one node's params (the caller's copied in, unless the caller
+passes this buffer itself), the caches, the token fed ``[B, 1]`` and the
+per-row position ``[B]``, both int64 on the device. The decode step feeds
+its own token and advances the position on the card, so ``generate``
+replays it back to back with no host work between tokens.
 """
 from __future__ import annotations
 
@@ -122,9 +122,14 @@ def prefill_step_for(model: Model, batch: int, seq: int, max_len: int,
 def generate(model: Model, params, prompt_tokens, max_new: int,
              max_len: int, device="cuda"):
     """Host-loop greedy generation on ``device`` (CUDA unless the caller
-    asks for the CPU). ``params`` is one node's flat vector ``[P]`` (copied
-    into the step buffers); ``prompt_tokens`` [B, S] int. Returns
-    [B, max_new] int32."""
+    asks for the CPU). ``params`` is one node's flat vector ``[P]``, copied
+    into the step buffers, unless it is the very tensor object those
+    buffers hold (``step_buffers(model, B, max_len, device).params``
+    itself, tested by identity; a view or an equal copy is copied): then
+    nothing is copied, so a model whose weights fit the card only once
+    (deepseek-coder-33b's 62.1 GiB in bf16) is initialised there and
+    served from it. ``prompt_tokens`` [B, S] int. Returns [B, max_new]
+    int32."""
     device = resolve_device(device)
     prompt_tokens = torch.as_tensor(prompt_tokens).to(device=device,
                                                       dtype=torch.long)
@@ -137,7 +142,8 @@ def generate(model: Model, params, prompt_tokens, max_new: int,
     decode = serve_step_for(model, b, max_len, device)
     prefill = (prefill_step_for(model, b, s, max_len, device)
                if model.prefill is not None else None)
-    st.params.copy_(params)
+    if params is not st.params:
+        st.params.copy_(params)
     for t in tree_leaves(st.caches):
         t.zero_()
     if prefill is not None:

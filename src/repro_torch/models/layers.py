@@ -30,9 +30,12 @@ def dtype_of(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def normal_(t: torch.Tensor, generator: torch.Generator, scale: float):
-    """Fill ``t`` in place with N(0, scale²) drawn in f32 on its device."""
+    """Fill ``t`` in place with N(0, scale²) drawn in f32 on its device.
+    The draw is scaled in place, so one f32 temporary of ``t``'s size is
+    live (6.3 GB for nemotron-4-15b's embedding), not two; the values are
+    those of ``randn(...) * scale``."""
     t.copy_(torch.randn(t.shape, generator=generator, device=t.device)
-            * scale)
+            .mul_(scale))
     return t
 
 
