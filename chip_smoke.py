@@ -115,7 +115,13 @@ Phases, each printing one JSON line:
                  [1,48,256,128] and deepseek's at batch 4) at the
                  same tolerance: device time with L2 warm and cold (64 MB
                  written before each call), beside the plain version, one
-                 SDPA call and the bound (``d128``);
+                 SDPA call and the bound (``d128``); then both D = 16
+                 bodies (``D16_FLASH``, f32 at 2e-5 and bf16 within one
+                 ulp: the engine example's [32, 4, 32, 16] over 2 KV
+                 heads, [1, 4, 2048, 16] causal with windows 0 and 64, a
+                 non-causal [2, 4, 256, 16] and a ragged GQA case) with
+                 their times beside the plain version, one SDPA call and
+                 the bound (``d16``); head dims 8 and 48 must raise;
  13. ssd_kernel  the SSD scan kernel against its plain version: the
                  reference's sweep at 1e-4 (f32) and Hymba's (1, S, 50,
                  64, 16, 256) at S = 2048 and 256 and Mamba2's (1, 2048,
@@ -169,8 +175,10 @@ Phases, each printing one JSON line:
                  apart, the profiled tick's busy share, host ops and
                  launches, peak memory) and ``serve_replay`` (on warm keys,
                  a decode tick and a prefill of each length: the body
-                 called eagerly against a replay, in turns, wall, device
-                 time and busy share; a profiled replayed prefill's flash
+                 called eagerly against a replay, in turns (eager,
+                 replay, replay, eager for the tick; eager, replay for
+                 a prefill), wall, device time and busy share; a
+                 profiled replayed prefill's flash
                  and SSD kernel records equal to its launches), each with
                  the card's name and power limit;
  16b. train_grads the flash and SSD autograd Functions (kernel forward,
@@ -289,8 +297,8 @@ Phases, each printing one JSON line:
                  on every wire it takes (``GOSSIP_C``), each commit held
                  against the engine backend's (within 1e-5; the fisher
                  side channel on the bf16 wire within bf16 rounding), sync
-                 walls and counted bytes; (d) 4 gloo ranks on the card as
-                 a two-level mesh of 2 pods × 2 nodes
+                 walls and counted bytes; (d) 4 more gloo ranks on the
+                 card, spawned together with (c), as a two-level mesh of 2 pods × 2 nodes
                  (``make_two_level_swarm_mesh``), the CNN at full width,
                  ring, int8, ``self_weight`` 0.7: the cost model's picks
                  (the hierarchical forms at ``cross_pod_cost`` 10, the
@@ -311,7 +319,7 @@ Phases, each printing one JSON line:
                  |θ| after each of 6 rounds (recorded, not held: their
                  int8 mass stream can reconstruct to 0 or below, as the
                  reference's does); (e) inner (model) sharding within a
-                 node: Mamba2-370M at its published width, 4 of its 48
+                 node: Mamba2-370M at its published width, 2 of its 48
                  layers, on 4 gloo ranks as 2
                  nodes × model 2 (``make_swarm_mesh(2, model=2)``, the
                  rules' ``param_specs``), fedavg/full, 2 steps a round of
@@ -329,7 +337,8 @@ Phases, each printing one JSON line:
                  the bytes it handed per sync against the twin's and the
                  cost model's, resident memory between rounds and the
                  peaks of the local steps and of the sync against the
-                 twin's, round and sync walls, ``ssd_scan`` launches
+                 twin's (the twin spawned together with the sharded
+                 world), round and sync walls, ``ssd_scan`` launches
                  against the prediction, and one f32 checkpoint of the
                  sharded session equal byte for byte (SHA-256) to the
                  twin's; (f) split compute within a node: the same model
@@ -351,14 +360,32 @@ Phases, each printing one JSON line:
                  step, round and sync walls. One card shows no inter-card
                  traffic: (a)/(b) are one rank's NCCL calls, (c)-(f) go
                  through host memory;
+ 16j. examples  (run after ``host``, before ``gossip``) the twins of the
+                 reference's examples through their ``main`` at the
+                 reference's default sizes, the counts set to 0 before
+                 each (the memory of the serving paths released first): ``examples/torch_engine_swarm.py`` (the
+                 tiny LM, head dim 16, N = 4: 3 rounds of 5 steps,
+                 ``leave(3)``, 3 more; gates each round, node 3 out of every
+                 merge after the leave, one ``fused_merge_all`` a round,
+                 flash's f32 D = 16 body at [32, 4, 32, 16]: its launches
+                 are ``launches_d16``), ``torch_histopathology_swarm.py``
+                 (the §4 protocol, 3 scenarios of 400 steps in a temporary
+                 working directory: three JSON files, nine finite report
+                 rows each with AUC in [0, 1], exactly 20 ``fused_merge_all``
+                 launches a scenario and nothing else) and
+                 ``torch_serve_demo.py`` (4 smoke families, [4, 16] tokens
+                 each, flash and ``ssd_scan`` launched; the consensus
+                 ensemble's 6 requests done); each twin's seconds and peak
+                 memory;
  17. timing      how many device times the profiler read, how many traces
                  ``device_ms`` discarded for lost kernel records, how
-                 many times it fell back to CUDA events, the wide_serve
-                 and gossip phases' seconds and the script's;
+                 many times it fell back to CUDA events, every phase's
+                 seconds and the script's;
  18. kernels     the per-kernel summary line (each kernel's achieved
                  TFLOP/s among its numbers; flash's launches of its D = 128
-                 body on the wide_serve paths, ``launches_d128``, must be
-                 more than 0), then the ``ok`` line.
+                 body on the wide_serve paths, ``launches_d128``, and of
+                 its D = 16 body on the engine example's, ``launches_d16``,
+                 must be more than 0), then the ``ok`` line.
 
 The kernel phases (3, 10, 12-14) run before the paths 4-9b and 11: in a
 process that has run those paths, most of ``torch.profiler``'s traces on
@@ -368,6 +395,7 @@ events.
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's sources beside it. Imports nothing of the JAX package.
 """
+import contextlib
 import json
 import re
 import subprocess
@@ -1513,6 +1541,28 @@ WIDE_FLASH = (("nemotron-4-15b", 1, 48, 8, 2048, 2048, False),
               ("nemotron-4-15b_served", 1, 48, 8, 2048, 2064, True),
               ("nemotron-4-15b_served_256", 1, 48, 8, 256, 2064, True),
               ("deepseek-coder-33b_served", 4, 56, 8, 2048, 2064, True))
+# flash's D = 16 bodies (f32::launch<16>, hop::launch<16>: the 32-byte
+# swizzle, m64n16k16 for P·V), each in f32 and bf16: (name, B, H, Hkv, S,
+# T, causal, window). The engine example's model (d_model 64 over 4 heads,
+# 2 KV heads; examples/torch_engine_swarm.py) at its training and gate
+# shape, the 4 nodes' batches of 8 folded into the batch axis; a long
+# causal prompt with windows 0 and 64; a bidirectional call; GQA 2:1...3:1
+# with a ragged T and a window
+D16_FLASH = (("engine", 32, 4, 2, 32, 32, True, 0),
+             ("long", 1, 4, 2, 2048, 2048, True, 0),
+             ("long_w64", 1, 4, 2, 2048, 2048, True, 64),
+             ("noncausal", 2, 4, 2, 256, 256, False, 0),
+             ("ragged", 2, 6, 3, 77, 90, True, 20))
+# flash's f32 D = 64 body as examples/torch_serve_demo.py launches it
+# (name, B, H, Hkv, S, T, causal), q, K and V strided views of [B, S, H, D]
+# and [B, T, Hkv, D]: the minicpm-2b and phi3.5-moe smoke prefills (8
+# tokens over a 64-deep cache, GQA groups of 1 and 4), seamless's
+# bidirectional encoder (16 frames) and the consensus ensemble's
+# 16-token bucket over its 48-deep cache
+EXAMPLE_FLASH = (("minicpm", 4, 4, 4, 8, 64, True),
+                 ("phi3.5-moe", 4, 4, 1, 8, 64, True),
+                 ("seamless", 4, 4, 4, 16, 16, False),
+                 ("ensemble", 1, 4, 4, 16, 48, True))
 # the serve phase: Hymba-1.5B, prompts of these lengths, 16 new tokens
 SERVE_SEQ = (256, 2048)
 SERVE_NEW = 16
@@ -1559,6 +1609,17 @@ def phase_flash_kernel(dev, bw, peak, bf16_peak):
                                  f"max err {float(err.max())}")
         if dtype == "float32":
             max_err = max(max_err, float(err.max()))
+    for name, b, h, hkv, s, t, causal in EXAMPLE_FLASH:
+        q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                   for x in inputs(b, h, hkv, s, t, 64, "float32"))
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        if bool((err > 2e-5 + 2e-5 * want.abs()).any()):
+            raise AssertionError(f"flash at the serve example's {name} "
+                                 f"shape: max err {float(err.max())}")
+        max_err = max(max_err, float(err.max()))
     out = {}
     # at Hymba's shapes both sides work in f32 on the same bf16 inputs and
     # round once to bf16, so they may differ by one bf16 ulp (2^-7 of the
@@ -1692,10 +1753,13 @@ def phase_flash_kernel(dev, bw, peak, bf16_peak):
             bf16_peak)
         wide[name] = row
     del flush
+    d16 = _flash_d16(dev, inputs, bw, peak, bf16_peak)
+    max_err = max(max_err, max(r["max_abs_err"] for r in d16.values()
+                               if r["dtype"] == "float32"))
     emit("flash_kernel", sweep=[list(c) for c in FLASH_SWEEP],
-         max_abs_err_f32=max_err,
+         examples=[list(c) for c in EXAMPLE_FLASH], max_abs_err_f32=max_err,
          hymba={f"s{s}_w{w}": r for (s, w), r in out.items()},
-         families=families, d128=wide,
+         families=families, d128=wide, d16=d16,
          shape=dict(q=[1, h, list(SERVE_SEQ), d], kv=[1, hkv, t, d],
                     dtype="bfloat16"),
          rate="bf16 tensor cores", tolerance={"float32": 2e-5,
@@ -1712,10 +1776,81 @@ def phase_flash_kernel(dev, bw, peak, bf16_peak):
         bound_ms=g["bound_ms"], bound_by=g["bound_by"])}
 
 
+def _flash_d16(dev, inputs, bw, peak, bf16_peak):
+    """Flash's D = 16 bodies at ``D16_FLASH``, f32 and bf16, against the
+    plain version (f32 at the sweep's 2e-5, bf16 within one ulp: atol
+    2e-4, rtol 8e-3), each with its device time, the plain version's, one
+    SDPA call's (``is_causal`` at window 0, else the boolean mask; never
+    used by the port) and the bound (the f32 body's operations at the f32
+    rate, the bf16 body's at the tensor cores'). A head dim outside
+    ``HEAD_DIMS`` must raise on the card."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_plain
+
+    d = 16
+    rows = {}
+    for dtype, tol, rate in (("float32", (2e-5, 2e-5), peak),
+                             ("bfloat16", (2e-4, 8e-3), bf16_peak)):
+        for name, b, h, hkv, s, t, causal, window in D16_FLASH:
+            q, k, v = inputs(b, h, hkv, s, t, d, dtype)
+            call = lambda: fa.flash_attention(q, k, v, causal=causal,
+                                              window=window)
+            got = call()
+            want = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            if bool((err > tol[0] + tol[1] * want.float().abs()).any()):
+                raise AssertionError(f"flash D = 16 {name} {dtype}: max err "
+                                     f"{float(err.max())}")
+            if causal and window:
+                qpos = torch.arange(s, device=dev)[:, None]
+                kpos = torch.arange(t, device=dev)[None, :]
+                mask = (kpos <= qpos) & (kpos > qpos - window)
+                lib = lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+            else:
+                lib = lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True)
+            flops = 4 * h * d * b * _flash_pairs(s, t, causal, window)
+            row = dict(q=[b, h, s, d], kv=[b, hkv, t, d], causal=causal,
+                       window=window, dtype=dtype,
+                       max_abs_err=float(err.max()),
+                       kernel_ms=device_ms(call, iters=20, warm=3,
+                                           match="flash_kernel"),
+                       plain_ms=device_ms(lambda: flash_attention_plain(
+                           q, k, v, causal=causal, window=window), iters=5,
+                           warm=2))
+            try:
+                row["library_ms"] = device_ms(lib, iters=20, warm=3)
+            except RuntimeError as exc:  # the yardstick only, never the port
+                row["library_ms"], row["library_error"] = None, str(exc)[:200]
+            row["gflop"] = flops / 1e9
+            row["tflops"] = tflops(flops, row["kernel_ms"])
+            row["bound_ms"], row["bound_by"] = bound(
+                q.element_size() * b * (2 * h * s * d + 2 * hkv * t * d),
+                flops, bw, rate)
+            rows[f"{name}_{dtype}"] = row
+    for bad in (8, 48):
+        q, k, v = inputs(1, 2, 2, 16, 16, bad, "float32")
+        try:
+            fa.flash_attention(q, k, v)
+        except ValueError:
+            continue
+        raise AssertionError(f"flash took head dim {bad} on the card")
+    return rows
+
+
 # (B, S, H, P, N, chunk): the reference's SSD sweep, then Hymba's prefill
 # shapes at the serve phase's two prompt lengths and Mamba2-370M's
 SSD_SWEEP = ((1, 64, 2, 32, 16, 16), (2, 128, 3, 32, 16, 32),
              (1, 256, 4, 64, 128, 64), (2, 96, 2, 32, 8, 32))
+# mamba2-370m's smoke prefill in examples/torch_serve_demo.py (B, S, H, P,
+# N, chunk; one group): 8 tokens at chunk min(16, 8), x, B and C strided
+# views of the in-projection's [B, S, 544] output, as the model passes them
+SSD_EXAMPLE = (4, 8, 8, 64, 16, 8)
 SSD_MODELS = (("hymba", (1, 2048, 50, 64, 16, 256)),
               ("hymba256", (1, 256, 50, 64, 16, 256)),
               ("mamba2", (1, 2048, 32, 64, 128, 256)))
@@ -1767,6 +1902,25 @@ def phase_ssd_kernel(dev, bw, peak, bf16_peak):
                 raise AssertionError(f"ssd {(b, s, h, p, n, chunk)}: max err "
                                      f"{float(err.max())}")
             max_err = max(max_err, float(err.max()))
+    # the serve example's mamba2 prefill: x, B and C views of one
+    # projection, a_log shared, held as the sweep
+    b, s, h, p, n, chunk = SSD_EXAMPLE
+    proj = torch.randn(b, s, h * p + 2 * n, device=dev, generator=gen)
+    proj[..., h * p:] *= 0.5
+    x = proj[..., :h * p].unflatten(-1, (h, p))
+    bm = proj[..., h * p:h * p + n].unsqueeze(2)
+    cm = proj[..., h * p + n:].unsqueeze(2)
+    args = (x, torch.rand(b, s, h, device=dev, generator=gen) * 0.1 + 0.05,
+            torch.log(torch.linspace(1, 16, h, device=dev)), bm, cm)
+    y, st = ss.ssd_scan(*args, chunk=chunk)
+    yw, sw = ssd_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    for got, want in ((y, yw), (st, sw)):
+        err = (got - want).abs()
+        if bool((err > 1e-4 + 1e-4 * want.abs()).any()):
+            raise AssertionError(f"ssd at the serve example's mamba2 shape "
+                                 f"{SSD_EXAMPLE}: max err {float(err.max())}")
+        max_err = max(max_err, float(err.max()))
     # a_log per batch row (the trainer's nodes folded into the batch)
     # against one row at a time with a shared [H] (stride 0, the serving
     # path's form): bit for bit, both dtypes
@@ -1808,6 +1962,7 @@ def phase_ssd_kernel(dev, bw, peak, bf16_peak):
                                iters=5, warm=2),
             bound_ms=bms, bound_by=by)
     emit("ssd_kernel", sweep=[list(c) for c in SSD_SWEEP],
+         example=list(SSD_EXAMPLE),
          max_abs_err_f32=max_err, models=rows,
          a_log_per_row_bit_equal=True,
          rate="C·Bᵀ at the bf16 tensor-core rate, the rest at the f32 rate",
@@ -2025,27 +2180,27 @@ def _profiled(fn, runs=3):
                 top_device=busy["top_device"][:5])
 
 
-def _eager_vs_replay(prog, out=None, state=(), timed=True):
+def _eager_vs_replay(prog, out=None, state=(), turns=4):
     """A warm program's body called eagerly against ``run()`` (a replay),
-    from the same inputs: with ``timed``, in turns eager, replay, replay,
-    eager, each a :func:`_profiled` group of calls; else once each.
+    from the same inputs, in ``turns`` timed turns, each a
+    :func:`_profiled` group of calls: 4 are eager, replay, replay, eager;
+    2 are eager, replay; 0 calls each once, untimed.
     ``out``, where given, are the tokens the program writes: zeroed before
     each turn (unless ``state`` holds it) and read after it, and every turn
     must give the same (``tokens``). ``state`` are inputs that the body
     advances itself (generate's ``tok`` and ``pos``), set back before each
     turn."""
     import torch
-    turns = (("eager", prog.body), ("replay", prog.run))
-    if timed:
-        turns += (("replay_2", prog.run), ("eager_2", prog.body))
+    order = (("eager", prog.body), ("replay", prog.run),
+             ("replay_2", prog.run), ("eager_2", prog.body))
     saved = [t.clone() for t in state]
     res, got = {}, []
-    for name, fn in turns:
+    for name, fn in order[:max(turns, 2)]:
         for t, v in zip(state, saved):
             t.copy_(v)
         if out is not None and not any(out is t for t in state):
             out.zero_()
-        if timed:
+        if turns:
             res[name] = _profiled(fn)
         else:
             fn()
@@ -2301,7 +2456,9 @@ def phase_serve(dev, smi):
     for n in SERVE_SEQ:
         prog = eng.programs[("prefill", n, decode_bucket), 0]
         eng._stage_prefill(gen.integers(0, cfg.vocab_size, n), 0, n)
-        versus[f"prefill_{n}"] = _eager_vs_replay(prog)
+        # two turns (four for the tick): processing the profiled eager
+        # prefill's trace takes about 10 s a turn
+        versus[f"prefill_{n}"] = _eager_vs_replay(prog, turns=2)
         records[n] = _profiled_replay_launches(prog)
         if records[n]["launches"] != {"flash_attention": per_prefill,
                                       "ssd_scan": per_prefill}:
@@ -2447,15 +2604,15 @@ def _memory():
                 / 2 ** 30)
 
 
-def _engine_serve(dev, arch, nodes, seed, timed=False):
+def _engine_serve(dev, arch, nodes, seed, turns=0):
     """``arch`` at full width behind ``ServeEngine``: ``nodes`` nodes
     initialised on the card from seeds ``seed``, ``seed + 1``, ..., 4
     slots, seq buckets (256, 2048), captured programs, a cold wave of 8
     requests (its keys built) and a warm one of the same traffic (no
     build; flash launches = nodes × layers a prefill), no hot swap. The
     warm decode key and the warm 2048 prefill key then run their body
-    eagerly against a replay: their tokens must be equal; with
-    ``timed``, in timed turns (:func:`_eager_vs_replay`)."""
+    eagerly against a replay: their tokens must be equal, in ``turns``
+    timed turns (:func:`_eager_vs_replay`)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2515,7 +2672,7 @@ def _engine_serve(dev, arch, nodes, seed, timed=False):
     decode_bucket = max(k[1] for k in built if k[0] == "decode")
     prog = eng.programs[("decode", decode_bucket), 0]
     tick = _profiled(prog.run)
-    versus = {"decode": _eager_vs_replay(prog, eng._out, timed=timed)}
+    versus = {"decode": _eager_vs_replay(prog, eng._out, turns=turns)}
     pre = {}
     for n in SERVE_SEQ:
         prog = eng.programs[("prefill", n, decode_bucket), 0]
@@ -2529,7 +2686,7 @@ def _engine_serve(dev, arch, nodes, seed, timed=False):
                                  f"{dict(LAUNCHES)}")
         if n == long_:
             versus[f"prefill_{n}"] = _eager_vs_replay(prog, eng._out,
-                                                      timed=timed)
+                                                      turns=turns)
     unequal = [k for k, v in versus.items() if not v["tokens"]["equal"]]
     if unequal:
         raise AssertionError(f"{arch}: eager and replayed tokens differ "
@@ -2804,9 +2961,9 @@ def _generate_wide(dev, arch, seed):
         programs[name] = dict(capture_s=prog.capture_s,
                               launches_per_replay=prog.launches)
     # the prefill first: it sets tok and pos for the decode
-    versus = {"prefill": _eager_vs_replay(prefill, st.tok, timed=False),
+    versus = {"prefill": _eager_vs_replay(prefill, st.tok, turns=0),
               "decode": _eager_vs_replay(decode, st.tok, (st.tok, st.pos),
-                                         timed=False)}
+                                         turns=0)}
     if not all(v["tokens"]["equal"] for v in versus.values()):
         raise AssertionError(f"{arch}: eager and replayed tokens differ "
                              f"{versus}")
@@ -2839,7 +2996,7 @@ def phase_wide_serve(dev, smi):
     for name, fn in (
             ("nemotron_engine",
              lambda: _engine_serve(dev, "nemotron-4-15b", 1, 600,
-                                   timed=True)),
+                                   turns=4)),
             ("deepseek_generate",
              lambda: _generate_wide(dev, "deepseek-coder-33b", 700)),
             ("minicpm_engine",
@@ -3663,6 +3820,203 @@ def phase_host(dev, smi):
          torch.backends.cudnn.benchmark) = cudnn
 
 
+
+# the examples phase: the twins of the reference's examples, run through
+# their ``main`` at the reference's default sizes (examples/torch_*.py)
+EXAMPLE_HISTO_STEPS, EXAMPLE_HISTO_SYNC = 400, 20
+
+
+def _example(script):
+    """An example script of the checkout as a module (``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "example_" + Path(script).stem, ROOT / "examples" / script)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _finite_row(row, what):
+    if not all(_all_finite(v) for v in row.values()) or \
+            not 0.0 <= row["auc"] <= 1.0:
+        raise AssertionError(f"{what}: report row {row}")
+
+
+def phase_examples(dev, smi):
+    """The three example twins at the reference's default sizes, run by
+    ``_examples_run`` in a process of their own, as a user runs an
+    example: in this process, after the paths above, the eager protocol
+    ran at half its speed on an H100 (239.6 s against 124-148 s alone).
+    Emits the child's rows;
+    returns (the launches of the three runs, the engine run's flash
+    launches: its D = 16 body's)."""
+    import tempfile
+
+    held = _release_serving()
+    tmp = tempfile.mkdtemp(prefix="examples_")
+    wall, (out,) = _gossip_spawn(_examples_child, tmp, dev, "examples",
+                                 world=1)
+    emit("examples", card=smi, held_before_gib=held, child_wall_s=wall,
+         **out["rows"])
+    return out["counts"], out["d16"]
+
+
+def _examples_child(rank, world, init, tmp, dev):
+    """The spawned process of ``phase_examples`` (``_gossip_spawn``'s
+    signature; ``init`` unused): ``_examples_run``, its result saved to
+    ``tmp/examples0.pt``."""
+    import torch
+    rows, counts, d16 = _examples_run(dev)
+    torch.save(dict(rows=rows, counts=counts, d16=d16),
+               f"{tmp}/examples{rank}.pt")
+
+
+def _examples_run(dev):
+    """The three example twins at the reference's default sizes, each
+    through its ``main`` on the card, the counts set to 0 just before each
+    run (each histo scenario's too) and read just after: the engine
+    session (3 rounds, ``leave(3)``, 3 more, ``join(3)``; flash's f32 D = 16
+    body and one ``fused_merge_all`` a round), the §4 protocol (3
+    scenarios of 400 steps, in a temporary working directory; 20 commits a
+    scenario, nothing else launched) and the serving demo (4 families,
+    then the consensus ensemble; flash and ``ssd_scan``). Each twin's
+    seconds and peak memory. Returns (its rows, the launches of the three
+    runs, the engine run's flash launches)."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    counts, rows = {}, {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rows[name] = dict(seconds=time.perf_counter() - t0,
+                          launches={k: v for k, v in LAUNCHES.items() if v},
+                          # the flags this run had, in this process
+                          matmul_allow_tf32=torch.backends.cuda.matmul
+                          .allow_tf32,
+                          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                          **_memory())
+        for k, v in LAUNCHES.items():
+            counts[k] = counts.get(k, 0) + v
+        return out
+
+    # the engine session: flash at [32, 4, 32, 16] f32 (the train step's and
+    # the gate's forward, one launch a layer a call), a commit a round
+    eng = _example("torch_engine_swarm.py")
+    out = run("engine", lambda: eng.main([]))
+    rounds = 2 * eng.ROUNDS
+    gates, left = out["gates"], out["left"]["gates"]
+    if gates.shape != (eng.ROUNDS, eng.N_NODES) or \
+            left.shape != (eng.ROUNDS, eng.N_NODES) or left[:, 3].any():
+        raise AssertionError(f"engine example gates {gates} / {left}")
+    if int(out["session"].state.round) != rounds or \
+            not out["session"].active.all():
+        raise AssertionError("engine example: rounds or membership")
+    if not _all_finite(out["losses"]) or not _all_finite(
+            out["left"]["losses"]):
+        raise AssertionError("engine example: non-finite losses")
+    got = rows["engine"]["launches"]
+    d16 = got.get("flash_attention", 0)
+    # flash a layer a call: 30 local steps, and the gate's local and merged
+    # scores every round
+    flash_predicted = eng.CFG.n_layers * (rounds * eng.SYNC_EVERY
+                                          + 2 * rounds)
+    if got.get("fused_merge_all") != rounds or d16 != flash_predicted or \
+            set(got) != {"fused_merge_all", "flash_attention"}:
+        raise AssertionError(f"engine example launches {got}, flash "
+                             f"predicted {flash_predicted}")
+    rows["engine"].update(
+        rounds=rounds, gates=gates.tolist(), left_gates=left.tolist(),
+        last_losses=out["left"]["losses"][-1, -1].tolist(),
+        flash_predicted=flash_predicted,
+        flash_q=[eng.N_NODES * eng.BATCH, eng.CFG.n_heads, eng.SEQ,
+                 eng.CFG.head_dim])
+    del out
+
+    # the protocol, in a temporary working directory (its JSON goes to
+    # experiments/histo_torch/ under it)
+    histo = _example("torch_histopathology_swarm.py")
+    per = []
+    inner = histo.run_experiment
+
+    def counted(cfg, **kw):
+        reset_launches()
+        r = inner(cfg, **kw)
+        torch.cuda.synchronize()
+        per.append({k: v for k, v in LAUNCHES.items() if v})
+        for k, v in LAUNCHES.items():
+            counts[k] = counts.get(k, 0) + v
+        return r
+
+    histo.run_experiment = counted
+    tmp, cwd = tempfile.mkdtemp(prefix="histo_example_"), os.getcwd()
+    os.chdir(tmp)
+    try:
+        run("histo", lambda: histo.main([]))
+        names = sorted(os.listdir(histo.OUT))
+        results = {n: json.loads(Path(histo.OUT, n).read_text())
+                   for n in names}
+    finally:
+        os.chdir(cwd)
+    rows["histo"]["launches"] = per
+    want = {"fused_merge_all": EXAMPLE_HISTO_STEPS // EXAMPLE_HISTO_SYNC}
+    if names != ["scarcity25.json", "scarcity5.json", "unbalanced.json"] or \
+            per != [want] * 3:
+        raise AssertionError(f"histo example: files {names}, launches {per}")
+    report = {}
+    for n, r in results.items():
+        reps = [r["centralized"]] + r["local"] + r["swarm"]
+        if len(reps) != 9:
+            raise AssertionError(f"histo example {n}: {len(reps)} rows")
+        for rep in reps:
+            _finite_row(rep, n)
+        report[n[:-5]] = dict(
+            sizes=r["config"]["sizes"],
+            centralized_auc=r["centralized"]["auc"],
+            local_auc=[x["auc"] for x in r["local"]],
+            swarm_auc=[x["auc"] for x in r["swarm"]],
+            recovery=r["recovery"],
+            last_gates=r["sync_log"][-1]["gates"])
+    rows["histo"].update(scenarios=report)
+
+    # the serving demo: 4 families through generate / the decode loop, then
+    # the consensus ensemble behind ServeEngine
+    serve = _example("torch_serve_demo.py")
+    out = run("serve", lambda: serve.main([]))
+    for arch in serve.ARCHS:
+        tok = out[arch]["tokens"]
+        vocab = smoke_variant(get_config(arch)).vocab_size
+        if tuple(tok.shape) != (serve.BATCH, serve.MAX_NEW) or not bool(
+                ((tok >= 0) & (tok < vocab)).all()):
+            raise AssertionError(f"serve example {arch}: tokens {tok}")
+    reqs = out["ensemble"]["requests"]
+    if len(reqs) != 6 or any(r.status != "done" or len(r.tokens) != 8
+                             for r in reqs):
+        raise AssertionError(f"serve example ensemble: {reqs}")
+    got = rows["serve"]["launches"]
+    if not got.get("flash_attention", 0) > 0 or \
+            not got.get("ssd_scan", 0) > 0:
+        raise AssertionError(f"serve example launches {got}")
+    rows["serve"].update(
+        ms_per_token={a: out[a]["seconds"] / serve.MAX_NEW * 1e3
+                      for a in serve.ARCHS},
+        ensemble_s=out["ensemble"]["seconds"],
+        ensemble_builds=out["ensemble"]["total_traces"])
+    return rows, counts, d16
+
+
+def _all_finite(a) -> bool:
+    import numpy as np
+    return bool(np.isfinite(np.asarray(a)).all())
+
 # the gossip phase (``phase_gossip``). (a) on a world of one NCCL rank, the
 # paper CNN at full width: (name, merge, topology, wire, absent node)
 GOSSIP_A = (("fedavg_full_f32", "fedavg", "full", "f32", None),
@@ -4283,16 +4637,17 @@ def _gossip_priced(counted, link, group):
     return sum(factor[k] * v for k, v in kinds.items())
 
 
-def _gossip_two_level(dev, smi, base, tmp):
-    """(d) 4 gloo ranks on the one card as 2 pods × 2 nodes: each setting's
-    pick and settled commit against the f64 oracle, its bytes by link
-    class against the cost model at the padded width, then each fault
-    plan's preempted run against its twin, bit for bit."""
+def _gossip_two_level(dev, smi, base, spawned):
+    """(d) 4 gloo ranks on the one card as 2 pods × 2 nodes (``spawned``:
+    the wall and the ranks' records): each setting's pick and settled
+    commit against the f64 oracle, its bytes by link class against the
+    cost model at the padded width, then each fault plan's preempted run
+    against its twin, bit for bit."""
     import numpy as np
     import torch
     from repro_torch.core import comms, gossip
 
-    spawn_wall, ranks = _gossip_spawn(_gossip_rank_d, tmp, dev, "hier")
+    spawn_wall, ranks = spawned
     layout = base["layout"]
     k, per = GOSSIP_D_PODS
     rows = {}
@@ -4397,42 +4752,57 @@ def _gossip_two_level(dev, smi, base, tmp):
 
 
 def _gossip_spawn(fn, tmp, dev, tag, world=GOSSIP_WORLD):
-    """``fn(rank, world, init, tmp, dev)`` on ``world`` spawned ranks,
-    joined within GOSSIP_TIMEOUT (a failed rank raises here, a live one is
-    terminated); returns the wall and each rank's ``tmp/<tag><r>.pt``."""
+    """``fn(rank, world, init, tmp, dev)`` on ``world`` spawned ranks:
+    (its wall, each rank's ``tmp/<tag><r>.pt``), as ``_gossip_spawn_all``
+    gives them for one world."""
+    return _gossip_spawn_all(tmp, dev, (fn, tag, world))[0]
+
+
+def _gossip_spawn_all(tmp, dev, *worlds):
+    """Each ``(fn, tag, world)`` of ``worlds``: ``fn(rank, world, init,
+    tmp, dev)`` on ``world`` spawned ranks, every world started at once on
+    the one card and joined within GOSSIP_TIMEOUT (a failed rank raises
+    here, every live one is terminated). Returns, a world each, its wall
+    (from the start to its last rank's exit) and each rank's
+    ``tmp/<tag><r>.pt``."""
     import torch
     import torch.multiprocessing as mp
 
     t0 = time.perf_counter()
-    ctx = mp.start_processes(fn, args=(world, f"file://{tmp}/rdv_{tag}",
-                                       tmp, str(dev)),
-                             nprocs=world, join=False,
-                             start_method="spawn")
+    ctxs = [mp.start_processes(fn, args=(world, f"file://{tmp}/rdv_{tag}",
+                                         tmp, str(dev)),
+                               nprocs=world, join=False,
+                               start_method="spawn")
+            for fn, tag, world in worlds]
+    walls = [None] * len(ctxs)
     deadline = time.time() + GOSSIP_TIMEOUT
     try:
-        while not ctx.join(timeout=5):
-            if time.time() > deadline:
-                raise TimeoutError(f"gossip world of {world}: ranks "
-                                   f"still running after {GOSSIP_TIMEOUT} s")
+        while None in walls:
+            for i, ctx in enumerate(ctxs):
+                if walls[i] is None and ctx.join(timeout=1):
+                    walls[i] = time.perf_counter() - t0
+            if None in walls and time.time() > deadline:
+                raise TimeoutError(f"gossip worlds {worlds}: ranks still "
+                                   f"running after {GOSSIP_TIMEOUT} s")
     finally:
-        for proc in ctx.processes:
-            if proc.is_alive():
-                proc.terminate()
-                proc.join(30)
-    wall = time.perf_counter() - t0
-    return wall, [torch.load(f"{tmp}/{tag}{r}.pt")
-                  for r in range(world)]
+        for ctx in ctxs:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join(30)
+    return [(wall, [torch.load(f"{tmp}/{tag}{r}.pt") for r in range(world)])
+            for wall, (_, tag, world) in zip(walls, worlds)]
 
 
-def _gossip_world4(dev, smi, base, tmp):
-    """(c) 4 gloo ranks on the one card, spawned; each setting's committed
-    rows against the engine backend's commit of it; a failed rank raises
-    here."""
+def _gossip_world4(dev, smi, base, spawned):
+    """(c) 4 gloo ranks on the one card (``spawned``: the wall and the
+    ranks' records); each setting's committed rows against the engine
+    backend's commit of it."""
     import torch
     from repro_torch.core import gossip
     from repro_torch.experiments import histo
 
-    spawn_wall, ranks = _gossip_spawn(_gossip_rank, tmp, dev, "rank")
+    spawn_wall, ranks = spawned
     layout, model, ecfg = base["layout"], base["model"], base["ecfg"]
     active = torch.ones(N, dtype=torch.bool, device=dev)
     rows = {}
@@ -4475,10 +4845,11 @@ def _gossip_world4(dev, smi, base, tmp):
 
 # (e) inner (model) sharding: Mamba2-370M at its published width, its
 # depth cut to GOSSIP_E_LAYERS of 48 (on an H100 the part took 286-338 s at
-# 48, two 8.8 GB checkpoints among them, and 111-136 s at 8; (f) 51-75 s at
-# 8), 2 nodes × model 2 on 4 gloo ranks against an unsharded twin on 2
+# 48, two 8.8 GB checkpoints among them, 111-136 s at 8 and 104-106 s at 4;
+# (f) 51-75 s at 8, 58 s at 4), 2 nodes × model 2 on 4 gloo ranks against
+# an unsharded twin on 2
 GOSSIP_E_NODES, GOSSIP_E_MODEL = 2, 2
-GOSSIP_E_LAYERS = 4
+GOSSIP_E_LAYERS = 2
 GOSSIP_E_ROUNDS = 2
 GOSSIP_E_STEPS, GOSSIP_E_BATCH, GOSSIP_E_SEQ = 2, 8, 256
 GOSSIP_E_WIRES = ("f32", "int8")
@@ -4717,29 +5088,32 @@ def _gossip_rank_e(rank, world, init, tmp, dev):
         dist.destroy_process_group()
 
 
-def _gossip_inner(dev, smi, tmp):
-    """(e) The twin (2 ranks, a node each), then the sharded world (4
-    ranks, 2 nodes × model 2), spawned one after the other on the card;
-    a second twin run only when the sharded f32 params differ from the
-    first's. Raises on any failed check."""
+@contextlib.contextmanager
+def _expandable_segments():
+    """Spawned ranks that share the card with others: segments that grow
+    keep the allocator's reserve from fragmenting across the rounds."""
     import os
-    import torch
-
-    # six processes share the card: segments that grow keep the
-    # allocator's reserve from fragmenting across the rounds
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
-        twin_wall, twin = _gossip_spawn(_gossip_rank_e, tmp, dev, "etwin",
-                                        world=GOSSIP_E_NODES)
-        shard_wall, shard = _gossip_spawn(
-            _gossip_rank_e, tmp, dev, "eshard",
-            world=GOSSIP_E_NODES * GOSSIP_E_MODEL)
+        yield
     finally:
         if alloc is None:
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+
+
+def _gossip_inner(dev, smi, tmp, etwin, eshard):
+    """(e) The twin (2 ranks, a node each) and the sharded world (4
+    ranks, 2 nodes × model 2), spawned together on the card (``etwin``,
+    ``eshard``: each world's wall and its ranks' records); a second twin
+    run only when the sharded f32 params differ from the first's. Raises
+    on any failed check."""
+    import os
+    import torch
+
+    (twin_wall, twin), (shard_wall, shard) = etwin, eshard
     node_of = {r: shard[r]["rows"][0] for r in range(len(shard))}
     rows = {}
     # a step launches SSD once a layer (the vmap rule folds the node), a
@@ -4865,7 +5239,7 @@ def _gossip_inner(dev, smi, tmp):
                                              for r in shard]}),
          settings=rows, tolerance_int8="1e-5, plus one bf16 ulp in the "
          "bf16 slots",
-         note="4 + 2 gloo ranks on one card, one world after the other: "
+         note="4 + 2 gloo ranks on one card, both worlds at once: "
               "gloo stages CUDA tensors through host memory, so the walls "
               "are host copies and TCP, not NVLink")
 
@@ -5063,25 +5437,20 @@ def _gossip_rank_f(rank, world, init, tmp, dev):
         dist.destroy_process_group()
 
 
-def _gossip_split(dev, smi, tmp):
-    """(f) The twin (2 ranks, a node each), then the split world (4
-    ranks, 2 nodes × data 2), spawned one after the other on the card.
-    Raises on any failed check."""
+def _gossip_split(dev, smi, tmp, ftwin):
+    """(f) The split world (4 ranks, 2 nodes × data 2) on the card, after
+    its twin (2 ranks, a node each; ``ftwin``: its wall and its ranks'
+    records), whose params each split round is held against. Raises on
+    any failed check."""
     import os
 
-    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    twin_wall, twin = ftwin
     try:
-        twin_wall, twin = _gossip_spawn(_gossip_rank_f, tmp, dev, "ftwin",
-                                        world=GOSSIP_E_NODES)
-        shard_wall, shard = _gossip_spawn(
-            _gossip_rank_f, tmp, dev, "fshard",
-            world=GOSSIP_E_NODES * GOSSIP_F_DATA)
+        with _expandable_segments():
+            shard_wall, shard = _gossip_spawn(
+                _gossip_rank_f, tmp, dev, "fshard",
+                world=GOSSIP_E_NODES * GOSSIP_F_DATA)
     finally:
-        if alloc is None:
-            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
         for name in os.listdir(tmp):
             if name.startswith("ftwin_params"):
                 os.remove(os.path.join(tmp, name))
@@ -5183,9 +5552,10 @@ def _gossip_split(dev, smi, tmp):
 def phase_gossip(dev, smi):
     """The gossip backend (`repro_torch.core.gossip`, ``SwarmSession(...,
     backend="gossip")``): (a) and (b) on a world of one NCCL rank in this
-    process, then (c) on 4 gloo ranks spawned on the one card, (d) on 4
-    more as a two-level mesh, (e) inner sharding on 4 against an
-    unsharded twin on 2, and (f) the split step on 4 against another."""
+    process, then (c) on 4 gloo ranks spawned on the one card together
+    with (d) on 4 more as a two-level mesh, (e) inner sharding on 4
+    together with an unsharded twin on 2 and (f)'s twin on 2, and last
+    (f) the split step on 4."""
     import gc
     import tempfile
     import torch
@@ -5211,18 +5581,29 @@ def phase_gossip(dev, smi):
                     val=tuple(v.cpu() for v in base["val"]),
                     xs=base["xs"][1].cpu(), ys=base["ys"][1].cpu()),
                f"{tmp}/state.pt")
-    _gossip_world4(dev, smi, base, tmp)
+    # (c) and (d) spawned together, 8 ranks sharing the card
     t0 = time.perf_counter()
-    _gossip_two_level(dev, smi, base, tmp)
-    TIMERS["gossip_d_s"] = time.perf_counter() - t0
+    world4, hier = _gossip_spawn_all(tmp, dev, (_gossip_rank, "rank", 4),
+                                     (_gossip_rank_d, "hier", 4))
+    _gossip_world4(dev, smi, base, world4)
+    _gossip_two_level(dev, smi, base, hier)
+    TIMERS["gossip_cd_s"] = time.perf_counter() - t0
     del base
     gc.collect()
     torch.cuda.empty_cache()
+    # (e)'s twin and sharded world and (f)'s twin spawned together, 8
+    # ranks sharing the card; then (f)'s split world, which reads its
+    # twin's params
     t0 = time.perf_counter()
-    _gossip_inner(dev, smi, tmp)
+    with _expandable_segments():
+        etwin, eshard, ftwin = _gossip_spawn_all(
+            tmp, dev, (_gossip_rank_e, "etwin", GOSSIP_E_NODES),
+            (_gossip_rank_e, "eshard", GOSSIP_E_NODES * GOSSIP_E_MODEL),
+            (_gossip_rank_f, "ftwin", GOSSIP_E_NODES))
+    _gossip_inner(dev, smi, tmp, etwin, eshard)
     TIMERS["gossip_e_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    _gossip_split(dev, smi, tmp)
+    _gossip_split(dev, smi, tmp, ftwin)
     TIMERS["gossip_f_s"] = time.perf_counter() - t0
 
 
@@ -5263,69 +5644,82 @@ def main() -> int:
          build_seconds={k: v["seconds"] for k, v in build.BUILD_LOG.items()},
          variants=variants, mma_instructions=mma_counts(build, SOURCES))
 
-    stats = phase_kernels(dev, bw, peak)
-    stats.update(phase_quant_kernels(dev, bw, peak))
-    stats.update(phase_lora_kernel(dev, bw, peak))
+    def timed(name, fn, *args):
+        # each phase's seconds into the timing line, and as it ends onto
+        # stderr (a run cut by its time limit still shows them)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        TIMERS[f"{name}_s"] = time.perf_counter() - t0
+        print(f"chip_smoke: {name} {TIMERS[f'{name}_s']:.1f} s "
+              f"(at {time.perf_counter() - start:.1f} s)", file=sys.stderr,
+              flush=True)
+        return out
+
+    stats = timed("kernel", phase_kernels, dev, bw, peak)
+    stats.update(timed("quant_kernel", phase_quant_kernels, dev, bw, peak))
+    stats.update(timed("lora_kernel", phase_lora_kernel, dev, bw, peak))
     # the LM slice's kernels and the one-node commit's path are timed before
     # the swarm paths: once a process has run those, most of the profiler's
     # traces lose kernel records (device_ms)
-    stats.update(phase_flash_kernel(dev, bw, peak, bf16_peak))
-    stats.update(phase_ssd_kernel(dev, bw, peak, bf16_peak))
-    mstats, counts = phase_merge_one(dev, bw, peak)
+    stats.update(timed("flash_kernel", phase_flash_kernel, dev, bw, peak,
+                       bf16_peak))
+    stats.update(timed("ssd_kernel", phase_ssd_kernel, dev, bw, peak,
+                       bf16_peak))
+    mstats, counts = timed("merge_one", phase_merge_one, dev, bw, peak)
     stats.update(mstats)
     # each path runs with the launch counts set to 0 just before it; a
     # kernel's launches are those of the first path that carries it
     launches = {k: v for k, v in counts.items() if v}
-    for counts in (phase_histo(dev), phase_fisher(dev)[0],
-                   phase_histo(dev, dict(wire_dtype="int8",
-                                         wire_block=WIRE_BLOCK))):
+
+    def path(name, fn, *args):
+        counts = timed(name, fn, *args)
         launches.update({k: v for k, v in counts.items()
                          if v and k not in launches})
-    counts, run = phase_fisher(dev, dict(wire_dtype="int8",
-                                         wire_block=WIRE_BLOCK))
+
+    path("histo", phase_histo, dev)
+    path("fisher", lambda: phase_fisher(dev)[0])
+    path("histo_int8", phase_histo, dev, dict(wire_dtype="int8",
+                                              wire_block=WIRE_BLOCK))
+    counts, run = timed("fisher_int8", phase_fisher, dev,
+                        dict(wire_dtype="int8", wire_block=WIRE_BLOCK))
     launches.update({k: v for k, v in counts.items()
                      if v and k not in launches})
-    phase_checkpoint(dev, run)
-    phase_parity(dev)
-    counts = phase_faults(dev, smi)
-    launches.update({k: v for k, v in counts.items()
-                     if v and k not in launches})
-    counts = phase_hetero(dev)
-    launches.update({k: v for k, v in counts.items()
-                     if v and k not in launches})
-    phase_hetero_parity(dev)
+    timed("checkpoint", phase_checkpoint, dev, run)
+    timed("parity", phase_parity, dev)
+    path("faults", phase_faults, dev, smi)
+    path("hetero", phase_hetero, dev)
+    timed("hetero_parity", phase_hetero_parity, dev)
     # the LM slice: parity, serving
-    phase_lm_parity(dev)
-    counts = phase_serve(dev, smi)
-    launches.update({k: v for k, v in counts.items()
-                     if v and k not in launches})
+    timed("lm_parity", phase_lm_parity, dev)
+    path("serve", phase_serve, dev, smi)
     # the trainer: gradient checks, card vs CPU, then the full-width paths
-    phase_train_grads(dev)
-    phase_train_parity(dev)
-    counts = phase_train(dev, smi)
+    timed("train_grads", phase_train_grads, dev)
+    timed("train_parity", phase_train_parity, dev)
+    path("train", phase_train, dev, smi)
+    # the moe, vlm and enc-dec families: card vs CPU, then full width
+    timed("families_parity", phase_families_parity, dev)
+    timed("families_serve", phase_families_serve, dev, smi)
+    # nemotron-4-15b, deepseek-coder-33b and minicpm-2b at full width
+    stats["flash_attention"]["launches_d128"] = timed(
+        "wide_serve", phase_wide_serve, dev, smi)
+    # activation checkpointing, then the host loop
+    timed("remat", phase_remat, dev, smi)
+    timed("host", phase_host, dev, smi)
+    # the twins of the reference's examples at their default sizes
+    counts, stats["flash_attention"]["launches_d16"] = timed(
+        "examples", phase_examples, dev, smi)
     launches.update({k: v for k, v in counts.items()
                      if v and k not in launches})
-    # the moe, vlm and enc-dec families: card vs CPU, then full width
-    phase_families_parity(dev)
-    phase_families_serve(dev, smi)
-    # nemotron-4-15b, deepseek-coder-33b and minicpm-2b at full width
-    t0 = time.perf_counter()
-    stats["flash_attention"]["launches_d128"] = phase_wide_serve(dev, smi)
-    TIMERS["wide_serve_s"] = time.perf_counter() - t0
-    # activation checkpointing, then the host loop
-    phase_remat(dev, smi)
-    phase_host(dev, smi)
     # the gossip backend: one NCCL rank, then 4 gloo ranks on the card
-    t0 = time.perf_counter()
-    phase_gossip(dev, smi)
-    TIMERS["gossip_s"] = time.perf_counter() - t0
+    timed("gossip", phase_gossip, dev, smi)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[stem],
                     replaces=replaces, launches=launches.get(name, 0),
                     **stats[name])
                for name, (stem, replaces) in KERNELS.items()]
     if any(k["launches"] < 1 for k in kernels) or \
-            not stats["flash_attention"]["launches_d128"] > 0:
+            not stats["flash_attention"]["launches_d128"] > 0 or \
+            not stats["flash_attention"]["launches_d16"] > 0:
         raise AssertionError(f"a kernel of the path never launched: {kernels}")
     TIMERS["script_s"] = time.perf_counter() - start
     emit("timing", **TIMERS)

@@ -33,12 +33,12 @@
 // the tensor maps of TMA come from libcuda (cuTensorMapEncodeTiled),
 // which this plain-C library does not link, and the tiles are small
 // enough that 16-byte copies from one warp keep up. Tiles sit in shared
-// memory in the 128-byte swizzled layout (64-byte at D = 32), which a
-// wgmma descriptor reads in either operand order without bank conflicts:
-// S = Q K^T takes Q and K K-major from shared memory (m64n64k16, D/16
-// steps); O += P V takes P from registers and V in its natural [keys, D]
-// layout as an MN-major B operand (the descriptor's transpose bit;
-// m64nDk16, 4 steps), so no tile is transposed.
+// memory in the 128-byte swizzled layout (64-byte at D = 32, 32-byte at
+// D = 16), which a wgmma descriptor reads in either operand order without
+// bank conflicts: S = Q K^T takes Q and K K-major from shared memory
+// (m64n64k16, D/16 steps); O += P V takes P from registers and V in its
+// natural [keys, D] layout as an MN-major B operand (the descriptor's
+// transpose bit; m64nDk16, 4 steps), so no tile is transposed.
 //
 // Precision. Q K^T needs no care: products of bf16 values are exact in
 // f32, and the tensor cores sum them in f32. P is not a bf16 value. The
@@ -62,7 +62,9 @@
 //
 // The f32 form keeps the first kernel's body: f32 products on the CUDA
 // cores (4 x 4 register micro-tiles, one head and 64 query rows per block),
-// which the f32 sweeps hold to 2e-5; it is not on the serving path.
+// which the f32 sweeps hold to 2e-5; it is not on the serving path. Both
+// forms take D in {16, 32, 64, 128}, every head dim of the reference's
+// configs and test models.
 //
 // Both forms read inputs through (batch, head, seq) strides with a
 // contiguous D, so a K/V cache in [B, T, Hkv, D] layout and a q in
@@ -106,8 +108,9 @@ constexpr size_t smem_bytes() {
 // One block of 256 threads per (q tile of 64 rows, query head, batch),
 // streaming K/V tiles of 64 keys through shared memory. Each thread owns a
 // 4 x 4 micro-tile of the 64 x 64 score tile (rows 4*ty.., columns
-// tx + 16*j) and the same 4 rows of the output (columns tx + 16*j); the 16
-// threads that share a row reduce its max and sum with warp shuffles.
+// tx + 16*j) and the same 4 rows of the output (columns tx + 16*j, D / 16
+// of them: one at D = 16); the 16 threads that share a row reduce its max
+// and sum with warp shuffles (the score tile is 64 x 64 at every D).
 // Shared rows are padded to D + 1 floats (conflict-free column reads of K).
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
@@ -296,22 +299,28 @@ struct Smem {                    // at a 1024-byte-aligned base
 };
 
 // The swizzled shared-memory layout that wgmma reads. A tile row holds kW
-// values (64, or 32 at D = 32) in 16-byte chunks whose order is XORed with
-// the row's place in an 8-row atom (128-byte swizzle; 64-byte at D = 32),
-// so that the 8 rows an operand fetch reads lie in distinct banks. At
-// D = 128 each 64-column half of the tile is its own [R rows x 128 B]
-// region. The XOR acts on address bits, so tiles start on 1024 bytes.
+// values (64; 32 at D = 32, 16 at D = 16) in 16-byte chunks whose order is
+// XORed with address bits 7.. (the row's place in an 8-row atom): the
+// 128-byte swizzle XORs chunk bits 0-2 with r & 7, the 64-byte one bits
+// 0-1 with (r >> 1) & 3 (D = 32), the 32-byte one bit 0 with (r >> 2) & 1
+// (D = 16: two chunks a row), so that the 8 rows an operand fetch reads
+// lie in distinct banks. At D = 128 each 64-column half of the tile is its
+// own [R rows x 128 B] region. The XOR acts on address bits, so tiles
+// start on 1024 bytes.
 template <int D>
 struct Sw {
   static constexpr int kW = D < 64 ? D : 64;
   static constexpr int kRowBytes = 2 * kW;
   static constexpr uint32_t kAtom = 8 * kRowBytes;        // 8 rows
-  static constexpr uint64_t kMode = D < 64 ? 2 : 1;       // 64B / 128B
+  // the descriptor's swizzle mode: 1 = 128B, 2 = 64B, 3 = 32B
+  static constexpr uint64_t kMode = D == 16 ? 3 : D == 32 ? 2 : 1;
   // byte offset of 16-byte chunk c (of D / 8) of row r in an R-row tile
   template <int R>
   __device__ static __forceinline__ uint32_t off(int r, int c) {
     const int half = c / (kW / 8), cc = c % (kW / 8);
-    const int x = kRowBytes == 128 ? (r & 7) : ((r >> 1) & 3);
+    const int x = kRowBytes == 128  ? (r & 7)
+                  : kRowBytes == 64 ? ((r >> 1) & 3)
+                                    : ((r >> 2) & 1);
     return half * R * kRowBytes + r * kRowBytes + ((cc ^ x) << 4);
   }
 };
@@ -330,8 +339,8 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
 
 // Rows [r0, r0 + R) of a [rows, D] bf16 matrix (row stride `ld`, rows past
 // `rows` zero) into the swizzled layout at `dst`. Consecutive lanes copy
-// consecutive chunks of a row, which land in one 128-byte (64-byte) row
-// of shared memory: no bank conflicts, and coalesced reads.
+// consecutive chunks of a row, which land in one 128-byte (64-, 32-byte)
+// row of shared memory: no bank conflicts, and coalesced reads.
 template <int D, int R>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           long long ld, int r0, int rows,
@@ -356,7 +365,8 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
 
 // Q K^T operands, K-major (a row of a tile is a row of Q or K): k-step kk
 // (16 values, 32 bytes) sits in 64-column half kk / (kW/16) at byte
-// 32 * (kk % (kW/16)) of each row; 8-row atoms lie kAtom bytes apart.
+// 32 * (kk % (kW/16)) of each row; 8-row atoms lie kAtom bytes apart. At
+// D = 16 the one k-step is the whole 32-byte row.
 template <int D, int R>
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
   using L = Sw<D>;
@@ -367,7 +377,8 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
 
 // P V's B operand, V [keys, D] MN-major: k-step kk is keys 16kk.. (two
 // 8-row atoms, kAtom apart, the stride offset); the 64-column halves of
-// D = 128 lie R rows apart (the leading offset).
+// D = 128 lie R rows apart (the leading offset; unread at D <= 64, where
+// N is one swizzle atom wide).
 template <int D, int R>
 __device__ __forceinline__ uint64_t desc_v(uint32_t tile, int kk) {
   using L = Sw<D>;
@@ -470,6 +481,20 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_rs_m64n16_tb(float* d,
+                                                   const uint32_t* a,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs_m64n32_tb(float* d,
                                                    const uint32_t* a,
                                                    uint64_t db) {
@@ -548,6 +573,7 @@ __device__ __forceinline__ void wgmma_rs_m64n128_tb(float* d,
 template <int D>
 __device__ __forceinline__ void pv_mma(float* o, const uint32_t* p,
                                        uint64_t dv) {
+  if constexpr (D == 16) wgmma_rs_m64n16_tb(o, p, dv);
   if constexpr (D == 32) wgmma_rs_m64n32_tb(o, p, dv);
   if constexpr (D == 64) wgmma_rs_m64n64_tb(o, p, dv);
   if constexpr (D == 128) wgmma_rs_m64n128_tb(o, p, dv);
@@ -789,10 +815,12 @@ int launch(const FlashArgs& a, int B, cudaStream_t stream) {
 template <typename T>
 int dispatch(const FlashArgs& a, int B, int D, cudaStream_t stream) {
   if constexpr (sizeof(T) == 4) {
+    if (D == 16) return f32::launch<16>(a, B, stream);
     if (D == 32) return f32::launch<32>(a, B, stream);
     if (D == 64) return f32::launch<64>(a, B, stream);
     if (D == 128) return f32::launch<128>(a, B, stream);
   } else {
+    if (D == 16) return hop::launch<16>(a, B, stream);
     if (D == 32) return hop::launch<32>(a, B, stream);
     if (D == 64) return hop::launch<64>(a, B, stream);
     if (D == 128) return hop::launch<128>(a, B, stream);
@@ -805,7 +833,8 @@ int dispatch(const FlashArgs& a, int B, int D, cudaStream_t stream) {
 // Plain C entry point (bound with ctypes). q/k/v/o in f32 (dtype 0) or bf16
 // (dtype 1); strides[12] = q, k, v, o strides in elements, each as (batch,
 // head, seq), the last dim contiguous (for bf16, every row 16-byte
-// aligned). D in {32, 64, 128}; H % Hkv == 0. Launches on `stream`, does
+// aligned). D in {16, 32, 64, 128} (any other D returns
+// cudaErrorInvalidValue); H % Hkv == 0. Launches on `stream`, does
 // not synchronize, and returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int H,

@@ -19,8 +19,9 @@ swizzled layout, streamed by a producer warp with ``cp.async`` into a
 two-stage ring signalled on mbarriers. P is split into two bf16 terms
 (P = P_hi + P_lo) so that P·V holds P to about 2⁻¹⁷, as the TPU kernel's
 f32 P·V does; Q·Kᵀ is exact in f32 as it is. The f32 form runs on the
-CUDA cores (f32 register micro-tiles), for the f32 sweeps. See the source
-for the design and the precision reckoning.
+CUDA cores (f32 register micro-tiles), for the f32 sweeps and the f32
+models. Both take the head dims of :data:`HEAD_DIMS`; on a CUDA tensor any
+other raises. See the source for the design and the precision reckoning.
 
 :func:`flash_attention` takes q ``[B, H, S, D]`` and k/v ``[B, Hkv, T, D]``
 as views with any (batch, head, seq) strides and a contiguous D (for bf16,
@@ -53,7 +54,8 @@ import torch
 from repro_torch.kernels import LAUNCHES, build
 from repro_torch.kernels.ref import flash_attention_plain
 
-HEAD_DIMS = (32, 64, 128)
+# every head dim of the reference's configs, smoke variants and test models
+HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

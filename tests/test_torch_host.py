@@ -565,15 +565,32 @@ def test_tiny_cnn_host_loop_matches_reference_and_engine(merge, topology):
 
 @pytest.mark.parametrize("script,args", [
     ("torch_quickstart.py", ["--rounds", "2", "--steps", "2"]),
-    ("torch_imbalanced_nodes.py", ["--steps", "3"])])
-def test_example_twin_runs_on_cpu(script, args):
+    ("torch_imbalanced_nodes.py", ["--steps", "3"]),
+    ("torch_engine_swarm.py", []),
+    ("torch_histopathology_swarm.py", ["--steps", "20", "--n-train", "160"]),
+    ("torch_serve_demo.py", [])])
+def test_example_twin_runs_on_cpu(script, args, tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="2")
     out = subprocess.run(
         [sys.executable, str(ROOT / "examples" / script), "--device", "cpu",
-         *args], capture_output=True, text=True, env=env, timeout=300)
+         *args], capture_output=True, text=True, env=env, timeout=300,
+        cwd=tmp_path)
     assert out.returncode == 0, out.stderr[-2000:]
     if script == "torch_quickstart.py":
         assert "OK" in out.stdout and out.stdout.count("gates=") == 2
-    else:
+    elif script == "torch_imbalanced_nodes.py":
         assert "dynamic membership" in out.stdout
+    elif script == "torch_engine_swarm.py":
+        # 3 rounds, then the rounds after leave(3)
+        assert out.stdout.count("gates=") == 4 and "OK" in out.stdout
+        assert "node 3 left: gates=[True, True, True, False]" in out.stdout
+    elif script == "torch_histopathology_swarm.py":
+        assert out.stdout.count("recovery of centralized AUC") == 3
+        written = sorted(p.name for p in
+                         (tmp_path / "experiments" / "histo_torch").iterdir())
+        assert written == ["scarcity25.json", "scarcity5.json",
+                           "unbalanced.json"]
+    else:
+        assert out.stdout.count("generated (4, 16)") == 4
+        assert "6 reqs" in out.stdout and "OK" in out.stdout

@@ -7,6 +7,8 @@ machine with the card:
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels.py
 
 Card-only cases skip without a CUDA device (decided inside the test)."""
+import math
+
 import numpy as np
 import pytest
 
@@ -402,7 +404,10 @@ def test_merge_one_kernel_matches_plain_on_card(n, d, dtype):
 # bf16 case, ragged S and T (a prompt in a deeper cache), D = 32, bf16
 # without the causal mask; then the moe, vlm and enc-dec models' shapes:
 # granite-moe's GQA group of 3 (24/8 heads), internvl2's group of 7 (14/2)
-# and seamless's bidirectional encoder at S = T = 1024 (16/16)
+# and seamless's bidirectional encoder at S = T = 1024 (16/16); then head
+# dim 16 (the engine example's model, d_model 64 over 4 heads, 2 KV heads):
+# its training shape (the node axis folded into the batch), GQA with a
+# window and a ragged T, and without the causal mask, in f32 and bf16
 FLASH_CASES = [
     (1, 4, 4, 128, 128, 64, True, 0, torch.float32),
     (2, 4, 2, 256, 256, 64, True, 0, torch.float32),
@@ -416,7 +421,14 @@ FLASH_CASES = [
     (2, 4, 2, 150, 170, 64, False, 0, torch.bfloat16),
     (1, 24, 8, 256, 272, 64, True, 0, torch.bfloat16),
     (2, 14, 2, 300, 300, 64, True, 0, torch.bfloat16),
-    (2, 16, 16, 1024, 1024, 64, False, 0, torch.bfloat16)]
+    (2, 16, 16, 1024, 1024, 64, False, 0, torch.bfloat16),
+    (32, 4, 2, 32, 32, 16, True, 0, torch.float32),
+    (2, 6, 3, 77, 90, 16, True, 20, torch.float32),
+    (2, 4, 2, 150, 170, 16, False, 0, torch.float32),
+    (1, 4, 2, 2048, 2048, 16, True, 64, torch.float32),
+    (32, 4, 2, 32, 32, 16, True, 0, torch.bfloat16),
+    (2, 6, 3, 77, 90, 16, True, 20, torch.bfloat16),
+    (2, 4, 2, 150, 170, 16, False, 0, torch.bfloat16)]
 
 
 def _flash_tol(dtype):
@@ -434,15 +446,18 @@ def _flash_inputs(b, h, hkv, s, t, d, dtype, device, seed=0):
     return f(b, h, s, d), f(b, hkv, t, d), f(b, hkv, t, d)
 
 
-def test_flash_plain_semantics_on_cpu():
-    q, k, v = _flash_inputs(1, 4, 2, 24, 24, 16, torch.float32, "cpu")
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_flash_plain_semantics_on_cpu(d):
+    """At every head dim the kernel takes (16: d_model 64 over 4 heads), on
+    a CPU tensor the wrapper and the differentiable entry point compute the
+    plain version and count no launch."""
+    q, k, v = _flash_inputs(1, 4, 2, 24, 24, d, torch.float32, "cpu")
     before = dict(fa.LAUNCHES)
     got = fa.flash_attention(q, k, v, window=5)
-    assert fa.LAUNCHES == before
     assert torch.equal(got, attention_ref(q, k, v, window=5))
     # one query row by hand: GQA head 3 reads KV head 1, window of 5 keys
     i = 10
-    sc = (q[0, 3, i] @ k[0, 1, i - 4:i + 1].T) / 4.0
+    sc = (q[0, 3, i] @ k[0, 1, i - 4:i + 1].T) / math.sqrt(d)
     want = torch.softmax(sc, -1) @ v[0, 1, i - 4:i + 1]
     np.testing.assert_allclose(got[0, 3, i].numpy(), want.numpy(),
                                rtol=1e-5, atol=1e-6)
@@ -450,6 +465,16 @@ def test_flash_plain_semantics_on_cpu():
     torch.testing.assert_close(fa.flash_attention(q, k, v, window=24),
                                fa.flash_attention(q, k, v), rtol=1e-6,
                                atol=1e-6)
+    # GQA 2:1 with a ragged T, causal, windowed and without the mask
+    q, k, v = _flash_inputs(2, 6, 3, 19, 23, d, torch.float32, "cpu",
+                            seed=d)
+    for causal, window in ((True, 0), (True, 5), (False, 0)):
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        assert torch.equal(fa.flash_attention(q, k, v, causal=causal,
+                                              window=window), want)
+        assert torch.equal(fa.flash_apply(q, k, v, causal=causal,
+                                          window=window), want)
+    assert fa.LAUNCHES == before
     with pytest.raises(ValueError, match="causal"):
         flash_attention_plain(q, k, v, causal=False, window=3)
     with pytest.raises(ValueError, match="compose"):
@@ -498,6 +523,9 @@ def test_flash_kernel_input_checks_on_card():
     q48, k48, v48 = _flash_inputs(1, 2, 2, 16, 16, 48, torch.float32, dev)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q48, k48, v48)
+    q8, k8, v8 = _flash_inputs(1, 2, 2, 16, 16, 8, torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q8, k8, v8)
     with pytest.raises(ValueError, match="causal"):
         fa.flash_attention(q, k, v, causal=False, window=4)
 
@@ -505,12 +533,16 @@ def test_flash_kernel_input_checks_on_card():
 # (H, Hkv, S, T, D, window) in bf16 at the model's tolerance: Hymba's
 # prefill shapes at both served prompt lengths (S and T not multiples of
 # the 192-row / 64-key tiles), a window edge inside a tile, GQA groups of
-# 1, 5 and 8, D of 32, 64 and 128
+# 1, 5 and 8, D of 16, 32, 64 and 128 (D = 16: the engine example's heads
+# at a long prompt, causal and windowed, and GQA groups of 2 and 3 with
+# ragged S and T)
 FLASH_BF16_CASES = [(25, 5, 200, 2064, 64, 0), (25, 5, 2048, 2064, 64, 0),
                     (25, 5, 2048, 2064, 64, 1024), (25, 5, 256, 2064, 64, 0),
                     (25, 5, 256, 2064, 64, 1024), (8, 8, 300, 300, 64, 100),
                     (10, 2, 333, 400, 32, 100), (40, 5, 256, 300, 128, 0),
-                    (16, 2, 130, 130, 128, 100), (5, 1, 77, 90, 32, 0)]
+                    (16, 2, 130, 130, 128, 100), (5, 1, 77, 90, 32, 0),
+                    (4, 2, 2048, 2048, 16, 0), (4, 2, 2048, 2048, 16, 64),
+                    (6, 3, 333, 400, 16, 100), (4, 2, 77, 90, 16, 0)]
 
 
 @pytest.mark.parametrize("h,hkv,s,t,d,window", FLASH_BF16_CASES)
