@@ -98,7 +98,9 @@ Phases, each printing one JSON line:
                  and no mask (the summary takes the faster), and the bound;
                  then the families' full-width shapes (``FAMILY_FLASH``:
                  granite-moe's q [1,24,2048,64] and [1,24,256,64] in a
-                 2064-deep lane, a GQA group of 3; internvl2's
+                 2064-deep lane, a GQA group of 3, and part (g)'s split
+                 step [4,24,256,64] and gate [2,24,256,64] over 256 keys;
+                 internvl2's
                  [4,14,2048,64], a group of 7; seamless's non-causal
                  encoder [4,16,1024,64]; minicpm-2b's [1,36,2048,64] and
                  [1,36,256,64] in a 2064-deep lane and its training step's
@@ -355,11 +357,28 @@ Phases, each printing one JSON line:
                  after each round within rtol 3·2⁻⁸, atol 6e-4 (bf16) and
                  1e-4, 1e-4 (f32 leaves), each kind's largest difference,
                  ``ssd_scan`` launches (48 a rank), the gather and
-                 gradient bytes of a step against the layout's count, the
-                 steps' peak and resident memory against the twin's, and
-                 step, round and sync walls. One card shows no inter-card
-                 traffic: (a)/(b) are one rank's NCCL calls, (c)-(f) go
-                 through host memory;
+                 gradient bytes of a step (the gradient reduced onto the
+                 shard: a reduce_scatter, a reduce to the owner and an
+                 all_reduce of the blocks the data group keeps) and the
+                 split gate's gathers of a sync against the layout's
+                 count, exactly, each gate's peak above the memory
+                 allocated before it, the steps' peak and resident memory
+                 against the twin's, and step, round and sync walls; (g)
+                 granite-moe-3b-a800m at its published widths, 8 of 32
+                 layers, bf16, remat, on 8 gloo ranks as 2 nodes × data 2
+                 × model 2 with the rules' specs: one round of 2 split
+                 steps and a fedavg/full sync on the f32 wire whose gate
+                 scores each node twice, through the split gate and
+                 through the whole-node gather (the two nodes' whole
+                 gathers one after the other), metrics and gates equal,
+                 each gate's peak above the memory allocated before it
+                 within its count from the layout and the validation
+                 rows' shapes (the whole-node gate's at least two nodes'
+                 slots), the gather, gradient and gate bytes against the
+                 layout's count exactly, flash launches as predicted, and
+                 step and sync walls and every rank's peak. One card shows
+                 no inter-card traffic: (a)/(b) are one rank's NCCL calls,
+                 (c)-(g) go through host memory;
  16j. examples  (run after ``host``, before ``gossip``) the twins of the
                  reference's examples through their ``main`` at the
                  reference's default sizes, the counts set to 0 before
@@ -1519,9 +1538,13 @@ FLASH_SWEEP = ((1, 4, 4, 128, 128, 64, True, 0, "float32"),
 # prefill of 256 patches + 1,792 tokens at batch 4 (a group of 7, the same
 # depth), seamless's bidirectional encoder (batch 4, 1024 frames),
 # minicpm-2b's engine prefills (36 heads, a group of 1) and its training
-# step (batch 4 at 256 tokens, no cache)
+# step (batch 4 at 256 tokens, no cache); granite-moe's split step of part
+# (g) (a data rank's 4 rows at 256 tokens, no cache) and its gate's score
+# (GOSSIP_G_VAL's 2 rows)
 FAMILY_FLASH = (("granite", 1, 24, 8, 2048, 2064, True),
                 ("granite_256", 1, 24, 8, 256, 2064, True),
+                ("granite_train", 4, 24, 8, 256, 256, True),
+                ("granite_gate", 2, 24, 8, 256, 256, True),
                 ("internvl2", 4, 14, 2, 2048, 2064, True),
                 ("seamless", 4, 16, 16, 1024, 1024, False),
                 ("minicpm", 1, 36, 36, 2048, 2064, True),
@@ -5263,25 +5286,101 @@ GOSSIP_F_TOL = {"bf16": (3 * 2 ** -8, 6e-4), "f32": (1e-4, 1e-4)}
 GOSSIP_F_LOSS_RTOL = (1e-5, 1e-3)
 
 
-def _gossip_f_bytes(shard, n_layers, rest_itemsize, remat=True):
-    """A split step's bytes by kind, counted from the shard layout: each
-    cut leaf's block of the unscanned unit once and of every layer once
-    (twice with remat: the recompute gathers again), 8-byte aligned, into
-    the all_gathers; the node's f32 values, a layer at a time, into the
-    data group's all_reduce. ``rest_itemsize``: the bytes of a value that
-    is not a wide (f32) leaf's."""
+def _axis_names(entry):
+    return () if entry is None else (
+        tuple(entry) if isinstance(entry, (tuple, list)) else (entry,))
+
+
+def _split_bytes(shard, n_layers, rest_itemsize, remat=True):
+    """A split step's bytes by kind and a split gate's a score, counted
+    from the shard layout and the specs: each cut leaf's block of the
+    unscanned unit once and of every layer once (twice with remat: the
+    recompute gathers again), 8-byte aligned, into the all_gathers
+    (``layer_gather``; a gate score's are ``gate_gather``); the gradient's
+    f32 blocks over the data group by how ``data`` cuts each leaf: within
+    a layer, a reduce_scatter that sends the other D − 1 data ranks their
+    blocks (``grad_reduce_scatter``); only on the layer axis, a reduce to
+    the layer's one data rank, which every other one sends its block
+    (``grad_reduce_owner``); not at all, an all_reduce of the rank's
+    block (``grad_reduce``), each for the layers the data group holds
+    (those of its model index where ``model`` cuts the layer axis).
+    ``rest_itemsize``: the bytes of a value that is not a wide (f32)
+    leaf's. Returns ``(step kinds, gate bytes a score)``. The CPU tests
+    hold the port's counts to it too (``tests/torch_gossip_world.py``)."""
     pad = lambda n: -(-n // 8) * 8
+    d = shard.sizes.get("data", 1)
+    m = shard.sizes.get("model", 1)
     unit = layer = 0
+    grads = {"grad_reduce_scatter": 0, "grad_reduce_owner": 0,
+             "grad_reduce": 0}
     for full, local in zip(shard.full.leaves, shard.local.leaves):
-        if full.shape == local.shape:
-            continue          # no axis cuts it: nothing is gathered
-        itemsize = 4 if full.wide else rest_itemsize
-        if full.path.startswith("layers."):
-            layer += pad(local.size // local.shape[0] * itemsize)
+        stacked = full.path.startswith("layers.")
+        block = local.size // (local.shape[0] if stacked else 1)
+        if full.shape != local.shape:   # a leaf no axis cuts moves nothing
+            itemsize = 4 if full.wide else rest_itemsize
+            if stacked:
+                layer += pad(block * itemsize)
+            else:
+                unit += pad(block * itemsize)
+        if d == 1:
+            continue
+        spec = tuple(shard.specs.get(full.path) or ())
+        cut = {k: _axis_names(e) for k, e in enumerate(spec)
+               if local.shape[full.ref_axes[k]]
+               != full.shape[full.ref_axes[k]]}
+        on_layer = cut.get(0, ()) if stacked else ()
+        within = {a for k, names in cut.items() for a in names
+                  if not (stacked and k == 0)}
+        depth = n_layers if stacked else 1
+        held = depth // m if "model" in on_layer else depth
+        if "data" in on_layer:
+            if on_layer != ("data",):
+                raise ValueError(f"{full.path}: {on_layer} on its layers")
+            grads["grad_reduce_owner"] += (depth - depth // d) * block * 4
+        elif "data" in within:
+            grads["grad_reduce_scatter"] += held * (d - 1) * block * 4
         else:
-            unit += pad(local.size * itemsize)
-    return {"layer_gather": unit + (2 if remat else 1) * n_layers * layer,
-            "grad_reduce": 4 * shard.full.n_values}
+            grads["grad_reduce"] += held * block * 4
+    step = {"layer_gather": unit + (2 if remat else 1) * n_layers * layer}
+    if d > 1:
+        step.update(grads)
+    return step, unit + n_layers * layer
+
+
+def _gate_meter(eng, log, split_and_whole=False, barrier=None):
+    """Wrap the engine's gate scores (``_gate_scores``, a call a score)
+    to record each call's peak allocated above the memory allocated before
+    it and its metrics into ``log``; with ``split_and_whole`` each call
+    scores through the split gate and then through the whole-node gather
+    (``barrier(fn)`` runs the latter, a node position at a time), and
+    returns the split gate's. Returns the unwrapped function."""
+    import torch
+    orig = eng._gate_scores
+
+    def measured(rows, val):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = orig(rows, val)
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    def scores(rows, val):
+        out, peak = measured(rows, val)
+        log.setdefault("split" if eng.split_gate else "whole", []).append(
+            dict(metric=out.float().cpu().tolist(), peak=peak))
+        if split_and_whole:
+            eng.split_gate = False
+            try:
+                whole, wpeak = barrier(lambda: measured(rows, val))
+            finally:
+                eng.split_gate = True
+            log.setdefault("whole", []).append(
+                dict(metric=whole.float().cpu().tolist(), peak=wpeak))
+        return out
+
+    eng._gate_scores = scores
+    return orig
 
 
 def _gossip_rank_f(rank, world, init, tmp, dev):
@@ -5328,8 +5427,6 @@ def _gossip_rank_f(rank, world, init, tmp, dev):
         layout = model.layout
         step = train.make_train_step(model, TrainConfig(
             lr=GOSSIP_F_LR, warmup_steps=0, max_steps=10, remat=True))
-        veval = torch.func.vmap(lambda p, v: 1.0 / (1.0 + model.loss_fn(
-            layout.unflatten(p), v, remat=False)[0]))
         streams = [make_lm_stream(64, GOSSIP_E_SEQ, lcfg.vocab_size, seed=i,
                                   topic_bias=1.0)
                    for i in range(GOSSIP_E_NODES)]
@@ -5341,23 +5438,31 @@ def _gossip_rank_f(rank, world, init, tmp, dev):
         vals = to_dev({k: np.stack([st[k][:8] for st in streams])
                        for k in streams[0]})
         p0 = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        # the gate's metric with its split form: the sharded world scores
+        # each node a layer at a time, the twin vmapped over its node
         sess = SwarmSession(
-            _gossip_e_cfg("f32"), step, lambda p, v: veval(p, v), params=p0,
-            opt_state=adamw_init(layout.parts(p0)), data_sizes=sizes,
-            layout=layout, device=dev, backend="gossip", mesh=mesh,
-            axis=axis,
+            _gossip_e_cfg("f32"), step, train.make_swarm_eval(model),
+            params=p0, opt_state=adamw_init(layout.parts(p0)),
+            data_sizes=sizes, layout=layout, device=dev, backend="gossip",
+            mesh=mesh, axis=axis,
             param_specs=param_specs(layout, mesh) if sharded else None)
         del p0
         eng = sess.engine
-        if eng.splits != sharded:
-            raise AssertionError(f"(f) rank {rank}: splits={eng.splits}")
+        if eng.splits != sharded or eng.split_gate != sharded:
+            raise AssertionError(f"(f) rank {rank}: splits={eng.splits}, "
+                                 f"split_gate={eng.split_gate}")
         node_of = mesh.rows.start
         out = {"coords": dict(mesh.coords), "node": node_of,
-               "slots": int(sess.state.params.shape[-1]), "rounds": []}
+               "slots": int(sess.state.params.shape[-1]),
+               "values": layout.n_values, "rounds": []}
         if sharded:
-            out["bytes_from_layout"] = _gossip_f_bytes(
+            out["bytes_from_layout"], gate = _split_bytes(
                 eng.shard, GOSSIP_E_LAYERS,
                 sess.state.params.element_size())
+            # a sync scores the params and the candidate of its one node
+            out["gate_bytes_from_layout"] = 2 * mesh.per * gate
+        gates_log = {}
+        _gate_meter(eng, gates_log)
         log_t = {"steps": []}
         sync, local_steps = eng.sync, eng.local_steps
 
@@ -5393,10 +5498,12 @@ def _gossip_rank_f(rank, world, init, tmp, dev):
             resident = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             log_t["steps"] = []
+            gates_log.clear()
             t0 = time.perf_counter()
             log = sess.round(batch, vals)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            sync_bytes = sess.counted_sync_bytes
             rec = dict(gates=log["gates"].tolist(),
                        loss=log["train"]["loss"][:, 0].float().cpu().tolist(),
                        wall=wall, sync_wall=log_t["sync"],
@@ -5404,7 +5511,13 @@ def _gossip_rank_f(rank, world, init, tmp, dev):
                        resident_before=resident,
                        resident_after=torch.cuda.memory_allocated(),
                        steps_peak=log_t["steps_peak"],
-                       step_bytes=sess.counted_step_bytes)
+                       step_bytes=sess.counted_step_bytes,
+                       gate_bytes={k: sync_bytes[k] for k in
+                                   ("gate_gather", "shard_gather")
+                                   if k in sync_bytes},
+                       gate_peaks=[g["peak"] for g in
+                                   gates_log.get("split", [])
+                                   + gates_log.get("whole", [])])
             node = eng.node_tensor(sess.state.params, kind=None)[0]
             if not sharded:
                 torch.save(node.cpu(), f"{tmp}/ftwin_params_r{r}_n{rank}.pt")
@@ -5480,10 +5593,15 @@ def _gossip_split(dev, smi, tmp, ftwin):
                         f"the twin's {want} (rtol {rtol})")
             counted = rec["rounds"][k]["step_bytes"]
             for kind, n in rec["bytes_from_layout"].items():
-                if counted.get(kind) != n:
+                if counted.get(kind, 0) != n:
                     raise AssertionError(f"(f) {kind}: counted "
                                          f"{counted.get(kind)}, the "
                                          f"layout's {n}")
+            gate = rec["rounds"][k]["gate_bytes"]
+            if gate != {"gate_gather": rec["gate_bytes_from_layout"]}:
+                raise AssertionError(f"(f) the split gate's bytes {gate}, "
+                                     "the layout's "
+                                     f"{rec['gate_bytes_from_layout']}")
             for kind, d in rec["rounds"][k].get("vs_twin", {}).items():
                 worst[kind]["max_abs"] = max(worst[kind]["max_abs"],
                                              d["max_abs"])
@@ -5529,8 +5647,20 @@ def _gossip_split(dev, smi, tmp, ftwin):
                          "twin": [gib(peak(rec)) for rec in twin]},
          steps_peak_ratio=[peak(rec) / peak(twin[rec["node"]])
                            for rec in shard],
-         step_bytes={"counted": shard[0]["rounds"][-1]["step_bytes"],
-                     "from_layout": shard[0]["bytes_from_layout"]},
+         step_bytes={"counted": [rec["rounds"][-1]["step_bytes"]
+                                 for rec in shard],
+                     "from_layout": [rec["bytes_from_layout"]
+                                     for rec in shard],
+                     "whole_unit_all_reduce": 4 * shard[0]["values"]},
+         gate_bytes={"counted": [rec["rounds"][-1]["gate_bytes"]
+                                 for rec in shard],
+                     "from_layout": [rec["gate_bytes_from_layout"]
+                                     for rec in shard]},
+         gate_peak_gib={"split": [[[gib(b) for b in rr["gate_peaks"]]
+                                   for rr in rec["rounds"]]
+                                  for rec in shard],
+                        "twin": [[[gib(b) for b in rr["gate_peaks"]]
+                                  for rr in rec["rounds"]] for rec in twin]},
          step_wall_s={"split": [[rr["step_walls"] for rr in rec["rounds"]]
                                 for rec in shard],
                       "twin": [[rr["step_walls"] for rr in rec["rounds"]]
@@ -5549,13 +5679,361 @@ def _gossip_split(dev, smi, tmp, ftwin):
               "host copies and TCP, not NVLink")
 
 
+# (g) the MoE family's split step and the split gate: granite-moe-3b-a800m
+# at its published widths, GOSSIP_G_LAYERS of 32 layers, bf16, remat, on 8
+# gloo ranks as (node, data, model) = GOSSIP_G_MESH with the rules' specs
+# (experts and the layer axis of o and the experts over model; q, k, v's
+# layer axis and the experts' and o's inner dims over data); one round of
+# GOSSIP_G_STEPS split steps at GOSSIP_G_BATCH rows (half a data rank) and
+# one fedavg/full sync on the f32 wire, its gate scored twice a score
+GOSSIP_G_ARCH = "granite-moe-3b-a800m"
+GOSSIP_G_LAYERS = 8
+GOSSIP_G_MESH = (2, 2, 2)
+GOSSIP_G_STEPS, GOSSIP_G_BATCH, GOSSIP_G_SEQ = 2, 8, 256
+#: the validation rows a node scores its gate on (rows, tokens)
+GOSSIP_G_VAL = (2, 256)
+GOSSIP_G_LR = 1e-4
+#: the head's bytes a logit beside the params: the logits as the head
+#: writes them, masked, in f32 and logsumexp's f32 temporary (2 + 2 + 4 + 4)
+GOSSIP_G_LOGIT_BYTES = 12
+
+
+def _moe_block_bytes(cfg, tokens):
+    """An MoE block's activations at ``tokens`` rows·positions under
+    ``no_grad`` (`repro_torch.models.moe.moe`), every one counted as if
+    alive at once: the T·k assignments' rows (the dispatched copy, the
+    gathered outputs, their gate-weighted copy, the f32 sum: 2 + 2 + 2 + 4
+    bytes a value), the [E, cap + 1, D] dispatch buffer and [E, cap, D]
+    outputs, and the experts' gate, up and their product [E, cap, F], all
+    in bf16. Bytes."""
+    k, e, d = cfg.top_k, cfg.n_experts, cfg.d_model
+    rows, seq = GOSSIP_G_VAL
+    cap = rows * int(max(1, round(seq * k / e * cfg.capacity_factor)))
+    return (tokens * k * d * (2 + 2 + 2 + 4) + 2 * e * (2 * cap + 1) * d
+            + 3 * 2 * e * cap * cfg.d_ff_expert)
+
+
+def _gossip_g_counts(shard, cfg):
+    """Each gate's peak allocated above the memory before it, counted
+    from the layout and the validation rows' shapes, as the largest of the
+    moments that hold the most. The split gate holds the whole unscanned
+    unit throughout and, beside it, at a layer's gather the layer that ran
+    (the loop still binds it), the rank's contribution and the gathered
+    layer; in a block one layer and the block's activations
+    (:func:`_moe_block_bytes`); at the head the last layer and the logits
+    (GOSSIP_G_LOGIT_BYTES each). The whole-node gate holds the shard
+    group's slots as the all_gather receives them and the node's slots
+    assembled, then the node and the head's or a block's bytes. Bytes."""
+    import numpy as np
+    from repro_torch.models.gather import NodeSplit
+
+    plan = NodeSplit(shard, None, None, dtype=_dtype(cfg.param_dtype))
+    whole = lambda cut: sum(int(np.prod(s)) * dt.itemsize
+                            for s, dt in zip(cut.shapes, cut.dtypes))
+    cut = plan.cuts["layers"]
+    unit, layer = whole(plan.unit), whole(cut)
+    rows, seq = GOSSIP_G_VAL
+    head = rows * seq * cfg.padded_vocab * GOSSIP_G_LOGIT_BYTES
+    block = _moe_block_bytes(cfg, rows * seq)
+    itemsize = _dtype(cfg.param_dtype).itemsize
+    node = shard.full.size * itemsize
+    return {"split": unit + max(plan.unit.nbytes,
+                                2 * layer + cut.nbytes,
+                                layer + max(head, block)),
+            "whole": max(shard.group_size * shard.local.size * itemsize
+                         + node, node + max(head, block)),
+            "two_nodes": 2 * node}
+
+
+def _dtype(name):
+    import torch
+    return getattr(torch, name)
+
+
+def _gossip_rank_g(rank, world, init, tmp, dev):
+    """(g) One gloo rank on ``cuda:0``: block ``(d, m)`` of node ``rank //
+    4`` of GOSSIP_G_MESH, granite-moe-3b-a800m at GOSSIP_G_LAYERS layers
+    from the seed-0 init, the TrainStep split and the `SwarmEval` split
+    gate; one round. At the sync each score runs through the split gate
+    and then through the whole-node gather (node positions one after the
+    other). Into ``tmp/g<r>.pt``: gates, both gates' metrics and peaks,
+    counted and layout bytes, walls, memory, launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.engine import gate_decisions
+    from repro_torch.core.session import SwarmSession
+    from repro_torch.data import make_lm_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_swarm_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.rules import param_specs
+
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    n, d, m = GOSSIP_G_MESH
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        mesh, axis = make_swarm_mesh(n, data=d, model=m)
+        cfg = dataclasses.replace(get_config(GOSSIP_G_ARCH),
+                                  n_layers=GOSSIP_G_LAYERS)
+        model = build_model(cfg)
+        layout = model.layout
+        step = train.make_train_step(model, TrainConfig(
+            lr=GOSSIP_G_LR, warmup_steps=0, max_steps=10, remat=True))
+        streams = [make_lm_stream(32, GOSSIP_G_SEQ, cfg.vocab_size, seed=i,
+                                  topic_bias=1.0) for i in range(n)]
+        rng = np.random.default_rng(0)
+
+        def to_dev(arrays):
+            return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+        vrows, vseq = GOSSIP_G_VAL
+        vals = to_dev({k: np.stack([st[k][-vrows:, :vseq] for st in streams])
+                       for k in streams[0]})
+        idx = [rng.integers(0, len(st["tokens"]) - vrows,
+                            (GOSSIP_G_STEPS, GOSSIP_G_BATCH))
+               for st in streams]
+        batch = to_dev({k: np.stack([st[k][i] for st, i in
+                                     zip(streams, idx)], axis=1)
+                        for k in streams[0]})
+        scfg = dataclasses.replace(_gossip_e_cfg("f32"),
+                                   sync_every=GOSSIP_G_STEPS)
+        # a session starts from the node whole (its params and AdamW
+        # moments tiled over the 2 nodes, about 27 GiB, then sharded):
+        # the ranks build theirs one at a time
+        sess = None
+        for r in range(world):
+            if r == rank:
+                p0 = model.init(torch.Generator(device=dev).manual_seed(0),
+                                dev)
+                sess = SwarmSession(
+                    scfg, step, train.make_swarm_eval(model), params=p0,
+                    opt_state=adamw_init(layout.parts(p0)),
+                    data_sizes=[float(len(st["tokens"])) for st in streams],
+                    layout=layout, device=dev, backend="gossip", mesh=mesh,
+                    axis=axis, param_specs=param_specs(layout, mesh))
+                del p0
+                torch.cuda.empty_cache()
+            dist.barrier()
+        eng = sess.engine
+        if not (eng.splits and eng.split_gate):
+            raise AssertionError(f"(g) rank {rank}: splits={eng.splits}, "
+                                 f"split_gate={eng.split_gate}")
+        step_count, gate = _split_bytes(eng.shard, GOSSIP_G_LAYERS,
+                                        sess.state.params.element_size())
+        position = mesh.rows.start
+
+        def by_position(fn):
+            # the whole-node gathers a node position at a time, every rank's
+            # cached blocks released first: the card holds the four ranks
+            # of one node's gathered slots at once
+            res = None
+            for q in range(n):
+                torch.cuda.empty_cache()
+                dist.barrier()
+                if q == position:
+                    res = fn()
+            torch.cuda.empty_cache()
+            dist.barrier()
+            return res
+
+        gates_log, log_t = {}, {"steps": []}
+        _gate_meter(eng, gates_log, split_and_whole=True,
+                    barrier=by_position)
+        sync, local_steps = eng.sync, eng.local_steps
+
+        def timed_sync(*a, **kw):
+            torch.cuda.synchronize()
+            log_t["steps_peak"] = torch.cuda.max_memory_allocated()
+            log_t["sync_resident"] = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            res = sync(*a, **kw)
+            torch.cuda.synchronize()
+            log_t["sync"] = time.perf_counter() - t0
+            return res
+
+        def timed_steps(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = local_steps(*a, **kw)
+            torch.cuda.synchronize()
+            log_t["steps"].append(time.perf_counter() - t0)
+            log_t.setdefault("step_bytes", []).append(
+                dict(sess.engine.step_bytes))
+            return res
+
+        eng.sync, eng.local_steps = timed_sync, timed_steps
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        log = sess.round(batch, vals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        eng.sync, eng.local_steps = sync, local_steps
+        split, whole = gates_log["split"], gates_log["whole"]
+        mine = torch.ones(mesh.per, dtype=torch.bool)
+        thr = scfg.val_threshold
+
+        def bits(rec):
+            ml, mm = (torch.tensor(r["metric"]) for r in rec)
+            return (gate_decisions(mm, ml, thr) & mine).tolist()
+
+        sync_bytes = sess.counted_sync_bytes
+        out = dict(
+            coords=dict(mesh.coords), node=position,
+            gates=log["gates"].tolist(),
+            gates_split=bits(split), gates_whole=bits(whole),
+            metric_split=[r["metric"] for r in split],
+            metric_whole=[r["metric"] for r in whole],
+            peak_split=[r["peak"] for r in split],
+            peak_whole=[r["peak"] for r in whole],
+            counts=_gossip_g_counts(eng.shard, cfg),
+            loss=log["train"]["loss"][:, 0].float().cpu().tolist(),
+            step_bytes=log_t["step_bytes"], step_from_layout=step_count,
+            gate_bytes={k: sync_bytes.get(k) for k in
+                        ("gate_gather", "shard_gather")},
+            gate_from_layout=2 * mesh.per * gate,
+            # the whole-node gate: two all_gathers of the rank's slot rows
+            shard_from_layout=2 * sess.state.params.numel()
+            * sess.state.params.element_size(),
+            whole_unit_grad_reduce=4 * layout.n_values,
+            wall=wall, step_walls=log_t["steps"], sync_wall=log_t["sync"],
+            resident=resident, sync_resident=log_t["sync_resident"],
+            steps_peak=log_t["steps_peak"],
+            peak=torch.cuda.max_memory_allocated(),
+            reserved=torch.cuda.max_memory_reserved(),
+            local_values=eng.shard.local.n_values,
+            node_values=layout.n_values, launches=launches)
+        torch.save(out, f"{tmp}/g{rank}.pt")
+        del sess, eng, batch, vals
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def _gossip_moe(dev, smi, tmp):
+    """(g) The 8 ranks of GOSSIP_G_MESH on the card, alone. Raises on any
+    failed check."""
+    import math
+    n, d, m = GOSSIP_G_MESH
+    with _expandable_segments():
+        wall, ranks = _gossip_spawn(_gossip_rank_g, tmp, dev, "g",
+                                    world=n * d * m)
+    # flash once a layer in a step's forward and again in remat's
+    # recompute, and once a layer a gate score: the params and the
+    # candidate, each through the split gate and the whole-node gather
+    predicted = {"flash_attention": GOSSIP_G_LAYERS
+                 * (2 * GOSSIP_G_STEPS + 2 * 2)}
+    gates = {tuple(rec["gates"]) for rec in ranks}
+    if len(gates) != 1:
+        raise AssertionError(f"(g) gates {gates}")
+    for r, rec in enumerate(ranks):
+        if rec["launches"] != predicted:
+            raise AssertionError(f"(g) rank {r}: launches "
+                                 f"{rec['launches']}, predicted {predicted}")
+        if rec["metric_split"] != rec["metric_whole"]:
+            # vmap over one node and the plain call may differ in a last
+            # bit: hold them within 1e-6 relative
+            for a, b in zip(rec["metric_split"], rec["metric_whole"]):
+                for x, y in zip(a, b):
+                    if abs(x - y) > 1e-6 * abs(y):
+                        raise AssertionError(
+                            f"(g) rank {r}: split gate {rec['metric_split']}"
+                            f", whole-node {rec['metric_whole']}")
+        mine = rec["gates"][rec["node"]:rec["node"] + 1]
+        if not rec["gates_split"] == rec["gates_whole"] == mine:
+            raise AssertionError(
+                f"(g) rank {r}: gates split {rec['gates_split']}, whole "
+                f"{rec['gates_whole']}, the session's {mine}")
+        for sb in rec["step_bytes"]:
+            for kind, nbytes in rec["step_from_layout"].items():
+                if sb.get(kind, 0) != nbytes:
+                    raise AssertionError(f"(g) rank {r} {kind}: counted "
+                                         f"{sb.get(kind)}, the layout's "
+                                         f"{nbytes}")
+        want = {"gate_gather": rec["gate_from_layout"],
+                "shard_gather": rec["shard_from_layout"]}
+        if rec["gate_bytes"] != want:
+            raise AssertionError(f"(g) rank {r}: gate bytes "
+                                 f"{rec['gate_bytes']}, the layout's {want}")
+        counts = rec["counts"]
+        for kind in ("split", "whole"):
+            if max(rec[f"peak_{kind}"]) > counts[kind]:
+                raise AssertionError(
+                    f"(g) rank {r}: the {kind} gate's peak "
+                    f"{rec[f'peak_{kind}']} above its count {counts[kind]}")
+        if min(rec["peak_whole"]) < counts["two_nodes"]:
+            raise AssertionError(
+                f"(g) rank {r}: the whole-node gate's peak "
+                f"{rec['peak_whole']} below two nodes' slots "
+                f"{counts['two_nodes']}")
+        for loss in rec["loss"]:
+            if not math.isfinite(loss):
+                raise AssertionError(f"(g) rank {r}: loss {rec['loss']}")
+    gib = lambda b: b / 2 ** 30
+    first = ranks[0]
+    emit("gossip_g", card=smi, arch=GOSSIP_G_ARCH, layers=GOSSIP_G_LAYERS,
+         backend="gloo", device=f"{dev} (all ranks)",
+         mesh=dict(zip(("node", "data", "model"), GOSSIP_G_MESH)),
+         batch=GOSSIP_G_BATCH, rows_per_data_rank=GOSSIP_G_BATCH // d,
+         seq=GOSSIP_G_SEQ, steps=GOSSIP_G_STEPS, val=GOSSIP_G_VAL,
+         remat=True, lr=GOSSIP_G_LR, spawn_wall_s=wall,
+         gates=first["gates"],
+         loss=[rec["loss"] for rec in ranks],
+         metrics={"split": [rec["metric_split"] for rec in ranks],
+                  "whole": [rec["metric_whole"] for rec in ranks],
+                  "bit_equal": all(rec["metric_split"] == rec["metric_whole"]
+                                   for rec in ranks)},
+         gate_peak_gib={k: [[gib(b) for b in rec[f"peak_{k}"]]
+                            for rec in ranks] for k in ("split", "whole")},
+         gate_count_gib={k: gib(first["counts"][k])
+                         for k in ("split", "whole", "two_nodes")},
+         step_bytes={"counted": [rec["step_bytes"][-1] for rec in ranks],
+                     "from_layout": [rec["step_from_layout"]
+                                     for rec in ranks],
+                     "grad_sum": [sum(v for k, v in
+                                      rec["step_bytes"][-1].items()
+                                      if k.startswith("grad_"))
+                                  for rec in ranks],
+                     "whole_unit_all_reduce": first["whole_unit_grad_reduce"]},
+         gate_bytes={"counted": [rec["gate_bytes"] for rec in ranks],
+                     "split_from_layout": first["gate_from_layout"],
+                     "whole_from_layout": first["shard_from_layout"]},
+         values={"local": [rec["local_values"] for rec in ranks],
+                 "node": first["node_values"]},
+         step_wall_s=[rec["step_walls"] for rec in ranks],
+         sync_wall_s=[rec["sync_wall"] for rec in ranks],
+         round_wall_s=[rec["wall"] for rec in ranks],
+         resident_gib=[gib(rec["resident"]) for rec in ranks],
+         sync_resident_gib=[gib(rec["sync_resident"]) for rec in ranks],
+         steps_peak_gib=[gib(rec["steps_peak"]) for rec in ranks],
+         peak_gib=[gib(rec["peak"]) for rec in ranks],
+         reserved_gib=[gib(rec["reserved"]) for rec in ranks],
+         launches=first["launches"], predicted=predicted,
+         note="8 gloo ranks on one card: the collectives go through host "
+              "memory and TCP, not NVLink; the sync's walls hold both "
+              "gates, the whole-node one a node position at a time")
+
+
 def phase_gossip(dev, smi):
     """The gossip backend (`repro_torch.core.gossip`, ``SwarmSession(...,
     backend="gossip")``): (a) and (b) on a world of one NCCL rank in this
     process, then (c) on 4 gloo ranks spawned on the one card together
     with (d) on 4 more as a two-level mesh, (e) inner sharding on 4
-    together with an unsharded twin on 2 and (f)'s twin on 2, and last
-    (f) the split step on 4."""
+    together with an unsharded twin on 2 and (f)'s twin on 2, then (f)
+    the split step on 4, and last (g) granite-moe-3b split on 8."""
     import gc
     import tempfile
     import torch
@@ -5605,6 +6083,11 @@ def phase_gossip(dev, smi):
     t0 = time.perf_counter()
     _gossip_split(dev, smi, tmp, ftwin)
     TIMERS["gossip_f_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _gossip_moe(dev, smi, tmp)
+    TIMERS["gossip_g_s"] = time.perf_counter() - t0
 
 
 def main() -> int:

@@ -494,7 +494,16 @@ class LayerCut:
     assembles the whole layer from every rank's contribution, each block
     once, from a rank whose span holds ``i``; :meth:`shard_of` takes a
     whole-layer tensor to this rank's block. A leaf's bytes travel as
-    they are, so a gathered layer is the node's, bit for bit."""
+    they are, so a gathered layer is the node's, bit for bit.
+
+    The way back (:meth:`reduce`): the ranks of one model index and every
+    data index (the node's **data group**) computed their shares of the
+    same layer's cotangents, and each keeps only its blocks of their sum.
+    :meth:`routes` sorts a layer's leaves by how the ``data`` axis cuts
+    them within that group: a dimension of the layer (each data rank a
+    block of its own: one reduce_scatter), only the layer axis (one data
+    rank holds the layer: a reduce to it), or nothing (every data rank the
+    same block: an all_reduce of that block)."""
 
     def __init__(self, shard: ShardLayout, paths: Sequence[str],
                  stacked: bool, dtypes: Dict[str, torch.dtype]):
@@ -512,6 +521,14 @@ class LayerCut:
         self.group_size = shard.group_size
         self._plans = [self._plan(shard, leaves, shard.coords_of(g))
                        for g in range(shard.group_size)]
+        # the shard-group indices of this rank's data group, by data index
+        own = {a: c for a, c in shard.coords.items() if a != "data"}
+        self._data_group = sorted(
+            (g for g in range(shard.group_size)
+             if all(shard.coords_of(g).get(a, 0) == c
+                    for a, c in own.items())),
+            key=lambda g: shard.coords_of(g).get("data", 0))
+        self._routes = {}
         self.plan = self._plan(shard, leaves, shard.coords)
         #: the leaves a cut moves (the others are whole on every rank)
         self.gathered = tuple(k for k, (span, cuts, _) in enumerate(self.plan)
@@ -572,12 +589,14 @@ class LayerCut:
                 buf[off:off + b.numel()] = b
         return buf
 
-    def assemble(self, parts: torch.Tensor, i: int, local):
-        """Every rank's contribution ``[G, nbytes]`` (group order) → the
-        whole layer ``i``, one tensor a leaf (a leaf no axis cuts is this
-        rank's ``local`` tensor, detached)."""
+    def assemble(self, parts: torch.Tensor, i: int, local, device=None):
+        """Every rank's contribution ``[G, nbytes]`` (group order, on any
+        device) → the whole layer ``i`` on ``device`` (None: ``parts``'),
+        one tensor a leaf (a leaf no axis cuts is this rank's ``local``
+        tensor, detached); each block is copied once."""
+        device = parts.device if device is None else device
         out = [local[k].detach() if k not in self.offsets
-               else parts.new_empty(shape, dtype=dtype)
+               else torch.empty(shape, dtype=dtype, device=device)
                for k, (shape, dtype) in enumerate(zip(self.shapes,
                                                       self.dtypes))]
         seen = {k: set() for k in self.gathered}
@@ -598,19 +617,102 @@ class LayerCut:
         """The whole layer ``i`` from this rank's blocks ``local`` (see
         :meth:`contribution`): one all_gather over the shard group
         ``view`` (``kind`` the byte count's name), none when no leaf is
-        cut."""
+        cut. On gloo the gathered contributions stay in host memory and
+        only the blocks the layer keeps go to ``device``."""
         from repro_torch.core import gossip
         parts = None
         if self.nbytes:
             parts = gossip.all_gather(view, self.contribution(
-                local, i, device), kind=kind).view(self.group_size,
-                                                    self.nbytes)
+                local, i, device), kind=kind, staged=True).view(
+                    self.group_size, self.nbytes)
         else:
             parts = torch.empty((self.group_size, 0), dtype=torch.uint8,
                                 device=device)
-        return self.assemble(parts, i, local)
+        return self.assemble(parts, i, local, device)
 
     def shard_of(self, k: int, whole: torch.Tensor) -> torch.Tensor:
         """This rank's block of a whole-layer tensor of leaf ``k`` (a
         view)."""
         return ShardLayout._block(whole, self.plan[k][1], 0)
+
+    def routes(self, i: int):
+        """How layer ``i``'s cotangents reach the blocks this rank's data
+        group keeps: ``(scatter, owners, whole)``. ``scatter`` the leaves
+        of which every data rank holds a block of its own, ``owners`` ``{d:
+        leaves}`` those of which only data rank ``d`` holds layer ``i``,
+        ``whole`` those of which every data rank holds the same block; a
+        leaf none of them holds is in none (its cotangent is dropped)."""
+        if i in self._routes:
+            return self._routes[i]
+        scatter, owners, whole = [], {}, []
+        for k in range(len(self.paths)):
+            held = [(d, self._plans[g][k][1])
+                    for d, g in enumerate(self._data_group)
+                    if self._holds(self._plans[g][k][0], i)]
+            if not held:
+                continue
+            cuts = {c for _, c in held}
+            if len(held) == 1:
+                owners.setdefault(held[0][0], []).append(k)
+            elif len(held) == len(self._data_group) and len(cuts) == 1:
+                whole.append(k)
+            elif len(held) == len(self._data_group) == len(cuts):
+                scatter.append(k)
+            else:
+                raise ValueError(f"{self.paths[k]}: {len(held)} of "
+                                 f"{len(self._data_group)} data ranks hold "
+                                 f"layer {i} in {len(cuts)} blocks")
+        self._routes[i] = (scatter, owners, whole)
+        return self._routes[i]
+
+    def reduce(self, cots, i: int, view, device) -> Dict[int, torch.Tensor]:
+        """The sums over the data group ``view`` of the whole-layer
+        cotangents ``cots`` (one a leaf, every data rank's), cut to this
+        rank's blocks: ``{k: f32 block}`` for each leaf whose layer ``i``
+        it holds. Each rank hands over only blocks the group keeps (see
+        :meth:`routes`): the leaves of ``scatter`` as rank-ordered
+        segments of one f32 buffer, one reduce_scatter
+        (``grad_reduce_scatter``); each owner's leaves in one buffer, one
+        reduce to it (``grad_reduce_owner``); the ``whole`` leaves' blocks
+        in one all_reduce (``grad_reduce``)."""
+        from repro_torch.core import gossip
+        scatter, owners, whole = self.routes(i)
+        me = view.rank
+        out = {}
+
+        def blocks(ks, g):
+            return [ShardLayout._block(cots[k], self._plans[g][k][1], 0)
+                    for k in ks]
+
+        def flat(parts):
+            return torch.cat([t.reshape(-1).to(torch.float32)
+                              for t in parts])
+
+        def keep(ks, summed):
+            off = 0
+            for k in ks:
+                shape = self.plan[k][2]
+                n = self._numel(k)
+                out[k] = summed[off:off + n].view(shape)
+                off += n
+
+        if scatter:
+            segs = [flat(blocks(scatter, g)) for g in self._data_group]
+            width = max(t.numel() for t in segs)
+            buf = torch.zeros((len(segs), width), dtype=torch.float32,
+                              device=device)
+            for row, t in zip(buf, segs):
+                row[:t.numel()] = t
+            del segs
+            keep(scatter, gossip.reduce_scatter(view, buf,
+                                                kind="grad_reduce_scatter"))
+        for d in sorted(owners):
+            ks = owners[d]
+            summed = gossip.reduce(view, flat(blocks(
+                ks, self._data_group[d])), d, kind="grad_reduce_owner")
+            if d == me:
+                keep(ks, summed)
+        if whole:
+            keep(whole, gossip.all_reduce(view, flat(blocks(
+                whole, self._data_group[me])), kind="grad_reduce"))
+        return out

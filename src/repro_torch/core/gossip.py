@@ -76,6 +76,19 @@ under ``control`` for the engine's gate bookkeeping, and to
 mesh and a two-level mesh's node group, ``cross`` on its joint world (a
 flat schedule there spans the pods, as the cost model prices it) and its
 pod group. :func:`sync_bytes` sums them.
+
+On an inner-sharded mesh the caller names the kind: ``shard_gather`` (a
+node's shards gathered whole), ``layer_gather`` (a split step's layer,
+`repro_torch.core.flat.LayerCut`), ``gate_gather`` (the same gathers of
+the split gate), ``step_control`` (a split step's norms and means) and
+the gradient's three kinds over the data group
+(`repro_torch.models.gather`): ``grad_reduce`` for an :func:`all_reduce`
+(the whole tensor, as always), ``grad_reduce_scatter`` for a
+:func:`reduce_scatter` and ``grad_reduce_owner`` for a :func:`reduce`.
+These two count only what leaves the rank: a reduce_scatter the
+``world − 1`` segments of the other ranks (its own stays), a reduce the
+tensor on every rank but the owner, and nothing on the owner (it
+receives the sum).
 """
 from __future__ import annotations
 
@@ -130,16 +143,45 @@ def all_reduce(mesh, t: torch.Tensor, op: str = "sum",
     return out
 
 
-def all_gather(mesh, t: torch.Tensor, kind: str = "all_gather"
-               ) -> torch.Tensor:
+def all_gather(mesh, t: torch.Tensor, kind: str = "all_gather",
+               staged: bool = False) -> torch.Tensor:
     """Every rank's ``t`` [rows, ...] concatenated in rank order
-    [world·rows, ...], on ``t``'s device."""
+    [world·rows, ...], on ``t``'s device; with ``staged`` where the
+    collective wrote it (gloo: host memory), for a caller that copies
+    only the blocks it keeps to the device."""
     src = _staged(mesh, t)
     _count(mesh, kind, src)
     w = mesh.world_size
     out = src.new_empty((w * src.shape[0],) + tuple(src.shape[1:]))
     dist.all_gather(list(out.chunk(w)), src, group=mesh.group)
+    return out if staged else out.to(t.device)
+
+
+def reduce_scatter(mesh, t: torch.Tensor, kind: str = "reduce_scatter"
+                   ) -> torch.Tensor:
+    """Row ``r`` of ``t`` [world, n] summed over the ranks, on rank ``r``:
+    a new tensor [n] on ``t``'s device. Counts the rows of the other ranks
+    (what leaves this one)."""
+    src = _staged(mesh, t)
+    _count(mesh, kind, *(row for r, row in enumerate(src)
+                         if r != mesh.rank))
+    out = src.new_empty(src.shape[1:])
+    dist.reduce_scatter(out, list(src.unbind(0)), group=mesh.group)
     return out.to(t.device)
+
+
+def reduce(mesh, t: torch.Tensor, owner: int, kind: str = "reduce"):
+    """Σ of ``t`` over the ranks, on the rank ``owner`` (its index in the
+    group): a new tensor on ``t``'s device there, None on every other
+    rank. Counts ``t`` on every rank but the owner."""
+    src = _staged(mesh, t)
+    if src is t:
+        src = t.clone()     # the collective writes its buffer on every rank
+    if mesh.rank != owner:
+        _count(mesh, kind, src)
+    dist.reduce(src, _peer(mesh, owner), op=dist.ReduceOp.SUM,
+                group=mesh.group)
+    return src.to(t.device) if mesh.rank == owner else None
 
 
 def all_to_all(mesh, t: torch.Tensor) -> torch.Tensor:
@@ -191,7 +233,8 @@ def sync_bytes(mesh) -> dict:
     link_counts``) by collective, by link class, and by collective within
     each link class (``by_link_collective``), and the gate bookkeeping's
     ``control`` bytes apart; on an inner-sharded mesh also the gate's
-    gathers of a node's shards (``shard_gather``)."""
+    gathers: a node's shards (``shard_gather``), or a split gate's layers
+    (``gate_gather``)."""
     def payload(kinds):
         return {k: kinds[k] for k in PAYLOAD_KINDS if k in kinds}
 
@@ -203,8 +246,9 @@ def sync_bytes(mesh) -> dict:
     out = {"by_collective": payload(mesh.counts), "by_link_class": by_link,
            "by_link_collective": per_link,
            "control": mesh.counts.get("control", 0)}
-    if "shard_gather" in mesh.counts:
-        out["shard_gather"] = mesh.counts["shard_gather"]
+    for kind in ("shard_gather", "gate_gather"):
+        if kind in mesh.counts:
+            out[kind] = mesh.counts[kind]
     return out
 
 

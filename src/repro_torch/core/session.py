@@ -350,7 +350,8 @@ class SwarmSession:
     @property
     def counted_step_bytes(self) -> Optional[dict]:
         """A split step's bytes by collective, of this rank's last step
-        (`core.engine.SwarmEngine.step_bytes`: ``layer_gather``,
+        (`core.engine.SwarmEngine.step_bytes`: ``layer_gather``, the
+        gradient's ``grad_reduce_scatter``, ``grad_reduce_owner`` and
         ``grad_reduce``, ``step_control``); None without one."""
         return None if self.backend == "host" else self.engine.step_bytes
 

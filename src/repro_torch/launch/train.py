@@ -24,6 +24,9 @@ specs (`repro_torch.launch.mesh.make_swarm_mesh(n, data=D, model=M)`) it
 runs split (:meth:`TrainStep.split`): on the rank's shard of its node, the
 batch's rows over the node's data group, each layer gathered just in time
 (`repro_torch.models.gather`), the gradient and AdamW on the shard.
+:func:`make_swarm_eval` returns a :class:`SwarmEval`, the session's gate
+metric in the same form: on such a session the gate scores each node
+through :meth:`SwarmEval.split`, a layer at a time, never the node whole.
 
     python -m repro_torch.launch.train --arch mamba2-370m --smoke \\
         --swarm-nodes 4 --sync-every 2 --steps 4 --batch 2 --seq 32 \\
@@ -180,6 +183,49 @@ def make_train_step(model: Model, tc: TrainConfig) -> TrainStep:
     step]) -> (params, opt_state, metrics)``, and its :meth:`TrainStep.
     split` on a rank's shard (a gossip session with inner specs runs it)."""
     return TrainStep(model, tc)
+
+
+class SwarmEval:
+    """The swarm gate's metric, ``1 / (1 + loss)`` of each node's params
+    on its validation rows: ``(stacked [N, P], val) -> [N]`` (vmapped over
+    the nodes). A session takes it as its ``eval_fn`` directly; on a
+    gossip session with inner specs it scores through :meth:`split`."""
+
+    def __init__(self, model: Model):
+        self.model = model
+        layout = model.layout
+        self._veval = torch.func.vmap(lambda p, v: 1.0 / (1.0 + model.loss_fn(
+            layout.unflatten(p), v, remat=False)[0]))
+
+    def __call__(self, stacked, val):
+        return self._veval(stacked, val)
+
+    def split(self, params, val, *, shard, mesh):
+        """One node's metric from this rank's shard ``params`` [P_local]
+        (``shard`` its :class:`~repro_torch.core.flat.ShardLayout`, ``mesh``
+        the inner-sharded `repro_torch.launch.mesh.SwarmMesh`) and the
+        node's whole validation rows ``val``: the forward of
+        :meth:`TrainStep.split` without autograd, each layer gathered over
+        the shard group just before its block (``gate_gather`` bytes;
+        the unscanned unit and at most two layers whole at once), the
+        rows whole on every rank. The same bytes through the same ops as
+        the whole node's: every rank of the node reaches the node's
+        metric."""
+        from repro_torch.models.gather import NodeSplit
+
+        plan = NodeSplit(shard, mesh.shard_view, None, dtype=params.dtype,
+                         device=params.device, kind="gate_gather")
+        with torch.no_grad():
+            loss, _ = self.model.loss_fn(shard.local.unflatten(params), val,
+                                         remat=False, split=plan)
+        return 1.0 / (1.0 + loss)
+
+
+def make_swarm_eval(model: Model) -> SwarmEval:
+    """The gate's :class:`SwarmEval` of ``model``: ``(stacked [N, P], val)
+    -> [N]``, and :meth:`SwarmEval.split` on a rank's shard (a gossip
+    session with inner specs scores through it)."""
+    return SwarmEval(model)
 
 
 def make_eval_step(model: Model) -> Callable:
@@ -380,12 +426,7 @@ def run(args) -> dict:
                                                        device))
               for i in range(n_nodes)]
 
-        veval = torch.func.vmap(lambda p, v: 1.0 / (1.0 + smodel.loss_fn(
-            layout.unflatten(p), v, remat=False)[0]))
-
-        def eval_fn(params, val):
-            return veval(params, val)
-
+        eval_fn = make_swarm_eval(smodel)
         scfg = SwarmConfig(n_nodes=n_nodes, sync_every=args.sync_every,
                            topology=args.topology, merge=args.merge,
                            lora_only=args.lora, wire_dtype=args.wire_dtype)

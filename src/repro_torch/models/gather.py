@@ -15,13 +15,25 @@ its dry-run: batch over ``data``, params and optimizer fully sharded):
   gathered over the node's shard group just before its block runs
   (:class:`LayerShards`), by a :class:`~repro_torch.core.flat.LayerCut`;
 * the gather is an autograd Function (:class:`_Gather`): its backward
-  sums the whole layer's cotangent over the node's **data group** only
-  (the model ranks of one data index computed the same cotangent), in f32,
-  divides it by ``D`` (the node's loss is the mean of its data ranks',
-  `repro_torch.sharding.batch`), rounds it once to each leaf's dtype and
-  keeps the rank's block. With one data rank (``D = 1``, or a batch that
-  does not split, which every data rank then computes whole) it only cuts
-  the block out: the gradient is the whole node's, bit for bit.
+  takes the whole layer's cotangent to the rank's blocks, summed over the
+  node's **data group** only (the model ranks of one data index computed
+  the same cotangent), in f32, divided by ``D`` (the node's loss is the
+  mean of its data ranks', `repro_torch.sharding.batch`) and rounded once
+  to each leaf's dtype. Each rank hands over only the blocks its data
+  group keeps (`repro_torch.core.flat.LayerCut.reduce`: a reduce_scatter
+  of the blocks the data axis cuts, a reduce to the one data rank that
+  holds a layer the data axis cuts on the layer axis, an all_reduce of a
+  block every data rank holds), never a whole layer. With ``D = 2``
+  every reduced element is ``a + b`` whichever collective carries it,
+  as when the whole cotangent was all_reduced and then cut. With one data
+  rank (``D = 1``, or a batch that does not split, which every data rank
+  then computes whole) it only cuts the block out: the gradient is the
+  whole node's, bit for bit.
+
+Without autograd (the split gate, `repro_torch.launch.train.SwarmEval.
+split`, under ``torch.no_grad``) :meth:`LayerShards.gather` assembles the
+unit plainly, so a rank that holds no block of a layer still joins its
+all_gather; the gathers then count as ``gate_gather``.
 
 With ``remat=True`` the block's checkpoint (`repro_torch.models.remat`)
 takes the :class:`LayerShards` and gathers the layer inside: the whole
@@ -102,7 +114,10 @@ class LayerShards:
         return self.split.reduce(self.cut, cots, self.i, self.local)
 
     def gather(self) -> dict:
-        """The whole unit as a nested dict, through :class:`_Gather`."""
+        """The whole unit as a nested dict, through :class:`_Gather`
+        (with grad mode off, :meth:`assemble` plainly)."""
+        if not torch.is_grad_enabled():
+            return self.tree(self.assemble())
         held = self.held()
         if not held:
             # its backward is collective: every rank must reach it
@@ -133,20 +148,23 @@ class _Gather(torch.autograd.Function):
 class NodeSplit:
     """How a rank's shard of a node runs the node's step: the shard layout
     ``shard`` (its :class:`~repro_torch.core.flat.ShardLayout`), the
-    node's shard group ``shard_view`` (the gathers), the rank's data group
-    ``data_view`` (the gradients' sum; None: the rank's rows are the
-    node's whole batch) and the dtype of the params' 16-bit (or f32) rest.
+    node's shard group ``shard_view`` (the gathers, counted as ``kind``),
+    the rank's data group ``data_view`` (the gradients' sum; None: the
+    rank's rows are the node's whole batch) and the dtype of the params'
+    16-bit (or f32) rest.
 
     A model's ``loss_fn(views, batch, split=...)`` calls :meth:`tree` on
     the rank's local leaf views, and its forward loops call
     :meth:`layers` on each stacked subtree."""
 
     def __init__(self, shard, shard_view, data_view=None, *,
-                 dtype: torch.dtype = torch.float32, device="cpu"):
+                 dtype: torch.dtype = torch.float32, device="cpu",
+                 kind: str = "layer_gather"):
         self.shard = shard
         self.device = torch.device(device)
         self.shard_view = shard_view
         self.data_view = data_view
+        self.kind = kind
         full = shard.full
         dtypes = {lf.path: torch.float32 if lf.wide else dtype
                   for lf in full.leaves}
@@ -163,26 +181,22 @@ class NodeSplit:
 
     def gather(self, cut, local, i: int):
         """The whole unit ``i`` of ``cut`` from the rank's blocks."""
-        return cut.gather(local, i, self.shard_view, self.device)
+        return cut.gather(local, i, self.shard_view, self.device,
+                          kind=self.kind)
 
     def reduce(self, cut, cots, i: int, local):
         """The held blocks' gradients from the whole unit's cotangents."""
         cots = [torch.zeros(shape, dtype=dtype, device=self.device)
                 if c is None else c
                 for c, shape, dtype in zip(cots, cut.shapes, cut.dtypes)]
-        if self.data_view is not None:
-            from repro_torch.core import gossip
-            flat = torch.cat([c.reshape(-1).to(torch.float32)
-                              for c in cots])
-            flat = gossip.all_reduce(self.data_view, flat,
-                                     kind="grad_reduce")
-            flat.div_(self.data_view.world_size)
-            sizes = [c.numel() for c in cots]
-            cots = [part.view(c.shape) for part, c in
-                    zip(flat.split(sizes), cots)]
-        return [cut.shard_of(k, c).to(cut.dtypes[k]).contiguous()
-                for k, (c, t) in enumerate(zip(cots, local))
-                if t is not None]
+        if self.data_view is None:
+            return [cut.shard_of(k, c).to(cut.dtypes[k]).contiguous()
+                    for k, (c, t) in enumerate(zip(cots, local))
+                    if t is not None]
+        summed = cut.reduce(cots, i, self.data_view, self.device)
+        d = self.data_view.world_size
+        return [summed[k].div_(d).to(cut.dtypes[k]).contiguous()
+                for k, t in enumerate(local) if t is not None]
 
     # -- what the models call ----------------------------------------------
 

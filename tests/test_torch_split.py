@@ -20,7 +20,9 @@ Worlds of `tests/torch_gossip_world.py`, gloo on the CPU:
   * ``split_twin`` (2 unsharded ranks), ``split_d2`` (2, 2, 1) and
     ``split_d2m2`` (2, 2, 2): the ssm, hybrid and moe smoke sessions
     (remat on: the MoE's batch means average over the data group in the
-    recompute too).
+    recompute too), and on the two split worlds the data group's reduce
+    of seeded cotangents of every unit onto the shard against an
+    all_reduce of the whole cotangent then cut.
 
 Held: the gather's forward bit for bit, its gradient within 1e-6 of the
 data group's cotangents over D; with one data rank (or rows that do not
@@ -28,7 +30,8 @@ split) the whole node's step bit for bit; with two, the unsharded
 session's gates and its params within the train-parity tolerances (rtol
 1e-4, atol 1e-4 in f32), the JAX package's loss within rtol 1e-5 and
 params within rtol 1e-4, atol 1e-4; no whole node's gradient or moments,
-and with remat at most two whole layers alive."""
+and with remat at most two whole layers alive; at D = 2 the reduce onto
+the shard bit for bit, and its bytes by kind as the layout counts them."""
 import os
 import subprocess
 import sys
@@ -361,12 +364,26 @@ def test_two_data_ranks_match_the_unsharded_session(worlds, shape, fam):
                                       first[f"{fam}/params"])
 
 
+def reduce_bytes(layout, specs, sizes, coords):
+    """The bytes a rank at ``coords`` counts for one reduce of every unit
+    (one split step's backward), by kind, from the specs and the shard's
+    block shapes alone (:func:`torch_gossip_world.split_bytes`)."""
+    sh = ShardLayout(layout, specs, sizes, coords)
+    n_layers = next(lf.shape[0] for lf in layout.leaves
+                    if lf.path.split(".")[0] == "layers")
+    step, _ = W.split_bytes(sh, n_layers)
+    return {k: v for k, v in step.items() if k.startswith("grad_")}
+
+
 @pytest.mark.parametrize("shape", ["split_d2", "split_d2m2"])
 def test_step_bytes_match_the_layout(worlds, shape):
     """A split step's counted bytes (remat on: each layer gathered for the
     forward and again for the recompute) against the layout: the
     all_gathers hand each rank's contribution of the unit once and of
-    every layer twice, the data group's reduce the f32 whole of each."""
+    every layer twice; the gradient's reduces over the data group hand
+    over only the f32 blocks the group keeps (:func:`reduce_bytes`), less
+    than the f32 whole of every unit that an all_reduce of each unit's
+    whole cotangent hands."""
     n, d, m = getattr(W, {"split_d2": "SPLIT_D2",
                           "split_d2m2": "SPLIT_D2M2"}[shape])
     sizes = {"data": d, "model": m}
@@ -382,8 +399,60 @@ def test_step_bytes_match_the_layout(worlds, shape):
                   LayerCut(sh, unit, False, dtypes))
         n_layers = smoke_variant(get_config(arch)).n_layers
         gathered = uc.nbytes + 2 * n_layers * lc.nbytes
-        reduced = 4 * (sum(int(np.prod(s)) for s in uc.shapes)
-                       + n_layers * sum(int(np.prod(s)) for s in lc.shapes))
         for out in worlds[shape]:
             assert out[f"{fam}/step_bytes/layer_gather"] == gathered, fam
-            assert out[f"{fam}/step_bytes/grad_reduce"] == reduced, fam
+            coords = {"data": int(out["coords"][0]),
+                      "model": int(out["coords"][1])}
+            want = reduce_bytes(layout, specs, sizes, coords)
+            for kind, nbytes in want.items():
+                assert out.get(f"{fam}/step_bytes/{kind}", 0) == nbytes, \
+                    (fam, kind)
+            assert sum(want.values()) < 4 * layout.n_values, fam
+
+
+@pytest.mark.parametrize("shape", ["split_d2", "split_d2m2"])
+@pytest.mark.parametrize("fam", [f for f, _ in W.SPLIT_ARCHS])
+def test_reduce_equals_all_reduce_then_cut(worlds, shape, fam):
+    """D = 2: the data group's reduce of each unit's seeded cotangents
+    (bf16, the wide leaves f32) gives each rank's blocks equal, bit for
+    bit, to the whole-cotangent form on the same cotangents (the whole
+    f32 cotangent all_reduced, divided by D, cut, rounded once); its
+    bytes by kind are the layout's (:func:`reduce_bytes`)."""
+    n, d, m = getattr(W, {"split_d2": "SPLIT_D2",
+                          "split_d2m2": "SPLIT_D2M2"}[shape])
+    sizes = {"data": d, "model": m}
+    layout = build_model(smoke_variant(get_config(dict(W.SPLIT_ARCHS)[fam]))
+                         ).layout
+    specs = param_specs(layout, dict(node=n, **sizes))
+    for out in worlds[shape]:
+        eq = out[f"{fam}/reduce/equal"]
+        assert eq.all() and eq.size > 1, eq
+        coords = {"data": int(out["coords"][0]),
+                  "model": int(out["coords"][1])}
+        for kind, nbytes in reduce_bytes(layout, specs, sizes,
+                                         coords).items():
+            assert out.get(f"{fam}/reduce/bytes/{kind}", 0) == nbytes, kind
+
+
+@pytest.mark.parametrize("sizes", [{"data": 2, "model": 2},
+                                   {"data": 2, "model": 1}])
+def test_layer_cut_routes_each_leaf_by_its_data_cut(sizes):
+    """Each leaf of :data:`SPLIT_LEAVES` goes the way the data axis cuts
+    it: Mamba2's in_proj (``data`` on the layer axis) to the one data rank
+    that holds the layer, the leaves ``data`` does not cut to an
+    all_reduce of the rank's block, and within a data group every rank
+    sorts every layer alike."""
+    layout, _, shards = _cut_shards(sizes)
+    stacked = [lf.path for lf in layout.leaves if lf.path.startswith("layers")]
+    dtypes = {lf.path: torch.float32 for lf in layout.leaves}
+    k_in = stacked.index("layers.ssm.in_proj.w")
+    for sh in shards:
+        cut = LayerCut(sh, stacked, True, dtypes)
+        for i in range(W.SPLIT_L):
+            scatter, owners, whole = cut.routes(i)
+            assert not scatter
+            owner = i // (W.SPLIT_L // sizes["data"])
+            assert owners == {owner: [k_in]}, (i, owners)
+            assert sorted(whole) == [k for k in range(len(stacked))
+                                     if k != k_in]
+            assert cut.holds(k_in, i) == (sh.coords["data"] == owner)

@@ -1380,6 +1380,20 @@ def split_layout():
     return FlatLayout(list(SPLIT_LEAVES))
 
 
+def split_bytes(shard, n_layers, rest_itemsize=4):
+    """A split step's bytes by kind and a split gate's bytes a score,
+    counted from the shard layout and the specs alone: ``chip_smoke.
+    _split_bytes``, the count the card run holds its steps and gates to,
+    and the one the tests hold the port's counted bytes to."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._split_bytes(shard, n_layers, rest_itemsize)
+
+
 def split_cotangents(rank):
     """A rank's seeded cotangents of the whole unit and of each whole layer
     (``{path: [*shape]}`` for the unit's leaves, ``[L, ...]`` for the
@@ -1741,6 +1755,55 @@ def port_split_d1(inp):
     return out
 
 
+def _reduce_case(mesh, fam, arch, out):
+    """The data group's reduce of seeded whole cotangents of every unit of
+    the ``arch`` smoke model (bf16, its wide leaves f32; the rank's own
+    seed) against the whole-cotangent form on the same cotangents: the
+    whole f32 cotangent all_reduced over the data group, divided by D,
+    cut to the rank's blocks and rounded once. Records, a unit each, whether every
+    held block is equal bit for bit, and the bytes the reduces counted
+    by kind."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import gossip
+    from repro_torch.core.flat import ShardLayout
+    from repro_torch.models.gather import NodeSplit
+    from repro_torch.sharding.rules import param_specs
+
+    layout = _smoke(arch).layout
+    shard = ShardLayout(layout, param_specs(layout, mesh), mesh.inner,
+                        mesh.coords)
+    plan = NodeSplit(shard, mesh.shard_view, mesh.data_view,
+                     dtype=torch.bfloat16)
+    depth = {lf.path: lf.shape[0] for lf in layout.leaves}
+    units = [(plan.unit, 0)] + [(cut, i) for cut in plan.cuts.values()
+                                for i in range(depth[cut.paths[0]])]
+    gen = torch.Generator().manual_seed(1000 + dist.get_rank())
+    view, d = mesh.data_view, mesh.data_view.world_size
+    mesh.reset_counts()
+    equal = []
+    for cut, i in units:
+        cots = [torch.randn(shape, generator=gen).to(dtype)
+                for shape, dtype in zip(cut.shapes, cut.dtypes)]
+        held = [torch.empty(0) if cut.holds(k, i) else None
+                for k in range(len(cut.paths))]
+        got = plan.reduce(cut, cots, i, held)
+        flat = gossip.all_reduce(view, torch.cat(
+            [c.reshape(-1).to(torch.float32) for c in cots]), kind=None)
+        flat.div_(d)
+        whole = [part.view(c.shape) for part, c in
+                 zip(flat.split([c.numel() for c in cots]), cots)]
+        want = [cut.shard_of(k, c).to(cut.dtypes[k])
+                for k, (c, t) in enumerate(zip(whole, held))
+                if t is not None]
+        equal.append(len(got) == len(want) and all(
+            g.dtype == w.dtype and torch.equal(g, w)
+            for g, w in zip(got, want)))
+    out[f"{fam}/reduce/equal"] = np.asarray(equal)
+    for kind, n in mesh.counts.items():
+        out[f"{fam}/reduce/bytes/{kind}"] = np.asarray(n)
+
+
 def port_split_sessions(inp, shape):
     """The three smoke families' sessions: ``shape`` None, 2 unsharded
     ranks (the twin); else the (node, data, model) world with the rules'
@@ -1755,6 +1818,8 @@ def port_split_sessions(inp, shape):
            "coords": np.asarray([mesh.coords.get("data", 0),
                                  mesh.coords.get("model", 0)])}
     for fam, arch in SPLIT_ARCHS:
+        if shape is not None:
+            _reduce_case(mesh, fam, arch, out)
         sess = _split_session(arch, split_cfg(), mesh, shape is not None)
         out[f"{fam}/splits"] = np.asarray(sess.engine.splits)
         for r in range(SPLIT_ROUNDS):
@@ -1767,6 +1832,104 @@ def port_split_sessions(inp, shape):
         if shape is not None:
             for k, v in (sess.counted_step_bytes or {}).items():
                 out[f"{fam}/step_bytes/{k}"] = np.asarray(v)
+    return out
+
+
+#: the split gate's world: (node, data, model)
+SPLIT_GATE = (2, 2, 2)
+
+
+def _gate_session(cfg, mesh, specs, split_step, split_gate):
+    """The Mamba2 smoke session of SPLIT_NODES on ``mesh`` with ``specs``,
+    remat on: the TrainStep itself (``split_step``) or in a lambda, the
+    `SwarmEval` itself (``split_gate``) or in a lambda (the whole-node
+    gather)."""
+    import torch
+    from repro_torch.core.session import SwarmSession
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw_init
+
+    model = _smoke("mamba2-370m")
+    layout = model.layout
+    step = train.make_train_step(model, split_tc(remat=True))
+    ev = train.make_swarm_eval(model)
+    p0 = model.init(torch.Generator().manual_seed(0), "cpu")
+    return SwarmSession(
+        cfg, step if split_step else (lambda p, o, b, s: step(p, o, b)),
+        ev if split_gate else (lambda p, v: ev(p, v)), params=p0,
+        opt_state=adamw_init(layout.parts(p0)), data_sizes=INNER_SIZES,
+        layout=layout, device="cpu", backend="gossip", mesh=mesh,
+        axis=mesh.axis, param_specs=specs)
+
+
+def _gate_runs(inp, mesh, specs, wire, rounds, split_step, out, tag):
+    """The same session with the split gate and with an opaque eval:
+    each round's metrics, gates, params and moments, the sync's gather
+    bytes, into ``out`` under ``tag``."""
+    import torch
+    runs = {}
+    for split_gate in (True, False):
+        sess = _gate_session(split_cfg(wire), mesh, specs, split_step,
+                             split_gate)
+        assert sess.engine.split_gate == split_gate
+        assert sess.engine.splits == split_step
+        rec = []
+        for r in range(rounds):
+            log = sess.round(_split_batches(inp, "ssm", r),
+                             _split_val(inp, "ssm"))
+            st = sess.state
+            rec.append(dict(
+                metrics=torch.stack([log["metric_local"],
+                                     log["metric_merged"]]).numpy(),
+                state=(log["gates"].clone(), st.params.clone(),
+                       st.opt_state["mu"].clone(),
+                       st.opt_state["nu"].clone()),
+                bytes=dict(sess.counted_sync_bytes)))
+        runs[split_gate] = rec
+        out[f"{tag}/split_gate/{int(split_gate)}"] = np.asarray(
+            sess.engine.split_gate)
+    for r in range(rounds):
+        a, b = runs[True][r], runs[False][r]
+        out[f"{tag}/{r}/equal"] = np.asarray(
+            [torch.equal(x, y) for x, y in zip(a["state"], b["state"])])
+        out[f"{tag}/{r}/metrics"] = np.stack([a["metrics"], b["metrics"]])
+        out[f"{tag}/{r}/gates"] = a["state"][0].numpy()
+        for name, rec in (("split", a), ("whole", b)):
+            for kind in ("gate_gather", "shard_gather"):
+                out[f"{tag}/{r}/{name}/{kind}"] = np.asarray(
+                    rec["bytes"].get(kind, -1))
+
+
+def port_split_gate(inp):
+    """(node, data, model) = (2, 2, 2), the Mamba2 smoke session: the
+    split gate against the whole-node gate, with the TrainStep split, on
+    each wire; then with every stacked leaf cut over ``data`` on its layer
+    axis only (half of a node's ranks hold no block of a layer), the step
+    opaque, on the f32 wire."""
+    from repro_torch.core.flat import ShardLayout
+    from repro_torch.models.gather import NodeSplit
+    from repro_torch.sharding.rules import param_specs
+
+    mesh = _split_mesh(SPLIT_GATE)
+    layout = _smoke("mamba2-370m").layout
+    out = {"rows": np.asarray([mesh.rows.start, mesh.rows.stop]),
+           "coords": np.asarray([mesh.coords["data"],
+                                 mesh.coords["model"]])}
+    specs = param_specs(layout, mesh)
+    for wire in SPLIT_WIRES:
+        _gate_runs(inp, mesh, specs, wire, SPLIT_ROUNDS, True, out,
+                   f"gate/{wire}")
+    layered = dict(specs)
+    for lf in layout.leaves:
+        if lf.path.startswith("layers."):
+            layered[lf.path] = ("data",) + (None,) * (len(lf.shape) - 1)
+    cut = NodeSplit(ShardLayout(layout, layered, mesh.inner, mesh.coords),
+                    mesh.shard_view).cuts["layers"]
+    depth = {lf.path: lf.shape[0] for lf in layout.leaves}[cut.paths[0]]
+    out["empty/layers"] = np.asarray(
+        [i for i in range(depth)
+         if not any(cut.holds(k, i) for k in range(len(cut.paths)))])
+    _gate_runs(inp, mesh, layered, "f32", 1, False, out, "empty")
     return out
 
 
@@ -1800,6 +1963,8 @@ def main(argv):
                 res = port_split_units(inp)
             elif task == "split_d1":
                 res = port_split_d1(inp)
+            elif task == "split_gate":
+                res = port_split_gate(inp)
             elif task in SPLIT_WORLDS:
                 res = port_split_sessions(inp, SPLIT_WORLDS[task])
             elif task == "hier":
