@@ -99,8 +99,9 @@ Phases, each printing one JSON line:
                  then the families' full-width shapes (``FAMILY_FLASH``:
                  granite-moe's q [1,24,2048,64] and [1,24,256,64] in a
                  2064-deep lane, a GQA group of 3, and part (g)'s split
-                 step [4,24,256,64] and gate [2,24,256,64] over 256 keys;
-                 internvl2's
+                 step [4,24,256,64] and gate [2,24,256,64] over 256 keys,
+                 whole and head-parallel ([4,12,256,64] over
+                 [4,4,256,64], [2,12,256,64]); internvl2's
                  [4,14,2048,64], a group of 7; seamless's non-causal
                  encoder [4,16,1024,64]; minicpm-2b's [1,36,2048,64] and
                  [1,36,256,64] in a 2064-deep lane and its training step's
@@ -123,11 +124,23 @@ Phases, each printing one JSON line:
                  heads, [1, 4, 2048, 16] causal with windows 0 and 64, a
                  non-causal [2, 4, 256, 16] and a ragged GQA case) with
                  their times beside the plain version, one SDPA call and
-                 the bound (``d16``); head dims 8 and 48 must raise;
+                 the bound (``d16``); head dims 8 and 48 must raise; then
+                 the query-offset form (``QOFF_FLASH``: a
+                 sequence-parallel rank's rows at q_off.. over the whole
+                 K/V; part (h)'s [2,25,1024,64] over [2,5,2048,64] at
+                 q_off 0 and 1,024, windows 0 and 1,024, then one D = 16
+                 and one D = 128 shape in each dtype, then (h)'s twin's
+                 [2,25,2048,64] over the same keys at q_off 0) within one
+                 bf16 ulp (f32 within 1.2e-6), with times beside
+                 the plain version, one SDPA call with the boolean mask and
+                 the bound (``q_off``);
  13. ssd_kernel  the SSD scan kernel against its plain version: the
                  reference's sweep at 1e-4 (f32) and Hymba's (1, S, 50,
                  64, 16, 256) at S = 2048 and 256 and Mamba2's (1, 2048,
-                 32, 64, 128, 256) bf16 shapes, y at 2e-2 and the f32 final
+                 32, 64, 128, 256) bf16 shapes, then part (h)'s (2, 2048,
+                 25 or 50, 64, 16, 256) (a model rank's heads, the twin's)
+                 with x, B and C strided views of the conv's output as
+                 ``ssm_block`` passes them, y at 2e-2 and the f32 final
                  state at 1e-4; a_log per batch row (the trainer's folded
                  nodes) against one row at a time with a shared [H] (the
                  serving path's stride 0), bit for bit; times, TFLOP/s and
@@ -363,34 +376,49 @@ Phases, each printing one JSON line:
                  split gate's gathers of a sync against the layout's
                  count, exactly, each gate's peak above the memory
                  allocated before it, the steps' peak and resident memory
-                 against the twin's, and step, round and sync walls; (g)
+                 against the twin's, and step, round and sync walls; (h)
+                 tensor parallelism: Hymba-1.5B at its published widths, 2
+                 of 32 layers, bf16, remat, 2 rows of 2,048 tokens, on 4
+                 gloo ranks as 2 nodes × model 2 against an unsharded twin
+                 on 2 (spawned with (e)'s and (f)'s): attention
+                 sequence-parallel through flash's query offset (windows 0
+                 and 1,024), 25 of 50 SSM heads a rank, ff and vocab over
+                 2; the gates equal, losses and metrics within 1e-3 of the
+                 twin's, the params within (f)'s tolerances, every byte
+                 kind of a step and of the split gate against the
+                 layout's count (`_tp_bytes`) exactly, flash and
+                 ``ssd_scan`` launches as predicted, walls and peaks; (g)
                  granite-moe-3b-a800m at its published widths, 8 of 32
                  layers, bf16, remat, on 8 gloo ranks as 2 nodes × data 2
-                 × model 2 with the rules' specs: one round of 2 split
+                 × model 2 with the rules' specs, tensor-parallel over
+                 each model group (attention head-parallel, 20 of 40
+                 experts a rank, the vocab over 2): one round of 2 split
                  steps and a fedavg/full sync on the f32 wire whose gate
                  scores each node twice, through the split gate and
                  through the whole-node gather (the two nodes' whole
-                 gathers one after the other), metrics and gates equal,
-                 each gate's peak above the memory allocated before it
-                 within its count from the layout and the validation
-                 rows' shapes (the whole-node gate's at least two nodes'
-                 slots), the gather, gradient and gate bytes against the
-                 layout's count exactly, flash launches as predicted, and
-                 step and sync walls and every rank's peak. One card shows
-                 no inter-card traffic: (a)/(b) are one rank's NCCL calls,
-                 (c)-(g) go through host memory;
+                 gathers one after the other), metrics within 1e-3 and
+                 gates equal, each gate's peak above the memory allocated
+                 before it within its count from the layout and the
+                 validation rows' shapes (the whole-node gate's at least
+                 two nodes' slots), the compute block's size against the
+                 whole layer's, every byte kind of a step and of the gate
+                 against the layout's count exactly, flash launches as
+                 predicted, and step and sync walls and every rank's peak.
+                 One card shows no inter-card traffic: (a)/(b) are one
+                 rank's NCCL calls, (c)-(h) go through host memory;
  16j. examples  (run after ``host``, before ``gossip``) the twins of the
                  reference's examples through their ``main`` at the
-                 reference's default sizes, the counts set to 0 before
+                 reference's default sizes (the protocol's depth cut to
+                 100 of its 400 steps), the counts set to 0 before
                  each (the memory of the serving paths released first): ``examples/torch_engine_swarm.py`` (the
                  tiny LM, head dim 16, N = 4: 3 rounds of 5 steps,
                  ``leave(3)``, 3 more; gates each round, node 3 out of every
                  merge after the leave, one ``fused_merge_all`` a round,
                  flash's f32 D = 16 body at [32, 4, 32, 16]: its launches
                  are ``launches_d16``), ``torch_histopathology_swarm.py``
-                 (the §4 protocol, 3 scenarios of 400 steps in a temporary
+                 (the §4 protocol, 3 scenarios of 100 steps in a temporary
                  working directory: three JSON files, nine finite report
-                 rows each with AUC in [0, 1], exactly 20 ``fused_merge_all``
+                 rows each with AUC in [0, 1], exactly 5 ``fused_merge_all``
                  launches a scenario and nothing else) and
                  ``torch_serve_demo.py`` (4 smoke families, [4, 16] tokens
                  each, flash and ``ssd_scan`` launched; the consensus
@@ -1540,11 +1568,14 @@ FLASH_SWEEP = ((1, 4, 4, 128, 128, 64, True, 0, "float32"),
 # minicpm-2b's engine prefills (36 heads, a group of 1) and its training
 # step (batch 4 at 256 tokens, no cache); granite-moe's split step of part
 # (g) (a data rank's 4 rows at 256 tokens, no cache) and its gate's score
-# (GOSSIP_G_VAL's 2 rows)
+# (GOSSIP_G_VAL's 2 rows), whole (one model rank) and head-parallel over 2
+# model ranks (12 of 24 heads, 4 of 8 KV heads)
 FAMILY_FLASH = (("granite", 1, 24, 8, 2048, 2064, True),
                 ("granite_256", 1, 24, 8, 256, 2064, True),
                 ("granite_train", 4, 24, 8, 256, 256, True),
                 ("granite_gate", 2, 24, 8, 256, 256, True),
+                ("granite_tp_train", 4, 12, 4, 256, 256, True),
+                ("granite_tp_gate", 2, 12, 4, 256, 256, True),
                 ("internvl2", 4, 14, 2, 2048, 2064, True),
                 ("seamless", 4, 16, 16, 1024, 1024, False),
                 ("minicpm", 1, 36, 36, 2048, 2064, True),
@@ -1576,6 +1607,24 @@ D16_FLASH = (("engine", 32, 4, 2, 32, 32, True, 0),
              ("long_w64", 1, 4, 2, 2048, 2048, True, 64),
              ("noncausal", 2, 4, 2, 256, 256, False, 0),
              ("ragged", 2, 6, 3, 77, 90, True, 20))
+# flash's query-offset form (a sequence-parallel rank's S query rows at
+# positions q_off.. over the whole T keys), (name, B, H, Hkv, S, T, D,
+# q_off, window, dtype): part (h)'s Hymba-1.5B shapes (2 rows of 2048
+# tokens over 2 model ranks: 1024 rows a rank at q_off 0 and 1024, the
+# global layer's window 0 and the sliding layer's 1024), then one D = 16
+# and one D = 128 shape in each dtype, then the whole-sequence calls of
+# (h)'s unsharded twin (q_off 0: 2 rows of 2048 over the same 2048 keys)
+QOFF_FLASH = tuple(("hymba_h", 2, 25, 5, 1024, 2048, 64, off, w, "bfloat16")
+                   for off in (0, 1024) for w in (0, 1024)) + tuple(
+    (f"d{d}", 1, 4, 2, s, 2 * s, d, s, w, dt)
+    for d, s, w in ((16, 512, 0), (128, 512, 256))
+    for dt in ("float32", "bfloat16")) + tuple(
+    ("hymba_h_twin", 2, 25, 5, 2048, 2048, 64, 0, w, "bfloat16")
+    for w in (0, 1024))
+# the f32 body's limit with a query offset: one bf16 ulp does not apply;
+# the D = 128 body reads 1.19e-6 at QOFF_FLASH's d128 row (and as much on
+# the whole sequence's matching rows, no offset)
+QOFF_F32_TOL = 1.2e-6
 # flash's f32 D = 64 body as examples/torch_serve_demo.py launches it
 # (name, B, H, Hkv, S, T, causal), q, K and V strided views of [B, S, H, D]
 # and [B, T, Hkv, D]: the minicpm-2b and phi3.5-moe smoke prefills (8
@@ -1777,15 +1826,19 @@ def phase_flash_kernel(dev, bw, peak, bf16_peak):
         wide[name] = row
     del flush
     d16 = _flash_d16(dev, inputs, bw, peak, bf16_peak)
+    qoff = _flash_qoff(dev, inputs, bw, peak, bf16_peak)
+    max_err = max(max_err, max(r["max_abs_err"] for r in qoff.values()
+                               if r["dtype"] == "float32"))
     max_err = max(max_err, max(r["max_abs_err"] for r in d16.values()
                                if r["dtype"] == "float32"))
     emit("flash_kernel", sweep=[list(c) for c in FLASH_SWEEP],
          examples=[list(c) for c in EXAMPLE_FLASH], max_abs_err_f32=max_err,
          hymba={f"s{s}_w{w}": r for (s, w), r in out.items()},
-         families=families, d128=wide, d16=d16,
+         families=families, d128=wide, d16=d16, q_off=qoff,
          shape=dict(q=[1, h, list(SERVE_SEQ), d], kv=[1, hkv, t, d],
                     dtype="bfloat16"),
          rate="bf16 tensor cores", tolerance={"float32": 2e-5,
+                                              "q_off_float32": QOFF_F32_TOL,
                                               "bfloat16": 3e-2,
                                               "hymba": [atol, rtol]})
     g = out[(SERVE_SEQ[-1], 0)]
@@ -1797,6 +1850,71 @@ def phase_flash_kernel(dev, bw, peak, bf16_peak):
         max_abs_err=max_err, ms=g["kernel_ms"], plain_ms=g["plain_ms"],
         library_ms=min(libs) if libs else None, tflops=g["tflops"],
         bound_ms=g["bound_ms"], bound_by=g["bound_by"])}
+
+
+def _flash_qoff(dev, inputs, bw, peak, bf16_peak):
+    """Flash's query-offset form at ``QOFF_FLASH`` against the plain
+    version (bf16 within one ulp: atol 2e-4, rtol 8e-3; f32 within
+    ``QOFF_F32_TOL``; beside it, reported, the body's error on the whole
+    q_off + S query rows' matching rows), q and K/V strided as the
+    sequence-parallel path gives them, each with its device time, the
+    plain version's, one SDPA call's with the boolean mask (never used by
+    the port) and the bound (the pairs the offset mask keeps)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_plain
+
+    rows = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for name, b, h, hkv, s, t, d, off, window, dtype in QOFF_FLASH:
+        q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                   for x in inputs(b, h, hkv, s, t, d, dtype))
+        call = lambda: fa.flash_attention(q, k, v, window=window, q_off=off)
+        got = call()
+        want = flash_attention_plain(q, k, v, window=window, q_off=off)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        # the body's own error on the whole sequence's matching rows
+        qf = torch.cat([torch.randn(b, h, off, d, device=dev,
+                                    generator=gen).to(q.dtype), q], 2)
+        own = (fa.flash_attention(qf, k, v, window=window)[:, :, off:]
+               .float() - flash_attention_plain(
+                   qf, k, v, window=window)[:, :, off:].float()).abs()
+        tol = (QOFF_F32_TOL, 0.0) if dtype == "float32" else (2e-4, 8e-3)
+        if bool((err > tol[0] + tol[1] * want.float().abs()).any()):
+            raise AssertionError(f"flash q_off {name} {(off, window, dtype)}"
+                                 f": max err {float(err.max())}, the "
+                                 f"whole sequence's {float(own.max())}")
+        qpos = off + torch.arange(s, device=dev)[:, None]
+        kpos = torch.arange(t, device=dev)[None, :]
+        mask = kpos <= qpos
+        if window:
+            mask = mask & (kpos > qpos - window)
+        pairs = int(mask.sum())
+        flops = 4 * h * d * b * pairs
+        row = dict(q=[b, h, s, d], kv=[b, hkv, t, d], q_off=off,
+                   window=window, dtype=dtype, max_abs_err=float(err.max()),
+                   whole_sequence_err=float(own.max()),
+                   kernel_ms=device_ms(call, iters=20, warm=3,
+                                       match="flash_kernel"),
+                   plain_ms=device_ms(lambda: flash_attention_plain(
+                       q, k, v, window=window, q_off=off), iters=5,
+                       warm=2))
+        try:
+            row["library_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True),
+                iters=20, warm=3)
+        except RuntimeError as exc:  # the yardstick only, never the port
+            row["library_ms"], row["library_error"] = None, str(exc)[:200]
+        row["gflop"] = flops / 1e9
+        row["tflops"] = tflops(flops, row["kernel_ms"])
+        row["bound_ms"], row["bound_by"] = bound(
+            q.element_size() * b * (2 * h * s * d + 2 * hkv * t * d), flops,
+            bw, peak if dtype == "float32" else bf16_peak)
+        rows[f"{name}_o{off}_w{window}_{dtype}"] = row
+    return rows
 
 
 def _flash_d16(dev, inputs, bw, peak, bf16_peak):
@@ -1874,9 +1992,15 @@ SSD_SWEEP = ((1, 64, 2, 32, 16, 16), (2, 128, 3, 32, 16, 32),
 # N, chunk; one group): 8 tokens at chunk min(16, 8), x, B and C strided
 # views of the in-projection's [B, S, 544] output, as the model passes them
 SSD_EXAMPLE = (4, 8, 8, 64, 16, 8)
-SSD_MODELS = (("hymba", (1, 2048, 50, 64, 16, 256)),
-              ("hymba256", (1, 256, 50, 64, 16, 256)),
-              ("mamba2", (1, 2048, 32, 64, 128, 256)))
+# (name, (B, S, H, P, N, chunk), conv): with ``conv`` x, B and C are
+# strided views of one [B, S, H·P + 2N] conv output, as ``ssm_block``
+# passes them: part (h)'s calls, a model rank's 25 of Hymba's 50 heads and
+# the unsharded twin's 50, 2 rows of 2048
+SSD_MODELS = (("hymba", (1, 2048, 50, 64, 16, 256), False),
+              ("hymba256", (1, 256, 50, 64, 16, 256), False),
+              ("mamba2", (1, 2048, 32, 64, 128, 256), False),
+              ("hymba_h_tp", (2, 2048, 25, 64, 16, 256), True),
+              ("hymba_h_twin", (2, 2048, 50, 64, 16, 256), True))
 
 
 def ssd_bound(b, s, h, p, n, chunk, g, bw, peak, bf16_peak, itemsize=2):
@@ -1959,8 +2083,15 @@ def phase_ssd_kernel(dev, bw, peak, bf16_peak):
                 raise AssertionError(f"ssd a_log per row differs from the "
                                      f"shared form at row {i} ({dtype})")
     rows = {}
-    for name, (b, s, h, p, n, chunk) in SSD_MODELS:
+    for name, (b, s, h, p, n, chunk), conv in SSD_MODELS:
         args = inputs(b, s, h, p, n, "bfloat16")
+        if conv:
+            x, d, alog, bm, cm = args
+            out = torch.cat([x.flatten(2), bm.flatten(2), cm.flatten(2)], -1)
+            x = out[..., :h * p].unflatten(-1, (h, p))
+            bm = out[..., h * p:h * p + n].unflatten(-1, (1, n))
+            cm = out[..., h * p + n:].unflatten(-1, (1, n))
+            args = (x, d, alog, bm, cm)
         y, st = ss.ssd_scan(*args, chunk=chunk)
         yw, sw = ssd_scan_plain(*args, chunk=chunk)
         torch.cuda.synchronize()
@@ -1978,7 +2109,8 @@ def phase_ssd_kernel(dev, bw, peak, bf16_peak):
         ms = device_ms(lambda: ss.ssd_scan(*args, chunk=chunk), iters=20,
                        warm=3)
         rows[name] = dict(
-            shape=[b, s, h, p, n, chunk], max_abs_err_y=errs[0],
+            shape=[b, s, h, p, n, chunk], conv_views=conv,
+            max_abs_err_y=errs[0],
             max_abs_err_state=errs[1], gflop=flops / 1e9, mbytes=nbytes / 1e6,
             kernel_ms=ms, tflops=tflops(flops, ms),
             plain_ms=device_ms(lambda: ssd_scan_plain(*args, chunk=chunk),
@@ -3845,8 +3977,10 @@ def phase_host(dev, smi):
 
 
 # the examples phase: the twins of the reference's examples, run through
-# their ``main`` at the reference's default sizes (examples/torch_*.py)
-EXAMPLE_HISTO_STEPS, EXAMPLE_HISTO_SYNC = 400, 20
+# their ``main`` at the reference's default sizes (examples/torch_*.py),
+# the §4 protocol's depth cut from its 400 steps (a sync every 20) to keep
+# the script well inside its time limit
+EXAMPLE_HISTO_STEPS, EXAMPLE_HISTO_SYNC = 100, 20
 
 
 def _example(script):
@@ -3866,7 +4000,8 @@ def _finite_row(row, what):
 
 
 def phase_examples(dev, smi):
-    """The three example twins at the reference's default sizes, run by
+    """The three example twins at the reference's default sizes (the
+    protocol at ``EXAMPLE_HISTO_STEPS``), run by
     ``_examples_run`` in a process of their own, as a user runs an
     example: in this process, after the paths above, the eager protocol
     ran at half its speed on an H100 (239.6 s against 124-148 s alone).
@@ -3895,13 +4030,14 @@ def _examples_child(rank, world, init, tmp, dev):
 
 
 def _examples_run(dev):
-    """The three example twins at the reference's default sizes, each
-    through its ``main`` on the card, the counts set to 0 just before each
+    """The three example twins at the reference's default sizes (the
+    protocol at EXAMPLE_HISTO_STEPS), each through its ``main`` on the card, the counts set to 0 just before each
     run (each histo scenario's too) and read just after: the engine
     session (3 rounds, ``leave(3)``, 3 more, ``join(3)``; flash's f32 D = 16
     body and one ``fused_merge_all`` a round), the §4 protocol (3
-    scenarios of 400 steps, in a temporary working directory; 20 commits a
-    scenario, nothing else launched) and the serving demo (4 families,
+    scenarios of EXAMPLE_HISTO_STEPS steps, in a temporary working
+    directory; a commit every EXAMPLE_HISTO_SYNC steps, nothing else
+    launched) and the serving demo (4 families,
     then the consensus ensemble; flash and ``ssd_scan``). Each twin's
     seconds and peak memory. Returns (its rows, the launches of the three
     runs, the engine run's flash launches)."""
@@ -3983,7 +4119,8 @@ def _examples_run(dev):
     tmp, cwd = tempfile.mkdtemp(prefix="histo_example_"), os.getcwd()
     os.chdir(tmp)
     try:
-        run("histo", lambda: histo.main([]))
+        run("histo", lambda: histo.main(
+            ["--steps", str(EXAMPLE_HISTO_STEPS)]))
         names = sorted(os.listdir(histo.OUT))
         results = {n: json.loads(Path(histo.OUT, n).read_text())
                    for n in names}
@@ -5347,6 +5484,145 @@ def _split_bytes(shard, n_layers, rest_itemsize, remat=True):
     return step, unit + n_layers * layer
 
 
+def _tp_bytes(shard, cfg, n_layers, rest_itemsize, rows, seq, split_rows,
+              remat=True, val=None):
+    """A tensor-parallel split step's bytes by kind (one microbatch of
+    ``rows`` rows of ``seq`` tokens on this rank's data index;
+    ``split_rows``: the data ranks took rows of their own) and, with
+    ``val`` = (rows, seq), a split gate's a score, counted from the shard
+    layout, the specs and the placement (`repro_torch.sharding.rules.
+    placement`, ``compute_cut``): ``layer_gather`` (``gate_gather``), for
+    each leaf's layer and each rank of the shard group, the elements of
+    the rank's compute block in each stored block it does not hold, sent
+    by the stored block's holder of index ``r mod holders`` (the unit
+    once, every layer once, twice with remat); ``grad_to_shard``, the f32
+    elements of this rank's compute block in each stored block, to each
+    other holder (of its data index where the rows are whole); the model
+    group's activations: per block an all_gather of the normed sequence
+    (``tp_gather``, the rank's cut), a reduce_scatter per row-parallel
+    output (``tp_reduce_scatter``, the f32 sum's other M − 1 cuts), the SSM
+    norm's f32 sums of squares (``tp_all_reduce``), each collective's
+    transpose in the backward (a reduce_scatter for a gather, a gather for
+    a reduce_scatter), the forward twice with remat; the embedding's
+    all_to_all (``tp_all_to_all``, the M − 1 chunks a rank sends) or
+    reduce_scatter, the final norm's gather and the loss's three f32
+    all_reduces a token. Returns ``(step kinds, gate kinds or None)``."""
+    from repro_torch.sharding.rules import compute_cut, placement
+
+    m = shard.sizes.get("model", 1)
+    place = placement(cfg, m)
+    n_group = shard.group_size
+    coords = [shard.coords_of(g) for g in range(n_group)]
+    me = coords.index({a: shard.coords.get(a, 0) for a in shard.sizes})
+    data = [c.get("data", 0) for c in coords]
+
+    def inside(box, blk):
+        n = 1
+        for (a, la), ivs in zip(box, blk):
+            n *= sum(max(0, min(a + la, c + lc) - max(a, c))
+                     for c, lc in ivs)
+        return n
+
+    unit = layers = grads = 0
+    for leaf in shard.full.leaves:
+        stacked = leaf.path.split(".")[0] == "layers"
+        shape = leaf.shape[1:] if stacked else leaf.shape
+        item = 4 if leaf.wide else rest_itemsize
+        comp = [compute_cut(cfg, place, leaf.path, shape, c.get("model", 0))
+                for c in coords]
+        stored = []
+        for c in coords:
+            box, span = [(0, n) for n in shape], None
+            for dim, start, length in shard._cuts(leaf, c):
+                if stacked and dim == 0:
+                    span = (start, length)
+                else:
+                    box[dim - stacked] = (start, length)
+            stored.append((tuple(box), span))
+        for i in range(n_layers if stacked else 1):
+            holders = {}
+            for g, (box, span) in enumerate(stored):
+                if span is None or span[0] <= i < span[0] + span[1]:
+                    holders.setdefault(box, []).append(g)
+            for box, hs in holders.items():
+                for r in range(n_group):
+                    src = r if r in hs else hs[r % len(hs)]
+                    if src == me != r:
+                        n = inside(box, comp[r]) * item
+                        if stacked:
+                            layers += n
+                        else:
+                            unit += n
+                mine = inside(box, comp[me]) * 4
+                grads += mine * sum(1 for h in hs if h != me and (
+                    split_rows or data[h] == data[me]))
+
+    c = 4 if cfg.compute_dtype == "float32" else 2
+    d = cfg.d_model
+
+    def acts(rows, seq, grad):
+        """(per block forward, per block backward, the rest) by kind."""
+        x = rows * seq * d
+        lg, rs, sq = x // m * c, x * 4 * (m - 1) // m, rows * seq * 4
+        fwd, bwd, rest = {}, {}, {}
+
+        def add(to, kind, n):
+            to[kind] = to.get(kind, 0) + n
+
+        def gather_in():
+            add(fwd, "tp_gather", lg)
+            add(bwd, "tp_reduce_scatter", rs)
+
+        def row_out(item=c):
+            add(fwd, "tp_reduce_scatter", rs)
+            add(bwd, "tp_gather", x // m * item)
+
+        gather_in()
+        if cfg.family in ("ssm", "hybrid") and place.ssm_heads:
+            add(fwd, "tp_all_reduce", sq)
+            add(bwd, "tp_all_reduce", sq)
+            row_out()
+        if cfg.family != "ssm" and place.attention == "heads":
+            row_out()
+        if cfg.family == "moe":
+            gather_in()
+            if place.experts:
+                row_out(4)
+        elif cfg.family != "ssm" and place.ff:
+            gather_in()
+            row_out()
+        if place.embed == "d_model":
+            n = (m - 1) * rows * (seq // m) * (d // m) * c
+            add(rest, "tp_all_to_all", n * (2 if grad else 1))
+        elif place.embed == "vocab":
+            add(rest, "tp_reduce_scatter", rs)
+            if grad:
+                add(rest, "tp_gather", lg)
+        add(rest, "tp_gather", lg)
+        if grad:
+            add(rest, "tp_reduce_scatter", rs)
+        add(rest, "tp_all_reduce", 3 * sq)
+        return fwd, bwd, rest
+
+    def total(rows, seq, grad, passes):
+        fwd, bwd, rest = acts(rows, seq, grad)
+        out = dict(rest)
+        for kinds, times in ((fwd, passes * n_layers),
+                             (bwd, n_layers if grad else 0)):
+            for k, v in kinds.items():
+                out[k] = out.get(k, 0) + v * times
+        return {k: v for k, v in out.items() if v}
+
+    step = total(rows, seq, True, 2 if remat else 1)
+    step["layer_gather"] = unit + (2 if remat else 1) * layers
+    step["grad_to_shard"] = grads
+    gate = None
+    if val is not None:
+        gate = total(val[0], val[1], False, 1)
+        gate["gate_gather"] = unit + layers
+    return step, gate
+
+
 def _gate_meter(eng, log, split_and_whole=False, barrier=None):
     """Wrap the engine's gate scores (``_gate_scores``, a call a score)
     to record each call's peak allocated above the memory allocated before
@@ -5683,9 +5959,12 @@ def _gossip_split(dev, smi, tmp, ftwin):
 # at its published widths, GOSSIP_G_LAYERS of 32 layers, bf16, remat, on 8
 # gloo ranks as (node, data, model) = GOSSIP_G_MESH with the rules' specs
 # (experts and the layer axis of o and the experts over model; q, k, v's
-# layer axis and the experts' and o's inner dims over data); one round of
-# GOSSIP_G_STEPS split steps at GOSSIP_G_BATCH rows (half a data rank) and
-# one fedavg/full sync on the f32 wire, its gate scored twice a score
+# layer axis and the experts' and o's inner dims over data), tensor-
+# parallel over each model group (attention head-parallel, 8 KV heads over
+# 2; 20 of 40 experts a rank; the vocab 49,408 over 2; the residual cut
+# on the sequence); one round of GOSSIP_G_STEPS split steps at
+# GOSSIP_G_BATCH rows (half a data rank) and one fedavg/full sync on the
+# f32 wire, its gate scored twice a score
 GOSSIP_G_ARCH = "granite-moe-3b-a800m"
 GOSSIP_G_LAYERS = 8
 GOSSIP_G_MESH = (2, 2, 2)
@@ -5696,52 +5975,84 @@ GOSSIP_G_LR = 1e-4
 #: the head's bytes a logit beside the params: the logits as the head
 #: writes them, masked, in f32 and logsumexp's f32 temporary (2 + 2 + 4 + 4)
 GOSSIP_G_LOGIT_BYTES = 12
+#: the same under tensor parallelism, a logit of the rank's vocab cut: the
+#: logits as the head writes them, masked (2 + 2), and the vocab-parallel
+#: cross entropy's f32 copy, its shift by the max and the exps (4 + 4 + 4)
+GOSSIP_G_TP_LOGIT_BYTES = 16
+#: the split gate's metric against the whole-node gate's, relative: the
+#: bf16 loss tolerance of a split step's later steps (GOSSIP_F_LOSS_RTOL),
+#: the split forward summing each layer's shares over the model group
+GOSSIP_G_METRIC_RTOL = GOSSIP_F_LOSS_RTOL[1]
 
 
-def _moe_block_bytes(cfg, tokens):
+def _moe_block_bytes(cfg, tokens, experts=None):
     """An MoE block's activations at ``tokens`` rows·positions under
     ``no_grad`` (`repro_torch.models.moe.moe`), every one counted as if
     alive at once: the T·k assignments' rows (the dispatched copy, the
     gathered outputs, their gate-weighted copy, the f32 sum: 2 + 2 + 2 + 4
     bytes a value), the [E, cap + 1, D] dispatch buffer and [E, cap, D]
     outputs, and the experts' gate, up and their product [E, cap, F], all
-    in bf16. Bytes."""
-    k, e, d = cfg.top_k, cfg.n_experts, cfg.d_model
+    in bf16 (``experts``: the rank's experts under tensor parallelism).
+    Bytes."""
+    k, d = cfg.top_k, cfg.d_model
+    e = experts or cfg.n_experts
     rows, seq = GOSSIP_G_VAL
     cap = rows * int(max(1, round(seq * k / e * cfg.capacity_factor)))
     return (tokens * k * d * (2 + 2 + 2 + 4) + 2 * e * (2 * cap + 1) * d
             + 3 * 2 * e * cap * cfg.d_ff_expert)
 
 
-def _gossip_g_counts(shard, cfg):
+def _gossip_g_counts(shard, cfg, model=1):
     """Each gate's peak allocated above the memory before it, counted
     from the layout and the validation rows' shapes, as the largest of the
-    moments that hold the most. The split gate holds the whole unscanned
-    unit throughout and, beside it, at a layer's gather the layer that ran
-    (the loop still binds it), the rank's contribution and the gathered
-    layer; in a block one layer and the block's activations
-    (:func:`_moe_block_bytes`); at the head the last layer and the logits
-    (GOSSIP_G_LOGIT_BYTES each). The whole-node gate holds the shard
-    group's slots as the all_gather receives them and the node's slots
-    assembled, then the node and the head's or a block's bytes. Bytes."""
+    moments that hold the most. The split gate holds the unscanned unit
+    (its compute blocks over ``model`` ranks) throughout and, beside it,
+    at a layer's gather the layer that ran (the loop still binds it), the
+    exchange's buffers (tensor-parallel: the pieces sent and received, at
+    most a compute block each; else the rank's contribution) and the
+    gathered layer; in a block one layer and the block's activations
+    (:func:`_moe_block_bytes`, the rank's experts); at the head the last
+    layer and the logits (GOSSIP_G_LOGIT_BYTES each, the rank's vocab
+    cut). The whole-node gate holds the shard group's slots as the
+    all_gather receives them and the node's slots assembled, then the
+    node and the head's or a block's bytes. Bytes."""
     import numpy as np
     from repro_torch.models.gather import NodeSplit
+    from repro_torch.sharding.rules import placement
+    from repro_torch.sharding.tensor import TensorPlan
 
-    plan = NodeSplit(shard, None, None, dtype=_dtype(cfg.param_dtype))
+    class _View:
+        world_size, rank = model, 0
+
+    tp = (TensorPlan(_View(), placement(cfg, model), cfg) if model > 1
+          else None)
+    plan = NodeSplit(shard, None, None, dtype=_dtype(cfg.param_dtype),
+                     tensor=tp)
     whole = lambda cut: sum(int(np.prod(s)) * dt.itemsize
                             for s, dt in zip(cut.shapes, cut.dtypes))
+    held = lambda cut: sum(int(np.prod(s)) * dt.itemsize
+                           for s, dt in zip(cut.cshapes, cut.dtypes))
     cut = plan.cuts["layers"]
-    unit, layer = whole(plan.unit), whole(cut)
     rows, seq = GOSSIP_G_VAL
-    head = rows * seq * cfg.padded_vocab * GOSSIP_G_LOGIT_BYTES
-    block = _moe_block_bytes(cfg, rows * seq)
     itemsize = _dtype(cfg.param_dtype).itemsize
     node = shard.full.size * itemsize
-    return {"split": unit + max(plan.unit.nbytes,
-                                2 * layer + cut.nbytes,
+    whole_block = _moe_block_bytes(cfg, rows * seq)
+    whole_head = rows * seq * cfg.padded_vocab * GOSSIP_G_LOGIT_BYTES
+    if tp is None:
+        unit, layer = whole(plan.unit), whole(cut)
+        exchange = (plan.unit.nbytes, cut.nbytes)
+        head, block = whole_head, whole_block
+    else:
+        unit, layer = held(plan.unit), held(cut)
+        exchange = (2 * unit, 2 * layer)
+        head = (rows * seq * cfg.padded_vocab // model
+                * GOSSIP_G_TP_LOGIT_BYTES + rows * seq * cfg.d_model
+                * itemsize)
+        block = _moe_block_bytes(cfg, rows * seq, cfg.n_experts // model)
+    return {"split": unit + max(exchange[0], 2 * layer + exchange[1],
                                 layer + max(head, block)),
             "whole": max(shard.group_size * shard.local.size * itemsize
-                         + node, node + max(head, block)),
+                         + node, node + max(whole_head, whole_block)),
             "two_nodes": 2 * node}
 
 
@@ -5828,8 +6139,9 @@ def _gossip_rank_g(rank, world, init, tmp, dev):
         if not (eng.splits and eng.split_gate):
             raise AssertionError(f"(g) rank {rank}: splits={eng.splits}, "
                                  f"split_gate={eng.split_gate}")
-        step_count, gate = _split_bytes(eng.shard, GOSSIP_G_LAYERS,
-                                        sess.state.params.element_size())
+        step_count, gate = _tp_bytes(
+            eng.shard, cfg, GOSSIP_G_LAYERS, sess.state.params.element_size(),
+            GOSSIP_G_BATCH // d, GOSSIP_G_SEQ, True, val=GOSSIP_G_VAL)
         position = mesh.rows.start
 
         def by_position(fn):
@@ -5891,20 +6203,29 @@ def _gossip_rank_g(rank, world, init, tmp, dev):
             return (gate_decisions(mm, ml, thr) & mine).tolist()
 
         sync_bytes = sess.counted_sync_bytes
+        # the layer a rank receives: its compute blocks, against the whole
+        from repro_torch.models.gather import NodeSplit
+        cut = NodeSplit(eng.shard, None, None, dtype=_dtype(cfg.param_dtype),
+                        tensor=train.tensor_plan(model, mesh)).cuts["layers"]
         out = dict(
             coords=dict(mesh.coords), node=position,
+            layer_block_bytes=sum(int(np.prod(s)) * t.itemsize
+                                  for s, t in zip(cut.cshapes, cut.dtypes)),
+            layer_whole_bytes=sum(int(np.prod(s)) * t.itemsize
+                                  for s, t in zip(cut.shapes, cut.dtypes)),
             gates=log["gates"].tolist(),
             gates_split=bits(split), gates_whole=bits(whole),
             metric_split=[r["metric"] for r in split],
             metric_whole=[r["metric"] for r in whole],
             peak_split=[r["peak"] for r in split],
             peak_whole=[r["peak"] for r in whole],
-            counts=_gossip_g_counts(eng.shard, cfg),
+            counts=_gossip_g_counts(eng.shard, cfg, m),
             loss=log["train"]["loss"][:, 0].float().cpu().tolist(),
             step_bytes=log_t["step_bytes"], step_from_layout=step_count,
-            gate_bytes={k: sync_bytes.get(k) for k in
-                        ("gate_gather", "shard_gather")},
-            gate_from_layout=2 * mesh.per * gate,
+            gate_bytes={k: v for k, v in sync_bytes.items()
+                        if k in ("gate_gather", "shard_gather")
+                        or k.startswith("tp_")},
+            gate_from_layout={k: 2 * mesh.per * v for k, v in gate.items()},
             # the whole-node gate: two all_gathers of the rank's slot rows
             shard_from_layout=2 * sess.state.params.numel()
             * sess.state.params.element_size(),
@@ -5943,15 +6264,14 @@ def _gossip_moe(dev, smi, tmp):
         if rec["launches"] != predicted:
             raise AssertionError(f"(g) rank {r}: launches "
                                  f"{rec['launches']}, predicted {predicted}")
-        if rec["metric_split"] != rec["metric_whole"]:
-            # vmap over one node and the plain call may differ in a last
-            # bit: hold them within 1e-6 relative
-            for a, b in zip(rec["metric_split"], rec["metric_whole"]):
-                for x, y in zip(a, b):
-                    if abs(x - y) > 1e-6 * abs(y):
-                        raise AssertionError(
-                            f"(g) rank {r}: split gate {rec['metric_split']}"
-                            f", whole-node {rec['metric_whole']}")
+        # the split gate divides each layer's work over the model group:
+        # its bf16 sums run in another order than the whole node's
+        for a, b in zip(rec["metric_split"], rec["metric_whole"]):
+            for x, y in zip(a, b):
+                if abs(x - y) > GOSSIP_G_METRIC_RTOL * abs(y):
+                    raise AssertionError(
+                        f"(g) rank {r}: split gate {rec['metric_split']}"
+                        f", whole-node {rec['metric_whole']}")
         mine = rec["gates"][rec["node"]:rec["node"] + 1]
         if not rec["gates_split"] == rec["gates_whole"] == mine:
             raise AssertionError(
@@ -5963,8 +6283,8 @@ def _gossip_moe(dev, smi, tmp):
                     raise AssertionError(f"(g) rank {r} {kind}: counted "
                                          f"{sb.get(kind)}, the layout's "
                                          f"{nbytes}")
-        want = {"gate_gather": rec["gate_from_layout"],
-                "shard_gather": rec["shard_from_layout"]}
+        want = dict(rec["gate_from_layout"],
+                    shard_gather=rec["shard_from_layout"])
         if rec["gate_bytes"] != want:
             raise AssertionError(f"(g) rank {r}: gate bytes "
                                  f"{rec['gate_bytes']}, the layout's {want}")
@@ -5987,6 +6307,10 @@ def _gossip_moe(dev, smi, tmp):
     emit("gossip_g", card=smi, arch=GOSSIP_G_ARCH, layers=GOSSIP_G_LAYERS,
          backend="gloo", device=f"{dev} (all ranks)",
          mesh=dict(zip(("node", "data", "model"), GOSSIP_G_MESH)),
+         tensor_parallel=True,
+         layer_block_gib=gib(first["layer_block_bytes"]),
+         layer_whole_gib=gib(first["layer_whole_bytes"]),
+         metric_rtol=GOSSIP_G_METRIC_RTOL,
          batch=GOSSIP_G_BATCH, rows_per_data_rank=GOSSIP_G_BATCH // d,
          seq=GOSSIP_G_SEQ, steps=GOSSIP_G_STEPS, val=GOSSIP_G_VAL,
          remat=True, lr=GOSSIP_G_LR, spawn_wall_s=wall,
@@ -6027,13 +6351,283 @@ def _gossip_moe(dev, smi, tmp):
               "gates, the whole-node one a node position at a time")
 
 
+# (h) the hybrid family tensor-parallel: Hymba-1.5B at its published
+# widths, GOSSIP_H_LAYERS of 32 layers (a global-attention layer, then a
+# sliding one of window 1024), bf16, remat, as (node, data, model) =
+# GOSSIP_H_MESH on 4 gloo ranks against its unsharded twin on 2 (a node
+# each): attention sequence-parallel (5 KV heads over 2: a rank's 1,024
+# query rows at q_off 0 or 1,024 over the whole 2,048 keys), 25 of 50 SSM
+# heads a rank with the gated norm's all_reduce, ff 5,504 and the vocab
+# 32,256 over 2, the residual cut on the sequence; one round of
+# GOSSIP_H_STEPS steps of GOSSIP_H_BATCH rows and a fedavg/full sync on
+# the f32 wire, the split gate against the twin's
+GOSSIP_H_ARCH = "hymba-1.5b"
+GOSSIP_H_LAYERS = 2
+GOSSIP_H_MESH = (2, 1, 2)
+GOSSIP_H_STEPS, GOSSIP_H_BATCH, GOSSIP_H_SEQ = 2, 2, 2048
+GOSSIP_H_VAL = (2, 2048)
+
+
+def _gossip_rank_h(rank, world, init, tmp, dev):
+    """(h) One gloo rank on ``cuda:0``: with a world of 4, model block
+    ``rank % 2`` of node ``rank // 2`` of GOSSIP_H_MESH, the rules' specs,
+    the TrainStep and the split gate tensor-parallel; with a world of 2,
+    node ``rank`` whole (the twin: it writes its node's params to
+    ``tmp``). Hymba-1.5B at GOSSIP_H_LAYERS layers from the seed-0 init,
+    lr GOSSIP_F_LR. Into ``tmp/<tag><r>.pt``: gates, node losses, metrics,
+    walls, memory, counted and layout bytes, launches, and on a sharded
+    rank of model index 0 the largest difference from the twin's node by
+    leaf kind."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.session import SwarmSession
+    from repro_torch.data import make_lm_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_swarm_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.rules import param_specs
+
+    dev = torch.device("cuda", 0) if str(dev).startswith("cuda") else \
+        torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    n, d, m = GOSSIP_H_MESH
+    sharded = world == n * d * m
+    tag = "hshard" if sharded else "htwin"
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        mesh, axis = (make_swarm_mesh(n, data=d, model=m) if sharded
+                      else make_swarm_mesh(n))
+        cfg = dataclasses.replace(get_config(GOSSIP_H_ARCH),
+                                  n_layers=GOSSIP_H_LAYERS)
+        model = build_model(cfg)
+        layout = model.layout
+        step = train.make_train_step(model, TrainConfig(
+            lr=GOSSIP_F_LR, warmup_steps=0, max_steps=10, remat=True))
+        streams = [make_lm_stream(8, GOSSIP_H_SEQ, cfg.vocab_size, seed=i,
+                                  topic_bias=1.0) for i in range(n)]
+        rng = np.random.default_rng(0)
+
+        def to_dev(arrays):
+            return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+        vrows, vseq = GOSSIP_H_VAL
+        vals = to_dev({k: np.stack([st[k][-vrows:, :vseq] for st in streams])
+                       for k in streams[0]})
+        idx = [rng.integers(0, len(st["tokens"]) - vrows,
+                            (GOSSIP_H_STEPS, GOSSIP_H_BATCH))
+               for st in streams]
+        batch = to_dev({k: np.stack([st[k][i] for st, i in
+                                     zip(streams, idx)], axis=1)
+                        for k in streams[0]})
+        scfg = dataclasses.replace(_gossip_e_cfg("f32"),
+                                   sync_every=GOSSIP_H_STEPS)
+        p0 = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        sess = SwarmSession(
+            scfg, step, train.make_swarm_eval(model), params=p0,
+            opt_state=adamw_init(layout.parts(p0)),
+            data_sizes=[float(len(st["tokens"])) for st in streams],
+            layout=layout, device=dev, backend="gossip", mesh=mesh,
+            axis=axis,
+            param_specs=param_specs(layout, mesh) if sharded else None)
+        del p0
+        torch.cuda.empty_cache()
+        eng = sess.engine
+        if eng.splits != sharded or eng.split_gate != sharded:
+            raise AssertionError(f"(h) rank {rank}: splits={eng.splits}, "
+                                 f"split_gate={eng.split_gate}")
+        node_of = mesh.rows.start
+        out = {"coords": dict(mesh.coords), "node": node_of}
+        if sharded:
+            out["step_from_layout"], gate = _tp_bytes(
+                eng.shard, cfg, GOSSIP_H_LAYERS,
+                sess.state.params.element_size(), GOSSIP_H_BATCH,
+                GOSSIP_H_SEQ, False, val=GOSSIP_H_VAL)
+            out["gate_from_layout"] = {k: 2 * mesh.per * v
+                                       for k, v in gate.items()}
+        log_t = {"steps": []}
+        sync, local_steps = eng.sync, eng.local_steps
+
+        def timed_sync(*a, **kw):
+            torch.cuda.synchronize()
+            log_t["steps_peak"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = sync(*a, **kw)
+            torch.cuda.synchronize()
+            log_t["sync"] = time.perf_counter() - t0
+            log_t["sync_peak"] = torch.cuda.max_memory_allocated()
+            return res
+
+        def timed_steps(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = local_steps(*a, **kw)
+            torch.cuda.synchronize()
+            log_t["steps"].append(time.perf_counter() - t0)
+            log_t.setdefault("step_bytes", []).append(
+                dict(eng.step_bytes or {}))
+            return res
+
+        eng.sync, eng.local_steps = timed_sync, timed_steps
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        log = sess.round(batch, vals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eng.sync, eng.local_steps = sync, local_steps
+        sync_bytes = sess.counted_sync_bytes
+        out.update(
+            gates=log["gates"].tolist(),
+            metrics=[log["metric_local"].float().cpu().tolist(),
+                     log["metric_merged"].float().cpu().tolist()],
+            loss=log["train"]["loss"][:, 0].float().cpu().tolist(),
+            wall=wall, step_walls=log_t["steps"], sync_wall=log_t["sync"],
+            resident=resident, steps_peak=log_t["steps_peak"],
+            sync_peak=log_t["sync_peak"],
+            step_bytes=log_t.get("step_bytes", []),
+            gate_bytes={k: v for k, v in sync_bytes.items()
+                        if k in ("gate_gather", "shard_gather")
+                        or k.startswith("tp_")},
+            launches={k: v for k, v in LAUNCHES.items() if v})
+        node = eng.node_tensor(sess.state.params, kind=None)[0]
+        if not sharded:
+            torch.save(node.cpu(), f"{tmp}/htwin_params_n{rank}.pt")
+        elif mesh.coords["model"] == 0:
+            twin = torch.load(f"{tmp}/htwin_params_n{node_of}.pt").to(dev)
+            got, want = layout.values(node), layout.values(twin)
+            w = layout.n_wide
+            diffs = {}
+            for kind, sl in (("f32", slice(0, w)), ("bf16", slice(w, None))):
+                rtol, atol = GOSSIP_F_TOL[kind]
+                dd = (got[sl] - want[sl]).abs()
+                diffs[kind] = dict(
+                    max_abs=float(dd.max()),
+                    excess=float((dd - atol - rtol * want[sl].abs()).max()),
+                    changed=int((got[sl] != want[sl]).sum()),
+                    values=int(dd.numel()))
+            out["vs_twin"] = diffs
+        torch.save(out, f"{tmp}/{tag}{rank}.pt")
+        del sess, eng
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def _gossip_tp_hymba(dev, smi, tmp, htwin):
+    """(h) The tensor-parallel world (4 ranks, 2 nodes × model 2) on the
+    card, after its twin (2 ranks, a node each; ``htwin``: its wall and its
+    ranks' records), whose params the split round is held against. Raises
+    on any failed check."""
+    import os
+
+    twin_wall, twin = htwin
+    n, d, m = GOSSIP_H_MESH
+    try:
+        with _expandable_segments():
+            wall, ranks = _gossip_spawn(_gossip_rank_h, tmp, dev, "hshard",
+                                        world=n * d * m)
+    finally:
+        for name in os.listdir(tmp):
+            if name.startswith("htwin_params"):
+                os.remove(os.path.join(tmp, name))
+    # flash and SSD once a layer in each step's forward and again in
+    # remat's recompute, and once a layer a gate score (params, candidate)
+    launches = GOSSIP_H_LAYERS * (2 * GOSSIP_H_STEPS + 2)
+    predicted = {"flash_attention": launches, "ssd_scan": launches}
+    # the split forward divides each layer's work over the model group:
+    # its bf16 losses within the later steps' tolerance from the first
+    rtol = GOSSIP_F_LOSS_RTOL[1]
+    gates = {tuple(rec["gates"]) for rec in twin + ranks}
+    if len(gates) != 1:
+        raise AssertionError(f"(h) gates {gates}")
+    for r, rec in enumerate(twin + ranks):
+        if rec["launches"] != predicted:
+            raise AssertionError(f"(h) rank {r}: launches {rec['launches']}"
+                                 f", predicted {predicted}")
+    for r, rec in enumerate(ranks):
+        tw = twin[rec["node"]]
+        for g, w in zip(rec["loss"], tw["loss"]):
+            if abs(g - w) > rtol * abs(w):
+                raise AssertionError(f"(h) rank {r}: losses {rec['loss']}, "
+                                     f"the twin's {tw['loss']}")
+        for a, b in zip(rec["metrics"], tw["metrics"]):
+            if any(abs(x - y) > rtol * abs(y) for x, y in zip(a, b)):
+                raise AssertionError(f"(h) rank {r}: metrics "
+                                     f"{rec['metrics']}, the twin's "
+                                     f"{tw['metrics']}")
+        for sb in rec["step_bytes"]:
+            for kind, nbytes in rec["step_from_layout"].items():
+                if sb.get(kind, 0) != nbytes:
+                    raise AssertionError(f"(h) rank {r} {kind}: counted "
+                                         f"{sb.get(kind)}, the layout's "
+                                         f"{nbytes}")
+        if rec["gate_bytes"] != rec["gate_from_layout"]:
+            raise AssertionError(f"(h) rank {r}: gate bytes "
+                                 f"{rec['gate_bytes']}, the layout's "
+                                 f"{rec['gate_from_layout']}")
+        for kind, dd in rec.get("vs_twin", {}).items():
+            if dd["excess"] > 0:
+                raise AssertionError(f"(h) rank {r}: {kind} params beyond "
+                                     f"the tolerance: {dd}")
+    gib = lambda b: b / 2 ** 30
+    emit("gossip_h", card=smi, arch=GOSSIP_H_ARCH, layers=GOSSIP_H_LAYERS,
+         backend="gloo", device=f"{dev} (all ranks)",
+         mesh=dict(zip(("node", "data", "model"), GOSSIP_H_MESH)),
+         tensor_parallel=True, twin_world=n, batch=GOSSIP_H_BATCH,
+         seq=GOSSIP_H_SEQ, steps=GOSSIP_H_STEPS, val=GOSSIP_H_VAL,
+         remat=True, lr=GOSSIP_F_LR,
+         spawn_wall_s={"twin": twin_wall, "split": wall},
+         gates=ranks[0]["gates"],
+         loss={"split": [rec["loss"] for rec in ranks],
+               "twin": [rec["loss"] for rec in twin], "rtol": rtol},
+         metrics={"split": [rec["metrics"] for rec in ranks],
+                  "twin": [rec["metrics"] for rec in twin]},
+         vs_twin=dict([(r, rec["vs_twin"]) for r, rec in enumerate(ranks)
+                       if "vs_twin" in rec],
+                      tolerance={k: {"rtol": v[0], "atol": v[1]}
+                                 for k, v in GOSSIP_F_TOL.items()}),
+         step_bytes={"counted": [rec["step_bytes"][-1] for rec in ranks],
+                     "from_layout": [rec["step_from_layout"]
+                                     for rec in ranks]},
+         gate_bytes={"counted": [rec["gate_bytes"] for rec in ranks],
+                     "from_layout": [rec["gate_from_layout"]
+                                     for rec in ranks]},
+         step_wall_s={"split": [rec["step_walls"] for rec in ranks],
+                      "twin": [rec["step_walls"] for rec in twin]},
+         sync_wall_s={"split": [rec["sync_wall"] for rec in ranks],
+                      "twin": [rec["sync_wall"] for rec in twin]},
+         round_wall_s={"split": [rec["wall"] for rec in ranks],
+                       "twin": [rec["wall"] for rec in twin]},
+         resident_gib={"split": [gib(rec["resident"]) for rec in ranks],
+                       "twin": [gib(rec["resident"]) for rec in twin]},
+         steps_peak_gib={"split": [gib(rec["steps_peak"]) for rec in ranks],
+                         "twin": [gib(rec["steps_peak"]) for rec in twin]},
+         sync_peak_gib={"split": [gib(rec["sync_peak"]) for rec in ranks],
+                        "twin": [gib(rec["sync_peak"]) for rec in twin]},
+         launches=ranks[0]["launches"], predicted=predicted,
+         note="6 gloo ranks on one card: the collectives go through host "
+              "memory and TCP, not NVLink")
+
+
 def phase_gossip(dev, smi):
     """The gossip backend (`repro_torch.core.gossip`, ``SwarmSession(...,
     backend="gossip")``): (a) and (b) on a world of one NCCL rank in this
     process, then (c) on 4 gloo ranks spawned on the one card together
     with (d) on 4 more as a two-level mesh, (e) inner sharding on 4
-    together with an unsharded twin on 2 and (f)'s twin on 2, then (f)
-    the split step on 4, and last (g) granite-moe-3b split on 8."""
+    together with an unsharded twin on 2 and (f)'s and (h)'s twins on 2
+    each, then (f) the split step on 4, (h) Hymba-1.5B tensor-parallel on
+    4, and last (g) granite-moe-3b split and tensor-parallel on 8."""
     import gc
     import tempfile
     import torch
@@ -6074,15 +6668,21 @@ def phase_gossip(dev, smi):
     # twin's params
     t0 = time.perf_counter()
     with _expandable_segments():
-        etwin, eshard, ftwin = _gossip_spawn_all(
+        etwin, eshard, ftwin, htwin = _gossip_spawn_all(
             tmp, dev, (_gossip_rank_e, "etwin", GOSSIP_E_NODES),
             (_gossip_rank_e, "eshard", GOSSIP_E_NODES * GOSSIP_E_MODEL),
-            (_gossip_rank_f, "ftwin", GOSSIP_E_NODES))
+            (_gossip_rank_f, "ftwin", GOSSIP_E_NODES),
+            (_gossip_rank_h, "htwin", GOSSIP_H_MESH[0]))
     _gossip_inner(dev, smi, tmp, etwin, eshard)
     TIMERS["gossip_e_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     _gossip_split(dev, smi, tmp, ftwin)
     TIMERS["gossip_f_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _gossip_tp_hymba(dev, smi, tmp, htwin)
+    TIMERS["gossip_h_s"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -85,8 +85,9 @@ of its nodes (`repro_torch.core.flat.ShardLayout`): :attr:`SwarmEngine.
 layout` is the shard's, :attr:`SwarmEngine.step_layout` the node's. A
 train step with a split form (`repro_torch.launch.train.TrainStep`) then
 runs on the shard (:attr:`SwarmEngine.splits`: each layer gathered just in
-time, the batch over the node's data ranks, gradients and AdamW on the
-shard); the session gathers the whole node for any other step. The
+time, the batch over the node's data ranks, each layer's work over its
+model ranks, gradients and AdamW on the shard); the session gathers the
+whole node for any other step. The
 sync's payload, wire and commit are the shard's, the schedule runs on the
 rank's node group, and the gate scores the node's params and candidate
 through the eval's split form (`repro_torch.launch.train.SwarmEval`,
@@ -97,13 +98,12 @@ same gate bits. The split gate trades gate bytes for peak memory: a
 layer's gather carries every rank's block of every cut leaf, zeros where
 the rank's span of a leaf's layer axis does not hold the layer
 (`repro_torch.core.flat.LayerCut`), so a leaf whose layer axis is cut
-moves more than its bytes. granite-moe-3b-a800m at 8 layers on (node,
-data, model) = (2, 2, 2) hands over 1,914,175,488 bytes a rank a sync
-through the split gate against 1,112,905,728 through the whole-node
-gather (1.72x), for a gate peak above resident memory of 0.688 GiB
-against 3.858 GiB (measured on an NVIDIA H100 80GB HBM3 at 700 W);
+moves more than its bytes; with ``model`` above 1 a rank is sent only the
+pieces of its compute blocks it does not store (tensor parallelism).
 Mamba2-370M at 2 layers on (2, 2, 1), whose tied embedding is whole on
-every rank and moves nothing, 44,302,336 against 233,037,312. The cost
+every rank and moves nothing, hands over 44,302,336 bytes a rank a sync
+through the split gate against 233,037,312 through the whole-node gather
+(measured on an NVIDIA H100 80GB HBM3 at 700 W). The cost
 model then drops the q8 psums, as the reference's does
 (``model_sharded``). A two-level mesh refuses inner specs.
 """

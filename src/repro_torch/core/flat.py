@@ -503,10 +503,26 @@ class LayerCut:
     them within that group: a dimension of the layer (each data rank a
     block of its own: one reduce_scatter), only the layer axis (one data
     rank holds the layer: a reduce to it), or nothing (every data rank the
-    same block: an all_reduce of that block)."""
+    same block: an all_reduce of that block).
+
+    With ``compute`` (tensor parallelism: ``compute(path, shape, m)`` the
+    intervals of a per-layer leaf that model rank ``m`` computes with,
+    `repro_torch.sharding.rules.compute_cut`) a rank receives only its
+    **compute block** of each leaf (:attr:`cshapes`), never the whole
+    layer: :meth:`gather_compute` moves, over the shard group, each piece
+    of a rank's compute block that it does not store from one rank that
+    stores it (one all_to_all), and :meth:`reduce_compute` takes the way
+    back: every rank sends each piece of its compute block's cotangent to
+    every rank that stores it, and each sums what it receives, in the
+    order of the senders' group indices (so a block's replicas agree bit
+    for bit). The model ranks' cotangents are their shares of the leaf's
+    gradient (`repro_torch.sharding.tensor`): a piece that several model
+    ranks compute with (a replicated leaf) sums over them, a piece of a
+    cut leaf over the data ranks alone."""
 
     def __init__(self, shard: ShardLayout, paths: Sequence[str],
-                 stacked: bool, dtypes: Dict[str, torch.dtype]):
+                 stacked: bool, dtypes: Dict[str, torch.dtype],
+                 compute=None):
         leaves = {lf.path: lf for lf in shard.full.leaves}
         self.paths = tuple(paths)
         self.stacked = stacked
@@ -538,6 +554,9 @@ class LayerCut:
             self.offsets[k] = off
             off += -(-self._numel(k) * self.dtypes[k].itemsize // 8) * 8
         self.nbytes = off
+        self.compute = compute
+        if compute is not None:
+            self._init_compute(shard)
 
     def _numel(self, k: int) -> int:
         n = 1
@@ -716,3 +735,188 @@ class LayerCut:
             keep(whole, gossip.all_reduce(view, flat(blocks(
                 whole, self._data_group[me])), kind="grad_reduce"))
         return out
+
+    # -- tensor parallelism: compute blocks ---------------------------------
+
+    def _init_compute(self, shard: ShardLayout) -> None:
+        g_all = range(self.group_size)
+        self._coords = [shard.coords_of(g) for g in g_all]
+        self._me = self._coords.index(
+            {a: shard.coords.get(a, 0) for a in shard.sizes})
+        self._cblocks = [[self.compute(p, shape, c.get("model", 0))
+                          for p, shape in zip(self.paths, self.shapes)]
+                         for c in self._coords]
+        #: this rank's compute block's shape, a leaf each
+        self.cshapes = [tuple(sum(n for _, n in ivs) for ivs in blk)
+                        for blk in self._cblocks[self._me]]
+        self._cplans = {}
+
+    def _box(self, g: int, k: int):
+        """Rank ``g``'s stored block of leaf ``k``'s layer: ``(start,
+        length)`` a dim."""
+        box = [(0, n) for n in self.shapes[k]]
+        for dim, start, length in self._plans[g][k][1]:
+            box[dim] = (start, length)
+        return box
+
+    def _pieces(self, box, blk):
+        """The pieces of compute block ``blk`` (intervals a dim) that the
+        stored ``box`` holds: ``(slices in the stored block, slices in the
+        compute block, shape)``, in order."""
+        dims = []
+        for (a, la), ivs in zip(box, blk):
+            cuts, off = [], 0
+            for c, lc in ivs:
+                lo, hi = max(a, c), min(a + la, c + lc)
+                if lo < hi:
+                    cuts.append((lo - a, off + lo - c, hi - lo))
+                off += lc
+            if not cuts:
+                return []
+            dims.append(cuts)
+        out = [((), (), ())]
+        for cuts in dims:
+            out = [(s + (slice(a, a + n),), d + (slice(b, b + n),),
+                    sh + (n,)) for s, d, sh in out for a, b, n in cuts]
+        return out
+
+    def _cplan(self, i: int, split=None):
+        """Layer ``i``'s routes from this rank's side. The gather (``split``
+        None): ``send[r]`` ``(k, stored slices)`` to rank ``r``,
+        ``recv[r]`` ``(k, compute slices, shape)`` from it, ``local``
+        ``(k, stored slices, compute slices)``. The way back (``split``:
+        whether the data ranks computed rows of their own; if not, a
+        stored block sums the ranks of its own data index only):
+        ``send[h]`` ``(k, compute slices)``, ``recv[r]`` ``(k, stored
+        slices, shape)``, ``local`` ``(k, compute slices, stored
+        slices)``."""
+        key = (i, split)
+        if key in self._cplans:
+            return self._cplans[key]
+        me, n = self._me, self.group_size
+        send = [[] for _ in range(n)]
+        recv = [[] for _ in range(n)]
+        local = []
+        data = [c.get("data", 0) for c in self._coords]
+        # each leaf's distinct stored blocks of layer i, and their holders
+        blocks = []
+        for k in range(len(self.paths)):
+            held = {}
+            for g in range(n):
+                if self._holds(self._plans[g][k][0], i):
+                    held.setdefault(self._plans[g][k][1], []).append(g)
+            blocks.append([held[c] for c in sorted(held)])
+        for r in range(n):
+            for k in range(len(self.paths)):
+                for hs in blocks[k]:
+                    pieces = self._pieces(self._box(hs[0], k),
+                                          self._cblocks[r][k])
+                    if not pieces:
+                        continue
+                    if split is None:
+                        src = r if r in hs else hs[r % len(hs)]
+                        for sl, cl, shape in pieces:
+                            if src == r == me:
+                                local.append((k, sl, cl))
+                            elif src == me:
+                                send[r].append((k, sl))
+                            elif r == me:
+                                recv[src].append((k, cl, shape))
+                        continue
+                    for h in hs:
+                        if not split and data[h] != data[r]:
+                            continue
+                        for sl, cl, shape in pieces:
+                            if h == r == me:
+                                local.append((k, cl, sl))
+                            elif r == me:
+                                send[h].append((k, cl))
+                            elif h == me:
+                                recv[r].append((k, sl, shape))
+        self._cplans[key] = (send, recv, local)
+        return self._cplans[key]
+
+    def gather_compute(self, local, i: int, view, device,
+                       kind="layer_gather"):
+        """This rank's compute block of layer ``i`` (one tensor a leaf)
+        from its stored blocks ``local`` (None where it does not hold the
+        leaf's layer): one all_to_all over the shard group ``view``, which
+        counts the bytes this rank sends (``kind``)."""
+        from repro_torch.core import gossip
+        send, recv, own = self._cplan(i)
+        out = [torch.empty(shape, dtype=dtype, device=device)
+               for shape, dtype in zip(self.cshapes, self.dtypes)]
+        for k, sl, cl in own:
+            out[k][cl].copy_(local[k].detach()[sl])
+        segs, sizes = [], []
+        for pieces in send:
+            parts = [local[k].detach()[sl].contiguous().view(-1).view(
+                torch.uint8) for k, sl in pieces]
+            segs += parts
+            sizes.append(sum(t.numel() for t in parts))
+        want = [sum(_prod(shape) * self.dtypes[k].itemsize
+                    for k, _, shape in pieces) for pieces in recv]
+        buf = torch.cat(segs) if segs else torch.empty(
+            0, dtype=torch.uint8, device=device)
+        del segs
+        got = gossip.all_to_all_v(view, buf, sizes, want, kind=kind)
+        del buf
+        off = 0
+        for pieces in recv:
+            for k, cl, shape in pieces:
+                dtype = self.dtypes[k]
+                nb = _prod(shape) * dtype.itemsize
+                seg = got[off:off + nb]
+                if off % dtype.itemsize:
+                    seg = seg.clone()
+                out[k][cl].copy_(seg.view(dtype).view(shape))
+                off += nb
+        return out
+
+    def reduce_compute(self, cots, i: int, view, device, split: bool,
+                       kind="grad_to_shard") -> Dict[int, torch.Tensor]:
+        """The gradient of this rank's stored blocks of layer ``i`` from
+        every rank's compute-block cotangents (``cots``, this rank's, one
+        a leaf): ``{k: f32 stored block}`` summed in the senders' order,
+        over the shard group, or with ``split`` False over the ranks of
+        this rank's data index. One all_to_all of f32 pieces; ``kind``
+        counts what this rank sends."""
+        from repro_torch.core import gossip
+        send, recv, own = self._cplan(i, bool(split))
+        f32 = torch.float32
+        segs, sizes = [], []
+        for pieces in send:
+            parts = [cots[k][cl].to(f32).reshape(-1) for k, cl in pieces]
+            segs += parts
+            sizes.append(sum(t.numel() for t in parts))
+        want = [sum(_prod(shape) for _, _, shape in pieces)
+                for pieces in recv]
+        buf = torch.cat(segs) if segs else torch.empty(0, dtype=f32,
+                                                       device=device)
+        del segs
+        got = gossip.all_to_all_v(view, buf, sizes, want, kind=kind)
+        del buf
+        acc = {k: torch.zeros(self.plan[k][2], dtype=f32, device=device)
+               for k in range(len(self.paths)) if self.holds(k, i)}
+        offs, off = [], 0
+        for pieces in recv:
+            offs.append(off)
+            off += sum(_prod(shape) for _, _, shape in pieces)
+        for r in range(self.group_size):
+            if r == self._me:
+                for k, cl, sl in own:
+                    acc[k][sl] += cots[k][cl].to(f32)
+                continue
+            off = offs[r]
+            for k, sl, shape in recv[r]:
+                n = _prod(shape)
+                acc[k][sl] += got[off:off + n].to(device).view(shape)
+                off += n
+        return acc
+
+
+def _prod(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n

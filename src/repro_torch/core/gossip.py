@@ -88,7 +88,13 @@ the gradient's three kinds over the data group
 These two count only what leaves the rank: a reduce_scatter the
 ``world − 1`` segments of the other ranks (its own stays), a reduce the
 tensor on every rank but the owner, and nothing on the owner (it
-receives the sum).
+receives the sum). Under tensor parallelism (a split step on a model
+group) ``layer_gather`` / ``gate_gather`` count the compute blocks' pieces
+a rank sends over the shard group (:func:`all_to_all_v`, what leaves the
+rank), ``grad_to_shard`` the f32 pieces of its cotangents it sends back
+to the ranks that store them, and the model group's activations
+(`repro_torch.sharding.tensor`) count as ``tp_gather``,
+``tp_reduce_scatter``, ``tp_all_reduce`` and ``tp_all_to_all``.
 """
 from __future__ import annotations
 
@@ -109,9 +115,13 @@ from repro_torch.core.flat import FlatLayout
 def _count(mesh, kind, *tensors) -> None:
     """Add the bytes of ``tensors`` under ``kind`` and the mesh's link
     class; ``kind`` None counts nothing (a checkpoint's gather)."""
+    _count_bytes(mesh, kind, sum(t.numel() * t.element_size()
+                                 for t in tensors))
+
+
+def _count_bytes(mesh, kind, nbytes: int) -> None:
     if kind is None:
         return
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
     mesh.counts[kind] = mesh.counts.get(kind, 0) + nbytes
     link = mesh.link_counts.setdefault(mesh.link, {})
     link[kind] = link.get(kind, 0) + nbytes
@@ -184,6 +194,22 @@ def reduce(mesh, t: torch.Tensor, owner: int, kind: str = "reduce"):
     return src.to(t.device) if mesh.rank == owner else None
 
 
+def all_to_all_v(mesh, t: torch.Tensor, send: list, recv: list,
+                 kind: str) -> torch.Tensor:
+    """The uneven all_to_all: the first ``send[0]`` rows of ``t`` go to
+    rank 0, the next ``send[1]`` to rank 1, ...; returns the ``recv[r]``
+    rows each rank ``r`` sent here, in rank order, where the collective
+    wrote them (gloo: host memory). Counts what leaves the rank (every
+    segment but its own)."""
+    src = _staged(mesh, t)
+    row = src[:1].numel() * src.element_size() if src.shape[0] else 0
+    _count_bytes(mesh, kind, (sum(send) - send[mesh.rank]) * row)
+    out = src.new_empty((sum(recv),) + tuple(src.shape[1:]))
+    dist.all_to_all_single(out, src, list(recv), list(send),
+                           group=mesh.group)
+    return out
+
+
 def all_to_all(mesh, t: torch.Tensor) -> torch.Tensor:
     """Row block c of ``t`` [world·k, ...] goes to rank c; returns the
     blocks every rank sent here, in rank order."""
@@ -234,7 +260,8 @@ def sync_bytes(mesh) -> dict:
     each link class (``by_link_collective``), and the gate bookkeeping's
     ``control`` bytes apart; on an inner-sharded mesh also the gate's
     gathers: a node's shards (``shard_gather``), or a split gate's layers
-    (``gate_gather``)."""
+    (``gate_gather``) and, tensor-parallel, its model group's activations
+    (``tp_*``)."""
     def payload(kinds):
         return {k: kinds[k] for k in PAYLOAD_KINDS if k in kinds}
 
@@ -246,9 +273,9 @@ def sync_bytes(mesh) -> dict:
     out = {"by_collective": payload(mesh.counts), "by_link_class": by_link,
            "by_link_collective": per_link,
            "control": mesh.counts.get("control", 0)}
-    for kind in ("shard_gather", "gate_gather"):
-        if kind in mesh.counts:
-            out[kind] = mesh.counts[kind]
+    for kind, nbytes in mesh.counts.items():
+        if kind in ("shard_gather", "gate_gather") or kind.startswith("tp_"):
+            out[kind] = nbytes
     return out
 
 

@@ -76,10 +76,15 @@ Which steps split:
   at most two whole layers are alive), the gradient comes back summed over
   the node's data group to the shard, and AdamW and the Δθ² statistics
   update the shard in place. No rank holds a whole node's gradient or
-  moments; with ``D = 1`` the step is the whole node's bit for bit, with
-  ``D > 1`` the gradient is summed in another order (exact to the
-  train-parity tolerances). The model ranks of one data index compute the
-  same rows (tensor parallelism is not ported);
+  moments; with ``D = 1`` and ``M = 1`` the step is the whole node's bit
+  for bit, with ``D > 1`` the gradient is summed in another order (exact
+  to the train-parity tolerances). With ``M > 1`` the layer's work
+  divides over the node's model group (tensor parallelism,
+  `repro_torch.sharding.tensor`: the reference's head-, sequence-,
+  expert-, SSM-head- and vocab-parallel placements): a rank gathers only
+  its compute blocks of each layer, never the whole layer, and computes
+  its share, also exact only to the train-parity tolerances. The enc-dec
+  family keeps the whole-layer split at any ``M``;
 * any other closure (the CNN's batch-statistics step, the true-Fisher
   4-tuple, a lambda around a step) **gathers**: the round gathers the
   node's params, moments and statistics over the shard group once, runs

@@ -7,6 +7,9 @@
 //   out = softmax(q k^T / sqrt(D) masked) v,
 //   mask = kpos <= qpos  and, where window > 0, kpos > qpos - window
 //
+// with qpos = q_off + r for query row r (0 for a prefill; a sequence-
+// parallel rank's first position for its rows of a longer sequence) and
+// kpos = t for key t; the tile skips below read the same positions.
 // (no mask without `causal`; the wrapper refuses a window without it), with
 // the online softmax state m, l and acc in f32 and the output
 // acc / max(l, 1e-30) in q's dtype. Masked scores are -1e30, as in the TPU
@@ -87,6 +90,7 @@ struct FlashArgs {
   int H, Hkv, S, T;
   long long qs[3], ks[3], vs[3], os[3];  // batch, head, seq strides
   int causal, window;
+  int q_off;  // query row r sits at position q_off + r (keys at 0..T-1)
   float scale;
 };
 
@@ -155,8 +159,9 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
     const int k0 = kt * BK;
     // the TPU kernel's tile-level skip (block-uniform)
     bool live = true;
-    if (a.causal) live = k0 <= q0 + BQ - 1;
-    if (a.window > 0) live = live && (k0 + BK - 1 > q0 - a.window);
+    if (a.causal) live = k0 <= a.q_off + q0 + BQ - 1;
+    if (a.window > 0)
+      live = live && (k0 + BK - 1 > a.q_off + q0 - a.window);
     if (!live) continue;
 
     __syncthreads();  // the previous tile's sK/sV/sP are consumed
@@ -189,7 +194,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
+      const int qp = a.q_off + q0 + ty * 4 + i;  // the row's position
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -611,9 +616,10 @@ __global__ void __launch_bounds__(kThreads<D>, 1) flash_kernel(FlashArgs a) {
   // the block's live key tiles, the TPU kernel's skip for BQ x BK tiles
   const int n_tiles = (a.T + BK - 1) / BK;
   int kt_lo = 0, kt_hi = n_tiles;
-  if (a.causal) kt_hi = min(n_tiles, (q0 + BQ<D> - 1) / BK + 1);
-  if (a.window > 0 && q0 - a.window - BK + 1 >= 0)
-    kt_lo = (q0 - a.window - BK + 1) / BK + 1;
+  const int p0 = a.q_off + q0;  // the block's first query position
+  if (a.causal) kt_hi = min(n_tiles, (p0 + BQ<D> - 1) / BK + 1);
+  if (a.window > 0 && p0 - a.window - BK + 1 >= 0)
+    kt_lo = (p0 - a.window - BK + 1) / BK + 1;
 
   if (tid == 0) {
 #pragma unroll
@@ -658,6 +664,9 @@ __global__ void __launch_bounds__(kThreads<D>, 1) flash_kernel(FlashArgs a) {
 
   const int qlo = wq0 + 16 * (warp & 3) + (lane >> 2);
   const int qhi = qlo + 8;
+  const int wp0 = a.q_off + wq0;  // positions: the warpgroup's first row,
+  const int plo = a.q_off + qlo;  // and this thread's two rows
+  const int phi = a.q_off + qhi;
   const int c2 = 2 * (lane & 3);
   const uint32_t q_tile = smem_u32(sq);
   const float sl2 = a.scale * kLog2e;
@@ -672,8 +681,8 @@ __global__ void __launch_bounds__(kThreads<D>, 1) flash_kernel(FlashArgs a) {
     mbar_wait(smem_u32(&sm.full[s]), (it / kStages) & 1);
     const int k0 = kt * BK;
     bool live = wq0 < a.S;  // the same skip for this warpgroup's 64 rows
-    if (a.causal) live = live && k0 <= wq0 + 63;
-    if (a.window > 0) live = live && (k0 + BK - 1 > wq0 - a.window);
+    if (a.causal) live = live && k0 <= wp0 + 63;
+    if (a.window > 0) live = live && (k0 + BK - 1 > wp0 - a.window);
     if (live) {
       fence_proxy_async();
       // S = Q K^T
@@ -692,8 +701,8 @@ __global__ void __launch_bounds__(kThreads<D>, 1) flash_kernel(FlashArgs a) {
 
       // scale (to base 2), mask, online softmax
       bool full = k0 + BK <= a.T;
-      if (a.causal) full = full && k0 + BK - 1 <= wq0;
-      if (a.window > 0) full = full && k0 > wq0 + 63 - a.window;
+      if (a.causal) full = full && k0 + BK - 1 <= wp0;
+      if (a.window > 0) full = full && k0 > wp0 + 63 - a.window;
       float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -704,9 +713,9 @@ __global__ void __launch_bounds__(kThreads<D>, 1) flash_kernel(FlashArgs a) {
           if (!full) {
             const int kp = k0 + 8 * j + c2 + e;
             if (a.causal) {
-              if (kp > qlo || (a.window > 0 && kp <= qlo - a.window))
+              if (kp > plo || (a.window > 0 && kp <= plo - a.window))
                 vl = kNegInf;
-              if (kp > qhi || (a.window > 0 && kp <= qhi - a.window))
+              if (kp > phi || (a.window > 0 && kp <= phi - a.window))
                 vh = kNegInf;
             }
             if (kp >= a.T) vl = vh = -INFINITY;  // past the ragged edge
@@ -834,16 +843,19 @@ int dispatch(const FlashArgs& a, int B, int D, cudaStream_t stream) {
 // (dtype 1); strides[12] = q, k, v, o strides in elements, each as (batch,
 // head, seq), the last dim contiguous (for bf16, every row 16-byte
 // aligned). D in {16, 32, 64, 128} (any other D returns
-// cudaErrorInvalidValue); H % Hkv == 0. Launches on `stream`, does
-// not synchronize, and returns cudaGetLastError() (0 on success).
+// cudaErrorInvalidValue); H % Hkv == 0. Query row r sits at position
+// q_off + r (q_off >= 0; q_off > 0 needs a causal call with q_off + S
+// <= T: every row keeps its own key), the keys at 0..T-1. Launches on `stream`, does not
+// synchronize, and returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int H,
                                       int Hkv, int S, int T, int D,
                                       const long long* strides, int causal,
-                                      int window, float scale, int dtype,
-                                      void* stream) {
+                                      int window, int q_off, float scale,
+                                      int dtype, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || S < 1 || T < 1 ||
-      B > 65535 || H > 65535 || (!causal && window > 0))
+      B > 65535 || H > 65535 || (!causal && window > 0) || q_off < 0 ||
+      (!causal && q_off > 0) || (q_off > 0 && q_off + S > T))
     return static_cast<int>(cudaErrorInvalidValue);
   FlashArgs a;
   a.q = q;
@@ -862,6 +874,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   }
   a.causal = causal;
   a.window = window;
+  a.q_off = q_off;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(a, B, D, s);

@@ -4,7 +4,13 @@ CUDA launch.
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py`` ::
 ``flash_attention`` (body ``_flash_kernel``), which on the LM path computes
 every prefill's attention (`repro_torch.models.attention`, the self-
-attention form with query positions 0..S-1). The CUDA kernel
+attention form with query positions 0..S-1). A **query offset**
+``q_off`` puts the query rows at positions q_off..q_off+S-1 over keys
+0..T-1: a sequence-parallel rank's rows of a longer sequence under
+tensor parallelism (`repro_torch.models.attention.attention_tp`); the
+causal mask, the window and the skip of masked tiles read the offset
+positions (the TPU kernel, whose queries start at 0, has no such
+argument). The CUDA kernel
 (``csrc/flash_attention.cu``) keeps the online softmax state in f32 and
 skips every key tile the TPU kernel skips (wholly in the future of the q
 tile, or wholly older than the window). Bound: the operations, about
@@ -52,7 +58,7 @@ import math
 import torch
 
 from repro_torch.kernels import LAUNCHES, build
-from repro_torch.kernels.ref import flash_attention_plain
+from repro_torch.kernels.ref import check_q_off, flash_attention_plain
 
 # every head dim of the reference's configs, smoke variants and test models
 HEAD_DIMS = (16, 32, 64, 128)
@@ -64,16 +70,20 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    q_off: int = 0) -> torch.Tensor:
     """q [B, H, S, D], k/v [B, Hkv, T, D] (H % Hkv == 0) → [B, H, S, D] in
-    q's dtype: softmax(q kᵀ/√D, masked) v with query positions 0..S-1 and
-    key positions 0..T-1."""
+    q's dtype: softmax(q kᵀ/√D, masked) v with query positions
+    q_off..q_off+S-1 and key positions 0..T-1. A nonzero ``q_off`` (a
+    sequence-parallel rank's rows over the whole K/V) needs ``causal`` and
+    ``q_off + S <= T``."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"need q [B,H,S,D] and k/v [B,Hkv,T,D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -87,8 +97,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not causal and window > 0:
         raise ValueError("flash_attention: a sliding window needs "
                          "causal=True")
+    q_off = int(q_off)
+    check_q_off(q_off, s, t, causal)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_off=q_off)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES:
@@ -123,7 +136,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     strides = [x.stride(i) for x in (q, k, v, out) for i in range(3)]
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, h, hkv, s, t, d, (ctypes.c_longlong * 12)(*strides),
-                 int(bool(causal)), window, 1.0 / d ** 0.5, _DTYPES[q.dtype],
+                 int(bool(causal)), window, q_off, 1.0 / d ** 0.5,
+                 _DTYPES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
@@ -145,14 +159,15 @@ class FlashAttention(torch.autograd.Function):
     axis and the kernel runs once over all of it."""
 
     @staticmethod
-    def forward(q, k, v, causal, window):
-        return flash_attention(q, k, v, causal=causal, window=window)
+    def forward(q, k, v, causal, window, q_off):
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               q_off=q_off)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, causal, window = inputs
+        q, k, v, causal, window, q_off = inputs
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = bool(causal), int(window)
+        ctx.causal, ctx.window, ctx.q_off = bool(causal), int(window), q_off
 
     @staticmethod
     def backward(ctx, go):
@@ -163,7 +178,7 @@ class FlashAttention(torch.autograd.Function):
         qf = q.to(f32).reshape(b, hkv, h // hkv, s, d)
         kf, vf = k.to(f32), v.to(f32)
         scores = torch.einsum("bkgsd,bktd->bkgst", qf, kf) / math.sqrt(d)
-        qpos = torch.arange(s, device=q.device)[:, None]
+        qpos = ctx.q_off + torch.arange(s, device=q.device)[:, None]
         kpos = torch.arange(t, device=q.device)[None, :]
         mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
         if ctx.causal:
@@ -178,10 +193,10 @@ class FlashAttention(torch.autograd.Function):
         dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf) / math.sqrt(d)
         dk = torch.einsum("bkgst,bkgsd->bktd", ds, qf) / math.sqrt(d)
         return (dq.reshape(b, h, s, d).to(q.dtype), dk.to(k.dtype),
-                dv.to(v.dtype), None, None)
+                dv.to(v.dtype), None, None, None)
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, causal, window):
+    def vmap(info, in_dims, q, k, v, causal, window, q_off):
         n = info.batch_size
 
         def fold(t, dim):
@@ -190,12 +205,13 @@ class FlashAttention(torch.autograd.Function):
             return t.reshape((n * t.shape[1],) + tuple(t.shape[2:]))
 
         out = FlashAttention.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
-                                   fold(v, in_dims[2]), causal, window)
+                                   fold(v, in_dims[2]), causal, window, q_off)
         return out.reshape((n, -1) + tuple(out.shape[1:])), 0
 
 
-def flash_apply(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_apply(q, k, v, *, causal: bool = True, window: int = 0,
+                q_off: int = 0):
     """Flash attention with a gradient (plain backward) and a vmap rule:
     the kernel for CUDA tensors, its plain version for CPU tensors. Same
     arguments and result as :func:`flash_attention`."""
-    return FlashAttention.apply(q, k, v, causal, window)
+    return FlashAttention.apply(q, k, v, causal, window, int(q_off))

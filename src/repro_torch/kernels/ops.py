@@ -14,8 +14,8 @@ from repro_torch.kernels.lora_matmul import lora_matmul
 from repro_torch.kernels.ssd_scan import ssd_apply
 
 
-def attention_op(q, k, v, *, causal=True, window=0):
-    return flash_apply(q, k, v, causal=causal, window=window)
+def attention_op(q, k, v, *, causal=True, window=0, q_off=0):
+    return flash_apply(q, k, v, causal=causal, window=window, q_off=q_off)
 
 
 def merge_op(stacked, weights, self_idx, gate):

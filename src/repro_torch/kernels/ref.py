@@ -115,16 +115,18 @@ def lora_matmul_plain(x, w, a, b, scale):
     return (acc + s * low).to(x.dtype)
 
 
-def attention_ref(q, k, v, *, causal=True, window=0):
+def attention_ref(q, k, v, *, causal=True, window=0, q_off=0):
     """q [B,H,S,D], k/v [B,Hkv,T,D] (GQA: H multiple of Hkv). Softmax in
-    f32; masked scores are −1e30. Twin of ``repro.kernels.ref``'s."""
+    f32; masked scores are −1e30. Twin of ``repro.kernels.ref``'s, whose
+    query positions are 0..S-1; ``q_off`` puts them at q_off..q_off+S-1
+    (a sequence-parallel rank's rows of a longer sequence)."""
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     g = h // hkv
     qg = q.reshape(b, hkv, g, s, d)
     scores = torch.einsum("bkgsd,bktd->bkgst", qg.to(torch.float32),
                           k.to(torch.float32)) / math.sqrt(d)
-    qpos = torch.arange(s, device=q.device)[:, None]
+    qpos = q_off + torch.arange(s, device=q.device)[:, None]
     kpos = torch.arange(t, device=q.device)[None, :]
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
     if causal:
@@ -137,15 +139,27 @@ def attention_ref(q, k, v, *, causal=True, window=0):
     return out.reshape(b, h, s, d).to(q.dtype)
 
 
-def flash_attention_plain(q, k, v, *, causal=True, window=0):
+def flash_attention_plain(q, k, v, *, causal=True, window=0, q_off=0):
     """The flash kernel's function: ``attention_ref``. ``causal=False``
     with ``window > 0`` raises: the TPU kernel skips tiles by window there
     while its oracle ignores the window, so the case has no single
-    meaning."""
+    meaning. ``q_off`` (query positions q_off..q_off+S-1) needs the
+    causal mask and ``q_off + S <= T``."""
     if not causal and window > 0:
         raise ValueError("flash_attention: a sliding window needs "
                          "causal=True")
-    return attention_ref(q, k, v, causal=causal, window=window)
+    check_q_off(q_off, q.shape[2], k.shape[2], causal)
+    return attention_ref(q, k, v, causal=causal, window=window, q_off=q_off)
+
+
+def check_q_off(q_off: int, s: int, t: int, causal: bool) -> None:
+    """Raise unless ``q_off`` (query positions q_off..q_off+S-1 against
+    keys 0..T-1) is 0 or a causal call's offset with every row's own key
+    present (``q_off + S <= T``)."""
+    if q_off < 0 or (q_off and not causal) or (causal and q_off
+                                                and q_off + s > t):
+        raise ValueError(f"flash_attention: q_off={q_off} needs causal=True"
+                         f" and q_off + S <= T (S={s}, T={t})")
 
 
 def ssd_scan_ref(x, dt, a_log, bmat, cmat):

@@ -38,7 +38,9 @@ their **shard group** (:attr:`SwarmMesh.shard_view`). Which values a block
 holds is decided by the param specs (`repro_torch.sharding.rules.
 param_specs`, `repro_torch.core.flat.ShardLayout`). A split step splits the
 node's batch rows over its **data group** (:attr:`SwarmMesh.data_view`,
-the ranks of one position and model index):
+the ranks of one position and model index) and each layer's work over its
+**model group** (:attr:`SwarmMesh.model_view`, the ranks of one position
+and data index: tensor parallelism, `repro_torch.sharding.tensor`):
 
     mesh, axis = make_swarm_mesh(2, model=2)   # 4 ranks: 2 nodes × 2
     specs = param_specs(layout, mesh)
@@ -70,7 +72,8 @@ class SwarmMesh:
     above 1) ``group`` is the rank's node group, ``inner`` maps the inner
     axes to their sizes and ``coords`` to this rank's index on each,
     :attr:`shard_view` is the node's shard group, :attr:`data_view` (with
-    ``data`` above 1) the rank's data group within it, and ``world_group``
+    ``data`` above 1) the rank's data group within it, :attr:`model_view`
+    (with ``model`` above 1) its model group, and ``world_group``
     the group the mesh was built over (None: the default group); otherwise
     ``inner`` and ``coords`` are empty and both views None.
 
@@ -109,6 +112,7 @@ class SwarmMesh:
         self.pod_view: Optional[GroupView] = None
         self.shard_view: Optional[GroupView] = None
         self.data_view: Optional[GroupView] = None
+        self.model_view: Optional[GroupView] = None
         self.world_group = group
         self.inner: Dict[str, int] = {}
         self.coords: Dict[str, int] = {}
@@ -201,7 +205,12 @@ def make_swarm_mesh(n_nodes: int = 4, *, data: int = 1, model: int = 1,
     ``m``, the ranks ``(i, ·, m)`` (:attr:`SwarmMesh.data_view`): a split
     step (`repro_torch.launch.train.TrainStep.split`) gives each its share
     of the node's batch rows and sums the gradients and batch statistics
-    over it. A world that ``data · model`` does not divide raises."""
+    over it; with ``model`` above 1, the model group of each position and
+    data index ``d``, the ranks ``(i, d, ·)`` (:attr:`SwarmMesh.
+    model_view`): a split step divides each layer's work over it (the
+    activations' collectives count as ``tp_gather``, ``tp_reduce_scatter``,
+    ``tp_all_reduce`` and ``tp_all_to_all``). A world that ``data · model``
+    does not divide raises."""
     import torch.distributed as dist
 
     inner = data * model
@@ -232,6 +241,12 @@ def make_swarm_mesh(n_nodes: int = 4, *, data: int = 1, model: int = 1,
                                     for d in range(data)])
                     for m in range(model)]
                    for q in range(positions)] if data > 1 else None
+    # with model above 1: each (position, data index)'s model group, made
+    # last for the same reason
+    model_groups = [[dist.new_group([world((q * data + d) * model + m)
+                                     for m in range(model)])
+                     for d in range(data)]
+                    for q in range(positions)] if model > 1 else None
     mesh = SwarmMesh(n_nodes, group=node_groups[g], axis="node",
                      shape={"node": positions, "data": data,
                             "model": model})
@@ -242,6 +257,9 @@ def make_swarm_mesh(n_nodes: int = 4, *, data: int = 1, model: int = 1,
     if data_groups is not None:
         mesh.data_view = GroupView(mesh, data_groups[i][g % model], "data",
                                    "intra")
+    if model_groups is not None:
+        mesh.model_view = GroupView(mesh, model_groups[i][g // model],
+                                    "model", "intra")
     return mesh, mesh.axis
 
 

@@ -23,7 +23,12 @@ a session takes as its train step directly. On a gossip session with inner
 specs (`repro_torch.launch.mesh.make_swarm_mesh(n, data=D, model=M)`) it
 runs split (:meth:`TrainStep.split`): on the rank's shard of its node, the
 batch's rows over the node's data group, each layer gathered just in time
-(`repro_torch.models.gather`), the gradient and AdamW on the shard.
+(`repro_torch.models.gather`), the gradient and AdamW on the shard. With
+``M`` above 1 the layer's work divides over the node's model group (tensor
+parallelism, `repro_torch.sharding.tensor`): a rank gathers only its
+compute blocks and computes its share, as the reference's GSPMD places it
+(`repro_torch.sharding.rules.placement`); the enc-dec family keeps the
+whole-layer split.
 :func:`make_swarm_eval` returns a :class:`SwarmEval`, the session's gate
 metric in the same form: on such a session the gate scores each node
 through :meth:`SwarmEval.split`, a layer at a time, never the node whole.
@@ -46,6 +51,26 @@ from repro_torch.core.engine import SwarmEngine, gate_decisions, gated_commit
 from repro_torch.models import Model
 from repro_torch.models.gather import node_norm
 from repro_torch.optim import adamw_init, adamw_update_, make_schedule
+
+
+def tensor_plan(model: Model, mesh):
+    """The `repro_torch.sharding.tensor.TensorPlan` of a split step of
+    ``model`` on ``mesh``: its model group and placement; None with one
+    model rank, and for the enc-dec family, which keeps the whole-layer
+    split (its encoder and cross-attention have no tensor-parallel form
+    yet). Raises where the group does not divide the padded vocab (the
+    logits and the loss are vocab-parallel)."""
+    m = mesh.inner.get("model", 1)
+    if m <= 1 or model.cfg is None or model.cfg.is_encdec:
+        return None
+    from repro_torch.sharding.rules import placement
+    from repro_torch.sharding.tensor import TensorPlan
+    place = placement(model.cfg, m)
+    if not place.vocab:
+        raise ValueError(f"{model.cfg.name}: the padded vocab "
+                         f"{model.cfg.padded_vocab} does not divide over "
+                         f"model={m}")
+    return TensorPlan(mesh.model_view, place, model.cfg)
 
 
 class TrainStep:
@@ -136,7 +161,10 @@ class TrainStep:
         data group, and AdamW updates the shard in place with the whole
         node's clipping norm. The metrics are the node's (the loss averaged
         over the data group), alike on every rank of the node. With one
-        data rank the step is the whole node's, bit for bit."""
+        data rank and one model rank the step is the whole node's, bit for
+        bit. With ``M`` model ranks (:func:`tensor_plan`) each layer's work
+        divides over the model group: the same function, summed in
+        another order."""
         from repro_torch.models.gather import NodeSplit
         from repro_torch.sharding.batch import batch_group
 
@@ -147,9 +175,10 @@ class TrainStep:
         if rows:
             n, d = b // d_size, mesh.coords["data"]
             batch = {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
+        tp = tensor_plan(model, mesh)
         plan = NodeSplit(shard, mesh.shard_view,
                          mesh.data_view if rows else None,
-                         dtype=params.dtype, device=params.device)
+                         dtype=params.dtype, device=params.device, tensor=tp)
         local = shard.local
         parts = local.parts(params)
         leaves = tuple(p.detach().requires_grad_() for p in parts)
@@ -210,11 +239,14 @@ class SwarmEval:
         the unscanned unit and at most two layers whole at once), the
         rows whole on every rank. The same bytes through the same ops as
         the whole node's: every rank of the node reaches the node's
-        metric."""
+        metric. With ``M`` model ranks each layer's work divides over the
+        model group as in :meth:`TrainStep.split` (the metric then within
+        rounding of the whole node's)."""
         from repro_torch.models.gather import NodeSplit
 
+        tp = tensor_plan(self.model, mesh)
         plan = NodeSplit(shard, mesh.shard_view, None, dtype=params.dtype,
-                         device=params.device, kind="gate_gather")
+                         device=params.device, kind="gate_gather", tensor=tp)
         with torch.no_grad():
             loss, _ = self.model.loss_fn(shard.local.unflatten(params), val,
                                          remat=False, split=plan)

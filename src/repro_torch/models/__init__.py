@@ -58,8 +58,10 @@ from repro_torch.models.encdec import (decode_step, encdec_shapes,
                                        forward_encdec, init_encdec_,
                                        make_encdec_cache)
 from repro_torch.models.layers import dtype_of, embed, softmax_xent
-from repro_torch.models.transformer import (forward_lm, init_lm_, lm_shapes,
-                                            make_lm_cache, project_frontend)
+from repro_torch.models.transformer import (embed_tp, forward_lm, init_lm_,
+                                            lm_shapes, make_lm_cache,
+                                            project_frontend)
+from repro_torch.sharding import tensor
 
 
 @dataclass(frozen=True, eq=False)
@@ -205,8 +207,11 @@ def _lm_model(cfg: ModelConfig, lora_rank: int) -> Model:
     def forward(tree, batch, **kw):
         if cfg.family != "vlm":
             return forward_lm(tree, cfg, batch["tokens"], **kw)
-        tok = embed(tree["embed"], batch["tokens"],
-                    dtype_of(cfg.compute_dtype))
+        if tensor.current() is None:
+            tok = embed(tree["embed"], batch["tokens"],
+                        dtype_of(cfg.compute_dtype))
+        else:   # every text position, alike on every model rank
+            tok = embed_tp(tree["embed"], batch["tokens"], cfg, whole=True)
         patches = project_frontend(tree, cfg,
                                    batch["patch_embeds"].to(tok.dtype))
         return forward_lm(tree, cfg, embeds=torch.cat([patches, tok], dim=1),
@@ -216,14 +221,19 @@ def _lm_model(cfg: ModelConfig, lora_rank: int) -> Model:
         """(loss, {"xent", "aux"}); ``remat`` checkpoints every block
         (`repro_torch.models.remat`), the reference's default. ``split``
         (`repro_torch.models.gather.NodeSplit`): ``params`` are a rank's
-        local leaf views of its shard, gathered layer by layer."""
-        if split is None:
-            logits, aux, _ = call(params, forward, batch, remat=remat)
-        else:
-            logits, aux, _ = forward(split.tree(params), batch, remat=remat,
-                                     split=split)
-        xent = softmax_xent(logits[:, text_from:], batch["labels"],
-                            batch.get("mask"))
+        local leaf views of its shard, gathered layer by layer (each
+        layer's compute blocks under tensor parallelism, its model group
+        ``split.tensor`` the forward's for the call: the logits are then
+        the rank's vocab cut, and the loss the vocab-parallel cross
+        entropy's, alike on every model rank)."""
+        with tensor.model_group(None if split is None else split.tensor):
+            if split is None:
+                logits, aux, _ = call(params, forward, batch, remat=remat)
+            else:
+                logits, aux, _ = forward(split.tree(params), batch,
+                                         remat=remat, split=split)
+            xent = softmax_xent(logits[:, text_from:], batch["labels"],
+                                batch.get("mask"))
         return xent + aux, {"xent": xent, "aux": aux}
 
     def prefill(params, batch, caches):

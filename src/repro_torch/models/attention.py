@@ -30,6 +30,16 @@ tensor ``[B]`` (one per row: the serving engine's slots sit at different
 depths). The cache is updated in place by index writes, never copied;
 ``commit`` (bool ``[B]``, optional) limits the write to the rows it marks,
 as the reference engine's masked commit keeps the other lanes' caches.
+
+Under tensor parallelism (a split step on a model group, `repro_torch.
+sharding.tensor`) :func:`attention_tp` takes the rank's cut of the
+sequence and the params' compute blocks, and places the work as the
+reference's ``logical_shard`` calls do: **head-parallel** where the KV
+heads divide the group (q, k, v on the rank's ``n_heads / M`` and
+``n_kv_heads / M`` heads over the gathered sequence, the output
+row-parallel), else **sequence-parallel** (the rank's ``S / M`` query rows
+over the whole K/V, through the flash kernel's query offset, the weights
+whole).
 """
 from __future__ import annotations
 
@@ -40,7 +50,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, linear
+from repro_torch.models.layers import apply_rope, linear, row_parallel
+from repro_torch.sharding import tensor
 
 NEG_INF = -1e30
 
@@ -160,3 +171,39 @@ def attention(p, x, cfg: ModelConfig, *, positions, causal: bool = True,
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         out = _gqa_out(probs, v)                            # [B,S,nh,hd]
     return linear(p["o"], out.reshape(b, s, nh * hd))
+
+
+def attention_tp(p, h, cfg: ModelConfig, *, positions, window: int = 0,
+                 h_full=None):
+    """Causal self-attention under tensor parallelism: ``h`` [B, S/M, D]
+    the rank's cut of the sequence (``h_full`` [B, S, D], its gather, when
+    the block already has it), ``positions`` [B, S] the whole sequence's,
+    ``p`` the compute blocks → the rank's cut of the output [B, S/M, D]."""
+    tp = tensor.current()
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, sl, _ = h.shape
+    if h_full is None:
+        h_full = tensor.gather(h)
+    s = h_full.shape[1]
+    window = int(window)
+    if tp.place.attention == "heads":
+        m = tp.size
+        q = linear(p["q"], h_full).reshape(b, s, nh // m, hd)
+        k = linear(p["k"], h_full).reshape(b, s, nkv // m, hd)
+        v = linear(p["v"], h_full).reshape(b, s, nkv // m, hd)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        out = ops.attention_op(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=True,
+                               window=window).transpose(1, 2)
+        return row_parallel(p["o"], out.reshape(b, s, nh // m * hd))
+    s0, _ = tp.seq_cut(s)
+    q = linear(p["q"], h).reshape(b, sl, nh, hd)
+    k = linear(p["k"], h_full).reshape(b, s, nkv, hd)
+    v = linear(p["v"], h_full).reshape(b, s, nkv, hd)
+    q = apply_rope(q, positions[:, s0:s0 + sl], cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = ops.attention_op(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal=True, window=window,
+                           q_off=s0).transpose(1, 2)
+    return linear(p["o"], out.reshape(b, sl, nh * hd))

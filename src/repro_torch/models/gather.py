@@ -16,10 +16,11 @@ its dry-run: batch over ``data``, params and optimizer fully sharded):
   (:class:`LayerShards`), by a :class:`~repro_torch.core.flat.LayerCut`;
 * the gather is an autograd Function (:class:`_Gather`): its backward
   takes the whole layer's cotangent to the rank's blocks, summed over the
-  node's **data group** only (the model ranks of one data index computed
-  the same cotangent), in f32, divided by ``D`` (the node's loss is the
-  mean of its data ranks', `repro_torch.sharding.batch`) and rounded once
-  to each leaf's dtype. Each rank hands over only the blocks its data
+  node's **data group** only (without tensor parallelism the model ranks
+  of one data index compute the same cotangent), in f32, divided by ``D``
+  (the node's loss is the mean of its data ranks',
+  `repro_torch.sharding.batch`) and rounded once to each leaf's dtype.
+  Each rank hands over only the blocks its data
   group keeps (`repro_torch.core.flat.LayerCut.reduce`: a reduce_scatter
   of the blocks the data axis cuts, a reduce to the one data rank that
   holds a layer the data axis cuts on the layer axis, an all_reduce of a
@@ -30,6 +31,25 @@ its dry-run: batch over ``data``, params and optimizer fully sharded):
   then computes whole) it only cuts the block out: the gradient is the
   whole node's, bit for bit.
 
+**Tensor parallelism.** With a model group (``tensor``, a
+`repro_torch.sharding.tensor.TensorPlan`: a mesh with ``model`` above 1
+and a decoder-only family) every unit is a compute cut
+(`repro_torch.core.flat.LayerCut.gather_compute`): a rank receives its
+**compute block** of each leaf (the slices its model index computes
+with, `repro_torch.sharding.rules.compute_cut`), never the whole layer,
+and the forward divides the layer's work over the model group
+(`repro_torch.sharding.tensor`). The backward sends each rank's share of
+a compute block's cotangent to the ranks that store it
+(:meth:`~repro_torch.core.flat.LayerCut.reduce_compute`, ``grad_to_shard``
+bytes): a piece of a cut leaf sums over the data group alone (one model
+rank computes with it), a piece of a leaf every model rank computes with
+(norm scales, biases added after a reduce, the router, an SSM's B/C
+columns, a leaf M does not divide) over the data and the model group, in
+f32, divided by ``D`` where the data ranks took rows of their own. Each
+piece is summed once. The enc-dec family keeps the whole-layer split on
+purpose: its encoder and cross-attention have no tensor-parallel form
+yet.
+
 Without autograd (the split gate, `repro_torch.launch.train.SwarmEval.
 split`, under ``torch.no_grad``) :meth:`LayerShards.gather` assembles the
 unit plainly, so a rank that holds no block of a layer still joins its
@@ -37,8 +57,9 @@ all_gather; the gathers then count as ``gate_gather``.
 
 With ``remat=True`` the block's checkpoint (`repro_torch.models.remat`)
 takes the :class:`LayerShards` and gathers the layer inside: the whole
-layer is dropped when the block returns and gathered again for the
-recompute, so a rank holds at most two whole layers at once (ZeRO-3's
+layer (the compute blocks, under tensor parallelism) is dropped when the
+block returns and gathered again for the recompute, so a rank holds at
+most two whole layers (two layers' compute blocks) at once (ZeRO-3's
 peak). With ``remat=False`` the autograd graph keeps every gathered layer
 until the backward: the params are then a whole node's for the step, while
 its gradients and moments stay the shard's.
@@ -150,8 +171,9 @@ class NodeSplit:
     ``shard`` (its :class:`~repro_torch.core.flat.ShardLayout`), the
     node's shard group ``shard_view`` (the gathers, counted as ``kind``),
     the rank's data group ``data_view`` (the gradients' sum; None: the
-    rank's rows are the node's whole batch) and the dtype of the params'
-    16-bit (or f32) rest.
+    rank's rows are the node's whole batch), the dtype of the params'
+    16-bit (or f32) rest and, for tensor parallelism, ``tensor`` (a
+    `repro_torch.sharding.tensor.TensorPlan`: every unit a compute cut).
 
     A model's ``loss_fn(views, batch, split=...)`` calls :meth:`tree` on
     the rank's local leaf views, and its forward loops call
@@ -159,36 +181,57 @@ class NodeSplit:
 
     def __init__(self, shard, shard_view, data_view=None, *,
                  dtype: torch.dtype = torch.float32, device="cpu",
-                 kind: str = "layer_gather"):
+                 kind: str = "layer_gather", tensor=None):
         self.shard = shard
         self.device = torch.device(device)
         self.shard_view = shard_view
         self.data_view = data_view
         self.kind = kind
+        self.tensor = tensor
         full = shard.full
         dtypes = {lf.path: torch.float32 if lf.wide else dtype
                   for lf in full.leaves}
+        compute = None
+        if tensor is not None:
+            from repro_torch.sharding.rules import compute_cut
+
+            def compute(path, shape, m):
+                return compute_cut(tensor.cfg, tensor.place, path, shape, m)
         tops = {lf.path.split(".")[0] for lf in full.leaves}
         self.cuts = {top: LayerCut(
             shard, [lf.path for lf in full.leaves
-                    if lf.path.split(".")[0] == top], True, dtypes)
+                    if lf.path.split(".")[0] == top], True, dtypes, compute)
             for top in STACKED if top in tops}
         self.unit = LayerCut(
             shard, [lf.path for lf in full.leaves
-                    if lf.path.split(".")[0] not in self.cuts], False, dtypes)
+                    if lf.path.split(".")[0] not in self.cuts], False, dtypes,
+            compute)
 
     # -- the two directions, no autograd -----------------------------------
 
     def gather(self, cut, local, i: int):
-        """The whole unit ``i`` of ``cut`` from the rank's blocks."""
+        """The whole unit ``i`` of ``cut`` (its compute blocks under tensor
+        parallelism) from the rank's blocks."""
+        if cut.compute is not None:
+            return cut.gather_compute(local, i, self.shard_view, self.device,
+                                      kind=self.kind)
         return cut.gather(local, i, self.shard_view, self.device,
                           kind=self.kind)
 
     def reduce(self, cut, cots, i: int, local):
-        """The held blocks' gradients from the whole unit's cotangents."""
+        """The held blocks' gradients from the whole unit's (or the compute
+        blocks') cotangents."""
+        shapes = cut.shapes if cut.compute is None else cut.cshapes
         cots = [torch.zeros(shape, dtype=dtype, device=self.device)
                 if c is None else c
-                for c, shape, dtype in zip(cots, cut.shapes, cut.dtypes)]
+                for c, shape, dtype in zip(cots, shapes, cut.dtypes)]
+        if cut.compute is not None:
+            split = self.data_view is not None
+            summed = cut.reduce_compute(cots, i, self.shard_view,
+                                        self.device, split)
+            d = self.data_view.world_size if split else 1
+            return [summed[k].div_(d).to(cut.dtypes[k]).contiguous()
+                    for k, t in enumerate(local) if t is not None]
         if self.data_view is None:
             return [cut.shard_of(k, c).to(cut.dtypes[k]).contiguous()
                     for k, (c, t) in enumerate(zip(cots, local))

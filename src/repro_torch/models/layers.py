@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding import batch
+from repro_torch.sharding import batch, tensor
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -50,14 +50,27 @@ def init_linear_(p: dict, generator: torch.Generator) -> None:
 # apply
 # ---------------------------------------------------------------------------
 
-def linear(p, x):
+def linear(p, x, bias: bool = True):
+    """``x @ w`` (+ the LoRA term) (+ ``b``; ``bias=False`` leaves it to
+    the caller: a row-parallel layer adds it once, after its reduce)."""
     y = x @ p["w"].to(x.dtype)
     if "lora_A" in p:  # LoRA adapter
         scale = p["lora_scale"].to(x.dtype)
         y = y + ((x @ p["lora_A"].to(x.dtype))
                  @ p["lora_B"].to(x.dtype)) * scale
-    if "b" in p:
+    if bias and "b" in p:
         y = y + p["b"].to(x.dtype)
+    return y
+
+
+def row_parallel(p, x):
+    """A row-parallel layer under tensor parallelism: the rank's share
+    ``x_cut @ w_cut`` summed over the model group onto the rank's cut of
+    the sequence (`repro_torch.sharding.tensor.scatter_sum`), the bias
+    added once, after."""
+    y = tensor.scatter_sum(linear(p, x, bias=False))
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
     return y
 
 
@@ -100,14 +113,23 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(p, x, cfg: ModelConfig):
+def _mlp_hidden(p, x, cfg: ModelConfig):
     if cfg.activation == "swiglu":
-        h = F.silu(linear(p["gate"], x)) * linear(p["up"], x)
-    elif cfg.activation == "sq_relu":  # nemotron-4: squared ReLU
-        h = torch.square(F.relu(linear(p["up"], x)))
-    else:
-        h = gelu(linear(p["up"], x))
-    return linear(p["down"], h)
+        return F.silu(linear(p["gate"], x)) * linear(p["up"], x)
+    if cfg.activation == "sq_relu":  # nemotron-4: squared ReLU
+        return torch.square(F.relu(linear(p["up"], x)))
+    return gelu(linear(p["up"], x))
+
+
+def mlp(p, x, cfg: ModelConfig):
+    """The MLP; under tensor parallelism (x the rank's cut of the
+    sequence) with ``ff`` cut its hidden axis column-parallel over the
+    gathered sequence and ``down`` row-parallel, else whole on the rank's
+    rows (position-wise: no collective)."""
+    tp = tensor.current()
+    if tp is not None and tp.place.ff:
+        return row_parallel(p["down"], _mlp_hidden(p, tensor.gather(x), cfg))
+    return linear(p["down"], _mlp_hidden(p, x, cfg))
 
 
 def softmax_xent(logits, labels, mask: Optional[torch.Tensor] = None):
@@ -117,11 +139,15 @@ def softmax_xent(logits, labels, mask: Optional[torch.Tensor] = None):
     ``D`` data ranks, each with ``B / D`` of the node's rows) the masked
     mean is ``D`` times the rank's masked sum over the group's token count,
     so that the node's loss is the mean of its ranks' (the unmasked mean of
-    equal row counts already is)."""
-    lf = logits.to(torch.float32)
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    equal row counts already is). Under tensor parallelism ``logits`` is
+    the rank's vocab cut (`repro_torch.sharding.tensor.vocab_xent`)."""
+    if tensor.current() is not None:
+        nll = tensor.vocab_xent(logits, labels)
+    else:
+        lf = logits.to(torch.float32)
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+        nll = logz - gold
     if mask is None:
         return torch.mean(nll)
     mask = mask.to(torch.float32)

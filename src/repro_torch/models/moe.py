@@ -31,6 +31,16 @@ The body reads nothing back from the card (no ``nonzero``, no boolean-mask
 indexing, no ``.item()``; one-hots compare with ``arange(e)``), so a
 serving step that runs it can be captured into a CUDA graph, and every op
 has a ``torch.func.vmap`` rule, so the trainer's vmap over nodes runs it.
+
+Under tensor parallelism (:func:`moe_tp`, a split step on a model group,
+`repro_torch.sharding.tensor`) every model rank routes the gathered
+sequence alike (the router whole; top-k, capacity and slots the same on
+each rank). Where M divides the experts, a rank builds and runs only its
+``E / M`` experts' rows of the ``[E, cap, D]`` buffer, and its f32 share
+of the combine leaves by a reduce_scatter onto its cut of the sequence,
+rounded once; otherwise (the reference's fallback: experts whole) it runs
+every expert and keeps its own rows. The aux loss counts once: its
+gradient is divided over the group.
 """
 from __future__ import annotations
 
@@ -39,7 +49,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import init_linear_
-from repro_torch.sharding import batch
+from repro_torch.sharding import batch, tensor
 
 
 def moe_shapes(cfg: ModelConfig) -> dict:
@@ -105,21 +115,34 @@ def dispatch(expert_ids, cfg: ModelConfig):
 
 def moe(p, x, cfg: ModelConfig):
     """x [B,S,D] → (y [B,S,D], aux scalar f32)."""
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    t = b * s
     gate_vals, expert_ids, aux = route(p, x, cfg)
+    return experts(p, x, cfg, gate_vals, expert_ids).to(x.dtype), aux
+
+
+def experts(p, x, cfg: ModelConfig, gate_vals, expert_ids, e0: int = 0):
+    """The experts ``e0 .. e0 + E_l`` (``p``'s stacked experts, ``E_l``
+    of them) on the routed ``x`` [B,S,D]: their gate-weighted outputs, the
+    k terms summed in f32 [B,S,D] (the other experts' assignments
+    weigh 0)."""
+    b, s, d = x.shape
+    k = cfg.top_k
+    w = p["experts"]
+    e = w["gate"]["w"].shape[0]
+    t = b * s
     slot, keep, cap_g = dispatch(expert_ids, cfg)
     cap = b * cap_g
-    flat_ids = expert_ids.reshape(t * k)
+    flat_ids = expert_ids.reshape(t * k) - e0
+    if e0 or e != cfg.n_experts:
+        mine = (flat_ids >= 0) & (flat_ids < e)
+        flat_ids = torch.where(mine, flat_ids, 0)
+        keep = keep & mine
 
-    # dispatch: [E, cap + 1, D], the spare row cut off
+    # dispatch: [E_l, cap + 1, D], the spare row cut off
     src = x.reshape(t, 1, d).expand(t, k, d).reshape(t * k, d)
     rows = flat_ids * (cap + 1) + torch.where(keep, slot, cap)
     buf = x.new_zeros((e * (cap + 1), d)).index_copy(0, rows, src)
     buf = buf.reshape(e, cap + 1, d)[:, :cap]
 
-    w = p["experts"]
     g = F.silu(torch.bmm(buf, w["gate"]["w"].to(x.dtype)))
     u = torch.bmm(buf, w["up"]["w"].to(x.dtype))
     out = torch.bmm(g * u, w["down"]["w"].to(x.dtype))           # [E,cap,D]
@@ -128,5 +151,21 @@ def moe(p, x, cfg: ModelConfig):
     rows = flat_ids * cap + torch.where(keep, slot, cap - 1)
     got = out.reshape(e * cap, d).index_select(0, rows)          # [T*k, D]
     got = got * (keep[:, None] * gate_vals.reshape(t * k, 1)).to(x.dtype)
-    y = got.reshape(t, k, d).to(torch.float32).sum(1).to(x.dtype)
-    return y.reshape(b, s, d), aux
+    return got.reshape(t, k, d).to(torch.float32).sum(1).reshape(b, s, d)
+
+
+def moe_tp(p, h, cfg: ModelConfig):
+    """The MoE block under tensor parallelism: ``h`` [B, S/M, D] the
+    rank's cut of the sequence, ``p`` the compute blocks (the router
+    whole, the experts the rank's ``E / M`` or all of them) → (the rank's
+    cut of y [B, S/M, D], aux)."""
+    tp = tensor.current()
+    x = tensor.gather(h)
+    gate_vals, expert_ids, aux = route(p, x, cfg)
+    aux = tensor.replicated(aux)
+    if tp.place.experts:
+        e0 = tp.rank * (cfg.n_experts // tp.size)
+        y = experts(p, x, cfg, gate_vals, expert_ids, e0)
+        return tensor.scatter_sum(y).to(h.dtype), aux
+    y = experts(p, x, cfg, gate_vals, expert_ids).to(h.dtype)
+    return tensor.local(y), aux

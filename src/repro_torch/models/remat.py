@@ -33,6 +33,8 @@ from typing import Callable, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.sharding import tensor
+
 
 class _Checkpoint(torch.autograd.Function):
     """``fn(*tree_unflatten(leaves, spec))`` → a tuple of tensors, saving
@@ -119,6 +121,35 @@ class _GatheredCheckpoint(torch.autograd.Function):
             shards.reduce(list(grads[k:])))
 
 
+class _TensorCheckpoint(_GatheredCheckpoint):
+    """:class:`_GatheredCheckpoint` under tensor parallelism: the layer is
+    the rank's compute blocks and the block runs the model group's
+    collectives (`repro_torch.sharding.tensor`), which run on plain
+    tensors only, so the backward recomputes the block under plain
+    autograd (``torch.autograd.grad`` of its outputs against the
+    cotangents), not under ``torch.func.grad``, in the split's model
+    group (the backward runs after the loss has left it)."""
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        shards = ctx.shards
+        leaves = list(ctx.saved_tensors)
+        with torch.enable_grad(), tensor.model_group(shards.split.tensor):
+            ins = [t.detach().requires_grad_() if t.is_floating_point()
+                   else t for t in leaves]
+            whole = [t.requires_grad_() for t in shards.assemble()]
+            outs = ctx.fn(*pytree.tree_unflatten(ins, ctx.spec),
+                          shards.tree(whole))
+            diff = [t for t in ins if t.is_floating_point()]
+            grads = torch.autograd.grad(outs, diff + whole, cotangents,
+                                        allow_unused=True)
+        del whole, outs
+        it = iter(grads[:len(diff)])
+        out = [next(it) if t.is_floating_point() else None for t in leaves]
+        return (None, None, None) + tuple(out) + tuple(
+            shards.reduce(list(grads[len(diff):])))
+
+
 def checkpoint(fn: Callable[..., Tuple[torch.Tensor, ...]], *args
                ) -> Tuple[torch.Tensor, ...]:
     """``fn(*args)`` with its activations recomputed in the backward.
@@ -136,12 +167,14 @@ def checkpoint(fn: Callable[..., Tuple[torch.Tensor, ...]], *args
     On a split step (`repro_torch.models.gather`) the last argument is the
     rank's `LayerShards` of the layer instead of its views: the layer is
     gathered inside the checkpoint, for the forward and again for the
-    recompute, and ``fn`` receives it whole."""
+    recompute, and ``fn`` receives it whole (its compute blocks under
+    tensor parallelism)."""
     from repro_torch.models.gather import LayerShards
     if args and isinstance(args[-1], LayerShards):
         shards = args[-1]
         leaves, spec = pytree.tree_flatten(args[:-1])
-        return _GatheredCheckpoint.apply(fn, spec, shards, *leaves,
-                                         *shards.held())
+        cls = (_TensorCheckpoint if shards.cut.compute is not None
+               else _GatheredCheckpoint)
+        return cls.apply(fn, spec, shards, *leaves, *shards.held())
     leaves, spec = pytree.tree_flatten(args)
     return _Checkpoint.apply(fn, spec, *leaves)

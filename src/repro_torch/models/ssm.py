@@ -14,6 +14,15 @@ Two forms, chosen by the call's shape:
 
 :func:`ssd_chunked` is a twin of the reference's pure-jnp chunked scan,
 kept for the tests (the model path does not call it).
+
+Under tensor parallelism (:func:`ssm_tp`, a split step on a model group,
+`repro_torch.sharding.tensor`) the heads are cut over the group where it
+divides them (the reference's ``ff`` on the heads axis): a rank runs the
+SSD scan on its ``h / M`` heads over the gathered sequence, the conv on
+its channels, B and C whole (or the groups its heads read), and the
+gated norm's mean over all of ``d_inner`` sums the rank's squares over the
+group (f32); ``out_proj`` is row-parallel. Otherwise every rank runs the
+whole mixer on the gathered sequence and keeps its rows.
 """
 from __future__ import annotations
 
@@ -22,7 +31,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import init_linear_, linear, normal_
+from repro_torch.models.layers import (init_linear_, linear, normal_,
+                                       row_parallel)
+from repro_torch.sharding import tensor
 
 
 def _dims(cfg: ModelConfig):
@@ -65,10 +76,6 @@ def make_ssm_state(cfg: ModelConfig, batch: int, dtype, device):
                                 dtype=dtype, device=device)}
 
 
-def _split_proj(cfg, zxbcdt):
-    di, h, pdim, n, g = _dims(cfg)
-    return torch.split(zxbcdt, [di, di, g * n, g * n, h], dim=-1)
-
 
 def _causal_conv(conv_p, u, prefix=None):
     """Depthwise causal conv. u [B,S,C]; prefix [B,W-1,C] for decode."""
@@ -85,10 +92,17 @@ def _causal_conv(conv_p, u, prefix=None):
     return F.silu(out), full[:, -(width - 1):]
 
 
-def _gated_norm(scale, y, z, eps):
+def _gated_norm(scale, y, z, eps, width: int = 0):
+    """The gated RMSNorm; with ``width`` (a heads cut: ``y`` holds the
+    rank's channels of ``width``) the mean of squares sums over the model
+    group."""
     y = y * F.silu(z.to(torch.float32)).to(y.dtype)
     yf = y.to(torch.float32)
-    var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    if width:
+        var = tensor.all_reduce(torch.sum(yf * yf, dim=-1,
+                                          keepdim=True)) / width
+    else:
+        var = torch.mean(yf * yf, dim=-1, keepdim=True)
     return (yf * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(y.dtype)
 
 
@@ -144,11 +158,17 @@ def ssd_chunked(x, dt, a_log, bmat, cmat, chunk: int):
 
 def ssm_block(p, x, cfg: ModelConfig, *, state=None):
     """Full mamba2 mixer. x [B,S,D] -> (y [B,S,D], new_state or None); the
-    caller writes a new state into its cache."""
+    caller writes a new state into its cache. The widths are the params':
+    a model rank's compute blocks under a heads cut (:func:`ssm_tp`) give
+    its heads' channels (``y`` the rank's share, reduce_scattered onto
+    its cut of the sequence)."""
     b, s, d = x.shape
-    di, h, pdim, n, g = _dims(cfg)
+    _, _, pdim, n, _ = _dims(cfg)
+    di, h = p["norm_scale"].shape[0], p["A_log"].shape[0]
+    g = (p["conv"]["w"].shape[-1] - di) // (2 * n)
     zxbcdt = linear(p["in_proj"], x)
-    z, xin, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
+    z, xin, bmat, cmat, dt = torch.split(zxbcdt, [di, di, g * n, g * n, h],
+                                         dim=-1)
 
     conv_in = torch.cat([xin, bmat, cmat], dim=-1)
     decode = state is not None and s == 1
@@ -187,6 +207,22 @@ def ssm_block(p, x, cfg: ModelConfig, *, state=None):
 
     y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(b, s, di)
-    y = _gated_norm(p["norm_scale"], y, z, cfg.norm_eps)
-    return linear(p["out_proj"], y.to(x.dtype)), new_state
+    if di == cfg.d_inner:
+        y = _gated_norm(p["norm_scale"], y, z, cfg.norm_eps)
+        return linear(p["out_proj"], y.to(x.dtype)), new_state
+    y = _gated_norm(p["norm_scale"], y, z, cfg.norm_eps, width=cfg.d_inner)
+    return row_parallel(p["out_proj"], y.to(x.dtype)), new_state
 
+
+
+def ssm_tp(p, h, cfg: ModelConfig, h_full=None):
+    """The mixer under tensor parallelism: ``h`` [B, S/M, D] the rank's
+    cut of the sequence (``h_full`` its gather, when the block has it),
+    ``p`` the compute blocks → the rank's cut of y [B, S/M, D]: its heads
+    over the gathered sequence (:func:`ssm_block` reads the widths of the
+    blocks), or with the heads whole the whole mixer and its rows."""
+    tp = tensor.current()
+    if h_full is None:
+        h_full = tensor.gather(h)
+    y, _ = ssm_block(p, h_full, cfg)
+    return y if tp.place.ssm_heads else tensor.local(y)

@@ -21,6 +21,16 @@ are host ints, decode positions and the commit mask device tensors, and
 no host tensor is copied in. So a serving step that calls it can be
 captured into a CUDA graph (`repro_torch.launch.capture`, whose warm-up
 runs under ``torch.cuda.set_sync_debug_mode("error")``).
+
+**Tensor parallelism** (a split step on a model group, `repro_torch.
+sharding.tensor`): the residual stream is the rank's cut of the sequence
+between blocks (the reference's ``res_seq``); each block enters its
+mixers with one all_gather of the normed sequence (shared by a hybrid's
+attention and SSM halves, each with its own placement) and leaves them on
+the cut (:func:`block_apply`); the embedding's lookup ends on the cut
+(:func:`embed_tp`), the final norm runs on it, and the logits are the
+rank's vocab cut of the gathered sequence, their padding columns masked
+by their global index.
 """
 from __future__ import annotations
 
@@ -31,14 +41,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (attention, attention_shapes,
-                                          make_cache)
+                                          attention_tp, make_cache)
 from repro_torch.models.layers import (dtype_of, embed, gelu, init_linear_,
                                        linear, mlp, normal_, rmsnorm,
                                        unembed)
-from repro_torch.models.moe import init_moe_, moe, moe_shapes
+from repro_torch.models.moe import init_moe_, moe, moe_shapes, moe_tp
 from repro_torch.models.remat import checkpoint
 from repro_torch.models.ssm import (init_ssm_, make_ssm_state, ssm_block,
-                                    ssm_shapes)
+                                    ssm_shapes, ssm_tp)
+from repro_torch.sharding import tensor
 
 # ---------------------------------------------------------------------------
 # param shapes and init
@@ -151,6 +162,8 @@ def block_apply(p, x, cfg: ModelConfig, *, positions, window: int,
                 cache: Optional[dict], cache_pos, commit=None):
     """One residual block → (x, aux: the moe router's loss, or None);
     ``cache`` (the layer's dict, or None) is updated in place."""
+    if tensor.current() is not None:
+        return _block_tp(p, x, cfg, positions=positions, window=window)
     fam = cfg.family
     if fam == "ssm":
         h = rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
@@ -175,6 +188,58 @@ def block_apply(p, x, cfg: ModelConfig, *, positions, window: int,
         y, aux = moe(p["moe"], h, cfg)
         return x + y, aux
     return x + mlp(p["mlp"], h, cfg), None
+
+
+def _block_tp(p, x, cfg: ModelConfig, *, positions, window: int):
+    """:func:`block_apply` under tensor parallelism: ``x`` the rank's cut
+    of the sequence [B, S/M, D], ``p`` the layer's compute blocks."""
+    fam = cfg.family
+    if fam == "ssm":
+        h = rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
+        return x + ssm_tp(p["ssm"], h, cfg), None
+    h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+    h_full = tensor.gather(h)
+    a = attention_tp(p["attn"], h, cfg, positions=positions, window=window,
+                     h_full=h_full)
+    if fam == "hybrid":
+        s = ssm_tp(p["ssm"], h, cfg, h_full=h_full)
+        x = x + 0.5 * (a * p["beta_attn"].to(a.dtype)
+                       + s * p["beta_ssm"].to(a.dtype))
+    else:
+        x = x + a
+    h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+    if fam == "moe":
+        y, aux = moe_tp(p["moe"], h, cfg)
+        return x + y, aux
+    return x + mlp(p["mlp"], h, cfg), None
+
+
+def embed_tp(p, tokens, cfg: ModelConfig, whole: bool = False):
+    """The embedding under tensor parallelism, from the table's compute
+    block: the rank's cut of the sequence [B, S/M, D] (``whole``: every
+    position, alike on every rank, for a vlm that prepends its patches).
+    A table cut on d_model looks every token up in its columns, then an
+    all_to_all (``whole``: an all_gather of the columns); a tied table cut
+    on the vocab looks up the tokens in its rows (zeros elsewhere), then a
+    reduce_scatter onto the cut (``whole``: an all_reduce); a whole table
+    looks up the rank's own tokens."""
+    tp = tensor.current()
+    dtype = dtype_of(cfg.compute_dtype)
+    if tp.place.embed == "d_model":
+        x = embed(p, tokens, dtype)
+        return (tensor.gather(x, dim=2) if whole
+                else tensor.all_to_all(x, split_dim=1, cat_dim=2))
+    if tp.place.embed == "vocab":
+        v = p["table"].shape[0]
+        ids = tokens - tp.rank * v
+        mine = (ids >= 0) & (ids < v)
+        x = embed(p, torch.where(mine, ids, 0), dtype) * mine[..., None].to(
+            dtype)
+        return tensor.all_reduce(x) if whole else tensor.scatter_sum(x)
+    if whole:
+        return embed(p, tokens, dtype)
+    s0, n = tp.seq_cut(tokens.shape[1])
+    return embed(p, tokens[:, s0:s0 + n], dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -250,11 +315,18 @@ def forward_lm(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     block (inside the checkpoint with ``remat``)."""
     compute_dtype = dtype_of(cfg.compute_dtype)
     emb_p = params["embed_tied"] if cfg.tie_embeddings else params["embed"]
-    if embeds is None:
+    tp = tensor.current()
+    if tp is not None:
+        # the rank's cut of the sequence (its whole length: s)
+        x = (embed_tp(emb_p, tokens, cfg) if embeds is None
+             else tensor.local(embeds.to(compute_dtype)))
+        b, s = (tokens if embeds is None else embeds).shape[:2]
+    elif embeds is None:
         x = embed(emb_p, tokens, compute_dtype)
+        b, s = x.shape[:2]
     else:
         x = embeds.to(compute_dtype)
-    b, s = x.shape[:2]
+        b, s = x.shape[:2]
     ar = torch.arange(s, device=x.device)
     if cache_pos is None:
         positions = ar[None].expand(b, s)
@@ -284,6 +356,8 @@ def forward_lm(params, cfg: ModelConfig, tokens=None, *, embeds=None,
         if aux_i is not None:
             aux = aux + aux_i
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if tp is not None:
+        x = tensor.gather(x)
     if cfg.tie_embeddings:
         logits = unembed(params["embed_tied"], x)
     else:
@@ -291,6 +365,8 @@ def forward_lm(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     if cfg.padded_vocab != cfg.vocab_size:  # mask the padding columns
-        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+        v = logits.shape[-1]
+        v0 = tp.rank * v if tp is not None and v < cfg.padded_vocab else 0
+        pad = torch.arange(v0, v0 + v, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
     return logits, aux, caches

@@ -19,15 +19,30 @@ reference's intent, not always its effect: on a scan-stacked leaf
 puts ``fsdp`` on the layer axis and ``ff`` on d_model), and the port
 reproduces that placement as it is.
 
-The reference's activation constraints (``sharding_rules``,
-``logical_shard``, ``constrain_block_params``) and ``shardings_for`` have no
-counterpart: they are GSPMD sharding constraints on one program's arrays,
-and no-ops outside a mesh. The port runs one process a rank, and what a
-rank holds is decided by the specs alone.
+The reference's activation constraints decide how a layer's *work* is
+divided over ``model`` (tensor parallelism): ``constrain_block_params``
+pins each per-layer leaf to its rule's spec (:func:`block_spec`), and
+``logical_shard`` cuts each activation where the mesh axis divides it and
+leaves it to the compiler otherwise. The port runs one process a rank and
+makes those decisions explicit: :func:`axis_size` is the reference's, and
+:func:`placement` says per module what ``logical_shard`` decides on a
+config's shapes at a model size M (attention head-parallel when the KV
+heads divide M, else sequence-parallel on the query side; ``ff``,
+experts, SSM heads, the embedding's d_model and the vocab cut where M
+divides them, whole otherwise; the residual stream cut on the sequence
+between blocks). :func:`compute_cut` turns a placement into each leaf's
+**compute block**: the slices of a per-layer leaf a model rank computes
+with (`repro_torch.core.flat.LayerCut` delivers them over the shard
+group, `repro_torch.sharding.tensor` runs the blocks). Where M does not
+divide an axis, the leaf stays whole on every model rank and the block
+computes it on the rank's own rows of the sequence (or on the whole
+sequence, then keeps its rows): the work is never the whole layer's
+gathered instead. ``shardings_for`` has no counterpart.
 """
 from __future__ import annotations
 
 import re
+from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 # Logical axis -> mesh axis (the reference's table, copied). "data" may be a
@@ -155,3 +170,168 @@ def param_specs(layout_or_shapes, mesh, *, fsdp: Union[bool, str,
 
     return {path: one(path, shape)
             for path, shape in _reference_shapes(layout_or_shapes).items()}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the per-layer specs and the placements of the work
+# ---------------------------------------------------------------------------
+
+def axis_size(logical: str, sizes: Dict[str, int],
+              logical_table: Optional[dict] = None) -> int:
+    """The product of the mesh-axis sizes ``logical`` maps to (1 when it
+    maps to none): the reference's ``axis_size`` under its rules on a
+    mesh of ``sizes``."""
+    ax = (DEFAULT_LOGICAL if logical_table is None
+          else logical_table).get(logical)
+    n = 1
+    for a in (() if ax is None else ax if isinstance(ax, tuple) else (ax,)):
+        n *= sizes.get(a, 1)
+    return n
+
+
+def block_spec(path: str, shape: Sequence[int],
+               sizes: Dict[str, int]) -> Spec:
+    """The spec ``constrain_block_params`` pins a *per-layer* leaf to (its
+    rule over the table with ``fsdp`` = ``batch`` = ``data``), an axis dropped
+    where it does not divide the dimension: for a stacked ``[L, ...]``
+    leaf, its spec without the layer axis, where :func:`param_specs` gives
+    the stored leaf's spec one dimension early."""
+    return param_specs({path: tuple(shape)}, sizes)[path]
+
+
+@dataclass(frozen=True)
+class Placement:
+    """How a layer's work divides over a node's model group of ``model``
+    ranks (what the reference's ``logical_shard`` calls decide on the
+    config's shapes). ``attention``: ``"heads"`` (q, k, v and the output
+    cut on heads: KV heads divide M), ``"sequence"`` (a rank's rows of the
+    query over the whole K/V, weights whole) or ``"none"`` (no attention);
+    ``ff`` the MLP's hidden axis cut; ``experts`` the MoE's experts cut
+    (else whole, each rank running every expert on its rows); ``ssm_heads``
+    the SSM's heads cut (its B/C columns whole, or the groups its heads
+    read); ``embed`` the embedding table's cut (``"vocab"`` for a tied
+    table, ``"d_model"`` for an input-only one, or ``"whole"``); ``vocab``
+    the logits cut (the tied table or ``lm_head``)."""
+    model: int
+    attention: str
+    ff: bool
+    experts: bool
+    ssm_heads: bool
+    embed: str
+    vocab: bool
+
+
+def placement(cfg, model: int) -> Placement:
+    """The :class:`Placement` of ``cfg`` (a `repro_torch.configs.base.
+    ModelConfig` of a decoder-only family) over ``model`` ranks."""
+    sizes = {"model": int(model)}
+
+    def cut(logical, n):
+        m = axis_size(logical, sizes)
+        return m > 1 and n > 0 and n % m == 0
+
+    attention = "none" if cfg.family == "ssm" else (
+        "heads" if cut("kv_heads", cfg.n_kv_heads) else "sequence")
+    ssm = cfg.family in ("ssm", "hybrid") and cut("ff", cfg.n_ssm_heads) \
+        and cut("ff", cfg.d_inner)
+    vocab = cut("vocab", cfg.padded_vocab)
+    if cfg.tie_embeddings:
+        embed = "vocab" if vocab else "whole"
+    else:
+        embed = "d_model" if cut("heads", cfg.d_model) else "whole"
+    return Placement(model=sizes["model"], attention=attention,
+                     ff=cfg.family != "moe" and cut("ff", cfg.d_ff),
+                     experts=cfg.family == "moe" and cut("experts",
+                                                         cfg.n_experts),
+                     ssm_heads=ssm, embed=embed, vocab=vocab)
+
+
+Intervals = Tuple[Tuple[int, int], ...]
+
+
+def _chunk(n: int, m: int, i: int) -> Intervals:
+    return ((i * (n // m), n // m),)
+
+
+def ssm_groups_of(cfg, model: int, rank: int) -> Tuple[int, int]:
+    """``(first group, groups)`` of the SSM's B/C groups that model rank
+    ``rank``'s heads read under a heads cut; raises where its heads read
+    their groups unevenly (the scan maps local head j to local group
+    j // (heads / groups))."""
+    h, g = cfg.n_ssm_heads, cfg.ssm_groups
+    hl, per = h // model, h // g
+    h0 = rank * hl
+    g0, g1 = h0 // per, (h0 + hl - 1) // per
+    ng = g1 - g0 + 1
+    if not (ng == 1 or (hl % per == 0 and h0 % per == 0)):
+        raise ValueError(f"{cfg.name}: {hl} SSM heads a rank read "
+                         f"{g} groups unevenly")
+    return g0, ng
+
+
+def compute_cut(cfg, place: Placement, path: str, shape: Sequence[int],
+                rank: int) -> Tuple[Intervals, ...]:
+    """Model rank ``rank``'s compute block of the per-layer leaf ``path``
+    (dotted; a stacked leaf's shape without its layer axis): per
+    dimension, the ``(start, length)`` intervals of the leaf it takes, in
+    order (several on a packed dimension: the SSM's ``in_proj`` and
+    ``conv`` columns, cut by part)."""
+    m = place.model
+    whole = tuple(((0, n),) for n in shape)
+    keys = path.split(".")
+    name, last = keys[-2] if len(keys) > 1 else "", keys[-1]
+
+    def on(dim, ivs):
+        out = list(whole)
+        out[dim] = ivs
+        return tuple(out)
+
+    if ".attn." in f".{path}" and place.attention == "heads":
+        if name in ("q", "k", "v"):        # column-parallel
+            if last in ("w", "lora_B"):
+                return on(1, _chunk(shape[1], m, rank))
+            if last == "b":
+                return on(0, _chunk(shape[0], m, rank))
+        if name == "o" and last in ("w", "lora_A"):   # row-parallel
+            return on(0, _chunk(shape[0], m, rank))
+        return whole
+    if ".mlp." in f".{path}" and place.ff:
+        if name in ("gate", "up"):
+            if last in ("w", "lora_B"):
+                return on(1, _chunk(shape[1], m, rank))
+            if last == "b":
+                return on(0, _chunk(shape[0], m, rank))
+        if name == "down" and last in ("w", "lora_A"):
+            return on(0, _chunk(shape[0], m, rank))
+        return whole
+    if ".experts." in f".{path}" and place.experts:
+        return on(0, _chunk(shape[0], m, rank))
+    if ".ssm." in f".{path}" and place.ssm_heads:
+        di, h = cfg.d_inner, cfg.n_ssm_heads
+        gn = cfg.ssm_groups * cfg.ssm_state
+        n = cfg.ssm_state
+        g0, ng = ssm_groups_of(cfg, m, rank)
+        dil, hl = di // m, h // m
+        heads = ((rank * dil, dil),)
+        bc = lambda base: ((base + g0 * n, ng * n), (base + gn + g0 * n,
+                                                     ng * n))
+        if name == "in_proj" and last in ("w", "b", "lora_B"):
+            cols = ((rank * dil, dil), (di + rank * dil, dil)) + bc(2 * di) \
+                + ((2 * di + 2 * gn + rank * hl, hl),)
+            return on(len(shape) - 1, cols)
+        if name == "conv":
+            return on(len(shape) - 1, heads + bc(di))
+        if last in ("A_log", "D", "dt_bias"):
+            return on(0, _chunk(shape[0], m, rank))
+        if last == "norm_scale":
+            return on(0, heads)
+        if name == "out_proj" and last in ("w", "lora_A"):
+            return on(0, heads)
+        return whole
+    if path.startswith("embed_tied.") and place.embed == "vocab":
+        return on(0, _chunk(shape[0], m, rank))
+    if path.startswith("embed.") and place.embed == "d_model":
+        return on(1, _chunk(shape[1], m, rank))
+    if path.startswith("lm_head.") and place.vocab and last == "w":
+        return on(1, _chunk(shape[1], m, rank))
+    return whole

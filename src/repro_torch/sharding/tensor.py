@@ -1,0 +1,292 @@
+"""Tensor parallelism over a node's model group: the Megatron collectives.
+
+The reference divides a layer's work over its mesh's ``model`` axis
+through GSPMD (``logical_shard`` on the activations, ``constrain_block_
+params`` on the per-layer params; `repro_torch.sharding.rules.placement`
+states what they decide). The port runs one process a rank, so a split
+step on a mesh with ``model`` above 1 (`repro_torch.launch.train.
+TrainStep.split`) hands its rank's **model group** (`repro_torch.launch.
+mesh.SwarmMesh.model_view`, the ranks ``(i, d, ·)``) and its placement to
+the model as a :class:`TensorPlan` on its split
+(`repro_torch.models.gather.NodeSplit`, ``tensor``). The model's loss
+enters it here for its forward (:func:`model_group`; remat's recompute
+again in the backward), and the forward (`repro_torch.models.
+transformer`, ``attention``, ``moe``, ``ssm``) reads :func:`current` and
+moves its activations with the collectives below:
+
+* the residual stream is cut on the sequence between blocks (the
+  reference's ``res_seq``, Megatron-SP): a block enters its attention, MLP,
+  MoE or SSM with :func:`gather` (an all_gather of the sequence, whose
+  backward is a reduce_scatter) and leaves a cut one with
+  :func:`scatter_sum` (a reduce_scatter onto the sequence cut, whose
+  backward is an all_gather); a block it computes whole on the gathered
+  sequence leaves with :func:`local` (its own rows, whose backward pads
+  with zeros);
+* the input-only embedding, whose table is cut on d_model, leaves its
+  lookup with :func:`all_to_all` (d cut → sequence cut); a tied table cut
+  on the vocab with a masked lookup and :func:`scatter_sum`;
+* the SSM's gated norm averages over all of ``d_inner``: the sum of
+  squares of a rank's heads goes through :func:`all_reduce` (f32, both
+  ways);
+* the logits are cut on the vocab and the loss is :func:`vocab_xent`:
+  the max, the sum of exps and the target's logit each all_reduced in
+  f32, the gradient the rank's own slice of ``softmax − onehot``;
+* a value every model rank computes alike from the same inputs (the MoE
+  router's aux loss) goes through :func:`replicated`: its gradient counts
+  once over the group.
+
+Each rank's backward then yields its share of every gradient, and the
+shares of a leaf sum over the model group to the whole node's
+(`repro_torch.core.flat.LayerCut.reduce_compute`). The sums of the
+activations run in f32 and round once. The collectives' bytes count as
+``tp_gather``, ``tp_reduce_scatter``, ``tp_all_reduce`` and
+``tp_all_to_all`` (what the rank hands over). They are
+``torch.autograd.Function`` s of plain autograd: a split step runs outside
+any ``torch.func`` transform, as `repro_torch.models.gather`'s gathers.
+
+The group is a module global, not a thread-local: the autograd engine may
+run a backward on a thread of its own.
+"""
+from __future__ import annotations
+
+from contextlib import contextmanager
+
+import torch
+
+_PLAN = None
+
+
+class TensorPlan:
+    """A rank's place in its node's model group: ``view`` the group
+    (``size`` ranks, this one ``rank``), ``place`` the model's
+    `repro_torch.sharding.rules.Placement`, ``cfg`` its config."""
+
+    def __init__(self, view, place, cfg):
+        self.view = view
+        self.size = view.world_size
+        self.rank = view.rank
+        self.place = place
+        self.cfg = cfg
+
+    def seq_cut(self, s: int):
+        """``(start, length)`` of this rank's rows of a sequence of ``s``;
+        raises where the group does not divide it (the reference would
+        leave the residual to the compiler there)."""
+        if s % self.size:
+            raise ValueError(f"a sequence of {s} does not divide over the "
+                             f"{self.size} ranks of the model group")
+        n = s // self.size
+        return self.rank * n, n
+
+
+@contextmanager
+def model_group(plan):
+    """Within the block, ``plan`` (a :class:`TensorPlan`, or None) is the
+    model group the forward divides its work over."""
+    global _PLAN
+    prev, _PLAN = _PLAN, plan
+    try:
+        yield plan
+    finally:
+        _PLAN = prev
+
+
+def current():
+    """The :class:`TensorPlan` of the running split step, or None."""
+    return _PLAN
+
+
+# ---------------------------------------------------------------------------
+# the collectives on plain tensors
+# ---------------------------------------------------------------------------
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """A 16-bit tensor as its bytes (gloo moves neither bf16 nor int16)."""
+    return t.view(torch.uint8) if t.element_size() == 2 else t
+
+
+def _all_gather(view, x, dim: int):
+    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+    xt = x.movedim(dim, 0).contiguous()
+    from repro_torch.core import gossip
+    out = gossip.all_gather(view, _wire(xt), kind="tp_gather")
+    return out.view(x.dtype).movedim(0, dim)
+
+
+def _reduce_scatter(view, x, dim: int):
+    """Σ of ``x`` over the ranks (in f32, rounded once), this rank's
+    chunk along ``dim``."""
+    from repro_torch.core import gossip
+    xt = x.movedim(dim, 0)
+    n = xt.shape[0] // view.world_size
+    rows = xt.to(torch.float32).reshape(view.world_size, -1)
+    out = gossip.reduce_scatter(view, rows, kind="tp_reduce_scatter")
+    return out.view((n,) + tuple(xt.shape[1:])).to(x.dtype).movedim(0, dim)
+
+
+def _all_to_all(view, x, split_dim: int, cat_dim: int):
+    """Chunk r of ``x`` along ``split_dim`` to rank r; the chunks every
+    rank sent here concatenated along ``cat_dim`` in rank order."""
+    from repro_torch.core import gossip
+    w = view.world_size
+    chunks = torch.stack(x.chunk(w, split_dim)).contiguous()
+    got = gossip.all_to_all_v(view, _wire(chunks).reshape(w, -1), [1] * w,
+                              [1] * w, kind="tp_all_to_all").to(x.device)
+    got = got.view(chunks.dtype).view(chunks.shape)
+    return torch.cat(list(got.unbind(0)), dim=cat_dim)
+
+
+def _all_reduce(view, x):
+    """Σ of ``x`` over the ranks in f32, rounded once."""
+    from repro_torch.core import gossip
+    return gossip.all_reduce(view, x.to(torch.float32),
+                             kind="tp_all_reduce").to(x.dtype)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, view):
+        ctx.dim, ctx.view = dim, view
+        return _all_gather(view, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(ctx.view, g, ctx.dim), None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, view):
+        ctx.dim, ctx.view = dim, view
+        return _reduce_scatter(view, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(ctx.view, g, ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, cat_dim, view):
+        ctx.dims, ctx.view = (split_dim, cat_dim), view
+        return _all_to_all(view, x, split_dim, cat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, cat_dim = ctx.dims
+        return _all_to_all(ctx.view, g, cat_dim, split_dim), None, None, None
+
+
+class _Local(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, view):
+        n = x.shape[dim] // view.world_size
+        ctx.dim, ctx.n, ctx.rank, ctx.shape = dim, n, view.rank, x.shape
+        return x.narrow(dim, view.rank * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.new_zeros(ctx.shape)
+        out.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).copy_(g)
+        return out, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, view):
+        ctx.view = view
+        return _all_reduce(view, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(ctx.view, g), None
+
+
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.size = size
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None
+
+
+def gather(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The model group's cuts of ``x`` along ``dim`` (the sequence)
+    gathered whole; the backward sums the group's cotangents and keeps
+    this rank's cut."""
+    return _Gather.apply(x, dim, _PLAN.view)
+
+
+def scatter_sum(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The sum of the group's partial ``x`` (each rank's share of a
+    row-parallel output), this rank's cut along ``dim``."""
+    return _ScatterSum.apply(x, dim, _PLAN.view)
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, cat_dim: int
+               ) -> torch.Tensor:
+    """``x`` cut along ``split_dim`` over the group and joined along
+    ``cat_dim`` (the d_model-cut embedding → the sequence cut)."""
+    return _AllToAll.apply(x, split_dim, cat_dim, _PLAN.view)
+
+
+def local(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's cut of ``x`` along ``dim``, from a whole ``x`` that
+    every rank computes alike; the backward pads the cotangent with zeros,
+    so the whole computation's gradient is this rank's share."""
+    return _Local.apply(x, dim, _PLAN.view)
+
+
+def all_reduce(x: torch.Tensor) -> torch.Tensor:
+    """Σ of ``x`` over the group (f32), each rank using the sum for its
+    own share: the backward sums the cotangents too."""
+    return _AllReduce.apply(x, _PLAN.view)
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """``x``, a value every rank computes alike from the same inputs; its
+    gradient is divided over the group, so it counts once in the sum of
+    the ranks' shares."""
+    return _Replicated.apply(x, _PLAN.size)
+
+
+class _VocabXent(torch.autograd.Function):
+    """Token NLL from this rank's vocab cut of the logits ``[..., V/M]``
+    (columns ``v0 .. v0 + V/M``): ``logsumexp − logit[label]`` of the whole
+    vocab, in f32, alike on every rank. The backward gives the rank's cut
+    of ``(softmax − onehot) · g``."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v0, view):
+        from repro_torch.core import gossip
+        lf = logits.to(torch.float32)
+        vl = lf.shape[-1]
+        mx = -gossip.all_reduce(view, -lf.amax(-1), op="min",
+                                kind="tp_all_reduce")
+        mine = (labels >= v0) & (labels < v0 + vl)
+        idx = torch.where(mine, labels - v0, 0).long()
+        gold = torch.where(mine, torch.gather(lf, -1, idx[..., None])[..., 0],
+                           0.0)
+        se = torch.exp(lf - mx[..., None]).sum(-1)
+        both = gossip.all_reduce(view, torch.stack([se, gold]),
+                                 kind="tp_all_reduce")
+        logz = torch.log(both[0]) + mx
+        ctx.save_for_backward(logits, logz, idx, mine)
+        return logz - both[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, idx, mine = ctx.saved_tensors
+        p = torch.exp(logits.to(torch.float32) - logz[..., None])
+        p.scatter_add_(-1, idx[..., None], -mine[..., None].to(p.dtype))
+        return (p * g[..., None]).to(logits.dtype), None, None, None
+
+
+def vocab_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The token NLL [...] (f32) of this rank's vocab cut of the logits,
+    the cut ``rank · V/M`` onward."""
+    v0 = _PLAN.rank * logits.shape[-1]
+    return _VocabXent.apply(logits, labels, v0, _PLAN.view)

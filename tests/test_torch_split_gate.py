@@ -6,15 +6,16 @@ any other eval scores the node gathered whole.
 
 One world of `tests/torch_gossip_world.py`, gloo on the CPU:
 ``split_gate``, (node, data, model) = (2, 2, 2), the Mamba2 smoke session
-with its TrainStep split, run once with the split gate and once with the
-eval in a lambda, on each wire; then with every stacked leaf cut over
+with its TrainStep split (tensor-parallel over the model group, as the
+split gate), run once with the split gate and once with the eval in a
+lambda, on each wire; then with every stacked leaf cut over
 ``data`` on its layer axis only (each layer held by one data rank: half of
 a node's ranks hold no block of it), the step opaque.
 
 Held: the gate bits, the committed params and both moments bit for bit
-after every round; the metrics equal (the split forward and the whole
-node's run the same ops on the same bytes; where vmap over one node and
-the plain call differ in their last bit, within 1e-6 relative); the
+after every round; the metrics within 1e-6 relative (the split forward
+divides each layer's work over the model group and sums in another
+order than the whole node's); the
 split gate's gathers counted as ``gate_gather`` and equal to the layout's
 count, no ``shard_gather``; the opaque eval's whole-node gathers, no
 ``gate_gather``."""
@@ -122,14 +123,18 @@ def test_split_gate_metrics_are_the_nodes_on_every_rank(ranks):
 
 @pytest.mark.spmd
 def test_split_gate_counts_its_layer_gathers(ranks):
-    """A sync's split gate hands the shard group each cut leaf's block of
-    the unit and of every layer, twice (params, candidate), counted as
-    ``gate_gather`` and equal to the layout's count; it gathers no node
-    whole (no ``shard_gather``)."""
+    """A sync's split gate, tensor-parallel over the model group, sends
+    the shard group the pieces of the other ranks' compute blocks of the
+    unit and of every layer that this rank stores, twice (params,
+    candidate), counted as ``gate_gather`` and equal to the layout's
+    count (`chip_smoke._tp_bytes`); it gathers no node whole (no
+    ``shard_gather``)."""
+    cfg = smoke_variant(get_config("mamba2-370m"))
     for out in ranks:
-        _, score = W.split_bytes(_shard(out["coords"]), smoke_variant(
-            get_config("mamba2-370m")).n_layers)
-        want = 2 * score
+        _, gate = W.tp_bytes(_shard(out["coords"]), cfg, cfg.n_layers, 4,
+                             W.SPLIT_BATCH, W.SPLIT_SEQ, False,
+                             val=(W.SPLIT_BATCH, W.SPLIT_SEQ))
+        want = 2 * gate["gate_gather"]
         for wire in W.SPLIT_WIRES:
             for r in range(W.SPLIT_ROUNDS):
                 assert out[f"gate/{wire}/{r}/split/gate_gather"] == want

@@ -1,0 +1,554 @@
+"""Tensor parallelism on ``model`` in the split step: each layer's work
+divided over a node's model group (`repro_torch.sharding.tensor`, the
+placements of `repro_torch.sharding.rules.placement`, the compute blocks
+of `repro_torch.core.flat.LayerCut.gather_compute`).
+
+Worlds of `tests/torch_gossip_world.py`, gloo on the CPU:
+
+  * ``tp_units``, (node, data, model) = (1, 1, 2): each collective
+    Function against its plain single-rank form, the vocab-parallel
+    embedding and cross entropy against the reference's, and every block
+    (head- and sequence-parallel attention, the MLP, the MoE with its
+    experts cut and whole, the SSM with its heads cut) against the JAX
+    package's own function on the same inputs, and its gradients, leaf
+    by leaf, against the port's unsharded block;
+  * ``tp_m2`` (1, 1, 2) and ``tp_d2m2`` (1, 2, 2): two split steps of the
+    dense, ssm, moe and hybrid smoke models from the JAX package's params
+    against `repro.launch.train.make_train_step` on the whole batch, the
+    first step's gradient leaf by leaf against the unsharded step's, the
+    bytes by kind against the layout's count (`chip_smoke._tp_bytes`),
+    what a rank gathers, the split gate's metric against the whole
+    node's; and the enc-dec smoke model, which keeps the whole-layer
+    split.
+
+Held: the collectives within 1e-6; blocks within rtol 1e-5, atol 1e-5 of
+the reference (f32); the steps' losses within rtol 1e-5 and params within
+rtol 1e-4, atol 1e-4; every leaf's gradient within 1e-4 of its largest
+magnitude (a leaf summed twice or not at all would be off by its whole
+size); bytes exactly; no gathered block of a model-cut leaf whole; at
+most two compute blocks alive with remat; the gate's metric within 1e-5.
+"""
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_gossip_world as W
+from repro import configs as jconfigs
+from repro.configs.base import TrainConfig as JTrainConfig
+from repro.launch import train as jtrain
+from repro.models import build_model as jbuild
+from repro.models.attention import attention as jattention
+from repro.models.layers import embed as jembed, mlp as jmlp
+from repro.models.layers import softmax_xent as jxent
+from repro.models.moe import moe as jmoe
+from repro.models.ssm import ssm_block as jssm
+from repro.optim import adamw_init as jadamw_init
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.convert import (lm_params_from_reference,
+                                 lm_params_to_reference)
+from repro_torch.core.flat import ShardLayout
+from repro_torch.kernels.ref import attention_ref, flash_attention_plain
+from repro_torch.models import build_model, nest
+from repro_torch.models.attention import attention
+from repro_torch.models.layers import mlp
+from repro_torch.models.moe import moe
+from repro_torch.models.ssm import ssm_block
+from repro_torch.sharding.rules import (block_spec, compute_cut, param_specs,
+                                        placement)
+
+pytestmark = pytest.mark.spmd
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "..", "src")
+TIMEOUT = 420
+PARAMS_TOL = dict(rtol=1e-4, atol=1e-4)
+LOSS_RTOL = 1e-5
+BLOCK_TOL = dict(rtol=1e-5, atol=1e-5)
+#: a leaf's gradient against the unsharded one, over its largest magnitude
+GRAD_REL = 1e-4
+
+
+def _jax_steps(arch, rng):
+    """The JAX package's smoke ``arch`` from its own init: the converted
+    flat params, the batches, TP_JAX_STEPS steps' losses and params."""
+    jcfg = jconfigs.smoke_variant(jconfigs.get_config(arch))
+    jm = jbuild(jcfg)
+    layout = build_model(smoke_variant(get_config(arch))).layout
+    tree = jm.init(jax.random.key(0))
+    flat = lm_params_from_reference(layout, jax.tree.map(np.asarray, tree))
+    opt = jadamw_init(tree)
+    step = jax.jit(jtrain.make_train_step(jm, JTrainConfig(
+        lr=1e-4, warmup_steps=0, max_steps=10, remat=False)))
+    toks = rng.integers(0, jcfg.vocab_size, (
+        W.TP_JAX_STEPS, W.TP_JAX_BATCH, W.TP_JAX_SEQ + 1))
+    losses = []
+    for k in range(W.TP_JAX_STEPS):
+        tree, opt, m = step(tree, opt, {
+            "tokens": jnp.asarray(toks[k, :, :-1].astype(np.int32)),
+            "labels": jnp.asarray(toks[k, :, 1:].astype(np.int32))})
+        losses.append(float(m["loss"]))
+    return ({"flat": flat.numpy(), "tokens": toks[..., :-1].astype(np.int64),
+             "labels": toks[..., 1:].astype(np.int64)},
+            {"loss": np.asarray(losses),
+             "params": jax.tree.map(np.asarray, tree)})
+
+
+def _spawn(d, task, world, env):
+    script = os.path.join(HERE, "torch_gossip_world.py")
+    return [subprocess.Popen(
+        [sys.executable, script, task, str(r), str(world),
+         f"file://{d}/rdv_{task}", str(d)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """Every tensor-parallel world's ranks' outputs, the inputs, and the
+    JAX package's steps."""
+    d = tmp_path_factory.mktemp("tp")
+    rng = np.random.default_rng(8)
+    inputs, want = W.tp_inputs(), {}
+    for fam, arch in W.TP_ARCHS:
+        port, want[fam] = _jax_steps(arch, rng)
+        inputs.update({f"jax/{fam}/{k}": v for k, v in port.items()})
+    inputs.update(W.tp_encdec_batch(rng))
+    np.savez(d / "inputs.npz", **inputs)
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    sizes = {"tp_units": int(np.prod(W.TP_UNITS))}
+    sizes.update({t: int(np.prod(s)) for t, s in W.TP_WORLDS.items()})
+    procs = []
+    try:
+        for task, n in sizes.items():
+            procs += _spawn(d, task, n, env)
+        logs = [p.communicate(timeout=TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log
+    out = {task: [dict(np.load(d / f"{task}_rank{r}.npz"))
+                  for r in range(n)] for task, n in sizes.items()}
+    out["jax"], out["inputs"] = want, inputs
+    return out
+
+
+# ---------------------------------------------------------------------------
+# without a process group
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("q_off", [0, 8, 12])
+def test_plain_flash_query_offset_matches_the_reference_rows(q_off, window):
+    """The plain flash with query positions q_off.. against the matching
+    rows of `repro.kernels.ref.attention_ref` on the whole sequence,
+    within 1e-6."""
+    from repro.kernels.ref import attention_ref as jref
+    rng = np.random.default_rng(q_off + 10 * window)
+    t, s = 20, 8 if q_off else 20
+    qf = rng.normal(0, 1, (2, 4, t, 16)).astype(np.float32)
+    k = rng.normal(0, 1, (2, 2, t, 16)).astype(np.float32)
+    v = rng.normal(0, 1, (2, 2, t, 16)).astype(np.float32)
+    want = np.asarray(jref(jnp.asarray(qf), jnp.asarray(k), jnp.asarray(v),
+                           causal=True, window=window))[:, :, q_off:q_off + s]
+    q = torch.from_numpy(qf[:, :, q_off:q_off + s])
+    got = flash_attention_plain(q, torch.from_numpy(k), torch.from_numpy(v),
+                                causal=True, window=window, q_off=q_off)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    same = attention_ref(torch.from_numpy(qf), torch.from_numpy(k),
+                         torch.from_numpy(v), causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), same[:, :, q_off:q_off + s]
+                               .numpy(), rtol=0, atol=1e-6)
+
+
+def test_query_offset_needs_the_causal_mask_and_every_rows_key():
+    q = torch.zeros(1, 2, 4, 16)
+    kv = torch.zeros(1, 2, 10, 16)
+    with pytest.raises(ValueError):
+        flash_attention_plain(q, kv, kv, causal=False, q_off=2)
+    with pytest.raises(ValueError):
+        flash_attention_plain(q, kv, kv, causal=True, q_off=7)
+
+
+@pytest.mark.parametrize("arch,m,want", [
+    ("granite-moe-3b-a800m", 2, dict(attention="heads", experts=True,
+                                     embed="d_model", vocab=True)),
+    ("hymba-1.5b", 2, dict(attention="sequence", ff=True, ssm_heads=True,
+                           embed="d_model", vocab=True)),
+    ("mamba2-370m", 2, dict(attention="none", ssm_heads=True,
+                            embed="vocab", vocab=True)),
+    ("granite-moe-3b-a800m", 16, dict(attention="sequence", experts=False)),
+    ("minicpm-2b", 2, dict(attention="heads", ff=True, embed="vocab"))])
+def test_placement_follows_the_references_decisions(arch, m, want):
+    """Head-parallel attention where the KV heads divide M (granite's 8 at
+    2), sequence-parallel otherwise (Hymba's 5, granite's 8 at 16); experts cut where
+    M divides them (granite's 40 at 2, whole at 16, the reference's
+    fallback); Hymba's 50 SSM heads and 5,504 ff cut at 2; the vocab cut
+    (padded); a tied table on its vocab, an input-only one on d_model."""
+    place = placement(get_config(arch), m)
+    for key, value in want.items():
+        assert getattr(place, key) == value, (key, place)
+
+
+def test_block_spec_is_the_per_layer_rule():
+    """`block_spec` of a stacked leaf's layer is its rule without the
+    layer axis: q's output and the experts' axis over model, the other
+    weight axis over data; `param_specs` of the stacked leaf lands one
+    dimension early."""
+    sizes = {"node": 1, "data": 2, "model": 2}
+    assert block_spec("layers.attn.q.w", (1536, 1536), sizes) == \
+        ("data", "model")
+    assert block_spec("layers.moe.experts.up.w", (40, 1536, 512), sizes) == \
+        ("model", "data", None)
+    assert param_specs({"layers.attn.q.w": (8, 1536, 1536)}, sizes)[
+        "layers.attn.q.w"] == ("data", "model", None)
+
+
+def test_compute_cut_takes_the_ssm_packed_leaves_by_part():
+    """Hymba's in_proj [d, 2·di + 2·n + h] at M = 2: z, x and dt by heads,
+    B and C whole (one group); the conv's channels the same way; the
+    blocks of the two ranks cover the columns, the shared ones twice."""
+    cfg = get_config("hymba-1.5b")
+    place = placement(cfg, 2)
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    width = 2 * di + 2 * n + h
+    cover = np.zeros(width, int)
+    for r in range(2):
+        ivs = compute_cut(cfg, place, "layers.ssm.in_proj.w",
+                          (cfg.d_model, width), r)
+        assert ivs[0] == ((0, cfg.d_model),)
+        assert [iv[1] for iv in ivs[1]] == [di // 2, di // 2, n, n, h // 2]
+        for a, k in ivs[1]:
+            cover[a:a + k] += 1
+    assert (cover[:2 * di] == 1).all() and (cover[-h:] == 1).all()
+    assert (cover[2 * di:2 * di + 2 * n] == 2).all()
+    conv = compute_cut(cfg, place, "layers.ssm.conv.w",
+                       (cfg.conv_width, di + 2 * n), 1)
+    assert conv[1] == ((di // 2, di // 2), (di, n), (di + n, n))
+
+
+# ---------------------------------------------------------------------------
+# the collectives, the loss, the embedding
+# ---------------------------------------------------------------------------
+
+def _coll_want(inp, name, m):
+    """Each rank's (output, gradient) of a collective from every rank's
+    input and cotangent, in numpy."""
+    xs = [inp[f"x{r}"] for r in range(m)]
+    cs = [inp[f"cot/{name}{r}"] for r in range(m)]
+    n = W.TP_X[1] // m
+    if name == "gather":
+        out, w = np.concatenate(xs, 1), W.TP_X[1]
+        return [(out, sum(cs)[:, r * w:(r + 1) * w]) for r in range(m)]
+    if name == "scatter":
+        total = sum(xs)
+        grad = np.concatenate(cs, 1)
+        return [(total[:, r * n:(r + 1) * n], grad) for r in range(m)]
+    if name == "a2a":
+        out = [np.concatenate([x[:, r * n:(r + 1) * n] for x in xs], 2)
+               for r in range(m)]
+        d = W.TP_X[2]
+        grad = [np.concatenate([c[:, :, r * d:(r + 1) * d] for c in cs], 1)
+                for r in range(m)]
+        return list(zip(out, grad))
+    if name == "local":
+        res = []
+        for r in range(m):
+            g = np.zeros_like(xs[r])
+            g[:, r * n:(r + 1) * n] = cs[r]
+            res.append((xs[r][:, r * n:(r + 1) * n], g))
+        return res
+    if name == "reduce":
+        return [(sum(xs), sum(cs)) for r in range(m)]
+    return [(xs[r], cs[r] / m) for r in range(m)]
+
+
+@pytest.mark.parametrize("name", ["gather", "scatter", "a2a", "local",
+                                  "reduce", "replicated"])
+def test_collective_matches_its_plain_form(worlds, name):
+    """Forward and backward of each collective Function against the plain
+    single-rank form (numpy over every rank's input and cotangent),
+    within 1e-6."""
+    ranks, inp = worlds["tp_units"], worlds["inputs"]
+    want = _coll_want(inp, name, len(ranks))
+    for r, (out, (y, g)) in enumerate(zip(ranks, want)):
+        np.testing.assert_allclose(out[f"coll/{name}/out"], y, rtol=0,
+                                   atol=1e-6, err_msg=f"{name} {r}")
+        np.testing.assert_allclose(out[f"coll/{name}/grad"], g, rtol=0,
+                                   atol=1e-6, err_msg=f"{name} {r}")
+
+
+def test_vocab_parallel_xent_matches_the_reference(worlds):
+    """The masked token-mean cross entropy from each rank's vocab cut of
+    the logits against `repro.models.layers.softmax_xent` on the whole
+    vocab, and each rank's gradient against its cut of `jax.grad`'s,
+    within 1e-6."""
+    inp = worlds["inputs"]
+    logits = jnp.asarray(inp["xent/logits"])
+    args = (jnp.asarray(inp["xent/labels"]), jnp.asarray(inp["xent/mask"]))
+    loss, grad = jax.value_and_grad(lambda z: jxent(z, *args))(logits)
+    ranks = worlds["tp_units"]
+    v = W.TP_VOCAB // len(ranks)
+    for r, out in enumerate(ranks):
+        np.testing.assert_allclose(out["xent/loss"], float(loss), rtol=1e-6)
+        np.testing.assert_allclose(out["xent/grad"],
+                                   np.asarray(grad)[..., r * v:(r + 1) * v],
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("cut", ["vocab", "d_model"])
+def test_vocab_parallel_embedding_matches_the_reference(worlds, cut):
+    """A tied table cut on the vocab (masked lookup, reduce_scatter) and an
+    input-only one cut on d_model (lookup, all_to_all): each rank's cut
+    of the sequence equals `repro.models.layers.embed` of the whole
+    table, bit for bit."""
+    inp = worlds["inputs"]
+    want = np.asarray(jembed({"table": jnp.asarray(inp["xent/table"])},
+                             jnp.asarray(inp["xent/tokens"]), jnp.float32))
+    ranks = worlds["tp_units"]
+    n = want.shape[1] // len(ranks)
+    for r, out in enumerate(ranks):
+        np.testing.assert_array_equal(out[f"embed/{cut}"],
+                                      want[:, r * n:(r + 1) * n])
+
+
+# ---------------------------------------------------------------------------
+# the blocks
+# ---------------------------------------------------------------------------
+
+def _jcfg(arch, changes):
+    return jconfigs.smoke_variant(jconfigs.get_config(arch)).replace(
+        **changes)
+
+
+def _block_reference(case):
+    """The JAX package's block on the whole inputs: (y, aux or None)."""
+    inp = next(c for c in W.TP_BLOCKS if c[0] == case)
+    _, arch, changes, module, window = inp
+    worlds_inp = _block_inputs(case)
+    jcfg = _jcfg(arch, changes)
+    p = jax.tree.map(jnp.asarray, nest(worlds_inp["params"]))
+    h = jnp.asarray(worlds_inp["h"])
+    positions = jnp.broadcast_to(jnp.arange(W.TP_S)[None], (W.TP_B, W.TP_S))
+    if module == "attn":
+        return np.asarray(jattention(p, h, jcfg, positions=positions,
+                                     window=window)[0]), None
+    if module == "mlp":
+        return np.asarray(jmlp(p, h, jcfg)), None
+    if module == "moe":
+        y, aux = jmoe(p, h, jcfg)
+        return np.asarray(y), float(aux)
+    return np.asarray(jssm(p, h, jcfg)[0]), None
+
+
+_INPUTS = {}
+
+
+def _block_inputs(case):
+    if not _INPUTS:
+        _INPUTS.update(W.tp_inputs())
+    prefix = f"block/{case}/p/"
+    return {"params": {k[len(prefix):].split(".", 2)[2]: v
+                       for k, v in _INPUTS.items() if k.startswith(prefix)},
+            "h": _INPUTS[f"block/{case}/h"],
+            "cot": _INPUTS[f"block/{case}/cot"]}
+
+
+@pytest.mark.parametrize("case", [c[0] for c in W.TP_BLOCKS])
+def test_block_matches_the_reference(worlds, case):
+    """Each block under tensor parallelism at (data, model) = (1, 2),
+    every rank's cut of the output gathered, against the JAX package's
+    function on the same inputs, within rtol 1e-5, atol 1e-5 (the MoE's
+    aux loss too, alike on every rank)."""
+    want, aux = _block_reference(case)
+    ranks = worlds["tp_units"]
+    got = np.concatenate([out[f"block/{case}/y"] for out in ranks], 1)
+    np.testing.assert_allclose(got, want, **BLOCK_TOL)
+    if aux is not None:
+        for out in ranks:
+            np.testing.assert_allclose(out[f"block/{case}/aux"], aux,
+                                       **BLOCK_TOL)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in W.TP_BLOCKS])
+def test_block_gradients_sum_to_the_unsharded_blocks(worlds, case):
+    """Each block's gradients, leaf by leaf: the ranks' shares of each
+    leaf's compute blocks summed where they land equal the port's
+    unsharded block's gradient of Σ y · cotangent (+ aux), and the
+    input's cut its cut of the input's gradient, within 1e-5 of the
+    leaf's largest magnitude: a leaf summed twice (or a share dropped)
+    would be off by its whole size."""
+    _, arch, changes, module, window = next(c for c in W.TP_BLOCKS
+                                            if c[0] == case)
+    cfg = W.tp_block_cfg(arch, changes)
+    inp = _block_inputs(case)
+    params = {k: torch.from_numpy(v).requires_grad_()
+              for k, v in inp["params"].items()}
+    h = torch.from_numpy(inp["h"]).requires_grad_()
+    positions = torch.arange(W.TP_S)[None].expand(W.TP_B, W.TP_S)
+    p = nest(params)
+    if module == "attn":
+        y = attention(p, h, cfg, positions=positions, window=window)
+        aux = 0
+    elif module == "mlp":
+        y, aux = mlp(p, h, cfg), 0
+    elif module == "moe":
+        y, aux = moe(p, h, cfg)
+    else:
+        y, aux = ssm_block(p, h, cfg)[0], 0
+    loss = (y * torch.from_numpy(inp["cot"])).sum() + aux
+    grads = torch.autograd.grad(loss, [h] + list(params.values()))
+    ranks = worlds["tp_units"]
+    m = len(ranks)
+    place = placement(cfg, m)
+    gh = np.concatenate([out[f"block/{case}/gh"] for out in ranks], 1)
+    np.testing.assert_allclose(gh, grads[0].numpy(), rtol=0,
+                               atol=1e-5 * float(grads[0].abs().max()))
+    for name, want in zip(params, grads[1:]):
+        path = f"layers.{module}.{name}"
+        total = np.zeros(want.shape, np.float32)
+        for r, out in enumerate(ranks):
+            idx = np.ix_(*W.tp_slices(compute_cut(cfg, place, path,
+                                                  want.shape, r)))
+            total[idx] += out[f"block/{case}/g/{path}"]
+        scale = float(want.abs().max())
+        np.testing.assert_allclose(total, want.numpy(), rtol=0,
+                                   atol=1e-5 * max(scale, 1e-12),
+                                   err_msg=path)
+
+
+# ---------------------------------------------------------------------------
+# the split steps
+# ---------------------------------------------------------------------------
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _leaves(v, f"{prefix}{k}.").items()}
+    return {prefix[:-1]: np.asarray(tree, np.float32)}
+
+
+@pytest.mark.parametrize("world", list(W.TP_WORLDS))
+@pytest.mark.parametrize("fam", [f for f, _ in W.TP_ARCHS])
+def test_tp_split_steps_match_the_jax_package(worlds, world, fam):
+    """Two tensor-parallel split steps (remat on) from the JAX package's
+    params: the loss within rtol 1e-5, the node's params within rtol
+    1e-4, atol 1e-4 of `repro.launch.train.make_train_step` on the whole
+    batch; every rank of the node gathers the same node."""
+    arch = dict(W.TP_ARCHS)[fam]
+    layout = build_model(smoke_variant(get_config(arch))).layout
+    want = worlds["jax"][fam]
+    ranks = worlds[world]
+    for out in ranks:
+        np.testing.assert_allclose(out[f"{fam}/loss"], want["loss"],
+                                   rtol=LOSS_RTOL)
+        np.testing.assert_array_equal(out[f"{fam}/params"],
+                                      ranks[0][f"{fam}/params"])
+    g = _leaves(lm_params_to_reference(layout, torch.from_numpy(
+        ranks[0][f"{fam}/params"])))
+    w = _leaves(want["params"])
+    assert set(g) == set(w)
+    for path in w:
+        np.testing.assert_allclose(g[path], w[path], err_msg=path,
+                                   **PARAMS_TOL)
+
+
+@pytest.mark.parametrize("world", list(W.TP_WORLDS))
+@pytest.mark.parametrize("fam", [f for f, _ in W.TP_ARCHS])
+def test_every_leafs_gradient_matches_the_unsharded_twin(worlds, world, fam):
+    """The first split step's gradient, gathered from the shards, against
+    the unsharded step's on the same batch, leaf by leaf: within 1e-4 of
+    the leaf's largest magnitude."""
+    for out in worlds[world]:
+        rel = dict(zip(out[f"{fam}/grad_leaves"], out[f"{fam}/grad_rel"]))
+        assert rel and max(rel.values()) <= GRAD_REL, rel
+
+
+@pytest.mark.parametrize("world", list(W.TP_WORLDS))
+@pytest.mark.parametrize("fam", [f for f, _ in W.TP_ARCHS])
+def test_tp_step_bytes_match_the_layout(worlds, world, fam):
+    """Each split step's bytes by kind, and the split gate's, equal the
+    layout's count (`chip_smoke._tp_bytes`): the compute blocks' exchange
+    (``layer_gather``, ``gate_gather``), the gradient's way back
+    (``grad_to_shard``) and the model group's activations (``tp_*``)."""
+    n, d, m = W.TP_WORLDS[world]
+    arch = dict(W.TP_ARCHS)[fam]
+    cfg = smoke_variant(get_config(arch))
+    layout = build_model(cfg).layout
+    sizes = {"data": d, "model": m}
+    specs = param_specs(layout, dict(node=n, **sizes))
+    rows = W.TP_JAX_BATCH // d
+    for out in worlds[world]:
+        coords = {"data": int(out["coords"][0]),
+                  "model": int(out["coords"][1])}
+        sh = ShardLayout(layout, specs, sizes, coords)
+        step, gate = W.tp_bytes(sh, cfg, cfg.n_layers, 4, rows,
+                                W.TP_JAX_SEQ, d > 1,
+                                val=(W.TP_JAX_BATCH, W.TP_JAX_SEQ))
+        for k in range(W.TP_JAX_STEPS):
+            for kind, nbytes in step.items():
+                assert out.get(f"{fam}/bytes{k}/{kind}", 0) == nbytes, \
+                    (k, kind)
+            assert "grad_reduce" not in out.get(f"{fam}/bytes{k}", {})
+        for kind, nbytes in gate.items():
+            assert out.get(f"{fam}/gate_bytes/{kind}", 0) == nbytes, kind
+
+
+@pytest.mark.parametrize("world", list(W.TP_WORLDS))
+def test_a_rank_holds_compute_blocks_only(worlds, world):
+    """No block a step gathers of a model-cut leaf is the leaf's whole
+    layer, and with remat at most two layers' compute blocks are alive at
+    once."""
+    for out in worlds[world]:
+        for fam, _ in W.TP_ARCHS:
+            assert not out[f"{fam}/whole_layer"], fam
+            assert 1 <= out[f"{fam}/peak_blocks"] <= 2, fam
+
+
+@pytest.mark.parametrize("world", list(W.TP_WORLDS))
+def test_tp_gate_matches_the_whole_node_gate(worlds, world):
+    """The split gate under tensor parallelism against the whole node's
+    metric on the same params and rows: within 1e-5."""
+    for out in worlds[world]:
+        for fam, _ in W.TP_ARCHS:
+            split, whole = out[f"{fam}/gate"]
+            assert abs(split - whole) <= 1e-5, (fam, split, whole)
+
+
+@pytest.mark.parametrize("world", list(W.TP_WORLDS))
+@pytest.mark.parametrize("name", [n for n, _, _ in W.TP_MORE])
+def test_vlm_and_lora_gradients_match_the_unsharded_twin(worlds, world,
+                                                         name):
+    """The vlm smoke model (its patches projected and its text embedded
+    whole, then the rank's cut) and a LoRA'd dense smoke model (each
+    adapter cut with its layer: B with a column-parallel weight, A with a
+    row-parallel one): the first tensor-parallel split step's gradient,
+    leaf by leaf, within 1e-4 of the leaf's largest magnitude of the
+    unsharded step's."""
+    for out in worlds[world]:
+        rel = out[f"{name}/grad_rel"]
+        assert rel.size and rel.max() <= GRAD_REL, rel
+
+
+def test_encdec_keeps_the_whole_layer_split_at_model_2(worlds):
+    """The enc-dec smoke model on (1, 2, 2): no tensor plan, the
+    whole-layer gathers and the data group's reduces (no
+    ``tp_*``, no ``grad_to_shard``), and one split step is the whole
+    node's within the train-parity tolerances."""
+    for out in worlds["tp_d2m2"]:
+        assert not out["encdec/tensor_plan"]
+        kinds = set(out["encdec/kinds"].tolist())
+        assert "layer_gather" in kinds and "grad_to_shard" not in kinds
+        assert not any(k.startswith("tp_") for k in kinds)
+        split, whole = out["encdec/loss"]
+        np.testing.assert_allclose(split, whole, rtol=LOSS_RTOL)
+        np.testing.assert_allclose(out["encdec/params"], out["encdec/whole"],
+                                   **PARAMS_TOL)

@@ -1394,6 +1394,19 @@ def split_bytes(shard, n_layers, rest_itemsize=4):
     return mod._split_bytes(shard, n_layers, rest_itemsize)
 
 
+def tp_bytes(*args, **kw):
+    """A tensor-parallel split step's and gate's bytes by kind, counted
+    from the layout: ``chip_smoke._tp_bytes``, the count the card run
+    holds (g) and (h) to."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._tp_bytes(*args, **kw)
+
+
 def split_cotangents(rank):
     """A rank's seeded cotangents of the whole unit and of each whole layer
     (``{path: [*shape]}`` for the unit's leaves, ``[L, ...]`` for the
@@ -1581,7 +1594,8 @@ def _step_case(mesh, out):
     """One node's split step on this rank's shard: the JAX package's
     params (converted), SPLIT_JAX_STEPS steps, the node's params gathered;
     a batch of 3 rows (no split over 2 data ranks) against the opaque
-    whole-node step, bit for bit; remat on against off."""
+    whole-node step (both runs' params, moments and losses); accumulation;
+    remat on against off."""
     import torch
     from repro_torch.core.flat import ShardLayout
     from repro_torch.launch import train
@@ -1622,11 +1636,11 @@ def _step_case(mesh, out):
     for _ in range(2):
         pw, ow, mw = step(pw, ow, odd)
         ps, os_, ms = step.split(ps, os_, odd, shard=shard, mesh=mesh)
-    out["odd/params_equal"] = np.asarray(torch.equal(
-        shard.shard(pw[None])[0], ps))
-    out["odd/moments_equal"] = np.asarray(
-        torch.equal(shard.shard(ow["mu"][None])[0], os_["mu"])
-        and torch.equal(shard.shard(ow["nu"][None])[0], os_["nu"]))
+    out["odd/params"] = np.stack([shard.shard(pw[None])[0].numpy(),
+                                  ps.numpy()])
+    out["odd/moments"] = np.stack([
+        np.stack([shard.shard(ow[k][None])[0].numpy(), os_[k].numpy()])
+        for k in ("mu", "nu")])
     out["odd/loss"] = np.asarray([float(mw["loss"]), float(ms["loss"])])
     # accumulation: 4 rows over 2 data ranks in 2 microbatches of one row
     # against the whole node's 2 microbatches of two; 6 rows stay whole
@@ -1644,8 +1658,8 @@ def _step_case(mesh, out):
         want = shard.shard(ow["mu"][None])[0] / (1 - tc.b1)
         out[f"accum/{rows}/grad_diff"] = np.asarray(float(
             (os_["mu"] / (1 - tc.b1) - want).abs().max()))
-        out[f"accum/{rows}/params_equal"] = np.asarray(torch.equal(
-            shard.shard(pw[None])[0], ps))
+        out[f"accum/{rows}/params"] = np.stack(
+            [shard.shard(pw[None])[0].numpy(), ps.numpy()])
         out[f"accum/{rows}/loss"] = np.asarray([float(mw["loss"]),
                                                 float(ms["loss"])])
     # remat on against off on the split path (4 rows: split over data):
@@ -1724,9 +1738,10 @@ def _split_val(inp, fam):
 
 def port_split_d1(inp):
     """(node, data, model) = (2, 1, 2): the Mamba2 smoke session with its
-    TrainStep split (remat on) against the same session with the step
-    opaque (the whole-node gather) on each wire: params, moments, gates
-    and losses bit for bit, every round."""
+    TrainStep split (remat on; tensor-parallel over the model group)
+    against the same session with the step opaque (the whole-node gather)
+    on each wire: each round's gates, params, moments and losses, both
+    runs'."""
     import torch
     mesh = _split_mesh(SPLIT_D1)
     out = {}
@@ -1748,9 +1763,12 @@ def port_split_d1(inp):
             runs[opaque] = rec
         for r in range(SPLIT_ROUNDS):
             a, b = runs[False][r], runs[True][r]
-            out[f"d1/{wire}/{r}/equal"] = np.asarray(
-                [torch.equal(x, y) for x, y in zip(a, b)])
-            out[f"d1/{wire}/{r}/gates"] = a[0].numpy()
+            out[f"d1/{wire}/{r}/gates"] = np.stack([a[0].numpy(),
+                                                    b[0].numpy()])
+            for name, x, y in zip(("params", "mu", "nu", "loss"), a[1:],
+                                  b[1:]):
+                out[f"d1/{wire}/{r}/{name}"] = np.stack([x.numpy(),
+                                                         y.numpy()])
         out[f"d1/{wire}/schedule"] = np.asarray(sess.sync_schedule.name)
     return out
 
@@ -1933,6 +1951,408 @@ def port_split_gate(inp):
     return out
 
 
+# --- tensor parallelism within a node: the split step on a model group ------
+
+#: the (node, data, model) shapes: the units' world, the steps' worlds
+TP_UNITS = (1, 1, 2)
+TP_WORLDS = {"tp_m2": (1, 1, 2), "tp_d2m2": (1, 2, 2)}
+#: the families' smoke models two split steps run against the JAX package
+TP_ARCHS = (("dense", "minicpm-2b"), ("ssm", "mamba2-370m"),
+            ("moe", "granite-moe-3b-a800m"), ("hybrid", "hymba-1.5b"))
+TP_JAX_STEPS, TP_JAX_BATCH, TP_JAX_SEQ = 2, 4, 32
+#: the blocks held against the reference's functions: (case, arch, config
+#: changes, module, window)
+TP_BLOCKS = (("attn_heads", "minicpm-2b", {}, "attn", 0),
+             ("attn_seq", "granite-moe-3b-a800m", {}, "attn", 0),
+             ("attn_seq_window", "granite-moe-3b-a800m", {}, "attn", 6),
+             ("mlp", "minicpm-2b", {}, "mlp", 0),
+             ("moe_cut", "granite-moe-3b-a800m", {}, "moe", 0),
+             ("moe_whole", "granite-moe-3b-a800m", {"n_experts": 3}, "moe",
+              0),
+             ("ssm", "mamba2-370m", {}, "ssm", 0))
+TP_B, TP_S = 2, 16
+#: the collectives' input shape, and the vocab of the loss's case
+TP_X = (2, 8, 6)
+TP_VOCAB, TP_D = 12, 6
+
+
+def tp_block_cfg(arch, changes):
+    from repro_torch.configs import get_config, smoke_variant
+    return smoke_variant(get_config(arch)).replace(**changes)
+
+
+def tp_block_params(case, seed=11):
+    """A block case's per-layer params (layer 0 of the smoke model's init:
+    ``{"layers.<module>.<leaf>": array}``) and its config."""
+    import torch
+    from repro_torch.models import build_model
+    name, arch, changes, module, _ = next(c for c in TP_BLOCKS
+                                          if c[0] == case)
+    cfg = tp_block_cfg(arch, changes)
+    model = build_model(cfg)
+    views = model.layout.unflatten(model.init(
+        torch.Generator().manual_seed(seed), "cpu"))
+    prefix = f"layers.{module}."
+    return cfg, {p: t[0].numpy().copy() for p, t in views.items()
+                 if p.startswith(prefix)}
+
+
+def tp_inputs(seed=12):
+    """Seeded numpy inputs of the units' world: each rank's collective
+    input and cotangent, the loss case's logits, labels, mask and tables,
+    each block's params, input and cotangent."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    m = TP_UNITS[2]
+    for r in range(m):
+        out[f"x{r}"] = rng.normal(0, 1, TP_X).astype(np.float32)
+        for name, shape in (("gather", (2, 8 * m, 6)),
+                            ("scatter", (2, 8 // m, 6)),
+                            ("a2a", (2, 8 // m, 6 * m)),
+                            ("local", (2, 8 // m, 6)),
+                            ("reduce", TP_X), ("replicated", TP_X)):
+            out[f"cot/{name}{r}"] = rng.normal(0, 1, shape).astype(
+                np.float32)
+    out["xent/logits"] = rng.normal(0, 2, (2, 8, TP_VOCAB)).astype(
+        np.float32)
+    out["xent/labels"] = rng.integers(0, TP_VOCAB - 2, (2, 8))
+    out["xent/mask"] = rng.random((2, 8)) > 0.3
+    out["xent/tokens"] = rng.integers(0, TP_VOCAB, (2, 8))
+    out["xent/table"] = rng.normal(0, 1, (TP_VOCAB, TP_D)).astype(np.float32)
+    for case, *_ in TP_BLOCKS:
+        cfg, params = tp_block_params(case)
+        for p, a in params.items():
+            out[f"block/{case}/p/{p}"] = a
+        out[f"block/{case}/h"] = rng.normal(0, 1, (TP_B, TP_S, cfg.d_model)
+                                            ).astype(np.float32)
+        out[f"block/{case}/cot"] = rng.normal(
+            0, 1, (TP_B, TP_S, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def tp_slices(ivs):
+    """Index arrays of a compute block's intervals a dimension."""
+    return [np.concatenate([np.arange(a, a + n) for a, n in dim])
+            for dim in ivs]
+
+
+def tp_take(a, ivs):
+    """A compute block of ``a`` from its intervals."""
+    for dim, idx in enumerate(tp_slices(ivs)):
+        a = np.take(a, idx, axis=dim)
+    return a
+
+
+def _tp_collectives(mesh, inp, out):
+    """Each collective of `repro_torch.sharding.tensor` on this rank's
+    seeded input: its output and the gradient of Σ out · cotangent."""
+    import torch
+    from repro_torch.sharding import tensor
+    r = mesh.model_view.rank
+    plan = tensor.TensorPlan(mesh.model_view, None, None)
+    x = torch.from_numpy(inp[f"x{r}"])
+    cases = {"gather": lambda t: tensor.gather(t, 1),
+             "scatter": lambda t: tensor.scatter_sum(t, 1),
+             "a2a": lambda t: tensor.all_to_all(t, 1, 2),
+             "local": lambda t: tensor.local(t, 1),
+             "reduce": tensor.all_reduce, "replicated": tensor.replicated}
+    with tensor.model_group(plan):
+        for name, fn in cases.items():
+            xi = x.clone().requires_grad_()
+            y = fn(xi)
+            (g,) = torch.autograd.grad(
+                (y * torch.from_numpy(inp[f"cot/{name}{r}"])).sum(), xi)
+            out[f"coll/{name}/out"] = y.detach().numpy()
+            out[f"coll/{name}/grad"] = g.numpy()
+
+
+def _tp_xent(mesh, inp, out):
+    """The vocab-parallel loss (the masked token mean of
+    `repro_torch.models.layers.softmax_xent` on the rank's vocab cut) and
+    its gradient; the embedding's lookups from a vocab-cut and a
+    d_model-cut table onto the rank's cut of the sequence."""
+    import torch
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models.layers import softmax_xent
+    from repro_torch.models.transformer import embed_tp
+    from repro_torch.sharding import tensor
+    from repro_torch.sharding.rules import Placement
+    r, m = mesh.model_view.rank, mesh.model_view.world_size
+    v = TP_VOCAB // m
+    logits = torch.from_numpy(inp["xent/logits"][..., r * v:(r + 1) * v]
+                              ).requires_grad_()
+    for tied in (True, False):
+        place = Placement(model=m, attention="heads", ff=True, experts=True,
+                          ssm_heads=True, vocab=True,
+                          embed="vocab" if tied else "d_model")
+        plan = tensor.TensorPlan(mesh.model_view, place, None)
+        table = inp["xent/table"]
+        cut = table[r * v:(r + 1) * v] if tied else \
+            table[:, r * (TP_D // m):(r + 1) * (TP_D // m)]
+        cfg = ModelConfig(d_model=TP_D, compute_dtype="float32")
+        with tensor.model_group(plan):
+            x = embed_tp({"table": torch.from_numpy(cut)},
+                         torch.from_numpy(inp["xent/tokens"]), cfg)
+            out[f"embed/{'vocab' if tied else 'd_model'}"] = x.numpy()
+            if tied:
+                loss = softmax_xent(logits, torch.from_numpy(
+                    inp["xent/labels"]), torch.from_numpy(inp["xent/mask"]))
+                (g,) = torch.autograd.grad(loss, logits)
+                out["xent/loss"] = loss.detach().numpy()
+                out["xent/grad"] = g.numpy()
+
+
+def tp_block_fn(module):
+    from repro_torch.models.attention import attention_tp
+    from repro_torch.models.layers import mlp
+    from repro_torch.models.moe import moe_tp
+    from repro_torch.models.ssm import ssm_tp
+    return {"attn": attention_tp, "mlp": mlp, "moe": moe_tp,
+            "ssm": ssm_tp}[module]
+
+
+def _tp_blocks(mesh, inp, out):
+    """Each block of TP_BLOCKS under tensor parallelism on this rank's
+    cut of the sequence and its compute blocks of the params: its output
+    (the MoE's aux too), and the gradients of Σ out · cotangent of the
+    params' compute blocks and of the input's cut."""
+    import torch
+    from repro_torch.models import nest
+    from repro_torch.sharding import tensor
+    from repro_torch.sharding.rules import compute_cut, placement
+    m, r = mesh.model_view.world_size, mesh.model_view.rank
+    for case, arch, changes, module, window in TP_BLOCKS:
+        cfg = tp_block_cfg(arch, changes)
+        place = placement(cfg, m)
+        prefix = f"block/{case}/p/"
+        params = {k[len(prefix):]: v for k, v in inp.items()
+                  if k.startswith(prefix)}
+        blocks = {p: torch.from_numpy(tp_take(a, compute_cut(
+            cfg, place, p, a.shape, r))).requires_grad_()
+            for p, a in params.items()}
+        n = TP_S // m
+        h = torch.from_numpy(inp[f"block/{case}/h"][:, r * n:(r + 1) * n]
+                             ).requires_grad_()
+        cot = torch.from_numpy(inp[f"block/{case}/cot"][:, r * n:(r + 1) * n])
+        p = nest({k.split(".", 2)[2]: t for k, t in blocks.items()})
+        positions = torch.arange(TP_S)[None].expand(TP_B, TP_S)
+        with tensor.model_group(tensor.TensorPlan(mesh.model_view, place,
+                                                  cfg)):
+            fn = tp_block_fn(module)
+            if module == "attn":
+                y = fn(p, h, cfg, positions=positions, window=window)
+            else:
+                y = fn(p, h, cfg)
+            aux = None
+            if module == "moe":
+                y, aux = y
+            loss = (y * cot).sum() + (0 if aux is None else aux)
+            grads = torch.autograd.grad(loss, [h] + list(blocks.values()))
+        out[f"block/{case}/y"] = y.detach().numpy()
+        if aux is not None:
+            out[f"block/{case}/aux"] = aux.detach().numpy()
+        out[f"block/{case}/gh"] = grads[0].numpy()
+        for path, g in zip(blocks, grads[1:]):
+            out[f"block/{case}/g/{path}"] = g.numpy()
+
+
+def port_tp_units(inp):
+    """(node, data, model) = (1, 1, 2): the collectives, the vocab-parallel
+    loss and embedding, and every block of TP_BLOCKS."""
+    mesh = _split_mesh(TP_UNITS)
+    out = {}
+    _tp_collectives(mesh, inp, out)
+    _tp_xent(mesh, inp, out)
+    _tp_blocks(mesh, inp, out)
+    return out
+
+
+def _tp_capture(step_fn):
+    """Run ``step_fn()`` with AdamW's gradient parts recorded: (its
+    result, the gradient parts the update took)."""
+    from repro_torch.launch import train
+    orig, seen = train.adamw_update_, {}
+
+    def update(parts, grads, opt, tc, lr, norm=None):
+        seen["grads"] = [g.detach().clone() for g in grads]
+        return orig(parts, grads, opt, tc, lr, norm=norm)
+
+    train.adamw_update_ = update
+    try:
+        return step_fn(), seen["grads"]
+    finally:
+        train.adamw_update_ = orig
+
+
+def port_tp_steps(inp, shape):
+    """A world of ``shape`` (node, data, model): for each family of
+    TP_ARCHS, two split steps from the JAX package's params (remat on;
+    the losses, the node's params, each step's bytes by kind), the split
+    gate's metric against the whole node's, the first step's gradient
+    gathered leaf by leaf against the unsharded step's, the compute
+    blocks a step gathers (their shapes, how many alive at once); then the
+    enc-dec smoke model split, which keeps the whole-layer form."""
+    import gc
+    import weakref
+    import torch
+    from repro_torch.core.flat import ShardLayout
+    from repro_torch.launch import train
+    from repro_torch.models import gather as G
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.rules import param_specs
+    mesh = _split_mesh(shape)
+    out = {"coords": np.asarray([mesh.coords["data"], mesh.coords["model"]])}
+    for fam, arch in TP_ARCHS:
+        model = _smoke(arch)
+        layout = model.layout
+        shard = ShardLayout(layout, param_specs(layout, mesh), mesh.inner,
+                            mesh.coords)
+        step = train.make_train_step(model, split_tc(
+            True, lr=1e-4, warmup_steps=0, max_steps=10))
+        flat = torch.from_numpy(inp[f"jax/{fam}/flat"])
+        p = shard.shard(flat[None])[0]
+        o = adamw_init(shard.local.parts(p))
+        batches = [{key: torch.from_numpy(inp[f"jax/{fam}/{key}"][k])
+                    for key in ("tokens", "labels")}
+                   for k in range(TP_JAX_STEPS)]
+        # the compute blocks the steps gather: alive at once, and their
+        # shapes against the whole layer's
+        live, peak, whole_layer = [0], [0], [False]
+        orig = G.NodeSplit.gather
+
+        def gathered(self, cut, local, i):
+            got = orig(self, cut, local, i)
+            if cut.stacked:
+                gc.collect()
+                live[0] += 1
+                peak[0] = max(peak[0], live[0])
+                weakref.finalize(got[0], lambda: live.__setitem__(
+                    0, live[0] - 1))
+                for k, t in enumerate(got):
+                    cut_leaf = any(len(ivs) != 1 or ivs[0] != (0, n)
+                                   for ivs, n in zip(cut._cblocks[0][k],
+                                                     cut.shapes[k]))
+                    if cut_leaf and tuple(t.shape) == tuple(cut.shapes[k]):
+                        whole_layer[0] = True
+            return got
+
+        G.NodeSplit.gather = gathered
+        losses = []
+        try:
+            for k, b in enumerate(batches):
+                mesh.reset_counts()
+                (p, o, met), grads = _tp_capture(
+                    lambda: step.split(p, o, b, shard=shard, mesh=mesh))
+                losses.append(float(met["loss"]))
+                for kind, nbytes in mesh.counts.items():
+                    out[f"{fam}/bytes{k}/{kind}"] = np.asarray(nbytes)
+                if k == 0:
+                    first = grads
+        finally:
+            G.NodeSplit.gather = orig
+        out[f"{fam}/peak_blocks"] = np.asarray(peak[0])
+        out[f"{fam}/whole_layer"] = np.asarray(whole_layer[0])
+        out[f"{fam}/loss"] = np.asarray(losses)
+        out[f"{fam}/params"] = _node_params(shard, mesh, p).numpy()
+        # the first step's gradient against the unsharded step's
+        whole = train.make_train_step(model, split_tc(
+            True, lr=1e-4, warmup_steps=0, max_steps=10))
+        _, want = _tp_capture(lambda: whole(flat.clone(), adamw_init(
+            layout.parts(flat)), batches[0]))
+        got = shard.gather(shard.local.join(first)[None], mesh.shard_view,
+                           kind=None)[0]
+        gv = layout.value_layout.unflatten(layout.values(got))
+        wv = layout.value_layout.unflatten(layout.values(
+            layout.join(want)))
+        out[f"{fam}/grad_leaves"] = np.asarray(sorted(gv))
+        out[f"{fam}/grad_rel"] = np.asarray(
+            [float((gv[q] - wv[q]).abs().max()
+                   / wv[q].abs().max().clamp(min=1e-30)) for q in sorted(gv)])
+        # the split gate against the whole node's metric
+        val = batches[-1]
+        mesh.reset_counts()
+        ev = train.make_swarm_eval(model)
+        out[f"{fam}/gate"] = np.asarray([
+            float(ev.split(p, val, shard=shard, mesh=mesh)),
+            float(ev(_node_params(shard, mesh, p)[None],
+                     {k: v[None] for k, v in val.items()})[0])])
+        for kind, nbytes in mesh.counts.items():
+            out[f"{fam}/gate_bytes/{kind}"] = np.asarray(nbytes)
+    # the vlm family (the patches and the text gathered whole, then the
+    # rank's cut) and a LoRA'd dense model (its adapters cut with their
+    # layers): the first split step's gradient against the unsharded one
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import build_model
+    for name, arch, rank in TP_MORE:
+        model = build_model(smoke_variant(get_config(arch)), lora_rank=rank)
+        layout = model.layout
+        shard = ShardLayout(layout, param_specs(layout, mesh), mesh.inner,
+                            mesh.coords)
+        step = train.make_train_step(model, split_tc(True))
+        p0 = model.init(torch.Generator().manual_seed(0), "cpu")
+        b = {k[len(name) + 1:]: torch.from_numpy(v) for k, v in inp.items()
+             if k.startswith(f"{name}/")}
+        ps = shard.shard(p0[None])[0]
+        _, first = _tp_capture(lambda: step.split(
+            ps, adamw_init(shard.local.parts(ps)), b, shard=shard,
+            mesh=mesh))
+        _, want = _tp_capture(lambda: step(p0.clone(), adamw_init(
+            layout.parts(p0)), b))
+        got = shard.gather(shard.local.join(first)[None], mesh.shard_view,
+                           kind=None)[0]
+        gv = layout.value_layout.unflatten(layout.values(got))
+        wv = layout.value_layout.unflatten(layout.values(
+            layout.join(want)))
+        out[f"{name}/grad_rel"] = np.asarray(
+            [float((gv[q] - wv[q]).abs().max()
+                   / wv[q].abs().max().clamp(min=1e-30)) for q in sorted(gv)])
+    # the enc-dec family at model 2: the whole-layer split
+    model = _smoke("seamless-m4t-medium")
+    layout = model.layout
+    shard = ShardLayout(layout, param_specs(layout, mesh), mesh.inner,
+                        mesh.coords)
+    step = train.make_train_step(model, split_tc(True))
+    p0 = model.init(torch.Generator().manual_seed(0), "cpu")
+    b = {k: torch.from_numpy(inp[f"encdec/{k}"])
+         for k in ("tokens", "labels", "frames")}
+    mesh.reset_counts()
+    ps = shard.shard(p0[None])[0]
+    ps, _, ms = step.split(ps, adamw_init(shard.local.parts(ps)), b,
+                           shard=shard, mesh=mesh)
+    pw, _, mw = step(p0.clone(), adamw_init(layout.parts(p0)), b)
+    out["encdec/tensor_plan"] = np.asarray(
+        train.tensor_plan(model, mesh) is not None)
+    out["encdec/kinds"] = np.asarray(sorted(mesh.counts))
+    out["encdec/loss"] = np.asarray([float(ms["loss"]), float(mw["loss"])])
+    out["encdec/params"] = _node_params(shard, mesh, ps).numpy()
+    out["encdec/whole"] = pw.numpy()
+    return out
+
+
+#: the other tensor-parallel steps: (name, arch, LoRA rank)
+TP_MORE = (("vlm", "internvl2-1b", 0), ("lora", "minicpm-2b", 4))
+
+
+def tp_encdec_batch(rng):
+    """The batches of the enc-dec and the TP_MORE steps: 4 rows of 16
+    tokens (the enc-dec's frames, the vlm's patch embeddings)."""
+    from repro_torch.configs import get_config, smoke_variant
+    out = {}
+    for name, arch in (("encdec", "seamless-m4t-medium"),) + tuple(
+            (n, a) for n, a, _ in TP_MORE):
+        cfg = smoke_variant(get_config(arch))
+        toks = rng.integers(0, cfg.vocab_size, (4, 17))
+        out[f"{name}/tokens"] = toks[:, :-1].astype(np.int64)
+        out[f"{name}/labels"] = toks[:, 1:].astype(np.int64)
+        if cfg.is_encdec:
+            out[f"{name}/frames"] = rng.normal(0, 1, (
+                4, cfg.enc_seq_len, cfg.frontend_dim)).astype(np.float32)
+        if cfg.family == "vlm":
+            out[f"{name}/patch_embeds"] = rng.normal(0, 1, (
+                4, cfg.n_patches, cfg.frontend_dim)).astype(np.float32)
+    return out
+
+
 def main(argv):
     task, rank, world, init, out_dir = argv[:5]
     rank, world = int(rank), int(world)
@@ -1965,6 +2385,10 @@ def main(argv):
                 res = port_split_d1(inp)
             elif task == "split_gate":
                 res = port_split_gate(inp)
+            elif task == "tp_units":
+                res = port_tp_units(inp)
+            elif task in TP_WORLDS:
+                res = port_tp_steps(inp, TP_WORLDS[task])
             elif task in SPLIT_WORLDS:
                 res = port_split_sessions(inp, SPLIT_WORLDS[task])
             elif task == "hier":
