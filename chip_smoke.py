@@ -1569,7 +1569,11 @@ FLASH_SWEEP = ((1, 4, 4, 128, 128, 64, True, 0, "float32"),
 # step (batch 4 at 256 tokens, no cache); granite-moe's split step of part
 # (g) (a data rank's 4 rows at 256 tokens, no cache) and its gate's score
 # (GOSSIP_G_VAL's 2 rows), whole (one model rank) and head-parallel over 2
-# model ranks (12 of 24 heads, 4 of 8 KV heads)
+# model ranks (12 of 24 heads, 4 of 8 KV heads); seamless's calls in part
+# (i) (2 rows of 1,024 frames and 256 tokens, its step's and its gate's
+# alike), head-parallel over 2 model ranks (8 of 16 heads) and in the
+# unsharded twin: the encoder's unmasked self-attention, the decoder's
+# cross-attention over the encoder output and its causal self-attention
 FAMILY_FLASH = (("granite", 1, 24, 8, 2048, 2064, True),
                 ("granite_256", 1, 24, 8, 256, 2064, True),
                 ("granite_train", 4, 24, 8, 256, 256, True),
@@ -1580,7 +1584,13 @@ FAMILY_FLASH = (("granite", 1, 24, 8, 2048, 2064, True),
                 ("seamless", 4, 16, 16, 1024, 1024, False),
                 ("minicpm", 1, 36, 36, 2048, 2064, True),
                 ("minicpm_256", 1, 36, 36, 256, 2064, True),
-                ("minicpm_train", 4, 36, 36, 256, 256, True))
+                ("minicpm_train", 4, 36, 36, 256, 256, True),
+                ("seamless_tp_enc", 2, 8, 8, 1024, 1024, False),
+                ("seamless_tp_cross", 2, 8, 8, 256, 1024, False),
+                ("seamless_tp_dec", 2, 8, 8, 256, 256, True),
+                ("seamless_twin_enc", 2, 16, 16, 1024, 1024, False),
+                ("seamless_twin_cross", 2, 16, 16, 256, 1024, False),
+                ("seamless_twin_dec", 2, 16, 16, 256, 256, True))
 # flash's bf16 D = 128 body (csrc/flash_attention.cu: kWG = 2,
 # hop::launch<128>) at the attention shapes of nemotron-4-15b (48 heads
 # over 8 KV heads, a GQA group of 6) and deepseek-coder-33b (56 over 8, a
@@ -2611,9 +2621,11 @@ def phase_serve(dev, smi):
     for n in SERVE_SEQ:
         prog = eng.programs[("prefill", n, decode_bucket), 0]
         eng._stage_prefill(gen.integers(0, cfg.vocab_size, n), 0, n)
-        # two turns (four for the tick): processing the profiled eager
-        # prefill's trace takes about 10 s a turn
-        versus[f"prefill_{n}"] = _eager_vs_replay(prog, turns=2)
+        # two turns (four for the tick), at the longest prompt only:
+        # processing the profiled eager prefill's trace takes about 10 s a
+        # turn
+        if n == SERVE_SEQ[-1]:
+            versus[f"prefill_{n}"] = _eager_vs_replay(prog, turns=2)
         records[n] = _profiled_replay_launches(prog)
         if records[n]["launches"] != {"flash_attention": per_prefill,
                                       "ssd_scan": per_prefill}:
@@ -5485,7 +5497,7 @@ def _split_bytes(shard, n_layers, rest_itemsize, remat=True):
 
 
 def _tp_bytes(shard, cfg, n_layers, rest_itemsize, rows, seq, split_rows,
-              remat=True, val=None):
+              remat=True, val=None, frames=None):
     """A tensor-parallel split step's bytes by kind (one microbatch of
     ``rows`` rows of ``seq`` tokens on this rank's data index;
     ``split_rows``: the data ranks took rows of their own) and, with
@@ -5495,18 +5507,25 @@ def _tp_bytes(shard, cfg, n_layers, rest_itemsize, rows, seq, split_rows,
     each leaf's layer and each rank of the shard group, the elements of
     the rank's compute block in each stored block it does not hold, sent
     by the stored block's holder of index ``r mod holders`` (the unit
-    once, every layer once, twice with remat); ``grad_to_shard``, the f32
-    elements of this rank's compute block in each stored block, to each
-    other holder (of its data index where the rows are whole); the model
-    group's activations: per block an all_gather of the normed sequence
-    (``tp_gather``, the rank's cut), a reduce_scatter per row-parallel
-    output (``tp_reduce_scatter``, the f32 sum's other M − 1 cuts), the SSM
-    norm's f32 sums of squares (``tp_all_reduce``), each collective's
-    transpose in the backward (a reduce_scatter for a gather, a gather for
-    a reduce_scatter), the forward twice with remat; the embedding's
+    once, every layer once, a checkpointed layer twice with remat);
+    ``grad_to_shard``, the f32 elements of this rank's compute block in
+    each stored block, to each other holder (of its data index where the
+    rows are whole); the model group's activations: per block an
+    all_gather of the normed sequence (``tp_gather``, the rank's cut), a
+    reduce_scatter per row-parallel output (``tp_reduce_scatter``, the
+    f32 sum's other M − 1 cuts), the SSM norm's f32 sums of squares
+    (``tp_all_reduce``), each collective's transpose in the backward (a
+    reduce_scatter for a gather, a gather for a reduce_scatter), a
+    checkpointed block's forward twice with remat; the embedding's
     all_to_all (``tp_all_to_all``, the M − 1 chunks a rank sends) or
     reduce_scatter, the final norm's gather and the loss's three f32
-    all_reduces a token. Returns ``(step kinds, gate kinds or None)``."""
+    all_reduces a token. An enc-dec (``n_layers`` the decoder's depth,
+    ``cfg.n_enc_layers`` the encoder's, ``frames`` the encoder's length,
+    ``cfg.enc_seq_len`` by default): its encoder blocks (never
+    checkpointed) on the frames, the encoder output's one gather (and its
+    reduce_scatter back), and each decoder block's cross-attention, which
+    gathers its normed rows only where it is head-parallel. Returns
+    ``(step kinds, gate kinds or None)``."""
     from repro_torch.sharding.rules import compute_cut, placement
 
     m = shard.sizes.get("model", 1)
@@ -5515,6 +5534,12 @@ def _tp_bytes(shard, cfg, n_layers, rest_itemsize, rows, seq, split_rows,
     coords = [shard.coords_of(g) for g in range(n_group)]
     me = coords.index({a: shard.coords.get(a, 0) for a in shard.sizes})
     data = [c.get("data", 0) for c in coords]
+    encdec = cfg.is_encdec
+    frames = cfg.enc_seq_len if frames is None else frames
+    # each stack's depth and whether remat gathers its layers twice
+    stacks = ({"enc_layers": (cfg.n_enc_layers, False),
+               "dec_layers": (n_layers, True)} if encdec
+              else {"layers": (n_layers, True)})
 
     def inside(box, blk):
         n = 1
@@ -5523,9 +5548,11 @@ def _tp_bytes(shard, cfg, n_layers, rest_itemsize, rows, seq, split_rows,
                      for c, lc in ivs)
         return n
 
-    unit = layers = grads = 0
+    unit = grads = 0
+    layers = {top: 0 for top in stacks}
     for leaf in shard.full.leaves:
-        stacked = leaf.path.split(".")[0] == "layers"
+        top = leaf.path.split(".")[0]
+        stacked = top in stacks
         shape = leaf.shape[1:] if stacked else leaf.shape
         item = 4 if leaf.wide else rest_itemsize
         comp = [compute_cut(cfg, place, leaf.path, shape, c.get("model", 0))
@@ -5539,7 +5566,7 @@ def _tp_bytes(shard, cfg, n_layers, rest_itemsize, rows, seq, split_rows,
                 else:
                     box[dim - stacked] = (start, length)
             stored.append((tuple(box), span))
-        for i in range(n_layers if stacked else 1):
+        for i in range(stacks[top][0] if stacked else 1):
             holders = {}
             for g, (box, span) in enumerate(stored):
                 if span is None or span[0] <= i < span[0] + span[1]:
@@ -5550,7 +5577,7 @@ def _tp_bytes(shard, cfg, n_layers, rest_itemsize, rows, seq, split_rows,
                     if src == me != r:
                         n = inside(box, comp[r]) * item
                         if stacked:
-                            layers += n
+                            layers[top] += n
                         else:
                             unit += n
                 mine = inside(box, comp[me]) * 4
@@ -5560,66 +5587,105 @@ def _tp_bytes(shard, cfg, n_layers, rest_itemsize, rows, seq, split_rows,
     c = 4 if cfg.compute_dtype == "float32" else 2
     d = cfg.d_model
 
-    def acts(rows, seq, grad):
-        """(per block forward, per block backward, the rest) by kind."""
+    def add(to, kind, n):
+        to[kind] = to.get(kind, 0) + n
+
+    def moves(rows, seq):
+        """The gather into a block of ``rows`` × ``seq`` and a
+        row-parallel output's reduce_scatter: ``(gather_in, row_out)``,
+        each adding its forward and backward bytes to two dicts."""
         x = rows * seq * d
-        lg, rs, sq = x // m * c, x * 4 * (m - 1) // m, rows * seq * 4
-        fwd, bwd, rest = {}, {}, {}
+        lg, rs = x // m * c, x * 4 * (m - 1) // m
 
-        def add(to, kind, n):
-            to[kind] = to.get(kind, 0) + n
-
-        def gather_in():
+        def gather_in(fwd, bwd):
             add(fwd, "tp_gather", lg)
             add(bwd, "tp_reduce_scatter", rs)
 
-        def row_out(item=c):
+        def row_out(fwd, bwd, item=c):
             add(fwd, "tp_reduce_scatter", rs)
             add(bwd, "tp_gather", x // m * item)
 
-        gather_in()
+        return gather_in, row_out
+
+    def block(rows, seq):
+        """A decoder-only or decoder block's (forward, backward) by kind."""
+        fwd, bwd = {}, {}
+        gather_in, row_out = moves(rows, seq)
+        gather_in(fwd, bwd)
         if cfg.family in ("ssm", "hybrid") and place.ssm_heads:
-            add(fwd, "tp_all_reduce", sq)
-            add(bwd, "tp_all_reduce", sq)
-            row_out()
+            add(fwd, "tp_all_reduce", rows * seq * 4)
+            add(bwd, "tp_all_reduce", rows * seq * 4)
+            row_out(fwd, bwd)
         if cfg.family != "ssm" and place.attention == "heads":
-            row_out()
+            row_out(fwd, bwd)
+        if encdec and place.attention == "heads":   # cross-attention
+            gather_in(fwd, bwd)
+            row_out(fwd, bwd)
         if cfg.family == "moe":
-            gather_in()
+            gather_in(fwd, bwd)
             if place.experts:
-                row_out(4)
+                row_out(fwd, bwd, 4)
         elif cfg.family != "ssm" and place.ff:
-            gather_in()
-            row_out()
+            gather_in(fwd, bwd)
+            row_out(fwd, bwd)
+        return fwd, bwd
+
+    def enc_block(rows):
+        """An encoder block's (forward, backward) by kind."""
+        fwd, bwd = {}, {}
+        gather_in, row_out = moves(rows, frames)
+        gather_in(fwd, bwd)
+        if place.attention == "heads":
+            row_out(fwd, bwd)
+        if place.ff:
+            gather_in(fwd, bwd)
+            row_out(fwd, bwd)
+        return fwd, bwd
+
+    def rest(rows, seq, grad):
+        """The embedding, the encoder output's gather, the final norm's
+        gather and the loss, by kind."""
+        out = {}
+        x = rows * seq * d
+        lg, rs = x // m * c, x * 4 * (m - 1) // m
         if place.embed == "d_model":
             n = (m - 1) * rows * (seq // m) * (d // m) * c
-            add(rest, "tp_all_to_all", n * (2 if grad else 1))
+            add(out, "tp_all_to_all", n * (2 if grad else 1))
         elif place.embed == "vocab":
-            add(rest, "tp_reduce_scatter", rs)
+            add(out, "tp_reduce_scatter", rs)
             if grad:
-                add(rest, "tp_gather", lg)
-        add(rest, "tp_gather", lg)
+                add(out, "tp_gather", lg)
+        if encdec:
+            gather_in, _ = moves(rows, frames)
+            gather_in(out, out if grad else {})
+        add(out, "tp_gather", lg)
         if grad:
-            add(rest, "tp_reduce_scatter", rs)
-        add(rest, "tp_all_reduce", 3 * sq)
-        return fwd, bwd, rest
+            add(out, "tp_reduce_scatter", rs)
+        add(out, "tp_all_reduce", 3 * rows * seq * 4)
+        return out
 
     def total(rows, seq, grad, passes):
-        fwd, bwd, rest = acts(rows, seq, grad)
-        out = dict(rest)
-        for kinds, times in ((fwd, passes * n_layers),
-                             (bwd, n_layers if grad else 0)):
-            for k, v in kinds.items():
-                out[k] = out.get(k, 0) + v * times
+        out = rest(rows, seq, grad)
+        parts = [(block(rows, seq), n_layers, passes)]
+        if encdec:
+            parts.append((enc_block(rows), cfg.n_enc_layers, 1))
+        for (fwd, bwd), depth, times in parts:
+            for kinds, k in ((fwd, times * depth),
+                             (bwd, depth if grad else 0)):
+                for kind, v in kinds.items():
+                    add(out, kind, v * k)
         return {k: v for k, v in out.items() if v}
 
-    step = total(rows, seq, True, 2 if remat else 1)
-    step["layer_gather"] = unit + (2 if remat else 1) * layers
+    passes = 2 if remat else 1
+    step = total(rows, seq, True, passes)
+    step["layer_gather"] = unit + sum(
+        (passes if twice else 1) * layers[top]
+        for top, (_, twice) in stacks.items())
     step["grad_to_shard"] = grads
     gate = None
     if val is not None:
         gate = total(val[0], val[1], False, 1)
-        gate["gate_gather"] = unit + layers
+        gate["gate_gather"] = unit + sum(layers.values())
     return step, gate
 
 
@@ -5966,7 +6032,7 @@ def _gossip_split(dev, smi, tmp, ftwin):
 # GOSSIP_G_BATCH rows (half a data rank) and one fedavg/full sync on the
 # f32 wire, its gate scored twice a score
 GOSSIP_G_ARCH = "granite-moe-3b-a800m"
-GOSSIP_G_LAYERS = 8
+GOSSIP_G_LAYERS = 4
 GOSSIP_G_MESH = (2, 2, 2)
 GOSSIP_G_STEPS, GOSSIP_G_BATCH, GOSSIP_G_SEQ = 2, 8, 256
 #: the validation rows a node scores its gate on (rows, tokens)
@@ -6366,18 +6432,45 @@ GOSSIP_H_LAYERS = 2
 GOSSIP_H_MESH = (2, 1, 2)
 GOSSIP_H_STEPS, GOSSIP_H_BATCH, GOSSIP_H_SEQ = 2, 2, 2048
 GOSSIP_H_VAL = (2, 2048)
+# (i) seamless-m4t-medium tensor-parallel: GOSSIP_I_LAYERS of its 12
+# encoder and of its 12 decoder layers, rows of GOSSIP_I_FRAMES frames and
+# GOSSIP_I_SEQ target tokens
+GOSSIP_I_ARCH = "seamless-m4t-medium"
+GOSSIP_I_LAYERS = 2
+GOSSIP_I_MESH = (2, 1, 2)
+GOSSIP_I_STEPS, GOSSIP_I_BATCH, GOSSIP_I_SEQ = 2, 2, 256
+GOSSIP_I_FRAMES = 1024
+GOSSIP_I_VAL = (2, 256)
+
+
+def _tp_part(part, name):
+    """Part ``part``'s (``"h"``, ``"i"``) setting ``GOSSIP_<PART>_<name>``,
+    read when called (a rehearsal on the CPU sets them first)."""
+    return globals()[f"GOSSIP_{part.upper()}_{name}"]
 
 
 def _gossip_rank_h(rank, world, init, tmp, dev):
-    """(h) One gloo rank on ``cuda:0``: with a world of 4, model block
-    ``rank % 2`` of node ``rank // 2`` of GOSSIP_H_MESH, the rules' specs,
-    the TrainStep and the split gate tensor-parallel; with a world of 2,
-    node ``rank`` whole (the twin: it writes its node's params to
-    ``tmp``). Hymba-1.5B at GOSSIP_H_LAYERS layers from the seed-0 init,
-    lr GOSSIP_F_LR. Into ``tmp/<tag><r>.pt``: gates, node losses, metrics,
-    walls, memory, counted and layout bytes, launches, and on a sharded
-    rank of model index 0 the largest difference from the twin's node by
-    leaf kind."""
+    """(h) Hymba-1.5B: :func:`_gossip_rank_tp` of part h."""
+    _gossip_rank_tp("h", rank, world, init, tmp, dev)
+
+
+def _gossip_rank_i(rank, world, init, tmp, dev):
+    """(i) seamless-m4t-medium: :func:`_gossip_rank_tp` of part i."""
+    _gossip_rank_tp("i", rank, world, init, tmp, dev)
+
+
+def _gossip_rank_tp(part, rank, world, init, tmp, dev):
+    """(h), (i) One gloo rank on ``cuda:0``: with a world of 4, model block
+    ``rank % 2`` of node ``rank // 2`` of the part's MESH, the rules'
+    specs, the TrainStep and the split gate tensor-parallel; with a world
+    of 2, node ``rank`` whole (the twin: it writes its node's params to
+    ``tmp``). The part's ARCH at LAYERS layers (an enc-dec: LAYERS encoder
+    and LAYERS decoder layers, its frames drawn on the card from a seeded
+    generator) from the seed-0 init, lr GOSSIP_F_LR. Into
+    ``tmp/<tag><r>.pt``: gates, node losses, metrics, walls, memory,
+    counted and layout bytes, launches, on a sharded rank each stack's
+    compute block against its whole layer, and on a sharded rank of model
+    index 0 the largest difference from the twin's node by leaf kind."""
     import dataclasses
     import numpy as np
     import torch
@@ -6390,68 +6483,101 @@ def _gossip_rank_h(rank, world, init, tmp, dev):
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_swarm_mesh
     from repro_torch.models import build_model
+    from repro_torch.models.gather import NodeSplit
     from repro_torch.optim import adamw_init
     from repro_torch.sharding.rules import param_specs
 
+    C = lambda name: _tp_part(part, name)
     dev = torch.device("cuda", 0) if str(dev).startswith("cuda") else \
         torch.device(dev)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    n, d, m = GOSSIP_H_MESH
+    n, d, m = C("MESH")
     sharded = world == n * d * m
-    tag = "hshard" if sharded else "htwin"
+    tag = f"{part}shard" if sharded else f"{part}twin"
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=world)
     try:
         mesh, axis = (make_swarm_mesh(n, data=d, model=m) if sharded
                       else make_swarm_mesh(n))
-        cfg = dataclasses.replace(get_config(GOSSIP_H_ARCH),
-                                  n_layers=GOSSIP_H_LAYERS)
+        cfg = get_config(C("ARCH"))
+        depth = dict(n_layers=C("LAYERS"))
+        if cfg.is_encdec:
+            depth["n_enc_layers"] = C("LAYERS")
+        cfg = dataclasses.replace(cfg, **depth)
         model = build_model(cfg)
         layout = model.layout
         step = train.make_train_step(model, TrainConfig(
             lr=GOSSIP_F_LR, warmup_steps=0, max_steps=10, remat=True))
-        streams = [make_lm_stream(8, GOSSIP_H_SEQ, cfg.vocab_size, seed=i,
+        steps, rows, seq = C("STEPS"), C("BATCH"), C("SEQ")
+        streams = [make_lm_stream(8, seq, cfg.vocab_size, seed=i,
                                   topic_bias=1.0) for i in range(n)]
         rng = np.random.default_rng(0)
 
         def to_dev(arrays):
             return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
 
-        vrows, vseq = GOSSIP_H_VAL
+        vrows, vseq = C("VAL")
         vals = to_dev({k: np.stack([st[k][-vrows:, :vseq] for st in streams])
                        for k in streams[0]})
-        idx = [rng.integers(0, len(st["tokens"]) - vrows,
-                            (GOSSIP_H_STEPS, GOSSIP_H_BATCH))
+        idx = [rng.integers(0, len(st["tokens"]) - vrows, (steps, rows))
                for st in streams]
         batch = to_dev({k: np.stack([st[k][i] for st, i in
                                      zip(streams, idx)], axis=1)
                         for k in streams[0]})
-        scfg = dataclasses.replace(_gossip_e_cfg("f32"),
-                                   sync_every=GOSSIP_H_STEPS)
-        p0 = model.init(torch.Generator(device=dev).manual_seed(0), dev)
-        sess = SwarmSession(
-            scfg, step, train.make_swarm_eval(model), params=p0,
-            opt_state=adamw_init(layout.parts(p0)),
-            data_sizes=[float(len(st["tokens"])) for st in streams],
-            layout=layout, device=dev, backend="gossip", mesh=mesh,
-            axis=axis,
-            param_specs=param_specs(layout, mesh) if sharded else None)
-        del p0
-        torch.cuda.empty_cache()
+        if cfg.is_encdec:   # the stub front end's frames, made on the card
+            gen = torch.Generator(device=dev).manual_seed(1)
+            shape = (C("FRAMES"), cfg.frontend_dim)
+            batch["frames"] = torch.randn((steps, n, rows) + shape,
+                                          generator=gen, device=dev)
+            vals["frames"] = torch.randn((n, vrows) + shape, generator=gen,
+                                         device=dev)
+        scfg = dataclasses.replace(_gossip_e_cfg("f32"), sync_every=steps)
+        # a session starts from the node whole (its params and AdamW
+        # moments tiled over the 2 nodes: about 17 GiB for (i), then
+        # sharded): the ranks build theirs one at a time
+        sess = None
+        for r in range(world):
+            if r == rank:
+                p0 = model.init(torch.Generator(device=dev).manual_seed(0),
+                                dev)
+                sess = SwarmSession(
+                    scfg, step, train.make_swarm_eval(model), params=p0,
+                    opt_state=adamw_init(layout.parts(p0)),
+                    data_sizes=[float(len(st["tokens"])) for st in streams],
+                    layout=layout, device=dev, backend="gossip", mesh=mesh,
+                    axis=axis,
+                    param_specs=param_specs(layout, mesh) if sharded
+                    else None)
+                del p0
+                torch.cuda.empty_cache()
+            dist.barrier()
         eng = sess.engine
         if eng.splits != sharded or eng.split_gate != sharded:
-            raise AssertionError(f"(h) rank {rank}: splits={eng.splits}, "
-                                 f"split_gate={eng.split_gate}")
+            raise AssertionError(f"({part}) rank {rank}: splits="
+                                 f"{eng.splits}, split_gate="
+                                 f"{eng.split_gate}")
         node_of = mesh.rows.start
         out = {"coords": dict(mesh.coords), "node": node_of}
         if sharded:
+            frames = C("FRAMES") if cfg.is_encdec else None
             out["step_from_layout"], gate = _tp_bytes(
-                eng.shard, cfg, GOSSIP_H_LAYERS,
-                sess.state.params.element_size(), GOSSIP_H_BATCH,
-                GOSSIP_H_SEQ, False, val=GOSSIP_H_VAL)
+                eng.shard, cfg, C("LAYERS"),
+                sess.state.params.element_size(), rows, seq, False,
+                val=C("VAL"), frames=frames)
             out["gate_from_layout"] = {k: 2 * mesh.per * v
                                        for k, v in gate.items()}
+            # the layer a rank receives: its compute blocks, against the
+            # whole layer, a stack each
+            cuts = NodeSplit(eng.shard, None, None,
+                             dtype=sess.state.params.dtype,
+                             tensor=train.tensor_plan(model, mesh)).cuts
+            nbytes = lambda shapes, cut: sum(
+                int(np.prod(sh)) * t.itemsize
+                for sh, t in zip(shapes, cut.dtypes))
+            out["blocks"] = {top: dict(block=nbytes(cut.cshapes, cut),
+                                       whole=nbytes(cut.shapes, cut))
+                             for top, cut in cuts.items()}
         log_t = {"steps": []}
         sync, local_steps = eng.sync, eng.local_steps
 
@@ -6502,15 +6628,18 @@ def _gossip_rank_h(rank, world, init, tmp, dev):
             launches={k: v for k, v in LAUNCHES.items() if v})
         node = eng.node_tensor(sess.state.params, kind=None)[0]
         if not sharded:
-            torch.save(node.cpu(), f"{tmp}/htwin_params_n{rank}.pt")
+            torch.save(node.cpu(), f"{tmp}/{part}twin_params_n{rank}.pt")
         elif mesh.coords["model"] == 0:
-            twin = torch.load(f"{tmp}/htwin_params_n{node_of}.pt").to(dev)
+            twin = torch.load(f"{tmp}/{part}twin_params_n{node_of}.pt").to(
+                dev)
             got, want = layout.values(node), layout.values(twin)
             w = layout.n_wide
             diffs = {}
             for kind, sl in (("f32", slice(0, w)), ("bf16", slice(w, None))):
                 rtol, atol = GOSSIP_F_TOL[kind]
                 dd = (got[sl] - want[sl]).abs()
+                if not dd.numel():   # seamless keeps no leaf in f32
+                    continue
                 diffs[kind] = dict(
                     max_abs=float(dd.max()),
                     excess=float((dd - atol - rtol * want[sl].abs()).max()),
@@ -6524,68 +6653,96 @@ def _gossip_rank_h(rank, world, init, tmp, dev):
         dist.destroy_process_group()
 
 
-def _gossip_tp_hymba(dev, smi, tmp, htwin):
-    """(h) The tensor-parallel world (4 ranks, 2 nodes × model 2) on the
-    card, after its twin (2 ranks, a node each; ``htwin``: its wall and its
-    ranks' records), whose params the split round is held against. Raises
-    on any failed check."""
+def _gossip_tp_launches(part):
+    """The flash (and SSD) launches a rank of part ``part`` makes in its
+    round: once a layer's mixer in each step's forward and again in
+    remat's recompute, and once a layer's mixer a gate score (params,
+    candidate); an enc-dec's encoder layers (never checkpointed) once a
+    step and once a score, its decoder layers' self- and cross-attention
+    each as a checkpointed layer's."""
+    layers, steps = _tp_part(part, "LAYERS"), _tp_part(part, "STEPS")
+    if part == "i":
+        return {"flash_attention": layers * (steps + 2)
+                + 2 * layers * (2 * steps + 2)}
+    launches = layers * (2 * steps + 2)
+    return {"flash_attention": launches, "ssd_scan": launches}
+
+
+def _gossip_tp(part, dev, smi, tmp, twin):
+    """(h), (i) The tensor-parallel world (4 ranks, 2 nodes × model 2) on
+    the card, after its twin (2 ranks, a node each; ``twin``: its wall
+    and its ranks' records), whose params the split round is held
+    against. Raises on any failed check."""
+    import math
     import os
 
-    twin_wall, twin = htwin
-    n, d, m = GOSSIP_H_MESH
+    C = lambda name: _tp_part(part, name)
+    twin_wall, twin = twin
+    n, d, m = C("MESH")
+    rank_fn = {"h": _gossip_rank_h, "i": _gossip_rank_i}[part]
     try:
         with _expandable_segments():
-            wall, ranks = _gossip_spawn(_gossip_rank_h, tmp, dev, "hshard",
+            wall, ranks = _gossip_spawn(rank_fn, tmp, dev, f"{part}shard",
                                         world=n * d * m)
     finally:
         for name in os.listdir(tmp):
-            if name.startswith("htwin_params"):
+            if name.startswith(f"{part}twin_params"):
                 os.remove(os.path.join(tmp, name))
-    # flash and SSD once a layer in each step's forward and again in
-    # remat's recompute, and once a layer a gate score (params, candidate)
-    launches = GOSSIP_H_LAYERS * (2 * GOSSIP_H_STEPS + 2)
-    predicted = {"flash_attention": launches, "ssd_scan": launches}
+    predicted = _gossip_tp_launches(part)
     # the split forward divides each layer's work over the model group:
     # its bf16 losses within the later steps' tolerance from the first
     rtol = GOSSIP_F_LOSS_RTOL[1]
     gates = {tuple(rec["gates"]) for rec in twin + ranks}
     if len(gates) != 1:
-        raise AssertionError(f"(h) gates {gates}")
+        raise AssertionError(f"({part}) gates {gates}")
     for r, rec in enumerate(twin + ranks):
         if rec["launches"] != predicted:
-            raise AssertionError(f"(h) rank {r}: launches {rec['launches']}"
-                                 f", predicted {predicted}")
+            raise AssertionError(f"({part}) rank {r}: launches "
+                                 f"{rec['launches']}, predicted {predicted}")
     for r, rec in enumerate(ranks):
         tw = twin[rec["node"]]
         for g, w in zip(rec["loss"], tw["loss"]):
             if abs(g - w) > rtol * abs(w):
-                raise AssertionError(f"(h) rank {r}: losses {rec['loss']}, "
-                                     f"the twin's {tw['loss']}")
+                raise AssertionError(f"({part}) rank {r}: losses "
+                                     f"{rec['loss']}, the twin's "
+                                     f"{tw['loss']}")
         for a, b in zip(rec["metrics"], tw["metrics"]):
             if any(abs(x - y) > rtol * abs(y) for x, y in zip(a, b)):
-                raise AssertionError(f"(h) rank {r}: metrics "
+                raise AssertionError(f"({part}) rank {r}: metrics "
                                      f"{rec['metrics']}, the twin's "
                                      f"{tw['metrics']}")
         for sb in rec["step_bytes"]:
             for kind, nbytes in rec["step_from_layout"].items():
                 if sb.get(kind, 0) != nbytes:
-                    raise AssertionError(f"(h) rank {r} {kind}: counted "
-                                         f"{sb.get(kind)}, the layout's "
-                                         f"{nbytes}")
+                    raise AssertionError(f"({part}) rank {r} {kind}: "
+                                         f"counted {sb.get(kind)}, the "
+                                         f"layout's {nbytes}")
         if rec["gate_bytes"] != rec["gate_from_layout"]:
-            raise AssertionError(f"(h) rank {r}: gate bytes "
+            raise AssertionError(f"({part}) rank {r}: gate bytes "
                                  f"{rec['gate_bytes']}, the layout's "
                                  f"{rec['gate_from_layout']}")
         for kind, dd in rec.get("vs_twin", {}).items():
             if dd["excess"] > 0:
-                raise AssertionError(f"(h) rank {r}: {kind} params beyond "
-                                     f"the tolerance: {dd}")
+                raise AssertionError(f"({part}) rank {r}: {kind} params "
+                                     f"beyond the tolerance: {dd}")
+        for top, b in rec["blocks"].items():
+            if not b["block"] < b["whole"]:
+                raise AssertionError(f"({part}) rank {r}: a {top} compute "
+                                     f"block of {b['block']} bytes, the "
+                                     f"whole layer's {b['whole']}")
+        for loss in rec["loss"]:
+            if not math.isfinite(loss):
+                raise AssertionError(f"({part}) rank {r}: loss "
+                                     f"{rec['loss']}")
     gib = lambda b: b / 2 ** 30
-    emit("gossip_h", card=smi, arch=GOSSIP_H_ARCH, layers=GOSSIP_H_LAYERS,
+    extra = {}
+    if part == "i":
+        extra["frames"] = C("FRAMES")
+    emit(f"gossip_{part}", card=smi, arch=C("ARCH"), layers=C("LAYERS"),
          backend="gloo", device=f"{dev} (all ranks)",
-         mesh=dict(zip(("node", "data", "model"), GOSSIP_H_MESH)),
-         tensor_parallel=True, twin_world=n, batch=GOSSIP_H_BATCH,
-         seq=GOSSIP_H_SEQ, steps=GOSSIP_H_STEPS, val=GOSSIP_H_VAL,
+         mesh=dict(zip(("node", "data", "model"), C("MESH"))),
+         tensor_parallel=True, twin_world=n, batch=C("BATCH"),
+         seq=C("SEQ"), steps=C("STEPS"), val=C("VAL"), **extra,
          remat=True, lr=GOSSIP_F_LR,
          spawn_wall_s={"twin": twin_wall, "split": wall},
          gates=ranks[0]["gates"],
@@ -6597,6 +6754,8 @@ def _gossip_tp_hymba(dev, smi, tmp, htwin):
                        if "vs_twin" in rec],
                       tolerance={k: {"rtol": v[0], "atol": v[1]}
                                  for k, v in GOSSIP_F_TOL.items()}),
+         layer_block_gib={top: {k: gib(v) for k, v in b.items()}
+                          for top, b in ranks[0]["blocks"].items()},
          step_bytes={"counted": [rec["step_bytes"][-1] for rec in ranks],
                      "from_layout": [rec["step_from_layout"]
                                      for rec in ranks]},
@@ -6616,7 +6775,7 @@ def _gossip_tp_hymba(dev, smi, tmp, htwin):
          sync_peak_gib={"split": [gib(rec["sync_peak"]) for rec in ranks],
                         "twin": [gib(rec["sync_peak"]) for rec in twin]},
          launches=ranks[0]["launches"], predicted=predicted,
-         note="6 gloo ranks on one card: the collectives go through host "
+         note="gloo ranks on one card: the collectives go through host "
               "memory and TCP, not NVLink")
 
 
@@ -6625,9 +6784,11 @@ def phase_gossip(dev, smi):
     backend="gossip")``): (a) and (b) on a world of one NCCL rank in this
     process, then (c) on 4 gloo ranks spawned on the one card together
     with (d) on 4 more as a two-level mesh, (e) inner sharding on 4
-    together with an unsharded twin on 2 and (f)'s and (h)'s twins on 2
-    each, then (f) the split step on 4, (h) Hymba-1.5B tensor-parallel on
-    4, and last (g) granite-moe-3b split and tensor-parallel on 8."""
+    together with an unsharded twin on 2 and (f)'s, (h)'s and (i)'s twins
+    on 2 each, then (f) the split step on 4, (h) Hymba-1.5B
+    tensor-parallel on 4, (i) seamless-m4t-medium (the enc-dec family)
+    tensor-parallel on 4, and last (g) granite-moe-3b split and
+    tensor-parallel on 8."""
     import gc
     import tempfile
     import torch
@@ -6668,11 +6829,12 @@ def phase_gossip(dev, smi):
     # twin's params
     t0 = time.perf_counter()
     with _expandable_segments():
-        etwin, eshard, ftwin, htwin = _gossip_spawn_all(
+        etwin, eshard, ftwin, htwin, itwin = _gossip_spawn_all(
             tmp, dev, (_gossip_rank_e, "etwin", GOSSIP_E_NODES),
             (_gossip_rank_e, "eshard", GOSSIP_E_NODES * GOSSIP_E_MODEL),
             (_gossip_rank_f, "ftwin", GOSSIP_E_NODES),
-            (_gossip_rank_h, "htwin", GOSSIP_H_MESH[0]))
+            (_gossip_rank_h, "htwin", GOSSIP_H_MESH[0]),
+            (_gossip_rank_i, "itwin", GOSSIP_I_MESH[0]))
     _gossip_inner(dev, smi, tmp, etwin, eshard)
     TIMERS["gossip_e_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -6681,8 +6843,13 @@ def phase_gossip(dev, smi):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    _gossip_tp_hymba(dev, smi, tmp, htwin)
+    _gossip_tp("h", dev, smi, tmp, htwin)
     TIMERS["gossip_h_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _gossip_tp("i", dev, smi, tmp, itwin)
+    TIMERS["gossip_i_s"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

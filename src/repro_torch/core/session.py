@@ -83,8 +83,8 @@ Which steps split:
   `repro_torch.sharding.tensor`: the reference's head-, sequence-,
   expert-, SSM-head- and vocab-parallel placements): a rank gathers only
   its compute blocks of each layer, never the whole layer, and computes
-  its share, also exact only to the train-parity tolerances. The enc-dec
-  family keeps the whole-layer split at any ``M``;
+  its share, also exact only to the train-parity tolerances (the enc-dec
+  family too: its encoder, cross-attention and decoder);
 * any other closure (the CNN's batch-statistics step, the true-Fisher
   4-tuple, a lambda around a step) **gathers**: the round gathers the
   node's params, moments and statistics over the shard group once, runs

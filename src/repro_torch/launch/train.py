@@ -27,8 +27,8 @@ batch's rows over the node's data group, each layer gathered just in time
 ``M`` above 1 the layer's work divides over the node's model group (tensor
 parallelism, `repro_torch.sharding.tensor`): a rank gathers only its
 compute blocks and computes its share, as the reference's GSPMD places it
-(`repro_torch.sharding.rules.placement`); the enc-dec family keeps the
-whole-layer split.
+(`repro_torch.sharding.rules.placement`), the enc-dec family's encoder
+and cross-attention too.
 :func:`make_swarm_eval` returns a :class:`SwarmEval`, the session's gate
 metric in the same form: on such a session the gate scores each node
 through :meth:`SwarmEval.split`, a layer at a time, never the node whole.
@@ -56,12 +56,12 @@ from repro_torch.optim import adamw_init, adamw_update_, make_schedule
 def tensor_plan(model: Model, mesh):
     """The `repro_torch.sharding.tensor.TensorPlan` of a split step of
     ``model`` on ``mesh``: its model group and placement; None with one
-    model rank, and for the enc-dec family, which keeps the whole-layer
-    split (its encoder and cross-attention have no tensor-parallel form
-    yet). Raises where the group does not divide the padded vocab (the
-    logits and the loss are vocab-parallel)."""
+    model rank. Raises where the group does not divide the padded vocab
+    (the logits and the loss are vocab-parallel); the forward raises
+    where it does not divide a sequence (an enc-dec's frames or tokens
+    too)."""
     m = mesh.inner.get("model", 1)
-    if m <= 1 or model.cfg is None or model.cfg.is_encdec:
+    if m <= 1 or model.cfg is None:
         return None
     from repro_torch.sharding.rules import placement
     from repro_torch.sharding.tensor import TensorPlan

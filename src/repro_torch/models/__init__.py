@@ -259,15 +259,19 @@ def _encdec_model(cfg: ModelConfig, lora_rank: int) -> Model:
 
     def loss_fn(params, batch, remat=True, split=None):
         """(loss, {"xent", "aux"}); ``remat`` checkpoints every decoder
-        block, the reference's default; ``split`` as the LM's."""
-        if split is None:
-            logits, aux = call(params, forward_encdec, cfg, batch["frames"],
-                               batch["tokens"], remat=remat)
-        else:
-            logits, aux = forward_encdec(split.tree(params), cfg,
-                                         batch["frames"], batch["tokens"],
-                                         remat=remat, split=split)
-        xent = softmax_xent(logits, batch["labels"], batch.get("mask"))
+        block, the reference's default; ``split`` as the LM's (its model
+        group entered here: the encoder, the decoder and the loss
+        tensor-parallel)."""
+        with tensor.model_group(None if split is None else split.tensor):
+            if split is None:
+                logits, aux = call(params, forward_encdec, cfg,
+                                   batch["frames"], batch["tokens"],
+                                   remat=remat)
+            else:
+                logits, aux = forward_encdec(split.tree(params), cfg,
+                                             batch["frames"], batch["tokens"],
+                                             remat=remat, split=split)
+            xent = softmax_xent(logits, batch["labels"], batch.get("mask"))
         return xent + aux, {"xent": xent, "aux": aux}
 
     def decode(params, tokens, caches, cache_pos, commit=None):

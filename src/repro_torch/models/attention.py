@@ -39,7 +39,10 @@ heads divide the group (q, k, v on the rank's ``n_heads / M`` and
 ``n_kv_heads / M`` heads over the gathered sequence, the output
 row-parallel), else **sequence-parallel** (the rank's ``S / M`` query rows
 over the whole K/V, through the flash kernel's query offset, the weights
-whole).
+whole). The enc-dec encoder's unmasked self-attention and the decoder's
+cross-attention (K/V from the whole encoder output, gathered once a
+forward) take the same two placements, ``causal=False`` and with no query
+offset: no mask needs one.
 """
 from __future__ import annotations
 
@@ -174,36 +177,49 @@ def attention(p, x, cfg: ModelConfig, *, positions, causal: bool = True,
 
 
 def attention_tp(p, h, cfg: ModelConfig, *, positions, window: int = 0,
-                 h_full=None):
-    """Causal self-attention under tensor parallelism: ``h`` [B, S/M, D]
-    the rank's cut of the sequence (``h_full`` [B, S, D], its gather, when
-    the block already has it), ``positions`` [B, S] the whole sequence's,
-    ``p`` the compute blocks → the rank's cut of the output [B, S/M, D]."""
+                 h_full=None, causal: bool = True, kv=None):
+    """Attention under tensor parallelism: ``h`` [B, S/M, D] the rank's
+    cut of the sequence (``h_full`` [B, S, D], its gather, when the block
+    already has it), ``positions`` [B, S] the whole sequence's, ``p`` the
+    compute blocks → the rank's cut of the output [B, S/M, D]. Causal
+    self-attention by default; ``causal=False`` the unmasked form (the
+    enc-dec encoder); ``kv`` [B, T, D] (the whole encoder output) makes it
+    cross-attention: K/V from ``kv``, no RoPE, no mask. Head-parallel: q
+    on the rank's heads over the gathered sequence, K/V on its KV heads;
+    sequence-parallel: q on the rank's rows (for cross-attention no gather
+    at all), K/V whole, the query offset only where the mask needs it."""
     tp = tensor.current()
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, sl, _ = h.shape
-    if h_full is None:
+    is_cross = kv is not None
+    causal = causal and not is_cross
+    window = int(window) if causal else 0
+    heads = tp.place.attention == "heads"
+    if h_full is None and (heads or not is_cross):
         h_full = tensor.gather(h)
-    s = h_full.shape[1]
-    window = int(window)
-    if tp.place.attention == "heads":
+    s = sl * tp.size
+    src = kv if is_cross else h_full
+    t = src.shape[1]
+    if heads:
         m = tp.size
         q = linear(p["q"], h_full).reshape(b, s, nh // m, hd)
-        k = linear(p["k"], h_full).reshape(b, s, nkv // m, hd)
-        v = linear(p["v"], h_full).reshape(b, s, nkv // m, hd)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        k = linear(p["k"], src).reshape(b, t, nkv // m, hd)
+        v = linear(p["v"], src).reshape(b, t, nkv // m, hd)
+        if not is_cross:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
         out = ops.attention_op(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), causal=True,
+                               v.transpose(1, 2), causal=causal,
                                window=window).transpose(1, 2)
         return row_parallel(p["o"], out.reshape(b, s, nh // m * hd))
     s0, _ = tp.seq_cut(s)
     q = linear(p["q"], h).reshape(b, sl, nh, hd)
-    k = linear(p["k"], h_full).reshape(b, s, nkv, hd)
-    v = linear(p["v"], h_full).reshape(b, s, nkv, hd)
-    q = apply_rope(q, positions[:, s0:s0 + sl], cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k = linear(p["k"], src).reshape(b, t, nkv, hd)
+    v = linear(p["v"], src).reshape(b, t, nkv, hd)
+    if not is_cross:
+        q = apply_rope(q, positions[:, s0:s0 + sl], cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     out = ops.attention_op(q.transpose(1, 2), k.transpose(1, 2),
-                           v.transpose(1, 2), causal=True, window=window,
-                           q_off=s0).transpose(1, 2)
+                           v.transpose(1, 2), causal=causal, window=window,
+                           q_off=s0 if causal else 0).transpose(1, 2)
     return linear(p["o"], out.reshape(b, sl, nh * hd))

@@ -16,6 +16,20 @@ Params are the reference's tree: ``frontend_proj``, ``enc_layers`` and
 "v"}], "enc_out": [B, enc_seq_len, D]}`` in the compute dtype, updated in
 place; the serving steps copy an encoder output into ``enc_out`` before
 their replays.
+
+**Tensor parallelism** (a split step on a model group, `repro_torch.
+sharding.tensor`; training forwards only, no cache): as the reference's
+``logical_shard`` calls place it, both residual streams are cut on the
+sequence. The frames are projected whole (``frontend_proj`` stays whole)
+and each rank keeps its rows; each encoder block enters its attention
+(unmasked) and its MLP with a gather and leaves them on the cut, as a
+decoder-only block does; ``enc_norm`` runs on the cut, and the encoder
+output is gathered **once** a forward for every decoder layer's
+cross-attention (the gather's backward sums all their cotangents in one
+reduce_scatter). The decoder embeds through the d_model-cut table's
+all_to_all; each of its blocks runs self-attention, cross-attention over
+the whole encoder output and the MLP on the cut; the logits are the
+rank's vocab cut, their padding columns masked by global index.
 """
 from __future__ import annotations
 
@@ -25,11 +39,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (attention, attention_shapes,
-                                          make_cache)
+                                          attention_tp, make_cache)
 from repro_torch.models.layers import (dtype_of, embed, init_linear_, linear,
                                        mlp, normal_, rmsnorm)
 from repro_torch.models.remat import checkpoint
-from repro_torch.models.transformer import _layer_source, _map, mlp_shapes
+from repro_torch.models.transformer import (_layer_source, _map, embed_tp,
+                                            mlp_shapes)
+from repro_torch.sharding import tensor
 
 
 def _enc_block_shapes(cfg: ModelConfig) -> dict:
@@ -81,22 +97,39 @@ def init_encdec_(params: dict, cfg: ModelConfig,
         params[name]["scale"].fill_(1.0)
 
 
+def _enc_block(lp, x, cfg: ModelConfig, positions):
+    """One encoder block: unmasked self-attention, the MLP (on the rank's
+    cut of the frames under tensor parallelism)."""
+    a = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+    if tensor.current() is None:
+        x = x + attention(lp["attn"], a, cfg, positions=positions,
+                          causal=False)
+    else:
+        x = x + attention_tp(lp["attn"], a, cfg, positions=positions,
+                             causal=False)
+    m = rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+    return x + mlp(lp["mlp"], m, cfg)
+
+
 def encode(params, cfg: ModelConfig, frames, split=None):
     """frames [B, S_enc, frontend_dim] → enc_out [B, S_enc, D]; ``split``
-    gathers each layer from a rank's blocks (`forward_lm`)."""
+    gathers each layer from a rank's blocks (`forward_lm`). Under tensor
+    parallelism the blocks run on the rank's cut of the frames (raises
+    where the model group does not divide them) and the output is
+    gathered whole once."""
+    tp = tensor.current()
     x = linear(params["frontend_proj"],
                frames.to(dtype_of(cfg.compute_dtype)))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    if tp is not None:
+        tp.seq_cut(s)
+        x = tensor.local(x)
     layer = _layer_source(params["enc_layers"], split, "enc_layers", False)
     for i in range(cfg.n_enc_layers):
-        lp = layer(i)
-        a = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-        x = x + attention(lp["attn"], a, cfg, positions=positions,
-                          causal=False)
-        m = rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + mlp(lp["mlp"], m, cfg)
-    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+        x = _enc_block(layer(i), x, cfg, positions)
+    x = rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+    return x if tp is None else tensor.gather(x)
 
 
 def make_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -122,13 +155,22 @@ def _remat_dec_block(cfg: ModelConfig):
 def _dec_block(lp, x, cfg: ModelConfig, positions, enc_out, cache,
                cache_pos, commit):
     """One decoder block: self-attention (``cache`` written in place when
-    given), cross-attention over ``enc_out``, the MLP."""
+    given), cross-attention over ``enc_out``, the MLP; under tensor
+    parallelism on the rank's cut of the tokens, ``enc_out`` whole."""
+    split = tensor.current() is not None
     a = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-    x = x + attention(lp["attn"], a, cfg, positions=positions, cache=cache,
-                      cache_pos=cache_pos, commit=commit)
+    if split:
+        x = x + attention_tp(lp["attn"], a, cfg, positions=positions)
+    else:
+        x = x + attention(lp["attn"], a, cfg, positions=positions,
+                          cache=cache, cache_pos=cache_pos, commit=commit)
     c = rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
-    x = x + attention(lp["cross"], c, cfg, positions=positions,
-                      causal=False, kv_x=enc_out)
+    if split:
+        x = x + attention_tp(lp["cross"], c, cfg, positions=positions,
+                             kv=enc_out)
+    else:
+        x = x + attention(lp["cross"], c, cfg, positions=positions,
+                          causal=False, kv_x=enc_out)
     m = rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
     return x + mlp(lp["mlp"], m, cfg)
 
@@ -144,10 +186,20 @@ def decode_step(params, cfg: ModelConfig, tokens, caches: Optional[dict],
     ``enc_out`` and the positions are 0..S-1; there ``remat`` checkpoints
     every decoder block, as the reference's ``jax.checkpoint`` of its
     decoder body (the encoder is not checkpointed), and ``split`` gathers
-    each layer from a rank's blocks (`forward_lm`)."""
+    each layer from a rank's blocks (`forward_lm`). Under tensor
+    parallelism (no caches) the blocks run on the rank's cut of the
+    tokens (raises where the model group does not divide them) and the
+    logits are its vocab cut."""
     compute_dtype = dtype_of(cfg.compute_dtype)
-    x = embed(params["embed"], tokens, compute_dtype)
-    b, s = x.shape[:2]
+    tp = tensor.current()
+    b, s = tokens.shape[:2]
+    if tp is None:
+        x = embed(params["embed"], tokens, compute_dtype)
+    elif caches is not None:
+        raise ValueError("a tensor-parallel forward takes no caches")
+    else:
+        tp.seq_cut(s)
+        x = embed_tp(params["embed"], tokens, cfg)
     if enc_out is None:
         enc_out = caches["enc_out"].to(compute_dtype)
     ar = torch.arange(s, device=x.device)
@@ -170,9 +222,13 @@ def decode_step(params, cfg: ModelConfig, tokens, caches: Optional[dict],
                            None if caches is None else caches["self"][i],
                            cache_pos, commit)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if tp is not None:
+        x = tensor.gather(x)
     logits = x @ params["lm_head"]["w"].to(x.dtype)
     if cfg.padded_vocab != cfg.vocab_size:  # mask the padding columns
-        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+        v = logits.shape[-1]
+        v0 = tp.rank * v if tp is not None and v < cfg.padded_vocab else 0
+        pad = torch.arange(v0, v0 + v, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, caches

@@ -46,9 +46,9 @@ rank computes with it), a piece of a leaf every model rank computes with
 (norm scales, biases added after a reduce, the router, an SSM's B/C
 columns, a leaf M does not divide) over the data and the model group, in
 f32, divided by ``D`` where the data ranks took rows of their own. Each
-piece is summed once. The enc-dec family keeps the whole-layer split on
-purpose: its encoder and cross-attention have no tensor-parallel form
-yet.
+piece is summed once. An enc-dec node's two stacks (``enc_layers``,
+``dec_layers``) each have a cut of their own, so a layer index only ever
+names a layer of the stack its forward loop walks.
 
 Without autograd (the split gate, `repro_torch.launch.train.SwarmEval.
 split`, under ``torch.no_grad``) :meth:`LayerShards.gather` assembles the

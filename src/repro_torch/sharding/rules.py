@@ -223,7 +223,10 @@ class Placement:
 
 def placement(cfg, model: int) -> Placement:
     """The :class:`Placement` of ``cfg`` (a `repro_torch.configs.base.
-    ModelConfig` of a decoder-only family) over ``model`` ranks."""
+    ModelConfig` of a decoder-only family or the enc-dec audio family,
+    whose encoder self-attention and decoder cross-attention take the
+    decoder self-attention's ``attention`` and whose ``lm_head`` is
+    ``vocab``) over ``model`` ranks."""
     sizes = {"model": int(model)}
 
     def cut(logical, n):
@@ -275,7 +278,10 @@ def compute_cut(cfg, place: Placement, path: str, shape: Sequence[int],
     (dotted; a stacked leaf's shape without its layer axis): per
     dimension, the ``(start, length)`` intervals of the leaf it takes, in
     order (several on a packed dimension: the SSM's ``in_proj`` and
-    ``conv`` columns, cut by part)."""
+    ``conv`` columns, cut by part). An enc-dec's cross-attention
+    (``dec_layers.cross.*``) is cut as self-attention is, and its encoder
+    layers (``enc_layers.*``) as a decoder-only layer; its
+    ``frontend_proj`` and every norm stay whole."""
     m = place.model
     whole = tuple(((0, n),) for n in shape)
     keys = path.split(".")
@@ -286,7 +292,8 @@ def compute_cut(cfg, place: Placement, path: str, shape: Sequence[int],
         out[dim] = ivs
         return tuple(out)
 
-    if ".attn." in f".{path}" and place.attention == "heads":
+    if place.attention == "heads" and (".attn." in f".{path}"
+                                       or ".cross." in f".{path}"):
         if name in ("q", "k", "v"):        # column-parallel
             if last in ("w", "lora_B"):
                 return on(1, _chunk(shape[1], m, rank))

@@ -11,8 +11,8 @@ the model as a :class:`TensorPlan` on its split
 (`repro_torch.models.gather.NodeSplit`, ``tensor``). The model's loss
 enters it here for its forward (:func:`model_group`; remat's recompute
 again in the backward), and the forward (`repro_torch.models.
-transformer`, ``attention``, ``moe``, ``ssm``) reads :func:`current` and
-moves its activations with the collectives below:
+transformer`, ``encdec``, ``attention``, ``moe``, ``ssm``) reads
+:func:`current` and moves its activations with the collectives below:
 
 * the residual stream is cut on the sequence between blocks (the
   reference's ``res_seq``, Megatron-SP): a block enters its attention, MLP,

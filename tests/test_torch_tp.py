@@ -9,17 +9,21 @@ Worlds of `tests/torch_gossip_world.py`, gloo on the CPU:
     Function against its plain single-rank form, the vocab-parallel
     embedding and cross entropy against the reference's, and every block
     (head- and sequence-parallel attention, the MLP, the MoE with its
-    experts cut and whole, the SSM with its heads cut) against the JAX
-    package's own function on the same inputs, and its gradients, leaf
-    by leaf, against the port's unsharded block;
+    experts cut and whole, the SSM with its heads cut, an enc-dec's
+    encoder and decoder blocks in both forms) against the JAX package's
+    own functions on the same inputs, and its gradients, leaf by leaf,
+    against the port's unsharded block;
   * ``tp_m2`` (1, 1, 2) and ``tp_d2m2`` (1, 2, 2): two split steps of the
-    dense, ssm, moe and hybrid smoke models from the JAX package's params
-    against `repro.launch.train.make_train_step` on the whole batch, the
-    first step's gradient leaf by leaf against the unsharded step's, the
-    bytes by kind against the layout's count (`chip_smoke._tp_bytes`),
-    what a rank gathers, the split gate's metric against the whole
-    node's; and the enc-dec smoke model, which keeps the whole-layer
-    split.
+    dense, ssm, moe, hybrid and enc-dec smoke models from the JAX
+    package's params against `repro.launch.train.make_train_step` on the
+    whole batch, the first step's gradient leaf by leaf against the
+    unsharded step's, the bytes by kind against the layout's count
+    (`chip_smoke._tp_bytes`), what a rank gathers, the split gate's
+    metric against the whole node's; the enc-dec's sequence-parallel form
+    (one KV head, a padded vocab) against the whole node's step, and its
+    refusal of a sequence the model group does not divide;
+  * ``tp_encdec_gate`` (2, 1, 2): an enc-dec smoke session's split gate
+    against its whole-node gate.
 
 Held: the collectives within 1e-6; blocks within rtol 1e-5, atol 1e-5 of
 the reference (f32); the steps' losses within rtol 1e-5 and params within
@@ -45,6 +49,7 @@ from repro.launch import train as jtrain
 from repro.models import build_model as jbuild
 from repro.models.attention import attention as jattention
 from repro.models.layers import embed as jembed, mlp as jmlp
+from repro.models.layers import rmsnorm as jrmsnorm
 from repro.models.layers import softmax_xent as jxent
 from repro.models.moe import moe as jmoe
 from repro.models.ssm import ssm_block as jssm
@@ -55,10 +60,6 @@ from repro_torch.convert import (lm_params_from_reference,
 from repro_torch.core.flat import ShardLayout
 from repro_torch.kernels.ref import attention_ref, flash_attention_plain
 from repro_torch.models import build_model, nest
-from repro_torch.models.attention import attention
-from repro_torch.models.layers import mlp
-from repro_torch.models.moe import moe
-from repro_torch.models.ssm import ssm_block
 from repro_torch.sharding.rules import (block_spec, compute_cut, param_specs,
                                         placement)
 
@@ -74,27 +75,54 @@ BLOCK_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_REL = 1e-4
 
 
+def _numpy_tree(jm, rng):
+    """The reference model's param tree drawn from ``rng``: linears N(0,
+    1/in), the tables N(0, 0.02²), norm scales 1 + N(0, 0.1²), biases
+    N(0, 0.1²)."""
+    def leaf(path, sd):
+        name, shape = path[-1].key, sd.shape
+        if name == "scale":
+            a = 1.0 + 0.1 * rng.normal(0, 1, shape)
+        elif name == "table":
+            a = 0.02 * rng.normal(0, 1, shape)
+        elif name == "b":
+            a = 0.1 * rng.normal(0, 1, shape)
+        else:
+            a = rng.normal(0, 1, shape) / np.sqrt(shape[-2])
+        return jnp.asarray(a.astype(np.float32))
+
+    return jax.tree_util.tree_map_with_path(
+        leaf, jax.eval_shape(jm.init, jax.random.key(0)))
+
+
 def _jax_steps(arch, rng):
-    """The JAX package's smoke ``arch`` from its own init: the converted
-    flat params, the batches, TP_JAX_STEPS steps' losses and params."""
+    """The JAX package's smoke ``arch`` from its own init (an enc-dec's
+    drawn from ``rng``): the converted flat params, the batches (an
+    enc-dec's frames too), TP_JAX_STEPS steps' losses and params."""
     jcfg = jconfigs.smoke_variant(jconfigs.get_config(arch))
     jm = jbuild(jcfg)
     layout = build_model(smoke_variant(get_config(arch))).layout
-    tree = jm.init(jax.random.key(0))
+    tree = (_numpy_tree(jm, rng) if jcfg.is_encdec
+            else jm.init(jax.random.key(0)))
     flat = lm_params_from_reference(layout, jax.tree.map(np.asarray, tree))
     opt = jadamw_init(tree)
     step = jax.jit(jtrain.make_train_step(jm, JTrainConfig(
         lr=1e-4, warmup_steps=0, max_steps=10, remat=False)))
     toks = rng.integers(0, jcfg.vocab_size, (
         W.TP_JAX_STEPS, W.TP_JAX_BATCH, W.TP_JAX_SEQ + 1))
+    batch = {"tokens": toks[..., :-1].astype(np.int64),
+             "labels": toks[..., 1:].astype(np.int64)}
+    if jcfg.is_encdec:
+        batch["frames"] = rng.normal(0, 1, (
+            W.TP_JAX_STEPS, W.TP_JAX_BATCH, jcfg.enc_seq_len,
+            jcfg.frontend_dim)).astype(np.float32)
     losses = []
     for k in range(W.TP_JAX_STEPS):
         tree, opt, m = step(tree, opt, {
-            "tokens": jnp.asarray(toks[k, :, :-1].astype(np.int32)),
-            "labels": jnp.asarray(toks[k, :, 1:].astype(np.int32))})
+            key: jnp.asarray(v[k].astype(np.int32) if v.dtype == np.int64
+                             else v[k]) for key, v in batch.items()})
         losses.append(float(m["loss"]))
-    return ({"flat": flat.numpy(), "tokens": toks[..., :-1].astype(np.int64),
-             "labels": toks[..., 1:].astype(np.int64)},
+    return (dict(batch, flat=flat.numpy()),
             {"loss": np.asarray(losses),
              "params": jax.tree.map(np.asarray, tree)})
 
@@ -121,7 +149,8 @@ def worlds(tmp_path_factory):
     inputs.update(W.tp_encdec_batch(rng))
     np.savez(d / "inputs.npz", **inputs)
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
-    sizes = {"tp_units": int(np.prod(W.TP_UNITS))}
+    sizes = {"tp_units": int(np.prod(W.TP_UNITS)),
+             "tp_encdec_gate": int(np.prod(W.TP_GATE))}
     sizes.update({t: int(np.prod(s)) for t, s in W.TP_WORLDS.items()})
     procs = []
     try:
@@ -186,13 +215,18 @@ def test_query_offset_needs_the_causal_mask_and_every_rows_key():
     ("mamba2-370m", 2, dict(attention="none", ssm_heads=True,
                             embed="vocab", vocab=True)),
     ("granite-moe-3b-a800m", 16, dict(attention="sequence", experts=False)),
-    ("minicpm-2b", 2, dict(attention="heads", ff=True, embed="vocab"))])
+    ("minicpm-2b", 2, dict(attention="heads", ff=True, embed="vocab")),
+    ("seamless-m4t-medium", 2, dict(attention="heads", ff=True,
+                                    experts=False, ssm_heads=False,
+                                    embed="d_model", vocab=True))])
 def test_placement_follows_the_references_decisions(arch, m, want):
     """Head-parallel attention where the KV heads divide M (granite's 8 at
-    2), sequence-parallel otherwise (Hymba's 5, granite's 8 at 16); experts cut where
-    M divides them (granite's 40 at 2, whole at 16, the reference's
-    fallback); Hymba's 50 SSM heads and 5,504 ff cut at 2; the vocab cut
-    (padded); a tied table on its vocab, an input-only one on d_model."""
+    2, seamless's 16), sequence-parallel otherwise (Hymba's 5, granite's 8
+    at 16); experts cut where M divides them (granite's 40 at 2, whole at
+    16, the reference's fallback); Hymba's 50 SSM heads and 5,504 ff cut
+    at 2, seamless's 4,096; the vocab cut (padded: seamless's 256,256);
+    a tied table on its vocab, an input-only one on d_model (seamless's
+    1,024 columns)."""
     place = placement(get_config(arch), m)
     for key, value in want.items():
         assert getattr(place, key) == value, (key, place)
@@ -233,6 +267,44 @@ def test_compute_cut_takes_the_ssm_packed_leaves_by_part():
     conv = compute_cut(cfg, place, "layers.ssm.conv.w",
                        (cfg.conv_width, di + 2 * n), 1)
     assert conv[1] == ((di // 2, di // 2), (di, n), (di + n, n))
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_compute_cut_takes_the_encdec_layers_and_cross_attention(m):
+    """seamless-m4t-medium at M = 2 and 4: cross-attention's q, k, v
+    column-parallel on heads and o row-parallel, as self-attention's in
+    both stacks; the MLP's ff cut; the front end, the norms (cross_norm
+    too) whole; the vocab-cut head and the d_model-cut embedding; with
+    one KV head (sequence-parallel) the attention leaves whole."""
+    cfg = get_config("seamless-m4t-medium")
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    place = placement(cfg, m)
+    for r in range(m):
+        cut = lambda path, shape: compute_cut(cfg, place, path, shape, r)
+        for top in ("enc_layers.attn", "dec_layers.attn",
+                    "dec_layers.cross"):
+            for name in ("q", "k", "v"):
+                assert cut(f"{top}.{name}.w", (d, d)) == (
+                    ((0, d),), ((r * d // m, d // m),))
+            assert cut(f"{top}.o.w", (d, d)) == (
+                ((r * d // m, d // m),), ((0, d),))
+        assert cut("enc_layers.mlp.up.w", (d, f)) == (
+            ((0, d),), ((r * f // m, f // m),))
+        for path, shape in (("frontend_proj.w", (cfg.frontend_dim, d)),
+                            ("frontend_proj.b", (d,)),
+                            ("enc_norm.scale", (d,)),
+                            ("dec_layers.cross_norm.scale", (d,)),
+                            ("enc_layers.attn_norm.scale", (d,))):
+            assert cut(path, shape) == tuple(((0, n),) for n in shape)
+        assert cut("lm_head.w", (d, v)) == (((0, d),),
+                                            ((r * v // m, v // m),))
+        assert cut("embed.table", (v, d)) == (((0, v),),
+                                              ((r * d // m, d // m),))
+    seq = cfg.replace(n_kv_heads=1)
+    place = placement(seq, m)
+    assert place.attention == "sequence"
+    assert compute_cut(seq, place, "dec_layers.cross.k.w", (d, 64), 1) == (
+        ((0, d),), ((0, 64),))
 
 
 # ---------------------------------------------------------------------------
@@ -330,7 +402,10 @@ def _jcfg(arch, changes):
 
 
 def _block_reference(case):
-    """The JAX package's block on the whole inputs: (y, aux or None)."""
+    """The JAX package's block on the whole inputs: (y, aux or None); an
+    enc-dec's encoder and decoder blocks composed of the reference's
+    functions as its ``encode`` and ``decode_step`` bodies compose
+    them."""
     inp = next(c for c in W.TP_BLOCKS if c[0] == case)
     _, arch, changes, module, window = inp
     worlds_inp = _block_inputs(case)
@@ -346,20 +421,38 @@ def _block_reference(case):
     if module == "moe":
         y, aux = jmoe(p, h, jcfg)
         return np.asarray(y), float(aux)
-    return np.asarray(jssm(p, h, jcfg)[0]), None
+    if module == "ssm":
+        return np.asarray(jssm(p, h, jcfg)[0]), None
+    norm = lambda name, x: jrmsnorm(p[name], x, jcfg.norm_eps)
+    if module == "enc":
+        x = h + jattention(p["attn"], norm("attn_norm", h), jcfg,
+                           positions=positions, causal=False)[0]
+    else:
+        kv = jnp.asarray(worlds_inp["kv"])
+        kv_pos = jnp.broadcast_to(jnp.arange(W.TP_T)[None], (W.TP_B, W.TP_T))
+        x = h + jattention(p["attn"], norm("attn_norm", h), jcfg,
+                           positions=positions)[0]
+        x = x + jattention(p["cross"], norm("cross_norm", x), jcfg,
+                           positions=positions, kv_x=kv,
+                           kv_positions=kv_pos, causal=False)[0]
+    return np.asarray(x + jmlp(p["mlp"], norm("mlp_norm", x), jcfg)), None
 
 
 _INPUTS = {}
 
 
 def _block_inputs(case):
+    """A block case's params (keyed relative to its prefix), input,
+    cotangent and, for a decoder block, encoder output."""
     if not _INPUTS:
         _INPUTS.update(W.tp_inputs())
-    prefix = f"block/{case}/p/"
-    return {"params": {k[len(prefix):].split(".", 2)[2]: v
-                       for k, v in _INPUTS.items() if k.startswith(prefix)},
+    module = next(c for c in W.TP_BLOCKS if c[0] == case)[3]
+    prefix = f"block/{case}/p/{W.tp_block_prefix(module)}"
+    return {"params": {k[len(prefix):]: v for k, v in _INPUTS.items()
+                       if k.startswith(prefix)},
             "h": _INPUTS[f"block/{case}/h"],
-            "cot": _INPUTS[f"block/{case}/cot"]}
+            "cot": _INPUTS[f"block/{case}/cot"],
+            "kv": _INPUTS.get(f"block/{case}/kv")}
 
 
 @pytest.mark.parametrize("case", [c[0] for c in W.TP_BLOCKS])
@@ -382,8 +475,9 @@ def test_block_matches_the_reference(worlds, case):
 def test_block_gradients_sum_to_the_unsharded_blocks(worlds, case):
     """Each block's gradients, leaf by leaf: the ranks' shares of each
     leaf's compute blocks summed where they land equal the port's
-    unsharded block's gradient of Σ y · cotangent (+ aux), and the
-    input's cut its cut of the input's gradient, within 1e-5 of the
+    unsharded block's gradient of Σ y · cotangent (+ aux), the input's
+    cut its cut of the input's gradient, and a decoder block's shares of
+    the whole encoder output's gradient sum to it, within 1e-5 of the
     leaf's largest magnitude: a leaf summed twice (or a share dropped)
     would be off by its whole size."""
     _, arch, changes, module, window = next(c for c in W.TP_BLOCKS
@@ -392,28 +486,29 @@ def test_block_gradients_sum_to_the_unsharded_blocks(worlds, case):
     inp = _block_inputs(case)
     params = {k: torch.from_numpy(v).requires_grad_()
               for k, v in inp["params"].items()}
-    h = torch.from_numpy(inp["h"]).requires_grad_()
+    ins = [torch.from_numpy(inp["h"]).requires_grad_()]
+    if inp["kv"] is not None:
+        ins.append(torch.from_numpy(inp["kv"]).requires_grad_())
     positions = torch.arange(W.TP_S)[None].expand(W.TP_B, W.TP_S)
-    p = nest(params)
-    if module == "attn":
-        y = attention(p, h, cfg, positions=positions, window=window)
-        aux = 0
-    elif module == "mlp":
-        y, aux = mlp(p, h, cfg), 0
-    elif module == "moe":
-        y, aux = moe(p, h, cfg)
-    else:
-        y, aux = ssm_block(p, h, cfg)[0], 0
+    y = W.tp_block_fn(module)(nest(params), ins[0], cfg, positions, window,
+                              ins[1] if len(ins) > 1 else None)
+    aux = 0
+    if module == "moe":
+        y, aux = y
     loss = (y * torch.from_numpy(inp["cot"])).sum() + aux
-    grads = torch.autograd.grad(loss, [h] + list(params.values()))
+    grads = torch.autograd.grad(loss, ins + list(params.values()))
     ranks = worlds["tp_units"]
     m = len(ranks)
     place = placement(cfg, m)
     gh = np.concatenate([out[f"block/{case}/gh"] for out in ranks], 1)
     np.testing.assert_allclose(gh, grads[0].numpy(), rtol=0,
                                atol=1e-5 * float(grads[0].abs().max()))
-    for name, want in zip(params, grads[1:]):
-        path = f"layers.{module}.{name}"
+    if len(ins) > 1:
+        gkv = sum(out[f"block/{case}/gkv"] for out in ranks)
+        np.testing.assert_allclose(gkv, grads[1].numpy(), rtol=0,
+                                   atol=1e-5 * float(grads[1].abs().max()))
+    for name, want in zip(params, grads[len(ins):]):
+        path = W.tp_block_prefix(module) + name
         total = np.zeros(want.shape, np.float32)
         for r, out in enumerate(ranks):
             idx = np.ix_(*W.tp_slices(compute_cut(cfg, place, path,
@@ -538,17 +633,114 @@ def test_vlm_and_lora_gradients_match_the_unsharded_twin(worlds, world,
         assert rel.size and rel.max() <= GRAD_REL, rel
 
 
-def test_encdec_keeps_the_whole_layer_split_at_model_2(worlds):
-    """The enc-dec smoke model on (1, 2, 2): no tensor plan, the
-    whole-layer gathers and the data group's reduces (no
-    ``tp_*``, no ``grad_to_shard``), and one split step is the whole
-    node's within the train-parity tolerances."""
-    for out in worlds["tp_d2m2"]:
-        assert not out["encdec/tensor_plan"]
-        kinds = set(out["encdec/kinds"].tolist())
-        assert "layer_gather" in kinds and "grad_to_shard" not in kinds
-        assert not any(k.startswith("tp_") for k in kinds)
-        split, whole = out["encdec/loss"]
+@pytest.mark.parametrize("world", list(W.TP_WORLDS))
+def test_encdec_split_is_tensor_parallel(worlds, world):
+    """The enc-dec smoke model at model 2 has a tensor plan in both its
+    forms: its steps move the model group's activations (``tp_*``) and
+    send the gradient's pieces to the ranks that store them
+    (``grad_to_shard``), not the whole-layer split's reduces."""
+    for out in worlds[world]:
+        assert out["encdec_seq/tensor_plan"]
+        for prefix in ("encdec/bytes0/", "encdec_seq/bytes/"):
+            kinds = {k[len(prefix):] for k in out if k.startswith(prefix)}
+            assert {"layer_gather", "grad_to_shard", "tp_gather",
+                    "tp_reduce_scatter", "tp_all_to_all",
+                    "tp_all_reduce"} <= kinds, (prefix, kinds)
+            assert not any(k.startswith("grad_reduce") for k in kinds)
+
+
+@pytest.mark.parametrize("world", list(W.TP_WORLDS))
+def test_encdec_sequence_parallel_step_matches_the_whole_node(worlds,
+                                                               world):
+    """The enc-dec's sequence-parallel form (one KV head: the encoder's
+    unmasked and the decoder's causal self-attention over the whole K/V,
+    cross-attention on the rank's query rows; the padding columns of a
+    padded vocab on the last model rank): the first split step's gradient
+    within 1e-4 of the unsharded one's, leaf by leaf, its loss within
+    rtol 1e-5 and its params within rtol 1e-4, atol 1e-4 of the whole
+    node's step."""
+    for out in worlds[world]:
+        rel = out["encdec_seq/grad_rel"]
+        assert rel.size and rel.max() <= GRAD_REL, rel
+        split, whole = out["encdec_seq/loss"]
         np.testing.assert_allclose(split, whole, rtol=LOSS_RTOL)
-        np.testing.assert_allclose(out["encdec/params"], out["encdec/whole"],
-                                   **PARAMS_TOL)
+        np.testing.assert_allclose(out["encdec_seq/params"],
+                                   out["encdec_seq/whole"], **PARAMS_TOL)
+
+
+@pytest.mark.parametrize("world", list(W.TP_WORLDS))
+def test_encdec_bytes_match_the_layout_with_one_encoder_output_gather(
+        worlds, world):
+    """The sequence-parallel form's step and gate bytes by kind equal the
+    layout's count (`chip_smoke._tp_bytes`, which counts one gather of
+    the encoder output a forward), and in both forms a step gathers
+    frame rows 2 · L_enc + 1 times: each encoder layer's attention and
+    MLP, then the encoder output once for every decoder layer (remat's
+    recompute of a decoder block gathers none)."""
+    n, d, m = W.TP_WORLDS[world]
+    arch, changes = W.TP_ENCDEC_SEQ
+    cfg = smoke_variant(get_config(arch)).replace(**changes)
+    layout = build_model(cfg).layout
+    sizes = {"data": d, "model": m}
+    specs = param_specs(layout, dict(node=n, **sizes))
+    tokens = worlds["inputs"]["encdec_seq/tokens"]
+    for out in worlds[world]:
+        coords = {"data": int(out["coords"][0]),
+                  "model": int(out["coords"][1])}
+        sh = ShardLayout(layout, specs, sizes, coords)
+        step, gate = W.tp_bytes(sh, cfg, cfg.n_layers, 4,
+                                tokens.shape[0] // d, tokens.shape[1], d > 1,
+                                val=tokens.shape, frames=W.TP_ENCDEC_FRAMES)
+        got = {k[len("encdec_seq/bytes/"):]: int(v) for k, v in out.items()
+               if k.startswith("encdec_seq/bytes/")}
+        got.pop("step_control", None)
+        assert got == step
+        got = {k[len("encdec_seq/gate_bytes/"):]: int(v)
+               for k, v in out.items()
+               if k.startswith("encdec_seq/gate_bytes/")}
+        assert got == gate
+        want = 2 * cfg.n_enc_layers + 1
+        assert out["encdec_seq/frame_gathers"] == want
+        for k in range(W.TP_JAX_STEPS):
+            assert out[f"encdec/frame_gathers{k}"] == want
+
+
+@pytest.mark.parametrize("world", list(W.TP_WORLDS))
+def test_encdec_split_raises_where_model_does_not_divide_a_sequence(
+        worlds, world):
+    """An enc-dec split step at model 2 with 23 frames or 15 tokens raises
+    on every rank (`TensorPlan.seq_cut`), never falls back to the
+    whole-layer split."""
+    for out in worlds[world]:
+        for what in ("frames", "tokens"):
+            msg = str(out[f"encdec_seq/raises/{what}"])
+            assert "does not divide over the 2 ranks" in msg, (what, msg)
+
+
+def test_encdec_split_gate_matches_the_whole_node_gate(worlds):
+    """A round of the enc-dec smoke session at (2, 1, 2), its TrainStep
+    tensor-parallel, its gate's threshold between the two nodes' ratios:
+    the split gate's metrics within 1e-5 of the whole-node gate's, the
+    gates equal (one open, one shut), and the split gate's bytes those of
+    two scores a node (`chip_smoke._tp_bytes`)."""
+    model = build_model(smoke_variant(get_config("seamless-m4t-medium")))
+    cfg, layout = model.cfg, model.layout
+    n, d, m = W.TP_GATE
+    sizes = {"data": d, "model": m}
+    specs = param_specs(layout, dict(node=n, **sizes))
+    val = worlds["inputs"]["encgate/vtokens"].shape[1:]
+    for out in worlds["tp_encdec_gate"]:
+        assert out["encgate/split/split_gate"]
+        assert not out["encgate/whole/split_gate"]
+        np.testing.assert_allclose(out["encgate/split/metrics"],
+                                   out["encgate/whole/metrics"], rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_array_equal(out["encgate/split/gates"],
+                                      out["encgate/whole/gates"])
+        assert out["encgate/split/gates"].tolist() == [True, False]
+        coords = {"data": int(out["coords"][0]),
+                  "model": int(out["coords"][1])}
+        sh = ShardLayout(layout, specs, sizes, coords)
+        _, gate = W.tp_bytes(sh, cfg, cfg.n_layers, 4, 1, 1, False, val=val)
+        for kind, nbytes in gate.items():
+            assert out[f"encgate/split/bytes/{kind}"] == 2 * nbytes, kind

@@ -1958,7 +1958,8 @@ TP_UNITS = (1, 1, 2)
 TP_WORLDS = {"tp_m2": (1, 1, 2), "tp_d2m2": (1, 2, 2)}
 #: the families' smoke models two split steps run against the JAX package
 TP_ARCHS = (("dense", "minicpm-2b"), ("ssm", "mamba2-370m"),
-            ("moe", "granite-moe-3b-a800m"), ("hybrid", "hymba-1.5b"))
+            ("moe", "granite-moe-3b-a800m"), ("hybrid", "hymba-1.5b"),
+            ("encdec", "seamless-m4t-medium"))
 TP_JAX_STEPS, TP_JAX_BATCH, TP_JAX_SEQ = 2, 4, 32
 #: the blocks held against the reference's functions: (case, arch, config
 #: changes, module, window)
@@ -1969,8 +1970,14 @@ TP_BLOCKS = (("attn_heads", "minicpm-2b", {}, "attn", 0),
              ("moe_cut", "granite-moe-3b-a800m", {}, "moe", 0),
              ("moe_whole", "granite-moe-3b-a800m", {"n_experts": 3}, "moe",
               0),
-             ("ssm", "mamba2-370m", {}, "ssm", 0))
-TP_B, TP_S = 2, 16
+             ("ssm", "mamba2-370m", {}, "ssm", 0),
+             ("enc_heads", "seamless-m4t-medium", {}, "enc", 0),
+             ("enc_seq", "seamless-m4t-medium", {"n_kv_heads": 1}, "enc", 0),
+             ("dec_heads", "seamless-m4t-medium", {}, "dec", 0),
+             ("dec_seq", "seamless-m4t-medium", {"n_kv_heads": 1}, "dec", 0))
+#: the blocks' batch and sequence; the encoder output's length (a decoder
+#: block's cross-attention keys)
+TP_B, TP_S, TP_T = 2, 16, 24
 #: the collectives' input shape, and the vocab of the loss's case
 TP_X = (2, 8, 6)
 TP_VOCAB, TP_D = 12, 6
@@ -1981,9 +1988,17 @@ def tp_block_cfg(arch, changes):
     return smoke_variant(get_config(arch)).replace(**changes)
 
 
+def tp_block_prefix(module):
+    """The leaf paths' prefix of a block case's module: a decoder-only
+    layer's mixer (``layers.<module>.``), or an enc-dec's whole encoder
+    (``enc``) or decoder (``dec``) layer."""
+    return {"enc": "enc_layers.", "dec": "dec_layers."}.get(
+        module, f"layers.{module}.")
+
+
 def tp_block_params(case, seed=11):
     """A block case's per-layer params (layer 0 of the smoke model's init:
-    ``{"layers.<module>.<leaf>": array}``) and its config."""
+    ``{"<prefix><leaf>": array}``, `tp_block_prefix`) and its config."""
     import torch
     from repro_torch.models import build_model
     name, arch, changes, module, _ = next(c for c in TP_BLOCKS
@@ -1992,7 +2007,7 @@ def tp_block_params(case, seed=11):
     model = build_model(cfg)
     views = model.layout.unflatten(model.init(
         torch.Generator().manual_seed(seed), "cpu"))
-    prefix = f"layers.{module}."
+    prefix = tp_block_prefix(module)
     return cfg, {p: t[0].numpy().copy() for p, t in views.items()
                  if p.startswith(prefix)}
 
@@ -2000,7 +2015,8 @@ def tp_block_params(case, seed=11):
 def tp_inputs(seed=12):
     """Seeded numpy inputs of the units' world: each rank's collective
     input and cotangent, the loss case's logits, labels, mask and tables,
-    each block's params, input and cotangent."""
+    each block's params, input and cotangent (a decoder block's encoder
+    output too)."""
     rng = np.random.default_rng(seed)
     out = {}
     m = TP_UNITS[2]
@@ -2027,6 +2043,10 @@ def tp_inputs(seed=12):
                                             ).astype(np.float32)
         out[f"block/{case}/cot"] = rng.normal(
             0, 1, (TP_B, TP_S, cfg.d_model)).astype(np.float32)
+    for case, _, _, module, _ in TP_BLOCKS:
+        if module == "dec":
+            out[f"block/{case}/kv"] = rng.normal(
+                0, 1, (TP_B, TP_T, cfg.d_model)).astype(np.float32)
     return out
 
 
@@ -2103,19 +2123,40 @@ def _tp_xent(mesh, inp, out):
 
 
 def tp_block_fn(module):
-    from repro_torch.models.attention import attention_tp
+    """A block case's function of ``(p, h, cfg, positions, window, kv)``:
+    the tensor-parallel form under a model group, the plain one
+    without."""
+    from repro_torch.models import encdec
+    from repro_torch.models.attention import attention, attention_tp
     from repro_torch.models.layers import mlp
-    from repro_torch.models.moe import moe_tp
-    from repro_torch.models.ssm import ssm_tp
-    return {"attn": attention_tp, "mlp": mlp, "moe": moe_tp,
-            "ssm": ssm_tp}[module]
+    from repro_torch.models.moe import moe, moe_tp
+    from repro_torch.models.ssm import ssm_block, ssm_tp
+    from repro_torch.sharding import tensor
+
+    def fn(p, h, cfg, positions, window, kv):
+        tp = tensor.current() is not None
+        if module == "attn":
+            return (attention_tp if tp else attention)(
+                p, h, cfg, positions=positions, window=window)
+        if module == "mlp":
+            return mlp(p, h, cfg)
+        if module == "moe":
+            return (moe_tp if tp else moe)(p, h, cfg)
+        if module == "ssm":
+            return ssm_tp(p, h, cfg) if tp else ssm_block(p, h, cfg)[0]
+        if module == "enc":
+            return encdec._enc_block(p, h, cfg, positions)
+        return encdec._dec_block(p, h, cfg, positions, kv, None, None, None)
+
+    return fn
 
 
 def _tp_blocks(mesh, inp, out):
     """Each block of TP_BLOCKS under tensor parallelism on this rank's
     cut of the sequence and its compute blocks of the params: its output
     (the MoE's aux too), and the gradients of Σ out · cotangent of the
-    params' compute blocks and of the input's cut."""
+    params' compute blocks, of the input's cut and of a decoder block's
+    whole encoder output."""
     import torch
     from repro_torch.models import nest
     from repro_torch.sharding import tensor
@@ -2134,25 +2175,28 @@ def _tp_blocks(mesh, inp, out):
         h = torch.from_numpy(inp[f"block/{case}/h"][:, r * n:(r + 1) * n]
                              ).requires_grad_()
         cot = torch.from_numpy(inp[f"block/{case}/cot"][:, r * n:(r + 1) * n])
-        p = nest({k.split(".", 2)[2]: t for k, t in blocks.items()})
+        kv = inp.get(f"block/{case}/kv")
+        ins = [h] if kv is None else [
+            h, torch.from_numpy(kv).requires_grad_()]
+        lead = len(tp_block_prefix(module))
+        p = nest({k[lead:]: t for k, t in blocks.items()})
         positions = torch.arange(TP_S)[None].expand(TP_B, TP_S)
         with tensor.model_group(tensor.TensorPlan(mesh.model_view, place,
                                                   cfg)):
-            fn = tp_block_fn(module)
-            if module == "attn":
-                y = fn(p, h, cfg, positions=positions, window=window)
-            else:
-                y = fn(p, h, cfg)
+            y = tp_block_fn(module)(p, h, cfg, positions, window,
+                                    ins[-1] if kv is not None else None)
             aux = None
             if module == "moe":
                 y, aux = y
             loss = (y * cot).sum() + (0 if aux is None else aux)
-            grads = torch.autograd.grad(loss, [h] + list(blocks.values()))
+            grads = torch.autograd.grad(loss, ins + list(blocks.values()))
         out[f"block/{case}/y"] = y.detach().numpy()
         if aux is not None:
             out[f"block/{case}/aux"] = aux.detach().numpy()
         out[f"block/{case}/gh"] = grads[0].numpy()
-        for path, g in zip(blocks, grads[1:]):
+        if kv is not None:
+            out[f"block/{case}/gkv"] = grads[1].numpy()
+        for path, g in zip(blocks, grads[len(ins):]):
             out[f"block/{case}/g/{path}"] = g.numpy()
 
 
@@ -2190,8 +2234,9 @@ def port_tp_steps(inp, shape):
     the losses, the node's params, each step's bytes by kind), the split
     gate's metric against the whole node's, the first step's gradient
     gathered leaf by leaf against the unsharded step's, the compute
-    blocks a step gathers (their shapes, how many alive at once); then the
-    enc-dec smoke model split, which keeps the whole-layer form."""
+    blocks a step gathers (their shapes, how many of a checkpointed stack
+    alive at once; an enc-dec's gathers of frame rows a step); then the
+    TP_MORE steps and the enc-dec's sequence-parallel form."""
     import gc
     import weakref
     import torch
@@ -2212,28 +2257,32 @@ def port_tp_steps(inp, shape):
         flat = torch.from_numpy(inp[f"jax/{fam}/flat"])
         p = shard.shard(flat[None])[0]
         o = adamw_init(shard.local.parts(p))
+        keys = [k for k in ("tokens", "labels", "frames")
+                if f"jax/{fam}/{k}" in inp]
         batches = [{key: torch.from_numpy(inp[f"jax/{fam}/{key}"][k])
-                    for key in ("tokens", "labels")}
-                   for k in range(TP_JAX_STEPS)]
-        # the compute blocks the steps gather: alive at once, and their
-        # shapes against the whole layer's
+                    for key in keys} for k in range(TP_JAX_STEPS)]
+        # the compute blocks the steps gather: alive at once (of the
+        # stacks remat checkpoints: not an enc-dec's encoder, whose layers
+        # the backward keeps, as the reference's), and their shapes against
+        # the whole layer's
         live, peak, whole_layer = [0], [0], [False]
         orig = G.NodeSplit.gather
 
         def gathered(self, cut, local, i):
             got = orig(self, cut, local, i)
             if cut.stacked:
-                gc.collect()
-                live[0] += 1
-                peak[0] = max(peak[0], live[0])
-                weakref.finalize(got[0], lambda: live.__setitem__(
-                    0, live[0] - 1))
                 for k, t in enumerate(got):
                     cut_leaf = any(len(ivs) != 1 or ivs[0] != (0, n)
                                    for ivs, n in zip(cut._cblocks[0][k],
                                                      cut.shapes[k]))
                     if cut_leaf and tuple(t.shape) == tuple(cut.shapes[k]):
                         whole_layer[0] = True
+            if cut.stacked and not cut.paths[0].startswith("enc_layers."):
+                gc.collect()
+                live[0] += 1
+                peak[0] = max(peak[0], live[0])
+                weakref.finalize(got[0], lambda: live.__setitem__(
+                    0, live[0] - 1))
             return got
 
         G.NodeSplit.gather = gathered
@@ -2241,8 +2290,13 @@ def port_tp_steps(inp, shape):
         try:
             for k, b in enumerate(batches):
                 mesh.reset_counts()
-                (p, o, met), grads = _tp_capture(
-                    lambda: step.split(p, o, b, shard=shard, mesh=mesh))
+                with _seq_gathers() as seqs:
+                    (p, o, met), grads = _tp_capture(
+                        lambda: step.split(p, o, b, shard=shard, mesh=mesh))
+                if "frames" in b:
+                    rows = b["frames"].shape[1] // shape[2]
+                    out[f"{fam}/frame_gathers{k}"] = np.asarray(
+                        seqs.count(rows))
                 losses.append(float(met["loss"]))
                 for kind, nbytes in mesh.counts.items():
                     out[f"{fam}/bytes{k}/{kind}"] = np.asarray(nbytes)
@@ -2306,50 +2360,188 @@ def port_tp_steps(inp, shape):
         out[f"{name}/grad_rel"] = np.asarray(
             [float((gv[q] - wv[q]).abs().max()
                    / wv[q].abs().max().clamp(min=1e-30)) for q in sorted(gv)])
-    # the enc-dec family at model 2: the whole-layer split
-    model = _smoke("seamless-m4t-medium")
+    out.update(_tp_encdec_seq(inp, mesh, shape))
+    return out
+
+
+class _seq_gathers:
+    """Within the block, the sequence length of every cut the model
+    group's forward gathers (`repro_torch.sharding.tensor.gather`, remat's
+    recompute included), in order: ``with _seq_gathers() as seqs``."""
+
+    def __enter__(self):
+        from repro_torch.sharding import tensor
+        self.orig, self.seqs = tensor.gather, []
+
+        def gather(x, dim=1):
+            self.seqs.append(int(x.shape[dim]))
+            return self.orig(x, dim)
+
+        tensor.gather = gather
+        return self.seqs
+
+    def __exit__(self, *exc):
+        from repro_torch.sharding import tensor
+        tensor.gather = self.orig
+
+
+def _tp_encdec_seq(inp, mesh, shape):
+    """The enc-dec smoke model in its sequence-parallel form (TP_ENCDEC_SEQ:
+    one KV head, a padded vocab): one split step against the whole
+    node's (losses, params, the gradient leaf by leaf), its bytes by kind
+    and its gathers of frame rows, the split gate's metric and bytes
+    against the whole node's; and a step whose frames or tokens the model
+    group does not divide (the error each raises)."""
+    import torch
+    from repro_torch.core.flat import ShardLayout
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.rules import param_specs
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import build_model
+    arch, changes = TP_ENCDEC_SEQ
+    model = build_model(smoke_variant(get_config(arch)).replace(**changes))
     layout = model.layout
     shard = ShardLayout(layout, param_specs(layout, mesh), mesh.inner,
                         mesh.coords)
-    step = train.make_train_step(model, split_tc(True))
+    step = train.make_train_step(model, split_tc(
+        True, lr=1e-4, warmup_steps=0, max_steps=10))
     p0 = model.init(torch.Generator().manual_seed(0), "cpu")
-    b = {k: torch.from_numpy(inp[f"encdec/{k}"])
+    b = {k: torch.from_numpy(inp[f"encdec_seq/{k}"])
          for k in ("tokens", "labels", "frames")}
-    mesh.reset_counts()
+    out = {"encdec_seq/tensor_plan": np.asarray(
+        train.tensor_plan(model, mesh) is not None)}
     ps = shard.shard(p0[None])[0]
-    ps, _, ms = step.split(ps, adamw_init(shard.local.parts(ps)), b,
-                           shard=shard, mesh=mesh)
-    pw, _, mw = step(p0.clone(), adamw_init(layout.parts(p0)), b)
-    out["encdec/tensor_plan"] = np.asarray(
-        train.tensor_plan(model, mesh) is not None)
-    out["encdec/kinds"] = np.asarray(sorted(mesh.counts))
-    out["encdec/loss"] = np.asarray([float(ms["loss"]), float(mw["loss"])])
-    out["encdec/params"] = _node_params(shard, mesh, ps).numpy()
-    out["encdec/whole"] = pw.numpy()
+    mesh.reset_counts()
+    with _seq_gathers() as seqs:
+        (ps, _, ms), first = _tp_capture(lambda: step.split(
+            ps, adamw_init(shard.local.parts(ps)), b, shard=shard,
+            mesh=mesh))
+    for kind, nbytes in mesh.counts.items():
+        out[f"encdec_seq/bytes/{kind}"] = np.asarray(nbytes)
+    out["encdec_seq/frame_gathers"] = np.asarray(
+        seqs.count(b["frames"].shape[1] // shape[2]))
+    (pw, _, mw), want = _tp_capture(lambda: step(
+        p0.clone(), adamw_init(layout.parts(p0)), b))
+    got = shard.gather(shard.local.join(first)[None], mesh.shard_view,
+                       kind=None)[0]
+    gv = layout.value_layout.unflatten(layout.values(got))
+    wv = layout.value_layout.unflatten(layout.values(layout.join(want)))
+    out["encdec_seq/grad_rel"] = np.asarray(
+        [float((gv[q] - wv[q]).abs().max()
+               / wv[q].abs().max().clamp(min=1e-30)) for q in sorted(gv)])
+    out["encdec_seq/loss"] = np.asarray([float(ms["loss"]),
+                                         float(mw["loss"])])
+    node = _node_params(shard, mesh, ps)
+    out["encdec_seq/params"] = node.numpy()
+    out["encdec_seq/whole"] = pw.numpy()
+    mesh.reset_counts()
+    ev = train.make_swarm_eval(model)
+    out["encdec_seq/gate"] = np.asarray([
+        float(ev.split(ps, b, shard=shard, mesh=mesh)),
+        float(ev(node[None], {k: v[None] for k, v in b.items()})[0])])
+    for kind, nbytes in mesh.counts.items():
+        out[f"encdec_seq/gate_bytes/{kind}"] = np.asarray(nbytes)
+    # a sequence the model group does not divide raises on every rank
+    for what, cut in (("frames", b["frames"][:, 1:]),
+                      ("tokens", b["tokens"][:, 1:])):
+        bad = dict(b, **{what: cut})
+        if what == "tokens":
+            bad["labels"] = b["labels"][:, 1:]
+        try:
+            step.split(ps.clone(), adamw_init(shard.local.parts(ps)), bad,
+                       shard=shard, mesh=mesh)
+            out[f"encdec_seq/raises/{what}"] = np.asarray("")
+        except ValueError as e:
+            out[f"encdec_seq/raises/{what}"] = np.asarray(str(e))
     return out
 
+
+#: the enc-dec's sequence-parallel form: (arch, config changes), and its
+#: frames a row (its tokens 16: a cut of each tells the two apart)
+TP_ENCDEC_SEQ = ("seamless-m4t-medium", {"n_kv_heads": 1, "vocab_size": 500})
+TP_ENCDEC_FRAMES = 24
 
 #: the other tensor-parallel steps: (name, arch, LoRA rank)
 TP_MORE = (("vlm", "internvl2-1b", 0), ("lora", "minicpm-2b", 4))
 
 
 def tp_encdec_batch(rng):
-    """The batches of the enc-dec and the TP_MORE steps: 4 rows of 16
-    tokens (the enc-dec's frames, the vlm's patch embeddings)."""
+    """The batches of the enc-dec's sequence-parallel step and the TP_MORE
+    steps: 4 rows of 16 tokens (the enc-dec's frames, the vlm's patch
+    embeddings)."""
     from repro_torch.configs import get_config, smoke_variant
     out = {}
-    for name, arch in (("encdec", "seamless-m4t-medium"),) + tuple(
-            (n, a) for n, a, _ in TP_MORE):
-        cfg = smoke_variant(get_config(arch))
+    for name, arch, changes in (("encdec_seq",) + TP_ENCDEC_SEQ,) + tuple(
+            (n, a, {}) for n, a, _ in TP_MORE):
+        cfg = smoke_variant(get_config(arch)).replace(**changes)
         toks = rng.integers(0, cfg.vocab_size, (4, 17))
         out[f"{name}/tokens"] = toks[:, :-1].astype(np.int64)
         out[f"{name}/labels"] = toks[:, 1:].astype(np.int64)
         if cfg.is_encdec:
             out[f"{name}/frames"] = rng.normal(0, 1, (
-                4, cfg.enc_seq_len, cfg.frontend_dim)).astype(np.float32)
+                4, TP_ENCDEC_FRAMES, cfg.frontend_dim)).astype(np.float32)
         if cfg.family == "vlm":
             out[f"{name}/patch_embeds"] = rng.normal(0, 1, (
                 4, cfg.n_patches, cfg.frontend_dim)).astype(np.float32)
+    # the gate world's session: [T, N, B, S] a round, [N, B, S] to validate
+    cfg = smoke_variant(get_config("seamless-m4t-medium"))
+    n, b, s = SPLIT_NODES, 2, 16
+    for pre, lead in (("", (SPLIT_STEPS, n, b)), ("v", (n, b))):
+        toks = rng.integers(0, cfg.vocab_size, lead + (s + 1,))
+        out[f"encgate/{pre}tokens"] = toks[..., :-1].astype(np.int64)
+        out[f"encgate/{pre}labels"] = toks[..., 1:].astype(np.int64)
+        out[f"encgate/{pre}frames"] = rng.normal(0, 1, lead + (
+            cfg.enc_seq_len, cfg.frontend_dim)).astype(np.float32)
+    return out
+
+
+#: the enc-dec gate world: (node, data, model), and its relative gate's
+#: threshold, between the two nodes' merged / local metrics (1.0044 and
+#: 1.0018): one gate opens, the other stays shut
+TP_GATE = (2, 1, 2)
+TP_GATE_THRESHOLD = 1.003
+
+
+def port_tp_encdec_gate(inp):
+    """(node, data, model) = TP_GATE: one round of the enc-dec smoke
+    session (its TrainStep split and tensor-parallel, a relative gate at
+    TP_GATE_THRESHOLD) with the split gate, then with the
+    whole-node gate (an opaque eval): each run's metrics, gates and sync
+    bytes."""
+    import dataclasses
+    import torch
+    from repro_torch.core.session import SwarmSession
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.rules import param_specs
+    mesh = _split_mesh(TP_GATE)
+    model = _smoke("seamless-m4t-medium")
+    layout = model.layout
+    keys = ("tokens", "labels", "frames")
+    batch = {k: torch.from_numpy(inp[f"encgate/{k}"]) for k in keys}
+    val = {k: torch.from_numpy(inp[f"encgate/v{k}"]) for k in keys}
+    cfg = dataclasses.replace(split_cfg(), val_threshold=TP_GATE_THRESHOLD)
+    out = {"coords": np.asarray([mesh.coords["data"], mesh.coords["model"]])}
+    for tag in ("split", "whole"):
+        step = train.make_train_step(model, split_tc(True))
+        ev = train.make_swarm_eval(model)
+        p0 = model.init(torch.Generator().manual_seed(0), "cpu")
+        sess = SwarmSession(
+            cfg, step, ev if tag == "split" else (lambda p, v: ev(p, v)),
+            params=p0, opt_state=adamw_init(layout.parts(p0)),
+            data_sizes=INNER_SIZES, layout=layout, device="cpu",
+            backend="gossip", mesh=mesh, axis=mesh.axis,
+            param_specs=param_specs(layout, mesh))
+        log = sess.round(batch, val)
+        out[f"encgate/{tag}/split_gate"] = np.asarray(
+            sess.engine.split_gate)
+        out[f"encgate/{tag}/metrics"] = torch.stack(
+            [log["metric_local"], log["metric_merged"]]).numpy()
+        out[f"encgate/{tag}/gates"] = log["gates"].numpy()
+        for kind, nbytes in sess.counted_sync_bytes.items():
+            if not isinstance(nbytes, dict):
+                out[f"encgate/{tag}/bytes/{kind}"] = np.asarray(nbytes)
     return out
 
 
@@ -2389,6 +2581,8 @@ def main(argv):
                 res = port_tp_units(inp)
             elif task in TP_WORLDS:
                 res = port_tp_steps(inp, TP_WORLDS[task])
+            elif task == "tp_encdec_gate":
+                res = port_tp_encdec_gate(inp)
             elif task in SPLIT_WORLDS:
                 res = port_split_sessions(inp, SPLIT_WORLDS[task])
             elif task == "hier":
