@@ -131,7 +131,12 @@ Phases, each printing one JSON line:
                  q_off 0 and 1,024, windows 0 and 1,024, then one D = 16
                  and one D = 128 shape in each dtype, then (h)'s twin's
                  [2,25,2048,64] over the same keys at q_off 0) within one
-                 bf16 ulp (f32 within 1.2e-6), with times beside
+                 bf16 ulp (f32 within 1.2e-6); part (j)'s served
+                 prefills: Hymba's [2,25,128,64] over [2,5,256,64] at
+                 q_off 0 and 128 and the whole-residual [2,25,255,64]
+                 over [2,5,255,64], windows 0 and 1,024, and granite's
+                 head-parallel [2,12,256,64] and [2,12,255,64] over 4 KV
+                 heads (``FAMILY_FLASH``); with times beside
                  the plain version, one SDPA call with the boolean mask and
                  the bound (``q_off``);
  13. ssd_kernel  the SSD scan kernel against its plain version: the
@@ -141,7 +146,11 @@ Phases, each printing one JSON line:
                  25 or 50, 64, 16, 256) (a model rank's heads, the twin's)
                  with x, B and C strided views of the conv's output as
                  ``ssm_block`` passes them, y at 2e-2 and the f32 final
-                 state at 1e-4; a_log per batch row (the trainer's folded
+                 state at 1e-4, then part (j)'s (2, 256, 25, 64, 16, 256)
+                 and (2, 255, 25, 64, 16, 255) (a model rank's heads of a
+                 served prefill, the residual cut and whole), there the
+                 kernel's and the plain version's states each against the
+                 plain version evaluated in f64; a_log per batch row (the trainer's folded
                  nodes) against one row at a time with a shared [H] (the
                  serving path's stride 0), bit for bit; times, TFLOP/s and
                  bounds (C·Bᵀ at the bf16 tensor-core rate, the rest at the
@@ -189,11 +198,9 @@ Phases, each printing one JSON line:
                  over the warm wave, the cold wave's wall and build time
                  apart, the profiled tick's busy share, host ops and
                  launches, peak memory) and ``serve_replay`` (on warm keys,
-                 a decode tick and a prefill of each length: the body
-                 called eagerly against a replay, in turns (eager,
-                 replay, replay, eager for the tick; eager, replay for
-                 a prefill), wall, device time and busy share; a
-                 profiled replayed prefill's flash
+                 a decode tick: the body called eagerly against a replay,
+                 in turns (eager, replay, replay, eager), wall, device
+                 time and busy share; a profiled replayed prefill's flash
                  and SSD kernel records equal to its launches), each with
                  the card's name and power limit;
  16b. train_grads the flash and SSD autograd Functions (kernel forward,
@@ -388,7 +395,7 @@ Phases, each printing one JSON line:
                  kind of a step and of the split gate against the
                  layout's count (`_tp_bytes`) exactly, flash and
                  ``ssd_scan`` launches as predicted, walls and peaks; (g)
-                 granite-moe-3b-a800m at its published widths, 8 of 32
+                 granite-moe-3b-a800m at its published widths, 2 of 32
                  layers, bf16, remat, on 8 gloo ranks as 2 nodes × data 2
                  × model 2 with the rules' specs, tensor-parallel over
                  each model group (attention head-parallel, 20 of 40
@@ -403,22 +410,49 @@ Phases, each printing one JSON line:
                  two nodes' slots), the compute block's size against the
                  whole layer's, every byte kind of a step and of the gate
                  against the layout's count exactly, flash launches as
-                 predicted, and step and sync walls and every rank's peak.
+                 predicted, and step and sync walls and every rank's peak;
+                 (j) serving under tensor parallelism in (h)'s world after
+                 its round: node position 0's model group (node, data,
+                 model) = (1, 1, 2) serves Hymba-1.5B (the K/V cache on
+                 the head dim: 5 KV heads over 2; 25 of 50 SSM heads a
+                 rank), position 1's granite-moe-3b-a800m (the cache on
+                 4 of 8 KV heads; 20 of 40 experts), each at its published
+                 widths and all 32 layers in bf16 from the seed-0 init,
+                 its compute blocks sliced once from the node, through
+                 ``generate`` with a mesh: 2 rows, a 256-token prompt (the
+                 residual cut on the sequence) and one of 255 (whole), 16
+                 new tokens, ``max_len`` 272; then a prefill and 8 decode
+                 steps alone; each against its unsharded twin on model
+                 rank 0 (captured programs): both ranks' streams and
+                 logits equal, a 2-layer f32 check within 1e-4 of the
+                 twin's with the streams equal, at full depth the logits
+                 and the twin's against the twin's weights evaluated in
+                 f32, the model group's at most ``GOSSIP_J_BF16_RATIO``
+                 times as far as the twin's, within the bound that gives
+                 of the twin's and the streams equal wherever the twin's
+                 top-2 margin exceeds twice that bound, every
+                 byte kind of a prefill, a token and each ``generate``
+                 against ``_tp_serve_bytes`` exactly, flash and
+                 ``ssd_scan`` launches as counted (one a layer a prefill),
+                 the rank's values its compute blocks', resident memory,
+                 serving peaks and cache bytes against the twin's,
+                 prefill, token and ``generate`` walls (host copies and
+                 TCP: no speedup claimed).
                  One card shows no inter-card traffic: (a)/(b) are one
-                 rank's NCCL calls, (c)-(h) go through host memory;
+                 rank's NCCL calls, (c)-(j) go through host memory;
  16j. examples  (run after ``host``, before ``gossip``) the twins of the
                  reference's examples through their ``main`` at the
                  reference's default sizes (the protocol's depth cut to
-                 100 of its 400 steps), the counts set to 0 before
+                 40 of its 400 steps), the counts set to 0 before
                  each (the memory of the serving paths released first): ``examples/torch_engine_swarm.py`` (the
                  tiny LM, head dim 16, N = 4: 3 rounds of 5 steps,
                  ``leave(3)``, 3 more; gates each round, node 3 out of every
                  merge after the leave, one ``fused_merge_all`` a round,
                  flash's f32 D = 16 body at [32, 4, 32, 16]: its launches
                  are ``launches_d16``), ``torch_histopathology_swarm.py``
-                 (the §4 protocol, 3 scenarios of 100 steps in a temporary
+                 (the §4 protocol, 3 scenarios of 40 steps in a temporary
                  working directory: three JSON files, nine finite report
-                 rows each with AUC in [0, 1], exactly 5 ``fused_merge_all``
+                 rows each with AUC in [0, 1], exactly 2 ``fused_merge_all``
                  launches a scenario and nothing else) and
                  ``torch_serve_demo.py`` (4 smoke families, [4, 16] tokens
                  each, flash and ``ssd_scan`` launched; the consensus
@@ -1573,7 +1607,10 @@ FLASH_SWEEP = ((1, 4, 4, 128, 128, 64, True, 0, "float32"),
 # (i) (2 rows of 1,024 frames and 256 tokens, its step's and its gate's
 # alike), head-parallel over 2 model ranks (8 of 16 heads) and in the
 # unsharded twin: the encoder's unmasked self-attention, the decoder's
-# cross-attention over the encoder output and its causal self-attention
+# cross-attention over the encoder output and its causal self-attention;
+# granite-moe's head-parallel prefills of part (j) (2 rows of 256 tokens,
+# the residual cut, and of 255, the residual whole; a model rank's 12
+# heads over its 4 KV heads of its own K/V)
 FAMILY_FLASH = (("granite", 1, 24, 8, 2048, 2064, True),
                 ("granite_256", 1, 24, 8, 256, 2064, True),
                 ("granite_train", 4, 24, 8, 256, 256, True),
@@ -1590,7 +1627,9 @@ FAMILY_FLASH = (("granite", 1, 24, 8, 2048, 2064, True),
                 ("seamless_tp_dec", 2, 8, 8, 256, 256, True),
                 ("seamless_twin_enc", 2, 16, 16, 1024, 1024, False),
                 ("seamless_twin_cross", 2, 16, 16, 256, 1024, False),
-                ("seamless_twin_dec", 2, 16, 16, 256, 256, True))
+                ("seamless_twin_dec", 2, 16, 16, 256, 256, True),
+                ("granite_j_tp", 2, 12, 4, 256, 256, True),
+                ("granite_j_tp_odd", 2, 12, 4, 255, 255, True))
 # flash's bf16 D = 128 body (csrc/flash_attention.cu: kWG = 2,
 # hop::launch<128>) at the attention shapes of nemotron-4-15b (48 heads
 # over 8 KV heads, a GQA group of 6) and deepseek-coder-33b (56 over 8, a
@@ -1623,13 +1662,21 @@ D16_FLASH = (("engine", 32, 4, 2, 32, 32, True, 0),
 # tokens over 2 model ranks: 1024 rows a rank at q_off 0 and 1024, the
 # global layer's window 0 and the sliding layer's 1024), then one D = 16
 # and one D = 128 shape in each dtype, then the whole-sequence calls of
-# (h)'s unsharded twin (q_off 0: 2 rows of 2048 over the same 2048 keys)
+# (h)'s unsharded twin (q_off 0: 2 rows of 2048 over the same 2048 keys),
+# then part (j)'s served prefills: 2 rows of 256 tokens, 128 rows a rank
+# at q_off 0 and 128 over the prompt's 256 keys, and the prompt of 255
+# the model group does not divide (the residual whole: every rank's 255
+# rows at q_off 0)
 QOFF_FLASH = tuple(("hymba_h", 2, 25, 5, 1024, 2048, 64, off, w, "bfloat16")
                    for off in (0, 1024) for w in (0, 1024)) + tuple(
     (f"d{d}", 1, 4, 2, s, 2 * s, d, s, w, dt)
     for d, s, w in ((16, 512, 0), (128, 512, 256))
     for dt in ("float32", "bfloat16")) + tuple(
     ("hymba_h_twin", 2, 25, 5, 2048, 2048, 64, 0, w, "bfloat16")
+    for w in (0, 1024)) + tuple(
+    ("hymba_j", 2, 25, 5, 128, 256, 64, off, w, "bfloat16")
+    for off in (0, 128) for w in (0, 1024)) + tuple(
+    ("hymba_j_odd", 2, 25, 5, 255, 255, 64, 0, w, "bfloat16")
     for w in (0, 1024))
 # the f32 body's limit with a query offset: one bf16 ulp does not apply;
 # the D = 128 body reads 1.19e-6 at QOFF_FLASH's d128 row (and as much on
@@ -2005,12 +2052,22 @@ SSD_EXAMPLE = (4, 8, 8, 64, 16, 8)
 # (name, (B, S, H, P, N, chunk), conv): with ``conv`` x, B and C are
 # strided views of one [B, S, H·P + 2N] conv output, as ``ssm_block``
 # passes them: part (h)'s calls, a model rank's 25 of Hymba's 50 heads and
-# the unsharded twin's 50, 2 rows of 2048
+# the unsharded twin's 50, 2 rows of 2048; part (j)'s served prefills, a
+# model rank's 25 heads over 2 rows of 256 tokens and of 255 (one chunk
+# of 255: the model pads to no chunk multiple)
 SSD_MODELS = (("hymba", (1, 2048, 50, 64, 16, 256), False),
               ("hymba256", (1, 256, 50, 64, 16, 256), False),
               ("mamba2", (1, 2048, 32, 64, 128, 256), False),
               ("hymba_h_tp", (2, 2048, 25, 64, 16, 256), True),
-              ("hymba_h_twin", (2, 2048, 50, 64, 16, 256), True))
+              ("hymba_h_twin", (2, 2048, 50, 64, 16, 256), True),
+              ("hymba_j_tp", (2, 256, 25, 64, 16, 256), True),
+              ("hymba_j_tp_odd", (2, 255, 25, 64, 16, 255), True))
+# part (j)'s rows also evaluate the plain version in f64: the kernel's and
+# the plain version's final state each against it, reported (at one chunk
+# of 255 the f32 cumsum reaches |cum| of about 400, whose ulp bounds both
+# f32 forms; the state is held to the kernel against its plain version
+# within 1e-4, as every row)
+SSD_F64_ROWS = ("hymba_j_tp", "hymba_j_tp_odd")
 
 
 def ssd_bound(b, s, h, p, n, chunk, g, bw, peak, bf16_peak, itemsize=2):
@@ -2114,6 +2171,12 @@ def phase_ssd_kernel(dev, bw, peak, bf16_peak):
                 raise AssertionError(f"ssd at {name}'s shape: max err "
                                      f"{float(err.max())}")
             errs.append(float(err.max()))
+        f64 = {}
+        if name in SSD_F64_ROWS:
+            s64 = ssd_scan_plain(*args, chunk=chunk, acc=torch.float64)[1]
+            f64 = dict(state_err_vs_f64={
+                "kernel": float((st.double() - s64).abs().max()),
+                "plain": float((sw.double() - s64).abs().max())})
         bms, by, flops, nbytes = ssd_bound(b, s, h, p, n, chunk, 1, bw, peak,
                                            bf16_peak)
         ms = device_ms(lambda: ss.ssd_scan(*args, chunk=chunk), iters=20,
@@ -2121,7 +2184,8 @@ def phase_ssd_kernel(dev, bw, peak, bf16_peak):
         rows[name] = dict(
             shape=[b, s, h, p, n, chunk], conv_views=conv,
             max_abs_err_y=errs[0],
-            max_abs_err_state=errs[1], gflop=flops / 1e9, mbytes=nbytes / 1e6,
+            max_abs_err_state=errs[1], **f64, gflop=flops / 1e9,
+            mbytes=nbytes / 1e6,
             kernel_ms=ms, tflops=tflops(flops, ms),
             plain_ms=device_ms(lambda: ssd_scan_plain(*args, chunk=chunk),
                                iters=5, warm=2),
@@ -2621,11 +2685,9 @@ def phase_serve(dev, smi):
     for n in SERVE_SEQ:
         prog = eng.programs[("prefill", n, decode_bucket), 0]
         eng._stage_prefill(gen.integers(0, cfg.vocab_size, n), 0, n)
-        # two turns (four for the tick), at the longest prompt only:
-        # processing the profiled eager prefill's trace takes about 10 s a
-        # turn
-        if n == SERVE_SEQ[-1]:
-            versus[f"prefill_{n}"] = _eager_vs_replay(prog, turns=2)
+        # the tick only: a profiled eager prefill's trace takes about 10 s
+        # a turn to process, and wide_serve runs a 2048-token prefill key
+        # eagerly against its replay (nemotron-4-15b's)
         records[n] = _profiled_replay_launches(prog)
         if records[n]["launches"] != {"flash_attention": per_prefill,
                                       "ssd_scan": per_prefill}:
@@ -3992,7 +4054,7 @@ def phase_host(dev, smi):
 # their ``main`` at the reference's default sizes (examples/torch_*.py),
 # the §4 protocol's depth cut from its 400 steps (a sync every 20) to keep
 # the script well inside its time limit
-EXAMPLE_HISTO_STEPS, EXAMPLE_HISTO_SYNC = 100, 20
+EXAMPLE_HISTO_STEPS, EXAMPLE_HISTO_SYNC = 40, 20
 
 
 def _example(script):
@@ -5689,6 +5751,77 @@ def _tp_bytes(shard, cfg, n_layers, rest_itemsize, rows, seq, split_rows,
     return step, gate
 
 
+def _tp_serve_bytes(cfg, model, rows, seq, max_len):
+    """A model rank's bytes by kind of one served forward over a model
+    group of ``model`` ranks (`repro_torch.launch.serve` with a mesh):
+    ``rows`` rows of ``seq`` tokens (a prefill; ``seq`` = 1 a decode step
+    against a ``max_len``-deep cache), the greedy pick's gather of the
+    last position's vocab-cut logits included, counted from the config
+    and the placement alone. Where M divides ``seq`` the residual is cut:
+    per block an all_gather of the normed rows (``tp_gather``, the rank's
+    cut), a reduce_scatter per row-parallel output (``tp_reduce_scatter``,
+    the f32 sum's other M − 1 cuts), the SSM norm's f32 sums of squares
+    (``tp_all_reduce``), the embedding's all_to_all (``tp_all_to_all``)
+    or reduce_scatter and the final norm's gather. Otherwise the residual
+    is whole: no gather, an f32 all_reduce of every row-parallel output
+    and of the SSM norm's squares, a decode step's partial scores over a
+    head-dim cut of the cache ``[B, nh, T]`` in f32, and the embedding's
+    gather of its d_model cut (or all_reduce of a vocab-cut lookup)."""
+    from repro_torch.sharding.rules import cache_cut, placement
+    place = placement(cfg, model)
+    m, d = model, cfg.d_model
+    f = 2 if cfg.compute_dtype == "bfloat16" else 4
+    whole = seq % m != 0
+    rs = rows * seq
+    out = {"tp_gather": 0, "tp_reduce_scatter": 0, "tp_all_reduce": 0,
+           "tp_all_to_all": 0}
+
+    def add(kind, n):
+        out[kind] += n
+
+    def row_parallel():
+        if whole:
+            add("tp_all_reduce", rs * d * 4)
+        else:
+            add("tp_reduce_scatter", (m - 1) * rs * d * 4 // m)
+
+    def enter():
+        if not whole:
+            add("tp_gather", rs * d * f // m)
+
+    if place.embed == "d_model":
+        add("tp_gather" if whole else "tp_all_to_all",
+            rs * (d // m) * f * (1 if whole else m - 1) // (1 if whole
+                                                            else m))
+    elif place.embed == "vocab":
+        if whole:
+            add("tp_all_reduce", rs * d * 4)
+        else:
+            add("tp_reduce_scatter", (m - 1) * rs * d * 4 // m)
+    for _ in range(cfg.n_layers):
+        enter()
+        if cfg.family != "ssm":
+            if place.attention == "heads":
+                row_parallel()
+            elif (seq == 1 and cache_cut(cfg, place) == "head_dim"):
+                add("tp_all_reduce", rows * cfg.n_heads * max_len * 4)
+                row_parallel()
+        if cfg.family in ("ssm", "hybrid") and place.ssm_heads:
+            add("tp_all_reduce", rs * 4)
+            row_parallel()
+        if cfg.family != "ssm":
+            if cfg.family == "moe":
+                enter()
+                if place.experts:
+                    row_parallel()
+            elif place.ff:
+                enter()
+                row_parallel()
+    enter()
+    add("tp_gather", rows * (cfg.padded_vocab // m) * f)
+    return {k: v for k, v in out.items() if v}
+
+
 def _gate_meter(eng, log, split_and_whole=False, barrier=None):
     """Wrap the engine's gate scores (``_gate_scores``, a call a score)
     to record each call's peak allocated above the memory allocated before
@@ -6032,7 +6165,7 @@ def _gossip_split(dev, smi, tmp, ftwin):
 # GOSSIP_G_BATCH rows (half a data rank) and one fedavg/full sync on the
 # f32 wire, its gate scored twice a score
 GOSSIP_G_ARCH = "granite-moe-3b-a800m"
-GOSSIP_G_LAYERS = 4
+GOSSIP_G_LAYERS = 2
 GOSSIP_G_MESH = (2, 2, 2)
 GOSSIP_G_STEPS, GOSSIP_G_BATCH, GOSSIP_G_SEQ = 2, 8, 256
 #: the validation rows a node scores its gate on (rows, tokens)
@@ -6649,6 +6782,10 @@ def _gossip_rank_tp(part, rank, world, init, tmp, dev):
         torch.save(out, f"{tmp}/{tag}{rank}.pt")
         del sess, eng
         torch.cuda.empty_cache()
+        if part == "h" and sharded:
+            # (j) in the same world: each node position's model group
+            # serves one of GOSSIP_J_ARCHS
+            torch.save(_gossip_rank_j(mesh, dev), f"{tmp}/jserve{rank}.pt")
     finally:
         dist.destroy_process_group()
 
@@ -6777,6 +6914,386 @@ def _gossip_tp(part, dev, smi, tmp, twin):
          launches=ranks[0]["launches"], predicted=predicted,
          note="gloo ranks on one card: the collectives go through host "
               "memory and TCP, not NVLink")
+    if part == "h":
+        _gossip_j_check(smi, tmp)
+
+
+# (j) serving under tensor parallelism, in (h)'s world of 2 node positions
+# × model 2 after its round: position i's model group (node, data, model)
+# = (1, 1, 2) serves GOSSIP_J_ARCHS[i] at its published widths and depth
+# (GOSSIP_J_LAYERS: None) in bf16, from the seed-0 init, against its
+# unsharded twin on model rank 0; first the same at GOSSIP_J_F32_LAYERS
+# layers in f32. Traffic: GOSSIP_J_ROWS rows, a prompt of GOSSIP_J_SEQ
+# tokens (the residual cut on the sequence) and one of GOSSIP_J_ODD (M
+# does not divide it: the residual whole), GOSSIP_J_NEW new tokens each
+GOSSIP_J_ARCHS = ("hymba-1.5b", "granite-moe-3b-a800m")
+GOSSIP_J_LAYERS = None
+GOSSIP_J_ROWS, GOSSIP_J_SEQ, GOSSIP_J_ODD, GOSSIP_J_NEW = 2, 256, 255, 16
+GOSSIP_J_MAX_LEN = GOSSIP_J_SEQ + GOSSIP_J_NEW
+GOSSIP_J_F32_LAYERS = 2
+# the f32 check's logits against the twin's. At bf16 and full depth both
+# are held against the twin's weights evaluated in f32 (teacher-forced on
+# the twin's stream): the model group's logits at most GOSSIP_J_BF16_RATIO
+# times as far from it as the twin's own, so within a bound of (1 + the
+# ratio) times the twin's distance of the twin's logits, the streams equal
+# wherever the twin's top-2 margin exceeds twice that bound
+GOSSIP_J_F32_TOL = 1e-4
+GOSSIP_J_BF16_RATIO = 2.0
+# decode steps a token's wall is averaged over
+GOSSIP_J_TOKEN_RUNS = 8
+
+
+def _gossip_j_cfg(arch, f32):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if f32:
+        return dataclasses.replace(cfg, n_layers=GOSSIP_J_F32_LAYERS,
+                                   param_dtype="float32",
+                                   compute_dtype="float32")
+    if GOSSIP_J_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=GOSSIP_J_LAYERS)
+    return cfg
+
+
+def _gossip_j_serve(cfg, mesh, dev, prompts):
+    """One config served by ``generate`` (over ``mesh``'s model group, or
+    unsharded with ``mesh`` None: its programs captured) on each prompt,
+    then a prefill of the first prompt and GOSSIP_J_TOKEN_RUNS decode
+    steps alone: tokens, logits, walls, launches, bytes by kind (of the
+    model group), resident memory (the step buffers: params and caches),
+    the caches' bytes, the peak above what was held before, the params'
+    values and the programs' modes; the peak while it was built (over a
+    model group the node whole beside the blocks) apart. The buffers are
+    released after."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import build_model
+
+    b, t, new = GOSSIP_J_ROWS, GOSSIP_J_MAX_LEN, GOSSIP_J_NEW
+    on = () if mesh is None else (mesh,)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st = lserve.step_buffers(model, b, t, dev, *on)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if mesh is None:
+        model.init(gen, dev, out=st.params)
+    else:     # the node whole, sliced once into the rank's blocks
+        node = model.init(gen, dev)
+        st.load(node)
+        del node
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    rec = dict(resident=torch.cuda.memory_allocated() - held,
+               build_peak=torch.cuda.max_memory_allocated() - held,
+               cache_bytes=sum(x.numel() * x.element_size()
+                               for x in lserve.tree_leaves(st.caches)),
+               param_values=st.layout.n_values, runs={})
+    torch.cuda.reset_peak_memory_stats()
+    counts = mesh.reset_counts if mesh is not None else (lambda: None)
+    for seq, prompt in prompts.items():
+        reset_launches()
+        counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, logits = lserve.generate(model, st.params, prompt, new, t, dev,
+                                       *on, with_logits=True)
+        torch.cuda.synchronize()
+        rec["runs"][seq] = dict(
+            tokens=toks.cpu(), logits=logits.float().cpu(),
+            wall=time.perf_counter() - t0,
+            launches={k: v for k, v in LAUNCHES.items() if v},
+            bytes={} if mesh is None else dict(mesh.counts))
+    seq = next(iter(prompts))
+    pre = lserve.prefill_step_for(model, b, seq, t, dev, *on)
+    dec = lserve.serve_step_for(model, b, t, dev, *on)
+    for name, prog, runs in (("prefill", pre, 1),
+                             ("token", dec, GOSSIP_J_TOKEN_RUNS)):
+        counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            prog.run()
+        torch.cuda.synchronize()
+        rec[f"{name}_wall"] = (time.perf_counter() - t0) / runs
+        rec[f"{name}_bytes"] = {} if mesh is None else {
+            k: v // runs for k, v in mesh.counts.items()}
+    rec.update(peak=torch.cuda.max_memory_allocated() - held,
+               eager_pool=st.graphs.eager, captured=dec.captured,
+               eager_calls=[pre.eager_calls, dec.eager_calls])
+    del st, pre, dec
+    _release_serving()
+    return rec
+
+
+def _gossip_rank_j(mesh, dev):
+    """(j) On one rank of (h)'s world: its node position's arch, served
+    over its model group in f32 at GOSSIP_J_F32_LAYERS layers, then in
+    bf16 at full depth, each followed by the unsharded twin on model rank
+    0 (the other rank waits). Returns the records, the rank's compute
+    block count against the node's and the placement."""
+    import dataclasses
+    import math
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import (cache_cut, compute_blocks,
+                                            placement)
+
+    dev = torch.device(dev)
+    arch = GOSSIP_J_ARCHS[mesh.rows.start]
+    mrank = mesh.coords["model"]
+    gen = torch.Generator().manual_seed(7)
+    vocab = _gossip_j_cfg(arch, False).vocab_size
+    prompts = {n: torch.randint(0, vocab, (GOSSIP_J_ROWS, n),
+                                generator=gen).to(dev)
+               for n in (GOSSIP_J_SEQ, GOSSIP_J_ODD)}
+    out = dict(arch=arch, model_rank=mrank)
+    for tag, f32 in (("f32", True), ("bf16", False)):
+        cfg = _gossip_j_cfg(arch, f32)
+        out[tag] = dict(tp=_gossip_j_serve(cfg, mesh, dev, prompts))
+        if mrank == 0:
+            out[tag]["twin"] = twin = _gossip_j_serve(cfg, None, dev,
+                                                      prompts)
+            if not f32:
+                out[tag]["f32_eval"] = _gossip_j_f32_eval(
+                    cfg, dev, prompts,
+                    {n: run["tokens"] for n, run in twin["runs"].items()})
+        dist.barrier(group=mesh.model_view.group)
+    cfg = _gossip_j_cfg(arch, False)
+    place = placement(cfg, mesh.inner["model"])
+    layout = build_model(cfg).layout
+    blocks = compute_blocks(layout, cfg, place, mrank)
+    out.update(place=dataclasses.asdict(place),
+               cache_cut=cache_cut(cfg, place),
+               block_values=sum(math.prod(sum(n for _, n in iv)
+                                          for iv in ivs)
+                                for ivs in blocks.values()),
+               node_values=layout.n_values, n_layers=cfg.n_layers)
+    return out
+
+
+def _gossip_j_launches(cfg):
+    """Flash (and SSD) launches of one ``generate`` over a model group:
+    one a layer in its prefill, none in the decode steps."""
+    out = {"flash_attention": cfg.n_layers}
+    if cfg.family == "hybrid":
+        out["ssd_scan"] = cfg.n_layers
+    return out
+
+
+def _gossip_j_f32_eval(cfg, dev, prompts, streams):
+    """The served bf16 weights (the seed-0 init of ``cfg``) evaluated in
+    f32 on each prompt followed by the twin's stream ``streams[seq]`` [B,
+    new]: the f32 logits each of the twin's tokens was picked from [B,
+    new, V], teacher-forced in one forward."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    m32 = build_model(dataclasses.replace(cfg, param_dtype="float32",
+                                          compute_dtype="float32"))
+    node = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    flat = torch.empty(m32.layout.size, dtype=torch.float32, device=dev)
+    views, src = m32.layout.unflatten(flat), model.layout.unflatten(node)
+    for path, t in views.items():
+        t.copy_(src[path])
+    del node, src
+    out = {}
+    with torch.no_grad():
+        for seq, prompt in prompts.items():
+            toks = torch.cat([prompt, streams[seq][:, :-1].to(
+                device=dev, dtype=torch.long)], dim=1)
+            caches = m32.init_cache(toks.shape[0], toks.shape[1], dev)
+            logits, _ = m32.decode(views, toks, caches, 0)
+            out[seq] = logits[:, seq - 1:].cpu()
+            del caches, logits
+    del flat, views
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gossip_j_stream(tp, twin, f32, ratio):
+    """The bf16 check of one prompt's streams [B, new] and logits [B, new,
+    V] against the twin's and against ``f32`` (the twin's weights in f32,
+    teacher-forced on the twin's stream), along each row while the
+    streams agree (the step where they part included: its context was
+    the same): the model group's largest distance from ``f32`` at most
+    ``ratio`` times the twin's; its logits within the bound (1 + ratio)
+    times the twin's distance of the twin's; the tokens equal wherever
+    the twin's top-2 margin exceeds twice that bound. Returns a dict of
+    the distances, the bound, the smallest margin met and the steps
+    compared, held by their margin and parted at a small margin."""
+    import torch
+    top2 = torch.topk(twin["logits"], 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    dist = lambda a, b: (a - b).abs().amax(-1)           # [B, new]
+    d_tp, d_twin = dist(tp["logits"], f32), dist(twin["logits"], f32)
+    d_pair = dist(tp["logits"], twin["logits"])
+    rows, new = tp["tokens"].shape
+    seen = torch.zeros((rows, new), dtype=torch.bool)
+    for r in range(rows):
+        for i in range(new):
+            seen[r, i] = True
+            if tp["tokens"][r, i] != twin["tokens"][r, i]:
+                break
+    tp_f32, twin_f32 = float(d_tp[seen].max()), float(d_twin[seen].max())
+    bound = (1 + ratio) * twin_f32
+    out = dict(max_abs_logit_diff=float(d_pair[seen].max()), bound=bound,
+               tp_from_f32=tp_f32, twin_from_f32=twin_f32,
+               smallest_margin=float(margin[seen].min()),
+               steps_compared=int(seen.sum()),
+               steps_margin_held=int((seen & (margin > 2 * bound)).sum()),
+               parted_at_small_margin=int((seen & (
+                   tp["tokens"] != twin["tokens"])).sum()),
+               streams_equal=bool(torch.equal(tp["tokens"],
+                                              twin["tokens"])))
+    if tp_f32 > ratio * twin_f32 or out["max_abs_logit_diff"] > bound:
+        raise AssertionError(f"(j) logits {out}")
+    parted = seen & (tp["tokens"] != twin["tokens"]) & (margin > 2 * bound)
+    if bool(parted.any()):
+        raise AssertionError(f"(j) the streams part where the twin's "
+                             f"margin exceeds twice the bound: {out}")
+    return out
+
+
+def _gossip_j_check(smi, tmp):
+    """(j) The model groups' records against their twins', the layout's
+    byte counts and the launch counts; emits ``gossip_j``. Raises on any
+    failed check."""
+    import torch
+
+    recs = [torch.load(f"{tmp}/jserve{r}.pt") for r in range(4)]
+    gib = lambda n: n / 2 ** 30
+    b, t, new = GOSSIP_J_ROWS, GOSSIP_J_MAX_LEN, GOSSIP_J_NEW
+    models = {}
+    for pos, arch in enumerate(GOSSIP_J_ARCHS):
+        ranks = recs[2 * pos:2 * pos + 2]
+        row = dict(arch=arch, place=ranks[0]["place"],
+                   cache_cut=ranks[0]["cache_cut"])
+        for tag in ("f32", "bf16"):
+            cfg = _gossip_j_cfg(arch, tag == "f32")
+            twin = ranks[0][tag]["twin"]
+            tps = [r[tag]["tp"] for r in ranks]
+            want_launch = _gossip_j_launches(cfg)
+            checks = {}
+            for seq in (GOSSIP_J_SEQ, GOSSIP_J_ODD):
+                a, c = tps[0]["runs"][seq], tps[1]["runs"][seq]
+                if not (torch.equal(a["tokens"], c["tokens"])
+                        and torch.equal(a["logits"], c["logits"])):
+                    raise AssertionError(f"(j) {arch} {tag} S={seq}: the "
+                                         "two model ranks disagree")
+                if not bool(torch.isfinite(a["logits"][..., :cfg.vocab_size])
+                            .all()):
+                    raise AssertionError(f"(j) {arch} {tag}: logits not "
+                                         "finite")
+                for r, tp in enumerate(tps):
+                    got = tp["runs"][seq]["launches"]
+                    if got != want_launch:
+                        raise AssertionError(f"(j) {arch} {tag} rank {r}: "
+                                             f"launches {got}, the count "
+                                             f"{want_launch}")
+                    want_bytes = _tp_serve_bytes(cfg, 2, b, seq, t)
+                    tok = _tp_serve_bytes(cfg, 2, b, 1, t)
+                    total = {k: want_bytes.get(k, 0) + (new - 1) * tok.get(
+                        k, 0) for k in set(want_bytes) | set(tok)}
+                    if tp["runs"][seq]["bytes"] != total:
+                        raise AssertionError(
+                            f"(j) {arch} {tag} rank {r} S={seq}: bytes "
+                            f"{tp['runs'][seq]['bytes']}, the layout's "
+                            f"{total}")
+                w = twin["runs"][seq]
+                v = cfg.vocab_size
+                if tag == "f32":
+                    err = float((a["logits"][..., :v] - w["logits"][..., :v])
+                                .abs().max())
+                    if err > GOSSIP_J_F32_TOL or not torch.equal(
+                            a["tokens"], w["tokens"]):
+                        raise AssertionError(f"(j) {arch} f32 S={seq}: "
+                                             f"logits {err} from the twin's,"
+                                             " or the streams differ")
+                    checks[seq] = dict(max_abs_logit_diff=err,
+                                       streams_equal=True)
+                else:
+                    checks[seq] = _gossip_j_stream(
+                        {"tokens": a["tokens"], "logits": a["logits"][..., :v]},
+                        {"tokens": w["tokens"], "logits": w["logits"][..., :v]},
+                        ranks[0][tag]["f32_eval"][seq][..., :v],
+                        GOSSIP_J_BF16_RATIO)
+            for r, tp in enumerate(tps):
+                for name, seq in (("prefill", GOSSIP_J_SEQ), ("token", 1)):
+                    want_bytes = _tp_serve_bytes(cfg, 2, b, seq, t)
+                    if tp[f"{name}_bytes"] != want_bytes:
+                        raise AssertionError(
+                            f"(j) {arch} {tag} rank {r} {name} bytes "
+                            f"{tp[f'{name}_bytes']}, the layout's "
+                            f"{want_bytes}")
+                if not tp["eager_pool"] or tp["captured"]:
+                    raise AssertionError(f"(j) {arch} rank {r}: the model "
+                                         "group's programs must run eager")
+                if not tp["resident"] < twin["resident"]:
+                    raise AssertionError(f"(j) {arch} {tag} rank {r}: "
+                                         f"resident {tp['resident']}, the "
+                                         f"twin's {twin['resident']}")
+            if twin["eager_pool"] or (torch.cuda.is_available()
+                                      and not twin["captured"]):
+                raise AssertionError(f"(j) {arch}: the twin's programs "
+                                     "must be captured")
+            row[tag] = dict(
+                layers=cfg.n_layers, checks=checks,
+                resident_gib={"tp": [gib(x["resident"]) for x in tps],
+                              "twin": gib(twin["resident"])},
+                peak_above_held_gib={"tp": [gib(x["peak"]) for x in tps],
+                                     "twin": gib(twin["peak"])},
+                build_peak_gib={"tp": [gib(x["build_peak"]) for x in tps],
+                                "twin": gib(twin["build_peak"])},
+                cache_gib={"tp": [gib(x["cache_bytes"]) for x in tps],
+                           "twin": gib(twin["cache_bytes"])},
+                param_values={"tp": [x["param_values"] for x in tps],
+                              "twin": twin["param_values"]},
+                generate_wall_s={str(seq): {
+                    "tp": [x["runs"][seq]["wall"] for x in tps],
+                    "twin": twin["runs"][seq]["wall"]}
+                    for seq in (GOSSIP_J_SEQ, GOSSIP_J_ODD)},
+                prefill_wall_s={"tp": [x["prefill_wall"] for x in tps],
+                                "twin": twin["prefill_wall"]},
+                token_wall_s={"tp": [x["token_wall"] for x in tps],
+                              "twin": twin["token_wall"]},
+                bytes={"prefill": tps[0]["prefill_bytes"],
+                       "token": tps[0]["token_bytes"],
+                       "generate": {str(seq): tps[0]["runs"][seq]["bytes"]
+                                    for seq in (GOSSIP_J_SEQ,
+                                                GOSSIP_J_ODD)},
+                       "layout_equal": True},
+                launches={"tp": tps[0]["runs"][GOSSIP_J_SEQ]["launches"],
+                          "twin": twin["runs"][GOSSIP_J_SEQ]["launches"],
+                          "count": want_launch},
+                eager_calls=tps[0]["eager_calls"])
+        for r, rec in enumerate(ranks):
+            if rec["bf16"]["tp"]["param_values"] != rec["block_values"] or \
+                    not rec["block_values"] < rec["node_values"]:
+                raise AssertionError(f"(j) {arch} rank {r}: "
+                                     f"{rec['bf16']['tp']['param_values']} "
+                                     f"values held, its blocks "
+                                     f"{rec['block_values']}, the node's "
+                                     f"{rec['node_values']}")
+        row.update(block_values=[rec["block_values"] for rec in ranks],
+                   node_values=ranks[0]["node_values"])
+        models[arch] = row
+    emit("gossip_j", card=smi, backend="gloo", mesh={"node": 1, "data": 1,
+                                                     "model": 2},
+         world="(h)'s 4 ranks: node position i's model group serves "
+               "GOSSIP_J_ARCHS[i]", rows=GOSSIP_J_ROWS,
+         prompts=[GOSSIP_J_SEQ, GOSSIP_J_ODD], new=GOSSIP_J_NEW,
+         max_len=GOSSIP_J_MAX_LEN, f32_tol=GOSSIP_J_F32_TOL,
+         bf16_ratio=GOSSIP_J_BF16_RATIO, models=models,
+         note="gloo ranks on one card: the collectives go through host "
+              "memory and TCP, not NVLink; the model group's programs run "
+              "eager, the twin's are captured")
 
 
 def phase_gossip(dev, smi):
@@ -6786,9 +7303,10 @@ def phase_gossip(dev, smi):
     with (d) on 4 more as a two-level mesh, (e) inner sharding on 4
     together with an unsharded twin on 2 and (f)'s, (h)'s and (i)'s twins
     on 2 each, then (f) the split step on 4, (h) Hymba-1.5B
-    tensor-parallel on 4, (i) seamless-m4t-medium (the enc-dec family)
-    tensor-parallel on 4, and last (g) granite-moe-3b split and
-    tensor-parallel on 8."""
+    tensor-parallel on 4 and, in the same world, (j) Hymba-1.5B and
+    granite-moe-3b served over a model group each, (i)
+    seamless-m4t-medium (the enc-dec family) tensor-parallel on 4, and
+    last (g) granite-moe-3b split and tensor-parallel on 8."""
     import gc
     import tempfile
     import torch

@@ -181,7 +181,8 @@ def ssd_scan_ref(x, dt, a_log, bmat, cmat):
     return torch.stack(ys, dim=1).to(x.dtype), state
 
 
-def ssd_scan_plain(x, dt, a_log, bmat, cmat, *, chunk):
+def ssd_scan_plain(x, dt, a_log, bmat, cmat, *, chunk,
+                   acc: torch.dtype = torch.float32):
     """The chunked SSD kernel's function. x [B,S,H,P]; dt [B,S,H] f32
     (softplus'd); a_log [H] or [B,H] (one per batch row); bmat/cmat
     [B,S,G,N] with H % G == 0 (G = H is the reference's pre-broadcast
@@ -189,10 +190,11 @@ def ssd_scan_plain(x, dt, a_log, bmat, cmat, *, chunk):
     chunk, in f32: ``cum = cumsum(dt·a)``, ``y = (C·Bᵀ ⊙ L)(x·dt) +
     (C ⊙ e^cum)·state``, ``state ← e^{cum_L}·state + (B ⊙
     e^{cum_L − cum})ᵀ(x·dt)``. Returns y in x's dtype and the final state
-    [B,H,P,N] f32."""
+    [B,H,P,N] f32 (``acc`` = float64: the same function evaluated in f64,
+    a yardstick for the f32 forms' rounding)."""
     b, s, h, p = x.shape
     g, n = bmat.shape[2], bmat.shape[3]
-    f32 = torch.float32
+    f32 = acc
     bm = bmat.to(f32).repeat_interleave(h // g, dim=2)
     cm = cmat.to(f32).repeat_interleave(h // g, dim=2)
     a = -torch.exp(a_log.to(f32)).reshape(-1, 1, h)         # [B or 1,1,H]

@@ -22,11 +22,18 @@ arguments, with the arguments moved into buffers that stay put.
   reference holds across replays.
 * **On the CPU** (what the tests run) ``run()`` calls the body, so a CPU
   run exercises exactly the data flow of a replay.
+* **Eager pools** (``ProgramPool(device, eager=True)``): a body that holds
+  a collective of a gloo group (serving over a model group,
+  `repro_torch.launch.serve` with a mesh) cannot be captured, since gloo
+  stages its tensors through host memory. The group's backend asks for
+  this mode explicitly; every ``run()`` then calls the body, on the card
+  too, and counts in ``eager_calls``.
 
-There is no fallback: a capture that fails raises. On CUDA the body runs
-eagerly only in its warm-up; ``Program.eager_calls`` counts its eager
-passes (warm-up passes on CUDA, every run on the CPU) so a test can pin
-that. Kernel launches are counted as `repro_torch.kernels` says: the
+There is no fallback: a capture that fails raises, and no program of a
+pool that did not ask for the eager mode runs uncaptured on CUDA. On CUDA
+a captured body runs eagerly only in its warm-up; ``Program.eager_calls``
+counts its eager passes (warm-up passes on CUDA, every run on the CPU or
+in an eager pool) so a test can pin that. Kernel launches are counted as `repro_torch.kernels` says: the
 capture's ``LAUNCHES`` delta is taken out again and added back per replay.
 """
 from __future__ import annotations
@@ -43,11 +50,14 @@ WARMUP = 1   # eager passes before a capture
 
 class ProgramPool:
     """The graph memory pool and the side stream that a group of programs
-    (one engine's, one set of step buffers') share; nothing on the CPU."""
+    (one engine's, one set of step buffers') share; nothing on the CPU or
+    with ``eager`` (bodies that cannot be captured: every run calls the
+    body)."""
 
-    def __init__(self, device):
+    def __init__(self, device, eager: bool = False):
         self.device = torch.device(device)
-        self.cuda = self.device.type == "cuda"
+        self.eager = eager
+        self.cuda = self.device.type == "cuda" and not eager
         self.handle = torch.cuda.graph_pool_handle() if self.cuda else None
         self.stream = torch.cuda.Stream(self.device) if self.cuda else None
 
@@ -57,7 +67,8 @@ class ProgramPool:
 
 class Program:
     """``body`` built once into a program on ``pool``'s device: captured
-    into a CUDA graph there, called as it is on the CPU."""
+    into a CUDA graph there, called as it is on the CPU or in an eager
+    pool."""
 
     def __init__(self, body: Callable[[], None], pool: ProgramPool):
         self.body = body

@@ -13,18 +13,37 @@ passes this buffer itself), the caches, the token fed ``[B, 1]`` and the
 per-row position ``[B]``, both int64 on the device. The decode step feeds
 its own token and advances the position on the card, so ``generate``
 replays it back to back with no host work between tokens.
+
+**Over a model group** (``mesh``: a `repro_torch.launch.mesh.SwarmMesh`
+with ``model`` = M > 1, e.g. ``make_swarm_mesh(1, model=M)`` on a world
+of M ranks, each calling with the same arguments): the rank's buffers
+hold only its **compute blocks** (`repro_torch.sharding.rules.
+compute_blocks`, sliced once from the node's flat vector and never
+gathered again), its cut of the caches (`repro_torch.sharding.rules.
+cache_shapes`: K/V on its KV heads or its slice of the head dim, the SSM
+state on its heads) and its plan (`repro_torch.sharding.tensor.
+TensorPlan`); the model's forward divides each layer's work over the
+group as the reference's ``sharding_rules`` place it (a prefill M divides
+with the residual cut on the sequence, every decode step and any other
+prompt with the residual whole). The greedy token is the argmax of the
+all_gathered vocab-cut logits, the same on every rank (``torch.argmax``'s
+first-index tie rule). On a gloo group the programs run eagerly
+(`repro_torch.launch.capture.ProgramPool` with ``eager``): gloo stages
+through host memory, which a CUDA graph cannot hold.
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.flat import FlatLayout
 from repro_torch.launch.capture import Program, ProgramPool
 from repro_torch.models import Model
 from repro_torch.models.layers import dtype_of
+from repro_torch.sharding import tensor
 
 
 def make_logits_step(model: Model) -> Callable:
@@ -62,41 +81,122 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     return out
 
 
+def take_block(t: torch.Tensor, ivs) -> torch.Tensor:
+    """The compute block of ``t``: per dimension the ``(start, length)``
+    intervals ``ivs`` (`repro_torch.sharding.rules.compute_cut`), joined
+    in order."""
+    for dim, iv in enumerate(ivs):
+        if iv == ((0, t.shape[dim]),):
+            continue
+        t = torch.cat([t.narrow(dim, a, n) for a, n in iv], dim=dim)
+    return t
+
+
 class StepBuffers:
-    """The static buffers of one (model, batch, max_len, device) set of step
-    programs: one node's params ``[P]``, the caches, the token fed
-    ``tok [B, 1]`` and the position ``pos [B]`` (int64), and a padded
-    prompt ``[B, S]`` per prefill length."""
+    """The static buffers of one (model, batch, max_len, device[, mesh])
+    set of step programs: one node's params ``[P]`` (over a model group
+    the rank's compute blocks ``[P_rank]``, under ``layout``), the caches
+    (the rank's cut), the token fed ``tok [B, 1]``, the position ``pos
+    [B]`` (int64), the last position's logits ``logits [B, V]`` (whole:
+    gathered over the vocab cut), and a padded prompt ``[B, S]`` per
+    prefill length. ``plan`` is the rank's `repro_torch.sharding.tensor.
+    TensorPlan`, or None."""
 
     def __init__(self, model: Model, batch: int, max_len: int,
-                 device: torch.device):
-        self.params = torch.zeros(model.layout.size,
-                                  dtype=dtype_of(model.cfg.param_dtype),
+                 device: torch.device, mesh=None):
+        self.model = model
+        cfg = model.cfg
+        self.plan = None
+        if mesh is not None:
+            if cfg.is_encdec:
+                raise ValueError(f"{cfg.name}: an enc-dec model is not "
+                                 "served over a model group")
+            from repro_torch.launch.train import tensor_plan
+            self.plan = tensor_plan(model, mesh)
+        self.layout, place = model.layout, None
+        if self.plan is not None:
+            from repro_torch.sharding.rules import compute_blocks
+            place = self.plan.place
+            self.blocks = compute_blocks(model.layout, cfg, place,
+                                         self.plan.rank)
+            self.layout = FlatLayout(
+                [(lf.path, tuple(sum(n for _, n in iv)
+                                 for iv in self.blocks[lf.path]))
+                 for lf in model.layout.leaves], model.layout.wide)
+        self.params = torch.zeros(self.layout.size,
+                                  dtype=dtype_of(cfg.param_dtype),
                                   device=device)
-        self.views = model.layout.unflatten(self.params)
-        self.caches = model.init_cache(batch, max_len, device)
+        self.views = self.layout.unflatten(self.params)
+        self.caches = (model.init_cache(batch, max_len, device) if place is
+                       None else model.init_cache(batch, max_len, device,
+                                                  place=place))
         self.tok = torch.zeros((batch, 1), dtype=torch.long, device=device)
         self.pos = torch.zeros(batch, dtype=torch.long, device=device)
+        self.logits = torch.zeros((batch, cfg.padded_vocab),
+                                  dtype=dtype_of(cfg.compute_dtype),
+                                  device=device)
         self.prompts: Dict[int, torch.Tensor] = {}
-        self.graphs = ProgramPool(device)
+        self.graphs = ProgramPool(device, eager=self.plan is not None and
+                                  self.plan.view.backend == "gloo")
+
+    def load(self, params: torch.Tensor) -> None:
+        """One node's flat params ``[P]`` (any device) into the buffer:
+        whole, or the rank's compute block of every leaf."""
+        if self.plan is None:
+            self.params.copy_(params)
+            return
+        whole = self.model.layout.unflatten(params)
+        for path, ivs in self.blocks.items():
+            self.views[path].copy_(take_block(whole[path], ivs))
+
+    def step(self, batch: Optional[dict] = None, tokens=None,
+             cache_pos=None) -> torch.Tensor:
+        """The model's forward of a step program: a prefill of ``batch``,
+        else a decode of ``tokens`` at ``cache_pos``; its logits (over a
+        model group the rank's vocab cut)."""
+        plan = {} if self.plan is None else {"plan": self.plan}
+        if batch is not None:
+            return self.model.prefill(self.views, batch, self.caches,
+                                      **plan)[0]
+        return self.model.decode(self.views, tokens, self.caches, cache_pos,
+                                 **plan)[0]
+
+    def pick(self, logits: torch.Tensor) -> None:
+        """The last position's logits (the rank's vocab cut, all_gathered
+        over the model group) into ``logits``, their greedy token into
+        ``tok``."""
+        last = logits[:, -1]
+        if self.plan is not None:
+            with torch.no_grad(), tensor.model_group(self.plan):
+                last = tensor.gather(last, dim=-1)
+        self.logits.copy_(last)
+        self.tok.copy_(torch.argmax(last, dim=-1, keepdim=True))
+
+
+def _on(mesh) -> tuple:
+    """The trailing ``mesh`` argument of the cached step functions, left
+    out when None: ``lru_cache`` keys a call by the arguments as passed,
+    so the single-process form keeps the key of a caller that names no
+    mesh."""
+    return () if mesh is None else (mesh,)
 
 
 @functools.lru_cache(maxsize=None)
 def step_buffers(model: Model, batch: int, max_len: int,
-                 device: torch.device) -> StepBuffers:
-    return StepBuffers(model, batch, max_len, device)
+                 device: torch.device, mesh=None) -> StepBuffers:
+    return StepBuffers(model, batch, max_len, device, mesh)
 
 
 @functools.lru_cache(maxsize=None)
 def serve_step_for(model: Model, batch: int, max_len: int,
-                   device: torch.device) -> Program:
+                   device: torch.device, mesh=None) -> Program:
     """The decode step: ``tok`` at ``pos`` → the greedy next token in
-    ``tok``, ``pos`` + 1, the caches written at ``pos``."""
-    st = step_buffers(model, batch, max_len, device)
+    ``tok`` (its logits in ``logits``), ``pos`` + 1, the caches written
+    at ``pos``; over ``mesh``'s model group the rank's share."""
+    st = step_buffers(model, batch, max_len, device, *_on(mesh))
 
     def body():
-        logits, _ = model.decode(st.views, st.tok, st.caches, st.pos)
-        st.tok.copy_(torch.argmax(logits[:, -1], dim=-1, keepdim=True))
+        st.pick(st.step(tokens=st.tok, cache_pos=st.pos))
         st.pos.add_(1)
 
     return st.graphs.capture(body)
@@ -104,32 +204,37 @@ def serve_step_for(model: Model, batch: int, max_len: int,
 
 @functools.lru_cache(maxsize=None)
 def prefill_step_for(model: Model, batch: int, seq: int, max_len: int,
-                     device: torch.device) -> Program:
+                     device: torch.device, mesh=None) -> Program:
     """The prefill of ``prompts[seq]`` into fresh caches → the greedy first
-    token in ``tok``, ``pos`` = seq."""
-    st = step_buffers(model, batch, max_len, device)
+    token in ``tok`` (its logits in ``logits``), ``pos`` = seq; over
+    ``mesh``'s model group the rank's share."""
+    st = step_buffers(model, batch, max_len, device, *_on(mesh))
     prompt = st.prompts[seq] = torch.zeros((batch, seq), dtype=torch.long,
                                            device=device)
 
     def body():
-        logits, _ = model.prefill(st.views, {"tokens": prompt}, st.caches)
-        st.tok.copy_(torch.argmax(logits[:, -1], dim=-1, keepdim=True))
+        st.pick(st.step(batch={"tokens": prompt}))
         st.pos.fill_(seq)
 
     return st.graphs.capture(body)
 
 
 def generate(model: Model, params, prompt_tokens, max_new: int,
-             max_len: int, device="cuda"):
+             max_len: int, device="cuda", mesh=None, with_logits=False):
     """Host-loop greedy generation on ``device`` (CUDA unless the caller
     asks for the CPU). ``params`` is one node's flat vector ``[P]``, copied
     into the step buffers, unless it is the very tensor object those
-    buffers hold (``step_buffers(model, B, max_len, device).params``
-    itself, tested by identity; a view or an equal copy is copied): then
-    nothing is copied, so a model whose weights fit the card only once
-    (deepseek-coder-33b's 62.1 GiB in bf16) is initialised there and
-    served from it. ``prompt_tokens`` [B, S] int. Returns [B, max_new]
-    int32."""
+    buffers hold (``step_buffers(model, B, max_len, device[, mesh]).
+    params`` itself, tested by identity; a view or an equal copy is
+    copied): then nothing is copied, so a model whose weights fit the card
+    only once (deepseek-coder-33b's 62.1 GiB in bf16) is initialised there
+    and served from it. ``mesh`` (a mesh with ``model`` above 1; every
+    rank of the model group calls with the same prompt) serves over its
+    model group: ``params`` the node's flat vector, of which the rank
+    keeps its compute blocks (the buffer's own ``params`` are those
+    blocks). ``prompt_tokens`` [B, S] int. Returns [B, max_new] int32, and
+    with ``with_logits`` the logits each token was picked from [B,
+    max_new, V]."""
     device = resolve_device(device)
     prompt_tokens = torch.as_tensor(prompt_tokens).to(device=device,
                                                       dtype=torch.long)
@@ -137,13 +242,13 @@ def generate(model: Model, params, prompt_tokens, max_new: int,
     if s + max_new - 1 > max_len:
         raise ValueError(f"prompt ({s}) + max_new ({max_new}) - 1 exceeds "
                          f"the cache depth max_len={max_len}")
-    st = step_buffers(model, b, max_len, device)
+    st = step_buffers(model, b, max_len, device, *_on(mesh))
     # built before the buffers are set: a build's warm-up runs the body
-    decode = serve_step_for(model, b, max_len, device)
-    prefill = (prefill_step_for(model, b, s, max_len, device)
+    decode = serve_step_for(model, b, max_len, device, *_on(mesh))
+    prefill = (prefill_step_for(model, b, s, max_len, device, *_on(mesh))
                if model.prefill is not None else None)
     if params is not st.params:
-        st.params.copy_(params)
+        st.load(params)
     for t in tree_leaves(st.caches):
         t.zero_()
     if prefill is not None:
@@ -154,8 +259,11 @@ def generate(model: Model, params, prompt_tokens, max_new: int,
             st.tok.copy_(prompt_tokens[:, i:i + 1])
             st.pos.fill_(i)
             decode.run()
-    out = [st.tok.clone()]
+    out, seen = [st.tok.clone()], [st.logits.clone()] if with_logits else []
     for _ in range(max_new - 1):
         decode.run()
         out.append(st.tok.clone())
-    return torch.cat(out, dim=1).to(torch.int32)
+        if with_logits:
+            seen.append(st.logits.clone())
+    tokens = torch.cat(out, dim=1).to(torch.int32)
+    return (tokens, torch.stack(seen, dim=1)) if with_logits else tokens

@@ -22,6 +22,10 @@ so the port's checkpoints use the reference's keys and either package's
   prefill(params, {tokens[, patch_embeds]}, caches) -> (last logits
           [B,1,V], caches); the enc-dec model has none (``prefill=None``),
           as in the reference: its prompt is fed token by token
+  served over a model group (plan=, a TensorPlan: tensor parallelism,
+          `repro_torch.launch.serve` with a mesh), prefill and decode take
+          a rank's compute blocks and cut caches (``init_cache(..., place=)``)
+          and give its vocab cut of the logits
 
 The vlm model runs the LM backbone on the projected patch embeddings
 followed by the text tokens (its loss reads the text positions); decode is
@@ -236,19 +240,36 @@ def _lm_model(cfg: ModelConfig, lora_rank: int) -> Model:
                                 batch.get("mask"))
         return xent + aux, {"xent": xent, "aux": aux}
 
-    def prefill(params, batch, caches):
-        logits, _, caches = call(params, forward, batch, caches=caches,
-                                 cache_pos=0)
+    def prefill(params, batch, caches, plan=None):
+        """(last logits [B,1,V], caches); with ``plan`` (a `repro_torch.
+        sharding.tensor.TensorPlan`: serving over a model group) ``params``
+        are the rank's compute blocks, ``caches`` its cut, the logits its
+        vocab cut, and the forward records no gradient."""
+        if plan is not None:
+            with torch.no_grad(), tensor.model_group(plan):
+                logits, _, caches = forward(nest(params), batch,
+                                            caches=caches, cache_pos=0)
+        else:
+            logits, _, caches = call(params, forward, batch, caches=caches,
+                                     cache_pos=0)
         return logits[:, -1:], caches
 
-    def decode(params, tokens, caches, cache_pos, commit=None):
-        logits, _, caches = call(params, forward_lm, cfg, tokens,
-                                 caches=caches, cache_pos=cache_pos,
-                                 commit=commit)
+    def decode(params, tokens, caches, cache_pos, commit=None, plan=None):
+        """(logits [B,S,V], caches); ``plan`` as :func:`prefill`'s."""
+        if plan is not None:
+            with torch.no_grad(), tensor.model_group(plan):
+                logits, _, caches = forward_lm(
+                    nest(params), cfg, tokens, caches=caches,
+                    cache_pos=cache_pos, commit=commit)
+        else:
+            logits, _, caches = call(params, forward_lm, cfg, tokens,
+                                     caches=caches, cache_pos=cache_pos,
+                                     commit=commit)
         return logits, caches
 
     return Model(cfg, init, loss_fn, decode,
-                 lambda b, m, device: make_lm_cache(cfg, b, m, device),
+                 lambda b, m, device, place=None: make_lm_cache(
+                     cfg, b, m, device, place),
                  prefill, layout)
 
 

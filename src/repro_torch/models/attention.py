@@ -31,10 +31,11 @@ depths). The cache is updated in place by index writes, never copied;
 ``commit`` (bool ``[B]``, optional) limits the write to the rows it marks,
 as the reference engine's masked commit keeps the other lanes' caches.
 
-Under tensor parallelism (a split step on a model group, `repro_torch.
-sharding.tensor`) :func:`attention_tp` takes the rank's cut of the
-sequence and the params' compute blocks, and places the work as the
-reference's ``logical_shard`` calls do: **head-parallel** where the KV
+Under tensor parallelism (a split step or a served model on a model
+group, `repro_torch.sharding.tensor`) :func:`attention_tp` takes the
+rank's cut of the sequence (every row in the whole-residual form) and the
+params' compute blocks, and places the work as the reference's
+``logical_shard`` calls do: **head-parallel** where the KV
 heads divide the group (q, k, v on the rank's ``n_heads / M`` and
 ``n_kv_heads / M`` heads over the gathered sequence, the output
 row-parallel), else **sequence-parallel** (the rank's ``S / M`` query rows
@@ -42,7 +43,9 @@ over the whole K/V, through the flash kernel's query offset, the weights
 whole). The enc-dec encoder's unmasked self-attention and the decoder's
 cross-attention (K/V from the whole encoder output, gathered once a
 forward) take the same two placements, ``causal=False`` and with no query
-offset: no mask needs one.
+offset: no mask needs one. Served, a rank's decode cache is the
+reference's placement (`repro_torch.sharding.rules.cache_cut`): K/V on
+its KV heads, else on its slice of the head dim, else whole.
 """
 from __future__ import annotations
 
@@ -145,12 +148,7 @@ def attention(p, x, cfg: ModelConfig, *, positions, causal: bool = True,
     masked = causal and not is_cross
     window = int(window) if masked else 0
     if cache is not None:
-        if isinstance(cache_pos, int) and commit is None:
-            cache["k"][:, cache_pos:cache_pos + s] = k.to(cache["k"].dtype)
-            cache["v"][:, cache_pos:cache_pos + s] = v.to(cache["v"].dtype)
-        else:
-            write_rows(cache["k"], k, positions, commit)
-            write_rows(cache["v"], v, positions, commit)
+        _write_cache(cache, k, v, positions, cache_pos, commit)
         k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
 
     if uses_kernel(s, cache, cache_pos, masked):
@@ -160,34 +158,77 @@ def attention(p, x, cfg: ModelConfig, *, positions, causal: bool = True,
         out = out.transpose(1, 2)                           # [B,S,nh,hd]
     else:
         scores = _gqa_scores(q, k)                          # [B,nkv,g,S,T]
-        if masked:
-            key_positions = (positions if cache is None else
-                             torch.arange(k.shape[1], device=x.device)[None])
-            qpos = positions[:, None, None, :, None]
-            kpos = key_positions[:, None, None, None, :]
-            w_eff = window if window > 0 else 2 ** 30
-            mask = (kpos <= qpos) & (kpos > qpos - w_eff)
-        else:
-            mask = torch.ones(scores.shape[-2:], dtype=torch.bool,
-                              device=x.device)
-        scores = torch.where(mask, scores.to(torch.float32), NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = _gqa_out(probs, v)                            # [B,S,nh,hd]
+        out = _softmax_out(scores, _mask(positions, cache, s, k.shape[1],
+                                         masked, window, x.device),
+                           v, x.dtype)                      # [B,S,nh,hd]
     return linear(p["o"], out.reshape(b, s, nh * hd))
 
 
+def _write_cache(cache, k, v, positions, cache_pos, commit) -> None:
+    """K/V [B,S,nkv,hd] into the cache in place at ``positions`` (a slice
+    at an int ``cache_pos`` with no ``commit``); a cache cut on its head
+    dim (a model rank's, ``head_dim`` narrower than K's) takes the rank's
+    slice of it."""
+    width = cache["k"].shape[-1]
+    if width != k.shape[-1]:
+        c0 = tensor.current().rank * width
+        k, v = k[..., c0:c0 + width], v[..., c0:c0 + width]
+    s = k.shape[1]
+    if isinstance(cache_pos, int) and commit is None:
+        cache["k"][:, cache_pos:cache_pos + s] = k.to(cache["k"].dtype)
+        cache["v"][:, cache_pos:cache_pos + s] = v.to(cache["v"].dtype)
+    else:
+        write_rows(cache["k"], k, positions, commit)
+        write_rows(cache["v"], v, positions, commit)
+
+
+def _mask(positions, cache, s: int, t: int, masked: bool, window: int,
+          device):
+    """The plain form's mask of scores [B,nkv,g,S,T]: causal (and
+    windowed) over the cache's depth, or the call's own positions without
+    a cache; all keys when unmasked."""
+    if not masked:
+        return torch.ones((s, t), dtype=torch.bool, device=device)
+    key_positions = (positions if cache is None else
+                     torch.arange(t, device=device)[None])
+    qpos = positions[:, None, None, :, None]
+    kpos = key_positions[:, None, None, None, :]
+    w_eff = window if window > 0 else 2 ** 30
+    return (kpos <= qpos) & (kpos > qpos - w_eff)
+
+
+def _softmax_out(scores, mask, v, dtype):
+    """Masked f32 softmax of ``scores`` [B,nkv,g,S,T], the probabilities
+    in ``dtype``, times ``v`` [B,T,nkv,hd] → [B,S,nh,hd]."""
+    scores = torch.where(mask, scores.to(torch.float32), NEG_INF)
+    return _gqa_out(torch.softmax(scores, dim=-1).to(dtype), v)
+
+
 def attention_tp(p, h, cfg: ModelConfig, *, positions, window: int = 0,
-                 h_full=None, causal: bool = True, kv=None):
+                 h_full=None, causal: bool = True, kv=None, cache=None,
+                 cache_pos=None, commit=None):
     """Attention under tensor parallelism: ``h`` [B, S/M, D] the rank's
-    cut of the sequence (``h_full`` [B, S, D], its gather, when the block
-    already has it), ``positions`` [B, S] the whole sequence's, ``p`` the
-    compute blocks → the rank's cut of the output [B, S/M, D]. Causal
-    self-attention by default; ``causal=False`` the unmasked form (the
-    enc-dec encoder); ``kv`` [B, T, D] (the whole encoder output) makes it
-    cross-attention: K/V from ``kv``, no RoPE, no mask. Head-parallel: q
-    on the rank's heads over the gathered sequence, K/V on its KV heads;
-    sequence-parallel: q on the rank's rows (for cross-attention no gather
-    at all), K/V whole, the query offset only where the mask needs it."""
+    cut of the sequence, or every row in the whole-residual form
+    (``h_full`` [B, S, D] the whole sequence, when the block already has
+    it), ``positions`` [B, S] the whole sequence's, ``p`` the compute
+    blocks → the rank's cut of the output (whole in the whole-residual
+    form). Causal self-attention by default; ``causal=False`` the unmasked
+    form (the enc-dec encoder); ``kv`` [B, T, D] (the whole encoder output)
+    makes it cross-attention: K/V from ``kv``, no RoPE, no mask.
+    Head-parallel: q on the rank's heads over the whole sequence, K/V on
+    its KV heads; sequence-parallel: q on the rank's rows (for
+    cross-attention no gather at all), K/V whole, the query offset only
+    where the mask needs it.
+
+    ``cache`` (the rank's cut, `repro_torch.sharding.rules.cache_shapes`)
+    is written in place at the positions: head-parallel the rank's KV
+    heads, sequence-parallel the K/V whole or the rank's head-dim slice.
+    A prefill (S > 1 at ``cache_pos`` 0) attends through the flash kernel
+    over its own K/V. A decode step (the whole-residual form) attends over
+    the cache: head-parallel the rank's heads; under a head-dim cut q, K
+    and V whole (RoPE before the cut: it rotates the pairs (i, i + hd/2)),
+    the partial scores over the rank's slice all_reduced in f32 before the
+    mask and softmax, then ``o`` on the slice's rows, all_reduced."""
     tp = tensor.current()
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, sl, _ = h.shape
@@ -196,30 +237,48 @@ def attention_tp(p, h, cfg: ModelConfig, *, positions, window: int = 0,
     window = int(window) if causal else 0
     heads = tp.place.attention == "heads"
     if h_full is None and (heads or not is_cross):
-        h_full = tensor.gather(h)
-    s = sl * tp.size
+        h_full = tensor.enter(h)
+    s = sl if tp.whole else sl * tp.size
     src = kv if is_cross else h_full
     t = src.shape[1]
-    if heads:
-        m = tp.size
-        q = linear(p["q"], h_full).reshape(b, s, nh // m, hd)
-        k = linear(p["k"], src).reshape(b, t, nkv // m, hd)
-        v = linear(p["v"], src).reshape(b, t, nkv // m, hd)
-        if not is_cross:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
+    kernel = uses_kernel(s, cache, cache_pos, causal)
+    m = tp.size if heads else 1
+    x = h_full if heads else h
+    q = linear(p["q"], x).reshape(b, x.shape[1], nh // m, hd)
+    k = linear(p["k"], src).reshape(b, t, nkv // m, hd)
+    v = linear(p["v"], src).reshape(b, t, nkv // m, hd)
+    s0 = 0 if heads or tp.whole else tp.seq_cut(s)[0]
+    if not is_cross:
+        q = apply_rope(q, positions[:, s0:s0 + q.shape[1]], cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if cache is not None:
+        _write_cache(cache, k, v, positions, cache_pos, commit)
+    if kernel:
         out = ops.attention_op(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=causal,
-                               window=window).transpose(1, 2)
-        return row_parallel(p["o"], out.reshape(b, s, nh // m * hd))
-    s0, _ = tp.seq_cut(s)
-    q = linear(p["q"], h).reshape(b, sl, nh, hd)
-    k = linear(p["k"], src).reshape(b, t, nkv, hd)
-    v = linear(p["v"], src).reshape(b, t, nkv, hd)
-    if not is_cross:
-        q = apply_rope(q, positions[:, s0:s0 + sl], cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.attention_op(q.transpose(1, 2), k.transpose(1, 2),
-                           v.transpose(1, 2), causal=causal, window=window,
-                           q_off=s0 if causal else 0).transpose(1, 2)
-    return linear(p["o"], out.reshape(b, sl, nh * hd))
+                               window=window,
+                               q_off=s0 if causal else 0).transpose(1, 2)
+        out = out.reshape(b, q.shape[1], -1)
+        return (row_parallel(p["o"], out) if heads
+                else linear(p["o"], out))
+    if cache is not None:
+        k, v = cache["k"].to(h.dtype), cache["v"].to(h.dtype)
+    mask = _mask(positions, cache, s, k.shape[1], causal, window, h.device)
+    if heads or k.shape[-1] == hd:     # the rank's heads, or all of them
+        out = _softmax_out(_gqa_scores(q, k), mask, v, h.dtype)
+        out = out.reshape(b, s, -1)
+        return row_parallel(p["o"], out) if heads else linear(p["o"], out)
+    # the head-dim cut: the rank's slice of q against its slice of K/V
+    width = k.shape[-1]
+    c0 = tp.rank * width
+    qg = q[..., c0:c0 + width].reshape(b, s, nkv, nh // nkv, width)
+    part = torch.einsum("bskgh,btkh->bkgst", qg.to(torch.float32),
+                        k.to(torch.float32))
+    scale = float(torch.tensor(math.sqrt(hd), dtype=q.dtype))
+    scores = tensor.all_reduce(part).to(q.dtype) / scale
+    out = _softmax_out(scores, mask, v, h.dtype).reshape(b, s, nh * width)
+    rows = lambda w: w.reshape(nh, hd, -1)[:, c0:c0 + width].reshape(
+        nh * width, -1)
+    o = {key: rows(w) if key in ("w", "lora_A") else w
+         for key, w in p["o"].items()}
+    return row_parallel(o, out)

@@ -77,9 +77,7 @@ from typing import Dict, Sequence
 import torch
 
 from repro_torch.core.flat import LayerCut
-
-#: the scan-stacked subtrees of the LM families' param trees
-STACKED = ("layers", "enc_layers", "dec_layers")
+from repro_torch.sharding.rules import STACKED
 
 
 def _nest(flat: Dict[str, torch.Tensor]) -> dict:

@@ -66,9 +66,9 @@ def linear(p, x, bias: bool = True):
 def row_parallel(p, x):
     """A row-parallel layer under tensor parallelism: the rank's share
     ``x_cut @ w_cut`` summed over the model group onto the rank's cut of
-    the sequence (`repro_torch.sharding.tensor.scatter_sum`), the bias
-    added once, after."""
-    y = tensor.scatter_sum(linear(p, x, bias=False))
+    the sequence, or whole in the whole-residual form
+    (`repro_torch.sharding.tensor.leave`), the bias added once, after."""
+    y = tensor.leave(linear(p, x, bias=False))
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -123,12 +123,13 @@ def _mlp_hidden(p, x, cfg: ModelConfig):
 
 def mlp(p, x, cfg: ModelConfig):
     """The MLP; under tensor parallelism (x the rank's cut of the
-    sequence) with ``ff`` cut its hidden axis column-parallel over the
-    gathered sequence and ``down`` row-parallel, else whole on the rank's
-    rows (position-wise: no collective)."""
+    sequence, or every row in the whole-residual form) with ``ff`` cut its
+    hidden axis column-parallel over the whole sequence and ``down``
+    row-parallel, else whole on the rank's rows (position-wise: no
+    collective)."""
     tp = tensor.current()
     if tp is not None and tp.place.ff:
-        return row_parallel(p["down"], _mlp_hidden(p, tensor.gather(x), cfg))
+        return row_parallel(p["down"], _mlp_hidden(p, tensor.enter(x), cfg))
     return linear(p["down"], _mlp_hidden(p, x, cfg))
 
 

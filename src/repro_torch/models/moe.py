@@ -40,7 +40,9 @@ each rank). Where M divides the experts, a rank builds and runs only its
 of the combine leaves by a reduce_scatter onto its cut of the sequence,
 rounded once; otherwise (the reference's fallback: experts whole) it runs
 every expert and keeps its own rows. The aux loss counts once: its
-gradient is divided over the group.
+gradient is divided over the group. In the whole-residual form (a decode
+step, a prompt M does not divide) every rank routes every row alike, and
+the cut experts' shares leave by an all_reduce.
 """
 from __future__ import annotations
 
@@ -156,16 +158,17 @@ def experts(p, x, cfg: ModelConfig, gate_vals, expert_ids, e0: int = 0):
 
 def moe_tp(p, h, cfg: ModelConfig):
     """The MoE block under tensor parallelism: ``h`` [B, S/M, D] the
-    rank's cut of the sequence, ``p`` the compute blocks (the router
-    whole, the experts the rank's ``E / M`` or all of them) → (the rank's
-    cut of y [B, S/M, D], aux)."""
+    rank's cut of the sequence (every row in the whole-residual form: no
+    gather, and an all_reduce in place of the reduce_scatter), ``p`` the
+    compute blocks (the router whole, the experts the rank's ``E / M`` or
+    all of them) → (the rank's cut of y [B, S/M, D], aux)."""
     tp = tensor.current()
-    x = tensor.gather(h)
+    x = tensor.enter(h)
     gate_vals, expert_ids, aux = route(p, x, cfg)
     aux = tensor.replicated(aux)
     if tp.place.experts:
         e0 = tp.rank * (cfg.n_experts // tp.size)
         y = experts(p, x, cfg, gate_vals, expert_ids, e0)
-        return tensor.scatter_sum(y).to(h.dtype), aux
+        return tensor.leave(y).to(h.dtype), aux
     y = experts(p, x, cfg, gate_vals, expert_ids).to(h.dtype)
-    return tensor.local(y), aux
+    return tensor.own(y), aux

@@ -22,7 +22,11 @@ SSD scan on its ``h / M`` heads over the gathered sequence, the conv on
 its channels, B and C whole (or the groups its heads read), and the
 gated norm's mean over all of ``d_inner`` sums the rank's squares over the
 group (f32); ``out_proj`` is row-parallel. Otherwise every rank runs the
-whole mixer on the gathered sequence and keeps its rows.
+whole mixer on the gathered sequence and keeps its rows. Serving keeps a
+rank's state on its heads: a prefill's final SSD state of its heads and
+the conv tail of its channels, a decode step's O(1) update on them, the
+gated norm's sum of squares and ``out_proj`` all_reduced (the
+whole-residual form); with the heads whole, the state is whole.
 """
 from __future__ import annotations
 
@@ -215,14 +219,19 @@ def ssm_block(p, x, cfg: ModelConfig, *, state=None):
 
 
 
-def ssm_tp(p, h, cfg: ModelConfig, h_full=None):
+def ssm_tp(p, h, cfg: ModelConfig, h_full=None, state=None):
     """The mixer under tensor parallelism: ``h`` [B, S/M, D] the rank's
-    cut of the sequence (``h_full`` its gather, when the block has it),
-    ``p`` the compute blocks → the rank's cut of y [B, S/M, D]: its heads
-    over the gathered sequence (:func:`ssm_block` reads the widths of the
-    blocks), or with the heads whole the whole mixer and its rows."""
+    cut of the sequence, or every row in the whole-residual form
+    (``h_full`` the whole sequence, when the block has it), ``p`` the
+    compute blocks → (the rank's cut of y [B, S/M, D], the new state or
+    None): its heads over the whole sequence (:func:`ssm_block` reads the
+    widths of the blocks), or with the heads whole the whole mixer and its
+    rows. ``state`` (the rank's cut: its heads' SSD state and the conv
+    tail of its channels, `repro_torch.sharding.rules.cache_shapes`) makes
+    a prefill return its final state, and a one-token step the O(1)
+    update of the rank's heads."""
     tp = tensor.current()
     if h_full is None:
-        h_full = tensor.gather(h)
-    y, _ = ssm_block(p, h_full, cfg)
-    return y if tp.place.ssm_heads else tensor.local(y)
+        h_full = tensor.enter(h)
+    y, st = ssm_block(p, h_full, cfg, state=state)
+    return (y if tp.place.ssm_heads else tensor.own(y)), st

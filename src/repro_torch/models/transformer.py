@@ -22,15 +22,19 @@ no host tensor is copied in. So a serving step that calls it can be
 captured into a CUDA graph (`repro_torch.launch.capture`, whose warm-up
 runs under ``torch.cuda.set_sync_debug_mode("error")``).
 
-**Tensor parallelism** (a split step on a model group, `repro_torch.
-sharding.tensor`): the residual stream is the rank's cut of the sequence
-between blocks (the reference's ``res_seq``); each block enters its
-mixers with one all_gather of the normed sequence (shared by a hybrid's
-attention and SSM halves, each with its own placement) and leaves them on
-the cut (:func:`block_apply`); the embedding's lookup ends on the cut
-(:func:`embed_tp`), the final norm runs on it, and the logits are the
-rank's vocab cut of the gathered sequence, their padding columns masked
-by their global index.
+**Tensor parallelism** (a split step or a served model on a model group,
+`repro_torch.sharding.tensor`): the residual stream is the rank's cut of
+the sequence between blocks (the reference's ``res_seq``); each block
+enters its mixers with one all_gather of the normed sequence (shared by a
+hybrid's attention and SSM halves, each with its own placement) and
+leaves them on the cut (:func:`block_apply`); the embedding's lookup ends
+on the cut (:func:`embed_tp`), the final norm runs on it, and the logits
+are the rank's vocab cut of the gathered sequence, their padding columns
+masked by their global index. Where M does not divide the sequence (a
+decode step's one token, a prompt of odd length) a forward that records
+no gradient runs in the whole-residual form: every rank holds every row,
+as the reference's UNCONSTRAINED ``res_seq`` leaves it; the caches are
+then the rank's cut (:func:`make_lm_cache` with a placement).
 """
 from __future__ import annotations
 
@@ -163,7 +167,8 @@ def block_apply(p, x, cfg: ModelConfig, *, positions, window: int,
     """One residual block → (x, aux: the moe router's loss, or None);
     ``cache`` (the layer's dict, or None) is updated in place."""
     if tensor.current() is not None:
-        return _block_tp(p, x, cfg, positions=positions, window=window)
+        return _block_tp(p, x, cfg, positions=positions, window=window,
+                         cache=cache, cache_pos=cache_pos, commit=commit)
     fam = cfg.family
     if fam == "ssm":
         h = rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
@@ -190,21 +195,30 @@ def block_apply(p, x, cfg: ModelConfig, *, positions, window: int,
     return x + mlp(p["mlp"], h, cfg), None
 
 
-def _block_tp(p, x, cfg: ModelConfig, *, positions, window: int):
+def _block_tp(p, x, cfg: ModelConfig, *, positions, window: int,
+              cache: Optional[dict] = None, cache_pos=None, commit=None):
     """:func:`block_apply` under tensor parallelism: ``x`` the rank's cut
-    of the sequence [B, S/M, D], ``p`` the layer's compute blocks."""
+    of the sequence [B, S/M, D] (every row in the whole-residual form),
+    ``p`` the layer's compute blocks, ``cache`` the rank's cut of the
+    layer's decode state (`repro_torch.sharding.rules.cache_shapes`)."""
     fam = cfg.family
     if fam == "ssm":
         h = rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
-        return x + ssm_tp(p["ssm"], h, cfg), None
+        y, st = ssm_tp(p["ssm"], h, cfg, state=cache)
+        if cache is not None:
+            _write_state(cache, st, commit)
+        return x + y, None
     h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
-    h_full = tensor.gather(h)
+    h_full = tensor.enter(h)
     a = attention_tp(p["attn"], h, cfg, positions=positions, window=window,
-                     h_full=h_full)
+                     h_full=h_full, cache=cache, cache_pos=cache_pos,
+                     commit=commit)
     if fam == "hybrid":
-        s = ssm_tp(p["ssm"], h, cfg, h_full=h_full)
+        s, st = ssm_tp(p["ssm"], h, cfg, h_full=h_full, state=cache)
         x = x + 0.5 * (a * p["beta_attn"].to(a.dtype)
                        + s * p["beta_ssm"].to(a.dtype))
+        if cache is not None:
+            _write_state(cache, st, commit)
     else:
         x = x + a
     h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
@@ -255,9 +269,18 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 
 
 def make_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
-                  device) -> List[dict]:
-    """Per-layer decode state: a list of ``n_layers`` dicts."""
+                  device, place=None) -> List[dict]:
+    """Per-layer decode state: a list of ``n_layers`` dicts; with
+    ``place`` (a `repro_torch.sharding.rules.Placement`) a model rank's
+    cut of it (`repro_torch.sharding.rules.cache_shapes`)."""
     dtype = dtype_of(cfg.compute_dtype)
+    if place is not None:
+        from repro_torch.sharding.rules import cache_shapes
+        shapes = cache_shapes(cfg, place, batch, max_len)
+        return [{key: torch.zeros(shape, dtype=torch.float32 if key == "ssd"
+                                  else dtype, device=device)
+                 for key, shape in shapes.items()}
+                for _ in range(cfg.n_layers)]
     caches = []
     for _ in range(cfg.n_layers):
         c = {}
@@ -317,10 +340,19 @@ def forward_lm(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     emb_p = params["embed_tied"] if cfg.tie_embeddings else params["embed"]
     tp = tensor.current()
     if tp is not None:
-        # the rank's cut of the sequence (its whole length: s)
-        x = (embed_tp(emb_p, tokens, cfg) if embeds is None
-             else tensor.local(embeds.to(compute_dtype)))
         b, s = (tokens if embeds is None else embeds).shape[:2]
+        if tp.for_sequence(s) is not tp:
+            # M does not divide the sequence: the whole-residual form
+            with tensor.model_group(tp.for_sequence(s)):
+                return forward_lm(params, cfg, tokens, embeds=embeds,
+                                  caches=caches, cache_pos=cache_pos,
+                                  commit=commit, remat=remat, split=split)
+        if not tp.whole:
+            tp.seq_cut(s)   # raises where the group does not divide s
+        # the rank's cut of the sequence (its whole length: s), or every
+        # row in the whole-residual form
+        x = (embed_tp(emb_p, tokens, cfg, whole=tp.whole) if embeds is None
+             else tensor.own(embeds.to(compute_dtype)))
     elif embeds is None:
         x = embed(emb_p, tokens, compute_dtype)
         b, s = x.shape[:2]
@@ -357,7 +389,7 @@ def forward_lm(params, cfg: ModelConfig, tokens=None, *, embeds=None,
             aux = aux + aux_i
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if tp is not None:
-        x = tensor.gather(x)
+        x = tensor.enter(x)
     if cfg.tie_embeddings:
         logits = unembed(params["embed_tied"], x)
     else:

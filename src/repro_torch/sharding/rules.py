@@ -37,7 +37,11 @@ group, `repro_torch.sharding.tensor` runs the blocks). Where M does not
 divide an axis, the leaf stays whole on every model rank and the block
 computes it on the rank's own rows of the sequence (or on the whole
 sequence, then keeps its rows): the work is never the whole layer's
-gathered instead. ``shardings_for`` has no counterpart.
+gathered instead. :func:`compute_blocks` gives a node's every leaf's
+block for a rank that serves from its blocks alone, and
+:func:`cache_cut` / :func:`cache_shapes` the reference's decode-cache
+placement (K/V on ``kv_heads``, else ``head_dim``; the SSM state on its
+heads). ``shardings_for`` has no counterpart.
 """
 from __future__ import annotations
 
@@ -342,3 +346,66 @@ def compute_cut(cfg, place: Placement, path: str, shape: Sequence[int],
     if path.startswith("lm_head.") and place.vocab and last == "w":
         return on(1, _chunk(shape[1], m, rank))
     return whole
+
+
+#: the scan-stacked subtrees of the LM families' param trees
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
+def compute_blocks(layout, cfg, place: Placement, rank: int
+                   ) -> Dict[str, Tuple[Intervals, ...]]:
+    """``{path: intervals a dimension}`` of model rank ``rank``'s compute
+    block of every leaf of a node's ``layout`` (a `repro_torch.core.flat.
+    FlatLayout`): :func:`compute_cut` of each per-layer leaf, a stacked
+    leaf's layer axis whole (every layer's block is alike)."""
+    out = {}
+    for lf in layout.leaves:
+        if lf.path.split(".")[0] in STACKED:
+            out[lf.path] = (((0, lf.shape[0]),),) + compute_cut(
+                cfg, place, lf.path, lf.shape[1:], rank)
+        else:
+            out[lf.path] = compute_cut(cfg, place, lf.path, lf.shape, rank)
+    return out
+
+
+def cache_cut(cfg, place: Placement) -> str:
+    """Where a model rank's decode cache of K/V is cut, the reference's
+    decode rule (``repro.models.attention``'s cache alignment, ``repro.
+    launch.specs.cache_specs``): ``"kv_heads"`` where the KV heads divide M
+    (the attention head-parallel), else ``"head_dim"`` where M divides the
+    head dim (q cut with it), else ``"whole"``; ``"none"`` without
+    attention."""
+    if place.attention == "none":
+        return "none"
+    if place.attention == "heads":
+        return "kv_heads"
+    m = place.model
+    return "head_dim" if m > 1 and cfg.head_dim % m == 0 else "whole"
+
+
+def cache_shapes(cfg, place: Placement, batch: int, max_len: int
+                 ) -> Dict[str, Tuple[int, ...]]:
+    """A model rank's per-layer decode state: K/V ``[B, T, nkv/M, hd]``
+    (:func:`cache_cut` ``"kv_heads"``), ``[B, T, nkv, hd/M]``
+    (``"head_dim"``) or whole; under an SSM heads cut the SSD state
+    ``[B, H/M, P, N]`` (f32) and the conv tail ``[B, W-1, C]`` on the
+    channels of the rank's conv compute block (its heads' x columns and
+    the B/C groups they read), else both whole."""
+    out = {}
+    m = place.model
+    if cfg.family != "ssm":
+        nkv, hd = cfg.n_kv_heads, cfg.head_dim
+        cut = cache_cut(cfg, place)
+        if cut == "kv_heads":
+            nkv //= m
+        elif cut == "head_dim":
+            hd //= m
+        out["k"] = out["v"] = (batch, max_len, nkv, hd)
+    if cfg.family in ("ssm", "hybrid"):
+        di, h, n = cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_state
+        groups = cfg.ssm_groups
+        if place.ssm_heads:
+            di, h, groups = di // m, h // m, ssm_groups_of(cfg, m, 0)[1]
+        out["ssd"] = (batch, h, cfg.d_inner // cfg.n_ssm_heads, n)
+        out["conv"] = (batch, cfg.conv_width - 1, di + 2 * groups * n)
+    return out

@@ -44,6 +44,17 @@ activations run in f32 and round once. The collectives' bytes count as
 ``torch.autograd.Function`` s of plain autograd: a split step runs outside
 any ``torch.func`` transform, as `repro_torch.models.gather`'s gathers.
 
+**The whole residual.** A forward whose sequence M does not divide (a
+decode step's one token, a prompt of odd length at M = 2) runs in the
+plan's whole-residual form (:meth:`TensorPlan.for_sequence`), where the
+reference's ``logical_shard`` leaves ``res_seq`` UNCONSTRAINED: every rank
+holds the whole rows, a block enters with no gather (:func:`enter`), a
+cut block leaves with :func:`all_reduce` (f32, rounded once) in place of
+:func:`scatter_sum` (:func:`leave`), and a block computed whole keeps all
+of it (:func:`own`). Only a forward that records no gradient takes that
+form: a training step's sequence must divide (:meth:`TensorPlan.
+seq_cut` raises). Its bytes count under the same ``tp_*`` kinds.
+
 The group is a module global, not a thread-local: the autograd engine may
 run a backward on a thread of its own.
 """
@@ -59,14 +70,25 @@ _PLAN = None
 class TensorPlan:
     """A rank's place in its node's model group: ``view`` the group
     (``size`` ranks, this one ``rank``), ``place`` the model's
-    `repro_torch.sharding.rules.Placement`, ``cfg`` its config."""
+    `repro_torch.sharding.rules.Placement`, ``cfg`` its config; ``whole``
+    the whole-residual form (every rank holds every row)."""
 
-    def __init__(self, view, place, cfg):
+    def __init__(self, view, place, cfg, whole: bool = False):
         self.view = view
         self.size = view.world_size
         self.rank = view.rank
         self.place = place
         self.cfg = cfg
+        self.whole = whole
+
+    def for_sequence(self, s: int) -> "TensorPlan":
+        """The form a forward of ``s`` positions runs in: the residual cut
+        on the sequence where the group divides ``s``, else (with no
+        gradient recorded) the whole-residual form; a forward that records
+        a gradient keeps the cut, whose :meth:`seq_cut` raises."""
+        if self.whole or not s % self.size or torch.is_grad_enabled():
+            return self
+        return TensorPlan(self.view, self.place, self.cfg, whole=True)
 
     def seq_cut(self, s: int):
         """``(start, length)`` of this rank's rows of a sequence of ``s``;
@@ -244,6 +266,25 @@ def all_reduce(x: torch.Tensor) -> torch.Tensor:
     """Σ of ``x`` over the group (f32), each rank using the sum for its
     own share: the backward sums the cotangents too."""
     return _AllReduce.apply(x, _PLAN.view)
+
+
+def enter(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """A block's input whole: :func:`gather` of the rank's cut, or ``x``
+    itself in the whole-residual form."""
+    return x if _PLAN.whole else gather(x, dim)
+
+
+def leave(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """A row-parallel share summed over the group: onto the rank's cut
+    (:func:`scatter_sum`), or whole (:func:`all_reduce`) in the
+    whole-residual form."""
+    return all_reduce(x) if _PLAN.whole else scatter_sum(x, dim)
+
+
+def own(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """A block's output that every rank computed whole: its rows
+    (:func:`local`), or all of it in the whole-residual form."""
+    return x if _PLAN.whole else local(x, dim)
 
 
 def replicated(x: torch.Tensor) -> torch.Tensor:

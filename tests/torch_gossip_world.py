@@ -2143,7 +2143,7 @@ def tp_block_fn(module):
         if module == "moe":
             return (moe_tp if tp else moe)(p, h, cfg)
         if module == "ssm":
-            return ssm_tp(p, h, cfg) if tp else ssm_block(p, h, cfg)[0]
+            return (ssm_tp if tp else ssm_block)(p, h, cfg)[0]
         if module == "enc":
             return encdec._enc_block(p, h, cfg, positions)
         return encdec._dec_block(p, h, cfg, positions, kv, None, None, None)
@@ -2545,6 +2545,114 @@ def port_tp_encdec_gate(inp):
     return out
 
 
+# --- serving under tensor parallelism ----------------------------------------
+
+#: (case, arch, config changes, model size M): a head-parallel dense model
+#: (the KV heads on the ranks), a dense model whose one KV head does not
+#: divide M (the cache on the head dim), the moe with its experts cut and
+#: whole, the ssm with its heads cut, the hybrid, and the hybrid at M = 4
+#: with 2 SSM heads (whole: the state whole on every rank) and 16 of
+#: the head dim's 64 a rank
+TP_SERVE = (("dense_heads", "minicpm-2b", {}, 2),
+            ("dense_head_dim", "nemotron-4-15b", {}, 2),
+            ("moe_cut", "granite-moe-3b-a800m", {}, 2),
+            ("moe_whole", "granite-moe-3b-a800m", {"n_experts": 3}, 2),
+            ("ssm", "mamba2-370m", {}, 2),
+            ("hybrid", "hymba-1.5b", {}, 2),
+            ("hybrid_m4", "hymba-1.5b", {"ssm_head_dim": 256}, 4))
+TP_SERVE_WORLDS = {"tp_serve_m2": 2, "tp_serve_m4": 4}
+TP_SERVE_B, TP_SERVE_NEW, TP_SERVE_LEN = 2, 6, 16
+
+
+def tp_serve_prompts(m):
+    """The prompt lengths a case serves: one M divides, one it does not."""
+    return (8, 7) if m == 2 else (8, 6)
+
+
+def tp_serve_cfg(arch, changes):
+    from repro_torch.configs import get_config, smoke_variant
+    return smoke_variant(get_config(arch)).replace(**changes)
+
+
+def tp_serve_bytes(*args, **kw):
+    """A served forward's bytes by kind over a model group, counted from
+    the config: ``chip_smoke._tp_serve_bytes``, the count the card run
+    holds (j) to."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._tp_serve_bytes(*args, **kw)
+
+
+def port_tp_serve(inp, m):
+    """Each TP_SERVE case of model size ``m`` on a (1, 1, m) mesh: for
+    each prompt, ``generate`` over the model group (tokens and logits),
+    a prefill and a decode step alone with their bytes by kind, the step
+    programs' pools and eager passes, and the unsharded ``generate`` in
+    this process; the rank's cache shapes and its params' leaf shapes;
+    the message of a forward that records a gradient on a sequence the
+    group does not divide."""
+    import json
+    import torch
+    from repro_torch.launch.mesh import make_swarm_mesh
+    from repro_torch.launch.serve import (generate, prefill_step_for,
+                                          serve_step_for, step_buffers)
+    from repro_torch.models import build_model, nest
+    from repro_torch.models.transformer import forward_lm
+    from repro_torch.sharding import tensor
+    mesh, _ = make_swarm_mesh(1, model=m)
+    cpu = torch.device("cpu")
+    b, new, t = TP_SERVE_B, TP_SERVE_NEW, TP_SERVE_LEN
+    out = {"model_rank": np.asarray(mesh.model_view.rank)}
+    for case, arch, changes, mm in TP_SERVE:
+        if mm != m:
+            continue
+        model = build_model(tp_serve_cfg(arch, changes))
+        flat = torch.from_numpy(inp[f"serve/{case}/flat"])
+        for s in tp_serve_prompts(m):
+            prompt = torch.from_numpy(inp[f"serve/{case}/prompt{s}"])
+            key = f"serve/{case}/{s}"
+            toks, logits = generate(model, flat, prompt, new, t, cpu,
+                                    mesh=mesh, with_logits=True)
+            out[f"{key}/tokens"], out[f"{key}/logits"] = (toks.numpy(),
+                                                          logits.numpy())
+            st = step_buffers(model, b, t, cpu, mesh)
+            pre = prefill_step_for(model, b, s, t, cpu, mesh)
+            dec = serve_step_for(model, b, t, cpu, mesh)
+            out[f"{key}/eager_calls"] = np.asarray([pre.eager_calls,
+                                                    dec.eager_calls])
+            for name, prog in (("prefill", pre), ("token", dec)):
+                mesh.reset_counts()
+                prog.run()
+                out[f"{key}/bytes_{name}"] = np.asarray(json.dumps(
+                    mesh.counts))
+            toks, logits = generate(model, flat, prompt, new, t, cpu,
+                                    with_logits=True)
+            out[f"{key}/single_tokens"] = toks.numpy()
+            out[f"{key}/single_logits"] = logits.numpy()
+            single = step_buffers(model, b, t, cpu)
+            out[f"{key}/pools"] = np.asarray(
+                [st.graphs.eager, single.graphs.eager,
+                 serve_step_for(model, b, t, cpu).captured, dec.captured])
+        out[f"serve/{case}/cache"] = np.asarray(json.dumps(
+            [{k: list(v.shape) for k, v in c.items()} for c in st.caches]))
+        out[f"serve/{case}/leaves"] = np.asarray(json.dumps(
+            {p: list(v.shape) for p, v in st.views.items()}))
+        out[f"serve/{case}/params"] = np.asarray(st.params.numel())
+        odd = tp_serve_prompts(m)[1]
+        try:
+            with torch.enable_grad(), tensor.model_group(st.plan):
+                forward_lm(nest(st.views), model.cfg, torch.from_numpy(
+                    inp[f"serve/{case}/prompt{odd}"]))
+            out[f"serve/{case}/grad_raises"] = np.asarray("")
+        except ValueError as e:
+            out[f"serve/{case}/grad_raises"] = np.asarray(str(e))
+    return out
+
+
 def main(argv):
     task, rank, world, init, out_dir = argv[:5]
     rank, world = int(rank), int(world)
@@ -2583,6 +2691,8 @@ def main(argv):
                 res = port_tp_steps(inp, TP_WORLDS[task])
             elif task == "tp_encdec_gate":
                 res = port_tp_encdec_gate(inp)
+            elif task in TP_SERVE_WORLDS:
+                res = port_tp_serve(inp, TP_SERVE_WORLDS[task])
             elif task in SPLIT_WORLDS:
                 res = port_split_sessions(inp, SPLIT_WORLDS[task])
             elif task == "hier":
