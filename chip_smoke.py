@@ -136,7 +136,11 @@ Phases, each printing one JSON line:
                  q_off 0 and 128 and the whole-residual [2,25,255,64]
                  over [2,5,255,64], windows 0 and 1,024, and granite's
                  head-parallel [2,12,256,64] and [2,12,255,64] over 4 KV
-                 heads (``FAMILY_FLASH``); with times beside
+                 heads (``FAMILY_FLASH``); the odd steps' whole-residual
+                 calls: Hymba's [2,25,2047,64] over [2,5,2047,64] and
+                 seamless's encoder [2,8,1023,64], its cross-attention
+                 [2,8,255,64] over 1,023 keys and its causal decoder
+                 [2,8,255,64] (``FAMILY_FLASH``); with times beside
                  the plain version, one SDPA call with the boolean mask and
                  the bound (``q_off``);
  13. ssd_kernel  the SSD scan kernel against its plain version: the
@@ -150,7 +154,8 @@ Phases, each printing one JSON line:
                  and (2, 255, 25, 64, 16, 255) (a model rank's heads of a
                  served prefill, the residual cut and whole), there the
                  kernel's and the plain version's states each against the
-                 plain version evaluated in f64; a_log per batch row (the trainer's folded
+                 plain version evaluated in f64, then (h)'s odd step's
+                 (2, 2048, 25, 64, 16, 256) on the padded copies; a_log per batch row (the trainer's folded
                  nodes) against one row at a time with a shared [H] (the
                  serving path's stride 0), bit for bit; times, TFLOP/s and
                  bounds (C·Bᵀ at the bf16 tensor-core rate, the rest at the
@@ -199,9 +204,10 @@ Phases, each printing one JSON line:
                  apart, the profiled tick's busy share, host ops and
                  launches, peak memory) and ``serve_replay`` (on warm keys,
                  a decode tick: the body called eagerly against a replay,
-                 in turns (eager, replay, replay, eager), wall, device
-                 time and busy share; a profiled replayed prefill's flash
-                 and SSD kernel records equal to its launches), each with
+                 in turns (eager, replay), wall, device time and busy
+                 share; the 2,048-token prefill replayed under the
+                 profiler, its flash and SSD kernel records equal to its
+                 launches), each with
                  the card's name and power limit;
  16b. train_grads the flash and SSD autograd Functions (kernel forward,
                  plain backward, vmap rule) under torch.func.vmap(grad) over
@@ -293,8 +299,9 @@ Phases, each printing one JSON line:
                  1 % of its norm; gates equal outside the 1e-4 margin);
                  counts set to 0 before each host round: one
                  ``fused_merge_all`` launch a sync (plain, then ``imp``);
-                 round walls, the engine's round wall, and one profiled
-                 host round's device-busy share;
+                 round walls, the engine's round wall, one more host
+                 round's wall (the fisher/ring path's under the profiler:
+                 its device-busy share);
  16i. gossip    the gossip backend (``SwarmSession(..., backend=
                  "gossip")``, `repro_torch.core.gossip`): (a) on a world of
                  one NCCL rank in this process (4 nodes a rank), the paper
@@ -329,18 +336,14 @@ Phases, each printing one JSON line:
                  1e-5 (the pod-ring mix of pod aggregates; the flat
                  forms' ring merge), the bytes each rank handed, by link
                  class, against the cost model at the padded width, sync
-                 walls; then a 6-round fault plan (node 1 crashed at round
+                 walls; then a 4-round fault plan (node 1 crashed at round
                  1, back at 3) with a preempt at round 3 (a collective
                  save → fresh session → load) against the same plan
                  without it, bit for bit (params, moments, statistics,
                  every wire leaf), for both hierarchical schedules and the
                  flat ring q8 (the CNN's AdamW steps; the fisher form the
                  reference's fault-test decay step), with the checkpoint's
-                 bytes and save and load seconds; last, the fisher forms
-                 on the int8 mesh wire under the CNN's steps, the largest
-                 |θ| after each of 6 rounds (recorded, not held: their
-                 int8 mass stream can reconstruct to 0 or below, as the
-                 reference's does); (e) inner (model) sharding within a
+                 bytes and save and load seconds; (e) inner (model) sharding within a
                  node: Mamba2-370M at its published width, 2 of its 48
                  layers, on 4 gloo ranks as 2
                  nodes × model 2 (``make_swarm_mesh(2, model=2)``, the
@@ -437,23 +440,45 @@ Phases, each printing one JSON line:
                  the rank's values its compute blocks', resident memory,
                  serving peaks and cache bytes against the twin's,
                  prefill, token and ``generate`` walls (host copies and
-                 TCP: no speedup claimed).
+                 TCP: no speedup claimed); (k) the enc-dec served over a
+                 model group in (i)'s world after its round: each node
+                 position's (1, 1, 2) group serves seamless-m4t-medium at
+                 its published widths and 12 + 12 layers in bf16 (self
+                 cache on 8 of 16 KV heads, ``enc_out`` whole), 2 rows of
+                 1,024 frames encoded by ``encode_step_for`` (the residual
+                 cut, one gather of the output), a prompt of 8 tokens fed
+                 one at a time through ``serve_step_for``'s decode step
+                 and 8 new tokens, against its unsharded twin on model
+                 rank 0, with (j)'s checks (a 2 + 2-layer f32 check, the
+                 full-depth rule, values, memory, cache bytes, an
+                 encode's and a token's bytes against
+                 ``_tp_serve_bytes``, flash 12 an encode and none a
+                 decode step, walls); and after (h)'s and (i)'s rounds
+                 one split step each from the seed-0 init at
+                 ``GOSSIP_ODD_LR`` on a sequence the model group does not
+                 divide (2 rows of 2,047 tokens; 1,023 frames and 255
+                 tokens: the whole residual) against the twin's step on
+                 the same batch: the loss within 1e-3, the params within
+                 (f)'s tolerances, the gradient leaf by leaf against the
+                 twin weights' f32 gradient at most
+                 ``GOSSIP_J_BF16_RATIO`` times as far as the twin's,
+                 every byte kind against ``_tp_bytes``, the launches.
                  One card shows no inter-card traffic: (a)/(b) are one
-                 rank's NCCL calls, (c)-(j) go through host memory;
+                 rank's NCCL calls, (c)-(k) go through host memory;
  16j. examples  (run after ``host``, before ``gossip``) the twins of the
                  reference's examples through their ``main`` at the
                  reference's default sizes (the protocol's depth cut to
-                 40 of its 400 steps), the counts set to 0 before
+                 one round of 20 of its 400 steps), the counts set to 0 before
                  each (the memory of the serving paths released first): ``examples/torch_engine_swarm.py`` (the
                  tiny LM, head dim 16, N = 4: 3 rounds of 5 steps,
                  ``leave(3)``, 3 more; gates each round, node 3 out of every
                  merge after the leave, one ``fused_merge_all`` a round,
                  flash's f32 D = 16 body at [32, 4, 32, 16]: its launches
                  are ``launches_d16``), ``torch_histopathology_swarm.py``
-                 (the §4 protocol, 3 scenarios of 40 steps in a temporary
+                 (the §4 protocol, 3 scenarios of 20 steps in a temporary
                  working directory: three JSON files, nine finite report
-                 rows each with AUC in [0, 1], exactly 2 ``fused_merge_all``
-                 launches a scenario and nothing else) and
+                 rows each with AUC in [0, 1], exactly 1 ``fused_merge_all``
+                 launch a scenario and nothing else) and
                  ``torch_serve_demo.py`` (4 smoke families, [4, 16] tokens
                  each, flash and ``ssd_scan`` launched; the consensus
                  ensemble's 6 requests done); each twin's seconds and peak
@@ -527,13 +552,16 @@ def mma_counts(build, stems):
     tensor-core instructions each library holds: HGMMA is wgmma, HMMA
     mma.sync), or "not available" where the toolkit lacks cuobjdump."""
     tool = Path(build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {stem: "not available" for stem in stems}
+    # one cuobjdump a library, all started together
+    procs = {stem: subprocess.Popen(
+        [str(tool), "-sass", str(build.library_path(stem))],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        for stem in stems}
     out = {}
-    for stem in stems:
-        if not tool.exists():
-            out[stem] = "not available"
-            continue
-        sass = subprocess.run([str(tool), "-sass", str(build.library_path(
-            stem))], capture_output=True, text=True, timeout=120).stdout
+    for stem, proc in procs.items():
+        sass = proc.communicate(timeout=120)[0]
         out[stem] = {op: len(re.findall(rf"\b{op}\b", sass))
                      for op in ("HGMMA", "HMMA")}
     return out
@@ -1610,7 +1638,12 @@ FLASH_SWEEP = ((1, 4, 4, 128, 128, 64, True, 0, "float32"),
 # cross-attention over the encoder output and its causal self-attention;
 # granite-moe's head-parallel prefills of part (j) (2 rows of 256 tokens,
 # the residual cut, and of 255, the residual whole; a model rank's 12
-# heads over its 4 KV heads of its own K/V)
+# heads over its 4 KV heads of its own K/V); seamless's odd step after
+# part (i)'s round (2 rows of 1,023 frames and 255 tokens, both stacks in
+# the whole-residual form, a model rank's 8 heads): its encoder, its
+# decoder's cross-attention over the 1,023 frames and its causal
+# self-attention (part (k)'s encode of 1,024 frames is seamless_tp_enc's
+# shape)
 FAMILY_FLASH = (("granite", 1, 24, 8, 2048, 2064, True),
                 ("granite_256", 1, 24, 8, 256, 2064, True),
                 ("granite_train", 4, 24, 8, 256, 256, True),
@@ -1629,7 +1662,10 @@ FAMILY_FLASH = (("granite", 1, 24, 8, 2048, 2064, True),
                 ("seamless_twin_cross", 2, 16, 16, 256, 1024, False),
                 ("seamless_twin_dec", 2, 16, 16, 256, 256, True),
                 ("granite_j_tp", 2, 12, 4, 256, 256, True),
-                ("granite_j_tp_odd", 2, 12, 4, 255, 255, True))
+                ("granite_j_tp_odd", 2, 12, 4, 255, 255, True),
+                ("seamless_odd_enc", 2, 8, 8, 1023, 1023, False),
+                ("seamless_odd_cross", 2, 8, 8, 255, 1023, False),
+                ("seamless_odd_dec", 2, 8, 8, 255, 255, True))
 # flash's bf16 D = 128 body (csrc/flash_attention.cu: kWG = 2,
 # hop::launch<128>) at the attention shapes of nemotron-4-15b (48 heads
 # over 8 KV heads, a GQA group of 6) and deepseek-coder-33b (56 over 8, a
@@ -1666,7 +1702,9 @@ D16_FLASH = (("engine", 32, 4, 2, 32, 32, True, 0),
 # then part (j)'s served prefills: 2 rows of 256 tokens, 128 rows a rank
 # at q_off 0 and 128 over the prompt's 256 keys, and the prompt of 255
 # the model group does not divide (the residual whole: every rank's 255
-# rows at q_off 0)
+# rows at q_off 0), then the odd step after part (h)'s round: 2 rows of
+# 2,047 tokens, the residual whole, every rank's sequence-parallel
+# attention over all 25 heads and all 2,047 keys
 QOFF_FLASH = tuple(("hymba_h", 2, 25, 5, 1024, 2048, 64, off, w, "bfloat16")
                    for off in (0, 1024) for w in (0, 1024)) + tuple(
     (f"d{d}", 1, 4, 2, s, 2 * s, d, s, w, dt)
@@ -1677,6 +1715,8 @@ QOFF_FLASH = tuple(("hymba_h", 2, 25, 5, 1024, 2048, 64, off, w, "bfloat16")
     ("hymba_j", 2, 25, 5, 128, 256, 64, off, w, "bfloat16")
     for off in (0, 128) for w in (0, 1024)) + tuple(
     ("hymba_j_odd", 2, 25, 5, 255, 255, 64, 0, w, "bfloat16")
+    for w in (0, 1024)) + tuple(
+    ("hymba_odd", 2, 25, 5, 2047, 2047, 64, 0, w, "bfloat16")
     for w in (0, 1024))
 # the f32 body's limit with a query offset: one bf16 ulp does not apply;
 # the D = 128 body reads 1.19e-6 at QOFF_FLASH's d128 row (and as much on
@@ -2054,14 +2094,17 @@ SSD_EXAMPLE = (4, 8, 8, 64, 16, 8)
 # passes them: part (h)'s calls, a model rank's 25 of Hymba's 50 heads and
 # the unsharded twin's 50, 2 rows of 2048; part (j)'s served prefills, a
 # model rank's 25 heads over 2 rows of 256 tokens and of 255 (one chunk
-# of 255: the model pads to no chunk multiple)
+# of 255: the model pads to no chunk multiple); the odd step after part
+# (h)'s round, a model rank's 25 heads over 2 rows of 2,047 tokens padded
+# to 2,048 (x, B and C the padded copies: contiguous)
 SSD_MODELS = (("hymba", (1, 2048, 50, 64, 16, 256), False),
               ("hymba256", (1, 256, 50, 64, 16, 256), False),
               ("mamba2", (1, 2048, 32, 64, 128, 256), False),
               ("hymba_h_tp", (2, 2048, 25, 64, 16, 256), True),
               ("hymba_h_twin", (2, 2048, 50, 64, 16, 256), True),
               ("hymba_j_tp", (2, 256, 25, 64, 16, 256), True),
-              ("hymba_j_tp_odd", (2, 255, 25, 64, 16, 255), True))
+              ("hymba_j_tp_odd", (2, 255, 25, 64, 16, 255), True),
+              ("hymba_odd_tp", (2, 2048, 25, 64, 16, 256), False))
 # part (j)'s rows also evaluate the plain version in f64: the kernel's and
 # the plain version's final state each against it, reported (at one chunk
 # of 255 the f32 cumsum reaches |cum| of about 400, whose ulp bounds both
@@ -2681,13 +2724,17 @@ def phase_serve(dev, smi):
     # kernel records against its launches
     versus, records = {}, {}
     prog = eng.programs[("decode", decode_bucket), 0]
-    versus["decode"] = _eager_vs_replay(prog)
-    for n in SERVE_SEQ:
+    # two turns (eager, replay): wide_serve's nemotron-4-15b engine runs
+    # the four-turn form on its decode key
+    versus["decode"] = _eager_vs_replay(prog, turns=2)
+    for n in SERVE_SEQ[-1:]:
         prog = eng.programs[("prefill", n, decode_bucket), 0]
         eng._stage_prefill(gen.integers(0, cfg.vocab_size, n), 0, n)
         # the tick only: a profiled eager prefill's trace takes about 10 s
         # a turn to process, and wide_serve runs a 2048-token prefill key
-        # eagerly against its replay (nemotron-4-15b's)
+        # eagerly against its replay (nemotron-4-15b's); the 2048-token
+        # prefill's replay alone is profiled (every wave holds the
+        # 256-token key's launches to the count)
         records[n] = _profiled_replay_launches(prog)
         if records[n]["launches"] != {"flash_attention": per_prefill,
                                       "ssd_scan": per_prefill}:
@@ -3899,8 +3946,8 @@ def phase_host(dev, smi):
     steps' differences.) The counts are set
     to 0 just before each host round: one ``fused_merge_all`` launch a
     sync, the plain form for fedavg and the importance form for fisher.
-    Then one more host round under the profiler: its wall and device-busy
-    share."""
+    Then one more host round, timed (the last path's under the profiler:
+    its device-busy share)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4019,13 +4066,17 @@ def phase_host(dev, smi):
             hb = [[(xs[-1, k, i], ys[-1, k, i]) for i in range(N)]
                   for k in range(HOST_T)]
             torch.cuda.synchronize()
+            # the last path's round alone under the profiler (its host ops
+            # take seconds to process; the paths share the host loop)
+            profiled = (merge, topology) == HOST_PATHS[-1][:2]
             with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+                                     ProfilerActivity.CUDA]) if profiled \
+                    else contextlib.nullcontext() as prof:
                 t0 = time.perf_counter()
                 host.round(hb, vlist)
                 torch.cuda.synchronize()
                 pwall = time.perf_counter() - t0
-            busy = _busy(prof, pwall)
+            busy = _busy(prof, pwall) if profiled else {}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             eng.round((xs[-1], ys[-1]), val)
@@ -4037,13 +4088,15 @@ def phase_host(dev, smi):
                  membership="leave(3) for round 1, join(3) for round 2",
                  gates=gates, params_err_vs_engine=errs,
                  launches=launches, round_walls_s=walls,
-                 engine_round_wall_s=eng_wall, profiled_wall_s=pwall,
-                 device_busy_s=busy["device_busy_s"],
-                 device_busy_share=busy["device_busy_share"],
-                 kernel_launches_profiled=busy["kernel_launches"],
-                 host_ops_profiled=busy["host_ops"],
-                 top_host=busy["top_host"][:5],
-                 top_device=busy["top_device"][:5])
+                 engine_round_wall_s=eng_wall,
+                 **{"host_round_wall_s": pwall} if not profiled else dict(
+                     profiled_wall_s=pwall,
+                     device_busy_s=busy["device_busy_s"],
+                     device_busy_share=busy["device_busy_share"],
+                     kernel_launches_profiled=busy["kernel_launches"],
+                     host_ops_profiled=busy["host_ops"],
+                     top_host=busy["top_host"][:5],
+                     top_device=busy["top_device"][:5]))
     finally:
         (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = cudnn
@@ -4052,9 +4105,10 @@ def phase_host(dev, smi):
 
 # the examples phase: the twins of the reference's examples, run through
 # their ``main`` at the reference's default sizes (examples/torch_*.py),
-# the §4 protocol's depth cut from its 400 steps (a sync every 20) to keep
-# the script well inside its time limit
-EXAMPLE_HISTO_STEPS, EXAMPLE_HISTO_SYNC = 40, 20
+# the §4 protocol's depth cut from its 400 steps (a sync every 20) to one
+# round of 20, to keep the script well inside its time limit (phase
+# ``histo`` runs the protocol at paper width over rounds)
+EXAMPLE_HISTO_STEPS, EXAMPLE_HISTO_SYNC = 20, 20
 
 
 def _example(script):
@@ -4284,21 +4338,17 @@ GOSSIP_D_PODS = (2, 2)
 # preempt's round; run for each of these settings of GOSSIP_D with its
 # local step: the CNN's AdamW steps ("train"), or the reference's fault
 # tests' decay θ ← 0.999·θ ("decay"; `tests/test_faults_spmd.py`), for the
-# fisher form, whose int8 mass stream diverges under the CNN's steps
-# (GOSSIP_D_DIVERGE)
-GOSSIP_D_ROUNDS = 6
+# fisher form, whose int8 mass stream diverges under the CNN's steps (its
+# Σ (F+eps) crosses the wire as int8 deltas, as in the reference; where F
+# is small against its block's largest value the reconstruction falls to
+# 0 or below and the reference's clamp at 1e-30 turns the ratio huge).
+# Four rounds: the crash at 1, the rejoin and the preempt at 3
+GOSSIP_D_ROUNDS = 4
 GOSSIP_D_CRASH = (1, 1, 3)
 GOSSIP_D_PREEMPT = 3
 GOSSIP_D_PLANS = {"hier_fedavg_ring_q8": "train",
                   "hier_fisher_ring_q8": "decay",
                   "ring_ppermute": "train"}
-# the fisher forms on the int8 mesh wire under the CNN's AdamW steps,
-# GOSSIP_D_ROUNDS rounds without faults: the largest |θ| after each round
-# is recorded, not held. Their mass stream Σ (F+eps) crosses the wire as
-# int8 deltas, as in the reference: where F is small against its block's
-# largest value the reconstruction can fall to 0 or below, and the
-# reference's clamp at 1e-30 then turns the ratio huge
-GOSSIP_D_DIVERGE = ("hier_fisher_ring_q8", "ring_topo_ppermute")
 # syncs that only advance a stateful wire (the params unchanged) before the
 # compared commit: the reference's settled regime (its mesh-wire tests)
 GOSSIP_SETTLE = 6
@@ -4800,18 +4850,6 @@ def _gossip_rank_d(rank, world, init, tmp, dev):
                 active=[lg["active"].tolist() for lg in logs],
                 wire_keys=sorted(b.wire), params=b.params.cpu())
             del twin, sess, fresh, a, b
-        out["diverge"] = {}
-        for name, merge, cross in [g for g in GOSSIP_D
-                                   if g[0] in GOSSIP_D_DIVERGE]:
-            sess = session(name, merge, cross, "train")
-            rec = []
-            for _ in range(GOSSIP_D_ROUNDS):
-                sess.round(batches, val)
-                p = sess.state.params
-                rec.append((float(p.abs().max()),
-                            int((~torch.isfinite(p)).sum())))
-            out["diverge"][name] = rec
-            del sess
         torch.save(out, f"{tmp}/hier{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -4965,12 +5003,6 @@ def _gossip_two_level(dev, smi, base, spawned):
             load_s=[pr["load_s"] for pr in per_rank],
             plan_wall_s=[pr["plan_wall"] for pr in per_rank],
             gates=p0["gates"])
-    diverge = {name: dict(
-        max_abs_params=[max(r["diverge"][name][i][0] for r in ranks)
-                        for i in range(GOSSIP_D_ROUNDS)],
-        non_finite=[sum(r["diverge"][name][i][1] for r in ranks)
-                    for i in range(GOSSIP_D_ROUNDS)])
-        for name in GOSSIP_D_DIVERGE}
     emit("gossip_d", card=smi, world=GOSSIP_WORLD, backend="gloo",
          mesh={"pod": k, "node": per}, device=f"{dev} (all ranks)",
          nodes=N, params_per_node=layout.size, wire_block=WIRE_BLOCK,
@@ -4979,7 +5011,6 @@ def _gossip_two_level(dev, smi, base, spawned):
          cross_ratio_hier_over_flat=ratio,
          plan=dict(rounds=GOSSIP_D_ROUNDS, crash=GOSSIP_D_CRASH,
                    preempt_at=GOSSIP_D_PREEMPT, runs=plans),
-         fisher_int8_under_training=diverge,
          note="4 ranks on one card: gloo stages CUDA tensors through host "
               "memory, so the walls are host copies and gloo's TCP "
               "transport, not links between pods")
@@ -5586,8 +5617,13 @@ def _tp_bytes(shard, cfg, n_layers, rest_itemsize, rows, seq, split_rows,
     ``cfg.enc_seq_len`` by default): its encoder blocks (never
     checkpointed) on the frames, the encoder output's one gather (and its
     reduce_scatter back), and each decoder block's cross-attention, which
-    gathers its normed rows only where it is head-parallel. Returns
-    ``(step kinds, gate kinds or None)``."""
+    gathers its normed rows only where it is head-parallel. Where M does
+    not divide ``seq`` (or ``frames``) that stack runs in the
+    whole-residual form (`repro_torch.sharding.tensor`: no gathers, each
+    row-parallel output's f32 all_reduce in the forward and again in the
+    backward); where it does not divide the padded vocab the logits are
+    whole and the loss moves nothing. Returns ``(step kinds, gate kinds or
+    None)``."""
     from repro_torch.sharding.rules import compute_cut, placement
 
     m = shard.sizes.get("model", 1)
@@ -5654,18 +5690,26 @@ def _tp_bytes(shard, cfg, n_layers, rest_itemsize, rows, seq, split_rows,
 
     def moves(rows, seq):
         """The gather into a block of ``rows`` × ``seq`` and a
-        row-parallel output's reduce_scatter: ``(gather_in, row_out)``,
-        each adding its forward and backward bytes to two dicts."""
+        row-parallel output's reduce_scatter (where M does not divide
+        ``seq``, the whole residual: no gather, and an f32 all_reduce of
+        the output both ways): ``(gather_in, row_out)``, each adding its
+        forward and backward bytes to two dicts."""
         x = rows * seq * d
         lg, rs = x // m * c, x * 4 * (m - 1) // m
+        whole = seq % m != 0
 
         def gather_in(fwd, bwd):
-            add(fwd, "tp_gather", lg)
-            add(bwd, "tp_reduce_scatter", rs)
+            if not whole:
+                add(fwd, "tp_gather", lg)
+                add(bwd, "tp_reduce_scatter", rs)
 
         def row_out(fwd, bwd, item=c):
-            add(fwd, "tp_reduce_scatter", rs)
-            add(bwd, "tp_gather", x // m * item)
+            if whole:
+                add(fwd, "tp_all_reduce", x * 4)
+                add(bwd, "tp_all_reduce", x * 4)
+            else:
+                add(fwd, "tp_reduce_scatter", rs)
+                add(bwd, "tp_gather", x // m * item)
 
         return gather_in, row_out
 
@@ -5706,13 +5750,24 @@ def _tp_bytes(shard, cfg, n_layers, rest_itemsize, rows, seq, split_rows,
 
     def rest(rows, seq, grad):
         """The embedding, the encoder output's gather, the final norm's
-        gather and the loss, by kind."""
+        gather and the loss, by kind: in the whole-residual form the
+        d_model-cut lookup's gather of its columns (a reduce_scatter
+        back) or the vocab-cut one's all_reduce (both ways), no final
+        gather; the loss's three all_reduces only where the logits are
+        vocab-cut."""
         out = {}
         x = rows * seq * d
         lg, rs = x // m * c, x * 4 * (m - 1) // m
-        if place.embed == "d_model":
+        whole = seq % m != 0
+        if place.embed == "d_model" and whole:
+            add(out, "tp_gather", rows * seq * (d // m) * c)
+            if grad:
+                add(out, "tp_reduce_scatter", rs)
+        elif place.embed == "d_model":
             n = (m - 1) * rows * (seq // m) * (d // m) * c
             add(out, "tp_all_to_all", n * (2 if grad else 1))
+        elif place.embed == "vocab" and whole:
+            add(out, "tp_all_reduce", x * 4 * (2 if grad else 1))
         elif place.embed == "vocab":
             add(out, "tp_reduce_scatter", rs)
             if grad:
@@ -5720,10 +5775,10 @@ def _tp_bytes(shard, cfg, n_layers, rest_itemsize, rows, seq, split_rows,
         if encdec:
             gather_in, _ = moves(rows, frames)
             gather_in(out, out if grad else {})
-        add(out, "tp_gather", lg)
-        if grad:
-            add(out, "tp_reduce_scatter", rs)
-        add(out, "tp_all_reduce", 3 * rows * seq * 4)
+        gather_in, _ = moves(rows, seq)
+        gather_in(out, out if grad else {})
+        if place.vocab:
+            add(out, "tp_all_reduce", 3 * rows * seq * 4)
         return out
 
     def total(rows, seq, grad, passes):
@@ -5751,28 +5806,34 @@ def _tp_bytes(shard, cfg, n_layers, rest_itemsize, rows, seq, split_rows,
     return step, gate
 
 
-def _tp_serve_bytes(cfg, model, rows, seq, max_len):
+def _tp_serve_bytes(cfg, model, rows, seq, max_len, encode=False):
     """A model rank's bytes by kind of one served forward over a model
     group of ``model`` ranks (`repro_torch.launch.serve` with a mesh):
     ``rows`` rows of ``seq`` tokens (a prefill; ``seq`` = 1 a decode step
     against a ``max_len``-deep cache), the greedy pick's gather of the
-    last position's vocab-cut logits included, counted from the config
-    and the placement alone. Where M divides ``seq`` the residual is cut:
-    per block an all_gather of the normed rows (``tp_gather``, the rank's
-    cut), a reduce_scatter per row-parallel output (``tp_reduce_scatter``,
-    the f32 sum's other M − 1 cuts), the SSM norm's f32 sums of squares
-    (``tp_all_reduce``), the embedding's all_to_all (``tp_all_to_all``)
-    or reduce_scatter and the final norm's gather. Otherwise the residual
-    is whole: no gather, an f32 all_reduce of every row-parallel output
-    and of the SSM norm's squares, a decode step's partial scores over a
-    head-dim cut of the cache ``[B, nh, T]`` in f32, and the embedding's
-    gather of its d_model cut (or all_reduce of a vocab-cut lookup)."""
+    last position's vocab-cut logits included (none where the logits are
+    whole), counted from the config and the placement alone. Where M
+    divides ``seq`` the residual is cut: per block an all_gather of the
+    normed rows (``tp_gather``, the rank's cut), a reduce_scatter per
+    row-parallel output (``tp_reduce_scatter``, the f32 sum's other M − 1
+    cuts), the SSM norm's f32 sums of squares (``tp_all_reduce``), the
+    embedding's all_to_all (``tp_all_to_all``) or reduce_scatter and the
+    final norm's gather. Otherwise the residual is whole: no gather, an
+    f32 all_reduce of every row-parallel output and of the SSM norm's
+    squares, a decode step's partial scores over a head-dim cut of the
+    cache ``[B, nh, T]`` in f32, and the embedding's gather of its d_model
+    cut (or all_reduce of a vocab-cut lookup). An enc-dec's decoder block
+    adds its cross-attention's gather and row-parallel output where it is
+    head-parallel; with ``encode`` (``seq`` its frames) the count is an
+    encode's: its encoder blocks and the output's one gather (none in the
+    whole form)."""
     from repro_torch.sharding.rules import cache_cut, placement
     place = placement(cfg, model)
     m, d = model, cfg.d_model
     f = 2 if cfg.compute_dtype == "bfloat16" else 4
     whole = seq % m != 0
     rs = rows * seq
+    heads = place.attention == "heads"
     out = {"tp_gather": 0, "tp_reduce_scatter": 0, "tp_all_reduce": 0,
            "tp_all_to_all": 0}
 
@@ -5789,6 +5850,16 @@ def _tp_serve_bytes(cfg, model, rows, seq, max_len):
         if not whole:
             add("tp_gather", rs * d * f // m)
 
+    if encode:
+        for _ in range(cfg.n_enc_layers):
+            enter()
+            if heads:
+                row_parallel()
+            if place.ff:
+                enter()
+                row_parallel()
+        enter()
+        return {k: v for k, v in out.items() if v}
     if place.embed == "d_model":
         add("tp_gather" if whole else "tp_all_to_all",
             rs * (d // m) * f * (1 if whole else m - 1) // (1 if whole
@@ -5801,11 +5872,14 @@ def _tp_serve_bytes(cfg, model, rows, seq, max_len):
     for _ in range(cfg.n_layers):
         enter()
         if cfg.family != "ssm":
-            if place.attention == "heads":
+            if heads:
                 row_parallel()
             elif (seq == 1 and cache_cut(cfg, place) == "head_dim"):
                 add("tp_all_reduce", rows * cfg.n_heads * max_len * 4)
                 row_parallel()
+        if cfg.is_encdec and heads:     # cross-attention
+            enter()
+            row_parallel()
         if cfg.family in ("ssm", "hybrid") and place.ssm_heads:
             add("tp_all_reduce", rs * 4)
             row_parallel()
@@ -5818,7 +5892,8 @@ def _tp_serve_bytes(cfg, model, rows, seq, max_len):
                 enter()
                 row_parallel()
     enter()
-    add("tp_gather", rows * (cfg.padded_vocab // m) * f)
+    if place.vocab:
+        add("tp_gather", rows * (cfg.padded_vocab // m) * f)
     return {k: v for k, v in out.items() if v}
 
 
@@ -6565,6 +6640,22 @@ GOSSIP_H_LAYERS = 2
 GOSSIP_H_MESH = (2, 1, 2)
 GOSSIP_H_STEPS, GOSSIP_H_BATCH, GOSSIP_H_SEQ = 2, 2, 2048
 GOSSIP_H_VAL = (2, 2048)
+# after the round, one more split step from the seed-0 init on a sequence
+# the model group does not divide (the whole residual): the first
+# GOSSIP_<PART>_ODD tokens of the round's first batch (and an enc-dec's
+# first GOSSIP_<PART>_ODD_FRAMES frames), against its twin's step
+GOSSIP_H_ODD, GOSSIP_H_ODD_FRAMES = 2047, None
+# the odd step's lr: one AdamW step from the same init moves a value by at
+# most lr, so the two nodes differ by at most 2 · lr where a gradient at
+# the rounding floor changes sign between the two sums (no merge after it
+# halves that, as the round's does: PR 31's (h) round read 7.51e-5 = lr on
+# its f32 leaves); GOSSIP_F_TOL's f32 atol 1e-4 is 2 · this lr. The step
+# is held by its gradient too, as (j) holds its bf16 logits: against the
+# twin's weights' gradient evaluated in f32 on the same batch, each
+# leaf's largest difference over its largest magnitude, the split's worst
+# leaf at most GOSSIP_J_BF16_RATIO times the twin's worst (a block summed
+# twice or dropped is off by its whole size)
+GOSSIP_ODD_LR = 5e-5
 # (i) seamless-m4t-medium tensor-parallel: GOSSIP_I_LAYERS of its 12
 # encoder and of its 12 decoder layers, rows of GOSSIP_I_FRAMES frames and
 # GOSSIP_I_SEQ target tokens
@@ -6574,6 +6665,7 @@ GOSSIP_I_MESH = (2, 1, 2)
 GOSSIP_I_STEPS, GOSSIP_I_BATCH, GOSSIP_I_SEQ = 2, 2, 256
 GOSSIP_I_FRAMES = 1024
 GOSSIP_I_VAL = (2, 256)
+GOSSIP_I_ODD, GOSSIP_I_ODD_FRAMES = 255, 1023
 
 
 def _tp_part(part, name):
@@ -6779,15 +6871,161 @@ def _gossip_rank_tp(part, rank, world, init, tmp, dev):
                     changed=int((got[sl] != want[sl]).sum()),
                     values=int(dd.numel()))
             out["vs_twin"] = diffs
+        # the session released before the odd step: the ranks of every
+        # world spawned together share the card's memory
+        shard = eng.shard
+        del sess, eng, node
+        torch.cuda.empty_cache()
+        out["odd"] = _gossip_odd_step(part, model, shard, mesh, batch,
+                                      node_of, tmp, rank, dev)
         torch.save(out, f"{tmp}/{tag}{rank}.pt")
-        del sess, eng
         torch.cuda.empty_cache()
         if part == "h" and sharded:
             # (j) in the same world: each node position's model group
             # serves one of GOSSIP_J_ARCHS
             torch.save(_gossip_rank_j(mesh, dev), f"{tmp}/jserve{rank}.pt")
+        if part == "i" and sharded:
+            # (k) in the same world: each node position's model group
+            # serves the enc-dec
+            torch.save(_gossip_rank_k(mesh, dev), f"{tmp}/kserve{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def _gossip_odd_step(part, model, shard, mesh, batch, node, tmp, rank, dev):
+    """(h), (i) One step from the seed-0 init at GOSSIP_ODD_LR on the
+    part's ODD tokens (and ODD_FRAMES frames) of the round's first batch
+    of node ``node``, which the model group does not divide: on a sharded
+    rank (``shard`` its `repro_torch.core.flat.ShardLayout`, None on a
+    twin rank) the split step in the whole-residual form (its bytes by kind
+    beside `_tp_bytes`'s count, its launches; on model index 0 the node
+    after it against the twin's by leaf kind within GOSSIP_F_TOL, and its
+    gradient's distance from the f32 gradient), on a twin rank the whole
+    node's step, after the gradient of the same weights in f32 on the same
+    batch (its gradient's distance from that; the node and the f32
+    gradient, by leaf, written to ``tmp``). Returns the record: loss,
+    wall, launches, bytes, the differences from the twin and from the f32
+    gradient."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+
+    C = lambda name: _tp_part(part, name)
+    seq, frames = C("ODD"), C("ODD_FRAMES")
+    b = {k: batch[k][0, node][:, :seq] for k in ("tokens", "labels")}
+    if frames:
+        b["frames"] = batch["frames"][0, node][:, :frames]
+    layout = model.layout
+    step = train.make_train_step(model, TrainConfig(
+        lr=GOSSIP_ODD_LR, warmup_steps=0, max_steps=10, remat=True))
+    p0 = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    rec = dict(seq=seq, frames=frames, lr=GOSSIP_ODD_LR)
+    seen, update = {}, train.adamw_update_
+
+    def captured(parts, grads, *a, **kw):
+        seen["grads"] = [g.detach().clone() for g in grads]
+        return update(parts, grads, *a, **kw)
+
+    def by_leaf(lay, grads):
+        return {q: t.float() for q, t in lay.value_layout.unflatten(
+            lay.values(lay.join(grads))).items()}
+
+    sharded = shard is not None
+    if not sharded:     # the gradient of the same weights in f32, first
+        import dataclasses
+        m32 = build_model(dataclasses.replace(
+            model.cfg, param_dtype="float32", compute_dtype="float32"))
+        flat = torch.empty(m32.layout.size, dtype=torch.float32, device=dev)
+        views, src = m32.layout.unflatten(flat), layout.unflatten(p0)
+        for path, t in views.items():
+            t.copy_(src[path])
+        parts = m32.layout.parts(flat)
+        loss, vjp_fn, _ = torch.func.vjp(
+            lambda q: m32.loss_fn(m32.layout.unflatten_parts(q), b,
+                                  remat=True), parts, has_aux=True)
+        (g,) = vjp_fn(torch.ones_like(loss), retain_graph=False,
+                      create_graph=False)
+        g32 = {q: t.cpu() for q, t in by_leaf(m32.layout, g).items()}
+        del m32, flat, views, src, parts, loss, vjp_fn, g
+        torch.cuda.empty_cache()
+    train.adamw_update_ = captured
+    reset_launches()
+    mesh.reset_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if sharded:
+            ps = shard.shard(p0[None])[0]
+            del p0
+            ps, _, met = step.split(ps, adamw_init(shard.local.parts(ps)),
+                                    b, shard=shard, mesh=mesh)
+        else:
+            p, _, met = step(p0, adamw_init(layout.parts(p0)), b)
+        torch.cuda.synchronize()
+    finally:
+        train.adamw_update_ = update
+    rec.update(wall=time.perf_counter() - t0, loss=float(met["loss"]),
+               launches={k: v for k, v in LAUNCHES.items() if v})
+    if not sharded:
+        mine = by_leaf(layout, seen["grads"])
+        rel = _grad_rel(mine, g32)
+        rec["grad_rel"] = dict(twin=max(rel.values()),
+                               twin_leaf=max(rel, key=rel.get))
+        torch.save(dict(params=p.cpu(), f32=g32),
+                   f"{tmp}/{part}twin_params_odd_n{rank}.pt")
+        return rec
+    rec["bytes"] = {k: v for k, v in mesh.counts.items()
+                    if k != "step_control"}
+    rec["from_layout"] = _tp_bytes(
+        shard, model.cfg, C("LAYERS"), ps.element_size(), b["tokens"].shape[0],
+        seq, False, frames=frames)[0]
+    node_p = shard.gather(ps[None], mesh.shard_view, kind=None)[0]
+    grads = shard.gather(shard.local.join(seen["grads"])[None],
+                         mesh.shard_view, kind=None)[0]
+    if mesh.coords["model"] == 0:
+        twin = torch.load(f"{tmp}/{part}twin_params_odd_n{node}.pt")
+        got = layout.values(node_p)
+        want = layout.values(twin["params"].to(dev))
+        w = layout.n_wide
+        rec["vs_twin"] = {}
+        for kind, sl in (("f32", slice(0, w)), ("bf16", slice(w, None))):
+            rtol, atol = GOSSIP_F_TOL[kind]
+            dd = (got[sl] - want[sl]).abs()
+            if dd.numel():
+                rec["vs_twin"][kind] = dict(
+                    max_abs=float(dd.max()),
+                    excess=float((dd - atol - rtol * want[sl].abs()).max()),
+                    changed=int((got[sl] != want[sl]).sum()),
+                    values=int(dd.numel()))
+        split = _grad_rel({q: t.float() for q, t in
+                           layout.value_layout.unflatten(
+                               layout.values(grads)).items()}, twin["f32"])
+        worst = max(split, key=split.get)
+        rec["grad_rel"] = dict(split=split[worst], leaf=worst,
+                               leaves=len(split), ratio=GOSSIP_J_BF16_RATIO)
+    return rec
+
+
+def _grad_rel(got, f32):
+    """``{leaf: max |got − f32| / max |f32|}`` of two gradients by leaf,
+    on the device ``got`` lies on (``f32`` there or on the host)."""
+    return {q: float((t - f32[q].to(t.device)).abs().max()
+                     / f32[q].to(t.device).abs().max().clamp(min=1e-30))
+            for q, t in got.items()}
+
+
+def _gossip_odd_launches(part):
+    """The flash (and SSD) launches of the part's odd step: each
+    checkpointed layer's mixers in the forward and in remat's recompute;
+    an enc-dec's encoder layers once, its decoder's self- and
+    cross-attention each as a checkpointed layer's."""
+    layers = _tp_part(part, "LAYERS")
+    if part == "i":
+        return {"flash_attention": layers + 2 * 2 * layers}
+    return {"flash_attention": 2 * layers, "ssd_scan": 2 * layers}
 
 
 def _gossip_tp_launches(part):
@@ -6871,6 +7109,34 @@ def _gossip_tp(part, dev, smi, tmp, twin):
             if not math.isfinite(loss):
                 raise AssertionError(f"({part}) rank {r}: loss "
                                      f"{rec['loss']}")
+        # the odd step: the whole residual against the twin's step
+        odd, tw_odd = rec["odd"], tw["odd"]
+        if odd["bytes"] != odd["from_layout"]:
+            raise AssertionError(f"({part}) rank {r} odd step: bytes "
+                                 f"{odd['bytes']}, the layout's "
+                                 f"{odd['from_layout']}")
+        if not (math.isfinite(odd["loss"]) and abs(
+                odd["loss"] - tw_odd["loss"]) <= rtol * abs(tw_odd["loss"])):
+            raise AssertionError(f"({part}) rank {r} odd step: loss "
+                                 f"{odd['loss']}, the twin's "
+                                 f"{tw_odd['loss']}")
+        for kind, dd in odd.get("vs_twin", {}).items():
+            if dd["excess"] > 0:
+                raise AssertionError(f"({part}) rank {r} odd step: {kind} "
+                                     f"params beyond the tolerance: {dd}")
+        gr = odd.get("grad_rel")
+        if gr and not gr["split"] <= gr["ratio"] * tw_odd["grad_rel"]["twin"]:
+            raise AssertionError(f"({part}) rank {r} odd step: gradient "
+                                 f"{gr} from the f32 gradient, the twin's "
+                                 f"{tw_odd['grad_rel']}")
+        if odd["launches"] != _gossip_odd_launches(part) or \
+                tw_odd["launches"] != odd["launches"]:
+            raise AssertionError(f"({part}) rank {r} odd step: launches "
+                                 f"{odd['launches']}, the twin's "
+                                 f"{tw_odd['launches']}, predicted "
+                                 f"{_gossip_odd_launches(part)}")
+    if not any("vs_twin" in rec["odd"] for rec in ranks):
+        raise AssertionError(f"({part}) odd step: no rank held the twin")
     gib = lambda b: b / 2 ** 30
     extra = {}
     if part == "i":
@@ -6912,10 +7178,30 @@ def _gossip_tp(part, dev, smi, tmp, twin):
          sync_peak_gib={"split": [gib(rec["sync_peak"]) for rec in ranks],
                         "twin": [gib(rec["sync_peak"]) for rec in twin]},
          launches=ranks[0]["launches"], predicted=predicted,
+         odd_step=dict(
+             seq=C("ODD"), frames=C("ODD_FRAMES"),
+             loss={"split": [rec["odd"]["loss"] for rec in ranks],
+                   "twin": [rec["odd"]["loss"] for rec in twin]},
+             lr=GOSSIP_ODD_LR,
+             vs_twin={r: rec["odd"]["vs_twin"] for r, rec in
+                      enumerate(ranks) if "vs_twin" in rec["odd"]},
+             grad_rel={"split": {r: rec["odd"]["grad_rel"] for r, rec in
+                                 enumerate(ranks)
+                                 if "grad_rel" in rec["odd"]},
+                       "twin": [rec["odd"]["grad_rel"] for rec in twin]},
+             bytes={"counted": [rec["odd"]["bytes"] for rec in ranks],
+                    "from_layout": [rec["odd"]["from_layout"]
+                                    for rec in ranks]},
+             wall_s={"split": [rec["odd"]["wall"] for rec in ranks],
+                     "twin": [rec["odd"]["wall"] for rec in twin]},
+             launches=ranks[0]["odd"]["launches"],
+             predicted=_gossip_odd_launches(part)),
          note="gloo ranks on one card: the collectives go through host "
               "memory and TCP, not NVLink")
     if part == "h":
         _gossip_j_check(smi, tmp)
+    if part == "i":
+        _gossip_k_check(smi, tmp)
 
 
 # (j) serving under tensor parallelism, in (h)'s world of 2 node positions
@@ -7291,6 +7577,316 @@ def _gossip_j_check(smi, tmp):
          prompts=[GOSSIP_J_SEQ, GOSSIP_J_ODD], new=GOSSIP_J_NEW,
          max_len=GOSSIP_J_MAX_LEN, f32_tol=GOSSIP_J_F32_TOL,
          bf16_ratio=GOSSIP_J_BF16_RATIO, models=models,
+         note="gloo ranks on one card: the collectives go through host "
+              "memory and TCP, not NVLink; the model group's programs run "
+              "eager, the twin's are captured")
+
+
+# (k) the enc-dec family served over a model group, in (i)'s world of 2
+# node positions × model 2 after its round: each position's model group
+# (node, data, model) = (1, 1, 2) serves GOSSIP_K_ARCH at its published
+# widths and depth in bf16 (from the seed-(10 + position) init) against
+# its unsharded twin on model rank 0; first the same at GOSSIP_K_F32_LAYERS
+# encoder and decoder layers in f32. Traffic: GOSSIP_K_ROWS rows of the
+# config's 1,024 frames encoded over the group (the residual cut, the
+# output gathered once), then a prompt of GOSSIP_K_PROMPT tokens fed one
+# at a time and GOSSIP_K_NEW new tokens (every decode step in the whole
+# form; the self cache cut on the KV heads, the encoder output whole)
+GOSSIP_K_ARCH = "seamless-m4t-medium"
+GOSSIP_K_ROWS, GOSSIP_K_PROMPT, GOSSIP_K_NEW = 2, 8, 8
+GOSSIP_K_MAX_LEN = GOSSIP_K_PROMPT + GOSSIP_K_NEW
+GOSSIP_K_F32_LAYERS = 2
+
+
+def _gossip_k_cfg(f32):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(GOSSIP_K_ARCH)
+    if f32:
+        return dataclasses.replace(
+            cfg, n_layers=GOSSIP_K_F32_LAYERS,
+            n_enc_layers=GOSSIP_K_F32_LAYERS, param_dtype="float32",
+            compute_dtype="float32")
+    return cfg
+
+
+def _gossip_k_serve(cfg, mesh, dev, seed, frames, prompt):
+    """The enc-dec ``cfg`` served over ``mesh``'s model group (or
+    unsharded with ``mesh`` None: its programs captured): ``frames``
+    encoded into the caches' ``enc_out`` by the encode step, then
+    ``prompt`` fed token by token through the decode step and GOSSIP_K_NEW
+    tokens generated. Returns the tokens, each new token's logits, the
+    encode's and the decode steps' walls, launches and bytes by kind (of
+    the model group), resident memory (params and caches), the caches'
+    bytes, the peak above what was held before, the params' values and
+    the programs' modes; the peak while it was built apart. The buffers
+    are released after."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import build_model
+
+    b, t, new = GOSSIP_K_ROWS, GOSSIP_K_MAX_LEN, GOSSIP_K_NEW
+    on = () if mesh is None else (mesh,)
+    counts = mesh.reset_counts if mesh is not None else (lambda: None)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st = lserve.step_buffers(model, b, t, dev, *on)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if mesh is None:
+        model.init(gen, dev, out=st.params)
+    else:     # the node whole, sliced once into the rank's blocks
+        node = model.init(gen, dev)
+        st.load(node)
+        del node
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    rec = dict(resident=torch.cuda.memory_allocated() - held,
+               build_peak=torch.cuda.max_memory_allocated() - held,
+               cache_bytes=sum(x.numel() * x.element_size()
+                               for x in lserve.tree_leaves(st.caches)),
+               param_values=st.layout.n_values)
+    torch.cuda.reset_peak_memory_stats()
+    enc = lserve.encode_step_for(model, b, t, dev, *on)
+    dec = lserve.serve_step_for(model, b, t, dev, *on)
+    for x in lserve.tree_leaves(st.caches):
+        x.zero_()
+    st.frames.copy_(frames)
+    reset_launches()
+    counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc.run()
+    torch.cuda.synchronize()
+    rec.update(encode_wall=time.perf_counter() - t0,
+               encode_launches={k: v for k, v in LAUNCHES.items() if v},
+               encode_bytes={} if mesh is None else dict(mesh.counts))
+    reset_launches()
+    counts()
+    out, seen = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(prompt.shape[1]):
+        st.tok.copy_(prompt[:, i:i + 1])
+        st.pos.fill_(i)
+        dec.run()
+    out.append(st.tok.clone())
+    seen.append(st.logits.clone())
+    for _ in range(new - 1):
+        dec.run()
+        out.append(st.tok.clone())
+        seen.append(st.logits.clone())
+    torch.cuda.synchronize()
+    steps = prompt.shape[1] + new - 1
+    rec.update(tokens=torch.cat(out, 1).cpu(),
+               logits=torch.stack(seen, 1).float().cpu(),
+               token_wall=(time.perf_counter() - t0) / steps, steps=steps,
+               token_launches={k: v for k, v in LAUNCHES.items() if v},
+               token_bytes={} if mesh is None else dict(mesh.counts),
+               peak=torch.cuda.max_memory_allocated() - held,
+               eager_pool=st.graphs.eager, captured=dec.captured,
+               encode_captured=enc.captured,
+               eager_calls=[enc.eager_calls, dec.eager_calls])
+    del st, enc, dec
+    _release_serving()
+    return rec
+
+
+def _gossip_k_f32_eval(cfg, dev, seed, frames, prompt, stream):
+    """The served bf16 weights (the seed ``seed`` init of ``cfg``)
+    evaluated in f32: ``frames`` encoded, then ``prompt`` followed by the
+    twin's stream [B, new] teacher-forced in one decoder forward; the f32
+    logits each of the twin's tokens was picked from [B, new, V]."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    m32 = build_model(dataclasses.replace(cfg, param_dtype="float32",
+                                          compute_dtype="float32"))
+    node = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
+    flat = torch.empty(m32.layout.size, dtype=torch.float32, device=dev)
+    views, src = m32.layout.unflatten(flat), model.layout.unflatten(node)
+    for path, t in views.items():
+        t.copy_(src[path])
+    del node, src
+    with torch.no_grad():
+        toks = torch.cat([prompt, stream[:, :-1].to(device=dev,
+                                                    dtype=torch.long)], 1)
+        caches = m32.init_cache(toks.shape[0], toks.shape[1], dev)
+        caches["enc_out"].copy_(m32.encode(views, frames))
+        logits, _ = m32.decode(views, toks, caches, 0)
+        out = logits[:, prompt.shape[1] - 1:].cpu()
+    del flat, views, caches, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gossip_rank_k(mesh, dev):
+    """(k) On one rank of (i)'s world: the enc-dec served over its node
+    position's model group in f32 at GOSSIP_K_F32_LAYERS layers, then in
+    bf16 at full depth, each followed by the unsharded twin on model rank
+    0 (the other rank waits). Returns the records, the rank's compute
+    block count against the node's and the placement."""
+    import dataclasses
+    import math
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import (cache_cut, compute_blocks,
+                                            placement)
+
+    dev = torch.device(dev)
+    pos = mesh.rows.start
+    seed = 10 + pos
+    mrank = mesh.coords["model"]
+    cfg = _gossip_k_cfg(False)
+    gen = torch.Generator(device=dev).manual_seed(20 + pos)
+    frames = torch.randn((GOSSIP_K_ROWS, cfg.enc_seq_len, cfg.frontend_dim),
+                         generator=gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (GOSSIP_K_ROWS,
+                                               GOSSIP_K_PROMPT),
+                           generator=gen, device=dev)
+    out = dict(model_rank=mrank, position=pos)
+    for tag, f32 in (("f32", True), ("bf16", False)):
+        c = _gossip_k_cfg(f32)
+        out[tag] = dict(tp=_gossip_k_serve(c, mesh, dev, seed, frames,
+                                           prompt))
+        if mrank == 0:
+            out[tag]["twin"] = twin = _gossip_k_serve(c, None, dev, seed,
+                                                      frames, prompt)
+            if not f32:
+                out[tag]["f32_eval"] = _gossip_k_f32_eval(
+                    c, dev, seed, frames, prompt, twin["tokens"])
+        dist.barrier(group=mesh.model_view.group)
+    place = placement(cfg, mesh.inner["model"])
+    layout = build_model(cfg).layout
+    blocks = compute_blocks(layout, cfg, place, mrank)
+    out.update(place=dataclasses.asdict(place),
+               cache_cut=cache_cut(cfg, place),
+               block_values=sum(math.prod(sum(n for _, n in iv)
+                                          for iv in ivs)
+                                for ivs in blocks.values()),
+               node_values=layout.n_values)
+    return out
+
+
+def _gossip_k_check(smi, tmp):
+    """(k) Each model group's records against its twin's, the layout's
+    byte counts and the launch counts; emits ``gossip_k``. Raises on any
+    failed check."""
+    import torch
+
+    recs = [torch.load(f"{tmp}/kserve{r}.pt") for r in range(4)]
+    gib = lambda n: n / 2 ** 30
+    b, t = GOSSIP_K_ROWS, GOSSIP_K_MAX_LEN
+    groups = {}
+    for pos in range(2):
+        ranks = recs[2 * pos:2 * pos + 2]
+        row = dict(place=ranks[0]["place"], cache_cut=ranks[0]["cache_cut"])
+        for tag in ("f32", "bf16"):
+            cfg = _gossip_k_cfg(tag == "f32")
+            v = cfg.vocab_size
+            twin = ranks[0][tag]["twin"]
+            tps = [r[tag]["tp"] for r in ranks]
+            a, c = tps
+            if not (torch.equal(a["tokens"], c["tokens"])
+                    and torch.equal(a["logits"], c["logits"])):
+                raise AssertionError(f"(k) {tag} position {pos}: the two "
+                                     "model ranks disagree")
+            if not bool(torch.isfinite(a["logits"][..., :v]).all()):
+                raise AssertionError(f"(k) {tag}: logits not finite")
+            enc_bytes = _tp_serve_bytes(cfg, 2, b, cfg.enc_seq_len, t,
+                                        encode=True)
+            tok = _tp_serve_bytes(cfg, 2, b, 1, t)
+            want_launch = {"flash_attention": cfg.n_enc_layers}
+            for r, tp in enumerate(tps + [twin]):
+                if tp["encode_launches"] != want_launch or \
+                        tp["token_launches"]:
+                    raise AssertionError(
+                        f"(k) {tag} rank {r}: launches an encode "
+                        f"{tp['encode_launches']}, the decode steps "
+                        f"{tp['token_launches']}; the count {want_launch}, "
+                        "none")
+            for r, tp in enumerate(tps):
+                steps = tp["steps"]
+                if tp["encode_bytes"] != enc_bytes or tp["token_bytes"] != {
+                        k: steps * n for k, n in tok.items()}:
+                    raise AssertionError(
+                        f"(k) {tag} rank {r}: bytes an encode "
+                        f"{tp['encode_bytes']} ({enc_bytes} counted), "
+                        f"{steps} steps {tp['token_bytes']} ({tok} a step "
+                        "counted)")
+                if not tp["eager_pool"] or tp["captured"]:
+                    raise AssertionError(f"(k) rank {r}: the model group's "
+                                         "programs must run eager")
+                if not tp["resident"] < twin["resident"]:
+                    raise AssertionError(f"(k) {tag} rank {r}: resident "
+                                         f"{tp['resident']}, the twin's "
+                                         f"{twin['resident']}")
+            if twin["eager_pool"] or (torch.cuda.is_available() and not (
+                    twin["captured"] and twin["encode_captured"])):
+                raise AssertionError("(k): the twin's programs must be "
+                                     "captured")
+            if tag == "f32":
+                err = float((a["logits"][..., :v] - twin["logits"][..., :v])
+                            .abs().max())
+                if err > GOSSIP_J_F32_TOL or not torch.equal(
+                        a["tokens"], twin["tokens"]):
+                    raise AssertionError(f"(k) f32 position {pos}: logits "
+                                         f"{err} from the twin's, or the "
+                                         "streams differ")
+                check = dict(max_abs_logit_diff=err, streams_equal=True)
+            else:
+                check = _gossip_j_stream(
+                    {"tokens": a["tokens"], "logits": a["logits"][..., :v]},
+                    {"tokens": twin["tokens"],
+                     "logits": twin["logits"][..., :v]},
+                    ranks[0][tag]["f32_eval"][..., :v], GOSSIP_J_BF16_RATIO)
+            row[tag] = dict(
+                layers=[cfg.n_enc_layers, cfg.n_layers], check=check,
+                resident_gib={"tp": [gib(x["resident"]) for x in tps],
+                              "twin": gib(twin["resident"])},
+                peak_above_held_gib={"tp": [gib(x["peak"]) for x in tps],
+                                     "twin": gib(twin["peak"])},
+                build_peak_gib={"tp": [gib(x["build_peak"]) for x in tps],
+                                "twin": gib(twin["build_peak"])},
+                cache_gib={"tp": [gib(x["cache_bytes"]) for x in tps],
+                           "twin": gib(twin["cache_bytes"])},
+                param_values={"tp": [x["param_values"] for x in tps],
+                              "twin": twin["param_values"]},
+                encode_wall_s={"tp": [x["encode_wall"] for x in tps],
+                               "twin": twin["encode_wall"]},
+                token_wall_s={"tp": [x["token_wall"] for x in tps],
+                              "twin": twin["token_wall"]},
+                bytes={"encode": tps[0]["encode_bytes"],
+                       "token": {k: n // tps[0]["steps"] for k, n in
+                                 tps[0]["token_bytes"].items()},
+                       "layout_equal": True},
+                launches={"encode": tps[0]["encode_launches"],
+                          "count": want_launch},
+                eager_calls=tps[0]["eager_calls"])
+        for r, rec in enumerate(ranks):
+            if rec["bf16"]["tp"]["param_values"] != rec["block_values"] or \
+                    not rec["block_values"] < rec["node_values"]:
+                raise AssertionError(f"(k) rank {r}: "
+                                     f"{rec['bf16']['tp']['param_values']} "
+                                     f"values held, its blocks "
+                                     f"{rec['block_values']}, the node's "
+                                     f"{rec['node_values']}")
+        row.update(block_values=[rec["block_values"] for rec in ranks],
+                   node_values=ranks[0]["node_values"])
+        groups[pos] = row
+    emit("gossip_k", card=smi, backend="gloo", arch=GOSSIP_K_ARCH,
+         mesh={"node": 1, "data": 1, "model": 2},
+         world="(i)'s 4 ranks: each node position's model group serves "
+               "the enc-dec", rows=GOSSIP_K_ROWS,
+         frames=_gossip_k_cfg(False).enc_seq_len, prompt=GOSSIP_K_PROMPT,
+         new=GOSSIP_K_NEW, max_len=GOSSIP_K_MAX_LEN,
+         f32_tol=GOSSIP_J_F32_TOL, bf16_ratio=GOSSIP_J_BF16_RATIO,
+         groups=groups,
          note="gloo ranks on one card: the collectives go through host "
               "memory and TCP, not NVLink; the model group's programs run "
               "eager, the twin's are captured")

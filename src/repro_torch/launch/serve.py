@@ -26,10 +26,21 @@ TensorPlan`); the model's forward divides each layer's work over the
 group as the reference's ``sharding_rules`` place it (a prefill M divides
 with the residual cut on the sequence, every decode step and any other
 prompt with the residual whole). The greedy token is the argmax of the
-all_gathered vocab-cut logits, the same on every rank (``torch.argmax``'s
-first-index tie rule). On a gloo group the programs run eagerly
+all_gathered vocab-cut logits (or of the whole logits, where M does not
+divide the vocab), the same on every rank (``torch.argmax``'s first-index
+tie rule). On a gloo group the programs run eagerly
 (`repro_torch.launch.capture.ProgramPool` with ``eager``): gloo stages
 through host memory, which a CUDA graph cannot hold.
+
+An enc-dec model (no prefill: ``generate`` feeds its prompt token by token
+against the zeroed caches, ``enc_out`` zero, as the reference's does) has
+:func:`encode_step_for`: the encoder over the buffers' ``frames`` into
+the caches' ``enc_out`` (over a model group the frames' residual cut where
+M divides them, the output gathered whole into every rank's ``enc_out``;
+the self-attention's cache is the rank's cut). An encode followed by the
+first decode step is the counterpart of the reference's enc-dec prefill
+lowering (``repro.launch.dryrun``: ``encode``, then the first decoder
+step).
 """
 from __future__ import annotations
 
@@ -98,9 +109,10 @@ class StepBuffers:
     the rank's compute blocks ``[P_rank]``, under ``layout``), the caches
     (the rank's cut), the token fed ``tok [B, 1]``, the position ``pos
     [B]`` (int64), the last position's logits ``logits [B, V]`` (whole:
-    gathered over the vocab cut), and a padded prompt ``[B, S]`` per
-    prefill length. ``plan`` is the rank's `repro_torch.sharding.tensor.
-    TensorPlan`, or None."""
+    gathered over the vocab cut), a padded prompt ``[B, S]`` per prefill
+    length, and for an enc-dec the frames ``[B, enc_seq_len,
+    frontend_dim]`` (f32) an encode reads. ``plan`` is the rank's
+    `repro_torch.sharding.tensor.TensorPlan`, or None."""
 
     def __init__(self, model: Model, batch: int, max_len: int,
                  device: torch.device, mesh=None):
@@ -108,9 +120,6 @@ class StepBuffers:
         cfg = model.cfg
         self.plan = None
         if mesh is not None:
-            if cfg.is_encdec:
-                raise ValueError(f"{cfg.name}: an enc-dec model is not "
-                                 "served over a model group")
             from repro_torch.launch.train import tensor_plan
             self.plan = tensor_plan(model, mesh)
         self.layout, place = model.layout, None
@@ -136,6 +145,9 @@ class StepBuffers:
                                   dtype=dtype_of(cfg.compute_dtype),
                                   device=device)
         self.prompts: Dict[int, torch.Tensor] = {}
+        self.frames = (torch.zeros((batch, cfg.enc_seq_len, cfg.frontend_dim),
+                                   dtype=torch.float32, device=device)
+                       if cfg.is_encdec else None)
         self.graphs = ProgramPool(device, eager=self.plan is not None and
                                   self.plan.view.backend == "gloo")
 
@@ -161,12 +173,19 @@ class StepBuffers:
         return self.model.decode(self.views, tokens, self.caches, cache_pos,
                                  **plan)[0]
 
+    def encode(self) -> None:
+        """The encoder output of ``frames`` into the caches' ``enc_out``
+        (over a model group, whole on every rank)."""
+        plan = {} if self.plan is None else {"plan": self.plan}
+        self.caches["enc_out"].copy_(self.model.encode(
+            self.views, self.frames, **plan))
+
     def pick(self, logits: torch.Tensor) -> None:
         """The last position's logits (the rank's vocab cut, all_gathered
-        over the model group) into ``logits``, their greedy token into
-        ``tok``."""
+        over the model group; whole where M does not divide the vocab)
+        into ``logits``, their greedy token into ``tok``."""
         last = logits[:, -1]
-        if self.plan is not None:
+        if self.plan is not None and self.plan.place.vocab:
             with torch.no_grad(), tensor.model_group(self.plan):
                 last = tensor.gather(last, dim=-1)
         self.logits.copy_(last)
@@ -217,6 +236,20 @@ def prefill_step_for(model: Model, batch: int, seq: int, max_len: int,
         st.pos.fill_(seq)
 
     return st.graphs.capture(body)
+
+
+@functools.lru_cache(maxsize=None)
+def encode_step_for(model: Model, batch: int, max_len: int,
+                    device: torch.device, mesh=None) -> Program:
+    """An enc-dec model's encode of the buffers' ``frames`` into the
+    caches' ``enc_out``; over ``mesh``'s model group the rank's share,
+    the output whole on every rank. The decode step (:func:`serve_step_for`)
+    then reads it: fed the prompt token by token from position 0, its
+    first step completes the reference's enc-dec prefill."""
+    st = step_buffers(model, batch, max_len, device, *_on(mesh))
+    if st.frames is None:
+        raise ValueError(f"{model.cfg.name} has no encoder")
+    return st.graphs.capture(st.encode)
 
 
 def generate(model: Model, params, prompt_tokens, max_new: int,

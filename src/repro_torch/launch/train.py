@@ -56,21 +56,19 @@ from repro_torch.optim import adamw_init, adamw_update_, make_schedule
 def tensor_plan(model: Model, mesh):
     """The `repro_torch.sharding.tensor.TensorPlan` of a split step of
     ``model`` on ``mesh``: its model group and placement; None with one
-    model rank. Raises where the group does not divide the padded vocab
-    (the logits and the loss are vocab-parallel); the forward raises
-    where it does not divide a sequence (an enc-dec's frames or tokens
-    too)."""
+    model rank. What the group does not divide stays whole, as the
+    reference's ``logical_shard`` leaves it UNCONSTRAINED: the logits and
+    ``lm_head`` where it does not divide the padded vocab (the loss then
+    the whole cross entropy, counted once over the group), the SSM's heads
+    where a rank's would read their groups unevenly, and the residual of a
+    sequence (an enc-dec's frames or tokens each on its own), which the
+    forward runs in the whole-residual form."""
     m = mesh.inner.get("model", 1)
     if m <= 1 or model.cfg is None:
         return None
     from repro_torch.sharding.rules import placement
     from repro_torch.sharding.tensor import TensorPlan
-    place = placement(model.cfg, m)
-    if not place.vocab:
-        raise ValueError(f"{model.cfg.name}: the padded vocab "
-                         f"{model.cfg.padded_vocab} does not divide over "
-                         f"model={m}")
-    return TensorPlan(mesh.model_view, place, model.cfg)
+    return TensorPlan(mesh.model_view, placement(model.cfg, m), model.cfg)
 
 
 class TrainStep:

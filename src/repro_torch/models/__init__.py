@@ -22,10 +22,14 @@ so the port's checkpoints use the reference's keys and either package's
   prefill(params, {tokens[, patch_embeds]}, caches) -> (last logits
           [B,1,V], caches); the enc-dec model has none (``prefill=None``),
           as in the reference: its prompt is fed token by token
+  encode(params, frames [B, S_enc, frontend_dim]) -> enc_out [B, S_enc,
+          D]: the enc-dec model's encoder (None for the others), whose
+          output a served enc-dec reads from its cache's ``enc_out``
   served over a model group (plan=, a TensorPlan: tensor parallelism,
-          `repro_torch.launch.serve` with a mesh), prefill and decode take
-          a rank's compute blocks and cut caches (``init_cache(..., place=)``)
-          and give its vocab cut of the logits
+          `repro_torch.launch.serve` with a mesh), prefill, decode and
+          encode take a rank's compute blocks and cut caches
+          (``init_cache(..., place=)``) and give its vocab cut of the
+          logits (the whole logits where M does not divide the vocab)
 
 The vlm model runs the LM backbone on the projected patch embeddings
 followed by the text tokens (its loss reads the text positions); decode is
@@ -58,7 +62,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.flat import FlatLayout
 from repro_torch.core.lora import is_adapter_path, lora_shapes
-from repro_torch.models.encdec import (decode_step, encdec_shapes,
+from repro_torch.models.encdec import (decode_step, encdec_shapes, encode,
                                        forward_encdec, init_encdec_,
                                        make_encdec_cache)
 from repro_torch.models.layers import dtype_of, embed, softmax_xent
@@ -77,6 +81,7 @@ class Model:
     init_cache: Callable[..., Any]        # (batch, max_len, device) -> caches
     prefill: Optional[Callable[..., Any]] = None
     layout: Optional[FlatLayout] = None
+    encode: Optional[Callable[..., Any]] = None   # (params, frames) -> enc
 
 
 def _leaves(shapes: dict, prefix: str = ""):
@@ -274,7 +279,8 @@ def _lm_model(cfg: ModelConfig, lora_rank: int) -> Model:
 
 
 def _encdec_model(cfg: ModelConfig, lora_rank: int) -> Model:
-    """The teacher-forced enc-dec; no prefill, as in the reference."""
+    """The teacher-forced enc-dec; no prefill, as in the reference (a
+    prompt is fed token by token), and its ``encode``."""
     layout, init, call = _node(cfg, encdec_shapes(cfg), init_encdec_,
                                lora_rank)
 
@@ -295,14 +301,34 @@ def _encdec_model(cfg: ModelConfig, lora_rank: int) -> Model:
             xent = softmax_xent(logits, batch["labels"], batch.get("mask"))
         return xent + aux, {"xent": xent, "aux": aux}
 
-    def decode(params, tokens, caches, cache_pos, commit=None):
-        logits, _, caches = call(params, decode_step, cfg, tokens, caches,
-                                 cache_pos, commit=commit)
+    def decode(params, tokens, caches, cache_pos, commit=None, plan=None):
+        """(logits [B,S,V], caches); with ``plan`` (serving over a model
+        group) ``params`` are the rank's compute blocks, ``caches`` its cut
+        (``enc_out`` whole), the logits its vocab cut, and the forward
+        records no gradient."""
+        if plan is not None:
+            with torch.no_grad(), tensor.model_group(plan):
+                logits, _, caches = decode_step(
+                    nest(params), cfg, tokens, caches, cache_pos,
+                    commit=commit)
+        else:
+            logits, _, caches = call(params, decode_step, cfg, tokens,
+                                     caches, cache_pos, commit=commit)
         return logits, caches
 
+    def encode_frames(params, frames, plan=None):
+        """The encoder output [B, S_enc, D] of ``frames``; with ``plan``
+        encoded over the model group (the frames' residual cut where M
+        divides them, the output gathered whole on every rank)."""
+        if plan is not None:
+            with torch.no_grad(), tensor.model_group(plan):
+                return encode(nest(params), cfg, frames)
+        return call(params, encode, cfg, frames)
+
     return Model(cfg, init, loss_fn, decode,
-                 lambda b, m, device: make_encdec_cache(cfg, b, m, device),
-                 None, layout)
+                 lambda b, m, device, place=None: make_encdec_cache(
+                     cfg, b, m, device, place),
+                 None, layout, encode_frames)
 
 
 def build_model(cfg: ModelConfig, lora_rank: int = 0) -> Model:

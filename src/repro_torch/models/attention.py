@@ -43,9 +43,13 @@ over the whole K/V, through the flash kernel's query offset, the weights
 whole). The enc-dec encoder's unmasked self-attention and the decoder's
 cross-attention (K/V from the whole encoder output, gathered once a
 forward) take the same two placements, ``causal=False`` and with no query
-offset: no mask needs one. Served, a rank's decode cache is the
-reference's placement (`repro_torch.sharding.rules.cache_cut`): K/V on
-its KV heads, else on its slice of the head dim, else whole.
+offset: no mask needs one. In the whole-residual form (a sequence M does
+not divide, a training step's too) a head-parallel rank runs its heads
+over every row, a sequence-parallel one every head. Served, a rank's
+decode cache is the reference's placement (`repro_torch.sharding.rules.
+cache_cut`): K/V on its KV heads, else on its slice of the head dim, else
+whole; a decode step's cross-attention takes q on the rank's heads (or
+all of them) and K/V from the whole encoder output on the same heads.
 """
 from __future__ import annotations
 

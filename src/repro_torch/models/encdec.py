@@ -17,19 +17,26 @@ Params are the reference's tree: ``frontend_proj``, ``enc_layers`` and
 place; the serving steps copy an encoder output into ``enc_out`` before
 their replays.
 
-**Tensor parallelism** (a split step on a model group, `repro_torch.
-sharding.tensor`; training forwards only, no cache): as the reference's
-``logical_shard`` calls place it, both residual streams are cut on the
-sequence. The frames are projected whole (``frontend_proj`` stays whole)
-and each rank keeps its rows; each encoder block enters its attention
-(unmasked) and its MLP with a gather and leaves them on the cut, as a
-decoder-only block does; ``enc_norm`` runs on the cut, and the encoder
-output is gathered **once** a forward for every decoder layer's
-cross-attention (the gather's backward sums all their cotangents in one
-reduce_scatter). The decoder embeds through the d_model-cut table's
-all_to_all; each of its blocks runs self-attention, cross-attention over
-the whole encoder output and the MLP on the cut; the logits are the
-rank's vocab cut, their padding columns masked by global index.
+**Tensor parallelism** (a split step or a served model on a model group,
+`repro_torch.sharding.tensor`): as the reference's ``logical_shard`` calls
+place it, each residual stream is cut on the sequence where M divides it
+and whole where it does not (:meth:`~repro_torch.sharding.tensor.
+TensorPlan.for_sequence`: the frames and the tokens pick their forms on
+their own). The frames are projected whole (``frontend_proj`` stays
+whole) and each rank keeps its rows (or all of them); each encoder block
+enters its attention (unmasked) and its MLP with a gather and leaves them
+on the cut, as a decoder-only block does; ``enc_norm`` runs on the cut,
+and the encoder output is gathered **once** a forward for every decoder
+layer's cross-attention (the gather's backward sums all their cotangents
+in one reduce_scatter; in the whole form no gather at all). The decoder
+embeds through the d_model-cut table's all_to_all; each of its blocks runs
+self-attention, cross-attention over the whole encoder output and the MLP
+on the cut; the logits are the rank's vocab cut, their padding columns
+masked by global index. Served (:func:`decode_step` with caches and a
+plan), the self-attention writes the rank's cut cache (K/V on its KV
+heads or its slice of the head dim) and the cross-attention reads the
+whole ``enc_out`` on the rank's heads; :func:`encode` over the group
+writes that encoder output (`repro_torch.launch.serve.encode_step_for`).
 """
 from __future__ import annotations
 
@@ -114,27 +121,42 @@ def _enc_block(lp, x, cfg: ModelConfig, positions):
 def encode(params, cfg: ModelConfig, frames, split=None):
     """frames [B, S_enc, frontend_dim] → enc_out [B, S_enc, D]; ``split``
     gathers each layer from a rank's blocks (`forward_lm`). Under tensor
-    parallelism the blocks run on the rank's cut of the frames (raises
-    where the model group does not divide them) and the output is
-    gathered whole once."""
+    parallelism the blocks run on the rank's cut of the frames and the
+    output is gathered whole once, or where the model group does not
+    divide the frames on all of them (the whole-residual form)."""
     tp = tensor.current()
+    if tp is not None and tp.for_sequence(frames.shape[1]) is not tp:
+        with tensor.model_group(tp.for_sequence(frames.shape[1])):
+            return encode(params, cfg, frames, split)
     x = linear(params["frontend_proj"],
                frames.to(dtype_of(cfg.compute_dtype)))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     if tp is not None:
-        tp.seq_cut(s)
-        x = tensor.local(x)
+        x = tensor.own(x)
     layer = _layer_source(params["enc_layers"], split, "enc_layers", False)
     for i in range(cfg.n_enc_layers):
         x = _enc_block(layer(i), x, cfg, positions)
     x = rmsnorm(params["enc_norm"], x, cfg.norm_eps)
-    return x if tp is None else tensor.gather(x)
+    return x if tp is None else tensor.enter(x)
 
 
 def make_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
-                      device) -> dict:
+                      device, place=None) -> dict:
+    """``{"self": per-layer {"k", "v"}, "enc_out": [B, enc_seq_len, D]}``
+    in the compute dtype; with ``place`` (a `repro_torch.sharding.rules.
+    Placement`) a model rank's: the self K/V its cut, ``enc_out`` whole
+    (`repro_torch.sharding.rules.cache_shapes`)."""
     dtype = dtype_of(cfg.compute_dtype)
+    if place is not None:
+        from repro_torch.sharding.rules import cache_shapes
+        shapes = cache_shapes(cfg, place, batch, max_len)
+        return {"self": [{key: torch.zeros(shapes[key], dtype=dtype,
+                                           device=device)
+                          for key in ("k", "v")}
+                         for _ in range(cfg.n_layers)],
+                "enc_out": torch.zeros(shapes["enc_out"], dtype=dtype,
+                                       device=device)}
     return {"self": [make_cache(cfg, batch, max_len, dtype, device)
                      for _ in range(cfg.n_layers)],
             "enc_out": torch.zeros((batch, cfg.enc_seq_len, cfg.d_model),
@@ -156,11 +178,13 @@ def _dec_block(lp, x, cfg: ModelConfig, positions, enc_out, cache,
                cache_pos, commit):
     """One decoder block: self-attention (``cache`` written in place when
     given), cross-attention over ``enc_out``, the MLP; under tensor
-    parallelism on the rank's cut of the tokens, ``enc_out`` whole."""
+    parallelism on the rank's cut of the tokens (or all of them),
+    ``enc_out`` whole, ``cache`` the rank's cut."""
     split = tensor.current() is not None
     a = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
     if split:
-        x = x + attention_tp(lp["attn"], a, cfg, positions=positions)
+        x = x + attention_tp(lp["attn"], a, cfg, positions=positions,
+                             cache=cache, cache_pos=cache_pos, commit=commit)
     else:
         x = x + attention(lp["attn"], a, cfg, positions=positions,
                           cache=cache, cache_pos=cache_pos, commit=commit)
@@ -187,19 +211,23 @@ def decode_step(params, cfg: ModelConfig, tokens, caches: Optional[dict],
     every decoder block, as the reference's ``jax.checkpoint`` of its
     decoder body (the encoder is not checkpointed), and ``split`` gathers
     each layer from a rank's blocks (`forward_lm`). Under tensor
-    parallelism (no caches) the blocks run on the rank's cut of the
-    tokens (raises where the model group does not divide them) and the
-    logits are its vocab cut."""
+    parallelism the blocks run on the rank's cut of the tokens, or where
+    the model group does not divide them on all of them (the
+    whole-residual form: a served step's one token), the caches the
+    rank's cut; the logits are its vocab cut (whole where M does not
+    divide the padded vocab)."""
     compute_dtype = dtype_of(cfg.compute_dtype)
     tp = tensor.current()
     b, s = tokens.shape[:2]
+    if tp is not None and tp.for_sequence(s) is not tp:
+        with tensor.model_group(tp.for_sequence(s)):
+            return decode_step(params, cfg, tokens, caches, cache_pos,
+                               enc_out=enc_out, commit=commit, remat=remat,
+                               split=split)
     if tp is None:
         x = embed(params["embed"], tokens, compute_dtype)
-    elif caches is not None:
-        raise ValueError("a tensor-parallel forward takes no caches")
     else:
-        tp.seq_cut(s)
-        x = embed_tp(params["embed"], tokens, cfg)
+        x = embed_tp(params["embed"], tokens, cfg, whole=tp.whole)
     if enc_out is None:
         enc_out = caches["enc_out"].to(compute_dtype)
     ar = torch.arange(s, device=x.device)
@@ -223,7 +251,7 @@ def decode_step(params, cfg: ModelConfig, tokens, caches: Optional[dict],
                            cache_pos, commit)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if tp is not None:
-        x = tensor.gather(x)
+        x = tensor.enter(x)
     logits = x @ params["lm_head"]["w"].to(x.dtype)
     if cfg.padded_vocab != cfg.vocab_size:  # mask the padding columns
         v = logits.shape[-1]

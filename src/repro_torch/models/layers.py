@@ -141,14 +141,20 @@ def softmax_xent(logits, labels, mask: Optional[torch.Tensor] = None):
     mean is ``D`` times the rank's masked sum over the group's token count,
     so that the node's loss is the mean of its ranks' (the unmasked mean of
     equal row counts already is). Under tensor parallelism ``logits`` is
-    the rank's vocab cut (`repro_torch.sharding.tensor.vocab_xent`)."""
-    if tensor.current() is not None:
+    the rank's vocab cut (`repro_torch.sharding.tensor.vocab_xent`), or
+    where the placement keeps the vocab whole the whole logits, alike on
+    every rank: their cross entropy goes through `repro_torch.sharding.
+    tensor.replicated`, so its gradient counts once over the group."""
+    tp = tensor.current()
+    if tp is not None and tp.place.vocab:
         nll = tensor.vocab_xent(logits, labels)
     else:
         lf = logits.to(torch.float32)
         logz = torch.logsumexp(lf, dim=-1)
         gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
         nll = logz - gold
+        if tp is not None:
+            nll = tensor.replicated(nll)
     if mask is None:
         return torch.mean(nll)
     mask = mask.to(torch.float32)

@@ -41,8 +41,10 @@ of the combine leaves by a reduce_scatter onto its cut of the sequence,
 rounded once; otherwise (the reference's fallback: experts whole) it runs
 every expert and keeps its own rows. The aux loss counts once: its
 gradient is divided over the group. In the whole-residual form (a decode
-step, a prompt M does not divide) every rank routes every row alike, and
-the cut experts' shares leave by an all_reduce.
+step, a prompt or a training sequence M does not divide) every rank
+routes every row alike, and the cut experts' shares leave by an
+all_reduce (its backward an all_reduce of the rows' partial cotangents;
+with the experts whole each rank keeps its partial).
 """
 from __future__ import annotations
 

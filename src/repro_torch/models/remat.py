@@ -127,14 +127,20 @@ class _TensorCheckpoint(_GatheredCheckpoint):
     collectives (`repro_torch.sharding.tensor`), which run on plain
     tensors only, so the backward recomputes the block under plain
     autograd (``torch.autograd.grad`` of its outputs against the
-    cotangents), not under ``torch.func.grad``, in the split's model
-    group (the backward runs after the loss has left it)."""
+    cotangents), not under ``torch.func.grad``, in the model group and
+    the form its forward ran in (the cut or the whole residual; the
+    backward runs after the loss has left it)."""
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _GatheredCheckpoint.setup_context(ctx, inputs, output)
+        ctx.plan = tensor.current()
 
     @staticmethod
     def backward(ctx, *cotangents):
         shards = ctx.shards
         leaves = list(ctx.saved_tensors)
-        with torch.enable_grad(), tensor.model_group(shards.split.tensor):
+        with torch.enable_grad(), tensor.model_group(ctx.plan):
             ins = [t.detach().requires_grad_() if t.is_floating_point()
                    else t for t in leaves]
             whole = [t.requires_grad_() for t in shards.assemble()]

@@ -21,8 +21,11 @@ divides them (the reference's ``ff`` on the heads axis): a rank runs the
 SSD scan on its ``h / M`` heads over the gathered sequence, the conv on
 its channels, B and C whole (or the groups its heads read), and the
 gated norm's mean over all of ``d_inner`` sums the rank's squares over the
-group (f32); ``out_proj`` is row-parallel. Otherwise every rank runs the
-whole mixer on the gathered sequence and keeps its rows. Serving keeps a
+group (f32); ``out_proj`` is row-parallel. Otherwise (M does not divide
+the heads, or a rank's heads would read their groups unevenly) every rank
+runs the whole mixer on the gathered sequence and keeps its rows. In the
+whole-residual form (a sequence M does not divide, with or without a
+gradient) the gathered sequence is every rank's own. Serving keeps a
 rank's state on its heads: a prefill's final SSD state of its heads and
 the conv tail of its channels, a decode step's O(1) update on them, the
 gated norm's sum of squares and ``out_proj`` all_reduced (the

@@ -30,11 +30,14 @@ hybrid's attention and SSM halves, each with its own placement) and
 leaves them on the cut (:func:`block_apply`); the embedding's lookup ends
 on the cut (:func:`embed_tp`), the final norm runs on it, and the logits
 are the rank's vocab cut of the gathered sequence, their padding columns
-masked by their global index. Where M does not divide the sequence (a
-decode step's one token, a prompt of odd length) a forward that records
-no gradient runs in the whole-residual form: every rank holds every row,
-as the reference's UNCONSTRAINED ``res_seq`` leaves it; the caches are
-then the rank's cut (:func:`make_lm_cache` with a placement).
+masked by their global index (the whole logits where M does not divide
+the padded vocab). Where M does not divide the sequence (a decode step's
+one token, a prompt or a training sequence of odd length) the forward runs
+in the whole-residual form, with or without a gradient: every rank holds
+every row, as the reference's UNCONSTRAINED ``res_seq`` leaves it, and its
+backward carries the partial cotangents `repro_torch.sharding.tensor`
+describes; a served model's caches are the rank's cut
+(:func:`make_lm_cache` with a placement).
 """
 from __future__ import annotations
 
@@ -347,8 +350,6 @@ def forward_lm(params, cfg: ModelConfig, tokens=None, *, embeds=None,
                 return forward_lm(params, cfg, tokens, embeds=embeds,
                                   caches=caches, cache_pos=cache_pos,
                                   commit=commit, remat=remat, split=split)
-        if not tp.whole:
-            tp.seq_cut(s)   # raises where the group does not divide s
         # the rank's cut of the sequence (its whole length: s), or every
         # row in the whole-residual form
         x = (embed_tp(emb_p, tokens, cfg, whole=tp.whole) if embeds is None

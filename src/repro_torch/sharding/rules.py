@@ -41,7 +41,8 @@ gathered instead. :func:`compute_blocks` gives a node's every leaf's
 block for a rank that serves from its blocks alone, and
 :func:`cache_cut` / :func:`cache_shapes` the reference's decode-cache
 placement (K/V on ``kv_heads``, else ``head_dim``; the SSM state on its
-heads). ``shardings_for`` has no counterpart.
+heads; an enc-dec's encoder output whole). ``shardings_for`` has no
+counterpart.
 """
 from __future__ import annotations
 
@@ -213,9 +214,11 @@ class Placement:
     ``ff`` the MLP's hidden axis cut; ``experts`` the MoE's experts cut
     (else whole, each rank running every expert on its rows); ``ssm_heads``
     the SSM's heads cut (its B/C columns whole, or the groups its heads
-    read); ``embed`` the embedding table's cut (``"vocab"`` for a tied
+    read; whole where a rank's heads would read their groups unevenly, as
+    ``ff`` and the experts are taken whole); ``embed`` the embedding table's cut (``"vocab"`` for a tied
     table, ``"d_model"`` for an input-only one, or ``"whole"``); ``vocab``
-    the logits cut (the tied table or ``lm_head``)."""
+    the logits cut (the tied table or ``lm_head``; with ``vocab`` False the
+    logits and ``lm_head`` stay whole and a tied table ``"whole"``)."""
     model: int
     attention: str
     ff: bool
@@ -240,7 +243,8 @@ def placement(cfg, model: int) -> Placement:
     attention = "none" if cfg.family == "ssm" else (
         "heads" if cut("kv_heads", cfg.n_kv_heads) else "sequence")
     ssm = cfg.family in ("ssm", "hybrid") and cut("ff", cfg.n_ssm_heads) \
-        and cut("ff", cfg.d_inner)
+        and cut("ff", cfg.d_inner) and all(
+            _groups_even(cfg, sizes["model"], r) for r in range(model))
     vocab = cut("vocab", cfg.padded_vocab)
     if cfg.tie_embeddings:
         embed = "vocab" if vocab else "whole"
@@ -260,20 +264,34 @@ def _chunk(n: int, m: int, i: int) -> Intervals:
     return ((i * (n // m), n // m),)
 
 
-def ssm_groups_of(cfg, model: int, rank: int) -> Tuple[int, int]:
-    """``(first group, groups)`` of the SSM's B/C groups that model rank
-    ``rank``'s heads read under a heads cut; raises where its heads read
-    their groups unevenly (the scan maps local head j to local group
-    j // (heads / groups))."""
+def _groups_read(cfg, model: int, rank: int) -> Tuple[int, int]:
+    """``(first group, groups)`` of the SSM's B/C groups model rank
+    ``rank``'s heads read under a heads cut."""
     h, g = cfg.n_ssm_heads, cfg.ssm_groups
     hl, per = h // model, h // g
     h0 = rank * hl
-    g0, g1 = h0 // per, (h0 + hl - 1) // per
-    ng = g1 - g0 + 1
-    if not (ng == 1 or (hl % per == 0 and h0 % per == 0)):
-        raise ValueError(f"{cfg.name}: {hl} SSM heads a rank read "
-                         f"{g} groups unevenly")
-    return g0, ng
+    return h0 // per, (h0 + hl - 1) // per - h0 // per + 1
+
+
+def _groups_even(cfg, model: int, rank: int) -> bool:
+    """Whether model rank ``rank``'s heads read their groups evenly: one
+    group, or whole groups from a group's first head (the scan maps local
+    head j to local group j // (heads / groups))."""
+    hl, per = cfg.n_ssm_heads // model, cfg.n_ssm_heads // cfg.ssm_groups
+    return _groups_read(cfg, model, rank)[1] == 1 or (
+        hl % per == 0 and rank * hl % per == 0)
+
+
+def ssm_groups_of(cfg, model: int, rank: int) -> Tuple[int, int]:
+    """``(first group, groups)`` of the SSM's B/C groups that model rank
+    ``rank``'s heads read under a heads cut; raises where its heads read
+    their groups unevenly (:func:`placement` keeps the heads whole
+    there)."""
+    if not _groups_even(cfg, model, rank):
+        raise ValueError(f"{cfg.name}: {cfg.n_ssm_heads // model} SSM "
+                         f"heads a rank read {cfg.ssm_groups} groups "
+                         "unevenly")
+    return _groups_read(cfg, model, rank)
 
 
 def compute_cut(cfg, place: Placement, path: str, shape: Sequence[int],
@@ -390,7 +408,10 @@ def cache_shapes(cfg, place: Placement, batch: int, max_len: int
     (``"head_dim"``) or whole; under an SSM heads cut the SSD state
     ``[B, H/M, P, N]`` (f32) and the conv tail ``[B, W-1, C]`` on the
     channels of the rank's conv compute block (its heads' x columns and
-    the B/C groups they read), else both whole."""
+    the B/C groups they read), else both whole. An enc-dec's self K/V
+    are its decoder layers' (cut as above) and ``enc_out`` ``[B,
+    enc_seq_len, D]`` is its one encoder output, whole on every rank (the
+    reference's ``cache_specs``)."""
     out = {}
     m = place.model
     if cfg.family != "ssm":
@@ -408,4 +429,6 @@ def cache_shapes(cfg, place: Placement, batch: int, max_len: int
             di, h, groups = di // m, h // m, ssm_groups_of(cfg, m, 0)[1]
         out["ssd"] = (batch, h, cfg.d_inner // cfg.n_ssm_heads, n)
         out["conv"] = (batch, cfg.conv_width - 1, di + 2 * groups * n)
+    if cfg.is_encdec:
+        out["enc_out"] = (batch, cfg.enc_seq_len, cfg.d_model)
     return out

@@ -28,9 +28,10 @@ transformer`, ``encdec``, ``attention``, ``moe``, ``ssm``) reads
 * the SSM's gated norm averages over all of ``d_inner``: the sum of
   squares of a rank's heads goes through :func:`all_reduce` (f32, both
   ways);
-* the logits are cut on the vocab and the loss is :func:`vocab_xent`:
-  the max, the sum of exps and the target's logit each all_reduced in
-  f32, the gradient the rank's own slice of ``softmax − onehot``;
+* the logits are cut on the vocab where M divides it and the loss is
+  :func:`vocab_xent`: the max, the sum of exps and the target's logit
+  each all_reduced in f32, the gradient the rank's own slice of
+  ``softmax − onehot`` (else the logits whole on the gathered sequence);
 * a value every model rank computes alike from the same inputs (the MoE
   router's aux loss) goes through :func:`replicated`: its gradient counts
   once over the group.
@@ -45,15 +46,32 @@ activations run in f32 and round once. The collectives' bytes count as
 any ``torch.func`` transform, as `repro_torch.models.gather`'s gathers.
 
 **The whole residual.** A forward whose sequence M does not divide (a
-decode step's one token, a prompt of odd length at M = 2) runs in the
-plan's whole-residual form (:meth:`TensorPlan.for_sequence`), where the
-reference's ``logical_shard`` leaves ``res_seq`` UNCONSTRAINED: every rank
-holds the whole rows, a block enters with no gather (:func:`enter`), a
-cut block leaves with :func:`all_reduce` (f32, rounded once) in place of
-:func:`scatter_sum` (:func:`leave`), and a block computed whole keeps all
-of it (:func:`own`). Only a forward that records no gradient takes that
-form: a training step's sequence must divide (:meth:`TensorPlan.
-seq_cut` raises). Its bytes count under the same ``tp_*`` kinds.
+decode step's one token, a prompt or a training sequence of odd length at
+M = 2, an enc-dec's frames or tokens, each picking its form on its own)
+runs in the plan's whole-residual form (:meth:`TensorPlan.for_sequence`),
+where the reference's ``logical_shard`` leaves ``res_seq`` UNCONSTRAINED:
+every rank holds the whole rows, a block enters with no gather
+(:func:`enter`), a cut block leaves with :func:`all_reduce` (f32, rounded
+once) in place of :func:`scatter_sum` (:func:`leave`), and a block
+computed whole keeps all of it (:func:`own`). Its bytes count under the
+same ``tp_*`` kinds (``leave``'s all_reduce moves again in the backward).
+
+**The gradient in the two forms.** In the cut form a rank's cotangent of
+an activation is the true one on its own rows. In the whole form every
+rank holds every row, and a rank's cotangent of a replicated activation is
+a **partial**: the partials sum over the model group to the true one.
+:func:`enter` is the identity both ways; :func:`leave` is an all_reduce
+both ways, which turns the partials into the true cotangent for the
+block's cut weights, whose input cotangent is again the rank's partial; a
+block computed whole keeps its partial (its backward is linear in it, so
+every leaf's shares still sum to the whole node's). The vocab-cut loss
+(:func:`vocab_xent`) gives each rank only its slice's gradient, already a
+partial of the whole rows. Where the logits are whole (M does not divide
+the padded vocab) every rank would backprop the whole gradient and the
+shares would sum to M times the truth, so the whole logits' loss goes
+through :func:`replicated` (its gradient divided by M), in either form.
+Remat's recompute (`repro_torch.models.remat`) runs in the plan its
+forward ran in.
 
 The group is a module global, not a thread-local: the autograd engine may
 run a backward on a thread of its own.
@@ -83,17 +101,16 @@ class TensorPlan:
 
     def for_sequence(self, s: int) -> "TensorPlan":
         """The form a forward of ``s`` positions runs in: the residual cut
-        on the sequence where the group divides ``s``, else (with no
-        gradient recorded) the whole-residual form; a forward that records
-        a gradient keeps the cut, whose :meth:`seq_cut` raises."""
-        if self.whole or not s % self.size or torch.is_grad_enabled():
+        on the sequence where the group divides ``s``, else the
+        whole-residual form, with or without a gradient recorded."""
+        if self.whole or not s % self.size:
             return self
         return TensorPlan(self.view, self.place, self.cfg, whole=True)
 
     def seq_cut(self, s: int):
-        """``(start, length)`` of this rank's rows of a sequence of ``s``;
-        raises where the group does not divide it (the reference would
-        leave the residual to the compiler there)."""
+        """``(start, length)`` of this rank's rows of a sequence of ``s``,
+        the cut form's check: raises where the group does not divide it
+        (:meth:`for_sequence` takes the whole form there)."""
         if s % self.size:
             raise ValueError(f"a sequence of {s} does not divide over the "
                              f"{self.size} ranks of the model group")

@@ -20,8 +20,12 @@ Worlds of `tests/torch_gossip_world.py`, gloo on the CPU:
     unsharded step's, the bytes by kind against the layout's count
     (`chip_smoke._tp_bytes`), what a rank gathers, the split gate's
     metric against the whole node's; the enc-dec's sequence-parallel form
-    (one KV head, a padded vocab) against the whole node's step, and its
-    refusal of a sequence the model group does not divide;
+    (one KV head, a padded vocab) against the whole node's step, in its
+    four pairs of encoder and decoder forms (odd frames or tokens: the
+    whole residual), each against the whole node's step and the JAX
+    package's; the ``TP_UNEVEN`` steps (an odd sequence, an odd unpadded
+    vocab, SSM heads that read their groups unevenly) against the JAX
+    package's step and the whole node's, with their bytes;
   * ``tp_encdec_gate`` (2, 1, 2): an enc-dec smoke session's split gate
     against its whole-node gate.
 
@@ -61,7 +65,7 @@ from repro_torch.core.flat import ShardLayout
 from repro_torch.kernels.ref import attention_ref, flash_attention_plain
 from repro_torch.models import build_model, nest
 from repro_torch.sharding.rules import (block_spec, compute_cut, param_specs,
-                                        placement)
+                                        placement, ssm_groups_of)
 
 pytestmark = pytest.mark.spmd
 
@@ -95,19 +99,43 @@ def _numpy_tree(jm, rng):
         leaf, jax.eval_shape(jm.init, jax.random.key(0)))
 
 
-def _jax_steps(arch, rng):
-    """The JAX package's smoke ``arch`` from its own init (an enc-dec's
-    drawn from ``rng``): the converted flat params, the batches (an
-    enc-dec's frames too), TP_JAX_STEPS steps' losses and params."""
-    jcfg = jconfigs.smoke_variant(jconfigs.get_config(arch))
+def _jax_model(arch, rng, changes=None):
+    """The JAX package's smoke ``arch`` (with config ``changes``) from its
+    own init (an enc-dec's drawn from ``rng``): (the model, its params,
+    the port's layout)."""
+    jcfg = jconfigs.smoke_variant(jconfigs.get_config(arch)).replace(
+        **(changes or {}))
     jm = jbuild(jcfg)
-    layout = build_model(smoke_variant(get_config(arch))).layout
+    layout = build_model(smoke_variant(get_config(arch)).replace(
+        **(changes or {}))).layout
     tree = (_numpy_tree(jm, rng) if jcfg.is_encdec
             else jm.init(jax.random.key(0)))
-    flat = lm_params_from_reference(layout, jax.tree.map(np.asarray, tree))
+    return jm, tree, layout
+
+
+def _jax_run(jm, tree, batch, steps):
+    """``steps`` steps of `repro.launch.train.make_train_step` (remat off)
+    on ``batch`` (arrays ``[steps, ...]``): the losses and the params."""
     opt = jadamw_init(tree)
     step = jax.jit(jtrain.make_train_step(jm, JTrainConfig(
         lr=1e-4, warmup_steps=0, max_steps=10, remat=False)))
+    losses = []
+    for k in range(steps):
+        tree, opt, m = step(tree, opt, {
+            key: jnp.asarray(v[k].astype(np.int32) if v.dtype == np.int64
+                             else v[k]) for key, v in batch.items()})
+        losses.append(float(m["loss"]))
+    return {"loss": np.asarray(losses),
+            "params": jax.tree.map(np.asarray, tree)}
+
+
+def _jax_steps(arch, rng):
+    """The JAX package's smoke ``arch``: the converted flat params, the
+    batches (an enc-dec's frames too) and a thunk running TP_JAX_STEPS
+    steps (`_jax_run`)."""
+    jm, tree, layout = _jax_model(arch, rng)
+    jcfg = jm.cfg
+    flat = lm_params_from_reference(layout, jax.tree.map(np.asarray, tree))
     toks = rng.integers(0, jcfg.vocab_size, (
         W.TP_JAX_STEPS, W.TP_JAX_BATCH, W.TP_JAX_SEQ + 1))
     batch = {"tokens": toks[..., :-1].astype(np.int64),
@@ -116,15 +144,38 @@ def _jax_steps(arch, rng):
         batch["frames"] = rng.normal(0, 1, (
             W.TP_JAX_STEPS, W.TP_JAX_BATCH, jcfg.enc_seq_len,
             jcfg.frontend_dim)).astype(np.float32)
-    losses = []
-    for k in range(W.TP_JAX_STEPS):
-        tree, opt, m = step(tree, opt, {
-            key: jnp.asarray(v[k].astype(np.int32) if v.dtype == np.int64
-                             else v[k]) for key, v in batch.items()})
-        losses.append(float(m["loss"]))
     return (dict(batch, flat=flat.numpy()),
-            {"loss": np.asarray(losses),
-             "params": jax.tree.map(np.asarray, tree)})
+            lambda: _jax_run(jm, tree, batch, W.TP_JAX_STEPS))
+
+
+def _encdec_pair_batch(b, what):
+    """The enc-dec's batch ``b`` with its frames, tokens or both one
+    shorter (`W.TP_ENCDEC_PAIRS`)."""
+    out = dict(b)
+    if what in ("frames", "both"):
+        out["frames"] = b["frames"][:, 1:]
+    if what in ("tokens", "both"):
+        out["tokens"], out["labels"] = b["tokens"][:, 1:], b["labels"][:, 1:]
+    return out
+
+
+def _encdec_pair_runs(inputs):
+    """Thunks of the JAX package's step of the enc-dec's sequence-parallel
+    form (`W.TP_ENCDEC_SEQ`) from the port's seed-0 init, one a pair of
+    `W.TP_ENCDEC_PAIRS`, keyed ``encdec_seq/<pair>``."""
+    arch, changes = W.TP_ENCDEC_SEQ
+    model = build_model(smoke_variant(get_config(arch)).replace(**changes))
+    p0 = model.init(torch.Generator().manual_seed(0), "cpu")
+    tree = jax.tree.map(jnp.asarray, lm_params_to_reference(model.layout,
+                                                            p0))
+    jm = jbuild(jconfigs.smoke_variant(jconfigs.get_config(arch)).replace(
+        **changes))
+    b = {k: inputs[f"encdec_seq/{k}"] for k in ("tokens", "labels",
+                                                "frames")}
+    return {f"encdec_seq/{what}": (
+        lambda bad=_encdec_pair_batch(b, what): _jax_run(
+            jm, tree, {k: v[None] for k, v in bad.items()}, 1))
+        for what in W.TP_ENCDEC_PAIRS}
 
 
 def _spawn(d, task, world, env):
@@ -142,11 +193,21 @@ def worlds(tmp_path_factory):
     JAX package's steps."""
     d = tmp_path_factory.mktemp("tp")
     rng = np.random.default_rng(8)
-    inputs, want = W.tp_inputs(), {}
+    inputs, runs = W.tp_inputs(), {}
     for fam, arch in W.TP_ARCHS:
-        port, want[fam] = _jax_steps(arch, rng)
+        port, runs[fam] = _jax_steps(arch, rng)
         inputs.update({f"jax/{fam}/{k}": v for k, v in port.items()})
     inputs.update(W.tp_encdec_batch(rng))
+    for name, arch, changes, _, _ in W.TP_UNEVEN:
+        jm, tree, layout = _jax_model(arch, rng, changes)
+        batch = W.tp_uneven_batch(name, rng)
+        inputs[f"uneven/{name}/flat"] = lm_params_from_reference(
+            layout, jax.tree.map(np.asarray, tree)).numpy()
+        inputs.update({f"uneven/{name}/{k}": v for k, v in batch.items()})
+        runs[f"uneven/{name}"] = (lambda jm=jm, tree=tree, batch=batch:
+                                  _jax_run(jm, tree, {k: v[None] for k, v
+                                                      in batch.items()}, 1))
+    runs.update(_encdec_pair_runs(inputs))
     np.savez(d / "inputs.npz", **inputs)
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     sizes = {"tp_units": int(np.prod(W.TP_UNITS)),
@@ -156,6 +217,8 @@ def worlds(tmp_path_factory):
     try:
         for task, n in sizes.items():
             procs += _spawn(d, task, n, env)
+        # the JAX package's steps while the worlds run
+        want = {key: run() for key, run in runs.items()}
         logs = [p.communicate(timeout=TIMEOUT)[0] for p in procs]
     finally:
         for p in procs:
@@ -230,6 +293,40 @@ def test_placement_follows_the_references_decisions(arch, m, want):
     place = placement(get_config(arch), m)
     for key, value in want.items():
         assert getattr(place, key) == value, (key, place)
+
+
+@pytest.mark.parametrize("groups,heads,m,even", [
+    (3, 6, 2, False), (1, 8, 2, True), (2, 8, 2, True), (4, 8, 2, True),
+    (2, 8, 4, True), (4, 8, 8, True), (2, 6, 3, False)])
+def test_placement_keeps_unevenly_read_ssm_groups_whole(groups, heads, m,
+                                                        even):
+    """The SSM's heads are cut only where each rank's heads read their B/C
+    groups evenly (one group, or whole groups from a group's first head):
+    6 heads in 3 groups at M = 2 (3 heads a rank over 2 groups) and at
+    M = 3 over 2 groups of 3 stay whole, as ``ff`` and the experts do where
+    M does not divide them; ``ssm_groups_of`` raises only there."""
+    cfg = smoke_variant(get_config("mamba2-370m")).replace(
+        d_model=32 * heads, ssm_groups=groups)
+    assert cfg.n_ssm_heads == heads
+    assert placement(cfg, m).ssm_heads == even
+    if not even:
+        with pytest.raises(ValueError):
+            ssm_groups_of(cfg, m, 0 if (groups, m) == (3, 2) else 1)
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "granite-moe-3b-a800m"])
+def test_placement_keeps_an_undivided_vocab_whole(arch):
+    """An odd unpadded vocab at M = 2: the logits and ``lm_head`` whole, a
+    tied table whole, an input-only table still cut on d_model."""
+    cfg = smoke_variant(get_config(arch)).replace(vocab_size=501,
+                                                  vocab_pad_to=0)
+    place = placement(cfg, 2)
+    assert not place.vocab
+    assert place.embed == ("whole" if cfg.tie_embeddings else "d_model")
+    d, v = cfg.d_model, cfg.padded_vocab
+    if not cfg.tie_embeddings:
+        assert compute_cut(cfg, place, "lm_head.w", (d, v), 1) == (
+            ((0, d),), ((0, v),))
 
 
 def test_block_spec_is_the_per_layer_rule():
@@ -708,13 +805,149 @@ def test_encdec_bytes_match_the_layout_with_one_encoder_output_gather(
 @pytest.mark.parametrize("world", list(W.TP_WORLDS))
 def test_encdec_split_raises_where_model_does_not_divide_a_sequence(
         worlds, world):
-    """An enc-dec split step at model 2 with 23 frames or 15 tokens raises
-    on every rank (`TensorPlan.seq_cut`), never falls back to the
-    whole-layer split."""
+    """An enc-dec split step at model 2 with 23 frames, 15 tokens or both
+    (`W.TP_ENCDEC_PAIRS`: the encoder, the decoder or both in the
+    whole-residual form, each stack picking its form on its own) no longer
+    raises: against the whole node's step on the same batch, every leaf's
+    gradient within 1e-4 of its largest magnitude, the loss within rtol
+    1e-5, the params within rtol 1e-4, atol 1e-4, the split gate's metric
+    within 1e-5; its bytes by kind and the gate's the layout's count
+    (`chip_smoke._tp_bytes` with the whole forms)."""
+    n, d, m = W.TP_WORLDS[world]
+    arch, changes = W.TP_ENCDEC_SEQ
+    cfg = smoke_variant(get_config(arch)).replace(**changes)
+    layout = build_model(cfg).layout
+    sizes = {"data": d, "model": m}
+    specs = param_specs(layout, dict(node=n, **sizes))
+    inp = worlds["inputs"]
+    b = {k: inp[f"encdec_seq/{k}"] for k in ("tokens", "labels", "frames")}
+    for what in W.TP_ENCDEC_PAIRS:
+        bad = _encdec_pair_batch(b, what)
+        tokens, frames = bad["tokens"], bad["frames"].shape[1]
+        for out in worlds[world]:
+            _hold_against_whole(out, f"encdec_seq/{what}")
+            coords = {"data": int(out["coords"][0]),
+                      "model": int(out["coords"][1])}
+            sh = ShardLayout(layout, specs, sizes, coords)
+            _hold_bytes(out, f"encdec_seq/{what}", W.tp_bytes(
+                sh, cfg, cfg.n_layers, 4, tokens.shape[0] // d,
+                tokens.shape[1], d > 1, val=tokens.shape, frames=frames))
+
+
+def _hold_against_whole(out, key):
+    """A split step's record (`W._split_against_whole`) against the whole
+    node's step: gradients, loss, params and the split gate's metric."""
+    rel = out[f"{key}/grad_rel"]
+    assert rel.size and rel.max() <= GRAD_REL, (key, rel)
+    split, whole = out[f"{key}/loss"]
+    np.testing.assert_allclose(split, whole, rtol=LOSS_RTOL, err_msg=key)
+    np.testing.assert_allclose(out[f"{key}/params"], out[f"{key}/whole"],
+                               err_msg=key, **PARAMS_TOL)
+    split, whole = out[f"{key}/gate"]
+    assert abs(split - whole) <= 1e-5, (key, split, whole)
+
+
+def _hold_bytes(out, key, counted):
+    """A split step's and its split gate's bytes by kind against the
+    layout's count ``(step, gate)``."""
+    step, gate = counted
+    got = {k[len(f"{key}/bytes/"):]: int(v) for k, v in out.items()
+           if k.startswith(f"{key}/bytes/")}
+    got.pop("step_control", None)
+    assert got == step, (key, got, step)
+    got = {k[len(f"{key}/gate_bytes/"):]: int(v) for k, v in out.items()
+           if k.startswith(f"{key}/gate_bytes/")}
+    assert got == gate, (key, got, gate)
+
+
+def _hold_jax(out, key, layout, want):
+    """A split step's loss within rtol 1e-5 and its node's params within
+    rtol 1e-4, atol 1e-4 of the JAX package's step ``want``."""
+    np.testing.assert_allclose(out[f"{key}/loss"][0], want["loss"][0],
+                               rtol=LOSS_RTOL, err_msg=key)
+    g = _leaves(lm_params_to_reference(layout, torch.from_numpy(
+        out[f"{key}/params"])))
+    w = _leaves(want["params"])
+    assert set(g) == set(w)
+    for path in w:
+        np.testing.assert_allclose(g[path], w[path], err_msg=f"{key} {path}",
+                                   **PARAMS_TOL)
+
+
+@pytest.mark.parametrize("world", list(W.TP_WORLDS))
+@pytest.mark.parametrize("what", W.TP_ENCDEC_PAIRS)
+def test_encdec_whole_forms_match_the_jax_package(worlds, world, what):
+    """The enc-dec split step with its frames, its tokens or both in the
+    whole-residual form, from the port's seed-0 init: its loss within rtol
+    1e-5 and its node's params within rtol 1e-4, atol 1e-4 of
+    `repro.launch.train.make_train_step` on the same batch and params."""
+    arch, changes = W.TP_ENCDEC_SEQ
+    layout = build_model(smoke_variant(get_config(arch)).replace(
+        **changes)).layout
     for out in worlds[world]:
-        for what in ("frames", "tokens"):
-            msg = str(out[f"encdec_seq/raises/{what}"])
-            assert "does not divide over the 2 ranks" in msg, (what, msg)
+        _hold_jax(out, f"encdec_seq/{what}", layout,
+                  worlds["jax"][f"encdec_seq/{what}"])
+
+
+UNEVEN = [c[0] for c in W.TP_UNEVEN]
+
+
+def _uneven(name):
+    _, arch, changes, seq, frames = next(c for c in W.TP_UNEVEN
+                                         if c[0] == name)
+    return smoke_variant(get_config(arch)).replace(**changes), seq, frames
+
+
+@pytest.mark.parametrize("world", list(W.TP_WORLDS))
+@pytest.mark.parametrize("name", UNEVEN)
+def test_uneven_split_step_matches_the_jax_package(worlds, world, name):
+    """A split step whose sequence, padded vocab or SSM groups the model
+    group does not divide (`W.TP_UNEVEN`: the whole residual, the whole
+    logits with their loss counted once, the SSM mixer whole), from the
+    JAX package's params: the loss within rtol 1e-5 and the node's params
+    within rtol 1e-4, atol 1e-4 of `repro.launch.train.make_train_step` on
+    the whole batch; every rank of the node gathers the same node."""
+    cfg, _, _ = _uneven(name)
+    layout = build_model(cfg).layout
+    ranks = worlds[world]
+    for out in ranks:
+        np.testing.assert_array_equal(out[f"uneven/{name}/params"],
+                                      ranks[0][f"uneven/{name}/params"])
+        _hold_jax(out, f"uneven/{name}", layout,
+                  worlds["jax"][f"uneven/{name}"])
+
+
+@pytest.mark.parametrize("world", list(W.TP_WORLDS))
+@pytest.mark.parametrize("name", UNEVEN)
+def test_uneven_split_step_matches_the_whole_node(worlds, world, name):
+    """The same steps against the whole node's step on the same batch:
+    every leaf's gradient within 1e-4 of its largest magnitude (a whole
+    block's partial cotangents summed twice, or the whole logits' loss
+    counted M times, would be off by its whole size), the loss, the
+    params, and the split gate's metric within 1e-5."""
+    for out in worlds[world]:
+        _hold_against_whole(out, f"uneven/{name}")
+
+
+@pytest.mark.parametrize("world", list(W.TP_WORLDS))
+@pytest.mark.parametrize("name", UNEVEN)
+def test_uneven_step_bytes_match_the_layout(worlds, world, name):
+    """The steps' and their split gates' bytes by kind equal the layout's
+    count (`chip_smoke._tp_bytes`): no gathers in the whole residual, each
+    row-parallel output's f32 all_reduce both ways, the embedding's
+    gather or all_reduce, no loss all_reduces with the logits whole."""
+    n, d, m = W.TP_WORLDS[world]
+    cfg, seq, frames = _uneven(name)
+    layout = build_model(cfg).layout
+    sizes = {"data": d, "model": m}
+    specs = param_specs(layout, dict(node=n, **sizes))
+    for out in worlds[world]:
+        coords = {"data": int(out["coords"][0]),
+                  "model": int(out["coords"][1])}
+        sh = ShardLayout(layout, specs, sizes, coords)
+        _hold_bytes(out, f"uneven/{name}", W.tp_bytes(
+            sh, cfg, cfg.n_layers, 4, W.TP_JAX_BATCH // d, seq, d > 1,
+            val=(W.TP_JAX_BATCH, seq), frames=frames))
 
 
 def test_encdec_split_gate_matches_the_whole_node_gate(worlds):

@@ -2361,6 +2361,108 @@ def port_tp_steps(inp, shape):
             [float((gv[q] - wv[q]).abs().max()
                    / wv[q].abs().max().clamp(min=1e-30)) for q in sorted(gv)])
     out.update(_tp_encdec_seq(inp, mesh, shape))
+    out.update(_tp_uneven(inp, mesh))
+    return out
+
+
+#: the split steps whose sequence, padded vocab or SSM groups the model
+#: group does not divide: (name, arch, config changes, tokens a row,
+#: frames a row or None). Odd sequences (the whole residual) on the
+#: head-parallel dense model with its vocab-cut tied table, the hybrid
+#: (sequence-parallel attention, its SSM heads cut), the moe with its
+#: experts cut; an odd unpadded vocab (the logits and the loss whole) with
+#: the tied table whole, and with the whole residual and the experts
+#: whole; 6 SSM heads in 3 groups (a rank's 3 heads read 2 groups
+#: unevenly: the mixer whole); the enc-dec head-parallel with odd frames
+#: and tokens
+TP_UNEVEN = (("seq_dense", "minicpm-2b", {}, 15, None),
+             ("seq_hybrid", "hymba-1.5b", {}, 15, None),
+             ("seq_moe", "granite-moe-3b-a800m", {}, 15, None),
+             ("vocab", "minicpm-2b", {"vocab_size": 501, "vocab_pad_to": 0},
+              16, None),
+             ("vocab_seq", "granite-moe-3b-a800m", {
+                 "vocab_size": 501, "vocab_pad_to": 0, "n_experts": 3}, 15,
+              None),
+             ("groups", "mamba2-370m", {"d_model": 192, "ssm_groups": 3},
+              16, None),
+             ("encdec_odd", "seamless-m4t-medium", {}, 15, 15))
+
+
+def _split_against_whole(model, step, shard, mesh, p0, b, key, out):
+    """One split step of ``b`` from the node ``p0`` against the whole
+    node's step on the same batch: into ``out`` under ``key``, the split
+    step's bytes by kind, the losses [split, whole], the node's params
+    after each, every leaf's gradient difference over its largest
+    magnitude, and the split gate's metric against the whole node's on
+    the same rows. Returns the rank's shard after the step."""
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw_init
+    layout = model.layout
+    ps = shard.shard(p0[None])[0]
+    mesh.reset_counts()
+    (ps, _, ms), first = _tp_capture(lambda: step.split(
+        ps, adamw_init(shard.local.parts(ps)), b, shard=shard, mesh=mesh))
+    for kind, nbytes in mesh.counts.items():
+        out[f"{key}/bytes/{kind}"] = np.asarray(nbytes)
+    (pw, _, mw), want = _tp_capture(lambda: step(
+        p0.clone(), adamw_init(layout.parts(p0)), b))
+    got = shard.gather(shard.local.join(first)[None], mesh.shard_view,
+                       kind=None)[0]
+    gv = layout.value_layout.unflatten(layout.values(got))
+    wv = layout.value_layout.unflatten(layout.values(layout.join(want)))
+    out[f"{key}/grad_rel"] = np.asarray(
+        [float((gv[q] - wv[q]).abs().max()
+               / wv[q].abs().max().clamp(min=1e-30)) for q in sorted(gv)])
+    out[f"{key}/loss"] = np.asarray([float(ms["loss"]), float(mw["loss"])])
+    node = _node_params(shard, mesh, ps)
+    out[f"{key}/params"] = node.numpy()
+    out[f"{key}/whole"] = pw.numpy()
+    mesh.reset_counts()
+    ev = train.make_swarm_eval(model)
+    out[f"{key}/gate"] = np.asarray([
+        float(ev.split(ps, b, shard=shard, mesh=mesh)),
+        float(ev(node[None], {k: v[None] for k, v in b.items()})[0])])
+    for kind, nbytes in mesh.counts.items():
+        out[f"{key}/gate_bytes/{kind}"] = np.asarray(nbytes)
+    return ps
+
+
+def _tp_uneven(inp, mesh):
+    """Each TP_UNEVEN case: one split step from the JAX package's params
+    (remat on) against the whole node's step (`_split_against_whole`),
+    under ``uneven/<name>/``."""
+    import torch
+    from repro_torch.core.flat import ShardLayout
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import param_specs
+    out = {}
+    for name, arch, changes, _, frames in TP_UNEVEN:
+        model = build_model(tp_block_cfg(arch, changes))
+        layout = model.layout
+        shard = ShardLayout(layout, param_specs(layout, mesh), mesh.inner,
+                            mesh.coords)
+        step = train.make_train_step(model, split_tc(
+            True, lr=1e-4, warmup_steps=0, max_steps=10))
+        keys = ("tokens", "labels") + (("frames",) if frames else ())
+        b = {k: torch.from_numpy(inp[f"uneven/{name}/{k}"]) for k in keys}
+        _split_against_whole(model, step, shard, mesh, torch.from_numpy(
+            inp[f"uneven/{name}/flat"]), b, f"uneven/{name}", out)
+    return out
+
+
+def tp_uneven_batch(name, rng):
+    """A TP_UNEVEN case's batch: TP_JAX_BATCH rows of its tokens (and
+    frames)."""
+    _, arch, changes, seq, frames = next(c for c in TP_UNEVEN
+                                         if c[0] == name)
+    cfg = tp_block_cfg(arch, changes)
+    toks = rng.integers(0, cfg.vocab_size, (TP_JAX_BATCH, seq + 1))
+    out = {"tokens": toks[:, :-1].astype(np.int64),
+           "labels": toks[:, 1:].astype(np.int64)}
+    if frames:
+        out["frames"] = rng.normal(0, 1, (TP_JAX_BATCH, frames,
+                                          cfg.frontend_dim)).astype(np.float32)
     return out
 
 
@@ -2390,8 +2492,8 @@ def _tp_encdec_seq(inp, mesh, shape):
     one KV head, a padded vocab): one split step against the whole
     node's (losses, params, the gradient leaf by leaf), its bytes by kind
     and its gathers of frame rows, the split gate's metric and bytes
-    against the whole node's; and a step whose frames or tokens the model
-    group does not divide (the error each raises)."""
+    against the whole node's; and a step in each of TP_ENCDEC_PAIRS'
+    forms (`_split_against_whole`)."""
     import torch
     from repro_torch.core.flat import ShardLayout
     from repro_torch.launch import train
@@ -2442,19 +2544,23 @@ def _tp_encdec_seq(inp, mesh, shape):
         float(ev(node[None], {k: v[None] for k, v in b.items()})[0])])
     for kind, nbytes in mesh.counts.items():
         out[f"encdec_seq/gate_bytes/{kind}"] = np.asarray(nbytes)
-    # a sequence the model group does not divide raises on every rank
-    for what, cut in (("frames", b["frames"][:, 1:]),
-                      ("tokens", b["tokens"][:, 1:])):
-        bad = dict(b, **{what: cut})
-        if what == "tokens":
-            bad["labels"] = b["labels"][:, 1:]
-        try:
-            step.split(ps.clone(), adamw_init(shard.local.parts(ps)), bad,
-                       shard=shard, mesh=mesh)
-            out[f"encdec_seq/raises/{what}"] = np.asarray("")
-        except ValueError as e:
-            out[f"encdec_seq/raises/{what}"] = np.asarray(str(e))
+    # frames, tokens or both that the model group does not divide: each
+    # stack in the whole-residual form on its own
+    for what in TP_ENCDEC_PAIRS:
+        bad = dict(b)
+        if what in ("frames", "both"):
+            bad["frames"] = b["frames"][:, 1:]
+        if what in ("tokens", "both"):
+            bad["tokens"], bad["labels"] = (b["tokens"][:, 1:],
+                                            b["labels"][:, 1:])
+        _split_against_whole(model, step, shard, mesh, p0, bad,
+                             f"encdec_seq/{what}", out)
     return out
+
+
+#: the enc-dec's pairs of forms past the cut encoder and decoder: odd
+#: frames (the encoder whole), odd tokens (the decoder whole), both
+TP_ENCDEC_PAIRS = ("frames", "tokens", "both")
 
 
 #: the enc-dec's sequence-parallel form: (arch, config changes), and its
@@ -2552,14 +2658,25 @@ def port_tp_encdec_gate(inp):
 #: divide M (the cache on the head dim), the moe with its experts cut and
 #: whole, the ssm with its heads cut, the hybrid, and the hybrid at M = 4
 #: with 2 SSM heads (whole: the state whole on every rank) and 16 of
-#: the head dim's 64 a rank
+#: the head dim's 64 a rank; a dense model with an odd unpadded vocab
+#: (the logits whole), the ssm with 6 heads in 3 groups (a rank's 3 heads
+#: read 2 groups unevenly: the heads whole), and the enc-dec head-parallel
+#: (the self cache on the KV heads) and with one KV head and 15 frames
+#: (the self cache on the head dim, the encoder whole)
 TP_SERVE = (("dense_heads", "minicpm-2b", {}, 2),
             ("dense_head_dim", "nemotron-4-15b", {}, 2),
             ("moe_cut", "granite-moe-3b-a800m", {}, 2),
             ("moe_whole", "granite-moe-3b-a800m", {"n_experts": 3}, 2),
             ("ssm", "mamba2-370m", {}, 2),
             ("hybrid", "hymba-1.5b", {}, 2),
-            ("hybrid_m4", "hymba-1.5b", {"ssm_head_dim": 256}, 4))
+            ("hybrid_m4", "hymba-1.5b", {"ssm_head_dim": 256}, 4),
+            ("vocab_whole", "minicpm-2b", {"vocab_size": 501,
+                                           "vocab_pad_to": 0}, 2),
+            ("ssm_groups", "mamba2-370m", {"d_model": 192,
+                                           "ssm_groups": 3}, 2),
+            ("encdec", "seamless-m4t-medium", {}, 2),
+            ("encdec_head_dim", "seamless-m4t-medium", {
+                "n_kv_heads": 1, "enc_seq_len": 15}, 2))
 TP_SERVE_WORLDS = {"tp_serve_m2": 2, "tp_serve_m4": 4}
 TP_SERVE_B, TP_SERVE_NEW, TP_SERVE_LEN = 2, 6, 16
 
@@ -2577,7 +2694,7 @@ def tp_serve_cfg(arch, changes):
 def tp_serve_bytes(*args, **kw):
     """A served forward's bytes by kind over a model group, counted from
     the config: ``chip_smoke._tp_serve_bytes``, the count the card run
-    holds (j) to."""
+    holds (j) and (k) to."""
     import importlib.util
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                         "chip_smoke.py")
@@ -2587,22 +2704,100 @@ def tp_serve_bytes(*args, **kw):
     return mod._tp_serve_bytes(*args, **kw)
 
 
+def tp_serve_encoded(model, st, enc, dec, frames, prompt, new):
+    """An enc-dec served with its frames: the caches zeroed, ``frames``
+    encoded into ``enc_out`` by the encode program ``enc``, the prompt fed
+    token by token through the decode program ``dec``, then ``new - 1``
+    more steps: (the greedy tokens [B, new], the logits of every step
+    [B, S + new - 1, V])."""
+    import torch
+    from repro_torch.launch.serve import tree_leaves
+    for t in tree_leaves(st.caches):
+        t.zero_()
+    st.frames.copy_(frames)
+    enc.run()
+    seen = []
+    for i in range(prompt.shape[1]):
+        st.tok.copy_(prompt[:, i:i + 1])
+        st.pos.fill_(i)
+        dec.run()
+        seen.append(st.logits.clone())
+    out = [st.tok.clone()]
+    for _ in range(new - 1):
+        dec.run()
+        out.append(st.tok.clone())
+        seen.append(st.logits.clone())
+    return torch.cat(out, 1), torch.stack(seen, 1)
+
+
+def _tp_serve_grad(model, st, mesh, inp, case, odd, out):
+    """A forward that records a gradient over the model group on a
+    prompt it does not divide (an enc-dec's frames and tokens both), and
+    its cross entropy against the prompt shifted by one: the loss, the
+    bytes by kind, and the rank's gradient of each of its compute blocks;
+    the unsharded forward's loss and gradient beside them."""
+    import json
+    import torch
+    from repro_torch.models import nest
+    from repro_torch.models.encdec import forward_encdec
+    from repro_torch.models.layers import softmax_xent
+    from repro_torch.models.transformer import forward_lm
+    from repro_torch.sharding import tensor
+    cfg = model.cfg
+    toks = torch.from_numpy(inp[f"serve/{case}/prompt{odd}"])
+    labels = torch.roll(toks, -1, 1)
+    if cfg.is_encdec:
+        frames = torch.from_numpy(inp[f"serve/{case}/frames"])[:, :odd]
+        fwd = lambda tree: forward_encdec(tree, cfg, frames, toks)[0]
+    else:
+        fwd = lambda tree: forward_lm(tree, cfg, toks)[0]
+    flat = torch.from_numpy(inp[f"serve/{case}/flat"])
+    whole = {p: t.clone().requires_grad_()
+             for p, t in model.layout.unflatten(flat).items()}
+    loss = softmax_xent(fwd(nest(whole)), labels)
+    grads = torch.autograd.grad(loss, list(whole.values()))
+    out[f"serve/{case}/grad/whole_loss"] = np.asarray(float(loss))
+    for p, g in zip(whole, grads):
+        out[f"serve/{case}/grad/whole/{p}"] = g.numpy()
+    mine = {p: t.clone().requires_grad_() for p, t in st.views.items()}
+    mesh.reset_counts()
+    forms, enter = [], tensor.enter
+
+    def recorded(x, dim=1):     # each block's entry: the form it ran in
+        forms.append(tensor.current().whole)
+        return enter(x, dim)
+
+    tensor.enter = recorded
+    try:
+        with torch.enable_grad(), tensor.model_group(st.plan):
+            loss = softmax_xent(fwd(nest(mine)), labels)
+            grads = torch.autograd.grad(loss, list(mine.values()))
+    finally:
+        tensor.enter = enter
+    out[f"serve/{case}/grad/forms"] = np.asarray(forms)
+    out[f"serve/{case}/grad/bytes"] = np.asarray(json.dumps(mesh.counts))
+    out[f"serve/{case}/grad/loss"] = np.asarray(float(loss))
+    for p, g in zip(mine, grads):
+        out[f"serve/{case}/grad/rank/{p}"] = g.numpy()
+
+
 def port_tp_serve(inp, m):
     """Each TP_SERVE case of model size ``m`` on a (1, 1, m) mesh: for
     each prompt, ``generate`` over the model group (tokens and logits),
-    a prefill and a decode step alone with their bytes by kind, the step
-    programs' pools and eager passes, and the unsharded ``generate`` in
-    this process; the rank's cache shapes and its params' leaf shapes;
-    the message of a forward that records a gradient on a sequence the
-    group does not divide."""
+    a prefill (an enc-dec's encode) and a decode step alone with their
+    bytes by kind, the step programs' pools and eager passes, and the
+    unsharded ``generate`` in this process; an enc-dec's frames encoded
+    over the group and its prompt fed after them (`tp_serve_encoded`);
+    the rank's cache shapes and its params' leaf shapes; a forward that
+    records a gradient on a sequence the group does not divide
+    (`_tp_serve_grad`)."""
     import json
     import torch
     from repro_torch.launch.mesh import make_swarm_mesh
-    from repro_torch.launch.serve import (generate, prefill_step_for,
-                                          serve_step_for, step_buffers)
-    from repro_torch.models import build_model, nest
-    from repro_torch.models.transformer import forward_lm
-    from repro_torch.sharding import tensor
+    from repro_torch.launch.serve import (encode_step_for, generate,
+                                          prefill_step_for, serve_step_for,
+                                          step_buffers)
+    from repro_torch.models import build_model
     mesh, _ = make_swarm_mesh(1, model=m)
     cpu = torch.device("cpu")
     b, new, t = TP_SERVE_B, TP_SERVE_NEW, TP_SERVE_LEN
@@ -2611,6 +2806,7 @@ def port_tp_serve(inp, m):
         if mm != m:
             continue
         model = build_model(tp_serve_cfg(arch, changes))
+        encdec = model.cfg.is_encdec
         flat = torch.from_numpy(inp[f"serve/{case}/flat"])
         for s in tp_serve_prompts(m):
             prompt = torch.from_numpy(inp[f"serve/{case}/prompt{s}"])
@@ -2620,7 +2816,8 @@ def port_tp_serve(inp, m):
             out[f"{key}/tokens"], out[f"{key}/logits"] = (toks.numpy(),
                                                           logits.numpy())
             st = step_buffers(model, b, t, cpu, mesh)
-            pre = prefill_step_for(model, b, s, t, cpu, mesh)
+            pre = (encode_step_for(model, b, t, cpu, mesh) if encdec
+                   else prefill_step_for(model, b, s, t, cpu, mesh))
             dec = serve_step_for(model, b, t, cpu, mesh)
             out[f"{key}/eager_calls"] = np.asarray([pre.eager_calls,
                                                     dec.eager_calls])
@@ -2637,19 +2834,30 @@ def port_tp_serve(inp, m):
             out[f"{key}/pools"] = np.asarray(
                 [st.graphs.eager, single.graphs.eager,
                  serve_step_for(model, b, t, cpu).captured, dec.captured])
+        for s in tp_serve_prompts(m) if encdec else ():
+            frames = torch.from_numpy(inp[f"serve/{case}/frames"])
+            prompt = torch.from_numpy(inp[f"serve/{case}/prompt{s}"])
+            for tag, on in (("encoded", (mesh,)), ("single_encoded", ())):
+                sb = step_buffers(model, b, t, cpu, *on)
+                if not on:
+                    sb.load(flat)
+                toks, logits = tp_serve_encoded(
+                    model, sb, encode_step_for(model, b, t, cpu, *on),
+                    serve_step_for(model, b, t, cpu, *on), frames, prompt,
+                    new)
+                out[f"serve/{case}/{s}/{tag}_tokens"] = toks.numpy()
+                out[f"serve/{case}/{s}/{tag}_logits"] = logits.numpy()
+        caches = st.caches["self"] if encdec else st.caches
         out[f"serve/{case}/cache"] = np.asarray(json.dumps(
-            [{k: list(v.shape) for k, v in c.items()} for c in st.caches]))
+            [{k: list(v.shape) for k, v in c.items()} for c in caches]))
+        if encdec:
+            out[f"serve/{case}/enc_out"] = np.asarray(
+                list(st.caches["enc_out"].shape))
         out[f"serve/{case}/leaves"] = np.asarray(json.dumps(
             {p: list(v.shape) for p, v in st.views.items()}))
         out[f"serve/{case}/params"] = np.asarray(st.params.numel())
-        odd = tp_serve_prompts(m)[1]
-        try:
-            with torch.enable_grad(), tensor.model_group(st.plan):
-                forward_lm(nest(st.views), model.cfg, torch.from_numpy(
-                    inp[f"serve/{case}/prompt{odd}"]))
-            out[f"serve/{case}/grad_raises"] = np.asarray("")
-        except ValueError as e:
-            out[f"serve/{case}/grad_raises"] = np.asarray(str(e))
+        _tp_serve_grad(model, st, mesh, inp, case, tp_serve_prompts(m)[1],
+                       out)
     return out
 
 
