@@ -59,6 +59,25 @@ Phases, each printing one JSON line:
                  rounds of a fisher/ring session whose train step returns
                  its gradient (the true-Fisher 4-tuple): one quantized imp
                  commit a round, stats finite and non-zero;
+ 9c. dryrun     (run after ``merge_one``, before ``histo``) the dry run
+                 (`repro_torch.launch.dryrun`): three pairs at full width
+                 as model rank 15 of data index 0 on the ``(16, 16)``
+                 production mesh in a fake world of 256 ranks, each played
+                 on ``meta`` and then on the card with the CUDA kernels
+                 (the rank's shard and compute blocks allocated alone,
+                 values from a seed): (a) train_4k × Hymba-1.5B (one split
+                 step), (b) prefill_32k × nemotron-4-15b, (c) decode_32k ×
+                 deepseek-coder-33b (one decode step); the meta peak within
+                 10 % of ``max_memory_allocated`` above the memory before
+                 the pair, the FLOPs (FlopCounterMode's formulas and the
+                 kernels' work) and the kernels' calls equal, the step's
+                 profiled device time beside its roofline bound; then flash
+                 at (b)'s shape (q [2,48,2048,128] over [2,8,32768,128],
+                 ``q_off`` 30,720) and ``ssd_scan`` at (a)'s (16 × 4,096 ×
+                 50 heads) against their plain versions on a slice (one
+                 bf16 ulp; SSD y 2e-2, state 1e-4), with times, bounds and
+                 SDPA; flash's and SSD's launches on the card
+                 (``launches_dryrun``) must be more than 0;
  10. lora_kernel the fused LoRA matmul against its plain version on the card
                  (the reference's tolerance: 2e-5 f32, 2e-2 bf16) at the
                  zoo head's train, validation and test shapes, the
@@ -229,7 +248,7 @@ Phases, each printing one JSON line:
                  N = 4 swarm, ``--sync-every 2 --steps 4 --batch 8 --seq
                  256``, on the f32 and on the int8 wire, and Hymba-1.5B and
                  granite-moe-3b (bf16, its routers' weights f32) each as
-                 one learner, 3 steps at ``--batch 4 --seq 256``; each with
+                 one learner, 2 steps at ``--batch 4 --seq 256``; each with
                  finite params and losses, changed f32 leaves and the
                  predicted launches (``TRAIN_PATHS``), its last round's
                  (step's) wall and tokens/s, then one profiled round (step):
@@ -273,8 +292,8 @@ Phases, each printing one JSON line:
                  against a replay (tokens equal), a profiled prefill and
                  decode step; minicpm-2b behind the engine at N = 4 as
                  nemotron (flash 160 a prefill, 1,280 in the warm wave),
-                 then trained plain through ``launch/train.run`` (3 steps
-                 at 4 × 256, as ``hymba_plain``; flash 120). Each line: the
+                 then trained plain through ``launch/train.run`` (2 steps
+                 at 4 × 256, as ``hymba_plain``; flash 80). Each line: the
                  card, memory allocated before the path, its peak (under
                  the card's), walls, tokens/s, prefill and tick times and
                  busy shares, launches against the prediction;
@@ -424,7 +443,7 @@ Phases, each printing one JSON line:
                  its compute blocks sliced once from the node, through
                  ``generate`` with a mesh: 2 rows, a 256-token prompt (the
                  residual cut on the sequence) and one of 255 (whole), 16
-                 new tokens, ``max_len`` 272; then a prefill and 8 decode
+                 new tokens, ``max_len`` 272; then a prefill and 4 decode
                  steps alone; each against its unsharded twin on model
                  rank 0 (captured programs): both ranks' streams and
                  logits equal, a 2-layer f32 check within 1e-4 of the
@@ -489,9 +508,11 @@ Phases, each printing one JSON line:
                  seconds and the script's;
  18. kernels     the per-kernel summary line (each kernel's achieved
                  TFLOP/s among its numbers; flash's launches of its D = 128
-                 body on the wide_serve paths, ``launches_d128``, and of
+                 body on the wide_serve paths, ``launches_d128``, of
                  its D = 16 body on the engine example's, ``launches_d16``,
-                 must be more than 0), then the ``ok`` line.
+                 and flash's and SSD's in the dry run's card ranks,
+                 ``launches_dryrun``, must be more than 0), then the ``ok``
+                 line.
 
 The kernel phases (3, 10, 12-14) run before the paths 4-9b and 11: in a
 process that has run those paths, most of ``torch.profiler``'s traces on
@@ -615,7 +636,7 @@ def time_ms(fn, iters=50, warm=20, repeats=7):
 TIMERS = {"profiler": 0, "events": 0, "traces_discarded": 0}
 
 
-def device_ms(fn, iters=200, warm=20, tries=4, match=None):
+def device_ms(fn, iters=200, warm=20, tries=2, match=None):
     """Device time per call: the CUDA kernels' own time summed over
     ``iters`` calls under ``torch.profiler``, over ``iters``. Where one call
     takes microseconds, CUDA events around back-to-back calls measure the
@@ -2246,6 +2267,21 @@ def phase_ssd_kernel(dev, bw, peak, bf16_peak):
         bound_by=hy["bound_by"])}
 
 
+def phase_dryrun(dev, smi):
+    """Phase 9c: `repro_torch.launch.dryrun.card_phase` (see the module
+    docstring)."""
+    from repro_torch.launch import dryrun
+    out = dryrun.card_phase(device_ms)
+    for row in out["pairs"]:
+        print(f"dryrun: {row['arch']} × {row['shape']} rank {row['rank']}: "
+              f"peak meta {row['meta_peak'] / 2**30:.3f} GiB, card "
+              f"{row['card_peak'] / 2**30:.3f} GiB; device "
+              f"{row['device_ms']:.1f} ms against the roofline's "
+              f"{row['bound_ms']:.1f} ms", file=sys.stderr, flush=True)
+    emit("dryrun", nvidia_smi=smi, **out)
+    return out
+
+
 def phase_merge_one(dev, bw, peak):
     """The one-node commit through ``ops.merge_op``: the path (each node of
     a [4, P] state committed alone, counted) against the all-nodes kernel,
@@ -2430,7 +2466,7 @@ def _timed_runs(fn, runs=3):
     return walls
 
 
-def _profiled(fn, runs=3):
+def _profiled(fn, runs=1):
     """``fn``'s wall (median of ``runs`` synchronized calls, no profiler),
     then one call under the profiler: its device busy time, the busy share
     of the unprofiled wall, host ops, launches and the top kernels."""
@@ -2724,8 +2760,8 @@ def phase_serve(dev, smi):
     # kernel records against its launches
     versus, records = {}, {}
     prog = eng.programs[("decode", decode_bucket), 0]
-    # two turns (eager, replay): wide_serve's nemotron-4-15b engine runs
-    # the four-turn form on its decode key
+    # two turns (eager, replay), as wide_serve's nemotron-4-15b engine
+    # runs them on its decode key
     versus["decode"] = _eager_vs_replay(prog, turns=2)
     for n in SERVE_SEQ[-1:]:
         prog = eng.programs[("prefill", n, decode_bucket), 0]
@@ -3164,9 +3200,9 @@ def _release_serving():
 # step: the backward is plain)
 WIDE_BATCH = 4
 WIDE_TRAIN = ("minicpm_plain",
-              ["--arch", "minicpm-2b", "--steps", "3", "--batch", "4",
+              ["--arch", "minicpm-2b", "--steps", "2", "--batch", "4",
                "--seq", "256"],
-              {"flash_attention": 3 * 40})
+              {"flash_attention": 2 * 40})
 
 
 def _generate_wide(dev, arch, seed):
@@ -3272,7 +3308,7 @@ def phase_wide_serve(dev, smi):
     for name, fn in (
             ("nemotron_engine",
              lambda: _engine_serve(dev, "nemotron-4-15b", 1, 600,
-                                   turns=4)),
+                                   turns=2)),
             ("deepseek_generate",
              lambda: _generate_wide(dev, "deepseek-coder-33b", 700)),
             ("minicpm_engine",
@@ -3307,8 +3343,8 @@ GRAD_SSD = (("hymba", 4, 256, 50, 64, 16, 256), ("mamba2", 8, 256, 32, 64,
 # forward each) and commits in one launch over the f32 value vector.
 # Mamba2-370M: 48 SSD layers, no attention; 4 steps in 2 rounds: 4 x 48
 # training launches + 2 syncs x 2 scores x 48. Hymba-1.5B: 32 layers, each
-# one flash and one SSD launch a step, 3 steps. Granite-moe-3b: 32 layers,
-# one flash launch each a step, 3 steps.
+# one flash and one SSD launch a step, 2 steps (the second timed alone).
+# Granite-moe-3b: 32 layers, one flash launch each a step, 2 steps.
 TRAIN_PATHS = (
     ("mamba2_f32_wire",
      ["--arch", "mamba2-370m", "--swarm-nodes", "4", "--sync-every", "2",
@@ -3320,13 +3356,13 @@ TRAIN_PATHS = (
       "int8"],
      {"ssd_scan": 4 * 48 + 2 * 2 * 48, "fused_quant_merge_all": 2}),
     ("hymba_plain",
-     ["--arch", "hymba-1.5b", "--steps", "3", "--batch", "4", "--seq",
+     ["--arch", "hymba-1.5b", "--steps", "2", "--batch", "4", "--seq",
       "256"],
-     {"flash_attention": 3 * 32, "ssd_scan": 3 * 32}),
+     {"flash_attention": 2 * 32, "ssd_scan": 2 * 32}),
     ("granite_plain",
-     ["--arch", "granite-moe-3b-a800m", "--steps", "3", "--batch", "4",
+     ["--arch", "granite-moe-3b-a800m", "--steps", "2", "--batch", "4",
       "--seq", "256"],
-     {"flash_attention": 3 * 32}),
+     {"flash_attention": 2 * 32}),
 )
 
 
@@ -7226,7 +7262,7 @@ GOSSIP_J_F32_LAYERS = 2
 GOSSIP_J_F32_TOL = 1e-4
 GOSSIP_J_BF16_RATIO = 2.0
 # decode steps a token's wall is averaged over
-GOSSIP_J_TOKEN_RUNS = 8
+GOSSIP_J_TOKEN_RUNS = 4
 
 
 def _gossip_j_cfg(arch, f32):
@@ -8034,6 +8070,10 @@ def main() -> int:
     # each path runs with the launch counts set to 0 just before it; a
     # kernel's launches are those of the first path that carries it
     launches = {k: v for k, v in counts.items() if v}
+    # the dry run's three ranks on the card, while its memory is free
+    dry = timed("dryrun", phase_dryrun, dev, smi)
+    for name in ("flash_attention", "ssd_scan"):
+        stats[name]["launches_dryrun"] = dry["launches"].get(name, 0)
 
     def path(name, fn, *args):
         counts = timed(name, fn, *args)
@@ -8083,7 +8123,9 @@ def main() -> int:
                for name, (stem, replaces) in KERNELS.items()]
     if any(k["launches"] < 1 for k in kernels) or \
             not stats["flash_attention"]["launches_d128"] > 0 or \
-            not stats["flash_attention"]["launches_d16"] > 0:
+            not stats["flash_attention"]["launches_d16"] > 0 or \
+            not stats["flash_attention"]["launches_dryrun"] > 0 or \
+            not stats["ssd_scan"]["launches_dryrun"] > 0:
         raise AssertionError(f"a kernel of the path never launched: {kernels}")
     TIMERS["script_s"] = time.perf_counter() - start
     emit("timing", **TIMERS)

@@ -1,10 +1,13 @@
 """Architecture config registry of the port: own copies of the reference's
 ten configs (``repro.configs``), one module each, in the reference's
-registry order. ``get_config`` and ``smoke_variant`` are copies of the
-reference's."""
+registry order. ``get_config``, ``smoke_variant`` and ``adapt_for_shape``
+are copies of the reference's."""
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig, SwarmConfig, TrainConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    INPUT_SHAPES, SHAPES_BY_NAME, ModelConfig, ShapeConfig, SwarmConfig,
+    TrainConfig,
+)
 from repro_torch.configs.command_r_plus_104b import CONFIG as _commandr
 from repro_torch.configs.deepseek_coder_33b import CONFIG as _deepseek
 from repro_torch.configs.granite_moe_3b import CONFIG as _granite
@@ -52,3 +55,15 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     if cfg.family == "vlm":
         upd.update(n_patches=8, frontend_dim=32)
     return cfg.replace(name=cfg.name + "-smoke", **upd)
+
+
+def adapt_for_shape(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
+    """Per-shape architecture adaptation: ``long_500k`` on a full-attention
+    arch switches on the sliding-window variant (window 4096, periodic
+    global layers off) so the attention is sub-quadratic; ssm and hybrid
+    archs run natively."""
+    if shape.name == "long_500k" and cfg.family in ("dense", "moe", "vlm",
+                                                    "audio"):
+        if cfg.sliding_window == 0:
+            return cfg.replace(sliding_window=4096, attn_every=0)
+    return cfg

@@ -1,11 +1,14 @@
 """Model, swarm and training configs: own copies of ``repro.configs.base``'s
 :class:`ModelConfig`, :class:`SwarmConfig` and :class:`TrainConfig` (same
 field names, defaults and properties; the tests hold each against its
-original)."""
+original), and of its input shapes (:class:`ShapeConfig`,
+:data:`INPUT_SHAPES`, :data:`SHAPES_BY_NAME`), which the dry run
+(`repro_torch.launch.dryrun`) places on the production mesh."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -190,3 +193,23 @@ class TrainConfig:
     remat: bool = True
     accum_steps: int = 1          # microbatch gradient accumulation
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One of the 4 assigned input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in INPUT_SHAPES}

@@ -806,9 +806,12 @@ class LayerCut:
                 if self._holds(self._plans[g][k][0], i):
                     held.setdefault(self._plans[g][k][1], []).append(g)
             blocks.append([held[c] for c in sorted(held)])
+        # toward another rank only a block this rank holds moves: the rest
+        # of its routes are between other ranks
+        mine = [[hs for hs in bl if me in hs] for bl in blocks]
         for r in range(n):
             for k in range(len(self.paths)):
-                for hs in blocks[k]:
+                for hs in blocks[k] if r == me else mine[k]:
                     pieces = self._pieces(self._box(hs[0], k),
                                           self._cblocks[r][k])
                     if not pieces:
@@ -884,34 +887,49 @@ class LayerCut:
         from repro_torch.core import gossip
         send, recv, own = self._cplan(i, bool(split))
         f32 = torch.float32
-        segs, sizes = [], []
+        segs, sizes, flat = [], [], {}
+
+        def piece(k, cl):      # a piece goes to every holder: cast it once
+            key = (k, tuple((x.start, x.stop) for x in cl))
+            if key not in flat:
+                flat[key] = cots[k][cl].to(f32).reshape(-1)
+            return flat[key]
+
         for pieces in send:
-            parts = [cots[k][cl].to(f32).reshape(-1) for k, cl in pieces]
+            parts = [piece(k, cl) for k, cl in pieces]
             segs += parts
             sizes.append(sum(t.numel() for t in parts))
         want = [sum(_prod(shape) for _, _, shape in pieces)
                 for pieces in recv]
         buf = torch.cat(segs) if segs else torch.empty(0, dtype=f32,
                                                        device=device)
-        del segs
+        del segs, flat
         got = gossip.all_to_all_v(view, buf, sizes, want, kind=kind)
         del buf
         acc = {k: torch.zeros(self.plan[k][2], dtype=f32, device=device)
                for k in range(len(self.paths)) if self.holds(k, i)}
-        offs, off = [], 0
-        for pieces in recv:
-            offs.append(off)
-            off += sum(_prod(shape) for _, _, shape in pieces)
+        # each stored region's view once; every piece one add_ into it, in
+        # the senders' order (a sender's segment moved to the device once)
+        dst = {}
+
+        def into(k, sl):
+            key = (k, tuple((x.start, x.stop) for x in sl))
+            if key not in dst:
+                dst[key] = acc[k][sl]
+            return dst[key]
+
+        segs = got.split(want) if len(want) else []
         for r in range(self.group_size):
             if r == self._me:
                 for k, cl, sl in own:
-                    acc[k][sl] += cots[k][cl].to(f32)
+                    into(k, sl).add_(cots[k][cl].to(f32))
                 continue
-            off = offs[r]
-            for k, sl, shape in recv[r]:
-                n = _prod(shape)
-                acc[k][sl] += got[off:off + n].to(device).view(shape)
-                off += n
+            if not recv[r]:
+                continue
+            parts = segs[r].to(device).split(
+                [_prod(shape) for _, _, shape in recv[r]])
+            for (k, sl, shape), part in zip(recv[r], parts):
+                into(k, sl).add_(part.view(shape))
         return acc
 
 

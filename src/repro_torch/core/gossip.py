@@ -94,7 +94,10 @@ a rank sends over the shard group (:func:`all_to_all_v`, what leaves the
 rank), ``grad_to_shard`` the f32 pieces of its cotangents it sends back
 to the ranks that store them, and the model group's activations
 (`repro_torch.sharding.tensor`) count as ``tp_gather``,
-``tp_reduce_scatter``, ``tp_all_reduce`` and ``tp_all_to_all``.
+``tp_reduce_scatter``, ``tp_all_reduce`` and ``tp_all_to_all``, and a
+served decode cache cut on its sequence combines its partial softmax over
+the data group as ``tp_seq_max`` and ``tp_seq_sum``
+(`repro_torch.sharding.tensor.seq_softmax`).
 """
 from __future__ import annotations
 

@@ -37,7 +37,10 @@ output is a ``[B, H, S, D]`` view of a ``[B, S, H, D]`` buffer, so the
 module's reshape back to ``[B, S, H·D]`` is free. On a CPU tensor it
 computes the plain version (`repro_torch.kernels.ref.
 flash_attention_plain`, the twin of the reference's ``attention_ref``); on
-a CUDA tensor it launches the kernel or raises. ``causal=False`` with
+a CUDA tensor it launches the kernel or raises; on a ``meta`` tensor (a
+dry run, `repro_torch.kernels.work`) it checks what the launch checks and
+returns the output's shape, never the plain version's ``[B, H, S, T]``
+scores, and counts the kernel's work. ``causal=False`` with
 ``window > 0`` raises on both: the TPU kernel and its oracle disagree there.
 
 :func:`flash_apply` is the differentiable entry point the model calls
@@ -57,7 +60,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, work
 from repro_torch.kernels.ref import check_q_off, flash_attention_plain
 
 # every head dim of the reference's configs, smoke variants and test models
@@ -99,10 +102,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "causal=True")
     q_off = int(q_off)
     check_q_off(q_off, s, t, causal)
+    if work.active():
+        work.add("flash_attention", *work.flash_work(
+            b, h, hkv, s, t, d, q.element_size(), causal, window, q_off))
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_off=q_off)
-    if q.device.type != "cuda":
+        with work.plain():
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, q_off=q_off)
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"dtype {q.dtype} not supported (float32 or "
@@ -133,6 +140,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "the kernel's range")
     buf = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     out = buf.transpose(1, 2)
+    if q.device.type == "meta":      # a dry run: the shapes, no launch
+        return out
     strides = [x.stride(i) for x in (q, k, v, out) for i in range(3)]
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, h, hkv, s, t, d, (ctypes.c_longlong * 12)(*strides),

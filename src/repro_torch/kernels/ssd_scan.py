@@ -29,7 +29,10 @@ a copy. Returns y ``[B, S, H, P]`` in x's dtype and the final state
 ``[B, H, P, N]`` f32. S must be a multiple of ``chunk`` (the caller pads, as
 the reference's model does). On a CPU tensor it computes the plain version
 (`repro_torch.kernels.ref.ssd_scan_plain`); on a CUDA tensor it launches
-the kernels or raises. The chunk states live in an f32 scratch of
+the kernels or raises; on a ``meta`` tensor (a dry run,
+`repro_torch.kernels.work`) it checks what the launch checks, allocates
+the outputs and the scratch, and counts the kernels' work. The chunk
+states live in an f32 scratch of
 ``B·H·(S/chunk)·N·P`` values that the wrapper allocates per call (1.6 MB at
 Hymba's 2048-token prefill); under a captured CUDA graph it is the graph
 pool's memory, which no host reference holds across replays.
@@ -51,7 +54,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, work
 from repro_torch.kernels.ref import ssd_scan_plain
 
 MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 128, 256, 256
@@ -87,9 +90,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     chunk = min(int(chunk), s)
     if s % chunk:
         raise ValueError(f"seq {s} must divide chunk {chunk}")
+    if work.active():
+        work.add("ssd_scan", *work.ssd_work(b, s, h, p, g, n, chunk,
+                                            x.element_size(),
+                                            a_log.numel()))
     if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, a_log, bmat, cmat, chunk=chunk)
-    if x.device.type != "cuda":
+        with work.plain():
+            return ssd_scan_plain(x, dt, a_log, bmat, cmat, chunk=chunk)
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     dev = x.device
     if x.dtype not in _DTYPES:
@@ -123,6 +131,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                               device=dev)
     chunk_decay = torch.empty((b, h, s // chunk), dtype=torch.float32,
                               device=dev)
+    if dev.type == "meta":   # a dry run: the outputs and scratch, no launch
+        return y, state
     strides = [x.stride(0), x.stride(1), bmat.stride(0), bmat.stride(1),
                cmat.stride(0), cmat.stride(1)]
     err = _lib()(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(),

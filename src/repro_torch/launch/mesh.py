@@ -50,6 +50,7 @@ and data index: tensor parallelism, `repro_torch.sharding.tensor`):
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Dict, Optional
 
 # The reference's axis registry (`repro.launch.mesh.MESH_AXES`), copied: the
@@ -113,6 +114,9 @@ class SwarmMesh:
         self.shard_view: Optional[GroupView] = None
         self.data_view: Optional[GroupView] = None
         self.model_view: Optional[GroupView] = None
+        #: the ranks a served batch's rows divide over (None: the data
+        #: group; `repro_torch.launch.serve.StepBuffers`)
+        self.batch_view: Optional[GroupView] = None
         self.world_group = group
         self.inner: Dict[str, int] = {}
         self.coords: Dict[str, int] = {}
@@ -163,6 +167,41 @@ class GroupView:
     def __repr__(self) -> str:
         return (f"GroupView({self.axis}={self.world_size}, rank={self.rank}, "
                 f"link={self.link!r})")
+
+
+@contextmanager
+def fake_world(world_size: int, rank: int):
+    """This process as rank ``rank`` of a world of ``world_size`` ranks that
+    do not exist: PyTorch's fake process group (backend ``"fake"``), whose
+    collectives return at once and move nothing. One process then plays
+    one rank of a large job: on the ``meta`` device to count its memory and
+    work (`repro_torch.launch.dryrun`), or on the card to run that rank's
+    step for real. Every mesh maker works on it as on a real world; to play
+    another rank, leave the block and enter a new one (the makers create
+    their groups in the same order on every rank).
+
+    The backend is neither gloo nor NCCL, so the collectives of
+    `repro_torch.core.gossip` stage nothing through host memory
+    (``_staged`` copies only for gloo): a rank played here takes NCCL's
+    path, the one a real job of one card a rank takes. What a fake
+    collective leaves in its output is whatever the buffer held (or a copy
+    of the input): values, never sizes, which the step computes from the
+    config alone.
+
+    The default group is destroyed when the block ends, also on an
+    exception, so ``torch.distributed.is_initialized()`` is False again
+    after it. Refuses to start inside another process group."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=int(rank),
+                            world_size=int(world_size))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_production_mesh(*, multi_pod: bool = False, group=None):

@@ -110,9 +110,18 @@ class StepBuffers:
     (the rank's cut), the token fed ``tok [B, 1]``, the position ``pos
     [B]`` (int64), the last position's logits ``logits [B, V]`` (whole:
     gathered over the vocab cut), a padded prompt ``[B, S]`` per prefill
-    length, and for an enc-dec the frames ``[B, enc_seq_len,
-    frontend_dim]`` (f32) an encode reads. ``plan`` is the rank's
-    `repro_torch.sharding.tensor.TensorPlan`, or None."""
+    length, for an enc-dec the frames ``[B, enc_seq_len, frontend_dim]``
+    (f32) an encode reads and for a vlm the patch embeddings ``[B,
+    n_patches, frontend_dim]`` (f32) a prefill reads. ``plan`` is the
+    rank's `repro_torch.sharding.tensor.TensorPlan`, or None.
+
+    On a mesh whose data group (or ``mesh.batch_view``) has ``D`` > 1
+    ranks, ``batch`` is the whole batch, placed as the reference's
+    ``batch_specs`` / ``cache_specs`` place it: where ``D`` divides it
+    the rank serves its ``B / D`` rows (:attr:`rows`), else every row,
+    with the K/V cache's sequence cut over the group where ``D`` divides
+    ``max_len`` (:attr:`seq`: ``T / D`` positions a rank, the plan's
+    ``seq_view``)."""
 
     def __init__(self, model: Model, batch: int, max_len: int,
                  device: torch.device, mesh=None):
@@ -123,6 +132,19 @@ class StepBuffers:
             from repro_torch.launch.train import tensor_plan
             self.plan = tensor_plan(model, mesh)
         self.layout, place = model.layout, None
+        #: the rows of the caller's batch this rank serves (None: all)
+        self.rows, seq = None, 1
+        view = None if mesh is None else (mesh.batch_view or mesh.data_view)
+        if self.plan is not None and view is not None \
+                and view.world_size > 1:
+            n = view.world_size
+            if batch % n == 0:          # the batch's rows over the group
+                batch //= n
+                self.rows = slice(view.rank * batch, (view.rank + 1) * batch)
+            elif max_len % n == 0:      # else the cache's sequence
+                seq = n
+                self.plan = self.plan.with_seq(view)
+        self.seq = seq
         if self.plan is not None:
             from repro_torch.sharding.rules import compute_blocks
             place = self.plan.place
@@ -138,7 +160,7 @@ class StepBuffers:
         self.views = self.layout.unflatten(self.params)
         self.caches = (model.init_cache(batch, max_len, device) if place is
                        None else model.init_cache(batch, max_len, device,
-                                                  place=place))
+                                                  place=place, seq=seq))
         self.tok = torch.zeros((batch, 1), dtype=torch.long, device=device)
         self.pos = torch.zeros(batch, dtype=torch.long, device=device)
         self.logits = torch.zeros((batch, cfg.padded_vocab),
@@ -148,8 +170,13 @@ class StepBuffers:
         self.frames = (torch.zeros((batch, cfg.enc_seq_len, cfg.frontend_dim),
                                    dtype=torch.float32, device=device)
                        if cfg.is_encdec else None)
+        self.patches = (torch.zeros((batch, cfg.n_patches, cfg.frontend_dim),
+                                    dtype=torch.float32, device=device)
+                        if cfg.family == "vlm" else None)
+        # gloo stages through host memory, which a graph cannot hold; a
+        # fake world's step runs once, as it is counted
         self.graphs = ProgramPool(device, eager=self.plan is not None and
-                                  self.plan.view.backend == "gloo")
+                                  self.plan.view.backend in ("gloo", "fake"))
 
     def load(self, params: torch.Tensor) -> None:
         """One node's flat params ``[P]`` (any device) into the buffer:
@@ -228,11 +255,14 @@ def prefill_step_for(model: Model, batch: int, seq: int, max_len: int,
     token in ``tok`` (its logits in ``logits``), ``pos`` = seq; over
     ``mesh``'s model group the rank's share."""
     st = step_buffers(model, batch, max_len, device, *_on(mesh))
-    prompt = st.prompts[seq] = torch.zeros((batch, seq), dtype=torch.long,
-                                           device=device)
+    prompt = st.prompts[seq] = torch.zeros((st.tok.shape[0], seq),
+                                           dtype=torch.long, device=device)
+    feed = {"tokens": prompt}
+    if st.patches is not None:
+        feed["patch_embeds"] = st.patches
 
     def body():
-        st.pick(st.step(batch={"tokens": prompt}))
+        st.pick(st.step(batch=feed))
         st.pos.fill_(seq)
 
     return st.graphs.capture(body)
@@ -280,6 +310,8 @@ def generate(model: Model, params, prompt_tokens, max_new: int,
     decode = serve_step_for(model, b, max_len, device, *_on(mesh))
     prefill = (prefill_step_for(model, b, s, max_len, device, *_on(mesh))
                if model.prefill is not None else None)
+    if st.rows is not None:
+        prompt_tokens = prompt_tokens[st.rows]
     if params is not st.params:
         st.load(params)
     for t in tree_leaves(st.caches):

@@ -273,8 +273,8 @@ def _lm_model(cfg: ModelConfig, lora_rank: int) -> Model:
         return logits, caches
 
     return Model(cfg, init, loss_fn, decode,
-                 lambda b, m, device, place=None: make_lm_cache(
-                     cfg, b, m, device, place),
+                 lambda b, m, device, place=None, seq=1: make_lm_cache(
+                     cfg, b, m, device, place, seq),
                  prefill, layout)
 
 
@@ -326,8 +326,8 @@ def _encdec_model(cfg: ModelConfig, lora_rank: int) -> Model:
         return call(params, encode, cfg, frames)
 
     return Model(cfg, init, loss_fn, decode,
-                 lambda b, m, device, place=None: make_encdec_cache(
-                     cfg, b, m, device, place),
+                 lambda b, m, device, place=None, seq=1: make_encdec_cache(
+                     cfg, b, m, device, place, seq),
                  None, layout, encode_frames)
 
 

@@ -168,33 +168,60 @@ def attention(p, x, cfg: ModelConfig, *, positions, causal: bool = True,
     return linear(p["o"], out.reshape(b, s, nh * hd))
 
 
+def _seq_start(cache) -> int:
+    """The first position of a decode cache's own slice: a data rank's
+    ``rank · T_local`` where the plan cuts the cache's sequence over its
+    data group (`repro_torch.sharding.tensor.TensorPlan.seq_view`), else
+    0."""
+    tp = tensor.current()
+    if tp is None or tp.seq_view is None:
+        return 0
+    return tp.seq_view.rank * cache["k"].shape[1]
+
+
 def _write_cache(cache, k, v, positions, cache_pos, commit) -> None:
     """K/V [B,S,nkv,hd] into the cache in place at ``positions`` (a slice
     at an int ``cache_pos`` with no ``commit``); a cache cut on its head
     dim (a model rank's, ``head_dim`` narrower than K's) takes the rank's
-    slice of it."""
+    slice of it. A cache cut on its sequence holds positions ``lo .. lo +
+    T_local - 1`` (:func:`_seq_start`): only the positions it holds are
+    written, so a decode step's new K/V lands on the one data rank that
+    owns ``pos``."""
     width = cache["k"].shape[-1]
     if width != k.shape[-1]:
         c0 = tensor.current().rank * width
         k, v = k[..., c0:c0 + width], v[..., c0:c0 + width]
-    s = k.shape[1]
+    s, t = k.shape[1], cache["k"].shape[1]
+    tp = tensor.current()
+    seq = tp is not None and tp.seq_view is not None
+    lo = _seq_start(cache)
     if isinstance(cache_pos, int) and commit is None:
-        cache["k"][:, cache_pos:cache_pos + s] = k.to(cache["k"].dtype)
-        cache["v"][:, cache_pos:cache_pos + s] = v.to(cache["v"].dtype)
-    else:
-        write_rows(cache["k"], k, positions, commit)
-        write_rows(cache["v"], v, positions, commit)
+        a, b = cache_pos, cache_pos + s
+        if seq:                         # the positions this slice holds
+            a, b = max(a, lo), min(b, lo + t)
+        if a < b:
+            ka, kb = a - cache_pos, b - cache_pos
+            cache["k"][:, a - lo:b - lo] = k[:, ka:kb].to(cache["k"].dtype)
+            cache["v"][:, a - lo:b - lo] = v[:, ka:kb].to(cache["v"].dtype)
+        return
+    if seq:
+        own = ((positions >= lo) & (positions < lo + t)).all(dim=1)
+        commit = own if commit is None else commit & own
+        positions = (positions - lo).clamp(0, t - 1)
+    write_rows(cache["k"], k, positions, commit)
+    write_rows(cache["v"], v, positions, commit)
 
 
 def _mask(positions, cache, s: int, t: int, masked: bool, window: int,
-          device):
+          device, k_off: int = 0):
     """The plain form's mask of scores [B,nkv,g,S,T]: causal (and
-    windowed) over the cache's depth, or the call's own positions without
+    windowed) over the cache's depth (its positions from ``k_off``: a
+    sequence-cut cache's own slice), or the call's own positions without
     a cache; all keys when unmasked."""
     if not masked:
         return torch.ones((s, t), dtype=torch.bool, device=device)
     key_positions = (positions if cache is None else
-                     torch.arange(t, device=device)[None])
+                     k_off + torch.arange(t, device=device)[None])
     qpos = positions[:, None, None, :, None]
     kpos = key_positions[:, None, None, None, :]
     w_eff = window if window > 0 else 2 ** 30
@@ -232,7 +259,14 @@ def attention_tp(p, h, cfg: ModelConfig, *, positions, window: int = 0,
     the cache: head-parallel the rank's heads; under a head-dim cut q, K
     and V whole (RoPE before the cut: it rotates the pairs (i, i + hd/2)),
     the partial scores over the rank's slice all_reduced in f32 before the
-    mask and softmax, then ``o`` on the slice's rows, all_reduced."""
+    mask and softmax, then ``o`` on the slice's rows, all_reduced. Where
+    the plan cuts the cache's sequence over its data group (``seq_view``,
+    the reference's long-context placement) a rank scores q against its
+    own positions only (those at or below ``pos`` and inside the window)
+    and the partial softmax combines over the group
+    (`repro_torch.sharding.tensor.seq_softmax`), after the head-dim cut's
+    all_reduce over the model group; only the rank that owns ``pos``
+    writes the new K/V."""
     tp = tensor.current()
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, sl, _ = h.shape
@@ -265,11 +299,21 @@ def attention_tp(p, h, cfg: ModelConfig, *, positions, window: int = 0,
         out = out.reshape(b, q.shape[1], -1)
         return (row_parallel(p["o"], out) if heads
                 else linear(p["o"], out))
+    seq = tp.seq_view if cache is not None else None
+    lo = 0
     if cache is not None:
+        lo = _seq_start(cache)
         k, v = cache["k"].to(h.dtype), cache["v"].to(h.dtype)
-    mask = _mask(positions, cache, s, k.shape[1], causal, window, h.device)
+    mask = _mask(positions, cache, s, k.shape[1], causal, window, h.device,
+                 k_off=lo)
+
+    def combine(scores, v):
+        if seq is None:
+            return _softmax_out(scores, mask, v, h.dtype)
+        return tensor.seq_softmax(scores, mask, v, h.dtype, seq)
+
     if heads or k.shape[-1] == hd:     # the rank's heads, or all of them
-        out = _softmax_out(_gqa_scores(q, k), mask, v, h.dtype)
+        out = combine(_gqa_scores(q, k), v)
         out = out.reshape(b, s, -1)
         return row_parallel(p["o"], out) if heads else linear(p["o"], out)
     # the head-dim cut: the rank's slice of q against its slice of K/V
@@ -280,7 +324,7 @@ def attention_tp(p, h, cfg: ModelConfig, *, positions, window: int = 0,
                         k.to(torch.float32))
     scale = float(torch.tensor(math.sqrt(hd), dtype=q.dtype))
     scores = tensor.all_reduce(part).to(q.dtype) / scale
-    out = _softmax_out(scores, mask, v, h.dtype).reshape(b, s, nh * width)
+    out = combine(scores, v).reshape(b, s, nh * width)
     rows = lambda w: w.reshape(nh, hd, -1)[:, c0:c0 + width].reshape(
         nh * width, -1)
     o = {key: rows(w) if key in ("w", "lora_A") else w

@@ -272,14 +272,15 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 
 
 def make_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
-                  device, place=None) -> List[dict]:
+                  device, place=None, seq: int = 1) -> List[dict]:
     """Per-layer decode state: a list of ``n_layers`` dicts; with
     ``place`` (a `repro_torch.sharding.rules.Placement`) a model rank's
-    cut of it (`repro_torch.sharding.rules.cache_shapes`)."""
+    cut of it (`repro_torch.sharding.rules.cache_shapes`, the K/V's
+    sequence cut into ``seq`` parts)."""
     dtype = dtype_of(cfg.compute_dtype)
     if place is not None:
         from repro_torch.sharding.rules import cache_shapes
-        shapes = cache_shapes(cfg, place, batch, max_len)
+        shapes = cache_shapes(cfg, place, batch, max_len, seq)
         return [{key: torch.zeros(shape, dtype=torch.float32 if key == "ssd"
                                   else dtype, device=device)
                  for key, shape in shapes.items()}

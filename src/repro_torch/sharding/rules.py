@@ -40,8 +40,9 @@ sequence, then keeps its rows): the work is never the whole layer's
 gathered instead. :func:`compute_blocks` gives a node's every leaf's
 block for a rank that serves from its blocks alone, and
 :func:`cache_cut` / :func:`cache_shapes` the reference's decode-cache
-placement (K/V on ``kv_heads``, else ``head_dim``; the SSM state on its
-heads; an enc-dec's encoder output whole). ``shardings_for`` has no
+placement (K/V on ``kv_heads``, else ``head_dim``, and on the sequence
+over ``data`` where the batch does not divide over it; the SSM state on
+its heads; an enc-dec's encoder output whole). ``shardings_for`` has no
 counterpart.
 """
 from __future__ import annotations
@@ -401,8 +402,8 @@ def cache_cut(cfg, place: Placement) -> str:
     return "head_dim" if m > 1 and cfg.head_dim % m == 0 else "whole"
 
 
-def cache_shapes(cfg, place: Placement, batch: int, max_len: int
-                 ) -> Dict[str, Tuple[int, ...]]:
+def cache_shapes(cfg, place: Placement, batch: int, max_len: int,
+                 seq: int = 1) -> Dict[str, Tuple[int, ...]]:
     """A model rank's per-layer decode state: K/V ``[B, T, nkv/M, hd]``
     (:func:`cache_cut` ``"kv_heads"``), ``[B, T, nkv, hd/M]``
     (``"head_dim"``) or whole; under an SSM heads cut the SSD state
@@ -411,9 +412,14 @@ def cache_shapes(cfg, place: Placement, batch: int, max_len: int
     the B/C groups they read), else both whole. An enc-dec's self K/V
     are its decoder layers' (cut as above) and ``enc_out`` ``[B,
     enc_seq_len, D]`` is its one encoder output, whole on every rank (the
-    reference's ``cache_specs``)."""
+    reference's ``cache_specs``). ``seq`` above 1 cuts the K/V's
+    sequence into that many parts (the reference's long-context decode,
+    its batch over ``data`` undivided: ``T / seq`` positions a data
+    rank); the SSM state has no sequence axis."""
     out = {}
     m = place.model
+    if max_len % seq:
+        raise ValueError(f"a cache of {max_len} does not cut into {seq}")
     if cfg.family != "ssm":
         nkv, hd = cfg.n_kv_heads, cfg.head_dim
         cut = cache_cut(cfg, place)
@@ -421,7 +427,7 @@ def cache_shapes(cfg, place: Placement, batch: int, max_len: int
             nkv //= m
         elif cut == "head_dim":
             hd //= m
-        out["k"] = out["v"] = (batch, max_len, nkv, hd)
+        out["k"] = out["v"] = (batch, max_len // seq, nkv, hd)
     if cfg.family in ("ssm", "hybrid"):
         di, h, n = cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_state
         groups = cfg.ssm_groups

@@ -89,15 +89,27 @@ class TensorPlan:
     """A rank's place in its node's model group: ``view`` the group
     (``size`` ranks, this one ``rank``), ``place`` the model's
     `repro_torch.sharding.rules.Placement`, ``cfg`` its config; ``whole``
-    the whole-residual form (every rank holds every row)."""
+    the whole-residual form (every rank holds every row). Served,
+    ``seq_view`` is the group a decode cache's sequence is cut over (the
+    data group where it does not divide the batch, `repro_torch.launch.
+    serve.StepBuffers`), or None: the rank attends over its own positions
+    and :func:`seq_softmax` combines the partial softmax over it."""
 
-    def __init__(self, view, place, cfg, whole: bool = False):
+    def __init__(self, view, place, cfg, whole: bool = False,
+                 seq_view=None):
         self.view = view
         self.size = view.world_size
         self.rank = view.rank
         self.place = place
         self.cfg = cfg
         self.whole = whole
+        self.seq_view = seq_view
+
+    def with_seq(self, seq_view) -> "TensorPlan":
+        """The plan with the decode cache's sequence cut over
+        ``seq_view``."""
+        return TensorPlan(self.view, self.place, self.cfg, self.whole,
+                          seq_view)
 
     def for_sequence(self, s: int) -> "TensorPlan":
         """The form a forward of ``s`` positions runs in: the residual cut
@@ -105,7 +117,8 @@ class TensorPlan:
         whole-residual form, with or without a gradient recorded."""
         if self.whole or not s % self.size:
             return self
-        return TensorPlan(self.view, self.place, self.cfg, whole=True)
+        return TensorPlan(self.view, self.place, self.cfg, whole=True,
+                          seq_view=self.seq_view)
 
     def seq_cut(self, s: int):
         """``(start, length)`` of this rank's rows of a sequence of ``s``,
@@ -140,8 +153,15 @@ def current():
 # ---------------------------------------------------------------------------
 
 def _wire(t: torch.Tensor) -> torch.Tensor:
-    """A 16-bit tensor as its bytes (gloo moves neither bf16 nor int16)."""
-    return t.view(torch.uint8) if t.element_size() == 2 else t
+    """A 16-bit tensor as its bytes (gloo moves neither bf16 nor int16).
+    A contiguous tensor whose last dim has size 1 may carry any stride
+    there (a batch-1 row of logits moved to the front), which the byte
+    view refuses: such a tensor is copied to standard strides first."""
+    if t.element_size() != 2:
+        return t
+    if t.dim() and t.stride(-1) != 1:
+        t = t.clone(memory_format=torch.contiguous_format)
+    return t.view(torch.uint8)
 
 
 def _all_gather(view, x, dim: int):
@@ -348,3 +368,31 @@ def vocab_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     the cut ``rank · V/M`` onward."""
     v0 = _PLAN.rank * logits.shape[-1]
     return _VocabXent.apply(logits, labels, v0, _PLAN.view)
+
+
+def seq_softmax(scores: torch.Tensor, mask: torch.Tensor, v: torch.Tensor,
+                dtype, view) -> torch.Tensor:
+    """Attention over a decode cache whose sequence is cut over ``view``:
+    this rank's masked scores ``[B, nkv, g, S, T_local]`` against its
+    positions' ``v`` ``[B, T_local, nkv, hd]`` → the output over every
+    rank's positions ``[B, S, nkv·g, hd]`` in ``dtype``. The partial
+    softmax combines as flash's online softmax does: the row max
+    all_reduced (``tp_seq_max``), each rank's exps rescaled to it, then
+    their sums and weighted values all_reduced in one f32 buffer
+    (``tp_seq_sum``). A rank none of whose positions the mask keeps adds
+    zeros. No gradient (a served forward)."""
+    from repro_torch.core import gossip
+    f32 = torch.float32
+    s = torch.where(mask, scores.to(f32), -1e30)
+    m = -gossip.all_reduce(view, -s.amax(-1, keepdim=True), op="min",
+                           kind="tp_seq_max")
+    p = torch.exp(s - m)
+    b, nkv, g, sq, _ = p.shape
+    den = p.sum(-1).permute(0, 3, 1, 2)                  # [B, S, nkv, g]
+    num = torch.einsum("bkgst,btkh->bskgh", p, v.to(f32))
+    buf = gossip.all_reduce(view, torch.cat([den.reshape(-1),
+                                             num.reshape(-1)]),
+                            kind="tp_seq_sum")
+    den = buf[:den.numel()].view(den.shape)
+    num = buf[den.numel():].view(num.shape)
+    return (num / den[..., None]).reshape(b, sq, nkv * g, -1).to(dtype)

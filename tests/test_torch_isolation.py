@@ -4,8 +4,9 @@ machine has none) — checked at run time in a fresh interpreter that drives
 one small CPU round on the int8 wire, a checkpoint round trip, a
 one-round fault plan with a corrupt sender, one host-loop round, a gossip
 round on a one-rank gloo world with its checkpoint round trip and the
-two-level mesh's size check, one small model-zoo scenario and one small LM
-serve, and statically over every
+two-level mesh's size check, one small model-zoo scenario, one small LM
+serve and one rank of a small dry run in a fake world, and statically
+over every
 source file, the jax-free test of the captured programs and the example
 twins (``examples/torch_*.py``)."""
 import ast
@@ -108,6 +109,13 @@ eng = ServeEngine(lm, ens, max_len=24, max_slots=1, device="cpu",
 req = eng.submit(np.arange(1, 17), max_new=3)
 eng.drain()
 assert req.status == "done" and len(req.tokens) == 3
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+rec = dryrun.play("mamba2-370m", None,
+                  cfg=smoke_variant(get_config("mamba2-370m")),
+                  shape=ShapeConfig("s", 32, 4, "train"),
+                  sizes={"data": 2, "model": 2})
+assert rec["kernels"]["ssd_scan"] > 0 and not dist.is_initialized()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "msgpack" or m.startswith("msgpack.")

@@ -2861,6 +2861,56 @@ def port_tp_serve(inp, m):
     return out
 
 
+# --- the decode cache cut on its sequence (long-context placement) ---------
+
+#: (case, arch, config changes): a dense model with a window (its heads
+#: cut over model) and the hybrid (its one KV head: the head-dim cut)
+SEQ_CACHE = (("dense_window", "minicpm-2b", {"sliding_window": 4}),
+             ("hybrid", "hymba-1.5b", {}))
+#: one row (the data group of 2 does not divide it), a cache of 16 cut
+#: into 2 × 8 positions, a prompt of 6 and 8 new tokens (positions 6-12
+#: cross from data rank 0's slice into rank 1's)
+SEQ_CACHE_WORLD, SEQ_CACHE_B, SEQ_CACHE_S = 4, 1, 6
+SEQ_CACHE_NEW, SEQ_CACHE_LEN = 8, 16
+
+
+def port_seq_cache(inp):
+    """Each SEQ_CACHE case served on a (1, 2, 2) mesh, whose data group
+    cuts the decode cache's sequence (the batch of 1 does not divide over
+    it), and on a (2, 1, 2) mesh of the same world, whose caches are whole:
+    ``generate``'s tokens and logits on both, the rank's cache shapes and
+    a decode step's bytes by kind under the cut."""
+    import json
+    import torch
+    from repro_torch.launch.mesh import make_swarm_mesh
+    from repro_torch.launch.serve import (generate, serve_step_for,
+                                          step_buffers)
+    from repro_torch.models import build_model
+    cut, _ = make_swarm_mesh(1, data=2, model=2)
+    whole, _ = make_swarm_mesh(2, model=2)
+    cpu = torch.device("cpu")
+    b, t = SEQ_CACHE_B, SEQ_CACHE_LEN
+    out = {"coords": np.asarray([cut.coords["data"], cut.coords["model"]])}
+    for case, arch, changes in SEQ_CACHE:
+        model = build_model(tp_serve_cfg(arch, changes))
+        flat = torch.from_numpy(inp[f"seq/{case}/flat"])
+        prompt = torch.from_numpy(inp[f"seq/{case}/prompt"])
+        for tag, mesh in (("cut", cut), ("whole", whole)):
+            toks, logits = generate(model, flat, prompt, SEQ_CACHE_NEW, t,
+                                    cpu, mesh=mesh, with_logits=True)
+            out[f"seq/{case}/{tag}/tokens"] = toks.numpy()
+            out[f"seq/{case}/{tag}/logits"] = logits.numpy()
+        st = step_buffers(model, b, t, cpu, cut)
+        out[f"seq/{case}/seq"] = np.asarray(st.seq)
+        out[f"seq/{case}/cache"] = np.asarray(json.dumps(
+            {k: list(v.shape) for k, v in st.caches[0].items()}))
+        cut.reset_counts()
+        st.pos.fill_(t - 1)
+        serve_step_for(model, b, t, cpu, cut).run()
+        out[f"seq/{case}/bytes"] = np.asarray(json.dumps(cut.counts))
+    return out
+
+
 def main(argv):
     task, rank, world, init, out_dir = argv[:5]
     rank, world = int(rank), int(world)
@@ -2901,6 +2951,8 @@ def main(argv):
                 res = port_tp_encdec_gate(inp)
             elif task in TP_SERVE_WORLDS:
                 res = port_tp_serve(inp, TP_SERVE_WORLDS[task])
+            elif task == "seq_cache":
+                res = port_seq_cache(inp)
             elif task in SPLIT_WORLDS:
                 res = port_split_sessions(inp, SPLIT_WORLDS[task])
             elif task == "hier":
