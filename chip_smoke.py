@@ -60,24 +60,29 @@ Phases, each printing one JSON line:
                  its gradient (the true-Fisher 4-tuple): one quantized imp
                  commit a round, stats finite and non-zero;
  9c. dryrun     (run after ``merge_one``, before ``histo``) the dry run
-                 (`repro_torch.launch.dryrun`): three pairs at full width
+                 (`repro_torch.launch.dryrun`): five pairs at full width
                  as model rank 15 of data index 0 on the ``(16, 16)``
                  production mesh in a fake world of 256 ranks, each played
                  on ``meta`` and then on the card with the CUDA kernels
                  (the rank's shard and compute blocks allocated alone,
                  values from a seed): (a) train_4k × Hymba-1.5B (one split
-                 step), (b) prefill_32k × nemotron-4-15b, (c) decode_32k ×
-                 deepseek-coder-33b (one decode step); the meta peak within
-                 10 % of ``max_memory_allocated`` above the memory before
-                 the pair, the FLOPs (FlopCounterMode's formulas and the
-                 kernels' work) and the kernels' calls equal, the step's
-                 profiled device time beside its roofline bound; then flash
-                 at (b)'s shape (q [2,48,2048,128] over [2,8,32768,128],
-                 ``q_off`` 30,720) and ``ssd_scan`` at (a)'s (16 × 4,096 ×
-                 50 heads) against their plain versions on a slice (one
-                 bf16 ulp; SSD y 2e-2, state 1e-4), with times, bounds and
-                 SDPA; flash's and SSD's launches on the card
-                 (``launches_dryrun``) must be more than 0;
+                 step, 8 of 32 layers), (b) prefill_32k × nemotron-4-15b,
+                 (c) decode_32k × deepseek-coder-33b (one decode step),
+                 under the sharding profile ``default``; (d) (a)'s pair
+                 under ``--profile dp`` (one row, the replica group's
+                 all_reduce) and (e) prefill_32k × Hymba-1.5B at full depth
+                 under ``--profile zero3`` (the stored serving form, 2 rows
+                 of 32,768); the meta peak within 10 % of
+                 ``max_memory_allocated`` above the memory before the pair,
+                 the FLOPs (FlopCounterMode's formulas and the kernels'
+                 work) and the kernels' calls equal, the step's profiled
+                 device time beside its roofline bound; then flash and
+                 ``ssd_scan`` at every shape the pairs launch them at
+                 (``dryrun.CARD_FLASH``, ``CARD_SSD``) against their plain
+                 versions on a slice (one bf16 ulp; SSD y 2e-2, state
+                 1e-4), with times, bounds and SDPA; flash's and SSD's
+                 launches on the card (``launches_dryrun``) must be more
+                 than 0;
  10. lora_kernel the fused LoRA matmul against its plain version on the card
                  (the reference's tolerance: 2e-5 f32, 2e-2 bf16) at the
                  zoo head's train, validation and test shapes, the
@@ -2273,7 +2278,8 @@ def phase_dryrun(dev, smi):
     from repro_torch.launch import dryrun
     out = dryrun.card_phase(device_ms)
     for row in out["pairs"]:
-        print(f"dryrun: {row['arch']} × {row['shape']} rank {row['rank']}: "
+        print(f"dryrun: ({row['pair']}) {row['arch']} × {row['shape']} "
+              f"({row['profile']}) rank {row['rank']}: "
               f"peak meta {row['meta_peak'] / 2**30:.3f} GiB, card "
               f"{row['card_peak'] / 2**30:.3f} GiB; device "
               f"{row['device_ms']:.1f} ms against the roofline's "

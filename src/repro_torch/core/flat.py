@@ -518,11 +518,16 @@ class LayerCut:
     for bit). The model ranks' cotangents are their shares of the leaf's
     gradient (`repro_torch.sharding.tensor`): a piece that several model
     ranks compute with (a replicated leaf) sums over them, a piece of a
-    cut leaf over the data ranks alone."""
+    cut leaf over the data ranks alone.
+
+    ``reduce_axes`` (``("data",)`` by default) names the axes of the
+    shard group whose ranks took rows of their own, the group
+    :meth:`reduce` sums over: ``("data", "model")`` under the dry run's
+    ``zero3`` profile (the whole shard group)."""
 
     def __init__(self, shard: ShardLayout, paths: Sequence[str],
                  stacked: bool, dtypes: Dict[str, torch.dtype],
-                 compute=None):
+                 compute=None, reduce_axes: Sequence[str] = ("data",)):
         leaves = {lf.path: lf for lf in shard.full.leaves}
         self.paths = tuple(paths)
         self.stacked = stacked
@@ -537,13 +542,16 @@ class LayerCut:
         self.group_size = shard.group_size
         self._plans = [self._plan(shard, leaves, shard.coords_of(g))
                        for g in range(shard.group_size)]
-        # the shard-group indices of this rank's data group, by data index
-        own = {a: c for a, c in shard.coords.items() if a != "data"}
+        # the shard-group indices of this rank's data group (the ranks of
+        # its other coordinates), by their index over ``reduce_axes``
+        own = {a: c for a, c in shard.coords.items()
+               if a not in reduce_axes}
         self._data_group = sorted(
             (g for g in range(shard.group_size)
              if all(shard.coords_of(g).get(a, 0) == c
                     for a, c in own.items())),
-            key=lambda g: shard.coords_of(g).get("data", 0))
+            key=lambda g: tuple(shard.coords_of(g).get(a, 0)
+                                for a in reduce_axes))
         self._routes = {}
         self.plan = self._plan(shard, leaves, shard.coords)
         #: the leaves a cut moves (the others are whole on every rank)
@@ -684,7 +692,8 @@ class LayerCut:
         self._routes[i] = (scatter, owners, whole)
         return self._routes[i]
 
-    def reduce(self, cots, i: int, view, device) -> Dict[int, torch.Tensor]:
+    def reduce(self, cots, i: int, view, device, replica=None,
+               whole_view=None) -> Dict[int, torch.Tensor]:
         """The sums over the data group ``view`` of the whole-layer
         cotangents ``cots`` (one a leaf, every data rank's), cut to this
         rank's blocks: ``{k: f32 block}`` for each leaf whose layer ``i``
@@ -693,7 +702,16 @@ class LayerCut:
         segments of one f32 buffer, one reduce_scatter
         (``grad_reduce_scatter``); each owner's leaves in one buffer, one
         reduce to it (``grad_reduce_owner``); the ``whole`` leaves' blocks
-        in one all_reduce (``grad_reduce``)."""
+        in one all_reduce (``grad_reduce``) over ``whole_view`` (None:
+        ``view``).
+
+        With ``replica`` (the ranks outside ``view`` that hold the same
+        blocks and computed rows of their own: the dry run's ``dp``
+        profile, whose blocks every model rank repeats) the blocks of
+        ``scatter`` and the owner's are then summed over it in one
+        all_reduce (``grad_replica``); the ``whole`` leaves, which every
+        rank of the node holds, reach their sum over ``whole_view`` (the
+        node's every rank) at once."""
         from repro_torch.core import gossip
         scatter, owners, whole = self.routes(i)
         me = view.rank
@@ -731,9 +749,16 @@ class LayerCut:
                 ks, self._data_group[d])), d, kind="grad_reduce_owner")
             if d == me:
                 keep(ks, summed)
+        if replica is not None:
+            ks = scatter + owners.get(me, [])
+            if ks:
+                keep(ks, gossip.all_reduce(replica, flat(
+                    [out[k] for k in ks]), kind="grad_replica"))
         if whole:
-            keep(whole, gossip.all_reduce(view, flat(blocks(
-                whole, self._data_group[me])), kind="grad_reduce"))
+            keep(whole, gossip.all_reduce(
+                view if whole_view is None else whole_view,
+                flat(blocks(whole, self._data_group[me])),
+                kind="grad_reduce"))
         return out
 
     # -- tensor parallelism: compute blocks ---------------------------------

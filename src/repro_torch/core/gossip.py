@@ -97,7 +97,11 @@ to the ranks that store them, and the model group's activations
 ``tp_reduce_scatter``, ``tp_all_reduce`` and ``tp_all_to_all``, and a
 served decode cache cut on its sequence combines its partial softmax over
 the data group as ``tp_seq_max`` and ``tp_seq_sum``
-(`repro_torch.sharding.tensor.seq_softmax`).
+(`repro_torch.sharding.tensor.seq_softmax`). Under the dry run's ``dp``
+profile the blocks a data group reduced are summed once more over the
+model group that repeats them (``grad_replica``, an :func:`all_reduce`),
+and under ``zero3`` a served decode step gathers its cut cache over the
+model group (``cache_gather``, `repro_torch.sharding.stored`).
 """
 from __future__ import annotations
 

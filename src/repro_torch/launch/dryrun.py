@@ -27,6 +27,33 @@ holds (`repro_torch.launch.specs`) and runs the rank's step:
   at the cache's last position, the cache on the reference's placement
   (its sequence cut over ``data`` at batch 1).
 
+``--profile`` takes the reference's three sharding profiles
+(`repro_torch.sharding.rules.PROFILES`). ``default`` is the above.
+``dp`` and ``zero3`` place no tensor parallelism. Each rank runs every
+layer whole on its rows, gathered just in time from its shard
+(`repro_torch.launch.mesh.use_profile` names the groups):
+
+* under ``dp`` the params are FSDP over ``data`` alone, so a layer is
+  gathered over the rank's data group, and the model ranks repeat its
+  blocks. The gradient reduced onto the data group's blocks is summed
+  over the model group (``grad_replica``). A leaf ``data`` does not cut
+  (the embedding and ``lm_head``, which no rule cuts under either
+  profile, the norms) is whole on every rank, and its gradient takes one
+  all_reduce over the whole position;
+* under ``zero3`` the params are FSDP over ``("data", "model")``. A layer
+  is gathered over the whole position, and the cache keeps its model cuts
+  while the compute is whole: a decode step gathers them
+  (``cache_gather``, `repro_torch.sharding.stored`).
+
+Under both a rank computes the rows the logical ``batch``
+(``("data", "model")``) gives it where that divides the batch. Otherwise
+it computes the rows its input holds (`repro_torch.launch.train.
+TrainStep.split`). A served rank holds its shard in the stored form of
+`repro_torch.launch.serve.StepBuffers`. Every row carries ``profile``,
+and its file tag ends in ``_dp`` / ``_zero3``, as the reference's does.
+A pair that places but does not fit is an ``ok`` row with ``fits``
+False.
+
 On the ``meta`` device nothing is allocated and the full depth runs:
 :class:`RankCounter` (a dispatch mode) tracks the live storage bytes for
 the peak, counts FLOPs with ``torch.utils.flop_counter``'s per-op formulas
@@ -80,12 +107,9 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.kernels import work
 from repro_torch.launch import roofline, specs
 
-#: the reference's sharding profiles the port does not place yet, and the
-#: roadmap item that queues each
-PROFILES = {"default": None,
-            "dp": "ROADMAP.md §1, queued item: the dry run's --profile dp",
-            "zero3": "ROADMAP.md §1, queued item: the dry run's --profile "
-                     "zero3"}
+#: the reference's sharding profiles (`repro_torch.sharding.rules.
+#: PROFILES`)
+PROFILES = specs.PROFILES
 
 _COLLECTIVES = ("c10d", "_c10d_functional", "c10d_functional")
 _NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty",
@@ -208,25 +232,36 @@ def model_flops_analytic(cfg: ModelConfig, shape: ShapeConfig) -> float:
 # one rank's step
 # ---------------------------------------------------------------------------
 
-def rank_mesh(sizes: Dict[str, int]):
+def rank_mesh(sizes: Dict[str, int], profile: str = "default"):
     """The port's mesh of the production mesh ``sizes`` over the running
-    (fake) world: ``make_swarm_mesh(pods, data=D, model=M)``; with pods a
-    batch group over both pods' data ranks of the rank's model index (the
-    reference folds ``pod`` into the batch axes). Each group's link class
-    is set to ``node`` or ``network`` (`repro_torch.launch.roofline.
-    link_of`)."""
+    (fake) world under ``profile``: ``make_swarm_mesh(pods, data=D,
+    model=M)`` and its profile's groups (`repro_torch.launch.mesh.
+    use_profile`); with pods the groups over both pods' ranks (the
+    reference folds ``pod`` into the batch axes): the data ranks of the
+    rank's model index (the served batch's group under ``default``) and
+    the whole world. The world rank of every coordinate is the same under
+    every profile (`repro_torch.launch.specs.world_rank`). Each group's
+    link class is set to ``node`` or ``network`` (`repro_torch.launch.
+    roofline.link_of`)."""
     import torch.distributed as dist
-    from repro_torch.launch.mesh import GroupView, make_swarm_mesh
+    from repro_torch.launch.mesh import GroupView, make_swarm_mesh, use_profile
     pods = sizes.get("pod", 1)
     d, m = sizes["data"], sizes["model"]
     mesh, _ = make_swarm_mesh(pods, data=d, model=m)
+    use_profile(mesh, profile)
     if pods > 1:
         groups = [dist.new_group([(i * d + k) * m + j for i in range(pods)
                                   for k in range(d)]) for j in range(m)]
-        mesh.batch_view = GroupView(mesh, groups[mesh.coords["model"]],
-                                    "batch", "intra")
+        pod_data = GroupView(mesh, groups[mesh.coords["model"]], "batch",
+                             "intra")
+        mesh.batch_sizes = {"pod": pods, **mesh.inner}
+        mesh.axis_views[("pod", "data")] = pod_data
+        mesh.axis_views[("pod", "data", "model")] = GroupView(
+            mesh, None, "world", "intra")
+        if profile == "default":
+            mesh.batch_view = pod_data
     views = [mesh, mesh.shard_view, mesh.data_view, mesh.model_view,
-             mesh.batch_view]
+             mesh.batch_view, *mesh.axis_views.values()]
     for v in views:
         if v is not None:
             v.link = roofline.link_of(dist.get_process_group_ranks(v.group)
@@ -264,7 +299,8 @@ class RankStep:
             from repro_torch.launch.train import make_train_step
             from repro_torch.optim import adamw_init
             self.tc = tc or TrainConfig(remat=True)
-            self.shard = specs.shard_layout(model, sizes, mesh.coords)
+            self.shard = specs.shard_layout(model, sizes, mesh.coords,
+                                            mesh.profile)
             self.params = torch.empty(self.shard.local.size,
                                       dtype=dtype_of(cfg.param_dtype),
                                       device=dev)
@@ -273,7 +309,9 @@ class RankStep:
                     _fill(v, gen)
             self.opt = adamw_init(self.shard.local.parts(self.params))
             b = shape.global_batch
-            b = b // pods if b % pods == 0 else b     # a pod's batch
+            if mesh.profile == "default" and b % pods == 0:
+                b //= pods                            # a pod's batch
+            # (dp and zero3: pods replicate the logical batch's rows)
             self.batch = self._batch(b, gen)
             self.step = make_train_step(model, self.tc)
             self.args = [self.params, self.opt, self.batch]
@@ -408,14 +446,15 @@ def play(arch: str, shape_name: str, mesh_name: str = "single", *,
          tc: Optional[TrainConfig] = None, seed: Optional[int] = None,
          profile: bool = False, then=None, cfg: Optional[ModelConfig] = None,
          shape: Optional[ShapeConfig] = None,
-         sizes: Optional[Dict[str, int]] = None) -> dict:
+         sizes: Optional[Dict[str, int]] = None,
+         sharding: str = "default") -> dict:
     """Rank ``(data_rank, model_rank)`` of node position 0 of the pair's
-    production mesh, played in a fake world on ``device``: its
-    :func:`count_step` record (``profile``: its device time too), with
-    ``rank`` (the world rank), ``coords`` and ``build_s``. ``then(step)``,
-    if given, runs inside the world after the count. ``cfg``,
-    ``shape`` and ``sizes`` replace the arch's config, the named shape and
-    the named mesh (a small rank for a test)."""
+    production mesh under the sharding profile ``sharding``, played in a
+    fake world on ``device``: its :func:`count_step` record (``profile``:
+    its device time too), with ``rank`` (the world rank), ``coords`` and
+    ``build_s``. ``then(step)``, if given, runs inside the world after the
+    count. ``cfg``, ``shape`` and ``sizes`` replace the arch's config, the
+    named shape and the named mesh (a small rank for a test)."""
     from repro_torch.launch.mesh import fake_world
     sizes = sizes or specs.PRODUCTION[mesh_name]
     shape = shape or SHAPES_BY_NAME[shape_name]
@@ -428,7 +467,7 @@ def play(arch: str, shape_name: str, mesh_name: str = "single", *,
     t0 = time.perf_counter()
     with fake_world(world, rank):
         try:
-            mesh = rank_mesh(sizes)
+            mesh = rank_mesh(sizes, sharding)
             step = RankStep(cfg, shape, mesh, sizes, device, tc, seed)
             build_s = time.perf_counter() - t0
             rec = count_step(step, profile)
@@ -436,17 +475,18 @@ def play(arch: str, shape_name: str, mesh_name: str = "single", *,
                 rec["then"] = then(step)
         finally:
             release_serving()
-    rec.update(rank=rank, coords=coords, build_s=build_s)
+    rec.update(rank=rank, coords=coords, build_s=build_s, profile=sharding)
     return rec
 
 
 def run_pair(arch: str, shape_name: str, multi: bool,
              tc: Optional[TrainConfig] = None, *, do_stats: bool = True,
-             ranks: str = "ends", device="meta") -> dict:
-    """The dry-run row of one pair: its played ranks (model ranks 0 and
-    M − 1 of data index 0, or every model rank with ``ranks="all"``), the
-    heaviest one's memory and, with ``do_stats``, its per-device stats and
-    roofline."""
+             ranks: str = "ends", device="meta",
+             profile: str = "default") -> dict:
+    """The dry-run row of one pair under ``profile``: its played ranks
+    (model ranks 0 and M − 1 of data index 0, or every model rank with
+    ``ranks="all"``), the heaviest one's memory and, with ``do_stats``,
+    its per-device stats and roofline."""
     mesh_name = "multi" if multi else "single"
     sizes = specs.PRODUCTION[mesh_name]
     chips = 1
@@ -458,7 +498,7 @@ def run_pair(arch: str, shape_name: str, multi: bool,
     which = range(m) if ranks == "all" else sorted({0, m - 1})
     t0 = time.perf_counter()
     played = [play(arch, shape_name, mesh_name, model_rank=r, device=device,
-                   tc=tc) for r in which]
+                   tc=tc, sharding=profile) for r in which]
     build_s = time.perf_counter() - t0
     top = max(played, key=lambda r: r["memory"]["peak_bytes_per_device"])
     peak = top["memory"]["peak_bytes_per_device"]
@@ -468,7 +508,7 @@ def run_pair(arch: str, shape_name: str, multi: bool,
         "build_s": build_s, "memory": top["memory"],
         "fits": peak <= roofline.HBM_BYTES,
         "card": roofline.CARD, "card_bytes": roofline.HBM_BYTES,
-        "ranks": played, "status": "ok", "profile": "default",
+        "ranks": played, "status": "ok", "profile": profile,
         "model_flops_global": model_flops_analytic(cfg, shape),
         "params": cfg.param_count(), "active_params": cfg.active_param_count(),
     }
@@ -495,38 +535,43 @@ def _roof(arch, shape_name, rec, r) -> roofline.Roofline:
 
 
 # ---------------------------------------------------------------------------
-# the card check: three ranks played on the card against their meta count
+# the card check: five ranks played on the card against their meta count
 # ---------------------------------------------------------------------------
 
-#: ``(arch, shape, layers)`` the card plays as model rank M − 1 of data
-#: index 0 (the last query rows: the most causal work); ``layers`` None is
-#: the config's depth. The train step is cut to 8 of Hymba's 32 layers
-#: (one of them global attention) to keep the card's check within a
-#: minute: a rank's meta step walks every piece of every layer's compute
-#: blocks in Python (about 4,000 ops a layer here)
-CARD_PAIRS = (("hymba-1.5b", "train_4k", 8),
-              ("nemotron-4-15b", "prefill_32k", None),
-              ("deepseek-coder-33b", "decode_32k", None))
+#: ``(label, arch, shape, layers, profile)`` the card plays as model rank
+#: M − 1 of data index 0 (the last query rows: the most causal work);
+#: ``layers`` None is the config's depth. The train steps are cut to 8 of
+#: Hymba's 32 layers (one of them global attention) to keep the card's
+#: check within a minute: a rank's meta step walks every piece of every
+#: layer's compute blocks in Python (about 4,000 ops a layer here). (d)
+#: is (a)'s pair under ``dp`` (one row of 4,096 a rank, the replica
+#: group's all_reduce), (e) the stored serving form under ``zero3`` (2
+#: rows of 32,768)
+CARD_PAIRS = (("a", "hymba-1.5b", "train_4k", 8, "default"),
+              ("b", "nemotron-4-15b", "prefill_32k", None, "default"),
+              ("c", "deepseek-coder-33b", "decode_32k", None, "default"),
+              ("d", "hymba-1.5b", "train_4k", 8, "dp"),
+              ("e", "hymba-1.5b", "prefill_32k", None, "zero3"))
 #: the measured peak within this share of the meta prediction (the CUDA
 #: caching allocator rounds each block and keeps a cuBLAS workspace)
 PEAK_BAND = 0.10
 
 
 def card_pair(arch: str, shape_name: str, *, layers: Optional[int] = None,
-              seed: int = 0) -> dict:
-    """One pair's rank ``(0, M − 1)`` on ``(16, 16)``, played on ``meta``
-    and then on the card (CUDA kernels, values from ``seed``): the meta
-    prediction, the card's count of the same step (FLOPs by the same
-    counters) and its profiled device time, the measured peak
-    (``max_memory_allocated`` above the memory before the pair), and the
-    roofline's bound of the rank. Raises where the peak leaves the band
-    or the FLOPs differ."""
+              seed: int = 0, profile: str = "default") -> dict:
+    """One pair's rank ``(0, M − 1)`` on ``(16, 16)`` under ``profile``,
+    played on ``meta`` and then on the card (CUDA kernels, values from
+    ``seed``): the meta prediction, the card's count of the same step
+    (FLOPs by the same counters) and its profiled device time, the
+    measured peak (``max_memory_allocated`` above the memory before the
+    pair), and the roofline's bound of the rank. Raises where the peak
+    leaves the band or the FLOPs differ."""
     shape = SHAPES_BY_NAME[shape_name]
     cfg = adapt_for_shape(get_config(arch), shape)
     if layers is not None:
         cfg = cfg.replace(n_layers=layers)
     m = specs.PRODUCTION["single"]["model"]
-    kw = dict(model_rank=m - 1, cfg=cfg, shape=shape)
+    kw = dict(model_rank=m - 1, cfg=cfg, shape=shape, sharding=profile)
     t0 = time.perf_counter()
     gc.collect()            # the last pair's graph, before this one counts
     gc_s = time.perf_counter() - t0
@@ -544,7 +589,7 @@ def card_pair(arch: str, shape_name: str, *, layers: Optional[int] = None,
                 then=then, **kw)
     del card["coll_detail"]
     rec = {"arch": arch, "shape": shape_name, "layers": cfg.n_layers,
-           "rank": meta["rank"], "coords": meta["coords"],
+           "profile": profile, "rank": meta["rank"], "coords": meta["coords"],
            "meta_peak": meta["memory"]["peak_bytes_per_device"],
            "card_peak": card["then"]["peak"],
            "meta_flops": meta["flops"], "card_flops": card["flops"],
@@ -562,13 +607,14 @@ def card_pair(arch: str, shape_name: str, *, layers: Optional[int] = None,
                collective_s=roof.collective_s, bound_ms=roof.bound_s * 1e3,
                device_ms=card["device_ms"])
     if rec["peak_rel_err"] > PEAK_BAND:
-        raise AssertionError(f"{arch} × {shape_name}: the meta peak "
-                             f"{rec['meta_peak']} is not within "
+        raise AssertionError(f"{arch} × {shape_name} ({profile}): the meta "
+                             f"peak {rec['meta_peak']} is not within "
                              f"{PEAK_BAND:.0%} of the card's "
                              f"{rec['card_peak']}")
     if rec["meta_flops"] != rec["card_flops"] or \
             rec["kernels"] != rec["card_kernels"]:
-        raise AssertionError(f"{arch} × {shape_name}: FLOPs {rec['meta_flops']}"
+        raise AssertionError(f"{arch} × {shape_name} ({profile}): FLOPs "
+                             f"{rec['meta_flops']}"
                              f" / kernels {rec['kernels']} on meta, "
                              f"{rec['card_flops']} / {rec['card_kernels']} "
                              "on the card")
@@ -582,55 +628,95 @@ def _ulp_check(got, want, atol, rtol, what):
     return float(err.max())
 
 
-def card_kernels(time_call, seed: int = 5) -> dict:
-    """The two kernels of the card pairs at their shapes, against their
-    plain versions on a slice of rows and heads whose scores fit: flash at
-    (b)'s nemotron-4-15b prefill rank, q ``[2, 48, 2048, 128]`` over K/V
-    ``[2, 8, 32768, 128]`` at ``q_off`` 30,720 (bf16 within one ulp: atol
-    2e-4, rtol 8e-3), beside SDPA with a lower-right causal bias; the SSD
-    scan at (a)'s Hymba-1.5B train rank, 16 rows × 4,096 tokens × 50 heads
-    (y in bf16 within 2e-2, the f32 state within 1e-4). Each with its
-    device ms (``time_call``: five calls after two) and its bound at the
-    H100's rates (the kernels' work formulas)."""
+#: the flash calls of the card pairs: ``(pair, b, heads, KV heads, queries,
+#: keys, head dim, q_off, window, plain slice)``, the slice ``(rows, KV
+#: groups, last query rows)`` whose plain f32 scores fit (None: whole)
+CARD_FLASH = (("b", 2, 48, 8, 2048, 32768, 128, 30720, 0, (1, 1, None)),
+              ("d", 1, 25, 5, 4096, 4096, 64, 0, 0, (1, 5, None)),
+              ("d", 1, 25, 5, 4096, 4096, 64, 0, 1024, (1, 5, None)),
+              ("e", 2, 25, 5, 32768, 32768, 64, 0, 0, (1, 1, 2048)),
+              ("e", 2, 25, 5, 32768, 32768, 64, 0, 1024, (1, 1, 2048)))
+#: the SSD calls: ``(pair, rows, tokens, heads, head dim, state, chunk,
+#: plain rows)``
+CARD_SSD = (("a", 16, 4096, 50, 64, 16, 256, 2),
+            ("d", 1, 4096, 50, 64, 16, 256, 1),
+            ("e", 2, 32768, 50, 64, 16, 256, 1))
+
+
+def _bound(tf, f32f, nbytes):
+    """``(bound ms, bound_by)`` of a kernel's work at the H100's rates."""
+    ops_s = tf / roofline.BF16_FLOPS + f32f / roofline.F32_FLOPS
+    mem_s = nbytes / roofline.HBM_BW
+    return max(ops_s, mem_s) * 1e3, "operations" if ops_s > mem_s \
+        else "bytes"
+
+
+def _card_flash(case, time_call, gen) -> dict:
+    """One :data:`CARD_FLASH` call: the kernel against its plain version
+    on the slice (bf16 within one ulp: atol 2e-4, rtol 8e-3), the
+    kernel's ms, the plain ms where the slice is the whole call, the
+    bound, and one SDPA call's ms where there is one (a
+    lower-right causal bias with a query offset, ``is_causal`` without a
+    window, the boolean mask with one where its scores fit)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    timed = time_call
-    time_call = lambda fn: timed(fn, iters=5, warm=2, tries=2)
-    from repro_torch.kernels import ssd_scan as ss
-    from repro_torch.kernels.ref import flash_attention_plain, ssd_scan_plain
-    dev = "cuda"
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    bf = torch.bfloat16
-    b, h, hkv, s, t, d = 2, 48, 8, 2048, 32768, 128
-    q_off = t - s
+    from repro_torch.kernels.ref import flash_attention_plain
+    pair, b, h, hkv, s, t, d, q_off, window, (rows, groups, last) = case
+    bf, dev = torch.bfloat16, "cuda"
     q = torch.randn(b, h, s, d, device=dev, generator=gen).to(bf)
     k = torch.randn(b, hkv, t, d, device=dev, generator=gen).to(bf)
     v = torch.randn(b, hkv, t, d, device=dev, generator=gen).to(bf)
-    call = lambda: fa.flash_attention(q, k, v, causal=True, q_off=q_off)
+    call = lambda: fa.flash_attention(q, k, v, causal=True, window=window,
+                                      q_off=q_off)
     got = call()
-    g = h // hkv                     # one KV head's query heads, one row
-    sl = lambda: flash_attention_plain(q[:1, :g], k[:1, :1], v[:1, :1],
-                                       causal=True, q_off=q_off)
-    err = _ulp_check(got[:1, :g], sl(), 2e-4, 8e-3, "flash at (b)'s shape")
-    tf, f32f, nbytes = work.flash_work(b, h, hkv, s, t, d, 2, True, 0, q_off)
-    flash = dict(shape=[b, h, s, d], kv=[b, hkv, t, d], q_off=q_off,
-                 max_abs_err=err, ms=time_call(call), plain_slice=[1, g, s, d],
-                 bound_ms=max(nbytes / roofline.HBM_BW,
-                              tf / roofline.BF16_FLOPS) * 1e3,
-                 bound_by="operations" if tf / roofline.BF16_FLOPS >
-                 nbytes / roofline.HBM_BW else "bytes", gflop=tf / 1e9)
+    g = groups * (h // hkv)
+    lo = 0 if last is None else s - last
+    plain = lambda: flash_attention_plain(
+        q[:rows, :g, lo:], k[:rows, :groups], v[:rows, :groups],
+        causal=True, window=window, q_off=q_off + lo)
+    err = _ulp_check(got[:rows, :g, lo:], plain(), 2e-4, 8e-3,
+                     f"flash at ({pair})'s shape, window {window}")
+    whole = rows == b and groups == hkv and lo == 0
+    tf, f32f, nbytes = work.flash_work(b, h, hkv, s, t, d, 2, True, window,
+                                       q_off)
+    bound_ms, bound_by = _bound(tf, f32f, nbytes)
+    row = dict(pair=pair, shape=[b, h, s, d], kv=[b, hkv, t, d],
+               q_off=q_off, window=window, max_abs_err=err,
+               ms=time_call(call), plain_slice=[rows, g, s - lo, d],
+               plain_ms=time_call(plain) if whole else None,
+               bound_ms=bound_ms, bound_by=bound_by, gflop=tf / 1e9,
+               library_ms=None)
     try:
-        from torch.nn.attention.bias import causal_lower_right
-        bias = causal_lower_right(s, t)
-        flash["library_ms"] = time_call(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
-                                                   enable_gqa=True))
+        if q_off:
+            from torch.nn.attention.bias import causal_lower_right
+            lib = dict(attn_mask=causal_lower_right(s, t))
+        elif not window:
+            lib = dict(is_causal=True)
+        elif s * t <= 1 << 26:
+            i = torch.arange(s, device=dev)[:, None]
+            j = torch.arange(t, device=dev)[None]
+            lib = dict(attn_mask=(j <= i) & (j > i - window))
+        else:
+            lib = None
+        if lib is not None:
+            row["library_ms"] = time_call(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       enable_gqa=True,
+                                                       **lib))
     except Exception as e:  # noqa: BLE001
-        flash["library_ms"] = None
-        flash["library_error"] = repr(e)[:200]
-    del q, k, v, got
-    torch.cuda.empty_cache()
-    bs, ls, hs, p, n, chunk = 16, 4096, 50, 64, 16, 256
+        row["library_error"] = repr(e)[:200]
+    return row
+
+
+def _card_ssd(case, time_call, gen) -> dict:
+    """One :data:`CARD_SSD` call: the kernel against its plain version on
+    its first rows (y in bf16 within 2e-2, the f32 state within 1e-4),
+    the kernel's ms, the plain ms where those rows are all of them, the
+    bound; no one library call computes it."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels.ref import ssd_scan_plain
+    pair, bs, ls, hs, p, n, chunk, rows = case
+    bf, dev = torch.bfloat16, "cuda"
     x = torch.randn(bs, ls, hs, p, device=dev, generator=gen).to(bf)
     dt = torch.rand(bs, ls, hs, device=dev, generator=gen) * 0.1 + 0.05
     alog = torch.log(torch.linspace(1, 16, hs, device=dev))
@@ -638,20 +724,41 @@ def card_kernels(time_call, seed: int = 5) -> dict:
     cm = (torch.randn(bs, ls, 1, n, device=dev, generator=gen) * 0.5).to(bf)
     call = lambda: ss.ssd_scan(x, dt, alog, bm, cm, chunk=chunk)
     y, st = call()
-    sl = lambda: ssd_scan_plain(x[:2], dt[:2], alog, bm[:2], cm[:2],
-                                chunk=chunk)
-    yw, sw = sl()
-    err_y = _ulp_check(y[:2], yw, 2e-2, 2e-2, "ssd y at (a)'s shape")
-    err_s = _ulp_check(st[:2], sw, 1e-4, 1e-4, "ssd state at (a)'s shape")
+    plain = lambda: ssd_scan_plain(x[:rows], dt[:rows], alog, bm[:rows],
+                                   cm[:rows], chunk=chunk)
+    yw, sw = plain()
+    err_y = _ulp_check(y[:rows], yw, 2e-2, 2e-2, f"ssd y at ({pair})'s shape")
+    err_s = _ulp_check(st[:rows], sw, 1e-4, 1e-4,
+                       f"ssd state at ({pair})'s shape")
+    del y, st, yw, sw
     tf, f32f, nbytes = work.ssd_work(bs, ls, hs, p, 1, n, chunk, 2, hs)
-    ops_s = tf / roofline.BF16_FLOPS + f32f / roofline.F32_FLOPS
-    ssd = dict(shape=[bs, ls, hs, p, n, chunk], max_abs_err=err_y,
-               max_abs_err_state=err_s, ms=time_call(call),
-               plain_slice=[2, ls, hs, p],
-               bound_ms=max(nbytes / roofline.HBM_BW, ops_s) * 1e3,
-               bound_by="operations" if ops_s > nbytes / roofline.HBM_BW
-               else "bytes", library_ms=None, gflop=(tf + f32f) / 1e9)
-    return {"flash_attention": flash, "ssd_scan": ssd}
+    bound_ms, bound_by = _bound(tf, f32f, nbytes)
+    return dict(pair=pair, shape=[bs, ls, hs, p, n, chunk],
+                max_abs_err=err_y, max_abs_err_state=err_s,
+                ms=time_call(call), plain_slice=[rows, ls, hs, p],
+                plain_ms=time_call(plain) if rows == bs else None,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                gflop=(tf + f32f) / 1e9)
+
+
+def card_kernels(time_call, seed: int = 5) -> dict:
+    """The two kernels at every shape the card pairs launch them at
+    (:data:`CARD_FLASH`, :data:`CARD_SSD`), each against its plain
+    version on a slice of rows, heads and query rows whose f32 scores fit,
+    with its device ms (``time_call``: five calls after two, one trace,
+    CUDA events where it loses kernel records), its bound at the H100's
+    rates (the kernels' work formulas) and the library's one call where
+    there is one."""
+    timed = time_call
+    time_call = lambda fn: timed(fn, iters=5, warm=2, tries=1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {"flash_attention": [], "ssd_scan": []}
+    for name, cases, fn in (("flash_attention", CARD_FLASH, _card_flash),
+                            ("ssd_scan", CARD_SSD, _card_ssd)):
+        for case in cases:
+            out[name].append(fn(case, time_call, gen))
+            torch.cuda.empty_cache()
+    return out
 
 
 def card_phase(time_call, pairs=CARD_PAIRS) -> dict:
@@ -659,25 +766,49 @@ def card_phase(time_call, pairs=CARD_PAIRS) -> dict:
     ``meta`` and on the card (:func:`card_pair`), then the two kernels at
     their shapes (:func:`card_kernels`). ``time_call(fn, iters, warm,
     tries)`` is the script's device-ms timer for the kernels; a pair's
-    step is profiled in its counted run. Returns the pairs' records, the kernels'
-    rows and the kernels' launches on the card."""
+    step is profiled in its counted run. Returns the pairs' records (each
+    with its kernels' launches on the card, which must hold every kernel
+    its meta count calls), the kernels' rows and the launches of all the
+    pairs."""
     from repro_torch.kernels import LAUNCHES, reset_launches
-    reset_launches()
-    rows = [card_pair(a, s, layers=n) for a, s, n in pairs]
-    launches = {k: v for k, v in LAUNCHES.items() if v}
+    rows, launches = [], {}
+    for label, arch, shape, layers, prof in pairs:
+        reset_launches()
+        rec = dict(card_pair(arch, shape, layers=layers, profile=prof),
+                   pair=label)
+        rec["launches"] = {k: v for k, v in LAUNCHES.items() if v}
+        if set(rec["kernels"]) - set(rec["launches"]):
+            raise AssertionError(f"({label}): kernels {rec['kernels']} "
+                                 f"counted, {rec['launches']} launched")
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        rows.append(rec)
     release_serving()
     torch.cuda.empty_cache()
     return {"pairs": rows, "kernels": card_kernels(time_call),
             "launches": launches}
 
 
-def table(out: str, mesh: str = "single") -> str:
-    """The markdown table of the rows under ``out`` for ``mesh``: a rank's
-    peak GiB, whether it fits, and the dominant roofline term with the
-    three terms (seconds), an arch a row, a shape a column."""
+def _tag(arch: str, shape: str, multi: bool, profile: str = "default",
+         accum: int = 1) -> str:
+    """A row's file tag, the reference's: ``{arch}_{shape}_{single|multi}``,
+    then ``_{profile}`` for a profile other than ``default`` and
+    ``_accum{A}`` for accumulation."""
+    tag = f"{arch}_{shape}_{'multi' if multi else 'single'}"
+    if profile != "default":
+        tag += f"_{profile}"
+    return tag + (f"_accum{accum}" if accum > 1 else "")
+
+
+def table(out: str, mesh: str = "single", profile: str = "default") -> str:
+    """The markdown table of the rows under ``out`` for ``mesh`` and
+    ``profile``: a rank's peak GiB, whether it fits, and the dominant
+    roofline term with the three terms (seconds), an arch a row, a shape a
+    column."""
     rows = {}
+    ending = _tag("", "", mesh == "multi", profile)[1:] + ".json"
     for name in sorted(os.listdir(out)):
-        if name.endswith(f"_{mesh}.json"):
+        if name.endswith(ending):
             with open(os.path.join(out, name)) as f:
                 rec = json.load(f)
             rows[(rec["arch"], rec["shape"])] = rec
@@ -723,11 +854,8 @@ def main(argv=None) -> int:
     if args.table:
         for mesh in {"single": ["single"], "multi": ["multi"],
                      "both": ["single", "multi"]}[args.mesh]:
-            print(table(args.out, mesh) + "\n")
+            print(table(args.out, mesh, args.profile) + "\n")
         return 0
-    if PROFILES[args.profile] is not None:
-        raise SystemExit(f"--profile {args.profile} is not placed by the "
-                         f"port yet: {PROFILES[args.profile]}")
 
     archs = list(ARCH_IDS) if args.arch == "all" else args.arch.split(",")
     shapes = ([s.name for s in INPUT_SHAPES] if args.shape == "all"
@@ -740,15 +868,13 @@ def main(argv=None) -> int:
     for arch in archs:
         for shape in shapes:
             for multi in meshes:
-                tag = f"{arch}_{shape}_{'multi' if multi else 'single'}"
-                if args.accum > 1:
-                    tag += f"_accum{args.accum}"
+                tag = _tag(arch, shape, multi, args.profile, args.accum)
                 path = os.path.join(args.out, tag + ".json")
                 t0 = time.time()
                 try:
                     rec = run_pair(arch, shape, multi, tc,
                                    do_stats=not multi and not args.no_stats,
-                                   ranks=args.ranks)
+                                   ranks=args.ranks, profile=args.profile)
                     dom = rec.get("roofline", {}).get("dominant", "-")
                     gib = rec["memory"]["peak_bytes_per_device"] / 2 ** 30
                     print(f"[ok]   {tag}  build={rec['build_s']:.1f}s "
@@ -758,6 +884,7 @@ def main(argv=None) -> int:
                 except Exception as e:  # noqa: BLE001
                     rec = {"arch": arch, "shape": shape,
                            "mesh": "multi" if multi else "single",
+                           "profile": args.profile,
                            "status": "FAIL", "error": repr(e),
                            "traceback": traceback.format_exc()}
                     failures.append(tag)

@@ -115,8 +115,20 @@ class SwarmMesh:
         self.data_view: Optional[GroupView] = None
         self.model_view: Optional[GroupView] = None
         #: the ranks a served batch's rows divide over (None: the data
-        #: group; `repro_torch.launch.serve.StepBuffers`)
+        #: group; `repro_torch.launch.serve.StepBuffers`); under a
+        #: profile (:func:`use_profile`) the ranks a step's rows divide
+        #: over
         self.batch_view: Optional[GroupView] = None
+        #: the dry run's sharding profile (:func:`use_profile`), its
+        #: store group (the ranks a node's params are cut over) and its
+        #: replica group (the ranks that hold the same blocks)
+        self.profile = "default"
+        self.store_view: Optional[GroupView] = None
+        self.replica_view: Optional[GroupView] = None
+        #: ``{axes: view}``: the group of this rank over those inner axes
+        #: (``("data",)``, ``("model",)``, ``("data", "model")``; with
+        #: pods those with ``"pod"`` first)
+        self.axis_views: Dict[tuple, GroupView] = {}
         self.world_group = group
         self.inner: Dict[str, int] = {}
         self.coords: Dict[str, int] = {}
@@ -299,7 +311,51 @@ def make_swarm_mesh(n_nodes: int = 4, *, data: int = 1, model: int = 1,
     if model_groups is not None:
         mesh.model_view = GroupView(mesh, model_groups[i][g // model],
                                     "model", "intra")
+    mesh.axis_views = {("data", "model"): mesh.shard_view}
+    if mesh.data_view is not None:
+        mesh.axis_views[("data",)] = mesh.data_view
+    if mesh.model_view is not None:
+        mesh.axis_views[("model",)] = mesh.model_view
     return mesh, mesh.axis
+
+
+def use_profile(mesh: SwarmMesh, profile: str) -> SwarmMesh:
+    """Name the groups of an inner-sharded mesh (`make_swarm_mesh(n,
+    data=D, model=M)`, ``D`` and ``M`` above 1) that a step under the
+    reference dry run's ``profile`` runs on (`repro_torch.launch.specs`):
+
+    * ``"dp"``: params cut over ``data`` alone, so the **store group** (the
+      ranks a layer is gathered from) is the rank's data group and the
+      **replica group** (the ranks that hold the same blocks, over which a
+      gradient brought onto the blocks is summed) its model group; the
+      rows divide over the whole position (the **batch group**);
+    * ``"zero3"``: params cut over the whole position, which is both the
+      store group and the batch group; no replica group;
+    * ``"default"``: the store group is the shard group, the rest as
+      :func:`make_swarm_mesh` leaves them (tensor parallelism on
+      ``model``).
+
+    ``batch_sizes`` (the axes a served batch's rows divide over, with
+    their sizes: the inner axes, with ``"pod"`` first where a dry run
+    folds pods into the batch) start as the inner axes. Returns the mesh,
+    its ``profile`` set."""
+    if profile not in ("default", "dp", "zero3"):
+        raise ValueError(f"no profile {profile!r}")
+    if profile != "default" and (mesh.data_view is None
+                                 or mesh.model_view is None):
+        raise ValueError(f"--profile {profile} needs data and model above "
+                         f"1, not {mesh.inner}")
+    mesh.profile = profile
+    mesh.batch_sizes = dict(mesh.inner)
+    mesh.store_view, mesh.replica_view = mesh.shard_view, None
+    mesh.batch_view = None
+    if profile == "dp":
+        mesh.store_view = mesh.data_view
+        mesh.replica_view = mesh.model_view
+        mesh.batch_view = mesh.shard_view
+    elif profile == "zero3":
+        mesh.batch_view = mesh.shard_view
+    return mesh
 
 
 def make_two_level_swarm_mesh(n_pods: int = 2, per_pod: int = 2, *,

@@ -8,7 +8,9 @@ and its collectives count their own bytes by kind (`repro_torch.core.
 gossip`), each under the link class of its group: ``node`` where every
 rank of the group sits in one 8-GPU node (NVLink), ``network`` where the
 group spans nodes (InfiniBand; the slowest hop bounds the collective, so
-all of its bytes price at that rate).
+all of its bytes price at that rate). A kind is priced by its group, not
+by its name: the ``dp`` profile's ``grad_replica`` (over the model group)
+and ``zero3``'s ``cache_gather`` alike.
 
     compute term    = tensor-core FLOPs / bf16 rate + f32 FLOPs / f32 rate
     memory term     = bytes / HBM rate

@@ -32,6 +32,16 @@ tie rule). On a gloo group the programs run eagerly
 (`repro_torch.launch.capture.ProgramPool` with ``eager``): gloo stages
 through host memory, which a CUDA graph cannot hold.
 
+**From a stored shard** (``mesh`` under the dry run's ``dp`` or
+``zero3`` profile, `repro_torch.launch.mesh.use_profile`: no tensor
+parallelism): the rank's buffer holds its shard of the node's params
+(`repro_torch.launch.specs.shard_layout`), each layer is gathered whole
+just before its block from the store group (`repro_torch.models.gather.
+NodeSplit` under ``no_grad``), its rows are the ones the profile's input
+cut gives it and its caches are at the profile's shard shapes
+(`repro_torch.sharding.stored`: ``zero3``'s cache keeps its model cut
+and is gathered per layer by a decode step). The logits are whole.
+
 An enc-dec model (no prefill: ``generate`` feeds its prompt token by token
 against the zeroed caches, ``enc_out`` zero, as the reference's does) has
 :func:`encode_step_for`: the encoder over the buffers' ``frames`` into
@@ -45,6 +55,7 @@ step).
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -127,7 +138,10 @@ class StepBuffers:
                  device: torch.device, mesh=None):
         self.model = model
         cfg = model.cfg
-        self.plan = None
+        self.plan = self.split = self.cache_plan = None
+        if mesh is not None and mesh.profile != "default":
+            self._stored(model, batch, max_len, device, mesh)
+            return
         if mesh is not None:
             from repro_torch.launch.train import tensor_plan
             self.plan = tensor_plan(model, mesh)
@@ -154,6 +168,47 @@ class StepBuffers:
                 [(lf.path, tuple(sum(n for _, n in iv)
                                  for iv in self.blocks[lf.path]))
                  for lf in model.layout.leaves], model.layout.wide)
+        self._buffers(batch, max_len, device, place, seq)
+        # gloo stages through host memory, which a graph cannot hold; a
+        # fake world's step runs once, as it is counted
+        self.graphs = ProgramPool(device, eager=self.plan is not None and
+                                  self.plan.view.backend in ("gloo", "fake"))
+
+    def _stored(self, model: Model, batch: int, max_len: int, device,
+                mesh) -> None:
+        """The stored form (see the module docstring)."""
+        from repro_torch.launch import specs
+        from repro_torch.models.gather import NodeSplit
+        from repro_torch.sharding import rules, stored
+        sizes, profile = mesh.batch_sizes, mesh.profile
+        self.rows, seq, seq_view = None, 1, None
+        cut = specs.batch_cut(batch, sizes, profile)
+        if cut is not None:             # the input's rows over their axes
+            view = mesh.axis_views[cut]
+            batch //= view.world_size
+            self.rows = slice(view.rank * batch, (view.rank + 1) * batch)
+        else:                           # else the cache's sequence
+            ba = specs.batch_axes(sizes, profile)
+            n = math.prod(sizes[a] for a in ba)
+            if n > 1 and max_len % n == 0:
+                seq, seq_view = n, mesh.axis_views[ba]
+        self.seq = seq
+        place = rules.profile_cache_cut(model.cfg, profile,
+                                        sizes.get("model", 1))
+        self.cache_plan = stored.CachePlan(place, mesh.model_view, seq_view)
+        self.shard = specs.shard_layout(model, mesh.inner, mesh.coords,
+                                        profile)
+        self.layout = self.shard.local
+        dtype = dtype_of(model.cfg.param_dtype)
+        self.split = NodeSplit(self.shard, mesh.store_view, None, dtype=dtype,
+                               device=device)
+        self._buffers(batch, max_len, device, place, seq)
+        self.graphs = ProgramPool(device, eager=mesh.backend in ("gloo",
+                                                                 "fake"))
+
+    def _buffers(self, batch: int, max_len: int, device, place,
+                 seq: int) -> None:
+        cfg, model = self.model.cfg, self.model
         self.params = torch.zeros(self.layout.size,
                                   dtype=dtype_of(cfg.param_dtype),
                                   device=device)
@@ -173,14 +228,13 @@ class StepBuffers:
         self.patches = (torch.zeros((batch, cfg.n_patches, cfg.frontend_dim),
                                     dtype=torch.float32, device=device)
                         if cfg.family == "vlm" else None)
-        # gloo stages through host memory, which a graph cannot hold; a
-        # fake world's step runs once, as it is counted
-        self.graphs = ProgramPool(device, eager=self.plan is not None and
-                                  self.plan.view.backend in ("gloo", "fake"))
 
     def load(self, params: torch.Tensor) -> None:
         """One node's flat params ``[P]`` (any device) into the buffer:
-        whole, or the rank's compute block of every leaf."""
+        whole, the rank's compute block of every leaf, or its shard."""
+        if self.split is not None:
+            self.params.copy_(self.shard.shard(params.to(self.params.device)))
+            return
         if self.plan is None:
             self.params.copy_(params)
             return
@@ -193,17 +247,24 @@ class StepBuffers:
         """The model's forward of a step program: a prefill of ``batch``,
         else a decode of ``tokens`` at ``cache_pos``; its logits (over a
         model group the rank's vocab cut)."""
-        plan = {} if self.plan is None else {"plan": self.plan}
-        if batch is not None:
-            return self.model.prefill(self.views, batch, self.caches,
-                                      **plan)[0]
-        return self.model.decode(self.views, tokens, self.caches, cache_pos,
-                                 **plan)[0]
+        from repro_torch.sharding import stored
+        plan = self._plan()
+        with stored.cache_group(self.cache_plan):
+            if batch is not None:
+                return self.model.prefill(self.views, batch, self.caches,
+                                          **plan)[0]
+            return self.model.decode(self.views, tokens, self.caches,
+                                     cache_pos, **plan)[0]
+
+    def _plan(self) -> dict:
+        if self.split is not None:
+            return {"split": self.split}
+        return {} if self.plan is None else {"plan": self.plan}
 
     def encode(self) -> None:
         """The encoder output of ``frames`` into the caches' ``enc_out``
         (over a model group, whole on every rank)."""
-        plan = {} if self.plan is None else {"plan": self.plan}
+        plan = self._plan()
         self.caches["enc_out"].copy_(self.model.encode(
             self.views, self.frames, **plan))
 

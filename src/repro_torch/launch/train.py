@@ -62,9 +62,11 @@ def tensor_plan(model: Model, mesh):
     the whole cross entropy, counted once over the group), the SSM's heads
     where a rank's would read their groups unevenly, and the residual of a
     sequence (an enc-dec's frames or tokens each on its own), which the
-    forward runs in the whole-residual form."""
+    forward runs in the whole-residual form. None under the dry run's
+    ``dp`` and ``zero3`` profiles (`repro_torch.launch.mesh.use_profile`),
+    which place no tensor parallelism."""
     m = mesh.inner.get("model", 1)
-    if m <= 1 or model.cfg is None:
+    if m <= 1 or model.cfg is None or mesh.profile != "default":
         return None
     from repro_torch.sharding.rules import placement
     from repro_torch.sharding.tensor import TensorPlan
@@ -162,21 +164,38 @@ class TrainStep:
         data rank and one model rank the step is the whole node's, bit for
         bit. With ``M`` model ranks (:func:`tensor_plan`) each layer's work
         divides over the model group: the same function, summed in
-        another order."""
+        another order.
+
+        Under the dry run's ``dp`` and ``zero3`` profiles (`repro_torch.
+        launch.mesh.use_profile`: ``shard`` then the profile's, `repro_
+        torch.launch.specs.shard_layout`) no work divides over the model
+        group: the rows divide over the batch group (the node's every
+        rank) where it divides them, else over the axes the profile's
+        input divides them over (`repro_torch.launch.specs.batch_cut`:
+        ``model`` under ``dp``, ``data`` under ``zero3``), else stay whole;
+        each layer is gathered whole from the store group, and the
+        gradient, summed over the batch group (``dp``: onto the data
+        group's blocks, then over the model group that repeats them) and
+        divided by its size, comes back onto the shard."""
         from repro_torch.models.gather import NodeSplit
         from repro_torch.sharding.batch import batch_group
 
         model, tc = self.model, self.tc
-        d_size = mesh.inner.get("data", 1)
-        b = next(iter(batch.values())).shape[0]
-        rows = d_size > 1 and b % (d_size * tc.accum_steps) == 0
-        if rows:
-            n, d = b // d_size, mesh.coords["data"]
-            batch = {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
-        tp = tensor_plan(model, mesh)
-        plan = NodeSplit(shard, mesh.shard_view,
-                         mesh.data_view if rows else None,
-                         dtype=params.dtype, device=params.device, tensor=tp)
+        if mesh.profile != "default":
+            batch, plan = self._profile_rows(batch, shard, mesh, params)
+            d_size = plan.data_view.world_size
+        else:
+            d_size = mesh.inner.get("data", 1)
+            b = next(iter(batch.values())).shape[0]
+            rows = d_size > 1 and b % (d_size * tc.accum_steps) == 0
+            if rows:
+                n, d = b // d_size, mesh.coords["data"]
+                batch = {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
+            tp = tensor_plan(model, mesh)
+            plan = NodeSplit(shard, mesh.shard_view,
+                             mesh.data_view if rows else None,
+                             dtype=params.dtype, device=params.device,
+                             tensor=tp)
         local = shard.local
         parts = local.parts(params)
         leaves = tuple(p.detach().requires_grad_() for p in parts)
@@ -203,6 +222,33 @@ class TrainStep:
                 kind="step_control") / d_size
             metrics = dict(zip(keys, mean.unbind(0)))
         return params, opt_state, dict(metrics, lr=lr)
+
+    def _profile_rows(self, batch, shard, mesh, params):
+        """The rank's rows of the node's batch under ``mesh.profile`` and
+        the :class:`~repro_torch.models.gather.NodeSplit` of the step (see
+        :meth:`split`)."""
+        from repro_torch.launch import specs
+        from repro_torch.models.gather import NodeSplit
+        view = mesh.batch_view
+        b = next(iter(batch.values())).shape[0]
+        a = self.tc.accum_steps
+        if b % (view.world_size * a) == 0:
+            n, i = b // view.world_size, view.rank
+        else:
+            n, i = b, 0
+            for ax in specs.batch_cut(b, mesh.inner, mesh.profile) or ():
+                n //= mesh.inner[ax]
+                i = i * mesh.inner[ax] + mesh.coords[ax]
+            if n % a:
+                n, i = b, 0
+        batch = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+        # the gradient reduces over the store group: every axis the
+        # profile's shard layout cuts over (dp: data; zero3: both)
+        plan = NodeSplit(shard, mesh.store_view, view, dtype=params.dtype,
+                         device=params.device, reduce_view=mesh.store_view,
+                         replica_view=mesh.replica_view,
+                         reduce_axes=tuple(shard.sizes))
+        return batch, plan
 
 
 def make_train_step(model: Model, tc: TrainConfig) -> TrainStep:
@@ -243,8 +289,9 @@ class SwarmEval:
         from repro_torch.models.gather import NodeSplit
 
         tp = tensor_plan(self.model, mesh)
-        plan = NodeSplit(shard, mesh.shard_view, None, dtype=params.dtype,
-                         device=params.device, kind="gate_gather", tensor=tp)
+        plan = NodeSplit(shard, mesh.store_view or mesh.shard_view, None,
+                         dtype=params.dtype, device=params.device,
+                         kind="gate_gather", tensor=tp)
         with torch.no_grad():
             loss, _ = self.model.loss_fn(shard.local.unflatten(params), val,
                                          remat=False, split=plan)

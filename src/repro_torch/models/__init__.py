@@ -30,6 +30,12 @@ so the port's checkpoints use the reference's keys and either package's
           encode take a rank's compute blocks and cut caches
           (``init_cache(..., place=)``) and give its vocab cut of the
           logits (the whole logits where M does not divide the vocab)
+  served from a stored shard (split=, a NodeSplit: the dry run's dp and
+          zero3 profiles, `repro_torch.launch.serve`'s stored form),
+          prefill, decode and encode take a rank's local leaf views of
+          its shard, gather each layer whole just before its block and
+          give the whole logits; the caches are placed by the stored
+          plan the caller enters (`repro_torch.sharding.stored`)
 
 The vlm model runs the LM backbone on the projected patch embeddings
 followed by the text tokens (its loss reads the text positions); decode is
@@ -245,12 +251,19 @@ def _lm_model(cfg: ModelConfig, lora_rank: int) -> Model:
                                 batch.get("mask"))
         return xent + aux, {"xent": xent, "aux": aux}
 
-    def prefill(params, batch, caches, plan=None):
+    def prefill(params, batch, caches, plan=None, split=None):
         """(last logits [B,1,V], caches); with ``plan`` (a `repro_torch.
         sharding.tensor.TensorPlan`: serving over a model group) ``params``
         are the rank's compute blocks, ``caches`` its cut, the logits its
-        vocab cut, and the forward records no gradient."""
-        if plan is not None:
+        vocab cut, and the forward records no gradient; with ``split`` (a
+        `repro_torch.models.gather.NodeSplit`) ``params`` are the rank's
+        local views of its shard, each layer gathered whole."""
+        if split is not None:
+            with torch.no_grad():
+                logits, _, caches = forward(split.tree(params), batch,
+                                            caches=caches, cache_pos=0,
+                                            split=split)
+        elif plan is not None:
             with torch.no_grad(), tensor.model_group(plan):
                 logits, _, caches = forward(nest(params), batch,
                                             caches=caches, cache_pos=0)
@@ -259,9 +272,16 @@ def _lm_model(cfg: ModelConfig, lora_rank: int) -> Model:
                                      cache_pos=0)
         return logits[:, -1:], caches
 
-    def decode(params, tokens, caches, cache_pos, commit=None, plan=None):
-        """(logits [B,S,V], caches); ``plan`` as :func:`prefill`'s."""
-        if plan is not None:
+    def decode(params, tokens, caches, cache_pos, commit=None, plan=None,
+               split=None):
+        """(logits [B,S,V], caches); ``plan`` and ``split`` as
+        :func:`prefill`'s."""
+        if split is not None:
+            with torch.no_grad():
+                logits, _, caches = forward_lm(
+                    split.tree(params), cfg, tokens, caches=caches,
+                    cache_pos=cache_pos, commit=commit, split=split)
+        elif plan is not None:
             with torch.no_grad(), tensor.model_group(plan):
                 logits, _, caches = forward_lm(
                     nest(params), cfg, tokens, caches=caches,
@@ -301,12 +321,20 @@ def _encdec_model(cfg: ModelConfig, lora_rank: int) -> Model:
             xent = softmax_xent(logits, batch["labels"], batch.get("mask"))
         return xent + aux, {"xent": xent, "aux": aux}
 
-    def decode(params, tokens, caches, cache_pos, commit=None, plan=None):
+    def decode(params, tokens, caches, cache_pos, commit=None, plan=None,
+               split=None):
         """(logits [B,S,V], caches); with ``plan`` (serving over a model
         group) ``params`` are the rank's compute blocks, ``caches`` its cut
         (``enc_out`` whole), the logits its vocab cut, and the forward
-        records no gradient."""
-        if plan is not None:
+        records no gradient; with ``split`` (serving from a stored shard)
+        ``params`` are the rank's local views, each layer gathered
+        whole."""
+        if split is not None:
+            with torch.no_grad():
+                logits, _, caches = decode_step(
+                    split.tree(params), cfg, tokens, caches, cache_pos,
+                    commit=commit, split=split)
+        elif plan is not None:
             with torch.no_grad(), tensor.model_group(plan):
                 logits, _, caches = decode_step(
                     nest(params), cfg, tokens, caches, cache_pos,
@@ -316,10 +344,15 @@ def _encdec_model(cfg: ModelConfig, lora_rank: int) -> Model:
                                      caches, cache_pos, commit=commit)
         return logits, caches
 
-    def encode_frames(params, frames, plan=None):
+    def encode_frames(params, frames, plan=None, split=None):
         """The encoder output [B, S_enc, D] of ``frames``; with ``plan``
         encoded over the model group (the frames' residual cut where M
-        divides them, the output gathered whole on every rank)."""
+        divides them, the output gathered whole on every rank); with
+        ``split`` from the rank's stored shard, each layer gathered
+        whole."""
+        if split is not None:
+            with torch.no_grad():
+                return encode(split.tree(params), cfg, frames, split=split)
         if plan is not None:
             with torch.no_grad(), tensor.model_group(plan):
                 return encode(nest(params), cfg, frames)

@@ -50,6 +50,15 @@ decode cache is the reference's placement (`repro_torch.sharding.rules.
 cache_cut`): K/V on its KV heads, else on its slice of the head dim, else
 whole; a decode step's cross-attention takes q on the rank's heads (or
 all of them) and K/V from the whole encoder output on the same heads.
+
+Served from a rank's stored shard (the dry run's ``dp`` and ``zero3``
+profiles, `repro_torch.sharding.stored`: no tensor plan) :func:`attention`
+computes every head and places its cache by the :class:`~repro_torch.
+sharding.stored.CachePlan`: it writes the rank's cut (its KV heads or its
+slice of the head dim) and the positions it holds, a prefill attends over
+its own fresh K/V, and a decode step over the cache gathered whole over
+the model group, its partial softmax combined over the group that cuts
+the sequence.
 """
 from __future__ import annotations
 
@@ -61,7 +70,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, linear, row_parallel
-from repro_torch.sharding import tensor
+from repro_torch.sharding import stored, tensor
 
 NEG_INF = -1e30
 
@@ -151,21 +160,45 @@ def attention(p, x, cfg: ModelConfig, *, positions, causal: bool = True,
 
     masked = causal and not is_cross
     window = int(window) if masked else 0
+    kernel = uses_kernel(s, cache, cache_pos, masked)
+    plan = stored.current()
     if cache is not None:
         _write_cache(cache, k, v, positions, cache_pos, commit)
-        k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+        if plan is None:
+            k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+        elif not kernel:        # the cache whole over the model group
+            k, v = (t.to(x.dtype) for t in stored.whole_kv(cache))
 
-    if uses_kernel(s, cache, cache_pos, masked):
+    if kernel:
         out = ops.attention_op(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=masked,
                                window=window)
         out = out.transpose(1, 2)                           # [B,S,nh,hd]
     else:
         scores = _gqa_scores(q, k)                          # [B,nkv,g,S,T]
-        out = _softmax_out(scores, _mask(positions, cache, s, k.shape[1],
-                                         masked, window, x.device),
-                           v, x.dtype)                      # [B,S,nh,hd]
+        lo = 0 if cache is None else _seq_start(cache)
+        mask = _mask(positions, cache, s, k.shape[1], masked, window,
+                     x.device, k_off=lo)
+        seq = None if cache is None or plan is None else plan.seq_view
+        out = (_softmax_out(scores, mask, v, x.dtype) if seq is None else
+               tensor.seq_softmax(scores, mask, v, x.dtype, seq))
     return linear(p["o"], out.reshape(b, s, nh * hd))
+
+
+def _seq_view():
+    """The group the decode cache's sequence is cut over: the tensor
+    plan's, else the stored plan's, else None."""
+    tp, sp = tensor.current(), stored.current()
+    if tp is not None:
+        return tp.seq_view
+    return None if sp is None else sp.seq_view
+
+
+def _cut_rank() -> int:
+    """This rank's index in the group that cuts its cache's heads or head
+    dim (the tensor plan's model group, else the stored plan's)."""
+    tp = tensor.current()
+    return tp.rank if tp is not None else stored.current().rank
 
 
 def _seq_start(cache) -> int:
@@ -173,10 +206,8 @@ def _seq_start(cache) -> int:
     ``rank · T_local`` where the plan cuts the cache's sequence over its
     data group (`repro_torch.sharding.tensor.TensorPlan.seq_view`), else
     0."""
-    tp = tensor.current()
-    if tp is None or tp.seq_view is None:
-        return 0
-    return tp.seq_view.rank * cache["k"].shape[1]
+    seq = _seq_view()
+    return 0 if seq is None else seq.rank * cache["k"].shape[1]
 
 
 def _write_cache(cache, k, v, positions, cache_pos, commit) -> None:
@@ -187,13 +218,15 @@ def _write_cache(cache, k, v, positions, cache_pos, commit) -> None:
     T_local - 1`` (:func:`_seq_start`): only the positions it holds are
     written, so a decode step's new K/V lands on the one data rank that
     owns ``pos``."""
-    width = cache["k"].shape[-1]
+    width, heads = cache["k"].shape[-1], cache["k"].shape[-2]
     if width != k.shape[-1]:
-        c0 = tensor.current().rank * width
+        c0 = _cut_rank() * width
         k, v = k[..., c0:c0 + width], v[..., c0:c0 + width]
+    if heads != k.shape[-2]:            # a stored plan's KV-heads cut
+        h0 = _cut_rank() * heads
+        k, v = k[:, :, h0:h0 + heads], v[:, :, h0:h0 + heads]
     s, t = k.shape[1], cache["k"].shape[1]
-    tp = tensor.current()
-    seq = tp is not None and tp.seq_view is not None
+    seq = _seq_view() is not None
     lo = _seq_start(cache)
     if isinstance(cache_pos, int) and commit is None:
         a, b = cache_pos, cache_pos + s

@@ -145,13 +145,13 @@ def make_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device, place=None, seq: int = 1) -> dict:
     """``{"self": per-layer {"k", "v"}, "enc_out": [B, enc_seq_len, D]}``
     in the compute dtype; with ``place`` (a `repro_torch.sharding.rules.
-    Placement`) a model rank's: the self K/V its cut (the sequence in
-    ``seq`` parts), ``enc_out`` whole
+    Placement`, or a stored rank's ``CacheCut``) a rank's: the self K/V
+    its cut (the sequence in ``seq`` parts), ``enc_out`` whole
     (`repro_torch.sharding.rules.cache_shapes`)."""
     dtype = dtype_of(cfg.compute_dtype)
     if place is not None:
-        from repro_torch.sharding.rules import cache_shapes
-        shapes = cache_shapes(cfg, place, batch, max_len, seq)
+        from repro_torch.sharding.rules import layer_cache_shapes
+        shapes = layer_cache_shapes(cfg, place, batch, max_len, seq)
         return {"self": [{key: torch.zeros(shapes[key], dtype=dtype,
                                            device=device)
                           for key in ("k", "v")}

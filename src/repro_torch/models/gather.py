@@ -175,15 +175,31 @@ class NodeSplit:
 
     A model's ``loss_fn(views, batch, split=...)`` calls :meth:`tree` on
     the rank's local leaf views, and its forward loops call
-    :meth:`layers` on each stacked subtree."""
+    :meth:`layers` on each stacked subtree; a served model's ``prefill``,
+    ``decode`` and ``encode`` take it the same way, under ``no_grad``.
+
+    Under the dry run's ``dp`` and ``zero3`` profiles (`repro_torch.
+    launch.mesh.use_profile`) the rows divide over a batch group apart
+    from the group the layers are gathered from: ``data_view`` is then
+    the batch group (the node's every rank: the gradient's divisor, the
+    loss's `repro_torch.sharding.batch` group), ``reduce_view`` the
+    group within ``shard_view`` whose blocks differ (``dp``: the data
+    group, which is ``shard_view``; ``zero3``: ``shard_view``, over
+    ``reduce_axes`` ``("data", "model")``) and ``replica_view`` (``dp``:
+    the model group, which holds the same blocks) where the reduced
+    blocks are summed once more (`repro_torch.core.flat.LayerCut.
+    reduce`)."""
 
     def __init__(self, shard, shard_view, data_view=None, *,
                  dtype: torch.dtype = torch.float32, device="cpu",
-                 kind: str = "layer_gather", tensor=None):
+                 kind: str = "layer_gather", tensor=None, reduce_view=None,
+                 replica_view=None, reduce_axes=("data",)):
         self.shard = shard
         self.device = torch.device(device)
         self.shard_view = shard_view
         self.data_view = data_view
+        self.reduce_view = data_view if reduce_view is None else reduce_view
+        self.replica_view = replica_view
         self.kind = kind
         self.tensor = tensor
         full = shard.full
@@ -198,12 +214,12 @@ class NodeSplit:
         tops = {lf.path.split(".")[0] for lf in full.leaves}
         self.cuts = {top: LayerCut(
             shard, [lf.path for lf in full.leaves
-                    if lf.path.split(".")[0] == top], True, dtypes, compute)
-            for top in STACKED if top in tops}
+                    if lf.path.split(".")[0] == top], True, dtypes, compute,
+            reduce_axes) for top in STACKED if top in tops}
         self.unit = LayerCut(
             shard, [lf.path for lf in full.leaves
                     if lf.path.split(".")[0] not in self.cuts], False, dtypes,
-            compute)
+            compute, reduce_axes)
 
     # -- the two directions, no autograd -----------------------------------
 
@@ -234,7 +250,8 @@ class NodeSplit:
             return [cut.shard_of(k, c).to(cut.dtypes[k]).contiguous()
                     for k, (c, t) in enumerate(zip(cots, local))
                     if t is not None]
-        summed = cut.reduce(cots, i, self.data_view, self.device)
+        summed = cut.reduce(cots, i, self.reduce_view, self.device,
+                            self.replica_view, self.data_view)
         d = self.data_view.world_size
         return [summed[k].div_(d).to(cut.dtypes[k]).contiguous()
                 for k, t in enumerate(local) if t is not None]

@@ -56,7 +56,7 @@ from repro_torch.models.moe import init_moe_, moe, moe_shapes, moe_tp
 from repro_torch.models.remat import checkpoint
 from repro_torch.models.ssm import (init_ssm_, make_ssm_state, ssm_block,
                                     ssm_shapes, ssm_tp)
-from repro_torch.sharding import tensor
+from repro_torch.sharding import stored, tensor
 
 # ---------------------------------------------------------------------------
 # param shapes and init
@@ -156,13 +156,31 @@ def init_lm_(params: dict, cfg: ModelConfig,
 
 def _write_state(cache: dict, state: dict, commit) -> None:
     """Copy an SSM state into the cache in place (only rows ``commit``
-    marks, when given)."""
+    marks, when given); a cache a stored plan cuts (`repro_torch.sharding.
+    stored`) takes the rank's cut of it."""
     for key, new in state.items():
         old = cache[key]
+        for dim, (a, b) in enumerate(zip(old.shape, new.shape)):
+            if a != b:
+                new = stored.take(new, dim, a)
         if commit is not None:
             keep = commit.reshape((-1,) + (1,) * (new.dim() - 1))
             new = torch.where(keep, new.to(old.dtype), old)
         old.copy_(new)
+
+
+def _ssm_state(cache: Optional[dict], s: int):
+    """The SSM state a block of ``s`` positions reads: the layer's cache,
+    or under a stored plan that cuts it (`repro_torch.sharding.stored`) a
+    decode step's state and conv tail gathered whole over the model
+    group."""
+    plan = stored.current()
+    if cache is None or s != 1 or plan is None or plan.view is None:
+        return cache
+    return {"ssd": stored.gather(cache["ssd"], 1) if plan.cut.ssd
+            else cache["ssd"],
+            "conv": stored.gather(cache["conv"], 2) if plan.cut.conv
+            else cache["conv"]}
 
 
 def block_apply(p, x, cfg: ModelConfig, *, positions, window: int,
@@ -175,7 +193,8 @@ def block_apply(p, x, cfg: ModelConfig, *, positions, window: int,
     fam = cfg.family
     if fam == "ssm":
         h = rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
-        y, st = ssm_block(p["ssm"], h, cfg, state=cache)
+        y, st = ssm_block(p["ssm"], h, cfg,
+                          state=_ssm_state(cache, x.shape[1]))
         if cache is not None:
             _write_state(cache, st, commit)
         return x + y, None
@@ -184,7 +203,8 @@ def block_apply(p, x, cfg: ModelConfig, *, positions, window: int,
     a = attention(p["attn"], h, cfg, positions=positions, window=window,
                   cache=cache, cache_pos=cache_pos, commit=commit)
     if fam == "hybrid":
-        s, st = ssm_block(p["ssm"], h, cfg, state=cache)
+        s, st = ssm_block(p["ssm"], h, cfg,
+                          state=_ssm_state(cache, x.shape[1]))
         x = x + 0.5 * (a * p["beta_attn"].to(a.dtype)
                        + s * p["beta_ssm"].to(a.dtype))
         if cache is not None:
@@ -274,13 +294,14 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 def make_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
                   device, place=None, seq: int = 1) -> List[dict]:
     """Per-layer decode state: a list of ``n_layers`` dicts; with
-    ``place`` (a `repro_torch.sharding.rules.Placement`) a model rank's
-    cut of it (`repro_torch.sharding.rules.cache_shapes`, the K/V's
-    sequence cut into ``seq`` parts)."""
+    ``place`` (a `repro_torch.sharding.rules.Placement`, or a stored
+    rank's `repro_torch.sharding.rules.CacheCut`) a rank's cut of it
+    (`repro_torch.sharding.rules.layer_cache_shapes`, the K/V's sequence
+    cut into ``seq`` parts)."""
     dtype = dtype_of(cfg.compute_dtype)
     if place is not None:
-        from repro_torch.sharding.rules import cache_shapes
-        shapes = cache_shapes(cfg, place, batch, max_len, seq)
+        from repro_torch.sharding.rules import layer_cache_shapes
+        shapes = layer_cache_shapes(cfg, place, batch, max_len, seq)
         return [{key: torch.zeros(shape, dtype=torch.float32 if key == "ssd"
                                   else dtype, device=device)
                  for key, shape in shapes.items()}

@@ -69,6 +69,21 @@ DEFAULT_LOGICAL = {
     "state": None,
 }
 
+#: the reference dry run's sharding profiles (``repro.launch.dryrun.
+#: PROFILES``, copied): ``dp`` and ``zero3`` map every logical axis to
+#: None, so nothing is tensor-parallel, and divide the batch over
+#: ``("data", "model")``
+PROFILES = {
+    "default": DEFAULT_LOGICAL,
+    "dp": {**{k: None for k in DEFAULT_LOGICAL}, "batch": ("data", "model")},
+    "zero3": {**{k: None for k in DEFAULT_LOGICAL},
+              "batch": ("data", "model")},
+}
+#: each profile's ``fsdp`` (the reference's ``_PROFILE_FSDP``, copied):
+#: ``dp`` cuts params over ``data`` alone (a block replicated over the
+#: model ranks), ``zero3`` over the whole grid
+PROFILE_FSDP = {"default": True, "dp": True, "zero3": ("data", "model")}
+
 # Each rule: (path regex, spec builder taking the resolved table). Weight
 # matrices are [in, out]: the "wide" axis over `model`, the other (FSDP)
 # over `data` (the reference's table, copied).
@@ -438,3 +453,82 @@ def cache_shapes(cfg, place: Placement, batch: int, max_len: int,
     if cfg.is_encdec:
         out["enc_out"] = (batch, cfg.enc_seq_len, cfg.d_model)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the dry run's other profiles: no tensor parallelism
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class CacheCut:
+    """How a served rank's decode cache is cut over its node's model group
+    of ``model`` ranks while every layer's work is whole on the rank (the
+    reference's ``cache_specs`` under ``zero3``, whose model cuts stay
+    where the compute has none): ``kv`` ``"kv_heads"`` where the KV heads
+    divide M, else ``"head_dim"`` where the head dim does, else
+    ``"whole"`` (``"none"`` without attention); ``ssd`` the SSM state cut
+    on its heads, ``conv`` the conv tail on its channels (each where M
+    divides them). ``model`` 1 is a whole cache (``dp``, ``default``'s
+    form is :func:`cache_cut`)."""
+    model: int
+    kv: str
+    ssd: bool
+    conv: bool
+
+    @property
+    def cut(self) -> bool:
+        """Whether any part of the cache is cut."""
+        return self.model > 1 and (self.kv in ("kv_heads", "head_dim")
+                                   or self.ssd or self.conv)
+
+
+def profile_cache_cut(cfg, profile: str, model: int) -> CacheCut:
+    """The :class:`CacheCut` of ``cfg``'s decode cache under ``profile``
+    (``"dp"`` or ``"zero3"``) on a mesh with ``model`` = M: ``zero3``
+    cuts K/V on the KV heads, else the head dim, and the SSM state and
+    conv tail on their heads and channels, where M divides them; ``dp``
+    cuts nothing."""
+    m = int(model) if profile == "zero3" else 1
+    div = lambda n: m > 1 and n > 0 and n % m == 0
+    kv = "none" if cfg.family == "ssm" else (
+        "kv_heads" if div(cfg.n_kv_heads) else
+        "head_dim" if div(cfg.head_dim) else "whole")
+    ssm = cfg.family in ("ssm", "hybrid")
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return CacheCut(model=m, kv=kv, ssd=ssm and div(cfg.n_ssm_heads),
+                    conv=ssm and div(conv_dim))
+
+
+def stored_cache_shapes(cfg, cut: CacheCut, batch: int, max_len: int,
+                        seq: int = 1) -> Dict[str, Tuple[int, ...]]:
+    """A rank's per-layer decode state under a :class:`CacheCut`: the
+    whole state of :func:`cache_shapes` (``seq`` parts of the K/V's
+    sequence) with K/V ``[B, T/seq, nkv/M, hd]`` or ``[B, T/seq, nkv,
+    hd/M]``, the SSD state ``[B, H/M, P, N]`` and the conv tail ``[B,
+    W-1, C/M]`` where ``cut`` cuts them; ``enc_out`` whole."""
+    out = dict(cache_shapes(cfg, placement(cfg, 1), batch, max_len, seq))
+    m = cut.model
+    if "k" in out:
+        b, t, nkv, hd = out["k"]
+        if cut.kv == "kv_heads":
+            nkv //= m
+        elif cut.kv == "head_dim":
+            hd //= m
+        out["k"] = out["v"] = (b, t, nkv, hd)
+    if "ssd" in out and cut.ssd:
+        b, h, p, n = out["ssd"]
+        out["ssd"] = (b, h // m, p, n)
+    if "conv" in out and cut.conv:
+        b, w, c = out["conv"]
+        out["conv"] = (b, w, c // m)
+    return out
+
+
+def layer_cache_shapes(cfg, place, batch: int, max_len: int,
+                       seq: int = 1) -> Dict[str, Tuple[int, ...]]:
+    """A rank's per-layer decode state under ``place``: a
+    :class:`Placement` (:func:`cache_shapes`) or a :class:`CacheCut`
+    (:func:`stored_cache_shapes`)."""
+    if isinstance(place, CacheCut):
+        return stored_cache_shapes(cfg, place, batch, max_len, seq)
+    return cache_shapes(cfg, place, batch, max_len, seq)

@@ -164,11 +164,11 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8)
 
 
-def _all_gather(view, x, dim: int):
+def _all_gather(view, x, dim: int, kind: str = "tp_gather"):
     """Every rank's ``x`` concatenated along ``dim`` in rank order."""
     xt = x.movedim(dim, 0).contiguous()
     from repro_torch.core import gossip
-    out = gossip.all_gather(view, _wire(xt), kind="tp_gather")
+    out = gossip.all_gather(view, _wire(xt), kind=kind)
     return out.view(x.dtype).movedim(0, dim)
 
 

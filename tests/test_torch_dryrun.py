@@ -7,15 +7,18 @@ analytic model FLOPs too; a rank's batch, decode-token and cache shapes
 (`repro_torch.launch.specs`) equal the reference's shard shapes from
 ``specs.batch_specs``, ``decode_token_specs`` and ``cache_specs`` on an
 abstract ``(16, 16)`` mesh (and ``(2, 16, 16)`` with pods) for every
-pair, the long-context sequence cut included; the ``meta`` peak tracker
+pair, the long-context sequence cut included, under each sharding
+profile (``default``, ``dp``, ``zero3``), and each leaf's shard against
+the reference's ``param_specs`` for the profile; the ``meta`` peak tracker
 against a hand count; on a smoke config in a fake world of (data, model)
-= (2, 2), the ``meta`` step's FLOPs, kernel calls and collective bytes by
-kind equal to a CPU run of the same rank (the plain kernels, counted by
+= (2, 2), under each profile, the ``meta`` step's FLOPs, kernel calls and
+collective bytes by kind equal to a CPU run of the same rank (the plain kernels, counted by
 their formulas), and the split step's bytes equal to the layout's count
 that the gloo worlds are held to (`chip_smoke._tp_bytes`); the
 roofline's terms; the fake world torn down after an exception; and the
 full-width ``meta`` dry run of every arch at ``decode_32k`` and of two
-archs at ``train_4k`` (the whole file in about 60 s on one CPU worker).
+archs at ``train_4k``; the CLI's ``--profile dp|zero3`` rows, tagged as
+the reference's (the whole file in about 75 s on one CPU worker).
 
 The reference's ``repro.launch.dryrun`` sets ``XLA_FLAGS`` when it is
 imported; JAX's backend is initialised first, so it takes no effect here.
@@ -41,7 +44,12 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun, roofline, specs
 
 jax.devices()                  # the backend first: the import below sets
+from repro.launch.dryrun import PROFILES as JPROFILES  # noqa: E402
+from repro.launch.dryrun import _PROFILE_FSDP as JPROFILE_FSDP  # noqa: E402
 from repro.launch.dryrun import model_flops_analytic as jflops  # noqa: E402
+from repro.launch.specs import param_shapes as jparam_shapes  # noqa: E402
+from repro.models import build_model as jbuild  # noqa: E402
+from repro.sharding.rules import param_specs as jparam_specs  # noqa: E402
 
 pytestmark = pytest.mark.spmd
 
@@ -62,6 +70,20 @@ def _shard(sds):
     return tuple(sds.sharding.shard_shape(sds.shape))
 
 
+def _cases(*axes):
+    """``pytest.param`` s of every combination of ``axes`` (lists of
+    values, the profile last), ids as before the profiles for
+    ``default`` and with the profile appended otherwise."""
+    import itertools
+    out = []
+    for combo in itertools.product(*axes):
+        *rest, profile = combo
+        ident = "-".join(str(x) for x in rest)
+        out.append(pytest.param(*combo, id=ident if profile == "default"
+                                else f"{ident}-{profile}"))
+    return out
+
+
 def test_input_shapes_match_the_reference():
     assert [dataclasses.asdict(s) for s in INPUT_SHAPES] == \
         [dataclasses.asdict(s) for s in JSHAPES]
@@ -79,15 +101,19 @@ def test_adapt_for_shape_and_model_flops_match_the_reference(arch):
             jflops(want, JSHAPES_BY_NAME[shape.name]), rel=1e-12)
 
 
-@pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("arch", ARCH_IDS)
-def test_rank_shapes_match_the_reference_shard_shapes(arch, mesh):
+@pytest.mark.parametrize("arch,mesh,profile",
+                         _cases(ARCH_IDS, list(MESHES), specs.PROFILES))
+def test_rank_shapes_match_the_reference_shard_shapes(arch, mesh, profile):
     """Each shape's rank batch, decode tokens and caches against the
-    reference's shard shapes. The conv tail of an SSM cache holds the
-    channels of the rank's conv compute block (its heads' x columns and
-    the B/C groups they read, whole where the heads stay whole), where
-    the reference's holds ``conv_dim / M`` and leaves the gather to
-    GSPMD: the port's count is checked against that rule instead."""
+    reference's shard shapes under ``profile`` (its ``batch_specs``,
+    ``decode_token_specs`` and ``cache_specs`` with the profile). Under
+    ``default`` the conv tail of an SSM cache holds the channels of the
+    rank's conv compute block (its heads' x columns and the B/C groups
+    they read, whole where the heads stay whole), where the reference's
+    holds ``conv_dim / M`` and leaves the gather to GSPMD: the port's
+    count is checked against that rule instead. Under ``dp`` and
+    ``zero3`` every shape is the reference's, ``zero3``'s conv tail
+    included (its compute is whole: a decode step gathers the cut)."""
     sizes = specs.PRODUCTION[mesh]
     jmesh = MESHES[mesh]
     for shape in INPUT_SHAPES:
@@ -95,18 +121,18 @@ def test_rank_shapes_match_the_reference_shard_shapes(arch, mesh):
         jcfg = jadapt(jget_config(arch), JSHAPES_BY_NAME[shape.name])
         jshape = JSHAPES_BY_NAME[shape.name]
         want = {k: _shard(v) for k, v in
-                jspecs.batch_specs(jcfg, jshape, jmesh).items()}
-        assert specs.batch_shapes(cfg, shape, sizes) == want, shape
-        assert specs.decode_token_shape(cfg, shape, sizes) == _shard(
-            jspecs.decode_token_specs(jcfg, jshape, jmesh))
-        jc = jspecs.cache_specs(jcfg, jshape, jmesh)
-        got = specs.cache_shapes(cfg, shape, sizes)
+                jspecs.batch_specs(jcfg, jshape, jmesh, profile).items()}
+        assert specs.batch_shapes(cfg, shape, sizes, profile) == want, shape
+        assert specs.decode_token_shape(cfg, shape, sizes, profile) == \
+            _shard(jspecs.decode_token_specs(jcfg, jshape, jmesh, profile))
+        jc = jspecs.cache_specs(jcfg, jshape, jmesh, profile)
+        got = specs.cache_shapes(cfg, shape, sizes, profile)
         if cfg.is_encdec:
             assert got["enc_out"] == _shard(jc["enc_out"])
             got, jc = got["self"], jc["self"]
         assert set(got) == set(jc)
         for key, sds in jc.items():
-            if key != "conv":
+            if key != "conv" or profile != "default":
                 assert got[key] == _shard(sds), (shape.name, key)
                 continue
             place = specs.placement_of(cfg, sizes)
@@ -114,6 +140,63 @@ def test_rank_shapes_match_the_reference_shard_shapes(arch, mesh):
             if place.ssm_heads:
                 ch = cfg.d_inner // sizes["model"] + 2 * cfg.ssm_state
             assert got[key] == _shard(sds)[:3] + (ch,), shape.name
+
+
+class _AxesStub:
+    """What the reference's ``param_specs`` reads of a device grid."""
+
+    def __init__(self, sizes):
+        import numpy as np
+        self.axis_names = tuple(sizes)
+        self.devices = np.empty(tuple(sizes.values()), dtype=np.int8)
+
+
+@pytest.mark.parametrize("profile", specs.PROFILES)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_shard_layout_matches_the_reference_param_specs(arch, profile):
+    """Every leaf's shard shape under `specs.shard_layout(..., profile)`
+    equals its shard under the reference's ``param_specs(logical=
+    PROFILES[profile], fsdp=_PROFILE_FSDP[profile])`` on both production
+    meshes, for two coordinates (``dp``'s layout spans the data group
+    only: its blocks repeat over the model ranks)."""
+    import numpy as np
+    from jax.sharding import PartitionSpec as P
+    from repro_torch.models import build_model
+    model = build_model(get_config(arch))
+    shapes = jparam_shapes(jbuild(jget_config(arch)))
+    dotted = lambda path: ".".join(str(getattr(k, "key", getattr(k, "idx",
+                                                                 k)))
+                                   for k in path)
+    full = {lf.path: lf for lf in model.layout.leaves}
+    glob = {dotted(p): s.shape for p, s in
+            jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    for sizes in specs.PRODUCTION.values():
+        ref = jparam_specs(shapes, _AxesStub(sizes),
+                           logical=JPROFILES[profile],
+                           fsdp=JPROFILE_FSDP[profile])
+        spec = {dotted(p): s for p, s in jax.tree_util.tree_flatten_with_path(
+            ref, is_leaf=lambda x: isinstance(x, P))[0]}
+        for coords in ({"data": 0, "model": 0}, {"data": 5, "model": 15}):
+            shard = specs.shard_layout(model, sizes, coords, profile)
+            if profile == "dp":
+                assert shard.sizes == {"data": sizes["data"]}
+            for lf in shard.local.leaves:
+                want = list(glob[lf.path])
+                for dim, ax in enumerate(spec[lf.path]):
+                    names = () if ax is None else (
+                        ax if isinstance(ax, tuple) else (ax,))
+                    want[dim] //= int(np.prod([sizes[a] for a in names]))
+                got = tuple(lf.shape[a] for a in full[lf.path].ref_axes)
+                assert got == tuple(want), (lf.path, sizes, coords)
+
+
+def test_profile_tables_match_the_reference():
+    """The port's copies of the reference dry run's ``PROFILES`` and
+    ``_PROFILE_FSDP``."""
+    from repro_torch.sharding import rules
+    assert rules.PROFILES == JPROFILES
+    assert rules.PROFILE_FSDP == JPROFILE_FSDP
+    assert specs.PROFILES == dryrun.PROFILES == tuple(JPROFILES)
 
 
 def test_peak_tracker_matches_a_hand_count():
@@ -153,21 +236,30 @@ def test_counter_flops_and_bytes_by_hand():
     assert c.bytes == (8 * 16 + 16 * 4 + 8 * 4) * 2 + (2 * 8 * 16 + 64) * 4
 
 
-def _smoke(arch, kind, batch, device):
+def _smoke(arch, kind, batch, device, profile="default"):
     cfg = smoke_variant(get_config(arch))
     shape = ShapeConfig("smoke", 32, batch, kind)
     return dryrun.play(arch, None, cfg=cfg, shape=shape, sizes=SMALL,
-                       model_rank=1, device=device, seed=0)
+                       model_rank=1, device=device, seed=0,
+                       sharding=profile)
 
 
-@pytest.mark.parametrize("arch,kind,batch", SMOKE_STEPS)
-def test_meta_step_counts_equal_a_cpu_run(arch, kind, batch):
-    """The meta run of rank (0, 1) of a (2, 2) world against a CPU run of
-    the same rank (the plain kernels, counted by their formulas): FLOPs
-    by rate class, kernel calls, collective bytes by link and kind, and
-    the peak (the CPU's plain SSD allocates no chunk scratch)."""
-    meta = _smoke(arch, kind, batch, "meta")
-    cpu = _smoke(arch, kind, batch, "cpu")
+@pytest.mark.parametrize("arch,kind,batch,profile",
+                         [pytest.param(*step, profile,
+                                       id="-".join(map(str, step)) + (
+                                           "" if profile == "default"
+                                           else f"-{profile}"))
+                          for profile in specs.PROFILES
+                          for step in SMOKE_STEPS])
+def test_meta_step_counts_equal_a_cpu_run(arch, kind, batch, profile):
+    """The meta run of rank (0, 1) of a (2, 2) world under ``profile``
+    against a CPU run of the same rank (the plain kernels, counted by
+    their formulas): FLOPs by rate class, kernel calls, collective bytes
+    by link and kind, and the peak (the CPU's plain SSD allocates no
+    chunk scratch). Under ``dp`` and ``zero3`` no kind is
+    tensor-parallel but the sequence cut's softmax."""
+    meta = _smoke(arch, kind, batch, "meta", profile)
+    cpu = _smoke(arch, kind, batch, "cpu", profile)
     assert meta["flops"] == cpu["flops"]
     assert meta["kernels"] == cpu["kernels"]
     assert meta["coll_detail"] == cpu["coll_detail"]
@@ -177,6 +269,12 @@ def test_meta_step_counts_equal_a_cpu_run(arch, kind, batch):
     assert meta["flops"]["f32"] > 0 and meta["coll"] > 0
     if batch == 1:
         assert meta["coll_detail"]["node"]["tp_seq_sum"] > 0
+    if profile != "default":
+        kinds = set(meta["coll_detail"]["node"])
+        assert not {k for k in kinds if k.startswith("tp_")} - {
+            "tp_seq_max", "tp_seq_sum"}, kinds
+        assert ("grad_replica" in kinds) == (profile == "dp" and
+                                              kind == "train"), kinds
 
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "hymba-1.5b"])
@@ -270,10 +368,29 @@ def test_fake_world_tears_down_after_an_exception():
     assert not dist.is_initialized()
 
 
-def test_profiles_the_port_does_not_place_raise():
-    for profile in ("dp", "zero3"):
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            dryrun.main(["--profile", profile])
+@pytest.mark.parametrize("profile", ("dp", "zero3"))
+def test_cli_writes_profile_tagged_rows(tmp_path, profile):
+    """``--profile dp|zero3`` plays the pair (no fallback to the default
+    placement): an ``ok`` row with a roofline on ``(16, 16)`` and a memory
+    row on ``(2, 16, 16)``, tagged ``_{profile}`` as the reference's, each
+    rank played under the profile; ``--table`` reads them back."""
+    import json
+    import os
+    arch, shape = "mamba2-370m", "decode_32k"
+    assert dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "both",
+                        "--profile", profile, "--out", str(tmp_path)]) == 0
+    names = sorted(os.listdir(tmp_path))
+    assert names == [f"{arch}_{shape}_multi_{profile}.json",
+                     f"{arch}_{shape}_single_{profile}.json"]
+    for name in names:
+        with open(tmp_path / name) as f:
+            rec = json.load(f)
+        assert rec["status"] == "ok" and rec["profile"] == profile
+        assert ("roofline" in rec) == ("single" in name)
+        assert all(r["profile"] == profile for r in rec["ranks"])
+    grid = dryrun.table(str(tmp_path), "single", profile)
+    assert "GiB" in grid.splitlines()[2 + ARCH_IDS.index(arch)]
+    assert "GiB" not in dryrun.table(str(tmp_path), "single")
 
 
 def test_full_width_meta_dry_run():

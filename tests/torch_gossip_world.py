@@ -2911,6 +2911,108 @@ def port_seq_cache(inp):
     return out
 
 
+# --- the dry run's dp and zero3 profiles (tests/test_torch_profiles.py) ----
+
+#: the training families (one with SSM heads, one MoE) and the served ones
+PROFILE_TRAIN = (("hybrid", "hymba-1.5b"), ("moe", "granite-moe-3b-a800m"))
+PROFILE_SERVE = ("hymba-1.5b", "granite-moe-3b-a800m", "minicpm-2b")
+PROFILE_SHAPE = (1, 2, 2)
+PROFILE_STEPS, PROFILE_BATCH, PROFILE_SEQ = 2, 4, 32
+#: served: rows (4 split over the profile's axes; 1: the cache's sequence
+#: cut), prompt length, new tokens (the prefill's and 4 decode steps'),
+#: cache depth
+PROFILE_SERVE_ROWS, PROFILE_PROMPT, PROFILE_NEW, PROFILE_LEN = (4, 1), 7, 5, 16
+
+
+def profile_mesh(profile):
+    """One node as (data, model) = (2, 2) under ``profile``."""
+    from repro_torch.launch.mesh import use_profile
+    return use_profile(_split_mesh(PROFILE_SHAPE), profile)
+
+
+def port_profiles(inp):
+    """Under ``dp`` and ``zero3`` on one node as (data, model) = (2, 2):
+    PROFILE_STEPS split steps of each PROFILE_TRAIN family from the JAX
+    package's params (converted) and the whole node's opaque step on the
+    same batches in this process (the node's params gathered, losses,
+    bytes by kind); two rows (the fallback: the input's cut) against the
+    whole node's step; ``generate`` of each PROFILE_SERVE smoke model
+    from the stored shard against the unsharded ``generate`` in this
+    process (tokens and logits, the rank's rows, its cache shapes and a
+    decode step's bytes by kind)."""
+    import json
+    import torch
+    from repro_torch.launch import specs, train
+    from repro_torch.launch.serve import generate, serve_step_for, step_buffers
+    from repro_torch.optim import adamw_init
+    cpu = torch.device("cpu")
+    out = {}
+    for prof in ("dp", "zero3"):
+        mesh = profile_mesh(prof)
+        out[f"{prof}/coords"] = np.asarray([mesh.coords["data"],
+                                            mesh.coords["model"]])
+        for fam, arch in PROFILE_TRAIN:
+            model = _smoke(arch)
+            shard = specs.shard_layout(model, mesh.inner, mesh.coords, prof)
+            tc = split_tc(True, lr=1e-4, warmup_steps=0, max_steps=10)
+            step = train.make_train_step(model, tc)
+            flat = torch.from_numpy(inp[f"jax/{fam}/flat"])
+            p = shard.shard(flat[None])[0]
+            o = adamw_init(shard.local.parts(p))
+            pw, ow = flat.clone(), adamw_init(model.layout.parts(flat))
+            losses = []
+            for k in range(PROFILE_STEPS):
+                b = {key: torch.from_numpy(inp[f"jax/{fam}/{key}"][k])
+                     for key in ("tokens", "labels")}
+                mesh.reset_counts()
+                p, o, m = step.split(p, o, b, shard=shard, mesh=mesh)
+                counts = dict(mesh.counts)
+                pw, ow, mw = step(pw, ow, b)
+                losses.append([float(m["loss"]), float(mw["loss"])])
+            key = f"{prof}/{fam}"
+            out[f"{key}/loss"] = np.asarray(losses)
+            out[f"{key}/bytes"] = np.asarray(json.dumps(counts))
+            out[f"{key}/params"] = np.stack([shard.gather(
+                p[None], mesh.store_view, kind=None)[0].numpy(), pw.numpy()])
+            # two rows: the profile's input cut (dp: model, zero3: data)
+            b = {key: torch.from_numpy(inp[f"jax/{fam}/{key}"][0][:2])
+                 for key in ("tokens", "labels")}
+            p = shard.shard(flat[None])[0]
+            o = adamw_init(shard.local.parts(p))
+            pw, ow = flat.clone(), adamw_init(model.layout.parts(flat))
+            p, o, m = step.split(p, o, b, shard=shard, mesh=mesh)
+            pw, ow, mw = step(pw, ow, b)
+            out[f"{key}/two/params"] = np.stack([shard.gather(
+                p[None], mesh.store_view, kind=None)[0].numpy(), pw.numpy()])
+            out[f"{key}/two/loss"] = np.asarray([float(m["loss"]),
+                                                 float(mw["loss"])])
+        t, new = PROFILE_LEN, PROFILE_NEW
+        for arch in PROFILE_SERVE:
+            model = _smoke(arch)
+            flat = torch.from_numpy(inp[f"serve/{arch}/flat"])
+            for rows in PROFILE_SERVE_ROWS:
+                prompt = torch.from_numpy(inp[f"serve/{arch}/prompt"])[:rows]
+                key = f"{prof}/serve/{arch}/{rows}"
+                toks, logits = generate(model, flat, prompt, new, t, cpu,
+                                        mesh=mesh, with_logits=True)
+                st = step_buffers(model, rows, t, cpu, mesh)
+                r = st.rows or slice(0, rows)
+                out[f"{key}/rows"] = np.asarray([r.start, r.stop, st.seq])
+                out[f"{key}/tokens"], out[f"{key}/logits"] = (
+                    toks.numpy(), logits.numpy())
+                out[f"{key}/cache"] = np.asarray(json.dumps(
+                    {k: list(v.shape) for k, v in st.caches[0].items()}))
+                out[f"{key}/params_size"] = np.asarray(st.params.numel())
+                mesh.reset_counts()
+                serve_step_for(model, rows, t, cpu, mesh).run()
+                out[f"{key}/bytes"] = np.asarray(json.dumps(mesh.counts))
+                toks, logits = generate(model, flat, prompt, new, t, cpu,
+                                        with_logits=True)
+                out[f"{key}/single_tokens"] = toks[r].numpy()
+                out[f"{key}/single_logits"] = logits[r].numpy()
+    return out
+
+
 def main(argv):
     task, rank, world, init, out_dir = argv[:5]
     rank, world = int(rank), int(world)
@@ -2953,6 +3055,8 @@ def main(argv):
                 res = port_tp_serve(inp, TP_SERVE_WORLDS[task])
             elif task == "seq_cache":
                 res = port_seq_cache(inp)
+            elif task == "profiles":
+                res = port_profiles(inp)
             elif task in SPLIT_WORLDS:
                 res = port_split_sessions(inp, SPLIT_WORLDS[task])
             elif task == "hier":
